@@ -1,0 +1,145 @@
+"""Session-scoped sweep configuration.
+
+``SweepSession`` is one configuration layer for the sweep substrate::
+
+    with SweepSession(device="cpu"):
+        recs = sweep_grid(suite, grid=grid)   # rides the session
+
+A session is a *layer*: fields left at ``UNSET`` inherit from the
+enclosing session (ultimately the root session, which holds the
+process-wide defaults). Sessions nest and restore the previous state on
+exit, exception-safe.
+
+The port's session carries one field, ``device``: where the sweep
+kernel's tensors live. It stands where the JAX package's session has
+``backend``, ``jax_mesh`` and ``sa_occupancy_impl`` — in the port the
+device alone decides the route (a CUDA tensor goes through the
+hand-written kernels, a CPU tensor through their plain versions). The
+root value is ``None``, which every entry point reads as ``"cuda"``.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Any, Optional
+
+import torch
+
+
+class _Unset:
+    """Sentinel: 'inherit this field from the enclosing session'."""
+
+    _instance: Optional["_Unset"] = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self) -> str:  # pragma: no cover - repr cosmetics
+        return "<inherit>"
+
+
+UNSET = _Unset()
+
+_FIELDS = ("device",)
+
+
+def _check_device(value: Any) -> Any:
+    if value is not None:
+        torch.device(value)  # raises on a malformed device string
+    return value
+
+
+class SweepSession:
+    """One configuration layer for the sweep substrate.
+
+    ``device`` defaults to ``UNSET`` (inherit); otherwise anything
+    ``torch.device`` accepts, or ``None`` for the default (``"cuda"``).
+    Use as a context manager; re-entering an already-active session
+    raises.
+    """
+
+    def __init__(self, device: Any = UNSET):
+        if device is not UNSET:
+            _check_device(device)
+        self.device = device
+        self._active = False
+
+    def __repr__(self) -> str:
+        parts = [f"{f}={getattr(self, f)!r}" for f in _FIELDS
+                 if getattr(self, f) is not UNSET]
+        return f"SweepSession({', '.join(parts)})"
+
+    def __enter__(self) -> "SweepSession":
+        if self._active:
+            raise RuntimeError("SweepSession is not re-entrant; "
+                               "construct a new one per `with` block")
+        _stack().append(self)
+        self._active = True
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        stack = _stack()
+        if not self._active or stack[-1] is not self:
+            raise RuntimeError(
+                "SweepSession exited out of order (not the innermost "
+                "active session)")
+        stack.pop()
+        self._active = False
+
+
+# -----------------------------------------------------------------------
+# the session stack: [root, outer, ..., innermost]
+# -----------------------------------------------------------------------
+
+def _root() -> SweepSession:
+    """The process-wide defaults layer (what ``set_root`` mutates)."""
+    s = SweepSession(device=None)
+    s._active = True  # the root never exits
+    return s
+
+
+_LOCAL = threading.local()
+
+
+def _stack() -> list:
+    st = getattr(_LOCAL, "stack", None)
+    if st is None:
+        st = [_ROOT]
+        _LOCAL.stack = st
+    return st
+
+
+_ROOT = _root()
+
+
+def resolve(field: str) -> Any:
+    """Innermost non-UNSET value for ``field`` (walks the stack down to
+    the root, which always holds a concrete value)."""
+    if field not in _FIELDS:
+        raise KeyError(f"unknown session field {field!r}; have {_FIELDS}")
+    for layer in reversed(_stack()):
+        v = getattr(layer, field)
+        if v is not UNSET:
+            return v
+    return None
+
+
+def current() -> dict:
+    """Resolved view of the active session state (one value per field)."""
+    return {f: resolve(f) for f in _FIELDS}
+
+
+def set_root(**fields: Any) -> dict:
+    """Mutate the root (process-default) layer; returns the previous
+    root values. An active session that pins the same field still
+    shadows the new root value until it exits."""
+    prev = {}
+    for name, value in fields.items():
+        if name not in _FIELDS:
+            raise KeyError(f"unknown session field {name!r}; "
+                           f"have {_FIELDS}")
+        _check_device(value)
+        prev[name] = getattr(_ROOT, name)
+        setattr(_ROOT, name, value)
+    return prev

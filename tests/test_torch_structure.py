@@ -1,0 +1,152 @@
+"""Structure of the port: what it may import, where a library scatter-add
+may appear, and that it needs neither ``nvcc`` nor a card to be imported.
+"""
+import ast
+import importlib
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / "src" / "repro_torch"
+SMOKE = ROOT / "chip_smoke.py"
+PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE]
+
+FOREIGN_IMPORT = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)", re.MULTILINE)
+# one PyTorch call that does a kernel's job: never on the CUDA path
+LIBRARY_CALLS = {"index_add_", "index_add", "scatter_add", "scatter_add_",
+                 "segment_reduce", "bincount", "compile"}
+
+MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.configs.base",
+           "repro_torch.core", "repro_torch.core.hw",
+           "repro_torch.core.power", "repro_torch.core.opgen",
+           "repro_torch.core.sa_gating", "repro_torch.core.session",
+           "repro_torch.core.backend", "repro_torch.core.policies",
+           "repro_torch.core.sweep", "repro_torch.kernels._build",
+           "repro_torch.kernels.sa_occupancy",
+           "repro_torch.kernels.segment_sum"]
+
+
+def _run(code_or_path, *, cwd=None, env_extra=None, script=False):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("CUDA_HOME", "PYTHONPATH")}
+    env.update(PYTHONPATH=str(ROOT / "src"), **(env_extra or {}))
+    cmd = [sys.executable] + ([str(code_or_path)] if script
+                              else ["-c", code_or_path])
+    return subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_slice_modules_exist():
+    for rel in ("__init__.py", "convert.py", "configs/base.py",
+                "core/__init__.py", "core/hw.py", "core/power.py",
+                "core/opgen.py", "core/sa_gating.py", "core/session.py",
+                "core/backend.py", "core/policies.py", "core/sweep.py",
+                "kernels/_build.py", "kernels/sa_occupancy.py",
+                "kernels/segment_sum.py", "kernels/csrc/power_plane.cu"):
+        assert (PKG / rel).is_file(), rel
+    assert SMOKE.is_file()
+
+
+@pytest.mark.parametrize("path", PY_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PY_FILES])
+def test_no_jax_and_no_reference_package_imports(path):
+    hits = FOREIGN_IMPORT.findall(path.read_text())
+    assert not hits, (path, hits)
+
+
+@pytest.mark.parametrize("first", ["repro_torch.core",
+                                   "repro_torch.kernels.sa_occupancy",
+                                   "repro_torch.kernels.segment_sum"])
+def test_imports_with_nvcc_absent(first):
+    """Every module imports with no ``nvcc`` reachable and pulls in
+    neither jax nor the reference package, whichever sub-package is
+    imported first (``core.backend`` and ``kernels`` import each
+    other)."""
+    code = (f"import sys, shutil, importlib\n"
+            f"assert shutil.which('nvcc') is None\n"
+            f"importlib.import_module({first!r})\n"
+            f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            f"bad = [m for m in sys.modules if m == 'jax' or "
+            f"m.startswith('jax.') or m == 'repro' or "
+            f"m.startswith('repro.')]\n"
+            f"assert not bad, bad\n"
+            f"from repro_torch.kernels import _build\n"
+            f"assert _build._LIB is None\n")
+    proc = _run(code, env_extra={"PATH": ""})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_library_scatter_adds_only_in_plain_versions():
+    """``index_add_`` & co. appear in the package only inside a kernel's
+    plain version (``*_plain``); ``np.bincount`` only in host-side trace
+    preparation, never on tensors."""
+    for path in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        spans = [(n.lineno, n.end_lineno, n.name) for n in ast.walk(tree)
+                 if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef))]
+        for node in ast.walk(tree):
+            if not (isinstance(node, ast.Attribute)
+                    and node.attr in LIBRARY_CALLS):
+                continue
+            owners = [name for lo, hi, name in spans
+                      if lo <= node.lineno <= hi]
+            base = node.value.id if isinstance(node.value, ast.Name) else ""
+            if node.attr == "bincount" and base == "np":
+                assert owners and owners[-1] == "_host_columns", \
+                    (path, node.lineno)
+                continue
+            assert owners and owners[-1].endswith("_plain"), \
+                (path.name, node.lineno, node.attr, owners)
+
+
+def test_cuda_source_says_what_it_replaces():
+    cu = (PKG / "kernels" / "csrc" / "power_plane.cu").read_text()
+    assert 'extern "C" int sa_occupancy_launch' in cu
+    assert 'extern "C" int segment_sum_launch' in cu
+    assert "src/repro/kernels/sa_occupancy.py" in cu
+    assert "jax.ops.segment_sum" in cu
+    assert "torch/extension.h" not in cu and "atomicAdd" not in cu
+    assert cu.count("cudaGetLastError()") >= 2
+
+
+def test_cpu_tensors_never_reach_the_kernels():
+    import numpy as np
+    from repro_torch.core.opgen import paper_suite
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sa_occupancy import sa_occupancy
+    from repro_torch.kernels.segment_sum import segment_sum
+    sweep = importlib.import_module("repro_torch.core.sweep").sweep
+    k1, k2, lib = sa_occupancy.launches, segment_sum.launches, _build._LIB
+    recs = sweep(paper_suite()[12:14], device="cpu")
+    assert recs and all(np.isfinite(r["total_j"]) for r in recs)
+    assert (sa_occupancy.launches, segment_sum.launches) == (k1, k2)
+    assert _build._LIB is lib  # nothing was built or loaded
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run(SMOKE, cwd=ROOT, script=True,
+                env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "FAILED" in proc.stderr
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory that holds the script and nothing else of the
+    repo there is no program to drive."""
+    shutil.copy(SMOKE, tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
