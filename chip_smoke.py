@@ -3,16 +3,29 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the batched power-plane sweep,
-``repro_torch.core.sweep.sweep_grid`` → ``policies.evaluate_batch`` →
-``_sweep_kernel`` — on the card at the size the repo calls real
-(``paper_suite()`` × 5 NPU generations × 5 policies × a 3 600-point knob
-grid = 1.53 M cells), builds the hand-written CUDA kernels from the
-sources in the checkout, holds each kernel against its plain PyTorch
-version, and shows by the wrappers' launch counts that the sweep really
-went through them. It has no CPU route: no card, a failed build, a
-failed launch or a failed comparison each end the run with a non-zero
-exit code. Every phase prints one JSON line; the last line is
+Builds the hand-written CUDA kernels from the sources in the checkout
+(one ``nvcc`` per source, all started together), holds each kernel
+against its plain PyTorch version, and drives the port's two paths on
+the card, showing by the wrappers' launch counts (set to 0 just before
+each path, read just after) that each path really went through its
+kernels:
+
+* the batched power-plane sweep, ``repro_torch.core.sweep.sweep_grid`` →
+  ``policies.evaluate_batch`` → ``_sweep_kernel`` (kernels K1
+  ``sa_occupancy``, K2 ``segment_sum``), at the size the repo calls real:
+  ``paper_suite()`` × 5 NPU generations × 5 policies × a 3 600-point
+  knob grid = 1.53 M cells;
+* serving qwen2.5-3b at full width (36 layers, d_model 2048, vocab
+  151 936; random weights from a seed), ``repro_torch.launch.serve.
+  Server`` → ``prefill_prompts`` / ``step`` (kernels B3
+  ``flash_attention`` at prefill, B4 ``decode_attention`` at every decode
+  step): batch 4, a 2048-token prompt, 32 generated tokens, checked
+  against a full forward and, cut to 2 layers in float32, against the
+  CPU.
+
+It has no CPU route: no card, a failed build, a failed launch or a
+failed comparison each end the run with a non-zero exit code. Every
+phase prints one JSON line; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": N}}
 """
@@ -33,8 +46,21 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # power limit is; the limit is printed beside them.
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS_PER_S = 33.5e12
+# and the dense bf16 tensor-core rate, and float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12
 
 K1_SOURCE = "src/repro_torch/kernels/csrc/power_plane.cu"
+ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
+SERVE_ARCH = "qwen2.5-3b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 32
+# decode step vs full forward, bf16 through 36 layers: the two paths round
+# in other places (B4 vs B3, other matmul shapes); a wrong head map, cache
+# slot or rope position gives a relative L2 error of order 1
+SERVE_REL_L2_TOL = 0.05
+# card vs CPU in float32, 2 layers: the same arithmetic in another order,
+# on logits of size below 1
+PARITY_ATOL = 1e-4
 # §6.5 sensitivity grid (240 knobs) × SA width × detection window = 3 600
 FULL_GRID = dict(
     delay_scale=(0.25, 0.5, 1.0, 2.0, 4.0, 8.0),
@@ -92,43 +118,516 @@ def event_ms(fn, reps: int, warmup: int = 5) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def profile_sweep(run_full) -> dict:
-    """Where one steady sweep spends its time, by ``torch.profiler``:
-    wall seconds, the card's busy share, the device time of the two
-    hand kernels and the largest other kernels. A diagnostic: a
+def _device_us(evt) -> float:
+    us = getattr(evt, "self_device_time_total", None)
+    if us is None:
+        us = getattr(evt, "self_cuda_time_total", 0.0)
+    return float(us)
+
+
+def profile_run(run, hand_kernels: tuple[str, ...], top: int = 8) -> dict:
+    """Where one run spends its time, by ``torch.profiler``: wall
+    seconds (``run()`` returns them), the card's busy share, the device
+    time and launches of the hand kernels, the largest kernels, and the
+    PyTorch ops that launched the most device time. Busy time and
+    launches count device-side events only (kernels, copies, sets): an
+    op's ``self_device_time`` repeats its kernels' time. A diagnostic: a
     profiler that cannot trace the card is reported, not fatal."""
-    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            _, wall = run_full()
-        rows = []
-        for evt in prof.key_averages():
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = getattr(evt, "self_cuda_time_total", 0.0)
-            if us > 0:
-                rows.append((evt.key, float(us), int(evt.count)))
+            wall = run()
+        events = [(evt.key, _device_us(evt), int(evt.count),
+                   getattr(evt, "device_type", None) == DeviceType.CUDA)
+                  for evt in prof.key_averages() if _device_us(evt) > 0]
     except Exception as e:  # diagnostic phase: record and go on
         return {"error": f"{type(e).__name__}: {e}"}
-    rows.sort(key=lambda r: -r[1])
+    rows = sorted((r[:3] for r in events if r[3]), key=lambda r: -r[1])
+    ops = sorted((r[:3] for r in events if not r[3]), key=lambda r: -r[1])
     busy_s = sum(r[1] for r in rows) * 1e-6
     hand = {name: {"device_us_total": us, "launches": cnt,
                    "device_us_per_launch": us / cnt}
             for name, us, cnt in rows
-            if "sa_occupancy_kernel" in name or "segment_sum_kernel" in name}
+            if any(h in name for h in hand_kernels)}
     return {"wall_s_profiled": wall, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / wall if wall else None,
-            "device_kernels": len(rows), "hand_kernels": hand,
+            "device_kernels": len(rows),
+            "device_launches": sum(r[2] for r in rows),
+            "hand_kernels": hand,
             "top": [{"name": n[:80], "device_us": us, "count": c}
-                    for n, us, c in rows[:8]]}
+                    for n, us, c in rows[:top]],
+            "top_ops": [{"name": n[:60], "device_us": us, "count": c}
+                        for n, us, c in ops[:top]]}
+
+
+def kernel_device_us(fn, name: str, reps: int = 5) -> float:
+    """Mean device microseconds of one launch of the kernel ``name``
+    over ``reps`` calls of ``fn``, by ``torch.profiler``: a short
+    kernel is timed by its device time, not by events around wrapper
+    calls, which measure the host's issue rate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [(_device_us(e), e.count) for e in prof.key_averages()
+            if name in e.key]
+    check(bool(hits), f"the profiler saw no {name} launch")
+    return sum(us for us, _ in hits) / sum(c for _, c in hits)
 
 
 def max_abs(a, b) -> float:
     if a.numel() == 0:
         return 0.0
     return float((a - b).abs().max())
+
+
+# ---- the serving path: kernels B3 / B4 and qwen2.5-3b ---------------------
+
+def attn_tolerance(dtype) -> float:
+    """Kernel vs plain version, both on the card: float32 differs only in
+    the order of float32 sums; a bf16 output may differ by one rounding
+    step of a value near 1. The tolerances of tests/test_kernels.py."""
+    import torch
+    return {torch.float32: 2e-5, torch.bfloat16: 2e-2}[dtype]
+
+
+def b3_bound(B, S, H, Hkv, D, dtype) -> tuple[float, str]:
+    """Least time for causal self-attention over S tokens: q, k, v read
+    and the output written once; the live (causal) score entries S(S+1)/2
+    per (batch, head) at 2 D operations each for QK and for PV."""
+    import torch
+    el = 2 if dtype == torch.bfloat16 else 4
+    nbytes = el * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+    flops = 4 * B * H * D * S * (S + 1) / 2
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def b4_bound(B, n_live, H, Hkv, D, dtype) -> tuple[float, str]:
+    """Least time for one query per head against ``n_live`` cache slots:
+    the live K and V rows read once, q read and the output written."""
+    import torch
+    el = 2 if dtype == torch.bfloat16 else 4
+    nbytes = el * (2 * B * n_live * Hkv * D + 2 * B * H * D)
+    flops = 4 * B * H * D * n_live
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def check_attention_kernels(dev) -> dict:
+    """B3 and B4 against their plain versions on the card, bf16 and
+    float32, at the ragged and edge cases of the serving path."""
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (TILE, flash_attention,
+                                                     flash_attention_plain)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    err = {"b3": {}, "b4": {}}
+    cases = {"b3": 0, "b4": 0}
+    D, Hkv = 128, 2
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = attn_tolerance(dtype)
+        dn = str(dtype).split(".")[-1]
+        for S in (1, 17, 128, 2047, 2048, 2049):
+            for groups in (1, 8):
+                H = Hkv * groups
+                q, k, v = (rnd((2, S, h, D), dtype) for h in (H, Hkv, Hkv))
+                n_qt = -(-S // TILE)
+                tiles = torch.zeros((2, H, n_qt), dtype=torch.int32,
+                                    device=dev)
+                got = flash_attention(q, k, v, tiles_loaded=tiles)
+                want = flash_attention_plain(q, k, v)
+                torch.cuda.synchronize()
+                what = f"flash_attention[{dn}, S={S}, groups={groups}]"
+                check(got.shape == want.shape and got.dtype == dtype,
+                      f"{what}: shape/dtype")
+                e = max_abs(got.float(), want.float())
+                err["b3"][dn] = max(err["b3"].get(dn, 0.0), e)
+                check(torch.allclose(got.float(), want.float(), atol=tol,
+                                     rtol=tol), f"{what}: differs by {e}")
+                # causal: query tile t loads key tiles 0..t and no more
+                want_tiles = torch.arange(1, n_qt + 1, dtype=torch.int32,
+                                          device=dev).expand(2, H, n_qt)
+                check(torch.equal(tiles, want_tiles),
+                      f"{what}: loaded tiles {tiles[0, 0].tolist()}")
+                cases["b3"] += 1
+        Smax = 2080  # the serving cache: not a multiple of B4's 256 tile
+        for clen in (0, 1, 511, 512, Smax - 1):
+            for groups in (1, 8):
+                H = Hkv * groups
+                q = rnd((2, 1, H, D), dtype)
+                kc, vc = rnd((2, Smax, Hkv, D), dtype), \
+                    rnd((2, Smax, Hkv, D), dtype)
+                want = decode_attention_plain(q, kc, vc, clen)
+                kc[:, clen + 1:] = float("nan")  # must never be read
+                vc[:, clen + 1:] = float("nan")
+                got = decode_attention(q, kc, vc, clen)
+                torch.cuda.synchronize()
+                what = f"decode_attention[{dn}, len={clen}, groups={groups}]"
+                e = max_abs(got.float(), want.float())
+                err["b4"][dn] = max(err["b4"].get(dn, 0.0), e)
+                check(bool(torch.isfinite(got).all()),
+                      f"{what}: read a slot past cache_len")
+                check(torch.allclose(got.float(), want.float(), atol=tol,
+                                     rtol=tol), f"{what}: differs by {e}")
+                cases["b4"] += 1
+    # tiles past the diagonal are never loaded: poison every key the
+    # causal loop bound cuts (Sq=130 needs key tiles 0..2, keys < 192)
+    q = rnd((1, 130, 2, D), torch.bfloat16)
+    k, v = (rnd((1, 300, 1, D), torch.bfloat16) for _ in range(2))
+    want = flash_attention_plain(q, k, v)
+    k[:, 192:], v[:, 192:] = float("nan"), float("nan")
+    got = flash_attention(q, k, v)
+    check(bool(torch.isfinite(got).all())
+          and torch.allclose(got.float(), want.float(), atol=2e-2,
+                             rtol=2e-2),
+          "flash_attention loaded a key tile past the diagonal")
+    # a zero-sized batch: empty results, no launch
+    b3, b4 = flash_attention.launches, decode_attention.launches
+    z3 = flash_attention(q[:0], q[:0, :, :1], q[:0, :, :1])
+    z4 = decode_attention(q[:0, :1], k[:0], v[:0], 5)
+    check(z3.shape == (0, 130, 2, D) and z4.shape == (0, 1, 2, D)
+          and (flash_attention.launches, decode_attention.launches)
+          == (b3, b4), "a zero-sized batch must not launch")
+    return {"cases": cases, "max_abs_err": err}
+
+
+def time_b3(q, k, v) -> dict:
+    """B3 at the shapes the main path gives it, beside its bound, its
+    plain version and one library call of the same function."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    got = flash_attention(q, k, v)
+    want = flash_attention_plain(q, k, v)
+    err = max_abs(got.float(), want.float())
+    check(torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
+          f"flash_attention at the model's shapes differs by {err}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    except TypeError:  # a torch without enable_gqa: repeat the KV heads
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (kt, vt))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kr, vr, is_causal=True)
+    bound, by = b3_bound(B, S, H, Hkv, D, q.dtype)
+    return {"shape": {"q": list(q.shape), "kv": list(k.shape),
+                      "dtype": str(q.dtype)},
+            "max_abs_err": err,
+            "ms": event_ms(lambda: flash_attention(q, k, v), 10),
+            "device_us": kernel_device_us(
+                lambda: flash_attention(q, k, v), "flash_attention_kernel"),
+            "plain_ms": event_ms(lambda: flash_attention_plain(q, k, v), 3,
+                                 warmup=1),
+            "library_ms": event_ms(lib, 10),
+            "bound_ms": bound, "bound_by": by}
+
+
+def time_b4(q, kc, vc, cache_len: int) -> dict:
+    """B4 at the shapes the main path gives it (one layer's cache)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    B, _, H, D = q.shape
+    Hkv = kc.shape[2]
+    got = decode_attention(q, kc, vc, cache_len)
+    want = decode_attention_plain(q, kc, vc, cache_len)
+    err = max_abs(got.float(), want.float())
+    check(torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
+          f"decode_attention at the model's shapes differs by {err}")
+    qt = q.transpose(1, 2)
+    kt, vt = (c[:, :cache_len + 1].transpose(1, 2) for c in (kc, vc))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, enable_gqa=True)
+    except TypeError:
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (kt, vt))
+        lib = lambda: F.scaled_dot_product_attention(qt, kr, vr)  # noqa
+    bound, by = b4_bound(B, cache_len + 1, H, Hkv, D, q.dtype)
+    return {"shape": {"q": list(q.shape), "cache": list(kc.shape),
+                      "cache_len": cache_len, "dtype": str(q.dtype)},
+            "max_abs_err": err,
+            "ms": event_ms(lambda: decode_attention(q, kc, vc, cache_len),
+                           50),
+            "device_us": kernel_device_us(
+                lambda: decode_attention(q, kc, vc, cache_len),
+                "decode_attention_kernel"),
+            "plain_ms": event_ms(
+                lambda: decode_attention_plain(q, kc, vc, cache_len), 10),
+            "library_ms": event_ms(lib, 50),
+            "bound_ms": bound, "bound_by": by}
+
+
+def rel_l2(got, want):
+    """Per row ||got - want|| / ||want|| over the last axis, float32."""
+    d = (got.float() - want.float()).norm(dim=-1)
+    return d / want.float().norm(dim=-1).clamp_min(1e-30)
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.sa_occupancy import sa_occupancy
+    from repro_torch.kernels.segment_sum import segment_sum
+    for k in (sa_occupancy, segment_sum, flash_attention, decode_attention):
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.sa_occupancy import sa_occupancy
+    from repro_torch.kernels.segment_sum import segment_sum
+    return {"sa_occupancy": sa_occupancy.launches,
+            "segment_sum": segment_sum.launches,
+            "flash_attention": flash_attention.launches,
+            "decode_attention": decode_attention.launches}
+
+
+def serve_full(card: str):
+    """The serving path at full width: ``Server("qwen2.5-3b",
+    reduced=False)`` on the card, batch 4, a 2048-token prompt, 32
+    generated tokens. Returns (the phase's record, the server, the
+    prompts)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    srv = Server(SERVE_ARCH, reduced=False, batch=SERVE_BATCH,
+                 max_seq=SERVE_PROMPT + SERVE_TOKENS, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    cfg = srv.cfg
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == (36, 2048, 151936),
+          f"not the full-width config: {cfg}")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+    srv.generate(prompts[:, :64], 2)  # warm-up: library handles, loads
+
+    logits = []  # each step's last-position logits, kept on the card
+
+    def recording(fn):
+        def wrapped(*a, **kw):
+            out = fn(*a, **kw)
+            logits.append(out[0][:, -1].float())
+            return out
+        return wrapped
+
+    plain_steps = (srv.prefill, srv.decode)
+    srv.prefill, srv.decode = recording(srv.prefill), recording(srv.decode)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok = srv.prefill_prompts(prompts)  # returns host tokens: synced
+    t_prefill = time.perf_counter() - t0
+    per_prefill = read_launches()
+    toks, step_s, per_step = [tok], [], []
+    for _ in range(SERVE_TOKENS - 1):
+        before = read_launches()
+        t1 = time.perf_counter()
+        tok = srv.step(tok)
+        step_s.append(time.perf_counter() - t1)
+        after = read_launches()
+        per_step.append({k: after[k] - before[k] for k in after})
+        toks.append(tok)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    gen = np.stack(toks, axis=1)
+    L = cfg.n_layers
+    check(per_prefill["flash_attention"] == L
+          and per_prefill["decode_attention"] == 0,
+          f"prefill launched {per_prefill}, want {L} flash_attention")
+    check(all(p["decode_attention"] == L and p["flash_attention"] == 0
+              for p in per_step),
+          f"a decode step did not launch decode_attention {L} times")
+    check(gen.shape == (SERVE_BATCH, SERVE_TOKENS)
+          and bool(((gen >= 0) & (gen < cfg.vocab_padded)).all()),
+          "generated tokens out of [0, vocab_padded)")
+    check(all(bool(torch.isfinite(x).all()) for x in logits),
+          "non-finite logits")
+
+    # decode-vs-forward: step t's logits against one forward over the
+    # prompt and the tokens generated so far, at the same position
+    seq = torch.tensor(np.concatenate([prompts, gen[:, :-1]], axis=1),
+                       dtype=torch.int64, device="cuda")
+    full, _ = M.forward(srv.params, {"tokens": seq}, cfg)
+    rel = torch.stack([rel_l2(logits[t], full[:, SERVE_PROMPT - 1 + t])
+                       for t in range(SERVE_TOKENS)])
+    abs_err = max(max_abs(logits[t], full[:, SERVE_PROMPT - 1 + t].float())
+                  for t in range(SERVE_TOKENS))
+    agree = float(torch.stack([
+        (logits[t].argmax(-1) == full[:, SERVE_PROMPT - 1 + t].argmax(-1))
+        .float().mean() for t in range(SERVE_TOKENS)]).mean())
+    scale = float(full[:, SERVE_PROMPT - 1:].float().abs().max())
+    del full
+    check(float(rel.max()) <= SERVE_REL_L2_TOL,
+          f"decode vs forward: relative L2 {float(rel.max())} > "
+          f"{SERVE_REL_L2_TOL}")
+    srv.prefill, srv.decode = plain_steps
+    decode_s = sum(step_s)
+    rec = {"card": card, "arch": SERVE_ARCH, "layers": L,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+           "tokens": SERVE_TOKENS, "init_s": t_init,
+           "prefill_s": t_prefill,
+           "decode_ms_per_step": 1e3 * decode_s / len(step_s),
+           "decode_ms_per_step_min": 1e3 * min(step_s),
+           "decode_tokens_per_s": SERVE_BATCH * len(step_s) / decode_s,
+           "prompt_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / t_prefill,
+           "end_to_end_tokens_per_s":
+               SERVE_BATCH * SERVE_TOKENS / (t_prefill + decode_s),
+           "peak_memory_bytes": peak, "launches": launches,
+           "launches_per_prefill": per_prefill,
+           "launches_per_step": per_step[0],
+           "decode_vs_forward": {
+               "max_rel_l2": float(rel.max()),
+               "mean_rel_l2": float(rel.mean()),
+               "max_abs_err": abs_err, "max_abs_logit": scale,
+               "argmax_agreement": agree, "tolerance_rel_l2":
+                   SERVE_REL_L2_TOL}}
+    return rec, srv, prompts
+
+
+def model_shape_kernels(srv, prompts) -> dict:
+    """B3 and B4 on the inputs one layer of the full model gives them:
+    layer 0's q, k, v over the prompt, and its cache after the run."""
+    import torch
+    from repro_torch.models import blocks
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.model import _layer
+    cfg = srv.cfg
+    p0 = _layer(srv.params["layers"], 0)["attn"]
+    toks = torch.tensor(prompts, dtype=torch.int64, device="cuda")
+    h = rms_norm(srv.params["embed"][toks], p0["ln"], cfg.norm_eps)
+    q, k, v = blocks._qkv(p0, h, cfg,
+                          torch.arange(prompts.shape[1], device="cuda"))
+    b3 = time_b3(q, k, v)
+    del q, k, v, h
+    clen = srv.cache_len - 1  # the last step's new token
+    last = torch.tensor(prompts[:, :1], dtype=torch.int64, device="cuda")
+    hq = rms_norm(srv.params["embed"][last], p0["ln"], cfg.norm_eps)
+    qd, _, _ = blocks._qkv(p0, hq, cfg,
+                           torch.full((1,), clen, device="cuda"))
+    kc, vc = (c[0] for c in srv.cache["layers"])
+    b4 = time_b4(qd, kc, vc, clen)
+    return {"flash_attention": b3, "decode_attention": b4}
+
+
+def profile_serve(srv, prompts) -> dict:
+    """One prefill and four decode steps under the profiler, each its
+    own window: busy share, top device ops, launches."""
+    import torch
+    hand = ("flash_attention_kernel", "decode_attention_kernel")
+    state = {}
+
+    def prefill():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state["tok"] = srv.prefill_prompts(prompts)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def decode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            state["tok"] = srv.step(state["tok"])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    return {"prefill": profile_run(prefill, hand, top=10),
+            "decode_4_steps": profile_run(decode, hand, top=10)}
+
+
+def serve_parity() -> dict:
+    """qwen2.5-3b at full width cut to 2 layers, float32, the same
+    weights and tokens on the card (kernels B3/B4) and on the CPU (their
+    plain forms): prefill of a ragged 200-token prompt and 4 decode
+    steps, teacher-forced with the CPU's tokens."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params, tree_map
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    cfg = dataclasses.replace(get_arch(SERVE_ARCH), n_layers=2)
+    params = init_params(registry.param_specs(cfg),
+                         torch.Generator(device="cuda").manual_seed(1),
+                         "cuda")
+    on = {"cuda": params, "cpu": tree_map(lambda t: t.cpu(), params)}
+    B, S0, n = 2, 200, 4
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S0))
+    prefill = make_prefill_step(cfg, dtype=torch.float32)
+    decode = make_serve_step(cfg, dtype=torch.float32)
+
+    def run(device, feed):
+        cache = M.init_cache(cfg, B, S0 + n + 1, torch.float32, device)
+        logits, cache = prefill(on[device], {"tokens": torch.tensor(
+            prompts, device=device)}, cache=cache)
+        out = [logits[:, -1].float().cpu()]
+        for t in range(n):
+            tok = feed[t] if feed is not None else out[-1].argmax(-1)
+            logits, cache = decode(on[device], cache, {
+                "tokens": tok[:, None].to(device), "cache_len": S0 + t})
+            out.append(logits[:, -1].float().cpu())
+        return out
+
+    t0 = time.perf_counter()
+    want = run("cpu", None)
+    t_cpu = time.perf_counter() - t0
+    feed = [w.argmax(-1) for w in want]
+    reset_launches()
+    got = run("cuda", feed)
+    launches = read_launches()
+    check(launches["flash_attention"] == cfg.n_layers
+          and launches["decode_attention"] == cfg.n_layers * n,
+          f"serve_parity launches {launches}")
+    err = max(max_abs(g, w) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    rel = max(float(rel_l2(g, w).max()) for g, w in zip(got, want))
+    clear = same = 0
+    for g, w in zip(got, want):
+        top2 = w.topk(2, dim=-1).values
+        ok = (top2[:, 0] - top2[:, 1]) > 2 * PARITY_ATOL
+        clear += int(ok.sum())
+        same += int((g.argmax(-1) == w.argmax(-1))[ok].sum())
+    check(err <= PARITY_ATOL, f"serve_parity: card vs CPU logits differ by "
+                              f"{err} > {PARITY_ATOL}")
+    check(same == clear, f"serve_parity: {clear - same} clear tokens differ")
+    return {"arch": SERVE_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, "dtype": "float32", "batch": B,
+            "prompt": S0, "decode_steps": n, "launches": launches,
+            "max_abs_err": err, "max_rel_l2": rel, "max_abs_logit": scale,
+            "tolerance_abs": PARITY_ATOL, "tokens_clear": clear,
+            "tokens_equal": same, "wall_s_cpu": t_cpu}
 
 
 def main() -> int:
@@ -156,6 +655,10 @@ def main() -> int:
              "route", 2)
     dev = torch.device("cuda")
     f8 = torch.float64
+    # float32 products in full float32 (the parity phase compares with
+    # the CPU); these are PyTorch's defaults for matmul, stated here
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # ---- 1. device ------------------------------------------------------
     card = smi_line()
@@ -165,12 +668,16 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    _build.load()
+    for name in _build.LIBRARIES:  # the first load builds them all at once
+        _build.load(name)
     emit("build", seconds=time.perf_counter() - t0,
-         nvcc_seconds=_build.BUILD_INFO.get("seconds"),
-         library=str(_build.build_dir() / _build.LIB_NAME),
-         ptxas=[ln for ln in _build.BUILD_INFO.get("log", "").splitlines()
-                if "registers" in ln or "Compiling entry" in ln])
+         nvcc_seconds={k: v.get("seconds")
+                       for k, v in _build.BUILD_INFO.items()},
+         libraries=[str(_build.library_path(k)) for k in _build.LIBRARIES],
+         ptxas=[ln for v in _build.BUILD_INFO.values()
+                for ln in v.get("log", "").splitlines()
+                if "registers" in ln or "Compiling entry" in ln
+                or "spill" in ln])
 
     # ---- 3. kernels vs their plain versions -----------------------------
     suite = paper_suite()
@@ -310,7 +817,9 @@ def main() -> int:
                             nops / FP64_FLOPS_PER_S) * 1e3,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
             >= nops / FP64_FLOPS_PER_S else "operations"})
+    attn = check_attention_kernels(dev)
     emit("kernels", card=card, k1_cases=k1_cases, k2_cases=k2_cases,
+         b3_b4=attn,
          k1={"shape": k1_shape, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
              "bound_ms": k1_bound, "max_abs_err": k1_err},
          k2={"shapes": k2_shapes, "max_abs_err_vs_cpu_plain": k2_err_cpu,
@@ -368,7 +877,9 @@ def main() -> int:
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          bit_identical_rerun=True)
 
-    emit("profile", **profile_sweep(run_full))
+    emit("profile", **profile_run(lambda: run_full()[1],
+                                  ("sa_occupancy_kernel",
+                                   "segment_sum_kernel")))
 
     # ---- 5. sweep_records: card vs the plain versions on the CPU ---------
     grid = [PolicyKnobs(**kw) for kw in RECORD_GRID]
@@ -401,6 +912,18 @@ def main() -> int:
          records_bit_identical=n_exact,
          fields_not_bit_identical=sorted(differing), wall_s_card=t_card)
 
+    # ---- 6. serve_full: the serving path at full width ------------------
+    serve_rec, srv, prompts = serve_full(card)
+    emit("serve_full", **serve_rec)
+    shapes = model_shape_kernels(srv, prompts)
+    emit("kernels_model_shapes", card=card, **shapes)
+    emit("profile_serve", **profile_serve(srv, prompts))
+    del srv
+    torch.cuda.empty_cache()
+
+    # ---- 7. serve_parity: card vs CPU, full width, 2 layers, float32 ----
+    emit("serve_parity", **serve_parity())
+
     # ---- the kernels line, the card, the verdict ------------------------
     main_k2 = k2_shapes[0]
     kernels = [
@@ -426,6 +949,25 @@ def main() -> int:
                       "rtol 1e-12 with the (atomic) plain version on the "
                       "card"},
     ]
+    for name, key, replaces in (
+            ("flash_attention", "b3",
+             "src/repro/kernels/flash_attention.py:83"),
+            ("decode_attention", "b4",
+             "src/repro/kernels/decode_attention.py:74")):
+        t = shapes[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": replaces,
+            "launches": serve_rec["launches"][name],
+            "max_abs_err": max(t["max_abs_err"],
+                               attn["max_abs_err"][key]["bfloat16"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_us": t["device_us"],
+            "shape": t["shape"],
+            "max_abs_err_float32": attn["max_abs_err"][key]["float32"],
+            "tolerance": "allclose with the plain version on the card: "
+                         "atol = rtol = 2e-2 (bf16), 2e-5 (float32)"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

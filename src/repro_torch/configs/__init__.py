@@ -1,1 +1,11 @@
-"""Architecture and shape configuration dataclasses."""
+"""Architecture & shape configurations: the dataclasses and the ten
+published model configs, resolved by name with ``get_arch``."""
+from repro_torch.configs.base import (
+    ALL_ARCH_MODULES, ArchConfig, MLAConfig, MoEConfig, ShapeConfig,
+    SSMConfig, get_arch, list_archs, register,
+)
+
+__all__ = [
+    "ALL_ARCH_MODULES", "ArchConfig", "MLAConfig", "MoEConfig",
+    "ShapeConfig", "SSMConfig", "get_arch", "list_archs", "register",
+]

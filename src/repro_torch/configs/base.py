@@ -1,14 +1,17 @@
-"""Architecture & shape configuration dataclasses.
+"""Architecture & shape configuration system.
 
 An architecture is a frozen ``ArchConfig``; an input-shape cell is a
-``ShapeConfig``. ``opgen.arch_workload`` lowers an (arch, shape) pair to
-an operator trace for the power plane. Pure dataclasses: the per-model
-config modules and the parameter counter are not part of this package
-yet, so ``arch_workload`` takes the parameter count of a training shape
-as an argument.
+``ShapeConfig``. The exact published dimensions live in one place each,
+``repro_torch/configs/<id>.py`` (copies of the JAX package's), and
+``get_arch`` resolves every name. ``opgen.arch_workload`` lowers an
+(arch, shape) pair to an operator trace for the power plane; it takes
+the parameter count of a training shape as an argument
+(``registry.count_params`` gives it for the dense text archs).
 """
 from __future__ import annotations
 
+import dataclasses
+import importlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -103,3 +106,86 @@ class ArchConfig:
     def vocab_padded(self) -> int:
         """Vocab rounded up for 16-way TP divisibility (loss masks padding)."""
         return _round_up(self.vocab_size, 256)
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def uses_full_attention_only(self) -> bool:
+        """True if the arch has quadratic attention with no sub-quadratic path."""
+        return (not self.is_attention_free) and self.sliding_window == 0
+
+    @property
+    def q_dim(self) -> int:
+        if self.mla:
+            return self.n_heads * (self.mla.nope_head_dim + self.mla.rope_head_dim)
+        return self.n_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        if self.mla:
+            return self.mla.kv_lora_rank + self.mla.rope_head_dim
+        return self.n_kv_heads * self.head_dim
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU smoke tests."""
+        kw: dict = dict(
+            n_layers=2,
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=max(1, min(self.n_kv_heads, 2)),
+            d_ff=128,
+            vocab_size=256,
+            head_dim=16,
+            frontend_dim=32 if self.frontend else 0,
+            frontend_seq=4 if self.frontend == "vision" else 0,
+        )
+        if self.moe:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=4, top_k=2, d_ff_expert=32,
+                group_size=32, first_dense_layers=min(1, self.moe.first_dense_layers),
+            )
+        if self.ssm:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=16, chunk=8)
+        if self.mla:
+            kw["mla"] = MLAConfig(kv_lora_rank=32, q_lora_rank=48,
+                                  rope_head_dim=8, nope_head_dim=16, v_head_dim=16)
+        if self.sliding_window:
+            kw["sliding_window"] = 16
+        return dataclasses.replace(self, **kw)
+
+
+_REGISTRY: dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_arch(name: str) -> ArchConfig:
+    if not _REGISTRY:
+        _load_all()
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def list_archs() -> list[str]:
+    if not _REGISTRY:
+        _load_all()
+    return sorted(_REGISTRY)
+
+
+ALL_ARCH_MODULES = [
+    "mamba2_780m", "qwen3_32b", "qwen2_5_14b", "qwen2_5_3b", "qwen1_5_4b",
+    "hymba_1_5b", "hubert_xlarge", "granite_moe_1b", "deepseek_v2_236b",
+    "paligemma_3b",
+]
+
+
+def _load_all() -> None:
+    for mod in ALL_ARCH_MODULES:
+        importlib.import_module(f"repro_torch.configs.{mod}")

@@ -1,18 +1,21 @@
 """Rebuild the port's state from plain numpy arrays and dicts.
 
-The simulator has no weights; the state a sweep consumes is the compiled
-trace stack, the NPU spec and the knob grid. These three functions
-rebuild the port's objects from another implementation's objects dumped
-to plain data (``dataclasses.asdict`` and attribute reads on the other
-side — nothing here sees a foreign object). With them a trace built
-elsewhere can be pushed through the port's sweep kernel, so a difference
-in trace generation and a difference in the kernel show up separately.
+The state a sweep consumes is the compiled trace stack, the NPU spec and
+the knob grid; the state a model consumes is its parameter tree. These
+functions rebuild the port's objects from another implementation's
+objects dumped to plain data (``dataclasses.asdict``, attribute reads,
+``np.asarray`` per leaf on the other side — nothing here sees a foreign
+object). With them a trace built elsewhere can be pushed through the
+port's sweep kernel, and weights drawn elsewhere through the port's
+model, so a difference in the inputs and a difference in the computation
+show up separately.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.hw import GatingParams, NPUSpec
 from repro_torch.core.opgen import StackedTrace, TraceArrays
@@ -84,3 +87,19 @@ def knob_grid_from_dicts(rows: Sequence[Mapping]) -> tuple[PolicyKnobs, ...]:
     """A flat knob grid from one dict of ``PolicyKnobs`` fields per
     knob point."""
     return tuple(PolicyKnobs(**dict(r)) for r in rows)
+
+
+def params_from_numpy(tree: Any, device="cpu",
+                      dtype: torch.dtype = torch.float32) -> Any:
+    """A parameter tree of tensors on ``device`` from nested dicts of
+    numpy arrays, e.g. the JAX package's parameters dumped leaf by leaf
+    with ``np.asarray``. Floating leaves become ``dtype``; other leaves
+    keep their own type."""
+    if isinstance(tree, Mapping):
+        return {k: params_from_numpy(v, device, dtype)
+                for k, v in tree.items()}
+    a = np.asarray(tree)
+    if np.issubdtype(a.dtype, np.floating):
+        # numpy has no bf16: widen first (exact), then round once
+        return torch.from_numpy(a.astype(np.float32)).to(device, dtype)
+    return torch.from_numpy(a.copy()).to(device)

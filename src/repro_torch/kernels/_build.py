@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels.
 
-``csrc/power_plane.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface and loaded with ``ctypes`` — no
-PyTorch headers, so the build takes seconds. It happens at first kernel
-use, never at import (this module imports on a machine with no ``nvcc``),
-from the sources in the package and nothing else. The library lands in
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library of its own with a plain C interface and loaded with
+``ctypes`` — no PyTorch headers, so a build takes seconds. The first
+``load`` in a process builds every library that is missing or older than
+its own source, one ``nvcc`` per source, all started together; never at
+import (this module imports on a machine with no ``nvcc``), and from the
+sources in the package and nothing else. The libraries land in
 ``build/repro_torch/`` at the root of the checkout, or in
 ``$REPRO_TORCH_BUILD_DIR``.
 
@@ -18,22 +20,62 @@ import shutil
 import subprocess
 import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional
+from typing import Callable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "power_plane.cu"
-LIB_NAME = "libpower_plane.so"
 
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _bind_power_plane(lib: ctypes.CDLL) -> None:
+    ptr, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    lib.sa_occupancy_launch.argtypes = [
+        ptr, ptr, ptr, ptr, f64, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.sa_occupancy_launch.restype = ctypes.c_int
+    lib.segment_sum_launch.argtypes = [ptr, ptr, i64, i64, i64, ptr, ptr]
+    lib.segment_sum_launch.restype = ctypes.c_int
+
+
+def _bind_attention(lib: ctypes.CDLL) -> None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_launch.argtypes = [
+        i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+        ptr, ptr, ptr, f32, i32, ptr, ptr]
+    lib.flash_attention_launch.restype = ctypes.c_int
+    lib.decode_attention_launch.argtypes = [
+        i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+        ptr, ptr, ptr, f32, ptr]
+    lib.decode_attention_launch.restype = ctypes.c_int
+
+
+@dataclass(frozen=True)
+class Library:
+    source: Path
+    flags: tuple[str, ...]
+    bind: Callable[[ctypes.CDLL], None]
+
+    def file_name(self) -> str:
+        return f"lib{self.source.stem}.so"
+
+
+LIBRARIES = {
+    # -fmad=false: K1 and K2 promise the same bits as their plain
+    # versions, and a fused multiply-add rounds once where they round twice
+    "power_plane": Library(CSRC / "power_plane.cu",
+                           COMMON_FLAGS + ("-fmad=false",), _bind_power_plane),
+    "attention": Library(CSRC / "attention.cu", COMMON_FLAGS,
+                         _bind_attention),
+}
 
 _LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
-#: what the last build in this process cost and printed (``None`` until
-#: a build ran; a library found up to date reports 0 seconds)
-BUILD_INFO: dict = {}
+_LIBS: dict[str, ctypes.CDLL] = {}
+#: per library, what its build in this process cost and printed:
+#: ``{"seconds", "command", "log"}``; a library found up to date reports
+#: ``{"seconds": 0.0}``. Empty until the first ``load``.
+BUILD_INFO: dict[str, dict] = {}
 
 
 def build_dir() -> Path:
@@ -42,6 +84,10 @@ def build_dir() -> Path:
         return Path(env)
     # src/repro_torch/kernels/_build.py -> the checkout's root
     return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def library_path(name: str) -> Path:
+    return build_dir() / LIBRARIES[name].file_name()
 
 
 def find_nvcc() -> str:
@@ -56,51 +102,64 @@ def find_nvcc() -> str:
         "cannot run without the CUDA toolkit")
 
 
-def _compile(out: Path) -> None:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    # build under a private name, publish atomically: several processes
-    # may find the library missing at the same time
-    tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE.name}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if tmp.exists():
-            tmp.unlink()
-    BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      command=" ".join(cmd), log=proc.stderr.strip())
+def _stale() -> list[str]:
+    out = []
+    for name, lib in LIBRARIES.items():
+        path = library_path(name)
+        if not path.exists() \
+                or path.stat().st_mtime < lib.source.stat().st_mtime:
+            out.append(name)
+        else:
+            BUILD_INFO.setdefault(name, {"seconds": 0.0})
+    return out
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    ptr, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
-    lib.sa_occupancy_launch.argtypes = [
-        ptr, ptr, ptr, ptr, f64, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr]
-    lib.sa_occupancy_launch.restype = ctypes.c_int
-    lib.segment_sum_launch.argtypes = [ptr, ptr, i64, i64, i64, ptr, ptr]
-    lib.segment_sum_launch.restype = ctypes.c_int
-    return lib
-
-
-def load() -> ctypes.CDLL:
-    """The kernels' library, built first if it is missing or older than
-    its source. Loaded once per process."""
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            out = build_dir() / LIB_NAME
-            if not out.exists() \
-                    or out.stat().st_mtime < SOURCE.stat().st_mtime:
-                _compile(out)
+def _compile(names: list[str]) -> None:
+    """One ``nvcc`` per library, all started together; each publishes
+    its library atomically (several processes may find it missing)."""
+    if not names:
+        return
+    nvcc = find_nvcc()
+    build_dir().mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        lib, out = LIBRARIES[name], library_path(name)
+        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *lib.flags, "-o", str(tmp), str(lib.source)]
+        jobs.append((name, out, tmp, cmd, time.perf_counter(),
+                     subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for name, out, tmp, cmd, t0, proc in jobs:
+        try:
+            stdout, stderr = proc.communicate()
+            if proc.returncode == 0:
+                os.replace(tmp, out)
+                BUILD_INFO[name] = {"seconds": time.perf_counter() - t0,
+                                    "command": " ".join(cmd),
+                                    "log": stderr.strip()}
             else:
-                BUILD_INFO.setdefault("seconds", 0.0)
-            _LIB = _bind(ctypes.CDLL(str(out)))
-        return _LIB
+                errors.append(f"nvcc failed ({proc.returncode}) on "
+                              f"{LIBRARIES[name].source.name}:\n"
+                              f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+        finally:
+            if tmp.exists():
+                tmp.unlink()
+    if errors:
+        raise RuntimeError("\n\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The library ``name`` (a key of ``LIBRARIES``), loaded once per
+    process. The first call builds every stale library of the package."""
+    with _LOCK:
+        if not _LIBS:
+            _compile(_stale())
+        if name not in _LIBS:
+            lib = ctypes.CDLL(str(library_path(name)))
+            LIBRARIES[name].bind(lib)
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 def check(err: int, what: str) -> None:

@@ -1,0 +1,529 @@
+// Attention kernels for NVIDIA Hopper (sm_90a): bf16 or float32 in, float32
+// softmax and accumulation, output in the input type. Built by nvcc into a
+// shared library with a plain C interface and loaded with ctypes (see
+// ../_build.py). No -fmad=false here: these kernels promise agreement with
+// their plain versions within a stated tolerance, not the same bits.
+//
+// Layout at the C interface is the model's own: q (B, S, H, D), k/v
+// (B, S, Hkv, D), addressed through the (batch, seq, head) strides the
+// wrapper passes in elements, the head dim contiguous. Nothing is
+// transposed or repeated: query head h reads KV head h / (H / Hkv), the
+// order of jnp.repeat / the (Hkv, groups) reshape in the JAX model.
+//
+// Every launcher runs on the stream it is given, allocates nothing, does
+// not synchronise, and returns cudaGetLastError() for the wrapper to check.
+// The sums over keys are taken in a fixed order (no atomics), so a result
+// is the same from run to run.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#define ATTN_NEG_INF (-1e30f)
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+    return __float2bfloat16(x);
+}
+
+// 16 bytes of T from a 16-byte aligned address, widened to float:
+// 8 values of bf16, 4 of float.
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        out[2 * i] = __uint_as_float(w[i] << 16);
+        out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+}
+__device__ __forceinline__ void load16(const float* p, float* out) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
+}
+
+// ---------------------------------------------------------------------------
+// B3  flash_attention  (prefill: causal self-attention over the prompt)
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::_kernel
+// (entry flash_attention_p, wrapper ops.flash_attention): blocked
+// online-softmax attention with causal block skipping, key mask
+// k_pos < Sk, masked scores -1e30, and the output divided by max(l, 1e-30).
+// q is scaled in float32 before the product, as there.
+//
+// Bound: at the serving path's prefill (B=4, S=2048, H=16, Hkv=2, D=128,
+// bf16) the causal half of 4*B*H*S*S*D is 69 GFLOP per layer against
+// 8.9 MB of q, k, v and output -- some 7 700 operations per byte, far above
+// the card's ~295, so the bound is the tensor cores' 989 TFLOP/s.
+//
+// Design: one block of 256 threads per (q-tile of 64 rows, head, batch).
+// It loops over key tiles of 64 staged in shared memory as float32; the
+// loop bound is cut at the diagonal (and at Sk), so a tile that the causal
+// mask would zero is never loaded -- the point of the Pallas kernel, which
+// the plain chunked XLA path (models/common.py::flash_attention_jax) does
+// not do. Each thread computes a 4x4 block of the 64x64 score tile with
+// float4 shared-memory reads, the 256 threads then take the row statistics
+// four to a row (fixed-order combine), and the P.V product accumulates a
+// 4 x D/16 block of the output in registers. K and V share one buffer so
+// two blocks fit on an SM. The products run on the CUDA cores in float32:
+// simple and right first; the tensor-core (wgmma / mma.sync) version is
+// later work and is what would close the gap to the bound.
+// ---------------------------------------------------------------------------
+namespace fa {
+constexpr int BQ = 64, BK = 64, THREADS = 256;
+constexpr int SLD = BK + 4;  // padded score row: conflict-free row-stat reads
+
+template <int D> __host__ __device__ constexpr int ld() { return D + 4; }  // padded q/k/v row
+template <int D> __host__ __device__ constexpr size_t smem_bytes() {
+    return sizeof(float) * (size_t)(BQ * ld<D>() + BK * ld<D>() + BQ * SLD
+                                    + 2 * THREADS + 3 * BQ);
+}
+// the output column of a thread's j-th accumulator: float4-friendly runs
+// of four when D is a multiple of 64, a stride of 16 otherwise
+template <int D> __device__ __forceinline__ int out_col(int tx, int j) {
+    if constexpr (D % 64 == 0) return (j / 4) * 64 + 4 * tx + (j % 4);
+    else return tx + 16 * j;
+}
+}  // namespace fa
+
+template <typename T, int D>
+__global__ void __launch_bounds__(fa::THREADS, 2)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       int H, int Hkv, int Sq, int Sk,
+                       int64_t qsb, int64_t qss, int64_t qsh,
+                       int64_t ksb, int64_t kss, int64_t ksh,
+                       int64_t vsb, int64_t vss, int64_t vsh,
+                       float scale, int causal, int* __restrict__ tiles_loaded)
+{
+    using namespace fa;
+    constexpr int LD = ld<D>();
+    constexpr int NC = D / 16;  // output columns per thread
+    extern __shared__ float smem[];
+    float* Qs = smem;                   // BQ x LD, scaled q
+    float* KVs = Qs + BQ * LD;          // BK x LD, the K tile, then the V tile
+    float* Ss = KVs + BK * LD;          // BQ x SLD, scores, then p
+    float* red_m = Ss + BQ * SLD;       // THREADS partial row maxima
+    float* red_s = red_m + THREADS;     // THREADS partial row sums
+    float* row_m = red_s + THREADS;     // BQ running max
+    float* row_l = row_m + BQ;          // BQ running sum
+    float* row_a = row_l + BQ;          // BQ rescale of this tile
+
+    const int tid = threadIdx.x;
+    const int ty = tid / 16, tx = tid % 16;   // 4x4 score block / output rows
+    const int sr = tid / 4, sp = tid % 4;     // row statistics: 4 threads a row
+    const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+    const int hk = h / (H / Hkv);
+    const int q0 = qt * BQ;
+
+    const T* qb = q + b * qsb + h * qsh;
+    const T* kb = k + b * ksb + hk * ksh;
+    const T* vb = v + b * vsb + hk * vsh;
+
+    for (int i = tid; i < BQ * D; i += THREADS) {
+        const int r = i / D, c = i % D, s = q0 + r;
+        Qs[r * LD + c] = s < Sq ? to_f(qb[(int64_t)s * qss + c]) * scale : 0.f;
+    }
+    if (tid < BQ) { row_m[tid] = ATTN_NEG_INF; row_l[tid] = 0.f; }
+
+    float acc[4][NC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+
+    // keys [0, k_end) can be live for some row of this tile; later tiles
+    // are never loaded
+    const int q_last = min(q0 + BQ, Sq) - 1;
+    const int k_end = causal ? min(q_last + 1, Sk) : Sk;
+    const int n_tiles = (k_end + BK - 1) / BK;
+    if (tiles_loaded != nullptr && tid == 0)
+        tiles_loaded[((int64_t)b * H + h) * gridDim.x + qt] = n_tiles;
+
+    for (int kt = 0; kt < n_tiles; ++kt) {
+        const int k0 = kt * BK;
+        __syncthreads();  // the previous tile is done with KVs and Ss
+        for (int i = tid; i < BK * D; i += THREADS) {
+            const int r = i / D, c = i % D, s = k0 + r;
+            KVs[r * LD + c] = s < Sk ? to_f(kb[(int64_t)s * kss + c]) : 0.f;
+        }
+        __syncthreads();
+
+        // scores: rows ty + 16 i, keys tx + 16 j
+        float sacc[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) sacc[i][j] = 0.f;
+#pragma unroll 4
+        for (int d = 0; d < D; d += 4) {
+            float4 a[4], kk[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+                a[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * LD + d]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+                kk[j] = *reinterpret_cast<const float4*>(&KVs[(tx + 16 * j) * LD + d]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                    float s = sacc[i][j];
+                    s = fmaf(a[i].x, kk[j].x, s);
+                    s = fmaf(a[i].y, kk[j].y, s);
+                    s = fmaf(a[i].z, kk[j].z, s);
+                    s = fmaf(a[i].w, kk[j].w, s);
+                    sacc[i][j] = s;
+                }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+                const int r = ty + 16 * i, c = tx + 16 * j;
+                const int qpos = q0 + r, kpos = k0 + c;
+                const bool ok = kpos < Sk && (!causal || kpos <= qpos);
+                Ss[r * SLD + c] = ok ? sacc[i][j] : ATTN_NEG_INF;
+            }
+        __syncthreads();  // K tile consumed, scores written
+
+        // the V tile replaces the K tile; row maxima meanwhile
+        for (int i = tid; i < BK * D; i += THREADS) {
+            const int r = i / D, c = i % D, s = k0 + r;
+            KVs[r * LD + c] = s < Sk ? to_f(vb[(int64_t)s * vss + c]) : 0.f;
+        }
+        float mloc = ATTN_NEG_INF;
+#pragma unroll
+        for (int e = 0; e < BK / 4; ++e) mloc = fmaxf(mloc, Ss[sr * SLD + sp + 4 * e]);
+        red_m[tid] = mloc;
+        __syncthreads();
+        const float m_prev = row_m[sr];
+        const float m_new = fmaxf(fmaxf(m_prev, fmaxf(red_m[4 * sr], red_m[4 * sr + 1])),
+                                  fmaxf(red_m[4 * sr + 2], red_m[4 * sr + 3]));
+        float sloc = 0.f;
+#pragma unroll
+        for (int e = 0; e < BK / 4; ++e) {
+            const int c = sp + 4 * e;
+            const float p = expf(Ss[sr * SLD + c] - m_new);
+            Ss[sr * SLD + c] = p;
+            sloc += p;
+        }
+        red_s[tid] = sloc;
+        __syncthreads();
+        if (sp == 0) {
+            const float alpha = expf(m_prev - m_new);
+            const float tile_sum = ((red_s[4 * sr] + red_s[4 * sr + 1])
+                                    + red_s[4 * sr + 2]) + red_s[4 * sr + 3];
+            row_l[sr] = row_l[sr] * alpha + tile_sum;
+            row_m[sr] = m_new;
+            row_a[sr] = alpha;
+        }
+        __syncthreads();
+
+        // acc = acc * alpha + P V
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            const float al = row_a[ty + 16 * i];
+#pragma unroll
+            for (int j = 0; j < NC; ++j) acc[i][j] *= al;
+        }
+#pragma unroll 4
+        for (int c = 0; c < BK; ++c) {
+            float p[4], vv[NC];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) p[i] = Ss[(ty + 16 * i) * SLD + c];
+            if constexpr (D % 64 == 0) {
+#pragma unroll
+                for (int j = 0; j < NC; j += 4) {
+                    const float4 f = *reinterpret_cast<const float4*>(
+                        &KVs[c * LD + fa::out_col<D>(tx, j)]);
+                    vv[j] = f.x; vv[j + 1] = f.y; vv[j + 2] = f.z; vv[j + 3] = f.w;
+                }
+            } else {
+#pragma unroll
+                for (int j = 0; j < NC; ++j) vv[j] = KVs[c * LD + fa::out_col<D>(tx, j)];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
+        }
+    }
+
+    // row_l is final: its last write came before the loop's last barrier
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i, s = q0 + r;
+        if (s >= Sq) continue;
+        const float l = fmaxf(row_l[r], 1e-30f);
+        T* orow = o + (((int64_t)b * Sq + s) * H + h) * D;
+#pragma unroll
+        for (int j = 0; j < NC; ++j) orow[fa::out_col<D>(tx, j)] = from_f<T>(acc[i][j] / l);
+    }
+}
+
+template <typename T, int D>
+static int flash_attention_run(const void* q, const void* k, const void* v, void* o,
+                               int B, int H, int Hkv, int Sq, int Sk,
+                               const int64_t* qst, const int64_t* kst,
+                               const int64_t* vst, float scale, int causal,
+                               int* tiles_loaded, cudaStream_t stream)
+{
+    const size_t smem = fa::smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((unsigned)((Sq + fa::BQ - 1) / fa::BQ), (unsigned)H, (unsigned)B);
+    flash_attention_kernel<T, D><<<grid, fa::THREADS, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq, Sk,
+        qst[0], qst[1], qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
+        scale, causal, tiles_loaded);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int flash_attention_dispatch(int D, const void* q, const void* k,
+                                    const void* v, void* o, int B, int H,
+                                    int Hkv, int Sq, int Sk, const int64_t* qst,
+                                    const int64_t* kst, const int64_t* vst,
+                                    float scale, int causal, int* tiles,
+                                    cudaStream_t s)
+{
+    switch (D) {
+    case 16:  return flash_attention_run<T, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, s);
+    case 32:  return flash_attention_run<T, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, s);
+    case 64:  return flash_attention_run<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, s);
+    case 128: return flash_attention_run<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, s);
+    default:  return (int)cudaErrorInvalidValue;
+    }
+}
+
+// is_bf16: 1 for bf16 tensors, 0 for float32. Strides are in elements:
+// {batch, seq, head}. tiles_loaded: nullptr, or B*H*ceil(Sq/64) ints that
+// receive the number of key tiles each block loaded.
+extern "C" int flash_attention_launch(
+    int is_bf16, const void* q, const void* k, const void* v, void* o,
+    int B, int H, int Hkv, int Sq, int Sk, int D,
+    const int64_t* q_strides, const int64_t* k_strides, const int64_t* v_strides,
+    float scale, int causal, int* tiles_loaded, void* stream)
+{
+    if (is_bf16)
+        return flash_attention_dispatch<__nv_bfloat16>(
+            D, q, k, v, o, B, H, Hkv, Sq, Sk, q_strides, k_strides, v_strides,
+            scale, causal, tiles_loaded, (cudaStream_t)stream);
+    return flash_attention_dispatch<float>(
+        D, q, k, v, o, B, H, Hkv, Sq, Sk, q_strides, k_strides, v_strides,
+        scale, causal, tiles_loaded, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// B4  decode_attention  (one new token against the KV cache)
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py::_kernel
+// (entry decode_attention_p): one query per head against the caches over
+// slots [0, cache_len] inclusive; slots past cache_len are never read;
+// cache_len is a launch argument.
+//
+// Bound: bytes. Each step reads the live part of the K and V caches once,
+// 2 * B * (cache_len+1) * Hkv * D elements, against 4 * B * H *
+// (cache_len+1) * D operations -- 2 * H/Hkv = 16 operations per bf16
+// element at qwen2.5-3b's 8 query heads per KV head, far below the ~295
+// at which the card stops being bound by its 3.35 TB/s.
+//
+// Design: one block per (KV head, batch) serves all H/Hkv query heads of
+// that KV head, so each cache row is read from memory once, not once per
+// query head. The block walks the live slots in tiles of 256: thread t
+// takes slot t of the tile, reads its K row with 16-byte loads and forms
+// the scores of all query heads; 32 threads per head then take the row
+// statistics (fixed-order combine); for P.V each thread owns one column d
+// of one 256/D-th of the tile and keeps one accumulator per head. The
+// slices are summed in a fixed order at the end. With B * Hkv = 8 blocks
+// at the serving path's shape only 8 of 132 SMs work: right, but far from
+// the bound. Splitting the slots over more blocks (flash-decoding) with a
+// fixed-order combine pass is the later redesign.
+// ---------------------------------------------------------------------------
+namespace da {
+constexpr int THREADS = 256, BK = 256, MAXG = 8;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(da::THREADS)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                        const T* __restrict__ vc, T* __restrict__ o,
+                        int H, int Hkv, int cache_len,
+                        int64_t qsb, int64_t qsh,
+                        int64_t ksb, int64_t kss, int64_t ksh,
+                        int64_t vsb, int64_t vss, int64_t vsh, float scale)
+{
+    using namespace da;
+    constexpr int NSL = THREADS / D;      // key slices of the P.V product
+    constexpr int SL = BK / NSL;          // slots per slice
+    constexpr int EPV = 16 / sizeof(T);   // elements per 16-byte load
+    __shared__ float qs[MAXG][D];
+    __shared__ float ps[MAXG][BK];
+    __shared__ float red[MAXG][32];
+    __shared__ float row_m[MAXG], row_l[MAXG], row_a[MAXG];
+    __shared__ float part[NSL][MAXG][D];
+
+    const int tid = threadIdx.x;
+    const int hk = blockIdx.x, b = blockIdx.y;
+    const int G = H / Hkv;
+    const int h0 = hk * G;
+    const int dcol = tid % D, slice = tid / D;
+    const int gr = tid / 32, lane = tid % 32;   // row statistics: a warp a head
+
+    for (int i = tid; i < G * D; i += THREADS) {
+        const int g = i / D, d = i % D;
+        qs[g][d] = to_f(q[b * qsb + (int64_t)(h0 + g) * qsh + d]) * scale;
+    }
+    if (tid < MAXG) { row_m[tid] = ATTN_NEG_INF; row_l[tid] = 0.f; }
+
+    float acc[MAXG];
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
+
+    const T* kb = kc + b * ksb + hk * ksh;
+    const T* vb = vc + b * vsb + hk * vsh;
+    const int n_keys = cache_len + 1;
+
+    for (int k0 = 0; k0 < n_keys; k0 += BK) {
+        __syncthreads();  // the previous tile is done with ps and row_a
+        const int key = k0 + tid;
+        float s[MAXG];
+#pragma unroll
+        for (int g = 0; g < MAXG; ++g) s[g] = 0.f;
+        if (key < n_keys) {
+            const T* krow = kb + (int64_t)key * kss;
+#pragma unroll 2
+            for (int d = 0; d < D; d += EPV) {
+                float kv[EPV];
+                load16(krow + d, kv);
+#pragma unroll
+                for (int g = 0; g < MAXG; ++g) {
+                    if (g < G) {
+                        float a = s[g];
+#pragma unroll
+                        for (int e = 0; e < EPV; ++e) a = fmaf(qs[g][d + e], kv[e], a);
+                        s[g] = a;
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int g = 0; g < MAXG; ++g)
+            if (g < G) ps[g][tid] = key < n_keys ? s[g] : ATTN_NEG_INF;
+        __syncthreads();
+
+        float m_prev = 0.f, m_new = 0.f;
+        if (gr < G) {
+            float mloc = ATTN_NEG_INF;
+#pragma unroll
+            for (int e = 0; e < BK / 32; ++e) mloc = fmaxf(mloc, ps[gr][lane + 32 * e]);
+            red[gr][lane] = mloc;
+        }
+        __syncthreads();
+        if (gr < G) {
+            m_prev = row_m[gr];
+            m_new = m_prev;
+            for (int e = 0; e < 32; ++e) m_new = fmaxf(m_new, red[gr][e]);
+        }
+        __syncthreads();  // every lane has read red before it is reused
+        if (gr < G) {
+            float sloc = 0.f;
+#pragma unroll
+            for (int e = 0; e < BK / 32; ++e) {
+                const int c = lane + 32 * e;
+                const float p = expf(ps[gr][c] - m_new);
+                ps[gr][c] = p;
+                sloc += p;
+            }
+            red[gr][lane] = sloc;
+        }
+        __syncthreads();
+        if (gr < G && lane == 0) {
+            float tile_sum = 0.f;
+            for (int e = 0; e < 32; ++e) tile_sum += red[gr][e];
+            const float alpha = expf(m_prev - m_new);
+            row_l[gr] = row_l[gr] * alpha + tile_sum;
+            row_m[gr] = m_new;
+            row_a[gr] = alpha;
+        }
+        __syncthreads();
+
+#pragma unroll
+        for (int g = 0; g < MAXG; ++g)
+            if (g < G) acc[g] *= row_a[g];
+        const int j0 = slice * SL;
+        const int j1 = min(SL, n_keys - k0 - j0);
+#pragma unroll 4
+        for (int j = 0; j < j1; ++j) {
+            const float vv = to_f(vb[(int64_t)(k0 + j0 + j) * vss + dcol]);
+#pragma unroll
+            for (int g = 0; g < MAXG; ++g)
+                if (g < G) acc[g] = fmaf(ps[g][j0 + j], vv, acc[g]);
+        }
+    }
+
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g)
+        if (g < G) part[slice][g][dcol] = acc[g];
+    __syncthreads();
+    for (int i = tid; i < G * D; i += THREADS) {
+        const int g = i / D, d = i % D;
+        float sum = 0.f;
+        for (int sl = 0; sl < NSL; ++sl) sum += part[sl][g][d];
+        o[((int64_t)b * H + h0 + g) * D + d] = from_f<T>(sum / fmaxf(row_l[g], 1e-30f));
+    }
+}
+
+template <typename T, int D>
+static int decode_attention_run(const void* q, const void* kc, const void* vc,
+                                void* o, int B, int H, int Hkv, int cache_len,
+                                const int64_t* qst, const int64_t* kst,
+                                const int64_t* vst, float scale, cudaStream_t stream)
+{
+    dim3 grid((unsigned)Hkv, (unsigned)B);
+    decode_attention_kernel<T, D><<<grid, da::THREADS, 0, stream>>>(
+        (const T*)q, (const T*)kc, (const T*)vc, (T*)o, H, Hkv, cache_len,
+        qst[0], qst[1], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2], scale);
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int decode_attention_dispatch(int D, const void* q, const void* kc,
+                                     const void* vc, void* o, int B, int H,
+                                     int Hkv, int cache_len, const int64_t* qst,
+                                     const int64_t* kst, const int64_t* vst,
+                                     float scale, cudaStream_t s)
+{
+    switch (D) {
+    case 16:  return decode_attention_run<T, 16>(q, kc, vc, o, B, H, Hkv, cache_len, qst, kst, vst, scale, s);
+    case 32:  return decode_attention_run<T, 32>(q, kc, vc, o, B, H, Hkv, cache_len, qst, kst, vst, scale, s);
+    case 64:  return decode_attention_run<T, 64>(q, kc, vc, o, B, H, Hkv, cache_len, qst, kst, vst, scale, s);
+    case 128: return decode_attention_run<T, 128>(q, kc, vc, o, B, H, Hkv, cache_len, qst, kst, vst, scale, s);
+    default:  return (int)cudaErrorInvalidValue;
+    }
+}
+
+// q strides {batch, head}; cache strides {batch, slot, head}; in elements.
+// The output is (B, 1, H, D) contiguous.
+extern "C" int decode_attention_launch(
+    int is_bf16, const void* q, const void* k_cache, const void* v_cache,
+    void* o, int B, int H, int Hkv, int D, int cache_len,
+    const int64_t* q_strides, const int64_t* k_strides, const int64_t* v_strides,
+    float scale, void* stream)
+{
+    if (is_bf16)
+        return decode_attention_dispatch<__nv_bfloat16>(
+            D, q, k_cache, v_cache, o, B, H, Hkv, cache_len, q_strides,
+            k_strides, v_strides, scale, (cudaStream_t)stream);
+    return decode_attention_dispatch<float>(
+        D, q, k_cache, v_cache, o, B, H, Hkv, cache_len, q_strides,
+        k_strides, v_strides, scale, (cudaStream_t)stream);
+}

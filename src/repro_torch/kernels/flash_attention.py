@@ -1,0 +1,132 @@
+"""Blocked causal attention with causal tile skipping — CUDA kernel B3.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
+(``_kernel`` / ``flash_attention_p``, wrapper ``ops.flash_attention``).
+The kernel, its bound on the card and the reasons for its design are in
+``csrc/attention.cu``; in short: at the serving path's prefill it is
+bound by operations (thousands per byte), it takes the model's
+``(B, S, H, D)`` / ``(B, S, Hkv, D)`` layout through strides with no
+transpose or head repeat, and its key loop stops at the diagonal, so the
+tiles the causal mask would zero are never loaded. The products run on
+the CUDA cores in float32 — right first; tensor cores are later work.
+
+``flash_attention`` launches the kernel for CUDA tensors and evaluates
+``flash_attention_plain`` for CPU tensors; nothing else selects between
+them, and a kernel that fails to build or launch raises.
+``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import ref_attention
+
+#: the kernel's tile (query rows and keys); ``tiles_loaded`` counts in it
+TILE = 64
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(q, k, v) -> tuple[int, int, int, int, int, int]:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"want q (B, Sq, H, D), k/v (B, Sk, Hkv, D); got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, Sk, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"k/v must be ({B}, Sk, Hkv, {D}) alike, got "
+                         f"{tuple(k.shape)} {tuple(v.shape)}")
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"query heads {H} must be a multiple of KV heads "
+                         f"{Hkv}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
+        raise ValueError(f"want one dtype of {DTYPES}, got {q.dtype} "
+                         f"{k.dtype} {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
+    return B, Sq, H, D, Sk, Hkv
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of B3: KV heads repeated to the query heads
+    (head ``h`` reads KV head ``h // (H // Hkv)``), then ``ref_attention``
+    in float32; the output in q's dtype."""
+    _, _, H, _, _, Hkv = _check(q, k, v)
+    if Hkv != H:
+        k = k.repeat_interleave(H // Hkv, dim=2)
+        v = v.repeat_interleave(H // Hkv, dim=2)
+    return ref_attention(q, k, v, causal=causal, scale=scale)
+
+
+def _strides(t: torch.Tensor):
+    return (ctypes.c_int64 * 3)(t.stride(0), t.stride(1), t.stride(2))
+
+
+def _launch(lib, q, k, v, out, *, causal: bool, scale: float,
+            tiles_loaded: Optional[torch.Tensor], stream: int) -> int:
+    """One call of the C launcher; the arguments are already checked."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    return lib.flash_attention_launch(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Sk, D,
+        _strides(q), _strides(k), _strides(v), float(scale), int(causal),
+        None if tiles_loaded is None else tiles_loaded.data_ptr(), stream)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: Optional[float] = None,
+                    tiles_loaded: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Softmax attention of q ``(B, Sq, H, D)`` over k/v
+    ``(B, Sk, Hkv, D)``, GQA by head grouping; float32 or bf16, float32
+    softmax and accumulation, output ``(B, Sq, H, D)`` in q's dtype.
+    ``scale`` defaults to ``D ** -0.5``. With ``causal``, key ``j`` is
+    live for query ``i`` iff ``j <= i``.
+
+    ``tiles_loaded`` (CUDA only): an int32 ``(B, H, ceil(Sq / 64))``
+    tensor that receives the number of 64-key tiles each query tile
+    loaded — how a caller sees the causal skip.
+    """
+    B, Sq, H, D, Sk, Hkv = _check(q, k, v)
+    scale = D ** -0.5 if scale is None else float(scale)
+    if q.device.type != "cuda":
+        if tiles_loaded is not None:
+            raise ValueError("tiles_loaded counts the CUDA kernel's loads; "
+                             "CPU tensors take the plain version")
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D}: the kernel is built for "
+                         f"{HEAD_DIMS}")
+    if Sk == 0 and Sq > 0:
+        raise ValueError("no keys to attend to (Sk = 0)")
+    dev = q.device
+    n_qt = -(-Sq // TILE)
+    if tiles_loaded is not None and (
+            tiles_loaded.dtype != torch.int32
+            or tiles_loaded.shape != (B, H, n_qt)
+            or tiles_loaded.device != dev
+            or not tiles_loaded.is_contiguous()):
+        raise ValueError(f"tiles_loaded: want a contiguous int32 "
+                         f"({B}, {H}, {n_qt}) tensor on {dev}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    if out.numel() == 0:  # a zero-size grid is a launch error
+        return out
+    lib = _build.load("attention")
+    with torch.cuda.device(dev):
+        err = _launch(lib, q, k, v, out, causal=causal, scale=scale,
+                      tiles_loaded=tiles_loaded,
+                      stream=torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

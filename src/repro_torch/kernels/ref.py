@@ -1,0 +1,40 @@
+"""Plain PyTorch oracles of the attention kernels (the allclose
+references), as ``repro/kernels/ref.py`` keeps them for the Pallas ones."""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def ref_attention(q, k, v, *, causal: bool = True,
+                  scale=None) -> torch.Tensor:
+    """q/k/v: (B, S, H, D) (same head count); plain softmax attention.
+    With ``causal``, key ``j`` is live for query ``i`` iff ``j <= i``."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    if causal:
+        dev = q.device
+        mask = torch.arange(Sk, device=dev)[None, :] \
+            <= torch.arange(Sq, device=dev)[:, None]
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return o.to(q.dtype)
+
+
+def ref_decode_attention(q, k_cache, v_cache, cache_len: int, *,
+                         scale=None) -> torch.Tensor:
+    """q: (BH, D); caches: (BH, S, D). One query per row against cache
+    slots ``[0, cache_len]``; returns (BH, D)."""
+    D = q.shape[-1]
+    S = k_cache.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    s = torch.einsum("bd,bkd->bk", q.float() * scale, k_cache.float())
+    live = torch.arange(S, device=q.device) <= int(cache_len)
+    s = torch.where(live[None, :], s, torch.full((), NEG_INF,
+                                                 device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bk,bkd->bd", p, v_cache.float()).to(q.dtype)

@@ -77,7 +77,7 @@ def sa_occupancy(mm_m: torch.Tensor, mm_k: torch.Tensor, mm_n: torch.Tensor,
     dims = tuple(a.contiguous() for a in dims)
     outs = [torch.empty(shape, dtype=torch.float64, device=dev)
             for _ in STAT_KEYS]
-    lib = _build.load()
+    lib = _build.load("power_plane")
     with torch.cuda.device(dev):
         err = lib.sa_occupancy_launch(
             *(a.data_ptr() for a in dims), saw_v.data_ptr(), wlc, n, n_saw,

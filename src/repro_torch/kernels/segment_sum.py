@@ -103,7 +103,7 @@ def segment_sum(data: torch.Tensor, seg_ids: torch.Tensor,
             f"{starts.dtype} {tuple(starts.shape)} on {starts.device}")
     starts = starts.contiguous()
     out = torch.empty(batch, num_segments, dtype=torch.float64, device=dev)
-    lib = _build.load()
+    lib = _build.load("power_plane")
     with torch.cuda.device(dev):
         err = lib.segment_sum_launch(
             rows.data_ptr(), starts.data_ptr(), n, num_segments, batch,

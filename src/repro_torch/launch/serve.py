@@ -1,0 +1,120 @@
+"""Batched serving driver: prefill + decode with a KV cache.
+
+    python -m repro_torch.launch.serve --arch qwen2.5-3b [--device cuda]
+
+Serves a fixed batch of seeded random prompts: one prefill, then one
+decode step per generated token, every request sharing one cache of
+``max_seq`` slots. On the card (the default device) every attention call
+runs the hand-written kernels: B3 over the prompt, B4 at each step.
+
+Differences from the JAX package's ``repro.launch.serve``, all for an
+eager runtime: the weights are cast to bf16 once, at construction (the
+jitted reference casts inside every step; eager PyTorch would copy the
+whole tree per step); the cache is allocated once, at construction, and
+the prompt's K/V are written into it (no graft); decode steps update it
+in place. Arrival-driven serving (``serve_arrivals``, ``--arrivals``)
+needs the fleet and guard planes and waits for ROADMAP A5.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_arch
+from repro_torch.models import model as M
+from repro_torch.models import registry
+from repro_torch.models.param import cast_tree, init_params
+from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+
+class Server:
+    def __init__(self, arch: str, *, reduced: bool = True,
+                 batch: int = 4, max_seq: int = 128, seed: int = 0,
+                 device="cuda"):
+        base = get_arch(arch)
+        self.cfg = base.reduced() if reduced else base
+        if self.cfg.encoder_only:
+            raise ValueError("encoder-only arch has no decode step")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to serve "
+                               "on the CPU")
+        self.batch = batch
+        self.max_seq = max_seq
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.params = cast_tree(
+            init_params(registry.param_specs(self.cfg), gen, self.device),
+            torch.bfloat16)
+        self.prefill = make_prefill_step(self.cfg)
+        self.decode = make_serve_step(self.cfg)
+        self.cache = M.init_cache(self.cfg, batch, max_seq, torch.bfloat16,
+                                  self.device)
+        self.cache_len = 0
+
+    def prefill_prompts(self, prompts: np.ndarray) -> np.ndarray:
+        """prompts: (B, S0) int. Fills the shared cache's first S0 slots;
+        returns the first generated token of each request, (B,)."""
+        B, S0 = prompts.shape
+        if B != self.batch or not 0 < S0 < self.max_seq:
+            raise ValueError(f"prompts {prompts.shape}: want ({self.batch}, "
+                             f"S0) with 0 < S0 < max_seq={self.max_seq}")
+        batch = {"tokens": torch.tensor(np.asarray(prompts),
+                                        dtype=torch.int64,
+                                        device=self.device)}
+        logits, self.cache = self.prefill(self.params, batch,
+                                          cache=self.cache)
+        self.cache_len = S0
+        return logits[:, -1].argmax(dim=-1).cpu().numpy()
+
+    def step(self, tokens: np.ndarray) -> np.ndarray:
+        """tokens: (B,) — the previous step's outputs."""
+        if self.cache_len >= self.max_seq:
+            raise ValueError(f"cache full: {self.max_seq} slots")
+        batch = {"tokens": torch.tensor(np.asarray(tokens),
+                                        dtype=torch.int64,
+                                        device=self.device)[:, None],
+                 "cache_len": self.cache_len}
+        logits, self.cache = self.decode(self.params, self.cache, batch)
+        self.cache_len += 1
+        return logits[:, -1].argmax(dim=-1).cpu().numpy()
+
+    def generate(self, prompts: np.ndarray, n_tokens: int) -> np.ndarray:
+        out = [self.prefill_prompts(prompts)]
+        for _ in range(n_tokens - 1):
+            out.append(self.step(out[-1]))
+        return np.stack(out, axis=1)  # (B, n_tokens)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the hand kernels) or cpu (their plain "
+                         "versions)")
+    args = ap.parse_args(argv)
+    srv = Server(args.arch, batch=args.batch,
+                 max_seq=args.prompt_len + args.tokens + 8, seed=args.seed,
+                 device=args.device)
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, srv.cfg.vocab_size,
+                           (args.batch, args.prompt_len), dtype=np.int32)
+    t0 = time.time()
+    toks = srv.generate(prompts, args.tokens)
+    if srv.device.type == "cuda":
+        torch.cuda.synchronize(srv.device)
+    dt = time.time() - t0
+    print(f"[serve] {args.batch} requests x {args.tokens} tokens in "
+          f"{dt:.2f}s ({args.batch*args.tokens/dt:.1f} tok/s) on "
+          f"{srv.device}")
+    print("[serve] outputs:", toks[:, :8].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,242 @@
+"""Shared model primitives: norms, RoPE, activations, attention cores.
+
+``window`` arguments are ``None`` (no sliding window) or an int / 0-d
+int tensor (sliding-window size).
+
+Attention dispatch follows the tensor's device, as the kernels' wrappers
+do. On a CUDA tensor, causal self-attention (``attention``) goes to the
+hand-written kernel B3 and single-token attention against the cache
+(``decode_attention``) to B4, at every length; the masks those kernels
+do not take (sliding window, prefix-LM, bidirectional, offset queries)
+raise there, since no ported arch needs them. On a CPU tensor both run
+the plain forms exactly as the JAX package dispatches them
+(``plain_attention`` up to ``chunk_threshold`` keys, then
+``flash_attention_jax``). The JAX package's sharding hints are dropped:
+the port runs on one device.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention import \
+    decode_attention as decode_attention_kernel
+from repro_torch.kernels.flash_attention import \
+    flash_attention as flash_attention_kernel
+
+Window = Union[None, int, torch.Tensor]
+
+NEG_INF = -1e30
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * w.float()).to(dt)
+
+
+def gelu(x):  # tanh approximation, as the JAX package
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str):
+    return {"silu": F.silu, "gelu": gelu, "gelu_glu": gelu}[name]
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (seq,) or (..., seq)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)  # (d/2,)
+    ang = positions[..., None].float() * freqs  # (..., seq, d/2)
+    cos = ang.cos()[..., None, :]  # broadcast over heads
+    sin = ang.sin()[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Plain attention cores (the CPU path; the plain versions of B3/B4 live
+# beside the kernels). ``plain`` materializes (Sq, Sk) scores;
+# ``flash_attention_jax`` is the online-softmax scan over KV blocks of the
+# JAX package's XLA path, kept as its plain form for long sequences.
+# --------------------------------------------------------------------------
+
+def _window_ok(ok, q_pos, k_pos, window: Window):
+    if window is None:
+        return ok
+    return ok & (k_pos[None, :] > q_pos[:, None] - window)
+
+
+def _mask_bias(ok: torch.Tensor) -> torch.Tensor:
+    return torch.where(ok, 0.0, NEG_INF)
+
+
+def plain_attention(q, k, v, *, causal: bool, window: Window = None,
+                    q_offset=0, scale: Optional[float] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D[v]). GQA by head grouping."""
+    B, Sq, H, D = q.shape
+    Hkv, Sk = k.shape[2], k.shape[1]
+    scale = scale if scale is not None else D ** -0.5
+    groups = H // Hkv
+    dev = q.device
+    qg = q.reshape(B, Sq, Hkv, groups, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float() * scale, k.float())
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+    if causal:
+        ok = k_pos[None, :] <= q_pos[:, None]
+    ok = _window_ok(ok, q_pos, k_pos, window)
+    if prefix_len > 0:  # prefix-LM: everything attends to the prefix block
+        ok = ok | (k_pos[None, :] < prefix_len)
+    p = torch.softmax(scores + _mask_bias(ok), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
+
+
+def _pad_seq(x, chunk):
+    S = x.shape[1]
+    n = (S + chunk - 1) // chunk
+    pad = n * chunk - S
+    if pad:
+        x = F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+    return x, n
+
+
+def flash_attention_jax(q, k, v, *, causal: bool, window: Window = None,
+                        q_offset=0, q_chunk: int = 2048,
+                        kv_chunk: int = 1024,
+                        scale: Optional[float] = None,
+                        prefix_len: int = 0) -> torch.Tensor:
+    """Double-chunked online-softmax attention (the JAX package's XLA
+    flash path), chunk for chunk. Like the original it scans the full
+    (q x kv) rectangle and masks; kernel B3 is what skips the tiles past
+    the diagonal. Returns v's dtype, as the original."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    Hkv = k.shape[2]
+    Dv = v.shape[-1]
+    scale = scale if scale is not None else D ** -0.5
+    if Hkv != H:
+        rep = H // Hkv
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    dev = q.device
+
+    q = q.float() * scale
+    qp, nq = _pad_seq(q, q_chunk)
+    kp, nk = _pad_seq(k, kv_chunk)
+    vp, _ = _pad_seq(v, kv_chunk)
+    outs = []
+    for qi in range(nq):
+        qb = qp[:, qi * q_chunk:(qi + 1) * q_chunk]
+        q_pos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
+        m = torch.full((B, H, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((B, H, q_chunk), device=dev)
+        acc = torch.zeros((B, H, q_chunk, Dv), device=dev)
+        for ki in range(nk):
+            kb = kp[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            vb = vp[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+            # the operands in k's dtype, the sums in float32
+            s = torch.einsum("bqhd,bkhd->bhqk", qb.to(kb.dtype).float(),
+                             kb.float())
+            bounds = (k_pos[None, :] < Sk) & (q_pos[:, None] < Sq + q_offset)
+            ok = bounds
+            if causal:
+                ok = ok & (k_pos[None, :] <= q_pos[:, None])
+            okw = _window_ok(ok, q_pos, k_pos, window)
+            if prefix_len > 0:  # bidirectional attention within the prefix
+                okw = okw | (bounds & (k_pos[None, :] < prefix_len))
+            s = s + _mask_bias(okw)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(vb.dtype).float(), vb.float())
+            m = m_new
+        ob = acc / torch.clamp_min(l, 1e-30)[..., None]  # (B, H, qc, Dv)
+        outs.append(ob.transpose(1, 2))
+    out = torch.cat(outs, dim=1)
+    return out[:, :Sq].to(v.dtype)
+
+
+def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
+              scale: Optional[float] = None, prefix_len: int = 0,
+              chunk_threshold: int = 2048, q_chunk: int = 2048,
+              kv_chunk: int = 1024) -> torch.Tensor:
+    """Sequence attention. CUDA: kernel B3 (causal self-attention only).
+    CPU: plain or chunked flash by KV length, as the JAX package."""
+    if q.device.type == "cuda":
+        if not (causal and window is None and prefix_len == 0
+                and q_offset == 0 and q.shape[1] == k.shape[1]):
+            raise NotImplementedError(
+                "on the card attention runs kernel B3, causal "
+                "self-attention with no window, prefix or query offset; "
+                "the other masks wait for the archs that need them "
+                "(ROADMAP A7)")
+        return flash_attention_kernel(q, k, v, causal=True, scale=scale)
+    if k.shape[1] <= chunk_threshold:
+        return plain_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset, scale=scale,
+                               prefix_len=prefix_len)
+    return flash_attention_jax(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset,
+                               q_chunk=min(q_chunk, q.shape[1]),
+                               kv_chunk=kv_chunk, scale=scale,
+                               prefix_len=prefix_len)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
+                     window: Window = None, prefix_len: int = 0
+                     ) -> torch.Tensor:
+    """Single-token attention against the KV cache.
+
+    q: (B, 1, H, D); caches: (B, S, Hkv, D). Positions > cache_len masked
+    (the new token itself sits at slot ``cache_len``). CUDA: kernel B4
+    (no sliding window). CPU: the JAX package's form — q scaled in
+    float32 and rounded to the cache's dtype, products in the cache's
+    dtype summed in float32.
+    """
+    if q.device.type == "cuda":
+        if window is not None:
+            raise NotImplementedError(
+                "on the card decode attention runs kernel B4, which has no "
+                "sliding window; windowed archs wait for ROADMAP A7")
+        return decode_attention_kernel(q, k_cache, v_cache, cache_len,
+                                       scale=scale)
+    B, _, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    groups = H // Hkv
+    qg = (q.float() * scale).to(k_cache.dtype).reshape(B, Hkv, groups, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float())
+    k_pos = torch.arange(S, device=q.device)
+    ok = k_pos <= cache_len
+    if window is not None:
+        okw = ok & (k_pos > cache_len - window)
+        if prefix_len > 0:
+            okw = okw | (ok & (k_pos < prefix_len))
+        ok = okw
+    p = torch.softmax(s + _mask_bias(ok), dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)

@@ -1,0 +1,234 @@
+"""The port's attention against the JAX package's, on the CPU.
+
+* the model's attention functions (``plain_attention``,
+  ``flash_attention_jax``, ``attention``, ``decode_attention``) against
+  the JAX functions of the same names, over causal / window / prefix /
+  GQA, float32: the two differ only in the order of float32 sums, so
+  1e-5 absolute on outputs of size ~1;
+* the plain versions of kernels B3 and B4 against the Pallas kernels
+  ``flash_attention_p`` / ``decode_attention_p`` run in interpret mode at
+  the reference's own cases (``tests/test_kernels.py``: ``FA_CASES``,
+  ``DA_CASES``) and tolerances (2e-5 float32, 2e-2 bf16);
+* that the wrappers take the plain versions for CPU tensors and never
+  reach a kernel.
+
+Inputs are drawn with numpy from fixed seeds and handed to both.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.decode_attention import decode_attention_p  # noqa: E402
+from repro.kernels.flash_attention import flash_attention_p  # noqa: E402
+from repro.models import common as jc  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
+from repro_torch.models import common as tc  # noqa: E402
+
+# float32 on both sides; only the summation order differs
+F32_ATOL = 1e-5
+# the reference's kernel tolerances (tests/test_kernels.py)
+KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+FA_CASES = [(1, 256, 2, 64, True), (2, 256, 4, 128, True),
+            (1, 512, 2, 64, False), (2, 128, 1, 128, True)]
+DA_CASES = [(4, 1024, 64, 256, 300), (2, 2048, 128, 512, 2047),
+            (3, 512, 32, 128, 0)]
+
+
+def _normal(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _both(a, dtype="float32"):
+    """The same numbers as a jax array and a torch CPU tensor."""
+    return (jnp.asarray(a).astype(getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+def _close(got, want, atol, rtol=0.0):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+MASKS = [  # (causal, window, prefix)
+    (True, None, 0), (False, None, 0), (True, 16, 0), (True, None, 8),
+    (True, 48, 8), (False, 16, 0)]
+HEADS = [(4, 2), (4, 4), (2, 1)]
+
+
+def _qkv(seed, B, S, H, Hkv, D=16):
+    return [_both(_normal(seed + i, B, S, h, D))
+            for i, h in enumerate((H, Hkv, Hkv))]
+
+
+@pytest.mark.parametrize("heads", HEADS, ids=lambda h: f"H{h[0]}kv{h[1]}")
+@pytest.mark.parametrize("mask", MASKS, ids=str)
+def test_plain_and_flash_attention_match_jax(mask, heads):
+    causal, window, prefix = mask
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(3, 2, 96, *heads)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    _close(tc.plain_attention(tq, tk, tv, **kw),
+           jc.plain_attention(jq, jk, jv, **kw), F32_ATOL)
+    ch = dict(q_chunk=32, kv_chunk=48)  # ragged: 96 keys in chunks of 48
+    _close(tc.flash_attention_jax(tq, tk, tv, **kw, **ch),
+           jc.flash_attention_jax(jq, jk, jv, **kw, **ch), F32_ATOL)
+
+
+@pytest.mark.parametrize("S,threshold", [(40, 2048), (72, 32)],
+                         ids=["plain-route", "flash-route"])
+@pytest.mark.parametrize("mask", MASKS[:4], ids=str)
+def test_attention_dispatch_matches_jax(mask, S, threshold):
+    causal, window, prefix = mask
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(11, 1, S, 4, 2)
+    kw = dict(causal=causal, window=window, prefix_len=prefix,
+              chunk_threshold=threshold, q_chunk=32, kv_chunk=32)
+    _close(tc.attention(tq, tk, tv, **kw), jc.attention(jq, jk, jv, **kw),
+           F32_ATOL)
+
+
+@pytest.mark.parametrize("window,prefix", [(None, 0), (8, 0), (8, 4)])
+@pytest.mark.parametrize("heads", HEADS, ids=lambda h: f"H{h[0]}kv{h[1]}")
+@pytest.mark.parametrize("cache_len", [0, 17, 39])
+def test_decode_attention_matches_jax(cache_len, heads, window, prefix):
+    H, Hkv = heads
+    (jq, tq) = _both(_normal(5, 2, 1, H, 16))
+    (jk, tk) = _both(_normal(6, 2, 40, Hkv, 16))
+    (jv, tv) = _both(_normal(7, 2, 40, Hkv, 16))
+    kw = dict(window=window, prefix_len=prefix)
+    _close(tc.decode_attention(tq, tk, tv, cache_len, **kw),
+           jc.decode_attention(jq, jk, jv, jnp.int32(cache_len), **kw),
+           F32_ATOL)
+
+
+def test_decode_attention_bf16_cache_matches_jax():
+    """bf16 caches: q rounded to bf16 after scaling and p rounded before
+    P.V on both sides; the float32 outputs then differ by the order of
+    float32 sums of the same bf16 products."""
+    (jq, tq) = _both(_normal(8, 2, 1, 8, 32), "bfloat16")
+    (jk, tk) = _both(_normal(9, 2, 64, 2, 32), "bfloat16")
+    (jv, tv) = _both(_normal(10, 2, 64, 2, 32), "bfloat16")
+    got = tc.decode_attention(tq, tk, tv, 50)
+    want = jc.decode_attention(jq, jk, jv, jnp.int32(50))
+    assert got.dtype == torch.bfloat16
+    # outputs are rounded to bf16: one rounding step of values near 1
+    _close(got, want, atol=2 ** -7)
+
+
+# ----------------------------------------------- plain versions vs Pallas
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_CASES, ids=str)
+def test_flash_plain_matches_pallas_kernel(case, dtype):
+    B, S, H, D, causal = case
+    (jq, tq), (jk, tk), (jv, tv) = [
+        _both(_normal(20 + i, B, S, H, D), dtype) for i in range(3)]
+    fold = lambda t: t.transpose(0, 2, 1, 3).reshape(B * H, S, D)
+    want = flash_attention_p(fold(jq), fold(jk), fold(jv), causal=causal,
+                             interpret=True)
+    want = np.asarray(want.astype(jnp.float32)).reshape(
+        B, H, S, D).transpose(0, 2, 1, 3)
+    got = flash_attention_plain(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = KERNEL_TOL[dtype]
+    _close(got, want, atol=tol * 3, rtol=tol)
+
+
+@pytest.mark.parametrize("case", DA_CASES, ids=str)
+def test_decode_plain_matches_pallas_kernel(case):
+    BH, S, D, bk, clen = case
+    (jq, tq) = _both(_normal(30, BH, D))
+    (jk, tk) = _both(_normal(31, BH, S, D))
+    (jv, tv) = _both(_normal(32, BH, S, D))
+    want = decode_attention_p(jq, jk, jv, jnp.int32(clen), bk=bk,
+                              interpret=True)
+    # the port's layout: BH batch rows of one head each
+    got = decode_attention_plain(tq[:, None, None, :], tk[:, :, None, :],
+                                 tv[:, :, None, :], clen)
+    _close(got[:, 0, 0], want, atol=KERNEL_TOL["float32"])
+
+
+def test_gqa_head_map_is_h_over_groups():
+    """Query head h reads KV head h // (H // Hkv) (the jnp.repeat order),
+    not h % Hkv: each head alone against its own KV head."""
+    q = torch.from_numpy(_normal(40, 1, 24, 8, 16))
+    k = torch.from_numpy(_normal(41, 1, 24, 2, 16))
+    v = torch.from_numpy(_normal(42, 1, 24, 2, 16))
+    got = flash_attention_plain(q, k, v)
+    for h in range(8):
+        one = flash_attention_plain(q[:, :, h:h + 1], k[:, :, h // 4:h // 4 + 1],
+                                    v[:, :, h // 4:h // 4 + 1])
+        torch.testing.assert_close(got[:, :, h:h + 1], one, atol=1e-6,
+                                   rtol=0)
+    clen = 20
+    got = decode_attention_plain(q[:, :1], k, v, clen)
+    model = tc.decode_attention(q[:, :1], k, v, clen)
+    torch.testing.assert_close(got, model, atol=F32_ATOL, rtol=0)
+
+
+# ----------------------------------------------------- the CPU route only
+
+def test_cpu_tensors_take_the_plain_versions():
+    q = torch.from_numpy(_normal(50, 2, 33, 4, 16))
+    k = torch.from_numpy(_normal(51, 2, 33, 2, 16))
+    launches = (flash_attention.launches, decode_attention.launches)
+    lib = dict(_build._LIBS)
+    assert torch.equal(flash_attention(q, k, k), flash_attention_plain(q, k, k))
+    assert torch.equal(ops.flash_attention(q, k, k),
+                       flash_attention_plain(q, k, k))
+    assert torch.equal(decode_attention(q[:, :1], k, k, 32),
+                       decode_attention_plain(q[:, :1], k, k, 32))
+    assert torch.equal(ops.decode_attention(q[:, :1], k, k, 5),
+                       decode_attention_plain(q[:, :1], k, k, 5))
+    assert (flash_attention.launches, decode_attention.launches) == launches
+    assert _build._LIBS == lib  # nothing was built or loaded
+
+
+@pytest.mark.parametrize("bad", ["heads", "dtype", "cache_len", "tiles"])
+def test_wrappers_reject_bad_arguments(bad):
+    q = torch.zeros(1, 8, 4, 16)
+    k = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError):
+        if bad == "heads":
+            flash_attention(q, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16))
+        elif bad == "dtype":
+            flash_attention(q, k.double(), k.double())
+        elif bad == "cache_len":
+            decode_attention(q[:, :1], k, k, 8)
+        else:
+            flash_attention(q, k, k, tiles_loaded=torch.zeros(
+                1, 4, 1, dtype=torch.int32))
+
+
+def test_model_attention_on_the_card_refuses_other_masks():
+    """The CUDA route raises for masks kernel B3/B4 do not take; it does
+    not fall back to a plain form. (Checked on the dispatch alone: the
+    meta device stands in for the card so no kernel runs.)"""
+    q = torch.zeros(1, 8, 4, 16, device="meta")
+    k = torch.zeros(1, 8, 2, 16, device="meta")
+
+    class Cuda:  # the device test the dispatch makes
+        type = "cuda"
+
+    class Q(torch.Tensor):
+        @property
+        def device(self):
+            return Cuda()
+
+    qc = q.as_subclass(Q)
+    for kw in (dict(causal=True, window=16), dict(causal=False),
+               dict(causal=True, prefix_len=4), dict(causal=True,
+                                                      q_offset=3)):
+        with pytest.raises(NotImplementedError):
+            tc.attention(qc, k, k, **kw)
+    with pytest.raises(NotImplementedError):
+        tc.decode_attention(qc[:, :1], k, k, 3, window=4)

@@ -5,7 +5,8 @@ them on a machine that has one with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-``chip_smoke.py`` makes the same comparisons at the sweep's full size.
+``chip_smoke.py`` makes the same comparisons at the sweep's and the
+serving path's full size.
 """
 import importlib
 
@@ -16,6 +17,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import opgen  # noqa: E402
 from repro_torch.core.policies import POLICIES, KnobGrid  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_plain)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.sa_occupancy import (sa_occupancy,  # noqa: E402
                                               sa_occupancy_plain)
 from repro_torch.kernels.segment_sum import (segment_sum,  # noqa: E402
@@ -86,3 +91,85 @@ def test_sweep_on_the_card_matches_the_cpu(card):
                                                     abs(b[k])), k
             else:
                 assert va == b[k], k
+
+
+# B3/B4 against their plain versions: float32 differs only in the order
+# of the float32 sums (~1e-6 seen); bf16 outputs are rounded to bf16, so
+# one rounding step of a value near 1 (2**-8) is allowed, as in
+# tests/test_kernels.py
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_inputs(card, dtype, seed, *shapes):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(*s, generator=g).to(card, dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,Hkv,D,causal", [
+    (1, 2, 1, 128, True), (17, 16, 2, 128, True), (130, 4, 4, 64, True),
+    (257, 8, 1, 16, True), (200, 4, 2, 32, False)])
+def test_flash_attention_kernel_matches_plain(card, dtype, S, H, Hkv, D,
+                                              causal):
+    q, k, v = _attn_inputs(card, dtype, S, (2, S, H, D), (2, S, Hkv, D),
+                           (2, S, Hkv, D))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_flash_attention_skips_tiles_past_the_diagonal(card):
+    B, S, H = 1, 64 * 5, 2
+    q, k, v = _attn_inputs(card, torch.bfloat16, 1, (B, S, H, 64),
+                           (B, S, 1, 64), (B, S, 1, 64))
+    tiles = torch.zeros((B, H, 5), dtype=torch.int32, device=card)
+    flash_attention(q, k, v, tiles_loaded=tiles)
+    assert tiles.cpu().tolist() == [[[1, 2, 3, 4, 5]] * H]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,H,Hkv,D,cache_len", [
+    (512, 16, 2, 128, 0), (512, 16, 2, 128, 511), (700, 8, 8, 64, 256),
+    (300, 4, 2, 16, 255)])
+def test_decode_attention_kernel_matches_plain(card, dtype, S, H, Hkv, D,
+                                               cache_len):
+    q, kc, vc = _attn_inputs(card, dtype, cache_len, (3, 1, H, D),
+                             (3, S, Hkv, D), (3, S, Hkv, D))
+    want = decode_attention_plain(q, kc, vc, cache_len)
+    kc[:, cache_len + 1:] = float("nan")  # slots the kernel must not read
+    vc[:, cache_len + 1:] = float("nan")
+    before = decode_attention.launches
+    got = decode_attention(q, kc, vc, cache_len)
+    assert decode_attention.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+def test_reduced_server_on_the_card(card):
+    """The reduced qwen2.5-3b served on the card (head dim 16): one B3
+    launch per layer at prefill, one B4 per layer and step, and prefill
+    logits within bf16 rounding of the CPU's on the same weights
+    (0.0625: eight bf16 steps at the logits' scale of ~2, as in
+    tests/test_torch_serve.py)."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.param import tree_map
+    srv = Server("qwen2.5-3b", batch=2, max_seq=48)  # device="cuda"
+    cpu = Server("qwen2.5-3b", batch=2, max_seq=48, device="cpu")
+    cpu.params = tree_map(lambda t: t.cpu(), srv.params)
+    prompts = np.random.default_rng(0).integers(0, 256, (2, 20))
+    toks = torch.tensor(prompts)
+    got, _ = srv.prefill(srv.params, {"tokens": toks.to(card)})
+    want, _ = cpu.prefill(cpu.params, {"tokens": toks})
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=0.0625,
+                               rtol=0)
+    b3, b4 = flash_attention.launches, decode_attention.launches
+    out = srv.generate(prompts, 4)
+    L = srv.cfg.n_layers
+    assert flash_attention.launches == b3 + L
+    assert decode_attention.launches == b4 + 3 * L
+    assert out.shape == (2, 4) and ((out >= 0) & (out < 256)).all()

@@ -1,0 +1,247 @@
+"""The port's model against the JAX package's, on the CPU.
+
+* configs: every arch name resolves, and the derived properties and the
+  reduced configs equal the reference's;
+* ``count_params`` equals the reference's for every dense text arch and
+  raises ``NotImplementedError`` for the families not ported yet;
+* reduced qwen2.5-3b: ``prefill_step`` and ``decode_step`` on the JAX
+  package's own weights (carried across by ``params_from_numpy``), both
+  sides in float32. Two layers of float32 matmuls in another summation
+  order: logits of size ~1 to 4 agree to 1e-4 absolute (measured at most
+  2.3e-6);
+* decode-vs-forward consistency on the port alone (the check of
+  ``tests/test_attention_equiv.py::test_decode_matches_forward``).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_arch as ref_get_arch  # noqa: E402
+from repro.configs import list_archs as ref_list_archs  # noqa: E402
+from repro.models import common as jcommon  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.models import registry as jreg  # noqa: E402
+from repro.models.param import init_params as ref_init_params  # noqa: E402
+from repro_torch.configs import get_arch, list_archs  # noqa: E402
+from repro_torch.convert import params_from_numpy  # noqa: E402
+from repro_torch.models import common as tcommon  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models import registry  # noqa: E402
+from repro_torch.models.param import (  # noqa: E402
+    cast_tree, init_params, tree_leaves)
+
+DENSE_TEXT = ["qwen2.5-3b", "qwen2.5-14b", "qwen3-32b", "qwen1.5-4b"]
+NOT_PORTED = ["mamba2-780m", "hymba-1.5b", "hubert-xlarge",
+              "granite-moe-1b-a400m", "deepseek-v2-236b", "paligemma-3b"]
+LOGIT_ATOL = 1e-4  # float32 both sides; see the module docstring
+
+
+def _ref_params(cfg, seed=0):
+    """The JAX package's weights and the same numbers as a port tree."""
+    p = ref_init_params(jreg.param_specs(cfg), jax.random.PRNGKey(seed))
+    return p, params_from_numpy(jax.tree.map(np.asarray, p))
+
+
+def _tokens(seed, B, S, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, (B, S),
+                                                dtype=np.int32)
+
+
+# ------------------------------------------------------------------ configs
+
+def test_every_arch_name_resolves():
+    assert list_archs() == ref_list_archs()
+
+
+@pytest.mark.parametrize("arch", DENSE_TEXT + NOT_PORTED)
+def test_configs_and_reduced_configs_equal_the_reference(arch):
+    for ours, ref in ((get_arch(arch), ref_get_arch(arch)),
+                      (get_arch(arch).reduced(), ref_get_arch(arch).reduced())):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+        for prop in ("vocab_padded", "q_dim", "kv_dim", "is_attention_free",
+                     "uses_full_attention_only"):
+            assert getattr(ours, prop) == getattr(ref, prop), prop
+
+
+@pytest.mark.parametrize("arch", DENSE_TEXT)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_count_params_equals_the_reference(arch, reduced):
+    ours, ref = get_arch(arch), ref_get_arch(arch)
+    if reduced:
+        ours, ref = ours.reduced(), ref.reduced()
+    assert registry.count_params(ours) == jreg.count_params(ref)
+
+
+@pytest.mark.parametrize("arch", NOT_PORTED)
+def test_unported_families_raise(arch):
+    cfg = get_arch(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        registry.count_params(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.init_cache(cfg.reduced(), 1, 8)
+
+
+def test_init_params_follows_the_fan_in_rule():
+    cfg = get_arch("qwen2.5-3b").reduced()
+    specs = registry.param_specs(cfg)
+    a = init_params(specs, torch.Generator().manual_seed(1), "cpu")
+    b = init_params(specs, torch.Generator().manual_seed(1), "cpu")
+    ref = ref_init_params(jreg.param_specs(get_arch("qwen2.5-3b").reduced()),
+                          jax.random.PRNGKey(1))
+    ref_leaves = dict(tree_leaves(jax.tree.map(np.asarray, ref)))
+    for path, s in tree_leaves(specs):
+        x = dict(tree_leaves(a))[path]
+        assert torch.equal(x, dict(tree_leaves(b))[path])  # seeded
+        assert tuple(x.shape) == s.shape == ref_leaves[path].shape
+        assert x.dtype == torch.float32
+        if s.init == "normal":
+            std = 1.0 / np.sqrt(s.shape[-2] if len(s.shape) >= 2
+                                else s.shape[-1])
+            assert abs(float(x.std()) / std - 1.0) < 0.1, path
+        else:
+            assert torch.equal(x, torch.full_like(
+                x, 1.0 if s.init == "ones" else 0.0))
+
+
+def test_init_params_leaves_no_reference_cycle():
+    """The float32 tree a server casts to bf16 must be freed when it is
+    dropped, not at the next garbage collection: at full width it is
+    12 GB of device memory."""
+    import gc
+    import weakref
+    cfg = get_arch("qwen2.5-3b").reduced()
+    gc.disable()
+    try:
+        p = init_params(registry.param_specs(cfg),
+                        torch.Generator().manual_seed(0), "cpu")
+        leaf = weakref.ref(p["layers"]["attn"]["wq"])
+        half = cast_tree(p, torch.bfloat16)
+        del p
+        assert leaf() is None
+        assert half["layers"]["attn"]["wq"].dtype == torch.bfloat16
+    finally:
+        gc.enable()
+
+
+def test_cast_tree_copies_only_what_changes():
+    t = {"w": torch.ones(3), "i": torch.arange(3)}
+    same = cast_tree(t, torch.float32)
+    assert same["w"] is t["w"] and same["i"] is t["i"]
+    half = cast_tree(t, torch.bfloat16)
+    assert half["w"].dtype == torch.bfloat16 and half["i"] is t["i"]
+
+
+# --------------------------------------------------------------- primitives
+
+def test_rms_norm_and_rope_match_jax():
+    x = np.random.default_rng(0).standard_normal((2, 7, 4, 16)).astype(
+        np.float32)
+    w = np.random.default_rng(1).standard_normal(16).astype(np.float32)
+    pos = np.arange(7)
+    np.testing.assert_allclose(
+        tcommon.rms_norm(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
+        np.asarray(jcommon.rms_norm(jnp.asarray(x), jnp.asarray(w))),
+        atol=1e-6)
+    np.testing.assert_allclose(
+        tcommon.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                           1e6).numpy(),
+        np.asarray(jcommon.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)),
+        atol=1e-5)
+
+
+# ------------------------------------------------- the reduced model vs JAX
+
+@pytest.mark.parametrize("arch", DENSE_TEXT)
+def test_prefill_and_decode_match_the_jax_model(arch):
+    cfg = get_arch(arch).reduced()
+    rcfg = ref_get_arch(arch).reduced()
+    jp, tp = _ref_params(rcfg, seed=3)
+    B, S, smax = 2, 12, 20
+    toks = _tokens(4, B, S + 3, cfg.vocab_size)
+
+    want, jcache = JM.prefill_step(jp, {"tokens": jnp.asarray(toks[:, :S])},
+                                   rcfg, dtype=jnp.float32)
+    cache = TM.init_cache(cfg, B, smax, torch.float32)
+    got, cache = TM.prefill_step(tp, {"tokens": torch.from_numpy(
+        toks[:, :S]).long()}, cfg, dtype=torch.float32, cache=cache)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=LOGIT_ATOL)
+    for ours, ref in zip(cache["layers"], jcache["layers"]):
+        np.testing.assert_allclose(ours[:, :, :S].numpy(), np.asarray(ref),
+                                   atol=LOGIT_ATOL)
+        assert not ours[:, :, S:].any()
+
+    full = JM.init_cache(rcfg, B, smax, dtype=jnp.float32)
+    jcache = jax.tree.map(
+        lambda dst, src: jax.lax.dynamic_update_slice_in_dim(
+            dst, src.astype(dst.dtype), 0, axis=2), full, jcache)
+    for t in range(3):
+        batch_j = {"tokens": jnp.asarray(toks[:, S + t:S + t + 1]),
+                   "cache_len": jnp.int32(S + t)}
+        want, jcache = JM.decode_step(jp, jcache, batch_j, rcfg,
+                                      dtype=jnp.float32)
+        batch_t = {"tokens": torch.from_numpy(
+            toks[:, S + t:S + t + 1]).long(), "cache_len": S + t}
+        got, cache = TM.decode_step(tp, cache, batch_t, cfg,
+                                    dtype=torch.float32)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=LOGIT_ATOL)
+
+
+def test_forward_matches_the_jax_model():
+    cfg = get_arch("qwen2.5-3b").reduced()
+    jp, tp = _ref_params(ref_get_arch("qwen2.5-3b").reduced(), seed=5)
+    toks = _tokens(6, 2, 30, cfg.vocab_size)
+    want, _ = JM.forward(jp, {"tokens": jnp.asarray(toks)},
+                         ref_get_arch("qwen2.5-3b").reduced(),
+                         dtype=jnp.float32)
+    got, aux = TM.forward(tp, {"tokens": torch.from_numpy(toks).long()}, cfg,
+                          dtype=torch.float32)
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=LOGIT_ATOL)
+
+
+# ----------------------------------------------- consistency, port alone
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-32b", "qwen1.5-4b"])
+def test_decode_matches_forward(arch):
+    """prefill(S) + decode steps == forward(S + n) at the same positions
+    (float32; both paths run the same float32 arithmetic in another
+    order). Post-softmax distributions compared, as the reference's
+    test does, at its 2e-3."""
+    cfg = get_arch(arch).reduced()
+    params = init_params(registry.param_specs(cfg),
+                         torch.Generator().manual_seed(9), "cpu")
+    B, S, n = 2, 24, 3
+    toks = torch.from_numpy(_tokens(9, B, S + n, cfg.vocab_size)).long()
+    want, _ = TM.forward(params, {"tokens": toks}, cfg, dtype=torch.float32)
+    cache = TM.init_cache(cfg, B, S + n + 4, torch.float32)
+    _, cache = TM.prefill_step(params, {"tokens": toks[:, :S]}, cfg,
+                               dtype=torch.float32, cache=cache)
+    for t in range(n):
+        got, cache = TM.decode_step(
+            params, cache, {"tokens": toks[:, S + t:S + t + 1],
+                            "cache_len": S + t}, cfg, dtype=torch.float32)
+        torch.testing.assert_close(got[:, 0].softmax(-1),
+                                   want[:, S + t].softmax(-1), atol=2e-3,
+                                   rtol=0)
+
+
+def test_prefill_without_a_cache_returns_the_prompt_kv():
+    cfg = get_arch("qwen2.5-3b").reduced()
+    params = init_params(registry.param_specs(cfg),
+                         torch.Generator().manual_seed(2), "cpu")
+    toks = torch.from_numpy(_tokens(2, 2, 9, cfg.vocab_size)).long()
+    last, cache = TM.prefill_step(params, {"tokens": toks}, cfg)
+    k, v = cache["layers"]
+    assert last.shape == (2, 1, cfg.vocab_padded)
+    assert k.shape == v.shape == (cfg.n_layers, 2, 9, cfg.n_kv_heads,
+                                  cfg.head_dim)
+    assert k.dtype == torch.bfloat16

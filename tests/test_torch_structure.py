@@ -1,5 +1,6 @@
-"""Structure of the port: what it may import, where a library scatter-add
-may appear, and that it needs neither ``nvcc`` nor a card to be imported.
+"""Structure of the port: what it may import, where a library call that
+does a kernel's job (a scatter-add, fused attention) may appear, and that
+it needs neither ``nvcc`` nor a card to be imported.
 """
 import ast
 import importlib
@@ -23,7 +24,9 @@ FOREIGN_IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)", re.MULTILINE)
 # one PyTorch call that does a kernel's job: never on the CUDA path
 LIBRARY_CALLS = {"index_add_", "index_add", "scatter_add", "scatter_add_",
-                 "segment_reduce", "bincount", "compile"}
+                 "segment_reduce", "bincount", "compile",
+                 "scaled_dot_product_attention", "flash_attention_forward",
+                 "multi_head_attention_forward"}
 
 MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.configs.base",
            "repro_torch.core", "repro_torch.core.hw",
@@ -32,7 +35,17 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.configs.base",
            "repro_torch.core.backend", "repro_torch.core.policies",
            "repro_torch.core.sweep", "repro_torch.kernels._build",
            "repro_torch.kernels.sa_occupancy",
-           "repro_torch.kernels.segment_sum"]
+           "repro_torch.kernels.segment_sum", "repro_torch.configs",
+           "repro_torch.configs.qwen2_5_3b", "repro_torch.kernels.ref",
+           "repro_torch.kernels.flash_attention",
+           "repro_torch.kernels.decode_attention", "repro_torch.kernels.ops",
+           "repro_torch.models.param", "repro_torch.models.common",
+           "repro_torch.models.blocks", "repro_torch.models.registry",
+           "repro_torch.models.model", "repro_torch.train.steps",
+           "repro_torch.launch.serve"]
+CONFIG_FILES = ["deepseek_v2_236b", "granite_moe_1b", "hubert_xlarge",
+                "hymba_1_5b", "mamba2_780m", "paligemma_3b", "qwen1_5_4b",
+                "qwen2_5_14b", "qwen2_5_3b", "qwen3_32b"]
 
 
 def _run(code_or_path, *, cwd=None, env_extra=None, script=False):
@@ -51,7 +64,13 @@ def test_slice_modules_exist():
                 "core/opgen.py", "core/sa_gating.py", "core/session.py",
                 "core/backend.py", "core/policies.py", "core/sweep.py",
                 "kernels/_build.py", "kernels/sa_occupancy.py",
-                "kernels/segment_sum.py", "kernels/csrc/power_plane.cu"):
+                "kernels/segment_sum.py", "kernels/csrc/power_plane.cu",
+                "kernels/ref.py", "kernels/ops.py",
+                "kernels/flash_attention.py", "kernels/decode_attention.py",
+                "kernels/csrc/attention.cu", "models/param.py",
+                "models/common.py", "models/blocks.py", "models/registry.py",
+                "models/model.py", "train/steps.py", "launch/serve.py",
+                *(f"configs/{c}.py" for c in CONFIG_FILES)):
         assert (PKG / rel).is_file(), rel
     assert SMOKE.is_file()
 
@@ -65,7 +84,8 @@ def test_no_jax_and_no_reference_package_imports(path):
 
 @pytest.mark.parametrize("first", ["repro_torch.core",
                                    "repro_torch.kernels.sa_occupancy",
-                                   "repro_torch.kernels.segment_sum"])
+                                   "repro_torch.kernels.segment_sum",
+                                   "repro_torch.launch.serve"])
 def test_imports_with_nvcc_absent(first):
     """Every module imports with no ``nvcc`` reachable and pulls in
     neither jax nor the reference package, whichever sub-package is
@@ -80,7 +100,7 @@ def test_imports_with_nvcc_absent(first):
             f"m.startswith('repro.')]\n"
             f"assert not bad, bad\n"
             f"from repro_torch.kernels import _build\n"
-            f"assert _build._LIB is None\n")
+            f"assert _build._LIBS == {{}}\n")
     proc = _run(code, env_extra={"PATH": ""})
     assert proc.returncode == 0, proc.stderr[-3000:]
 
@@ -108,14 +128,30 @@ def test_library_scatter_adds_only_in_plain_versions():
                 (path.name, node.lineno, node.attr, owners)
 
 
-def test_cuda_source_says_what_it_replaces():
-    cu = (PKG / "kernels" / "csrc" / "power_plane.cu").read_text()
-    assert 'extern "C" int sa_occupancy_launch' in cu
-    assert 'extern "C" int segment_sum_launch' in cu
-    assert "src/repro/kernels/sa_occupancy.py" in cu
-    assert "jax.ops.segment_sum" in cu
+CUDA_SOURCES = {
+    "power_plane.cu": (("sa_occupancy_launch", "segment_sum_launch"),
+                       ("src/repro/kernels/sa_occupancy.py",
+                        "jax.ops.segment_sum")),
+    "attention.cu": (("flash_attention_launch", "decode_attention_launch"),
+                     ("src/repro/kernels/flash_attention.py",
+                      "src/repro/kernels/decode_attention.py")),
+}
+
+
+@pytest.mark.parametrize("source", sorted(CUDA_SOURCES))
+def test_cuda_source_says_what_it_replaces(source):
+    cu = (PKG / "kernels" / "csrc" / source).read_text()
+    launchers, replaced = CUDA_SOURCES[source]
+    for name in launchers:
+        assert f'extern "C" int {name}' in cu
+    for ref in replaced:
+        assert ref in cu
     assert "torch/extension.h" not in cu and "atomicAdd" not in cu
     assert cu.count("cudaGetLastError()") >= 2
+    # every source is a library of its own with its own flags
+    from repro_torch.kernels import _build
+    assert any(lib.source.name == source
+               for lib in _build.LIBRARIES.values())
 
 
 def test_cpu_tensors_never_reach_the_kernels():
@@ -125,11 +161,20 @@ def test_cpu_tensors_never_reach_the_kernels():
     from repro_torch.kernels.sa_occupancy import sa_occupancy
     from repro_torch.kernels.segment_sum import segment_sum
     sweep = importlib.import_module("repro_torch.core.sweep").sweep
-    k1, k2, lib = sa_occupancy.launches, segment_sum.launches, _build._LIB
+    k1, k2, libs = sa_occupancy.launches, segment_sum.launches, \
+        dict(_build._LIBS)
     recs = sweep(paper_suite()[12:14], device="cpu")
     assert recs and all(np.isfinite(r["total_j"]) for r in recs)
     assert (sa_occupancy.launches, segment_sum.launches) == (k1, k2)
-    assert _build._LIB is lib  # nothing was built or loaded
+    assert _build._LIBS == libs  # nothing was built or loaded
+
+
+def test_fmad_off_only_where_bits_are_promised():
+    from repro_torch.kernels import _build
+    assert "-fmad=false" in _build.LIBRARIES["power_plane"].flags
+    assert "-fmad=false" not in _build.LIBRARIES["attention"].flags
+    assert all("arch=compute_90a,code=sm_90a" in lib.flags
+               for lib in _build.LIBRARIES.values())
 
 
 def test_chip_smoke_fails_without_a_card():
