@@ -51,6 +51,14 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
     lib.decode_attention_launch.restype = ctypes.c_int
 
 
+def _bind_ssd_scan(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_launch.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.ssd_scan_launch.restype = ctypes.c_int
+
+
 @dataclass(frozen=True)
 class Library:
     source: Path
@@ -68,6 +76,7 @@ LIBRARIES = {
                            COMMON_FLAGS + ("-fmad=false",), _bind_power_plane),
     "attention": Library(CSRC / "attention.cu", COMMON_FLAGS,
                          _bind_attention),
+    "ssd_scan": Library(CSRC / "ssd_scan.cu", COMMON_FLAGS, _bind_ssd_scan),
 }
 
 _LOCK = threading.Lock()

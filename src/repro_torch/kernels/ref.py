@@ -1,4 +1,4 @@
-"""Plain PyTorch oracles of the attention kernels (the allclose
+"""Plain PyTorch oracles of the attention and SSD kernels (the allclose
 references), as ``repro/kernels/ref.py`` keeps them for the Pallas ones."""
 from __future__ import annotations
 
@@ -38,3 +38,27 @@ def ref_decode_attention(q, k_cache, v_cache, cache_len: int, *,
                                                  device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bk,bkd->bd", p, v_cache.float()).to(q.dtype)
+
+
+def ref_ssd(x, dt, A, B, C) -> tuple[torch.Tensor, torch.Tensor]:
+    """Naive sequential SSD recurrence (the ground truth), a Python loop
+    over time in float32; for the tests.
+
+    x: (BH, S, P); dt: (BH, S); A: (BH,); B/C: (BH, S, N).
+    h_t = exp(dt_t A) h_{t-1} + dt_t * B_t (outer) x_t ;  y_t = C_t . h_t
+    Returns y: (BH, S, P) in x's dtype and the final state (BH, P, N)
+    in float32.
+    """
+    BH, S, P = x.shape
+    N = B.shape[-1]
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    A = A.float()
+    h = torch.zeros((BH, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * A)  # (BH,)
+        h = h * decay[:, None, None] \
+            + (dtf[:, t, None] * xf[:, t])[:, :, None] * Bf[:, t, None, :]
+        ys.append(torch.einsum("bpn,bn->bp", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((BH, 0, P))
+    return y.to(x.dtype), h

@@ -1,0 +1,173 @@
+"""Mamba-2 chunked SSD scan — CUDA kernel B5.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan.py``
+(``_kernel`` / ``ssd_scan_p``, wrapper ``ops.ssd_scan``), which computes
+what the JAX model's ``blocks._ssd_chunk_scan`` computes at every SSD
+prefill. The kernel, its bound on the card and the reasons for its design
+are in ``csrc/ssd_scan.cu``; in short: one block per (head, batch) walks
+the chunks in order with the ``(P, N)`` state in shared memory from the
+first chunk to the last; it takes the model's ``(B, S, nh, hd)`` x and
+``(B, S, G, N)`` B/C (not repeated to heads) through strides, any S (the
+ragged last chunk is masked), and writes the final state where the caller
+asks (the model: its cache's layer slice). Bound by bytes at the serving
+shape; its products run on the CUDA cores in float32 — right first.
+
+``ssd_scan`` launches the kernel for CUDA tensors and evaluates
+``ssd_scan_plain`` for CPU tensors; nothing else selects between them,
+and a kernel that fails to build or launch raises.
+``ssd_scan.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+#: the kernel's own chunk length (``csrc/ssd_scan.cu``), also the plain
+#: version's default
+CHUNK = 64
+HEAD_DIMS = (16, 32, 64)          # P
+STATE_DIMS = (16, 32, 64, 128)    # N
+DTYPES = (torch.float32, torch.bfloat16)
+NEG_INF = -1e30
+
+
+def _check(x, dt, A, B, C) -> tuple[int, int, int, int, int, int]:
+    if x.dim() != 4 or B.dim() != 4:
+        raise ValueError(f"want x (B, S, nh, hd) and B/C (B, S, G, N); got "
+                         f"{tuple(x.shape)} {tuple(B.shape)}")
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if dt.shape != (Bz, S, H) or A.shape != (Bz, H):
+        raise ValueError(f"want dt ({Bz}, {S}, {H}) and A ({Bz}, {H}); got "
+                         f"{tuple(dt.shape)} {tuple(A.shape)}")
+    if B.shape != (Bz, S, G, N) or C.shape != B.shape:
+        raise ValueError(f"B/C must be ({Bz}, {S}, G, N) alike, got "
+                         f"{tuple(B.shape)} {tuple(C.shape)}")
+    if G == 0 or H % G:
+        raise ValueError(f"heads {H} must be a multiple of groups {G}")
+    if S == 0:
+        raise ValueError("empty sequence (S = 0)")
+    if not (x.dtype == B.dtype == C.dtype) or x.dtype not in DTYPES:
+        raise ValueError(f"want x, B, C of one dtype of {DTYPES}, got "
+                         f"{x.dtype} {B.dtype} {C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"want dt and A in float32, got {dt.dtype} "
+                         f"{A.dtype}")
+    devs = {t.device for t in (x, dt, A, B, C)}
+    if len(devs) != 1:
+        raise ValueError(f"x, dt, A, B, C on several devices: {devs}")
+    return Bz, S, H, P, G, N
+
+
+def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = CHUNK
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of B5: the chunked einsum form of the JAX
+    model path (``blocks._ssd_chunk_scan``), chunk for chunk, in the
+    wrapper's layout. Groups are repeated to heads (head ``h`` reads group
+    ``h // (nh // G)``); a ragged last chunk is padded with ``dt = 0``,
+    ``x = B = C = 0``, as the kernel does. Returns y ``(B, S, nh, hd)``
+    and the final state ``(B, nh, hd, N)``, both float32."""
+    Bz, S, H, P, G, N = _check(x, dt, A, B, C)
+    if H != G:
+        B = B.repeat_interleave(H // G, dim=2)
+        C = C.repeat_interleave(H // G, dim=2)
+    Q = int(chunk)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    xf, Bf, Cf = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)) for t in (x, B, C))
+    dtf = F.pad(dt.float(), (0, 0, 0, pad))
+    Af = A.float()[:, None, :]  # (B, 1, nh)
+    dev = x.device
+    h = torch.zeros((Bz, H, P, N), dtype=torch.float32, device=dev)
+    iq = torch.arange(Q, device=dev)
+    causal = (iq[:, None] >= iq[None, :])[None, :, :, None]
+    ys = []
+    for c in range(nc):
+        sl = slice(c * Q, (c + 1) * Q)
+        xq, dtq, Bq, Cq = xf[:, sl], dtf[:, sl], Bf[:, sl], Cf[:, sl]
+        cum = torch.cumsum(dtq * Af, dim=1)          # (B, Q, nh)
+        # mask the log BEFORE exp: above the diagonal it is positive and
+        # would overflow
+        lmat = cum[:, :, None, :] - cum[:, None, :, :]  # (B, Qi, Qj, nh)
+        lmat = torch.exp(torch.where(causal, lmat,
+                                     torch.full((), NEG_INF, device=dev)))
+        scores = torch.einsum("bihn,bjhn->bijh", Cq, Bq)
+        dx = dtq[..., None] * xq                      # (B, Q, nh, hd)
+        y_intra = torch.einsum("bijh,bijh,bjhp->bihp", scores, lmat, dx)
+        y_inter = torch.einsum("bihn,bhpn,bih->bihp", Cq, h, torch.exp(cum))
+        decay_to_end = torch.exp(cum[:, -1:, :] - cum)  # (B, Q, nh)
+        s_chunk = torch.einsum("bjhn,bjhp,bjh->bhpn", Bq, dx, decay_to_end)
+        h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + s_chunk
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+def _st(t: torch.Tensor, dims):
+    return (ctypes.c_int64 * len(dims))(*(t.stride(i) for i in dims))
+
+
+def _launch(lib, x, dt, A, B, C, y, state, *, stream: int) -> int:
+    """One call of the C launcher; the arguments are already checked."""
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    return lib.ssd_scan_launch(
+        int(x.dtype == torch.bfloat16), x.data_ptr(), dt.data_ptr(),
+        A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+        state.data_ptr(), Bz, S, H, G, P, N, _st(x, (0, 1, 2)),
+        _st(dt, (0, 1, 2)), _st(A, (0, 1)), _st(B, (0, 1, 2)),
+        _st(C, (0, 1, 2)), _st(state, (0, 1, 2)), stream)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *,
+             out_state: Optional[torch.Tensor] = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD scan over x ``(B, S, nh, hd)`` (bf16 or float32), dt
+    ``(B, S, nh)`` float32 (after softplus), A ``(B, nh)`` float32
+    (negative; any strides, e.g. an ``(nh,)`` vector expanded over the
+    batch), B/C ``(B, S, G, N)`` in x's dtype with ``nh % G == 0``.
+    Returns y ``(B, S, nh, hd)`` float32 and the final state
+    ``(B, nh, hd, N)`` float32 — written into ``out_state`` when it is
+    given (e.g. a cache's layer slice), which is then returned.
+    """
+    Bz, S, H, P, G, N = _check(x, dt, A, B, C)
+    dev = x.device
+    if out_state is not None and (
+            out_state.shape != (Bz, H, P, N)
+            or out_state.dtype != torch.float32 or out_state.device != dev
+            or out_state.stride(-1) != 1 or out_state.stride(-2) != N):
+        raise ValueError(f"out_state: want float32 ({Bz}, {H}, {P}, {N}) on "
+                         f"{dev} with its last two dims contiguous")
+    if dev.type != "cuda":
+        y, h = ssd_scan_plain(x, dt, A, B, C)
+        if out_state is None:
+            return y, h
+        out_state.copy_(h)
+        return y, out_state
+    if P not in HEAD_DIMS or N not in STATE_DIMS:
+        raise ValueError(f"head dim {P}, state dim {N}: the kernel is built "
+                         f"for {HEAD_DIMS} x {STATE_DIMS}")
+    if not all(t.stride(-1) == 1 for t in (x, B, C)):
+        # the kernel's global loads are scalar, so no alignment beyond the
+        # element's own is needed; only the last dim must be contiguous
+        raise ValueError("x, B and C must have a contiguous last dim")
+    y = torch.empty((Bz, S, H, P), dtype=torch.float32, device=dev)
+    state = out_state if out_state is not None else torch.empty(
+        (Bz, H, P, N), dtype=torch.float32, device=dev)
+    if Bz == 0 or H == 0:  # a zero-size grid is a launch error
+        return y, state
+    lib = _build.load("ssd_scan")
+    with torch.cuda.device(dev):
+        err = _launch(lib, x, dt, A, B, C, y, state,
+                      stream=torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ssd_scan")
+    ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0

@@ -1,18 +1,24 @@
-"""Batched serving driver: prefill + decode with a KV cache.
+"""Batched serving: prefill + decode with a KV / state cache.
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b [--device cuda]
+    python -m repro_torch.launch.serve --arch mamba2-780m [--device cuda]
 
 Serves a fixed batch of seeded random prompts: one prefill, then one
 decode step per generated token, every request sharing one cache of
-``max_seq`` slots. On the card (the default device) every attention call
-runs the hand-written kernels: B3 over the prompt, B4 at each step.
+``max_seq`` slots (an SSD arch's cache is its conv tails and states,
+whatever ``max_seq``; the prompt-length rule is the same). On the card
+(the default device) the hand-written kernels run: for the dense family
+B3 over the prompt and B4 at each step, for the SSD family B5 over the
+prompt; an SSD decode step is the plain recurrent update.
 
 Differences from the JAX package's ``repro.launch.serve``, all for an
 eager runtime: the weights are cast to bf16 once, at construction (the
 jitted reference casts inside every step; eager PyTorch would copy the
 whole tree per step); the cache is allocated once, at construction, and
-the prompt's K/V are written into it (no graft); decode steps update it
-in place. Arrival-driven serving (``serve_arrivals``, ``--arrivals``)
+the prompt's K/V, or conv tails and states, are written into it (no
+graft; a prompt shorter than the conv width keeps its tail right-aligned,
+where the JAX server's graft left-aligns it); decode steps update it in
+place. Arrival-driven serving (``serve_arrivals``, ``--arrivals``)
 needs the fleet and guard planes and waits for ROADMAP A5.
 """
 from __future__ import annotations
@@ -51,11 +57,12 @@ class Server:
         self.prefill = make_prefill_step(self.cfg)
         self.decode = make_serve_step(self.cfg)
         self.cache = M.init_cache(self.cfg, batch, max_seq, torch.bfloat16,
-                                  self.device)
+                                  device=self.device)
         self.cache_len = 0
 
     def prefill_prompts(self, prompts: np.ndarray) -> np.ndarray:
-        """prompts: (B, S0) int. Fills the shared cache's first S0 slots;
+        """prompts: (B, S0) int. Fills the shared cache (the first S0 KV
+        slots, or the SSD conv tails and states);
         returns the first generated token of each request, (B,)."""
         B, S0 = prompts.shape
         if B != self.batch or not 0 < S0 < self.max_seq:

@@ -1,4 +1,5 @@
-"""Transformer block implementations: dense / GQA attention and the MLP.
+"""Block implementations: dense / GQA attention, the MLP, and the SSD
+(Mamba-2) block.
 
 Every block family exposes:
 
@@ -7,17 +8,19 @@ Every block family exposes:
   mode it also returns the per-layer cache entries;
 * ``<family>_decode(p, x, cache, ...)`` -> single-token forward.
 
-Only the families of the dense text archs are here; MLA, MoE, SSD and
-hybrid blocks wait for ROADMAP A7 (``registry.param_specs`` refuses those
-archs before a block is reached).
+The families of the dense text archs and of the attention-free SSD arch
+are here; MLA, MoE and hybrid blocks wait for ROADMAP A7
+(``registry.param_specs`` refuses those archs before a block is reached).
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.models.common import (
     Window, act_fn, apply_rope, attention, decode_attention, rms_norm)
 from repro_torch.models.param import spec
@@ -121,3 +124,201 @@ def mlp_specs(cfg: ArchConfig) -> dict:
 def mlp_fwd(p, x, cfg: ArchConfig):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     return (act_fn(cfg.act)(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"]
+
+
+# ==========================================================================
+# SSD (Mamba-2 state-space duality)
+#
+# Dispatch follows the device, as attention does: on a CUDA tensor
+# ``ssd_fwd`` runs kernel B5 on the un-repeated groups; on a CPU tensor the
+# plain ``_ssd_chunk_scan`` exactly as the JAX package computes it (groups
+# repeated to heads, the JAX chunk choice). ``ssd_decode`` is plain PyTorch
+# on both devices: a handful of elementwise ops on a (B, nh, hd, N) state,
+# for which the JAX package has no Pallas kernel either.
+# ==========================================================================
+
+def _a_log_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    """A_log = log(1 + 15 u), u uniform: A = -exp(A_log) in [-16, -1]."""
+    lo, hi = 1.0, 16.0
+    u = torch.rand(shape, generator=gen, dtype=torch.float32, device=device)
+    return torch.log(lo + u * (hi - lo)).to(dtype)
+
+
+def ssd_specs(cfg: ArchConfig) -> dict:
+    ss = cfg.ssm
+    D = cfg.d_model
+    di = ss.d_inner(D)
+    nh = ss.n_heads(D)
+    GN = ss.n_groups * ss.d_state
+    w = ss.conv_width
+    return {
+        "ln": spec((D,), ("embed",), init="ones"),
+        "in_x": spec((D, di), ("embed", "ssm_inner")),
+        "in_z": spec((D, di), ("embed", "ssm_inner")),
+        "in_B": spec((D, GN), ("embed", None)),
+        "in_C": spec((D, GN), ("embed", None)),
+        "in_dt": spec((D, nh), ("embed", None)),
+        "conv_x": spec((w, di), (None, "ssm_inner"), init="small_normal",
+                       init_scale=0.5),
+        "conv_B": spec((w, GN), (None, None), init="small_normal",
+                       init_scale=0.5),
+        "conv_C": spec((w, GN), (None, None), init="small_normal",
+                       init_scale=0.5),
+        "conv_b": spec((di + 2 * GN,), (None,), init="zeros"),
+        "dt_bias": spec((nh,), (None,), init="zeros"),
+        "A_log": spec((nh,), (None,), custom_init=_a_log_init),
+        "D_skip": spec((nh,), (None,), init="ones"),
+        "gnorm": spec((di,), ("ssm_inner",), init="ones"),
+        "out_proj": spec((di, D), ("ssm_inner", "embed")),
+    }
+
+
+def _causal_conv(x, w, b):
+    """x: (B, S, C); w: (W, C) depthwise causal conv via shifted adds."""
+    W = w.shape[0]
+    y = x * w[W - 1]
+    for i in range(1, W):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :-i or None, :]
+        y = y + shifted * w[W - 1 - i]
+    return y + b
+
+
+def _largest_chunk(S: int) -> int:
+    for q in (256, 128, 64, 32, 16, 8, 4, 2, 1):
+        if S % q == 0:
+            return q
+    return 1
+
+
+def _ssd_chunk_scan(xh, dt, A, Bm, Cm):
+    """Chunked SSD core, the JAX package's plain form and chunk choice.
+
+    xh: (B, S, nh, hd); dt: (B, S, nh) (post-softplus); A: (nh,) negative;
+    Bm/Cm: (B, S, nh, N) (already broadcast from groups to heads).
+    Returns y: (B, S, nh, hd) and the final state (B, nh, hd, N), float32.
+    """
+    Bsz, S, nh, _ = xh.shape
+    Q = min(S, 256) if S % 256 == 0 or S < 256 else _largest_chunk(S)
+    return ssd_scan_plain(xh, dt, A.float().expand(Bsz, nh), Bm, Cm,
+                          chunk=Q)
+
+
+def _heads(t, nh: int):
+    """(B, S, G, N) groups -> (B, S, nh, N) heads, the ``jnp.repeat``
+    order: head h reads group h // (nh // G)."""
+    return t.repeat_interleave(nh // t.shape[2], dim=2)
+
+
+def _ssd_inputs(p, h, cfg: ArchConfig, conv_state=None):
+    """Shared projection + causal conv for fwd and decode.
+
+    h: (B, S, D). Returns x (B, S, nh, hd), z, dt (float32), Bm and Cm
+    (B, S, G, N) — per group, not repeated to heads as in the JAX package
+    (``_heads`` does that where a plain form needs it) — and the new conv
+    tail, three (B, W-1, ·) tensors. At prefill the tail is the last W-1
+    pre-conv rows, right-aligned with zeros before them when S < W-1 (the
+    JAX package keeps only the S rows it has, and its server grafts them
+    left-aligned into the decode cache); at decode (``conv_state`` given)
+    it is the stored tail shifted by the new token.
+    """
+    ss = cfg.ssm
+    D = cfg.d_model
+    di, nh = ss.d_inner(D), ss.n_heads(D)
+    GN = ss.n_groups * ss.d_state
+    W = ss.conv_width
+    B_, S, _ = h.shape
+
+    x = h @ p["in_x"]
+    z = h @ p["in_z"]
+    Bm = h @ p["in_B"]
+    Cm = h @ p["in_C"]
+    dt = h @ p["in_dt"]
+
+    bx, bB, bC = torch.split(p["conv_b"], [di, GN, GN])
+    if conv_state is not None:  # decode: prepend the stored tail
+        full = [torch.cat([tail.to(t.dtype), t], dim=1)
+                for tail, t in zip(conv_state, (x, Bm, Cm))]
+        new_tail = tuple(f[:, -(W - 1):] for f in full)
+        x, Bm, Cm = (_causal_conv(f, p[k], b)[:, W - 1:] for f, k, b in
+                     zip(full, ("conv_x", "conv_B", "conv_C"), (bx, bB, bC)))
+    else:
+        # a copy of the last rows, not a view that would keep the whole
+        # (B, S, ·) projection alive
+        new_tail = tuple(F.pad(t[:, -(W - 1):], (0, 0, max(0, W - 1 - S), 0))
+                         for t in (x, Bm, Cm))
+        x = _causal_conv(x, p["conv_x"], bx)
+        Bm = _causal_conv(Bm, p["conv_B"], bB)
+        Cm = _causal_conv(Cm, p["conv_C"], bC)
+    x = F.silu(x)
+    Bm = F.silu(Bm)
+    Cm = F.silu(Cm)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+
+    x = x.reshape(B_, S, nh, ss.head_dim)
+    Bm = Bm.reshape(B_, S, ss.n_groups, ss.d_state)
+    Cm = Cm.reshape(B_, S, ss.n_groups, ss.d_state)
+    return x, z, dt, Bm, Cm, new_tail
+
+
+def _ssd_output(p, y, x, z, cfg: ArchConfig):
+    ss = cfg.ssm
+    B_, S = y.shape[0], y.shape[1]
+    di = ss.d_inner(cfg.d_model)
+    y = y + x.float() * p["D_skip"].float()[..., None]
+    y = y.reshape(B_, S, di)
+    y = rms_norm(y.to(z.dtype) * F.silu(z), p["gnorm"], cfg.norm_eps)
+    return y @ p["out_proj"]
+
+
+def ssd_fwd(p, x_res, cfg: ArchConfig, *, return_cache: bool = False,
+            state_out=None):
+    """Mamba-2 block over a sequence. x_res: (B, S, D).
+
+    With ``return_cache`` also returns ``(conv_tail, h_final)``.
+    ``state_out`` (a float32 ``(B, nh, hd, N)`` tensor, e.g. a cache's
+    layer slice) receives the final state in place — written by kernel B5
+    itself on the card — and is the ``h_final`` returned.
+    """
+    h = rms_norm(x_res, p["ln"], cfg.norm_eps)
+    x, z, dt, Bm, Cm, conv_tail = _ssd_inputs(p, h, cfg)
+    A = -torch.exp(p["A_log"].float())
+    if x.device.type == "cuda":
+        y, h_final = ssd_scan(x, dt, A.expand(x.shape[0], -1), Bm, Cm,
+                              out_state=state_out)
+    else:
+        nh = x.shape[2]
+        y, h_final = _ssd_chunk_scan(x, dt, A, _heads(Bm, nh),
+                                     _heads(Cm, nh))
+        if state_out is not None:
+            h_final = state_out.copy_(h_final)
+    out = _ssd_output(p, y, x, z, cfg)
+    if return_cache:
+        return out, (conv_tail, h_final)
+    return out
+
+
+def ssd_decode(p, x_res, conv_state, ssm_state, cfg: ArchConfig):
+    """Single-token recurrent update. x_res: (B, 1, D); conv_state: 3x
+    (B, W-1, ·); ssm_state: (B, nh, hd, N) float32.
+
+    Unlike the JAX package, which returns updated copies, the conv tails
+    and the SSM state are updated in place, as the KV cache is, and the
+    same tensors are returned.
+    """
+    h = rms_norm(x_res, p["ln"], cfg.norm_eps)
+    x, z, dt, Bm, Cm, new_tail = _ssd_inputs(p, h, cfg, conv_state)
+    for dst, src in zip(conv_state, new_tail):
+        dst.copy_(src)
+    A = -torch.exp(p["A_log"].float())
+    nh = x.shape[2]
+    # recurrent step: h' = exp(dt*A) h + dt * B (outer) x ; y = C . h'
+    dtq = dt[:, 0]                              # (B, nh)
+    xq = x[:, 0].float()                        # (B, nh, hd)
+    Bq = _heads(Bm, nh)[:, 0].float()           # (B, nh, N)
+    Cq = _heads(Cm, nh)[:, 0].float()
+    decay = torch.exp(dtq * A)[..., None, None]
+    upd = torch.einsum("bh,bhp,bhn->bhpn", dtq, xq, Bq)
+    ssm_state.mul_(decay).add_(upd)
+    y = torch.einsum("bhpn,bhn->bhp", ssm_state, Cq)[:, None]  # (B,1,nh,hd)
+    out = _ssd_output(p, y, x, z, cfg)
+    return out, conv_state, ssm_state

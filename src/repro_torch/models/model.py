@@ -5,11 +5,13 @@ weights stacked on a leading axis), with the JAX package's names and its
 ``(B, S, H, D)`` layout at every public function. The layer ``lax.scan``
 is a Python loop over the stacked weights (a layer's weights are views,
 nothing is copied). On a CUDA tensor every attention call goes through
-the hand kernels (B3 at prefill, B4 at decode); on a CPU tensor through
-their plain forms.
+the hand kernels (B3 at prefill, B4 at decode) and every SSD prefill
+through B5; on a CPU tensor through their plain forms.
 
-This slice runs the dense text family; ``registry.param_specs`` raises
-for the rest, and so do the entry points here, before any work.
+The port runs the dense text family and the SSD family;
+``registry.param_specs`` raises for the rest, and so do the entry points
+here, before any work. Caches are updated in place: the KV cache by slot,
+the SSD conv tails and states whole.
 """
 from __future__ import annotations
 
@@ -51,9 +53,25 @@ def _layer(layers, i: int):
     return tree_map(lambda a: a[i], layers)
 
 
+def _cache_slice(tree, i: int):
+    """Layer ``i``'s entries of a stacked cache (nested tuples): views."""
+    if isinstance(tree, tuple):
+        return tuple(_cache_slice(t, i) for t in tree)
+    return tree[i]
+
+
 def _apply_layer(p, x, cfg: ArchConfig, *, window, prefix_len: int,
-                 prefill: bool):
-    """Returns (x, cache_entry_or_None)."""
+                 prefill: bool, slot=None):
+    """Returns (x, cache_entry_or_None). ``slot``: this layer's slice of a
+    given cache, where an SSD layer's final state is written in place."""
+    if cfg.family == "ssm":
+        if prefill:
+            y, cache = blocks.ssd_fwd(
+                p["ssd"], x, cfg, return_cache=True,
+                state_out=None if slot is None else slot[1])
+        else:
+            y, cache = blocks.ssd_fwd(p["ssd"], x, cfg), None
+        return x + y, cache
     if prefill:
         y, cache = blocks.attn_fwd(p["attn"], x, cfg, window=window,
                                    prefix_len=prefix_len, return_cache=True)
@@ -77,33 +95,61 @@ def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
     Returns (logits (B, S, V), aux) when ``prefill=False``, aux a zero
     scalar (it carries the MoE loss in the JAX package); (last_logits
     (B, 1, V), cache) when ``prefill=True``. The cache is
-    ``{"layers": (k, v)}``, each (L, B, S, Hkv, hd): a new one, or, when
-    ``cache`` (an ``init_cache`` of at least S slots) is given, that one
-    with the prompt's K/V written into its first S slots in place.
+    ``{"layers": entries}`` stacked on L (``layer_cache_struct``): for the
+    dense family (k, v), each (L, B, S, Hkv, hd); for the SSD family
+    ((conv_x, conv_B, conv_C), ssm). A new one, or, when ``cache`` (an
+    ``init_cache`` of at least S slots) is given, that one written in
+    place: the prompt's K/V into its first S slots, or each layer's conv
+    tail and final state (B5 writes the state straight into the layer's
+    slice on the card).
     """
     params = cast_tree(params, dtype)
     x, prefix_len = embed_inputs(params, batch, cfg, dtype)
     S = x.shape[1]
     L = registry.n_scanned_layers(cfg)
-    kv = []
+    entries = []
     for i in range(L):
+        slot = None if cache is None or not prefill \
+            else _cache_slice(cache["layers"], i)
         x, entry = _apply_layer(_layer(params["layers"], i), x, cfg,
                                 window=None, prefix_len=prefix_len,
-                                prefill=prefill)
+                                prefill=prefill, slot=slot)
         if not prefill:
             continue
         if cache is None:
-            kv.append(entry)
+            entries.append(entry)
         else:
-            for buf, t in zip(cache["layers"], entry):
-                buf[i, :, :S] = t.to(buf.dtype)
+            _store(slot, entry, S)
     if prefill:
         last = unembed(params, x[:, -1:], cfg)
         if cache is None:
-            cache = {"layers": (torch.stack([e[0] for e in kv]),
-                                torch.stack([e[1] for e in kv]))}
+            cache = {"layers": _stack(entries)}
         return last, cache
     return unembed(params, x, cfg), torch.zeros((), device=x.device)
+
+
+def _store(slot, entry, S: int) -> None:
+    """Write one layer's prefill ``entry`` into its cache ``slot`` (views
+    of the stacked cache), by the JAX server's graft rule: an entry of the
+    slot's shape (a conv tail, a state) whole, a KV entry into its first S
+    slots. A state B5 already wrote in place is left as it is."""
+    if isinstance(slot, tuple):
+        for dst, src in zip(slot, entry):
+            _store(dst, src, S)
+    elif entry.data_ptr() == slot.data_ptr():
+        return
+    elif entry.shape == slot.shape:
+        slot.copy_(entry)
+    else:
+        slot[:, :S] = entry.to(slot.dtype)
+
+
+def _stack(entries: list):
+    """Per-layer entries (nested tuples) stacked on a leading L axis."""
+    if isinstance(entries[0], tuple):
+        return tuple(_stack([e[k] for e in entries])
+                     for k in range(len(entries[0])))
+    return torch.stack(entries)
 
 
 # --------------------------------------------------------------------------
@@ -116,19 +162,58 @@ def kv_cache_struct(cfg: ArchConfig, B: int, S: int, dtype):
     return (shape, dtype), (shape, dtype)
 
 
+def ssd_cache_struct(cfg: ArchConfig, B: int, dtype):
+    """Shapes and dtypes of one SSD layer's cache entries: the conv tails
+    ((B, W-1, d_inner), (B, W-1, G*N) twice) in ``dtype`` and the state
+    (B, nh, hd, N) in float32."""
+    ss = cfg.ssm
+    di = ss.d_inner(cfg.d_model)
+    nh = ss.n_heads(cfg.d_model)
+    GN = ss.n_groups * ss.d_state
+    W = ss.conv_width
+    conv = (((B, W - 1, di), dtype), ((B, W - 1, GN), dtype),
+            ((B, W - 1, GN), dtype))
+    ssm = ((B, nh, ss.head_dim, ss.d_state), torch.float32)
+    return conv, ssm
+
+
+def layer_cache_struct(cfg: ArchConfig, B: int, S: int, dtype):
+    """One layer's cache entries as nested tuples of (shape, dtype)."""
+    if cfg.family == "ssm":
+        return ssd_cache_struct(cfg, B, dtype)
+    return kv_cache_struct(cfg, B, S, dtype)
+
+
+def _zeros(struct, L: int, device):
+    if not isinstance(struct[1], torch.dtype):
+        return tuple(_zeros(s, L, device) for s in struct)
+    shape, dt = struct
+    return torch.zeros((L, *shape), dtype=dt, device=device)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               dtype=torch.bfloat16, device="cpu") -> dict:
-    """Zeroed ``{"layers": (k, v)}``, each (L, B, max_seq, Hkv, hd)."""
+               dtype=torch.bfloat16, *, device="cuda") -> dict:
+    """Zeroed ``{"layers": entries}`` stacked on L: (k, v), each
+    (L, B, max_seq, Hkv, hd), for the dense family; ((conv_x, conv_B,
+    conv_C), ssm) for the SSD family (``ssd_cache_struct``; ``max_seq``
+    bounds no SSD shape). On the card unless ``device`` says otherwise;
+    raises when there is no card."""
     registry.check_ported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to allocate "
+                           "the cache on the CPU")
     L = registry.n_scanned_layers(cfg)
-    entry = kv_cache_struct(cfg, batch, max_seq, dtype)
-    return {"layers": tuple(
-        torch.zeros((L, *shape), dtype=dt, device=device)
-        for shape, dt in entry)}
+    return {"layers": _zeros(layer_cache_struct(cfg, batch, max_seq, dtype),
+                             L, device)}
 
 
 def _decode_layer(p, x, cache, cache_len: int, cfg: ArchConfig, *, window,
                   prefix_len: int):
+    if cfg.family == "ssm":
+        conv, ssm = cache
+        y, conv, ssm = blocks.ssd_decode(p["ssd"], x, conv, ssm, cfg)
+        return x + y, (conv, ssm)
     k, v = cache
     y, k, v = blocks.attn_decode(p["attn"], x, k, v, cache_len, cfg,
                                  window=window, prefix_len=prefix_len)
@@ -141,24 +226,23 @@ def decode_step(params, cache: dict, batch: dict, cfg: ArchConfig, *,
                 dtype=torch.bfloat16):
     """One decode step. batch: {"tokens": (B, 1) int64, "cache_len": int}.
 
-    Returns (logits (B, 1, V), cache). The new token's K/V are written
-    into ``cache`` in place at slot ``cache_len``; the returned cache is
-    the same object.
+    Returns (logits (B, 1, V), cache). The cache is updated in place —
+    the new token's K/V at slot ``cache_len``, or each SSD layer's conv
+    tail and state — and the returned cache is the same object.
     """
     params = cast_tree(params, dtype)
     cache_len = int(batch["cache_len"])
     x, prefix_len = embed_inputs(params, batch, cfg, dtype)
-    k_all, v_all = cache["layers"]
     for i in range(registry.n_scanned_layers(cfg)):
         x, _ = _decode_layer(_layer(params["layers"], i), x,
-                             (k_all[i], v_all[i]), cache_len, cfg,
-                             window=None, prefix_len=prefix_len)
+                             _cache_slice(cache["layers"], i), cache_len,
+                             cfg, window=None, prefix_len=prefix_len)
     return unembed(params, x, cfg), cache
 
 
 def prefill_step(params, batch: dict, cfg: ArchConfig, *,
                  dtype=torch.bfloat16, cache: Optional[dict] = None):
-    """Prefill: build the KV cache for a prompt, return last logits (see
-    ``forward`` for ``cache``)."""
+    """Prefill: build the KV / state cache for a prompt, return last
+    logits (see ``forward`` for ``cache``)."""
     return forward(params, batch, cfg, prefill=True, dtype=dtype,
                    cache=cache)

@@ -22,8 +22,11 @@ class ParamSpec:
     shape: tuple[int, ...]
     axes: tuple[Optional[str], ...]  # logical axis names, len == len(shape)
     dtype: Any = torch.float32
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | small_normal
     init_scale: float = 1.0
+    #: ``custom_init(gen, shape, dtype, device)`` draws the leaf itself
+    custom_init: Optional[Callable[[torch.Generator, tuple, Any,
+                                    torch.device], torch.Tensor]] = None
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
@@ -31,9 +34,10 @@ class ParamSpec:
                              f"differ in rank")
 
 
-def spec(shape, axes, init="normal", init_scale=1.0,
-         dtype=torch.float32) -> ParamSpec:
-    return ParamSpec(tuple(shape), tuple(axes), dtype, init, init_scale)
+def spec(shape, axes, init="normal", init_scale=1.0, dtype=torch.float32,
+         custom_init=None) -> ParamSpec:
+    return ParamSpec(tuple(shape), tuple(axes), dtype, init, init_scale,
+                     custom_init)
 
 
 def tree_leaves(tree) -> Iterator[tuple[tuple[str, ...], Any]]:
@@ -60,11 +64,15 @@ def tree_num_params(specs) -> int:
 
 def _init_one(gen: torch.Generator, s: ParamSpec,
               device: torch.device) -> torch.Tensor:
+    if s.custom_init is not None:
+        return s.custom_init(gen, s.shape, s.dtype, device)
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=s.dtype, device=device)
     if s.init == "ones":
         return torch.ones(s.shape, dtype=s.dtype, device=device)
-    # fan-in-scaled normal; last axis is fan-out by convention
+    # fan-in-scaled normal; last axis is fan-out by convention. As in the
+    # JAX package, "small_normal" has no branch of its own: it is this one,
+    # with the spec's init_scale
     fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
     std = s.init_scale / math.sqrt(max(1, fan_in))
     x = torch.empty(s.shape, dtype=torch.float32, device=device)

@@ -1,10 +1,11 @@
 """Per-architecture parameter trees + layer metadata.
 
 ``param_specs(cfg)`` returns the full abstract parameter tree (ParamSpec
-leaves) and ``count_params`` sums it analytically. This slice holds the
+leaves) and ``count_params`` sums it analytically. The port holds the
 dense text family (dense GQA / MHA, QKV bias, qk-norm, tied or untied
-embeddings); every other family raises ``NotImplementedError`` naming the
-ROADMAP item that ports it, here, before any block is reached.
+embeddings) and the attention-free SSD family (mamba2); every other
+family raises ``NotImplementedError`` naming the ROADMAP item that ports
+it, here, before any block is reached.
 """
 from __future__ import annotations
 
@@ -20,8 +21,11 @@ from repro_torch.models.param import spec, stack_specs, tree_num_params
 def check_ported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for an arch outside this slice."""
     why = None
-    if cfg.family in ("ssm", "hybrid"):
-        why = "SSD blocks (ROADMAP A7, with kernel B5 ssd_scan)"
+    if cfg.family == "ssm":
+        return
+    if cfg.family == "hybrid":
+        why = ("the hybrid block and sliding-window attention on the card "
+               "(ROADMAP A7)")
     elif cfg.moe is not None:
         why = "MoE dispatch (ROADMAP A7)"
     elif cfg.mla is not None:
@@ -37,12 +41,14 @@ def check_ported(cfg: ArchConfig) -> None:
     if why is not None:
         raise NotImplementedError(
             f"{cfg.name}: {why} is not ported yet; the port runs the dense "
-            f"text family")
+            f"text family and the SSD family")
 
 
 def layer_specs(cfg: ArchConfig) -> dict:
     """ParamSpec tree for one (stacked) layer."""
     check_ported(cfg)
+    if cfg.family == "ssm":
+        return {"ssd": blocks.ssd_specs(cfg)}
     return {"attn": blocks.attn_specs(cfg), "mlp": blocks.mlp_specs(cfg)}
 
 

@@ -6,7 +6,7 @@ them on a machine that has one with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 ``chip_smoke.py`` makes the same comparisons at the sweep's and the
-serving path's full size.
+serving paths' full size.
 """
 import importlib
 
@@ -25,6 +25,7 @@ from repro_torch.kernels.sa_occupancy import (sa_occupancy,  # noqa: E402
                                               sa_occupancy_plain)
 from repro_torch.kernels.segment_sum import (segment_sum,  # noqa: E402
                                              segment_sum_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa
 
 pytestmark = pytest.mark.gpu
 
@@ -173,3 +174,109 @@ def test_reduced_server_on_the_card(card):
     assert flash_attention.launches == b3 + L
     assert decode_attention.launches == b4 + 3 * L
     assert out.shape == (2, 4) and ((out >= 0) & (out < 256)).all()
+
+
+# B5 against its plain version, scaled by the largest value: float32 sums
+# in another order (1e-4, the scaled atol of tests/test_kernels.py); bf16
+# inputs are the same values on both sides, with larger rounding in the
+# float32 sums of their products (2e-3)
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+
+
+def _ssd_inputs(card, dtype, seed, Bz, S, H, P, G, N):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(Bz, S, H, P, generator=g).to(card, dtype)
+    dt = torch.nn.functional.softplus(torch.randn(Bz, S, H, generator=g))
+    A = -torch.exp(1.5 * torch.rand(H, generator=g))
+    B = torch.randn(Bz, S, G, N, generator=g).to(card, dtype)
+    C = torch.randn(Bz, S, G, N, generator=g).to(card, dtype)
+    return x, dt.to(card), A.to(card).expand(Bz, H), B, C
+
+
+def _scaled(got, want):
+    return float((got.float() - want.float()).abs().max()) / (
+        float(want.float().abs().max()) + 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Bz,S,H,P,G,N", [
+    (2, 256, 1, 64, 1, 32), (4, 256, 1, 32, 1, 16), (1, 512, 1, 64, 1, 64),
+    (2, 1, 8, 64, 1, 128), (2, 17, 8, 64, 1, 128), (1, 2049, 4, 64, 1, 128),
+    (2, 300, 8, 64, 2, 128), (2, 77, 8, 16, 1, 16)])
+def test_ssd_scan_kernel_matches_plain(card, dtype, Bz, S, H, P, G, N):
+    args = _ssd_inputs(card, dtype, S, Bz, S, H, P, G, N)
+    before = ssd_scan.launches
+    buf = torch.full((3, Bz, H, P, N), 7.0, device=card)
+    y, h = ssd_scan(*args, out_state=buf[1])
+    assert ssd_scan.launches == before + 1
+    assert h.data_ptr() == buf[1].data_ptr()
+    assert (buf[0] == 7).all() and (buf[2] == 7).all()
+    yw, hw = ssd_scan_plain(*args)
+    assert _scaled(y, yw) <= SSD_TOL[dtype]
+    assert _scaled(h, hw) <= SSD_TOL[dtype]
+
+
+@pytest.mark.parametrize("S", [130, 255])
+def test_ssd_scan_strong_decay_has_no_nan(card, S):
+    """A = -16, dt ~ 10, against the sequential ``ref_ssd``. S = 255 ends
+    on a ragged chunk of 63 rows with |cum| ~ 1e4: the last row's weight
+    exp(cum_last - cum_j) must be exactly 1 there."""
+    from repro_torch.kernels.ref import ref_ssd
+    x, dt, A, B, C = _ssd_inputs(card, torch.float32, 1, 1, S, 2, 16, 1, 16)
+    dt = 10.0 + 0.1 * torch.rand(dt.shape, device=card)
+    A = torch.full_like(A, -16.0)
+    y, h = ssd_scan(x, dt, A, B, C)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    fold = lambda t: t.repeat_interleave(2 // t.shape[2], dim=2).permute(
+        0, 2, 1, 3).reshape(2, S, -1)  # noqa: E731
+    yr, hr = ref_ssd(fold(x), dt[0].T, A[0], fold(B), fold(C))
+    assert _scaled(y[0].permute(1, 0, 2), yr) <= 1e-4
+    assert _scaled(h[0], hr) <= 1e-4
+
+
+def test_reduced_ssm_server_on_the_card(card):
+    """The reduced mamba2-780m served on the card (head dim 16, state
+    16): one B5 launch per layer at prefill, none at decode, and prefill
+    logits within bf16 rounding of the CPU's on the same weights."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.models.param import tree_map
+    srv = Server("mamba2-780m", batch=2, max_seq=48)  # device="cuda"
+    cpu = Server("mamba2-780m", batch=2, max_seq=48, device="cpu")
+    cpu.params = tree_map(lambda t: t.cpu(), srv.params)
+    prompts = np.random.default_rng(0).integers(0, 256, (2, 20))
+    toks = torch.tensor(prompts)
+    got, _ = srv.prefill(srv.params, {"tokens": toks.to(card)})
+    want, _ = cpu.prefill(cpu.params, {"tokens": toks})
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=0.0625,
+                               rtol=0)
+    b5 = ssd_scan.launches
+    out = srv.generate(prompts, 4)
+    assert ssd_scan.launches == b5 + srv.cfg.n_layers
+    assert out.shape == (2, 4) and ((out >= 0) & (out < 256)).all()
+
+
+def test_reduced_ssm_decode_matches_forward_on_the_card(card):
+    """float32 on the card: prefill (B5) and decode steps (the plain
+    recurrent update) against one forward over the whole sequence (B5
+    over a ragged last chunk)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params
+    cfg = get_arch("mamba2-780m").reduced()
+    params = init_params(registry.param_specs(cfg),
+                         torch.Generator(device=card).manual_seed(2), card)
+    toks = torch.tensor(np.random.default_rng(2).integers(0, 256, (2, 75)),
+                        device=card)
+    S, f32 = 70, torch.float32
+    want, _ = M.forward(params, {"tokens": toks}, cfg, dtype=f32)
+    cache = M.init_cache(cfg, 2, 80, f32, device=card)
+    got, cache = M.prefill_step(params, {"tokens": toks[:, :S]}, cfg,
+                                dtype=f32, cache=cache)
+    torch.testing.assert_close(got[:, 0], want[:, S - 1], atol=1e-4, rtol=0)
+    for t in range(5):
+        got, cache = M.decode_step(params, cache, {
+            "tokens": toks[:, S + t:S + t + 1], "cache_len": S + t}, cfg,
+            dtype=f32)
+        torch.testing.assert_close(got[:, 0], want[:, S + t], atol=1e-4,
+                                   rtol=0)

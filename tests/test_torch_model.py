@@ -3,14 +3,19 @@
 * configs: every arch name resolves, and the derived properties and the
   reduced configs equal the reference's;
 * ``count_params`` equals the reference's for every dense text arch and
-  raises ``NotImplementedError`` for the families not ported yet;
-* reduced qwen2.5-3b: ``prefill_step`` and ``decode_step`` on the JAX
-  package's own weights (carried across by ``params_from_numpy``), both
-  sides in float32. Two layers of float32 matmuls in another summation
-  order: logits of size ~1 to 4 agree to 1e-4 absolute (measured at most
-  2.3e-6);
+  for mamba2-780m (780.4 M at full width) and raises
+  ``NotImplementedError`` for the families not ported yet;
+* reduced qwen-family archs and mamba2-780m: ``prefill_step`` and
+  ``decode_step`` on the JAX package's own weights (carried across by
+  ``params_from_numpy``), both sides in float32. Two layers of float32
+  matmuls in another summation order: logits of size ~1 to 4 agree to
+  1e-4 absolute (measured at most 2.3e-6 for qwen, 2.4e-6 for mamba2);
 * decode-vs-forward consistency on the port alone (the check of
-  ``tests/test_attention_equiv.py::test_decode_matches_forward``).
+  ``tests/test_attention_equiv.py::test_decode_matches_forward``), for
+  mamba2 also with prompts shorter than its conv (S = 1, 2), which the
+  JAX server grafts into its cache left-aligned and cannot check;
+* ``init_cache`` runs on the card unless told otherwise, and raises
+  without one.
 """
 import dataclasses
 
@@ -37,8 +42,9 @@ from repro_torch.models.param import (  # noqa: E402
     cast_tree, init_params, tree_leaves)
 
 DENSE_TEXT = ["qwen2.5-3b", "qwen2.5-14b", "qwen3-32b", "qwen1.5-4b"]
-NOT_PORTED = ["mamba2-780m", "hymba-1.5b", "hubert-xlarge",
-              "granite-moe-1b-a400m", "deepseek-v2-236b", "paligemma-3b"]
+SSM = ["mamba2-780m"]
+NOT_PORTED = ["hymba-1.5b", "hubert-xlarge", "granite-moe-1b-a400m",
+              "deepseek-v2-236b", "paligemma-3b"]
 LOGIT_ATOL = 1e-4  # float32 both sides; see the module docstring
 
 
@@ -59,7 +65,7 @@ def test_every_arch_name_resolves():
     assert list_archs() == ref_list_archs()
 
 
-@pytest.mark.parametrize("arch", DENSE_TEXT + NOT_PORTED)
+@pytest.mark.parametrize("arch", DENSE_TEXT + SSM + NOT_PORTED)
 def test_configs_and_reduced_configs_equal_the_reference(arch):
     for ours, ref in ((get_arch(arch), ref_get_arch(arch)),
                       (get_arch(arch).reduced(), ref_get_arch(arch).reduced())):
@@ -69,7 +75,7 @@ def test_configs_and_reduced_configs_equal_the_reference(arch):
             assert getattr(ours, prop) == getattr(ref, prop), prop
 
 
-@pytest.mark.parametrize("arch", DENSE_TEXT)
+@pytest.mark.parametrize("arch", DENSE_TEXT + SSM)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_count_params_equals_the_reference(arch, reduced):
     ours, ref = get_arch(arch), ref_get_arch(arch)
@@ -84,7 +90,34 @@ def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.count_params(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_cache(cfg.reduced(), 1, 8)
+        TM.init_cache(cfg.reduced(), 1, 8, device="cpu")
+
+
+def test_hybrid_names_what_it_still_needs():
+    with pytest.raises(NotImplementedError, match="hybrid block") as e:
+        registry.count_params(get_arch("hymba-1.5b"))
+    assert "sliding-window" in str(e.value) and "SSD blocks" not in \
+        str(e.value)
+
+
+def test_init_cache_runs_on_the_card_unless_told(monkeypatch):
+    cfg = get_arch("mamba2-780m").reduced()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TM.init_cache(get_arch("qwen2.5-3b").reduced(), 1, 8)
+    with pytest.raises(TypeError):  # device is keyword-only
+        TM.init_cache(cfg, 1, 8, torch.float32, "cpu")
+    cache = TM.init_cache(cfg, 2, 8, device="cpu")
+    (cx, cB, cC), ssm = cache["layers"]
+    ss = cfg.ssm
+    W, GN = ss.conv_width, ss.n_groups * ss.d_state
+    assert cx.shape == (cfg.n_layers, 2, W - 1, ss.d_inner(cfg.d_model))
+    assert cB.shape == cC.shape == (cfg.n_layers, 2, W - 1, GN)
+    assert cx.dtype == torch.bfloat16 and ssm.dtype == torch.float32
+    assert ssm.shape == (cfg.n_layers, 2, ss.n_heads(cfg.d_model),
+                         ss.head_dim, ss.d_state)
 
 
 def test_init_params_follows_the_fan_in_rule():
@@ -107,6 +140,27 @@ def test_init_params_follows_the_fan_in_rule():
         else:
             assert torch.equal(x, torch.full_like(
                 x, 1.0 if s.init == "ones" else 0.0))
+
+
+def test_ssd_init_kinds_follow_the_reference():
+    """A_log = log(1 + 15 u) lies in [log 1, log 16]; the "small_normal"
+    leaves are the fan-in-scaled normal with init_scale 0.5 (the JAX
+    package has no branch of its own for them)."""
+    cfg = get_arch("mamba2-780m").reduced()
+    specs = registry.param_specs(cfg)
+    p = init_params(specs, torch.Generator().manual_seed(3), "cpu")
+    a_log = p["layers"]["ssd"]["A_log"]
+    assert float(a_log.min()) >= 0.0 and float(a_log.max()) <= np.log(16.0)
+    assert float(a_log.std()) > 0.3  # drawn, not a constant
+    leaves = dict(tree_leaves(p))
+    pooled = []
+    for path, s in tree_leaves(specs):
+        if s.init == "small_normal":
+            assert s.init_scale == 0.5
+            pooled.append(leaves[path].flatten() / (0.5 / np.sqrt(
+                s.shape[-2])))
+    assert len(pooled) == 3  # conv_x, conv_B, conv_C
+    assert abs(float(torch.cat(pooled).std()) - 1.0) < 0.1
 
 
 def test_init_params_leaves_no_reference_cycle():
@@ -167,7 +221,7 @@ def test_prefill_and_decode_match_the_jax_model(arch):
 
     want, jcache = JM.prefill_step(jp, {"tokens": jnp.asarray(toks[:, :S])},
                                    rcfg, dtype=jnp.float32)
-    cache = TM.init_cache(cfg, B, smax, torch.float32)
+    cache = TM.init_cache(cfg, B, smax, torch.float32, device="cpu")
     got, cache = TM.prefill_step(tp, {"tokens": torch.from_numpy(
         toks[:, :S]).long()}, cfg, dtype=torch.float32, cache=cache)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
@@ -181,6 +235,44 @@ def test_prefill_and_decode_match_the_jax_model(arch):
     jcache = jax.tree.map(
         lambda dst, src: jax.lax.dynamic_update_slice_in_dim(
             dst, src.astype(dst.dtype), 0, axis=2), full, jcache)
+    for t in range(3):
+        batch_j = {"tokens": jnp.asarray(toks[:, S + t:S + t + 1]),
+                   "cache_len": jnp.int32(S + t)}
+        want, jcache = JM.decode_step(jp, jcache, batch_j, rcfg,
+                                      dtype=jnp.float32)
+        batch_t = {"tokens": torch.from_numpy(
+            toks[:, S + t:S + t + 1]).long(), "cache_len": S + t}
+        got, cache = TM.decode_step(tp, cache, batch_t, cfg,
+                                    dtype=torch.float32)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=LOGIT_ATOL)
+
+
+@pytest.mark.parametrize("S", [12, 40])
+def test_ssm_prefill_and_decode_match_the_jax_model(S):
+    """Reduced mamba2-780m: the prompt's logits, every cache entry (conv
+    tails, states) and three decode steps against the JAX model on its
+    own weights, float32 (S = 40 is one chunk of 40 on both sides; S =
+    12 one of 12)."""
+    cfg = get_arch("mamba2-780m").reduced()
+    rcfg = ref_get_arch("mamba2-780m").reduced()
+    jp, tp = _ref_params(rcfg, seed=3)
+    B = 2
+    toks = _tokens(S, B, S + 3, cfg.vocab_size)
+    want, jcache = JM.prefill_step(jp, {"tokens": jnp.asarray(toks[:, :S])},
+                                   rcfg, dtype=jnp.float32)
+    cache = TM.init_cache(cfg, B, S + 8, torch.float32, device="cpu")
+    got, same = TM.prefill_step(tp, {"tokens": torch.from_numpy(
+        toks[:, :S]).long()}, cfg, dtype=torch.float32, cache=cache)
+    assert same is cache
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=LOGIT_ATOL)
+    ours, theirs = jax.tree.leaves(cache["layers"]), \
+        jax.tree.leaves(jcache["layers"])
+    assert len(ours) == len(theirs) == 4
+    for a, b in zip(ours, theirs):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   atol=LOGIT_ATOL)
     for t in range(3):
         batch_j = {"tokens": jnp.asarray(toks[:, S + t:S + t + 1]),
                    "cache_len": jnp.int32(S + t)}
@@ -210,7 +302,8 @@ def test_forward_matches_the_jax_model():
 
 # ----------------------------------------------- consistency, port alone
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-32b", "qwen1.5-4b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "qwen3-32b", "qwen1.5-4b",
+                                  "mamba2-780m"])
 def test_decode_matches_forward(arch):
     """prefill(S) + decode steps == forward(S + n) at the same positions
     (float32; both paths run the same float32 arithmetic in another
@@ -222,7 +315,7 @@ def test_decode_matches_forward(arch):
     B, S, n = 2, 24, 3
     toks = torch.from_numpy(_tokens(9, B, S + n, cfg.vocab_size)).long()
     want, _ = TM.forward(params, {"tokens": toks}, cfg, dtype=torch.float32)
-    cache = TM.init_cache(cfg, B, S + n + 4, torch.float32)
+    cache = TM.init_cache(cfg, B, S + n + 4, torch.float32, device="cpu")
     _, cache = TM.prefill_step(params, {"tokens": toks[:, :S]}, cfg,
                                dtype=torch.float32, cache=cache)
     for t in range(n):
@@ -232,6 +325,52 @@ def test_decode_matches_forward(arch):
         torch.testing.assert_close(got[:, 0].softmax(-1),
                                    want[:, S + t].softmax(-1), atol=2e-3,
                                    rtol=0)
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_ssm_short_prompts_decode_matches_forward(S):
+    """A prompt shorter than the conv's W-1 = 3 rows: the port keeps the
+    tail right-aligned behind zeros, so the decode steps see the same
+    window as a forward over the whole sequence (the JAX server's graft
+    would not; ROADMAP Queue C)."""
+    cfg = get_arch("mamba2-780m").reduced()
+    params = init_params(registry.param_specs(cfg),
+                         torch.Generator().manual_seed(S), "cpu")
+    B, n = 2, 4
+    toks = torch.from_numpy(_tokens(S + 20, B, S + n, cfg.vocab_size)).long()
+    want, _ = TM.forward(params, {"tokens": toks}, cfg, dtype=torch.float32)
+    cache = TM.init_cache(cfg, B, S + n + 1, torch.float32, device="cpu")
+    got, cache = TM.prefill_step(params, {"tokens": toks[:, :S]}, cfg,
+                                 dtype=torch.float32, cache=cache)
+    torch.testing.assert_close(got[:, 0], want[:, S - 1], atol=LOGIT_ATOL,
+                               rtol=0)
+    for t in range(n):
+        got, cache = TM.decode_step(
+            params, cache, {"tokens": toks[:, S + t:S + t + 1],
+                            "cache_len": S + t}, cfg, dtype=torch.float32)
+        torch.testing.assert_close(got[:, 0], want[:, S + t],
+                                   atol=LOGIT_ATOL, rtol=0)
+
+
+def test_ssm_prefill_without_a_cache_returns_tails_and_states():
+    cfg = get_arch("mamba2-780m").reduced()
+    params = init_params(registry.param_specs(cfg),
+                         torch.Generator().manual_seed(4), "cpu")
+    toks = torch.from_numpy(_tokens(4, 2, 9, cfg.vocab_size)).long()
+    last, cache = TM.prefill_step(params, {"tokens": toks}, cfg)
+    (cx, cB, cC), ssm = cache["layers"]
+    ss = cfg.ssm
+    assert last.shape == (2, 1, cfg.vocab_padded)
+    assert cx.shape == (cfg.n_layers, 2, ss.conv_width - 1,
+                        ss.d_inner(cfg.d_model))
+    assert ssm.shape == (cfg.n_layers, 2, ss.n_heads(cfg.d_model),
+                         ss.head_dim, ss.d_state)
+    assert cx.dtype == torch.bfloat16 and ssm.dtype == torch.float32
+    given = TM.init_cache(cfg, 2, 16, device="cpu")
+    _, given = TM.prefill_step(params, {"tokens": toks}, cfg, cache=given)
+    for a, b in zip(jax.tree.leaves(cache["layers"]),
+                    jax.tree.leaves(given["layers"])):
+        assert torch.equal(a, b)
 
 
 def test_prefill_without_a_cache_returns_the_prompt_kv():

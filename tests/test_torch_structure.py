@@ -38,7 +38,8 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.configs.base",
            "repro_torch.kernels.segment_sum", "repro_torch.configs",
            "repro_torch.configs.qwen2_5_3b", "repro_torch.kernels.ref",
            "repro_torch.kernels.flash_attention",
-           "repro_torch.kernels.decode_attention", "repro_torch.kernels.ops",
+           "repro_torch.kernels.decode_attention",
+           "repro_torch.kernels.ssd_scan", "repro_torch.kernels.ops",
            "repro_torch.models.param", "repro_torch.models.common",
            "repro_torch.models.blocks", "repro_torch.models.registry",
            "repro_torch.models.model", "repro_torch.train.steps",
@@ -67,7 +68,8 @@ def test_slice_modules_exist():
                 "kernels/segment_sum.py", "kernels/csrc/power_plane.cu",
                 "kernels/ref.py", "kernels/ops.py",
                 "kernels/flash_attention.py", "kernels/decode_attention.py",
-                "kernels/csrc/attention.cu", "models/param.py",
+                "kernels/csrc/attention.cu", "kernels/ssd_scan.py",
+                "kernels/csrc/ssd_scan.cu", "models/param.py",
                 "models/common.py", "models/blocks.py", "models/registry.py",
                 "models/model.py", "train/steps.py", "launch/serve.py",
                 *(f"configs/{c}.py" for c in CONFIG_FILES)):
@@ -135,6 +137,7 @@ CUDA_SOURCES = {
     "attention.cu": (("flash_attention_launch", "decode_attention_launch"),
                      ("src/repro/kernels/flash_attention.py",
                       "src/repro/kernels/decode_attention.py")),
+    "ssd_scan.cu": (("ssd_scan_launch",), ("src/repro/kernels/ssd_scan.py",)),
 }
 
 
@@ -147,7 +150,7 @@ def test_cuda_source_says_what_it_replaces(source):
     for ref in replaced:
         assert ref in cu
     assert "torch/extension.h" not in cu and "atomicAdd" not in cu
-    assert cu.count("cudaGetLastError()") >= 2
+    assert cu.count("cudaGetLastError()") >= len(launchers)
     # every source is a library of its own with its own flags
     from repro_torch.kernels import _build
     assert any(lib.source.name == source
@@ -169,10 +172,30 @@ def test_cpu_tensors_never_reach_the_kernels():
     assert _build._LIBS == libs  # nothing was built or loaded
 
 
+def test_ssd_binding_declares_every_argument():
+    """ctypes passes an undeclared argument as a 32-bit int and would cut
+    a pointer: every parameter of the C launcher has an argtype."""
+    import ctypes
+    from repro_torch.kernels import _build
+    cu = (PKG / "kernels" / "csrc" / "ssd_scan.cu").read_text()
+    sig = cu[cu.index('extern "C" int ssd_scan_launch('):]
+    params = sig[sig.index("(") + 1:sig.index(")")].split(",")
+
+    class Fake:
+        ssd_scan_launch = type("F", (), {})()
+    _build._bind_ssd_scan(Fake)
+    types = Fake.ssd_scan_launch.argtypes
+    assert len(types) == len(params)
+    for t, decl in zip(types, params):
+        want = ctypes.c_int if decl.split()[0] == "int" else ctypes.c_void_p
+        assert t is want, decl
+
+
 def test_fmad_off_only_where_bits_are_promised():
     from repro_torch.kernels import _build
     assert "-fmad=false" in _build.LIBRARIES["power_plane"].flags
     assert "-fmad=false" not in _build.LIBRARIES["attention"].flags
+    assert "-fmad=false" not in _build.LIBRARIES["ssd_scan"].flags
     assert all("arch=compute_90a,code=sm_90a" in lib.flags
                for lib in _build.LIBRARIES.values())
 
