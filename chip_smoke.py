@@ -5,16 +5,24 @@
 
 Builds the hand-written CUDA kernels from the sources in the checkout
 (one ``nvcc`` per source, all started together), holds each kernel
-against its plain PyTorch version, and drives the port's three paths on
-the card, showing by the wrappers' launch counts (set to 0 just before
-each path, read just after) that each path really went through its
-kernels:
+against its plain PyTorch version, and drives the port's paths on the
+card, showing by the wrappers' launch counts (set to 0 just before each
+path, read just after) that each path really went through its kernels:
 
 * the batched power-plane sweep, ``repro_torch.core.sweep.sweep_grid`` →
   ``policies.evaluate_batch`` → ``_sweep_kernel`` (kernels K1
   ``sa_occupancy``, K2 ``segment_sum``), at the size the repo calls real:
   ``paper_suite()`` × 5 NPU generations × 5 policies × a 3 600-point
   knob grid = 1.53 M cells;
+* ``repro_torch.core.evaluate_all`` (all five policies of one workload
+  through ``evaluate_batch``, K1 and K2) for each of the 17 paper-suite
+  workloads on NPU-D, held to the host engine ``evaluate`` within 1e-9;
+* the gated matmul ``repro_torch.kernels.ops.gated_matmul`` (kernel B2,
+  which skips all-zero weight tiles) at the gate/up projection of
+  qwen2.5-3b at serve_full's prefill, x (8192, 2048) and w (2048,
+  11 008), bf16 dense and with the paper's N-, K- and both-underutilized
+  zero patterns, and float32 dense; the count of executed tiles is held
+  exactly to what the zero pattern leaves;
 * serving qwen2.5-3b at full width (36 layers, d_model 2048, vocab
   151 936; random weights from a seed), ``repro_torch.launch.serve.
   Server`` → ``prefill_prompts`` / ``step`` (kernels B3
@@ -58,6 +66,7 @@ FP32_FLOPS_PER_S = 67e12
 K1_SOURCE = "src/repro_torch/kernels/csrc/power_plane.cu"
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+GM_SOURCE = "src/repro_torch/kernels/csrc/gated_matmul.cu"
 SERVE_ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-780m"
 # per served arch: the published widths (layers, d_model, vocab), the
@@ -88,6 +97,26 @@ PARITY_ATOL = 1e-4
 # order; bf16 inputs are the same bf16 values on both sides, but their
 # larger products leave more rounding in the float32 sums
 SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-3}
+# B2 vs its plain version, both on the card: the tolerances of
+# tests/test_kernels.py, atol = tol * max|plain| + 1e-5, rtol = tol.
+# float32: true float32 FMAs summed in another order; bf16: the same
+# products in float32, the output rounded to bf16 on each side
+GM_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# GM_CASES of tests/test_kernels.py: (M, K, N, zero_cols, zero_rows)
+GM_CASES = ((128, 128, 128, 0, 0), (256, 256, 512, 256, 0),
+            (384, 512, 256, 0, 256), (128, 256, 384, 128, 128),
+            (512, 128, 128, 0, 0))
+# gated_matmul_full: qwen2.5-3b's gate/up projection at serve_full's
+# prefill, x (batch * prompt, d_model) and w (d_model, d_ff), 128-tiles;
+# (name, zero_cols, zero_rows, dtype): paper Fig 10 cases 2 and 3
+GM_FULL = (SERVE_BATCH * SERVE_PROMPT, 2048, 11008)
+GM_FULL_CASES = (("dense", 0, 0, "bfloat16"),
+                 ("n_underutilized", 5504, 0, "bfloat16"),
+                 ("k_underutilized", 0, 1024, "bfloat16"),
+                 ("both", 5504, 1024, "bfloat16"),
+                 ("dense_float32", 0, 0, "float32"))
+# evaluate_all on the card vs the host engine, every EnergyReport field
+EVAL_ALL_RTOL = 1e-9
 # SSD_CASES of tests/test_kernels.py: (BH, S, P, N)
 SSD_CASES = ((2, 256, 64, 32), (4, 256, 32, 16), (1, 512, 64, 64))
 # §6.5 sensitivity grid (240 knobs) × SA width × detection window = 3 600
@@ -568,6 +597,247 @@ def ssd_model_shapes(srv, prompts) -> dict:
     return time_b5(x, dt, A, Bm, Cm)
 
 
+# ---- the gated matmul: kernel B2 ---------------------------------------------
+
+def gm_bound(M, K, N, live, bk, bn, dtype) -> tuple[float, str]:
+    """Least time for the gated product: 2 M bk bn operations per live
+    weight tile; x, the live w tiles and the output moved once."""
+    import torch
+    el = 2 if dtype == torch.bfloat16 else 4
+    nbytes = el * (M * K + live * bk * bn + M * N)
+    flops = 2 * M * bk * bn * live
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def gm_compare(got, want, what: str) -> float:
+    """Hard allclose of B2 against its plain version (GM_TOL); returns
+    the max absolute error."""
+    import torch
+    dn = str(want.dtype).split(".")[-1]
+    tol = GM_TOL[dn]
+    g, w = got.float(), want.float()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"gated_matmul[{what}]: shape/dtype {tuple(got.shape)} "
+          f"{got.dtype} vs {tuple(want.shape)} {want.dtype}")
+    e = max_abs(g, w)
+    check(bool(torch.isfinite(g).all()), f"gated_matmul[{what}]: non-finite")
+    check(torch.allclose(g, w, rtol=tol,
+                         atol=tol * float(w.abs().max()) + 1e-5),
+          f"gated_matmul[{what}, {dn}]: differs from its plain version by "
+          f"{e}")
+    return e
+
+
+def check_gated_matmul_kernel(dev) -> dict:
+    """B2 against its plain version on the card, float32 and bf16: the
+    GM_CASES with their zero columns and rows, every block instance on a
+    random bitmap, and a hand-made bitmap that drops nonzero tiles (x
+    NaN in a dropped K tile: never loaded); the executed-tile count
+    exactly, every case."""
+    import itertools
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gated_matmul import (BLOCKS, gated_matmul_p,
+                                                  gated_matmul_plain)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    err = {"float32": 0.0, "bfloat16": 0.0}
+    cases = []
+
+    def one(what, x, w, bitmap, **blocks):
+        dn = str(x.dtype).split(".")[-1]
+        bm = blocks.get("bm", 128)
+        gated_matmul_p.tiles_run.zero_()
+        got = gated_matmul_p(x, w, bitmap, **blocks)
+        torch.cuda.synchronize()
+        tiles = int(gated_matmul_p.tiles_run)
+        want_tiles = (x.shape[0] // bm) * int((bitmap != 0).sum())
+        check(tiles == want_tiles, f"gated_matmul[{what}, {dn}]: ran "
+                                   f"{tiles} tiles, want {want_tiles}")
+        want = gated_matmul_plain(x, w, bitmap, **blocks)
+        err[dn] = max(err[dn], gm_compare(got, want, f"{what}, {dn}"))
+        cases.append(f"{what} {dn}")
+        return got
+
+    for dtype in (torch.float32, torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        for M, K, N, zn, zk in GM_CASES:
+            x, w = rnd(M, K), rnd(K, N)
+            if zn:
+                w[:, N - zn:] = 0.0
+            if zk:
+                w[K - zk:] = 0.0
+            one(f"GM_CASES {(M, K, N, zn, zk)}", x, w,
+                ops.tile_nonzero_bitmap(w, 128, 128))
+        for bm, bn, bk in itertools.product(BLOCKS, BLOCKS, BLOCKS):
+            x, w = rnd(256, 384), rnd(384, 256)
+            bitmap = (torch.rand((384 // bk, 256 // bn), generator=gen,
+                                 device=dev) > 0.4).to(torch.int32)
+            one(f"blocks {(bm, bn, bk)}", x, w, bitmap, bm=bm, bn=bn, bk=bk)
+        x, w = rnd(256, 384), rnd(384, 512)
+        x[:, 128:256] = float("nan")  # K tile 1: dropped everywhere
+        bitmap = torch.tensor([[1, 0, 1, 1], [0, 0, 0, 0], [1, 1, 1, 0]],
+                              dtype=torch.int32, device=dev)
+        got = one("hand bitmap", x, w, bitmap)
+        x[:, 128:256] = 0.0
+        dense = gated_matmul_plain(x, w, torch.ones_like(bitmap))
+        check(max_abs(got[:, 128:256].float(), dense[:, 128:256].float())
+              > 1.0, "gated_matmul: the hand bitmap's 0 over nonzero "
+                     "weights did not drop them")
+    before = gated_matmul_p.launches
+    z = gated_matmul_p(x[:0], w, bitmap)
+    check(z.shape == (0, 512) and gated_matmul_p.launches == before,
+          "gated_matmul on zero rows must not launch")
+    refused = False
+    try:
+        gated_matmul_p(x, w, bitmap, bm=32, bn=128, bk=128)
+    except ValueError:
+        refused = True
+    check(refused, "gated_matmul: a block size the kernel is not built "
+                   "for must raise on the card")
+    return {"cases": len(cases), "max_abs_err": err, "tolerance": GM_TOL}
+
+
+def gated_matmul_full(card: str) -> dict:
+    """The B2 path at full width: ``ops.gated_matmul`` on qwen2.5-3b's
+    gate/up projection at serve_full's prefill, in the GM_FULL_CASES
+    patterns. The run that counts launches is one call per case; then
+    each case is checked against the plain version and timed beside its
+    bound, its plain version and ``torch.matmul`` on the same operands
+    (the same function with nothing skipped; float32 with TF32 off)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gated_matmul import (gated_matmul_p,
+                                                  gated_matmul_plain)
+    M, K, N = GM_FULL
+    bt = 128
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x32 = torch.randn((M, K), generator=gen, device="cuda")
+    w32 = torch.randn((K, N), generator=gen, device="cuda")
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    xs = {dn: x32.to(dt) for dn, dt in dtypes.items()}
+    ws, live = {}, {}
+    for name, zn, zk, dn in GM_FULL_CASES:
+        w = w32.to(dtypes[dn], copy=True)
+        if zn:
+            w[:, N - zn:] = 0.0
+        if zk:
+            w[K - zk:] = 0.0
+        ws[name] = w
+        live[name] = ((K - zk) // bt) * ((N - zn) // bt)
+    del x32, w32
+
+    # the path: one call per case, counts set to 0 just before
+    reset_launches()
+    gated_matmul_p.tiles_run.zero_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tiles = {}
+    for name, _, _, dn in GM_FULL_CASES:
+        before = int(gated_matmul_p.tiles_run)
+        out = ops.gated_matmul(xs[dn], ws[name])
+        tiles[name] = int(gated_matmul_p.tiles_run) - before  # synced
+        check(out.shape == (M, N) and out.dtype == dtypes[dn]
+              and bool(torch.isfinite(out).all()),
+              f"gated_matmul_full[{name}]: shape/dtype/finite")
+        del out
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want_launches = expected_launches("gated_matmul", len(GM_FULL_CASES))
+    check(launches == want_launches,
+          f"gated_matmul_full launched {launches}, want {want_launches}")
+    for name, _, _, _ in GM_FULL_CASES:
+        check(tiles[name] == (M // bt) * live[name],
+              f"gated_matmul_full[{name}]: ran {tiles[name]} tiles, want "
+              f"{(M // bt) * live[name]}")
+
+    cases = {}
+    for name, zn, zk, dn in GM_FULL_CASES:
+        x, w, dt = xs[dn], ws[name], dtypes[dn]
+        bitmap = ops.tile_nonzero_bitmap(w, bt, bt)
+        check(int(bitmap.sum()) == live[name],
+              f"gated_matmul_full[{name}]: the bitmap marks "
+              f"{int(bitmap.sum())} live tiles, want {live[name]}")
+        got = gated_matmul_p(x, w, bitmap)
+        want = gated_matmul_plain(x, w, bitmap)
+        err = gm_compare(got, want, f"full {name}")
+        scale = float(want.float().abs().max())
+        del got, want
+        kern = ("gated_matmul_bf16_kernel" if dt == torch.bfloat16
+                else "gated_matmul_f32_kernel")
+        bound, by = gm_bound(M, K, N, live[name], bt, bt, dt)
+        cases[name] = {
+            "dtype": dn, "zero_cols": zn, "zero_rows": zk,
+            "live_weight_tiles": live[name], "tiles_run": tiles[name],
+            "max_abs_err": err, "max_abs_plain": scale,
+            "ms": event_ms(lambda: gated_matmul_p(x, w, bitmap), 10),
+            "ms_with_bitmap": event_ms(lambda: ops.gated_matmul(x, w), 10),
+            "device_us": kernel_device_us(
+                lambda: gated_matmul_p(x, w, bitmap), kern),
+            "plain_ms": event_ms(lambda: gated_matmul_plain(x, w, bitmap),
+                                 3, warmup=1),
+            "library_ms": event_ms(lambda: torch.matmul(x, w), 10),
+            "bound_ms": bound, "bound_by": by}
+        cases[name]["ms_over_bound"] = cases[name]["ms"] / bound
+    dense_ms = cases["dense"]["ms"]
+    for name, rec in cases.items():
+        if rec["dtype"] == "bfloat16":
+            rec["ms_ratio_to_dense"] = rec["ms"] / dense_ms
+    return {"card": card, "shape": {"x": [M, K], "w": [K, N],
+                                    "blocks": [bt, bt, bt]},
+            "launches": launches, "wall_s_path": wall, "cases": cases,
+            "tolerance": GM_TOL}
+
+
+def evaluate_all_phase(card: str, suite) -> dict:
+    """``evaluate_all(wl, "NPU-D")`` on the card (K1, K2) for every
+    paper-suite workload, against the host engine ``evaluate`` for each
+    policy: every EnergyReport field within EVAL_ALL_RTOL relative."""
+    from repro_torch.core import evaluate, evaluate_all
+    from repro_torch.core.policies import POLICIES
+    from repro_torch.core.power import COMPONENTS
+    reset_launches()
+    t0 = time.perf_counter()
+    on_card = [evaluate_all(wl, "NPU-D") for wl in suite]
+    wall_card = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["sa_occupancy"] > 0 and launches["segment_sum"] > 0
+          and all(v == 0 for k, v in launches.items()
+                  if k not in ("sa_occupancy", "segment_sum")),
+          f"evaluate_all launched {launches}")
+    t0 = time.perf_counter()
+    on_host = [{p: evaluate(wl, "NPU-D", p) for p in POLICIES}
+               for wl in suite]
+    wall_host = time.perf_counter() - t0
+    worst, n = 0.0, 0
+    for wl, got, want in zip(suite, on_card, on_host):
+        check(list(got) == list(POLICIES), "evaluate_all: policies")
+        for p in POLICIES:
+            a, b = got[p], want[p]
+            check((a.workload, a.policy, a.npu) == (b.workload, b.policy,
+                                                    b.npu),
+                  f"evaluate_all[{wl.name}/{p}]: labels")
+            vals = [(a.runtime_s, b.runtime_s),
+                    (a.setpm_count, b.setpm_count)]
+            for f in ("static_j", "dynamic_j", "wake_events", "gated_s",
+                      "setpm_by"):
+                vals += [(getattr(a, f)[c], getattr(b, f)[c])
+                         for c in COMPONENTS]
+            for va, vb in vals:
+                worst = max(worst, abs(va - vb) / max(1e-30, abs(va),
+                                                      abs(vb)))
+            n += 1
+    check(worst <= EVAL_ALL_RTOL, f"evaluate_all on the card vs evaluate: "
+                                  f"{worst} > {EVAL_ALL_RTOL}")
+    return {"card": card, "npu": "NPU-D", "workloads": len(suite),
+            "reports": n, "launches": launches, "wall_s_card": wall_card,
+            "wall_s_host_evaluate": wall_host, "max_rel_err": worst,
+            "tolerance_rel": EVAL_ALL_RTOL}
+
+
 def rel_l2(got, want):
     """Per row ||got - want|| / ||want|| over the last axis, float32."""
     d = (got.float() - want.float()).norm(dim=-1)
@@ -577,12 +847,14 @@ def rel_l2(got, want):
 def _wrappers() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gated_matmul import gated_matmul_p
     from repro_torch.kernels.sa_occupancy import sa_occupancy
     from repro_torch.kernels.segment_sum import segment_sum
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {"sa_occupancy": sa_occupancy, "segment_sum": segment_sum,
             "flash_attention": flash_attention,
-            "decode_attention": decode_attention, "ssd_scan": ssd_scan}
+            "decode_attention": decode_attention, "ssd_scan": ssd_scan,
+            "gated_matmul": gated_matmul_p}
 
 
 def reset_launches() -> None:
@@ -1062,8 +1334,9 @@ def main() -> int:
             >= nops / FP64_FLOPS_PER_S else "operations"})
     attn = check_attention_kernels(dev)
     ssd = check_ssd_kernel(dev)
+    b2 = check_gated_matmul_kernel(dev)
     emit("kernels", card=card, k1_cases=k1_cases, k2_cases=k2_cases,
-         b3_b4=attn, b5=ssd,
+         b3_b4=attn, b5=ssd, b2=b2,
          k1={"shape": k1_shape, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
              "bound_ms": k1_bound, "max_abs_err": k1_err},
          k2={"shapes": k2_shapes, "max_abs_err_vs_cpu_plain": k2_err_cpu,
@@ -1156,6 +1429,14 @@ def main() -> int:
          records_bit_identical=n_exact,
          fields_not_bit_identical=sorted(differing), wall_s_card=t_card)
 
+    # ---- 5b. evaluate_all: the policy engine's batched entry -------------
+    emit("evaluate_all", **evaluate_all_phase(card, suite))
+
+    # ---- 5c. gated_matmul_full: kernel B2 at qwen2.5-3b's width ----------
+    gm = gated_matmul_full(card)
+    emit("gated_matmul_full", **gm)
+    torch.cuda.empty_cache()
+
     # ---- 6. serve_full: the serving path at full width ------------------
     serve_rec, srv, prompts = serve_full(card, SERVE_ARCH)
     emit("serve_full", **serve_rec)
@@ -1238,6 +1519,25 @@ def main() -> int:
         "tolerance": "max |kernel - plain| / max |plain| <= 2e-3 (bf16 "
                      "inputs), 1e-4 (float32), y and state each; the "
                      "strong-decay case against ref_ssd"})
+    d = gm["cases"]["dense"]
+    kernels.append({
+        "name": "gated_matmul", "route": "cuda", "source": GM_SOURCE,
+        "replaces": "src/repro/kernels/gated_matmul.py:58",
+        "launches": gm["launches"]["gated_matmul"],
+        "max_abs_err": max(d["max_abs_err"], b2["max_abs_err"]["bfloat16"]),
+        "ms": d["ms"], "device_us": d["device_us"],
+        "plain_ms": d["plain_ms"], "library_ms": d["library_ms"],
+        "library_note": "torch.matmul on the same operands (skips nothing)",
+        "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "shape": {"x": gm["shape"]["x"], "w": gm["shape"]["w"],
+                  "dtype": "torch.bfloat16", "pattern": "dense"},
+        "tiles_run": d["tiles_run"],
+        "max_abs_err_float32": max(
+            gm["cases"]["dense_float32"]["max_abs_err"],
+            b2["max_abs_err"]["float32"]),
+        "tolerance": "allclose with the plain version on the card: atol = "
+                     "tol * max|plain| + 1e-5, rtol = tol, tol 2e-2 (bf16), "
+                     "1e-4 (float32); tiles_run exact"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

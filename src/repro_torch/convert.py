@@ -89,14 +89,25 @@ def knob_grid_from_dicts(rows: Sequence[Mapping]) -> tuple[PolicyKnobs, ...]:
     return tuple(PolicyKnobs(**dict(r)) for r in rows)
 
 
-def params_from_numpy(tree: Any, device="cpu",
+def params_from_numpy(tree: Any, *, device="cuda",
                       dtype: torch.dtype = torch.float32) -> Any:
     """A parameter tree of tensors on ``device`` from nested dicts of
     numpy arrays, e.g. the JAX package's parameters dumped leaf by leaf
     with ``np.asarray``. Floating leaves become ``dtype``; other leaves
-    keep their own type."""
+    keep their own type. ``device`` defaults to the card, as every entry
+    point of the port does; with no card that raises, and
+    ``device="cpu"`` builds the tree on the host."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build the "
+                           "parameter tree on the CPU")
+    return _tree_from_numpy(tree, device, dtype)
+
+
+def _tree_from_numpy(tree: Any, device: torch.device,
+                     dtype: torch.dtype) -> Any:
     if isinstance(tree, Mapping):
-        return {k: params_from_numpy(v, device, dtype)
+        return {k: _tree_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
     a = np.asarray(tree)
     if np.issubdtype(a.dtype, np.floating):

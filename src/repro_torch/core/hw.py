@@ -124,7 +124,7 @@ def get_npu(name: str) -> NPUSpec:
 
 
 # SA-width variants memoized by (base spec identity, width): the policy
-# engine's derived-trace caches (``_host_columns``,
+# engine's derived-trace caches (``trace_times``, ``_host_columns``,
 # ``_backend_data``) are keyed by spec identity, so the knob axis must
 # hand back the SAME variant object on every call or each sweep would
 # re-derive and re-transfer its arrays. The value keeps a strong ref to

@@ -22,6 +22,17 @@ op duration = max over components (perfect overlap); ops run back-to-back.
 Idle intervals per component are the within-op slack plus whole ops where
 the component is unused, merged across op boundaries.
 
+Two host engines (numpy, as in the reference) share these semantics and
+are the oracles the batched plane is held against:
+
+* ``evaluate`` — columnar: the workload is compiled once into
+  ``TraceArrays`` (struct-of-arrays), per-component service times and the
+  SA-occupancy math are batched over the whole op stream, idle-gap
+  merging is a segmented reduction, and ``_gated_idle_energy`` is applied
+  as a piecewise-vectorized closed form.
+* ``evaluate_reference`` — the original pure-Python per-op loop; the
+  tests hold the two to ≤1e-9 relative on every EnergyReport field.
+
 ``evaluate_batch`` is the sweep plane: it stacks every workload trace
 into one ragged super-trace (``opgen.stack_traces``) and runs
 ``_sweep_kernel`` — service times, SA PE occupancy, idle-gap merges and
@@ -43,9 +54,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.backend import TorchBackend, gap_index, get_backend
-from repro_torch.core.hw import NPUSpec, get_npu
-from repro_torch.core.opgen import StackedTrace, Workload, stack_traces
+from repro_torch.core.hw import NPUSpec, get_npu, with_sa_width
+from repro_torch.core.opgen import (Op, StackedTrace, TraceArrays, Workload,
+                                    compile_trace, stack_traces)
 from repro_torch.core.power import COMPONENTS, PowerModel
+from repro_torch.core.sa_gating import (SAStats, gating_stats,
+                                        gating_stats_batch)
 
 POLICIES = ("NoPG", "ReGate-Base", "ReGate-HW", "ReGate-Full", "Ideal")
 
@@ -212,8 +226,69 @@ class EnergyReport:
 
 
 # --------------------------------------------------------------------------
+# per-op component service times
+# --------------------------------------------------------------------------
+
+def op_times(op: Op, npu: NPUSpec) -> dict[str, float]:
+    eff = 1.0
+    stats: Optional[SAStats] = None
+    if op.flops_sa > 0 and op.matmul_dims is not None:
+        stats = gating_stats(*op.matmul_dims, npu.sa_width)
+        # achieved throughput scales with ON-PE occupancy
+        flops_cycles = op.matmul_dims[0] * op.matmul_dims[1] \
+            * op.matmul_dims[2] / (npu.sa_width ** 2)
+        eff = min(1.0, flops_cycles / max(1e-9, stats.duration_cycles))
+        eff = max(eff, 1e-3)
+    t = {
+        "sa": op.flops_sa / (npu.sa_flops * eff) if op.flops_sa else 0.0,
+        "vu": op.flops_vu / npu.vu_flops if op.flops_vu else 0.0,
+        "hbm": op.bytes_hbm / npu.hbm_bw if op.bytes_hbm else 0.0,
+        "ici": op.bytes_ici / npu.ici_bw if op.bytes_ici else 0.0,
+    }
+    dur = max(max(t.values()), 1e-12)
+    t["sram"] = dur  # SRAM serves whoever is active
+    t["other"] = dur
+    t["_dur"] = dur
+    t["_sa_eff"] = eff
+    return t
+
+
+# --------------------------------------------------------------------------
 # policy semantics per component
 # --------------------------------------------------------------------------
+
+def _gated_idle_energy(gap_s: float, p_static: float, *, mode: str,
+                       bet_s: float, delay_s: float, window_s: float,
+                       leak: float) \
+        -> tuple[float, float, float, float, float]:
+    """Energy spent during one idle interval of length ``gap_s``.
+
+    Returns (energy_J, exposed_wake_s, wake_events, setpm_count,
+    gated_s). mode: "none" | "hw" | "sw" | "ideal".
+    """
+    if gap_s <= 0:
+        return 0.0, 0.0, 0.0, 0.0, 0.0
+    if mode == "none":
+        return p_static * gap_s, 0.0, 0.0, 0.0, 0.0
+    if mode == "ideal":
+        return 0.0, 0.0, 0.0, 0.0, gap_s
+    if mode == "hw":
+        # observe for the detection window, then gate if still idle;
+        # next use pays the exposed wake-up delay.
+        if gap_s <= window_s:
+            return p_static * gap_s, 0.0, 0.0, 0.0, 0.0
+        gated = gap_s - window_s
+        e = p_static * window_s + leak * p_static * gated \
+            + p_static * delay_s  # transition energy (on/off ramp)
+        return e, delay_s, 1.0, 0.0, gated
+    # sw: compiler knows the interval; gate only if profitable & hideable
+    if gap_s >= max(bet_s, 2.0 * delay_s):
+        e = leak * p_static * (gap_s - 2 * delay_s) \
+            + p_static * 2 * delay_s
+        # setpm off + setpm on; 2x delay held at full power (transition)
+        return e, 0.0, 1.0, 2.0, gap_s - 2 * delay_s
+    return p_static * gap_s, 0.0, 0.0, 0.0, 0.0
+
 
 @dataclass(frozen=True)
 class _CompPolicy:
@@ -250,6 +325,500 @@ def _component_policies(policy: str) -> dict[str, _CompPolicy]:
         base["sram"] = _CompPolicy("sw", "sram_off", sram_state="off")
         return base
     raise KeyError(policy)
+
+
+# --------------------------------------------------------------------------
+# evaluation — scalar reference engine (original per-op loop)
+# --------------------------------------------------------------------------
+
+def evaluate_reference(wl: Workload, npu: NPUSpec | str = "NPU-D",
+                       policy: str = "ReGate-Full",
+                       knobs: PolicyKnobs = PolicyKnobs()) -> EnergyReport:
+    npu = get_npu(npu) if isinstance(npu, str) else npu
+    npu = with_sa_width(npu, knobs.sa_width)
+    pm = PowerModel(npu)
+    g = npu.gating
+    cp = _component_policies(policy)
+
+    leak_logic = knobs.leak_off_logic if knobs.leak_off_logic is not None \
+        else g.leak_off_logic
+    leak_sleep = knobs.leak_sram_sleep if knobs.leak_sram_sleep is not None \
+        else g.leak_sram_sleep
+    leak_off = knobs.leak_sram_off if knobs.leak_sram_off is not None \
+        else g.leak_sram_off
+
+    def delay_s(key: str) -> float:
+        return g.on_off_delay.get(key, 0) * knobs.delay_scale / npu.freq_hz
+
+    def bet_s(key: str) -> float:
+        return g.bet.get(key, 0) * knobs.delay_scale / npu.freq_hz
+
+    static_w = pm.static_w
+    dyn_w = pm.dyn_max_w
+
+    static_j = {c: 0.0 for c in COMPONENTS}
+    dynamic_j = {c: 0.0 for c in COMPONENTS}
+    runtime = 0.0
+    overhead = 0.0
+    setpm_by = {c: 0.0 for c in COMPONENTS}
+    gated = {c: 0.0 for c in COMPONENTS}
+    wakes = {c: 0.0 for c in COMPONENTS}
+
+    # pending idle gap per component (merged across ops)
+    pending = {c: 0.0 for c in COMPONENTS}
+
+    def close_gap(c: str):
+        nonlocal overhead
+        gap = pending[c]
+        pending[c] = 0.0
+        if gap <= 0:
+            return
+        pol = cp[c]
+        # HBM auto-refresh is a FLOOR: the DRAM refresh burn does not
+        # shrink when the logic threshold voltage changes (paper §6.5)
+        leak = max(leak_logic, g.leak_hbm_refresh) if c == "hbm" \
+            else leak_logic
+        e, exposed, nw, sp, gs = _gated_idle_energy(
+            gap, static_w[c], mode=pol.mode, bet_s=bet_s(pol.delay_key),
+            delay_s=delay_s(pol.delay_key),
+            window_s=bet_s(pol.delay_key) * g.detection_window_frac
+            * knobs.window_scale,
+            leak=leak)
+        static_j[c] += e
+        overhead_local = exposed
+        if c in ("hbm", "ici"):
+            # wake overlapped with the long DMA issue latency half the time
+            overhead_local *= 0.5
+        nonlocal_overhead(overhead_local)
+        setpm_by[c] += sp
+        gated[c] += gs
+        wakes[c] += nw
+
+    def nonlocal_overhead(x: float):
+        nonlocal overhead
+        overhead += x
+
+    def fine_grained_vu(t_vu: float, dur: float, n: int):
+        """VU slack inside a mixed op is fragmented into per-burst gaps
+        (paper Fig 15): HW detection mostly cannot exploit them, SW setpm
+        can. Returns nothing; mutates accumulators."""
+        pol = cp["vu"]
+        slack = dur - t_vu
+        if slack <= 0:
+            return
+        active_cy = max(1.0, npu.cycles(t_vu))
+        n_bursts = max(1.0, active_cy / g.vu_burst_cycles)
+        gap_cy = npu.cycles(slack) / n_bursts
+        bet_cy = g.bet["vu"] * knobs.delay_scale
+        delay_cy = g.on_off_delay["vu"] * knobs.delay_scale
+        window_cy = bet_cy * g.detection_window_frac * knobs.window_scale
+        p = static_w["vu"]
+        if pol.mode == "none":
+            static_j["vu"] += p * slack * n
+        elif pol.mode == "ideal":
+            gated["vu"] += slack * n
+        elif pol.mode == "hw":
+            if gap_cy > bet_cy:
+                gated_frac = max(0.0, (gap_cy - window_cy) / gap_cy)
+                static_j["vu"] += p * slack * n * (
+                    (1 - gated_frac) + leak_logic * gated_frac)
+                gated["vu"] += slack * n * gated_frac
+                # exposed wake per burst: Base/HW hardware cannot pre-wake
+                nonlocal_overhead(n_bursts * delay_cy / npu.freq_hz * n)
+                wakes["vu"] += n_bursts * n
+            else:
+                static_j["vu"] += p * slack * n
+        else:  # sw
+            if gap_cy >= max(bet_cy, 2 * delay_cy):
+                trans = 2 * delay_cy / gap_cy
+                static_j["vu"] += p * slack * n * (
+                    trans + leak_logic * (1 - trans))
+                gated["vu"] += slack * n * (1 - trans)
+                setpm_by["vu"] += 2 * n_bursts * n
+                wakes["vu"] += n_bursts * n
+            else:
+                static_j["vu"] += p * slack * n
+
+    prev_used: Optional[float] = None  # sram setpm boundary tracking
+    for op in wl.ops:
+        t = op_times(op, npu)
+        dur = t["_dur"]
+        n = op.count
+        for c in COMPONENTS:
+            a = t[c] if c in t else 0.0
+            if c in ("sram", "other"):
+                a = dur  # handled below
+            if a > 0:
+                close_gap(c)
+
+        # --- active-time static & dynamic energy (xN instances) ---
+        for c in ("sa", "vu", "hbm", "ici"):
+            a = t[c]
+            if a <= 0:
+                pending[c] += dur * n
+                continue
+            pol = cp[c]
+            # dynamic: proportional to useful work
+            if c == "sa":
+                dynamic_j[c] += dyn_w[c] * (op.flops_sa / npu.sa_flops) * n
+            else:
+                dynamic_j[c] += dyn_w[c] * a * n
+            # static during the active portion
+            if c == "sa" and pol.spatial_sa and op.matmul_dims is not None:
+                st = gating_stats(*op.matmul_dims, npu.sa_width)
+                occ = (st.frac_on + g.leak_pe_weight_on * st.frac_w_on
+                       + leak_logic * st.frac_off)
+                if pol.mode == "ideal":
+                    occ = st.frac_on
+                static_j[c] += static_w[c] * occ * a * n
+            else:
+                static_j[c] += static_w[c] * a * n
+            # within-op slack
+            if c == "vu":
+                fine_grained_vu(a, dur, n)
+                continue
+            slack = dur - a
+            if slack > 0:
+                leak = max(leak_logic, g.leak_hbm_refresh) if c == "hbm" \
+                    else leak_logic
+                e, exposed, nw, sp, gs = _gated_idle_energy(
+                    slack, static_w[c], mode=pol.mode,
+                    bet_s=bet_s(pol.delay_key),
+                    delay_s=delay_s(pol.delay_key),
+                    window_s=bet_s(pol.delay_key)
+                    * g.detection_window_frac * knobs.window_scale,
+                    leak=leak)
+                static_j[c] += e * n
+                ov = exposed * n
+                if c in ("hbm", "ici"):
+                    ov *= 0.5
+                nonlocal_overhead(ov)
+                setpm_by[c] += sp * n
+                gated[c] += gs * n
+                wakes[c] += nw * n
+
+        # --- SRAM: capacity-proportional static, demand-gated remainder ---
+        pol = cp["sram"]
+        used = min(1.0, op.sram_demand / npu.sram_bytes)
+        unused = 1.0 - used
+        if pol.sram_state == "on":
+            sram_leak_unused = 1.0
+        elif pol.sram_state == "sleep":
+            sram_leak_unused = leak_sleep
+        elif pol.sram_state == "off":
+            sram_leak_unused = leak_off
+        else:  # ideal
+            sram_leak_unused = 0.0
+        static_j["sram"] += static_w["sram"] * dur * n * (
+            used + unused * sram_leak_unused)
+        if pol.sram_state != "on":
+            gated["sram"] += unused * dur * n
+        if pol.sram_state in ("sleep", "off") and pol.mode == "sw":
+            # one range-setpm pair per demand-CHANGE boundary (Fig 14
+            # variant 1 collapses contiguous segments; a boundary where
+            # the footprint is unchanged needs no instruction), plus the
+            # initial gate of the above-demand range
+            if (used < 1.0 if prev_used is None else used != prev_used):
+                setpm_by["sram"] += 2.0
+        prev_used = used
+        dynamic_j["sram"] += dyn_w["sram"] * max(
+            t["sa"], t["vu"], t["hbm"], t["ici"]) * 0.5 * n
+
+        # --- other: never gated ---
+        static_j["other"] += static_w["other"] * dur * n
+        dynamic_j["other"] += dyn_w["other"] * dur * 0.3 * n
+
+        runtime += dur * n
+
+    # close trailing gaps
+    for c in COMPONENTS:
+        close_gap(c)
+
+    runtime += overhead
+    return EnergyReport(
+        workload=wl.name, policy=policy, npu=npu.name,
+        runtime_s=runtime, static_j=static_j, dynamic_j=dynamic_j,
+        setpm_count=sum(setpm_by.values()), wake_events=wakes,
+        gated_s=gated, setpm_by=setpm_by)
+
+
+# --------------------------------------------------------------------------
+# evaluation — columnar vectorized engine
+# --------------------------------------------------------------------------
+
+def trace_times(tr: TraceArrays, npu: NPUSpec) -> dict[str, np.ndarray]:
+    """Per-op service-time arrays for one NPU (the columnar ``op_times``).
+
+    Cached on the trace, keyed by NPUSpec identity (ad-hoc ``replace()``d
+    specs may reuse a registry name with different hardware): times and
+    SA-occupancy fractions depend only on the hardware, not on policy or
+    knobs, so one computation serves every cell of a (policy × knobs)
+    sweep.
+    """
+    hit = tr._derived.get(id(npu))
+    if hit is not None and hit[0] is npu:
+        return hit[1]
+    n = tr.n_ops
+    eff = np.ones(n)
+    frac_on = np.zeros(n)
+    frac_w_on = np.zeros(n)
+    frac_off = np.zeros(n)
+    mm = tr.has_mm
+    if mm.any():
+        st = gating_stats_batch(tr.mm_m[mm], tr.mm_k[mm], tr.mm_n[mm],
+                                npu.sa_width)
+        frac_on[mm] = st.frac_on
+        frac_w_on[mm] = st.frac_w_on
+        frac_off[mm] = st.frac_off
+        sa_mm = mm & (tr.flops_sa > 0)
+        flops_cycles = (tr.mm_m * tr.mm_k).astype(np.float64) * tr.mm_n \
+            / (npu.sa_width ** 2)
+        dur_cy = np.ones(n)
+        dur_cy[mm] = st.duration_cycles
+        e = np.minimum(1.0, flops_cycles / np.maximum(1e-9, dur_cy))
+        eff[sa_mm] = np.maximum(e[sa_mm], 1e-3)
+    t_sa = np.where(tr.flops_sa > 0, tr.flops_sa / (npu.sa_flops * eff), 0.0)
+    t_vu = np.where(tr.flops_vu > 0, tr.flops_vu / npu.vu_flops, 0.0)
+    t_hbm = np.where(tr.bytes_hbm > 0, tr.bytes_hbm / npu.hbm_bw, 0.0)
+    t_ici = np.where(tr.bytes_ici > 0, tr.bytes_ici / npu.ici_bw, 0.0)
+    max4 = np.maximum(np.maximum(t_sa, t_vu), np.maximum(t_hbm, t_ici))
+    out = {
+        "sa": t_sa, "vu": t_vu, "hbm": t_hbm, "ici": t_ici,
+        "max4": max4, "dur": np.maximum(max4, 1e-12), "sa_eff": eff,
+        "frac_on": frac_on, "frac_w_on": frac_w_on, "frac_off": frac_off,
+    }
+    tr._derived[id(npu)] = (npu, out)
+    return out
+
+
+def _merged_gaps(active: np.ndarray, idle: np.ndarray) -> np.ndarray:
+    """Idle-gap lengths per maximal run of inactive ops.
+
+    ``idle`` holds dur*count where the component is inactive, 0 where
+    active. Returns one gap per active op (the merged idle time since the
+    previous active op) plus one trailing gap — exactly the intervals the
+    scalar engine's ``close_gap`` sees. Segment sums are accumulated
+    left-to-right via ``np.add.reduceat``, matching the scalar's
+    sequential ``pending +=`` order.
+    """
+    idx = np.flatnonzero(active)
+    if idx.size == 0:
+        return np.array([idle.sum()])
+    idle2 = np.append(idle, 0.0)
+    bounds = np.concatenate(([0], idx + 1))
+    return np.add.reduceat(idle2, bounds)
+
+
+def _gated_idle_energy_vec(gap: np.ndarray, p_static: float, *, mode: str,
+                           bet_s: float, delay_s: float, window_s: float,
+                           leak: float):
+    """Piecewise-vectorized ``_gated_idle_energy`` over an array of gaps.
+
+    Returns (energy_J, exposed_wake_s, wake_events, setpm, gated_s)
+    arrays.
+    """
+    pos = gap > 0
+    zeros = np.zeros_like(gap)
+    ungated = np.where(pos, p_static * gap, 0.0)
+    if mode == "none":
+        return ungated, zeros, zeros, zeros, zeros
+    if mode == "ideal":
+        return zeros, zeros, zeros, zeros, np.where(pos, gap, 0.0)
+    if mode == "hw":
+        g = pos & (gap > window_s)
+        e = np.where(g, p_static * window_s
+                     + leak * p_static * (gap - window_s)
+                     + p_static * delay_s, ungated)
+        gs = np.where(g, gap - window_s, 0.0)
+        return e, np.where(g, delay_s, 0.0), g.astype(np.float64), zeros, gs
+    # sw
+    g = pos & (gap >= max(bet_s, 2.0 * delay_s))
+    e = np.where(g, leak * p_static * (gap - 2 * delay_s)
+                 + p_static * 2 * delay_s, ungated)
+    gf = g.astype(np.float64)
+    return e, zeros, gf, 2.0 * gf, np.where(g, gap - 2 * delay_s, 0.0)
+
+
+def evaluate(wl: Workload, npu: NPUSpec | str = "NPU-D",
+             policy: str = "ReGate-Full",
+             knobs: PolicyKnobs = PolicyKnobs()) -> EnergyReport:
+    """Columnar engine; semantics identical to ``evaluate_reference``."""
+    npu = get_npu(npu) if isinstance(npu, str) else npu
+    npu = with_sa_width(npu, knobs.sa_width)
+    tr = compile_trace(wl)
+    tm = trace_times(tr, npu)
+    pm = PowerModel(npu)
+    g = npu.gating
+    cp = _component_policies(policy)
+
+    leak_logic = knobs.leak_off_logic if knobs.leak_off_logic is not None \
+        else g.leak_off_logic
+    leak_sleep = knobs.leak_sram_sleep if knobs.leak_sram_sleep is not None \
+        else g.leak_sram_sleep
+    leak_off = knobs.leak_sram_off if knobs.leak_sram_off is not None \
+        else g.leak_sram_off
+
+    static_w = pm.static_w
+    dyn_w = pm.dyn_max_w
+    cnt = tr.count
+    dur = tm["dur"]
+    durn = dur * cnt
+
+    static_j = {c: 0.0 for c in COMPONENTS}
+    dynamic_j = {c: 0.0 for c in COMPONENTS}
+    wakes = {c: 0.0 for c in COMPONENTS}
+    gated = {c: 0.0 for c in COMPONENTS}
+    setpm_by = {c: 0.0 for c in COMPONENTS}
+    overhead = 0.0
+
+    for c in ("sa", "vu", "hbm", "ici"):
+        pol = cp[c]
+        a = tm[c]
+        active = a > 0
+        p = static_w[c]
+        leak = max(leak_logic, g.leak_hbm_refresh) if c == "hbm" \
+            else leak_logic
+        bet_s = g.bet.get(pol.delay_key, 0) * knobs.delay_scale / npu.freq_hz
+        delay_s = g.on_off_delay.get(pol.delay_key, 0) * knobs.delay_scale \
+            / npu.freq_hz
+        window_s = bet_s * g.detection_window_frac * knobs.window_scale
+
+        # merged cross-op idle gaps (each closed once, not per instance)
+        gaps = _merged_gaps(active, np.where(active, 0.0, durn))
+        e, exposed, nw, sp, gs = _gated_idle_energy_vec(
+            gaps, p, mode=pol.mode, bet_s=bet_s, delay_s=delay_s,
+            window_s=window_s, leak=leak)
+        sj = float(e.sum())
+        ov = float(exposed.sum())
+        wk = float(nw.sum())
+        gt = float(gs.sum())
+        setpm_by[c] += float(sp.sum())
+
+        an = a[active]
+        cn = cnt[active]
+        # dynamic: proportional to useful work
+        if c == "sa":
+            dynamic_j[c] = dyn_w[c] * float(
+                (tr.flops_sa[active] / npu.sa_flops * cn).sum())
+        else:
+            dynamic_j[c] = dyn_w[c] * float((an * cn).sum())
+        # static during the active portion (SA: PE-occupancy weighted)
+        if c == "sa" and pol.spatial_sa:
+            occ = tm["frac_on"] + g.leak_pe_weight_on * tm["frac_w_on"] \
+                + leak_logic * tm["frac_off"]
+            if pol.mode == "ideal":
+                occ = tm["frac_on"]
+            occ = np.where(tr.has_mm, occ, 1.0)
+            sj += p * float((occ[active] * an * cn).sum())
+        else:
+            sj += p * float((an * cn).sum())
+        # within-op slack (per executed instance)
+        if c == "vu":
+            fv = _fine_grained_vu_vec(tm, tr, npu, pol, static_w["vu"],
+                                      leak_logic, knobs)
+            sj += fv["static_j"]
+            ov += fv["overhead"]
+            wk += fv["wakes"]
+            gt += fv["gated_s"]
+            setpm_by[c] += fv["setpm"]
+        else:
+            slack = np.where(active, dur - a, 0.0)
+            e2, exp2, nw2, sp2, gs2 = _gated_idle_energy_vec(
+                slack, p, mode=pol.mode, bet_s=bet_s, delay_s=delay_s,
+                window_s=window_s, leak=leak)
+            sj += float((e2 * cnt).sum())
+            ov += float((exp2 * cnt).sum())
+            wk += float((nw2 * cnt).sum())
+            gt += float((gs2 * cnt).sum())
+            setpm_by[c] += float((sp2 * cnt).sum())
+        if c in ("hbm", "ici"):
+            # wake overlapped with the long DMA issue latency half the time
+            ov *= 0.5
+        static_j[c] = sj
+        wakes[c] = wk
+        gated[c] = gt
+        overhead += ov
+
+    # --- SRAM: capacity-proportional static, demand-gated remainder ---
+    pol = cp["sram"]
+    used = np.minimum(1.0, tr.sram_demand / npu.sram_bytes)
+    sram_leak_unused = {"on": 1.0, "sleep": leak_sleep,
+                        "off": leak_off}.get(pol.sram_state, 0.0)
+    static_j["sram"] = static_w["sram"] * float(
+        (durn * (used + (1.0 - used) * sram_leak_unused)).sum())
+    if pol.sram_state != "on":
+        gated["sram"] = float((durn * (1.0 - used)).sum())
+    if pol.sram_state in ("sleep", "off") and pol.mode == "sw" \
+            and tr.n_ops:
+        # one range-setpm pair per demand-CHANGE boundary (matches the
+        # reference engine's prev_used tracking)
+        changes = int(np.count_nonzero(used[1:] != used[:-1]))
+        setpm_by["sram"] = 2.0 * (changes + (1 if used[0] < 1.0 else 0))
+    dynamic_j["sram"] = dyn_w["sram"] * 0.5 * float(
+        (tm["max4"] * cnt).sum())
+
+    # --- other: never gated ---
+    static_j["other"] = static_w["other"] * float(durn.sum())
+    dynamic_j["other"] = dyn_w["other"] * 0.3 * float(durn.sum())
+
+    runtime = float(durn.sum()) + overhead
+    return EnergyReport(
+        workload=wl.name, policy=policy, npu=npu.name,
+        runtime_s=runtime, static_j=static_j, dynamic_j=dynamic_j,
+        setpm_count=sum(setpm_by.values()), wake_events=wakes,
+        gated_s=gated, setpm_by=setpm_by)
+
+
+def _fine_grained_vu_vec(tm: dict, tr: TraceArrays, npu: NPUSpec,
+                         pol: _CompPolicy, p: float, leak_logic: float,
+                         knobs: PolicyKnobs) -> dict[str, float]:
+    """Vectorized ``fine_grained_vu``: per-burst VU slack inside mixed ops
+    (paper Fig 15) — HW detection mostly cannot exploit it, SW setpm can."""
+    t_vu = tm["vu"]
+    sel = t_vu > 0
+    slack = np.where(sel, tm["dur"] - t_vu, 0.0)
+    sel = sel & (slack > 0)
+    if not sel.any():
+        return {"static_j": 0.0, "overhead": 0.0, "wakes": 0.0,
+                "setpm": 0.0, "gated_s": 0.0}
+    g = npu.gating
+    slack = slack[sel]
+    n = tr.count[sel]
+    active_cy = np.maximum(1.0, npu.cycles(t_vu[sel]))
+    n_bursts = np.maximum(1.0, active_cy / g.vu_burst_cycles)
+    gap_cy = npu.cycles(slack) / n_bursts
+    bet_cy = g.bet["vu"] * knobs.delay_scale
+    delay_cy = g.on_off_delay["vu"] * knobs.delay_scale
+    window_cy = bet_cy * g.detection_window_frac * knobs.window_scale
+    psn = p * slack * n
+    if pol.mode == "none":
+        return {"static_j": float(psn.sum()), "overhead": 0.0,
+                "wakes": 0.0, "setpm": 0.0, "gated_s": 0.0}
+    if pol.mode == "ideal":
+        return {"static_j": 0.0, "overhead": 0.0, "wakes": 0.0,
+                "setpm": 0.0, "gated_s": float((slack * n).sum())}
+    if pol.mode == "hw":
+        gated = gap_cy > bet_cy
+        gated_frac = np.maximum(0.0, (gap_cy - window_cy) / gap_cy)
+        e = np.where(gated, psn * ((1 - gated_frac)
+                                   + leak_logic * gated_frac), psn)
+        gs = np.where(gated, slack * n * gated_frac, 0.0)
+        # exposed wake per burst: Base/HW hardware cannot pre-wake
+        ov = np.where(gated, n_bursts * delay_cy / npu.freq_hz * n, 0.0)
+        wk = np.where(gated, n_bursts * n, 0.0)
+        return {"static_j": float(e.sum()), "overhead": float(ov.sum()),
+                "wakes": float(wk.sum()), "setpm": 0.0,
+                "gated_s": float(gs.sum())}
+    # sw
+    gated = gap_cy >= np.maximum(bet_cy, 2 * delay_cy)
+    trans = np.where(gap_cy > 0, 2 * delay_cy / gap_cy, 0.0)
+    e = np.where(gated, psn * (trans + leak_logic * (1 - trans)), psn)
+    gs = np.where(gated, slack * n * (1 - trans), 0.0)
+    sp = np.where(gated, 2 * n_bursts * n, 0.0)
+    wk = np.where(gated, n_bursts * n, 0.0)
+    return {"static_j": float(e.sum()), "overhead": 0.0,
+            "wakes": float(wk.sum()), "setpm": float(sp.sum()),
+            "gated_s": float(gs.sum())}
 
 
 # --------------------------------------------------------------------------
@@ -1033,3 +1602,19 @@ def evaluate_batch(workloads, npus=("NPU-D",), policies=POLICIES,
     _validate_knob_grid(knob_grid)
     return _evaluate_batch_backend(workloads, npu_specs, policies,
                                    knob_grid, get_backend(device))
+
+
+def evaluate_all(wl: Workload, npu="NPU-D",
+                 knobs: PolicyKnobs = PolicyKnobs(), *,
+                 device=None) -> dict[str, EnergyReport]:
+    """All five policies for one workload — a thin wrapper over the
+    batched plane (one stacked pass instead of five engine calls).
+    ``device`` as in ``evaluate_batch``: ``None`` means the session's
+    device, else the card, where the pass launches K1 and K2."""
+    res = evaluate_batch(wl, (npu,), POLICIES, (knobs,), device=device)
+    return {p: res.report(0, 0, pi, 0) for pi, p in enumerate(POLICIES)}
+
+
+def savings_vs_nopg(reports: dict[str, EnergyReport]) -> dict[str, float]:
+    base = reports["NoPG"].total_j
+    return {p: 1.0 - r.total_j / base for p, r in reports.items()}

@@ -10,12 +10,18 @@ enclosing session (ultimately the root session, which holds the
 process-wide defaults). Sessions nest and restore the previous state on
 exit, exception-safe.
 
-The port's session carries one field, ``device``: where the sweep
-kernel's tensors live. It stands where the JAX package's session has
-``backend``, ``jax_mesh`` and ``sa_occupancy_impl`` — in the port the
-device alone decides the route (a CUDA tensor goes through the
-hand-written kernels, a CPU tensor through their plain versions). The
-root value is ``None``, which every entry point reads as ``"cuda"``.
+The port's session carries two fields:
+
+* ``device``: where the sweep kernel's tensors live. It stands where the
+  JAX package's session has ``backend``, ``jax_mesh`` and
+  ``sa_occupancy_impl`` — in the port the device alone decides the route
+  (a CUDA tensor goes through the hand-written kernels, a CPU tensor
+  through their plain versions). The root value is ``None``, which every
+  entry point reads as ``"cuda"``.
+* ``gating_cache_size``: applied on ``__enter__`` through
+  ``sa_gating.set_gating_cache_size`` (the LRU itself stays the single
+  source of truth) and the previous size restored on ``__exit__``. The
+  root holds ``UNSET`` for it, so it resolves to ``None``.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ class _Unset:
 
 UNSET = _Unset()
 
-_FIELDS = ("device",)
+_FIELDS = ("device", "gating_cache_size")
 
 
 def _check_device(value: Any) -> Any:
@@ -55,15 +61,20 @@ class SweepSession:
 
     ``device`` defaults to ``UNSET`` (inherit); otherwise anything
     ``torch.device`` accepts, or ``None`` for the default (``"cuda"``).
-    Use as a context manager; re-entering an already-active session
-    raises.
+    ``gating_cache_size`` defaults to ``UNSET`` (leave the LRU alone);
+    otherwise a size accepted by ``sa_gating.set_gating_cache_size``
+    (``None`` = unbounded). Use as a context manager; re-entering an
+    already-active session raises.
     """
 
-    def __init__(self, device: Any = UNSET):
+    def __init__(self, device: Any = UNSET,
+                 gating_cache_size: Any = UNSET):
         if device is not UNSET:
             _check_device(device)
         self.device = device
+        self.gating_cache_size = gating_cache_size
         self._active = False
+        self._prev_cache: Any = UNSET
 
     def __repr__(self) -> str:
         parts = [f"{f}={getattr(self, f)!r}" for f in _FIELDS
@@ -76,6 +87,10 @@ class SweepSession:
                                "construct a new one per `with` block")
         _stack().append(self)
         self._active = True
+        if self.gating_cache_size is not UNSET:
+            from repro_torch.core import sa_gating
+            self._prev_cache = sa_gating.set_gating_cache_size(
+                self.gating_cache_size)
         return self
 
     def __exit__(self, exc_type, exc, tb) -> None:
@@ -84,6 +99,10 @@ class SweepSession:
             raise RuntimeError(
                 "SweepSession exited out of order (not the innermost "
                 "active session)")
+        if self._prev_cache is not UNSET:
+            from repro_torch.core import sa_gating
+            sa_gating.set_gating_cache_size(self._prev_cache)
+            self._prev_cache = UNSET
         stack.pop()
         self._active = False
 
@@ -93,7 +112,9 @@ class SweepSession:
 # -----------------------------------------------------------------------
 
 def _root() -> SweepSession:
-    """The process-wide defaults layer (what ``set_root`` mutates)."""
+    """The process-wide defaults layer (what ``set_root`` mutates). The
+    gating-cache size stays UNSET here: sessions scope the LRU by save
+    and restore, not by resolution."""
     s = SweepSession(device=None)
     s._active = True  # the root never exits
     return s
@@ -122,7 +143,7 @@ def resolve(field: str) -> Any:
         v = getattr(layer, field)
         if v is not UNSET:
             return v
-    return None
+    return None  # gating_cache_size: the root holds UNSET by design
 
 
 def current() -> dict:
@@ -139,7 +160,8 @@ def set_root(**fields: Any) -> dict:
         if name not in _FIELDS:
             raise KeyError(f"unknown session field {name!r}; "
                            f"have {_FIELDS}")
-        _check_device(value)
+        if name == "device":
+            _check_device(value)
         prev[name] = getattr(_ROOT, name)
         setattr(_ROOT, name, value)
     return prev

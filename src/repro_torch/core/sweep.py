@@ -7,6 +7,9 @@ are stacked into one ragged super-trace, the per-(stack, npu) device
 data is reused across the policy/knob axes, and the records fall out of
 a handful of segmented tensor passes — no per-cell Python round-trips.
 
+``sweep_reference`` keeps the one-``evaluate``-call-per-cell loop on the
+host as the oracle: same records, same order, ≤1e-9 relative.
+
 ``sweep_grid`` crosses the §6.5 sensitivity axes (wake-delay scale,
 gated leakage ratios, SRAM sleep/off leakage, SA width, detection
 window) into a single fine-grid ``evaluate_batch`` call.
@@ -22,10 +25,39 @@ from __future__ import annotations
 from typing import Iterable, Optional, Sequence
 
 from repro_torch.core.hw import NPUSpec, get_npu
-from repro_torch.core.opgen import Workload
-from repro_torch.core.policies import (POLICIES, BatchResult, KnobGrid,
-                                       PolicyKnobs, evaluate_batch)
+from repro_torch.core.opgen import Workload, compile_trace
+from repro_torch.core.policies import (POLICIES, BatchResult, EnergyReport,
+                                       KnobGrid, PolicyKnobs, evaluate,
+                                       evaluate_batch, knob_columns)
+from repro_torch.core.power import COMPONENTS
 from repro_torch.core.session import SweepSession  # noqa: F401  (re-export)
+
+
+def _flatten(rep: EnergyReport, knobs: PolicyKnobs, knob_idx: int,
+             npu: NPUSpec) -> dict:
+    """One sweep record from one ``EnergyReport``: the columns of
+    ``BatchResult.records()``."""
+    rec = {
+        "workload": rep.workload,
+        "npu": rep.npu,
+        "policy": rep.policy,
+        # every knob column, unconditionally (KnobGrid.columns()):
+        # record consumers (with_savings / group_by) key on these
+        **knob_columns(knobs, knob_idx),
+        "runtime_s": rep.runtime_s,
+        "total_j": rep.total_j,
+        "static_total_j": sum(rep.static_j.values()),
+        "dynamic_total_j": sum(rep.dynamic_j.values()),
+        "static_frac": rep.static_frac,
+        "avg_power_w": rep.avg_power_w,
+        "setpm_count": rep.setpm_count,
+        "setpm_per_1k_cycles": rep.setpm_per_1k_cycles(npu),
+        "wake_events": sum(rep.wake_events.values()),
+    }
+    for c in COMPONENTS:
+        rec[f"static_j_{c}"] = rep.static_j[c]
+        rec[f"dynamic_j_{c}"] = rep.dynamic_j[c]
+    return rec
 
 
 def sweep(workloads: Sequence[Workload] | Workload,
@@ -42,6 +74,33 @@ def sweep(workloads: Sequence[Workload] | Workload,
     npu_specs = [get_npu(n) if isinstance(n, str) else n for n in npus]
     return evaluate_batch(workloads, npu_specs, tuple(policies),
                           tuple(knob_grid), device=device).records()
+
+
+def sweep_reference(workloads: Sequence[Workload] | Workload,
+                    npus: Iterable[NPUSpec | str] = ("NPU-D",),
+                    policies: Iterable[str] = POLICIES,
+                    knob_grid: Optional[Sequence[PolicyKnobs]] = None) \
+        -> list[dict]:
+    """The loop sweep — one host ``evaluate`` round-trip per cell.
+
+    The oracle for the batched path: same records, same deterministic
+    ordering, ≤1e-9 relative on every record field. It runs on the host
+    whatever the session's device.
+    """
+    if isinstance(workloads, Workload):
+        workloads = [workloads]
+    if knob_grid is None:
+        knob_grid = [PolicyKnobs()]
+    npu_specs = [get_npu(n) if isinstance(n, str) else n for n in npus]
+    records: list[dict] = []
+    for wl in workloads:
+        compile_trace(wl)  # compile once up front (cached by identity)
+        for npu in npu_specs:
+            for policy in policies:
+                for ki, knobs in enumerate(knob_grid):
+                    rep = evaluate(wl, npu, policy, knobs)
+                    records.append(_flatten(rep, knobs, ki, npu))
+    return records
 
 
 def knob_product(delay_scale: Sequence[float] = (1.0,),

@@ -59,6 +59,13 @@ def _bind_ssd_scan(lib: ctypes.CDLL) -> None:
     lib.ssd_scan_launch.restype = ctypes.c_int
 
 
+def _bind_gated_matmul(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.gated_matmul_launch.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+    lib.gated_matmul_launch.restype = ctypes.c_int
+
+
 @dataclass(frozen=True)
 class Library:
     source: Path
@@ -77,6 +84,8 @@ LIBRARIES = {
     "attention": Library(CSRC / "attention.cu", COMMON_FLAGS,
                          _bind_attention),
     "ssd_scan": Library(CSRC / "ssd_scan.cu", COMMON_FLAGS, _bind_ssd_scan),
+    "gated_matmul": Library(CSRC / "gated_matmul.cu", COMMON_FLAGS,
+                            _bind_gated_matmul),
 }
 
 _LOCK = threading.Lock()

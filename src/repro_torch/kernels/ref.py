@@ -1,10 +1,16 @@
-"""Plain PyTorch oracles of the attention and SSD kernels (the allclose
-references), as ``repro/kernels/ref.py`` keeps them for the Pallas ones."""
+"""Plain PyTorch oracles of the matmul, attention and SSD kernels (the
+allclose references), as ``repro/kernels/ref.py`` keeps them for the
+Pallas ones."""
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+def ref_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[M,K] x [K,N] in float32, returned in x's dtype."""
+    return (x.float() @ w.float()).to(x.dtype)
 
 
 def ref_attention(q, k, v, *, causal: bool = True,

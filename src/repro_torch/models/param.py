@@ -85,7 +85,7 @@ def init_params(specs, gen: torch.Generator, device) -> Any:
     every normal leaf from ``gen`` (a ``torch.Generator`` on that
     device) in sorted-key order. The numbers are not ``jax.random``'s:
     to compute from the JAX package's weights, convert them with
-    ``repro_torch.convert.params_from_numpy``."""
+    ``repro_torch.convert.params_from_numpy(tree, device=device)``."""
     device = torch.device(device)
     vals = {path: _init_one(gen, s, device)
             for path, s in tree_leaves(specs)}

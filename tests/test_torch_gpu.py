@@ -280,3 +280,87 @@ def test_reduced_ssm_decode_matches_forward_on_the_card(card):
             dtype=f32)
         torch.testing.assert_close(got[:, 0], want[:, S + t], atol=1e-4,
                                    rtol=0)
+
+
+# B2 against its plain version on the card, at the tolerances of
+# tests/test_kernels.py: atol = tol * max|plain| + 1e-5, rtol = tol, with
+# tol 1e-4 for float32 (true float32 FMAs in another order) and 2e-2 for
+# bf16 (the output rounded to bf16 on each side)
+GM_CASES = [(128, 128, 128, 0, 0), (256, 256, 512, 256, 0),
+            (384, 512, 256, 0, 256), (128, 256, 384, 128, 128),
+            (512, 128, 128, 0, 0)]
+GM_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _gm_check(x, w, bitmap, **blocks):
+    from repro_torch.kernels.gated_matmul import (gated_matmul_p,
+                                                  gated_matmul_plain)
+    bm = blocks.get("bm", 128)
+    gated_matmul_p.tiles_run.zero_()
+    before = gated_matmul_p.launches
+    got = gated_matmul_p(x, w, bitmap, **blocks)
+    assert gated_matmul_p.launches == before + 1
+    assert int(gated_matmul_p.tiles_run) \
+        == (x.shape[0] // bm) * int((bitmap != 0).sum())
+    want = gated_matmul_plain(x, w, bitmap, **blocks)
+    tol = GM_TOL[x.dtype]
+    assert got.dtype == x.dtype and got.shape == want.shape
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=tol,
+        atol=tol * float(want.float().abs().max()) + 1e-5)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", GM_CASES)
+def test_gated_matmul_kernel_matches_plain(card, dtype, case):
+    from repro_torch.kernels import ops
+    M, K, N, zn, zk = case
+    x, w = _attn_inputs(card, dtype, sum(case), (M, K), (K, N))
+    if zn:
+        w[:, N - zn:] = 0.0
+    if zk:
+        w[K - zk:] = 0.0
+    _gm_check(x, w, ops.tile_nonzero_bitmap(w, 128, 128))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("bk", [64, 128])
+def test_gated_matmul_every_block_instance(card, dtype, bm, bn, bk):
+    x, w = _attn_inputs(card, dtype, bm + bn + bk, (256, 384), (384, 256))
+    g = np.random.default_rng(bm * bn + bk)
+    bitmap = torch.tensor(g.random((384 // bk, 256 // bn)) > 0.4,
+                          dtype=torch.int32, device=card)
+    _gm_check(x, w, bitmap, bm=bm, bn=bn, bk=bk)
+
+
+def test_gated_matmul_drops_a_nonzero_tile_and_refuses_other_blocks(card):
+    from repro_torch.kernels.gated_matmul import gated_matmul_p
+    x, w = _attn_inputs(card, torch.bfloat16, 9, (256, 256), (256, 512))
+    x[:, 128:] = float("nan")  # K tile 1 never runs
+    bitmap = torch.tensor([[1, 0, 1, 1], [0, 0, 0, 0]], dtype=torch.int32,
+                          device=card)
+    got = _gm_check(x, w, bitmap)
+    assert bool(torch.isfinite(got).all())
+    assert float(got[:, 128:256].abs().max()) == 0.0
+    with pytest.raises(ValueError, match="built for"):
+        gated_matmul_p(x, w, bitmap, bm=32)
+
+
+def test_evaluate_all_on_the_card_matches_evaluate(card):
+    from repro_torch.core import evaluate, evaluate_all
+    wl = opgen.paper_suite()[8]
+    k1, k2 = sa_occupancy.launches, segment_sum.launches
+    reps = evaluate_all(wl, "NPU-D")  # device=None: the card
+    assert sa_occupancy.launches > k1 and segment_sum.launches > k2
+    for p, got in reps.items():
+        want = evaluate(wl, "NPU-D", p)
+        for f in ("static_j", "dynamic_j", "wake_events", "gated_s",
+                  "setpm_by"):
+            for c, v in getattr(want, f).items():
+                assert abs(getattr(got, f)[c] - v) <= 1e-9 * max(
+                    1e-30, abs(v), abs(getattr(got, f)[c])), (p, f, c)
+        assert abs(got.runtime_s - want.runtime_s) \
+            <= 1e-9 * want.runtime_s, p

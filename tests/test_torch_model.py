@@ -14,8 +14,8 @@
   ``tests/test_attention_equiv.py::test_decode_matches_forward``), for
   mamba2 also with prompts shorter than its conv (S = 1, 2), which the
   JAX server grafts into its cache left-aligned and cannot check;
-* ``init_cache`` runs on the card unless told otherwise, and raises
-  without one.
+* ``init_cache`` and ``params_from_numpy`` run on the card unless told
+  otherwise, and raise without one.
 """
 import dataclasses
 
@@ -51,7 +51,8 @@ LOGIT_ATOL = 1e-4  # float32 both sides; see the module docstring
 def _ref_params(cfg, seed=0):
     """The JAX package's weights and the same numbers as a port tree."""
     p = ref_init_params(jreg.param_specs(cfg), jax.random.PRNGKey(seed))
-    return p, params_from_numpy(jax.tree.map(np.asarray, p))
+    return p, params_from_numpy(jax.tree.map(np.asarray, p),
+                                device="cpu")
 
 
 def _tokens(seed, B, S, vocab):
@@ -118,6 +119,21 @@ def test_init_cache_runs_on_the_card_unless_told(monkeypatch):
     assert cx.dtype == torch.bfloat16 and ssm.dtype == torch.float32
     assert ssm.shape == (cfg.n_layers, 2, ss.n_heads(cfg.d_model),
                          ss.head_dim, ss.d_state)
+
+
+def test_params_from_numpy_runs_on_the_card_unless_told(monkeypatch):
+    tree = {"w": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "sub": {"ids": np.arange(4, dtype=np.int32)}}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_numpy(tree)
+    with pytest.raises(TypeError):  # device and dtype are keyword-only
+        params_from_numpy(tree, "cpu", torch.bfloat16)
+    got = params_from_numpy(tree, device="cpu", dtype=torch.bfloat16)
+    assert got["w"].device.type == "cpu" and got["w"].dtype == torch.bfloat16
+    assert got["w"].tolist() == [[0.0, 1.0, 2.0], [3.0, 4.0, 5.0]]
+    assert got["sub"]["ids"].dtype == torch.int32
+    assert got["sub"]["ids"].tolist() == [0, 1, 2, 3]
 
 
 def test_init_params_follows_the_fan_in_rule():

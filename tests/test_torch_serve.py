@@ -43,7 +43,7 @@ def _against_the_jax_server(arch, B, S0, n, seed):
     ref = RefServer(arch, batch=B, max_seq=S0 + n + 2, seed=seed)
     srv = serve.Server(arch, batch=B, max_seq=S0 + n + 2, device="cpu")
     srv.params = params_from_numpy(jax.tree.map(np.asarray, ref.params),
-                                   "cpu", torch.bfloat16)
+                                   device="cpu", dtype=torch.bfloat16)
     want, got = [], []
     ref.prefill = _recording(ref.prefill, want,
                              lambda x: np.asarray(x, np.float32))

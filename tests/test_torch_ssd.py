@@ -179,7 +179,8 @@ def _ssd_weights(rcfg, seed):
     jp["dt_bias"] = jnp.asarray(g.normal(0, 0.5, nh).astype(np.float32))
     jp["conv_b"] = jnp.asarray(
         g.normal(0, 0.1, jp["conv_b"].shape).astype(np.float32))
-    return jp, params_from_numpy(jax.tree.map(np.asarray, jp))
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp),
+                                 device="cpu")
 
 
 def test_causal_conv_matches_jax():

@@ -40,6 +40,7 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.configs.base",
            "repro_torch.kernels.flash_attention",
            "repro_torch.kernels.decode_attention",
            "repro_torch.kernels.ssd_scan", "repro_torch.kernels.ops",
+           "repro_torch.kernels.gated_matmul",
            "repro_torch.models.param", "repro_torch.models.common",
            "repro_torch.models.blocks", "repro_torch.models.registry",
            "repro_torch.models.model", "repro_torch.train.steps",
@@ -69,7 +70,8 @@ def test_slice_modules_exist():
                 "kernels/ref.py", "kernels/ops.py",
                 "kernels/flash_attention.py", "kernels/decode_attention.py",
                 "kernels/csrc/attention.cu", "kernels/ssd_scan.py",
-                "kernels/csrc/ssd_scan.cu", "models/param.py",
+                "kernels/csrc/ssd_scan.cu", "kernels/gated_matmul.py",
+                "kernels/csrc/gated_matmul.cu", "models/param.py",
                 "models/common.py", "models/blocks.py", "models/registry.py",
                 "models/model.py", "train/steps.py", "launch/serve.py",
                 *(f"configs/{c}.py" for c in CONFIG_FILES)):
@@ -87,6 +89,7 @@ def test_no_jax_and_no_reference_package_imports(path):
 @pytest.mark.parametrize("first", ["repro_torch.core",
                                    "repro_torch.kernels.sa_occupancy",
                                    "repro_torch.kernels.segment_sum",
+                                   "repro_torch.kernels.gated_matmul",
                                    "repro_torch.launch.serve"])
 def test_imports_with_nvcc_absent(first):
     """Every module imports with no ``nvcc`` reachable and pulls in
@@ -138,7 +141,12 @@ CUDA_SOURCES = {
                      ("src/repro/kernels/flash_attention.py",
                       "src/repro/kernels/decode_attention.py")),
     "ssd_scan.cu": (("ssd_scan_launch",), ("src/repro/kernels/ssd_scan.py",)),
+    "gated_matmul.cu": (("gated_matmul_launch",),
+                        ("src/repro/kernels/gated_matmul.py",)),
 }
+# the one atomic the sources may hold: B2's integer count of executed
+# tiles (integer adds commute, so the count is exact); no float atomics
+ATOMICS = {"gated_matmul.cu": ["tiles_run"]}
 
 
 @pytest.mark.parametrize("source", sorted(CUDA_SOURCES))
@@ -149,7 +157,10 @@ def test_cuda_source_says_what_it_replaces(source):
         assert f'extern "C" int {name}' in cu
     for ref in replaced:
         assert ref in cu
-    assert "torch/extension.h" not in cu and "atomicAdd" not in cu
+    assert "torch/extension.h" not in cu
+    assert re.findall(r"atomicAdd\(\s*(\w+)\s*,", cu) \
+        == ATOMICS.get(source, [])
+    assert cu.count("atomicAdd") == len(ATOMICS.get(source, []))
     assert cu.count("cudaGetLastError()") >= len(launchers)
     # every source is a library of its own with its own flags
     from repro_torch.kernels import _build
@@ -172,23 +183,33 @@ def test_cpu_tensors_never_reach_the_kernels():
     assert _build._LIBS == libs  # nothing was built or loaded
 
 
-def test_ssd_binding_declares_every_argument():
+def _assert_binding_declares_every_argument(source, launcher, bind):
     """ctypes passes an undeclared argument as a 32-bit int and would cut
     a pointer: every parameter of the C launcher has an argtype."""
     import ctypes
-    from repro_torch.kernels import _build
-    cu = (PKG / "kernels" / "csrc" / "ssd_scan.cu").read_text()
-    sig = cu[cu.index('extern "C" int ssd_scan_launch('):]
+    cu = (PKG / "kernels" / "csrc" / source).read_text()
+    sig = cu[cu.index(f'extern "C" int {launcher}('):]
     params = sig[sig.index("(") + 1:sig.index(")")].split(",")
-
-    class Fake:
-        ssd_scan_launch = type("F", (), {})()
-    _build._bind_ssd_scan(Fake)
-    types = Fake.ssd_scan_launch.argtypes
+    fake = type("Fake", (), {launcher: type("F", (), {})()})
+    bind(fake)
+    types = getattr(fake, launcher).argtypes
     assert len(types) == len(params)
     for t, decl in zip(types, params):
         want = ctypes.c_int if decl.split()[0] == "int" else ctypes.c_void_p
         assert t is want, decl
+    assert getattr(fake, launcher).restype is ctypes.c_int
+
+
+def test_ssd_binding_declares_every_argument():
+    from repro_torch.kernels import _build
+    _assert_binding_declares_every_argument("ssd_scan.cu", "ssd_scan_launch",
+                                            _build._bind_ssd_scan)
+
+
+def test_gated_matmul_binding_declares_every_argument():
+    from repro_torch.kernels import _build
+    _assert_binding_declares_every_argument(
+        "gated_matmul.cu", "gated_matmul_launch", _build._bind_gated_matmul)
 
 
 def test_fmad_off_only_where_bits_are_promised():
@@ -196,6 +217,7 @@ def test_fmad_off_only_where_bits_are_promised():
     assert "-fmad=false" in _build.LIBRARIES["power_plane"].flags
     assert "-fmad=false" not in _build.LIBRARIES["attention"].flags
     assert "-fmad=false" not in _build.LIBRARIES["ssd_scan"].flags
+    assert "-fmad=false" not in _build.LIBRARIES["gated_matmul"].flags
     assert all("arch=compute_90a,code=sm_90a" in lib.flags
                for lib in _build.LIBRARIES.values())
 
