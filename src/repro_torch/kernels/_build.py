@@ -4,9 +4,10 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface and loaded with
 ``ctypes`` — no PyTorch headers, so a build takes seconds. The first
 ``load`` in a process builds every library that is missing or older than
-its own source, one ``nvcc`` per source, all started together; never at
-import (this module imports on a machine with no ``nvcc``), and from the
-sources in the package and nothing else. The libraries land in
+its own source or a shared header (``csrc/*.cuh``), one ``nvcc`` per
+source, all started together; never at import (this module imports on a
+machine with no ``nvcc``), and from the sources in the package and
+nothing else. The libraries land in
 ``build/repro_torch/`` at the root of the checkout, or in
 ``$REPRO_TORCH_BUILD_DIR``.
 
@@ -121,11 +122,15 @@ def find_nvcc() -> str:
 
 
 def _stale() -> list[str]:
+    """The libraries missing or older than their source or any shared
+    header of ``csrc/``."""
+    headers = max((h.stat().st_mtime for h in CSRC.glob("*.cuh")),
+                  default=0.0)
     out = []
     for name, lib in LIBRARIES.items():
         path = library_path(name)
-        if not path.exists() \
-                or path.stat().st_mtime < lib.source.stat().st_mtime:
+        if not path.exists() or path.stat().st_mtime \
+                < max(lib.source.stat().st_mtime, headers):
             out.append(name)
         else:
             BUILD_INFO.setdefault(name, {"seconds": 0.0})

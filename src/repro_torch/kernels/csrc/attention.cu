@@ -18,6 +18,9 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 #define ATTN_NEG_INF (-1e30f)
 
@@ -53,25 +56,54 @@ __device__ __forceinline__ void load16(const float* p, float* out) {
 // (entry flash_attention_p, wrapper ops.flash_attention): blocked
 // online-softmax attention with causal block skipping, key mask
 // k_pos < Sk, masked scores -1e30, and the output divided by max(l, 1e-30).
-// q is scaled in float32 before the product, as there.
 //
 // Bound: at the serving path's prefill (B=4, S=2048, H=16, Hkv=2, D=128,
 // bf16) the causal half of 4*B*H*S*S*D is 69 GFLOP per layer against
 // 8.9 MB of q, k, v and output -- some 7 700 operations per byte, far above
-// the card's ~295, so the bound is the tensor cores' 989 TFLOP/s.
+// the card's ~295, so the bound is the tensor cores' 989 TFLOP/s (0.07 ms);
+// the float32 route is bound by the CUDA cores' 67 TFLOP/s.
 //
-// Design: one block of 256 threads per (q-tile of 64 rows, head, batch).
-// It loops over key tiles of 64 staged in shared memory as float32; the
-// loop bound is cut at the diagonal (and at Sk), so a tile that the causal
-// mask would zero is never loaded -- the point of the Pallas kernel, which
-// the plain chunked XLA path (models/common.py::flash_attention_jax) does
-// not do. Each thread computes a 4x4 block of the 64x64 score tile with
-// float4 shared-memory reads, the 256 threads then take the row statistics
-// four to a row (fixed-order combine), and the P.V product accumulates a
-// 4 x D/16 block of the output in registers. K and V share one buffer so
-// two blocks fit on an SM. The products run on the CUDA cores in float32:
-// simple and right first; the tensor-core (wgmma / mma.sync) version is
-// later work and is what would close the gap to the bound.
+// Both routes: one block per (q-tile of 64 rows, head, batch). The key loop
+// runs over tiles of 64 and stops at the diagonal (and at Sk), so a tile
+// that the causal mask would zero is never loaded -- the point of the
+// Pallas kernel, which the plain chunked XLA path
+// (models/common.py::flash_attention_jax) does not do. tiles_loaded
+// receives each block's count of key tiles.
+//
+// bf16 (flash_attention_bf16_kernel): FlashAttention-2 on the tensor cores.
+// The q-tile is the grid's slowest axis, reversed, so the longest causal
+// rows start first and the short ones fill the tail. Four warps, each
+// owning 16 query rows; q's fragments are loaded once by ldmatrix and stay
+// in registers for the whole key loop. S = q k^T is mma.sync m16n8k16
+// bf16 -> float32 with K fragments by ldmatrix (a K row is a column of
+// k^T). The scale multiplies the float32 scores (q is not rounded after
+// scaling); the mask is applied only in tiles that cross the diagonal or
+// Sk. The online softmax stays in registers: each thread holds 2 rows x 16
+// keys of a tile, row maxima are combined over the 4 threads of a quad by
+// __shfl_xor_sync (1 then 2: a fixed order), p = exp2 of the scaled
+// difference times log2(e), and the row sum l is summed per thread from the
+// float32 p and combined over the quad once, at the end. P is rounded to
+// bf16 in registers and used as the A fragment of P.V, with V by
+// ldmatrix.trans -- unlike the plain version and the Pallas kernel, which
+// multiply p in float32. That rounding (relative 2^-9 per weight, and the
+// weights sum to 1) moves each output by a few 1e-3 of its size, inside the
+// 2e-2 that a bf16 output's own rounding already needs: at the serving
+// prefill the output's relative L2 to the plain version is 2.1e-3 on the
+// H100, that of the plain version with p rounded to bf16, and chip_smoke.py
+// holds it to 6e-3 (p rounded to 3 mantissa bits reads 2.0e-2). The q tile and the
+// K and V tiles come by TMA (one thread issues the box copies; a 4-D tensor
+// map per tensor takes the (B, S, heads, D) strides; rows past the sequence
+// are zero-filled), K and V double-buffered on two mbarriers, so tile j+1
+// is in flight under tile j's products: one __syncthreads per tile. The
+// 128-byte swizzle keeps each 8-row ldmatrix phase on 32 distinct banks. On
+// the H100 a draft that staged the same tiles by per-thread cp.async copies
+// was slower at the serving shape.
+//
+// float32 (flash_attention_kernel): true float32 FMAs on the CUDA cores (no
+// TF32, so it holds 2e-5 against the plain version): 256 threads, q scaled
+// in float32 and staged with the K and V tiles in shared memory, each
+// thread a 4x4 block of the score tile and a 4 x D/16 block of the output,
+// row statistics four threads to a row (fixed-order combine).
 // ---------------------------------------------------------------------------
 namespace fa {
 constexpr int BQ = 64, BK = 64, THREADS = 256;
@@ -267,6 +299,258 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+namespace fa2 {
+constexpr int BQ = 64, BK = 64, WARPS = 4, THREADS = 32 * WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A tile of 64 rows x D in shared memory: max(D / 64, 1) TMA boxes of 64
+// rows x 64 columns (128 bytes a row; columns past D zero-filled), 128-byte
+// swizzle. The q tile, then two stages of (K tile, V tile).
+template <int D> __host__ __device__ constexpr int boxes() { return D > 64 ? D / 64 : 1; }
+template <int D> __host__ __device__ constexpr int tile_bytes() { return boxes<D>() * 64 * 128; }
+template <int D> constexpr size_t smem_bytes() {
+    // + 1024: the tiles' start is rounded up to the swizzle's alignment
+    return 5 * (size_t)tile_bytes<D>() + 1024;
+}
+
+// the 16 bytes at (row, col) of a tile, col a multiple of 8
+__device__ __forceinline__ const unsigned char* at(const unsigned char* tile,
+                                                   int row, int col)
+{
+    return tile + (col / 64) * (64 * 128) + sw128(row, (col % 64) / 8);
+}
+
+// rows [row0, row0 + 64) of head `head` of batch b (rows past the sequence
+// zero-filled by the TMA unit), completing on bar
+template <int D>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
+                                          int head, int row0, int b, uint64_t* bar)
+{
+#pragma unroll
+    for (int bx = 0; bx < boxes<D>(); ++bx)
+        tma_load_4d(dst + bx * 64 * 128, map, bx * 64, head, row0, b, bar);
+}
+}  // namespace fa2
+
+template <int D>
+__global__ void __launch_bounds__(fa2::THREADS, 2)
+flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            __nv_bfloat16* __restrict__ o,
+                            int H, int Hkv, int Sq, int Sk,
+                            float scale, int causal, int* __restrict__ tiles_loaded)
+{
+    using namespace fa2;
+    constexpr int TB = tile_bytes<D>();
+    constexpr int KD = D / 16;   // k16 steps of q k^T
+    constexpr int NO = D / 8;    // n8 tiles of the output
+    constexpr int NS = BK / 8;   // n8 tiles of the scores
+    extern __shared__ __align__(16) unsigned char fa2_smem[];
+    unsigned char* Qs = reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(fa2_smem) + 1023) & ~(uintptr_t)1023);
+    unsigned char* KV = Qs + TB;  // stage s: K tile at 2 s TB, V tile next
+    __shared__ __align__(8) uint64_t full[2];
+
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int n_qt = (int)gridDim.z, qt = n_qt - 1 - (int)blockIdx.z;
+    const int hk = h / (H / Hkv);
+    const int q0 = qt * BQ;
+
+    // keys [0, k_end) can be live for some row of this tile; later tiles
+    // are never loaded
+    const int q_last = min(q0 + BQ, Sq) - 1;
+    const int k_end = causal ? min(q_last + 1, Sk) : Sk;
+    const int n_tiles = (k_end + BK - 1) / BK;
+    if (threadIdx.x == 0) {
+        if (tiles_loaded != nullptr)
+            tiles_loaded[((int64_t)b * H + h) * n_qt + qt] = n_tiles;
+        mbar_init(&full[0], 1);
+        mbar_init(&full[1], 1);
+        mbar_fence_init();
+        mbar_expect_tx(&full[0], 3 * TB);
+        load_tile<D>(Qs, &tq, h, q0, b, &full[0]);
+        load_tile<D>(KV, &tk, hk, 0, b, &full[0]);
+        load_tile<D>(KV + TB, &tv, hk, 0, b, &full[0]);
+    }
+    __syncthreads();  // the barriers are initialised before anyone waits
+
+    // this thread's rows of the warp's 16: g and g + 8
+    const int row0 = q0 + warp * 16 + g;
+    uint32_t qf[KD][4];
+    float oacc[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+    float m[2] = {ATTN_NEG_INF, ATTN_NEG_INF};  // running row max (scaled)
+    float l[2] = {0.f, 0.f};  // this thread's part of the running row sum
+
+    for (int kt = 0; kt < n_tiles; ++kt) {
+        const int k0 = kt * BK;
+        mbar_wait(&full[kt % 2], (kt / 2) & 1);
+        // tile kt has landed, and every warp is done with tile kt - 1,
+        // whose stage the next load overwrites
+        __syncthreads();
+        if (kt == 0) {
+#pragma unroll
+            for (int kd = 0; kd < KD; ++kd)
+                ldmatrix_x4(qf[kd], at(Qs, warp * 16 + lane % 16,
+                                       kd * 16 + (lane / 16) * 8));
+        }
+        if (threadIdx.x == 0 && kt + 1 < n_tiles) {
+            unsigned char* st = KV + ((kt + 1) % 2) * 2 * TB;
+            uint64_t* bar = &full[(kt + 1) % 2];
+            mbar_expect_tx(bar, 2 * TB);
+            load_tile<D>(st, &tk, hk, k0 + BK, b, bar);
+            load_tile<D>(st + TB, &tv, hk, k0 + BK, b, bar);
+        }
+        const unsigned char* Kt = KV + (kt % 2) * 2 * TB;
+        const unsigned char* Vt = Kt + TB;
+
+        // S = q k^T: this warp's 16 rows x 64 keys, n8 tile j = keys 8j..
+        float s[NS][4];
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+            for (int j = 0; j < NS; j += 2) {
+                // matrices: keys 8j.. x d (lo, hi 8), keys 8j+8.. x d (lo, hi)
+                uint32_t r[4];
+                ldmatrix_x4(r, at(Kt, j * 8 + (lane / 16) * 8 + lane % 8,
+                                  kd * 16 + ((lane / 8) % 2) * 8));
+                mma_bf16(s[j], qf[kd], r);
+                mma_bf16(s[j + 1], qf[kd], r + 2);
+            }
+
+        // scale in float32; mask only where a tile crosses the diagonal or Sk
+        const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float x = s[j][e] * scale;
+                if (masked) {
+                    const int kpos = k0 + j * 8 + 2 * t + (e % 2);
+                    const int qpos = row0 + (e / 2) * 8;
+                    if (kpos >= Sk || (causal && kpos > qpos)) x = ATTN_NEG_INF;
+                }
+                s[j][e] = x;
+            }
+
+        // online softmax, rows g (r = 0) and g + 8 (r = 1)
+        float alpha[2], mb[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float mx = m[r];
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+                mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            alpha[r] = exp2f((m[r] - mx) * LOG2E);
+            m[r] = mx;
+            mb[r] = mx * LOG2E;
+        }
+        uint32_t pf[BK / 16][4];  // P as the A fragments of the k16 steps
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+            const float p0 = exp2f(fmaf(s[j][0], LOG2E, -mb[0]));
+            const float p1 = exp2f(fmaf(s[j][1], LOG2E, -mb[0]));
+            const float p2 = exp2f(fmaf(s[j][2], LOG2E, -mb[1]));
+            const float p3 = exp2f(fmaf(s[j][3], LOG2E, -mb[1]));
+            rs[0] += p0 + p1;
+            rs[1] += p2 + p3;
+            // keys 8j.. are k-step j/2, its low (j even) or high 8 columns
+            pf[j / 2][(j % 2) * 2] = pack_bf16x2(p0, p1);
+            pf[j / 2][(j % 2) * 2 + 1] = pack_bf16x2(p2, p3);
+        }
+        l[0] = l[0] * alpha[0] + rs[0];
+        l[1] = l[1] * alpha[1] + rs[1];
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+            oacc[n][0] *= alpha[0]; oacc[n][1] *= alpha[0];
+            oacc[n][2] *= alpha[1]; oacc[n][3] *= alpha[1];
+        }
+
+        // O += P V: V's rows are the k dimension, read transposed
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+            for (int n = 0; n < NO; n += 2) {
+                // matrices: keys (lo, hi 8) x d 8n.., keys (lo, hi) x d 8n+8..
+                uint32_t r[4];
+                ldmatrix_x4_trans(r, at(Vt, kk * 16 + lane % 16,
+                                        n * 8 + (lane / 16) * 8));
+                mma_bf16(oacc[n], pf[kk], r);
+                mma_bf16(oacc[n + 1], pf[kk], r + 2);
+            }
+    }
+
+    // the quad's four parts of each row sum, in a fixed order
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        l[r] = fmaxf(l[r], 1e-30f);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int qpos = row0 + 8 * r;
+        if (qpos >= Sq) continue;
+        __nv_bfloat16* orow = o + (((int64_t)b * Sq + qpos) * H + h) * D;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+                __floats2bfloat162_rn(oacc[n][2 * r] / l[r],
+                                      oacc[n][2 * r + 1] / l[r]);
+    }
+}
+
+// q, k or v, (B, S, heads, D) through its element strides {batch, seq,
+// head}, as a 4-D tensor map (D, heads, S, B) read in boxes of 64 rows of
+// one head
+template <int D>
+static bool attention_map(CUtensorMap* map, const void* base, int B, int S,
+                          int heads, const int64_t* st)
+{
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                                (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                   (cuuint64_t)st[0] * 2};
+    const cuuint32_t box[4] = {64, 1, (cuuint32_t)fa2::BK, 1};
+    return bf16_box_map(map, base, 4, dims, strides, box);
+}
+
+template <int D>
+static int flash_attention_bf16_run(const void* q, const void* k, const void* v,
+                                    void* o, int B, int H, int Hkv, int Sq, int Sk,
+                                    const int64_t* qst, const int64_t* kst,
+                                    const int64_t* vst, float scale, int causal,
+                                    int* tiles_loaded, cudaStream_t stream)
+{
+    CUtensorMap tq, tk, tv;
+    if (!attention_map<D>(&tq, q, B, Sq, H, qst)
+        || !attention_map<D>(&tk, k, B, Sk, Hkv, kst)
+        || !attention_map<D>(&tv, v, B, Sk, Hkv, vst))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = fa2::smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + fa2::BQ - 1) / fa2::BQ));
+    flash_attention_bf16_kernel<D><<<grid, fa2::THREADS, smem, stream>>>(
+        tq, tk, tv, (__nv_bfloat16*)o, H, Hkv, Sq, Sk, scale, causal, tiles_loaded);
+    return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 static int flash_attention_run(const void* q, const void* k, const void* v, void* o,
                                int B, int H, int Hkv, int Sq, int Sk,
@@ -274,17 +558,22 @@ static int flash_attention_run(const void* q, const void* k, const void* v, void
                                const int64_t* vst, float scale, int causal,
                                int* tiles_loaded, cudaStream_t stream)
 {
-    const size_t smem = fa::smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((unsigned)((Sq + fa::BQ - 1) / fa::BQ), (unsigned)H, (unsigned)B);
-    flash_attention_kernel<T, D><<<grid, fa::THREADS, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq, Sk,
-        qst[0], qst[1], qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
-        scale, causal, tiles_loaded);
-    return (int)cudaGetLastError();
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        return flash_attention_bf16_run<D>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst,
+                                           vst, scale, causal, tiles_loaded, stream);
+    } else {
+        const size_t smem = fa::smem_bytes<D>();
+        cudaError_t err = cudaFuncSetAttribute(
+            flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        dim3 grid((unsigned)((Sq + fa::BQ - 1) / fa::BQ), (unsigned)H, (unsigned)B);
+        flash_attention_kernel<T, D><<<grid, fa::THREADS, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq, Sk,
+            qst[0], qst[1], qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
+            scale, causal, tiles_loaded);
+        return (int)cudaGetLastError();
+    }
 }
 
 template <typename T>
@@ -305,8 +594,11 @@ static int flash_attention_dispatch(int D, const void* q, const void* k,
 }
 
 // is_bf16: 1 for bf16 tensors, 0 for float32. Strides are in elements:
-// {batch, seq, head}. tiles_loaded: nullptr, or B*H*ceil(Sq/64) ints that
-// receive the number of key tiles each block loaded.
+// {batch, seq, head}; for bf16 every row starts on a 16-byte boundary (the
+// base addresses and the strides are multiples of 16 bytes: TMA; the
+// wrapper gives a length-1 dim a dense stride, as its index is always 0).
+// tiles_loaded: nullptr, or B*H*ceil(Sq/64) ints that receive the number of
+// key tiles each block loaded.
 extern "C" int flash_attention_launch(
     int is_bf16, const void* q, const void* k, const void* v, void* o,
     int B, int H, int Hkv, int Sq, int Sk, int D,

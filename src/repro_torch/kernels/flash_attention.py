@@ -7,8 +7,10 @@ The kernel, its bound on the card and the reasons for its design are in
 bound by operations (thousands per byte), it takes the model's
 ``(B, S, H, D)`` / ``(B, S, Hkv, D)`` layout through strides with no
 transpose or head repeat, and its key loop stops at the diagonal, so the
-tiles the causal mask would zero are never loaded. The products run on
-the CUDA cores in float32 — right first; tensor cores are later work.
+tiles the causal mask would zero are never loaded. bf16 runs on the
+tensor cores (``mma.sync``, the online softmax in registers, q/K/V tiles
+loaded by TMA, K/V double-buffered); float32 runs true float32 FMAs on
+the CUDA cores.
 
 ``flash_attention`` launches the kernel for CUDA tensors and evaluates
 ``flash_attention_plain`` for CPU tensors; nothing else selects between
@@ -29,6 +31,10 @@ from repro_torch.kernels.ref import ref_attention
 TILE = 64
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
+#: the bf16 kernel's TMA tensor maps need 16-byte aligned base addresses
+#: and strides: every row must start on a 16-byte boundary
+ROW_ALIGN = 16
+_GRID_YZ_MAX = 65535
 
 
 def _check(q, k, v) -> tuple[int, int, int, int, int, int]:
@@ -64,8 +70,46 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     return ref_attention(q, k, v, causal=causal, scale=scale)
 
 
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether every ``(batch, seq, head)`` row of ``t`` is contiguous and
+    starts on a ``ROW_ALIGN``-byte boundary: the base address and the
+    stride of every dim longer than 1 are multiples of it. A length-1
+    dim's stride is never used to address a row; ``kernel_strides`` gives
+    the launcher a dense one in its place."""
+    el = t.element_size()
+    return t.stride(-1) == 1 and t.data_ptr() % ROW_ALIGN == 0 and all(
+        n == 1 or (st * el) % ROW_ALIGN == 0
+        for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+
+
+def for_kernel(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as the kernel takes it: itself where it can, else a dense
+    copy. float32 needs only a contiguous head dim; bf16 needs
+    ``rows_aligned`` (a view sliced at an odd offset, or with a stride
+    that is not a multiple of 8 elements, is copied)."""
+    if t.dtype != torch.bfloat16:
+        return t if t.stride(-1) == 1 else t.contiguous()
+    if rows_aligned(t):
+        return t
+    t = t.contiguous()
+    return t if rows_aligned(t) else t.clone()
+
+
+def kernel_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """The ``(batch, seq, head)`` element strides the launcher gets: ``t``'s
+    own, except that a length-1 dim takes the dense stride (the next dim's
+    length times its stride). Its index is always 0, so the kernel reads
+    the same elements, and the bf16 kernel's tensor maps, which want every
+    stride a multiple of 16 bytes whatever the dim's length, accept it."""
+    st = [t.stride(0), t.stride(1), t.stride(2), 1]
+    for i in (2, 1, 0):
+        if t.shape[i] == 1:
+            st[i] = t.shape[i + 1] * st[i + 1]
+    return st[0], st[1], st[2]
+
+
 def _strides(t: torch.Tensor):
-    return (ctypes.c_int64 * 3)(t.stride(0), t.stride(1), t.stride(2))
+    return (ctypes.c_int64 * 3)(*kernel_strides(t))
 
 
 def _launch(lib, q, k, v, out, *, causal: bool, scale: float,
@@ -93,6 +137,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``tiles_loaded`` (CUDA only): an int32 ``(B, H, ceil(Sq / 64))``
     tensor that receives the number of 64-key tiles each query tile
     loaded — how a caller sees the causal skip.
+
+    The kernel reads q, k and v in place through their strides. A bf16
+    tensor whose rows do not start on 16-byte boundaries (see
+    ``rows_aligned``) is first copied densely (``for_kernel``); the kernel
+    is launched all the same, never a fallback.
     """
     B, Sq, H, D, Sk, Hkv = _check(q, k, v)
     scale = D ** -0.5 if scale is None else float(scale)
@@ -108,6 +157,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("no keys to attend to (Sk = 0)")
     dev = q.device
     n_qt = -(-Sq // TILE)
+    if max(n_qt, H, B) > _GRID_YZ_MAX:
+        raise ValueError(f"Sq = {Sq}, H = {H}, B = {B}: the kernels' grids "
+                         f"take at most {_GRID_YZ_MAX} query tiles, heads "
+                         f"and batches")
     if tiles_loaded is not None and (
             tiles_loaded.dtype != torch.int32
             or tiles_loaded.shape != (B, H, n_qt)
@@ -115,7 +168,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or not tiles_loaded.is_contiguous()):
         raise ValueError(f"tiles_loaded: want a contiguous int32 "
                          f"({B}, {H}, {n_qt}) tensor on {dev}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (for_kernel(t) for t in (q, k, v))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
     if out.numel() == 0:  # a zero-size grid is a launch error
         return out

@@ -89,7 +89,7 @@ def _counter(device: torch.device) -> torch.Tensor:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous, with a 16-byte aligned first element (the
-    kernel's vector loads)."""
+    kernel's TMA tensor maps and vector loads)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 

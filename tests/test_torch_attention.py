@@ -232,3 +232,60 @@ def test_model_attention_on_the_card_refuses_other_masks():
             tc.attention(qc, k, k, **kw)
     with pytest.raises(NotImplementedError):
         tc.decode_attention(qc[:, :1], k, k, 3, window=4)
+
+
+def _wide(dtype, offset, D=64, extra=16):
+    """q (2, 9, 4, D) sliced at ``offset`` out of a (2, 9, 4, D + extra)
+    tensor: its head stride is D + extra, not D."""
+    g = np.random.default_rng(offset)
+    t = torch.tensor(g.standard_normal((2, 9, 4, D + extra)),
+                     dtype=torch.float32).to(dtype)
+    return t[..., offset:offset + D]
+
+
+@pytest.mark.parametrize("offset,extra,aligned", [
+    (0, 0, True), (8, 16, True), (3, 16, False), (0, 4, False),
+    (8, 12, False), (8, 8, True)])
+def test_bf16_rows_aligned_and_for_kernel(offset, extra, aligned):
+    """B3's bf16 kernel reads through TMA tensor maps (16-byte aligned
+    bases and strides): a view whose rows start off a 16-byte boundary is
+    copied, an aligned one is taken in place; either way the values are
+    q's."""
+    from repro_torch.kernels.flash_attention import for_kernel, rows_aligned
+    q = _wide(torch.bfloat16, offset, extra=extra)
+    assert rows_aligned(q) == aligned
+    got = for_kernel(q)
+    assert rows_aligned(got) and torch.equal(got, q)
+    assert (got.data_ptr() == q.data_ptr()) == aligned
+
+
+def test_for_kernel_float32_needs_only_a_contiguous_head_dim():
+    from repro_torch.kernels.flash_attention import for_kernel, rows_aligned
+    q = _wide(torch.float32, 3)
+    assert not rows_aligned(q)  # 12 bytes off: fine for float32 loads
+    assert for_kernel(q).data_ptr() == q.data_ptr()
+    t = q.transpose(2, 3)  # head dim no longer contiguous: copied
+    got = for_kernel(t)
+    assert got.stride(-1) == 1 and torch.equal(got, t)
+
+
+def test_rows_aligned_ignores_the_stride_of_length_one_dims():
+    """A length-1 dim's odd stride addresses no row, so the view is taken
+    in place; the launcher gets a dense stride for that dim, a multiple
+    of 16 bytes as the bf16 kernel's tensor maps want for every dim."""
+    from repro_torch.kernels.flash_attention import (ROW_ALIGN,
+                                                     kernel_strides,
+                                                     rows_aligned)
+    buf = torch.zeros(2048, dtype=torch.bfloat16)
+    for shape, strides, want in [
+            ((2, 1, 4, 64), (512, 3, 64, 1), (512, 256, 64)),  # seq len 1
+            ((1, 2, 4, 64), (5, 256, 64, 1), (512, 256, 64)),  # batch 1
+            ((2, 3, 1, 64), (512, 128, 7, 1), (512, 128, 64)),  # 1 head
+            ((1, 1, 1, 64), (3, 5, 7, 1), (64, 64, 64))]:
+        odd = buf.as_strided(shape, strides)
+        assert rows_aligned(odd)
+        assert kernel_strides(odd) == want
+        assert all(s * 2 % ROW_ALIGN == 0 for s in kernel_strides(odd))
+    assert not rows_aligned(buf.as_strided((2, 2, 4, 64), (512, 3, 64, 1)))
+    dense = buf[:1024].view(2, 2, 4, 64)
+    assert kernel_strides(dense) == dense.stride()[:3]

@@ -132,6 +132,88 @@ def test_flash_attention_skips_tiles_past_the_diagonal(card):
     assert tiles.cpu().tolist() == [[[1, 2, 3, 4, 5]] * H]
 
 
+def _b3_check(card, q, k, v, causal):
+    """B3 bf16 against its plain version (2e-2), one launch, and for
+    causal self-attention the key tiles each query tile loaded: tile t
+    loads tiles 0..t (the diagonal's) and no more."""
+    B, Sq, H, _ = q.shape
+    Sk = k.shape[1]
+    n_qt = -(-Sq // 64)
+    tiles = torch.zeros((B, H, n_qt), dtype=torch.int32, device=card)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, tiles_loaded=tiles)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    n_k = -(-Sk // 64)
+    want_tiles = [min(t + 1, n_k) if causal else n_k for t in range(n_qt)]
+    assert (tiles == torch.tensor(want_tiles, dtype=torch.int32,
+                                  device=card)).all()
+
+
+@pytest.mark.parametrize("S", [1, 17, 63, 64, 65, 130, 2049])
+@pytest.mark.parametrize("groups", [1, 2, 8])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_attention_bf16_tensor_cores(card, D, groups, S):
+    Hkv = 2
+    q, k, v = _attn_inputs(card, torch.bfloat16, S + D + groups,
+                           (2, S, Hkv * groups, D), (2, S, Hkv, D),
+                           (2, S, Hkv, D))
+    _b3_check(card, q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(70, 150), (150, 70), (1, 300),
+                                   (2049, 65), (64, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 64, 128])
+def test_flash_attention_bf16_ragged_lengths(card, D, causal, Sq, Sk):
+    q, k, v = _attn_inputs(card, torch.bfloat16, Sq + Sk, (2, Sq, 8, D),
+                           (2, Sk, 2, D), (2, Sk, 2, D))
+    _b3_check(card, q, k, v, causal=causal)
+
+
+@pytest.mark.parametrize("offset", [8, 3])
+def test_flash_attention_bf16_strided_heads(card, offset):
+    """q sliced out of a wider tensor: its head stride is not its dense
+    stride. At a 16-byte offset the kernel reads it in place; at 3
+    elements the wrapper copies it (TMA needs 16-byte rows)."""
+    from repro_torch.kernels.flash_attention import rows_aligned
+    wide, k, v = _attn_inputs(card, torch.bfloat16, offset,
+                              (2, 130, 4, 160), (2, 130, 2, 128),
+                              (2, 130, 2, 128))
+    q = wide[..., offset:offset + 128]
+    assert q.stride(2) == 160 and rows_aligned(q) == (offset == 8)
+    _b3_check(card, q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,strides", [
+    ((2, 1, 8, 64), (1024, 3, 64, 1)),     # seq len 1, odd seq stride
+    ((1, 70, 8, 64), (5, 512, 64, 1)),     # batch 1, odd batch stride
+    ((1, 1, 8, 64), (3, 5, 64, 1))])       # both
+def test_flash_attention_odd_strides_of_length_one_dims(card, dtype, shape,
+                                                        strides):
+    """q viewed with odd strides on its length-1 dims: the wrapper takes
+    it in place (no row lies there) and the kernel, whose bf16 tensor maps
+    want every stride a multiple of 16 bytes, launches on it."""
+    from repro_torch.kernels.flash_attention import rows_aligned
+    B, S, H, D = shape
+    span = 1 + sum((n - 1) * st for n, st in zip(shape, strides))
+    buf, k, v = _attn_inputs(card, dtype, S + B, (span,),
+                             (B, 65, 2, D), (B, 65, 2, D))
+    q = buf.as_strided(shape, strides)
+    assert rows_aligned(q)
+    if dtype == torch.bfloat16:
+        _b3_check(card, q, k, v, causal=False)
+        return
+    got = flash_attention(q, k, v, causal=False)
+    want = flash_attention_plain(q, k, v, causal=False)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,H,Hkv,D,cache_len", [
     (512, 16, 2, 128, 0), (512, 16, 2, 128, 511), (700, 8, 8, 64, 256),
@@ -347,6 +429,54 @@ def test_gated_matmul_drops_a_nonzero_tile_and_refuses_other_blocks(card):
     assert float(got[:, 128:256].abs().max()) == 0.0
     with pytest.raises(ValueError, match="built for"):
         gated_matmul_p(x, w, bitmap, bm=32)
+
+
+def _column_bitmap(n_k, n_n, live):
+    """A (n_k, n_n) bitmap with ``live[c]`` the live K tiles of column c."""
+    bitmap = np.zeros((n_k, n_n), dtype=np.int32)
+    for c, ks in enumerate(live):
+        bitmap[list(ks), c] = 1
+    return bitmap
+
+
+@pytest.mark.parametrize("live", [
+    [(0, 3, 4, 7), (1, 6)],        # scattered: the ring skips the gaps
+    [(5,), (2,)],                  # a single live tile a column
+    [(), (0, 2, 3, 5, 6, 7)],      # column 0 all dead: zeros written
+    [(1, 2, 3, 4, 5, 6, 7), ()]])  # only the first tile dead
+@pytest.mark.parametrize("blocks", [(64, 64, 64), (128, 128, 128)])
+def test_gated_matmul_bf16_ring_over_live_tiles(card, live, blocks):
+    bm, bn, bk = blocks
+    K = 8 * bk
+    x, w = _attn_inputs(card, torch.bfloat16, K + bn, (256, K),
+                        (K, 2 * bn))
+    bitmap = torch.tensor(_column_bitmap(8, 2, live), device=card)
+    got = _gm_check(x, w, bitmap, bm=bm, bn=bn, bk=bk)
+    for c, ks in enumerate(live):
+        if not ks:
+            assert float(got[:, c * bn:(c + 1) * bn].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("bk", [64, 128])
+def test_gated_matmul_bf16_nan_under_dead_tiles(card, bm, bn, bk):
+    """NaN in x under the K tiles that are dead in every column: never
+    loaded, so every output is finite; 40 K tiles of 64 take two ballots
+    of the live-tile list."""
+    n_k = 40 if bk == 64 else 12
+    K = n_k * bk
+    x, w = _attn_inputs(card, torch.bfloat16, bm + bn + bk, (2 * bm, K),
+                        (K, 3 * bn))
+    g = np.random.default_rng(bm + bn + bk)
+    bitmap = (g.random((n_k, 3)) > 0.5).astype(np.int32)
+    dead = [ki for ki in range(n_k) if ki % 5 == 1]
+    bitmap[dead] = 0
+    for ki in dead:
+        x[:, ki * bk:(ki + 1) * bk] = float("nan")
+    got = _gm_check(x, w, torch.tensor(bitmap, device=card), bm=bm, bn=bn,
+                    bk=bk)
+    assert bool(torch.isfinite(got).all())
 
 
 def test_evaluate_all_on_the_card_matches_evaluate(card):

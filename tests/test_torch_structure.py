@@ -18,7 +18,8 @@ torch = pytest.importorskip("torch")
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
-PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE]
+AB = ROOT / "chip_ab.py"
+PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE, AB]
 
 FOREIGN_IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)", re.MULTILINE)
@@ -240,3 +241,57 @@ def test_chip_smoke_fails_alone(tmp_path):
                           timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def _global_kernels() -> set:
+    """The names of every ``__global__`` function under ``csrc/``."""
+    names = set()
+    for cu in (PKG / "kernels" / "csrc").glob("*.cu"):
+        names |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+            r"(\w+)\s*\(", cu.read_text()))
+    return names
+
+
+@pytest.mark.parametrize("script", [SMOKE, AB], ids=lambda p: p.name)
+def test_profiled_kernel_names_are_defined(script):
+    """Every kernel name a script looks up in the profiler is a
+    ``__global__`` of ``csrc/``: a stale name would read 0 µs with no
+    error."""
+    looked_up = set(re.findall(r"[\"'](\w+_kernel)[\"']",
+                               script.read_text()))
+    if script == SMOKE:
+        assert {"flash_attention_bf16_kernel", "flash_attention_kernel",
+                "decode_attention_kernel", "ssd_scan_kernel",
+                "gated_matmul_bf16_kernel",
+                "gated_matmul_f32_kernel"} <= looked_up
+    assert looked_up <= _global_kernels(), looked_up - _global_kernels()
+
+
+def test_bf16_kernels_share_the_tensor_core_header(tmp_path, monkeypatch):
+    """The bf16 kernels take ldmatrix / mma.sync / TMA from one header,
+    and a library older than that header is rebuilt."""
+    from repro_torch.kernels import _build
+    csrc = PKG / "kernels" / "csrc"
+    header = csrc / "mma_bf16.cuh"
+    for source in ("attention.cu", "gated_matmul.cu"):
+        cu = (csrc / source).read_text()
+        assert '#include "mma_bf16.cuh"' in cu
+        assert "asm" not in cu  # every PTX instruction is in the header
+    assert "cp.async.bulk.tensor" in header.read_text()
+    build, inc = tmp_path / "build", tmp_path / "csrc"
+    build.mkdir()
+    inc.mkdir()
+    shutil.copy(header, inc / header.name)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(build))
+    monkeypatch.setattr(_build, "CSRC", inc)
+    monkeypatch.setattr(_build, "BUILD_INFO", {})
+    t = max(lib.source.stat().st_mtime
+            for lib in _build.LIBRARIES.values()) + 100.0
+    for name in _build.LIBRARIES:
+        _build.library_path(name).write_bytes(b"")
+        os.utime(_build.library_path(name), (t, t))
+    for header_time, stale in ((t - 50.0, set()),
+                               (t + 50.0, set(_build.LIBRARIES))):
+        os.utime(inc / header.name, (header_time, header_time))
+        assert set(_build._stale()) == stale
