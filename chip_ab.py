@@ -8,20 +8,23 @@ against the change.
 
 Each run (``P`` the parent tree, ``C`` this checkout, in the order
 ``ORDER``) runs that tree's ``chip_smoke.py``, keeps its standard output
-under ``--out`` and reads from it the numbers compared: B3 at the
-prefill's shape (``kernels_model_shapes``), B2's five
-``gated_matmul_full`` cases, ``serve_full`` and ``profile_serve``'s
-prefill. One metric no ``chip_smoke.py`` measures, B3 in float32 at the
-prefill's shape, is then timed in a process of its own,
+under ``--out`` and reads from it the numbers compared: B3 and B4 at
+the model's shapes (``kernels_model_shapes``), K2 at the sweep's four
+shapes (``kernels``), B2's five ``gated_matmul_full`` cases,
+``sweep_full``'s steady wall, ``serve_full`` and ``profile_serve``'s
+prefill and decode windows. Two metrics are then timed for both trees
+by the same code, in a process of its own,
 
-    python3 chip_ab.py --b3-float32 TREE
+    python3 chip_ab.py --same-code TREE
 
 which imports TREE's port and times it with this checkout's
-``chip_smoke.time_b3`` (the same code for both trees) on inputs made
-from a seed. Each run prints one JSON line and the last line is a
-summary: per metric, the values of the runs in order. Each tree builds
-its kernels into its own ``build/`` at its first run. Needs one card; it
-exits non-zero if any run fails.
+``chip_smoke`` functions on inputs made from a seed: B3 in float32 at
+the prefill's shape (``time_b3``), which no ``chip_smoke.py`` measures,
+and K2's device time at the sweep's four shapes (``time_k2``), which the
+parent's ``chip_smoke.py`` does not record. Each run prints one JSON
+line and the last line is a summary: per metric, the values of the runs
+in order. Each tree builds its kernels into its own ``build/`` at its
+first run. Needs one card; it exits non-zero if any run fails.
 """
 from __future__ import annotations
 
@@ -37,22 +40,27 @@ ORDER = "PCCP"
 B3_SHAPE = (4, 2048, 16, 2, 128)   # B, S, H, Hkv, D: qwen2.5-3b's prefill
 
 
-def b3_float32(tree: str) -> dict:
-    """B3 of ``tree``'s port in float32 at ``B3_SHAPE``, by
-    ``chip_smoke.time_b3``."""
+def same_code(tree: str) -> dict:
+    """B3 of ``tree``'s port in float32 at ``B3_SHAPE`` and its K2 at the
+    sweep's four shapes, by this checkout's ``chip_smoke.time_b3`` and
+    ``time_k2``."""
     import chip_smoke  # this checkout's: the same timing code for both
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import numpy as np
     import torch
     import repro_torch
     if not torch.cuda.is_available():
-        raise SystemExit("chip_ab.py --b3-float32: no CUDA device")
+        raise SystemExit("chip_ab.py --same-code: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     B, S, H, Hkv, D = B3_SHAPE
     q, k, v = (torch.randn((B, S, h, D), generator=gen, device="cuda")
                for h in (H, Hkv, Hkv))
-    return {"port": os.path.dirname(repro_torch.__file__),
-            **chip_smoke.time_b3(q, k, v)}
+    b3 = chip_smoke.time_b3(q, k, v)
+    del q, k, v
+    shapes = chip_smoke.k2_port_shapes(torch.device("cuda"))
+    return {"port": os.path.dirname(repro_torch.__file__), "b3_float32": b3,
+            "k2": chip_smoke.time_k2(shapes, np.random.default_rng(0))}
 
 
 def _smoke_numbers(lines: list[str]) -> dict:
@@ -71,6 +79,12 @@ def _smoke_numbers(lines: list[str]) -> dict:
     out["decode_ms_per_step"] = serve.get("decode_ms_per_step")
     out["decode_vs_forward_rel_l2"] = serve.get(
         "decode_vs_forward", {}).get("max_rel_l2")
+    out["sweep_wall_s_steady"] = phases.get("sweep_full", [{}])[0].get(
+        "wall_s_steady")
+    prof = phases.get("profile", [{}])[0]
+    out["profile_sweep"] = {
+        k: prof.get(k) for k in ("wall_s_profiled", "device_busy_s",
+                                 "device_idle_share", "hand_kernels")}
     shapes = [p for p in phases.get("kernels_model_shapes", [])
               if p.get("arch") == "qwen2.5-3b"]
     if shapes:
@@ -78,6 +92,17 @@ def _smoke_numbers(lines: list[str]) -> dict:
         out["b3"] = {k: b3.get(k) for k in (
             "ms", "device_us", "plain_ms", "library_ms", "max_abs_err",
             "rel_l2", "median_abs_plain", "control_rel_l2")}
+        b4 = shapes[0]["decode_attention"]
+        out["b4"] = {k: b4.get(k) for k in (
+            "ms", "device_us", "plain_ms", "library_ms", "library_device_us",
+            "bound_ms", "max_abs_err", "rel_l2", "control_rel_l2", "shape")}
+    kernels = phases.get("kernels", [{}])[0]
+    out["b4_bf16_rel_l2_cases"] = kernels.get("b3_b4", {}).get(
+        "b4_bf16_rel_l2")
+    k2 = kernels.get("k2", {}).get("shapes", [])
+    out["k2"] = {rec["what"]: {k: rec.get(k) for k in (
+        "ms", "device_us", "plain_ms", "library_ms", "bound_ms")}
+        for rec in k2}
     gm = phases.get("gated_matmul_full", [{}])[0].get("cases", {})
     out["b2"] = {name: {k: rec.get(k) for k in (
         "ms", "device_us", "plain_ms", "library_ms", "tiles_run")}
@@ -90,17 +115,30 @@ def _smoke_numbers(lines: list[str]) -> dict:
             k: pre.get(k) for k in ("wall_s_profiled", "device_busy_s",
                                     "device_idle_share", "hand_kernels",
                                     "top_ops")}
+        dec = prof[0]["decode_4_steps"]
+        out["profile_serve_decode"] = {
+            k: dec.get(k) for k in ("wall_s_profiled", "device_busy_s",
+                                    "device_idle_share", "device_launches",
+                                    "hand_kernels")}
     return out
+
+
+def k2_per_launch(hand_kernels: dict) -> float:
+    """K2's device µs a launch over every profiled kernel whose name
+    holds ``segment_sum``."""
+    k2 = [v for k, v in hand_kernels.items() if "segment_sum" in k]
+    return (sum(v["device_us_total"] for v in k2)
+            / sum(v["launches"] for v in k2))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parent", nargs="?", help="the parent commit's tree")
     ap.add_argument("--out", default=os.path.join(HERE, "build", "ab"))
-    ap.add_argument("--b3-float32", metavar="TREE")
+    ap.add_argument("--same-code", metavar="TREE")
     args = ap.parse_args()
-    if args.b3_float32:
-        print(json.dumps(b3_float32(args.b3_float32)), flush=True)
+    if args.same_code:
+        print(json.dumps(same_code(args.same_code)), flush=True)
         return 0
     if not args.parent:
         ap.error("give the parent commit's tree")
@@ -118,16 +156,16 @@ def main() -> int:
             with open(os.path.join(args.out, f"{i}_{tag}_smoke.{name}"),
                       "w") as f:
                 f.write(text)
-        f32 = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--b3-float32", tree], cwd=tree, env=env,
-                             capture_output=True, text=True)
-        lines = f32.stdout.strip().splitlines()
+        same = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--same-code", tree], cwd=tree, env=env,
+                              capture_output=True, text=True)
+        lines = same.stdout.strip().splitlines()
         run = {"run": i, "tree": tag, "smoke_rc": smoke.returncode,
-               "smoke_s": smoke_s, "b3_float32_rc": f32.returncode,
+               "smoke_s": smoke_s, "same_code_rc": same.returncode,
                "smoke": _smoke_numbers(smoke.stdout.splitlines()),
-               "b3_float32": json.loads(lines[-1]) if f32.returncode == 0
-               and lines else f32.stderr[-2000:]}
-        failed |= smoke.returncode != 0 or f32.returncode != 0
+               "same_code": json.loads(lines[-1]) if same.returncode == 0
+               and lines else same.stderr[-2000:]}
+        failed |= smoke.returncode != 0 or same.returncode != 0
         runs.append(run)
         print(json.dumps(run), flush=True)
 
@@ -136,19 +174,45 @@ def main() -> int:
         for r in runs:
             try:
                 vals.append(get(r))
-            except (KeyError, TypeError):
+            except (KeyError, TypeError, StopIteration):
                 vals.append(None)
         return vals
 
     b2_cases = runs[0]["smoke"]["b2"] if runs else {}
+    k2_shapes = runs[0]["smoke"].get("k2", {}) if runs else {}
+
+    def decode_per_step(r, key):
+        return r["smoke"]["profile_serve_decode"][key] / 4
     summary = {"order": ORDER, "metrics": {
         **{f"b3_bf16_{k}": series(lambda r, k=k: r["smoke"]["b3"][k])
            for k in ("ms", "device_us", "rel_l2")},
-        **{f"b3_float32_{k}": series(lambda r, k=k: r["b3_float32"][k])
+        **{f"b3_float32_{k}": series(
+            lambda r, k=k: r["same_code"]["b3_float32"][k])
            for k in ("ms", "device_us")},
         **{f"b2_{name}_{k}": series(
             lambda r, n=name, k=k: r["smoke"]["b2"][n][k])
            for name in b2_cases for k in ("ms", "device_us")},
+        **{f"b4_{k}": series(lambda r, k=k: r["smoke"]["b4"][k])
+           for k in ("ms", "device_us", "library_ms", "library_device_us",
+                     "rel_l2")},
+        **{f"k2_{what}_{k}": series(
+            lambda r, w=what, k=k: r["smoke"]["k2"][w][k])
+           for what in k2_shapes for k in ("ms", "device_us", "library_ms")},
+        **{f"k2_{what}_device_us_same_code": series(
+            lambda r, w=what: next(rec["device_us"] for rec in
+                                   r["same_code"]["k2"] if rec["what"] == w))
+           for what in k2_shapes},
+        "sweep_wall_s_steady": series(
+            lambda r: r["smoke"]["sweep_wall_s_steady"]),
+        # K2 has two instances (staged, direct): all launches of both
+        "sweep_k2_device_us_per_launch": series(lambda r: k2_per_launch(
+            r["smoke"]["profile_sweep"]["hand_kernels"])),
+        "sweep_device_busy_s": series(
+            lambda r: r["smoke"]["profile_sweep"]["device_busy_s"]),
+        "decode_device_busy_ms_per_step": series(
+            lambda r: 1e3 * decode_per_step(r, "device_busy_s")),
+        "decode_device_launches_per_step": series(
+            lambda r: decode_per_step(r, "device_launches")),
         **{f"b2_{name}_to_dense": series(
             lambda r, n=name: r["smoke"]["b2"][n]["ms"]
             / r["smoke"]["b2"]["dense"]["ms"])

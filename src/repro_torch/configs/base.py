@@ -3,10 +3,9 @@
 An architecture is a frozen ``ArchConfig``; an input-shape cell is a
 ``ShapeConfig``. The exact published dimensions live in one place each,
 ``repro_torch/configs/<id>.py`` (copies of the JAX package's), and
-``get_arch`` resolves every name. ``opgen.arch_workload`` lowers an
-(arch, shape) pair to an operator trace for the power plane; it takes
-the parameter count of a training shape as an argument
-(``registry.count_params`` gives it for the dense text archs).
+``get_arch`` resolves every name; ``SHAPES`` holds the four input-shape
+cells. ``opgen.arch_workload`` lowers an (arch, shape) pair to an
+operator trace for the power plane.
 """
 from __future__ import annotations
 
@@ -28,6 +27,20 @@ class ShapeConfig:
     seq_len: int
     global_batch: int
     kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+# The four assigned LM shapes. ``decode_*``/``long_*`` lower ``serve_step``
+# (one new token against a KV cache of ``seq_len``), not ``train_step``.
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -127,6 +140,25 @@ class ArchConfig:
         if self.mla:
             return self.mla.kv_lora_rank + self.mla.rope_head_dim
         return self.n_kv_heads * self.head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count (exact for the port's models); raises
+        ``NotImplementedError`` for a family the port does not hold."""
+        from repro_torch.models.registry import count_params
+
+        return count_params(self)
+
+    def supported_shapes(self) -> dict[str, str]:
+        """shape name -> "ok" or "SKIP(<reason>)" for the 4-cell row."""
+        out = {}
+        for s in SHAPES.values():
+            if s.is_decode and self.encoder_only:
+                out[s.name] = "SKIP(encoder-only: no decode step)"
+            elif s.name == "long_500k" and self.uses_full_attention_only:
+                out[s.name] = "SKIP(full-attention arch: 500k needs sub-quadratic)"
+            else:
+                out[s.name] = "ok"
+        return out
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""

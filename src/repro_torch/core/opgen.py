@@ -565,18 +565,14 @@ def diffusion_workload(model: str, *, batch: int = 8, n_chips: int = 4) \
 # --------------------------------------------------------------------------
 
 def arch_workload(cfg: ArchConfig, shape: ShapeConfig, *, n_chips: int = 256,
-                  tp: int = 16, n_params: Optional[int] = None) -> Workload:
+                  tp: int = 16) -> Workload:
     """Analytic operator trace for one (arch x shape) cell.
 
     A training shape closes with the gradient all-reduce and the
-    optimizer update, both sized by the model's parameter count: pass
-    it as ``n_params`` (this package has no parameter counter of its
-    own yet; a training shape without it raises).
+    optimizer update, both sized by the model's parameter count from
+    ``models.registry.count_params`` (which raises
+    ``NotImplementedError`` for a family the port does not hold yet).
     """
-    if shape.kind == "train" and n_params is None:
-        raise ValueError(
-            f"arch_workload({cfg.name!r}, {shape.name!r}): a training "
-            f"shape needs n_params (the model's parameter count)")
     ops: list[Op] = []
     decode = shape.kind == "decode"
     B, S = shape.global_batch, shape.seq_len
@@ -647,6 +643,8 @@ def arch_workload(cfg: ArchConfig, shape: ShapeConfig, *, n_chips: int = 256,
     ops.append(_matmul("lm_head", T if not train else T,
                        D, cfg.vocab_padded // tp))
     if train:
+        from repro_torch.models.registry import count_params
+        n_params = count_params(cfg)
         ops.append(_collective("grad_allreduce",
                                2 * n_params * BF16 / (tp * dp)))
         ops.append(_vector("adam", n_params / (tp * dp), flops_per_elem=12,

@@ -36,7 +36,8 @@ def _bind_power_plane(lib: ctypes.CDLL) -> None:
     lib.sa_occupancy_launch.argtypes = [
         ptr, ptr, ptr, ptr, f64, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.sa_occupancy_launch.restype = ctypes.c_int
-    lib.segment_sum_launch.argtypes = [ptr, ptr, i64, i64, i64, ptr, ptr]
+    lib.segment_sum_launch.argtypes = [
+        ptr, ptr, i64, i64, i64, ctypes.c_int, ptr, ptr]
     lib.segment_sum_launch.restype = ctypes.c_int
 
 
@@ -47,7 +48,7 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
         ptr, ptr, ptr, f32, i32, ptr, ptr]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.decode_attention_launch.argtypes = [
-        i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+        i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
         ptr, ptr, ptr, f32, ptr]
     lib.decode_attention_launch.restype = ctypes.c_int
 

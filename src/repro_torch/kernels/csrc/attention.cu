@@ -33,22 +33,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
     return __float2bfloat16(x);
 }
 
-// 16 bytes of T from a 16-byte aligned address, widened to float:
-// 8 values of bf16, 4 of float.
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        out[2 * i] = __uint_as_float(w[i] << 16);
-        out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-}
-__device__ __forceinline__ void load16(const float* p, float* out) {
-    const float4 f = *reinterpret_cast<const float4*>(p);
-    out[0] = f.x; out[1] = f.y; out[2] = f.z; out[3] = f.w;
-}
-
 // ---------------------------------------------------------------------------
 // B3  flash_attention  (prefill: causal self-attention over the prompt)
 //
@@ -626,196 +610,363 @@ extern "C" int flash_attention_launch(
 // 2 * B * (cache_len+1) * Hkv * D elements, against 4 * B * H *
 // (cache_len+1) * D operations -- 2 * H/Hkv = 16 operations per bf16
 // element at qwen2.5-3b's 8 query heads per KV head, far below the ~295
-// at which the card stops being bound by its 3.35 TB/s.
+// at which the card stops being bound by its 3.35 TB/s. So the CUDA cores
+// are enough for q.k and p.v; what matters is reading the cache at the
+// memory's rate, which takes many blocks and many loads in flight.
 //
-// Design: one block per (KV head, batch) serves all H/Hkv query heads of
-// that KV head, so each cache row is read from memory once, not once per
-// query head. The block walks the live slots in tiles of 256: thread t
-// takes slot t of the tile, reads its K row with 16-byte loads and forms
-// the scores of all query heads; 32 threads per head then take the row
-// statistics (fixed-order combine); for P.V each thread owns one column d
-// of one 256/D-th of the tile and keeps one accumulator per head. The
-// slices are summed in a fixed order at the end. With B * Hkv = 8 blocks
-// at the serving path's shape only 8 of 132 SMs work: right, but far from
-// the bound. Splitting the slots over more blocks (flash-decoding) with a
-// fixed-order combine pass is the later redesign.
+// Design (flash-decoding, two kernels):
+// decode_attention_kernel: the grid is (split, KV head, batch). A split is
+// a run of split_len <= 64 live slots (the wrapper's decode_splits: it
+// depends on cache_len alone, never on the card, so the bits are the same
+// run to run and card to card; no split lies wholly past cache_len). At
+// the serving shape (B 4, Hkv 2, ~2 080 live slots, split_len 64) that is
+// 264 blocks, two an SM, where one block per (KV head, batch) gave 8. A
+// block serves all H/Hkv query heads of its KV head, so each cache row is
+// read once per step, not once per query head. Its threads lie across D:
+// a cache row is D/EPV lanes of one 16-byte load each, so a warp's loads
+// cover whole rows. Every load of the block -- its K and V rows and q --
+// is issued before the first use and held raw in registers, so a split
+// costs one trip to memory (V does not wait for the softmax). q.k is
+// summed over the row's lanes by a fixed reduce-scatter of the heads'
+// sums (8 shuffles a row for 8 heads where a butterfly per head takes 32);
+// the split's scores stay in shared memory, so its max and sum are exact
+// over the split, with no rescaling inside it. p.v is summed per lane over
+// its rows, then over the warp's rows by the same reduce-scatter, then
+// over the warps in warp order. The split writes its unnormalised
+// (m, l, o[G][D]) in float32 to the wrapper's workspace.
+// decode_attention_combine_kernel: one block per (head, batch), a thread
+// per d, merges the splits in split-index order -- whatever order the
+// blocks finished in -- as o = sum_s o_s e^(m_s - M) / sum_s l_s e^(m_s - M),
+// reading each split's (m, l) straight from the workspace. No atomics and
+// no limit on the number of splits: the result is the same from run to
+// run, and with one split it equals the single-pass o / l.
 // ---------------------------------------------------------------------------
 namespace da {
-constexpr int THREADS = 256, BK = 256, MAXG = 8;
+constexpr int THREADS = 256, NW = THREADS / 32, MAXG = 8;
+constexpr int SPLIT_MAX = 64;   // slots of one split, all in registers
+constexpr unsigned FULL = 0xffffffffu;
+}
+
+// 16 raw bytes of cache row and their widening to float
+__device__ __forceinline__ uint4 ld16(const void* p)
+{
+    return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void widen(const uint4& u, float* out, __nv_bfloat16)
+{
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+        out[2 * i] = __uint_as_float(w[i] << 16);
+        out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+}
+__device__ __forceinline__ void widen(const uint4& u, float* out, float)
+{
+    out[0] = __uint_as_float(u.x); out[1] = __uint_as_float(u.y);
+    out[2] = __uint_as_float(u.z); out[3] = __uint_as_float(u.w);
+}
+
+// Sum N values of each lane over the lanes that differ in the bits
+// LO, 2 LO, ..., < HI of the lane index, leaving each lane the complete
+// sums of N >> rounds of them: a reduce-scatter (each round a lane keeps
+// one half of its values, adds its partner's copy of that half and sends
+// the other) that takes N/2 + N/4 + ... shuffles, not N a round. Which
+// half a lane keeps follows its bits, so first() (returned) is the index
+// of its first complete sum. The tree is fixed: the same bits every run.
+template <int N, int LO, int HI>
+__device__ __forceinline__ int reduce_scatter(float* v, int lane)
+{
+    int first = 0;
+    int c = N;
+#pragma unroll
+    for (int off = HI / 2; off >= LO; off /= 2) {
+        if (c > 1) {
+            const int h = c / 2;
+            const bool hi = (lane & off) != 0;
+#pragma unroll
+            for (int i = 0; i < N / 2; ++i) {
+                if (i < h) {
+                    const float send = hi ? v[i] : v[i + h];
+                    const float keep = hi ? v[i + h] : v[i];
+                    v[i] = keep + __shfl_xor_sync(da::FULL, send, off);
+                }
+            }
+            if (hi) first += h;
+            c = h;
+        } else {
+            v[0] += __shfl_xor_sync(da::FULL, v[0], off);
+        }
+    }
+    return first;
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(da::THREADS)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                        const T* __restrict__ vc, T* __restrict__ o,
-                        int H, int Hkv, int cache_len,
+                        const T* __restrict__ vc, float* __restrict__ ws_o,
+                        float* __restrict__ ws_ml, int H, int Hkv,
+                        int n_live, int split_len,
                         int64_t qsb, int64_t qsh,
                         int64_t ksb, int64_t kss, int64_t ksh,
                         int64_t vsb, int64_t vss, int64_t vsh, float scale)
 {
     using namespace da;
-    constexpr int NSL = THREADS / D;      // key slices of the P.V product
-    constexpr int SL = BK / NSL;          // slots per slice
     constexpr int EPV = 16 / sizeof(T);   // elements per 16-byte load
-    __shared__ float qs[MAXG][D];
-    __shared__ float ps[MAXG][BK];
-    __shared__ float red[MAXG][32];
-    __shared__ float row_m[MAXG], row_l[MAXG], row_a[MAXG];
-    __shared__ float part[NSL][MAXG][D];
+    constexpr int LPR = D / EPV;          // lanes per cache row
+    constexpr int RPW = 32 / LPR;         // rows a warp covers per load
+    constexpr int RB = NW * RPW;          // rows the block covers per load
+    constexpr int ROWS = (SPLIT_MAX + RB - 1) / RB;  // rows a lane holds
+    constexpr int NV = MAXG * EPV;        // a lane's p.v sums, (g, e)
+    // what a lane holds after the reduce-scatters: scores of QS heads,
+    // shared by the SAME lanes of its row; p.v sums of NV / RPW (g, e)
+    constexpr int QS = LPR >= MAXG ? 1 : MAXG / LPR;
+    constexpr int SAME = LPR >= MAXG ? LPR / MAXG : 1;
+    constexpr int PVS = NV / RPW;
+    __shared__ float ps[MAXG][SPLIT_MAX];
+    __shared__ float part[NW][MAXG * D];  // [w][(g EPV + e) LPR + lane]
+    __shared__ float stat_m[MAXG], stat_l[MAXG];
 
-    const int tid = threadIdx.x;
-    const int hk = blockIdx.x, b = blockIdx.y;
-    const int G = H / Hkv;
-    const int h0 = hk * G;
-    const int dcol = tid % D, slice = tid / D;
-    const int gr = tid / 32, lane = tid % 32;   // row statistics: a warp a head
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+    const int n_split = gridDim.x;
+    const int G = H / Hkv, h0 = hk * G;
+    const int j0 = split * split_len;
+    const int nrows = min(split_len, n_live - j0);
+    const int col = lane % LPR;           // this lane's 16 bytes of a row
+    const int c0 = col * EPV;
+    const int rl = warp * RPW + lane / LPR;  // its first row of the split
 
-    for (int i = tid; i < G * D; i += THREADS) {
-        const int g = i / D, d = i % D;
-        qs[g][d] = to_f(q[b * qsb + (int64_t)(h0 + g) * qsh + d]) * scale;
+    // every load of the block at once: this lane's K and V rows and its
+    // columns of q, raw, so the split costs one trip to memory
+    const T* kb = kc + b * ksb + hk * ksh + (int64_t)j0 * kss + c0;
+    const T* vb = vc + b * vsb + hk * vsh + (int64_t)j0 * vss + c0;
+    uint4 kraw[ROWS], vraw[ROWS], qraw[MAXG];
+#pragma unroll
+    for (int u = 0; u < ROWS; ++u) {
+        const int r = rl + u * RB;
+        if (r < nrows) {
+            kraw[u] = ld16(kb + (int64_t)r * kss);
+            vraw[u] = ld16(vb + (int64_t)r * vss);
+        }
     }
-    if (tid < MAXG) { row_m[tid] = ATTN_NEG_INF; row_l[tid] = 0.f; }
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g)
+        if (g < G) qraw[g] = ld16(q + b * qsb + (int64_t)(h0 + g) * qsh + c0);
+    float qr[MAXG][EPV];
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+        if (g < G) widen(qraw[g], qr[g], T());
+#pragma unroll
+        for (int e = 0; e < EPV; ++e) qr[g][e] = g < G ? qr[g][e] * scale : 0.f;
+    }
 
-    float acc[MAXG];
+    // scores: ps[g][r] = q_g . k_r
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) acc[g] = 0.f;
+    for (int u = 0; u < ROWS; ++u) {
+        const int r = rl + u * RB;
+        if (u * RB >= nrows) break;       // uniform: no row of the block left
+        float kv[EPV];
+        if (r < nrows) widen(kraw[u], kv, T());
+        else
+#pragma unroll
+            for (int e = 0; e < EPV; ++e) kv[e] = 0.f;
+        float sc[MAXG];
+#pragma unroll
+        for (int g = 0; g < MAXG; ++g) {
+            float a = 0.f;
+#pragma unroll
+            for (int e = 0; e < EPV; ++e) a = fmaf(qr[g][e], kv[e], a);
+            sc[g] = a;
+        }
+        const int first = reduce_scatter<MAXG, 1, LPR>(sc, lane);
+        if (r < nrows && col % SAME == 0)
+#pragma unroll
+            for (int i = 0; i < QS; ++i)
+                if (first + i < G) ps[first + i][r] = sc[i];
+    }
+    __syncthreads();
 
-    const T* kb = kc + b * ksb + hk * ksh;
-    const T* vb = vc + b * vsb + hk * vsh;
-    const int n_keys = cache_len + 1;
+    // the split's softmax statistics, a warp per head
+    if (warp < G) {
+        float m = ATTN_NEG_INF;
+        for (int j = lane; j < nrows; j += 32) m = fmaxf(m, ps[warp][j]);
+#pragma unroll
+        for (int off = 16; off > 0; off /= 2)
+            m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+        float l = 0.f;
+        for (int j = lane; j < nrows; j += 32) {
+            const float p = expf(ps[warp][j] - m);
+            ps[warp][j] = p;
+            l += p;
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off /= 2)
+            l += __shfl_xor_sync(FULL, l, off);
+        if (lane == 0) { stat_m[warp] = m; stat_l[warp] = l; }
+    }
+    __syncthreads();
 
-    for (int k0 = 0; k0 < n_keys; k0 += BK) {
-        __syncthreads();  // the previous tile is done with ps and row_a
-        const int key = k0 + tid;
-        float s[MAXG];
+    // p.v: each lane sums its rows, then the warp's rows (reduce-scatter
+    // over the row groups), then the warps in warp order
+    float acc[NV];
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g) s[g] = 0.f;
-        if (key < n_keys) {
-            const T* krow = kb + (int64_t)key * kss;
-#pragma unroll 2
-            for (int d = 0; d < D; d += EPV) {
-                float kv[EPV];
-                load16(krow + d, kv);
+    for (int i = 0; i < NV; ++i) acc[i] = 0.f;
 #pragma unroll
-                for (int g = 0; g < MAXG; ++g) {
-                    if (g < G) {
-                        float a = s[g];
+    for (int u = 0; u < ROWS; ++u) {
+        const int r = rl + u * RB;
+        if (r < nrows) {
+            float vv[EPV];
+            widen(vraw[u], vv, T());
 #pragma unroll
-                        for (int e = 0; e < EPV; ++e) a = fmaf(qs[g][d + e], kv[e], a);
-                        s[g] = a;
-                    }
+            for (int g = 0; g < MAXG; ++g) {
+                if (g < G) {
+                    const float p = ps[g][r];
+#pragma unroll
+                    for (int e = 0; e < EPV; ++e)
+                        acc[g * EPV + e] = fmaf(p, vv[e], acc[g * EPV + e]);
                 }
             }
         }
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g)
-            if (g < G) ps[g][tid] = key < n_keys ? s[g] : ATTN_NEG_INF;
-        __syncthreads();
-
-        float m_prev = 0.f, m_new = 0.f;
-        if (gr < G) {
-            float mloc = ATTN_NEG_INF;
-#pragma unroll
-            for (int e = 0; e < BK / 32; ++e) mloc = fmaxf(mloc, ps[gr][lane + 32 * e]);
-            red[gr][lane] = mloc;
-        }
-        __syncthreads();
-        if (gr < G) {
-            m_prev = row_m[gr];
-            m_new = m_prev;
-            for (int e = 0; e < 32; ++e) m_new = fmaxf(m_new, red[gr][e]);
-        }
-        __syncthreads();  // every lane has read red before it is reused
-        if (gr < G) {
-            float sloc = 0.f;
-#pragma unroll
-            for (int e = 0; e < BK / 32; ++e) {
-                const int c = lane + 32 * e;
-                const float p = expf(ps[gr][c] - m_new);
-                ps[gr][c] = p;
-                sloc += p;
-            }
-            red[gr][lane] = sloc;
-        }
-        __syncthreads();
-        if (gr < G && lane == 0) {
-            float tile_sum = 0.f;
-            for (int e = 0; e < 32; ++e) tile_sum += red[gr][e];
-            const float alpha = expf(m_prev - m_new);
-            row_l[gr] = row_l[gr] * alpha + tile_sum;
-            row_m[gr] = m_new;
-            row_a[gr] = alpha;
-        }
-        __syncthreads();
-
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g)
-            if (g < G) acc[g] *= row_a[g];
-        const int j0 = slice * SL;
-        const int j1 = min(SL, n_keys - k0 - j0);
-#pragma unroll 4
-        for (int j = 0; j < j1; ++j) {
-            const float vv = to_f(vb[(int64_t)(k0 + j0 + j) * vss + dcol]);
-#pragma unroll
-            for (int g = 0; g < MAXG; ++g)
-                if (g < G) acc[g] = fmaf(ps[g][j0 + j], vv, acc[g]);
-        }
     }
-
+    const int first = reduce_scatter<NV, LPR, 32>(acc, lane);
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g)
-        if (g < G) part[slice][g][dcol] = acc[g];
+    for (int i = 0; i < PVS; ++i) part[warp][(first + i) * LPR + col] = acc[i];
     __syncthreads();
+
+    // the split's partial: o (unnormalised), m, l per (batch, head, split)
     for (int i = tid; i < G * D; i += THREADS) {
-        const int g = i / D, d = i % D;
-        float sum = 0.f;
-        for (int sl = 0; sl < NSL; ++sl) sum += part[sl][g][d];
-        o[((int64_t)b * H + h0 + g) * D + d] = from_f<T>(sum / fmaxf(row_l[g], 1e-30f));
+        const int g = i / D, j = i % D;
+        const int d = (j % LPR) * EPV + j / LPR;
+        float o = 0.f;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) o += part[w][i];
+        const int64_t row = ((int64_t)b * H + h0 + g) * n_split + split;
+        ws_o[row * D + d] = o;
     }
+    if (tid < G) {
+        const int64_t row = ((int64_t)b * H + h0 + tid) * n_split + split;
+        ws_ml[2 * row] = stat_m[tid];
+        ws_ml[2 * row + 1] = stat_l[tid];
+    }
+}
+
+// one block per (head, batch), a thread per d (at least a warp of them).
+// Each warp takes M, the largest of the splits' maxima, over strided
+// shares of them and a shuffle (a max is exact in any order); then, 32
+// splits at a time, lane i forms split s0+i's weight w = e^(m_s - M) and
+// l_s w, and every thread adds both, broadcast by shuffles, in split
+// order. (m, l) come straight from the workspace and a thread's partials
+// 32 at a time, the first 32 issued before M is known. No shared memory,
+// so the number of splits has no limit; one exp per split and lane.
+template <typename T>
+__global__ void decode_attention_combine_kernel(
+    const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
+    T* __restrict__ o, int D, int n_split)
+{
+    using da::FULL;
+    constexpr int CH = 32;                // splits a round: one a lane
+    const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+    const int d = threadIdx.x, lane = d % 32;
+    const bool own = d < D;               // D = 16: half the warp owns a d
+    const int64_t row0 = ((int64_t)b * H + h) * n_split;
+    const float* ml = ws_ml + 2 * row0;
+    const float* os = ws_o + row0 * D + d;
+    float ov[CH];
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+        ov[i] = own && i < n_split ? os[(int64_t)i * D] : 0.f;
+    float m = ATTN_NEG_INF;
+    for (int s = lane; s < n_split; s += 32) m = fmaxf(m, ml[2 * s]);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(FULL, m, off));
+    float l = 0.f, acc = 0.f;
+    for (int s0 = 0; s0 < n_split; s0 += CH) {
+        float w = 0.f, lw = 0.f;
+        if (s0 + lane < n_split) {
+            w = expf(ml[2 * (s0 + lane)] - m);
+            lw = ml[2 * (s0 + lane) + 1] * w;
+        }
+        if (s0 > 0)
+#pragma unroll
+            for (int i = 0; i < CH; ++i)
+                ov[i] = own && s0 + i < n_split ? os[(int64_t)(s0 + i) * D] : 0.f;
+#pragma unroll
+        for (int i = 0; i < CH; ++i) {    // in split order, always
+            const float wi = __shfl_sync(FULL, w, i);
+            const float lwi = __shfl_sync(FULL, lw, i);
+            if (s0 + i < n_split) {
+                l = l + lwi;
+                acc = acc + ov[i] * wi;
+            }
+        }
+    }
+    if (own) o[((int64_t)b * H + h) * D + d] = from_f<T>(acc / fmaxf(l, 1e-30f));
 }
 
 template <typename T, int D>
 static int decode_attention_run(const void* q, const void* kc, const void* vc,
-                                void* o, int B, int H, int Hkv, int cache_len,
+                                void* o, float* ws, int B, int H, int Hkv,
+                                int n_live, int split_len, int n_split,
                                 const int64_t* qst, const int64_t* kst,
                                 const int64_t* vst, float scale, cudaStream_t stream)
 {
-    dim3 grid((unsigned)Hkv, (unsigned)B);
+    float* ws_o = ws;
+    float* ws_ml = ws + (int64_t)B * H * n_split * D;
+    dim3 grid((unsigned)n_split, (unsigned)Hkv, (unsigned)B);
     decode_attention_kernel<T, D><<<grid, da::THREADS, 0, stream>>>(
-        (const T*)q, (const T*)kc, (const T*)vc, (T*)o, H, Hkv, cache_len,
-        qst[0], qst[1], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2], scale);
+        (const T*)q, (const T*)kc, (const T*)vc, ws_o, ws_ml, H, Hkv, n_live,
+        split_len, qst[0], qst[1], kst[0], kst[1], kst[2], vst[0], vst[1],
+        vst[2], scale);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    decode_attention_combine_kernel<T><<<dim3((unsigned)H, (unsigned)B),
+                                         D < 32 ? 32 : D, 0, stream>>>(
+        ws_o, ws_ml, (T*)o, D, n_split);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int decode_attention_dispatch(int D, const void* q, const void* kc,
-                                     const void* vc, void* o, int B, int H,
-                                     int Hkv, int cache_len, const int64_t* qst,
+                                     const void* vc, void* o, float* ws, int B,
+                                     int H, int Hkv, int n_live, int split_len,
+                                     int n_split, const int64_t* qst,
                                      const int64_t* kst, const int64_t* vst,
                                      float scale, cudaStream_t s)
 {
     switch (D) {
-    case 16:  return decode_attention_run<T, 16>(q, kc, vc, o, B, H, Hkv, cache_len, qst, kst, vst, scale, s);
-    case 32:  return decode_attention_run<T, 32>(q, kc, vc, o, B, H, Hkv, cache_len, qst, kst, vst, scale, s);
-    case 64:  return decode_attention_run<T, 64>(q, kc, vc, o, B, H, Hkv, cache_len, qst, kst, vst, scale, s);
-    case 128: return decode_attention_run<T, 128>(q, kc, vc, o, B, H, Hkv, cache_len, qst, kst, vst, scale, s);
+    case 16:  return decode_attention_run<T, 16>(q, kc, vc, o, ws, B, H, Hkv, n_live, split_len, n_split, qst, kst, vst, scale, s);
+    case 32:  return decode_attention_run<T, 32>(q, kc, vc, o, ws, B, H, Hkv, n_live, split_len, n_split, qst, kst, vst, scale, s);
+    case 64:  return decode_attention_run<T, 64>(q, kc, vc, o, ws, B, H, Hkv, n_live, split_len, n_split, qst, kst, vst, scale, s);
+    case 128: return decode_attention_run<T, 128>(q, kc, vc, o, ws, B, H, Hkv, n_live, split_len, n_split, qst, kst, vst, scale, s);
     default:  return (int)cudaErrorInvalidValue;
     }
 }
 
 // q strides {batch, head}; cache strides {batch, slot, head}; in elements.
-// The output is (B, 1, H, D) contiguous.
+// The output is (B, 1, H, D) contiguous. workspace: B*H*n_split*(D+2)
+// floats; n_split splits of split_len slots cover [0, cache_len] exactly,
+// split_len <= 64.
 extern "C" int decode_attention_launch(
     int is_bf16, const void* q, const void* k_cache, const void* v_cache,
-    void* o, int B, int H, int Hkv, int D, int cache_len,
+    void* o, void* workspace, int B, int H, int Hkv, int D, int cache_len,
+    int split_len, int n_split,
     const int64_t* q_strides, const int64_t* k_strides, const int64_t* v_strides,
     float scale, void* stream)
 {
+    const int n_live = cache_len + 1;
+    if (split_len < 1 || split_len > da::SPLIT_MAX || n_split < 1
+        || (int64_t)(n_split - 1) * split_len >= n_live
+        || (int64_t)n_split * split_len < n_live || H % Hkv != 0
+        || H / Hkv > da::MAXG)
+        return (int)cudaErrorInvalidValue;
+    float* ws = (float*)workspace;
     if (is_bf16)
         return decode_attention_dispatch<__nv_bfloat16>(
-            D, q, k_cache, v_cache, o, B, H, Hkv, cache_len, q_strides,
-            k_strides, v_strides, scale, (cudaStream_t)stream);
+            D, q, k_cache, v_cache, o, ws, B, H, Hkv, n_live, split_len,
+            n_split, q_strides, k_strides, v_strides, scale,
+            (cudaStream_t)stream);
     return decode_attention_dispatch<float>(
-        D, q, k_cache, v_cache, o, B, H, Hkv, cache_len, q_strides,
-        k_strides, v_strides, scale, (cudaStream_t)stream);
+        D, q, k_cache, v_cache, o, ws, B, H, Hkv, n_live, split_len, n_split,
+        q_strides, k_strides, v_strides, scale, (cudaStream_t)stream);
 }

@@ -3,16 +3,19 @@
 Replaces the Pallas TPU kernel ``src/repro/kernels/decode_attention.py``
 (``_kernel`` / ``decode_attention_p``). The kernel, its bound on the card
 and the reasons for its design are in ``csrc/attention.cu``; in short: a
-decode step is bound by the bytes of the live cache, so one block per
-(KV head, batch) serves all of that KV head's query heads and reads each
-cache row once; slots past ``cache_len`` are never read, and the sums
-over slots are taken in a fixed order. Only ``B * Hkv`` blocks run — few
-at the serving shape; splitting the slots over more blocks is later work.
+decode step is bound by the bytes of the live cache, so the live slots
+are split over many blocks (flash-decoding: ``decode_splits`` gives the
+schedule, from ``cache_len`` alone), each block serves all of its KV
+head's query heads and reads each cache row once, and a second kernel
+merges the splits' partial softmax sums in split order. Slots past
+``cache_len`` are never read, and no sum depends on the order in which
+blocks finish, so the result is the same from run to run.
 
-``decode_attention`` launches the kernel for CUDA tensors and evaluates
+``decode_attention`` launches the kernels for CUDA tensors and evaluates
 ``decode_attention_plain`` for CPU tensors; nothing else selects between
 them, and a kernel that fails to build or launch raises.
-``decode_attention.launches`` counts kernel launches.
+``decode_attention.launches`` counts wrapper calls that launched (one
+per call, for the split pass and its combine together).
 """
 from __future__ import annotations
 
@@ -27,6 +30,19 @@ from repro_torch.kernels.ref import ref_decode_attention
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUPS = 8  # query heads per KV head the kernel holds in registers
 DTYPES = (torch.float32, torch.bfloat16)
+SPLIT_LEN = 64  # live slots per split: the most the kernel holds in registers
+
+
+def decode_splits(n_live: int) -> tuple[int, int]:
+    """``(n_split, split_len)``: split ``s`` covers slots ``[s *
+    split_len, min((s + 1) * split_len, n_live))``, so the splits cover
+    the ``n_live = cache_len + 1`` live slots exactly, disjoint, none
+    past the last. It depends on ``n_live`` alone -- never on the card,
+    its SM count or timing -- so the sums, and the bits, do not either."""
+    n_live = int(n_live)
+    if n_live < 1:
+        raise ValueError(f"want n_live >= 1, got {n_live}")
+    return -(-n_live // SPLIT_LEN), SPLIT_LEN
 
 
 def _check(q, k_cache, v_cache, cache_len) -> tuple[int, int, int, int,
@@ -72,25 +88,32 @@ def decode_attention_plain(q, k_cache, v_cache, cache_len, *,
     return o.reshape(B, 1, H, D)
 
 
-def _aligned(t: torch.Tensor) -> bool:
-    """16-byte loads of cache rows: base and row strides on 16 bytes."""
+def _aligned(t: torch.Tensor, dims=(0, 1, 2)) -> bool:
+    """16-byte loads of rows: base and the strides of ``dims`` on 16
+    bytes, the head dim contiguous."""
     per16 = 16 // t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(t.stride(i) % per16 == 0 for i in range(3)))
+            and all(t.stride(i) % per16 == 0 for i in dims))
 
 
 def _launch(lib, q, k_cache, v_cache, out, *, cache_len: int, scale: float,
             stream: int) -> int:
-    """One call of the C launcher; the arguments are already checked."""
+    """One call of the C launcher (the split pass and its combine); the
+    arguments are already checked. The float32 workspace holds each
+    split's partial sums."""
     B, _, H, D = q.shape
     Hkv = k_cache.shape[2]
+    n_split, split_len = decode_splits(cache_len + 1)
+    ws = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+                     device=q.device)
     st = lambda t, dims: (ctypes.c_int64 * len(dims))(
         *(t.stride(i) for i in dims))
     return lib.decode_attention_launch(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), out.data_ptr(), B, H, Hkv, D, cache_len,
-        st(q, (0, 2)), st(k_cache, (0, 1, 2)), st(v_cache, (0, 1, 2)),
-        float(scale), stream)
+        v_cache.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, Hkv, D,
+        cache_len, split_len, n_split, st(q, (0, 2)),
+        st(k_cache, (0, 1, 2)), st(v_cache, (0, 1, 2)), float(scale),
+        stream)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -116,8 +139,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if not (_aligned(k_cache) and _aligned(v_cache)):
         raise ValueError("caches must have a contiguous head dim and start "
                          "rows on 16-byte boundaries")
-    if q.stride(-1) != 1:
-        q = q.contiguous()
+    if not _aligned(q, (0, 2)):  # q too is read 16 bytes at a time
+        q = q.clone(memory_format=torch.contiguous_format)
     dev = q.device
     out = torch.empty((B, 1, H, D), dtype=q.dtype, device=dev)
     if out.numel() == 0:  # a zero-size grid is a launch error

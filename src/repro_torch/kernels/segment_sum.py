@@ -5,11 +5,17 @@ JAX package's ``core/backend.py::JaxBackend.segment_sum`` calls it (XLA
 compiled it into the one jitted sweep program); the reference's oracle
 is ``np.bincount`` (``NumpyBackend.segment_sum``). The kernel, its bound
 and its design are in ``csrc/power_plane.cu``; in short: the bound is
-one read of ``data`` and one write of the result, and the design gives
-up part of that (a thread adds its whole segment serially) to keep the
-add order fixed — left to right, as ``np.bincount`` — so the result has
-the same bits as the CPU plain version and from run to run, which an
-atomic scatter-add cannot promise.
+one read of ``data`` and one write of the result; the add order is
+fixed — each segment left to right from 0.0, as ``np.bincount`` — so the
+result has the same bits as the CPU plain version and from run to run,
+which an atomic scatter-add (or any tree) cannot promise. A block stages
+a row's span through shared memory in sub-tiles that land on mbarriers
+of their own, and each segment's one owner thread adds from there as
+soon as its sub-tile has arrived, so the only serial part left is the
+chain of adds of the longest segment. ``stage_subtiles`` sizes the
+staging window. A launch whose runs of segments are short enough to be
+one load a thread on average (the idle-gap chunks) reads straight from
+device memory instead, in the same order.
 
 ``segment_sum`` launches the kernel for CUDA tensors and evaluates
 ``segment_sum_plain`` for CPU tensors; nothing else selects between
@@ -24,6 +30,22 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+
+SEGS_PER_BLOCK = 128  # consecutive segments a block owns (csrc k2::THREADS)
+SUB = 1024            # elements per staged sub-tile (k2::SUB)
+MAX_SUBS = 12         # sub-tiles per window, 96 KB (k2::MAX_SUBS)
+
+
+def stage_subtiles(n: int, num_segments: int) -> int:
+    """Sub-tiles of ``SUB`` elements in the kernel's staging window: about
+    twice the mean span of a block's run of ``SEGS_PER_BLOCK`` segments,
+    within ``[1, MAX_SUBS]``. A longer span takes several windows, with
+    the same sums; the window sets only the shared memory a block holds
+    (and so how many blocks share an SM), never the add order."""
+    if num_segments <= 0 or n <= 0:
+        return 1
+    span = n * min(SEGS_PER_BLOCK, num_segments) / num_segments
+    return max(1, min(MAX_SUBS, math.ceil(2 * span / SUB)))
 
 
 def segment_starts(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -102,12 +124,15 @@ def segment_sum(data: torch.Tensor, seg_ids: torch.Tensor,
             f"starts: want int64 ({num_segments + 1},) on {dev}, got "
             f"{starts.dtype} {tuple(starts.shape)} on {starts.device}")
     starts = starts.contiguous()
+    if rows.data_ptr() % 16:  # the kernel's 16-byte copies line up
+        rows = rows.clone()
     out = torch.empty(batch, num_segments, dtype=torch.float64, device=dev)
     lib = _build.load("power_plane")
     with torch.cuda.device(dev):
         err = lib.segment_sum_launch(
             rows.data_ptr(), starts.data_ptr(), n, num_segments, batch,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            stage_subtiles(n, num_segments), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "segment_sum")
     segment_sum.launches += 1
     return out.reshape(*lead, num_segments)

@@ -28,7 +28,7 @@ from repro.models import common as jc  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_plain)
+    SPLIT_LEN, decode_attention, decode_attention_plain, decode_splits)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.models import common as tc  # noqa: E402
@@ -40,7 +40,10 @@ KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 FA_CASES = [(1, 256, 2, 64, True), (2, 256, 4, 128, True),
             (1, 512, 2, 64, False), (2, 128, 1, 128, True)]
 DA_CASES = [(4, 1024, 64, 256, 300), (2, 2048, 128, 512, 2047),
-            (3, 512, 32, 128, 0)]
+            (3, 512, 32, 128, 0),
+            # live slots ending on and next to the port's split boundaries
+            (2, 512, 128, 128, 127), (2, 512, 64, 128, 128),
+            (2, 512, 64, 256, 255)]
 
 
 def _normal(seed, *shape):
@@ -155,6 +158,27 @@ def test_decode_plain_matches_pallas_kernel(case):
     got = decode_attention_plain(tq[:, None, None, :], tk[:, :, None, :],
                                  tv[:, :, None, :], clen)
     _close(got[:, 0, 0], want, atol=KERNEL_TOL["float32"])
+
+
+@pytest.mark.parametrize("cache_len", sorted({0, 1, SPLIT_LEN - 1, SPLIT_LEN,
+                                              SPLIT_LEN + 1, 2079}))
+def test_decode_splits_cover_the_live_slots_exactly(cache_len):
+    """B4's schedule: the splits tile ``[0, cache_len]`` exactly --
+    disjoint, none empty, none past the last live slot -- and depend on
+    the slot count alone."""
+    n_live = cache_len + 1
+    n_split, length = decode_splits(n_live)
+    assert length == SPLIT_LEN
+    spans = [range(s * length, min((s + 1) * length, n_live))
+             for s in range(n_split)]
+    assert all(len(r) > 0 for r in spans)
+    assert [i for r in spans for i in r] == list(range(n_live))
+    assert decode_splits(n_live) == (n_split, length)
+
+
+def test_decode_splits_refuse_an_empty_cache():
+    with pytest.raises(ValueError):
+        decode_splits(0)
 
 
 def test_gqa_head_map_is_h_over_groups():

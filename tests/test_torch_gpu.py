@@ -75,6 +75,77 @@ def test_segment_sum_kernel_equals_cpu_plain_bit_for_bit(card, batch):
                     minlength=40))
 
 
+def _direct_or_staged_ids(case):
+    """Segment lengths for K2 around its DIRECT_SPAN (256): a launch whose
+    blocks' runs of 128 segments span at most that many elements on
+    average reads device memory directly, a longer one is staged."""
+    if case == "long chain, direct":  # mean run ~192: one 10 000-op chain
+        lengths = np.ones(20_001, dtype=np.int64)
+        lengths[7_000] = 10_000
+        return lengths
+    lengths = np.ones(128, dtype=np.int64)  # one block's run: mean = span
+    lengths[5] = int(case.split()[-1]) - 127
+    return lengths
+
+
+@pytest.mark.parametrize("case", ["span 255", "span 256", "span 257",
+                                  "span 258", "long chain, direct"])
+def test_segment_sum_direct_and_staged_launches(card, case):
+    """On both sides of the launcher's choice, and with a long chain read
+    straight from device memory: np.bincount's bits."""
+    lengths = _direct_or_staged_ids(case)
+    num = lengths.shape[0]
+    ids = np.repeat(np.arange(num), lengths)
+    rng = np.random.default_rng(num)
+    data = rng.uniform(1e-9, 1e3, (3, ids.shape[0]))
+    d, i = torch.tensor(data, device=card), torch.tensor(ids, device=card)
+    got = segment_sum(d, i, num)
+    assert torch.equal(got.cpu(), segment_sum_plain(d.cpu(), i.cpu(), num))
+    for b in range(3):
+        assert np.array_equal(got[b].cpu().numpy(),
+                              np.bincount(ids, weights=data[b],
+                                          minlength=num))
+
+
+def _sweep_id_sets(card):
+    """K2's id vectors at the sweep's shapes (NPU-D, the paper suite)
+    and a row longer than the kernel's largest staging window."""
+    from repro_torch.core.hw import get_npu
+    from repro_torch.core.policies import _host_columns
+    from repro_torch.kernels.segment_sum import MAX_SUBS, SUB
+    st = opgen.stack_traces(opgen.paper_suite())
+    host, _ = _host_columns(st, get_npu("NPU-D"))
+    seg = host["op"]["seg_ids"]
+    gap = host["gap_seg"]["hbm"]
+    chunk = host["op"]["chunk_hbm"]
+    long_row = np.repeat(np.arange(3), (MAX_SUBS * SUB * 2 + 1, 5, 999))
+    return {"ops->workloads, per triple": (seg, st.n_segments, 72),
+            "gaps->workloads, per triple": (gap, st.n_segments, 72),
+            "ops->gap chunks, per width": (chunk, gap.shape[0], 5),
+            "ops->workloads, per width": (seg, st.n_segments, 5),
+            "long rows": (long_row, 3, 4)}
+
+
+@pytest.mark.parametrize("shape", [
+    "ops->workloads, per triple", "gaps->workloads, per triple",
+    "ops->gap chunks, per width", "ops->workloads, per width",
+    "long rows"])
+def test_segment_sum_kernel_at_the_sweep_shapes(card, shape):
+    ids, num, batch = _sweep_id_sets(card)[shape]
+    ids = np.asarray(ids, dtype=np.int64)
+    rng = np.random.default_rng(len(shape))
+    data = rng.uniform(1e-9, 1e3, (batch, ids.shape[0]))
+    d, i = torch.tensor(data, device=card), torch.tensor(ids, device=card)
+    got = segment_sum(d, i, num)
+    assert torch.equal(got, segment_sum(d, i, num))       # run to run
+    assert torch.equal(got.cpu(), segment_sum_plain(d.cpu(), i.cpu(), num))
+    keep = ids < num
+    for b in (0, batch - 1):
+        assert np.array_equal(
+            got[b].cpu().numpy(),
+            np.bincount(ids[keep], weights=data[b][keep], minlength=num))
+
+
 def test_sweep_on_the_card_matches_the_cpu(card):
     sweep = importlib.import_module("repro_torch.core.sweep").sweep
     grid = KnobGrid(delay_scale=(0.5, 2.0), sa_width=(None, 64),
@@ -228,6 +299,49 @@ def test_decode_attention_kernel_matches_plain(card, dtype, S, H, Hkv, D,
     before = decode_attention.launches
     got = decode_attention(q, kc, vc, cache_len)
     assert decode_attention.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_len", [0, 126, 127, 128, 255, 256, 2079])
+@pytest.mark.parametrize("groups", [1, 2, 8])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_decode_attention_split_kv(card, D, groups, cache_len, dtype):
+    """B4 at the serving shape's batch, KV heads and cache (B 4, Hkv 2,
+    2 080 slots), with the live slots ending on and next to split
+    boundaries: against the plain version, no slot past cache_len read
+    (NaN there), and a second call bit-identical (the splits are merged
+    in a fixed order)."""
+    H = 2 * groups
+    q, kc, vc = _attn_inputs(card, dtype, cache_len + D, (4, 1, H, D),
+                             (4, 2080, 2, D), (4, 2080, 2, D))
+    want = decode_attention_plain(q, kc, vc, cache_len)
+    kc[:, cache_len + 1:] = float("nan")
+    vc[:, cache_len + 1:] = float("nan")
+    before = decode_attention.launches
+    got = decode_attention(q, kc, vc, cache_len)
+    again = decode_attention(q, kc, vc, cache_len)
+    assert decode_attention.launches == before + 2  # one per call
+    assert torch.equal(got, again)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_merges_any_number_of_splits(card, dtype):
+    """A cache of 400 000 live slots (6 250 splits): the combine reads
+    the splits' statistics from the workspace, so their number has no
+    limit."""
+    cache_len = 399_999
+    q, kc, vc = _attn_inputs(card, dtype, 7, (1, 1, 4, 16),
+                             (1, cache_len + 1, 2, 16),
+                             (1, cache_len + 1, 2, 16))
+    got = decode_attention(q, kc, vc, cache_len)
+    want = decode_attention_plain(q, kc, vc, cache_len)
+    assert torch.equal(got, decode_attention(q, kc, vc, cache_len))
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=tol)

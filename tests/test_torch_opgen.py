@@ -210,10 +210,10 @@ def _arch(mod, **kw):
 @pytest.mark.parametrize("family", ["dense", "moe", "ssm"])
 @pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
 def test_arch_workload_equal(family, kind, monkeypatch):
-    """``arch_workload`` op for op. The reference sizes a training
-    shape's closing ops with its model registry's parameter counter;
-    the port takes the count as an argument, so the reference's counter
-    is pinned to the same number here."""
+    """``arch_workload`` op for op. Both packages size a training
+    shape's closing ops with their own model registry's parameter
+    counter; each counter is pinned to the same number here, since the
+    port's registry does not hold the MoE family yet."""
     n_params = 123_456_789
 
     def cfg(mod):
@@ -227,21 +227,81 @@ def test_arch_workload_equal(family, kind, monkeypatch):
 
     if kind == "train":
         from repro.models import registry
+        from repro_torch.models import registry as port_registry
         monkeypatch.setattr(registry, "count_params",
                             lambda cfg, active_only=False: n_params)
+        monkeypatch.setattr(port_registry, "count_params",
+                            lambda cfg: n_params)
     rw = ref_opgen.arch_workload(
         cfg(ref_cfg), ref_cfg.ShapeConfig("s", 512, 64, kind), n_chips=16,
         tp=4)
     pw = port_opgen.arch_workload(
         cfg(port_cfg), port_cfg.ShapeConfig("s", 512, 64, kind), n_chips=16,
-        tp=4, n_params=n_params)
+        tp=4)
     assert rw.name == pw.name and len(rw.ops) == len(pw.ops)
     for a, b in zip(rw.ops, pw.ops):
         assert dataclasses.asdict(a) == dataclasses.asdict(b)
-    if kind == "train":
-        with pytest.raises(ValueError, match="n_params"):
-            port_opgen.arch_workload(
-                cfg(port_cfg), port_cfg.ShapeConfig("s", 512, 64, kind))
+
+
+PORTED_ARCHS = ("qwen2.5-3b", "mamba2-780m", "qwen3-32b")
+
+
+@pytest.mark.parametrize("shape", sorted(ref_cfg.SHAPES))
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
+def test_arch_workload_of_published_archs_equal(arch, shape):
+    """Every shape cell of a ported arch, training included, with each
+    package counting the parameters itself: the same ops, op for op."""
+    rw = ref_opgen.arch_workload(ref_cfg.get_arch(arch),
+                                 ref_cfg.SHAPES[shape])
+    pw = port_opgen.arch_workload(port_cfg.get_arch(arch),
+                                  port_cfg.SHAPES[shape])
+    assert rw.name == pw.name and rw.kind == pw.kind
+    assert len(rw.ops) == len(pw.ops) > 0
+    for a, b in zip(rw.ops, pw.ops):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+
+
+def test_arch_workload_train_4k_of_qwen2_5_3b():
+    w = port_opgen.arch_workload(port_cfg.get_arch("qwen2.5-3b"),
+                                 port_cfg.SHAPES["train_4k"])
+    assert len(w.ops) == 255 and w.kind == "train"
+
+
+def test_arch_workload_train_refuses_unported_families():
+    """A training shape needs the parameter count, which the port's
+    registry refuses for a family it does not hold yet."""
+    with pytest.raises(NotImplementedError, match="MoE"):
+        port_opgen.arch_workload(port_cfg.get_arch("granite-moe-1b-a400m"),
+                                 port_cfg.SHAPES["train_4k"])
+
+
+def test_shapes_equal():
+    from repro_torch.configs import SHAPES
+    assert SHAPES is port_cfg.SHAPES
+    assert {k: dataclasses.asdict(v) for k, v in ref_cfg.SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in SHAPES.items()}
+    for k, v in SHAPES.items():
+        assert v.is_decode == ref_cfg.SHAPES[k].is_decode
+    assert [k for k, v in SHAPES.items() if v.is_decode] \
+        == ["decode_32k", "long_500k"]
+
+
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
+def test_param_count_and_supported_shapes_equal(arch):
+    ref, port = ref_cfg.get_arch(arch), port_cfg.get_arch(arch)
+    assert port.param_count() == ref.param_count()
+    assert port.supported_shapes() == ref.supported_shapes()
+
+
+def test_param_count_of_the_served_archs():
+    assert port_cfg.get_arch("qwen2.5-3b").param_count() == 3_086_200_832
+    assert port_cfg.get_arch("mamba2-780m").param_count() == 780_382_464
+
+
+@pytest.mark.parametrize("arch", sorted(ref_cfg.list_archs()))
+def test_supported_shapes_equal_for_every_arch(arch):
+    assert port_cfg.get_arch(arch).supported_shapes() \
+        == ref_cfg.get_arch(arch).supported_shapes()
 
 
 def test_workload_generators_equal():

@@ -14,9 +14,11 @@ torch = pytest.importorskip("torch")
 
 from repro.core.backend import NumpyBackend  # noqa: E402
 from repro_torch.core.backend import get_backend  # noqa: E402
-from repro_torch.kernels.segment_sum import (segment_starts,  # noqa: E402
+from repro_torch.kernels.segment_sum import (MAX_SUBS,  # noqa: E402
+                                             SUB, segment_starts,
                                              segment_sum,
-                                             segment_sum_plain)
+                                             segment_sum_plain,
+                                             stage_subtiles)
 
 
 def _ids(rng, n, num, holes=()):
@@ -147,3 +149,31 @@ def test_default_device_is_the_card():
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             get_backend(None)
+
+
+@pytest.mark.parametrize("n,num,want", [
+    (11191, 17, MAX_SUBS),   # the sweep's ops -> workloads: one window
+    (9248, 17, MAX_SUBS),    # gaps -> workloads
+    (11191, 9248, 1),        # ops -> gap chunks: ~155 ops a block's run
+    (1000, 5, 2), (1, 1, 1), (0, 3, 1), (5, 0, 1)])
+def test_stage_subtiles(n, num, want):
+    """K2's staging window: about twice a block's mean span, within
+    [1, MAX_SUBS] sub-tiles; the main shape's row fits in one."""
+    assert stage_subtiles(n, num) == want
+    assert 1 <= want <= MAX_SUBS
+    if (n, num) == (11191, 17):
+        assert n <= stage_subtiles(n, num) * SUB
+
+
+def test_row_longer_than_a_staging_window_equals_bincount():
+    """A segment longer than the kernel's largest window (the kernel
+    carries its running sum across windows); on the CPU the wrapper's
+    plain route, with np.bincount's bits."""
+    rng = np.random.default_rng(7)
+    lengths = (MAX_SUBS * SUB * 2 + 3, 5, 1000)
+    ids = np.repeat(np.arange(3), lengths).astype(np.int64)
+    data = _mixed(rng, (2,) + ids.shape)
+    got = segment_sum(torch.tensor(data), torch.tensor(ids), 3)
+    for b in range(2):
+        assert np.array_equal(got[b].numpy(),
+                              np.bincount(ids, weights=data[b], minlength=3))

@@ -19,7 +19,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 AB = ROOT / "chip_ab.py"
-PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE, AB]
+K2_PROBE = ROOT / "chip_k2_readahead.py"
+PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE, AB, K2_PROBE]
 
 FOREIGN_IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)", re.MULTILINE)
@@ -184,19 +185,26 @@ def test_cpu_tensors_never_reach_the_kernels():
     assert _build._LIBS == libs  # nothing was built or loaded
 
 
-def _assert_binding_declares_every_argument(source, launcher, bind):
+def _assert_binding_declares_every_argument(source, launcher, bind,
+                                            others=()):
     """ctypes passes an undeclared argument as a 32-bit int and would cut
-    a pointer: every parameter of the C launcher has an argtype."""
+    a pointer: every parameter of the C launcher has an argtype of its
+    C type (``others``: the library's other launchers, which ``bind``
+    declares too)."""
     import ctypes
     cu = (PKG / "kernels" / "csrc" / source).read_text()
     sig = cu[cu.index(f'extern "C" int {launcher}('):]
     params = sig[sig.index("(") + 1:sig.index(")")].split(",")
-    fake = type("Fake", (), {launcher: type("F", (), {})()})
+    fake = type("Fake", (), {name: type("F", (), {})()
+                             for name in (launcher, *others)})
     bind(fake)
     types = getattr(fake, launcher).argtypes
     assert len(types) == len(params)
+    scalars = {"int": ctypes.c_int, "int64_t": ctypes.c_int64,
+               "float": ctypes.c_float, "double": ctypes.c_double}
     for t, decl in zip(types, params):
-        want = ctypes.c_int if decl.split()[0] == "int" else ctypes.c_void_p
+        want = ctypes.c_void_p if "*" in decl \
+            else scalars[decl.split()[0]]
         assert t is want, decl
     assert getattr(fake, launcher).restype is ctypes.c_int
 
@@ -211,6 +219,21 @@ def test_gated_matmul_binding_declares_every_argument():
     from repro_torch.kernels import _build
     _assert_binding_declares_every_argument(
         "gated_matmul.cu", "gated_matmul_launch", _build._bind_gated_matmul)
+
+
+@pytest.mark.parametrize("source,launcher,other,bind", [
+    ("power_plane.cu", "segment_sum_launch", "sa_occupancy_launch",
+     "_bind_power_plane"),
+    ("power_plane.cu", "sa_occupancy_launch", "segment_sum_launch",
+     "_bind_power_plane"),
+    ("attention.cu", "decode_attention_launch", "flash_attention_launch",
+     "_bind_attention"),
+    ("attention.cu", "flash_attention_launch", "decode_attention_launch",
+     "_bind_attention")])
+def test_binding_declares_every_argument(source, launcher, other, bind):
+    from repro_torch.kernels import _build
+    _assert_binding_declares_every_argument(
+        source, launcher, getattr(_build, bind), others=(other,))
 
 
 def test_fmad_off_only_where_bits_are_promised():
@@ -262,7 +285,8 @@ def test_profiled_kernel_names_are_defined(script):
                                script.read_text()))
     if script == SMOKE:
         assert {"flash_attention_bf16_kernel", "flash_attention_kernel",
-                "decode_attention_kernel", "ssd_scan_kernel",
+                "decode_attention_kernel",
+                "decode_attention_combine_kernel", "ssd_scan_kernel",
                 "gated_matmul_bf16_kernel",
                 "gated_matmul_f32_kernel"} <= looked_up
     assert looked_up <= _global_kernels(), looked_up - _global_kernels()
