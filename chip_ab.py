@@ -12,16 +12,17 @@ under ``--out`` and reads from it the numbers compared: B3 and B4 at
 the model's shapes (``kernels_model_shapes``), K2 at the sweep's four
 shapes (``kernels``), B2's five ``gated_matmul_full`` cases,
 ``sweep_full``'s steady wall, ``serve_full`` and ``profile_serve``'s
-prefill and decode windows. Two metrics are then timed for both trees
-by the same code, in a process of its own,
+prefill and decode windows; for mamba2-780m, B5 at the model's shapes,
+``serve_ssm_full`` and its prefill window. Three metrics are then timed
+for both trees by the same code, in a process of its own,
 
     python3 chip_ab.py --same-code TREE
 
 which imports TREE's port and times it with this checkout's
 ``chip_smoke`` functions on inputs made from a seed: B3 in float32 at
-the prefill's shape (``time_b3``), which no ``chip_smoke.py`` measures,
-and K2's device time at the sweep's four shapes (``time_k2``), which the
-parent's ``chip_smoke.py`` does not record. Each run prints one JSON
+the prefill's shape (``time_b3``) and B5 in float32 at mamba2-780m's
+prefill shape (``time_b5``), which no ``chip_smoke.py`` measures, and
+K2's device time at the sweep's four shapes (``time_k2``). Each run prints one JSON
 line and the last line is a summary: per metric, the values of the runs
 in order. Each tree builds its kernels into its own ``build/`` at its
 first run. Needs one card; it exits non-zero if any run fails.
@@ -38,12 +39,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 ORDER = "PCCP"
 B3_SHAPE = (4, 2048, 16, 2, 128)   # B, S, H, Hkv, D: qwen2.5-3b's prefill
+B5_SHAPE = (4, 2048, 48, 64, 1, 128)  # B, S, H, P, G, N: mamba2-780m's
+SSM_ARCH = "mamba2-780m"
 
 
 def same_code(tree: str) -> dict:
-    """B3 of ``tree``'s port in float32 at ``B3_SHAPE`` and its K2 at the
-    sweep's four shapes, by this checkout's ``chip_smoke.time_b3`` and
-    ``time_k2``."""
+    """B3 of ``tree``'s port in float32 at ``B3_SHAPE``, its B5 in float32
+    at ``B5_SHAPE`` and its K2 at the sweep's four shapes, by this
+    checkout's ``chip_smoke.time_b3``, ``time_b5`` and ``time_k2``."""
     import chip_smoke  # this checkout's: the same timing code for both
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     import numpy as np
@@ -58,8 +61,18 @@ def same_code(tree: str) -> dict:
                for h in (H, Hkv, Hkv))
     b3 = chip_smoke.time_b3(q, k, v)
     del q, k, v
+    Bz, S, H, P, G, N = B5_SHAPE
+    x = torch.randn((Bz, S, H, P), generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn((Bz, S, H), generator=gen, device="cuda"))
+    A = -torch.exp(torch.rand((H,), generator=gen, device="cuda"))
+    Bm, Cm = (torch.randn((Bz, S, G, N), generator=gen, device="cuda")
+              for _ in range(2))
+    b5 = chip_smoke.time_b5(x, dt, A.expand(Bz, H), Bm, Cm)
+    del x, dt, Bm, Cm
     shapes = chip_smoke.k2_port_shapes(torch.device("cuda"))
     return {"port": os.path.dirname(repro_torch.__file__), "b3_float32": b3,
+            "b5_float32": b5,
             "k2": chip_smoke.time_k2(shapes, np.random.default_rng(0))}
 
 
@@ -120,7 +133,43 @@ def _smoke_numbers(lines: list[str]) -> dict:
             k: dec.get(k) for k in ("wall_s_profiled", "device_busy_s",
                                     "device_idle_share", "device_launches",
                                     "hand_kernels")}
+    ssm = phases.get("serve_ssm_full", [{}])[0]
+    out["ssm"] = {"prefill_s": ssm.get("prefill_s"),
+                  "decode_ms_per_step": ssm.get("decode_ms_per_step"),
+                  "decode_vs_forward_rel_l2": ssm.get(
+                      "decode_vs_forward", {}).get("max_rel_l2")}
+    shapes = [p for p in phases.get("kernels_model_shapes", [])
+              if p.get("arch") == SSM_ARCH]
+    if shapes:
+        b5 = shapes[0]["ssd_scan"]
+        out["b5"] = {k: b5.get(k) for k in (
+            "ms", "device_us", "plain_ms", "bound_ms", "max_abs_err",
+            "scaled_err", "rel_l2", "control_rel_l2", "occupancy")}
+    prof = [p for p in phases.get("profile_serve", [])
+            if p.get("arch") == SSM_ARCH]
+    if prof:
+        pre = prof[0]["prefill"]
+        out["profile_ssm_prefill"] = {
+            k: pre.get(k) for k in ("wall_s_profiled", "device_busy_s",
+                                    "device_idle_share", "hand_kernels",
+                                    "top_ops")}
     return out
+
+
+def b5_prefill_us_per_call(prefill: dict) -> float:
+    """B5's device µs a wrapper call in the mamba2 prefill: per profiled
+    kernel whose name holds ``ssd_``, its time over its recorded
+    launches, summed (a bf16 call launches two kernels)."""
+    return sum(v["device_us_total"] / v["launches"]
+               for k, v in prefill["hand_kernels"].items() if "ssd_" in k)
+
+
+def b5_prefill_share(prefill: dict) -> float:
+    """B5's share of the mamba2 prefill's device busy time: every
+    profiled kernel whose name holds ``ssd_``."""
+    us = sum(v["device_us_total"] for k, v in prefill["hand_kernels"].items()
+             if "ssd_" in k)
+    return us / (1e6 * prefill["device_busy_s"])
 
 
 def k2_per_launch(hand_kernels: dict) -> float:
@@ -189,6 +238,24 @@ def main() -> int:
         **{f"b3_float32_{k}": series(
             lambda r, k=k: r["same_code"]["b3_float32"][k])
            for k in ("ms", "device_us")},
+        **{f"b5_bf16_{k}": series(lambda r, k=k: r["smoke"]["b5"][k])
+           for k in ("ms", "device_us", "rel_l2", "control_rel_l2")},
+        **{f"b5_float32_{k}": series(
+            lambda r, k=k: r["same_code"]["b5_float32"][k])
+           for k in ("ms", "device_us")},
+        **{f"ssm_{k}": series(lambda r, k=k: r["smoke"]["ssm"][k])
+           for k in ("prefill_s", "decode_ms_per_step",
+                     "decode_vs_forward_rel_l2")},
+        "ssm_prefill_device_busy_s": series(
+            lambda r: r["smoke"]["profile_ssm_prefill"]["device_busy_s"]),
+        "ssm_prefill_device_idle_share": series(
+            lambda r: r["smoke"]["profile_ssm_prefill"][
+                "device_idle_share"]),
+        "ssm_prefill_b5_share": series(lambda r: b5_prefill_share(
+            r["smoke"]["profile_ssm_prefill"])),
+        "ssm_prefill_b5_device_us_per_call": series(
+            lambda r: b5_prefill_us_per_call(
+                r["smoke"]["profile_ssm_prefill"])),
         **{f"b2_{name}_{k}": series(
             lambda r, n=name, k=k: r["smoke"]["b2"][n][k])
            for name in b2_cases for k in ("ms", "device_us")},

@@ -89,6 +89,21 @@ B3_CONTROL_BITS = 3
 # control, the plain version with its last split dropped (what a combine
 # that lost a split would give), must land above it.
 B4_REL_L2_BF16 = 1.1e-3
+# B5's kernels per input type, as the profiler names them: a bf16 call
+# launches two, C·Bᵀ once per (batch, chunk, group), then the scan
+B5_KERNELS = {"bfloat16": ("ssd_chunk_cb_kernel", "ssd_scan_bf16_kernel"),
+              "float32": ("ssd_scan_kernel",)}
+# B5 bf16 vs its plain version at the model's inputs, as one relative L2
+# over y and one over the final state. Every float32 operand of the
+# kernel's products (the carried state, S, x·dt·w) enters the tensor
+# cores as a bf16 hi/lo pair, ~2^-16 relative: on the H100 the kernel
+# reads 2.7e-6 (y) and 3.8e-6 (state). The plain version with its state
+# rounded to bf16 (7 mantissa bits) after every chunk reads 4.3e-5 and
+# 1.7e-3, so the limit sees a state kept in bf16; the control, the state
+# rounded to 3 bits (a deliberately wrong rounding), reads 7.2e-4 and
+# 2.6e-2 and must land above it (PERF.md).
+B5_REL_L2_BF16 = 1e-4
+B5_CONTROL_BITS = 3
 K1_SOURCE = "src/repro_torch/kernels/csrc/power_plane.cu"
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
@@ -220,12 +235,16 @@ def profile_run(run, hand_kernels: tuple[str, ...], top: int = 8) -> dict:
     launches count device-side events only (kernels, copies, sets): an
     op's ``self_device_time`` repeats its kernels' time. A diagnostic: a
     profiler that cannot trace the card is reported, not fatal."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             wall = run()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
         events = [(evt.key, _device_us(evt), int(evt.count),
                    getattr(evt, "device_type", None) == DeviceType.CUDA)
                   for evt in prof.key_averages() if _device_us(evt) > 0]
@@ -249,8 +268,14 @@ def profile_run(run, hand_kernels: tuple[str, ...], top: int = 8) -> dict:
                         for n, us, c in ops[:top]]}
 
 
-# a profile that returns no record of a kernel the calls launched (seen
-# once on the H100, for B3, in a run whose every other profile was whole)
+# the profiler keeps only the device records whose time stamps fall in
+# its window, and on the H100 CUPTI's stamps have come out up to 3.6 ms
+# before the host's clock (chip_profiler_window.py), so a burst of short
+# kernels at the window's start was lost in part or in full: every
+# profile waits this long before the first call and after the last one
+# has finished
+PROFILE_PAD_S = 0.05
+# a profile that still returns no record of a kernel the calls launched
 # is taken again, this many times in all, before the run fails
 PROFILE_ATTEMPTS = 3
 
@@ -258,12 +283,15 @@ PROFILE_ATTEMPTS = 3
 def kernel_device_us(fn, names=None, reps: int = 5) -> float:
     """Mean device microseconds of one call of ``fn`` in the kernels
     ``names`` (a name, or a tuple of the names of every kernel the call
-    launches; None: every kernel, copy and set the call puts on the
-    card, for a library call whose kernels are not ours to name), over
-    ``reps`` calls, by ``torch.profiler``: a short kernel is timed by
-    its device time, not by events around wrapper calls, which measure
-    the host's issue rate. A call that launches two kernels reads the
-    time of both."""
+    launches, each once a call; None: every kernel, copy and set the call
+    puts on the card, for a library call whose kernels are not ours to
+    name), over ``reps`` calls, by ``torch.profiler``: a short kernel is
+    timed by its device time, not by events around wrapper calls, which
+    measure the host's issue rate. A call that launches two kernels reads
+    the time of both. A named kernel's time is its mean over the launches
+    the profiler recorded, in a window padded by ``PROFILE_PAD_S`` on both
+    sides: on the H100 a window that held only the calls has lost the
+    records of some or all of them (PERF.md)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -271,9 +299,11 @@ def kernel_device_us(fn, names=None, reps: int = 5) -> float:
     torch.cuda.synchronize()
     for attempt in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
         if names is None:
             us = [_device_us(e) for e in prof.key_averages()
                   if getattr(e, "device_type", None) == DeviceType.CUDA]
@@ -282,11 +312,13 @@ def kernel_device_us(fn, names=None, reps: int = 5) -> float:
             missing = ["any device"]
             continue
         wanted = (names,) if isinstance(names, str) else tuple(names)
-        hits = {name: [_device_us(e) for e in prof.key_averages()
-                       if name in e.key] for name in wanted}
-        missing = [name for name, us in hits.items() if not us]
+        hits = {name: [(_device_us(e), int(e.count))
+                       for e in prof.key_averages() if name in e.key]
+                for name in wanted}
+        missing = [name for name, rec in hits.items() if not rec]
         if not missing:
-            return sum(sum(us) for us in hits.values()) / reps
+            return sum(sum(us for us, _ in rec) / sum(n for _, n in rec)
+                       for rec in hits.values())
     fail(f"the profiler saw no {missing} launch in {PROFILE_ATTEMPTS} "
          f"profiles of {reps} calls")
 
@@ -704,8 +736,9 @@ def _ssd_ref(x, dt, A, B, C):
 def check_ssd_kernel(dev) -> dict:
     """B5 against its plain version on the card: the SSD_CASES shapes of
     tests/test_kernels.py, the serving shape, ragged S, G = 2 and the
-    reduced widths, bf16 and float32, the final state written into a
-    cache slice; a strong-decay case (A = -16, dt ~ 10: a mask after exp
+    reduced widths, bf16 and float32, the bf16 route's ring and tiling
+    boundaries and an unaligned x, the final state written into a cache
+    slice; a strong-decay case (A = -16, dt ~ 10: a mask after exp
     would give inf * 0 = NaN) against ``ref_ssd``, whose sequential sums
     keep cum_last - cum_j exact where the plain version's parallel
     cumsum at |cum| ~ 1e4 does not."""
@@ -768,6 +801,16 @@ def check_ssd_kernel(dev) -> dict:
         one(f"reduced widths {dn}", inputs(2, 77, 8, 16, 1, 16, dtype))
         one(f"strong decay {dn}", inputs(2, 255, 8, 64, 1, 128, dtype,
                                           strong=True), strong=True)
+    # the bf16 route's tiling: whole chunks filling the two-stage ring and
+    # wrapping it (1, 2, 3 chunks), the other head and state dims, and an
+    # x at an odd offset, which TMA cannot take and the wrapper copies
+    for S in (64, 128, 192):
+        one(f"ring S={S} bfloat16", inputs(2, S, 8, 64, 1, 128,
+                                           torch.bfloat16))
+    one("P=32 N=64 bfloat16", inputs(2, 200, 8, 32, 1, 64, torch.bfloat16))
+    x, *rest = inputs(2, 130, 8, 64, 1, 128, torch.bfloat16)
+    x = torch.cat([x.flatten(2), x.flatten(2)[..., :1]], dim=2)[..., 1:]
+    one("x at an odd offset bfloat16", (x.view(2, 130, 8, 64), *rest))
     before = ssd_scan.launches
     z = inputs(1, 5, 8, 64, 1, 128, torch.bfloat16)
     y0, h0 = ssd_scan(*(t[:0] for t in z))
@@ -777,10 +820,56 @@ def check_ssd_kernel(dev) -> dict:
     return {"cases": len(cases), "scaled_err": err, "tolerance": SSD_TOL}
 
 
+def b5_rounded_state(x, dt, A, B, C, bits: int):
+    """The plain version's chunked form (``ssd_scan_plain``, groups one
+    per head block) with the carried state rounded to nearest at ``bits``
+    stored mantissa bits after every chunk: at 7 bits what a state kept
+    in bf16 would give, at fewer a deliberately wrong rounding. Returns y
+    and the final state, float32."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd_scan import CHUNK, NEG_INF
+    Bz, S, H, P = x.shape
+    N, rep = B.shape[-1], H // B.shape[2]
+    nc = -(-S // CHUNK)
+    pad = nc * CHUNK - S
+    xf, Bf, Cf = (F.pad(t.float(), (0, 0, 0, 0, 0, pad)) for t in (x, B, C))
+    dtf = F.pad(dt.float(), (0, 0, 0, pad))
+    drop = 23 - bits
+
+    def rnd(t):
+        return ((t.view(torch.int32) + (1 << (drop - 1)))
+                & ~((1 << drop) - 1)).view(torch.float32)
+
+    h = torch.zeros((Bz, H, P, N), device=x.device)
+    iq = torch.arange(CHUNK, device=x.device)
+    causal = (iq[:, None] >= iq[None, :])[None, :, :, None]
+    ys = []
+    for c in range(nc):
+        sl = slice(c * CHUNK, (c + 1) * CHUNK)
+        xq, dtq = xf[:, sl], dtf[:, sl]
+        Bq, Cq = (t[:, sl].repeat_interleave(rep, dim=2) for t in (Bf, Cf))
+        cum = torch.cumsum(dtq * A.float()[:, None, :], dim=1)
+        lmat = torch.exp(torch.where(
+            causal, cum[:, :, None, :] - cum[:, None, :, :],
+            torch.full((), NEG_INF, device=x.device)))
+        dx = dtq[..., None] * xq
+        y = torch.einsum("bijh,bijh,bjhp->bihp",
+                         torch.einsum("bihn,bjhn->bijh", Cq, Bq), lmat, dx)
+        y += torch.einsum("bihn,bhpn,bih->bihp", Cq, h, torch.exp(cum))
+        s_chunk = torch.einsum("bjhn,bjhp,bjh->bhpn", Bq, dx,
+                               torch.exp(cum[:, -1:, :] - cum))
+        h = rnd(h * torch.exp(cum[:, -1, :])[:, :, None, None] + s_chunk)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
 def time_b5(x, dt, A, Bm, Cm) -> dict:
     """B5 at the shapes the main path gives it, beside its bound and its
     plain version. No single PyTorch call computes the SSD scan, so there
-    is no library time."""
+    is no library time. bf16 is also held to ``B5_REL_L2_BF16`` beside its
+    control, and its scan kernel to one wave of resident blocks."""
+    import torch
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
     Bz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
@@ -790,14 +879,47 @@ def time_b5(x, dt, A, Bm, Cm) -> dict:
     ey, eh = scaled_err(y, yw), scaled_err(h, hw)
     check(max(ey, eh) <= SSD_TOL[dn], f"ssd_scan at the model's shapes: "
                                       f"scaled error {ey}, {eh}")
+    accuracy = {"rel_l2": {"y": b3_rel_l2(y, yw), "state": b3_rel_l2(h, hw)}}
+    max_abs_err = max(max_abs(y, yw), max_abs(h, hw))
+    del y, h
+    if x.dtype == torch.bfloat16:
+        ctrl = {}
+        for bits in (7, B5_CONTROL_BITS):
+            yc, hc = b5_rounded_state(x, dt, A, Bm, Cm, bits)
+            ctrl[f"state_{bits}_bits"] = {"y": b3_rel_l2(yc, yw),
+                                          "state": b3_rel_l2(hc, hw)}
+            del yc, hc
+        accuracy["control_rel_l2"] = ctrl
+        accuracy["limit_rel_l2"] = B5_REL_L2_BF16
+        worst = max(accuracy["rel_l2"].values())
+        check(worst <= B5_REL_L2_BF16,
+              f"ssd_scan (bf16) at the model's shapes: relative L2 "
+              f"{accuracy['rel_l2']} > {B5_REL_L2_BF16}")
+        c3 = min(ctrl[f"state_{B5_CONTROL_BITS}_bits"].values())
+        check(c3 > B5_REL_L2_BF16,
+              f"the control (the state at {B5_CONTROL_BITS} mantissa bits) "
+              f"has relative L2 {c3} <= {B5_REL_L2_BF16}: the limit cannot "
+              f"see a rounding fault")
+        from repro_torch.kernels.ssd_scan import bf16_occupancy
+        occ = bf16_occupancy(P, N)
+        occ["blocks"] = Bz * H
+        occ["sms"] = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        occ["waves"] = -(-occ["blocks"] // (occ["blocks_per_sm"]
+                                            * occ["sms"]))
+        check(occ["waves"] == 1, f"ssd_scan_bf16_kernel at the model's "
+                                 f"shapes: not one wave of resident blocks "
+                                 f"({occ})")
+        accuracy["occupancy"] = occ
+    del yw, hw
     bound, by = b5_bound(Bz, S, H, P, G, N, x.dtype)
     run = lambda: ssd_scan(x, dt, A, Bm, Cm)  # noqa: E731
     return {"shape": {"x": list(x.shape), "B": list(Bm.shape),
                       "dtype": str(x.dtype)},
-            "max_abs_err": max(max_abs(y, yw), max_abs(h, hw)),
-            "scaled_err": max(ey, eh),
+            "max_abs_err": max_abs_err, "scaled_err": max(ey, eh),
+            **accuracy,
             "ms": event_ms(run, 20),
-            "device_us": kernel_device_us(run, "ssd_scan_kernel"),
+            "device_us": kernel_device_us(run, B5_KERNELS[dn]),
             "plain_ms": event_ms(lambda: ssd_scan_plain(x, dt, A, Bm, Cm),
                                  3, warmup=1),
             "library_ms": None,
@@ -1660,7 +1782,7 @@ def main() -> int:
     b5 = ssd_model_shapes(srv, prompts)
     emit("kernels_model_shapes", card=card, arch=SSM_ARCH, ssd_scan=b5)
     emit("profile_serve", **profile_serve(srv, prompts,
-                                          ("ssd_scan_kernel",)))
+                                          B5_KERNELS["bfloat16"]))
     del srv
     torch.cuda.empty_cache()
 
@@ -1723,9 +1845,13 @@ def main() -> int:
         "bound_by": b5["bound_by"], "library_ms": None,
         "library_note": b5["library_note"], "device_us": b5["device_us"],
         "shape": b5["shape"], "scaled_err_cases": ssd["scaled_err"],
+        "rel_l2": b5["rel_l2"], "control_rel_l2": b5["control_rel_l2"],
+        "occupancy": b5["occupancy"],
         "tolerance": "max |kernel - plain| / max |plain| <= 2e-3 (bf16 "
                      "inputs), 1e-4 (float32), y and state each; the "
-                     "strong-decay case against ref_ssd"})
+                     "strong-decay cases against ref_ssd; bf16 at the "
+                     f"model's inputs relative L2 <= {B5_REL_L2_BF16}, y "
+                     "and state each"})
     d = gm["cases"]["dense"]
     kernels.append({
         "name": "gated_matmul", "route": "cuda", "source": GM_SOURCE,

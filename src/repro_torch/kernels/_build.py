@@ -56,9 +56,15 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
 def _bind_ssd_scan(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ssd_scan_launch.argtypes = [
-        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
         ptr, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.ssd_scan_launch.restype = ctypes.c_int
+    lib.ssd_scan_bf16_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.ssd_scan_bf16_launch.restype = ctypes.c_int
+    lib.ssd_scan_bf16_occupancy.argtypes = [i32, i32, ptr]
+    lib.ssd_scan_bf16_occupancy.restype = ctypes.c_int
 
 
 def _bind_gated_matmul(lib: ctypes.CDLL) -> None:

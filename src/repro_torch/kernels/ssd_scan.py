@@ -3,19 +3,26 @@
 Replaces the Pallas TPU kernel ``src/repro/kernels/ssd_scan.py``
 (``_kernel`` / ``ssd_scan_p``, wrapper ``ops.ssd_scan``), which computes
 what the JAX model's ``blocks._ssd_chunk_scan`` computes at every SSD
-prefill. The kernel, its bound on the card and the reasons for its design
-are in ``csrc/ssd_scan.cu``; in short: one block per (head, batch) walks
-the chunks in order with the ``(P, N)`` state in shared memory from the
+prefill. The kernels, their bound on the card and the reasons for their
+design are in ``csrc/ssd_scan.cu``; in short: one block per (head, batch)
+walks the chunks in order with the ``(P, N)`` state on the chip from the
 first chunk to the last; it takes the model's ``(B, S, nh, hd)`` x and
 ``(B, S, G, N)`` B/C (not repeated to heads) through strides, any S (the
 ragged last chunk is masked), and writes the final state where the caller
 asks (the model: its cache's layer slice). Bound by bytes at the serving
-shape; its products run on the CUDA cores in float32 — right first.
+shape. bf16 runs on the tensor cores (``mma.sync``; C·Bᵀ computed once per
+(batch, chunk, group) by a first kernel into a float32 workspace; x, B, C
+loaded by TMA in a two-stage ring over the chunks; the state in
+registers; every float32 operand as a bf16 hi/lo pair); float32 runs true
+float32 FMAs on the CUDA cores.
 
-``ssd_scan`` launches the kernel for CUDA tensors and evaluates
+``ssd_scan`` launches the kernels for CUDA tensors and evaluates
 ``ssd_scan_plain`` for CPU tensors; nothing else selects between them,
-and a kernel that fails to build or launch raises.
-``ssd_scan.launches`` counts kernel launches.
+and a kernel that fails to build or launch raises. A bf16 x, B or C whose
+rows do not start on 16-byte boundaries (TMA's rule, see
+``flash_attention.rows_aligned``) is first copied densely.
+``ssd_scan.launches`` counts wrapper calls that launched (one a call: the
+bf16 route's two kernels count once).
 """
 from __future__ import annotations
 
@@ -26,8 +33,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import (for_kernel,
+                                                 kernel_strides)
 
-#: the kernel's own chunk length (``csrc/ssd_scan.cu``), also the plain
+#: the kernels' own chunk length (``csrc/ssd_scan.cu``), also the plain
 #: version's default
 CHUNK = 64
 HEAD_DIMS = (16, 32, 64)          # P
@@ -112,15 +121,39 @@ def _st(t: torch.Tensor, dims):
 
 
 def _launch(lib, x, dt, A, B, C, y, state, *, stream: int) -> int:
-    """One call of the C launcher; the arguments are already checked."""
+    """One call of the C launcher of x's type; the arguments are already
+    checked. bf16: x, B and C as TMA takes them (``for_kernel``), with
+    ``kernel_strides``, and a float32 workspace for C·Bᵀ."""
     Bz, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
-    return lib.ssd_scan_launch(
-        int(x.dtype == torch.bfloat16), x.data_ptr(), dt.data_ptr(),
-        A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
-        state.data_ptr(), Bz, S, H, G, P, N, _st(x, (0, 1, 2)),
-        _st(dt, (0, 1, 2)), _st(A, (0, 1)), _st(B, (0, 1, 2)),
-        _st(C, (0, 1, 2)), _st(state, (0, 1, 2)), stream)
+    common = (_st(dt, (0, 1, 2)), _st(A, (0, 1)))
+    if x.dtype != torch.bfloat16:
+        return lib.ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), state.data_ptr(), Bz, S, H, G, P, N,
+            _st(x, (0, 1, 2)), *common, _st(B, (0, 1, 2)),
+            _st(C, (0, 1, 2)), _st(state, (0, 1, 2)), stream)
+    x, B, C = (for_kernel(t) for t in (x, B, C))
+    cb = torch.empty((Bz, -(-S // CHUNK), G, CHUNK, CHUNK),
+                     dtype=torch.float32, device=x.device)
+    ks = [(ctypes.c_int64 * 3)(*kernel_strides(t)) for t in (x, B, C)]
+    return lib.ssd_scan_bf16_launch(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+        C.data_ptr(), y.data_ptr(), state.data_ptr(), cb.data_ptr(), Bz, S,
+        H, G, P, N, ks[0], *common, ks[1], ks[2], _st(state, (0, 1, 2)),
+        stream)
+
+
+def bf16_occupancy(P: int = 64, N: int = 128) -> dict:
+    """The bf16 scan kernel's residency at head dim ``P`` and state dim
+    ``N`` on the current CUDA device: blocks per SM (by the CUDA
+    occupancy calculator), registers a thread, static and dynamic shared
+    memory a block in bytes."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.load("ssd_scan").ssd_scan_bf16_occupancy(P, N, out),
+                 "ssd_scan_bf16_occupancy")
+    return dict(zip(("blocks_per_sm", "registers", "static_smem_bytes",
+                     "dynamic_smem_bytes"), out))
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -153,8 +186,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"head dim {P}, state dim {N}: the kernel is built "
                          f"for {HEAD_DIMS} x {STATE_DIMS}")
     if not all(t.stride(-1) == 1 for t in (x, B, C)):
-        # the kernel's global loads are scalar, so no alignment beyond the
-        # element's own is needed; only the last dim must be contiguous
+        # float32: the kernel's loads are scalar, so no alignment beyond
+        # the element's own is needed; bf16 rows that TMA cannot take are
+        # copied by _launch
         raise ValueError("x, B and C must have a contiguous last dim")
     y = torch.empty((Bz, S, H, P), dtype=torch.float32, device=dev)
     state = out_state if out_state is not None else torch.empty(

@@ -430,6 +430,67 @@ def test_ssd_scan_strong_decay_has_no_nan(card, S):
     assert _scaled(h[0], hr) <= 1e-4
 
 
+@pytest.mark.parametrize("S", [130, 255])
+def test_ssd_scan_bf16_strong_decay_has_no_nan(card, S):
+    """The strong-decay case in bf16 (x, B, C rounded to bf16 first; the
+    same values go to ``ref_ssd`` in float32): the tensor-core route folds
+    exp(cum_i - cum_j) dt_j into S and carries the state as hi/lo pairs,
+    and holds the float32 route's 1e-4."""
+    from repro_torch.kernels.ref import ref_ssd
+    x, dt, A, B, C = _ssd_inputs(card, torch.bfloat16, 1, 1, S, 2, 64, 1,
+                                 128)
+    dt = 10.0 + 0.1 * torch.rand(dt.shape, device=card)
+    A = torch.full_like(A, -16.0)
+    y, h = ssd_scan(x, dt, A, B, C)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    fold = lambda t: t.float().repeat_interleave(  # noqa: E731
+        2 // t.shape[2], dim=2).permute(0, 2, 1, 3).reshape(2, S, -1)
+    yr, hr = ref_ssd(fold(x), dt[0].T, A[0], fold(B), fold(C))
+    assert _scaled(y[0].permute(1, 0, 2), yr) <= 1e-4
+    assert _scaled(h[0], hr) <= 1e-4
+
+
+@pytest.mark.parametrize("Bz,S,H,P,G,N", [
+    (2, 64, 4, 64, 1, 128), (2, 128, 4, 64, 1, 128),
+    (2, 192, 4, 64, 1, 128), (1, 2049, 4, 64, 1, 128),
+    (2, 300, 8, 64, 2, 128), (2, 200, 8, 32, 1, 64), (2, 90, 4, 16, 2, 32),
+    (3, 65, 2, 64, 1, 16)])
+def test_ssd_scan_bf16_tiling_boundaries(card, Bz, S, H, P, G, N):
+    """The bf16 route at its tiling's edges: one, two and three whole
+    chunks (the two-stage ring filled, then refilled), 33 chunks with one
+    row in the last, two groups, the warps of p past P idle, N below one
+    TMA box. Its float32 operands go in as hi/lo pairs, so it holds the
+    float32 route's 1e-4."""
+    args = _ssd_inputs(card, torch.bfloat16, S + 1, Bz, S, H, P, G, N)
+    y, h = ssd_scan(*args)
+    yw, hw = ssd_scan_plain(*args)
+    assert _scaled(y, yw) <= 1e-4 and _scaled(h, hw) <= 1e-4
+
+
+def test_ssd_scan_bf16_unaligned_x_is_copied(card):
+    """An x that starts 2 bytes into its storage, rows 513 elements
+    apart: TMA cannot take it, the wrapper copies it, the kernel runs."""
+    x, dt, A, B, C = _ssd_inputs(card, torch.bfloat16, 5, 2, 130, 8, 64, 1,
+                                 128)
+    wide = torch.cat([x.flatten(2), x.flatten(2)[..., :1]], dim=2)
+    xo = wide[..., 1:].view(2, 130, 8, 64)
+    assert xo.data_ptr() % 16 != 0
+    before = ssd_scan.launches
+    y, h = ssd_scan(xo, dt, A, B, C)
+    assert ssd_scan.launches == before + 1
+    yw, hw = ssd_scan_plain(xo, dt, A, B, C)
+    assert _scaled(y, yw) <= 1e-4 and _scaled(h, hw) <= 1e-4
+
+
+def test_ssd_scan_bf16_one_wave_at_the_serving_shape(card):
+    """mamba2-780m's prefill launches 4 x 48 scan blocks: all resident at
+    once on the card's SMs."""
+    from repro_torch.kernels.ssd_scan import bf16_occupancy
+    occ = bf16_occupancy(64, 128)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert occ["blocks_per_sm"] * sms >= 4 * 48, occ
+
+
 def test_reduced_ssm_server_on_the_card(card):
     """The reduced mamba2-780m served on the card (head dim 16, state
     16): one B5 launch per layer at prefill, none at decode, and prefill

@@ -320,3 +320,81 @@ def test_wrapper_rejects_bad_arguments(bad):
         args = {k: v[:, :0] if v.dim() > 2 else v for k, v in args.items()}
     with pytest.raises(ValueError):
         ssd_scan(*args.values(), **kw)
+
+
+# ----------------------------------------- what the C launchers receive
+
+class _RecordingLib:
+    """Stands in for the built library: records each launcher's call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return 0
+        return call
+
+
+def _launch_args(dtype, odd_x=False):
+    """Inputs in the model's layout, B and C strided views of one (B, S,
+    2 G N) projection; with ``odd_x`` an x that starts 2 bytes into its
+    storage with a row stride of 513 elements."""
+    rng = np.random.default_rng(11)
+    Bz, S, H, P, G, N = 2, 70, 4, 16, 2, 16
+    xs = torch.tensor(rng.standard_normal((Bz, S, H * P + odd_x)),
+                      dtype=torch.float32).to(dtype)
+    x = xs[..., int(odd_x):].unflatten(2, (H, P))
+    dt = torch.tensor(rng.uniform(0.1, 1.0, (Bz, S, H)), dtype=torch.float32)
+    A = torch.tensor(-rng.uniform(0.5, 2.0, H), dtype=torch.float32)
+    bc = torch.tensor(rng.standard_normal((Bz, S, 2 * G * N)),
+                      dtype=torch.float32).to(dtype)
+    B, C = bc[..., :G * N].unflatten(2, (G, N)), \
+        bc[..., G * N:].unflatten(2, (G, N))
+    y = torch.empty((Bz, S, H, P))
+    state = torch.empty((Bz, H, P, N))
+    return x, dt, A.expand(Bz, H), B, C, y, state
+
+
+@pytest.mark.parametrize("odd_x", [False, True])
+def test_bf16_launch_hands_tma_ready_operands(odd_x):
+    """bf16 goes to ``ssd_scan_bf16_launch`` with x, B, C whose rows
+    start on 16-byte boundaries: B and C (and an aligned x) in place, an
+    x at an odd offset copied densely; their strides as
+    ``kernel_strides`` gives them, in 16-byte multiples; and a C·Bᵀ
+    workspace of its own."""
+    from repro_torch.kernels.ssd_scan import _launch
+    x, dt, A, B, C, y, state = _launch_args(torch.bfloat16, odd_x)
+    lib = _RecordingLib()
+    assert _launch(lib, x, dt, A, B, C, y, state, stream=7) == 0
+    (name, args), = lib.calls
+    assert name == "ssd_scan_bf16_launch"
+    xp, dtp, ap, bp, cp, yp, sp, cbp = args[:8]
+    assert (bp, cp, dtp, ap, yp, sp) == (
+        B.data_ptr(), C.data_ptr(), dt.data_ptr(), A.data_ptr(),
+        y.data_ptr(), state.data_ptr())
+    assert (xp == x.data_ptr()) is (not odd_x)
+    assert all(p % 16 == 0 for p in (xp, bp, cp, cbp))
+    assert cbp not in (xp, bp, cp, yp, sp)
+    assert args[8:14] == (2, 70, 4, 2, 16, 16)
+    xst, bst, cst = list(args[14]), list(args[17]), list(args[18])
+    assert xst == [70 * 64, 64, 16]
+    assert bst == cst == [70 * 64, 64, 16]
+    assert all(2 * s % 16 == 0 for s in xst + bst)
+    assert list(args[15]) == [70 * 4, 4, 1] and list(args[16]) == [0, 1]
+    assert list(args[19]) == list(state.stride()[:3]) and args[20] == 7
+
+
+def test_float32_launch_takes_the_tensors_in_place():
+    from repro_torch.kernels.ssd_scan import _launch
+    x, dt, A, B, C, y, state = _launch_args(torch.float32, odd_x=True)
+    lib = _RecordingLib()
+    _launch(lib, x, dt, A, B, C, y, state, stream=3)
+    (name, args), = lib.calls
+    assert name == "ssd_scan_launch"
+    assert args[:7] == tuple(t.data_ptr() for t in (x, dt, A, B, C, y,
+                                                     state))
+    assert args[7:13] == (2, 70, 4, 2, 16, 16)
+    assert list(args[13]) == [70 * 65, 65, 16]
+    assert args[-1] == 3

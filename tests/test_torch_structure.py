@@ -20,7 +20,8 @@ PKG = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 AB = ROOT / "chip_ab.py"
 K2_PROBE = ROOT / "chip_k2_readahead.py"
-PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE, AB, K2_PROBE]
+WINDOW_PROBE = ROOT / "chip_profiler_window.py"
+PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE, AB, K2_PROBE, WINDOW_PROBE]
 
 FOREIGN_IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)", re.MULTILINE)
@@ -142,7 +143,8 @@ CUDA_SOURCES = {
     "attention.cu": (("flash_attention_launch", "decode_attention_launch"),
                      ("src/repro/kernels/flash_attention.py",
                       "src/repro/kernels/decode_attention.py")),
-    "ssd_scan.cu": (("ssd_scan_launch",), ("src/repro/kernels/ssd_scan.py",)),
+    "ssd_scan.cu": (("ssd_scan_launch", "ssd_scan_bf16_launch"),
+                    ("src/repro/kernels/ssd_scan.py",)),
     "gated_matmul.cu": (("gated_matmul_launch",),
                         ("src/repro/kernels/gated_matmul.py",)),
 }
@@ -209,10 +211,23 @@ def _assert_binding_declares_every_argument(source, launcher, bind,
     assert getattr(fake, launcher).restype is ctypes.c_int
 
 
+SSD_LAUNCHERS = ("ssd_scan_launch", "ssd_scan_bf16_launch",
+                 "ssd_scan_bf16_occupancy")
+
+
 def test_ssd_binding_declares_every_argument():
     from repro_torch.kernels import _build
-    _assert_binding_declares_every_argument("ssd_scan.cu", "ssd_scan_launch",
-                                            _build._bind_ssd_scan)
+    _assert_binding_declares_every_argument(
+        "ssd_scan.cu", "ssd_scan_launch", _build._bind_ssd_scan,
+        others=SSD_LAUNCHERS[1:])
+
+
+@pytest.mark.parametrize("launcher", SSD_LAUNCHERS[1:])
+def test_ssd_bf16_binding_declares_every_argument(launcher):
+    from repro_torch.kernels import _build
+    _assert_binding_declares_every_argument(
+        "ssd_scan.cu", launcher, _build._bind_ssd_scan,
+        others=[n for n in SSD_LAUNCHERS if n != launcher])
 
 
 def test_gated_matmul_binding_declares_every_argument():
@@ -287,6 +302,7 @@ def test_profiled_kernel_names_are_defined(script):
         assert {"flash_attention_bf16_kernel", "flash_attention_kernel",
                 "decode_attention_kernel",
                 "decode_attention_combine_kernel", "ssd_scan_kernel",
+                "ssd_chunk_cb_kernel", "ssd_scan_bf16_kernel",
                 "gated_matmul_bf16_kernel",
                 "gated_matmul_f32_kernel"} <= looked_up
     assert looked_up <= _global_kernels(), looked_up - _global_kernels()
@@ -298,7 +314,7 @@ def test_bf16_kernels_share_the_tensor_core_header(tmp_path, monkeypatch):
     from repro_torch.kernels import _build
     csrc = PKG / "kernels" / "csrc"
     header = csrc / "mma_bf16.cuh"
-    for source in ("attention.cu", "gated_matmul.cu"):
+    for source in ("attention.cu", "gated_matmul.cu", "ssd_scan.cu"):
         cu = (csrc / source).read_text()
         assert '#include "mma_bf16.cuh"' in cu
         assert "asm" not in cu  # every PTX instruction is in the header
