@@ -23,6 +23,14 @@ path, read just after) that each path really went through its kernels:
   11 008), bf16 dense and with the paper's N-, K- and both-underutilized
   zero patterns, and float32 dense; the count of executed tiles is held
   exactly to what the zero pattern leaves;
+* the program plane, ``repro_torch.core.sweep.sweep_program_plane`` →
+  ``program_plane.program_plane_batch`` (the lowered, setpm-instrumented
+  programs through kernel B7 ``program_exec``, one launch a call, and the
+  ReGate-Full policy side through ``evaluate_batch``, K1 and K2): the
+  paper suite × NPU-B, NPU-D × 8 knobs on the card against the CPU
+  (272 records, bit for bit), and at full width the paper suite × all
+  five NPUs × 6 delay × 3 window scales (1 530 executor rows, up to
+  3 280 events each), with B7 held to its plain version;
 * serving qwen2.5-3b at full width (36 layers, d_model 2048, vocab
   151 936; random weights from a seed), ``repro_torch.launch.serve.
   Server`` → ``prefill_prompts`` / ``step`` (kernels B3
@@ -108,6 +116,23 @@ K1_SOURCE = "src/repro_torch/kernels/csrc/power_plane.cu"
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
 GM_SOURCE = "src/repro_torch/kernels/csrc/gated_matmul.cu"
+PP_SOURCE = "src/repro_torch/kernels/csrc/program_plane.cu"
+# the program plane's card-vs-CPU grid, benchmarks/perf_program_plane.py's:
+# 4 BET/window points x 2 leak points on NPU-B and NPU-D (272 records)
+PP_RECORD_NPUS = ("NPU-B", "NPU-D")
+PP_RECORD_GRID = dict(delay_scale=(1.0, 4.0), window_scale=(1.0, 0.5),
+                      leak_off_logic=(None, 0.1))
+# the program plane at full width: every NPU x the §6.5 delay axis x the
+# detection-window axis at the native SA width (18 unique triples, 1 530
+# executor rows for the 17 workloads)
+PP_FULL_GRID = dict(delay_scale=(0.25, 0.5, 1.0, 2.0, 4.0, 8.0),
+                    window_scale=(0.5, 1.0, 2.0))
+# one event of the packed stack: its cycle (8 bytes), four issue
+# latencies (32) and four setpm codes (4); per row: delay, window, mode0
+# (3 x 4 x 8), horizon and the row's extent (16) in, cycles, stalls,
+# setpm (24) and on, gated, wakes (3 x 4 x 8) out
+B7_EVENT_BYTES = 44
+B7_ROW_BYTES = 3 * 4 * 8 + 16 + 24 + 3 * 4 * 8
 SERVE_ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-780m"
 # per served arch: the published widths (layers, d_model, vocab), the
@@ -1184,6 +1209,198 @@ def evaluate_all_phase(card: str, suite) -> dict:
             "tolerance_rel": EVAL_ALL_RTOL}
 
 
+def program_plane_records(card: str, suite) -> dict:
+    """``sweep_program_plane`` on the card (B7 once a call, K1 and K2 for
+    the policy side) against the same call on the CPU (B7's plain
+    version): the same 272 records in the same order, every field bit
+    for bit — the executor's integers and the host folds exactly, the
+    policy side as the sweep's own card-vs-CPU records — and a second
+    card call bit-identical to the first."""
+    from repro_torch.core.policies import KnobGrid
+    from repro_torch.core.sweep import sweep_program_plane
+    grid = KnobGrid(**PP_RECORD_GRID)
+    reset_launches()
+    t0 = time.perf_counter()
+    on_card = sweep_program_plane(suite, PP_RECORD_NPUS, grid)
+    wall_card = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches["program_exec"] == 1 and launches["sa_occupancy"] > 0
+          and launches["segment_sum"] > 0
+          and all(v == 0 for k, v in launches.items() if k not in
+                  ("program_exec", "sa_occupancy", "segment_sum")),
+          f"sweep_program_plane launched {launches}")
+    again = sweep_program_plane(suite, PP_RECORD_NPUS, grid)
+    t0 = time.perf_counter()
+    on_cpu = sweep_program_plane(suite, PP_RECORD_NPUS, grid, device="cpu")
+    wall_cpu = time.perf_counter() - t0
+    n = len(suite) * len(PP_RECORD_NPUS) * len(grid.product())
+    check(len(on_card) == len(on_cpu) == len(again) == n,
+          f"program plane record count {len(on_card)}, want {n}")
+    exact = ("prog_", "n_events", "stall_", "wakes_prog", "setpm_prog")
+    worst, n_fields = 0.0, 0
+    for a, b, c in zip(on_cpu, on_card, again):
+        check(list(a) == list(b) == list(c), "program plane record fields")
+        for k, va in a.items():
+            if k.startswith(exact):
+                check(type(va) is type(b[k]) and va == b[k],
+                      f"program plane executor field {k}: card {b[k]!r} "
+                      f"vs CPU {va!r}")
+            elif isinstance(va, float):
+                worst = max(worst, abs(va - b[k])
+                            / max(1e-30, abs(va), abs(b[k])))
+            n_fields += 1
+        check(a == b, f"program plane record {a['workload']}/{a['npu']}/"
+                      f"{a['knob_idx']}: card differs from the CPU")
+        check(b == c, f"program plane record {b['workload']}/{b['npu']}/"
+                      f"{b['knob_idx']}: a second card call differs")
+    return {"card": card, "records": n, "fields_compared": n_fields,
+            "npus": list(PP_RECORD_NPUS), "knobs": len(grid.product()),
+            "launches": launches, "max_rel_err": worst,
+            "bit_identical_to_cpu": True, "bit_identical_rerun": True,
+            "wall_s_card": wall_card, "wall_s_cpu": wall_cpu}
+
+
+def sm_clock_max_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def program_plane_full(card: str, suite) -> dict:
+    """The program plane at full width: ``sweep_program_plane`` over the
+    paper suite x every NPU x ``PP_FULL_GRID`` from cold caches, with
+    its launches (B7 exactly once) and its wall split into the host
+    preparation (lowering; instrumentation and event streams; dense
+    packing), the executor call (``_run_kernel``: the stack to the card,
+    B7, the outputs back) and the rest (the closed-form folds, the
+    policy side through ``evaluate_batch``, the records), each timed
+    inside that one call. Then B7 on the stack that call packed: held
+    ``torch.equal`` to its plain version on the CPU and on the card,
+    timed by CUDA events and by its device time."""
+    import numpy as np
+    import torch
+    from repro_torch.core import lowering
+    from repro_torch.core import program_plane as pp
+    from repro_torch.core.hw import NPUS
+    from repro_torch.core.policies import KnobGrid
+    from repro_torch.core.sweep import sweep_program_plane
+    from repro_torch.kernels.program_exec import (program_exec,
+                                                  program_exec_plain,
+                                                  row_extent)
+
+    grid = KnobGrid(**PP_FULL_GRID)
+    spent, packed = {}, []
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[name] = time.perf_counter() - t
+            if name == "pack_s":
+                packed.append(out)
+            return out
+        return run
+
+    steps = {"lowering_s": pp._plane_rows,
+             "instrument_and_streams_s": pp.build_program_arrays,
+             "pack_s": pp._pack_dense, "executor_s": pp._run_kernel}
+    lowering._LOWER_CACHE.clear()
+    lowering._INSTR_CACHE.clear()
+    pp._STREAM_CACHE.clear()
+    try:
+        for name, fn in steps.items():
+            setattr(pp, fn.__name__, timed(name, fn))
+        reset_launches()
+        t0 = time.perf_counter()
+        recs = sweep_program_plane(suite, tuple(NPUS), grid)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        for fn in steps.values():
+            setattr(pp, fn.__name__, fn)
+    check(launches["program_exec"] == 1,
+          f"sweep_program_plane launched program_exec "
+          f"{launches['program_exec']} times, want 1")
+    check(launches["sa_occupancy"] > 0 and launches["segment_sum"] > 0,
+          f"sweep_program_plane's policy side launched {launches}")
+    n = len(suite) * len(NPUS) * len(grid.product())
+    check(len(recs) == n, f"{len(recs)} records, want {n}")
+    for r in recs:
+        check(r["prog_cycles"] > 0 and all(
+            np.isfinite(v) for v in r.values() if isinstance(v, float)),
+            f"record {r['workload']}/{r['npu']}: non-finite or empty")
+        check(all(0.0 <= r[f"gated_frac_prog_{c}"] <= 1.0
+                  for c in ("sa", "vu", "hbm", "ici", "sram")),
+              f"record {r['workload']}/{r['npu']}: gated fraction out of "
+              f"[0, 1]")
+    host = packed[0]
+    cpu = {k: torch.from_numpy(v) for k, v in host.items()}
+    on_card = {k: v.to("cuda") for k, v in cpu.items()}
+    e_max, rows = host["cycle"].shape
+    got = program_exec(on_card)
+    again = program_exec(on_card)
+    t0 = time.perf_counter()
+    want = program_exec_plain(cpu)
+    plain_cpu_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_card = program_exec_plain(on_card)
+    torch.cuda.synchronize()
+    plain_card_s = time.perf_counter() - t0
+    err = 0
+    for k, v in want.items():
+        check(got[k].shape == v.shape and got[k].dtype == torch.int64,
+              f"program_exec[{k}]: shape/dtype {tuple(got[k].shape)} "
+              f"{got[k].dtype}")
+        err = max(err, int((got[k].cpu() - v).abs().max()) if v.numel()
+                  else 0)
+        check(torch.equal(got[k].cpu(), v),
+              f"program_exec[{k}] differs from its plain version on the CPU")
+        check(torch.equal(got[k], want_card[k]),
+              f"program_exec[{k}] differs from its plain version on the "
+              f"card")
+        check(torch.equal(got[k], again[k]),
+              f"program_exec[{k}]: two calls differ")
+    ms = event_ms(lambda: program_exec(on_card), 20, warmup=2)
+    device_us = kernel_device_us(lambda: program_exec(on_card),
+                                 "program_exec_kernel")
+    real = int((host["cycle"] >= 0).sum())
+    chain = int(row_extent(on_card["cycle"]).max()) if rows else 0
+    bytes_ = B7_EVENT_BYTES * real + B7_ROW_BYTES * rows
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    clock = sm_clock_max_hz()
+    chain_ms = chain / clock * 1e3
+    del on_card, got, again, want_card
+    torch.cuda.empty_cache()
+    prep = sum(spent[k] for k in ("lowering_s", "instrument_and_streams_s",
+                                  "pack_s"))
+    return {"card": card, "workloads": len(suite), "npus": len(NPUS),
+            "knobs": len(grid.product()), "rows": rows, "E": e_max,
+            "U": host["lat"].shape[2], "real_events": real,
+            "stack_bytes": int(sum(v.nbytes for v in host.values())),
+            "records": n, "launches": launches,
+            "wall_s_sweep_program_plane": wall, "host_prep_s": prep,
+            "executor_s": spent["executor_s"],
+            "rest_s": wall - prep - spent["executor_s"],
+            "split_s": spent, "host_prep_share": prep / wall,
+            "kernel_ms": ms, "kernel_device_us": device_us,
+            "kernel_share_of_wall": device_us * 1e-6 / wall,
+            "plain_ms_cpu": plain_cpu_s * 1e3,
+            "plain_ms_card": plain_card_s * 1e3,
+            "max_abs_err": err, "bytes": bytes_, "bytes_bound_ms": bytes_ms,
+            "chain_steps": chain, "sm_clock_max_hz": clock,
+            "chain_bound_ms": chain_ms,
+            "bound_ms": max(bytes_ms, chain_ms),
+            "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
+            "tolerance": "torch.equal with the plain version on the CPU "
+                         "and on the card, every row; bit-identical on a "
+                         "second call"}
+
+
 def rel_l2(got, want):
     """Per row ||got - want|| / ||want|| over the last axis, float32."""
     d = (got.float() - want.float()).norm(dim=-1)
@@ -1194,13 +1411,14 @@ def _wrappers() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gated_matmul import gated_matmul_p
+    from repro_torch.kernels.program_exec import program_exec
     from repro_torch.kernels.sa_occupancy import sa_occupancy
     from repro_torch.kernels.segment_sum import segment_sum
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {"sa_occupancy": sa_occupancy, "segment_sum": segment_sum,
             "flash_attention": flash_attention,
             "decode_attention": decode_attention, "ssd_scan": ssd_scan,
-            "gated_matmul": gated_matmul_p}
+            "gated_matmul": gated_matmul_p, "program_exec": program_exec}
 
 
 def reset_launches() -> None:
@@ -1758,7 +1976,12 @@ def main() -> int:
     # ---- 5b. evaluate_all: the policy engine's batched entry -------------
     emit("evaluate_all", **evaluate_all_phase(card, suite))
 
-    # ---- 5c. gated_matmul_full: kernel B2 at qwen2.5-3b's width ----------
+    # ---- 5c. the program plane: B7 with the policy side ------------------
+    emit("program_plane_records", **program_plane_records(card, suite))
+    ppf = program_plane_full(card, suite)
+    emit("program_plane_full", **ppf)
+
+    # ---- 5d. gated_matmul_full: kernel B2 at qwen2.5-3b's width ----------
     gm = gated_matmul_full(card)
     emit("gated_matmul_full", **gm)
     torch.cuda.empty_cache()
@@ -1871,6 +2094,20 @@ def main() -> int:
         "tolerance": "allclose with the plain version on the card: atol = "
                      "tol * max|plain| + 1e-5, rtol = tol, tol 2e-2 (bf16), "
                      "1e-4 (float32); tiles_run exact"})
+    kernels.append({
+        "name": "program_exec", "route": "cuda", "source": PP_SOURCE,
+        "replaces": "src/repro/core/backend.py:218",
+        "launches": ppf["launches"]["program_exec"],
+        "max_abs_err": ppf["max_abs_err"], "ms": ppf["kernel_ms"],
+        "device_us": ppf["kernel_device_us"],
+        "plain_ms": ppf["plain_ms_card"],
+        "plain_ms_cpu": ppf["plain_ms_cpu"], "bound_ms": ppf["bound_ms"],
+        "bound_by": ppf["bound_by"], "bytes_bound_ms": ppf["bytes_bound_ms"],
+        "chain_bound_ms": ppf["chain_bound_ms"], "library_ms": None,
+        "library_note": "none exists: no PyTorch call runs the event "
+                        "executor",
+        "shape": {k: ppf[k] for k in ("E", "rows", "U", "real_events")},
+        "tolerance": ppf["tolerance"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,19 @@ backend        — the float64 tensor substrate; on a CUDA device its
                  occupancy pass and segmented sums are the hand-written
                  kernels of ``repro_torch.kernels``
 session        — ``SweepSession``: the device a sweep runs on
+isa/passes     — setpm ISA extension, the cycle-stepper and event-driven
+                 executors, and the compiler passes (Figs 14-15, §4.3)
+lowering       — workload traces lowered onto per-unit cycle timelines,
+                 the SRAM segment-band analysis, the per-cell oracle
+program_plane  — the batched program plane: every lowered, instrumented
+                 program in one call of the event executor (kernel B7
+                 on a CUDA device)
+carbon         — operational/embodied carbon (Figs 24-25)
+slo            — SLO-constrained config sweep (Fig 2) and the re-tune rule
+ici_topology   — ring / 2-D-mesh collective schedules lowered onto the
+                 op-level trace (per-step ICI busy/idle timelines)
+perturb        — seeded fault injection + adversarial perturbation
+                 (jitter plane) and the ISA differential fuzz harness
 """
 from repro_torch.core.backend import get_backend
 from repro_torch.core.hw import NPUS, get_npu
@@ -21,9 +34,11 @@ from repro_torch.core.opgen import compile_trace, stack_traces
 from repro_torch.core.policies import POLICIES, evaluate, evaluate_all, \
     evaluate_batch, evaluate_reference, savings_vs_nopg
 from repro_torch.core.sweep import knob_product, sweep, sweep_grid, \
-    sweep_reference
+    sweep_program_plane, sweep_program_plane_reference, sweep_reference, \
+    sweep_robustness
 
 __all__ = ["NPUS", "get_npu", "POLICIES", "compile_trace", "stack_traces",
            "evaluate", "evaluate_all", "evaluate_batch",
            "evaluate_reference", "savings_vs_nopg", "sweep", "sweep_grid",
-           "sweep_reference", "knob_product", "get_backend"]
+           "sweep_reference", "sweep_robustness", "sweep_program_plane",
+           "sweep_program_plane_reference", "knob_product", "get_backend"]

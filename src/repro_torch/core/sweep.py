@@ -14,6 +14,13 @@ host as the oracle: same records, same order, ≤1e-9 relative.
 gated leakage ratios, SRAM sleep/off leakage, SA width, detection
 window) into a single fine-grid ``evaluate_batch`` call.
 
+``sweep_robustness`` crosses idle-detection thresholds against seeded
+trace perturbations (the jitter plane); ``sweep_program_plane`` runs
+the software-managed program plane (the lowered, ``setpm``-instrumented
+programs through the batched event executor) against the closed-form
+``ReGate-Full`` policy, with ``sweep_program_plane_reference`` as its
+per-cell oracle.
+
 Every entry point takes ``device=None``: ``None`` resolves through the
 active ``SweepSession`` and otherwise means ``"cuda"``.
 
@@ -23,6 +30,8 @@ then policy, then knob index.
 from __future__ import annotations
 
 from typing import Iterable, Optional, Sequence
+
+import numpy as np
 
 from repro_torch.core.hw import NPUSpec, get_npu
 from repro_torch.core.opgen import Workload, compile_trace
@@ -171,6 +180,199 @@ def sweep_grid(workloads: Sequence[Workload] | Workload,
     res: BatchResult = evaluate_batch(
         workloads, npu_specs, tuple(policies), grid, device=device)
     return res.records() if as_records else res
+
+
+def sweep_robustness(workloads: Sequence[Workload] | Workload,
+                     npus: Iterable[NPUSpec | str] = ("NPU-D",),
+                     policies: Iterable[str] = ("ReGate-HW",), *,
+                     severities: Sequence[float] = (0.0, 0.5, 1.0),
+                     threshold_scales: Sequence[float] =
+                     (0.25, 0.5, 1.0, 2.0, 4.0),
+                     seed: int = 0, slo_relax: float = 1.1,
+                     topology: bool = True, device=None) -> dict:
+    """Idle-detection robustness sweep (jitter plane).
+
+    Crosses HW idle-detection thresholds (``threshold_scales``, the
+    ``window_scale`` knob — it scales ONLY the idle-detection window,
+    the paper's BET/3 design point, leaving BETs and wake delays at
+    their Table 3 values, so aggressive and conservative detection
+    genuinely trade off and a clean-tuned threshold can regret under
+    jitter) against perturbation severities (``perturb.severity_plan``
+    applied with deterministic per-(severity, workload) generators seeded
+    from ``seed``) in ONE ``sweep_grid``-style ``evaluate_batch`` pass:
+    every (severity x workload) variant is stacked into the super-trace,
+    with ``topology=True`` first lowering collectives onto their ring /
+    2-D-mesh step schedules (``ici_topology``). ``device`` is where
+    the one ``evaluate_batch`` pass runs (``None``: the session's).
+
+    Reports, per (npu, policy, severity):
+
+    * ``worst_exposed_wake_s`` — worst over workloads of the exposed-wake
+      overhead (runtime minus the same cell's NoPG runtime) at the
+      *deployed* threshold, i.e. the one that minimizes clean-trace
+      energy per workload; ``worst_exposed_wake_any_s`` maxes over the
+      whole threshold axis too.
+    * ``slo_violation_rate`` — via ``slo.runtime_violation_rate``:
+      fraction of workloads whose perturbed runtime at the deployed
+      threshold exceeds ``slo_relax`` x its clean runtime.
+    * ``max_regret_frac`` / ``mean_regret_frac`` — *SLO-constrained
+      energy regret* of the clean-tuned threshold under jitter. Total
+      energy is monotone in the detection window (per-PE SA gating has
+      a 1-cycle wake, so a smaller window always saves energy), which
+      pins the clean optimum at the most aggressive threshold; what
+      jitter breaks is its *runtime*: fragmented idle makes the
+      aggressive window gate every shard of an interval and pay the
+      exposed wake delay each time. So regret is measured over the
+      SLO-feasible set: if the deployed threshold still meets
+      ``slo_relax`` x its clean runtime it is kept (regret relative to
+      the unconstrained per-severity optimum — 0 when they coincide);
+      once jitter pushes it past the SLO the operator must re-tune to
+      the cheapest *feasible* threshold (or the least-violating one if
+      none is feasible), and the regret is that configuration's energy
+      over the unconstrained optimum — the energy given up to stay
+      within SLO. Severity 0 has zero regret by construction.
+
+    Returns ``{"records", "summary", "severities", "threshold_scales"}``
+    where ``records`` has one dict per (workload, npu, policy, severity,
+    threshold) cell.
+    """
+    from repro_torch.core.ici_topology import lower_collectives
+    from repro_torch.core.perturb import perturb_suite, severity_plan
+    from repro_torch.core.slo import retune_knobs, runtime_violation_rate
+    if isinstance(workloads, Workload):
+        workloads = [workloads]
+    workloads = list(workloads)
+    severities = [float(s) for s in severities]
+    threshold_scales = [float(t) for t in threshold_scales]
+    if any(t <= 0 or not np.isfinite(t) for t in threshold_scales):
+        raise ValueError(
+            f"threshold_scales must be finite and > 0: {threshold_scales}")
+    base = [lower_collectives(wl) if topology else wl for wl in workloads]
+    w_n, s_n, t_n = len(base), len(severities), len(threshold_scales)
+    pol_in = tuple(policies)
+    pols = pol_in if "NoPG" in pol_in else pol_in + ("NoPG",)
+    npu_specs = [get_npu(n) if isinstance(n, str) else n for n in npus]
+
+    variants: list[Workload] = []
+    for si, sev in enumerate(severities):
+        variants.extend(perturb_suite(
+            base, severity_plan(sev), seed=seed, stream=si,
+            names=[f"{wl.name}@s{si}" for wl in base]))
+    thr_grid = KnobGrid(window_scale=threshold_scales)
+    res: BatchResult = evaluate_batch(
+        variants, npu_specs, pols, thr_grid, device=device)
+    thr_knobs = thr_grid.product()
+
+    rt = res.runtime_s                       # (S*W, A, P, T)
+    tot = np.zeros_like(rt)
+    for c in COMPONENTS:
+        tot += res.static_j[c] + res.dynamic_j[c]
+    nopg_pi = pols.index("NoPG")
+    exposed = np.maximum(0.0, rt - rt[:, :, nopg_pi:nopg_pi + 1, :])
+
+    records: list[dict] = []
+    summary: list[dict] = []
+    for ai, npu in enumerate(npu_specs):
+        for pi, policy in enumerate(pol_in):
+            # deployed threshold: clean-trace (severity index 0) optimum
+            kstar = np.argmin(tot[:w_n, ai, pi, :], axis=1)   # (W,)
+            wi_ix = np.arange(w_n)
+            for si, sev in enumerate(severities):
+                rows = slice(si * w_n, (si + 1) * w_n)
+                e_s = tot[rows, ai, pi, :]                     # (W, T)
+                r_s = rt[rows, ai, pi, :]
+                x_s = exposed[rows, ai, pi, :]
+                opt = e_s.min(axis=1)
+                # SLO-feasible set per workload: perturbed runtime vs
+                # the SAME threshold's clean runtime
+                r_clean = rt[:w_n, ai, pi, :]                  # (W, T)
+                # chosen threshold: the deployed one while feasible;
+                # past the SLO, the cheapest feasible (or the
+                # least-violating when nothing is feasible) — the
+                # shared operator rule (slo.retune_knobs, also the
+                # fleet governor)
+                kchos = retune_knobs(e_s, r_s, slo_relax * r_clean,
+                                     deployed=kstar)
+                regret = e_s[wi_ix, kchos] - opt
+                regret_frac = regret / np.maximum(opt, 1e-300)
+                viol = runtime_violation_rate(
+                    r_s[wi_ix, kstar],
+                    r_clean[wi_ix, kstar], slo_relax)
+                summary.append({
+                    "npu": npu.name, "policy": policy,
+                    "severity": sev,
+                    "worst_exposed_wake_s":
+                        float(x_s[wi_ix, kstar].max(initial=0.0)),
+                    "worst_exposed_wake_any_s":
+                        float(x_s.max(initial=0.0)),
+                    "slo_violation_rate": viol,
+                    "max_regret_frac":
+                        float(regret_frac.max(initial=0.0)),
+                    "mean_regret_frac":
+                        float(regret_frac.mean()) if w_n else 0.0,
+                })
+                for wi, wl in enumerate(workloads):
+                    for ki, ts in enumerate(threshold_scales):
+                        records.append({
+                            "workload": wl.name, "npu": npu.name,
+                            "policy": policy, "severity": sev,
+                            # full knob columns (knob_idx + every
+                            # KnobGrid axis) so these records feed
+                            # with_savings/group_by like any sweep's
+                            **knob_columns(thr_knobs[ki], ki),
+                            "runtime_s": float(r_s[wi, ki]),
+                            "total_j": float(e_s[wi, ki]),
+                            "exposed_wake_s": float(x_s[wi, ki]),
+                            "deployed": bool(ki == kstar[wi]),
+                            "chosen": bool(ki == kchos[wi]),
+                        })
+    return {"records": records, "summary": summary,
+            "severities": severities,
+            "threshold_scales": threshold_scales}
+
+
+def sweep_program_plane(workloads: Sequence[Workload] | Workload,
+                        npus: Iterable[NPUSpec | str] = ("NPU-D",),
+                        knob_grid=None, *, device=None) -> list[dict]:
+    """Cross-validation sweep over the batched program plane: lower
+    every (workload, npu) cell, place the §4.3 ``setpm``
+    instrumentation once per unique delay scale, and execute ALL cells
+    in one call of the ``repro_torch.core.program_plane`` executor (on a
+    CUDA device, one launch of kernel B7). One flat record per
+    (workload, npu, knob) cell compares gated-cycle fractions and setpm
+    counts against the closed-form ``ReGate-Full`` evaluation
+    (``evaluate_batch`` on the same device); every ``KnobGrid`` column
+    is emitted unconditionally. Record order is workload-major, then
+    NPU, then knob index (the ``sweep_grid`` convention).
+
+    ``knob_grid`` accepts a ``KnobGrid`` (crossed), a flat sequence of
+    ``PolicyKnobs``, or ``None`` (the single default point). ``device``
+    resolves like ``sweep_grid``'s; cell for cell the records match the
+    per-cell oracle (``sweep_program_plane_reference``) to ≤1e-9
+    relative, executor integers exactly."""
+    from repro_torch.core.policies import as_knob_tuple
+    from repro_torch.core.program_plane import program_plane_batch
+    return program_plane_batch(workloads, npus, as_knob_tuple(knob_grid),
+                               device=device).records()
+
+
+def sweep_program_plane_reference(workloads: Sequence[Workload] | Workload,
+                                  npus: Iterable[NPUSpec | str]
+                                  = ("NPU-D",),
+                                  knob_grid=None) -> list[dict]:
+    """The per-cell host oracle for ``sweep_program_plane``: one
+    ``lowering.crossval_record`` (event-driven ``EventTimeline`` +
+    closed-form ``evaluate``) per (workload, npu, knob) cell, same
+    record order. It runs on the host whatever the session's device."""
+    from repro_torch.core.lowering import crossval_record
+    from repro_torch.core.policies import as_knob_tuple
+    if isinstance(workloads, Workload):
+        workloads = [workloads]
+    npu_specs = [get_npu(n) if isinstance(n, str) else n for n in npus]
+    grid = as_knob_tuple(knob_grid)
+    return [crossval_record(wl, npu, knobs=kn, knob_idx=ki)
+            for wl in workloads for npu in npu_specs
+            for ki, kn in enumerate(grid)]
 
 
 def with_savings(records: list[dict], baseline: str = "NoPG") -> list[dict]:

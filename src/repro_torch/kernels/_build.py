@@ -74,6 +74,14 @@ def _bind_gated_matmul(lib: ctypes.CDLL) -> None:
     lib.gated_matmul_launch.restype = ctypes.c_int
 
 
+def _bind_program_plane(lib: ctypes.CDLL) -> None:
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.program_exec_launch.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.program_exec_launch.restype = ctypes.c_int
+
+
 @dataclass(frozen=True)
 class Library:
     source: Path
@@ -94,6 +102,9 @@ LIBRARIES = {
     "ssd_scan": Library(CSRC / "ssd_scan.cu", COMMON_FLAGS, _bind_ssd_scan),
     "gated_matmul": Library(CSRC / "gated_matmul.cu", COMMON_FLAGS,
                             _bind_gated_matmul),
+    # integers only: nothing for -fmad to change
+    "program_plane": Library(CSRC / "program_plane.cu", COMMON_FLAGS,
+                             _bind_program_plane),
 }
 
 _LOCK = threading.Lock()

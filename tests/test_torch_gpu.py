@@ -15,7 +15,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import isa as pp_isa  # noqa: E402
 from repro_torch.core import opgen  # noqa: E402
+from repro_torch.core import program_plane as pp  # noqa: E402
 from repro_torch.core.policies import POLICIES, KnobGrid  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain)
@@ -26,6 +28,8 @@ from repro_torch.kernels.sa_occupancy import (sa_occupancy,  # noqa: E402
 from repro_torch.kernels.segment_sum import (segment_sum,  # noqa: E402
                                              segment_sum_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa
+
+from _torch_programs import pack_programs, seeded_programs  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -669,3 +673,73 @@ def test_evaluate_all_on_the_card_matches_evaluate(card):
                     1e-30, abs(v), abs(getattr(got, f)[c])), (p, f, c)
         assert abs(got.runtime_s - want.runtime_s) \
             <= 1e-9 * want.runtime_s, p
+
+
+# ------------------------------------------------------------------- B7
+def _b7_stack(rows, horizons, scales) -> dict:
+    return {k: torch.from_numpy(v) for k, v in
+            pack_programs(pp, pp_isa, rows, horizons, scales).items()}
+
+
+def _b7_check(card, data: dict) -> dict:
+    from repro_torch.kernels.program_exec import (program_exec,
+                                                  program_exec_plain)
+    before = program_exec.launches
+    got = program_exec({k: v.to(card) for k, v in data.items()})
+    assert program_exec.launches == before + 1
+    want = program_exec_plain(data)
+    for k, v in want.items():
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k].cpu(), v), k
+    return want
+
+
+B7_SCALES = [(1.0, 1.0), (0.25, 1.0), (4.0, 1.0), (1.0, 0.25), (1.0, 4.0),
+             (2.0, 0.5)]
+
+
+@pytest.mark.parametrize("scale", B7_SCALES,
+                         ids=lambda s: f"d{s[0]}-w{s[1]}")
+def test_program_exec_kernel_equals_plain_on_seeded_programs(card, scale):
+    rows, horizons = seeded_programs(pp_isa, 10, 24)
+    _b7_check(card, _b7_stack(rows, horizons, [scale] * 24))
+
+
+def test_program_exec_kernel_inert_and_padded_rows(card):
+    """Padding events inside and after a row, and inert rows (horizon 0,
+    no events) appended to the stack."""
+    rows, horizons = seeded_programs(pp_isa, 3, 6)
+    data = _b7_stack(rows, horizons, B7_SCALES)
+    for k in ("cycle", "lat", "pm"):
+        v = data[k]
+        hole = torch.full((3,) + v.shape[1:], -1 if k == "cycle" else 7,
+                          dtype=v.dtype)
+        v = torch.cat([v[:4], hole, v[4:], hole])
+        data[k] = torch.cat([v, torch.full(
+            (v.shape[0], 2) + v.shape[2:], -1 if k == "cycle" else 0,
+            dtype=v.dtype)], dim=1)
+    for k in ("delay", "window", "mode0", "horizon"):
+        v = data[k]
+        data[k] = torch.cat([v, torch.zeros((2,) + v.shape[1:],
+                                            dtype=v.dtype)])
+    want = _b7_check(card, data)
+    assert not any(v[6:].any() for v in want.values())
+
+
+def test_program_exec_kernel_ragged_stack(card):
+    """One row of 1 event beside one of thousands, and rows between."""
+    rows, horizons = seeded_programs(pp_isa, 11, 5,
+                                     n_events=[1, 3000, 17, 1, 640])
+    _b7_check(card, _b7_stack(rows, horizons, B7_SCALES[:5]))
+
+
+def test_program_plane_records_on_the_card_equal_cpu(card):
+    from repro_torch.kernels.program_exec import program_exec
+    sw = importlib.import_module("repro_torch.core.sweep")
+    grid = KnobGrid(delay_scale=(1.0, 4.0), window_scale=(1.0, 0.5))
+    wls = opgen.paper_suite()[8:14]
+    before = program_exec.launches
+    got = sw.sweep_program_plane(wls, ("NPU-B", "NPU-D"), grid)
+    assert program_exec.launches == before + 1
+    assert got == sw.sweep_program_plane(wls, ("NPU-B", "NPU-D"), grid,
+                                         device="cpu")

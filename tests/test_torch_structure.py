@@ -36,7 +36,12 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.configs.base",
            "repro_torch.core.power", "repro_torch.core.opgen",
            "repro_torch.core.sa_gating", "repro_torch.core.session",
            "repro_torch.core.backend", "repro_torch.core.policies",
-           "repro_torch.core.sweep", "repro_torch.kernels._build",
+           "repro_torch.core.sweep", "repro_torch.core.isa",
+           "repro_torch.core.passes", "repro_torch.core.lowering",
+           "repro_torch.core.program_plane", "repro_torch.core.perturb",
+           "repro_torch.core.ici_topology", "repro_torch.core.carbon",
+           "repro_torch.core.slo", "repro_torch.kernels.program_exec",
+           "repro_torch.kernels._build",
            "repro_torch.kernels.sa_occupancy",
            "repro_torch.kernels.segment_sum", "repro_torch.configs",
            "repro_torch.configs.qwen2_5_3b", "repro_torch.kernels.ref",
@@ -74,7 +79,12 @@ def test_slice_modules_exist():
                 "kernels/flash_attention.py", "kernels/decode_attention.py",
                 "kernels/csrc/attention.cu", "kernels/ssd_scan.py",
                 "kernels/csrc/ssd_scan.cu", "kernels/gated_matmul.py",
-                "kernels/csrc/gated_matmul.cu", "models/param.py",
+                "kernels/csrc/gated_matmul.cu", "core/isa.py",
+                "core/passes.py", "core/lowering.py",
+                "core/program_plane.py", "core/perturb.py",
+                "core/ici_topology.py", "core/carbon.py", "core/slo.py",
+                "kernels/program_exec.py", "kernels/csrc/program_plane.cu",
+                "models/param.py",
                 "models/common.py", "models/blocks.py", "models/registry.py",
                 "models/model.py", "train/steps.py", "launch/serve.py",
                 *(f"configs/{c}.py" for c in CONFIG_FILES)):
@@ -93,6 +103,8 @@ def test_no_jax_and_no_reference_package_imports(path):
                                    "repro_torch.kernels.sa_occupancy",
                                    "repro_torch.kernels.segment_sum",
                                    "repro_torch.kernels.gated_matmul",
+                                   "repro_torch.kernels.program_exec",
+                                   "repro_torch.core.program_plane",
                                    "repro_torch.launch.serve"])
 def test_imports_with_nvcc_absent(first):
     """Every module imports with no ``nvcc`` reachable and pulls in
@@ -147,6 +159,9 @@ CUDA_SOURCES = {
                     ("src/repro/kernels/ssd_scan.py",)),
     "gated_matmul.cu": (("gated_matmul_launch",),
                         ("src/repro/kernels/gated_matmul.py",)),
+    "program_plane.cu": (("program_exec_launch",),
+                         ("src/repro/core/backend.py:218",
+                          "src/repro/core/program_plane.py:182-278")),
 }
 # the one atomic the sources may hold: B2's integer count of executed
 # tiles (integer adds commute, so the count is exact); no float atomics
@@ -230,6 +245,12 @@ def test_ssd_bf16_binding_declares_every_argument(launcher):
         others=[n for n in SSD_LAUNCHERS if n != launcher])
 
 
+def test_program_exec_binding_declares_every_argument():
+    from repro_torch.kernels import _build
+    _assert_binding_declares_every_argument(
+        "program_plane.cu", "program_exec_launch", _build._bind_program_plane)
+
+
 def test_gated_matmul_binding_declares_every_argument():
     from repro_torch.kernels import _build
     _assert_binding_declares_every_argument(
@@ -300,6 +321,7 @@ def test_profiled_kernel_names_are_defined(script):
                                script.read_text()))
     if script == SMOKE:
         assert {"flash_attention_bf16_kernel", "flash_attention_kernel",
+                "program_exec_kernel",
                 "decode_attention_kernel",
                 "decode_attention_combine_kernel", "ssd_scan_kernel",
                 "ssd_chunk_cb_kernel", "ssd_scan_bf16_kernel",
