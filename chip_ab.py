@@ -11,10 +11,14 @@ Each run (``P`` the parent tree, ``C`` this checkout, in the order
 under ``--out`` and reads from it the numbers compared: B3 and B4 at
 the model's shapes (``kernels_model_shapes``), K2 at the sweep's four
 shapes (``kernels``), B2's five ``gated_matmul_full`` cases,
-``sweep_full``'s steady wall, ``serve_full`` and ``profile_serve``'s
-prefill and decode windows; for mamba2-780m, B5 at the model's shapes,
-``serve_ssm_full`` and its prefill window. Three metrics are then timed
-for both trees by the same code, in a process of its own,
+``sweep_full``'s steady wall, B7 and the wall split of
+``program_plane_full`` (ms, device µs, ns a dependent step, the bytes
+the executor call copied to the card, ``executor_s``), K1's device µs
+beside the launch floor (``kernels``), ``serve_full`` and
+``profile_serve``'s prefill and decode windows; for mamba2-780m, B5 at
+the model's shapes, ``serve_ssm_full`` and its prefill window. Three
+metrics are then timed for both trees by the same code, in a process of
+its own,
 
     python3 chip_ab.py --same-code TREE
 
@@ -133,6 +137,19 @@ def _smoke_numbers(lines: list[str]) -> dict:
             k: dec.get(k) for k in ("wall_s_profiled", "device_busy_s",
                                     "device_idle_share", "device_launches",
                                     "hand_kernels")}
+    ppf = phases.get("program_plane_full", [{}])[0]
+    out["b7"] = {k: ppf.get(k) for k in (
+        "kernel_ms", "kernel_device_us", "chain_steps", "executor_s",
+        "wall_s_sweep_program_plane", "host_prep_s", "rest_s", "split_s",
+        "plain_ms_card", "plain_ms_cpu", "bound_ms",
+        "bytes_bound_ms_row_copies")}
+    # what the executor call copied to the card: the ragged streams, or
+    # (before them) the dense stack
+    out["b7"]["bytes_to_card"] = ppf.get("bytes_to_card",
+                                         ppf.get("stack_bytes"))
+    out["program_plane_records_wall_s"] = phases.get(
+        "program_plane_records", [{}])[0].get("wall_s_card")
+    out["k1"] = kernels.get("k1", {})
     ssm = phases.get("serve_ssm_full", [{}])[0]
     out["ssm"] = {"prefill_s": ssm.get("prefill_s"),
                   "decode_ms_per_step": ssm.get("decode_ms_per_step"),
@@ -271,6 +288,17 @@ def main() -> int:
            for what in k2_shapes},
         "sweep_wall_s_steady": series(
             lambda r: r["smoke"]["sweep_wall_s_steady"]),
+        **{f"b7_{k}": series(lambda r, k=k: r["smoke"]["b7"][k])
+           for k in ("kernel_ms", "kernel_device_us", "bytes_to_card",
+                     "executor_s", "wall_s_sweep_program_plane",
+                     "host_prep_s", "rest_s", "plain_ms_card")},
+        "b7_ns_per_step": series(
+            lambda r: 1e3 * r["smoke"]["b7"]["kernel_device_us"]
+            / r["smoke"]["b7"]["chain_steps"]),
+        "program_plane_records_wall_s": series(
+            lambda r: r["smoke"]["program_plane_records_wall_s"]),
+        **{f"k1_{k}": series(lambda r, k=k: r["smoke"]["k1"][k])
+           for k in ("kernel_ms", "device_us", "launch_floor_device_us")},
         # K2 has two instances (staged, direct): all launches of both
         "sweep_k2_device_us_per_launch": series(lambda r: k2_per_launch(
             r["smoke"]["profile_sweep"]["hand_kernels"])),

@@ -29,8 +29,10 @@ path, read just after) that each path really went through its kernels:
   ReGate-Full policy side through ``evaluate_batch``, K1 and K2): the
   paper suite × NPU-B, NPU-D × 8 knobs on the card against the CPU
   (272 records, bit for bit), and at full width the paper suite × all
-  five NPUs × 6 delay × 3 window scales (1 530 executor rows, up to
-  3 280 events each), with B7 held to its plain version;
+  five NPUs × 6 delay × 3 window scales (1 530 executor rows on 510
+  event streams, up to 3 280 events each; the card path hands B7 the
+  ragged streams, each read once for the 3 rows that share it), with B7
+  held to its plain version through both its entries;
 * serving qwen2.5-3b at full width (36 layers, d_model 2048, vocab
   151 936; random weights from a seed), ``repro_torch.launch.serve.
   Server`` → ``prefill_prompts`` / ``step`` (kernels B3
@@ -127,11 +129,13 @@ PP_RECORD_GRID = dict(delay_scale=(1.0, 4.0), window_scale=(1.0, 0.5),
 # executor rows for the 17 workloads)
 PP_FULL_GRID = dict(delay_scale=(0.25, 0.5, 1.0, 2.0, 4.0, 8.0),
                     window_scale=(0.5, 1.0, 2.0))
-# one event of the packed stack: its cycle (8 bytes), four issue
-# latencies (32) and four setpm codes (4); per row: delay, window, mode0
-# (3 x 4 x 8), horizon and the row's extent (16) in, cycles, stalls,
-# setpm (24) and on, gated, wakes (3 x 4 x 8) out
+# one event of a stream: its cycle (8 bytes), four issue latencies (32)
+# and four setpm codes (4); per stream its offset (8); per row: delay,
+# window, mode0 (3 x 4 x 8), horizon and its stream (16) in, cycles,
+# stalls, setpm (24) and on, gated, wakes (3 x 4 x 8) out. B7 reads each
+# stream once; the bound the dense stack set counted every row's copy
 B7_EVENT_BYTES = 44
+B7_STREAM_BYTES = 8
 B7_ROW_BYTES = 3 * 4 * 8 + 16 + 24 + 3 * 4 * 8
 SERVE_ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-780m"
@@ -1274,13 +1278,16 @@ def program_plane_full(card: str, suite) -> dict:
     """The program plane at full width: ``sweep_program_plane`` over the
     paper suite x every NPU x ``PP_FULL_GRID`` from cold caches, with
     its launches (B7 exactly once) and its wall split into the host
-    preparation (lowering; instrumentation and event streams; dense
-    packing), the executor call (``_run_kernel``: the stack to the card,
-    B7, the outputs back) and the rest (the closed-form folds, the
-    policy side through ``evaluate_batch``, the records), each timed
-    inside that one call. Then B7 on the stack that call packed: held
-    ``torch.equal`` to its plain version on the CPU and on the card,
-    timed by CUDA events and by its device time."""
+    preparation (lowering; instrumentation and event streams), the
+    executor call (``_run_streams``: the unique streams and the per-row
+    parameters to the card, ``upload_s`` of it, B7, the outputs back) and
+    the rest (the closed-form folds, the policy side through
+    ``evaluate_batch``, the records), each timed inside that one call.
+    Then B7 on the very arguments that call uploaded: through the stream
+    entry and, on the same streams packed dense, the dense entry, each
+    held ``torch.equal`` to its plain version on the CPU and on the
+    card, the stream entry also on a second call; timed through the
+    stream entry by CUDA events and by its device time."""
     import numpy as np
     import torch
     from repro_torch.core import lowering
@@ -1288,26 +1295,26 @@ def program_plane_full(card: str, suite) -> dict:
     from repro_torch.core.hw import NPUS
     from repro_torch.core.policies import KnobGrid
     from repro_torch.core.sweep import sweep_program_plane
-    from repro_torch.kernels.program_exec import (program_exec,
+    from repro_torch.kernels.program_exec import (pack_streams, program_exec,
                                                   program_exec_plain,
-                                                  row_extent)
+                                                  program_exec_streams)
 
     grid = KnobGrid(**PP_FULL_GRID)
-    spent, packed = {}, []
+    spent, uploaded = {}, []
 
     def timed(name, fn):
         def run(*a, **kw):
             t = time.perf_counter()
             out = fn(*a, **kw)
             spent[name] = time.perf_counter() - t
-            if name == "pack_s":
-                packed.append(out)
+            if name == "upload_s":
+                uploaded.append((a[0], out))
             return out
         return run
 
     steps = {"lowering_s": pp._plane_rows,
              "instrument_and_streams_s": pp.build_program_arrays,
-             "pack_s": pp._pack_dense, "executor_s": pp._run_kernel}
+             "upload_s": pp._upload_streams, "executor_s": pp._run_streams}
     lowering._LOWER_CACHE.clear()
     lowering._INSTR_CACHE.clear()
     pp._STREAM_CACHE.clear()
@@ -1327,6 +1334,8 @@ def program_plane_full(card: str, suite) -> dict:
           f"{launches['program_exec']} times, want 1")
     check(launches["sa_occupancy"] > 0 and launches["segment_sum"] > 0,
           f"sweep_program_plane's policy side launched {launches}")
+    check(len(uploaded) == 1, f"the card path uploaded {len(uploaded)} "
+                              f"times, want once")
     n = len(suite) * len(NPUS) * len(grid.product())
     check(len(recs) == n, f"{len(recs)} records, want {n}")
     for r in recs:
@@ -1337,18 +1346,23 @@ def program_plane_full(card: str, suite) -> dict:
                   for c in ("sa", "vu", "hbm", "ici", "sram")),
               f"record {r['workload']}/{r['npu']}: gated fraction out of "
               f"[0, 1]")
-    host = packed[0]
-    cpu = {k: torch.from_numpy(v) for k, v in host.items()}
-    on_card = {k: v.to("cuda") for k, v in cpu.items()}
-    e_max, rows = host["cycle"].shape
-    got = program_exec(on_card)
-    again = program_exec(on_card)
+    pa, args = uploaded[0]
+    streams, stream_of_row, rows = args
+    bytes_to_card = sum(v.nbytes for v in
+                        [*streams.values(), stream_of_row, *rows.values()])
+    cpu = ({k: v.cpu() for k, v in streams.items()}, stream_of_row.cpu(),
+           {k: v.cpu() for k, v in rows.items()})
+    n_rows = int(stream_of_row.shape[0])
+    got = program_exec_streams(*args)
+    again = program_exec_streams(*args)
+    dense = pack_streams(*args)
+    got_dense = program_exec(dense)
     t0 = time.perf_counter()
-    want = program_exec_plain(cpu)
+    want = program_exec_plain(pack_streams(*cpu))
     plain_cpu_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want_card = program_exec_plain(on_card)
+    want_card = program_exec_plain(dense)
     torch.cuda.synchronize()
     plain_card_s = time.perf_counter() - t0
     err = 0
@@ -1365,40 +1379,55 @@ def program_plane_full(card: str, suite) -> dict:
               f"card")
         check(torch.equal(got[k], again[k]),
               f"program_exec[{k}]: two calls differ")
-    ms = event_ms(lambda: program_exec(on_card), 20, warmup=2)
-    device_us = kernel_device_us(lambda: program_exec(on_card),
+        check(torch.equal(got_dense[k], want_card[k]),
+              f"program_exec[{k}]: the dense entry differs from the plain "
+              f"version")
+    ms = event_ms(lambda: program_exec_streams(*args), 20, warmup=2)
+    device_us = kernel_device_us(lambda: program_exec_streams(*args),
                                  "program_exec_kernel")
-    real = int((host["cycle"] >= 0).sum())
-    chain = int(row_extent(on_card["cycle"]).max()) if rows else 0
-    bytes_ = B7_EVENT_BYTES * real + B7_ROW_BYTES * rows
+    e_max = int(dense["cycle"].shape[0])
+    per_row = pa.lengths[cpu[1].numpy()]
+    used = np.unique(cpu[1].numpy())
+    real = int((dense["cycle"] >= 0).sum())
+    stream_events = int(pa.lengths[used].sum())
+    chain = int(per_row.max()) if n_rows else 0
+    bytes_ = (B7_EVENT_BYTES * stream_events + B7_STREAM_BYTES * len(used)
+              + B7_ROW_BYTES * n_rows)
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    row_copies_ms = (B7_EVENT_BYTES * real + B7_ROW_BYTES * n_rows) \
+        / HBM_BYTES_PER_S * 1e3
     clock = sm_clock_max_hz()
     chain_ms = chain / clock * 1e3
-    del on_card, got, again, want_card
+    dense_bytes = int(sum(v.nbytes for v in dense.values()))
+    del got, again, dense, got_dense, want_card, args, streams, rows
     torch.cuda.empty_cache()
-    prep = sum(spent[k] for k in ("lowering_s", "instrument_and_streams_s",
-                                  "pack_s"))
+    prep = spent["lowering_s"] + spent["instrument_and_streams_s"]
     return {"card": card, "workloads": len(suite), "npus": len(NPUS),
-            "knobs": len(grid.product()), "rows": rows, "E": e_max,
-            "U": host["lat"].shape[2], "real_events": real,
-            "stack_bytes": int(sum(v.nbytes for v in host.values())),
+            "knobs": len(grid.product()), "rows": n_rows, "E": e_max,
+            "U": int(pa.lat.shape[1]), "streams": int(pa.n_streams),
+            "real_events": real, "stream_events": stream_events,
+            "bytes_to_card": bytes_to_card,
+            "dense_stack_bytes": dense_bytes,
             "records": n, "launches": launches,
             "wall_s_sweep_program_plane": wall, "host_prep_s": prep,
             "executor_s": spent["executor_s"],
             "rest_s": wall - prep - spent["executor_s"],
             "split_s": spent, "host_prep_share": prep / wall,
             "kernel_ms": ms, "kernel_device_us": device_us,
+            "ns_per_step": device_us * 1e3 / chain if chain else None,
             "kernel_share_of_wall": device_us * 1e-6 / wall,
             "plain_ms_cpu": plain_cpu_s * 1e3,
             "plain_ms_card": plain_card_s * 1e3,
             "max_abs_err": err, "bytes": bytes_, "bytes_bound_ms": bytes_ms,
+            "bytes_bound_ms_row_copies": row_copies_ms,
             "chain_steps": chain, "sm_clock_max_hz": clock,
             "chain_bound_ms": chain_ms,
             "bound_ms": max(bytes_ms, chain_ms),
             "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
             "tolerance": "torch.equal with the plain version on the CPU "
-                         "and on the card, every row; bit-identical on a "
-                         "second call"}
+                         "and on the card, every row, through the stream "
+                         "and the dense entry; bit-identical on a second "
+                         "call"}
 
 
 def rel_l2(got, want):
@@ -1873,6 +1902,14 @@ def main() -> int:
     k1_ops = 45 * k1_elems  # adds, multiplies, divisions, floor, min/max
     k1_bound = max(k1_bytes / HBM_BYTES_PER_S,
                    k1_ops / FP64_FLOPS_PER_S) * 1e3
+    k1_device_us = kernel_device_us(lambda: sa_occupancy(*mm, saw_main),
+                                    "sa_occupancy_kernel")
+    # the launch floor: the device time of the smallest kernel PyTorch
+    # launches, a one-element add, beside K1's
+    one = torch.ones(1, device=dev)
+    one_out = torch.empty_like(one)
+    launch_floor_us = kernel_device_us(
+        lambda: torch.add(one, 1.0, out=one_out))
 
     k2_shapes = time_k2(k2_timing_shapes(bk, host, st.n_segments, n_pairs,
                                          k1_shape["S"]), rng)
@@ -1882,7 +1919,9 @@ def main() -> int:
     emit("kernels", card=card, k1_cases=k1_cases, k2_cases=k2_cases,
          b3_b4=attn, b5=ssd, b2=b2,
          k1={"shape": k1_shape, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
-             "bound_ms": k1_bound, "max_abs_err": k1_err},
+             "bound_ms": k1_bound, "max_abs_err": k1_err,
+             "device_us": k1_device_us,
+             "launch_floor_device_us": launch_floor_us},
          k2={"shapes": k2_shapes, "max_abs_err_vs_cpu_plain": k2_err_cpu,
              "max_abs_err_vs_card_plain": k2_err_card})
 
@@ -2021,7 +2060,8 @@ def main() -> int:
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S
          >= k1_ops / FP64_FLOPS_PER_S else "operations",
-         "library_ms": None, "shape": k1_shape,
+         "library_ms": None, "shape": k1_shape, "device_us": k1_device_us,
+         "launch_floor_device_us": launch_floor_us,
          "tolerance": "torch.equal with the plain version on the card"},
         {"name": "segment_sum", "route": "cuda", "source": K1_SOURCE,
          "replaces": "src/repro/core/backend.py:203",
@@ -2103,10 +2143,13 @@ def main() -> int:
         "plain_ms": ppf["plain_ms_card"],
         "plain_ms_cpu": ppf["plain_ms_cpu"], "bound_ms": ppf["bound_ms"],
         "bound_by": ppf["bound_by"], "bytes_bound_ms": ppf["bytes_bound_ms"],
+        "bytes_bound_ms_row_copies": ppf["bytes_bound_ms_row_copies"],
         "chain_bound_ms": ppf["chain_bound_ms"], "library_ms": None,
         "library_note": "none exists: no PyTorch call runs the event "
                         "executor",
-        "shape": {k: ppf[k] for k in ("E", "rows", "U", "real_events")},
+        "shape": {k: ppf[k] for k in ("E", "rows", "U", "streams",
+                                      "real_events", "stream_events")},
+        "ns_per_step": ppf["ns_per_step"],
         "tolerance": ppf["tolerance"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -12,18 +12,20 @@ The software-managed half of ReGate (§5.3/Fig 14: compiler-placed
   ``offsets``/``seg_ids`` per the ``opgen.StackedTrace`` convention.
   Instrumentation is placed once per unique ``delay_scale``: window and
   leak knob points sharing a delay scale share event streams.
-* ``_pack_dense`` gathers the ragged stack into the dense ``(E, R[, U])``
-  layout, one row per (workload, npu, unique knob triple), padded with
-  ``cycle = -1`` events that change no state.
-* ``_run_kernel`` executes the whole stack in one call of
-  ``repro_torch.kernels.program_exec``: the lock-step event executor
+* The executor runs one row per (workload, npu, unique knob triple):
+  the lock-step event executor of ``repro_torch.kernels.program_exec``
   (``EventTimeline``'s closed-form gap handling plus the bundle step —
   setpm, structural hazards with auto-wake, issue, idle-detection window
   crossing — on integers, with the cross-unit stall coupling). On a CUDA
-  device that is the hand-written kernel B7, one launch for the stack;
-  on the CPU its plain version. The results equal the per-cell
-  ``EventTimeline``'s exactly. The BET/window knobs enter as per-row
-  integer delay/window parameters computed by the same
+  device ``_run_streams`` hands it the ragged stack as it is (one upload
+  of the unique streams, ``_upload_streams``), one launch of the
+  hand-written kernel B7 for all rows, which reads each stream once for
+  the rows that share it. On the CPU (``_run_dense``) ``_pack_dense``
+  gathers the stack into the reference's dense ``(E, R[, U])`` layout,
+  padded with ``cycle = -1`` events that change no state, and
+  ``_run_kernel`` runs the kernel's plain version on it. The results
+  equal the per-cell ``EventTimeline``'s exactly. The BET/window knobs
+  enter as per-row integer delay/window parameters computed by the same
   ``isa.scaled_delay`` / ``isa.scaled_window`` helpers the executors use.
 * ``program_plane_batch`` assembles the full cube: kernel outputs, the
   closed-form intra-op VU burst fold and the SRAM band analysis (both
@@ -56,7 +58,8 @@ from repro_torch.core.policies import (BatchResult, PolicyKnobs,
                                        _component_policies,
                                        _fine_grained_vu_vec, evaluate_batch,
                                        knob_pairs)
-from repro_torch.kernels.program_exec import program_exec
+from repro_torch.kernels.program_exec import (program_exec,
+                                              program_exec_streams)
 
 # fixed kernel unit order; component order follows UNIT_OF
 UNITS = tuple(u for u, _ in UNIT_OF.values())          # sa0 vu0 dma0 ici0
@@ -184,6 +187,47 @@ def _run_kernel(data: dict, device) -> dict[str, np.ndarray]:
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
+def _run_dense(pa: ProgramArrays, stream_of_row: np.ndarray,
+               window: np.ndarray, delay: np.ndarray, horizon: np.ndarray,
+               device) -> dict[str, np.ndarray]:
+    """The CPU route: the reference's dense stack through
+    ``_run_kernel``."""
+    return _run_kernel(_pack_dense(pa, stream_of_row, window, delay,
+                                   horizon), device)
+
+
+def _upload_streams(pa: ProgramArrays, stream_of_row: np.ndarray,
+                    window: np.ndarray, delay: np.ndarray,
+                    horizon: np.ndarray, device) -> tuple:
+    """The ragged stack's columns, each row's stream and the per-row
+    parameters on ``device``: the arguments of ``program_exec_streams``.
+    Each stream is copied once, however many rows run it."""
+    dev = get_backend(device).device
+
+    def put(a, dtype=np.int64):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+    r, u = delay.shape
+    streams = {"cycle": put(pa.cycle), "lat": put(pa.lat),
+               "pm": put(pa.pm, np.int8), "offsets": put(pa.offsets)}
+    rows = {"delay": put(delay), "window": put(window),
+            "mode0": put(np.broadcast_to(np.array(_MODE0, np.int64),
+                                         (r, u))),
+            "horizon": put(horizon)}
+    return streams, put(stream_of_row), rows
+
+
+def _run_streams(pa: ProgramArrays, stream_of_row: np.ndarray,
+                 window: np.ndarray, delay: np.ndarray, horizon: np.ndarray,
+                 device) -> dict[str, np.ndarray]:
+    """Execute the ragged stack on ``device`` through B7's stream entry
+    (on a CUDA device one launch, no dense stack); returns host numpy
+    outputs per row."""
+    out = program_exec_streams(*_upload_streams(
+        pa, stream_of_row, window, delay, horizon, device))
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
 def _plane_rows(workloads: Sequence[Workload],
                 npu_specs: Sequence[NPUSpec], triples: list[tuple]) -> tuple:
     """One kernel row per (workload, npu, unique knob triple), in that
@@ -296,22 +340,23 @@ def program_plane_batch(workloads: Sequence[Workload] | Workload,
     ``device`` is where the executor and the policy side run: ``None``
     resolves through the active ``SweepSession`` and otherwise means
     ``"cuda"`` — with no card that raises. On a CUDA device the executor
-    is one launch of kernel B7 for the whole stack; ``device="cpu"`` runs
-    its plain version."""
+    is one launch of kernel B7 on the ragged stack; ``device="cpu"`` runs
+    its plain version on the dense one."""
     if isinstance(workloads, Workload):
         workloads = [workloads]
     workloads = list(workloads)
     npu_specs = [get_npu(n) if isinstance(n, str) else n for n in npus]
     grid = tuple(knob_grid) if knob_grid is not None else (PolicyKnobs(),)
-    get_backend(device)  # no card for "cuda": raise before the host work
+    # no card for "cuda": raise before the host work
+    run = _run_streams if get_backend(device).device.type == "cuda" \
+        else _run_dense
 
     triples, inv = knob_pairs(grid)
     w_n, a_n, t_n = len(workloads), len(npu_specs), len(triples)
     progs, dscales, stream_of_row, window, delay, horizon = _plane_rows(
         workloads, npu_specs, triples)
     pa = build_program_arrays(progs, dscales)
-    out = _run_kernel(_pack_dense(pa, stream_of_row, window, delay, horizon),
-                      device)
+    out = run(pa, stream_of_row, window, delay, horizon, device)
 
     shape = (w_n, a_n, t_n)
     cycles = out["cycles"].reshape(shape)

@@ -77,7 +77,7 @@ def _bind_gated_matmul(lib: ctypes.CDLL) -> None:
 def _bind_program_plane(lib: ctypes.CDLL) -> None:
     ptr, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.program_exec_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64,
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr,
         ptr, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.program_exec_launch.restype = ctypes.c_int
 

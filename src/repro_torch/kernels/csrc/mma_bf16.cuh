@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy building blocks shared by the bf16
-// kernels (attention.cu, gated_matmul.cu): ldmatrix, mma.sync m16n8k16
-// bf16 -> float32, TMA tile loads into shared memory with their mbarriers,
-// and the host call that encodes a TMA tensor map. Nothing here launches
+// kernels (attention.cu, gated_matmul.cu, ssd_scan.cu): ldmatrix, mma.sync
+// m16n8k16 bf16 -> float32, TMA tile loads into shared memory with their
+// mbarriers, and the host call that encodes a TMA tensor map; and the 1-D
+// bulk copy of program_plane.cu's event ring. Nothing here launches
 // or allocates; every device helper is one PTX instruction issued by the
 // calling thread (ldmatrix and mma by the whole warp).
 //
@@ -115,6 +116,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity)
         "@!p bra MBAR_WAIT;\n"
         "}\n"
         :: "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// `bytes` contiguous bytes from device memory into shared memory by the
+// TMA unit, with no tensor map; they complete on bar. Source, destination
+// and size must be multiples of 16 bytes.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             unsigned bytes, uint64_t* bar)
+{
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n"
+        :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
 }
 
 // box (c0, c1) -- c0 the inner (contiguous) coordinate -- of the tensor map

@@ -1,4 +1,4 @@
-// The program plane's event executor for NVIDIA Hopper (sm_90a), int64
+// The program plane's event executor for NVIDIA Hopper (sm_90a), integers
 // throughout, built by nvcc into a shared library with a plain C interface
 // and loaded with ctypes (see ../_build.py).
 //
@@ -7,6 +7,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 // ---------------------------------------------------------------------------
 // B7  program_exec  (lock-step event executor)
@@ -18,32 +20,60 @@
 // drain. XLA compiled that scan into one device program; in eager PyTorch it
 // would be some 60 small launches an event.
 //
-// Layout (the reference's _pack_dense): cycle (E, R), lat (E, R, U) int64,
-// pm (E, R, U) int8; delay, window, mode0 (R, U) and horizon (R,) int64.
-// cycle == -1 marks a padded event: it changes no state. Mode codes are
-// 0 AUTO / 1 ON / 2 OFF; setpm effect codes 1 ON / 2 OFF / 3 AUTO.
+// Layout: the ragged event streams as they come (the ProgramArrays columns),
+// cycle (N,), lat (N, U) int64 and pm (N, U) int8, N a multiple of 4, and
+// per task (one task per stream that rows run) its events [ev_lo, ev_hi) and
+// its rows row_order[task_rows[task] : task_rows[task + 1]]; per row delay,
+// window, mode0 (R, U) and horizon (R,) int64. cycle == -1 marks a padded
+// event: it changes no state. Mode codes are 0 AUTO / 1 ON / 2 OFF; setpm
+// effect codes 1 ON / 2 OFF / 3 AUTO.
 //
 // Bound: the rows are independent, but inside a row every event depends on
 // the state the last one left (machine time, each unit's power, ready, busy
 // and idle cycles), so the time is the longest row's chain of dependent
 // steps. The bytes are small beside it: 44 bytes an event (cycle, four
-// latencies, four setpm codes), ~0.1 GB for the paper suite at every NPU and
-// knob, tens of microseconds of device memory traffic.
+// latencies, four setpm codes), each stream read once per task. A task's
+// warp issues alone on its scheduler, so a step costs the sum of its
+// instructions' stalls: the state and the step below are cut to few
+// instructions and no branch on a lane's data.
 //
-// Design: one thread per row, its whole U-unit state in registers (the unit
-// loops are unrolled), walking its events in order; the event's data is
-// loaded one event ahead, so a load's latency overlaps the step before it.
-// Consecutive rows are consecutive threads and the event axis is outermost,
-// so a warp's reads of one event index are contiguous (8 bytes a thread of
-// cycle, 32 of lat, 4 of pm). A row stops at its own last real event
-// (extent, computed by the wrapper): past it every event is padding. 32
-// threads a block, so a stack of ~1 500 rows spreads its warps over as many
-// SMs as it can. No floating point, no atomics: the results equal the plain
-// version's exactly.
+// Design:
+// * Rows that share a stream (the same program and delay scale at several
+//   detection windows) form one task, one warp: the stream is read once
+//   for all of them. A task of more rows than a warp holds loops over its
+//   rows a warp-full at a time, reading the stream once a pass.
+// * The stream reaches shared memory through a ring of STAGES stages of D
+//   events, each stage filled by three 1-D bulk TMA copies (cycle, lat, pm)
+//   that complete on the stage's mbarrier. Lane 0 refills a stage as soon
+//   as the warp has stepped through it, so STAGES - 1 chunks are in flight
+//   while the warp steps: no step waits on device memory, only the first
+//   chunk of a pass does. Bulk copies need 16-byte aligned sources and
+//   sizes: the kernel aligns each chunk's start down to a multiple of 4
+//   events (the first chunk then holds up to 3 events of the stream before,
+//   which the loop skips), a chunk's length to a multiple of 4 events, and
+//   the wrapper pads the columns to a multiple of 4 events so that the last
+//   chunk's copy stays inside them.
+// * A lane per unit (UT = 1 unit a thread, GW = 4 lanes a row, 8 rows a
+//   warp): each lane keeps its unit's ready / busy / on / wakes / mode /
+//   powered, and every lane of the row the row's t, prev, stalls and
+//   nsetpm, identically. The coupling, the bundle's start, is a max over
+//   the row's 4 lanes by two __shfl_xor_sync rounds. The code is written
+//   for UT units a thread: chip_b7_variants.py builds copies of this
+//   source with UT = 4 (one thread a row, its four units in registers)
+//   and with other D, and times them against this build (PERF.md).
+// * Lanes past a task's rows step the same events on zero parameters and
+//   write nothing, so the warp never diverges and every shuffle is full.
+// No floating point, no atomics: the results equal the plain version's
+// exactly.
 // ---------------------------------------------------------------------------
 namespace b7 {
 constexpr int U = 4;         // sa0, vu0, dma0, ici0 (KERNEL_UNITS)
-constexpr int THREADS = 32;
+constexpr int WARP = 32;
+constexpr int UT = 1;        // units a thread: a lane a unit
+constexpr int D = 128;       // events a ring stage
+constexpr int STAGES = 3;
+static_assert(D % 4 == 0, "a stage holds whole groups of 4 events");
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int64_t imax(int64_t a, int64_t b)
 {
@@ -55,177 +85,265 @@ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b)
     return a < b ? a : b;
 }
 
-struct Event {
-    int64_t cycle;
-    longlong2 lat01, lat23;
-    char4 pm;
+// one ring stage: D events of the three columns, each 16-byte aligned,
+// an event's four setpm codes as one 32-bit word; each column has room
+// for one event more, so that the read of the next event past a
+// chunk's last one stays inside the stage
+struct Stage {
+    int64_t cycle[D + 2];
+    int64_t lat[(D + 1) * U];
+    uint32_t pm[D + 4];
 };
+static_assert(sizeof(Stage) % 16 == 0 && (8 * (D + 2)) % 16 == 0
+              && (8 * (D + 2) + 32 * (D + 1)) % 16 == 0, "bulk copies");
 
-__device__ __forceinline__ Event load_event(const int64_t* cycle,
-                                            const int64_t* lat,
-                                            const int8_t* pm, int64_t i)
-{
-    Event ev;
-    ev.cycle = cycle[i];
-    ev.lat01 = reinterpret_cast<const longlong2*>(lat)[2 * i];
-    ev.lat23 = reinterpret_cast<const longlong2*>(lat)[2 * i + 1];
-    ev.pm = reinterpret_cast<const char4*>(pm)[i];
-    return ev;
-}
-
+// UT units a thread, GW = U / UT threads a row, ROWS rows a warp.
+//
+// The state is the reference's, less what two of its invariants give for
+// free, so that a step issues fewer instructions (the step is the whole
+// chain): a unit's idle cycle is set only where its busy cycle is, to
+// the same value, so idle == busy always and the detection window ends
+// at gend = busy + max(window, 0) (the reference's max(idle + window,
+// busy), and its "t2 - idle >= window && busy <= t2" is t2 >= gend); and
+// a unit's on + gated cycles grow by each gap's n and by 1 a step while
+// t grows by n and by 1 + the step's stall, so gated = t - stalls - on,
+// formed once at the drain. A step's one cycle of on time, the wakes and
+// the setpm events are counted in 32 bits (at most one a step, and no
+// card holds 2^31 events), and whether an event holds a setpm is a
+// property of the stream, read off its four codes in every lane. The
+// step has no branch on a lane's data: the warp never splits.
 struct Machine {
-    int64_t t, prev, stalls, nsetpm;
-    int64_t delay[U], window[U], mode[U];
-    int64_t ready[U], busy[U], idle[U], on[U], gated[U], wakes[U];
-    bool powered[U];
+    static constexpr int GW = U / UT;
+    static constexpr int ROWS = WARP / GW;
+
+    int64_t t, prev, stalls;           // the row's, in each of its lanes
+    int nsetpm;
+    int64_t delay[UT], wpos[UT];       // wpos = max(window, 0)
+    int64_t ready[UT], busy[UT], gend[UT], on[UT];
+    int on1[UT], wakes[UT], mode[UT];
+    bool powered[UT];
+
+    // the largest x over the row's GW lanes, in each of them
+    static __device__ __forceinline__ int64_t row_max(int64_t x)
+    {
+#pragma unroll
+        for (int m = 1; m < GW; m <<= 1)
+            x = imax(x, (int64_t)__shfl_xor_sync(FULL, (long long)x, m));
+        return x;
+    }
 
     // EventTimeline._gap(n, t) in closed form: a powered AUTO unit crosses
-    // its idle-detection window at max(idle + window, busy) and counts
-    // gated from there (on_gap clipped into [0, n])
+    // its idle-detection window at gend and counts gated from there
+    // (on_gap clipped into [0, n])
     __device__ __forceinline__ void gap(int64_t n)
     {
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-            const bool autom = mode[u] == 0;
-            const int64_t g = imax(idle[u] + window[u], busy[u]);
-            const int64_t on_gap = imin(imax(g - t - 1, (int64_t)0), n);
-            const int64_t on_add = powered[u] ? (autom ? on_gap : n) : 0;
-            const int64_t gate_add = n - on_add;
-            if (autom && powered[u] && gate_add > 0) powered[u] = false;
-            on[u] += on_add;
-            gated[u] += gate_add;
+        for (int j = 0; j < UT; ++j) {
+            const bool autom = mode[j] == 0;
+            const int64_t on_gap = imin(imax(gend[j] - t - 1, (int64_t)0),
+                                        n);
+            const int64_t on_add = powered[j] ? (autom ? on_gap : n) : 0;
+            powered[j] = powered[j] && !(autom && on_add < n);
+            on[j] += on_add;
         }
         t += n;
     }
 
-    __device__ __forceinline__ void step(const Event& ev)
+    // one event: its cycle, this thread's units' latencies and the
+    // event's four setpm codes (byte u is unit u's), this thread's units
+    // from unit u0 on
+    __device__ __forceinline__ void step(int64_t cycle, const int64_t* lat,
+                                         uint32_t pmw, int u0)
     {
-        gap(imax(ev.cycle - prev - 1, (int64_t)0));
+        gap(imax(cycle - prev - 1, (int64_t)0));
         const int64_t t1 = t;
-        const int64_t lat[U] = {ev.lat01.x, ev.lat01.y, ev.lat23.x,
-                                ev.lat23.y};
-        const int pm[U] = {ev.pm.x, ev.pm.y, ev.pm.z, ev.pm.w};
         // 1) the misc-slot setpm, before the dispatch of the same event
-        bool any_pm = false;
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-            if (pm[u] == 1 && !powered[u]) {
-                ready[u] = t1 + delay[u];
-                ++wakes[u];
-                powered[u] = true;
-            }
-            if (pm[u] == 2) powered[u] = false;
-            mode[u] = pm[u] == 1 ? 1 : pm[u] == 2 ? 2 : pm[u] == 3 ? 0
-                                                                : mode[u];
-            any_pm |= pm[u] > 0;
+        for (int j = 0; j < UT; ++j) {
+            const int p = (int)(int8_t)(pmw >> (8 * (u0 + j)));
+            const bool wake = p == 1 && !powered[j];
+            ready[j] = wake ? t1 + delay[j] : ready[j];
+            wakes[j] += wake;
+            powered[j] = p == 1 || (powered[j] && p != 2);
+            mode[j] = p >= 1 && p <= 3 ? (p == 3 ? 0 : p) : mode[j];
         }
         // 2) structural hazards: a dispatch wakes a gated unit; the bundle
         //    starts when every unit it uses is ready and free (units it
         //    does not use need nothing): the cross-unit coupling
         int64_t start = t1;
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-            if (lat[u] <= 0) continue;
-            if (!powered[u]) {
-                ready[u] = imax(t1, busy[u]) + delay[u];
-                ++wakes[u];
-                powered[u] = true;
-            }
-            start = imax(start, imax(ready[u], busy[u]));
+        for (int j = 0; j < UT; ++j) {
+            const bool use = lat[j] > 0;
+            const bool wake = use && !powered[j];
+            ready[j] = wake ? imax(t1, busy[j]) + delay[j] : ready[j];
+            wakes[j] += wake;
+            powered[j] = powered[j] || wake;
+            start = use ? imax(start, imax(ready[j], busy[j])) : start;
         }
+        start = row_max(start);
         // 3) issue
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-            if (lat[u] > 0) {
-                busy[u] = start + lat[u];
-                idle[u] = busy[u];
-            }
+        for (int j = 0; j < UT; ++j) {
+            const bool use = lat[j] > 0;
+            busy[j] = use ? start + lat[j] : busy[j];
+            gend[j] = use ? busy[j] + wpos[j] : gend[j];
         }
         const int64_t t2 = start + 1;
         // 4) hardware idle detection at the post-issue cycle, then 5) the
         //    cycle's accounting
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-            if (powered[u] && mode[u] == 0 && t2 - idle[u] >= window[u]
-                    && busy[u] <= t2)
-                powered[u] = false;
-            on[u] += powered[u] ? 1 : 0;
-            gated[u] += powered[u] ? 0 : 1;
+        for (int j = 0; j < UT; ++j) {
+            powered[j] = powered[j] && !(mode[j] == 0 && t2 >= gend[j]);
+            on1[j] += powered[j];
         }
         stalls += start - t1;
-        nsetpm += any_pm ? 1 : 0;
+        nsetpm += __vcmpgts4(pmw, 0u) != 0;
         t = t2;
-        prev = ev.cycle;
+        prev = cycle;
     }
 };
+
+// lane 0: chunk k of a task's events (they start at `base`, a multiple of
+// 4, and end at `end4`, the columns' padded end or before) into `stage`
+__device__ __forceinline__ void issue_chunk(
+    Stage* stage, uint64_t* bar, const int64_t* cycle, const int64_t* lat,
+    const int8_t* pm, int64_t base, int64_t end4, int64_t k)
+{
+    const int64_t c0 = base + k * D;
+    const unsigned n = (unsigned)imin((int64_t)D, end4 - c0);
+    mbar_expect_tx(bar, n * 44u);
+    bulk_load_1d(stage->cycle, cycle + c0, n * 8u, bar);
+    bulk_load_1d(stage->lat, lat + c0 * U, n * 32u, bar);
+    bulk_load_1d(stage->pm, pm + c0 * U, n * 4u, bar);
+}
 }  // namespace b7
 
-__global__ void __launch_bounds__(b7::THREADS) program_exec_kernel(
+__global__ void __launch_bounds__(b7::WARP) program_exec_kernel(
     const int64_t* __restrict__ cycle, const int64_t* __restrict__ lat,
-    const int8_t* __restrict__ pm, const int64_t* __restrict__ delay,
+    const int8_t* __restrict__ pm, const int64_t* __restrict__ ev_lo,
+    const int64_t* __restrict__ ev_hi, const int64_t* __restrict__ task_rows,
+    const int64_t* __restrict__ row_order, const int64_t* __restrict__ delay,
     const int64_t* __restrict__ window, const int64_t* __restrict__ mode0,
-    const int64_t* __restrict__ horizon, const int64_t* __restrict__ extent,
-    int64_t R, int64_t* __restrict__ cycles_o,
+    const int64_t* __restrict__ horizon, int64_t* __restrict__ cycles_o,
     int64_t* __restrict__ stalls_o, int64_t* __restrict__ on_o,
     int64_t* __restrict__ gated_o, int64_t* __restrict__ wakes_o,
     int64_t* __restrict__ nsetpm_o)
 {
     using namespace b7;
-    const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (r >= R) return;
-    Machine m;
-    m.t = 0;
-    m.prev = -1;
-    m.stalls = 0;
-    m.nsetpm = 0;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-        m.delay[u] = delay[r * U + u];
-        m.window[u] = window[r * U + u];
-        m.mode[u] = mode0[r * U + u];
-        m.ready[u] = m.busy[u] = m.idle[u] = 0;
-        m.on[u] = m.gated[u] = m.wakes[u] = 0;
-        m.powered[u] = true;
+    __shared__ __align__(128) Stage ring[STAGES];
+    __shared__ __align__(8) uint64_t full[STAGES];
+    const int lane = threadIdx.x;
+    const int slot = lane / Machine::GW;       // the lane's row in a pass
+    const int u0 = (lane % Machine::GW) * UT;  // the lane's first unit
+    const int64_t task = blockIdx.x;
+    const int64_t lo = ev_lo[task], hi = ev_hi[task];
+    const int64_t base = lo & ~(int64_t)3;
+    const int64_t end4 = (hi + 3) & ~(int64_t)3;
+    const int64_t chunks = hi > lo ? (end4 - base + D - 1) / D : 0;
+    if (lane == 0) {
+        for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+        mbar_fence_init();
     }
-    const int64_t n = extent[r];
-    Event next;
-    if (n > 0) next = load_event(cycle, lat, pm, r);
-    for (int64_t e = 0; e < n; ++e) {
-        const Event ev = next;
-        if (e + 1 < n) next = load_event(cycle, lat, pm, (e + 1) * R + r);
-        if (ev.cycle >= 0) m.step(ev);
-    }
-    // run()'s tail gap to the horizon, then _finish's drain
-    m.gap(imax(horizon[r] - m.prev - 1, (int64_t)0));
-    int64_t end = m.t;
+    __syncwarp();
+    int64_t used = 0;  // chunks this block has consumed: the stages' phases
+    const int64_t r_end = task_rows[task + 1];
+    for (int64_t r0 = task_rows[task]; r0 < r_end; r0 += Machine::ROWS) {
+        const int64_t ri = r0 + slot;
+        const bool live = ri < r_end;
+        const int64_t row = live ? row_order[ri] : 0;
+        Machine m;
+        m.t = 0;
+        m.prev = -1;
+        m.stalls = 0;
+        m.nsetpm = 0;
 #pragma unroll
-    for (int u = 0; u < U; ++u) end = imax(end, m.busy[u]);
-    const int64_t extra = end - m.t;
-    cycles_o[r] = end;
-    stalls_o[r] = m.stalls;
-    nsetpm_o[r] = m.nsetpm;
+        for (int j = 0; j < UT; ++j) {
+            const int64_t at = row * U + u0 + j;
+            m.delay[j] = live ? delay[at] : 0;
+            m.wpos[j] = live ? imax(window[at], (int64_t)0) : 0;
+            m.mode[j] = live ? (int)mode0[at] : 0;
+            m.ready[j] = m.busy[j] = m.on[j] = 0;
+            m.gend[j] = m.wpos[j];
+            m.on1[j] = m.wakes[j] = 0;
+            m.powered[j] = true;
+        }
+        if (lane == 0)
+            for (int64_t k = 0; k < chunks && k < STAGES; ++k) {
+                const int s = (int)((used + k) % STAGES);
+                issue_chunk(&ring[s], &full[s], cycle, lat, pm, base, end4,
+                            k);
+            }
+        for (int64_t k = 0; k < chunks; ++k) {
+            const int s = (int)((used + k) % STAGES);
+            mbar_wait(&full[s], (unsigned)(((used + k) / STAGES) & 1));
+            const Stage& st = ring[s];
+            const int64_t c0 = base + k * D;
+            const int e0 = (int)imax(lo - c0, (int64_t)0);
+            const int e1 = (int)imin(hi - c0, (int64_t)D);
+            // the next event's data is read while this one steps (past
+            // the chunk's last event, from the stage's spare slot)
+            int64_t cyc = st.cycle[e0];
+            uint32_t pmw = st.pm[e0];
+            int64_t l[UT];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-        on_o[r * U + u] = m.on[u] + (m.powered[u] ? extra : 0);
-        gated_o[r * U + u] = m.gated[u] + (m.powered[u] ? 0 : extra);
-        wakes_o[r * U + u] = m.wakes[u];
+            for (int j = 0; j < UT; ++j) l[j] = st.lat[e0 * U + u0 + j];
+            for (int e = e0; e < e1; ++e) {
+                const int64_t cyc_n = st.cycle[e + 1];
+                const uint32_t pmw_n = st.pm[e + 1];
+                int64_t l_n[UT];
+#pragma unroll
+                for (int j = 0; j < UT; ++j)
+                    l_n[j] = st.lat[(e + 1) * U + u0 + j];
+                if (cyc >= 0) m.step(cyc, l, pmw, u0);  // uniform: one stream
+                cyc = cyc_n;
+                pmw = pmw_n;
+#pragma unroll
+                for (int j = 0; j < UT; ++j) l[j] = l_n[j];
+            }
+            __syncwarp();  // every lane is done with the stage
+            if (lane == 0 && k + STAGES < chunks)
+                issue_chunk(&ring[s], &full[s], cycle, lat, pm, base, end4,
+                            k + STAGES);
+        }
+        used += chunks;
+        // run()'s tail gap to the horizon, then _finish's drain
+        m.gap(imax((live ? horizon[row] : 0) - m.prev - 1, (int64_t)0));
+        int64_t end = m.t;
+#pragma unroll
+        for (int j = 0; j < UT; ++j) end = imax(end, m.busy[j]);
+        end = Machine::row_max(end);
+        const int64_t extra = end - m.t;
+        if (!live) continue;
+        if (u0 == 0) {
+            cycles_o[row] = end;
+            stalls_o[row] = m.stalls;
+            nsetpm_o[row] = m.nsetpm;
+        }
+#pragma unroll
+        for (int j = 0; j < UT; ++j) {
+            const int64_t at = row * U + u0 + j;
+            const int64_t on = m.on[j] + m.on1[j];
+            on_o[at] = on + (m.powered[j] ? extra : 0);
+            gated_o[at] = m.t - m.stalls - on + (m.powered[j] ? 0 : extra);
+            wakes_o[at] = m.wakes[j];
+        }
     }
 }
 
 extern "C" int program_exec_launch(
     const int64_t* cycle, const int64_t* lat, const int8_t* pm,
-    const int64_t* delay, const int64_t* window, const int64_t* mode0,
-    const int64_t* horizon, const int64_t* extent, int64_t R,
+    const int64_t* ev_lo, const int64_t* ev_hi, const int64_t* task_rows,
+    const int64_t* row_order, int64_t T, const int64_t* delay,
+    const int64_t* window, const int64_t* mode0, const int64_t* horizon,
     int64_t* cycles_o, int64_t* stalls_o, int64_t* on_o, int64_t* gated_o,
     int64_t* wakes_o, int64_t* nsetpm_o, void* stream)
 {
-    if (R <= 0 || ((uintptr_t)lat & 15) || ((uintptr_t)pm & 3))
+    if (T <= 0 || T > 0x7fffffff || ((uintptr_t)cycle & 15)
+            || ((uintptr_t)lat & 15) || ((uintptr_t)pm & 15))
         return (int)cudaErrorInvalidValue;
-    const int64_t blocks = (R + b7::THREADS - 1) / b7::THREADS;
-    if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-    program_exec_kernel<<<(unsigned)blocks, b7::THREADS, 0,
-                          (cudaStream_t)stream>>>(
-        cycle, lat, pm, delay, window, mode0, horizon, extent, R, cycles_o,
-        stalls_o, on_o, gated_o, wakes_o, nsetpm_o);
+    program_exec_kernel<<<(unsigned)T, b7::WARP, 0, (cudaStream_t)stream>>>(
+        cycle, lat, pm, ev_lo, ev_hi, task_rows, row_order, delay, window,
+        mode0, horizon, cycles_o, stalls_o, on_o, gated_o, wakes_o,
+        nsetpm_o);
     return (int)cudaGetLastError();
 }

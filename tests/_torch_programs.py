@@ -52,10 +52,9 @@ def seeded_programs(isa, seed: int = 10, n: int = 24,
     return rows, horizons
 
 
-def pack_programs(pp, isa, rows, horizons, scales) -> dict:
-    """``rows`` through ``pp``'s own ``events_to_arrays`` /
-    ``_pack_dense`` into the dense executor stack, one (delay_scale,
-    window_scale) per row at NPU-D's integer delays and windows."""
+def program_arrays(pp, isa, rows, horizons):
+    """``rows`` through ``isa``'s own ``events_to_arrays`` into ``pp``'s
+    ragged ``ProgramArrays``, one stream a program."""
     arrs = [isa.events_to_arrays(ev, PP_UNITS) for ev in rows]
     lengths = np.array([len(a["cycle"]) for a in arrs], np.int64)
     offsets = np.concatenate(([0], np.cumsum(lengths))).astype(np.int64)
@@ -66,15 +65,30 @@ def pack_programs(pp, isa, rows, horizons, scales) -> dict:
             return np.zeros(shape, dtype)
         return np.concatenate([a[key] for a in arrs])
 
-    pa = pp.ProgramArrays(
+    return pp.ProgramArrays(
         units=PP_UNITS, cycle=cat("cycle", (0,), np.int64),
         lat=cat("lat", (0, u), np.int64), pm=cat("pm", (0, u), np.int8),
         offsets=offsets, horizon=np.asarray(horizons, np.int64),
         setpm_vu=np.zeros(len(rows)))
+
+
+def row_knobs(pp, isa, scales) -> tuple[np.ndarray, np.ndarray]:
+    """Per row its ``(delay, window)`` ``(R, U)`` int64 at NPU-D's
+    integer delays and windows, one (delay_scale, window_scale) a row."""
     g = isa.get_npu("NPU-D").gating
+    u = len(PP_UNITS)
     delay = np.array([[isa.scaled_delay(g, k, d) for k in pp._KEYS]
                       for d, _ in scales], np.int64).reshape(-1, u)
     window = np.array([[isa.scaled_window(g, k, d, w) for k in pp._KEYS]
                        for d, w in scales], np.int64).reshape(-1, u)
+    return delay, window
+
+
+def pack_programs(pp, isa, rows, horizons, scales) -> dict:
+    """``rows`` through ``pp``'s own ``events_to_arrays`` /
+    ``_pack_dense`` into the dense executor stack, one (delay_scale,
+    window_scale) per row at NPU-D's integer delays and windows."""
+    pa = program_arrays(pp, isa, rows, horizons)
+    delay, window = row_knobs(pp, isa, scales)
     return pp._pack_dense(pa, np.arange(len(rows)), window, delay,
                           np.asarray(horizons, np.int64))

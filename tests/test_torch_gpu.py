@@ -9,6 +9,8 @@ them on a machine that has one with
 serving paths' full size.
 """
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -30,6 +32,7 @@ from repro_torch.kernels.segment_sum import (segment_sum,  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa
 
 from _torch_programs import pack_programs, seeded_programs  # noqa: E402
+from _torch_programs import program_arrays, row_knobs  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -742,4 +745,98 @@ def test_program_plane_records_on_the_card_equal_cpu(card):
     got = sw.sweep_program_plane(wls, ("NPU-B", "NPU-D"), grid)
     assert program_exec.launches == before + 1
     assert got == sw.sweep_program_plane(wls, ("NPU-B", "NPU-D"), grid,
+                                         device="cpu")
+
+
+def _b7_ring_events() -> int:
+    """D, the events a stage of B7's ring holds, as the port builds it."""
+    cu = (Path(pp.__file__).resolve().parents[1] / "kernels" / "csrc"
+          / "program_plane.cu").read_text()
+    return int(re.search(r"constexpr int D = (\d+);", cu).group(1))
+
+
+def _b7_streams_check(card, rows, horizons, stream_of_row, scales) -> dict:
+    """The stream entry on the card: one launch, ``torch.equal`` to its
+    plain version on the CPU, and the same on a second call."""
+    from repro_torch.kernels.program_exec import (program_exec,
+                                                  program_exec_streams,
+                                                  program_exec_streams_plain)
+    pa = program_arrays(pp, pp_isa, rows, horizons)
+    sor = np.asarray(stream_of_row, np.int64)
+    delay, window = row_knobs(pp, pp_isa, scales)
+    hz = np.asarray(horizons, np.int64)[sor]
+    on_card = pp._upload_streams(pa, sor, window, delay, hz, card)
+    before = program_exec.launches
+    got = program_exec_streams(*on_card)
+    assert program_exec.launches == before + 1
+    again = program_exec_streams(*on_card)
+    want = program_exec_streams_plain(
+        *pp._upload_streams(pa, sor, window, delay, hz, "cpu"))
+    for k, v in want.items():
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k].cpu(), v), k
+        assert torch.equal(got[k], again[k]), k
+    return want
+
+
+@pytest.mark.parametrize("scale", B7_SCALES,
+                         ids=lambda s: f"d{s[0]}-w{s[1]}")
+def test_program_exec_streams_kernel_equals_plain_on_seeded_programs(
+        card, scale):
+    """The 24 seeded programs, each stream run by 3 rows at three
+    detection windows, the rows shuffled."""
+    rows, horizons = seeded_programs(pp_isa, 10, 24)
+    sor = np.random.default_rng(1).permutation(np.repeat(np.arange(24), 3))
+    d, w = scale
+    scales = [(d, w * (0.5, 1.0, 2.0)[i % 3]) for i in range(len(sor))]
+    _b7_streams_check(card, rows, horizons, sor, scales)
+
+
+@pytest.mark.parametrize("k", ["0", "1", "D-1", "D", "D+1", "3D+1"])
+def test_program_exec_ring_edge_cases(card, k):
+    """A stream of 0, 1, D - 1, D, D + 1 or 3 D + 1 events (D the ring
+    stage's events), behind streams of 1, 2 and 3 events so that it
+    starts at each offset modulo 4 in turn, each stream run by 2 rows."""
+    d = _b7_ring_events()
+    n = {"0": 0, "1": 1, "D-1": d - 1, "D": d, "D+1": d + 1,
+         "3D+1": 3 * d + 1}[k]
+    lens = [1, n, 2, n, 3, n, n]
+    rows, horizons = seeded_programs(pp_isa, 12, len(lens),
+                                     n_events=[max(x, 1) for x in lens])
+    rows = [r if x else [] for r, x in zip(rows, lens)]
+    sor = np.repeat(np.arange(len(lens)), 2)[::-1].copy()
+    _b7_streams_check(card, rows, horizons, sor,
+                      [B7_SCALES[i % 6] for i in range(len(sor))])
+
+
+def test_program_exec_long_stream_beside_short_ones(card):
+    """One stream of 3 000 events beside streams of 1."""
+    rows, horizons = seeded_programs(pp_isa, 13, 5,
+                                     n_events=[1, 3000, 1, 1, 17])
+    _b7_streams_check(card, rows, horizons, [1, 0, 1, 2, 3, 4, 1, 1],
+                      B7_SCALES + B7_SCALES[:2])
+
+
+@pytest.mark.parametrize("n_rows", [9, 20, 33])
+def test_program_exec_stream_shared_by_more_rows_than_a_warp(card, n_rows):
+    """A warp steps 8 rows of a stream at once (a lane a unit): more
+    rows than that take several passes over the stream."""
+    rows, horizons = seeded_programs(pp_isa, 14, 2, n_events=[700, 5])
+    sor = np.zeros(n_rows + 2, np.int64)
+    sor[[3, n_rows]] = 1
+    _b7_streams_check(card, rows, horizons, sor,
+                      [B7_SCALES[i % 6] for i in range(len(sor))])
+
+
+def test_program_plane_shared_streams_on_the_card_equal_cpu(card):
+    """Three detection windows a delay scale: each stream run by 3 rows,
+    as at program_plane_full."""
+    from repro_torch.kernels.program_exec import program_exec
+    sw = importlib.import_module("repro_torch.core.sweep")
+    grid = KnobGrid(delay_scale=(0.5, 2.0), window_scale=(0.5, 1.0, 2.0))
+    wls = opgen.paper_suite()[:6]
+    before = program_exec.launches
+    got = sw.sweep_program_plane(wls, ("NPU-A", "NPU-E"), grid)
+    assert program_exec.launches == before + 1
+    assert got == sw.sweep_program_plane(wls, ("NPU-A", "NPU-E"), grid,
                                          device="cpu")

@@ -42,11 +42,15 @@ from repro_torch.core.passes import SetpmPlacement  # noqa: E402
 from repro_torch.core.policies import KnobGrid  # noqa: E402
 from repro_torch.core.session import SweepSession  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import program_exec as p_exec  # noqa: E402
 from repro_torch.kernels.program_exec import (OUTPUTS,  # noqa: E402
                                               program_exec,
-                                              program_exec_plain)
+                                              program_exec_plain,
+                                              program_exec_streams,
+                                              program_exec_streams_plain)
 
 from _torch_programs import pack_programs as pack  # noqa: E402
+from _torch_programs import program_arrays, row_knobs  # noqa: E402
 from _torch_programs import seeded_programs  # noqa: E402
 
 r_sweep = importlib.import_module("repro.core.sweep")
@@ -205,6 +209,177 @@ def test_program_exec_rejects_malformed_stacks():
             program_exec(dict(data, **{key: bad}))
     with pytest.raises(ValueError):
         program_exec({k: v for k, v in data.items() if k != "mode0"})
+
+
+# ------------------------------------------------- the ragged stream entry
+def stream_case(make, stream_of_row, scales):
+    """Ragged streams of the programs ``make(isa)`` builds (with their
+    horizons) in both packages, row ``r`` on stream ``stream_of_row[r]``
+    at ``scales[r]``: the port's ``ProgramArrays``, its stream-entry
+    arguments on the CPU and the reference's dense stack."""
+    rows_p, horizons = make(p_isa)
+    rows_r, _ = make(r_isa)
+    pa_p = program_arrays(p_pp, p_isa, rows_p, horizons)
+    pa_r = program_arrays(r_pp, r_isa, rows_r, horizons)
+    sor = np.asarray(stream_of_row, np.int64)
+    delay, window = row_knobs(p_pp, p_isa, scales)
+    hz = np.asarray(horizons, np.int64)[sor]
+    args = p_pp._upload_streams(pa_p, sor, window, delay, hz, "cpu")
+    dense_r = r_pp._pack_dense(pa_r, sor, window, delay, hz)
+    return pa_p, args, dense_r
+
+
+def assert_stream_entry_exact(make, stream_of_row, scales):
+    """The stream entry on the CPU == its plain version == the dense
+    plain version on the port's ``_pack_dense`` == the reference's
+    numpy kernel on its own packing; and ``pack_streams`` is
+    ``_pack_dense``'s layout exactly."""
+    pa_p, args, dense_r = stream_case(make, stream_of_row, scales)
+    got = program_exec_streams(*args)
+    sor, window, delay, hz = (args[1].numpy(), args[2]["window"].numpy(),
+                              args[2]["delay"].numpy(),
+                              args[2]["horizon"].numpy())
+    dense_p = p_pp._pack_dense(pa_p, sor, window, delay, hz)
+    packed = p_exec.pack_streams(*args)
+    for k, v in dense_p.items():
+        assert np.array_equal(packed[k].numpy(), v), k
+    plain_dense = plain(dense_p)
+    ref = r_pp._run_kernel(dense_r, r_backend("numpy"))
+    via_plain = program_exec_streams_plain(*args)
+    for k in OUTPUTS:
+        assert got[k].dtype == torch.int64
+        assert torch.equal(got[k], via_plain[k]), k
+        assert np.array_equal(got[k].numpy(), plain_dense[k]), k
+        assert np.array_equal(got[k].numpy(), ref[k]), k
+    return got
+
+
+@pytest.mark.parametrize("scale", SCALES, ids=lambda s: f"d{s[0]}-w{s[1]}")
+def test_stream_entry_equals_dense_and_reference(scale):
+    assert_stream_entry_exact(seeded_programs, np.arange(24), [scale] * 24)
+
+
+@pytest.mark.parametrize("share", [1, 3, 9])
+def test_stream_entry_rows_share_streams_unsorted(share):
+    """Each of 8 streams run by ``share`` rows at different scales, the
+    rows shuffled; with an empty stream among them."""
+    def make(isa):
+        rows, horizons = seeded_programs(isa, seed=30 + share, n=8)
+        rows[5] = []
+        return rows, horizons
+
+    sor = np.random.default_rng(share).permutation(
+        np.repeat(np.arange(8), share))
+    scales = [SCALES[i % len(SCALES)] for i in range(len(sor))]
+    got = assert_stream_entry_exact(make, sor, scales)
+    horizons = make(p_isa)[1]
+    # the empty stream's rows still drain their horizon
+    r5 = np.flatnonzero(sor == 5)
+    assert (got["cycles"].numpy()[r5] == horizons[5]).all()
+
+
+def test_stream_entry_padding_inside_and_unaligned_starts():
+    """Streams of 1, 2, 3, 5, 6 and 7 events put every stream's start at
+    another offset modulo 4; ``cycle = -1`` events inside a stream (lat
+    and pm 7) and an unused stream change nothing."""
+    def make(isa):
+        return seeded_programs(isa, seed=40, n=7,
+                               n_events=[1, 2, 3, 5, 6, 7, 130])
+
+    _, args, _ = stream_case(make, [6, 0, 1, 2, 3, 4, 5, 6],
+                             SCALES + SCALES[:2])
+    starts = args[0]["offsets"][:-1].numpy()
+    assert set(starts % 4) == {0, 1, 2, 3}
+    want = program_exec_streams(*args)
+    streams = dict(args[0])
+    off = streams["offsets"]
+    cyc, lat, pm = (streams[k].clone() for k in ("cycle", "lat", "pm"))
+    holes = torch.tensor([int(off[6]) + 4, int(off[6]) + 60])
+    parts = {"cycle": [], "lat": [], "pm": []}
+    new_off = [0]
+    for si in range(len(off) - 1):
+        lo, hi = int(off[si]), int(off[si + 1])
+        for k, col, fill in (("cycle", cyc, -1), ("lat", lat, 7),
+                             ("pm", pm, 7)):
+            seg = col[lo:hi]
+            if si == 6:  # two holes inside the long stream
+                at = (holes - lo).tolist()
+                hole = torch.full((1,) + seg.shape[1:], fill, dtype=seg.dtype)
+                seg = torch.cat([seg[:at[0]], hole, seg[at[0]:at[1]], hole,
+                                 seg[at[1]:]])
+            parts[k].append(seg)
+        new_off.append(new_off[-1] + len(parts["cycle"][-1]))
+    padded = {k: torch.cat(v) for k, v in parts.items()}
+    padded["offsets"] = torch.tensor(new_off, dtype=torch.int64)
+    got = program_exec_streams(padded, args[1], args[2])
+    for k in OUTPUTS:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_dense_stack_as_streams_is_the_same_program():
+    """``program_exec``'s card route turns a dense stack into one stream
+    a row cut at its last real event; on the CPU that form gives the
+    dense plain version's results, inert and padded rows too."""
+    rows, horizons = seeded_programs(p_isa, seed=3, n=6)
+    rows.append([])
+    data = {k: torch.from_numpy(v) for k, v in
+            pack(p_pp, p_isa, rows, horizons + [0], SCALES + SCALES[:1])
+            .items()}
+    data["cycle"][2, 1] = -1  # a hole inside a row
+    streams, sor, rws = p_exec._dense_as_streams(data)
+    assert int(streams["offsets"][-1]) == int(
+        p_exec.row_extent(data["cycle"]).sum())
+    got = program_exec_streams(streams, sor, rws)
+    want = program_exec_plain(data)
+    for k in OUTPUTS:
+        assert torch.equal(got[k], want[k]), k
+
+
+def test_program_exec_streams_rejects_malformed_input():
+    _, (streams, sor, rws), _ = stream_case(
+        lambda isa: seeded_programs(isa, seed=5, n=3), [0, 1, 2, 1],
+        SCALES[:4])
+    for bad in (dict(streams, pm=streams["pm"].to(torch.int64)),
+                dict(streams, offsets=streams["offsets"].flip(0)),
+                dict(streams, offsets=streams["offsets"] + 1)):
+        with pytest.raises(ValueError):
+            program_exec_streams(bad, sor, rws)
+    with pytest.raises(ValueError):
+        program_exec_streams(streams, sor + 3, rws)
+    with pytest.raises(ValueError):
+        program_exec_streams(streams, sor[:3], rws)
+
+
+def test_card_path_ragged_call_equals_cpu_dense_call(monkeypatch):
+    """``program_plane_batch``'s card route (``_run_streams``: the
+    ragged stack through the stream entry) and its CPU route
+    (``_run_dense``: ``_pack_dense`` through the dense entry) give the
+    same batch, both run here on the CPU."""
+    wls = p_suite()[10:13]
+    knobs = KnobGrid(delay_scale=(1.0, 4.0),
+                     window_scale=(0.5, 1.0, 2.0)).product()
+    dense = p_pp.program_plane_batch(wls, ("NPU-B", "NPU-D"), knobs,
+                                     device="cpu")
+    calls = []
+
+    def card_route(*a):
+        calls.append(a[0].n_streams)
+        return run_streams(*a)
+
+    run_streams = p_pp._run_streams
+    monkeypatch.setattr(p_pp, "_run_dense", card_route)
+    got = p_pp.program_plane_batch(wls, ("NPU-B", "NPU-D"), knobs,
+                                   device="cpu")
+    # 3 workloads x 2 NPUs x 2 delay scales, each stream run by 3 rows
+    assert calls == [12]
+    for f in ("cycles", "stall_cycles", "n_events"):
+        assert np.array_equal(getattr(got, f), getattr(dense, f)), f
+    for f in ("gated_cycles", "wake_events", "setpm_isa"):
+        a, b = getattr(got, f), getattr(dense, f)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert np.array_equal(a[k], b[k]), (f, k)
+    assert got.records() == dense.records()
 
 
 # ------------------------------------------------------------ the sweep

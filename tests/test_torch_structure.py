@@ -21,7 +21,9 @@ SMOKE = ROOT / "chip_smoke.py"
 AB = ROOT / "chip_ab.py"
 K2_PROBE = ROOT / "chip_k2_readahead.py"
 WINDOW_PROBE = ROOT / "chip_profiler_window.py"
-PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE, AB, K2_PROBE, WINDOW_PROBE]
+B7_VARIANTS = ROOT / "chip_b7_variants.py"
+PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE, AB, K2_PROBE, WINDOW_PROBE,
+                                         B7_VARIANTS]
 
 FOREIGN_IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)", re.MULTILINE)
@@ -312,7 +314,8 @@ def _global_kernels() -> set:
     return names
 
 
-@pytest.mark.parametrize("script", [SMOKE, AB], ids=lambda p: p.name)
+@pytest.mark.parametrize("script", [SMOKE, AB, B7_VARIANTS],
+                         ids=lambda p: p.name)
 def test_profiled_kernel_names_are_defined(script):
     """Every kernel name a script looks up in the profiler is a
     ``__global__`` of ``csrc/``: a stale name would read 0 µs with no
@@ -357,3 +360,39 @@ def test_bf16_kernels_share_the_tensor_core_header(tmp_path, monkeypatch):
                                (t + 50.0, set(_build.LIBRARIES))):
         os.utime(inc / header.name, (header_time, header_time))
         assert set(_build._stale()) == stale
+
+
+def _function_source(path, name) -> str:
+    tree = ast.parse(path.read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    return ast.get_source_segment(path.read_text(), fn)
+
+
+def test_b7_card_path_builds_no_dense_stack():
+    """On a card ``program_plane_batch`` hands B7 the ragged streams:
+    its card route packs nothing dense and reaches the stream entry,
+    and the one kernel's source reads streams, not an (E, R, U) stack."""
+    core = PKG / "core" / "program_plane.py"
+    for name in ("_run_streams", "_upload_streams"):
+        body = _function_source(core, name)
+        assert "_pack_dense" not in body and "program_exec(" not in body
+    assert "program_exec_streams(" in _function_source(core, "_run_streams")
+    batch = _function_source(core, "program_plane_batch")
+    assert re.search(r'_run_streams if .*"cuda"', batch.replace("\\\n", ""))
+    cu = (PKG / "kernels" / "csrc" / "program_plane.cu").read_text()
+    assert cu.count("__global__") == 1
+    assert "extent" not in cu and "ev_lo" in cu
+
+
+def test_b7_ring_takes_its_bulk_copies_from_the_shared_header():
+    """B7's ring fills shared memory by the header's 1-D bulk copies on
+    its mbarriers; the source itself holds no PTX."""
+    csrc = PKG / "kernels" / "csrc"
+    cu = (csrc / "program_plane.cu").read_text()
+    assert '#include "mma_bf16.cuh"' in cu and "asm" not in cu
+    for helper in ("bulk_load_1d(", "mbar_wait(", "mbar_expect_tx(",
+                   "mbar_init("):
+        assert helper in cu, helper
+    assert "cp.async.bulk.shared::cluster.global" in \
+        (csrc / "mma_bf16.cuh").read_text()
