@@ -17,6 +17,21 @@ path, read just after) that each path really went through its kernels:
 * ``repro_torch.core.evaluate_all`` (all five policies of one workload
   through ``evaluate_batch``, K1 and K2) for each of the 17 paper-suite
   workloads on NPU-D, held to the host engine ``evaluate`` within 1e-9;
+* the fleet plane, ``repro_torch.core.fleet.sweep_fleet`` → one
+  ``policies.evaluate_batch`` a 900 s epoch (K1 once and K2 the same count
+  in each of the 97 calls), at ``benchmarks/perf_fleet.py``'s day, none
+  of it cut: 4 tenant classes on 4 096 NPU-D chips, 96 epochs, 3 policies
+  × 24 knobs, over a million requests — bit-identical on a rerun, its
+  first 8 epochs against the CPU and its calibration call against the
+  numpy batched engine within 1e-9; the chaos campaign ``sweep_chaos``
+  over a severity-1 fault timeline; the guard plane (a guarded day with
+  zero events, then a card rung that raises once, one that sleeps past
+  its deadline, one whose library does not load and one that returns a
+  NaN, each with exactly its events; the card's ladder has no rung
+  below it, so the second and third raise ``GuardError``), and a
+  checkpointed campaign in a child process killed at an epoch boundary
+  and mid-epoch, resumed bit for bit. These run last, after every
+  profiled phase;
 * the gated matmul ``repro_torch.kernels.ops.gated_matmul`` (kernel B2,
   which skips all-zero weight tiles) at the gate/up projection of
   qwen2.5-3b at serve_full's prefill, x (8192, 2048) and w (2048,
@@ -1430,6 +1445,525 @@ def program_plane_full(card: str, suite) -> dict:
                          "call"}
 
 
+# ---- the fleet, chaos and guard planes --------------------------------------
+
+# benchmarks/perf_fleet.py's knob grid: 4 window x 3 delay x 2 leak = 24
+FLEET_GRID = dict(window_scale=(0.25, 0.5, 1.0, 2.0),
+                  delay_scale=(1.0, 2.0, 4.0), leak_off_logic=(None, 0.2))
+FLEET_DAY_S = 86400.0
+FLEET_MIN_REQUESTS = 1_000_000
+# fleet_parity's cut: the first 8 epochs of the day, card against CPU
+FLEET_PARITY_S = 8 * 900.0
+# the profile window of fleet_full: a few epochs
+FLEET_PROFILE_S = 4 * 900.0
+# benchmarks/perf_chaos.py's campaign: one faulted severity, no baseline
+CHAOS_SEVERITY = 1.0
+# benchmarks/perf_guard.py: a deadline far above any epoch's wall
+GUARD_TIMEOUT_S = 600.0
+# the injected faults: a deadline the wedged rung sleeps well past
+GUARD_SHORT_TIMEOUT_S = 0.25
+GUARD_WEDGE_S = 1.0
+RESUME_CHILD = os.path.join("tests", "_torch_guard_resume_child.py")
+RESUME_KILLS = ("boundary:2", "mid:3")
+FLEET_RTOL = 1e-9
+
+
+def fleet_day(duration_s: float = FLEET_DAY_S):
+    """The fleet day of ``benchmarks/perf_fleet.py:38-66`` with the
+    port's classes: diurnal chat decode and prefill, a bursty 70B tier,
+    steady DLRM on 4 096 NPU-D chips, 3 policies, 96 epochs of 900 s,
+    severity levels 0 / 0.5 / 1, seed 7 (``duration_s`` cuts the day)."""
+    from repro_torch.core.fleet import (ArrivalSpec, FleetScenario,
+                                        WorkloadClass)
+    from repro_torch.core.opgen import dlrm_workload, llm_workload
+    diurnal = dict(rate_rps=10.0, peak_frac=0.9, period_s=86400.0,
+                   phase_s=-21600.0)
+    classes = (
+        WorkloadClass("chat-decode",
+                      llm_workload("llama3-8b", "decode", batch=8),
+                      ArrivalSpec("diurnal", **diurnal),
+                      requests_per_invocation=8),
+        WorkloadClass("chat-prefill",
+                      llm_workload("llama3-8b", "prefill", batch=1,
+                                   seq=4096),
+                      ArrivalSpec("diurnal", **diurnal)),
+        WorkloadClass("research-70b",
+                      llm_workload("llama3-70b", "decode", batch=4,
+                                   n_chips=8, tp=8),
+                      ArrivalSpec("bursty", rate_rps=1.5, burst_prob=0.15,
+                                  burst_factor=8.0),
+                      requests_per_invocation=4),
+        WorkloadClass("ranking-dlrm", dlrm_workload("M"),
+                      ArrivalSpec("poisson", rate_rps=3.0),
+                      requests_per_invocation=1024))
+    return FleetScenario(
+        classes=classes, n_chips=4096, npu="NPU-D",
+        policies=("NoPG", "ReGate-HW", "ReGate-Full"),
+        duration_s=duration_s, epoch_s=900.0, slo_relax=1.2, seed=7,
+        severity_levels=(0.0, 0.5, 1.0))
+
+
+def tree_rel(ref, got, what: str) -> float:
+    """Two reports as plain values (``to_dict()``) under the port's one
+    rule (``guard.tree_max_rel``): the same keys and lengths, every
+    str / bool / int / None equal, every float within ``FLEET_RTOL``
+    relative. Returns the worst relative deviation."""
+    from repro_torch.core.guard import GuardError, tree_max_rel
+    try:
+        return tree_max_rel(ref, got, FLEET_RTOL)
+    except GuardError as e:
+        fail(f"{what}{e}")
+
+
+def cube_rel(ref, got, what: str) -> float:
+    """Two ``BatchResult`` cubes, field by field (``guard.cube_max_rel``):
+    finite, within ``FLEET_RTOL``. Returns the worst relative deviation."""
+    from repro_torch.core.guard import GuardError, cube_max_rel
+    try:
+        return cube_max_rel(ref, got, FLEET_RTOL)
+    except GuardError as e:
+        fail(f"{what}: {e}")
+
+
+def cubes_equal(a, b) -> bool:
+    import numpy as np
+    from repro_torch.core.guard import _result_fields
+    return all(np.array_equal(x, y) for (_, x), (_, y)
+               in zip(_result_fields(a), _result_fields(b)))
+
+
+class PerCall:
+    """Counts K1 / K2 launches and the wall of every ``evaluate_batch``
+    call the fleet plane makes (``fleet._eval``'s), by wrapping the name
+    ``repro_torch.core.fleet`` calls; restored on exit."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.core import fleet
+        from repro_torch.kernels.sa_occupancy import sa_occupancy
+        from repro_torch.kernels.segment_sum import segment_sum
+        self._real = real = fleet.evaluate_batch
+
+        def counted(*a, **k):
+            k1, k2 = sa_occupancy.launches, segment_sum.launches
+            t0 = time.perf_counter()
+            res = real(*a, **k)
+            self.calls.append((sa_occupancy.launches - k1,
+                               segment_sum.launches - k2,
+                               time.perf_counter() - t0))
+            return res
+        fleet.evaluate_batch = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import fleet
+        fleet.evaluate_batch = self._real
+
+    def k2_per_call(self, what: str, n_calls: int) -> int:
+        """Every call launched K1 once and K2 the same number of times,
+        and there were ``n_calls`` calls: K2's count a call."""
+        check(len(self.calls) == n_calls,
+              f"{what}: {len(self.calls)} evaluate_batch calls, want "
+              f"{n_calls}")
+        k2 = self.calls[0][1]
+        check(k2 > 0 and all(c[0] == 1 and c[1] == k2
+                             for c in self.calls),
+              f"{what}: K1/K2 launches differ between calls: "
+              f"{sorted(set(c[:2] for c in self.calls))}")
+        return k2
+
+    def split(self) -> dict:
+        s = sorted(c[2] for c in self.calls)
+        return {"calls_s_total": sum(s), "call_s_median": s[len(s) // 2],
+                "call_s_min": s[0], "call_s_max": s[-1]}
+
+
+def fleet_launches_ok(launches: dict, n_calls: int, k2: int, what: str):
+    check(launches == {**expected_launches("sa_occupancy", n_calls),
+                       "segment_sum": k2 * n_calls},
+          f"{what} launched {launches}, want K1 {n_calls} and K2 "
+          f"{k2} x {n_calls}")
+
+
+def fleet_full(card: str, dev="cuda") -> tuple[dict, object]:
+    """The fleet day on the card, nothing cut: a first run with its
+    launches counted call by call (K1 once and K2 the same count in every
+    one of the 97 ``evaluate_batch`` calls), two more runs bit-identical
+    to it (the steady wall their min), the same day on the numpy batched
+    engine beside it (its wall; its report within 1e-9, decisions
+    identical), and a profile window of a few epochs. Returns (the
+    phase's record, the first report)."""
+    import torch
+    from repro_torch.core.fleet import sweep_fleet
+    from repro_torch.core.policies import KnobGrid
+    sc, grid = fleet_day(), KnobGrid(**FLEET_GRID)
+    n_calls = sc.n_epochs + 1
+    with PerCall() as pc:
+        reset_launches()
+        t0 = time.perf_counter()
+        first = sweep_fleet(sc, grid, device=dev)
+        wall_first = time.perf_counter() - t0
+        launches = read_launches()
+    k2 = pc.k2_per_call("fleet_full", n_calls)
+    fleet_launches_ok(launches, n_calls, k2, "fleet_full")
+    check(first.requests_total >= FLEET_MIN_REQUESTS,
+          f"fleet_full: {first.requests_total} requests < "
+          f"{FLEET_MIN_REQUESTS}")
+    ref = first.to_dict()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = sweep_fleet(sc, grid, device=dev)
+        walls.append(time.perf_counter() - t0)
+        check(again.to_dict() == ref,
+              "fleet_full: a second run is not bit-identical")
+    t0 = time.perf_counter()
+    on_host = sweep_fleet(sc, grid, device="numpy")
+    wall_numpy = time.perf_counter() - t0
+    worst = tree_rel(on_host.to_dict(), ref, "fleet_full card vs numpy")
+    short = fleet_day(FLEET_PROFILE_S)
+
+    def run_short():
+        t = time.perf_counter()
+        sweep_fleet(short, grid, device=dev)
+        if str(dev).startswith("cuda"):
+            torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    run_short()
+    prof = profile_run(run_short, ("sa_occupancy_kernel",
+                                   "segment_sum_kernel"))
+    steady = min(walls)
+    return {"card": card, "classes": len(sc.classes),
+            "n_chips": sc.n_chips, "epochs": sc.n_epochs,
+            "policies": len(sc.policies), "knobs": len(grid.product()),
+            "requests_total": first.requests_total,
+            "evaluate_batch_calls": n_calls, "launches": launches,
+            "k1_per_call": 1, "k2_per_call": k2,
+            "wall_s_first": wall_first, "wall_s_steady": steady,
+            "epochs_per_s": sc.n_epochs / steady,
+            "first_run": pc.split(),
+            "wall_s_numpy_engine": wall_numpy,
+            "max_rel_err_vs_numpy_engine": worst,
+            "bit_identical_rerun": True,
+            "profile_epochs": short.n_epochs, "profile": prof}, first
+
+
+def fleet_parity(card: str, dev="cuda") -> dict:
+    """The fleet day cut to its first 8 epochs, on the card against the
+    CPU (every integer and flag — arrivals, severity indices, chosen and
+    deployed knobs, retunes, allocations — equal, every float ≤1e-9), and
+    the calibration call on the card against the numpy batched engine
+    (≤1e-9)."""
+    from repro_torch.core.fleet import sweep_fleet
+    from repro_torch.core.hw import get_npu
+    from repro_torch.core.policies import (KnobGrid, evaluate_batch,
+                                           evaluate_batch_numpy)
+    sc, grid = fleet_day(FLEET_PARITY_S), KnobGrid(**FLEET_GRID)
+    t0 = time.perf_counter()
+    on_card = sweep_fleet(sc, grid, device=dev)
+    wall_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = sweep_fleet(sc, grid, device="cpu")
+    wall_cpu = time.perf_counter() - t0
+    worst = tree_rel(on_cpu.to_dict(), on_card.to_dict(),
+                     "fleet_parity card vs CPU")
+    base = [c.workload for c in sc.classes]
+    npu = (get_npu(sc.npu),)
+    cal = evaluate_batch(base, npu, sc.policies, grid, device=dev)
+    ora = evaluate_batch_numpy(base, npu, sc.policies, grid)
+    cal_worst = cube_rel(ora, cal, "fleet_parity calibration vs numpy")
+    return {"card": card, "epochs": sc.n_epochs,
+            "cut": f"duration_s {FLEET_PARITY_S:g} of {FLEET_DAY_S:g}",
+            "records": len(on_card.records),
+            "retunes": sum(r["retuned"] for r in on_card.records),
+            "max_rel_err_vs_cpu": worst, "decisions_identical": True,
+            "calibration_cells": int(ora.runtime_s.size),
+            "calibration_max_rel_err_vs_numpy": cal_worst,
+            "wall_s_card": wall_card, "wall_s_cpu": wall_cpu}
+
+
+def chaos_full(card: str, dev="cuda") -> dict:
+    """``benchmarks/perf_chaos.py``'s campaign with the port's classes:
+    the fleet day under a seeded fault timeline of severity 1 (chip
+    failures, drains, pg faults, link flaps / degrades / downs), the
+    hysteresis governor, no thrash baseline; the timeline must realize
+    faults, every call launch K1 once and K2 the same count, and a rerun
+    be bit-identical."""
+    from repro_torch.core.fleet import sweep_chaos
+    from repro_torch.core.policies import KnobGrid
+    sc, grid = fleet_day(), KnobGrid(**FLEET_GRID)
+    kw = dict(fault_severities=(CHAOS_SEVERITY,), thrash_baseline=False,
+              device=dev)
+    n_calls = sc.n_epochs + 1
+    with PerCall() as pc:
+        reset_launches()
+        t0 = time.perf_counter()
+        camp = sweep_chaos(sc, grid, **kw)
+        wall_first = time.perf_counter() - t0
+        launches = read_launches()
+    k2 = pc.k2_per_call("chaos_full", n_calls)
+    fleet_launches_ok(launches, n_calls, k2, "chaos_full")
+    rep, tl = camp["reports"][CHAOS_SEVERITY], camp["timelines"][
+        CHAOS_SEVERITY]
+    check(bool(tl.any_fault().any()) and tl.has_link_faults,
+          "chaos_full: the severity-1 timeline realized no faults")
+    t0 = time.perf_counter()
+    again = sweep_chaos(sc, grid, **kw)
+    wall_second = time.perf_counter() - t0
+    check(again["reports"][CHAOS_SEVERITY].to_dict() == rep.to_dict()
+          and again["summary"] == camp["summary"],
+          "chaos_full: a rerun is not bit-identical")
+    fs = rep.fault_summary
+    return {"card": card, "fault_severity": CHAOS_SEVERITY,
+            "epochs": sc.n_epochs, "launches": launches,
+            "k2_per_call": k2, "wall_s_first": wall_first,
+            "wall_s_second": wall_second, "first_run": pc.split(),
+            "faulted_epochs": fs["faulted_epochs"],
+            "link_fault_epochs": fs["link_fault_epochs"],
+            "pg_fault_epochs": fs["pg_fault_epochs"],
+            "chip_fault_epochs": fs["chip_fault_epochs"],
+            "fault_transitions": fs["n_transitions"],
+            "retunes": {r["policy"]: r["retunes"] for r in camp["summary"]},
+            "bit_identical_rerun": True}
+
+
+def guard_faults(dev="cuda") -> dict:
+    """Four faults injected into the card rung at the resume child's
+    size, each held to exactly the events it must give. The card's
+    ladder has no rung below it, so nothing here may reach the host: a
+    rung that raises once (one ``retry``, the card's result); a rung that
+    sleeps past a short deadline (``GuardError`` naming the timeout, no
+    attempt off the card); a rung whose library does not load
+    (``GuardError`` at once, no retry, no launch); a rung that poisons
+    one cell with NaN (one ``quarantine`` and its ``oracle_recheck``, the
+    cell patched from the numpy batched engine, the survivors within
+    1e-9 of it)."""
+    from repro_torch.core import guard
+    from repro_torch.core.backend import failover_rungs
+    from repro_torch.core.guard import GuardedRunner, GuardError, GuardPolicy
+    from repro_torch.core.opgen import llm_workload
+    from repro_torch.core.policies import (KnobGrid, evaluate_batch,
+                                           evaluate_batch_numpy)
+    from repro_torch.kernels.sa_occupancy import sa_occupancy
+    wls = [llm_workload("llama2-13b", "decode", batch=8, n_chips=8, tp=8)]
+    args = (wls, ("NPU-D",), ("NoPG", "ReGate-Full"),
+            tuple(KnobGrid(window_scale=(0.5, 1.0)).product()))
+    rungs = failover_rungs(dev)
+    card = rungs[0][0]
+    check(rungs == ((card, None),),
+          f"guard: the card's ladder is {rungs}, want the card alone")
+    default = GuardedRunner._default_runner
+    want_card = evaluate_batch(*args, device=dev)
+    oracle = evaluate_batch_numpy(*args)
+    out = {}
+
+    def kinds(runner):
+        return [(e["kind"], e["rung"], e.get("next_rung"))
+                for e in runner.report.events]
+
+    state = {"n": 0}
+
+    def raises_once(rung, *a):
+        state["n"] += 1
+        if state["n"] == 1:
+            raise RuntimeError("injected: transient launch failure")
+        return default(rung, *a)
+
+    r = GuardedRunner(GuardPolicy(max_retries=2, backoff_base_s=0.01),
+                      rungs=rungs, runner=raises_once, seed=7)
+    t0 = time.perf_counter()
+    got = r.evaluate_batch(*args, step=1)
+    out["raises_once"] = {"events": kinds(r),
+                          "seconds": time.perf_counter() - t0}
+    check(kinds(r) == [("retry", card, None)],
+          f"guard raises_once: events {kinds(r)}")
+    check(cubes_equal(want_card, got),
+          "guard raises_once: the result is not the card's")
+
+    calls = []
+
+    def wedged(rung, *a):
+        calls.append(rung)
+        time.sleep(GUARD_WEDGE_S)   # abandoned; launches nothing
+        return None
+
+    r = GuardedRunner(GuardPolicy(timeout_s=GUARD_SHORT_TIMEOUT_S,
+                                  max_retries=0),
+                      rungs=rungs, runner=wedged, seed=7)
+    t0 = time.perf_counter()
+    try:
+        r.evaluate_batch(*args, step=2)
+        raised = ""
+    except GuardError as e:
+        raised = str(e)
+    out["wedged"] = {"raised": raised, "events": kinds(r), "calls": calls,
+                     "seconds": time.perf_counter() - t0}
+    check("timeout" in raised and calls == [card] and kinds(r) == [],
+          f"guard wedged: raised {raised!r}, calls {calls}, events "
+          f"{kinds(r)}; want GuardError on the card alone")
+    time.sleep(GUARD_WEDGE_S)  # the abandoned attempt ends
+
+    real_warm = guard._warm_device
+
+    def no_library(d):
+        raise OSError("injected: the power-plane library does not load")
+
+    guard._warm_device = no_library
+    k1 = sa_occupancy.launches
+    r = GuardedRunner(GuardPolicy(max_retries=2), device=dev, seed=7)
+    t0 = time.perf_counter()
+    try:
+        r.evaluate_batch(*args, step=3)
+        raised = ""
+    except GuardError as e:
+        raised = str(e)
+    finally:
+        guard._warm_device = real_warm
+    out["unprepared"] = {"raised": raised, "events": kinds(r),
+                         "seconds": time.perf_counter() - t0}
+    check("could not be prepared" in raised and kinds(r) == []
+          and sa_occupancy.launches == k1,
+          f"guard unprepared: raised {raised!r}, events {kinds(r)}; want "
+          f"GuardError at once with no retry and no launch")
+
+    def poisons(rung, *a):
+        import dataclasses
+        res = default(rung, *a)
+        rt = res.runtime_s.copy()
+        rt[0, 0, 1, 0] = float("nan")
+        return dataclasses.replace(res, runtime_s=rt)
+
+    r = GuardedRunner(GuardPolicy(), rungs=rungs, runner=poisons, seed=7)
+    t0 = time.perf_counter()
+    got = r.evaluate_batch(*args, step=4)
+    out["poisons"] = {"events": kinds(r),
+                      "seconds": time.perf_counter() - t0}
+    ev = r.report.events
+    check(kinds(r) == [("quarantine", card, None),
+                       ("oracle_recheck", card, None)]
+          and ev[0]["cell"] == [0, 0, 1, 0],
+          f"guard poisons: events {kinds(r)}")
+    check(got.runtime_s[0, 0, 1, 0] == oracle.runtime_s[0, 0, 1, 0],
+          "guard poisons: the cell is not the numpy engine's")
+    out["poisons"]["survivors_max_rel_err"] = cube_rel(
+        oracle, got, "guard poisons: vs the numpy engine")
+    return out
+
+
+def guard_full(card: str, plain, k2: int, dev="cuda") -> dict:
+    """The fleet day under ``GuardPolicy(timeout_s=600)``: bit-identical
+    to the plain run with zero guard events and the same launches, its
+    overhead timed against plain runs in turns (plain, guarded, guarded,
+    plain), then the injected faults (``guard_faults``)."""
+    from repro_torch.core.fleet import sweep_fleet
+    from repro_torch.core.guard import GuardPolicy
+    from repro_torch.core.policies import KnobGrid
+    sc, grid = fleet_day(), KnobGrid(**FLEET_GRID)
+    pol = GuardPolicy(timeout_s=GUARD_TIMEOUT_S)
+    want = plain.to_dict()
+    want.pop("guard")
+    walls = {"plain": [], "guarded": []}
+    launches = None
+    for kind in ("plain", "guarded", "guarded", "plain"):
+        guard = pol if kind == "guarded" else None
+        reset_launches()
+        t0 = time.perf_counter()
+        rep = sweep_fleet(sc, grid, device=dev, guard=guard)
+        walls[kind].append(time.perf_counter() - t0)
+        got = rep.to_dict()
+        if guard is None:
+            check(got == plain.to_dict(),
+                  "guard_full: a plain run is not bit-identical")
+            continue
+        launches = launches or read_launches()
+        check(rep.guard is not None and rep.guard["events"] == [],
+              f"guard_full: a clean guarded run on the card recorded "
+              f"events: {rep.guard and rep.guard['events'][:3]}")
+        got.pop("guard")
+        check(got == want,
+              "guard_full: the guarded run differs from the plain run")
+    fleet_launches_ok(launches, sc.n_epochs + 1, k2, "guard_full")
+    t0 = time.perf_counter()
+    faults = guard_faults(dev)
+    return {"card": card, "timeout_s": GUARD_TIMEOUT_S,
+            "launches": launches, "events": 0,
+            "order": "plain, guarded, guarded, plain",
+            "wall_s_plain": walls["plain"],
+            "wall_s_guarded": walls["guarded"],
+            "overhead": min(walls["guarded"]) / min(walls["plain"]) - 1.0,
+            "bit_identical_to_plain": True, "injected": faults,
+            "injected_s": time.perf_counter() - t0}
+
+
+def guard_resume(card: str, dev="cuda") -> dict:
+    """``tests/_torch_guard_resume_child.py``'s chaos campaign on the card
+    in a child process (which imports only ``repro_torch``), SIGKILLed by
+    the guard's own hook at an epoch boundary and mid-epoch, then resumed
+    from its checkpoint: the result must equal an uninterrupted card run
+    of the same campaign bit for bit."""
+    import importlib.util
+    import shutil
+    import signal
+    import tempfile
+    child = os.path.join(HERE, RESUME_CHILD)
+    check(os.path.isfile(child), f"{RESUME_CHILD} is missing")
+    spec = importlib.util.spec_from_file_location("_resume_child", child)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    scratch = os.path.join(HERE, "build", "chip_smoke_guard_resume")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=scratch)
+    env = {k: v for k, v in os.environ.items() if k != "REPRO_GUARD_KILL"}
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(HERE, "src"),
+                                         os.path.dirname(child)])
+
+    def launch(ckdir, out, kill=None):
+        e = dict(env, REPRO_GUARD_KILL=kill) if kill else env
+        return subprocess.run([sys.executable, child, ckdir, out, str(dev)],
+                              env=e, capture_output=True, text=True,
+                              timeout=600)
+
+    try:
+        t0 = time.perf_counter()
+        want = json.dumps(mod.campaign(os.path.join(tmp, "ref"), str(dev)),
+                          sort_keys=True)
+        ref_s = time.perf_counter() - t0
+        runs = {}
+        for kill in RESUME_KILLS:
+            ck = os.path.join(tmp, kill.replace(":", "_"))
+            out = os.path.join(tmp, kill.replace(":", "_") + ".json")
+            t0 = time.perf_counter()
+            died = launch(ck, out, kill)
+            killed_s = time.perf_counter() - t0
+            check(died.returncode == -signal.SIGKILL
+                  and not os.path.exists(out),
+                  f"guard_resume {kill}: the child was not killed "
+                  f"(rc {died.returncode}): {died.stderr[-2000:]}")
+            phase, _, e = kill.partition(":")
+            if phase == "boundary":
+                check(os.path.exists(os.path.join(
+                    ck, "run0_hyst", f"epoch_{e}.json")),
+                    f"guard_resume {kill}: no snapshot of epoch {e}")
+            t0 = time.perf_counter()
+            resumed = launch(ck, out)
+            resumed_s = time.perf_counter() - t0
+            check(resumed.returncode == 0,
+                  f"guard_resume {kill}: the resumed child failed: "
+                  f"{resumed.stderr[-2000:]}")
+            with open(out) as f:
+                check(f.read() == want, f"guard_resume {kill}: the "
+                      f"resumed result differs from an uninterrupted run")
+            runs[kill] = {"killed_s": killed_s, "resumed_s": resumed_s,
+                          "bit_identical": True}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"card": card, "device": str(dev), "uninterrupted_s": ref_s,
+            "kills": runs}
+
+
 def rel_l2(got, want):
     """Per row ||got - want|| / ||want|| over the last axis, float32."""
     d = (got.float() - want.float()).norm(dim=-1)
@@ -2051,6 +2585,25 @@ def main() -> int:
     # ---- 9. serve_ssm_parity: card vs CPU, full width, 2 layers ----------
     emit("serve_ssm_parity", **serve_parity(SSM_ARCH))
 
+    # ---- 10. the fleet, chaos and guard planes: K1 and K2, 97 calls a day
+    # (after every profiled phase above, so that their threads and their
+    # abandoned guard attempt cannot touch those phases' records)
+    t0 = time.perf_counter()
+    fleet_rec, fleet_report = fleet_full(card)
+    emit("fleet_full", seconds=time.perf_counter() - t0, **fleet_rec)
+    t0 = time.perf_counter()
+    parity = fleet_parity(card)
+    emit("fleet_parity", seconds=time.perf_counter() - t0, **parity)
+    t0 = time.perf_counter()
+    chaos = chaos_full(card)
+    emit("chaos_full", seconds=time.perf_counter() - t0, **chaos)
+    t0 = time.perf_counter()
+    guarded = guard_full(card, fleet_report, fleet_rec["k2_per_call"])
+    emit("guard_full", seconds=time.perf_counter() - t0, **guarded)
+    t0 = time.perf_counter()
+    resume = guard_resume(card)
+    emit("guard_resume", seconds=time.perf_counter() - t0, **resume)
+
     # ---- the kernels line, the card, the verdict ------------------------
     main_k2 = k2_shapes[0]
     kernels = [
@@ -2061,11 +2614,15 @@ def main() -> int:
          "bound_by": "bytes" if k1_bytes / HBM_BYTES_PER_S
          >= k1_ops / FP64_FLOPS_PER_S else "operations",
          "library_ms": None, "shape": k1_shape, "device_us": k1_device_us,
+         "launches_fleet": fleet_rec["launches"]["sa_occupancy"],
+         "launches_fleet_per_call": fleet_rec["k1_per_call"],
          "launch_floor_device_us": launch_floor_us,
          "tolerance": "torch.equal with the plain version on the card"},
         {"name": "segment_sum", "route": "cuda", "source": K1_SOURCE,
          "replaces": "src/repro/core/backend.py:203",
          "launches": launches["segment_sum"],
+         "launches_fleet": fleet_rec["launches"]["segment_sum"],
+         "launches_fleet_per_call": fleet_rec["k2_per_call"],
          "max_abs_err": k2_err_card, "ms": main_k2["ms"],
          "device_us": main_k2["device_us"],
          "plain_ms": main_k2["plain_ms"], "bound_ms": main_k2["bound_ms"],

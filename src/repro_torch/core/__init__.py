@@ -27,18 +27,30 @@ ici_topology   — ring / 2-D-mesh collective schedules lowered onto the
                  op-level trace (per-step ICI busy/idle timelines)
 perturb        — seeded fault injection + adversarial perturbation
                  (jitter plane) and the ISA differential fuzz harness
+faults         — seeded chip / link fault timelines (chaos plane) and
+                 the faults-seeded ISA fuzz
+fleet          — a chip fleet over a day of seeded arrivals, one
+                 ``evaluate_batch`` call per epoch (``sweep_fleet``), and
+                 the chaos campaign over fault severities (``sweep_chaos``)
+guard          — the guard plane: deadline watchdog, retries, the
+                 failover ladder (none below the card), NaN quarantine
+                 against the numpy batched engine,
+                 crash-consistent campaign checkpoints
 """
 from repro_torch.core.backend import get_backend
 from repro_torch.core.hw import NPUS, get_npu
 from repro_torch.core.opgen import compile_trace, stack_traces
 from repro_torch.core.policies import POLICIES, evaluate, evaluate_all, \
-    evaluate_batch, evaluate_reference, savings_vs_nopg
-from repro_torch.core.sweep import knob_product, sweep, sweep_grid, \
-    sweep_program_plane, sweep_program_plane_reference, sweep_reference, \
-    sweep_robustness
+    evaluate_batch, evaluate_batch_numpy, evaluate_reference, \
+    savings_vs_nopg
+from repro_torch.core.sweep import GuardPolicy, knob_product, sweep, \
+    sweep_chaos, sweep_fleet, sweep_grid, sweep_program_plane, \
+    sweep_program_plane_reference, sweep_reference, sweep_robustness
 
 __all__ = ["NPUS", "get_npu", "POLICIES", "compile_trace", "stack_traces",
            "evaluate", "evaluate_all", "evaluate_batch",
-           "evaluate_reference", "savings_vs_nopg", "sweep", "sweep_grid",
-           "sweep_reference", "sweep_robustness", "sweep_program_plane",
-           "sweep_program_plane_reference", "knob_product", "get_backend"]
+           "evaluate_batch_numpy", "evaluate_reference", "savings_vs_nopg",
+           "sweep", "sweep_grid", "sweep_reference", "sweep_robustness",
+           "sweep_program_plane", "sweep_program_plane_reference",
+           "sweep_fleet", "sweep_chaos", "GuardPolicy", "knob_product",
+           "get_backend"]

@@ -86,19 +86,47 @@ class TorchBackend:
 _BACKENDS: dict[str, TorchBackend] = {}
 
 
-def get_backend(device=None) -> TorchBackend:
-    """The backend for ``device``. ``None`` resolves through the active
-    ``SweepSession`` and, with nothing set there, means ``"cuda"`` —
-    which raises on a machine with no card."""
+def resolve_device(device=None):
+    """``device`` as every entry point reads it: ``None`` resolves
+    through the active ``SweepSession`` and, with nothing set there,
+    means ``"cuda"``."""
     if device is None:
         device = session.resolve("device")
-    if device is None:
-        device = "cuda"
-    key = str(torch.device(device))
+    return "cuda" if device is None else device
+
+
+def get_backend(device=None) -> TorchBackend:
+    """The backend for ``device`` (``resolve_device``) — a CUDA device
+    raises on a machine with no card."""
+    key = str(torch.device(resolve_device(device)))
     bk = _BACKENDS.get(key)
     if bk is None:
         bk = _BACKENDS[key] = TorchBackend(key)
     return bk
+
+
+def failover_rungs(device=None) -> tuple[tuple[str, object], ...]:
+    """The guard plane's downgrade ladder for a requested device: each
+    rung is ``(rung_name, None)`` (the second slot is where the JAX
+    package's ladder carries a mesh; the port has none). A CUDA device's
+    ladder is that device alone: a campaign asked of the card runs on the
+    card or raises ``guard.GuardError``, and never moves to the kernels'
+    plain versions on the host. A ``"cpu"`` request falls from ``"cpu"``
+    (the same ``_sweep_kernel`` on the plain versions) to ``"numpy"``
+    (``policies.evaluate_batch_numpy``, the independent engine); a
+    ``"numpy"`` request has nowhere to fall, so its ladder is just
+    itself. ``None`` resolves as in ``get_backend``
+    (``resolve_device``)."""
+    device = resolve_device(device)
+    if device == "numpy":
+        return (("numpy", None),)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return ((str(dev), None),)
+    if dev.type == "cpu":
+        return (("cpu", None), ("numpy", None))
+    raise KeyError(f"no failover ladder for device {str(dev)!r}; the "
+                   f"port runs on 'cuda', 'cpu' or 'numpy'")
 
 
 # --------------------------------------------------------------------------

@@ -56,7 +56,8 @@ import torch
 from repro_torch.core.backend import TorchBackend, gap_index, get_backend
 from repro_torch.core.hw import NPUSpec, get_npu, with_sa_width
 from repro_torch.core.opgen import (Op, StackedTrace, TraceArrays, Workload,
-                                    compile_trace, stack_traces)
+                                    compile_trace, segment_sum,
+                                    segmented_gaps, stack_traces)
 from repro_torch.core.power import COMPONENTS, PowerModel
 from repro_torch.core.sa_gating import (SAStats, gating_stats,
                                         gating_stats_batch)
@@ -931,6 +932,257 @@ class BatchResult:
 
 
 # --------------------------------------------------------------------------
+# the numpy batched engine: the guard plane's oracle
+# --------------------------------------------------------------------------
+
+def _batch_ctx(st: StackedTrace, npu: NPUSpec) -> dict:
+    """Per-(stacked trace, NPU) arrays shared by every (policy, knob)
+    cell: stacked service times, merged idle-gap structures, and the
+    knob-independent segment sums. Cached on the stack (spec-identity
+    keyed, same convention as ``trace_times``). Host numpy only."""
+    key = ("batch_ctx", id(npu))
+    hit = st._derived.get(key)
+    if hit is not None and hit[0] is npu:
+        return hit[1]
+    offs = st.offsets
+    tms = [trace_times(tr, npu) for tr in st.traces]
+
+    def cat(key):
+        if not tms:
+            return np.zeros(0)
+        return np.concatenate([tm[key] for tm in tms])
+
+    tm = {k: cat(k) for k in ("sa", "vu", "hbm", "ici", "dur", "max4",
+                              "frac_on", "frac_w_on", "frac_off")}
+    pm = PowerModel(npu)
+    static_w = pm.static_w
+    dyn_w = pm.dyn_max_w
+    g = npu.gating
+    cnt = st.count
+    dur = tm["dur"]
+    durn = dur * cnt
+    D_seg = segment_sum(durn, offs)
+
+    comp: dict[str, dict] = {}
+    for c in ("sa", "vu", "hbm", "ici"):
+        a = tm[c]
+        active = a > 0
+        gv, gofs = segmented_gaps(active, np.where(active, 0.0, durn), offs)
+        slack = np.where(active, dur - a, 0.0)
+        scnt = slack * cnt
+        acnt = a * cnt
+        comp[c] = {
+            "gap_vals": gv, "gap_offsets": gofs,
+            "S_gap": segment_sum(gv, gofs),
+            "slack": slack, "scnt": scnt, "S_slk": segment_sum(scnt, offs),
+            "acnt": acnt, "AN": segment_sum(acnt, offs),
+        }
+        if c != "sa":  # SA dynamic is work-proportional, not time-based
+            comp[c]["dyn_seg"] = dyn_w[c] * comp[c]["AN"]
+    comp["sa"]["dyn_seg"] = dyn_w["sa"] * segment_sum(
+        st.flops_sa / npu.sa_flops * cnt, offs)
+    # SA spatial-occupancy ingredients (Ideal's occupancy is knob-free)
+    occ_ideal = np.where(st.has_mm, tm["frac_on"], 1.0)
+    comp["sa"]["occ_ideal_AN"] = segment_sum(occ_ideal * comp["sa"]["acnt"],
+                                             offs)
+    # VU fine-grained burst structure (knob-independent parts)
+    vu = comp["vu"]
+    sel = (tm["vu"] > 0) & (vu["slack"] > 0)
+    active_cy = np.maximum(1.0, npu.cycles(tm["vu"]))
+    n_bursts = np.maximum(1.0, active_cy / g.vu_burst_cycles)
+    gap_cy = np.zeros_like(n_bursts)
+    gap_cy[sel] = npu.cycles(vu["slack"][sel]) / n_bursts[sel]
+    inv_gap = np.zeros_like(gap_cy)
+    inv_gap[sel] = 1.0 / gap_cy[sel]
+    psn = static_w["vu"] * vu["slack"] * cnt
+    vu.update(sel=sel, nbn=n_bursts * cnt, gap_cy=gap_cy, inv_gap=inv_gap,
+              psn=psn, PSN_seg=segment_sum(psn, offs))
+    # SRAM capacity model (knob- and policy-independent parts)
+    used = np.minimum(1.0, st.sram_demand / npu.sram_bytes)
+    n = st.n_ops
+    changes = np.zeros(st.n_segments)
+    first = np.zeros(st.n_segments)
+    if n:
+        b = (used[1:] != used[:-1]) & (st.seg_ids[1:] == st.seg_ids[:-1])
+        changes = np.bincount(st.seg_ids[1:][b],
+                              minlength=st.n_segments).astype(np.float64)
+        nonempty = offs[1:] > offs[:-1]
+        first[nonempty] = used[offs[:-1][nonempty]] < 1.0
+    ctx = {
+        "W": st.n_segments, "offsets": offs, "tm": tm, "cnt": cnt,
+        "durn": durn, "D_seg": D_seg, "comp": comp,
+        "static_w": static_w, "dyn_w": dyn_w, "gating": g,
+        "freq": npu.freq_hz, "has_mm": st.has_mm,
+        "sram_used": used,
+        "sram_U_seg": segment_sum(durn * used, offs),
+        "sram_GU_seg": segment_sum(durn * (1.0 - used), offs),
+        "sram_setpm_seg": 2.0 * (changes + first),
+        "sram_dyn_seg": dyn_w["sram"] * 0.5 * segment_sum(tm["max4"] * cnt,
+                                                          offs),
+    }
+    st._derived[key] = (npu, ctx)
+    return ctx
+
+
+def _comp_cell(ctx: dict, c: str, pol: _CompPolicy, kp: dict) -> dict:
+    """Batched per-component evaluation of one ``_CompPolicy`` over the
+    knob axis: (W, K) arrays for static energy, exposed-wake overhead,
+    wake events, setpm count, and gated seconds.
+
+    The gated-idle energy model is piecewise linear in the gap length
+    with knob-dependent thresholds, so instead of materializing per-gap
+    energies per knob, the cell reduces the masked gap sums/counts per
+    segment and assembles every quantity in closed form — identical
+    values to ``_gated_idle_energy_vec`` summed per workload.
+    """
+    cc = ctx["comp"][c]
+    offs = ctx["offsets"]
+    W, K = ctx["W"], kp["K"]
+    p = ctx["static_w"][c]
+    g = ctx["gating"]
+    leak = kp["leak_logic"]
+    if c == "hbm":
+        # HBM auto-refresh floor (paper §6.5)
+        leak = np.maximum(leak, g.leak_hbm_refresh)
+    bet = g.bet.get(pol.delay_key, 0) * kp["dscale"] / ctx["freq"]
+    delay = g.on_off_delay.get(pol.delay_key, 0) * kp["dscale"] / ctx["freq"]
+    window = bet * g.detection_window_frac * kp["wscale"]
+
+    static = np.zeros((W, K))
+    overhead = np.zeros((W, K))
+    wakes = np.zeros((W, K))
+    setpm = np.zeros((W, K))
+    gated = np.zeros((W, K))
+    S = cc["S_gap"][:, None]
+
+    # --- merged cross-op idle gaps (each closed once, not per instance) ---
+    if pol.mode == "none":
+        static += p * S
+    elif pol.mode == "ideal":
+        gated += S
+    elif pol.mode == "hw":
+        gv = cc["gap_vals"]
+        mask = gv[:, None] > window[None, :]
+        GM = segment_sum(np.where(mask, gv[:, None], 0.0),
+                         cc["gap_offsets"])
+        C = segment_sum(mask.astype(np.float64), cc["gap_offsets"])
+        static += p * (S - GM) + (p * window) * C \
+            + (leak * p) * (GM - window * C) + (p * delay) * C
+        overhead += delay * C
+        wakes += C
+        gated += GM - window * C
+    else:  # sw
+        thresh = np.maximum(bet, 2.0 * delay)
+        gv = cc["gap_vals"]
+        mask = (gv[:, None] >= thresh[None, :]) & (gv > 0)[:, None]
+        GM = segment_sum(np.where(mask, gv[:, None], 0.0),
+                         cc["gap_offsets"])
+        C = segment_sum(mask.astype(np.float64), cc["gap_offsets"])
+        static += p * (S - GM) + (leak * p) * (GM - 2.0 * delay * C) \
+            + (p * 2.0 * delay) * C
+        wakes += C
+        setpm += 2.0 * C
+        gated += GM - 2.0 * delay * C
+
+    # --- active-portion static (SA: PE-occupancy weighted) ---
+    if c == "sa" and pol.spatial_sa:
+        if pol.mode == "ideal":
+            static += p * cc["occ_ideal_AN"][:, None]
+        else:
+            tm = ctx["tm"]
+            occ = tm["frac_on"][:, None] \
+                + g.leak_pe_weight_on * tm["frac_w_on"][:, None] \
+                + kp["leak_logic"][None, :] * tm["frac_off"][:, None]
+            occ = np.where(ctx["has_mm"][:, None], occ, 1.0)
+            static += p * segment_sum(occ * cc["acnt"][:, None], offs)
+    else:
+        static += p * cc["AN"][:, None]
+
+    # --- within-op slack (per executed instance) ---
+    if c == "vu":
+        _vu_fine_cell(ctx, pol, kp, leak, static, overhead, wakes, setpm,
+                      gated)
+    else:
+        Ss = cc["S_slk"][:, None]
+        if pol.mode == "none":
+            static += p * Ss
+        elif pol.mode == "ideal":
+            gated += Ss
+        else:
+            slack = cc["slack"]
+            if pol.mode == "hw":
+                mask = slack[:, None] > window[None, :]
+                lo, hi = window, delay
+            else:  # sw
+                thresh = np.maximum(bet, 2.0 * delay)
+                mask = (slack[:, None] >= thresh[None, :]) \
+                    & (slack > 0)[:, None]
+                lo = hi = 2.0 * delay
+            SM = segment_sum(np.where(mask, cc["scnt"][:, None], 0.0), offs)
+            CM = segment_sum(np.where(mask, ctx["cnt"][:, None], 0.0), offs)
+            if pol.mode == "hw":
+                static += p * (Ss - SM) + (p * lo) * CM \
+                    + (leak * p) * (SM - lo * CM) + (p * hi) * CM
+                overhead += hi * CM
+            else:
+                static += p * (Ss - SM) + (leak * p) * (SM - lo * CM) \
+                    + (p * lo) * CM
+                setpm += 2.0 * CM
+            wakes += CM
+            gated += SM - lo * CM
+
+    if c in ("hbm", "ici"):
+        # wake overlapped with the long DMA issue latency half the time
+        overhead *= 0.5
+    return {"static": static, "overhead": overhead, "wakes": wakes,
+            "setpm": setpm, "gated": gated}
+
+
+def _vu_fine_cell(ctx, pol, kp, leak, static, overhead, wakes, setpm,
+                  gated):
+    """Knob-axis-batched ``_fine_grained_vu_vec``: per-burst VU slack
+    inside mixed ops (paper Fig 15). Mutates the (W, K) accumulators."""
+    cc = ctx["comp"]["vu"]
+    offs = ctx["offsets"]
+    g = ctx["gating"]
+    if pol.mode == "none":
+        static += cc["PSN_seg"][:, None]
+        return
+    if pol.mode == "ideal":
+        gated += cc["S_slk"][:, None]
+        return
+    bet_cy = g.bet["vu"] * kp["dscale"]
+    delay_cy = g.on_off_delay["vu"] * kp["dscale"]
+    gap_cy = cc["gap_cy"]
+    psn = cc["psn"][:, None]
+    if pol.mode == "hw":
+        window_cy = bet_cy * g.detection_window_frac * kp["wscale"]
+        gm = gap_cy[:, None] > bet_cy[None, :]
+        gf = np.maximum(0.0, 1.0 - window_cy[None, :]
+                        * cc["inv_gap"][:, None])
+        e = np.where(gm, psn * ((1.0 - gf) + leak * gf), psn)
+        static += segment_sum(e, offs)
+        gated += segment_sum(np.where(gm, cc["scnt"][:, None] * gf, 0.0),
+                             offs)
+        NB = segment_sum(np.where(gm, cc["nbn"][:, None], 0.0), offs)
+        # exposed wake per burst: Base/HW hardware cannot pre-wake
+        overhead += delay_cy / ctx["freq"] * NB
+        wakes += NB
+        return
+    # sw
+    gm = cc["sel"][:, None] & (
+        gap_cy[:, None] >= np.maximum(bet_cy, 2.0 * delay_cy)[None, :])
+    trans = 2.0 * delay_cy[None, :] * cc["inv_gap"][:, None]
+    e = np.where(gm, psn * (trans + leak * (1.0 - trans)), psn)
+    static += segment_sum(e, offs)
+    gated += segment_sum(
+        np.where(gm, cc["scnt"][:, None] * (1.0 - trans), 0.0), offs)
+    NB = segment_sum(np.where(gm, cc["nbn"][:, None], 0.0), offs)
+    setpm += 2.0 * NB
+    wakes += NB
+
+
+# --------------------------------------------------------------------------
 # the sweep kernel: float64 tensor passes on one device
 # --------------------------------------------------------------------------
 
@@ -1602,6 +1854,121 @@ def evaluate_batch(workloads, npus=("NPU-D",), policies=POLICIES,
     _validate_knob_grid(knob_grid)
     return _evaluate_batch_backend(workloads, npu_specs, policies,
                                    knob_grid, get_backend(device))
+
+
+def evaluate_batch_numpy(workloads, npus=("NPU-D",), policies=POLICIES,
+                         knob_grid=None) -> BatchResult:
+    """The same ``BatchResult`` as ``evaluate_batch``, computed by a
+    second, independent implementation: the reference's eager numpy
+    batched engine (``_batch_ctx`` / ``_comp_cell`` / ``_vu_fine_cell``,
+    per-segment closed forms over the merged idle gaps, the knob axis as
+    a trailing array dimension), which shares no code with
+    ``_sweep_kernel`` beyond the trace compiler and the power model.
+
+    It touches no torch tensor and never needs a card. The guard plane
+    re-evaluates quarantined cells on it and the CPU's failover ladder
+    ends on it (``guard.GuardedRunner``, ``backend.failover_rungs``;
+    the card's ladder is the card alone): an oracle
+    that reran ``_sweep_kernel`` on the CPU would share any logic fault
+    of the device route. Its SA-width knobs run on memoized width-variant
+    specs (``hw.with_sa_width``), the scalar engines' semantics.
+    Cell-for-cell equivalent to ``evaluate_batch`` to ≤1e-9 relative.
+    """
+    if isinstance(workloads, Workload):
+        workloads = [workloads]
+    workloads = list(workloads)
+    npu_specs = tuple(get_npu(n) if isinstance(n, str) else n for n in npus)
+    policies = tuple(policies)
+    knob_grid = as_knob_tuple(knob_grid)
+    _validate_knob_grid(knob_grid)
+    st = stack_traces(workloads)
+    W, A, P, K = len(workloads), len(npu_specs), len(policies), \
+        len(knob_grid)
+    shape = (W, A, P, K)
+    runtime = np.zeros(shape)
+    static_j = {c: np.zeros(shape) for c in COMPONENTS}
+    dynamic_j = {c: np.zeros(shape) for c in COMPONENTS}
+    wake_events = {c: np.zeros(shape) for c in COMPONENTS}
+    gated_s = {c: np.zeros(shape) for c in COMPONENTS}
+    setpm_by = {c: np.zeros(shape) for c in COMPONENTS}
+
+    for ai, base_npu in enumerate(npu_specs):
+        # group the knob grid by effective SA width: each group runs on
+        # a memoized width-variant spec (the scalar engines' oracle
+        # semantics), scattering its columns back into the knob axis
+        saw_of = [k.sa_width if k.sa_width is not None
+                  else base_npu.sa_width for k in knob_grid]
+        for saw in dict.fromkeys(saw_of):
+            idx = np.flatnonzero(np.array(saw_of) == saw)
+            sub_grid = [knob_grid[i] for i in idx]
+            npu = with_sa_width(base_npu, saw)
+            ctx = _batch_ctx(st, npu)
+            g = ctx["gating"]
+            kp = {
+                "K": len(sub_grid),
+                "dscale": np.array([k.delay_scale for k in sub_grid]),
+                "wscale": np.array([k.window_scale for k in sub_grid]),
+                "leak_logic": np.array(
+                    [k.leak_off_logic if k.leak_off_logic is not None
+                     else g.leak_off_logic for k in sub_grid]),
+                "leak_sleep": np.array(
+                    [k.leak_sram_sleep if k.leak_sram_sleep is not None
+                     else g.leak_sram_sleep for k in sub_grid]),
+                "leak_off": np.array(
+                    [k.leak_sram_off if k.leak_sram_off is not None
+                     else g.leak_sram_off for k in sub_grid]),
+            }
+            cell_cache: dict = {}
+            for pi, policy in enumerate(policies):
+                cp = _component_policies(policy)
+                ov_total = np.zeros((W, len(sub_grid)))
+                for c in ("sa", "vu", "hbm", "ici"):
+                    key = (c, cp[c])
+                    cell = cell_cache.get(key)
+                    if cell is None:
+                        cell = _comp_cell(ctx, c, cp[c], kp)
+                        cell_cache[key] = cell
+                    static_j[c][:, ai, pi, idx] = cell["static"]
+                    wake_events[c][:, ai, pi, idx] = cell["wakes"]
+                    setpm_by[c][:, ai, pi, idx] = cell["setpm"]
+                    gated_s[c][:, ai, pi, idx] = cell["gated"]
+                    dynamic_j[c][:, ai, pi, idx] = \
+                        ctx["comp"][c]["dyn_seg"][:, None]
+                    ov_total += cell["overhead"]
+
+                # --- SRAM: capacity-proportional static, gated rest ---
+                pol = cp["sram"]
+                lk = {"on": np.ones(len(sub_grid)),
+                      "sleep": kp["leak_sleep"],
+                      "off": kp["leak_off"]}.get(pol.sram_state,
+                                                 np.zeros(len(sub_grid)))
+                static_j["sram"][:, ai, pi, idx] = \
+                    ctx["static_w"]["sram"] * (
+                        ctx["sram_U_seg"][:, None]
+                        + lk[None, :] * ctx["sram_GU_seg"][:, None])
+                if pol.sram_state != "on":
+                    gated_s["sram"][:, ai, pi, idx] = \
+                        ctx["sram_GU_seg"][:, None]
+                if pol.sram_state in ("sleep", "off") \
+                        and pol.mode == "sw":
+                    setpm_by["sram"][:, ai, pi, idx] = \
+                        ctx["sram_setpm_seg"][:, None]
+                dynamic_j["sram"][:, ai, pi, idx] = \
+                    ctx["sram_dyn_seg"][:, None]
+
+                # --- other: never gated ---
+                static_j["other"][:, ai, pi, idx] = \
+                    (ctx["static_w"]["other"] * ctx["D_seg"])[:, None]
+                dynamic_j["other"][:, ai, pi, idx] = \
+                    (ctx["dyn_w"]["other"] * 0.3 * ctx["D_seg"])[:, None]
+
+                runtime[:, ai, pi, idx] = ctx["D_seg"][:, None] + ov_total
+
+    return BatchResult(
+        workloads=tuple(st.names), npus=npu_specs, policies=policies,
+        knob_grid=knob_grid, runtime_s=runtime, static_j=static_j,
+        dynamic_j=dynamic_j, wake_events=wake_events, gated_s=gated_s,
+        setpm_by=setpm_by)
 
 
 def evaluate_all(wl: Workload, npu="NPU-D",

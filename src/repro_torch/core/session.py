@@ -10,7 +10,7 @@ enclosing session (ultimately the root session, which holds the
 process-wide defaults). Sessions nest and restore the previous state on
 exit, exception-safe.
 
-The port's session carries two fields:
+The port's session carries three fields:
 
 * ``device``: where the sweep kernel's tensors live. It stands where the
   JAX package's session has ``backend``, ``jax_mesh`` and
@@ -22,6 +22,11 @@ The port's session carries two fields:
   ``sa_gating.set_gating_cache_size`` (the LRU itself stays the single
   source of truth) and the previous size restored on ``__exit__``. The
   root holds ``UNSET`` for it, so it resolves to ``None``.
+* ``guard``: a ``guard.GuardPolicy`` (or ``None``, the root's value)
+  that the campaign entry points (``fleet.sweep_fleet`` /
+  ``fleet.sweep_chaos``) pick up when their ``guard=`` argument is left
+  unset, scoping the guard plane's watchdog / failover / quarantine
+  machinery like the device.
 """
 from __future__ import annotations
 
@@ -47,12 +52,22 @@ class _Unset:
 
 UNSET = _Unset()
 
-_FIELDS = ("device", "gating_cache_size")
+_FIELDS = ("device", "gating_cache_size", "guard")
 
 
 def _check_device(value: Any) -> Any:
     if value is not None:
         torch.device(value)  # raises on a malformed device string
+    return value
+
+
+def _check_guard(value: Any) -> Any:
+    if value is None:
+        return value
+    from repro_torch.core.guard import GuardPolicy
+    if not isinstance(value, GuardPolicy):
+        raise ValueError(f"guard must be a guard.GuardPolicy or None, "
+                         f"got {type(value)}")
     return value
 
 
@@ -63,16 +78,20 @@ class SweepSession:
     ``torch.device`` accepts, or ``None`` for the default (``"cuda"``).
     ``gating_cache_size`` defaults to ``UNSET`` (leave the LRU alone);
     otherwise a size accepted by ``sa_gating.set_gating_cache_size``
-    (``None`` = unbounded). Use as a context manager; re-entering an
-    already-active session raises.
+    (``None`` = unbounded). ``guard`` defaults to ``UNSET``; otherwise a
+    ``guard.GuardPolicy`` or ``None``. Use as a context manager;
+    re-entering an already-active session raises.
     """
 
     def __init__(self, device: Any = UNSET,
-                 gating_cache_size: Any = UNSET):
+                 gating_cache_size: Any = UNSET, guard: Any = UNSET):
         if device is not UNSET:
             _check_device(device)
+        if guard is not UNSET:
+            _check_guard(guard)
         self.device = device
         self.gating_cache_size = gating_cache_size
+        self.guard = guard
         self._active = False
         self._prev_cache: Any = UNSET
 
@@ -115,7 +134,7 @@ def _root() -> SweepSession:
     """The process-wide defaults layer (what ``set_root`` mutates). The
     gating-cache size stays UNSET here: sessions scope the LRU by save
     and restore, not by resolution."""
-    s = SweepSession(device=None)
+    s = SweepSession(device=None, guard=None)
     s._active = True  # the root never exits
     return s
 
@@ -162,6 +181,8 @@ def set_root(**fields: Any) -> dict:
                            f"have {_FIELDS}")
         if name == "device":
             _check_device(value)
+        elif name == "guard":
+            _check_guard(value)
         prev[name] = getattr(_ROOT, name)
         setattr(_ROOT, name, value)
     return prev

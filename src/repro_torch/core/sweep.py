@@ -14,6 +14,11 @@ host as the oracle: same records, same order, ≤1e-9 relative.
 gated leakage ratios, SRAM sleep/off leakage, SA width, detection
 window) into a single fine-grid ``evaluate_batch`` call.
 
+``sweep_fleet`` and ``sweep_chaos`` (lazy re-exports of
+``repro_torch.core.fleet``) run a chip fleet over a day of seeded
+arrivals, one ``evaluate_batch`` call per epoch, clean or under seeded
+fault timelines; ``GuardPolicy`` arms their guard plane.
+
 ``sweep_robustness`` crosses idle-detection thresholds against seeded
 trace perturbations (the jitter plane); ``sweep_program_plane`` runs
 the software-managed program plane (the lowered, ``setpm``-instrumented
@@ -38,6 +43,8 @@ from repro_torch.core.opgen import Workload, compile_trace
 from repro_torch.core.policies import (POLICIES, BatchResult, EnergyReport,
                                        KnobGrid, PolicyKnobs, evaluate,
                                        evaluate_batch, knob_columns)
+from repro_torch.core.guard import (GuardPolicy,  # noqa: F401  (re-export)
+                                    GuardReport)
 from repro_torch.core.power import COMPONENTS
 from repro_torch.core.session import SweepSession  # noqa: F401  (re-export)
 
@@ -457,3 +464,34 @@ def group_by(records: list[dict], *keys: str) -> dict[tuple, list[dict]]:
                 f"{r.get('policy')!r}) has no column {e.args[0]!r}; "
                 f"available: {sorted(r)}") from None
     return out
+
+
+def sweep_fleet(scenario, knob_grid=None, **kw):
+    """Fleet serving plane: simulate a chip fleet serving seeded
+    request-arrival traces, one batched ``evaluate_batch`` call per
+    epoch, with the online SLO governor switching ``PolicyKnobs`` and
+    ``core.carbon`` rolling per-chip joules up to fleet kWh/CO2/cost.
+    The guard plane rides along via ``guard=GuardPolicy(...)`` (watchdog
+    + retries + NaN quarantine; a failed card call raises, it is never
+    finished on the host) and ``checkpoint=<dir>``
+    (crash-consistent epoch-granular snapshots with bit-identical
+    resume). Thin re-export of ``repro_torch.core.fleet.sweep_fleet``
+    (imported lazily — ``fleet`` builds on this module's substrate); see
+    that module for the scenario/report data model."""
+    from repro_torch.core.fleet import sweep_fleet as impl
+    return impl(scenario, knob_grid, **kw)
+
+
+def sweep_chaos(scenario, knob_grid=None, **kw):
+    """Chaos plane: the fault-injection campaign — seeded chip/link
+    fault timelines (``core.faults``) × fault severities × policies
+    through the fleet simulator under the anti-thrash hysteresis
+    governor, reporting worst-case SLO-constrained regret, recovery time
+    after repair, and retune counts (vs the stateless thrash baseline).
+    Accepts the guard plane's ``guard=`` / ``checkpoint=`` kwargs: a
+    SIGKILLed campaign resumes from its checkpoint directory
+    bit-identically. Thin re-export of
+    ``repro_torch.core.fleet.sweep_chaos`` (imported lazily — ``fleet``
+    builds on this module's substrate)."""
+    from repro_torch.core.fleet import sweep_chaos as impl
+    return impl(scenario, knob_grid, **kw)

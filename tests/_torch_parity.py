@@ -14,6 +14,7 @@ from _sweep_equiv import RTOL, assert_records_match, rel  # noqa: F401
 
 from repro.core import policies as ref_policies
 from repro_torch.core import policies as port_policies
+from repro_torch.core.guard import cube_max_rel, tree_max_rel
 
 STACK_COLUMNS = ("flops_sa", "flops_vu", "bytes_hbm", "bytes_ici",
                  "sram_demand", "count", "collective", "has_mm")
@@ -55,17 +56,13 @@ def assert_cubes_match(ref, got, rtol: float = RTOL, exact: bool = False):
     assert tuple(ref.workloads) == tuple(got.workloads)
     assert tuple(ref.policies) == tuple(got.policies)
 
-    def cmp(a, b, what):
-        if exact:
-            assert np.array_equal(a, b), what
-        else:
-            denom = np.maximum(1e-30, np.maximum(np.abs(a), np.abs(b)))
-            assert (np.abs(a - b) / denom).max(initial=0.0) <= rtol, what
-
-    cmp(ref.runtime_s, got.runtime_s, "runtime_s")
+    if not exact:   # the rule chip_smoke.py holds the card to
+        cube_max_rel(ref, got, rtol)
+        return
+    assert np.array_equal(ref.runtime_s, got.runtime_s), "runtime_s"
     for f in CUBE_FIELDS:
         for c, arr in getattr(ref, f).items():
-            cmp(arr, getattr(got, f)[c], (f, c))
+            assert np.array_equal(arr, getattr(got, f)[c]), (f, c)
 
 
 def dump_stack(st) -> tuple[dict, tuple, np.ndarray]:
@@ -120,3 +117,31 @@ def build_workloads(opgen_mod, specs: list) -> list:
     return [opgen_mod.Workload(name, "prefill",
                                tuple(opgen_mod.Op(**kw) for kw in ops))
             for name, ops in specs]
+
+
+def assert_trees_match(ref, got, rtol: float = RTOL, path: str = "") \
+        -> float:
+    """Nested dicts / lists / tuples of plain values (a report's
+    ``to_dict()`` form): the same keys and lengths, every ``str``,
+    ``bool``, ``int`` and ``None`` exactly, every float within ``rtol``
+    relative (the port's ``guard.tree_max_rel``, which ``chip_smoke.py``
+    holds the card to). Returns the worst relative deviation."""
+    return tree_max_rel(ref, got, rtol, path)
+
+
+def fleet_report_tree(report) -> dict:
+    """A ``FleetReport``'s fields as plain values, without the guard log
+    and the live epoch inputs."""
+    skip = ("guard", "epoch_inputs")
+    return {f.name: getattr(report, f.name)
+            for f in dataclasses.fields(report) if f.name not in skip}
+
+
+def assert_fleet_reports_match(ref, got, rtol: float = RTOL) -> float:
+    """The port's ``FleetReport`` against the reference's: arrival
+    counts, severity indices, chosen and deployed knobs, retune flags,
+    chip allocations and every other integer or flag exactly; every
+    float (energies, runtimes, backlog and shed volumes) within
+    ``rtol``. Returns the worst relative deviation."""
+    return assert_trees_match(fleet_report_tree(ref),
+                              fleet_report_tree(got), rtol)

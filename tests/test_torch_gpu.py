@@ -840,3 +840,98 @@ def test_program_plane_shared_streams_on_the_card_equal_cpu(card):
     assert program_exec.launches == before + 1
     assert got == sw.sweep_program_plane(wls, ("NPU-A", "NPU-E"), grid,
                                          device="cpu")
+
+
+# --------------------------------------------------------------------------
+# the fleet / chaos / guard planes on the card
+# --------------------------------------------------------------------------
+
+def _small_fleet_day():
+    from repro_torch.core import fleet
+    classes = (
+        fleet.WorkloadClass(
+            "decode", opgen.llm_workload("llama3-8b", "decode", batch=8),
+            fleet.ArrivalSpec("diurnal", rate_rps=6.0, peak_frac=0.8,
+                              period_s=7200.0),
+            requests_per_invocation=8),
+        fleet.WorkloadClass(
+            "rank", opgen.dlrm_workload("S"),
+            fleet.ArrivalSpec("bursty", rate_rps=1.0, burst_prob=0.3,
+                              burst_factor=6.0),
+            requests_per_invocation=1024))
+    return fleet.FleetScenario(
+        classes=classes, n_chips=64, npu="NPU-D",
+        policies=("NoPG", "ReGate-HW", "ReGate-Full"), duration_s=7200.0,
+        epoch_s=900.0, seed=5, severity_levels=(0.0, 0.5, 1.0))
+
+
+def test_fleet_day_on_the_card_equals_cpu(card):
+    """A small fleet day: every epoch's ``evaluate_batch`` on the card
+    (K1 once a call, K2 for its segmented sums) gives the CPU's report,
+    integers and flags exact, floats ≤1e-9; a second card run is bit
+    identical; a guarded card run records no event."""
+    from repro_torch.core import fleet
+    from repro_torch.core.guard import GuardPolicy
+    from _torch_parity import assert_fleet_reports_match
+    sc = _small_fleet_day()
+    grid = KnobGrid(window_scale=(0.5, 1.0, 2.0), delay_scale=(1.0, 2.0))
+    k1, k2 = sa_occupancy.launches, segment_sum.launches
+    on_card = fleet.sweep_fleet(sc, grid, device=card)
+    calls = sc.n_epochs + 1
+    assert sa_occupancy.launches - k1 == calls
+    assert (segment_sum.launches - k2) % calls == 0
+    assert segment_sum.launches > k2
+    on_cpu = fleet.sweep_fleet(sc, grid, device="cpu")
+    assert_fleet_reports_match(on_cpu, on_card)
+    assert fleet.sweep_fleet(sc, grid, device=card).to_dict() \
+        == on_card.to_dict()
+    guarded = fleet.sweep_fleet(sc, grid, device=card,
+                                guard=GuardPolicy(timeout_s=600.0))
+    assert guarded.guard["events"] == []
+    guarded.guard = None
+    assert guarded.to_dict() == on_card.to_dict()
+
+
+def test_guard_raises_when_the_card_is_wedged(card):
+    """The card's ladder has no rung below it: a card rung that sleeps
+    past its deadline is abandoned and the call raises ``GuardError``;
+    nothing runs on the CPU. A card rung that recovers gives the card's
+    result with one recorded retry."""
+    import time
+    from repro_torch.core.guard import GuardedRunner, GuardError, GuardPolicy
+    from repro_torch.core.backend import failover_rungs
+    from repro_torch.core.policies import evaluate_batch
+    from _torch_parity import assert_cubes_match
+    wls = opgen.paper_suite()[12:15]
+    dev = str(card)
+    rungs = failover_rungs(card)
+    assert rungs == ((dev, None),)
+    calls = []
+
+    def wedged(rung, *args):
+        calls.append(rung)
+        time.sleep(2.0)   # abandoned by the watchdog; launches nothing
+        return None
+
+    runner = GuardedRunner(GuardPolicy(timeout_s=0.5, max_retries=0),
+                           rungs=rungs, runner=wedged)
+    with pytest.raises(GuardError, match="exhausted at step 1 .timeout"):
+        runner.evaluate_batch(wls, ("NPU-D",), POLICIES, None, step=1)
+    assert calls == [dev] and runner.report.events == []
+
+    state = {"n": 0}
+
+    def raises_once(rung, *args):
+        state["n"] += 1
+        if state["n"] == 1:
+            raise RuntimeError("injected")
+        return GuardedRunner._default_runner(rung, *args)
+
+    runner = GuardedRunner(GuardPolicy(max_retries=1, backoff_base_s=0.01),
+                           rungs=rungs, runner=raises_once)
+    got = runner.evaluate_batch(wls, ("NPU-D",), POLICIES, None, step=2)
+    assert [(e["kind"], e["rung"]) for e in runner.report.events] \
+        == [("retry", dev)]
+    assert_cubes_match(evaluate_batch(wls, ("NPU-D",), POLICIES, None,
+                                      device=card), got, exact=True)
+    time.sleep(2.0)  # the abandoned attempt ends before the next test

@@ -253,7 +253,8 @@ def test_session_scopes_the_gating_cache():
         with port_session.SweepSession(device="cpu"):  # inherits the size
             assert port_sa.gating_cache_info().maxsize == 8
             assert port_session.current() == {"device": "cpu",
-                                              "gating_cache_size": 8}
+                                              "gating_cache_size": 8,
+                                              "guard": None}
         with port_session.SweepSession(gating_cache_size=None):
             assert port_sa.gating_cache_info().maxsize is None
         assert port_sa.gating_cache_info().maxsize == 8

@@ -42,7 +42,9 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.configs.base",
            "repro_torch.core.passes", "repro_torch.core.lowering",
            "repro_torch.core.program_plane", "repro_torch.core.perturb",
            "repro_torch.core.ici_topology", "repro_torch.core.carbon",
-           "repro_torch.core.slo", "repro_torch.kernels.program_exec",
+           "repro_torch.core.slo", "repro_torch.core.faults",
+           "repro_torch.core.guard", "repro_torch.core.fleet",
+           "repro_torch.kernels.program_exec",
            "repro_torch.kernels._build",
            "repro_torch.kernels.sa_occupancy",
            "repro_torch.kernels.segment_sum", "repro_torch.configs",
@@ -86,6 +88,7 @@ def test_slice_modules_exist():
                 "core/program_plane.py", "core/perturb.py",
                 "core/ici_topology.py", "core/carbon.py", "core/slo.py",
                 "kernels/program_exec.py", "kernels/csrc/program_plane.cu",
+                "core/faults.py", "core/guard.py", "core/fleet.py",
                 "models/param.py",
                 "models/common.py", "models/blocks.py", "models/registry.py",
                 "models/model.py", "train/steps.py", "launch/serve.py",
@@ -102,6 +105,8 @@ def test_no_jax_and_no_reference_package_imports(path):
 
 
 @pytest.mark.parametrize("first", ["repro_torch.core",
+                                   "repro_torch.core.fleet",
+                                   "repro_torch.core.guard",
                                    "repro_torch.kernels.sa_occupancy",
                                    "repro_torch.kernels.segment_sum",
                                    "repro_torch.kernels.gated_matmul",
@@ -127,10 +132,15 @@ def test_imports_with_nvcc_absent(first):
     assert proc.returncode == 0, proc.stderr[-3000:]
 
 
+# the host-numpy functions that may call np.bincount
+HOST_BINCOUNT = {"_host_columns", "_batch_ctx", "bin_requests"}
+
+
 def test_library_scatter_adds_only_in_plain_versions():
     """``index_add_`` & co. appear in the package only inside a kernel's
-    plain version (``*_plain``); ``np.bincount`` only in host-side trace
-    preparation, never on tensors."""
+    plain version (``*_plain``); ``np.bincount`` only in host-side numpy
+    (trace preparation, the numpy batched engine's context, binning
+    arrival timestamps), never on tensors."""
     for path in sorted(PKG.rglob("*.py")):
         tree = ast.parse(path.read_text())
         spans = [(n.lineno, n.end_lineno, n.name) for n in ast.walk(tree)
@@ -143,7 +153,7 @@ def test_library_scatter_adds_only_in_plain_versions():
                       if lo <= node.lineno <= hi]
             base = node.value.id if isinstance(node.value, ast.Name) else ""
             if node.attr == "bincount" and base == "np":
-                assert owners and owners[-1] == "_host_columns", \
+                assert owners and owners[-1] in HOST_BINCOUNT, \
                     (path, node.lineno)
                 continue
             assert owners and owners[-1].endswith("_plain"), \
@@ -396,3 +406,37 @@ def test_b7_ring_takes_its_bulk_copies_from_the_shared_header():
         assert helper in cu, helper
     assert "cp.async.bulk.shared::cluster.global" in \
         (csrc / "mma_bf16.cuh").read_text()
+
+
+def test_fleet_leaves_its_device_only_through_the_guard():
+    """No fallback hides the device: ``fleet`` names no device of its
+    own and calls the batched sweep only in ``_eval``, which hands the
+    call to the guard's ladder when one is armed; the ladder is
+    ``backend.failover_rungs`` (the card's has no rung below it), and
+    the guard records every retry and step down."""
+    fleet_src = (PKG / "core" / "fleet.py").read_text()
+    tree = ast.parse(fleet_src)
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef, ast.ClassDef))
+            and n.body and isinstance(n.body[0], ast.Expr)}
+    named = [n.value for n in ast.walk(tree)
+             if isinstance(n, ast.Constant) and id(n) not in docs
+             and n.value in ("cpu", "cuda")]
+    assert not named, named
+    spans = [(n.lineno, n.end_lineno, n.name) for n in ast.walk(tree)
+             if isinstance(n, ast.FunctionDef)]
+    callers = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and isinstance(node.func, ast.Name) \
+                and node.func.id in ("evaluate_batch",
+                                     "evaluate_batch_numpy"):
+            # the innermost function holding the call
+            callers.add(max((lo, name) for lo, hi, name in spans
+                            if lo <= node.lineno <= hi)[1])
+    assert callers == {"_eval"}, callers
+    body = _function_source(PKG / "core" / "fleet.py", "_eval")
+    assert body.index("runner.evaluate_batch") < body.index("evaluate_batch(")
+    guard_src = (PKG / "core" / "guard.py").read_text()
+    run = _function_source(PKG / "core" / "guard.py", "evaluate_batch")
+    assert '"failover"' in run and '"retry"' in run
+    assert "failover_rungs(device)" in guard_src
