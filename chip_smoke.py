@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -129,6 +130,24 @@ B5_KERNELS = {"bfloat16": ("ssd_chunk_cb_kernel", "ssd_scan_bf16_kernel"),
 # 2.6e-2 and must land above it (PERF.md).
 B5_REL_L2_BF16 = 1e-4
 B5_CONTROL_BITS = 3
+# B9's four kernels, all launched by every wrapper call: the rowsum
+# pre-pass, dK/dV per query head, the group's sum, dQ
+B9_KERNELS = ("attention_bwd_delta_kernel", "attention_bwd_dkdv_kernel",
+              "attention_bwd_reduce_kernel", "attention_bwd_dq_kernel")
+# B9 float32 vs its plain version (float32 on the CPU, the same inputs):
+# |kernel - plain| <= tol (max(max|plain|, 1) + |plain|); the inputs are
+# of size ~1, and dq, dk of a one-token sequence are exactly 0
+B9_TOL_F32 = 1e-4
+# B9 bf16 vs its plain version (float32 sums of the same bf16 inputs,
+# rounded to bf16 once), as one relative L2 over each of dq, dk, dv. The
+# kernel keeps P and every sum in float32 too, so the two differ only
+# where the float32 sums straddle a bf16 rounding boundary: the limit is
+# one bf16 rounding of every element, 2^-9 / sqrt(3), B4's. The control,
+# the plain version with P rounded to 3 mantissa bits (a deliberately
+# wrong rounding), must read above it.
+B9_REL_L2_BF16 = 1.1e-3
+B9_CONTROL_BITS = 3
+B9_SOURCE = "src/repro_torch/kernels/csrc/attention_bwd.cu"
 K1_SOURCE = "src/repro_torch/kernels/csrc/power_plane.cu"
 ATTN_SOURCE = "src/repro_torch/kernels/csrc/attention.cu"
 SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
@@ -977,9 +996,9 @@ def ssd_model_shapes(srv, prompts) -> dict:
     import torch
     from repro_torch.models import blocks
     from repro_torch.models.common import rms_norm
-    from repro_torch.models.model import _layer
+    from repro_torch.models.model import _layers
     cfg = srv.cfg
-    p0 = _layer(srv.params["layers"], 0)["ssd"]
+    p0 = _layers(srv.params["layers"], cfg.n_layers)[0]["ssd"]
     toks = torch.tensor(prompts, dtype=torch.int64, device="cuda")
     h = rms_norm(srv.params["embed"][toks], p0["ln"], cfg.norm_eps)
     x, _, dt, Bm, Cm, _ = blocks._ssd_inputs(p0, h, cfg)
@@ -1973,6 +1992,7 @@ def rel_l2(got, want):
 def _wrappers() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
     from repro_torch.kernels.gated_matmul import gated_matmul_p
     from repro_torch.kernels.program_exec import program_exec
     from repro_torch.kernels.sa_occupancy import sa_occupancy
@@ -1980,6 +2000,7 @@ def _wrappers() -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {"sa_occupancy": sa_occupancy, "segment_sum": segment_sum,
             "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention, "ssd_scan": ssd_scan,
             "gated_matmul": gated_matmul_p, "program_exec": program_exec}
 
@@ -2152,9 +2173,9 @@ def model_shape_kernels(srv, prompts) -> dict:
     import torch
     from repro_torch.models import blocks
     from repro_torch.models.common import rms_norm
-    from repro_torch.models.model import _layer
+    from repro_torch.models.model import _layers
     cfg = srv.cfg
-    p0 = _layer(srv.params["layers"], 0)["attn"]
+    p0 = _layers(srv.params["layers"], cfg.n_layers)[0]["attn"]
     toks = torch.tensor(prompts, dtype=torch.int64, device="cuda")
     h = rms_norm(srv.params["embed"][toks], p0["ln"], cfg.norm_eps)
     q, k, v = blocks._qkv(p0, h, cfg,
@@ -2270,6 +2291,409 @@ def serve_parity(arch: str) -> dict:
             "max_abs_err": err, "max_rel_l2": rel, "max_abs_logit": scale,
             "tolerance_abs": PARITY_ATOL, "tokens_clear": clear,
             "tokens_equal": same, "wall_s_cpu": t_cpu}
+
+
+# ---- training: kernel B9 and qwen2.5-3b ------------------------------------
+
+TRAIN_ARCH = "qwen2.5-3b"
+# train_full: bf16 compute on float32 master weights, AdamW, remat
+# "full" (launch.train's), one card
+TRAIN_FULL = dict(seq_len=2048, global_batch=2, microbatches=2, steps=4)
+# the card's attention backward at the training shape (one microbatch)
+B9_MODEL_SHAPE = (1, 2048, 16, 2, 128)
+# card vs CPU, float32, qwen2.5-3b cut to 2 layers (train_parity)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4      # relative L2, every gradient leaf
+TRAIN_PARAM_TOL = 1e-5     # relative L2, every parameter leaf, 3 steps
+# a leaf initialized to zero (qwen's q, k, v biases) has no value but its
+# three updates, so its relative L2 is the updates' own: AdamW's first
+# steps (eps 1e-8) are sign-like on the components with gradients near
+# eps (RoPE's lowest frequencies, ~1e-7), where two float32 summation
+# orders differ by ~1e-9; the CPU tests read up to 5.1e-3 for the k bias
+# between the port and the JAX package (tests/test_torch_train.py,
+# ROADMAP Queue C). Those leaves are held to this limit instead.
+TRAIN_ZERO_INIT_TOL = 1e-2
+
+
+def b9_bound(B, S, H, Hkv, D, dtype) -> tuple[float, str]:
+    """Least time for the causal attention backward: q, k, v, o, do and
+    lse read once, dq, dk, dv written once; five matmuls over the live
+    score entries S(S+1)/2 per (batch, head) at 2 D operations each
+    (q k^T, dO V^T, P^T dO, dS^T Q, dS K)."""
+    import torch
+    el = 2 if dtype == torch.bfloat16 else 4
+    nbytes = el * (4 * B * S * H * D + 4 * B * S * Hkv * D) + 4 * B * H * S
+    flops = 5 * 2 * B * H * D * S * (S + 1) / 2
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def b9_close_f32(got, want) -> bool:
+    import torch
+    got, want = got.float().cpu(), want.float()
+    tol = B9_TOL_F32 * (max(float(want.abs().max()), 1.0) + want.abs())
+    return bool(((got - want).abs() <= tol).all())
+
+
+def check_attention_bwd_kernel(dev) -> dict:
+    """B9 against its plain version (on the CPU copies of the same
+    inputs), float32 and bf16, at the training shape and at ragged
+    sequence lengths with head dims 128 and 64; B3's lse against the
+    plain version's; a second call bit-identical. At the training shape
+    bf16 is also held to ``B9_REL_L2_BF16`` beside its control, and both
+    dtypes are timed beside the bound, the plain version (on the CPU) and
+    the backward of one ``scaled_dot_product_attention``."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [B9_MODEL_SHAPE] + [(2, S, 16, 2, D) for D in (128, 64)
+                                for S in (1, 63, 65, 257, 1000)]
+    out = {"cases": 0, "max_abs_err": {}, "lse_max_abs_err": 0.0,
+           "bf16_rel_l2_max": 0.0, "model_shape": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for B, S, H, Hkv, D in cases:
+            q, k, v, do = (torch.randn(s, generator=gen, device=dev)
+                           .to(dtype) for s in ((B, S, H, D), (B, S, Hkv, D),
+                                                (B, S, Hkv, D), (B, S, H, D)))
+            o, lse = flash_attention(q, k, v, return_lse=True)
+            got = flash_attention_bwd(q, k, v, o, lse, do)
+            again = flash_attention_bwd(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            what = f"flash_attention_bwd[{dn}, {(B, S, H, Hkv, D)}]"
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{what}: a second call is not bit-identical")
+            cpu = [t.cpu() for t in (q, k, v, o, lse, do)]
+            _, lse_plain = flash_attention_plain(*cpu[:3], return_lse=True)
+            e = max_abs(lse.cpu(), lse_plain)
+            out["lse_max_abs_err"] = max(out["lse_max_abs_err"], e)
+            check(torch.allclose(lse.cpu(), lse_plain, atol=1e-4, rtol=1e-5),
+                  f"{what}: B3's lse differs from the plain version's by {e}")
+            t0 = time.perf_counter()
+            want = flash_attention_bwd_plain(*cpu)
+            plain_s = time.perf_counter() - t0
+            rels = {}
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                check(g.shape == w.shape and g.dtype == dtype
+                      and bool(torch.isfinite(g).all()),
+                      f"{what}: {name} shape, dtype or finiteness")
+                e = max_abs(g.float().cpu(), w.float())
+                out["max_abs_err"][dn] = max(out["max_abs_err"].get(dn, 0.0),
+                                             e)
+                if dtype == torch.float32:
+                    check(b9_close_f32(g, w), f"{what}: {name} differs by {e}")
+                elif S > 1:  # a one-token dq, dk is 0: noise on both sides
+                    rels[name] = b3_rel_l2(g.cpu(), w)
+                    check(rels[name] <= B9_REL_L2_BF16,
+                          f"{what}: {name} relative L2 {rels[name]} > "
+                          f"{B9_REL_L2_BF16}")
+            if rels:
+                out["bf16_rel_l2_max"] = max(out["bf16_rel_l2_max"],
+                                             *rels.values())
+            out["cases"] += 1
+            if (B, S, H, Hkv, D) == B9_MODEL_SHAPE:
+                rec = time_b9(q, k, v, o, lse, do)
+                rec["plain_ms"] = plain_s * 1e3
+                rec["rel_l2"] = rels
+                if dtype == torch.bfloat16:
+                    ctrl = {}
+                    for bits in (7, B9_CONTROL_BITS):
+                        alt = flash_attention_bwd_plain(*cpu, p_bits=bits)
+                        ctrl[f"p_{bits}_bits"] = max(
+                            b3_rel_l2(a, w) for a, w in zip(alt, want))
+                    rec["control_rel_l2"] = ctrl
+                    rec["limit_rel_l2"] = B9_REL_L2_BF16
+                    check(ctrl[f"p_{B9_CONTROL_BITS}_bits"] > B9_REL_L2_BF16,
+                          f"the control (P at {B9_CONTROL_BITS} mantissa "
+                          f"bits) reads {ctrl} <= {B9_REL_L2_BF16}: the "
+                          f"limit cannot see a rounding fault")
+                out["model_shape"][dn] = rec
+            del q, k, v, do, o, lse, got, again, want, cpu
+    return out
+
+
+def time_b9(q, k, v, o, lse, do) -> dict:
+    """B9 at the training shape beside its bound and the backward of one
+    causal GQA ``scaled_dot_product_attention`` on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    try:
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+        lib_in = (qt, kt, vt)
+    except TypeError:  # a torch without enable_gqa: repeat the KV heads
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=1).detach()
+                  .requires_grad_() for t in (kt, vt))
+        lib_out = F.scaled_dot_product_attention(qt, kr, vr, is_causal=True)
+        lib_in = (qt, kr, vr)
+    dot = do.transpose(1, 2)
+    bound, by = b9_bound(B, S, H, Hkv, D, q.dtype)
+    call = lambda: flash_attention_bwd(q, k, v, o, lse, do)  # noqa: E731
+    return {"shape": {"q": list(q.shape), "kv": list(k.shape),
+                      "dtype": str(q.dtype)},
+            "ms": event_ms(call, 10),
+            "device_us": kernel_device_us(call, B9_KERNELS),
+            "library_ms": event_ms(lambda: torch.autograd.grad(
+                lib_out, lib_in, dot, retain_graph=True), 10),
+            "library_note": "the backward of one causal GQA "
+                            "scaled_dot_product_attention",
+            "bound_ms": bound, "bound_by": by}
+
+
+def _numpy_train_state(params) -> dict:
+    """A parameter tree as the JAX package's ``TrainState`` dumped to
+    numpy (zero moments, step 0): what ``convert.train_state_from_numpy``
+    takes."""
+    import numpy as np
+    from repro_torch.models.param import tree_map
+    p = tree_map(lambda t: t.detach().cpu().numpy(), params)
+    zeros = tree_map(np.zeros_like, p)
+    return {"params": p, "opt_state": {"m": zeros, "v": zeros, "step": 0},
+            "step": 0}
+
+
+def _leaf_rel(a, b) -> float:
+    import torch
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).norm() / a.norm().clamp_min(1e-30))
+
+
+def train_parity(card: str) -> dict:
+    """qwen2.5-3b at full width cut to 2 layers, float32, from one
+    ``train_state_from_numpy`` state on the card (B3 forward, B9
+    backward) and on the CPU (their plain forms): the loss and every
+    gradient leaf of one backward, then 3 ``make_train_step`` steps:
+    losses and every parameter leaf after them."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params, tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import make_train_step
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=2)
+    dump = _numpy_train_state(init_params(
+        registry.param_specs(cfg), torch.Generator().manual_seed(2), "cpu"))
+    opt = AdamWConfig(total_steps=10, warmup_steps=2)
+    shape = ShapeConfig("train_parity", 128, 2, "train")
+    side = {}
+    reset_launches()
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        st = train_state_from_numpy(dump, device=dev)
+        data = SyntheticDataset(cfg, shape, seed=3, device=dev)
+        loss, _ = M.loss_fn(st.params, data.batch(0), cfg,
+                            dtype=torch.float32)
+        loss.backward()
+        grads = {path: p.grad.detach().cpu()
+                 for path, p in tree_leaves(st.params)}
+        step = make_train_step(cfg, opt, dtype=torch.float32)
+        losses = []
+        for i in range(3):
+            st, m = step(st, data.batch(i))
+            losses.append(float(m["loss"]))
+        side[dev] = {"loss0": float(loss), "grads": grads, "losses": losses,
+                     "params": {path: p.detach().cpu()
+                                for path, p in tree_leaves(st.params)},
+                     "seconds": time.perf_counter() - t0}
+        if dev == "cuda":
+            launches = read_launches()
+        del st, data, loss
+    card_, cpu_ = side["cuda"], side["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
+        [card_["loss0"], *card_["losses"]], [cpu_["loss0"], *cpu_["losses"]]))
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"train_parity: card vs CPU loss differs by {loss_rel} relative")
+    grad_rel = {"/".join(p): _leaf_rel(cpu_["grads"][p], g)
+                for p, g in card_["grads"].items()}
+    worst_grad = max(grad_rel.values())
+    check(worst_grad <= TRAIN_GRAD_TOL,
+          f"train_parity: a gradient leaf differs by {worst_grad} relative "
+          f"L2: {grad_rel}")
+    zero_init = {p for p, a in tree_leaves(dump["params"]) if not a.any()}
+    param_rel = {p: _leaf_rel(cpu_["params"][p], t)
+                 for p, t in card_["params"].items()}
+    for p, r in param_rel.items():
+        tol = TRAIN_ZERO_INIT_TOL if p in zero_init else TRAIN_PARAM_TOL
+        check(r <= tol, f"train_parity: parameter leaf {p} differs by {r} "
+                        f"relative L2 after 3 steps (limit {tol})")
+    want = expected_launches("flash_attention", 4 * cfg.n_layers * 2)
+    want["flash_attention_bwd"] = 4 * cfg.n_layers
+    check(launches == want, f"train_parity launches {launches} != {want}")
+    return {"card": card, "arch": TRAIN_ARCH, "layers": cfg.n_layers,
+            "d_model": cfg.d_model,
+            "seq_len_batch": [shape.seq_len, shape.global_batch],
+            "loss_max_rel": loss_rel, "grad_max_rel_l2": worst_grad,
+            "param_max_rel_l2": max(r for p, r in param_rel.items()
+                                    if p not in zero_init),
+            "param_rel_l2_zero_init": {"/".join(p): param_rel[p]
+                                       for p in sorted(zero_init)},
+            "losses_card": [card_["loss0"], *card_["losses"]],
+            "losses_cpu": [cpu_["loss0"], *cpu_["losses"]],
+            "launches_card": launches,
+            "seconds": {d: side[d]["seconds"] for d in side},
+            "tolerance": {"loss_rel": TRAIN_LOSS_RTOL,
+                          "grad_rel_l2": TRAIN_GRAD_TOL,
+                          "param_rel_l2": TRAIN_PARAM_TOL,
+                          "param_rel_l2_zero_init": TRAIN_ZERO_INIT_TOL}}
+
+
+def train_resume(card: str) -> dict:
+    """``launch.train.run`` on the card, the reduced qwen config, 8
+    steps with a checkpoint every 2: uninterrupted; failed at step 5
+    (the injected ``RuntimeError`` and nothing else); resumed from the
+    step-4 checkpoint. The resumed run's last 3 losses must equal the
+    uninterrupted run's bit for bit (``tests/test_system.py:21-32`` on
+    the card)."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.train import TrainLoopConfig, run
+    scratch = os.path.join(HERE, "build", "chip_smoke_train_resume")
+    os.makedirs(scratch, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=scratch)
+    try:
+        cfg = TrainLoopConfig(arch=TRAIN_ARCH, steps=8, ckpt_dir=tmp,
+                              checkpoint_every=2, log_every=100,
+                              device="cuda")
+        reset_launches()
+        t0 = time.perf_counter()
+        full = run(TrainLoopConfig(**{**vars(cfg), "ckpt_dir": ""}))
+        full_s = time.perf_counter() - t0
+        launches = read_launches()
+        try:
+            run(TrainLoopConfig(**{**vars(cfg), "fail_at_step": 5}))
+        except RuntimeError as e:
+            check("injected failure at step 5" in str(e),
+                  f"train_resume: the failed run raised {e!r}")
+        else:
+            fail("train_resume: the run with fail_at_step=5 did not raise")
+        resumed = run(cfg)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(all(math.isfinite(x) for x in full["losses"]),
+          f"train_resume: non-finite losses {full['losses']}")
+    check(len(resumed["losses"]) == 4,
+          f"train_resume: resumed {len(resumed['losses'])} steps, not 4")
+    check(resumed["losses"][-3:] == full["losses"][-3:],
+          f"train_resume: resumed losses {resumed['losses'][-3:]} != "
+          f"uninterrupted {full['losses'][-3:]}")
+    check(launches["flash_attention"] > 0
+          and launches["flash_attention_bwd"] > 0,
+          f"train_resume did not launch B3 and B9: {launches}")
+    return {"card": card, "arch": TRAIN_ARCH, "reduced": True,
+            "losses_full": full["losses"], "losses_resumed":
+            resumed["losses"], "bit_identical_tail": True,
+            "launches_uninterrupted": launches, "wall_s_uninterrupted": full_s}
+
+
+def train_full(card: str) -> dict:
+    """``launch.train.run`` on qwen2.5-3b at full width, all 36 layers:
+    bf16 compute on float32 master weights, AdamW, ``TRAIN_FULL``. Each
+    step must launch B3 exactly 36 x 2 x 2 times (the forward and remat's
+    recompute, per microbatch) and B9 36 x 2 times, and nothing else."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import TrainLoopConfig, run
+    from repro_torch.models import registry
+    cfg = get_arch(TRAIN_ARCH)
+    L, M = cfg.n_layers, TRAIN_FULL["microbatches"]
+    want = expected_launches("flash_attention", L * 2 * M)
+    want["flash_attention_bwd"] = L * M
+    per_step = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    prev = read_launches()
+
+    def on_step(step, metrics, seconds):
+        nonlocal prev
+        now = read_launches()
+        per_step.append({k: now[k] - prev[k] for k in now})
+        prev = now
+
+    t0 = time.perf_counter()
+    out = run(TrainLoopConfig(arch=TRAIN_ARCH, reduced=False, device="cuda",
+                              log_every=1, **TRAIN_FULL), on_step=on_step)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in out["losses"]),
+          f"train_full: non-finite losses {out['losses']}")
+    for i, got in enumerate(per_step):
+        check(got == want, f"train_full step {i}: launches {got} != {want}")
+    n_params = registry.count_params(cfg)
+    tokens = TRAIN_FULL["global_batch"] * TRAIN_FULL["seq_len"]
+    steady = min(out["step_s"][1:])
+    return {"card": card, "arch": TRAIN_ARCH, "layers": L,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "params": n_params, **TRAIN_FULL, "remat": "full",
+            "dtype": "bfloat16",
+            "losses": out["losses"], "step_s": out["step_s"],
+            "first_step_s": out["step_s"][0], "steady_s_per_step": steady,
+            "tokens_per_s": tokens / steady,
+            "mfu": 6 * n_params * tokens / steady / BF16_FLOPS_PER_S,
+            "peak_memory_bytes": peak, "launches": launches,
+            "launches_per_step": per_step[0], "wall_s": wall}
+
+
+def profile_train(hand: tuple[str, ...]) -> dict:
+    """One warm ``train_step`` of ``train_full``'s configuration under
+    the profiler: busy share, top device ops, the hand kernels' device
+    time a launch."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params, train_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import TrainState, make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_arch(TRAIN_ARCH)
+    opt = AdamWConfig(warmup_steps=2, total_steps=10)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = {"st": TrainState.create(train_params(init_params(
+        registry.param_specs(cfg), gen, "cuda")), opt)}
+    step = make_train_step(cfg, opt, microbatches=TRAIN_FULL["microbatches"])
+    data = SyntheticDataset(cfg, ShapeConfig(
+        "train_full", TRAIN_FULL["seq_len"], TRAIN_FULL["global_batch"],
+        "train"), device="cuda")
+
+    def one(i=1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state["st"], m = step(state["st"], data.batch(i))
+        float(m["loss"])
+        return time.perf_counter() - t0
+
+    one(0)  # warm-up
+    rec = profile_run(one, hand, top=10)
+    del state["st"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    hand = rec.get("hand_kernels", {})
+    b9 = [next((v["device_us_per_launch"] for name, v in hand.items()
+                if k in name), None) for k in B9_KERNELS]
+    rec["b9_device_us_per_call"] = sum(b9) if None not in b9 else None
+    return rec
 
 
 def main() -> int:
@@ -2450,8 +2874,9 @@ def main() -> int:
     attn = check_attention_kernels(dev)
     ssd = check_ssd_kernel(dev)
     b2 = check_gated_matmul_kernel(dev)
+    b9 = check_attention_bwd_kernel(dev)
     emit("kernels", card=card, k1_cases=k1_cases, k2_cases=k2_cases,
-         b3_b4=attn, b5=ssd, b2=b2,
+         b3_b4=attn, b5=ssd, b2=b2, b9=b9,
          k1={"shape": k1_shape, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
              "bound_ms": k1_bound, "max_abs_err": k1_err,
              "device_us": k1_device_us,
@@ -2584,6 +3009,16 @@ def main() -> int:
 
     # ---- 9. serve_ssm_parity: card vs CPU, full width, 2 layers ----------
     emit("serve_ssm_parity", **serve_parity(SSM_ARCH))
+    torch.cuda.empty_cache()
+
+    # ---- 9b. training: card vs CPU, resume, qwen2.5-3b at full width -----
+    emit("train_parity", **train_parity(card))
+    emit("train_resume", **train_resume(card))
+    torch.cuda.empty_cache()
+    tr = train_full(card)
+    emit("train_full", **tr)
+    emit("profile_train", arch=TRAIN_ARCH, **profile_train(
+        (*B3_KERNELS.values(), *B9_KERNELS)))
 
     # ---- 10. the fleet, chaos and guard planes: K1 and K2, 97 calls a day
     # (after every profiled phase above, so that their threads and their
@@ -2645,6 +3080,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": ATTN_SOURCE,
             "replaces": replaces,
             "launches": serve_rec["launches"][name],
+            "launches_train": tr["launches"][name],
             "max_abs_err": max(t["max_abs_err"],
                                attn["max_abs_err"][key]["bfloat16"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -2656,6 +3092,30 @@ def main() -> int:
                          "atol = rtol = 2e-2 (bf16), 2e-5 (float32)"
                          + ("; bit-identical on a second call"
                             if name == "decode_attention" else "")})
+    b9m = b9["model_shape"]["bfloat16"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda", "source": B9_SOURCE,
+        "replaces": "src/repro/models/common.py:281",
+        "replaces_note": "not Pallas: jax.vjp of the reference's attention "
+                         "(plain_attention / flash_attention_jax)",
+        "launches": tr["launches"]["flash_attention_bwd"],
+        "launches_per_step": tr["launches_per_step"]["flash_attention_bwd"],
+        "max_abs_err": b9["max_abs_err"]["bfloat16"],
+        "max_abs_err_float32": b9["max_abs_err"]["float32"],
+        "ms": b9m["ms"], "device_us": b9m["device_us"],
+        "plain_ms": b9m["plain_ms"],
+        "plain_note": "the plain version on the CPU copies of the inputs",
+        "library_ms": b9m["library_ms"], "library_note": b9m["library_note"],
+        "bound_ms": b9m["bound_ms"], "bound_by": b9m["bound_by"],
+        "shape": b9m["shape"], "rel_l2": b9m["rel_l2"],
+        "control_rel_l2": b9m["control_rel_l2"],
+        "float32": {k: b9["model_shape"]["float32"][k] for k in
+                    ("ms", "device_us", "plain_ms", "library_ms",
+                     "bound_ms", "bound_by")},
+        "tolerance": f"float32: |kernel - plain| <= {B9_TOL_F32} "
+                     f"(max(max|plain|, 1) + |plain|); bf16: relative L2 "
+                     f"<= {B9_REL_L2_BF16} of each of dq, dk, dv (S > 1); "
+                     f"bit-identical on a second call"})
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
         "replaces": "src/repro/kernels/ssd_scan.py:79",

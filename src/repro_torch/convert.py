@@ -114,3 +114,28 @@ def _tree_from_numpy(tree: Any, device: torch.device,
         # numpy has no bf16: widen first (exact), then round once
         return torch.from_numpy(a.astype(np.float32)).to(device, dtype)
     return torch.from_numpy(a.copy()).to(device)
+
+
+def train_state_from_numpy(tree: Mapping, *, device="cuda",
+                           moment_dtype: torch.dtype = torch.float32):
+    """A ``repro_torch.train.steps.TrainState`` on ``device`` from the
+    JAX package's ``TrainState`` dumped to numpy: ``{"params": tree,
+    "opt_state": {"m": tree, "v": tree, "step": int, ["ef": tree]},
+    "step": int}``, each leaf an ``np.asarray`` of the reference's. The
+    params become float32 leaves that require grad, ``m`` and ``v``
+    ``moment_dtype``, ``ef`` float32, the steps int32 0-d tensors — so
+    both packages run the same steps from the same state. ``device``
+    defaults to the card and raises without one."""
+    from repro_torch.models.param import train_params
+    from repro_torch.train.steps import TrainState
+    params = train_params(params_from_numpy(tree["params"], device=device))
+    device = torch.device(device)
+    opt = tree["opt_state"]
+    step = lambda x: torch.tensor(int(np.asarray(x)), dtype=torch.int32,  # noqa
+                                  device=device)
+    new_opt = {k: _tree_from_numpy(opt[k], device, moment_dtype)
+               for k in ("m", "v")}
+    new_opt["step"] = step(opt["step"])
+    if "ef" in opt:
+        new_opt["ef"] = _tree_from_numpy(opt["ef"], device, torch.float32)
+    return TrainState(params=params, opt_state=new_opt, step=step(tree["step"]))

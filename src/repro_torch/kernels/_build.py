@@ -25,6 +25,8 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,12 +47,20 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_launch.argtypes = [
         i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-        ptr, ptr, ptr, f32, i32, ptr, ptr]
+        ptr, ptr, ptr, f32, i32, ptr, ptr, ptr]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.decode_attention_launch.argtypes = [
         i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
         ptr, ptr, ptr, f32, ptr]
     lib.decode_attention_launch.restype = ctypes.c_int
+
+
+def _bind_attention_bwd(lib: ctypes.CDLL) -> None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_bwd_launch.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        i32, i32, i32, i32, i32, i32, f32, i32, ptr]
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
 
 
 def _bind_ssd_scan(lib: ctypes.CDLL) -> None:
@@ -99,6 +109,8 @@ LIBRARIES = {
                            COMMON_FLAGS + ("-fmad=false",), _bind_power_plane),
     "attention": Library(CSRC / "attention.cu", COMMON_FLAGS,
                          _bind_attention),
+    "attention_bwd": Library(CSRC / "attention_bwd.cu", COMMON_FLAGS,
+                             _bind_attention_bwd),
     "ssd_scan": Library(CSRC / "ssd_scan.cu", COMMON_FLAGS, _bind_ssd_scan),
     "gated_matmul": Library(CSRC / "gated_matmul.cu", COMMON_FLAGS,
                             _bind_gated_matmul),
@@ -201,6 +213,15 @@ def load(name: str) -> ctypes.CDLL:
             LIBRARIES[name].bind(lib)
             _LIBS[name] = lib
         return _LIBS[name]
+
+
+def check_no_grad(what: str, tensors, route: str) -> None:
+    """Raise where a kernel would drop a gradient: a hand kernel's
+    output has no ``grad_fn``, so a call with grad enabled on an input
+    that requires it must not go ahead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the kernel has no autograd and would "
+                           f"drop the gradient; {route}")
 
 
 def check(err: int, what: str) -> None:

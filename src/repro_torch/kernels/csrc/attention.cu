@@ -47,6 +47,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // the card's ~295, so the bound is the tensor cores' 989 TFLOP/s (0.07 ms);
 // the float32 route is bound by the CUDA cores' 67 TFLOP/s.
 //
+// Both routes, for training, write each query row's log-sum-exp of its
+// scaled live scores (m + log l, float32 (B, H, Sq)) when the launcher gets
+// an lse pointer -- what the backward kernel B9 (attention_bwd.cu)
+// recomputes P from. Serving passes a null pointer: one predicated store
+// per row at the end of a block, nothing in the key loop.
+//
 // Both routes: one block per (q-tile of 64 rows, head, batch). The key loop
 // runs over tiles of 64 and stops at the diagonal (and at Sk), so a tile
 // that the causal mask would zero is never loaded -- the point of the
@@ -114,7 +120,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int64_t qsb, int64_t qss, int64_t qsh,
                        int64_t ksb, int64_t kss, int64_t ksh,
                        int64_t vsb, int64_t vss, int64_t vsh,
-                       float scale, int causal, int* __restrict__ tiles_loaded)
+                       float scale, int causal, int* __restrict__ tiles_loaded,
+                       float* __restrict__ lse)
 {
     using namespace fa;
     constexpr int LD = ld<D>();
@@ -272,6 +279,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // row_l is final: its last write came before the loop's last barrier
     __syncthreads();
+    if (lse != nullptr && tid < BQ && q0 + tid < Sq)
+        lse[((int64_t)b * H + h) * Sq + q0 + tid] =
+            row_m[tid] + logf(fmaxf(row_l[tid], 1e-30f));
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
         const int r = ty + 16 * i, s = q0 + r;
@@ -323,7 +333,8 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tv,
                             __nv_bfloat16* __restrict__ o,
                             int H, int Hkv, int Sq, int Sk,
-                            float scale, int causal, int* __restrict__ tiles_loaded)
+                            float scale, int causal, int* __restrict__ tiles_loaded,
+                            float* __restrict__ lse)
 {
     using namespace fa2;
     constexpr int TB = tile_bytes<D>();
@@ -484,6 +495,13 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         l[r] = fmaxf(l[r], 1e-30f);
     }
+    if (lse != nullptr && t == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int qpos = row0 + 8 * r;
+            if (qpos < Sq) lse[((int64_t)b * H + h) * Sq + qpos] = m[r] + logf(l[r]);
+        }
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int qpos = row0 + 8 * r;
@@ -517,7 +535,7 @@ static int flash_attention_bf16_run(const void* q, const void* k, const void* v,
                                     void* o, int B, int H, int Hkv, int Sq, int Sk,
                                     const int64_t* qst, const int64_t* kst,
                                     const int64_t* vst, float scale, int causal,
-                                    int* tiles_loaded, cudaStream_t stream)
+                                    int* tiles_loaded, float* lse, cudaStream_t stream)
 {
     CUtensorMap tq, tk, tv;
     if (!attention_map<D>(&tq, q, B, Sq, H, qst)
@@ -531,7 +549,7 @@ static int flash_attention_bf16_run(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return (int)err;
     dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + fa2::BQ - 1) / fa2::BQ));
     flash_attention_bf16_kernel<D><<<grid, fa2::THREADS, smem, stream>>>(
-        tq, tk, tv, (__nv_bfloat16*)o, H, Hkv, Sq, Sk, scale, causal, tiles_loaded);
+        tq, tk, tv, (__nv_bfloat16*)o, H, Hkv, Sq, Sk, scale, causal, tiles_loaded, lse);
     return (int)cudaGetLastError();
 }
 
@@ -540,11 +558,11 @@ static int flash_attention_run(const void* q, const void* k, const void* v, void
                                int B, int H, int Hkv, int Sq, int Sk,
                                const int64_t* qst, const int64_t* kst,
                                const int64_t* vst, float scale, int causal,
-                               int* tiles_loaded, cudaStream_t stream)
+                               int* tiles_loaded, float* lse, cudaStream_t stream)
 {
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
         return flash_attention_bf16_run<D>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst,
-                                           vst, scale, causal, tiles_loaded, stream);
+                                           vst, scale, causal, tiles_loaded, lse, stream);
     } else {
         const size_t smem = fa::smem_bytes<D>();
         cudaError_t err = cudaFuncSetAttribute(
@@ -555,7 +573,7 @@ static int flash_attention_run(const void* q, const void* k, const void* v, void
         flash_attention_kernel<T, D><<<grid, fa::THREADS, smem, stream>>>(
             (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq, Sk,
             qst[0], qst[1], qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
-            scale, causal, tiles_loaded);
+            scale, causal, tiles_loaded, lse);
         return (int)cudaGetLastError();
     }
 }
@@ -566,13 +584,13 @@ static int flash_attention_dispatch(int D, const void* q, const void* k,
                                     int Hkv, int Sq, int Sk, const int64_t* qst,
                                     const int64_t* kst, const int64_t* vst,
                                     float scale, int causal, int* tiles,
-                                    cudaStream_t s)
+                                    float* lse, cudaStream_t s)
 {
     switch (D) {
-    case 16:  return flash_attention_run<T, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, s);
-    case 32:  return flash_attention_run<T, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, s);
-    case 64:  return flash_attention_run<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, s);
-    case 128: return flash_attention_run<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, s);
+    case 16:  return flash_attention_run<T, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, lse, s);
+    case 32:  return flash_attention_run<T, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, lse, s);
+    case 64:  return flash_attention_run<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, lse, s);
+    case 128: return flash_attention_run<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, lse, s);
     default:  return (int)cudaErrorInvalidValue;
     }
 }
@@ -582,20 +600,22 @@ static int flash_attention_dispatch(int D, const void* q, const void* k,
 // base addresses and the strides are multiples of 16 bytes: TMA; the
 // wrapper gives a length-1 dim a dense stride, as its index is always 0).
 // tiles_loaded: nullptr, or B*H*ceil(Sq/64) ints that receive the number of
-// key tiles each block loaded.
+// key tiles each block loaded. lse: nullptr (serving), or B*H*Sq floats,
+// dense (B, H, Sq), that receive each query row's log-sum-exp of its scaled
+// live scores, m + log(l), for the backward kernel B9 (attention_bwd.cu).
 extern "C" int flash_attention_launch(
     int is_bf16, const void* q, const void* k, const void* v, void* o,
     int B, int H, int Hkv, int Sq, int Sk, int D,
     const int64_t* q_strides, const int64_t* k_strides, const int64_t* v_strides,
-    float scale, int causal, int* tiles_loaded, void* stream)
+    float scale, int causal, int* tiles_loaded, float* lse, void* stream)
 {
     if (is_bf16)
         return flash_attention_dispatch<__nv_bfloat16>(
             D, q, k, v, o, B, H, Hkv, Sq, Sk, q_strides, k_strides, v_strides,
-            scale, causal, tiles_loaded, (cudaStream_t)stream);
+            scale, causal, tiles_loaded, lse, (cudaStream_t)stream);
     return flash_attention_dispatch<float>(
         D, q, k, v, o, B, H, Hkv, Sq, Sk, q_strides, k_strides, v_strides,
-        scale, causal, tiles_loaded, (cudaStream_t)stream);
+        scale, causal, tiles_loaded, lse, (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------

@@ -130,6 +130,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type != "cuda":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       scale=scale)
+    _build.check_no_grad("decode_attention", (q, k_cache, v_cache),
+                  "decode is not a training path")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D}: the kernel is built for "
                          f"{HEAD_DIMS}")

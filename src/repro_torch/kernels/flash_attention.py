@@ -15,7 +15,12 @@ the CUDA cores.
 ``flash_attention`` launches the kernel for CUDA tensors and evaluates
 ``flash_attention_plain`` for CPU tensors; nothing else selects between
 them, and a kernel that fails to build or launch raises.
-``flash_attention.launches`` counts kernel launches.
+``flash_attention.launches`` counts kernel launches. With ``return_lse``
+it also returns each query row's log-sum-exp, which the backward kernel
+B9 (``flash_attention_bwd``) takes; serving asks for none, and the
+kernel then writes none. The wrapper is not differentiable: a CUDA call
+with grad enabled on an input that requires it raises (training goes
+through ``models.common.attention``, whose backward is B9).
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ref_attention
+from repro_torch.kernels.ref import NEG_INF, ref_attention
 
 #: the kernel's tile (query rows and keys); ``tiles_loaded`` counts in it
 TILE = 64
@@ -59,15 +64,26 @@ def _check(q, k, v) -> tuple[int, int, int, int, int, int]:
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
     """Plain PyTorch version of B3: KV heads repeated to the query heads
     (head ``h`` reads KV head ``h // (H // Hkv)``), then ``ref_attention``
-    in float32; the output in q's dtype."""
-    _, _, H, _, _, Hkv = _check(q, k, v)
+    in float32; the output in q's dtype. With ``return_lse`` also the
+    row log-sum-exp of the scaled live scores, float32 ``(B, H, Sq)``."""
+    _, Sq, H, D, Sk, Hkv = _check(q, k, v)
     if Hkv != H:
         k = k.repeat_interleave(H // Hkv, dim=2)
         v = v.repeat_interleave(H // Hkv, dim=2)
-    return ref_attention(q, k, v, causal=causal, scale=scale)
+    out = ref_attention(q, k, v, causal=causal, scale=scale)
+    if not return_lse:
+        return out
+    scale = D ** -0.5 if scale is None else float(scale)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
+    if causal:
+        live = torch.arange(Sk, device=q.device)[None, :] \
+            <= torch.arange(Sq, device=q.device)[:, None]
+        s = torch.where(live, s, torch.full((), NEG_INF, device=q.device))
+    return out, torch.logsumexp(s, dim=-1)
 
 
 def rows_aligned(t: torch.Tensor) -> bool:
@@ -113,7 +129,8 @@ def _strides(t: torch.Tensor):
 
 
 def _launch(lib, q, k, v, out, *, causal: bool, scale: float,
-            tiles_loaded: Optional[torch.Tensor], stream: int) -> int:
+            tiles_loaded: Optional[torch.Tensor], stream: int,
+            lse: Optional[torch.Tensor] = None) -> int:
     """One call of the C launcher; the arguments are already checked."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -121,13 +138,14 @@ def _launch(lib, q, k, v, out, *, causal: bool, scale: float,
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Sk, D,
         _strides(q), _strides(k), _strides(v), float(scale), int(causal),
-        None if tiles_loaded is None else tiles_loaded.data_ptr(), stream)
+        None if tiles_loaded is None else tiles_loaded.data_ptr(),
+        None if lse is None else lse.data_ptr(), stream)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
-                    tiles_loaded: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    tiles_loaded: Optional[torch.Tensor] = None,
+                    return_lse: bool = False):
     """Softmax attention of q ``(B, Sq, H, D)`` over k/v
     ``(B, Sk, Hkv, D)``, GQA by head grouping; float32 or bf16, float32
     softmax and accumulation, output ``(B, Sq, H, D)`` in q's dtype.
@@ -142,6 +160,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tensor whose rows do not start on 16-byte boundaries (see
     ``rows_aligned``) is first copied densely (``for_kernel``); the kernel
     is launched all the same, never a fallback.
+
+    ``return_lse``: also return each query row's log-sum-exp of its
+    scaled live scores, float32 ``(B, H, Sq)`` — ``(out, lse)``.
     """
     B, Sq, H, D, Sk, Hkv = _check(q, k, v)
     scale = D ** -0.5 if scale is None else float(scale)
@@ -149,7 +170,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if tiles_loaded is not None:
             raise ValueError("tiles_loaded counts the CUDA kernel's loads; "
                              "CPU tensors take the plain version")
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     return_lse=return_lse)
+    _build.check_no_grad("flash_attention", (q, k, v),
+                  "train through repro_torch.models.common.attention, whose "
+                  "backward is kernel B9")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D}: the kernel is built for "
                          f"{HEAD_DIMS}")
@@ -170,16 +195,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"({B}, {H}, {n_qt}) tensor on {dev}")
     q, k, v = (for_kernel(t) for t in (q, k, v))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if out.numel() == 0:  # a zero-size grid is a launch error
-        return out
+        return (out, lse) if return_lse else out
     lib = _build.load("attention")
     with torch.cuda.device(dev):
         err = _launch(lib, q, k, v, out, causal=causal, scale=scale,
-                      tiles_loaded=tiles_loaded,
+                      tiles_loaded=tiles_loaded, lse=lse,
                       stream=torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
 
 
 flash_attention.launches = 0

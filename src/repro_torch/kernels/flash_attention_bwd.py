@@ -1,0 +1,156 @@
+"""The backward of causal GQA attention — CUDA kernel B9.
+
+Replaces no Pallas kernel: the JAX package trains through ``jax.vjp`` of
+its attention (``src/repro/models/common.py:281-300``, autodiff of
+``plain_attention`` / ``flash_attention_jax``). On the card the port's
+forward is kernel B3, which keeps no probabilities; B9 takes what B3
+leaves — q, k, v, the output o and its row log-sum-exp ``lse`` — and the
+output's gradient do, and returns dq, dk, dv. The kernels, their bound and
+the reasons for their design are in ``csrc/attention_bwd.cu``; in short:
+bound by operations at the training shape; float32 math on the CUDA cores
+(bf16 inputs widened as they load); every sum in a fixed order and no
+float atomic, so a result is the same from run to run (the training loop's
+bit-exact resume rests on it); tiles above the diagonal never loaded.
+
+``flash_attention_bwd`` launches the kernels for CUDA tensors and
+evaluates ``flash_attention_bwd_plain`` for CPU tensors; nothing else
+selects between them, and a kernel that fails to build or launch raises.
+``flash_attention_bwd.launches`` counts wrapper calls that launched (one
+a call: the four kernels of a call count once).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import (_GRID_YZ_MAX, DTYPES,
+                                                 HEAD_DIMS, TILE, _check)
+from repro_torch.kernels.ref import NEG_INF
+
+
+def _check_bwd(q, k, v, o, lse, do):
+    B, Sq, H, D, Sk, Hkv = _check(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o and do must be q's shape {tuple(q.shape)}, got "
+                         f"{tuple(o.shape)} {tuple(do.shape)}")
+    if o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o and do must be {q.dtype}, got {o.dtype} "
+                         f"{do.dtype}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse: want float32 ({B}, {H}, {Sq}), got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    devs = {t.device for t in (q, o, lse, do)}
+    if len(devs) != 1:
+        raise ValueError(f"q, k, v, o, lse, do on several devices: {devs}")
+    return B, Sq, H, D, Sk, Hkv
+
+
+def _probs(q, k, lse, *, causal: bool, scale: float):
+    """P = exp(scale q.k - lse) over live keys, float32 (B, H, Sq, Sk),
+    KV heads repeated to the query heads."""
+    H, Hkv = q.shape[2], k.shape[2]
+    if Hkv != H:
+        k = k.repeat_interleave(H // Hkv, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        Sq, Sk = q.shape[1], k.shape[1]
+        live = torch.arange(Sk)[None, :] <= torch.arange(Sq)[:, None]
+        s = torch.where(live, s, torch.full((), NEG_INF))
+    return torch.exp(s - lse[..., None])
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
+                              scale: Optional[float] = None,
+                              p_bits: Optional[int] = None):
+    """Plain PyTorch version of B9 (CPU tensors only), in float32: P
+    recomputed from ``lse``, ``dS = P o (dP - D)`` with ``D =
+    rowsum(do o o)``; a KV head's gradient is the sum over its group's
+    query heads. Returns dq, dk, dv in q's dtype.
+
+    ``p_bits``: round P to nearest at that many stored mantissa bits
+    before it is used (a deliberately wrong rounding, for the card's
+    bf16 gate's control); None keeps float32."""
+    B, Sq, H, D, Sk, Hkv = _check_bwd(q, k, v, o, lse, do)
+    if q.device.type != "cpu":
+        raise ValueError("flash_attention_bwd_plain takes CPU tensors; on "
+                         "the card the kernel runs")
+    scale = D ** -0.5 if scale is None else float(scale)
+    G = H // Hkv
+    p = _probs(q, k, lse, causal=causal, scale=scale)
+    if p_bits is not None:
+        drop = 23 - int(p_bits)
+        p = ((p.view(torch.int32) + (1 << (drop - 1)))
+             & ~((1 << drop) - 1)).view(torch.float32)
+    dof, of = do.float(), o.float()
+    kr, vr = (t.float().repeat_interleave(G, dim=2) for t in (k, v))
+    delta = (dof * of).sum(dim=-1).transpose(1, 2)        # (B, H, Sq)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(B, Sk, Hkv, G, D).sum(dim=3)
+    dv = dv.reshape(B, Sk, Hkv, G, D).sum(dim=3)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _launch(lib, q, k, v, o, lse, do, delta, dk_ws, dv_ws, dq, dk, dv, *,
+            causal: bool, scale: float, stream: int) -> int:
+    """One call of the C launcher; the arguments are already checked."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    return lib.flash_attention_bwd_launch(
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk_ws.data_ptr(), dv_ws.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Sk, D, float(scale),
+        int(causal), stream)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True,
+                        scale: Optional[float] = None):
+    """dq, dk, dv of ``o = flash_attention(q, k, v, causal=causal,
+    scale=scale)`` for the output gradient ``do``: q, o, do ``(B, Sq, H,
+    D)``, k, v ``(B, Sk, Hkv, D)`` of one dtype (float32 or bf16), ``lse``
+    the forward's float32 ``(B, H, Sq)`` row log-sum-exp
+    (``flash_attention(..., return_lse=True)``). Returns dq, dk, dv in q's
+    dtype and shapes. The kernels read dense tensors: a view that is not
+    contiguous is copied first."""
+    B, Sq, H, D, Sk, Hkv = _check_bwd(q, k, v, o, lse, do)
+    scale = D ** -0.5 if scale is None else float(scale)
+    if q.device.type != "cuda":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                         scale=scale)
+    if D not in HEAD_DIMS or q.dtype not in DTYPES:
+        raise ValueError(f"head dim {D}, {q.dtype}: the kernels are built "
+                         f"for {HEAD_DIMS} x {DTYPES}")
+    if max(-(-max(Sq, Sk) // TILE), B) > _GRID_YZ_MAX:
+        raise ValueError(f"Sq = {Sq}, Sk = {Sk}, B = {B}: the grids take at "
+                         f"most {_GRID_YZ_MAX} tiles and batches")
+    _build.check_no_grad("flash_attention_bwd", (q, k, v, o, do),
+                  "it is the backward of models.common.attention on the card")
+    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    dev = q.device
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:  # a zero-size grid is an error
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
+    dk_ws = torch.empty((B, Sk, H, D), dtype=torch.float32, device=dev)
+    dv_ws = torch.empty_like(dk_ws)
+    lib = _build.load("attention_bwd")
+    with torch.cuda.device(dev):
+        err = _launch(lib, q, k, v, o, lse, do, delta, dk_ws, dv_ws, dq, dk,
+                      dv, causal=causal, scale=scale,
+                      stream=torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -110,6 +110,7 @@ def gated_matmul_p(x: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
         out = gated_matmul_plain(x, w, bitmap, bm=bm, bn=bn, bk=bk)
         _counter(dev).add_((M // bm) * int((bitmap != 0).sum()))
         return out
+    _build.check_no_grad("gated_matmul", (x, w), "B2 has no backward")
     if not {bm, bn, bk} <= set(BLOCKS):
         raise ValueError(f"blocks bm, bn, bk = {(bm, bn, bk)}: the kernel is "
                          f"built for {BLOCKS} each")

@@ -1,0 +1,174 @@
+"""Fault-tolerant training driver.
+
+The JAX package's ``repro.launch.train`` in PyTorch's idiom:
+
+* **Checkpoint/restart** — async ``CheckpointManager`` with atomic
+  publish; on start, resumes from the latest step (the data pipeline's
+  state rides in the manifest, so the token stream continues
+  bit-exactly, and the step is deterministic on a device — B9 and every
+  sum of the port's own in a fixed order — so the resumed losses equal an
+  uninterrupted run's bit for bit).
+* **Straggler mitigation** — a per-step wall-time EWMA; a step slower
+  than ``straggler_factor`` x EWMA is logged and counted.
+* **Failure injection** — ``--fail-at-step N`` raises mid-run; rerunning
+  the same command resumes from the last checkpoint.
+
+Runs on the card unless ``--device`` (``TrainLoopConfig.device``) says
+otherwise: there the dense family's attention is kernel B3 forward and
+kernel B9 backward; the SSD family trains on the CPU only (its card
+scan, B5, has no backward yet, and ``ssd_fwd`` raises before any work).
+Sharding rules are the parallel slice's (ROADMAP A9): ``--rules``
+accepts ``baseline`` only, one device.
+
+Run (CPU, reduced config):
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch qwen2.5-3b --steps 20 --ckpt-dir /tmp/ckpt --checkpoint-every 5
+Run (the card, full width):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+      --full --seq-len 2048 --global-batch 2 --microbatches 2 --steps 4
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs.base import ShapeConfig, get_arch
+from repro_torch.data.pipeline import SyntheticDataset
+from repro_torch.models import registry
+from repro_torch.models.param import init_params, train_params
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.steps import TrainState, make_train_step
+
+RULES = ("baseline",)
+
+
+@dataclass
+class TrainLoopConfig:
+    arch: str = "qwen2.5-3b"
+    reduced: bool = True
+    steps: int = 20
+    seq_len: int = 64
+    global_batch: int = 8
+    microbatches: int = 1
+    ckpt_dir: str = ""
+    checkpoint_every: int = 10
+    keep: int = 3
+    seed: int = 0
+    lr: float = 3e-4
+    straggler_factor: float = 2.0
+    fail_at_step: int = -1
+    grad_compression: str | None = None
+    rules: str = "baseline"
+    log_every: int = 1
+    #: where the run's state and batches live: the card unless told
+    #: otherwise
+    device: str = "cuda"
+
+
+def run(cfg_loop: TrainLoopConfig,
+        on_step: Optional[Callable[[int, dict, float], None]] = None
+        ) -> dict:
+    """Train ``cfg_loop.steps`` steps (from the latest checkpoint, if
+    any). ``on_step(step, metrics, seconds)``, if given, is called after
+    each step (its metrics are 0-d tensors). Returns ``{"losses",
+    "stragglers", "final_loss", "step_s"}``."""
+    if cfg_loop.rules not in RULES:
+        raise NotImplementedError(
+            f"rules {cfg_loop.rules!r}: sharding rules are the parallel "
+            f"slice's (ROADMAP A9); the port trains on one device with "
+            f"{RULES}")
+    device = torch.device(cfg_loop.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' (--device "
+                           "cpu) to train on the CPU")
+    arch = get_arch(cfg_loop.arch)
+    cfg = arch.reduced() if cfg_loop.reduced else arch
+    shape = ShapeConfig("train_custom", cfg_loop.seq_len,
+                        cfg_loop.global_batch, "train")
+    opt = AdamWConfig(lr_peak=cfg_loop.lr, warmup_steps=2,
+                      total_steps=max(10, cfg_loop.steps))
+    data = SyntheticDataset(cfg, shape, seed=cfg_loop.seed, device=device)
+    step_fn = make_train_step(
+        cfg, opt, microbatches=cfg_loop.microbatches,
+        grad_compression=cfg_loop.grad_compression)
+
+    ckpt = CheckpointManager(cfg_loop.ckpt_dir, keep=cfg_loop.keep) \
+        if cfg_loop.ckpt_dir else None
+
+    gen = torch.Generator(device=device).manual_seed(cfg_loop.seed)
+    params = train_params(init_params(registry.param_specs(cfg), gen,
+                                      device))
+    state = TrainState.create(params, opt,
+                              grad_compression=cfg_loop.grad_compression)
+    start_step = 0
+    if ckpt is not None and ckpt.latest_step() is not None:
+        state, extras = ckpt.restore(state)
+        start_step = int(extras.get("data_state", {}).get("step", 0))
+        print(f"[train] resumed from checkpoint step {start_step}")
+
+    ewma = None
+    stragglers = 0
+    losses, step_s = [], []
+    for step in range(start_step, cfg_loop.steps):
+        if step == cfg_loop.fail_at_step:
+            raise RuntimeError(f"[train] injected failure at step {step}")
+        t0 = time.time()
+        batch = data.batch(step)
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])  # waits for the step
+        dt = time.time() - t0
+        if ewma is None:
+            ewma = dt
+        if dt > cfg_loop.straggler_factor * ewma and step > start_step:
+            stragglers += 1
+            print(f"[train] step {step}: STRAGGLER {dt:.3f}s "
+                  f"(ewma {ewma:.3f}s) — deterministic batch would be "
+                  f"re-issued on a spare")
+        ewma = 0.9 * ewma + 0.1 * dt
+        losses.append(loss)
+        step_s.append(dt)
+        if on_step is not None:
+            on_step(step, metrics, dt)
+        if step % cfg_loop.log_every == 0:
+            print(f"[train] step {step}: loss={loss:.4f} "
+                  f"gnorm={float(metrics['grad_norm']):.3f} "
+                  f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms")
+        if (ckpt is not None and cfg_loop.checkpoint_every > 0
+                and (step + 1) % cfg_loop.checkpoint_every == 0):
+            ckpt.save(step + 1, state,
+                      extras={"data_state": data.state(step + 1),
+                              "arch": cfg.name})
+    if ckpt is not None:
+        ckpt.save(cfg_loop.steps, state,
+                  extras={"data_state": data.state(cfg_loop.steps),
+                          "arch": cfg.name}, blocking=True)
+    return {"losses": losses, "stragglers": stragglers,
+            "final_loss": losses[-1] if losses else None, "step_s": step_s}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    for f in ("arch", "ckpt_dir", "grad_compression", "rules", "device"):
+        ap.add_argument(f"--{f.replace('_', '-')}", default=None)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    for f in ("steps", "seq_len", "global_batch", "microbatches",
+              "checkpoint_every", "seed", "fail_at_step", "log_every"):
+        ap.add_argument(f"--{f.replace('_', '-')}", type=int, default=None)
+    args = ap.parse_args(argv)
+    cfg = TrainLoopConfig()
+    for k, v in vars(args).items():
+        if v is not None:
+            setattr(cfg, k, v)
+    out = run(cfg)
+    print(f"[train] done: final_loss={out['final_loss']:.4f} "
+          f"stragglers={out['stragglers']}")
+
+
+if __name__ == "__main__":
+    main()

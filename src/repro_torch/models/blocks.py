@@ -278,7 +278,18 @@ def ssd_fwd(p, x_res, cfg: ArchConfig, *, return_cache: bool = False,
     ``state_out`` (a float32 ``(B, nh, hd, N)`` tensor, e.g. a cache's
     layer slice) receives the final state in place — written by kernel B5
     itself on the card — and is the ``h_final`` returned.
+
+    On the card with grad enabled on an input that requires it, raises
+    ``NotImplementedError`` before any work: B5 has no backward yet
+    (ROADMAP Queue B, the B5 backward), so the SSD family trains on the
+    CPU only, through the plain scan.
     """
+    if x_res.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x_res, *p.values())):
+        raise NotImplementedError(
+            "ssd_fwd on the card runs kernel B5, which has no backward yet "
+            "(ROADMAP Queue B: the B5 backward, for mamba2 training on the "
+            "card); train the SSD family on the CPU (device='cpu')")
     h = rms_norm(x_res, p["ln"], cfg.norm_eps)
     x, z, dt, Bm, Cm, conv_tail = _ssd_inputs(p, h, cfg)
     A = -torch.exp(p["A_log"].float())

@@ -8,11 +8,16 @@ do. On a CUDA tensor, causal self-attention (``attention``) goes to the
 hand-written kernel B3 and single-token attention against the cache
 (``decode_attention``) to B4, at every length; the masks those kernels
 do not take (sliding window, prefix-LM, bidirectional, offset queries)
-raise there, since no ported arch needs them. On a CPU tensor both run
-the plain forms exactly as the JAX package dispatches them
+raise there, since no ported arch needs them. When an input requires
+grad (training), ``attention`` on the card runs ``KernelAttention``, an
+autograd function whose forward is B3 with its row log-sum-exp and whose
+backward is kernel B9; B4 has no backward, and its wrapper raises then
+rather than drop a gradient. On a CPU tensor both
+run the plain forms exactly as the JAX package dispatches them
 (``plain_attention`` up to ``chunk_threshold`` keys, then
-``flash_attention_jax``). The JAX package's sharding hints are dropped:
-the port runs on one device.
+``flash_attention_jax``), and training differentiates through those, as
+the JAX package differentiates through its own. The JAX package's
+sharding hints are dropped: the port runs on one device.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from repro_torch.kernels.decode_attention import \
     decode_attention as decode_attention_kernel
 from repro_torch.kernels.flash_attention import \
     flash_attention as flash_attention_kernel
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 
 Window = Union[None, int, torch.Tensor]
 
@@ -179,11 +185,33 @@ def flash_attention_jax(q, k, v, *, causal: bool, window: Window = None,
     return out[:, :Sq].to(v.dtype)
 
 
+class KernelAttention(torch.autograd.Function):
+    """Causal self-attention whose forward is kernel B3 (with its row
+    log-sum-exp) and whose backward is kernel B9: the card's training
+    attention. ``apply(q, k, v, scale)``; scale None is ``D ** -0.5``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_attention_kernel(q, k, v, causal=True, scale=scale,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None
+
+
 def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
               scale: Optional[float] = None, prefix_len: int = 0,
               chunk_threshold: int = 2048, q_chunk: int = 2048,
               kv_chunk: int = 1024) -> torch.Tensor:
-    """Sequence attention. CUDA: kernel B3 (causal self-attention only).
+    """Sequence attention. CUDA: kernel B3 (causal self-attention only),
+    through ``KernelAttention`` (backward B9) when an input requires grad.
     CPU: plain or chunked flash by KV length, as the JAX package."""
     if q.device.type == "cuda":
         if not (causal and window is None and prefix_len == 0
@@ -193,6 +221,9 @@ def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
                 "self-attention with no window, prefix or query offset; "
                 "the other masks wait for the archs that need them "
                 "(ROADMAP A7)")
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            return KernelAttention.apply(q, k, v, scale)
         return flash_attention_kernel(q, k, v, causal=True, scale=scale)
     if k.shape[1] <= chunk_threshold:
         return plain_attention(q, k, v, causal=causal, window=window,

@@ -3,10 +3,23 @@
 Plain functions over a parameter tree (nested dicts of tensors, layer
 weights stacked on a leading axis), with the JAX package's names and its
 ``(B, S, H, D)`` layout at every public function. The layer ``lax.scan``
-is a Python loop over the stacked weights (a layer's weights are views,
-nothing is copied). On a CUDA tensor every attention call goes through
-the hand kernels (B3 at prefill, B4 at decode) and every SSD prefill
-through B5; on a CPU tensor through their plain forms.
+is a Python loop over the stacked weights: each stacked leaf is
+``unbind``-ed once a forward into its layers' views (nothing is copied;
+under autograd the backward of one ``unbind`` is one ``stack``, where a
+view ``a[i]`` per layer would write a zero gradient of the whole stack
+per layer). On a CUDA tensor every attention call goes through the hand
+kernels (B3 at prefill and in training, whose backward is B9; B4 at
+decode) and every SSD prefill through B5; on a CPU tensor through their
+plain forms, and autograd through those.
+
+Training (``loss_fn``, ``forward(..., remat=)``) runs with no cache and
+no in-place write: the inference-only code (caches written in place,
+preallocated outputs) is on the prefill and decode paths only. The
+remat policies wrap each layer: ``"full"`` recomputes it in the backward
+(``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the 2-D
+matmul outputs and recomputes the rest (a selective-checkpoint policy
+that saves ``aten.mm``, the JAX package's
+``dots_with_no_batch_dims_saveable``), ``"none"`` keeps everything.
 
 The port runs the dense text family and the SSD family;
 ``registry.param_specs`` raises for the rest, and so do the entry points
@@ -15,14 +28,47 @@ the SSD conv tails and states whole.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks, registry
 from repro_torch.models.common import rms_norm
-from repro_torch.models.param import cast_tree, tree_map
+from repro_torch.models.param import cast_tree, tree_leaves, tree_with_leaves
+
+REMAT_POLICIES = {
+    "full": None,  # save nothing
+    "dots": "torch.ops.aten.mm saved (dots_with_no_batch_dims_saveable)",
+    "none": "everything saved",
+}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of 2-D matmuls (``x @ w``
+    lowers to ``aten.mm``; the attention einsums, with batch dims, to
+    ``aten.bmm``), recompute everything else."""
+    CP = torch_checkpoint.CheckpointPolicy
+    return CP.MUST_SAVE if op is torch.ops.aten.mm.default \
+        else CP.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` wrapped by the remat policy ``policy`` (a key of
+    ``REMAT_POLICIES``)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat {policy!r}: want one of "
+                         f"{sorted(REMAT_POLICIES)}")
+    if policy == "none":
+        return fn
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _save_dots)
+    return lambda *args: torch_checkpoint.checkpoint(fn, *args, **kw)
 
 
 # --------------------------------------------------------------------------
@@ -48,9 +94,12 @@ def unembed(params, x, cfg: ArchConfig):
 # Layer application
 # --------------------------------------------------------------------------
 
-def _layer(layers, i: int):
-    """Layer ``i``'s weights: views into the stacked tree."""
-    return tree_map(lambda a: a[i], layers)
+def _layers(layers, L: int) -> list:
+    """The L layers' weight trees: views into the stacked tree, each
+    stacked leaf ``unbind``-ed once."""
+    per = {path: leaf.unbind(0) for path, leaf in tree_leaves(layers)}
+    return [tree_with_leaves(layers, {path: v[i] for path, v in per.items()})
+            for i in range(L)]
 
 
 def _cache_slice(tree, i: int):
@@ -89,7 +138,8 @@ def _apply_layer(p, x, cfg: ArchConfig, *, window, prefix_len: int,
 # --------------------------------------------------------------------------
 
 def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
-            dtype=torch.bfloat16, cache: Optional[dict] = None):
+            remat: str = "full", dtype=torch.bfloat16,
+            cache: Optional[dict] = None):
     """Full-sequence forward over ``batch["tokens"]`` (B, S) int64.
 
     Returns (logits (B, S, V), aux) when ``prefill=False``, aux a zero
@@ -102,30 +152,63 @@ def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
     place: the prompt's K/V into its first S slots, or each layer's conv
     tail and final state (B5 writes the state straight into the layer's
     slice on the card).
+
+    ``remat`` (a key of ``REMAT_POLICIES``) wraps each layer of a
+    training forward (``prefill=False``) when grad is enabled; prefill
+    and no-grad calls keep nothing for a backward and ignore it.
     """
     params = cast_tree(params, dtype)
     x, prefix_len = embed_inputs(params, batch, cfg, dtype)
     S = x.shape[1]
     L = registry.n_scanned_layers(cfg)
+    layers = _layers(params["layers"], L)
+    if not prefill:
+        def one(p_layer, x):
+            return _apply_layer(p_layer, x, cfg, window=None,
+                                prefix_len=prefix_len, prefill=False)[0]
+
+        if torch.is_grad_enabled():
+            one = _remat(one, remat)
+        for p_layer in layers:
+            x = one(p_layer, x)
+        return unembed(params, x, cfg), torch.zeros((), device=x.device)
     entries = []
-    for i in range(L):
-        slot = None if cache is None or not prefill \
-            else _cache_slice(cache["layers"], i)
-        x, entry = _apply_layer(_layer(params["layers"], i), x, cfg,
-                                window=None, prefix_len=prefix_len,
-                                prefill=prefill, slot=slot)
-        if not prefill:
-            continue
+    for i, p_layer in enumerate(layers):
+        slot = None if cache is None else _cache_slice(cache["layers"], i)
+        x, entry = _apply_layer(p_layer, x, cfg, window=None,
+                                prefix_len=prefix_len, prefill=True,
+                                slot=slot)
         if cache is None:
             entries.append(entry)
         else:
             _store(slot, entry, S)
-    if prefill:
-        last = unembed(params, x[:, -1:], cfg)
-        if cache is None:
-            cache = {"layers": _stack(entries)}
-        return last, cache
-    return unembed(params, x, cfg), torch.zeros((), device=x.device)
+    last = unembed(params, x[:, -1:], cfg)
+    if cache is None:
+        cache = {"layers": _stack(entries)}
+    return last, cache
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+def loss_fn(params, batch: dict, cfg: ArchConfig, *, remat: str = "full",
+            dtype=torch.bfloat16, aux_weight: float = 0.01,
+            z_weight: float = 1e-4):
+    """Next-token cross-entropy over ``batch["labels"]`` plus the z-loss
+    (the square of each row's log-sum-exp) and the auxiliary loss, the
+    logits in float32. Returns ``(loss, {"loss", "ce", "aux", "z"})``."""
+    logits, aux = forward(params, batch, cfg, prefill=False, remat=remat,
+                          dtype=dtype)
+    labels = batch["labels"]
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    ce = (lse - ll).mean()
+    z = (lse ** 2).mean()  # z-loss keeps logits bounded
+    loss = ce + aux_weight * aux + z_weight * z
+    metrics = {"loss": loss, "ce": ce, "aux": aux, "z": z}
+    return loss, metrics
 
 
 def _store(slot, entry, S: int) -> None:
@@ -233,10 +316,11 @@ def decode_step(params, cache: dict, batch: dict, cfg: ArchConfig, *,
     params = cast_tree(params, dtype)
     cache_len = int(batch["cache_len"])
     x, prefix_len = embed_inputs(params, batch, cfg, dtype)
-    for i in range(registry.n_scanned_layers(cfg)):
-        x, _ = _decode_layer(_layer(params["layers"], i), x,
-                             _cache_slice(cache["layers"], i), cache_len,
-                             cfg, window=None, prefix_len=prefix_len)
+    L = registry.n_scanned_layers(cfg)
+    for i, p_layer in enumerate(_layers(params["layers"], L)):
+        x, _ = _decode_layer(p_layer, x, _cache_slice(cache["layers"], i),
+                             cache_len, cfg, window=None,
+                             prefix_len=prefix_len)
     return unembed(params, x, cfg), cache
 
 

@@ -92,12 +92,26 @@ def init_params(specs, gen: torch.Generator, device) -> Any:
     return _with_leaves(specs, vals, ())
 
 
+def tree_with_leaves(tree, vals: dict) -> Any:
+    """``tree``'s structure with the leaf at each path (a key tuple, as
+    ``tree_leaves`` gives it) replaced by ``vals[path]``."""
+    return _with_leaves(tree, vals, ())
+
+
 def _with_leaves(tree, vals: dict, prefix: tuple):
     """``tree``'s structure with leaf ``path`` replaced by ``vals[path]``."""
     if isinstance(tree, dict):
         return {k: _with_leaves(v, vals, (*prefix, k))
                 for k, v in tree.items()}
     return vals[prefix]
+
+
+def train_params(tree) -> Any:
+    """Training parameters from a parameter tree: float32 leaves that
+    require grad (the float32 master weights; a float32 leaf is used as
+    it is, others are copied)."""
+    return tree_map(lambda x: x.detach().to(torch.float32).requires_grad_()
+                    if x.is_floating_point() else x, tree)
 
 
 def cast_tree(tree, dtype) -> Any:

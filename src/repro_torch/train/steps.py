@@ -1,16 +1,134 @@
-"""Serve steps: the prefill and decode step functions a server calls.
+"""Train and serve steps.
 
-The JAX package's ``make_train_step`` (microbatched gradients, gradient
-compression, AdamW) is the training slice and waits for ROADMAP A8.
+``make_train_step`` builds the JAX package's canonical step in PyTorch's
+idiom: microbatched loss and gradients -> optional gradient compression
+(the bf16 cast, or int8 with error feedback) -> AdamW. The step updates
+the state in place (the parameters, the moments, the error feedback):
+at qwen2.5-3b's full width a second copy of the float32 state would not
+fit one 80 GB card.
+
+Gradients accumulate in the parameters' ``.grad`` (float32): each
+microbatch's loss is scaled by 1/M before its backward, so its gradients
+arrive pre-scaled and add into ``.grad`` in microbatch order. The
+reference scales each microbatch's finished gradient by 1/M and adds it
+to a separate accumulator; the sums are the same, and so are the bits
+when M is a power of two (a power-of-two scale is exact), while for
+other M the scale is rounded into the backward's intermediates instead
+of the finished gradient. A second float32 gradient buffer would cost
+12.4 GB at full width. With ``accum_dtype`` other than float32 the
+reference's separate accumulator of that dtype is kept.
 """
 from __future__ import annotations
 
-from typing import Callable
+from dataclasses import dataclass
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
+from repro_torch.models.param import tree_leaves, tree_map
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.compression import compress_grads, init_error_feedback
+
+METRICS = ("loss", "ce", "aux", "z")
+
+
+@dataclass
+class TrainState:
+    """The parameters (float32 leaves that require grad), the optimizer
+    state ``{"m", "v", "step"}`` (and ``"ef"``, the int8 codec's error
+    feedback) and the step, an int32 0-d tensor."""
+    params: Any
+    opt_state: Any
+    step: torch.Tensor
+
+    @staticmethod
+    def create(params, opt_cfg: AdamWConfig,
+               grad_compression: Optional[str] = None) -> "TrainState":
+        opt = adamw_init(params, opt_cfg)
+        if grad_compression == "int8":
+            opt["ef"] = init_error_feedback(params)  # error feedback
+        return TrainState(params=params, opt_state=opt,
+                          step=torch.zeros_like(opt["step"]))
+
+
+def _split_microbatches(batch: dict, n: int) -> list:
+    """``n`` microbatches along the batch dim, each a dict of views."""
+    out = [{} for _ in range(n)]
+    for name, x in batch.items():
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"batch {b} is not a multiple of {n} "
+                             f"microbatches")
+        for i, part in enumerate(x.split(b // n)):
+            out[i][name] = part
+    return out
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
+                    microbatches: int = 1, remat: str = "full",
+                    grad_compression: Optional[str] = None,
+                    accum_dtype=torch.float32,
+                    dtype=torch.bfloat16) -> Callable:
+    """Returns train_step(state, batch) -> (state, metrics), the metrics
+    ``loss``, ``ce``, ``aux``, ``z`` (microbatch means), ``lr`` and
+    ``grad_norm`` as 0-d tensors on the state's device; the state is
+    updated in place and returned with its step advanced.
+
+    ``accum_dtype``: gradient-accumulation dtype (see the module
+    docstring); ``dtype``: the compute dtype the float32 weights are cast
+    to inside the forward.
+    """
+
+    def loss(params, mb):
+        return M.loss_fn(params, mb, cfg, remat=remat, dtype=dtype)
+
+    def train_step(state: TrainState, batch: dict):
+        params = state.params
+        leaves = [p for _, p in tree_leaves(params)]
+        for p in leaves:
+            p.grad = None
+        mbs = [batch] if microbatches == 1 \
+            else _split_microbatches(batch, microbatches)
+        inv = 1.0 / microbatches
+        acc = None
+        msum = None
+        for mb in mbs:
+            l, m = loss(params, mb)
+            (l if microbatches == 1 else l * inv).backward()
+            m = {k: m[k].detach() for k in METRICS}
+            if microbatches == 1:
+                msum = m
+            else:
+                m0 = msum or {k: torch.zeros((), device=l.device)
+                              for k in METRICS}
+                msum = {k: m0[k] + m[k] * inv for k in METRICS}
+            if accum_dtype != torch.float32:
+                parts = [p.grad.to(accum_dtype) for p in leaves]
+                acc = parts if acc is None else [a + x for a, x in
+                                                 zip(acc, parts)]
+                for p in leaves:
+                    p.grad = None
+        if acc is not None:
+            for p, a in zip(leaves, acc):
+                p.grad = a.to(torch.float32)
+        grads = tree_map(lambda p: p.grad, params)
+
+        ef = state.opt_state.get("ef")
+        grads, new_ef = compress_grads(grads, grad_compression, ef)
+
+        opt_in = {k: v for k, v in state.opt_state.items() if k != "ef"}
+        _, new_opt, opt_metrics = adamw_update(grads, opt_in, params,
+                                               opt_cfg)
+        if new_ef is not None and ef is not None:
+            new_opt["ef"] = new_ef
+        for p in leaves:
+            p.grad = None
+        return TrainState(params, new_opt, state.step + 1), \
+            {**msum, **opt_metrics}
+
+    return train_step
 
 
 def make_serve_step(cfg: ArchConfig, *, dtype=torch.bfloat16) -> Callable:

@@ -1,0 +1,165 @@
+"""Kernel B9's plain version and the training attention, on the CPU.
+
+* ``flash_attention_bwd_plain`` (the plain version of B9, from B3's
+  ``lse``) against ``jax.vjp`` of the JAX package's ``plain_attention``
+  and, past a small ``chunk_threshold``, of ``flash_attention_jax``
+  (through ``repro.models.common.attention``), causal GQA in float32, at
+  sequence lengths on both sides of the threshold: each of dq, dk, dv
+  within 1e-5 of its largest value, at least 1 (measured at most 9.0e-7);
+* B3's ``lse`` (``flash_attention_plain(..., return_lse=True)`` and the
+  wrapper on CPU tensors) against a float64 log-sum-exp of the scaled
+  live scores, within 1e-5 (measured at most 4.7e-7);
+* the port's CPU ``attention`` differentiates through the plain forms
+  (as the reference's does), and ``KernelAttention`` (the card's
+  autograd function: B3 forward, B9 backward) wired through the wrappers,
+  which take their plain versions on CPU tensors, gives the same
+  gradients;
+* the bf16 gate's control (P rounded to 3 mantissa bits) is far from the
+  float32 result, and P at 7 bits near it;
+* a hand kernel with grad enabled on an input that requires it raises
+  (``_build.check_no_grad``), and the plain version of B9 takes CPU
+  tensors only.
+"""
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models import common as jcommon  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
+from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
+    flash_attention_bwd, flash_attention_bwd_plain)
+from repro_torch.models import common as tcommon  # noqa: E402
+
+GRAD_TOL = 1e-5   # of each gradient's largest value (at least 1)
+LSE_TOL = 1e-5
+THRESHOLD = 32    # chunk_threshold at reduced size; q_chunk 32, kv_chunk 16
+CASES = [(1, 1, 4, 2, 16), (2, 17, 4, 2, 16), (1, 32, 4, 1, 16),
+         (2, 33, 4, 2, 16), (1, 70, 8, 2, 32), (1, 100, 4, 4, 16)]
+
+
+def _inputs(B, S, H, Hkv, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in
+            ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, H, D))]
+
+
+@jax.jit
+def _vjp(q, k, v, do):
+    def f(q, k, v):
+        return jcommon.attention(q, k, v, causal=True,
+                                 chunk_threshold=THRESHOLD, q_chunk=32,
+                                 kv_chunk=16)
+    return jax.vjp(f, q, k, v)[1](do)
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_grads(shape):
+    """jax.vjp of the reference's attention dispatch (plain up to the
+    threshold, flash_attention_jax past it) on ``_inputs(*shape)``."""
+    return [np.asarray(g) for g in _vjp(*map(jnp.asarray, _inputs(*shape)))]
+
+
+def _close(got, want, tol=GRAD_TOL):
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) \
+        else got
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * max(np.abs(want).max(), 1.0))
+
+
+@pytest.mark.parametrize("shape", CASES, ids=str)
+def test_plain_bwd_equals_jax_vjp(shape):
+    q, k, v, do = _inputs(*shape)
+    want = _ref_grads(shape)
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    o, lse = flash_attention_plain(tq, tk, tv, return_lse=True)
+    got = flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, w)
+    # the wrapper on CPU tensors is the plain version
+    for a, b in zip(flash_attention_bwd(tq, tk, tv, o, lse, tdo), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", CASES, ids=str)
+def test_lse_equals_the_reference(shape):
+    B, S, H, Hkv, D = shape
+    q, k, v, _ = _inputs(*shape, seed=1)
+    kr = np.repeat(k, H // Hkv, axis=2).astype(np.float64)
+    s = np.einsum("bqhd,bkhd->bhqk", q * D ** -0.5, kr)
+    live = np.arange(S)[None, :] <= np.arange(S)[:, None]
+    s = np.where(live, s, -np.inf)
+    m = s.max(axis=-1, keepdims=True)
+    want = (m + np.log(np.exp(s - m).sum(axis=-1, keepdims=True)))[..., 0]
+    tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
+    o, lse = flash_attention(tq, tk, tv, return_lse=True)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), want, rtol=0, atol=LSE_TOL)
+    assert torch.equal(o, flash_attention(tq, tk, tv))
+
+
+@pytest.mark.parametrize("shape", CASES, ids=str)
+def test_cpu_attention_autograd_and_kernel_function(shape):
+    """The CPU route differentiates through the plain forms; the card's
+    autograd function, run here on CPU tensors (its wrappers' plain
+    versions), gives the same gradients."""
+    q, k, v, do = _inputs(*shape)
+    want = _ref_grads(shape)
+    routes = {
+        "attention": lambda q, k, v: tcommon.attention(
+            q, k, v, causal=True, chunk_threshold=THRESHOLD, q_chunk=32,
+            kv_chunk=16),
+        "kernel_function": lambda q, k, v: tcommon.KernelAttention.apply(
+            q, k, v, None)}
+    for name, fn in routes.items():
+        tq, tk, tv = (torch.tensor(x).requires_grad_() for x in (q, k, v))
+        fn(tq, tk, tv).backward(torch.tensor(do))
+        for t, w in zip((tq, tk, tv), want):
+            _close(t.grad, w)
+
+
+def test_rounded_p_control_is_far_and_bf16_rounding_is_near():
+    q, k, v, do = (torch.tensor(x) for x in _inputs(1, 96, 8, 2, 32, 3))
+    o, lse = flash_attention_plain(q, k, v, return_lse=True)
+    exact = flash_attention_bwd_plain(q, k, v, o, lse, do)
+
+    def rel(bits):
+        got = flash_attention_bwd_plain(q, k, v, o, lse, do, p_bits=bits)
+        return max(float((g - e).norm() / e.norm())
+                   for g, e in zip(got, exact))
+
+    assert rel(7) < 4e-3 < rel(3)
+
+
+def test_kernels_refuse_to_drop_a_gradient():
+    x = torch.ones(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="drop the gradient"):
+        _build.check_no_grad("k", (x,), "route")
+    with torch.no_grad():
+        _build.check_no_grad("k", (x,), "route")
+    _build.check_no_grad("k", (x.detach(),), "route")
+
+
+def test_plain_bwd_takes_cpu_tensors_only():
+    q = torch.zeros((1, 4, 2, 16), device="meta")
+    k = torch.zeros((1, 4, 1, 16), device="meta")
+    lse = torch.zeros((1, 2, 4), device="meta")
+    with pytest.raises(ValueError, match="CPU tensors"):
+        flash_attention_bwd_plain(q, k, k, q, lse, q)
+
+
+def test_bwd_checks_shapes():
+    q = torch.zeros((1, 4, 2, 16))
+    k = torch.zeros((1, 4, 1, 16))
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, k, q, torch.zeros((1, 4, 2)), q)
+    with pytest.raises(ValueError, match="o and do"):
+        flash_attention_bwd(q, k, k, q[:, :3], torch.zeros((1, 2, 4)), q)

@@ -935,3 +935,88 @@ def test_guard_raises_when_the_card_is_wedged(card):
     assert_cubes_match(evaluate_batch(wls, ("NPU-D",), POLICIES, None,
                                       device=card), got, exact=True)
     time.sleep(2.0)  # the abandoned attempt ends before the next test
+
+
+# ------------------------------------------------------ training: B9, B3's lse
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 1, 4, 2, 64), (2, 63, 16, 2, 128),
+                                   (1, 257, 8, 1, 128), (2, 130, 4, 2, 16),
+                                   (1, 1000, 4, 4, 32)], ids=str)
+def test_attention_bwd_kernel_matches_plain(card, dtype, shape):
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    B, S, H, Hkv, D = shape
+    gen = torch.Generator(device=card).manual_seed(S)
+    q, k, v, do = (torch.randn(s, generator=gen, device=card).to(dtype)
+                   for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                             (B, S, H, D)))
+    before = flash_attention_bwd.launches
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    assert torch.equal(o, flash_attention(q, k, v))
+    _, lse_plain = flash_attention_plain(q, k, v, return_lse=True)
+    assert torch.allclose(lse, lse_plain, atol=1e-4, rtol=1e-5)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    again = flash_attention_bwd(q, k, v, o, lse, do)
+    assert flash_attention_bwd.launches == before + 2
+    want = flash_attention_bwd_plain(*(t.cpu() for t in (q, k, v, o, lse,
+                                                         do)))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)  # no float atomics: the same bits
+        w = w.float()
+        err = (g.float().cpu() - w).abs()
+        assert bool((err <= tol * (max(float(w.abs().max()), 1.0)
+                                   + w.abs())).all())
+
+
+def test_kernel_attention_grads_match_the_cpu(card):
+    """The card's training attention (B3 forward, B9 backward) against
+    autograd through the CPU's plain attention, float32."""
+    from repro_torch.models.common import attention
+    rng = np.random.default_rng(0)
+    xs = [rng.standard_normal(s).astype(np.float32)
+          for s in ((2, 96, 8, 64), (2, 96, 2, 64), (2, 96, 2, 64))]
+    do = torch.tensor(rng.standard_normal((2, 96, 8, 64)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", card):
+        ts = [torch.tensor(x, device=dev).requires_grad_() for x in xs]
+        attention(*ts, causal=True).backward(do.to(dev))
+        grads[str(dev)] = [t.grad.cpu() for t in ts]
+    for a, b in zip(grads["cpu"], grads[str(card)]):
+        assert torch.allclose(a, b, atol=1e-4 * float(a.abs().max()),
+                              rtol=1e-4)
+
+
+def test_card_kernels_refuse_to_drop_a_gradient(card):
+    """Every card route without a backward raises before any work when
+    an input requires grad: ssd_fwd (B5), decode attention (B4's wrapper)
+    and the raw kernel wrappers."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.gated_matmul import gated_matmul_p
+    from repro_torch.models import blocks, registry
+    from repro_torch.models.common import decode_attention
+    from repro_torch.models.param import init_params, train_params
+    cfg = dataclasses.replace(get_arch("mamba2-780m").reduced(), n_layers=1)
+    p = train_params(init_params(registry.param_specs(cfg),
+                                 torch.Generator(device=card).manual_seed(0),
+                                 card))["layers"]["ssd"]
+    p = {k: v[0] for k, v in p.items()}
+    x = torch.randn((1, 16, cfg.d_model), device=card)
+    before = ssd_scan.launches
+    with pytest.raises(NotImplementedError, match="B5 backward"):
+        blocks.ssd_fwd(p, x, cfg)
+    assert ssd_scan.launches == before
+    q = torch.randn((1, 1, 4, 64), device=card, requires_grad=True)
+    kc = torch.randn((1, 8, 2, 64), device=card)
+    with pytest.raises(RuntimeError, match="drop the gradient"):
+        decode_attention(q, kc, kc, 3)
+    with pytest.raises(RuntimeError, match="drop the gradient"):
+        flash_attention(q, q[:, :, :2], q[:, :, :2])
+    w = torch.randn((128, 128), device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="drop the gradient"):
+        gated_matmul_p(w, w, torch.ones((1, 1), dtype=torch.int32,
+                                        device=card))
+    with torch.no_grad():  # serving: no gradient, the kernels run
+        blocks.ssd_fwd(p, x, cfg)

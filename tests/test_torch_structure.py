@@ -22,8 +22,9 @@ AB = ROOT / "chip_ab.py"
 K2_PROBE = ROOT / "chip_k2_readahead.py"
 WINDOW_PROBE = ROOT / "chip_profiler_window.py"
 B7_VARIANTS = ROOT / "chip_b7_variants.py"
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
 PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE, AB, K2_PROBE, WINDOW_PROBE,
-                                         B7_VARIANTS]
+                                         B7_VARIANTS] + EXAMPLES
 
 FOREIGN_IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)", re.MULTILINE)
@@ -56,7 +57,13 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.configs.base",
            "repro_torch.models.param", "repro_torch.models.common",
            "repro_torch.models.blocks", "repro_torch.models.registry",
            "repro_torch.models.model", "repro_torch.train.steps",
-           "repro_torch.launch.serve"]
+           "repro_torch.launch.serve",
+           "repro_torch.kernels.flash_attention_bwd", "repro_torch.optim",
+           "repro_torch.optim.adamw", "repro_torch.optim.compression",
+           "repro_torch.data", "repro_torch.data.specs",
+           "repro_torch.data.pipeline", "repro_torch.checkpoint",
+           "repro_torch.checkpoint.manager", "repro_torch.train",
+           "repro_torch.launch.train"]
 CONFIG_FILES = ["deepseek_v2_236b", "granite_moe_1b", "hubert_xlarge",
                 "hymba_1_5b", "mamba2_780m", "paligemma_3b", "qwen1_5_4b",
                 "qwen2_5_14b", "qwen2_5_3b", "qwen3_32b"]
@@ -92,9 +99,16 @@ def test_slice_modules_exist():
                 "models/param.py",
                 "models/common.py", "models/blocks.py", "models/registry.py",
                 "models/model.py", "train/steps.py", "launch/serve.py",
+                "kernels/flash_attention_bwd.py",
+                "kernels/csrc/attention_bwd.cu", "optim/__init__.py",
+                "optim/adamw.py", "optim/compression.py", "data/__init__.py",
+                "data/specs.py", "data/pipeline.py",
+                "checkpoint/__init__.py", "checkpoint/manager.py",
+                "train/__init__.py", "launch/train.py",
                 *(f"configs/{c}.py" for c in CONFIG_FILES)):
         assert (PKG / rel).is_file(), rel
     assert SMOKE.is_file()
+    assert [p.name for p in EXAMPLES] == ["quickstart.py", "train_e2e.py"]
 
 
 @pytest.mark.parametrize("path", PY_FILES,
@@ -112,7 +126,8 @@ def test_no_jax_and_no_reference_package_imports(path):
                                    "repro_torch.kernels.gated_matmul",
                                    "repro_torch.kernels.program_exec",
                                    "repro_torch.core.program_plane",
-                                   "repro_torch.launch.serve"])
+                                   "repro_torch.launch.serve",
+                                   "repro_torch.launch.train"])
 def test_imports_with_nvcc_absent(first):
     """Every module imports with no ``nvcc`` reachable and pulls in
     neither jax nor the reference package, whichever sub-package is
@@ -167,6 +182,8 @@ CUDA_SOURCES = {
     "attention.cu": (("flash_attention_launch", "decode_attention_launch"),
                      ("src/repro/kernels/flash_attention.py",
                       "src/repro/kernels/decode_attention.py")),
+    "attention_bwd.cu": (("flash_attention_bwd_launch",),
+                         ("src/repro/models/common.py:281-300",)),
     "ssd_scan.cu": (("ssd_scan_launch", "ssd_scan_bf16_launch"),
                     ("src/repro/kernels/ssd_scan.py",)),
     "gated_matmul.cu": (("gated_matmul_launch",),
@@ -277,17 +294,21 @@ def test_gated_matmul_binding_declares_every_argument():
     ("attention.cu", "decode_attention_launch", "flash_attention_launch",
      "_bind_attention"),
     ("attention.cu", "flash_attention_launch", "decode_attention_launch",
-     "_bind_attention")])
+     "_bind_attention"),
+    ("attention_bwd.cu", "flash_attention_bwd_launch", None,
+     "_bind_attention_bwd")])
 def test_binding_declares_every_argument(source, launcher, other, bind):
     from repro_torch.kernels import _build
     _assert_binding_declares_every_argument(
-        source, launcher, getattr(_build, bind), others=(other,))
+        source, launcher, getattr(_build, bind),
+        others=() if other is None else (other,))
 
 
 def test_fmad_off_only_where_bits_are_promised():
     from repro_torch.kernels import _build
     assert "-fmad=false" in _build.LIBRARIES["power_plane"].flags
     assert "-fmad=false" not in _build.LIBRARIES["attention"].flags
+    assert "-fmad=false" not in _build.LIBRARIES["attention_bwd"].flags
     assert "-fmad=false" not in _build.LIBRARIES["ssd_scan"].flags
     assert "-fmad=false" not in _build.LIBRARIES["gated_matmul"].flags
     assert all("arch=compute_90a,code=sm_90a" in lib.flags
@@ -339,7 +360,9 @@ def test_profiled_kernel_names_are_defined(script):
                 "decode_attention_combine_kernel", "ssd_scan_kernel",
                 "ssd_chunk_cb_kernel", "ssd_scan_bf16_kernel",
                 "gated_matmul_bf16_kernel",
-                "gated_matmul_f32_kernel"} <= looked_up
+                "gated_matmul_f32_kernel", "attention_bwd_delta_kernel",
+                "attention_bwd_dkdv_kernel", "attention_bwd_reduce_kernel",
+                "attention_bwd_dq_kernel"} <= looked_up
     assert looked_up <= _global_kernels(), looked_up - _global_kernels()
 
 
@@ -440,3 +463,50 @@ def test_fleet_leaves_its_device_only_through_the_guard():
     run = _function_source(PKG / "core" / "guard.py", "evaluate_batch")
     assert '"failover"' in run and '"retry"' in run
     assert "failover_rungs(device)" in guard_src
+
+
+PLAIN_ROUTES = ("_plain", "plain_attention", "flash_attention_jax",
+                "scaled_dot_product_attention")
+
+
+def test_card_training_attention_is_the_hand_kernels():
+    """On the card ``attention`` trains through ``KernelAttention``, whose
+    forward is B3 and backward B9: no plain form, no library attention
+    and no autograd through a plain version on that route; the CPU route
+    is the plain forms, as the reference's."""
+    common = PKG / "models" / "common.py"
+    tree = ast.parse(common.read_text())
+    cls = next(n for n in ast.walk(tree)
+               if isinstance(n, ast.ClassDef) and n.name == "KernelAttention")
+    body = ast.get_source_segment(common.read_text(), cls)
+    assert "flash_attention_kernel(" in body and "return_lse=True" in body
+    assert "flash_attention_bwd(" in body
+    assert not any(r in body for r in PLAIN_ROUTES)
+    attn = _function_source(common, "attention")
+    card = attn[attn.index('if q.device.type == "cuda":'):
+                attn.index("if k.shape[1] <= chunk_threshold:")]
+    assert "KernelAttention.apply(" in card
+    assert not any(r in card for r in PLAIN_ROUTES)
+    bwd = _function_source(PKG / "kernels" / "flash_attention_bwd.py",
+                           "flash_attention_bwd")
+    after = bwd[bwd.index('if q.device.type != "cuda":'):]
+    after = after[after.index("\n    ") + 1:]
+    after = after[after.index("\n    if"):]  # past the CPU branch
+    assert "_plain" not in after and "_build.load(" in after
+
+
+def test_ssd_training_on_the_card_raises_before_any_work():
+    """B5 has no backward: ``ssd_fwd`` on the card with grad enabled
+    raises before its first operation, and every wrapper of a kernel
+    without a backward refuses a gradient (``_build.check_no_grad``)."""
+    body = _function_source(PKG / "models" / "blocks.py", "ssd_fwd")
+    assert body.index("raise NotImplementedError") < body.index("rms_norm(")
+    assert "B5 backward" in body
+    for source, fn in (("flash_attention.py", "flash_attention"),
+                       ("decode_attention.py", "decode_attention"),
+                       ("ssd_scan.py", "ssd_scan"),
+                       ("gated_matmul.py", "gated_matmul_p"),
+                       ("flash_attention_bwd.py", "flash_attention_bwd")):
+        body = _function_source(PKG / "kernels" / source, fn)
+        assert body.index("_build.check_no_grad(") < body.index(
+            "_build.load("), source
