@@ -16,7 +16,13 @@ shapes (``kernels``), B2's five ``gated_matmul_full`` cases,
 the executor call copied to the card, ``executor_s``), K1's device µs
 beside the launch floor (``kernels``), ``serve_full`` and
 ``profile_serve``'s prefill and decode windows; for mamba2-780m, B5 at
-the model's shapes, ``serve_ssm_full`` and its prefill window. Three
+the model's shapes, ``serve_ssm_full`` and its prefill window; B9 at the
+training shape in both types (``kernels``: ms, device µs, bound, the
+``sdpa`` backward's ms, bf16 relative L2 and its control),
+``train_full`` (steady s/step, tokens/s, MFU, peak memory, the first
+step's loss, which must be the same bits in every run while the forward
+is unchanged) and ``profile_train`` (B9's device µs a call and its share
+of the busy time). Three
 metrics are then timed for both trees by the same code, in a process of
 its own,
 
@@ -170,7 +176,27 @@ def _smoke_numbers(lines: list[str]) -> dict:
             k: pre.get(k) for k in ("wall_s_profiled", "device_busy_s",
                                     "device_idle_share", "hand_kernels",
                                     "top_ops")}
+    b9 = kernels.get("b9", {}).get("model_shape", {})
+    out["b9"] = {dn: {k: rec.get(k) for k in (
+        "ms", "device_us", "bound_ms", "library_ms", "rel_l2",
+        "control_rel_l2")} for dn, rec in b9.items()}
+    tr = phases.get("train_full", [{}])[0]
+    out["train_full"] = {k: tr.get(k) for k in (
+        "steady_s_per_step", "tokens_per_s", "mfu", "peak_memory_bytes",
+        "first_step_s", "step_s", "losses", "launches_per_step")}
+    pt = phases.get("profile_train", [{}])[0]
+    out["profile_train"] = {k: pt.get(k) for k in (
+        "wall_s_profiled", "device_busy_s", "device_idle_share",
+        "b9_device_us_per_call", "hand_kernels")}
     return out
+
+
+def b9_train_share(prof: dict) -> float:
+    """B9's share of the profiled training step's device busy time:
+    every profiled kernel whose name holds ``attention_bwd``."""
+    us = sum(v["device_us_total"] for k, v in prof["hand_kernels"].items()
+             if "attention_bwd" in k)
+    return us / (1e6 * prof["device_busy_s"])
 
 
 def b5_prefill_us_per_call(prefill: dict) -> float:
@@ -240,7 +266,8 @@ def main() -> int:
         for r in runs:
             try:
                 vals.append(get(r))
-            except (KeyError, TypeError, StopIteration):
+            except (KeyError, TypeError, StopIteration, AttributeError,
+                    ValueError, ZeroDivisionError):
                 vals.append(None)
         return vals
 
@@ -314,7 +341,26 @@ def main() -> int:
            for name in ("n_underutilized", "k_underutilized", "both")},
         **{k: series(lambda r, k=k: r["smoke"][k])
            for k in ("prefill_s", "decode_ms_per_step",
-                     "decode_vs_forward_rel_l2")}}}
+                     "decode_vs_forward_rel_l2")},
+        **{f"b9_{dn}_{k}": series(lambda r, dn=dn, k=k: r["smoke"]["b9"][
+            dn][k]) for dn in ("bfloat16", "float32")
+           for k in ("ms", "device_us", "bound_ms", "library_ms")},
+        "b9_bfloat16_rel_l2_max": series(
+            lambda r: max(r["smoke"]["b9"]["bfloat16"]["rel_l2"].values())),
+        **{f"train_{k}": series(lambda r, k=k: r["smoke"]["train_full"][k])
+           for k in ("steady_s_per_step", "tokens_per_s", "mfu",
+                     "peak_memory_bytes", "first_step_s")},
+        "train_first_loss": series(
+            lambda r: r["smoke"]["train_full"]["losses"][0]),
+        "train_b9_device_us_per_call": series(
+            lambda r: r["smoke"]["profile_train"]["b9_device_us_per_call"]),
+        "train_b9_share_of_busy": series(
+            lambda r: b9_train_share(r["smoke"]["profile_train"])),
+        "train_device_busy_s": series(
+            lambda r: r["smoke"]["profile_train"]["device_busy_s"])}}
+    first = summary["metrics"]["train_first_loss"]
+    summary["train_first_loss_bit_identical"] = (
+        None not in first and len(set(first)) == 1)
     print(json.dumps(summary), flush=True)
     return 1 if failed else 0
 

@@ -297,32 +297,11 @@ namespace fa2 {
 constexpr int BQ = 64, BK = 64, WARPS = 4, THREADS = 32 * WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// A tile of 64 rows x D in shared memory: max(D / 64, 1) TMA boxes of 64
-// rows x 64 columns (128 bytes a row; columns past D zero-filled), 128-byte
-// swizzle. The q tile, then two stages of (K tile, V tile).
-template <int D> __host__ __device__ constexpr int boxes() { return D > 64 ? D / 64 : 1; }
-template <int D> __host__ __device__ constexpr int tile_bytes() { return boxes<D>() * 64 * 128; }
+// The q tile, then two stages of (K tile, V tile), each a tile64 tile.
+using namespace tile64;
 template <int D> constexpr size_t smem_bytes() {
     // + 1024: the tiles' start is rounded up to the swizzle's alignment
     return 5 * (size_t)tile_bytes<D>() + 1024;
-}
-
-// the 16 bytes at (row, col) of a tile, col a multiple of 8
-__device__ __forceinline__ const unsigned char* at(const unsigned char* tile,
-                                                   int row, int col)
-{
-    return tile + (col / 64) * (64 * 128) + sw128(row, (col % 64) / 8);
-}
-
-// rows [row0, row0 + 64) of head `head` of batch b (rows past the sequence
-// zero-filled by the TMA unit), completing on bar
-template <int D>
-__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
-                                          int head, int row0, int b, uint64_t* bar)
-{
-#pragma unroll
-    for (int bx = 0; bx < boxes<D>(); ++bx)
-        tma_load_4d(dst + bx * 64 * 128, map, bx * 64, head, row0, b, bar);
 }
 }  // namespace fa2
 

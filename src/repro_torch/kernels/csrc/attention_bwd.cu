@@ -22,39 +22,86 @@
 // dS^T Q, dS K -- 5 B H S^2 D operations at S = Sq = Sk against reading the
 // six inputs and writing three outputs once; at the training path's shape
 // (B 1, S 2048, H 16, Hkv 2, D 128) that is 43 GFLOP against 21 MB in bf16,
-// thousands of operations per byte: bound by operations.
+// thousands of operations per byte: bound by operations, 0.043 ms on the
+// tensor cores' 989 TFLOP/s (float32: 0.64 ms on the CUDA cores' 67).
 //
-// Design (this PR's; a tensor-core redesign is queued as R6): simple, right
-// and deterministic. Every sum is taken in a fixed order and no float atomic
-// is used anywhere, so a result is the same from run to run -- the training
-// loop's bit-exact resume rests on it. The work runs on the CUDA cores in
-// float32 (bf16 inputs are widened as they are loaded), with the tiles in
-// shared memory and each thread a 4 x 4 block of a 64 x 64 score tile, the
-// float32 forward's (B3's flash_attention_kernel) layout. Four kernels, in
-// stream order:
+// Both routes are deterministic: every sum is taken in a fixed order and no
+// float atomic is used anywhere, so a result is the same from run to run --
+// the training loop's bit-exact resume rests on it. Four kernels, in stream
+// order, each route its own dK/dV and dQ kernels:
 //   attention_bwd_delta_kernel: Delta, a warp per (batch, row, head), the
 //     row's D products summed by a fixed butterfly.
-//   attention_bwd_dkdv_kernel: one block per (key tile of 64, query head,
-//     batch), the key tiles the grid's slowest axis so the longest (the
-//     first: they meet every query tile below them) start first. It holds
-//     its K and V tiles and walks the query tiles on or below the diagonal
-//     in order; S and dP are recomputed per tile, P and dS go through
-//     shared memory, and dK, dV accumulate in registers. Tiles above the
+//   dK/dV: one block per (key tile of 64, query head, batch), the key tiles
+//     the grid's slowest axis so the longest (the first: they meet every
+//     query tile below them) start first. It holds its K and V tiles and
+//     walks the query tiles on or below the diagonal in order, recomputing
+//     S and dP per tile; dK, dV accumulate in registers. Tiles above the
 //     diagonal are never loaded. A block per query head -- not per KV head,
 //     looping over the group's heads -- because at the training shape that
-//     would be 64 blocks for 132 SMs; the per-head partials go to a float32
-//     workspace (B, Sk, H, D) each.
+//     would be 64 blocks for 132 SMs (this way 512); the per-head partials
+//     go to a float32 workspace (B, Sk, H, D) each.
 //   attention_bwd_reduce_kernel: dK and dV of each KV head as the sum of its
 //     group's partials in head order, rounded once to the output's type.
-//   attention_bwd_dq_kernel: one block per (query tile, head, batch), the
-//     longest (the last tiles) first, over the key tiles up to the diagonal,
-//     dQ in registers.
+//   dQ: one block per (query tile, head, batch), the longest (the last
+//     tiles) first, over the key tiles up to the diagonal in order, dQ in
+//     registers. It recomputes S and dP: 7 products where the bound counts
+//     5, the price of a fixed add order without atomics on dQ.
+//
+// bf16 (attention_bwd_dkdv_bf16_kernel, attention_bwd_dq_bf16_kernel):
+// FlashAttention-2's backward on the tensor cores, from B3's building blocks
+// (mma_bf16.cuh). Four warps a block, each 16 rows of the block's tile.
+// dK/dV computes S^T = K Q^T and dP^T = V dO^T with mma.sync m16n8k16 (bf16
+// in, float32 sums), K and V fragments by ldmatrix and Q, dO as the B
+// operand (a row of Q is a column of Q^T), so the keys are the M dimension:
+// each thread's P^T = exp2(scale s log2 e - lse log2 e) and dS^T land in the
+// A-fragment layout of P^T dO and dS^T Q, whose B operands dO and Q are read
+// by ldmatrix.trans. P and dS never leave registers. dQ mirrors it: S = Q K^T
+// and dP = dO V^T, dS packed as the A operand of dS K with K by
+// ldmatrix.trans. The scale multiplies the float32 scores (q is not rounded
+// after scaling); lse is a natural log, so the exponent is scaled by log2(e)
+// in float32; the mask applies only in tiles that cross the diagonal or an
+// edge. Tiles arrive by TMA (one thread issues the box copies through a 4-D
+// tensor map per tensor with the dense strides, rows past the sequence
+// zero-filled, 128-byte swizzle so each 8-row ldmatrix phase hits 32 banks):
+// dK/dV holds K and V and double-buffers Q and dO on two mbarriers, dQ holds
+// Q and dO and double-buffers K and V, so tile j+1 is in flight under tile
+// j's products, one __syncthreads a tile. dK/dV's lse and Delta are read per
+// column (per query): each thread loads one of the next tile's 128 values
+// under this tile's products and stages it in shared memory; dQ keeps its
+// two rows' in registers. Where bf16 rounding happens: P is rounded to bf16
+// in registers (as B3 rounds p for P V, and as the reference's bf16 autodiff
+// multiplies p in v's type); dS = P (dP - Delta) is taken from that P in
+// float32 and rounded to bf16; every product sums in float32, the dK and dV
+// partials stay float32 to the reduce, dQ is rounded once at the end. So
+// the kernel reads as the plain version with P and dS rounded to 7 mantissa
+// bits: on the H100 at the training shape 3.2e-3 relative L2 to the float32
+// plain version (dq, dk), 2.5e-3 (dv), and chip_smoke.py holds it to 8e-3
+// with the control (3 bits) at 2.7e-2 to 3.8e-2. ptxas at D = 128: dK/dV 255
+// registers with 32 bytes of spill stores and loads, dQ 190 and none (D 16 /
+// 32 / 64: 108 / 151 / 208 and 73 / 113 / 145, none); 97 KB of dynamic
+// shared memory a block (six 16 KB tiles and the swizzle's alignment) and
+// 1 KB static, so both kernels run two blocks an SM. What holds it back:
+// mma.sync on 16-row warp tiles (not wgmma's 64-row warpgroups), with every
+// operand fragment from shared memory -- 0.56 ldmatrix.x4 a mma, so shared
+// memory's bandwidth, not the tensor cores, is the first wall; the 7
+// products; the float32 workspace's round trip (34 MB at the training
+// shape).
+//
+// float32 (attention_bwd_dkdv_kernel, attention_bwd_dq_kernel): simple,
+// right and deterministic, on the CUDA cores (true float32 FMAs, so it holds
+// 1e-4 against the plain version), with the tiles in shared memory and each
+// thread a 4 x 4 block of a 64 x 64 score tile, the float32 forward's (B3's
+// flash_attention_kernel) layout; P and dS go through shared memory.
+//
 // Every launcher runs on the stream it is given, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() for the wrapper to check.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace fb {
 constexpr int BQ = 64, BK = 64, THREADS = 256;
@@ -397,6 +444,411 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
+// ---- the bf16 route: FlashAttention-2's backward on the tensor cores -----
+namespace fb2 {
+constexpr int BQ = 64, BK = 64, WARPS = 4, THREADS = 32 * WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(BQ == BK, "a tile is 64 rows of q, do, k or v");
+
+// A block holds two tile64 tiles and two stages of two more.
+using namespace tile64;
+template <int D> constexpr size_t smem_bytes() {
+    // + 1024: the tiles' start is rounded up to the swizzle's alignment
+    return 6 * (size_t)tile_bytes<D>() + 1024;
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p)
+{
+    return reinterpret_cast<unsigned char*>(
+        (reinterpret_cast<uintptr_t>(p) + 1023) & ~(uintptr_t)1023);
+}
+
+// the two bf16 of a packed register as floats, lo first
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
+// S = 16 x 64 (rows x cols) of A B^T over D for this warp: A's 16 rows from
+// tile A at row a0, B's 64 rows from tile Bt, both by ldmatrix (a B row is a
+// column of B^T); n8 tile j = B rows 8j..
+template <int D>
+__device__ __forceinline__ void tile_abt(float (&s)[BK / 8][4], const unsigned char* A,
+                                         int a0, const unsigned char* Bt, int lane)
+{
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+        uint32_t a[4];
+        ldmatrix_x4(a, at(A, a0 + lane % 16, kd * 16 + (lane / 16) * 8));
+#pragma unroll
+        for (int j = 0; j < BK / 8; j += 2) {
+            // matrices: rows 8j.. x d (lo, hi 8), rows 8j+8.. x d (lo, hi)
+            uint32_t r[4];
+            ldmatrix_x4(r, at(Bt, j * 8 + (lane / 16) * 8 + lane % 8,
+                              kd * 16 + ((lane / 8) % 2) * 8));
+            mma_bf16(s[j], a, r);
+            mma_bf16(s[j + 1], a, r + 2);
+        }
+    }
+}
+
+// acc (16 x D) += W X: W the 16 x 64 bf16 A fragments of the four k16
+// steps, X's 64 rows (the k dimension) from tile X read transposed
+template <int D>
+__device__ __forceinline__ void tile_acc_wx(float (&acc)[D / 8][4], const uint32_t (&w)[BK / 16][4],
+                                            const unsigned char* X, int lane)
+{
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int n = 0; n < D / 8; n += 2) {
+            // matrices: rows (lo, hi 8) x d 8n.., rows (lo, hi) x d 8n+8..
+            uint32_t r[4];
+            ldmatrix_x4_trans(r, at(X, kk * 16 + lane % 16, n * 8 + (lane / 16) * 8));
+            mma_bf16(acc[n], w[kk], r);
+            mma_bf16(acc[n + 1], w[kk], r + 2);
+        }
+}
+}  // namespace fb2
+
+// dK / dV per (key tile, query head, batch), bf16 on the tensor cores: each
+// warp 16 keys; S^T = K Q^T and dP^T = V dO^T put the keys on the M
+// dimension, so P^T and dS^T land in the A-fragment layout of P^T dO and
+// dS^T Q and never leave registers
+template <int D>
+__global__ void __launch_bounds__(fb2::THREADS, 2)
+attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               float* __restrict__ dk_ws, float* __restrict__ dv_ws,
+                               int H, int Hkv, int Sq, int Sk, float scale, int causal)
+{
+    using namespace fb2;
+    constexpr int TB = tile_bytes<D>();
+    constexpr int NO = D / 8;    // n8 tiles of dK, dV
+    constexpr int NS = BQ / 8;   // n8 tiles of S^T: queries
+    extern __shared__ __align__(16) unsigned char fb2_smem[];
+    unsigned char* Ks = align1024(fb2_smem);
+    unsigned char* Vs = Ks + TB;
+    unsigned char* QD = Vs + TB;  // stage s: the Q tile at 2 s TB, the dO tile next
+    __shared__ __align__(8) uint64_t full[2];
+    // stage s: lse log2(e) of the tile's queries, then their Delta
+    __shared__ float stat[2][2 * BQ];
+
+    const int tid = threadIdx.x;
+    const int lane = tid % 32, warp = tid / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int hk = h / (H / Hkv);
+    const int k0 = (int)blockIdx.z * BK;
+    // query tiles that can see key k0: those holding a row >= k0
+    const int qt0 = causal ? k0 / BQ : 0;
+    const int n_it = (Sq + BQ - 1) / BQ - qt0;  // <= 0: no query sees these keys
+    const int64_t srow = ((int64_t)b * H + h) * Sq;
+    // thread tid's share of a query tile's row statistics
+    auto row_stat = [&](int q0) {
+        const int q = q0 + tid % BQ;
+        if (q >= Sq) return 0.f;
+        return tid < BQ ? lse[srow + q] * LOG2E : delta[srow + q];
+    };
+
+    if (tid == 0) {
+        mbar_init(&full[0], 1);
+        mbar_init(&full[1], 1);
+        mbar_fence_init();
+        if (n_it > 0) {
+            mbar_expect_tx(&full[0], 4 * TB);
+            load_tile<D>(Ks, &tk, hk, k0, b, &full[0]);
+            load_tile<D>(Vs, &tv, hk, k0, b, &full[0]);
+            load_tile<D>(QD, &tq, h, qt0 * BQ, b, &full[0]);
+            load_tile<D>(QD + TB, &tdo, h, qt0 * BQ, b, &full[0]);
+        }
+    }
+    if (n_it > 0) stat[0][tid] = row_stat(qt0 * BQ);
+    __syncthreads();  // the barriers are initialised before anyone waits
+
+    // this thread's keys: rows g and g + 8 of the warp's 16
+    const int key0 = k0 + warp * 16 + g;
+    float dk[NO][4], dv[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) { dk[n][e] = 0.f; dv[n][e] = 0.f; }
+
+    for (int it = 0; it < n_it; ++it) {
+        const int st = it % 2, q0 = (qt0 + it) * BQ;
+        const bool more = it + 1 < n_it;
+        const float next = more ? row_stat(q0 + BQ) : 0.f;  // in flight under the products
+        mbar_wait(&full[st], (it / 2) & 1);
+        // tile it has landed, and every warp is done with tile it - 1,
+        // whose stage the next load overwrites
+        __syncthreads();
+        if (tid == 0 && more) {
+            unsigned char* nx = QD + (1 - st) * 2 * TB;
+            mbar_expect_tx(&full[1 - st], 2 * TB);
+            load_tile<D>(nx, &tq, h, q0 + BQ, b, &full[1 - st]);
+            load_tile<D>(nx + TB, &tdo, h, q0 + BQ, b, &full[1 - st]);
+        }
+        const unsigned char* Qt = QD + st * 2 * TB;
+        const unsigned char* dOt = Qt + TB;
+        const float* ls = stat[st];
+        const float* dl = stat[st] + BQ;
+
+        // P^T = exp(scale K Q^T - lse), rounded to bf16 in registers: the A
+        // fragments of the k16 steps over queries (query n8 tile j is step
+        // j / 2, its low or high 8 columns). The scale multiplies the float32
+        // scores; the mask applies only where a tile crosses the diagonal or
+        // an edge
+        uint32_t pf[BQ / 16][4];
+        {
+            float s[NS][4];
+            tile_abt<D>(s, Ks, warp * 16, Qt, lane);
+            const bool masked = (causal && k0 + BK - 1 > q0) || q0 + BQ > Sq || k0 + BK > Sk;
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    float p[2];
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) {
+                        const int col = j * 8 + 2 * t + c, qpos = q0 + col, kpos = key0 + 8 * r;
+                        p[c] = exp2f(fmaf(s[j][2 * r + c] * scale, LOG2E, -ls[col]));
+                        if (masked && (qpos >= Sq || kpos >= Sk || (causal && kpos > qpos)))
+                            p[c] = 0.f;
+                    }
+                    pf[j / 2][(j % 2) * 2 + r] = pack_bf16x2(p[0], p[1]);
+                }
+        }
+        // dV += P^T dO
+        tile_acc_wx<D>(dv, pf, dOt, lane);
+
+        // dS^T = P^T o (dP^T - Delta), dP^T = V dO^T, rounded to bf16
+        uint32_t df[BQ / 16][4];
+        {
+            float dp[NS][4];
+            tile_abt<D>(dp, Vs, warp * 16, dOt, lane);
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const uint32_t p = pf[j / 2][(j % 2) * 2 + r];
+                    const int col = j * 8 + 2 * t;
+                    df[j / 2][(j % 2) * 2 + r] = pack_bf16x2(
+                        bf_lo(p) * (dp[j][2 * r] - dl[col]),
+                        bf_hi(p) * (dp[j][2 * r + 1] - dl[col + 1]));
+                }
+        }
+        // dK += dS^T Q (scaled once, at the end)
+        tile_acc_wx<D>(dk, df, Qt, lane);
+
+        // the next tile's statistics: that stage was last read in tile it - 1
+        if (more) stat[1 - st][tid] = next;
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key >= Sk) continue;
+        const int64_t row = (((int64_t)b * Sk + key) * H + h) * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+            *reinterpret_cast<float2*>(dk_ws + row + n * 8) =
+                make_float2(dk[n][2 * r] * scale, dk[n][2 * r + 1] * scale);
+            *reinterpret_cast<float2*>(dv_ws + row + n * 8) =
+                make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
+        }
+    }
+}
+
+// dQ per (query tile, head, batch), bf16 on the tensor cores: each warp 16
+// queries; S = Q K^T and dP = dO V^T recomputed per key tile, dS packed to
+// bf16 as the A fragments of dS K, dQ in registers over the key tiles in order
+template <int D>
+__global__ void __launch_bounds__(fb2::THREADS, 2)
+attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq,
+                             int H, int Hkv, int Sq, int Sk, float scale, int causal)
+{
+    using namespace fb2;
+    constexpr int TB = tile_bytes<D>();
+    constexpr int NO = D / 8;    // n8 tiles of dQ
+    constexpr int NS = BK / 8;   // n8 tiles of S: keys
+    extern __shared__ __align__(16) unsigned char fb2_smem[];
+    unsigned char* Qs = align1024(fb2_smem);
+    unsigned char* dOs = Qs + TB;
+    unsigned char* KV = dOs + TB;  // stage s: the K tile at 2 s TB, the V tile next
+    __shared__ __align__(8) uint64_t full[2];
+
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int h = blockIdx.x, b = blockIdx.y;
+    const int n_qt = (int)gridDim.z, qt = n_qt - 1 - (int)blockIdx.z;
+    const int hk = h / (H / Hkv);
+    const int q0 = qt * BQ;
+
+    // keys [0, k_end) can be live for some row of this tile; later tiles
+    // are never loaded
+    const int q_last = min(q0 + BQ, Sq) - 1;
+    const int k_end = causal ? min(q_last + 1, Sk) : Sk;
+    const int n_tiles = (k_end + BK - 1) / BK;
+    if (threadIdx.x == 0) {
+        mbar_init(&full[0], 1);
+        mbar_init(&full[1], 1);
+        mbar_fence_init();
+        mbar_expect_tx(&full[0], 4 * TB);
+        load_tile<D>(Qs, &tq, h, q0, b, &full[0]);
+        load_tile<D>(dOs, &tdo, h, q0, b, &full[0]);
+        load_tile<D>(KV, &tk, hk, 0, b, &full[0]);
+        load_tile<D>(KV + TB, &tv, hk, 0, b, &full[0]);
+    }
+    // this thread's rows g and g + 8 of the warp's 16: lse log2(e), Delta
+    const int row0 = q0 + warp * 16 + g;
+    float ls[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int qpos = row0 + 8 * r;
+        const int64_t at_ = ((int64_t)b * H + h) * Sq + qpos;
+        ls[r] = qpos < Sq ? lse[at_] * LOG2E : 0.f;
+        dl[r] = qpos < Sq ? delta[at_] : 0.f;
+    }
+    __syncthreads();  // the barriers are initialised before anyone waits
+
+    float acc[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    for (int kt = 0; kt < n_tiles; ++kt) {
+        const int k0 = kt * BK;
+        mbar_wait(&full[kt % 2], (kt / 2) & 1);
+        // tile kt has landed, and every warp is done with tile kt - 1,
+        // whose stage the next load overwrites
+        __syncthreads();
+        if (threadIdx.x == 0 && kt + 1 < n_tiles) {
+            unsigned char* nx = KV + ((kt + 1) % 2) * 2 * TB;
+            uint64_t* bar = &full[(kt + 1) % 2];
+            mbar_expect_tx(bar, 2 * TB);
+            load_tile<D>(nx, &tk, hk, k0 + BK, b, bar);
+            load_tile<D>(nx + TB, &tv, hk, k0 + BK, b, bar);
+        }
+        const unsigned char* Kt = KV + (kt % 2) * 2 * TB;
+        const unsigned char* Vt = Kt + TB;
+
+        // P = exp(scale Q K^T - lse), rounded to bf16 as in the dK/dV kernel
+        uint32_t pf[BK / 16][4];
+        {
+            float s[NS][4];
+            tile_abt<D>(s, Qs, warp * 16, Kt, lane);
+            const bool masked = (causal && k0 + BK - 1 > q0) || k0 + BK > Sk || q0 + BQ > Sq;
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    float p[2];
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) {
+                        const int kpos = k0 + j * 8 + 2 * t + c, qpos = row0 + 8 * r;
+                        p[c] = exp2f(fmaf(s[j][2 * r + c] * scale, LOG2E, -ls[r]));
+                        if (masked && (qpos >= Sq || kpos >= Sk || (causal && kpos > qpos)))
+                            p[c] = 0.f;
+                    }
+                    pf[j / 2][(j % 2) * 2 + r] = pack_bf16x2(p[0], p[1]);
+                }
+        }
+        // dS = P o (dP - Delta), dP = dO V^T, rounded to bf16: the A
+        // fragments of dS K over the keys
+        uint32_t df[BK / 16][4];
+        {
+            float dp[NS][4];
+            tile_abt<D>(dp, dOs, warp * 16, Vt, lane);
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const uint32_t p = pf[j / 2][(j % 2) * 2 + r];
+                    df[j / 2][(j % 2) * 2 + r] = pack_bf16x2(
+                        bf_lo(p) * (dp[j][2 * r] - dl[r]),
+                        bf_hi(p) * (dp[j][2 * r + 1] - dl[r]));
+                }
+        }
+        // dQ += dS K: K's rows are the k dimension, read transposed
+        tile_acc_wx<D>(acc, df, Kt, lane);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int qpos = row0 + 8 * r;
+        if (qpos >= Sq) continue;
+        __nv_bfloat16* orow = dq + (((int64_t)b * Sq + qpos) * H + h) * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+                __floats2bfloat162_rn(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+    }
+}
+
+// q, k, v or do, dense (B, S, heads, D), as a 4-D tensor map (D, heads, S,
+// B) read in boxes of 64 rows of one head; the strides are the dense ones
+// whatever the length of a dim
+template <int D>
+static bool bwd_map(CUtensorMap* map, const void* base, int B, int S, int heads)
+{
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                                (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                   (cuuint64_t)S * heads * D * 2};
+    const cuuint32_t box[4] = {64, 1, (cuuint32_t)fb2::BQ, 1};
+    return bf16_box_map(map, base, 4, dims, strides, box);
+}
+
+template <int D>
+static int attention_bwd_bf16_run(const void* q, const void* k, const void* v,
+                                  const void* dout, const float* lse, const float* delta,
+                                  float* dk_ws, float* dv_ws, void* dq, void* dk, void* dv,
+                                  int B, int H, int Hkv, int Sq, int Sk, float scale,
+                                  int causal, cudaStream_t stream)
+{
+    CUtensorMap tq, tk, tv, tdo;
+    if (!bwd_map<D>(&tq, q, B, Sq, H) || !bwd_map<D>(&tk, k, B, Sk, Hkv)
+        || !bwd_map<D>(&tv, v, B, Sk, Hkv) || !bwd_map<D>(&tdo, dout, B, Sq, H))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = fb2::smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkdv_bf16_kernel<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 g1((unsigned)H, (unsigned)B, (unsigned)((Sk + fb2::BK - 1) / fb2::BK));
+    attention_bwd_dkdv_bf16_kernel<D><<<g1, fb2::THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, H, Hkv, Sq, Sk, scale, causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    const int64_t n = (int64_t)B * Sk * Hkv * D;
+    attention_bwd_reduce_kernel<__nv_bfloat16><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        dk_ws, dv_ws, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, n, H, Hkv, D);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+
+    err = cudaFuncSetAttribute(attention_bwd_dq_bf16_kernel<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 g2((unsigned)H, (unsigned)B, (unsigned)((Sq + fb2::BQ - 1) / fb2::BQ));
+    attention_bwd_dq_bf16_kernel<D><<<g2, fb2::THREADS, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dq, H, Hkv, Sq, Sk, scale, causal);
+    return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 static int attention_bwd_run(const void* q, const void* k, const void* v, const void* o,
                              const void* dout, const float* lse, float* delta,
@@ -412,30 +864,35 @@ static int attention_bwd_run(const void* q, const void* k, const void* v, const 
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
-    const size_t s1 = fb::dkdv_smem<D>();
-    err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
-    if (err != cudaSuccess) return (int)err;
-    dim3 g1((unsigned)H, (unsigned)B, (unsigned)((Sk + fb::BK - 1) / fb::BK));
-    attention_bwd_dkdv_kernel<T, D><<<g1, fb::THREADS, s1, stream>>>(
-        tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, H, Hkv, Sq, Sk, scale, causal);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+        return attention_bwd_bf16_run<D>(q, k, v, dout, lse, delta, dk_ws, dv_ws, dq,
+                                         dk, dv, B, H, Hkv, Sq, Sk, scale, causal, stream);
+    } else {
+        const size_t s1 = fb::dkdv_smem<D>();
+        err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<T, D>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
+        if (err != cudaSuccess) return (int)err;
+        dim3 g1((unsigned)H, (unsigned)B, (unsigned)((Sk + fb::BK - 1) / fb::BK));
+        attention_bwd_dkdv_kernel<T, D><<<g1, fb::THREADS, s1, stream>>>(
+            tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, H, Hkv, Sq, Sk, scale, causal);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
 
-    const int64_t n = (int64_t)B * Sk * Hkv * D;
-    attention_bwd_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        dk_ws, dv_ws, (T*)dk, (T*)dv, n, H, Hkv, D);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+        const int64_t n = (int64_t)B * Sk * Hkv * D;
+        attention_bwd_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+            dk_ws, dv_ws, (T*)dk, (T*)dv, n, H, Hkv, D);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
 
-    const size_t s2 = fb::dq_smem<D>();
-    err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
-    if (err != cudaSuccess) return (int)err;
-    dim3 g2((unsigned)H, (unsigned)B, (unsigned)((Sq + fb::BQ - 1) / fb::BQ));
-    attention_bwd_dq_kernel<T, D><<<g2, fb::THREADS, s2, stream>>>(
-        tq, tk, tv, tdo, lse, delta, (T*)dq, H, Hkv, Sq, Sk, scale, causal);
-    return (int)cudaGetLastError();
+        const size_t s2 = fb::dq_smem<D>();
+        err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, D>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
+        if (err != cudaSuccess) return (int)err;
+        dim3 g2((unsigned)H, (unsigned)B, (unsigned)((Sq + fb::BQ - 1) / fb::BQ));
+        attention_bwd_dq_kernel<T, D><<<g2, fb::THREADS, s2, stream>>>(
+            tq, tk, tv, tdo, lse, delta, (T*)dq, H, Hkv, Sq, Sk, scale, causal);
+        return (int)cudaGetLastError();
+    }
 }
 
 template <typename T>

@@ -1,9 +1,10 @@
 // Tensor-core and asynchronous-copy building blocks shared by the bf16
-// kernels (attention.cu, gated_matmul.cu, ssd_scan.cu): ldmatrix, mma.sync
-// m16n8k16 bf16 -> float32, TMA tile loads into shared memory with their
-// mbarriers, and the host call that encodes a TMA tensor map; and the 1-D
-// bulk copy of program_plane.cu's event ring. Nothing here launches
-// or allocates; every device helper is one PTX instruction issued by the
+// kernels (attention.cu, attention_bwd.cu, gated_matmul.cu, ssd_scan.cu):
+// ldmatrix, mma.sync m16n8k16 bf16 -> float32, TMA tile loads into shared
+// memory with their mbarriers, and the host call that encodes a TMA tensor
+// map; the 1-D bulk copy of program_plane.cu's event ring; and the
+// attention kernels' shared-memory tile layout (tile64). Nothing here
+// launches or allocates; every PTX helper is one instruction issued by the
 // calling thread (ldmatrix and mma by the whole warp).
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), for
@@ -156,6 +157,34 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, int c0,
            "r"(smem_addr(bar))
         : "memory");
 }
+
+// ---- a tile of 64 rows x D bf16 in shared memory, as TMA lands it -------
+//
+// The attention kernels' q / k / v / do tiles (attention.cu, B3;
+// attention_bwd.cu, B9): max(D / 64, 1) boxes of 64 rows x 64 columns of a
+// 4-D (D, heads, S, B) tensor map, 128 bytes a row (columns past D and rows
+// past the sequence zero-filled), 128-byte swizzle.
+namespace tile64 {
+template <int D> __host__ __device__ constexpr int boxes() { return D > 64 ? D / 64 : 1; }
+template <int D> __host__ __device__ constexpr int tile_bytes() { return boxes<D>() * 64 * 128; }
+
+// the 16 bytes at (row, col) of a tile, col a multiple of 8
+__device__ __forceinline__ const unsigned char* at(const unsigned char* tile,
+                                                   int row, int col)
+{
+    return tile + (col / 64) * (64 * 128) + sw128(row, (col % 64) / 8);
+}
+
+// rows [row0, row0 + 64) of head `head` of batch b, completing on bar
+template <int D>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map,
+                                          int head, int row0, int b, uint64_t* bar)
+{
+#pragma unroll
+    for (int bx = 0; bx < boxes<D>(); ++bx)
+        tma_load_4d(dst + bx * 64 * 128, map, bx * 64, head, row0, b, bar);
+}
+}  // namespace tile64
 
 // Host: a bf16 tensor map of `rank` dims (sizes innermost first, strides in
 // bytes of dims 1..rank-1), read in boxes whose inner dim is 64 elements

@@ -7,16 +7,22 @@ forward is kernel B3, which keeps no probabilities; B9 takes what B3
 leaves — q, k, v, the output o and its row log-sum-exp ``lse`` — and the
 output's gradient do, and returns dq, dk, dv. The kernels, their bound and
 the reasons for their design are in ``csrc/attention_bwd.cu``; in short:
-bound by operations at the training shape; float32 math on the CUDA cores
-(bf16 inputs widened as they load); every sum in a fixed order and no
-float atomic, so a result is the same from run to run (the training loop's
-bit-exact resume rests on it); tiles above the diagonal never loaded.
+bound by operations at the training shape; four kernels a call (a rowsum
+pre-pass, dK/dV per key tile and query head into a float32 workspace, the
+group's sum in head order, dQ per query tile); every sum in a fixed order
+and no float atomic, so a result is the same from run to run (the training
+loop's bit-exact resume rests on it); tiles above the diagonal never
+loaded. bf16 runs FlashAttention-2's backward on the tensor cores
+(``mma.sync``, q / k / v / do tiles by TMA, P and dS in registers, rounded
+to bf16 as the operands of their products — as B3 rounds P — with float32
+sums: it reads as ``flash_attention_bwd_plain(..., p_bits=7, ds_bits=7)``);
+float32 runs true float32 FMAs on the CUDA cores.
 
 ``flash_attention_bwd`` launches the kernels for CUDA tensors and
 evaluates ``flash_attention_bwd_plain`` for CPU tensors; nothing else
 selects between them, and a kernel that fails to build or launch raises.
 ``flash_attention_bwd.launches`` counts wrapper calls that launched (one
-a call: the four kernels of a call count once).
+a call: the four kernels of a call count once, on either route).
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (_GRID_YZ_MAX, DTYPES,
-                                                 HEAD_DIMS, TILE, _check)
+                                                 HEAD_DIMS, ROW_ALIGN, TILE,
+                                                 _check)
 from repro_torch.kernels.ref import NEG_INF
 
 
@@ -61,17 +68,28 @@ def _probs(q, k, lse, *, causal: bool, scale: float):
     return torch.exp(s - lse[..., None])
 
 
+def _round_bits(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """float32 ``x`` rounded to nearest (ties away from zero) at ``bits``
+    stored mantissa bits."""
+    drop = 23 - int(bits)
+    return ((x.view(torch.int32) + (1 << (drop - 1)))
+            & ~((1 << drop) - 1)).view(torch.float32)
+
+
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
                               scale: Optional[float] = None,
-                              p_bits: Optional[int] = None):
+                              p_bits: Optional[int] = None,
+                              ds_bits: Optional[int] = None):
     """Plain PyTorch version of B9 (CPU tensors only), in float32: P
     recomputed from ``lse``, ``dS = P o (dP - D)`` with ``D =
     rowsum(do o o)``; a KV head's gradient is the sum over its group's
     query heads. Returns dq, dk, dv in q's dtype.
 
     ``p_bits``: round P to nearest at that many stored mantissa bits
-    before it is used (a deliberately wrong rounding, for the card's
-    bf16 gate's control); None keeps float32."""
+    before it is used; ``ds_bits``: round dS likewise before it is used
+    in dQ and dK. At 7 bits each is bf16's rounding, what the bf16
+    kernel multiplies; at 3 a deliberately wrong rounding, the card's
+    bf16 gate's control. None keeps float32."""
     B, Sq, H, D, Sk, Hkv = _check_bwd(q, k, v, o, lse, do)
     if q.device.type != "cpu":
         raise ValueError("flash_attention_bwd_plain takes CPU tensors; on "
@@ -80,14 +98,14 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     G = H // Hkv
     p = _probs(q, k, lse, causal=causal, scale=scale)
     if p_bits is not None:
-        drop = 23 - int(p_bits)
-        p = ((p.view(torch.int32) + (1 << (drop - 1)))
-             & ~((1 << drop) - 1)).view(torch.float32)
+        p = _round_bits(p, p_bits)
     dof, of = do.float(), o.float()
     kr, vr = (t.float().repeat_interleave(G, dim=2) for t in (k, v))
     delta = (dof * of).sum(dim=-1).transpose(1, 2)        # (B, H, Sq)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
     ds = p * (dp - delta[..., None])
+    if ds_bits is not None:
+        ds = _round_bits(ds, ds_bits)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
@@ -134,6 +152,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_no_grad("flash_attention_bwd", (q, k, v, o, do),
                   "it is the backward of models.common.attention on the card")
     q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    if q.dtype == torch.bfloat16:  # TMA's tensor maps: 16-byte aligned bases
+        q, k, v, do = (t if t.data_ptr() % ROW_ALIGN == 0 else t.clone()
+                       for t in (q, k, v, do))
     dev = q.device
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)

@@ -114,35 +114,42 @@ def run(cfg_loop: TrainLoopConfig,
     ewma = None
     stragglers = 0
     losses, step_s = [], []
-    for step in range(start_step, cfg_loop.steps):
-        if step == cfg_loop.fail_at_step:
-            raise RuntimeError(f"[train] injected failure at step {step}")
-        t0 = time.time()
-        batch = data.batch(step)
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])  # waits for the step
-        dt = time.time() - t0
-        if ewma is None:
-            ewma = dt
-        if dt > cfg_loop.straggler_factor * ewma and step > start_step:
-            stragglers += 1
-            print(f"[train] step {step}: STRAGGLER {dt:.3f}s "
-                  f"(ewma {ewma:.3f}s) — deterministic batch would be "
-                  f"re-issued on a spare")
-        ewma = 0.9 * ewma + 0.1 * dt
-        losses.append(loss)
-        step_s.append(dt)
-        if on_step is not None:
-            on_step(step, metrics, dt)
-        if step % cfg_loop.log_every == 0:
-            print(f"[train] step {step}: loss={loss:.4f} "
-                  f"gnorm={float(metrics['grad_norm']):.3f} "
-                  f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms")
-        if (ckpt is not None and cfg_loop.checkpoint_every > 0
-                and (step + 1) % cfg_loop.checkpoint_every == 0):
-            ckpt.save(step + 1, state,
-                      extras={"data_state": data.state(step + 1),
-                              "arch": cfg.name})
+    try:
+        for step in range(start_step, cfg_loop.steps):
+            if step == cfg_loop.fail_at_step:
+                raise RuntimeError(f"[train] injected failure at step {step}")
+            t0 = time.time()
+            batch = data.batch(step)
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])  # waits for the step
+            dt = time.time() - t0
+            if ewma is None:
+                ewma = dt
+            if dt > cfg_loop.straggler_factor * ewma and step > start_step:
+                stragglers += 1
+                print(f"[train] step {step}: STRAGGLER {dt:.3f}s "
+                      f"(ewma {ewma:.3f}s) — deterministic batch would be "
+                      f"re-issued on a spare")
+            ewma = 0.9 * ewma + 0.1 * dt
+            losses.append(loss)
+            step_s.append(dt)
+            if on_step is not None:
+                on_step(step, metrics, dt)
+            if step % cfg_loop.log_every == 0:
+                print(f"[train] step {step}: loss={loss:.4f} "
+                      f"gnorm={float(metrics['grad_norm']):.3f} "
+                      f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms")
+            if (ckpt is not None and cfg_loop.checkpoint_every > 0
+                    and (step + 1) % cfg_loop.checkpoint_every == 0):
+                ckpt.save(step + 1, state,
+                          extras={"data_state": data.state(step + 1),
+                                  "arch": cfg.name})
+    except BaseException:
+        # a save issued before the failure is published before the caller
+        # can resume from the directory, and leaves no writer behind
+        if ckpt is not None:
+            ckpt.wait()
+        raise
     if ckpt is not None:
         ckpt.save(cfg_loop.steps, state,
                   extras={"data_state": data.state(cfg_loop.steps),

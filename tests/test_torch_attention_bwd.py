@@ -15,12 +15,17 @@
   which take their plain versions on CPU tensors, gives the same
   gradients;
 * the bf16 gate's control (P rounded to 3 mantissa bits) is far from the
-  float32 result, and P at 7 bits near it;
+  float32 result, and P at 7 bits near it; with dS rounded as well (what
+  the bf16 kernel multiplies), 7 bits read below ``chip_smoke.py``'s
+  ``B9_REL_L2_BF16`` and 3 bits above it, and no rounding asked for gives
+  the float32 formula's bits;
 * a hand kernel with grad enabled on an input that requires it raises
   (``_build.check_no_grad``), and the plain version of B9 takes CPU
   tensors only.
 """
 import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -137,6 +142,73 @@ def test_rounded_p_control_is_far_and_bf16_rounding_is_near():
                    for g, e in zip(got, exact))
 
     assert rel(7) < 4e-3 < rel(3)
+
+
+def _smoke_constant(name):
+    """A constant of the repo root's ``chip_smoke.py`` (which imports
+    nothing heavy at module level)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, name)
+
+
+def _plain_float32_formula(q, k, v, o, lse, do, scale):
+    """B9's plain version as the float32 formula with nothing rounded:
+    what ``flash_attention_bwd_plain`` computed before it took
+    ``ds_bits``."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(G, dim=2)) * scale
+    live = torch.arange(Sk)[None, :] <= torch.arange(Sq)[:, None]
+    s = torch.where(live, s, torch.full((), -1e30))
+    p = torch.exp(s - lse[..., None])
+    dof, of = do.float(), o.float()
+    kr, vr = (t.float().repeat_interleave(G, dim=2) for t in (k, v))
+    delta = (dof * of).sum(dim=-1).transpose(1, 2)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vr) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(B, Sk, Hkv, G, D).sum(dim=3)
+    dv = dv.reshape(B, Sk, Hkv, G, D).sum(dim=3)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+def test_rounded_p_and_ds_straddle_the_bf16_limit(dtype):
+    """The bf16 gate of B9 on the card: P and dS rounded to bf16 (what
+    the kernel multiplies) read below ``B9_REL_L2_BF16`` in each of dq,
+    dk, dv, the control at 3 bits above it; with no rounding the plain
+    version is the float32 formula bit for bit."""
+    limit = _smoke_constant("B9_REL_L2_BF16")
+    bits = _smoke_constant("B9_CONTROL_BITS")
+    q, k, v, do = (torch.tensor(x).to(dtype)
+                   for x in _inputs(1, 96, 8, 2, 32, 3))
+    o, lse = flash_attention_plain(q, k, v, return_lse=True)
+    exact = flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for a, b in zip(exact, flash_attention_bwd_plain(
+            q, k, v, o, lse, do, p_bits=None, ds_bits=None)):
+        assert torch.equal(a, b)
+    for a, b in zip(exact, _plain_float32_formula(q, k, v, o, lse, do,
+                                                  32 ** -0.5)):
+        assert torch.equal(a, b)
+
+    def rel(n):
+        got = flash_attention_bwd_plain(q, k, v, o, lse, do, p_bits=n,
+                                        ds_bits=n)
+        return [float((g.float() - e.float()).norm() / e.float().norm())
+                for g, e in zip(got, exact)]
+
+    assert max(rel(7)) < limit < min(rel(bits))
+    # dS alone at 3 bits moves dq and dk, never dv
+    ds_only = flash_attention_bwd_plain(q, k, v, o, lse, do, ds_bits=bits)
+    assert torch.equal(ds_only[2], exact[2])
+    assert not torch.equal(ds_only[0], exact[0])
 
 
 def test_kernels_refuse_to_drop_a_gradient():

@@ -9,6 +9,7 @@ them on a machine that has one with
 serving paths' full size.
 """
 import importlib
+import importlib.util
 import re
 from pathlib import Path
 
@@ -967,6 +968,66 @@ def test_attention_bwd_kernel_matches_plain(card, dtype, shape):
         err = (g.float().cpu() - w).abs()
         assert bool((err <= tol * (max(float(w.abs().max()), 1.0)
                                    + w.abs())).all())
+
+
+@pytest.mark.parametrize("shape", [(1, 300, 300, 8, 128),
+                                   (1, 77, 77, 8, 16),
+                                   (1, 200, 333, 8, 64)], ids=str)
+def test_attention_bwd_bf16_group_of_eight_one_kv_head_not_causal(card,
+                                                                  shape):
+    """B9's bf16 route (tensor cores, TMA tiles) at B = 1, Hkv = 1, a
+    group of 8 query heads and causal=False, Sq = Sk and not: the same
+    allclose as the causal cases, each of dq, dk, dv within
+    ``chip_smoke.B9_REL_L2_BF16`` relative L2, and a rerun bit-identical."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    B, Sq, Sk, H, D = shape
+    gen = torch.Generator(device=card).manual_seed(Sq + Sk)
+    q, k, v, do = (torch.randn(s, generator=gen, device=card)
+                   .to(torch.bfloat16)
+                   for s in ((B, Sq, H, D), (B, Sk, 1, D), (B, Sk, 1, D),
+                             (B, Sq, H, D)))
+    o, lse = flash_attention(q, k, v, causal=False, return_lse=True)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    want = flash_attention_bwd_plain(
+        *(t.cpu() for t in (q, k, v, o, lse, do)), causal=False)
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)  # no float atomics: the same bits
+        g, w = g.float().cpu(), w.float()
+        assert bool(((g - w).abs() <= 2e-2 * (max(float(w.abs().max()), 1.0)
+                                              + w.abs())).all())
+        assert float((g - w).norm() / w.norm()) \
+            <= chip_smoke.B9_REL_L2_BF16
+
+
+def test_attention_bwd_bf16_unaligned_inputs_are_copied(card):
+    """A bf16 input that is contiguous but starts off a 16-byte boundary
+    (which a TMA tensor map refuses) is copied first: the same bits as
+    the aligned call."""
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+    gen = torch.Generator(device=card).manual_seed(1)
+    q, k, v, do = (torch.randn(s, generator=gen, device=card)
+                   .to(torch.bfloat16)
+                   for s in ((1, 65, 4, 64), (1, 65, 2, 64), (1, 65, 2, 64),
+                             (1, 65, 4, 64)))
+    o, lse = flash_attention(q, k, v, return_lse=True)
+
+    def off(t):  # the same values one element into a fresh buffer
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.is_contiguous() and out.data_ptr() % 16 != 0
+        return out
+
+    want = flash_attention_bwd(q, k, v, o, lse, do)
+    got = flash_attention_bwd(off(q), off(k), off(v), o, lse, off(do))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_kernel_attention_grads_match_the_cpu(card):

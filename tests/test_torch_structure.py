@@ -362,7 +362,8 @@ def test_profiled_kernel_names_are_defined(script):
                 "gated_matmul_bf16_kernel",
                 "gated_matmul_f32_kernel", "attention_bwd_delta_kernel",
                 "attention_bwd_dkdv_kernel", "attention_bwd_reduce_kernel",
-                "attention_bwd_dq_kernel"} <= looked_up
+                "attention_bwd_dq_kernel", "attention_bwd_dkdv_bf16_kernel",
+                "attention_bwd_dq_bf16_kernel"} <= looked_up
     assert looked_up <= _global_kernels(), looked_up - _global_kernels()
 
 
@@ -372,7 +373,8 @@ def test_bf16_kernels_share_the_tensor_core_header(tmp_path, monkeypatch):
     from repro_torch.kernels import _build
     csrc = PKG / "kernels" / "csrc"
     header = csrc / "mma_bf16.cuh"
-    for source in ("attention.cu", "gated_matmul.cu", "ssd_scan.cu"):
+    for source in ("attention.cu", "attention_bwd.cu", "gated_matmul.cu",
+                   "ssd_scan.cu"):
         cu = (csrc / source).read_text()
         assert '#include "mma_bf16.cuh"' in cu
         assert "asm" not in cu  # every PTX instruction is in the header

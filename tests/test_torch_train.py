@@ -37,6 +37,7 @@ The zero-initialized leaves are held to ``ZERO_INIT_TOL``; with eps
 """
 import importlib.util
 import pathlib
+import time
 
 import numpy as np
 import pytest
@@ -233,6 +234,26 @@ def test_failure_injection_and_bitexact_resume(tmp_path, arch):
     assert len(resumed["losses"]) == 4
     np.testing.assert_allclose(resumed["losses"][-3:], full["losses"][-3:],
                                rtol=0, atol=0)
+
+
+def test_a_failed_run_publishes_the_checkpoint_it_started(tmp_path,
+                                                          monkeypatch):
+    """The step-4 save is still being written when the injected failure
+    at step 5 raises: ``run`` publishes it before it lets the error out,
+    so the next run resumes from step 4 however slow the writer is (and
+    no writer of the failed run is left beside the next one's)."""
+    from repro_torch.checkpoint import manager
+    real_save = manager.np.save
+
+    def slow_save(*args, **kwargs):
+        time.sleep(0.01)
+        return real_save(*args, **kwargs)
+
+    monkeypatch.setattr(manager.np, "save", slow_save)
+    cfg = _loop("qwen2.5-3b", tmp_path)
+    with pytest.raises(RuntimeError, match="injected failure"):
+        run(TrainLoopConfig(**{**vars(cfg), "fail_at_step": 5}))
+    assert manager.CheckpointManager(cfg.ckpt_dir).latest_step() == 4
 
 
 def test_grad_compression_changes_nothing_structural():
