@@ -59,7 +59,17 @@ path, read just after) that each path really went through its kernels:
   heads of 64, d_state 128, vocab 50 280), the same ``Server`` entry
   points (kernel B5 ``ssd_scan`` on every layer of the prefill; a decode
   step is the plain recurrent update and launches no kernel), the same
-  batch, prompt and checks.
+  batch, prompt and checks;
+* serving hymba-1.5b at full width (32 hybrid layers: attention beside
+  an SSD branch, 29 of them sliding over a 2 048-token window; B3 with
+  the window and B5 on every layer of the prefill, B4 with the window at
+  every step) over a 4 096-token prompt, and paligemma-3b (18 layers,
+  head dim 256; B3 with a 256-patch bidirectional prefix, B4 at every
+  step) behind its 256 zero patch embeddings; hubert-xlarge's encoder
+  forward (48 layers, head dim 80, bidirectional B3) over 4 x 1 500
+  seeded frames; each, cut to 2 layers (hymba 5) in float32, against
+  the CPU. B3 and B4 are also held to their plain versions with every
+  new mask and head dim, B3's loaded tiles to the mask's count.
 
 It has no CPU route: no card, a failed build, a failed launch or a
 failed comparison each end the run with a non-zero exit code. Every
@@ -184,16 +194,44 @@ B7_STREAM_BYTES = 8
 B7_ROW_BYTES = 3 * 4 * 8 + 16 + 24 + 3 * 4 * 8
 SERVE_ARCH = "qwen2.5-3b"
 SSM_ARCH = "mamba2-780m"
+HYBRID_ARCH = "hymba-1.5b"
+VLM_ARCH = "paligemma-3b"
+AUDIO_ARCH = "hubert-xlarge"
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 32
 # per served arch: the published widths (layers, d_model, vocab), the
-# kernel each layer launches at prefill and at every decode step, and the
-# limit on the bf16 decode-vs-forward relative L2 (below)
+# kernels each layer launches at prefill and at every decode step, the
+# limit on the bf16 decode-vs-forward relative L2 (below), the text
+# prompt's length (hymba's is twice its 2 048-token window, so its 29
+# sliding layers skip key tiles; paligemma's follows its 256 patches) and
+# the layers its card-vs-CPU parity phase keeps (hymba cut to 2 layers
+# would have only global ones: at 5, layers 1 and 3 slide)
 SERVE_PATHS = {
     SERVE_ARCH: {"widths": (36, 2048, 151936), "prefill": "flash_attention",
-                 "step": "decode_attention", "rel_l2_bf16": 0.05},
+                 "step": "decode_attention", "rel_l2_bf16": 0.05,
+                 "prompt": SERVE_PROMPT, "parity_layers": 2,
+                 "parity_prompt": 200},
     SSM_ARCH: {"widths": (48, 1536, 50280), "prefill": "ssd_scan",
-               "step": None, "rel_l2_bf16": 0.25},
+               "step": None, "rel_l2_bf16": 0.25, "prompt": SERVE_PROMPT,
+               "parity_layers": 2, "parity_prompt": 200},
+    # the SSD half carries its state's bf16 rounding as mamba2's does;
+    # its parity prompt is longer than the window, so layers 1 and 3
+    # slide there too
+    HYBRID_ARCH: {"widths": (32, 1600, 32001),
+                  "prefill": ("flash_attention", "ssd_scan"),
+                  "step": "decode_attention", "rel_l2_bf16": 0.25,
+                  "prompt": 4096, "parity_layers": 5,
+                  "parity_prompt": 2112},
+    VLM_ARCH: {"widths": (18, 2048, 257216), "prefill": "flash_attention",
+               "step": "decode_attention", "rel_l2_bf16": 0.05,
+               "prompt": SERVE_PROMPT, "parity_layers": 2,
+               "parity_prompt": 200},
+    AUDIO_ARCH: {"widths": (48, 1280, 504), "prefill": "flash_attention",
+                 "step": None, "parity_layers": 2},
 }
-SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 32
+# encode_audio_full: hubert-xlarge over 30 s of audio at 50 frames a
+# second, batch 4; the bf16 control of B3 at its inputs (time_b3)
+AUDIO_FRAMES = 1500
+AUDIO_CONTROL_BITS = 1
 # decode steps vs one full forward. A wrong head or group map, cache slot,
 # conv tail or rope position, or a state not carried, gives a relative L2
 # error of order 1. In float32 (the same weights before their bf16 cast)
@@ -350,8 +388,12 @@ def profile_run(run, hand_kernels: tuple[str, ...], top: int = 8) -> dict:
 # has finished
 PROFILE_PAD_S = 0.05
 # a profile that still returns no record of a kernel the calls launched
-# is taken again, this many times in all, before the run fails
-PROFILE_ATTEMPTS = 3
+# is taken again, this many times in all, each with twice the calls;
+# then the calls are timed by CUDA events instead (the guide's fallback),
+# and the miss is recorded in PROFILER_FALLBACKS, which the kernels line
+# carries
+PROFILE_ATTEMPTS = 4
+PROFILER_FALLBACKS: list = []
 
 
 def kernel_device_us(fn, names=None, reps: int = 5) -> float:
@@ -371,10 +413,11 @@ def kernel_device_us(fn, names=None, reps: int = 5) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for attempt in range(PROFILE_ATTEMPTS):
+    calls = reps
+    for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
-            for _ in range(reps):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
             time.sleep(PROFILE_PAD_S)
@@ -382,19 +425,23 @@ def kernel_device_us(fn, names=None, reps: int = 5) -> float:
             us = [_device_us(e) for e in prof.key_averages()
                   if getattr(e, "device_type", None) == DeviceType.CUDA]
             if sum(us) > 0:
-                return sum(us) / reps
+                return sum(us) / calls
             missing = ["any device"]
-            continue
-        wanted = (names,) if isinstance(names, str) else tuple(names)
-        hits = {name: [(_device_us(e), int(e.count))
-                       for e in prof.key_averages() if name in e.key]
-                for name in wanted}
-        missing = [name for name, rec in hits.items() if not rec]
-        if not missing:
-            return sum(sum(us for us, _ in rec) / sum(n for _, n in rec)
-                       for rec in hits.values())
-    fail(f"the profiler saw no {missing} launch in {PROFILE_ATTEMPTS} "
-         f"profiles of {reps} calls")
+        else:
+            wanted = (names,) if isinstance(names, str) else tuple(names)
+            hits = {name: [(_device_us(e), int(e.count))
+                           for e in prof.key_averages() if name in e.key]
+                    for name in wanted}
+            missing = [name for name, rec in hits.items() if not rec]
+            if not missing:
+                return sum(sum(us for us, _ in rec) / sum(n for _, n in rec)
+                           for rec in hits.values())
+        calls *= 2
+        time.sleep(0.2)
+    us = 1e3 * event_ms(fn, reps)
+    PROFILER_FALLBACKS.append({"kernels": missing, "calls_profiled": calls,
+                               "event_us": us})
+    return us
 
 
 def max_abs(a, b) -> float:
@@ -483,14 +530,16 @@ def attn_tolerance(dtype) -> float:
     return {torch.float32: 2e-5, torch.bfloat16: 2e-2}[dtype]
 
 
-def b3_bound(B, S, H, Hkv, D, dtype) -> tuple[float, str]:
-    """Least time for causal self-attention over S tokens: q, k, v read
-    and the output written once; the live (causal) score entries S(S+1)/2
-    per (batch, head) at 2 D operations each for QK and for PV."""
+def b3_bound(B, S, H, Hkv, D, dtype, live=None) -> tuple[float, str]:
+    """Least time for self-attention over S tokens: q, k, v read and the
+    output written once; the live score entries per (batch, head) --
+    ``live``, or the causal S(S+1)/2 -- at 2 D operations each for QK and
+    for PV."""
     import torch
     el = 2 if dtype == torch.bfloat16 else 4
     nbytes = el * (2 * B * S * H * D + 2 * B * S * Hkv * D)
-    flops = 4 * B * H * D * S * (S + 1) / 2
+    live = S * (S + 1) / 2 if live is None else live
+    flops = 4 * B * H * D * live
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
@@ -508,20 +557,26 @@ def b4_bound(B, n_live, H, Hkv, D, dtype) -> tuple[float, str]:
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
-def b4_rel_l2_gate(q, kc, vc, cache_len: int, got, what: str) -> dict:
+def b4_rel_l2_gate(q, kc, vc, cache_len: int, got, what: str,
+                   window=None) -> dict:
     """B4 bf16's whole-output relative L2 to its plain version, held to
     ``B4_REL_L2_BF16``, beside its control: the plain version over every
-    split but the last, which must exceed the limit."""
+    split but the last (with a window, the window shortened as much, so
+    it still starts at the same slot), which must exceed the limit."""
     from repro_torch.kernels.decode_attention import (decode_attention_plain,
-                                                      decode_splits)
-    n_split, split_len = decode_splits(cache_len + 1)
+                                                      decode_splits,
+                                                      live_slots)
+    n_live, n_pre, first = live_slots(cache_len, window)
+    n_split, split_len = decode_splits(n_live, first, n_pre)
     check(n_split > 1, f"{what}: one split has no last split to drop")
-    want = decode_attention_plain(q, kc, vc, cache_len)
+    want = decode_attention_plain(q, kc, vc, cache_len, window=window)
+    cut = n_live - (n_split - 1) * split_len  # the last split's slots
     gate = {"rel_l2": b3_rel_l2(got, want),
             "median_abs_plain": float(want.float().abs().median()),
             "control_rel_l2": {"last_split_dropped": b3_rel_l2(
-                decode_attention_plain(q, kc, vc,
-                                       (n_split - 1) * split_len - 1),
+                decode_attention_plain(
+                    q, kc, vc, cache_len - cut,
+                    window=None if window is None else window - cut),
                 want)},
             "limit_rel_l2": B4_REL_L2_BF16}
     check(gate["rel_l2"] <= B4_REL_L2_BF16,
@@ -635,17 +690,132 @@ def check_attention_kernels(dev) -> dict:
     return {"cases": cases, "max_abs_err": err, "b4_bf16_rel_l2": rel}
 
 
-def b3_rounded_p(q, k, v, bits: int):
-    """Causal B3 with the unnormalized probabilities ``exp(s - max)``
-    rounded to nearest at ``bits`` stored mantissa bits before P·V, the
-    row sum taken from the unrounded float32 values: at 7 bits what the
-    bf16 kernel does, at fewer a deliberately wrong rounding."""
+# B3 / B4 with the masks and head dims the hymba, paligemma and hubert
+# paths give them: (name, B, S, H, Hkv, D, causal, window, prefix)
+B3_MASK_CASES = (
+    ("window_2048_s4096_d64", 1, 4096, 25, 5, 64, True, 2048, 0),
+    ("window_below_a_tile", 1, 700, 8, 2, 64, True, 40, 0),
+    ("window_not_a_multiple_of_64", 1, 700, 8, 2, 64, True, 100, 0),
+    ("prefix_256_s2304_d256", 1, 2304, 8, 1, 256, True, None, 256),
+    ("prefix_not_a_multiple_of_64", 1, 600, 8, 1, 256, True, None, 70),
+    ("bidirectional_s1500_d80", 1, 1500, 16, 16, 80, False, None, 0),
+    ("window_and_prefix", 1, 1000, 8, 2, 64, True, 300, 130))
+# B4 with a window at cache lengths below, at and above it (the live
+# slots fewer than, as many as and cut by the window), D 256, G 8
+B4_WINDOW = 1000
+B4_WINDOW_LENGTHS = (500, B4_WINDOW - 1, B4_WINDOW, 2335)
+
+
+def check_attention_masks(dev) -> dict:
+    """B3 with a sliding window, a prefix, both, and bidirectional at
+    head dims 64, 80 and 256 (``B3_MASK_CASES``), and B4 with a window at
+    D 256 and G 8 (``B4_WINDOW_LENGTHS``), against their plain versions on
+    the card: float32 allclose 2e-5; bf16 the allclose 2e-2 and one
+    relative L2 over the output held to ``B3_REL_L2_BF16`` /
+    ``B4_REL_L2_BF16``, each beside its control above the limit; B3's
+    ``tiles_loaded`` equal to the mask's count (``live_tiles``), B4 no
+    slot outside the live ones read (NaN there) and a second call
+    bit-identical."""
     import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain,
+                                                      decode_splits,
+                                                      live_slots)
+    from repro_torch.kernels.flash_attention import (TILE, flash_attention,
+                                                     flash_attention_plain,
+                                                     live_tiles)
+    from repro_torch.kernels.ref import decode_live
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    out = {"b3": {}, "b4": {}}
+    for name, B, S, H, Hkv, D, causal, window, prefix in B3_MASK_CASES:
+        mask = dict(causal=causal, window=window, prefix_len=prefix)
+        want_tiles = live_tiles(S, S, device=dev, **mask)
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            what = f"flash_attention[{name}, {dn}]"
+            q, k, v = (rnd((B, S, h, D), dtype) for h in (H, Hkv, Hkv))
+            tiles = torch.zeros((B, H, -(-S // TILE)), dtype=torch.int32,
+                                device=dev)
+            got = flash_attention(q, k, v, tiles_loaded=tiles, **mask)
+            want = flash_attention_plain(q, k, v, **mask)
+            torch.cuda.synchronize()
+            tol = attn_tolerance(dtype)
+            e = max_abs(got.float(), want.float())
+            check(torch.allclose(got.float(), want.float(), atol=tol,
+                                 rtol=tol), f"{what}: differs by {e}")
+            check(torch.equal(tiles, want_tiles.expand(B, H, -1)),
+                  f"{what}: loaded tiles {tiles[0, 0].tolist()}, the mask "
+                  f"allows {want_tiles.tolist()}")
+            rec = {"max_abs_err": e,
+                   "tiles_loaded": int(tiles[0, 0].sum()),
+                   "tiles_causal": (-(-S // TILE)) * (-(-S // TILE) + 1) // 2}
+            if dtype == torch.bfloat16:
+                rec["rel_l2"] = b3_rel_l2(got, want)
+                rec["control_rel_l2"] = {f"p_{bits}_bits": b3_rel_l2(
+                    b3_rounded_p(q, k, v, bits, **mask), want)
+                    for bits in (7, B3_CONTROL_BITS)}
+                check(rec["rel_l2"] <= B3_REL_L2_BF16,
+                      f"{what}: relative L2 {rec['rel_l2']} > "
+                      f"{B3_REL_L2_BF16}")
+                ctrl = rec["control_rel_l2"][f"p_{B3_CONTROL_BITS}_bits"]
+                check(ctrl > B3_REL_L2_BF16,
+                      f"{what}: the control has relative L2 {ctrl} <= "
+                      f"{B3_REL_L2_BF16}")
+            out["b3"][f"{name}/{dn}"] = rec
+            del q, k, v, got, want
+    H, Hkv, D, Smax = 8, 1, 256, 2336
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        q = rnd((4, 1, H, D), dtype)
+        kc, vc = rnd((4, Smax, Hkv, D), dtype), rnd((4, Smax, Hkv, D), dtype)
+        for clen in B4_WINDOW_LENGTHS:
+            what = f"decode_attention[window {B4_WINDOW}, len={clen}, {dn}]"
+            kw = dict(window=B4_WINDOW)
+            want = decode_attention_plain(q, kc, vc, clen, **kw)
+            dead = ~decode_live(Smax, clen, device=dev, **kw)
+            pk, pv = kc.clone(), vc.clone()
+            pk[:, dead], pv[:, dead] = float("nan"), float("nan")
+            got = decode_attention(q, pk, pv, clen, **kw)
+            again = decode_attention(q, pk, pv, clen, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again),
+                  f"{what}: a second call is not bit-identical")
+            check(bool(torch.isfinite(got).all()),
+                  f"{what}: read a slot outside the window")
+            e = max_abs(got.float(), want.float())
+            tol = attn_tolerance(dtype)
+            check(torch.allclose(got.float(), want.float(), atol=tol,
+                                 rtol=tol), f"{what}: differs by {e}")
+            n_live, n_pre, first = live_slots(clen, **kw)
+            rec = {"max_abs_err": e, "live_slots": n_live,
+                   "first_slot": first,
+                   "n_split": decode_splits(n_live, first, n_pre)[0]}
+            if dtype == torch.bfloat16:
+                rec.update(b4_rel_l2_gate(q, kc, vc, clen, got, what, **kw))
+            out["b4"][f"len={clen}/{dn}"] = rec
+            del pk, pv
+    return out
+
+
+def b3_rounded_p(q, k, v, bits: int, causal=True, window=None,
+                 prefix_len=0):
+    """B3 (its mask: ``ref.attention_mask``) with the unnormalized
+    probabilities ``exp(s - max)`` rounded to nearest at ``bits`` stored
+    mantissa bits before P·V, the row sum taken from the unrounded
+    float32 values: at 7 bits what the bf16 kernel does, at fewer a
+    deliberately wrong rounding."""
+    import torch
+    from repro_torch.kernels.ref import attention_mask
     H, Hkv, D = q.shape[2], k.shape[2], q.shape[3]
     k, v = (t.repeat_interleave(H // Hkv, dim=2) for t in (k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
-    i = torch.arange(s.shape[-1], device=q.device)
-    s.masked_fill_(i[None, :] > i[:s.shape[-2], None], float("-inf"))
+    s.masked_fill_(~attention_mask(
+        s.shape[-2], s.shape[-1], causal=causal, window=window,
+        prefix_len=prefix_len, device=q.device), float("-inf"))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     del s
     l = p.sum(dim=-1, keepdim=True).transpose(1, 2)
@@ -661,18 +831,24 @@ def b3_rel_l2(got, want) -> float:
                  / want.float().norm().clamp_min(1e-30))
 
 
-def time_b3(q, k, v) -> dict:
-    """B3 at the shapes the main path gives it, beside its bound, its
-    plain version and one library call of the same function. bf16 is
-    also held to ``B3_REL_L2_BF16``, beside its control."""
+def time_b3(q, k, v, causal=True, window=None, prefix_len=0,
+            control_bits=B3_CONTROL_BITS) -> dict:
+    """B3 at the shapes the main path gives it, with its mask, beside its
+    bound (the live pairs alone), its plain version and one library call
+    of the same function (``sdpa``: causal by its flag, another mask as
+    the same boolean mask; the backend it took named by its kernels).
+    bf16 is also held to ``B3_REL_L2_BF16``, beside its control (p at
+    ``control_bits`` mantissa bits), which must read above the limit."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.ref import attention_mask
     B, S, H, D = q.shape
     Hkv = k.shape[2]
-    got = flash_attention(q, k, v)
-    want = flash_attention_plain(q, k, v)
+    mask = dict(causal=causal, window=window, prefix_len=prefix_len)
+    got = flash_attention(q, k, v, **mask)
+    want = flash_attention_plain(q, k, v, **mask)
     err = max_abs(got.float(), want.float())
     check(torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
           f"flash_attention at the model's shapes differs by {err}")
@@ -682,57 +858,94 @@ def time_b3(q, k, v) -> dict:
     del got
     if q.dtype == torch.bfloat16:
         accuracy["control_rel_l2"] = {
-            f"p_{bits}_bits": b3_rel_l2(b3_rounded_p(q, k, v, bits), want)
-            for bits in (7, B3_CONTROL_BITS)}
+            f"p_{bits}_bits": b3_rel_l2(b3_rounded_p(q, k, v, bits, **mask),
+                                        want)
+            for bits in sorted({7, B3_CONTROL_BITS, control_bits})}
         accuracy["limit_rel_l2"] = B3_REL_L2_BF16
         check(accuracy["rel_l2"] <= B3_REL_L2_BF16,
               f"flash_attention (bf16) at the model's shapes: relative L2 "
               f"{accuracy['rel_l2']} > {B3_REL_L2_BF16}")
-        ctrl = accuracy["control_rel_l2"][f"p_{B3_CONTROL_BITS}_bits"]
+        ctrl = accuracy["control_rel_l2"][f"p_{control_bits}_bits"]
         check(ctrl > B3_REL_L2_BF16,
-              f"the control (p at {B3_CONTROL_BITS} mantissa bits) has "
+              f"the control (p at {control_bits} mantissa bits) has "
               f"relative L2 {ctrl} <= {B3_REL_L2_BF16}: the limit cannot "
               f"see a rounding fault")
     del want
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ok = attention_mask(S, k.shape[1], device=q.device, **mask)
+    live = int(ok.sum())
+    plain_causal = causal and window is None and prefix_len == 0
+    sdpa = dict(is_causal=True) if plain_causal else \
+        dict(attn_mask=None if bool(ok.all()) else ok)
     try:
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                       enable_gqa=True)
+        F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **sdpa)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, enable_gqa=True, **sdpa)
     except TypeError:  # a torch without enable_gqa: repeat the KV heads
         kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (kt, vt))
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kr, vr, is_causal=True)
-    bound, by = b3_bound(B, S, H, Hkv, D, q.dtype)
+            qt, kr, vr, **sdpa)
+    bound, by = b3_bound(B, S, H, Hkv, D, q.dtype, live)
+    run = lambda: flash_attention(q, k, v, **mask)  # noqa: E731
     return {"shape": {"q": list(q.shape), "kv": list(k.shape),
-                      "dtype": str(q.dtype)},
-            "max_abs_err": err, **accuracy,
-            "ms": event_ms(lambda: flash_attention(q, k, v), 10),
+                      "dtype": str(q.dtype), **mask},
+            "live_pairs": live, "max_abs_err": err, **accuracy,
+            "ms": event_ms(run, 10),
             "device_us": kernel_device_us(
-                lambda: flash_attention(q, k, v),
-                B3_KERNELS[str(q.dtype).split(".")[-1]]),
-            "plain_ms": event_ms(lambda: flash_attention_plain(q, k, v), 3,
-                                 warmup=1),
+                run, B3_KERNELS[str(q.dtype).split(".")[-1]]),
+            "plain_ms": event_ms(
+                lambda: flash_attention_plain(q, k, v, **mask), 3, warmup=1),
             "library_ms": event_ms(lib, 10),
+            "library_device_us": kernel_device_us(lib),
+            "library_kernels": device_kernel_names(lib),
+            "library_call": "scaled_dot_product_attention("
+                            + ("is_causal=True" if plain_causal else
+                               "attn_mask=<the same boolean mask>")
+                            + ", enable_gqa=True)",
             "bound_ms": bound, "bound_by": by}
 
 
-def time_b4(q, kc, vc, cache_len: int) -> dict:
-    """B4 at the shapes the main path gives it (one layer's cache),
-    beside its bound, its plain version and one library call of the same
-    function (by events and by its device time); bf16 is also held to
+def device_kernel_names(fn, top: int = 3, reps: int = 5) -> list:
+    """The names of the device kernels ``reps`` calls of ``fn`` run,
+    longest first (which backend a library call took); a diagnostic:
+    [] if ``PROFILE_ATTEMPTS`` profiles all lost their records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        rows = sorted(((e.key, _device_us(e)) for e in prof.key_averages()
+                       if getattr(e, "device_type", None)
+                       == DeviceType.CUDA), key=lambda r: -r[1])
+        if rows:
+            return [n[:100] for n, _ in rows[:top]]
+    return []
+
+
+def time_b4(q, kc, vc, cache_len: int, window=None) -> dict:
+    """B4 at the shapes the main path gives it (one layer's cache, its
+    window), beside its bound (the live slots alone), its plain version
+    and one library call of the same function (``sdpa`` over the live
+    slots; by events and by its device time); bf16 is also held to
     ``B4_REL_L2_BF16``, beside its control."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_plain,
-                                                      decode_splits)
+                                                      decode_splits,
+                                                      live_slots)
     B, _, H, D = q.shape
     Hkv = kc.shape[2]
-    got = decode_attention(q, kc, vc, cache_len)
-    again = decode_attention(q, kc, vc, cache_len)
-    want = decode_attention_plain(q, kc, vc, cache_len)
+    got = decode_attention(q, kc, vc, cache_len, window=window)
+    again = decode_attention(q, kc, vc, cache_len, window=window)
+    want = decode_attention_plain(q, kc, vc, cache_len, window=window)
     err = max_abs(got.float(), want.float())
     check(torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
           f"decode_attention at the model's shapes differs by {err}")
@@ -740,10 +953,11 @@ def time_b4(q, kc, vc, cache_len: int) -> dict:
           "shapes: a second call is not bit-identical")
     accuracy = {} if q.dtype != torch.bfloat16 else b4_rel_l2_gate(
         q, kc, vc, cache_len, got, "decode_attention (bf16) at the "
-        "model's shapes")
-    n_split, split_len = decode_splits(cache_len + 1)
+        "model's shapes", window=window)
+    n_live, n_pre, first = live_slots(cache_len, window)
+    n_split, split_len = decode_splits(n_live, first, n_pre)
     qt = q.transpose(1, 2)
-    kt, vt = (c[:, :cache_len + 1].transpose(1, 2) for c in (kc, vc))
+    kt, vt = (c[:, first:cache_len + 1].transpose(1, 2) for c in (kc, vc))
     try:
         F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -751,17 +965,19 @@ def time_b4(q, kc, vc, cache_len: int) -> dict:
     except TypeError:
         kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (kt, vt))
         lib = lambda: F.scaled_dot_product_attention(qt, kr, vr)  # noqa
-    bound, by = b4_bound(B, cache_len + 1, H, Hkv, D, q.dtype)
+    bound, by = b4_bound(B, n_live, H, Hkv, D, q.dtype)
+    run = lambda: decode_attention(q, kc, vc, cache_len,  # noqa: E731
+                                   window=window)
     return {"shape": {"q": list(q.shape), "cache": list(kc.shape),
-                      "cache_len": cache_len, "dtype": str(q.dtype),
+                      "cache_len": cache_len, "window": window,
+                      "live_slots": n_live, "dtype": str(q.dtype),
                       "n_split": n_split, "split_len": split_len},
             "max_abs_err": err, **accuracy, "bit_identical_rerun": True,
-            "ms": event_ms(lambda: decode_attention(q, kc, vc, cache_len),
-                           50),
-            "device_us": kernel_device_us(
-                lambda: decode_attention(q, kc, vc, cache_len), B4_KERNELS),
+            "ms": event_ms(run, 50),
+            "device_us": kernel_device_us(run, B4_KERNELS),
             "plain_ms": event_ms(
-                lambda: decode_attention_plain(q, kc, vc, cache_len), 10),
+                lambda: decode_attention_plain(q, kc, vc, cache_len,
+                                               window=window), 10),
             "library_ms": event_ms(lib, 50),
             "library_device_us": kernel_device_us(lib),
             "bound_ms": bound, "bound_by": by}
@@ -1002,14 +1218,16 @@ def time_b5(x, dt, A, Bm, Cm) -> dict:
 
 
 def ssd_model_shapes(srv, prompts) -> dict:
-    """B5 on the inputs layer 0 of the full mamba2 model gives it: the
-    prompt's x, dt, A, B, C (B/C per group, not repeated)."""
+    """B5 on the inputs layer 0 of the full mamba2 (or hymba: its SSD
+    half) model gives it: the prompt's x, dt, A, B, C (B/C per group,
+    not repeated)."""
     import torch
     from repro_torch.models import blocks
     from repro_torch.models.common import rms_norm
     from repro_torch.models.model import _layers
     cfg = srv.cfg
-    p0 = _layers(srv.params["layers"], cfg.n_layers)[0]["ssd"]
+    p0 = _layers(srv.params["layers"], cfg.n_layers)[0]
+    p0 = p0["mix"]["ssd"] if cfg.family == "hybrid" else p0["ssd"]
     toks = torch.tensor(prompts, dtype=torch.int64, device="cuda")
     h = rms_norm(srv.params["embed"][toks], p0["ln"], cfg.norm_eps)
     x, _, dt, Bm, Cm, _ = blocks._ssd_inputs(p0, h, cfg)
@@ -2026,13 +2244,37 @@ def read_launches() -> dict:
 
 
 def expected_launches(kernel, n: int) -> dict:
-    """Every wrapper's count when only ``kernel`` launched, ``n`` times."""
-    return {name: (n if name == kernel else 0) for name in _wrappers()}
+    """Every wrapper's count when only ``kernel`` (a name, a tuple of
+    names, or None) launched, ``n`` times each."""
+    kernels = (kernel,) if isinstance(kernel, str) else tuple(kernel or ())
+    return {name: (n if name in kernels else 0) for name in _wrappers()}
+
+
+def image_slots(cfg) -> int:
+    """The cache slots a vision arch's patches take before the text."""
+    return cfg.frontend_seq if cfg.frontend == "vision" else 0
+
+
+def frontend_batch(cfg, B: int, device, gen=None) -> dict:
+    """The non-token inputs of an arch's forward: a vision arch's patch
+    embeddings, zeros as its server feeds them (or seeded from ``gen``),
+    an audio arch's frame embeddings, seeded from ``gen``; {} otherwise."""
+    import torch
+    if cfg.frontend == "vision":
+        shape = (B, cfg.frontend_seq, cfg.frontend_dim)
+        return {"patches": torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=device) if gen is None else
+                torch.randn(shape, generator=gen, device=device)}
+    if cfg.frontend == "audio":
+        return {"frames": torch.randn((B, AUDIO_FRAMES, cfg.frontend_dim),
+                                      generator=gen, device=device)}
+    return {}
 
 
 def serve_full(card: str, arch: str):
     """A serving path at full width: ``Server(arch, reduced=False)`` on
-    the card, batch 4, a 2048-token prompt, 32 generated tokens. Returns
+    the card, batch 4, the arch's prompt (``SERVE_PATHS``; a vision arch's
+    256 zero patch embeddings before it), 32 generated tokens. Returns
     (the phase's record, the server, the prompts)."""
     import numpy as np
     import torch
@@ -2040,16 +2282,19 @@ def serve_full(card: str, arch: str):
     from repro_torch.models import model as M
 
     path = SERVE_PATHS[arch]
+    prompt = path["prompt"]
     t0 = time.perf_counter()
     srv = Server(arch, reduced=False, batch=SERVE_BATCH,
-                 max_seq=SERVE_PROMPT + SERVE_TOKENS, seed=0, device="cuda")
+                 max_seq=image_slots(get_cfg(arch)) + prompt + SERVE_TOKENS,
+                 seed=0, device="cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     cfg = srv.cfg
+    n_img = image_slots(cfg)
     check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == path["widths"],
           f"not the full-width config: {cfg}")
     prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+        0, cfg.vocab_size, (SERVE_BATCH, prompt), dtype=np.int32)
     srv.generate(prompts[:, :64], 2)  # warm-up: library handles, loads
 
     logits = []  # each step's last-position logits, kept on the card
@@ -2099,16 +2344,20 @@ def serve_full(card: str, arch: str):
     # prompt and the tokens generated so far, at the same position
     seq = torch.tensor(np.concatenate([prompts, gen[:, :-1]], axis=1),
                        dtype=torch.int64, device="cuda")
-    full, _ = M.forward(srv.params, {"tokens": seq}, cfg)
-    rel = torch.stack([rel_l2(logits[t], full[:, SERVE_PROMPT - 1 + t])
+    with torch.no_grad():
+        full, _ = M.forward(srv.params, {
+            "tokens": seq, **frontend_batch(cfg, SERVE_BATCH, "cuda")}, cfg)
+    last = n_img + prompt - 1
+    rel = torch.stack([rel_l2(logits[t], full[:, last + t])
                        for t in range(SERVE_TOKENS)])
-    abs_err = max(max_abs(logits[t], full[:, SERVE_PROMPT - 1 + t].float())
+    abs_err = max(max_abs(logits[t], full[:, last + t].float())
                   for t in range(SERVE_TOKENS))
     agree = float(torch.stack([
-        (logits[t].argmax(-1) == full[:, SERVE_PROMPT - 1 + t].argmax(-1))
+        (logits[t].argmax(-1) == full[:, last + t].argmax(-1))
         .float().mean() for t in range(SERVE_TOKENS)]).mean())
-    scale = float(full[:, SERVE_PROMPT - 1:].float().abs().max())
+    scale = float(full[:, last:].float().abs().max())
     del full
+    torch.cuda.empty_cache()
     check(float(rel.max()) <= path["rel_l2_bf16"],
           f"decode vs forward (bf16): relative L2 {float(rel.max())} > "
           f"{path['rel_l2_bf16']}")
@@ -2120,13 +2369,14 @@ def serve_full(card: str, arch: str):
     decode_s = sum(step_s)
     rec = {"card": card, "arch": arch, "layers": L,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-           "batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+           "batch": SERVE_BATCH, "prompt": prompt, "image_slots": n_img,
            "tokens": SERVE_TOKENS, "init_s": t_init,
            "prefill_s": t_prefill,
            "decode_ms_per_step": 1e3 * decode_s / len(step_s),
            "decode_ms_per_step_min": 1e3 * min(step_s),
            "decode_tokens_per_s": SERVE_BATCH * len(step_s) / decode_s,
-           "prompt_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / t_prefill,
+           "prompt_tokens_per_s": SERVE_BATCH * (n_img + prompt)
+           / t_prefill,
            "end_to_end_tokens_per_s":
                SERVE_BATCH * SERVE_TOKENS / (t_prefill + decode_s),
            "peak_memory_bytes": peak, "launches": launches,
@@ -2143,6 +2393,14 @@ def serve_full(card: str, arch: str):
     return rec, srv, prompts
 
 
+def get_cfg(arch: str, **kw):
+    """The full-width config of ``arch``, with ``kw`` replaced."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(arch), **kw)
+
+
 def decode_vs_forward_f32(cfg, prompts) -> dict:
     """The served model's weights before their bf16 cast (the server's
     seed 0), in float32: prefill, SERVE_TOKENS - 1 decode steps on its own
@@ -2157,49 +2415,97 @@ def decode_vs_forward_f32(cfg, prompts) -> dict:
                          torch.Generator(device="cuda").manual_seed(0),
                          "cuda")
     B, S = prompts.shape
+    n_img = image_slots(cfg)
+    extra = frontend_batch(cfg, B, "cuda")
     toks = torch.tensor(prompts, dtype=torch.int64, device="cuda")
-    cache = M.init_cache(cfg, B, S + SERVE_TOKENS, f32, device="cuda")
-    last, cache = M.prefill_step(params, {"tokens": toks}, cfg, dtype=f32,
-                                 cache=cache)
-    steps = [last[:, -1]]
-    for t in range(SERVE_TOKENS - 1):
-        lg, cache = M.decode_step(params, cache, {
-            "tokens": steps[-1].argmax(-1)[:, None], "cache_len": S + t},
-            cfg, dtype=f32)
-        steps.append(lg[:, -1])
-    seq = torch.cat([toks, torch.stack([x.argmax(-1) for x in steps[:-1]],
-                                       dim=1)], dim=1)
-    del cache
-    full, _ = M.forward(params, {"tokens": seq}, cfg, dtype=f32)
-    rel = torch.stack([rel_l2(steps[t], full[:, S - 1 + t])
+    cache = M.init_cache(cfg, B, n_img + S + SERVE_TOKENS, f32,
+                         device="cuda")
+    with torch.no_grad():
+        last, cache = M.prefill_step(params, {"tokens": toks, **extra}, cfg,
+                                     dtype=f32, cache=cache)
+        steps = [last[:, -1]]
+        for t in range(SERVE_TOKENS - 1):
+            lg, cache = M.decode_step(params, cache, {
+                "tokens": steps[-1].argmax(-1)[:, None],
+                "cache_len": n_img + S + t}, cfg, dtype=f32)
+            steps.append(lg[:, -1])
+        seq = torch.cat([toks, torch.stack([x.argmax(-1)
+                                            for x in steps[:-1]], dim=1)],
+                        dim=1)
+        del cache
+        full, _ = M.forward(params, {"tokens": seq, **extra}, cfg, dtype=f32)
+    rel = torch.stack([rel_l2(steps[t], full[:, n_img + S - 1 + t])
                        for t in range(SERVE_TOKENS)])
+    del full, params
+    torch.cuda.empty_cache()
     return {"max_rel_l2": float(rel.max()), "mean_rel_l2": float(rel.mean()),
             "rel_l2_per_step": [float(r) for r in rel.max(dim=-1).values],
             "tolerance_rel_l2": SERVE_REL_L2_TOL_F32}
 
 
+def attn_layer(cfg) -> int:
+    """The layer whose attention the model-shape timings take: layer 0,
+    or for a sliding-window arch its first windowed layer."""
+    from repro_torch.models import registry
+    glob = set(registry.global_layer_indices(cfg))
+    return min(i for i in range(cfg.n_layers) if i not in glob) \
+        if cfg.sliding_window else 0
+
+
+def layer_attention_inputs(srv, prompts, layer: int):
+    """q, k, v and the attention mask (``flash_attention``'s keywords)
+    one layer of the full model computes over the prompt (for paligemma
+    behind its zero patches, for hubert over frames)."""
+    import torch
+    from repro_torch.models import blocks, registry
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.model import _layers, embed_inputs
+    cfg = srv.cfg
+    p = _layers(srv.params["layers"], cfg.n_layers)[layer]
+    p = p["mix"]["attn"] if cfg.family == "hybrid" else p["attn"]
+    B = prompts.shape[0]
+    batch = {"tokens": torch.tensor(prompts, dtype=torch.int64,
+                                    device="cuda"),
+             **frontend_batch(cfg, B, "cuda",
+                              None if cfg.frontend != "audio" else
+                              torch.Generator(device="cuda").manual_seed(0))}
+    with torch.no_grad():
+        x, prefix = embed_inputs(srv.params, batch, cfg)
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        q, k, v = blocks._qkv(p, h, cfg,
+                              torch.arange(x.shape[1], device="cuda"))
+    window = None
+    warr = registry.window_array(cfg, x.shape[1])
+    if warr is not None and int(warr[layer]) < x.shape[1]:
+        window = int(warr[layer])
+    return p, q, k, v, dict(causal=not cfg.encoder_only, window=window,
+                            prefix_len=prefix)
+
+
 def model_shape_kernels(srv, prompts) -> dict:
-    """B3 and B4 on the inputs one layer of the full model gives them:
-    layer 0's q, k, v over the prompt, and its cache after the run."""
+    """B3 and B4 on the inputs one layer of the full model gives them
+    (``attn_layer``): its q, k, v over the prompt with its mask, and its
+    cache after the run with its window."""
     import torch
     from repro_torch.models import blocks
     from repro_torch.models.common import rms_norm
-    from repro_torch.models.model import _layers
     cfg = srv.cfg
-    p0 = _layers(srv.params["layers"], cfg.n_layers)[0]["attn"]
-    toks = torch.tensor(prompts, dtype=torch.int64, device="cuda")
-    h = rms_norm(srv.params["embed"][toks], p0["ln"], cfg.norm_eps)
-    q, k, v = blocks._qkv(p0, h, cfg,
-                          torch.arange(prompts.shape[1], device="cuda"))
-    b3 = time_b3(q, k, v)
-    del q, k, v, h
+    layer = attn_layer(cfg)
+    p, q, k, v, mask = layer_attention_inputs(srv, prompts, layer)
+    b3 = time_b3(q, k, v, **mask)
+    b3["layer"] = layer
+    del q, k, v
     clen = srv.cache_len - 1  # the last step's new token
     last = torch.tensor(prompts[:, :1], dtype=torch.int64, device="cuda")
-    hq = rms_norm(srv.params["embed"][last], p0["ln"], cfg.norm_eps)
-    qd, _, _ = blocks._qkv(p0, hq, cfg,
+    hq = rms_norm(srv.params["embed"][last], p["ln"], cfg.norm_eps)
+    qd, _, _ = blocks._qkv(p, hq, cfg,
                            torch.full((1,), clen, device="cuda"))
-    kc, vc = (c[0] for c in srv.cache["layers"])
-    b4 = time_b4(qd, kc, vc, clen)
+    kv = srv.cache["layers"]
+    if cfg.family == "hybrid":
+        kv = kv[0]
+    kc, vc = (c[layer] for c in kv)
+    b4 = time_b4(qd, kc, vc, clen, window=mask["window"])
+    b4["layer"] = layer
     return {"flash_attention": b3, "decode_attention": b4}
 
 
@@ -2231,44 +2537,49 @@ def profile_serve(srv, prompts, hand: tuple[str, ...]) -> dict:
 
 
 def serve_parity(arch: str) -> dict:
-    """``arch`` at full width cut to 2 layers, float32, the same weights
-    and tokens on the card (the hand kernels) and on the CPU (their plain
-    forms): prefill of a ragged 200-token prompt and 4 decode steps,
-    teacher-forced with the CPU's tokens. For mamba2 the CPU runs the
-    prompt as one chunk of 200 (the JAX package's rule) and B5 as chunks
-    of 64 with a ragged last one: the check also shows that the result
-    does not depend on the chunk."""
-    import dataclasses
-
+    """``arch`` at full width cut to ``SERVE_PATHS``' parity layers (2;
+    hymba 5), float32, the same weights and tokens on the card (the hand
+    kernels) and on the CPU (their plain forms): prefill of a ragged
+    prompt (200 tokens; hymba 2 112, past its window; paligemma behind 256
+    seeded patch embeddings) and 4 decode steps, teacher-forced with the
+    CPU's tokens. For mamba2 the CPU runs the prompt as one chunk of 200
+    (the JAX package's rule) and B5 as chunks of 64 with a ragged last
+    one: the check also shows that the result does not depend on the
+    chunk. The encoder (hubert) has no decode: its forward over 1 500
+    seeded frames is compared instead (``encode_parity``)."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.models import model as M
     from repro_torch.models import registry
     from repro_torch.models.param import init_params, tree_map
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
     path = SERVE_PATHS[arch]
-    cfg = dataclasses.replace(get_arch(arch), n_layers=2)
+    cfg = get_cfg(arch, n_layers=path["parity_layers"])
     params = init_params(registry.param_specs(cfg),
                          torch.Generator(device="cuda").manual_seed(1),
                          "cuda")
     on = {"cuda": params, "cpu": tree_map(lambda t: t.cpu(), params)}
-    B, S0, n = 2, 200, 4
+    B, S0, n = 2, path["parity_prompt"], 4
+    n_img = image_slots(cfg)
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S0))
+    extra = frontend_batch(cfg, B, "cuda",
+                           torch.Generator(device="cuda").manual_seed(2))
     prefill = make_prefill_step(cfg, dtype=torch.float32)
     decode = make_serve_step(cfg, dtype=torch.float32)
 
     def run(device, feed):
-        cache = M.init_cache(cfg, B, S0 + n + 1, torch.float32,
+        cache = M.init_cache(cfg, B, n_img + S0 + n + 1, torch.float32,
                              device=device)
-        logits, cache = prefill(on[device], {"tokens": torch.tensor(
-            prompts, device=device)}, cache=cache)
+        logits, cache = prefill(on[device], {
+            "tokens": torch.tensor(prompts, device=device),
+            **{k: t.to(device) for k, t in extra.items()}}, cache=cache)
         out = [logits[:, -1].float().cpu()]
         for t in range(n):
             tok = feed[t] if feed is not None else out[-1].argmax(-1)
             logits, cache = decode(on[device], cache, {
-                "tokens": tok[:, None].to(device), "cache_len": S0 + t})
+                "tokens": tok[:, None].to(device),
+                "cache_len": n_img + S0 + t})
             out.append(logits[:, -1].float().cpu())
         return out
 
@@ -2284,24 +2595,146 @@ def serve_parity(arch: str) -> dict:
         want_launches[path["step"]] = cfg.n_layers * n
     check(launches == want_launches,
           f"serve_parity launches {launches}, want {want_launches}")
+    return {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, "dtype": "float32", "batch": B,
+            "prompt": S0, "image_slots": n_img, "decode_steps": n,
+            "launches": launches, **parity_verdict(got, want, "serve_parity"),
+            "wall_s_cpu": t_cpu}
+
+
+def parity_verdict(got, want, what: str) -> dict:
+    """Card vs CPU logits (lists of tensors, last axis the vocab): the
+    largest difference, held to ``PARITY_ATOL``, and every token whose
+    CPU top-2 margin exceeds twice that equal."""
     err = max(max_abs(g, w) for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want)
     rel = max(float(rel_l2(g, w).max()) for g, w in zip(got, want))
     clear = same = 0
     for g, w in zip(got, want):
         top2 = w.topk(2, dim=-1).values
-        ok = (top2[:, 0] - top2[:, 1]) > 2 * PARITY_ATOL
+        ok = (top2[..., 0] - top2[..., 1]) > 2 * PARITY_ATOL
         clear += int(ok.sum())
         same += int((g.argmax(-1) == w.argmax(-1))[ok].sum())
-    check(err <= PARITY_ATOL, f"serve_parity: card vs CPU logits differ by "
+    check(err <= PARITY_ATOL, f"{what}: card vs CPU logits differ by "
                               f"{err} > {PARITY_ATOL}")
-    check(same == clear, f"serve_parity: {clear - same} clear tokens differ")
-    return {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
-            "vocab": cfg.vocab_size, "dtype": "float32", "batch": B,
-            "prompt": S0, "decode_steps": n, "launches": launches,
-            "max_abs_err": err, "max_rel_l2": rel, "max_abs_logit": scale,
+    check(same == clear, f"{what}: {clear - same} clear tokens differ")
+    return {"max_abs_err": err, "max_rel_l2": rel, "max_abs_logit": scale,
             "tolerance_abs": PARITY_ATOL, "tokens_clear": clear,
-            "tokens_equal": same, "wall_s_cpu": t_cpu}
+            "tokens_equal": same}
+
+
+def audio_encoder(layers=None, dtype=None):
+    """hubert-xlarge at full width (``layers`` to cut its depth), random
+    weights from seed 0 on the card (bf16 unless ``dtype``), and its
+    batch: ``SERVE_BATCH`` x ``AUDIO_FRAMES`` frame embeddings seeded
+    on the card. Returns (cfg, params, batch)."""
+    import torch
+    from repro_torch.models import registry
+    from repro_torch.models.param import cast_tree, init_params
+    cfg = get_cfg(AUDIO_ARCH) if layers is None \
+        else get_cfg(AUDIO_ARCH, n_layers=layers)
+    params = init_params(registry.param_specs(cfg),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    if dtype is not None:
+        params = cast_tree(params, dtype)
+    batch = frontend_batch(cfg, SERVE_BATCH, "cuda",
+                           torch.Generator(device="cuda").manual_seed(0))
+    return cfg, params, batch
+
+
+def encode_audio_full(card: str) -> tuple[dict, object, object]:
+    """The encoder's path at full width: ``models.model.forward(...,
+    prefill=False)`` under ``torch.no_grad()`` for hubert-xlarge, 48
+    layers, batch 4 x 1 500 frames (30 s of audio at 50 frames a second),
+    bf16: exactly one B3 launch a layer, bidirectional at head dim 80.
+    Wall seconds a forward (the first, then the best of two more), peak
+    memory, finite logits of the right shape. Returns (the record, a
+    stand-in server for ``model_shape_kernels``' B3 half)."""
+    import types
+
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    cfg, params, batch = audio_encoder(dtype=torch.bfloat16)
+    check((cfg.n_layers, cfg.d_model, cfg.vocab_size)
+          == SERVE_PATHS[AUDIO_ARCH]["widths"],
+          f"not the full-width config: {cfg}")
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        if i == 0:
+            reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = M.forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            launches = read_launches()
+    want = expected_launches("flash_attention", cfg.n_layers)
+    check(launches == want, f"encode_audio_full launched {launches}, want "
+                            f"{want}")
+    check(tuple(logits.shape) == (SERVE_BATCH, AUDIO_FRAMES,
+                                  cfg.vocab_padded)
+          and bool(torch.isfinite(logits).all()),
+          f"encoder logits {tuple(logits.shape)} or not finite")
+    rec = {"card": card, "arch": AUDIO_ARCH, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "batch": SERVE_BATCH, "frames": AUDIO_FRAMES,
+           "forward_s_first": walls[0], "forward_s": min(walls[1:]),
+           "frames_per_s": SERVE_BATCH * AUDIO_FRAMES / min(walls[1:]),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches,
+           "logits_abs_max": float(logits.float().abs().max())}
+    srv = types.SimpleNamespace(cfg=cfg, params=params)
+    return rec, srv, np.zeros((SERVE_BATCH, AUDIO_FRAMES), np.int64)
+
+
+def encode_once(enc) -> float:
+    """Wall seconds of one bf16 forward of ``enc`` (``encode_audio_full``'s
+    stand-in server) over its seeded frames."""
+    import torch
+    from repro_torch.models import model as M
+    batch = frontend_batch(enc.cfg, SERVE_BATCH, "cuda",
+                           torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        M.forward(enc.params, batch, enc.cfg)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def encode_parity() -> dict:
+    """hubert-xlarge at full width cut to 2 layers, float32, the same
+    weights and frames on the card and on the CPU: one forward, the
+    logits of every frame compared (``parity_verdict``)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.param import tree_map
+    cfg, params, batch = audio_encoder(layers=2)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want, _ = M.forward(tree_map(lambda t: t.cpu(), params),
+                            {k: t.cpu() for k, t in batch.items()}, cfg,
+                            dtype=torch.float32)
+    t_cpu = time.perf_counter() - t0
+    reset_launches()
+    with torch.no_grad():
+        got, _ = M.forward(params, batch, cfg, dtype=torch.float32)
+    launches = read_launches()
+    want_launches = expected_launches("flash_attention", cfg.n_layers)
+    check(launches == want_launches,
+          f"encode_parity launches {launches}, want {want_launches}")
+    return {"arch": AUDIO_ARCH, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+            "dtype": "float32", "batch": SERVE_BATCH, "frames": AUDIO_FRAMES,
+            "launches": launches,
+            **parity_verdict([got.float().cpu()], [want.float()],
+                             "encode_parity"),
+            "wall_s_cpu": t_cpu}
 
 
 # ---- training: kernel B9 and qwen2.5-3b ------------------------------------
@@ -2893,8 +3326,10 @@ def main() -> int:
     ssd = check_ssd_kernel(dev)
     b2 = check_gated_matmul_kernel(dev)
     b9 = check_attention_bwd_kernel(dev)
+    masks = check_attention_masks(dev)
+    torch.cuda.empty_cache()
     emit("kernels", card=card, k1_cases=k1_cases, k2_cases=k2_cases,
-         b3_b4=attn, b5=ssd, b2=b2, b9=b9,
+         b3_b4=attn, b3_b4_masks=masks, b5=ssd, b2=b2, b9=b9,
          k1={"shape": k1_shape, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
              "bound_ms": k1_bound, "max_abs_err": k1_err,
              "device_us": k1_device_us,
@@ -3037,6 +3472,47 @@ def main() -> int:
     emit("train_full", **tr)
     emit("profile_train", arch=TRAIN_ARCH, **profile_train(
         (*B3_KERNELS.values(), *B9_KERNELS["bfloat16"])))
+    torch.cuda.empty_cache()
+
+    # ---- 9c. the hybrid, vision and audio families at full width (after
+    # every profiled phase above; their own timings profile kernels alone)
+    a7a, a7a_shapes = {}, {}
+    for arch, phase in ((HYBRID_ARCH, "serve_hybrid"), (VLM_ARCH,
+                                                        "serve_vlm")):
+        rec, srv, prompts = serve_full(card, arch)
+        emit(f"{phase}_full", **rec)
+        a7a[arch] = rec
+        a7a_shapes[arch] = model_shape_kernels(srv, prompts)
+        hand = (*B3_KERNELS.values(), *B4_KERNELS)
+        if arch == HYBRID_ARCH:
+            a7a_shapes[arch]["ssd_scan"] = ssd_model_shapes(srv, prompts)
+            hand += B5_KERNELS["bfloat16"]
+        emit("kernels_model_shapes", card=card, arch=arch,
+             **a7a_shapes[arch])
+        emit("profile_serve", **profile_serve(srv, prompts, hand))
+        del srv
+        torch.cuda.empty_cache()
+        emit(f"{phase}_parity", **serve_parity(arch))
+        torch.cuda.empty_cache()
+    rec, enc, frames = encode_audio_full(card)
+    emit("encode_audio_full", **rec)
+    a7a[AUDIO_ARCH] = rec
+    _, q, k, v, mask = layer_attention_inputs(enc, frames, 0)
+    # the encoder's scores (random weights, no rope) are nearly flat over
+    # 1 500 keys, so p rounded to 3 bits averages out (3.9e-3 on an H100,
+    # below the limit): the control there is 1 bit
+    a7a_shapes[AUDIO_ARCH] = {"flash_attention": time_b3(
+        q, k, v, **mask, control_bits=AUDIO_CONTROL_BITS)}
+    emit("kernels_model_shapes", card=card, arch=AUDIO_ARCH,
+         **a7a_shapes[AUDIO_ARCH])
+    del q, k, v
+    emit("profile_encode", arch=AUDIO_ARCH,
+         **profile_run(lambda: encode_once(enc), tuple(B3_KERNELS.values()),
+                       top=10))
+    del enc
+    torch.cuda.empty_cache()
+    emit("encode_audio_parity", **encode_parity())
+    torch.cuda.empty_cache()
 
     # ---- 10. the fleet, chaos and guard planes: K1 and K2, 97 calls a day
     # (after every profiled phase above, so that their threads and their
@@ -3106,6 +3582,20 @@ def main() -> int:
             "library_ms": t["library_ms"], "device_us": t["device_us"],
             "shape": t["shape"],
             "max_abs_err_float32": attn["max_abs_err"][key]["float32"],
+            "max_abs_err_masks": max(r["max_abs_err"]
+                                     for r in masks[key].values()),
+            "launches_by_path": {
+                "serve_full": serve_rec["launches"][name],
+                "train_full": tr["launches"][name],
+                **{a: a7a[a]["launches"][name] for a in a7a}},
+            "model_shapes": {a: {k: a7a_shapes[a][name][k] for k in (
+                "shape", "ms", "device_us", "plain_ms", "library_ms",
+                "library_device_us", "bound_ms", "bound_by", "max_abs_err")
+                if k in a7a_shapes[a][name]} | (
+                {"library_kernels": a7a_shapes[a][name]["library_kernels"],
+                 "live_pairs": a7a_shapes[a][name]["live_pairs"]}
+                if name == "flash_attention" else {})
+                for a in a7a_shapes if name in a7a_shapes[a]},
             "tolerance": "allclose with the plain version on the card: "
                          "atol = rtol = 2e-2 (bf16), 2e-5 (float32)"
                          + ("; bit-identical on a second call"
@@ -3145,6 +3635,14 @@ def main() -> int:
         "shape": b5["shape"], "scaled_err_cases": ssd["scaled_err"],
         "rel_l2": b5["rel_l2"], "control_rel_l2": b5["control_rel_l2"],
         "occupancy": b5["occupancy"],
+        "launches_by_path": {
+            "serve_ssm_full": ssm_rec["launches"]["ssd_scan"],
+            HYBRID_ARCH: a7a[HYBRID_ARCH]["launches"]["ssd_scan"]},
+        "model_shapes": {HYBRID_ARCH: {
+            k: a7a_shapes[HYBRID_ARCH]["ssd_scan"][k] for k in (
+                "shape", "ms", "device_us", "plain_ms", "bound_ms",
+                "bound_by", "max_abs_err", "rel_l2", "occupancy")
+            if k in a7a_shapes[HYBRID_ARCH]["ssd_scan"]}},
         "tolerance": "max |kernel - plain| / max |plain| <= 2e-3 (bf16 "
                      "inputs), 1e-4 (float32), y and state each; the "
                      "strong-decay cases against ref_ssd; bf16 at the "
@@ -3186,7 +3684,8 @@ def main() -> int:
                                       "real_events", "stream_events")},
         "ns_per_step": ppf["ns_per_step"],
         "tolerance": ppf["tolerance"]})
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels,
+                      "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -142,11 +142,17 @@ class ArchConfig:
         return self.n_kv_heads * self.head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count (exact for the port's models); raises
-        ``NotImplementedError`` for a family the port does not hold."""
+        """Analytic parameter count (exact for the port's models)."""
         from repro_torch.models.registry import count_params
 
         return count_params(self)
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through (MoE: top_k and shared
+        experts only)."""
+        from repro_torch.models.registry import count_params
+
+        return count_params(self, active_only=True)
 
     def supported_shapes(self) -> dict[str, str]:
         """shape name -> "ok" or "SKIP(<reason>)" for the 4-cell row."""

@@ -570,8 +570,7 @@ def arch_workload(cfg: ArchConfig, shape: ShapeConfig, *, n_chips: int = 256,
 
     A training shape closes with the gradient all-reduce and the
     optimizer update, both sized by the model's parameter count from
-    ``models.registry.count_params`` (which raises
-    ``NotImplementedError`` for a family the port does not hold yet).
+    ``models.registry.count_params`` (every arch's spec tree).
     """
     ops: list[Op] = []
     decode = shape.kind == "decode"

@@ -33,6 +33,40 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
     return __float2bfloat16(x);
 }
 
+// B3's mask: key kpos is live for query qpos (see the B3 note below)
+__device__ __forceinline__ bool key_live(int qpos, int kpos, int Sk, int causal,
+                                         int window, int prefix)
+{
+    if (kpos >= Sk) return false;
+    const bool band = (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
+    return band || kpos < prefix;
+}
+
+// The key tiles of width bk that hold a live pair for some row of the query
+// rows [q0, q_last]: the prefix's tiles [0, n_pre), then [lo, lo + n -
+// n_pre). Iteration it of a block's key loop takes tile
+// it < n_pre ? it : lo + it - n_pre. The band's keys [max(0, q0 - window
+// + 1), causal ? q_last + 1 : Sk) are contiguous, as consecutive rows'
+// ranges overlap; with no window or prefix this is tiles [0, ceil(band /
+// bk)), the causal loop bound.
+struct KeyTiles { int n_pre, lo, n; };
+__device__ __forceinline__ KeyTiles key_tiles(int q0, int q_last, int Sk, int causal,
+                                              int window, int prefix, int bk)
+{
+    const int hi = causal ? min(q_last + 1, Sk) : Sk;
+    const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
+    const int pt = (min(max(prefix, 0), Sk) + bk - 1) / bk;
+    const int end = max((hi + bk - 1) / bk, pt);
+    const int lo_t = min(lo / bk, end);
+    const int n_pre = min(pt, lo_t);
+    return {n_pre, lo_t, n_pre + end - lo_t};
+}
+
+__device__ __forceinline__ int key_tile(const KeyTiles& kt, int it)
+{
+    return it < kt.n_pre ? it : kt.lo + it - kt.n_pre;
+}
+
 // ---------------------------------------------------------------------------
 // B3  flash_attention  (prefill: causal self-attention over the prompt)
 //
@@ -60,11 +94,31 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // (models/common.py::flash_attention_jax) does not do. tiles_loaded
 // receives each block's count of key tiles.
 //
+// Masks beyond the Pallas kernel's, those of the JAX model path
+// (src/repro/models/common.py: _window_ok, plain_attention,
+// flash_attention_jax): a sliding window (key j live for query i only if
+// j > i - window; window <= 0 is none) on top of causal order, and a
+// prefix (keys j < prefix live for every query, OR-ed in after the window,
+// as the reference does). key_tiles() lists the key tiles that hold a live
+// pair for some row of a query tile -- the prefix's tiles, then the band
+// from the window's first key to the diagonal -- and the loop visits those
+// alone, so a windowed layer loads O(window) keys a row, not O(S). The
+// per-element rule is key_live(). A row can now meet a visited tile with no
+// live key of its own before its first live one (the top rows of a window's
+// first tile); its running max is still -1e30 there. The float32 route then
+// sums exp(0) = 1 per key, and the rescale exp(-1e30 - m) = 0 at its first
+// live key drops that exactly; the bf16 route takes p = 0 for such a row
+// (its exp2 of a fused multiply-add would be that of a rounding error of
+// 1e30 * log2(e), 0 or inf). Rows with a live key are untouched by either.
+//
 // bf16 (flash_attention_bf16_kernel): FlashAttention-2 on the tensor cores.
 // The q-tile is the grid's slowest axis, reversed, so the longest causal
 // rows start first and the short ones fill the tail. Four warps, each
 // owning 16 query rows; q's fragments are loaded once by ldmatrix and stay
-// in registers for the whole key loop. S = q k^T is mma.sync m16n8k16
+// in registers for the whole key loop up to D = 128 (at D = 256 they would
+// take 64 registers beside the output accumulator's 128, past the 255 a
+// thread may have, so there they are read again from the q tile, which
+// stays in shared memory, at every k16 step). S = q k^T is mma.sync m16n8k16
 // bf16 -> float32 with K fragments by ldmatrix (a K row is a column of
 // k^T). The scale multiplies the float32 scores (q is not rounded after
 // scaling); the mask is applied only in tiles that cross the diagonal or
@@ -112,16 +166,18 @@ template <int D> __device__ __forceinline__ int out_col(int tx, int j) {
 }
 }  // namespace fa
 
+// at D = 256 the block's shared memory (~150 KB) leaves room for one block
+// an SM, so the register cap is lifted to the hardware's with it
 template <typename T, int D>
-__global__ void __launch_bounds__(fa::THREADS, 2)
+__global__ void __launch_bounds__(fa::THREADS, D > 128 ? 1 : 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        int H, int Hkv, int Sq, int Sk,
                        int64_t qsb, int64_t qss, int64_t qsh,
                        int64_t ksb, int64_t kss, int64_t ksh,
                        int64_t vsb, int64_t vss, int64_t vsh,
-                       float scale, int causal, int* __restrict__ tiles_loaded,
-                       float* __restrict__ lse)
+                       float scale, int causal, int window, int prefix,
+                       int* __restrict__ tiles_loaded, float* __restrict__ lse)
 {
     using namespace fa;
     constexpr int LD = ld<D>();
@@ -159,16 +215,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
 
-    // keys [0, k_end) can be live for some row of this tile; later tiles
-    // are never loaded
-    const int q_last = min(q0 + BQ, Sq) - 1;
-    const int k_end = causal ? min(q_last + 1, Sk) : Sk;
-    const int n_tiles = (k_end + BK - 1) / BK;
+    // only the key tiles that hold a live pair for some row of this tile
+    // are loaded (key_tiles)
+    const KeyTiles kts = key_tiles(q0, min(q0 + BQ, Sq) - 1, Sk, causal, window,
+                                   prefix, BK);
+    const int n_tiles = kts.n;
     if (tiles_loaded != nullptr && tid == 0)
         tiles_loaded[((int64_t)b * H + h) * gridDim.x + qt] = n_tiles;
 
-    for (int kt = 0; kt < n_tiles; ++kt) {
-        const int k0 = kt * BK;
+    for (int it = 0; it < n_tiles; ++it) {
+        const int k0 = key_tile(kts, it) * BK;
         __syncthreads();  // the previous tile is done with KVs and Ss
         for (int i = tid; i < BK * D; i += THREADS) {
             const int r = i / D, c = i % D, s = k0 + r;
@@ -208,8 +264,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
                 const int r = ty + 16 * i, c = tx + 16 * j;
-                const int qpos = q0 + r, kpos = k0 + c;
-                const bool ok = kpos < Sk && (!causal || kpos <= qpos);
+                const bool ok = key_live(q0 + r, k0 + c, Sk, causal, window, prefix);
                 Ss[r * SLD + c] = ok ? sacc[i][j] : ATTN_NEG_INF;
             }
         __syncthreads();  // K tile consumed, scores written
@@ -312,14 +367,15 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tv,
                             __nv_bfloat16* __restrict__ o,
                             int H, int Hkv, int Sq, int Sk,
-                            float scale, int causal, int* __restrict__ tiles_loaded,
-                            float* __restrict__ lse)
+                            float scale, int causal, int window, int prefix,
+                            int* __restrict__ tiles_loaded, float* __restrict__ lse)
 {
     using namespace fa2;
     constexpr int TB = tile_bytes<D>();
     constexpr int KD = D / 16;   // k16 steps of q k^T
     constexpr int NO = D / 8;    // n8 tiles of the output
     constexpr int NS = BK / 8;   // n8 tiles of the scores
+    constexpr bool Q_IN_REGS = D <= 128;
     extern __shared__ __align__(16) unsigned char fa2_smem[];
     unsigned char* Qs = reinterpret_cast<unsigned char*>(
         (reinterpret_cast<uintptr_t>(fa2_smem) + 1023) & ~(uintptr_t)1023);
@@ -333,11 +389,11 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const int hk = h / (H / Hkv);
     const int q0 = qt * BQ;
 
-    // keys [0, k_end) can be live for some row of this tile; later tiles
-    // are never loaded
-    const int q_last = min(q0 + BQ, Sq) - 1;
-    const int k_end = causal ? min(q_last + 1, Sk) : Sk;
-    const int n_tiles = (k_end + BK - 1) / BK;
+    // only the key tiles that hold a live pair for some row of this tile
+    // are loaded (key_tiles)
+    const KeyTiles kts = key_tiles(q0, min(q0 + BQ, Sq) - 1, Sk, causal, window,
+                                   prefix, BK);
+    const int n_tiles = kts.n;
     if (threadIdx.x == 0) {
         if (tiles_loaded != nullptr)
             tiles_loaded[((int64_t)b * H + h) * n_qt + qt] = n_tiles;
@@ -345,15 +401,16 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_init(&full[1], 1);
         mbar_fence_init();
         mbar_expect_tx(&full[0], 3 * TB);
+        const int k_first = key_tile(kts, 0) * BK;
         load_tile<D>(Qs, &tq, h, q0, b, &full[0]);
-        load_tile<D>(KV, &tk, hk, 0, b, &full[0]);
-        load_tile<D>(KV + TB, &tv, hk, 0, b, &full[0]);
+        load_tile<D>(KV, &tk, hk, k_first, b, &full[0]);
+        load_tile<D>(KV + TB, &tv, hk, k_first, b, &full[0]);
     }
     __syncthreads();  // the barriers are initialised before anyone waits
 
     // this thread's rows of the warp's 16: g and g + 8
     const int row0 = q0 + warp * 16 + g;
-    uint32_t qf[KD][4];
+    uint32_t qf[Q_IN_REGS ? KD : 1][4];
     float oacc[NO][4];
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -363,23 +420,26 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     float l[2] = {0.f, 0.f};  // this thread's part of the running row sum
 
     for (int kt = 0; kt < n_tiles; ++kt) {
-        const int k0 = kt * BK;
+        const int k0 = key_tile(kts, kt) * BK;
         mbar_wait(&full[kt % 2], (kt / 2) & 1);
         // tile kt has landed, and every warp is done with tile kt - 1,
         // whose stage the next load overwrites
         __syncthreads();
-        if (kt == 0) {
+        if constexpr (Q_IN_REGS) {
+            if (kt == 0) {
 #pragma unroll
-            for (int kd = 0; kd < KD; ++kd)
-                ldmatrix_x4(qf[kd], at(Qs, warp * 16 + lane % 16,
-                                       kd * 16 + (lane / 16) * 8));
+                for (int kd = 0; kd < KD; ++kd)
+                    ldmatrix_x4(qf[kd], at(Qs, warp * 16 + lane % 16,
+                                           kd * 16 + (lane / 16) * 8));
+            }
         }
         if (threadIdx.x == 0 && kt + 1 < n_tiles) {
             unsigned char* st = KV + ((kt + 1) % 2) * 2 * TB;
             uint64_t* bar = &full[(kt + 1) % 2];
+            const int k_next = key_tile(kts, kt + 1) * BK;
             mbar_expect_tx(bar, 2 * TB);
-            load_tile<D>(st, &tk, hk, k0 + BK, b, bar);
-            load_tile<D>(st + TB, &tv, hk, k0 + BK, b, bar);
+            load_tile<D>(st, &tk, hk, k_next, b, bar);
+            load_tile<D>(st + TB, &tv, hk, k_next, b, bar);
         }
         const unsigned char* Kt = KV + (kt % 2) * 2 * TB;
         const unsigned char* Vt = Kt + TB;
@@ -391,19 +451,29 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
             for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-        for (int kd = 0; kd < KD; ++kd)
+        for (int kd = 0; kd < KD; ++kd) {
+            uint32_t qr[4];
+            const uint32_t* qa = qr;
+            if constexpr (Q_IN_REGS)
+                qa = qf[kd];
+            else
+                ldmatrix_x4(qr, at(Qs, warp * 16 + lane % 16,
+                                   kd * 16 + (lane / 16) * 8));
 #pragma unroll
             for (int j = 0; j < NS; j += 2) {
                 // matrices: keys 8j.. x d (lo, hi 8), keys 8j+8.. x d (lo, hi)
                 uint32_t r[4];
                 ldmatrix_x4(r, at(Kt, j * 8 + (lane / 16) * 8 + lane % 8,
                                   kd * 16 + ((lane / 8) % 2) * 8));
-                mma_bf16(s[j], qf[kd], r);
-                mma_bf16(s[j + 1], qf[kd], r + 2);
+                mma_bf16(s[j], qa, r);
+                mma_bf16(s[j + 1], qa, r + 2);
             }
+        }
 
-        // scale in float32; mask only where a tile crosses the diagonal or Sk
-        const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0);
+        // scale in float32; mask only where a tile crosses the diagonal,
+        // the window's lower edge or Sk
+        const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0)
+                            || (window > 0 && k0 <= q0 + BQ - 1 - window);
 #pragma unroll
         for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -412,7 +482,8 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                 if (masked) {
                     const int kpos = k0 + j * 8 + 2 * t + (e % 2);
                     const int qpos = row0 + (e / 2) * 8;
-                    if (kpos >= Sk || (causal && kpos > qpos)) x = ATTN_NEG_INF;
+                    if (!key_live(qpos, kpos, Sk, causal, window, prefix))
+                        x = ATTN_NEG_INF;
                 }
                 s[j][e] = x;
             }
@@ -429,7 +500,8 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
             alpha[r] = exp2f((m[r] - mx) * LOG2E);
             m[r] = mx;
-            mb[r] = mx * LOG2E;
+            // no live key of this row yet: p = exp2(-1e30 log2(e)) = 0
+            mb[r] = mx == ATTN_NEG_INF ? 0.f : mx * LOG2E;
         }
         uint32_t pf[BK / 16][4];  // P as the A fragments of the k16 steps
         float rs[2] = {0.f, 0.f};
@@ -514,7 +586,8 @@ static int flash_attention_bf16_run(const void* q, const void* k, const void* v,
                                     void* o, int B, int H, int Hkv, int Sq, int Sk,
                                     const int64_t* qst, const int64_t* kst,
                                     const int64_t* vst, float scale, int causal,
-                                    int* tiles_loaded, float* lse, cudaStream_t stream)
+                                    int window, int prefix, int* tiles_loaded,
+                                    float* lse, cudaStream_t stream)
 {
     CUtensorMap tq, tk, tv;
     if (!attention_map<D>(&tq, q, B, Sq, H, qst)
@@ -528,7 +601,8 @@ static int flash_attention_bf16_run(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return (int)err;
     dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + fa2::BQ - 1) / fa2::BQ));
     flash_attention_bf16_kernel<D><<<grid, fa2::THREADS, smem, stream>>>(
-        tq, tk, tv, (__nv_bfloat16*)o, H, Hkv, Sq, Sk, scale, causal, tiles_loaded, lse);
+        tq, tk, tv, (__nv_bfloat16*)o, H, Hkv, Sq, Sk, scale, causal, window, prefix,
+        tiles_loaded, lse);
     return (int)cudaGetLastError();
 }
 
@@ -537,11 +611,13 @@ static int flash_attention_run(const void* q, const void* k, const void* v, void
                                int B, int H, int Hkv, int Sq, int Sk,
                                const int64_t* qst, const int64_t* kst,
                                const int64_t* vst, float scale, int causal,
-                               int* tiles_loaded, float* lse, cudaStream_t stream)
+                               int window, int prefix, int* tiles_loaded, float* lse,
+                               cudaStream_t stream)
 {
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
         return flash_attention_bf16_run<D>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst,
-                                           vst, scale, causal, tiles_loaded, lse, stream);
+                                           vst, scale, causal, window, prefix,
+                                           tiles_loaded, lse, stream);
     } else {
         const size_t smem = fa::smem_bytes<D>();
         cudaError_t err = cudaFuncSetAttribute(
@@ -552,7 +628,7 @@ static int flash_attention_run(const void* q, const void* k, const void* v, void
         flash_attention_kernel<T, D><<<grid, fa::THREADS, smem, stream>>>(
             (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq, Sk,
             qst[0], qst[1], qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
-            scale, causal, tiles_loaded, lse);
+            scale, causal, window, prefix, tiles_loaded, lse);
         return (int)cudaGetLastError();
     }
 }
@@ -562,14 +638,16 @@ static int flash_attention_dispatch(int D, const void* q, const void* k,
                                     const void* v, void* o, int B, int H,
                                     int Hkv, int Sq, int Sk, const int64_t* qst,
                                     const int64_t* kst, const int64_t* vst,
-                                    float scale, int causal, int* tiles,
-                                    float* lse, cudaStream_t s)
+                                    float scale, int causal, int w, int p,
+                                    int* tiles, float* lse, cudaStream_t s)
 {
     switch (D) {
-    case 16:  return flash_attention_run<T, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, lse, s);
-    case 32:  return flash_attention_run<T, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, lse, s);
-    case 64:  return flash_attention_run<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, lse, s);
-    case 128: return flash_attention_run<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, tiles, lse, s);
+    case 16:  return flash_attention_run<T, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    case 32:  return flash_attention_run<T, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    case 64:  return flash_attention_run<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    case 80:  return flash_attention_run<T, 80>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    case 128: return flash_attention_run<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    case 256: return flash_attention_run<T, 256>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
     default:  return (int)cudaErrorInvalidValue;
     }
 }
@@ -582,19 +660,23 @@ static int flash_attention_dispatch(int D, const void* q, const void* k,
 // key tiles each block loaded. lse: nullptr (serving), or B*H*Sq floats,
 // dense (B, H, Sq), that receive each query row's log-sum-exp of its scaled
 // live scores, m + log(l), for the backward kernel B9 (attention_bwd.cu).
+// window: the sliding window's width (key j live for query i only if j > i
+// - window), <= 0 for none; prefix: keys j < prefix live for every query
+// (prefix-LM), 0 for none (key_live).
 extern "C" int flash_attention_launch(
     int is_bf16, const void* q, const void* k, const void* v, void* o,
     int B, int H, int Hkv, int Sq, int Sk, int D,
     const int64_t* q_strides, const int64_t* k_strides, const int64_t* v_strides,
-    float scale, int causal, int* tiles_loaded, float* lse, void* stream)
+    float scale, int causal, int window, int prefix, int* tiles_loaded, float* lse,
+    void* stream)
 {
     if (is_bf16)
         return flash_attention_dispatch<__nv_bfloat16>(
             D, q, k, v, o, B, H, Hkv, Sq, Sk, q_strides, k_strides, v_strides,
-            scale, causal, tiles_loaded, lse, (cudaStream_t)stream);
+            scale, causal, window, prefix, tiles_loaded, lse, (cudaStream_t)stream);
     return flash_attention_dispatch<float>(
         D, q, k, v, o, B, H, Hkv, Sq, Sk, q_strides, k_strides, v_strides,
-        scale, causal, tiles_loaded, lse, (cudaStream_t)stream);
+        scale, causal, window, prefix, tiles_loaded, lse, (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -603,7 +685,13 @@ extern "C" int flash_attention_launch(
 // Replaces the Pallas TPU kernel src/repro/kernels/decode_attention.py::_kernel
 // (entry decode_attention_p): one query per head against the caches over
 // slots [0, cache_len] inclusive; slots past cache_len are never read;
-// cache_len is a launch argument.
+// cache_len is a launch argument. Beyond the Pallas kernel, the JAX model
+// path's sliding window and prefix (src/repro/models/common.py::
+// decode_attention): the live slots are then [0, n_pre) and [first,
+// cache_len], first = cache_len - window + 1, n_pre = min(prefix, first);
+// the kernel walks n_live logical slots, logical u at slot u < n_pre ? u :
+// first + u - n_pre, so the splits cover the live slots alone and a slot
+// outside them is never read. With no window it is the identity map.
 //
 // Bound: bytes. Each step reads the live part of the K and V caches once,
 // 2 * B * (cache_len+1) * Hkv * D elements, against 4 * B * H *
@@ -616,8 +704,9 @@ extern "C" int flash_attention_launch(
 // Design (flash-decoding, two kernels):
 // decode_attention_kernel: the grid is (split, KV head, batch). A split is
 // a run of split_len <= 64 live slots (the wrapper's decode_splits: it
-// depends on cache_len alone, never on the card, so the bits are the same
-// run to run and card to card; no split lies wholly past cache_len). At
+// depends on the live slots alone -- their count and the window's first
+// slot --, never on the card, so the bits are the same run to run and
+// card to card; no split lies wholly past cache_len). At
 // the serving shape (B 4, Hkv 2, ~2 080 live slots, split_len 64) that is
 // 264 blocks, two an SM, where one block per (KV head, batch) gave 8. A
 // block serves all H/Hkv query heads of its KV head, so each cache row is
@@ -625,7 +714,12 @@ extern "C" int flash_attention_launch(
 // a cache row is D/EPV lanes of one 16-byte load each, so a warp's loads
 // cover whole rows. Every load of the block -- its K and V rows and q --
 // is issued before the first use and held raw in registers, so a split
-// costs one trip to memory (V does not wait for the softmax). q.k is
+// costs one trip to memory (V does not wait for the softmax). A lane holds
+// E = max(16 bytes, D / 32) elements of a row, so a row never spans more
+// than a warp: at D = 256 in float32 that is two 16-byte loads a lane, and
+// there V's loads wait for the softmax, which keeps the raw rows to 64
+// registers. The per-warp p.v partials live in dynamic shared memory
+// (NW * 8 * D floats: 64 KB at D = 256, past the 48 KB of static). q.k is
 // summed over the row's lanes by a fixed reduce-scatter of the heads'
 // sums (8 shuffles a row for 8 heads where a butterfly per head takes 32);
 // the split's scores stay in shared memory, so its max and sum are exact
@@ -644,6 +738,14 @@ namespace da {
 constexpr int THREADS = 256, NW = THREADS / 32, MAXG = 8;
 constexpr int SPLIT_MAX = 64;   // slots of one split, all in registers
 constexpr unsigned FULL = 0xffffffffu;
+// the per-warp p.v partials' shared memory
+template <int D> constexpr size_t smem_bytes() { return sizeof(float) * NW * MAXG * D; }
+}
+
+// logical live slot u of a decode step -> its cache slot
+__device__ __forceinline__ int64_t live_slot(int u, int n_pre, int first)
+{
+    return u < n_pre ? u : (int64_t)first + u - n_pre;
 }
 
 // 16 raw bytes of cache row and their widening to float
@@ -705,25 +807,28 @@ __global__ void __launch_bounds__(da::THREADS)
 decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, float* __restrict__ ws_o,
                         float* __restrict__ ws_ml, int H, int Hkv,
-                        int n_live, int split_len,
+                        int n_live, int n_pre, int first, int split_len,
                         int64_t qsb, int64_t qsh,
                         int64_t ksb, int64_t kss, int64_t ksh,
                         int64_t vsb, int64_t vss, int64_t vsh, float scale)
 {
     using namespace da;
     constexpr int EPV = 16 / sizeof(T);   // elements per 16-byte load
-    constexpr int LPR = D / EPV;          // lanes per cache row
+    constexpr int E = EPV > D / 32 ? EPV : D / 32;  // elements a lane holds
+    constexpr int LPL = E / EPV;          // 16-byte loads a lane, a row
+    constexpr int LPR = D / E;            // lanes per cache row
     constexpr int RPW = 32 / LPR;         // rows a warp covers per load
     constexpr int RB = NW * RPW;          // rows the block covers per load
     constexpr int ROWS = (SPLIT_MAX + RB - 1) / RB;  // rows a lane holds
-    constexpr int NV = MAXG * EPV;        // a lane's p.v sums, (g, e)
+    constexpr bool V_EARLY = ROWS * LPL <= 8;  // V loaded with K
+    constexpr int NV = MAXG * E;          // a lane's p.v sums, (g, e)
     // what a lane holds after the reduce-scatters: scores of QS heads,
     // shared by the SAME lanes of its row; p.v sums of NV / RPW (g, e)
     constexpr int QS = LPR >= MAXG ? 1 : MAXG / LPR;
     constexpr int SAME = LPR >= MAXG ? LPR / MAXG : 1;
     constexpr int PVS = NV / RPW;
     __shared__ float ps[MAXG][SPLIT_MAX];
-    __shared__ float part[NW][MAXG * D];  // [w][(g EPV + e) LPR + lane]
+    extern __shared__ float part[];       // [w][(g E + e) LPR + lane]
     __shared__ float stat_m[MAXG], stat_l[MAXG];
 
     const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -732,32 +837,41 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     const int G = H / Hkv, h0 = hk * G;
     const int j0 = split * split_len;
     const int nrows = min(split_len, n_live - j0);
-    const int col = lane % LPR;           // this lane's 16 bytes of a row
-    const int c0 = col * EPV;
+    const int col = lane % LPR;           // this lane's E elements of a row
+    const int c0 = col * E;
     const int rl = warp * RPW + lane / LPR;  // its first row of the split
 
-    // every load of the block at once: this lane's K and V rows and its
+    // every load of the block at once: this lane's K (and V) rows and its
     // columns of q, raw, so the split costs one trip to memory
-    const T* kb = kc + b * ksb + hk * ksh + (int64_t)j0 * kss + c0;
-    const T* vb = vc + b * vsb + hk * vsh + (int64_t)j0 * vss + c0;
-    uint4 kraw[ROWS], vraw[ROWS], qraw[MAXG];
+    const T* kb = kc + b * ksb + hk * ksh + c0;
+    const T* vb = vc + b * vsb + hk * vsh + c0;
+    uint4 kraw[ROWS][LPL], vraw[V_EARLY ? ROWS : 1][LPL], qraw[MAXG][LPL];
 #pragma unroll
     for (int u = 0; u < ROWS; ++u) {
         const int r = rl + u * RB;
         if (r < nrows) {
-            kraw[u] = ld16(kb + (int64_t)r * kss);
-            vraw[u] = ld16(vb + (int64_t)r * vss);
+            const int64_t slot = live_slot(j0 + r, n_pre, first);
+#pragma unroll
+            for (int l = 0; l < LPL; ++l) {
+                kraw[u][l] = ld16(kb + slot * kss + l * EPV);
+                if constexpr (V_EARLY) vraw[u][l] = ld16(vb + slot * vss + l * EPV);
+            }
         }
     }
 #pragma unroll
     for (int g = 0; g < MAXG; ++g)
-        if (g < G) qraw[g] = ld16(q + b * qsb + (int64_t)(h0 + g) * qsh + c0);
-    float qr[MAXG][EPV];
+        if (g < G)
+#pragma unroll
+            for (int l = 0; l < LPL; ++l)
+                qraw[g][l] = ld16(q + b * qsb + (int64_t)(h0 + g) * qsh + c0 + l * EPV);
+    float qr[MAXG][E];
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
-        if (g < G) widen(qraw[g], qr[g], T());
+        if (g < G)
 #pragma unroll
-        for (int e = 0; e < EPV; ++e) qr[g][e] = g < G ? qr[g][e] * scale : 0.f;
+            for (int l = 0; l < LPL; ++l) widen(qraw[g][l], qr[g] + l * EPV, T());
+#pragma unroll
+        for (int e = 0; e < E; ++e) qr[g][e] = g < G ? qr[g][e] * scale : 0.f;
     }
 
     // scores: ps[g][r] = q_g . k_r
@@ -765,24 +879,39 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int u = 0; u < ROWS; ++u) {
         const int r = rl + u * RB;
         if (u * RB >= nrows) break;       // uniform: no row of the block left
-        float kv[EPV];
-        if (r < nrows) widen(kraw[u], kv, T());
-        else
+        float kv[E];
+        if (r < nrows) {
 #pragma unroll
-            for (int e = 0; e < EPV; ++e) kv[e] = 0.f;
+            for (int l = 0; l < LPL; ++l) widen(kraw[u][l], kv + l * EPV, T());
+        } else {
+#pragma unroll
+            for (int e = 0; e < E; ++e) kv[e] = 0.f;
+        }
         float sc[MAXG];
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
             float a = 0.f;
 #pragma unroll
-            for (int e = 0; e < EPV; ++e) a = fmaf(qr[g][e], kv[e], a);
+            for (int e = 0; e < E; ++e) a = fmaf(qr[g][e], kv[e], a);
             sc[g] = a;
         }
-        const int first = reduce_scatter<MAXG, 1, LPR>(sc, lane);
+        const int first_h = reduce_scatter<MAXG, 1, LPR>(sc, lane);
         if (r < nrows && col % SAME == 0)
 #pragma unroll
             for (int i = 0; i < QS; ++i)
-                if (first + i < G) ps[first + i][r] = sc[i];
+                if (first_h + i < G) ps[first_h + i][r] = sc[i];
+    }
+    if constexpr (!V_EARLY) {
+        // V's rows now, into the registers K's rows held
+#pragma unroll
+        for (int u = 0; u < ROWS; ++u) {
+            const int r = rl + u * RB;
+            if (r < nrows) {
+                const int64_t slot = live_slot(j0 + r, n_pre, first);
+#pragma unroll
+                for (int l = 0; l < LPL; ++l) kraw[u][l] = ld16(vb + slot * vss + l * EPV);
+            }
+        }
     }
     __syncthreads();
 
@@ -815,31 +944,36 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
     for (int u = 0; u < ROWS; ++u) {
         const int r = rl + u * RB;
         if (r < nrows) {
-            float vv[EPV];
-            widen(vraw[u], vv, T());
+            float vv[E];
+#pragma unroll
+            for (int l = 0; l < LPL; ++l) {
+                if constexpr (V_EARLY) widen(vraw[u][l], vv + l * EPV, T());
+                else widen(kraw[u][l], vv + l * EPV, T());
+            }
 #pragma unroll
             for (int g = 0; g < MAXG; ++g) {
                 if (g < G) {
                     const float p = ps[g][r];
 #pragma unroll
-                    for (int e = 0; e < EPV; ++e)
-                        acc[g * EPV + e] = fmaf(p, vv[e], acc[g * EPV + e]);
+                    for (int e = 0; e < E; ++e)
+                        acc[g * E + e] = fmaf(p, vv[e], acc[g * E + e]);
                 }
             }
         }
     }
-    const int first = reduce_scatter<NV, LPR, 32>(acc, lane);
+    const int first_pv = reduce_scatter<NV, LPR, 32>(acc, lane);
 #pragma unroll
-    for (int i = 0; i < PVS; ++i) part[warp][(first + i) * LPR + col] = acc[i];
+    for (int i = 0; i < PVS; ++i)
+        part[warp * (MAXG * D) + (first_pv + i) * LPR + col] = acc[i];
     __syncthreads();
 
     // the split's partial: o (unnormalised), m, l per (batch, head, split)
     for (int i = tid; i < G * D; i += THREADS) {
         const int g = i / D, j = i % D;
-        const int d = (j % LPR) * EPV + j / LPR;
+        const int d = (j % LPR) * E + j / LPR;
         float o = 0.f;
 #pragma unroll
-        for (int w = 0; w < NW; ++w) o += part[w][i];
+        for (int w = 0; w < NW; ++w) o += part[w * (MAXG * D) + i];
         const int64_t row = ((int64_t)b * H + h0 + g) * n_split + split;
         ws_o[row * D + d] = o;
     }
@@ -906,17 +1040,22 @@ __global__ void decode_attention_combine_kernel(
 template <typename T, int D>
 static int decode_attention_run(const void* q, const void* kc, const void* vc,
                                 void* o, float* ws, int B, int H, int Hkv,
-                                int n_live, int split_len, int n_split,
-                                const int64_t* qst, const int64_t* kst,
+                                int n_live, int n_pre, int first, int split_len,
+                                int n_split, const int64_t* qst, const int64_t* kst,
                                 const int64_t* vst, float scale, cudaStream_t stream)
 {
     float* ws_o = ws;
     float* ws_ml = ws + (int64_t)B * H * n_split * D;
+    const size_t smem = da::smem_bytes<D>();
+    cudaError_t err0 = cudaFuncSetAttribute(
+        decode_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err0 != cudaSuccess) return (int)err0;
     dim3 grid((unsigned)n_split, (unsigned)Hkv, (unsigned)B);
-    decode_attention_kernel<T, D><<<grid, da::THREADS, 0, stream>>>(
+    decode_attention_kernel<T, D><<<grid, da::THREADS, smem, stream>>>(
         (const T*)q, (const T*)kc, (const T*)vc, ws_o, ws_ml, H, Hkv, n_live,
-        split_len, qst[0], qst[1], kst[0], kst[1], kst[2], vst[0], vst[1],
-        vst[2], scale);
+        n_pre, first, split_len, qst[0], qst[1], kst[0], kst[1], kst[2], vst[0],
+        vst[1], vst[2], scale);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
     decode_attention_combine_kernel<T><<<dim3((unsigned)H, (unsigned)B),
@@ -928,33 +1067,35 @@ static int decode_attention_run(const void* q, const void* kc, const void* vc,
 template <typename T>
 static int decode_attention_dispatch(int D, const void* q, const void* kc,
                                      const void* vc, void* o, float* ws, int B,
-                                     int H, int Hkv, int n_live, int split_len,
-                                     int n_split, const int64_t* qst,
-                                     const int64_t* kst, const int64_t* vst,
-                                     float scale, cudaStream_t s)
+                                     int H, int Hkv, int n_live, int n_pre,
+                                     int first, int split_len, int n_split,
+                                     const int64_t* qst, const int64_t* kst,
+                                     const int64_t* vst, float scale, cudaStream_t s)
 {
     switch (D) {
-    case 16:  return decode_attention_run<T, 16>(q, kc, vc, o, ws, B, H, Hkv, n_live, split_len, n_split, qst, kst, vst, scale, s);
-    case 32:  return decode_attention_run<T, 32>(q, kc, vc, o, ws, B, H, Hkv, n_live, split_len, n_split, qst, kst, vst, scale, s);
-    case 64:  return decode_attention_run<T, 64>(q, kc, vc, o, ws, B, H, Hkv, n_live, split_len, n_split, qst, kst, vst, scale, s);
-    case 128: return decode_attention_run<T, 128>(q, kc, vc, o, ws, B, H, Hkv, n_live, split_len, n_split, qst, kst, vst, scale, s);
+    case 16:  return decode_attention_run<T, 16>(q, kc, vc, o, ws, B, H, Hkv, n_live, n_pre, first, split_len, n_split, qst, kst, vst, scale, s);
+    case 32:  return decode_attention_run<T, 32>(q, kc, vc, o, ws, B, H, Hkv, n_live, n_pre, first, split_len, n_split, qst, kst, vst, scale, s);
+    case 64:  return decode_attention_run<T, 64>(q, kc, vc, o, ws, B, H, Hkv, n_live, n_pre, first, split_len, n_split, qst, kst, vst, scale, s);
+    case 128: return decode_attention_run<T, 128>(q, kc, vc, o, ws, B, H, Hkv, n_live, n_pre, first, split_len, n_split, qst, kst, vst, scale, s);
+    case 256: return decode_attention_run<T, 256>(q, kc, vc, o, ws, B, H, Hkv, n_live, n_pre, first, split_len, n_split, qst, kst, vst, scale, s);
     default:  return (int)cudaErrorInvalidValue;
     }
 }
 
 // q strides {batch, head}; cache strides {batch, slot, head}; in elements.
 // The output is (B, 1, H, D) contiguous. workspace: B*H*n_split*(D+2)
-// floats; n_split splits of split_len slots cover [0, cache_len] exactly,
-// split_len <= 64.
+// floats. The live slots: n_live of them, [0, n_pre) then [first, first +
+// n_live - n_pre) (no window: n_pre = first = 0, n_live = cache_len + 1);
+// n_split splits of split_len <= 64 of them cover them exactly.
 extern "C" int decode_attention_launch(
     int is_bf16, const void* q, const void* k_cache, const void* v_cache,
-    void* o, void* workspace, int B, int H, int Hkv, int D, int cache_len,
-    int split_len, int n_split,
+    void* o, void* workspace, int B, int H, int Hkv, int D, int n_live,
+    int n_pre, int first, int split_len, int n_split,
     const int64_t* q_strides, const int64_t* k_strides, const int64_t* v_strides,
     float scale, void* stream)
 {
-    const int n_live = cache_len + 1;
     if (split_len < 1 || split_len > da::SPLIT_MAX || n_split < 1
+        || n_pre < 0 || first < n_pre || n_live <= n_pre
         || (int64_t)(n_split - 1) * split_len >= n_live
         || (int64_t)n_split * split_len < n_live || H % Hkv != 0
         || H / Hkv > da::MAXG)
@@ -962,10 +1103,10 @@ extern "C" int decode_attention_launch(
     float* ws = (float*)workspace;
     if (is_bf16)
         return decode_attention_dispatch<__nv_bfloat16>(
-            D, q, k_cache, v_cache, o, ws, B, H, Hkv, n_live, split_len,
-            n_split, q_strides, k_strides, v_strides, scale,
+            D, q, k_cache, v_cache, o, ws, B, H, Hkv, n_live, n_pre, first,
+            split_len, n_split, q_strides, k_strides, v_strides, scale,
             (cudaStream_t)stream);
     return decode_attention_dispatch<float>(
-        D, q, k_cache, v_cache, o, ws, B, H, Hkv, n_live, split_len, n_split,
-        q_strides, k_strides, v_strides, scale, (cudaStream_t)stream);
+        D, q, k_cache, v_cache, o, ws, B, H, Hkv, n_live, n_pre, first, split_len,
+        n_split, q_strides, k_strides, v_strides, scale, (cudaStream_t)stream);
 }

@@ -161,11 +161,12 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, int c0,
 // ---- a tile of 64 rows x D bf16 in shared memory, as TMA lands it -------
 //
 // The attention kernels' q / k / v / do tiles (attention.cu, B3;
-// attention_bwd.cu, B9): max(D / 64, 1) boxes of 64 rows x 64 columns of a
+// attention_bwd.cu, B9): ceil(D / 64) boxes of 64 rows x 64 columns of a
 // 4-D (D, heads, S, B) tensor map, 128 bytes a row (columns past D and rows
-// past the sequence zero-filled), 128-byte swizzle.
+// past the sequence zero-filled: at D = 80 the second box holds columns
+// 64..79 and zeros), 128-byte swizzle.
 namespace tile64 {
-template <int D> __host__ __device__ constexpr int boxes() { return D > 64 ? D / 64 : 1; }
+template <int D> __host__ __device__ constexpr int boxes() { return (D + 63) / 64; }
 template <int D> __host__ __device__ constexpr int tile_bytes() { return boxes<D>() * 64 * 128; }
 
 // the 16 bytes at (row, col) of a tile, col a multiple of 8

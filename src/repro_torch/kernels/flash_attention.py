@@ -1,4 +1,5 @@
-"""Blocked causal attention with causal tile skipping — CUDA kernel B3.
+"""Blocked attention with causal, sliding-window and prefix-LM masks and
+tile skipping — CUDA kernel B3.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention.py``
 (``_kernel`` / ``flash_attention_p``, wrapper ``ops.flash_attention``).
@@ -7,10 +8,13 @@ The kernel, its bound on the card and the reasons for its design are in
 bound by operations (thousands per byte), it takes the model's
 ``(B, S, H, D)`` / ``(B, S, Hkv, D)`` layout through strides with no
 transpose or head repeat, and its key loop stops at the diagonal, so the
-tiles the causal mask would zero are never loaded. bf16 runs on the
-tensor cores (``mma.sync``, the online softmax in registers, q/K/V tiles
-loaded by TMA, K/V double-buffered); float32 runs true float32 FMAs on
-the CUDA cores.
+tiles the causal mask would zero are never loaded. Beyond the Pallas
+kernel it takes the JAX model path's other masks (a sliding ``window``,
+a bidirectional ``prefix_len``; ``ref.attention_mask``) and loads only
+the key tiles that hold a live pair (``live_tiles`` counts them). bf16
+runs on the tensor cores (``mma.sync``, the online softmax in registers,
+q/K/V tiles loaded by TMA, K/V double-buffered); float32 runs true
+float32 FMAs on the CUDA cores.
 
 ``flash_attention`` launches the kernel for CUDA tensors and evaluates
 ``flash_attention_plain`` for CPU tensors; nothing else selects between
@@ -30,11 +34,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import NEG_INF, ref_attention
+from repro_torch.kernels.ref import NEG_INF, attention_mask, ref_attention
 
 #: the kernel's tile (query rows and keys); ``tiles_loaded`` counts in it
 TILE = 64
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 #: the bf16 kernel's TMA tensor maps need 16-byte aligned base addresses
 #: and strides: every row must start on a 16-byte boundary
@@ -63,27 +67,61 @@ def _check(q, k, v) -> tuple[int, int, int, int, int, int]:
     return B, Sq, H, D, Sk, Hkv
 
 
+def _check_mask(Sq: int, Sk: int, window, prefix_len: int):
+    """``window`` as an int (None stays None) and ``prefix_len``, checked:
+    a window of at least 1 key, over self-attention only (with Sq != Sk
+    a windowed row could have no live key), and no negative prefix."""
+    if window is not None:
+        window = int(window)
+        if window < 1:
+            raise ValueError(f"window {window}: want at least 1 key")
+        if Sq != Sk:
+            raise ValueError(f"a window needs self-attention, Sq == Sk; got "
+                             f"{Sq} and {Sk}")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len {prefix_len} < 0")
+    return window, int(prefix_len)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           scale: Optional[float] = None,
-                          return_lse: bool = False):
+                          return_lse: bool = False, window=None,
+                          prefix_len: int = 0):
     """Plain PyTorch version of B3: KV heads repeated to the query heads
     (head ``h`` reads KV head ``h // (H // Hkv)``), then ``ref_attention``
-    in float32; the output in q's dtype. With ``return_lse`` also the
-    row log-sum-exp of the scaled live scores, float32 ``(B, H, Sq)``."""
+    in float32 over ``ref.attention_mask``; the output in q's dtype. With
+    ``return_lse`` also the row log-sum-exp of the scaled live scores,
+    float32 ``(B, H, Sq)``."""
     _, Sq, H, D, Sk, Hkv = _check(q, k, v)
+    window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
     if Hkv != H:
         k = k.repeat_interleave(H // Hkv, dim=2)
         v = v.repeat_interleave(H // Hkv, dim=2)
-    out = ref_attention(q, k, v, causal=causal, scale=scale)
+    out = ref_attention(q, k, v, causal=causal, scale=scale, window=window,
+                        prefix_len=prefix_len)
     if not return_lse:
         return out
     scale = D ** -0.5 if scale is None else float(scale)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    if causal:
-        live = torch.arange(Sk, device=q.device)[None, :] \
-            <= torch.arange(Sq, device=q.device)[:, None]
-        s = torch.where(live, s, torch.full((), NEG_INF, device=q.device))
+    live = attention_mask(Sq, Sk, causal=causal, window=window,
+                          prefix_len=prefix_len, device=q.device)
+    s = torch.where(live, s, torch.full((), NEG_INF, device=q.device))
     return out, torch.logsumexp(s, dim=-1)
+
+
+def live_tiles(Sq: int, Sk: int, *, causal: bool = True, window=None,
+               prefix_len: int = 0, device=None) -> torch.Tensor:
+    """int32 ``(ceil(Sq / TILE),)``: for each query tile, the number of
+    ``TILE``-key tiles that hold a live pair of ``ref.attention_mask`` --
+    what the kernel loads, computed from the mask itself."""
+    window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
+    n_qt, n_kt = -(-Sq // TILE), -(-Sk // TILE)
+    ok = attention_mask(Sq, Sk, causal=causal, window=window,
+                        prefix_len=prefix_len, device=device)
+    ok = torch.nn.functional.pad(ok, (0, n_kt * TILE - Sk,
+                                      0, n_qt * TILE - Sq))
+    return ok.view(n_qt, TILE, n_kt, TILE).any(dim=3).any(dim=1) \
+        .sum(dim=1, dtype=torch.int32)
 
 
 def rows_aligned(t: torch.Tensor) -> bool:
@@ -130,7 +168,8 @@ def _strides(t: torch.Tensor):
 
 def _launch(lib, q, k, v, out, *, causal: bool, scale: float,
             tiles_loaded: Optional[torch.Tensor], stream: int,
-            lse: Optional[torch.Tensor] = None) -> int:
+            lse: Optional[torch.Tensor] = None, window=None,
+            prefix_len: int = 0) -> int:
     """One call of the C launcher; the arguments are already checked."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -138,6 +177,7 @@ def _launch(lib, q, k, v, out, *, causal: bool, scale: float,
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Sk, D,
         _strides(q), _strides(k), _strides(v), float(scale), int(causal),
+        0 if window is None else int(window), int(prefix_len),
         None if tiles_loaded is None else tiles_loaded.data_ptr(),
         None if lse is None else lse.data_ptr(), stream)
 
@@ -145,16 +185,20 @@ def _launch(lib, q, k, v, out, *, causal: bool, scale: float,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     tiles_loaded: Optional[torch.Tensor] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, window=None,
+                    prefix_len: int = 0):
     """Softmax attention of q ``(B, Sq, H, D)`` over k/v
     ``(B, Sk, Hkv, D)``, GQA by head grouping; float32 or bf16, float32
     softmax and accumulation, output ``(B, Sq, H, D)`` in q's dtype.
     ``scale`` defaults to ``D ** -0.5``. With ``causal``, key ``j`` is
-    live for query ``i`` iff ``j <= i``.
+    live for query ``i`` iff ``j <= i``; ``window`` (an int >= 1, self-
+    attention only) also drops keys ``j <= i - window``; keys
+    ``j < prefix_len`` are then live for every query (prefix-LM).
 
     ``tiles_loaded`` (CUDA only): an int32 ``(B, H, ceil(Sq / 64))``
     tensor that receives the number of 64-key tiles each query tile
-    loaded — how a caller sees the causal skip.
+    loaded — how a caller sees the skip (``live_tiles`` is the count the
+    mask allows).
 
     The kernel reads q, k and v in place through their strides. A bf16
     tensor whose rows do not start on 16-byte boundaries (see
@@ -165,13 +209,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scaled live scores, float32 ``(B, H, Sq)`` — ``(out, lse)``.
     """
     B, Sq, H, D, Sk, Hkv = _check(q, k, v)
+    window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type != "cuda":
         if tiles_loaded is not None:
             raise ValueError("tiles_loaded counts the CUDA kernel's loads; "
                              "CPU tensors take the plain version")
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     return_lse=return_lse)
+                                     return_lse=return_lse, window=window,
+                                     prefix_len=prefix_len)
     _build.check_no_grad("flash_attention", (q, k, v),
                   "train through repro_torch.models.common.attention, whose "
                   "backward is kernel B9")
@@ -202,7 +248,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lib = _build.load("attention")
     with torch.cuda.device(dev):
         err = _launch(lib, q, k, v, out, causal=causal, scale=scale,
-                      tiles_loaded=tiles_loaded, lse=lse,
+                      tiles_loaded=tiles_loaded, lse=lse, window=window,
+                      prefix_len=prefix_len,
                       stream=torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1

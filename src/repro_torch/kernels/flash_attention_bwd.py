@@ -32,9 +32,11 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (_GRID_YZ_MAX, DTYPES,
-                                                 HEAD_DIMS, ROW_ALIGN, TILE,
-                                                 _check)
+                                                 ROW_ALIGN, TILE, _check)
 from repro_torch.kernels.ref import NEG_INF
+
+#: the head dims B9 is built for (B3 also takes 80 and 256, for serving)
+HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _check_bwd(q, k, v, o, lse, do):

@@ -13,18 +13,52 @@ def ref_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x.float() @ w.float()).to(x.dtype)
 
 
-def ref_attention(q, k, v, *, causal: bool = True,
-                  scale=None) -> torch.Tensor:
-    """q/k/v: (B, S, H, D) (same head count); plain softmax attention.
-    With ``causal``, key ``j`` is live for query ``i`` iff ``j <= i``."""
+def attention_mask(Sq: int, Sk: int, *, causal: bool = True, window=None,
+                   prefix_len: int = 0, device=None) -> torch.Tensor:
+    """(Sq, Sk) bool: key ``j`` live for query ``i``, by the JAX model
+    path's rules (``src/repro/models/common.py``: ``plain_attention``,
+    ``_window_ok``): ``j <= i`` under ``causal``, and ``j > i - window``
+    with a window, then OR-ed with ``j < prefix_len``."""
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    k_pos = torch.arange(Sk, device=device)[None, :]
+    ok = k_pos <= q_pos if causal else torch.ones((Sq, Sk), dtype=torch.bool,
+                                                  device=device)
+    if window is not None:
+        ok = ok & (k_pos > q_pos - int(window))
+    if prefix_len > 0:
+        ok = ok | (k_pos < int(prefix_len))
+    return ok
+
+
+def decode_live(S: int, cache_len: int, *, window=None,
+                prefix_len: int = 0, device=None) -> torch.Tensor:
+    """(S,) bool: the cache slots a decode step at ``cache_len`` attends
+    to, by the JAX model path's rule (``src/repro/models/common.py::
+    decode_attention``): ``[0, cache_len]``, with a window only
+    ``(cache_len - window, cache_len]``, then (with a window only) OR-ed
+    with the slots ``< prefix_len``."""
+    k_pos = torch.arange(S, device=device)
+    ok = k_pos <= int(cache_len)
+    if window is not None:
+        okw = ok & (k_pos > int(cache_len) - int(window))
+        if prefix_len > 0:
+            okw = okw | (ok & (k_pos < int(prefix_len)))
+        ok = okw
+    return ok
+
+
+def ref_attention(q, k, v, *, causal: bool = True, scale=None, window=None,
+                  prefix_len: int = 0) -> torch.Tensor:
+    """q/k/v: (B, S, H, D) (same head count); plain softmax attention over
+    the live keys of ``attention_mask``."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     scale = scale if scale is not None else D ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
-    if causal:
+    if causal or window is not None or prefix_len > 0:
         dev = q.device
-        mask = torch.arange(Sk, device=dev)[None, :] \
-            <= torch.arange(Sq, device=dev)[:, None]
+        mask = attention_mask(Sq, Sk, causal=causal, window=window,
+                              prefix_len=prefix_len, device=dev)
         s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
@@ -32,14 +66,16 @@ def ref_attention(q, k, v, *, causal: bool = True,
 
 
 def ref_decode_attention(q, k_cache, v_cache, cache_len: int, *,
-                         scale=None) -> torch.Tensor:
-    """q: (BH, D); caches: (BH, S, D). One query per row against cache
-    slots ``[0, cache_len]``; returns (BH, D)."""
+                         scale=None, window=None,
+                         prefix_len: int = 0) -> torch.Tensor:
+    """q: (BH, D); caches: (BH, S, D). One query per row against the
+    cache slots of ``decode_live``; returns (BH, D)."""
     D = q.shape[-1]
     S = k_cache.shape[1]
     scale = scale if scale is not None else D ** -0.5
     s = torch.einsum("bd,bkd->bk", q.float() * scale, k_cache.float())
-    live = torch.arange(S, device=q.device) <= int(cache_len)
+    live = decode_live(S, cache_len, window=window, prefix_len=prefix_len,
+                       device=q.device)
     s = torch.where(live[None, :], s, torch.full((), NEG_INF,
                                                  device=q.device))
     p = torch.softmax(s, dim=-1)

@@ -2,14 +2,22 @@
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b [--device cuda]
     python -m repro_torch.launch.serve --arch mamba2-780m [--device cuda]
+    python -m repro_torch.launch.serve --arch hymba-1.5b [--device cuda]
+    python -m repro_torch.launch.serve --arch paligemma-3b [--device cuda]
 
 Serves a fixed batch of seeded random prompts: one prefill, then one
 decode step per generated token, every request sharing one cache of
 ``max_seq`` slots (an SSD arch's cache is its conv tails and states,
-whatever ``max_seq``; the prompt-length rule is the same). On the card
-(the default device) the hand-written kernels run: for the dense family
-B3 over the prompt and B4 at each step, for the SSD family B5 over the
-prompt; an SSD decode step is the plain recurrent update.
+whatever ``max_seq``; the prompt-length rule is the same). A vision arch
+(paligemma) is served as the JAX server serves it: zero patch embeddings
+(the stubbed vision tower's output) before every prompt, counted in the
+cache's length. On the card (the default device) the hand-written
+kernels run: for the attention families B3 over the prompt (hymba's
+sliding-window layers skipping the key tiles outside the window,
+paligemma's patches a bidirectional prefix) and B4 at each step, for the
+SSD family B5 over the prompt, hymba both; an SSD decode step is the
+plain recurrent update. The encoder-only arch (hubert) has no decode
+step: run its ``models.model.forward``.
 
 Differences from the JAX package's ``repro.launch.serve``, all for an
 eager runtime: the weights are cast to bf16 once, at construction (the
@@ -62,18 +70,25 @@ class Server:
 
     def prefill_prompts(self, prompts: np.ndarray) -> np.ndarray:
         """prompts: (B, S0) int. Fills the shared cache (the first S0 KV
-        slots, or the SSD conv tails and states);
+        slots -- after a vision arch's frontend_seq patch slots --, or the
+        SSD conv tails and states);
         returns the first generated token of each request, (B,)."""
         B, S0 = prompts.shape
-        if B != self.batch or not 0 < S0 < self.max_seq:
+        n_img = self.cfg.frontend_seq if self.cfg.frontend == "vision" else 0
+        if B != self.batch or S0 < 1 or S0 + n_img >= self.max_seq:
             raise ValueError(f"prompts {prompts.shape}: want ({self.batch}, "
-                             f"S0) with 0 < S0 < max_seq={self.max_seq}")
+                             f"S0) with 0 < S0 and S0 + {n_img} image "
+                             f"slots < max_seq={self.max_seq}")
         batch = {"tokens": torch.tensor(np.asarray(prompts),
                                         dtype=torch.int64,
                                         device=self.device)}
+        if n_img:
+            batch["patches"] = torch.zeros(
+                (B, n_img, self.cfg.frontend_dim), dtype=torch.bfloat16,
+                device=self.device)
         logits, self.cache = self.prefill(self.params, batch,
                                           cache=self.cache)
-        self.cache_len = S0
+        self.cache_len = S0 + n_img
         return logits[:, -1].argmax(dim=-1).cpu().numpy()
 
     def step(self, tokens: np.ndarray) -> np.ndarray:
@@ -97,7 +112,9 @@ class Server:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--arch", default="qwen2.5-3b",
+                    help="a decoder arch: the dense text archs, "
+                         "mamba2-780m, hymba-1.5b, paligemma-3b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=8)
@@ -106,9 +123,10 @@ def main(argv=None):
                     help="cuda (the hand kernels) or cpu (their plain "
                          "versions)")
     args = ap.parse_args(argv)
+    n_img = get_arch(args.arch).reduced().frontend_seq
     srv = Server(args.arch, batch=args.batch,
-                 max_seq=args.prompt_len + args.tokens + 8, seed=args.seed,
-                 device=args.device)
+                 max_seq=n_img + args.prompt_len + args.tokens + 8,
+                 seed=args.seed, device=args.device)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, srv.cfg.vocab_size,
                            (args.batch, args.prompt_len), dtype=np.int32)

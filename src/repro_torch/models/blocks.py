@@ -1,5 +1,6 @@
-"""Block implementations: dense / GQA attention, the MLP, and the SSD
-(Mamba-2) block.
+"""Block implementations: dense / GQA attention, the MLPs, the SSD
+(Mamba-2) block and the hybrid (hymba) block that runs both beside each
+other; the parameter specs (no forward yet) of MLA and MoE.
 
 Every block family exposes:
 
@@ -8,9 +9,9 @@ Every block family exposes:
   mode it also returns the per-layer cache entries;
 * ``<family>_decode(p, x, cache, ...)`` -> single-token forward.
 
-The families of the dense text archs and of the attention-free SSD arch
-are here; MLA, MoE and hybrid blocks wait for ROADMAP A7
-(``registry.param_specs`` refuses those archs before a block is reached).
+MLA and MoE have their specs only, so that every arch's parameters can
+be counted; their forwards wait for ROADMAP A7b (the model's entry points
+refuse those archs before a block is reached).
 """
 from __future__ import annotations
 
@@ -108,22 +109,76 @@ def attn_decode(p, x, k_cache, v_cache, cache_len: int, cfg: ArchConfig, *,
 
 
 # ==========================================================================
+# MLA (DeepSeek-V2 multi-head latent attention): specs only
+# ==========================================================================
+
+def mla_specs(cfg: ArchConfig) -> dict:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qh = m.nope_head_dim + m.rope_head_dim
+    return {
+        "ln": spec((D,), ("embed",), init="ones"),
+        "q_a": spec((D, m.q_lora_rank), ("embed", "q_lora")),
+        "q_a_norm": spec((m.q_lora_rank,), ("q_lora",), init="ones"),
+        "q_b": spec((m.q_lora_rank, H * qh), ("q_lora", "q_heads")),
+        "kv_a": spec((D, m.kv_lora_rank + m.rope_head_dim),
+                     ("embed", "kv_lora")),
+        "kv_a_norm": spec((m.kv_lora_rank,), ("kv_lora",), init="ones"),
+        "kv_b": spec((m.kv_lora_rank, H * (m.nope_head_dim + m.v_head_dim)),
+                     ("kv_lora", "q_heads")),
+        "wo": spec((H * m.v_head_dim, D), ("q_heads", "embed")),
+    }
+
+
+# ==========================================================================
 # MLPs (dense)
 # ==========================================================================
 
-def mlp_specs(cfg: ArchConfig) -> dict:
-    """Gated MLP (SwiGLU / GeGLU), the one the dense text archs use; the
-    plain 2-layer MLP of the encoder (hubert) waits with it (ROADMAP A7)."""
-    D, F = cfg.d_model, cfg.d_ff
-    return {"ln": spec((D,), ("embed",), init="ones"),
-            "wg": spec((D, F), ("embed", "mlp")),
-            "wu": spec((D, F), ("embed", "mlp")),
-            "wd": spec((F, D), ("mlp", "embed"))}
+def mlp_specs(cfg: ArchConfig, d_ff=None) -> dict:
+    """Gated MLP (SwiGLU / GeGLU: ``wg``, ``wu``, ``wd``) for the silu and
+    gelu_glu archs; the plain 2-layer MLP (``w1``, ``w2``) of the encoder
+    (hubert, act gelu) otherwise. ``d_ff`` defaults to the config's."""
+    D = cfg.d_model
+    F = d_ff if d_ff is not None else cfg.d_ff
+    s = {"ln": spec((D,), ("embed",), init="ones")}
+    if cfg.act in ("silu", "gelu_glu"):
+        s["wg"] = spec((D, F), ("embed", "mlp"))
+        s["wu"] = spec((D, F), ("embed", "mlp"))
+        s["wd"] = spec((F, D), ("mlp", "embed"))
+    else:
+        s["w1"] = spec((D, F), ("embed", "mlp"))
+        s["w2"] = spec((F, D), ("mlp", "embed"))
+    return s
 
 
 def mlp_fwd(p, x, cfg: ArchConfig):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    return (act_fn(cfg.act)(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"]
+    a = act_fn(cfg.act)
+    if "wg" in p:
+        return (a(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"]
+    return a(h @ p["w1"]) @ p["w2"]
+
+
+# ==========================================================================
+# MoE: specs only
+# ==========================================================================
+
+def moe_specs(cfg: ArchConfig) -> dict:
+    mo = cfg.moe
+    D, E, Fe = cfg.d_model, mo.n_experts, mo.d_ff_expert
+    s = {
+        "ln": spec((D,), ("embed",), init="ones"),
+        "router": spec((D, E), ("embed", "experts"), dtype=torch.float32),
+        "wg": spec((E, D, Fe), ("experts", "embed", "expert_mlp")),
+        "wu": spec((E, D, Fe), ("experts", "embed", "expert_mlp")),
+        "wd": spec((E, Fe, D), ("experts", "expert_mlp", "embed")),
+    }
+    if mo.n_shared_experts:
+        Fs = mo.n_shared_experts * Fe
+        s["sh_wg"] = spec((D, Fs), ("embed", "mlp"))
+        s["sh_wu"] = spec((D, Fs), ("embed", "mlp"))
+        s["sh_wd"] = spec((Fs, D), ("mlp", "embed"))
+    return s
 
 
 # ==========================================================================
@@ -333,3 +388,38 @@ def ssd_decode(p, x_res, conv_state, ssm_state, cfg: ArchConfig):
     y = torch.einsum("bhpn,bhn->bhp", ssm_state, Cq)[:, None]  # (B,1,nh,hd)
     out = _ssd_output(p, y, x, z, cfg)
     return out, conv_state, ssm_state
+
+
+# ==========================================================================
+# Hybrid (hymba): parallel attention + SSD branches sharing the residual
+# ==========================================================================
+
+def hybrid_specs(cfg: ArchConfig) -> dict:
+    return {"attn": attn_specs(cfg), "ssd": ssd_specs(cfg)}
+
+
+def hybrid_fwd(p, x, cfg: ArchConfig, *, window: Window = None,
+               return_cache: bool = False, state_out=None):
+    """Both branches over the same input, averaged: ``0.5 * (attn +
+    ssd)``; the attention with the layer's ``window`` (B3 on the card),
+    the SSD half through B5 on the card. With ``return_cache`` also
+    ``((k, v), (conv_tail, h_final))``; ``state_out`` as ``ssd_fwd``."""
+    if return_cache:
+        a, kv = attn_fwd(p["attn"], x, cfg, window=window, return_cache=True)
+        s, st = ssd_fwd(p["ssd"], x, cfg, return_cache=True,
+                        state_out=state_out)
+        return 0.5 * (a + s), (kv, st)
+    a = attn_fwd(p["attn"], x, cfg, window=window)
+    s = ssd_fwd(p["ssd"], x, cfg)
+    return 0.5 * (a + s)
+
+
+def hybrid_decode(p, x, k_cache, v_cache, conv_state, ssm_state,
+                  cache_len: int, cfg: ArchConfig, *, window: Window = None):
+    """One token through both branches (B4 with the layer's window, the
+    SSD recurrent step); every cache is updated in place."""
+    a, k_cache, v_cache = attn_decode(p["attn"], x, k_cache, v_cache,
+                                      cache_len, cfg, window=window)
+    s, conv_state, ssm_state = ssd_decode(p["ssd"], x, conv_state, ssm_state,
+                                          cfg)
+    return 0.5 * (a + s), k_cache, v_cache, conv_state, ssm_state

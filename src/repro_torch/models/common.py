@@ -4,15 +4,18 @@
 int tensor (sliding-window size).
 
 Attention dispatch follows the tensor's device, as the kernels' wrappers
-do. On a CUDA tensor, causal self-attention (``attention``) goes to the
+do. On a CUDA tensor, sequence attention (``attention``: causal, causal
+with a sliding window or a prefix-LM block, or bidirectional) goes to the
 hand-written kernel B3 and single-token attention against the cache
-(``decode_attention``) to B4, at every length; the masks those kernels
-do not take (sliding window, prefix-LM, bidirectional, offset queries)
-raise there, since no ported arch needs them. When an input requires
-grad (training), ``attention`` on the card runs ``KernelAttention``, an
-autograd function whose forward is B3 with its row log-sum-exp and whose
-backward is kernel B9; B4 has no backward, and its wrapper raises then
-rather than drop a gradient. On a CPU tensor both
+(``decode_attention``, with or without a window) to B4, at every length;
+a window of at least the sequence is no window. What those kernels do not
+take raises there, never a plain fallback: offset queries, and causal
+attention with Sq != Sk. When an input requires grad (training),
+``attention`` on the card runs ``KernelAttention``, an autograd function
+whose forward is B3 with its row log-sum-exp and whose backward is kernel
+B9, for plain causal attention only (B9 has no window or prefix yet); B4
+has no backward, and its wrapper raises then rather than drop a
+gradient. On a CPU tensor both
 run the plain forms exactly as the JAX package dispatches them
 (``plain_attention`` up to ``chunk_threshold`` keys, then
 ``flash_attention_jax``), and training differentiates through those, as
@@ -206,25 +209,41 @@ class KernelAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def _kernel_window(window: Window, Sq: int) -> Optional[int]:
+    """The window as the kernels take it: an int, or None where it masks
+    nothing (none given, or at least ``Sq`` keys: hymba's global layers)."""
+    if window is None or int(window) >= Sq:
+        return None
+    return int(window)
+
+
 def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
               scale: Optional[float] = None, prefix_len: int = 0,
               chunk_threshold: int = 2048, q_chunk: int = 2048,
               kv_chunk: int = 1024) -> torch.Tensor:
-    """Sequence attention. CUDA: kernel B3 (causal self-attention only),
-    through ``KernelAttention`` (backward B9) when an input requires grad.
-    CPU: plain or chunked flash by KV length, as the JAX package."""
+    """Sequence attention. CUDA: kernel B3 (any of its masks; see the
+    module docstring for what raises), through ``KernelAttention``
+    (backward B9) when an input requires grad. CPU: plain or chunked
+    flash by KV length, as the JAX package."""
     if q.device.type == "cuda":
-        if not (causal and window is None and prefix_len == 0
-                and q_offset == 0 and q.shape[1] == k.shape[1]):
+        Sq, Sk = q.shape[1], k.shape[1]
+        if q_offset != 0 or (causal and Sq != Sk):
             raise NotImplementedError(
-                "on the card attention runs kernel B3, causal "
-                "self-attention with no window, prefix or query offset; "
-                "the other masks wait for the archs that need them "
-                "(ROADMAP A7)")
+                f"on the card attention runs kernel B3, which takes no "
+                f"query offset (got {q_offset}) and no causal attention "
+                f"with Sq != Sk (got {Sq}, {Sk})")
+        window = _kernel_window(window, Sq)
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):
+            if not (causal and window is None and prefix_len == 0):
+                raise NotImplementedError(
+                    "training on the card differentiates plain causal "
+                    "attention only: its backward, kernel B9, has no "
+                    "sliding window, prefix or bidirectional mask yet "
+                    "(ROADMAP Queue B)")
             return KernelAttention.apply(q, k, v, scale)
-        return flash_attention_kernel(q, k, v, causal=True, scale=scale)
+        return flash_attention_kernel(q, k, v, causal=causal, scale=scale,
+                                      window=window, prefix_len=prefix_len)
     if k.shape[1] <= chunk_threshold:
         return plain_attention(q, k, v, causal=causal, window=window,
                                q_offset=q_offset, scale=scale,
@@ -242,18 +261,16 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
     """Single-token attention against the KV cache.
 
     q: (B, 1, H, D); caches: (B, S, Hkv, D). Positions > cache_len masked
-    (the new token itself sits at slot ``cache_len``). CUDA: kernel B4
-    (no sliding window). CPU: the JAX package's form — q scaled in
-    float32 and rounded to the cache's dtype, products in the cache's
-    dtype summed in float32.
+    (the new token itself sits at slot ``cache_len``); a ``window`` keeps
+    the last ``window`` of them and, beside it, the slots before
+    ``prefix_len``. CUDA: kernel B4, which reads the live slots alone.
+    CPU: the JAX package's form — q scaled in float32 and rounded to the
+    cache's dtype, products in the cache's dtype summed in float32.
     """
     if q.device.type == "cuda":
-        if window is not None:
-            raise NotImplementedError(
-                "on the card decode attention runs kernel B4, which has no "
-                "sliding window; windowed archs wait for ROADMAP A7")
         return decode_attention_kernel(q, k_cache, v_cache, cache_len,
-                                       scale=scale)
+                                       scale=scale, window=window,
+                                       prefix_len=prefix_len)
     B, _, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else D ** -0.5

@@ -21,10 +21,15 @@ matmul outputs and recomputes the rest (a selective-checkpoint policy
 that saves ``aten.mm``, the JAX package's
 ``dots_with_no_batch_dims_saveable``), ``"none"`` keeps everything.
 
-The port runs the dense text family and the SSD family;
-``registry.param_specs`` raises for the rest, and so do the entry points
-here, before any work. Caches are updated in place: the KV cache by slot,
-the SSD conv tails and states whole.
+The port runs the dense text family, the SSD family, the hybrid family
+(hymba: attention beside an SSD branch, sliding-window layers between
+global ones), the audio encoder (hubert: projected frame embeddings plus
+a sinusoidal table, bidirectional attention, no decode) and the vision
+prefix-LM (paligemma: projected patch embeddings before the scaled text
+embedding, the patches attended bidirectionally); the entry points here
+raise for MoE and MLA (``registry.check_ported``), before any work.
+Caches are updated in place: the KV cache by slot, the SSD conv tails and
+states whole.
 """
 from __future__ import annotations
 
@@ -75,12 +80,42 @@ def _remat(fn, policy: str):
 # Embedding / unembedding
 # --------------------------------------------------------------------------
 
+def _sinusoid(S: int, D: int, device) -> torch.Tensor:
+    """(S, D) float32 sinusoidal positions, the JAX package's table
+    (sin in the even columns, cos in the odd), in float32 throughout."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    rate = -torch.log(torch.tensor(10000.0, device=device)) / D
+    div = torch.exp(torch.arange(0, D, 2, dtype=torch.float32,
+                                 device=device) * rate)
+    pe = torch.zeros((S, D), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def _text_scale(cfg: ArchConfig, dtype, device) -> torch.Tensor:
+    """The vision arch's text-embedding scale ``d_model ** 0.5``, rounded
+    to the compute dtype first as the JAX package does (gemma)."""
+    return torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=device)
+
+
 def embed_inputs(params, batch: dict, cfg: ArchConfig,
                  dtype=torch.bfloat16):
-    """Returns x: (B, S, D) and the prefix length (0: text only)."""
+    """Returns x: (B, S_total, D) and the prefix length (the vision arch's
+    patches; 0 otherwise). The audio arch reads ``batch["frames"]``
+    (B, T, frontend_dim), the vision arch ``batch["patches"]`` (B,
+    frontend_seq, frontend_dim) and ``batch["tokens"]``, the rest
+    ``batch["tokens"]``."""
     registry.check_ported(cfg)
-    emb = params["embed"].to(dtype)
-    return emb[batch["tokens"]], 0
+    if cfg.frontend == "audio":
+        x = batch["frames"].to(dtype) @ params["frontend_proj"].to(dtype)
+        return x + _sinusoid(x.shape[1], x.shape[2], x.device).to(dtype), 0
+    tx = params["embed"].to(dtype)[batch["tokens"]]
+    if cfg.frontend == "vision":
+        img = batch["patches"].to(dtype) @ params["frontend_proj"].to(dtype)
+        tx = tx * _text_scale(cfg, dtype, tx.device)
+        return torch.cat([img, tx], dim=1), cfg.frontend_seq
+    return tx, 0
 
 
 def unembed(params, x, cfg: ArchConfig):
@@ -121,6 +156,16 @@ def _apply_layer(p, x, cfg: ArchConfig, *, window, prefix_len: int,
         else:
             y, cache = blocks.ssd_fwd(p["ssd"], x, cfg), None
         return x + y, cache
+    if cfg.family == "hybrid":
+        if prefill:
+            y, cache = blocks.hybrid_fwd(
+                p["mix"], x, cfg, window=window, return_cache=True,
+                state_out=None if slot is None else slot[1][1])
+        else:
+            y, cache = blocks.hybrid_fwd(p["mix"], x, cfg,
+                                         window=window), None
+        x = x + y
+        return x + blocks.mlp_fwd(p["mlp"], x, cfg), cache
     if prefill:
         y, cache = blocks.attn_fwd(p["attn"], x, cfg, window=window,
                                    prefix_len=prefix_len, return_cache=True)
@@ -137,21 +182,34 @@ def _apply_layer(p, x, cfg: ArchConfig, *, window, prefix_len: int,
 # Sequence forward (prefill)
 # --------------------------------------------------------------------------
 
+def _windows(cfg: ArchConfig, seq_hint: int) -> list:
+    """Each layer's attention window (``registry.window_array``) as
+    Python ints, or None for every layer of an arch without one."""
+    warr = registry.window_array(cfg, seq_hint)
+    L = registry.n_scanned_layers(cfg)
+    return [None] * L if warr is None else warr.tolist()
+
+
 def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
             remat: str = "full", dtype=torch.bfloat16,
             cache: Optional[dict] = None):
-    """Full-sequence forward over ``batch["tokens"]`` (B, S) int64.
+    """Full-sequence forward over ``batch`` (``embed_inputs``: tokens
+    (B, S) int64, and the frontend's frames or patches).
 
     Returns (logits (B, S, V), aux) when ``prefill=False``, aux a zero
     scalar (it carries the MoE loss in the JAX package); (last_logits
     (B, 1, V), cache) when ``prefill=True``. The cache is
     ``{"layers": entries}`` stacked on L (``layer_cache_struct``): for the
     dense family (k, v), each (L, B, S, Hkv, hd); for the SSD family
-    ((conv_x, conv_B, conv_C), ssm). A new one, or, when ``cache`` (an
+    ((conv_x, conv_B, conv_C), ssm); for the hybrid family ((k, v),
+    ((conv_x, conv_B, conv_C), ssm)). A new one, or, when ``cache`` (an
     ``init_cache`` of at least S slots) is given, that one written in
     place: the prompt's K/V into its first S slots, or each layer's conv
     tail and final state (B5 writes the state straight into the layer's
-    slice on the card).
+    slice on the card). Each layer attends with its window
+    (``registry.window_array`` at the sequence's length: hymba's sliding
+    layers, and global ones whose window covers the sequence), and the
+    vision arch's patches form a bidirectional prefix.
 
     ``remat`` (a key of ``REMAT_POLICIES``) wraps each layer of a
     training forward (``prefill=False``) when grad is enabled; prefill
@@ -162,20 +220,21 @@ def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
     S = x.shape[1]
     L = registry.n_scanned_layers(cfg)
     layers = _layers(params["layers"], L)
+    windows = _windows(cfg, S)
     if not prefill:
-        def one(p_layer, x):
-            return _apply_layer(p_layer, x, cfg, window=None,
+        def one(p_layer, x, window):
+            return _apply_layer(p_layer, x, cfg, window=window,
                                 prefix_len=prefix_len, prefill=False)[0]
 
         if torch.is_grad_enabled():
             one = _remat(one, remat)
-        for p_layer in layers:
-            x = one(p_layer, x)
+        for p_layer, window in zip(layers, windows):
+            x = one(p_layer, x, window)
         return unembed(params, x, cfg), torch.zeros((), device=x.device)
     entries = []
     for i, p_layer in enumerate(layers):
         slot = None if cache is None else _cache_slice(cache["layers"], i)
-        x, entry = _apply_layer(p_layer, x, cfg, window=None,
+        x, entry = _apply_layer(p_layer, x, cfg, window=windows[i],
                                 prefix_len=prefix_len, prefill=True,
                                 slot=slot)
         if cache is None:
@@ -197,10 +256,13 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, *, remat: str = "full",
             z_weight: float = 1e-4):
     """Next-token cross-entropy over ``batch["labels"]`` plus the z-loss
     (the square of each row's log-sum-exp) and the auxiliary loss, the
-    logits in float32. Returns ``(loss, {"loss", "ce", "aux", "z"})``."""
+    logits in float32 (the vision arch's image positions carry no labels
+    and are dropped). Returns ``(loss, {"loss", "ce", "aux", "z"})``."""
     logits, aux = forward(params, batch, cfg, prefill=False, remat=remat,
                           dtype=dtype)
     labels = batch["labels"]
+    if cfg.frontend == "vision":
+        logits = logits[:, cfg.frontend_seq:]
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
@@ -264,6 +326,9 @@ def layer_cache_struct(cfg: ArchConfig, B: int, S: int, dtype):
     """One layer's cache entries as nested tuples of (shape, dtype)."""
     if cfg.family == "ssm":
         return ssd_cache_struct(cfg, B, dtype)
+    if cfg.family == "hybrid":
+        return (kv_cache_struct(cfg, B, S, dtype),
+                ssd_cache_struct(cfg, B, dtype))
     return kv_cache_struct(cfg, B, S, dtype)
 
 
@@ -277,9 +342,10 @@ def _zeros(struct, L: int, device):
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, *, device="cuda") -> dict:
     """Zeroed ``{"layers": entries}`` stacked on L: (k, v), each
-    (L, B, max_seq, Hkv, hd), for the dense family; ((conv_x, conv_B,
-    conv_C), ssm) for the SSD family (``ssd_cache_struct``; ``max_seq``
-    bounds no SSD shape). On the card unless ``device`` says otherwise;
+    (L, B, max_seq, Hkv, hd), for the attention families; ((conv_x,
+    conv_B, conv_C), ssm) for the SSD family (``ssd_cache_struct``;
+    ``max_seq`` bounds no SSD shape); both, ((k, v), (conv, ssm)), for
+    the hybrid family. On the card unless ``device`` says otherwise;
     raises when there is no card."""
     registry.check_ported(cfg)
     device = torch.device(device)
@@ -297,6 +363,12 @@ def _decode_layer(p, x, cache, cache_len: int, cfg: ArchConfig, *, window,
         conv, ssm = cache
         y, conv, ssm = blocks.ssd_decode(p["ssd"], x, conv, ssm, cfg)
         return x + y, (conv, ssm)
+    if cfg.family == "hybrid":
+        (k, v), (conv, ssm) = cache
+        y, k, v, conv, ssm = blocks.hybrid_decode(
+            p["mix"], x, k, v, conv, ssm, cache_len, cfg, window=window)
+        x = x + y
+        return x + blocks.mlp_fwd(p["mlp"], x, cfg), ((k, v), (conv, ssm))
     k, v = cache
     y, k, v = blocks.attn_decode(p["attn"], x, k, v, cache_len, cfg,
                                  window=window, prefix_len=prefix_len)
@@ -311,17 +383,41 @@ def decode_step(params, cache: dict, batch: dict, cfg: ArchConfig, *,
 
     Returns (logits (B, 1, V), cache). The cache is updated in place —
     the new token's K/V at slot ``cache_len``, or each SSD layer's conv
-    tail and state — and the returned cache is the same object.
+    tail and state — and the returned cache is the same object. As in the
+    JAX package, the vision arch's image prefix lives in cache slots
+    ``[0, frontend_seq)`` and the token's embedding is scaled; each
+    layer's window is ``registry.window_array`` at a sequence hint read
+    off the cache's shapes (``_seq_hint``).
     """
+    registry.check_ported(cfg)
     params = cast_tree(params, dtype)
     cache_len = int(batch["cache_len"])
-    x, prefix_len = embed_inputs(params, batch, cfg, dtype)
+    prefix_len = cfg.frontend_seq if cfg.frontend == "vision" else 0
+    x = params["embed"].to(dtype)[batch["tokens"]]
+    if cfg.frontend == "vision":
+        x = x * _text_scale(cfg, dtype, x.device)
     L = registry.n_scanned_layers(cfg)
+    windows = _windows(cfg, _seq_hint(cache))
     for i, p_layer in enumerate(_layers(params["layers"], L)):
         x, _ = _decode_layer(p_layer, x, _cache_slice(cache["layers"], i),
-                             cache_len, cfg, window=None,
+                             cache_len, cfg, window=windows[i],
                              prefix_len=prefix_len)
     return unembed(params, x, cfg), cache
+
+
+def _seq_hint(cache: dict) -> int:
+    """The JAX package's decode-time sequence hint: the largest dim 2 of a
+    stacked cache leaf of rank >= 3 (a KV cache's slot count, beside an
+    SSD state's head count and a conv tail's width)."""
+    def leaves(tree):
+        if isinstance(tree, tuple):
+            for t in tree:
+                yield from leaves(t)
+        else:
+            yield tree
+
+    return max((leaf.shape[2] for leaf in leaves(cache["layers"])
+                if leaf.dim() >= 3), default=0)
 
 
 def prefill_step(params, batch: dict, cfg: ArchConfig, *,

@@ -1,11 +1,12 @@
 """Per-architecture parameter trees + layer metadata.
 
 ``param_specs(cfg)`` returns the full abstract parameter tree (ParamSpec
-leaves) and ``count_params`` sums it analytically. The port holds the
-dense text family (dense GQA / MHA, QKV bias, qk-norm, tied or untied
-embeddings) and the attention-free SSD family (mamba2); every other
-family raises ``NotImplementedError`` naming the ROADMAP item that ports
-it, here, before any block is reached.
+leaves) of every arch, as the JAX package's; ``count_params`` sums it
+analytically (``active_only=True`` counts only the parameters touched
+per token: MoE's top_k and shared experts). The model's forward and
+cache run the dense, SSD, hybrid, audio-encoder and vision-prefix
+families; ``check_ported`` refuses MoE and MLA there, naming the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -19,37 +20,38 @@ from repro_torch.models.param import spec, stack_specs, tree_num_params
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for an arch outside this slice."""
+    """Raise ``NotImplementedError`` for an arch whose forward the port
+    does not run yet (MoE dispatch, multi-head latent attention)."""
     why = None
-    if cfg.family == "ssm":
-        return
-    if cfg.family == "hybrid":
-        why = ("the hybrid block and sliding-window attention on the card "
-               "(ROADMAP A7)")
-    elif cfg.moe is not None:
-        why = "MoE dispatch (ROADMAP A7)"
+    if cfg.moe is not None:
+        why = "MoE dispatch"
     elif cfg.mla is not None:
-        why = "multi-head latent attention (ROADMAP A7)"
-    elif cfg.frontend is not None:
-        why = f"the {cfg.frontend} frontend (ROADMAP A7)"
-    elif cfg.encoder_only:
-        why = "encoder-only attention (ROADMAP A7)"
-    elif cfg.sliding_window:
-        why = "sliding-window attention (ROADMAP A7)"
-    elif cfg.family != "dense":
-        why = f"the {cfg.family!r} family (ROADMAP A7)"
+        why = "multi-head latent attention"
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {why} is not ported yet; the port runs the dense "
-            f"text family and the SSD family")
+            f"{cfg.name}: {why} is not ported yet (ROADMAP A7b); its "
+            f"parameters can be counted, not run")
 
 
 def layer_specs(cfg: ArchConfig) -> dict:
     """ParamSpec tree for one (stacked) layer."""
-    check_ported(cfg)
-    if cfg.family == "ssm":
+    fam = cfg.family
+    if fam == "ssm":
         return {"ssd": blocks.ssd_specs(cfg)}
+    if fam == "hybrid":
+        return {"mix": blocks.hybrid_specs(cfg),
+                "mlp": blocks.mlp_specs(cfg)}
+    if fam == "moe":
+        attn = (blocks.mla_specs(cfg) if cfg.mla else blocks.attn_specs(cfg))
+        return {"attn": attn, "moe": blocks.moe_specs(cfg)}
+    # dense / audio / vlm
     return {"attn": blocks.attn_specs(cfg), "mlp": blocks.mlp_specs(cfg)}
+
+
+def dense0_specs(cfg: ArchConfig) -> dict:
+    """DeepSeek-style leading dense layer(s) (MLA attn + wide dense MLP)."""
+    return {"attn": blocks.mla_specs(cfg),
+            "mlp": blocks.mlp_specs(cfg, d_ff=cfg.d_ff)}
 
 
 def n_scanned_layers(cfg: ArchConfig) -> int:
@@ -58,21 +60,34 @@ def n_scanned_layers(cfg: ArchConfig) -> int:
 
 
 def param_specs(cfg: ArchConfig) -> dict:
-    check_ported(cfg)
     D, Vp = cfg.d_model, cfg.vocab_padded
     tree: dict[str, Any] = {
         "embed": spec((Vp, D), ("vocab", "embed"), init_scale=1.0),
         "final_norm": spec((D,), ("embed",), init="ones"),
     }
+    if cfg.frontend:
+        tree["frontend_proj"] = spec((cfg.frontend_dim, D),
+                                     ("frontend", "embed"))
     if not cfg.tie_embeddings:
         tree["lm_head"] = spec((D, Vp), ("embed", "vocab"))
+    if cfg.moe and cfg.moe.first_dense_layers:
+        tree["dense0"] = dense0_specs(cfg)
     tree["layers"] = stack_specs(n_scanned_layers(cfg), layer_specs(cfg))
     return tree
 
 
-def count_params(cfg: ArchConfig) -> int:
-    """Analytic parameter count from the spec tree (exact for the impl)."""
-    return tree_num_params(param_specs(cfg))
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Analytic parameter count from the spec tree (exact for the impl);
+    ``active_only`` replaces the whole expert bank by the top_k experts
+    a token passes through."""
+    total = tree_num_params(param_specs(cfg))
+    if active_only and cfg.moe:
+        mo = cfg.moe
+        L = n_scanned_layers(cfg)
+        per_expert = 3 * cfg.d_model * mo.d_ff_expert
+        total -= L * mo.n_experts * per_expert
+        total += L * mo.top_k * per_expert
+    return total
 
 
 def global_layer_indices(cfg: ArchConfig) -> list[int]:

@@ -9,6 +9,11 @@
   ``flash_attention_p`` / ``decode_attention_p`` run in interpret mode at
   the reference's own cases (``tests/test_kernels.py``: ``FA_CASES``,
   ``DA_CASES``) and tolerances (2e-5 float32, 2e-2 bf16);
+* the plain versions of B3 and B4 with a sliding window and a prefix (the
+  masks the Pallas kernels lack) against the JAX model path's
+  ``plain_attention`` / ``decode_attention``, at 1e-5; the key tiles B3
+  loads (``live_tiles``) and the slots B4's splits cover (``live_slots``)
+  against the masks themselves;
 * that the wrappers take the plain versions for CPU tensors and never
   reach a kernel.
 
@@ -28,9 +33,11 @@ from repro.models import common as jc  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    SPLIT_LEN, decode_attention, decode_attention_plain, decode_splits)
+    SPLIT_LEN, decode_attention, decode_attention_plain, decode_splits,
+    live_slots)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    TILE, flash_attention, flash_attention_plain, live_tiles)
+from repro_torch.kernels.ref import attention_mask, decode_live  # noqa
 from repro_torch.models import common as tc  # noqa: E402
 
 # float32 on both sides; only the summation order differs
@@ -234,9 +241,11 @@ def test_wrappers_reject_bad_arguments(bad):
 
 
 def test_model_attention_on_the_card_refuses_other_masks():
-    """The CUDA route raises for masks kernel B3/B4 do not take; it does
-    not fall back to a plain form. (Checked on the dispatch alone: the
-    meta device stands in for the card so no kernel runs.)"""
+    """The CUDA route raises for what kernels B3 / B4 / B9 do not take --
+    a query offset, causal attention with Sq != Sk, and any mask but plain
+    causal under grad (B9 has none of them); it does not fall back to a
+    plain form. (Checked on the dispatch alone: the meta device stands in
+    for the card so no kernel runs.)"""
     q = torch.zeros(1, 8, 4, 16, device="meta")
     k = torch.zeros(1, 8, 2, 16, device="meta")
 
@@ -249,13 +258,17 @@ def test_model_attention_on_the_card_refuses_other_masks():
             return Cuda()
 
     qc = q.as_subclass(Q)
-    for kw in (dict(causal=True, window=16), dict(causal=False),
-               dict(causal=True, prefix_len=4), dict(causal=True,
-                                                      q_offset=3)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(causal=True, q_offset=3), dict(causal=False,
+                                                   q_offset=1)):
+        with pytest.raises(NotImplementedError, match="query offset"):
             tc.attention(qc, k, k, **kw)
-    with pytest.raises(NotImplementedError):
-        tc.decode_attention(qc[:, :1], k, k, 3, window=4)
+    with pytest.raises(NotImplementedError, match="Sq != Sk"):
+        tc.attention(qc[:, :5], k, k, causal=True)
+    qg = q.clone().requires_grad_().as_subclass(Q)
+    for kw in (dict(causal=True, window=4), dict(causal=False),
+               dict(causal=True, prefix_len=4)):
+        with pytest.raises(NotImplementedError, match="B9"):
+            tc.attention(qg, k, k, **kw)
 
 
 def _wide(dtype, offset, D=64, extra=16):
@@ -313,3 +326,111 @@ def test_rows_aligned_ignores_the_stride_of_length_one_dims():
     assert not rows_aligned(buf.as_strided((2, 2, 4, 64), (512, 3, 64, 1)))
     dense = buf[:1024].view(2, 2, 4, 64)
     assert kernel_strides(dense) == dense.stride()[:3]
+
+
+# ------------------------------------ B3 / B4 masks beyond the Pallas ones
+
+@pytest.mark.parametrize("heads", HEADS, ids=lambda h: f"H{h[0]}kv{h[1]}")
+@pytest.mark.parametrize("mask", MASKS + [(True, 1, 0), (True, 100, 0),
+                                          (False, None, 8), (True, 7, 13)],
+                         ids=str)
+def test_flash_plain_masks_match_jax(mask, heads):
+    """B3's plain version with a window and a prefix against the JAX model
+    path's ``plain_attention``: the kernel's masks are the reference's."""
+    causal, window, prefix = mask
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(13, 2, 96, *heads)
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    got = flash_attention_plain(tq, tk, tv, **kw)
+    _close(got, jc.plain_attention(jq, jk, jv, **kw), F32_ATOL)
+    _close(flash_attention(tq, tk, tv, **kw), got, 0.0)  # the CPU route
+    # D = 80 and 256, the head dims of hubert and paligemma
+    for D in (80, 256):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv(14, 1, 40, *heads, D=D)
+        _close(flash_attention_plain(tq, tk, tv, **kw),
+               jc.plain_attention(jq, jk, jv, **kw), F32_ATOL)
+
+
+@pytest.mark.parametrize("window,prefix", [(None, 0), (1, 0), (8, 0),
+                                           (8, 4), (8, 30), (64, 0),
+                                           (200, 5)])
+@pytest.mark.parametrize("heads", [(8, 1), (4, 2)],
+                         ids=lambda h: f"H{h[0]}kv{h[1]}")
+@pytest.mark.parametrize("cache_len", [0, 7, 8, 39, 130])
+def test_decode_plain_masks_match_jax(cache_len, heads, window, prefix):
+    H, Hkv = heads
+    (jq, tq) = _both(_normal(15, 2, 1, H, 16))
+    (jk, tk) = _both(_normal(16, 2, 140, Hkv, 16))
+    (jv, tv) = _both(_normal(17, 2, 140, Hkv, 16))
+    kw = dict(window=window, prefix_len=prefix)
+    got = decode_attention_plain(tq, tk, tv, cache_len, **kw)
+    _close(got, jc.decode_attention(jq, jk, jv, jnp.int32(cache_len), **kw),
+           F32_ATOL)
+    _close(decode_attention(tq, tk, tv, cache_len, **kw), got, 0.0)
+
+
+@pytest.mark.parametrize("window,prefix", [(None, 0), (1, 0), (16, 0),
+                                           (16, 5), (16, 40), (63, 64),
+                                           (100, 0), (200, 3)])
+@pytest.mark.parametrize("cache_len", [0, 5, 63, 64, 65, 150, 2079])
+def test_decode_splits_cover_the_windowed_live_slots(cache_len, window,
+                                                     prefix):
+    """B4's plan with a window (and a prefix beside it): the splits, in
+    logical order, tile exactly the slots ``ref.decode_live`` keeps."""
+    n_live, n_pre, first = live_slots(cache_len, window, prefix)
+    n_split, length = decode_splits(n_live, first, n_pre)
+    slot = lambda u: u if u < n_pre else first + u - n_pre  # noqa: E731
+    covered = [slot(u) for s in range(n_split)
+               for u in range(s * length, min((s + 1) * length, n_live))]
+    live = decode_live(cache_len + 1, cache_len, window=window,
+                       prefix_len=prefix)
+    assert covered == torch.nonzero(live).flatten().tolist()
+    assert all(s * length < n_live for s in range(n_split))
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window,prefix", [
+    (4096, 4096, True, 2048, 0), (300, 300, True, 40, 0),
+    (300, 300, True, 100, 0), (300, 300, True, None, 70),
+    (2304, 2304, True, None, 256), (500, 500, True, 64, 130),
+    (1500, 1500, False, None, 0), (130, 200, False, None, 0),
+    (130, 300, True, None, 0), (200, 200, False, 50, 0)])
+def test_live_tiles_count_the_mask(Sq, Sk, causal, window, prefix):
+    """``live_tiles`` against a brute-force count over the mask, and the
+    tile list the kernel walks (``key_tiles`` in attention.cu: the prefix's
+    tiles, then the band) -- the count a CUDA call reports in
+    ``tiles_loaded``."""
+    got = live_tiles(Sq, Sk, causal=causal, window=window,
+                     prefix_len=prefix)
+    ok = attention_mask(Sq, Sk, causal=causal, window=window,
+                        prefix_len=prefix).numpy()
+    want, walk = [], []
+    for qt in range(-(-Sq // TILE)):
+        rows = ok[qt * TILE:(qt + 1) * TILE]
+        want.append(sum(bool(rows[:, kt * TILE:(kt + 1) * TILE].any())
+                        for kt in range(-(-Sk // TILE))))
+        q0, q_last = qt * TILE, min(qt * TILE + TILE, Sq) - 1
+        hi = min(q_last + 1, Sk) if causal else Sk
+        lo = max(0, q0 - window + 1) if window else 0
+        pt = -(-min(prefix, Sk) // TILE)
+        end = max(-(-hi // TILE), pt)
+        lo_t = min(lo // TILE, end)
+        walk.append(min(pt, lo_t) + end - lo_t)
+    assert got.tolist() == want == walk
+    if (Sq, window) == (4096, 2048):  # hymba's windowed layer at S = 4096
+        assert int(got.sum()) == 1584
+
+
+@pytest.mark.parametrize("bad", ["window0", "window_cross", "prefix",
+                                 "decode_window0"])
+def test_wrappers_reject_bad_masks(bad):
+    q = torch.zeros(1, 8, 4, 16)
+    k = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError):
+        if bad == "window0":
+            flash_attention(q, k, k, window=0)
+        elif bad == "window_cross":
+            flash_attention(q, torch.zeros(1, 9, 2, 16),
+                            torch.zeros(1, 9, 2, 16), window=4)
+        elif bad == "prefix":
+            flash_attention(q, k, k, prefix_len=-1)
+        else:
+            decode_attention(q[:, :1], k, k, 5, window=0)

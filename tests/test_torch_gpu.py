@@ -355,6 +355,148 @@ def test_decode_attention_merges_any_number_of_splits(card, dtype):
                                rtol=tol)
 
 
+# ---------------------------------------- B3 / B4: windows, prefixes, D 80/256
+MASK_CASES = [  # (S, H, Hkv, D, causal, window, prefix)
+    (300, 4, 2, 64, True, 40, 0),      # a window smaller than a tile
+    (300, 4, 2, 64, True, 100, 0),     # not a multiple of 64
+    (640, 5, 1, 64, True, 128, 0),     # on tile edges, G = 5 (hymba)
+    (300, 8, 1, 256, True, None, 70),  # a prefix not a multiple of 64
+    (320, 8, 1, 256, True, None, 64),  # on a tile edge (paligemma's D)
+    (500, 4, 2, 64, True, 64, 130),    # window and prefix together
+    (150, 16, 16, 80, False, None, 0),  # hubert: bidirectional, D 80
+    (200, 4, 2, 80, True, 50, 0),
+    (130, 2, 2, 256, False, 30, 0)]    # a window without causal order
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MASK_CASES, ids=str)
+def test_flash_attention_masks_match_plain(card, dtype, case):
+    """B3 with a sliding window and / or a prefix, and at head dims 80
+    and 256, against its plain version; the key tiles each query tile
+    loaded equal the count the mask allows (``live_tiles``)."""
+    from repro_torch.kernels.flash_attention import live_tiles
+    S, H, Hkv, D, causal, window, prefix = case
+    q, k, v = _attn_inputs(card, dtype, S + D, (2, S, H, D), (2, S, Hkv, D),
+                           (2, S, Hkv, D))
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    tiles = torch.zeros((2, H, -(-S // 64)), dtype=torch.int32, device=card)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, tiles_loaded=tiles, **kw)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, **kw)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+    assert torch.equal(tiles, live_tiles(S, S, device=card, **kw)
+                       .expand(2, H, -1))
+    assert torch.equal(got, flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("S", [1, 17, 64, 130, 1500])
+@pytest.mark.parametrize("D", [80, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_head_dims_80_and_256(card, dtype, D, S):
+    """The new head dims, causal and bidirectional (D = 80 fills its
+    second 64-column TMA box with zeros past column 80)."""
+    q, k, v = _attn_inputs(card, dtype, S + D, (2, S, 8, D), (2, S, 1, D),
+                           (2, S, 1, D))
+    tol = ATTN_TOL[dtype]
+    for causal in (True, False):
+        got = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("D", [80, 256])
+def test_flash_attention_bf16_unaligned_new_head_dims(card, D):
+    """bf16 rows off a 16-byte boundary at D 80 and 256: the wrapper
+    copies them (TMA), the result is the aligned call's, bit for bit."""
+    q, k, v = _attn_inputs(card, torch.bfloat16, D, (1, 130, 4, D),
+                           (1, 130, 2, D), (1, 130, 2, D))
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        assert out.data_ptr() % 16 != 0
+        return out
+
+    kw = dict(causal=True, window=70, prefix_len=9)
+    assert torch.equal(flash_attention(off(q), off(k), off(v), **kw),
+                       flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_len", [0, 40, 99, 100, 101, 300, 2079])
+@pytest.mark.parametrize("D,groups,prefix", [(64, 5, 0), (256, 8, 0),
+                                             (128, 2, 30)])
+def test_decode_attention_window_matches_plain(card, D, groups, prefix,
+                                               cache_len, dtype):
+    """B4 with a window of 100 at cache lengths below, at and above it
+    (hymba's G = 5 at D 64, paligemma's G = 8 at D 256, a prefix beside
+    the window): against the plain version, no slot outside the live ones
+    read (NaN there), a second call bit-identical."""
+    from repro_torch.kernels.ref import decode_live
+    window, H = 100, 2 * groups
+    q, kc, vc = _attn_inputs(card, dtype, cache_len + D, (3, 1, H, D),
+                             (3, 2080, 2, D), (3, 2080, 2, D))
+    kw = dict(window=window, prefix_len=prefix)
+    want = decode_attention_plain(q, kc, vc, cache_len, **kw)
+    dead = ~decode_live(2080, cache_len, device=card, **kw)
+    kc[:, dead], vc[:, dead] = float("nan"), float("nan")
+    got = decode_attention(q, kc, vc, cache_len, **kw)
+    assert torch.equal(got, decode_attention(q, kc, vc, cache_len, **kw))
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_head_dim_256(card, dtype):
+    q, kc, vc = _attn_inputs(card, dtype, 256, (4, 1, 8, 256),
+                             (4, 2336, 1, 256), (4, 2336, 1, 256))
+    for cache_len in (0, 63, 64, 2335):
+        got = decode_attention(q, kc, vc, cache_len)
+        want = decode_attention_plain(q, kc, vc, cache_len)
+        tol = ATTN_TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+def test_reduced_families_on_the_card(card):
+    """Reduced hymba (5 layers: windowed ones among them), paligemma and
+    hubert on the card against the CPU, float32, and their launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params, tree_map
+    for arch, kw in (("hymba-1.5b", dict(n_layers=5)), ("paligemma-3b", {}),
+                     ("hubert-xlarge", {})):
+        cfg = dataclasses.replace(get_arch(arch).reduced(), **kw)
+        params = init_params(registry.param_specs(cfg),
+                             torch.Generator(device=card).manual_seed(0),
+                             card)
+        cpu = tree_map(lambda t: t.cpu(), params)
+        g = torch.Generator().manual_seed(1)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40),
+                                         generator=g)}
+        if cfg.frontend:
+            n = 40 if cfg.frontend == "audio" else cfg.frontend_seq
+            batch["frames" if cfg.frontend == "audio" else "patches"] = \
+                torch.randn((2, n, cfg.frontend_dim), generator=g)
+        before = flash_attention.launches
+        with torch.no_grad():
+            got, _ = M.forward(params, {k: v.to(card) for k, v in
+                                        batch.items()}, cfg,
+                               dtype=torch.float32)
+            want, _ = M.forward(cpu, batch, cfg, dtype=torch.float32)
+        assert flash_attention.launches == before + cfg.n_layers
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
 def test_reduced_server_on_the_card(card):
     """The reduced qwen2.5-3b served on the card (head dim 16): one B3
     launch per layer at prefill, one B4 per layer and step, and prefill

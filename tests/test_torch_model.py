@@ -2,9 +2,9 @@
 
 * configs: every arch name resolves, and the derived properties and the
   reduced configs equal the reference's;
-* ``count_params`` equals the reference's for every dense text arch and
-  for mamba2-780m (780.4 M at full width) and raises
-  ``NotImplementedError`` for the families not ported yet;
+* ``count_params`` (with and without ``active_only``) equals the
+  reference's for every arch, full and reduced; MoE and MLA still raise
+  ``NotImplementedError`` at the forward and cache entry points;
 * reduced qwen-family archs and mamba2-780m: ``prefill_step`` and
   ``decode_step`` on the JAX package's own weights (carried across by
   ``params_from_numpy``), both sides in float32. Two layers of float32
@@ -43,8 +43,10 @@ from repro_torch.models.param import (  # noqa: E402
 
 DENSE_TEXT = ["qwen2.5-3b", "qwen2.5-14b", "qwen3-32b", "qwen1.5-4b"]
 SSM = ["mamba2-780m"]
-NOT_PORTED = ["hymba-1.5b", "hubert-xlarge", "granite-moe-1b-a400m",
-              "deepseek-v2-236b", "paligemma-3b"]
+# the families whose forward runs since the hybrid, audio and vision slice
+A7A = ["hymba-1.5b", "hubert-xlarge", "paligemma-3b"]
+NOT_PORTED = ["granite-moe-1b-a400m", "deepseek-v2-236b"]
+ALL_ARCHS = DENSE_TEXT + SSM + A7A + NOT_PORTED
 LOGIT_ATOL = 1e-4  # float32 both sides; see the module docstring
 
 
@@ -66,7 +68,7 @@ def test_every_arch_name_resolves():
     assert list_archs() == ref_list_archs()
 
 
-@pytest.mark.parametrize("arch", DENSE_TEXT + SSM + NOT_PORTED)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_and_reduced_configs_equal_the_reference(arch):
     for ours, ref in ((get_arch(arch), ref_get_arch(arch)),
                       (get_arch(arch).reduced(), ref_get_arch(arch).reduced())):
@@ -76,29 +78,51 @@ def test_configs_and_reduced_configs_equal_the_reference(arch):
             assert getattr(ours, prop) == getattr(ref, prop), prop
 
 
-@pytest.mark.parametrize("arch", DENSE_TEXT + SSM)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_count_params_equals_the_reference(arch, reduced):
     ours, ref = get_arch(arch), ref_get_arch(arch)
     if reduced:
         ours, ref = ours.reduced(), ref.reduced()
     assert registry.count_params(ours) == jreg.count_params(ref)
+    assert ours.param_count() == ref.param_count()
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+@pytest.mark.parametrize("reduced", [False, True])
+def test_active_count_params_equals_the_reference(arch, reduced):
+    """``active_only``: MoE counts top_k of its experts (and the shared
+    ones); every other family counts everything."""
+    ours, ref = get_arch(arch), ref_get_arch(arch)
+    if reduced:
+        ours, ref = ours.reduced(), ref.reduced()
+    got = registry.count_params(ours, active_only=True)
+    assert got == jreg.count_params(ref, active_only=True)
+    assert ours.active_param_count() == ref.active_param_count() == got
+    if ours.moe is None:
+        assert got == registry.count_params(ours)
+    else:
+        assert got < registry.count_params(ours)
+
+
+def test_param_specs_carry_the_jax_tree_of_every_family():
+    """The same leaf paths and shapes as the JAX package's trees, so
+    ``params_from_numpy`` carries each family's weights across."""
+    for arch in ALL_ARCHS:
+        cfg, rcfg = get_arch(arch).reduced(), ref_get_arch(arch).reduced()
+        ours = {p: s.shape for p, s in tree_leaves(registry.param_specs(cfg))}
+        ref = {tuple(str(getattr(k, "key", k)) for k in path): leaf.shape
+               for path, leaf in jax.tree_util.tree_flatten_with_path(
+                   jreg.param_specs(rcfg),
+                   is_leaf=lambda x: hasattr(x, "shape"))[0]}
+        assert ours == ref, arch
 
 
 @pytest.mark.parametrize("arch", NOT_PORTED)
 def test_unported_families_raise(arch):
     cfg = get_arch(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.count_params(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.init_cache(cfg.reduced(), 1, 8, device="cpu")
-
-
-def test_hybrid_names_what_it_still_needs():
-    with pytest.raises(NotImplementedError, match="hybrid block") as e:
-        registry.count_params(get_arch("hymba-1.5b"))
-    assert "sliding-window" in str(e.value) and "SSD blocks" not in \
-        str(e.value)
 
 
 def test_init_cache_runs_on_the_card_unless_told(monkeypatch):

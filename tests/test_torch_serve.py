@@ -1,7 +1,8 @@
 """The port's batched server against the JAX package's, on the CPU.
 
-Both servers run the reduced qwen2.5-3b, or the reduced mamba2-780m, in
-bf16 on the same weights (the JAX server's own, carried across by
+Both servers run the reduced qwen2.5-3b, mamba2-780m, hymba-1.5b or
+paligemma-3b (behind its 4 zero patch embeddings, counted in the cache's
+length) in bf16 on the same weights (the JAX server's own, carried across by
 ``params_from_numpy``) and are fed the same tokens (the JAX server's) at
 every step, so each step's logits compare. bf16 is rounded at other
 places on the two sides: the gap measured on these cases is at most
@@ -12,7 +13,9 @@ the tolerance (each side may move a logit by the tolerance); elsewhere
 the tie may break either way. mamba2 is compared for prompts of at least
 W-1 = 3 tokens only: for shorter ones the JAX server grafts the conv
 tail into its cache left-aligned (ROADMAP Queue C), and the port's
-decode is held to its own forward instead (``test_torch_model.py``).
+decode is held to its own forward instead (``test_torch_model.py``);
+hymba's SSD half likewise. The reduced hymba's two layers are both
+global (its sliding window is tested in ``test_torch_families.py``).
 """
 import numpy as np
 import pytest
@@ -22,6 +25,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 
 from repro.launch.serve import Server as RefServer  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
@@ -40,8 +44,10 @@ def _recording(fn, sink, to_np):
 
 
 def _against_the_jax_server(arch, B, S0, n, seed):
-    ref = RefServer(arch, batch=B, max_seq=S0 + n + 2, seed=seed)
-    srv = serve.Server(arch, batch=B, max_seq=S0 + n + 2, device="cpu")
+    n_img = get_arch(arch).reduced().frontend_seq  # image slots first
+    ref = RefServer(arch, batch=B, max_seq=n_img + S0 + n + 2, seed=seed)
+    srv = serve.Server(arch, batch=B, max_seq=n_img + S0 + n + 2,
+                       device="cpu")
     srv.params = params_from_numpy(jax.tree.map(np.asarray, ref.params),
                                    device="cpu", dtype=torch.bfloat16)
     want, got = [], []
@@ -60,7 +66,8 @@ def _against_the_jax_server(arch, B, S0, n, seed):
         nxt = ref.step(tok_ref)
         toks.append((nxt, srv.step(tok_ref)))  # the same input tokens
         tok_ref = nxt
-    assert srv.cache_len == ref.cache_len == S0 + n - 1
+    n_img = srv.cfg.frontend_seq
+    assert srv.cache_len == ref.cache_len == n_img + S0 + n - 1
     assert len(got) == len(want) == n
     for w, g, (tw, tg) in zip(want, got, toks):
         np.testing.assert_allclose(g, w, atol=LOGIT_ATOL, rtol=0)
@@ -79,6 +86,16 @@ def test_server_matches_the_jax_server(B, S0, n, seed):
                                          (2, 40, 4, 2)])
 def test_ssm_server_matches_the_jax_server(B, S0, n, seed):
     _against_the_jax_server("mamba2-780m", B, S0, n, seed)
+
+
+@pytest.mark.parametrize("B,S0,n,seed", [(2, 8, 6, 0), (3, 30, 5, 1)])
+def test_hybrid_server_matches_the_jax_server(B, S0, n, seed):
+    _against_the_jax_server("hymba-1.5b", B, S0, n, seed)
+
+
+@pytest.mark.parametrize("B,S0,n,seed", [(2, 8, 6, 0), (3, 30, 5, 1)])
+def test_vlm_server_matches_the_jax_server(B, S0, n, seed):
+    _against_the_jax_server("paligemma-3b", B, S0, n, seed)
 
 
 def test_generate_shape_and_range():
@@ -112,8 +129,13 @@ def test_server_refuses_what_does_not_fit():
         srv.step(np.zeros(2, np.int32))
     with pytest.raises(ValueError):
         serve.Server("hubert-xlarge", device="cpu")
-    with pytest.raises(NotImplementedError):
-        serve.Server("hymba-1.5b", device="cpu")
+    with pytest.raises(NotImplementedError):  # MoE waits for ROADMAP A7b
+        serve.Server("granite-moe-1b-a400m", device="cpu")
+    vlm = serve.Server("paligemma-3b", batch=2, max_seq=10, device="cpu")
+    with pytest.raises(ValueError):  # 4 image slots + 6 tokens: full
+        vlm.prefill_prompts(np.zeros((2, 6), np.int32))
+    vlm.prefill_prompts(np.zeros((2, 5), np.int32))
+    assert vlm.cache_len == 9
 
 
 def test_ssm_generate_shape_range_and_no_kernel():
@@ -130,7 +152,8 @@ def test_ssm_generate_shape_range_and_no_kernel():
         srv.prefill_prompts(np.zeros((2, 16), np.int32))
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-780m",
+                                  "hymba-1.5b", "paligemma-3b"])
 def test_main_serves_on_the_cpu(capsys, arch):
     serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
                 "--tokens", "3"])

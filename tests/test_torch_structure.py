@@ -22,9 +22,10 @@ AB = ROOT / "chip_ab.py"
 K2_PROBE = ROOT / "chip_k2_readahead.py"
 WINDOW_PROBE = ROOT / "chip_profiler_window.py"
 B7_VARIANTS = ROOT / "chip_b7_variants.py"
+ATTN_BITS = ROOT / "chip_attention_bits.py"
 EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
 PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE, AB, K2_PROBE, WINDOW_PROBE,
-                                         B7_VARIANTS] + EXAMPLES
+                                         B7_VARIANTS, ATTN_BITS] + EXAMPLES
 
 FOREIGN_IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)", re.MULTILINE)
