@@ -69,7 +69,16 @@ path, read just after) that each path really went through its kernels:
   forward (48 layers, head dim 80, bidirectional B3) over 4 x 1 500
   seeded frames; each, cut to 2 layers (hymba 5) in float32, against
   the CPU. B3 and B4 are also held to their plain versions with every
-  new mask and head dim, B3's loaded tiles to the mask's count.
+  new mask and head dim, B3's loaded tiles to the mask's count;
+* serving granite-moe-1b-a400m at full width (24 layers of GQA attention
+  and 32 routed experts top-8; B3 at prefill, B4 at every step) and
+  deepseek-v2-236b at every published width cut to 3 layers (its leading
+  dense layer and 2 MoE layers of 160 routed and 2 shared experts, top-6,
+  multi-head latent attention: B3 at q/k head dim 192 and v 128 at
+  prefill, the absorbed decode plain), the same batch, prompt and checks
+  (decode vs forward and card vs CPU over the tokens routed alike by
+  both runs; deepseek's parity with 16 routed experts); B3 at (192, 128)
+  held to its plain version on its own (``kernels.b3_mla``).
 
 It has no CPU route: no card, a failed build, a failed launch or a
 failed comparison each end the run with a non-zero exit code. Every
@@ -197,6 +206,8 @@ SSM_ARCH = "mamba2-780m"
 HYBRID_ARCH = "hymba-1.5b"
 VLM_ARCH = "paligemma-3b"
 AUDIO_ARCH = "hubert-xlarge"
+MOE_ARCH = "granite-moe-1b-a400m"
+MLA_ARCH = "deepseek-v2-236b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 32
 # per served arch: the published widths (layers, d_model, vocab), the
 # kernels each layer launches at prefill and at every decode step, the
@@ -227,7 +238,31 @@ SERVE_PATHS = {
                "parity_prompt": 200},
     AUDIO_ARCH: {"widths": (48, 1280, 504), "prefill": "flash_attention",
                  "step": None, "parity_layers": 2},
+    MOE_ARCH: {"widths": (24, 1024, 49155), "prefill": "flash_attention",
+               "step": "decode_attention", "rel_l2_bf16": 0.05,
+               "prompt": SERVE_PROMPT, "parity_layers": 2,
+               "parity_prompt": 200},
+    # 236 B parameters do not fit one card: the published widths, cut to
+    # 3 layers (the leading dense layer and 2 MoE layers of 160 routed
+    # experts), 9.3 B parameters; its decode step launches no hand kernel
+    # (the absorbed MLA decode is plain). Its parity phase also cuts the
+    # routed experts to 16 (top-6 and the 2 shared kept): 160 at full
+    # width are 21 GB of float32 on the host
+    MLA_ARCH: {"widths": (3, 5120, 102400), "layers": 3,
+               "prefill": "flash_attention", "step": None,
+               "rel_l2_bf16": 0.05, "prompt": SERVE_PROMPT,
+               "parity_layers": 2, "parity_prompt": 200,
+               "parity_moe": {"n_experts": 16}},
 }
+# MoE routing: two runs of one model can route a token to other experts
+# where its K-th and (K+1)-th router probabilities lie within their
+# rounding. The parity and decode-vs-forward checks compare the tokens
+# whose routing (experts, in slot order, and the capacity drops) is the
+# same in both runs, in every layer, at the token's position and -- in
+# float32 -- at every earlier position of its row; in float32 a routing
+# difference where the reference's top K + 1 probabilities are more than
+# this far apart fails the phase
+ROUTE_MARGIN_F32 = 1e-5
 # encode_audio_full: hubert-xlarge over 30 s of audio at 50 frames a
 # second, batch 4; the bf16 control of B3 at its inputs (time_b3)
 AUDIO_FRAMES = 1500
@@ -530,16 +565,18 @@ def attn_tolerance(dtype) -> float:
     return {torch.float32: 2e-5, torch.bfloat16: 2e-2}[dtype]
 
 
-def b3_bound(B, S, H, Hkv, D, dtype, live=None) -> tuple[float, str]:
+def b3_bound(B, S, H, Hkv, D, dtype, live=None, Dv=None) -> tuple[float,
+                                                                   str]:
     """Least time for self-attention over S tokens: q, k, v read and the
     output written once; the live score entries per (batch, head) --
     ``live``, or the causal S(S+1)/2 -- at 2 D operations each for QK and
-    for PV."""
+    2 Dv for PV (``Dv``, v's head dim, defaults to D)."""
     import torch
+    Dv = D if Dv is None else Dv
     el = 2 if dtype == torch.bfloat16 else 4
-    nbytes = el * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+    nbytes = el * (B * S * H * (D + Dv) + B * S * Hkv * (D + Dv))
     live = S * (S + 1) / 2 if live is None else live
-    flops = 4 * B * H * D * live
+    flops = 2 * B * H * (D + Dv) * live
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
@@ -801,6 +838,85 @@ def check_attention_masks(dev) -> dict:
     return out
 
 
+# B3 at multi-head latent attention's head dims (q/k 192 = nope 128 +
+# rope 64, v 128 a view of stride 256 into the kv_b product, as mla_fwd
+# makes them): (B, S, H), causal; and deepseek-v2's prefill shape
+B3_MLA_CASES = ((2, 1, 4, True), (2, 17, 4, True), (1, 130, 8, False),
+                (2, 700, 4, True), (1, 2049, 2, True), (1, 300, 4, False))
+B3_MLA_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 128)
+
+
+def mla_attention_inputs(gen, B, S, H, dtype, dev):
+    """Random q (B, S, H, 192), k (its last 64 columns one vector
+    broadcast over the heads) and v (B, S, H, 128), a strided view, laid
+    out as ``blocks.mla_qkv`` makes them."""
+    import torch
+    q = torch.randn((B, S, H, 192), generator=gen, device=dev).to(dtype)
+    kv = torch.randn((B, S, H, 256), generator=gen, device=dev).to(dtype)
+    kr = torch.randn((B, S, 1, 64), generator=gen, device=dev).to(dtype)
+    k = torch.cat([kv[..., :128], kr.expand(B, S, H, 64)], dim=-1)
+    return q, k, kv[..., 128:]
+
+
+def check_b3_mla(dev) -> dict:
+    """B3 at (D, Dv) = (192, 128) against its plain version on the card,
+    float32 (allclose 2e-5) and bf16 (allclose 2e-2 and relative L2 <=
+    ``B3_REL_L2_BF16`` beside its 3-bit control), ``B3_MLA_CASES``: v read
+    in place through its stride (no copy), ``tiles_loaded`` equal to the
+    mask's count, a second call bit-identical; then timed at deepseek-v2's
+    prefill (``time_b3``: bound, plain, ``sdpa`` and its backend)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (TILE, flash_attention,
+                                                     flash_attention_plain,
+                                                     for_kernel, live_tiles)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {"cases": {}}
+    for B, S, H, causal in B3_MLA_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            what = f"flash_attention[(192, 128), S={S}, causal={causal}, {dn}]"
+            q, k, v = mla_attention_inputs(gen, B, S, H, dtype, dev)
+            check(for_kernel(v) is v, f"{what}: v was copied")
+            tiles = torch.zeros((B, H, -(-S // TILE)), dtype=torch.int32,
+                                device=dev)
+            got = flash_attention(q, k, v, causal=causal, tiles_loaded=tiles)
+            again = flash_attention(q, k, v, causal=causal)
+            want = flash_attention_plain(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape == (B, S, H, 128)
+                  and got.dtype == dtype, f"{what}: shape/dtype")
+            check(torch.equal(got, again),
+                  f"{what}: a second call is not bit-identical")
+            tol = attn_tolerance(dtype)
+            e = max_abs(got.float(), want.float())
+            check(torch.allclose(got.float(), want.float(), atol=tol,
+                                 rtol=tol), f"{what}: differs by {e}")
+            want_tiles = live_tiles(S, S, causal=causal, device=dev)
+            check(torch.equal(tiles, want_tiles.expand(B, H, -1)),
+                  f"{what}: loaded tiles {tiles[0, 0].tolist()}, the mask "
+                  f"allows {want_tiles.tolist()}")
+            rec = {"max_abs_err": e, "tiles_loaded": int(tiles[0, 0].sum())}
+            if dtype == torch.bfloat16 and S >= 64:
+                rec["rel_l2"] = b3_rel_l2(got, want)
+                rec["control_rel_l2"] = {f"p_{bits}_bits": b3_rel_l2(
+                    b3_rounded_p(q, k, v, bits, causal=causal), want)
+                    for bits in (7, B3_CONTROL_BITS)}
+                check(rec["rel_l2"] <= B3_REL_L2_BF16,
+                      f"{what}: relative L2 {rec['rel_l2']} > "
+                      f"{B3_REL_L2_BF16}")
+                ctrl = rec["control_rel_l2"][f"p_{B3_CONTROL_BITS}_bits"]
+                check(ctrl > B3_REL_L2_BF16,
+                      f"{what}: the control has relative L2 {ctrl} <= "
+                      f"{B3_REL_L2_BF16}")
+            out["cases"][f"B={B},S={S},H={H},causal={causal}/{dn}"] = rec
+    B, S, H = B3_MLA_SHAPE
+    q, k, v = mla_attention_inputs(gen, B, S, H, torch.bfloat16, dev)
+    out["model_shape"] = time_b3(q, k, v)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
 def b3_rounded_p(q, k, v, bits: int, causal=True, window=None,
                  prefix_len=0):
     """B3 (its mask: ``ref.attention_mask``) with the unnormalized
@@ -811,7 +927,8 @@ def b3_rounded_p(q, k, v, bits: int, causal=True, window=None,
     import torch
     from repro_torch.kernels.ref import attention_mask
     H, Hkv, D = q.shape[2], k.shape[2], q.shape[3]
-    k, v = (t.repeat_interleave(H // Hkv, dim=2) for t in (k, v))
+    if Hkv != H:
+        k, v = (t.repeat_interleave(H // Hkv, dim=2) for t in (k, v))
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
     s.masked_fill_(~attention_mask(
         s.shape[-2], s.shape[-1], causal=causal, window=window,
@@ -845,7 +962,7 @@ def time_b3(q, k, v, causal=True, window=None, prefix_len=0,
                                                      flash_attention_plain)
     from repro_torch.kernels.ref import attention_mask
     B, S, H, D = q.shape
-    Hkv = k.shape[2]
+    Hkv, Dv = k.shape[2], v.shape[3]
     mask = dict(causal=causal, window=window, prefix_len=prefix_len)
     got = flash_attention(q, k, v, **mask)
     want = flash_attention_plain(q, k, v, **mask)
@@ -885,9 +1002,10 @@ def time_b3(q, k, v, causal=True, window=None, prefix_len=0,
         kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (kt, vt))
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kr, vr, **sdpa)
-    bound, by = b3_bound(B, S, H, Hkv, D, q.dtype, live)
+    bound, by = b3_bound(B, S, H, Hkv, D, q.dtype, live, Dv=Dv)
     run = lambda: flash_attention(q, k, v, **mask)  # noqa: E731
     return {"shape": {"q": list(q.shape), "kv": list(k.shape),
+                      **({"v": list(v.shape)} if Dv != D else {}),
                       "dtype": str(q.dtype), **mask},
             "live_pairs": live, "max_abs_err": err, **accuracy,
             "ms": event_ms(run, 10),
@@ -2271,26 +2389,156 @@ def frontend_batch(cfg, B: int, device, gen=None) -> dict:
     return {}
 
 
+class RouteLog:
+    """While active (a ``with`` block), the routing of every
+    ``blocks.moe_fwd`` call: the router's probabilities and top-K experts
+    of each dispatched group, kept as the tensors the call made (no copy
+    and no sync inside the run). ``tables()`` turns them, after the run,
+    into one host table per call, over the call's (B, S) tokens:
+    ``experts`` (B, S, K) in slot order, ``kept`` (B, S, K) (the
+    capacity rule over each group's flat (token, slot) order), ``top``
+    (B, S, K + 1) the largest probabilities, sorted."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import blocks
+        self._orig = blocks.moe_fwd, blocks.moe_route
+        fwd, route = self._orig
+        groups = []
+
+        def logged_route(tok, router, top_k):
+            out = route(tok, router, top_k)
+            groups.append((out[0], out[2]))
+            return out
+
+        def logged_fwd(p, x, cfg):
+            groups.clear()
+            out = fwd(p, x, cfg)
+            self.calls.append((tuple(x.shape), cfg, list(groups)))
+            return out
+
+        blocks.moe_fwd, blocks.moe_route = logged_fwd, logged_route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+        blocks.moe_fwd, blocks.moe_route = self._orig
+
+    def tables(self) -> list:
+        import torch
+        from repro_torch.models.blocks import moe_capacity
+        out = []
+        for (B, S, _), cfg, groups in self.calls:
+            K, E = cfg.moe.top_k, cfg.moe.n_experts
+            probs = torch.cat([g[0] for g in groups])      # (nc, G, E)
+            idx = torch.cat([g[1] for g in groups])        # (nc, G, K)
+            nc, G = idx.shape[:2]
+            flat = idx.reshape(nc, G * K)
+            sel = torch.nn.functional.one_hot(flat, E)
+            pos = (sel.cumsum(dim=1) - sel).gather(-1, flat[..., None])
+            kept = (pos[..., 0] < moe_capacity(G, cfg)).view(nc, G, K)
+            top = probs.sort(dim=-1, descending=True).values[..., :K + 1]
+
+            def tokens(t):  # (nc, B * gs, ·) -> (B, S, ·)
+                return t.reshape(nc, B, S // nc, -1).transpose(0, 1) \
+                    .reshape(B, S, -1).cpu().numpy()
+
+            out.append({"experts": tokens(idx), "kept": tokens(kept),
+                        "top": tokens(top)})
+        self.calls.clear()
+        return out
+
+
+def route_diff(want: list, got: list, f32: bool) -> dict:
+    """Two runs' routing, layer by layer (lists of ``RouteLog`` tables
+    over the same (B, S) tokens): the (token, slot) differences in the
+    experts and in the drops. ``differs`` (B, S): a token routed otherwise
+    in some layer. A difference is *first* where neither the token nor an
+    earlier one of its row differed in an earlier layer: later ones follow
+    from it (the token's own hidden state, or its context's keys, have
+    moved). ``min_margin_first``: the smallest gap between adjacent top K
+    + 1 probabilities of ``want`` at a first expert difference -- what
+    rounding had to overcome; in float32 one above ``ROUTE_MARGIN_F32``
+    fails the phase."""
+    import numpy as np
+    differs = np.zeros(want[0]["experts"].shape[:2], bool)
+    n_exp = n_drop = n_first = 0
+    margin = None
+    for w, g in zip(want, got):
+        e = w["experts"] != g["experts"]
+        d = w["kept"] != g["kept"]
+        n_exp += int(e.sum())
+        n_drop += int(d.sum())
+        first = e.any(-1) & ~np.logical_or.accumulate(differs, axis=1)
+        n_first += int(first.sum())
+        if first.any():
+            gaps = (-np.diff(w["top"][first], axis=-1)).min(axis=-1)
+            margin = min(float(gaps.min()), margin if margin is not None
+                         else float("inf"))
+        differs |= e.any(-1) | d.any(-1)
+    if f32:
+        check(margin is None or margin <= ROUTE_MARGIN_F32,
+              f"routing differs first where the top probabilities are "
+              f"{margin} > {ROUTE_MARGIN_F32} apart: not a rounding tie")
+    return {"expert_slot_diffs": n_exp, "drop_slot_diffs": n_drop,
+            "tokens_differing": int(differs.sum()),
+            "tokens_differing_first": n_first,
+            "min_margin_first": margin, "differs": differs,
+            "dropped_slots_want": int(sum((~w["kept"]).sum()
+                                          for w in want)),
+            "dropped_slots_got": int(sum((~g["kept"]).sum()
+                                         for g in got))}
+
+
+def routed_alike(diff: dict, positions: list, context: bool):
+    """(len(positions), B) bool: the compared logits whose token -- and,
+    with ``context``, every earlier token of its row -- was routed alike
+    in both runs (``route_diff``'s ``differs``)."""
+    import numpy as np
+    d = diff["differs"]
+    if context:
+        d = np.logical_or.accumulate(d, axis=1)
+    return ~d[:, positions].T
+
+
+def route_record(diff: dict, alike) -> dict:
+    """``route_diff`` and ``routed_alike`` for a phase's record."""
+    return {k: v for k, v in diff.items() if k != "differs"} | {
+        "logits_compared": int(alike.sum()),
+        "logits_excluded": int((~alike).sum())}
+
+
 def serve_full(card: str, arch: str):
     """A serving path at full width: ``Server(arch, reduced=False)`` on
-    the card, batch 4, the arch's prompt (``SERVE_PATHS``; a vision arch's
-    256 zero patch embeddings before it), 32 generated tokens. Returns
-    (the phase's record, the server, the prompts)."""
+    the card (deepseek cut in depth, ``SERVE_PATHS``), batch 4, the arch's
+    prompt (a vision arch's 256 zero patch embeddings before it), 32
+    generated tokens. For an MoE arch the decode-vs-forward checks compare
+    the tokens routed alike in both runs (``RouteLog``). Returns (the
+    phase's record, the server, the prompts)."""
+    import contextlib
+
     import numpy as np
     import torch
     from repro_torch.launch.serve import Server
     from repro_torch.models import model as M
+    from repro_torch.models import registry
 
     path = SERVE_PATHS[arch]
     prompt = path["prompt"]
     t0 = time.perf_counter()
-    srv = Server(arch, reduced=False, batch=SERVE_BATCH,
+    torch.cuda.reset_peak_memory_stats()
+    srv = Server(arch, reduced=False, n_layers=path.get("layers"),
+                 batch=SERVE_BATCH,
                  max_seq=image_slots(get_cfg(arch)) + prompt + SERVE_TOKENS,
                  seed=0, device="cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    peak_init = torch.cuda.max_memory_allocated()
     cfg = srv.cfg
     n_img = image_slots(cfg)
+    routes = RouteLog() if cfg.moe else contextlib.nullcontext()
     check((cfg.n_layers, cfg.d_model, cfg.vocab_size) == path["widths"],
           f"not the full-width config: {cfg}")
     prompts = np.random.default_rng(0).integers(
@@ -2311,19 +2559,20 @@ def serve_full(card: str, arch: str):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tok = srv.prefill_prompts(prompts)  # returns host tokens: synced
-    t_prefill = time.perf_counter() - t0
-    per_prefill = read_launches()
-    toks, step_s, per_step = [tok], [], []
-    for _ in range(SERVE_TOKENS - 1):
-        before = read_launches()
-        t1 = time.perf_counter()
-        tok = srv.step(tok)
-        step_s.append(time.perf_counter() - t1)
-        after = read_launches()
-        per_step.append({k: after[k] - before[k] for k in after})
-        toks.append(tok)
+    with routes:  # keeps the router's tensors: no copy, no sync
+        t0 = time.perf_counter()
+        tok = srv.prefill_prompts(prompts)  # returns host tokens: synced
+        t_prefill = time.perf_counter() - t0
+        per_prefill = read_launches()
+        toks, step_s, per_step = [tok], [], []
+        for _ in range(SERVE_TOKENS - 1):
+            before = read_launches()
+            t1 = time.perf_counter()
+            tok = srv.step(tok)
+            step_s.append(time.perf_counter() - t1)
+            after = read_launches()
+            per_step.append({k: after[k] - before[k] for k in after})
+            toks.append(tok)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     gen = np.stack(toks, axis=1)
@@ -2341,27 +2590,60 @@ def serve_full(card: str, arch: str):
           "non-finite logits")
 
     # decode-vs-forward: step t's logits against one forward over the
-    # prompt and the tokens generated so far, at the same position
-    seq = torch.tensor(np.concatenate([prompts, gen[:, :-1]], axis=1),
+    # prompt and the tokens generated so far, at the same position. An
+    # MoE prefill of 2 048 tokens groups them 1 024 at a time and drops
+    # assignments past an expert's capacity, where a forward over 2 079
+    # positions groups each position's B tokens alone (the reference's
+    # rule): the check takes an untimed second run on the prompt cut to
+    # 2 047 tokens, whose prefill groups as the forward does
+    dvf_prompts, dvf_gen, route_rec = prompts, gen, {}
+    if cfg.moe:
+        timed = routes.tables()
+        n_moe = len(timed) // SERVE_TOKENS
+        route_rec["prefill_dropped_slots"] = int(sum(
+            (~t["kept"]).sum() for t in timed[:n_moe]))
+        route_rec["prefill_slots"] = int(sum(t["kept"].size
+                                             for t in timed[:n_moe]))
+        dvf_prompts = prompts[:, :prompt - 1]
+        logits.clear()
+        with routes:
+            dvf_gen = [srv.prefill_prompts(dvf_prompts)]
+            for _ in range(SERVE_TOKENS - 1):
+                dvf_gen.append(srv.step(dvf_gen[-1]))
+        dvf_gen = np.stack(dvf_gen, axis=1)
+        decoded = moe_decode_routes(routes.tables(), SERVE_TOKENS)
+    seq = torch.tensor(np.concatenate([dvf_prompts, dvf_gen[:, :-1]],
+                                      axis=1),
                        dtype=torch.int64, device="cuda")
-    with torch.no_grad():
+    with torch.no_grad(), routes:
         full, _ = M.forward(srv.params, {
             "tokens": seq, **frontend_batch(cfg, SERVE_BATCH, "cuda")}, cfg)
-    last = n_img + prompt - 1
+    last = n_img + dvf_prompts.shape[1] - 1
+    alike = torch.ones((SERVE_TOKENS, SERVE_BATCH), dtype=torch.bool)
+    if cfg.moe:  # bf16: a token's own routing (its context's flips dilute)
+        diff = route_diff(routes.tables(), decoded, False)
+        ok = routed_alike(diff, list(range(last, last + SERVE_TOKENS)),
+                          context=False)
+        alike = torch.from_numpy(ok)
+        route_rec["routing"] = route_record(diff, ok)
+        check(bool(alike.any()), "decode vs forward (bf16): no token was "
+              "routed alike in both runs")
     rel = torch.stack([rel_l2(logits[t], full[:, last + t])
-                       for t in range(SERVE_TOKENS)])
-    abs_err = max(max_abs(logits[t], full[:, last + t].float())
-                  for t in range(SERVE_TOKENS))
+                       for t in range(SERVE_TOKENS)]).cpu()
+    abs_err = max(max_abs(logits[t][alike[t].to(logits[t].device)],
+                          full[:, last + t][alike[t].to(full.device)]
+                          .float()) for t in range(SERVE_TOKENS))
     agree = float(torch.stack([
         (logits[t].argmax(-1) == full[:, last + t].argmax(-1))
         .float().mean() for t in range(SERVE_TOKENS)]).mean())
     scale = float(full[:, last:].float().abs().max())
     del full
     torch.cuda.empty_cache()
+    rel_all, rel = rel, torch.where(alike, rel, 0.0)
     check(float(rel.max()) <= path["rel_l2_bf16"],
           f"decode vs forward (bf16): relative L2 {float(rel.max())} > "
           f"{path['rel_l2_bf16']}")
-    f32 = decode_vs_forward_f32(cfg, prompts)
+    f32 = decode_vs_forward_f32(cfg, dvf_prompts)
     check(f32["max_rel_l2"] <= SERVE_REL_L2_TOL_F32,
           f"decode vs forward (float32): relative L2 {f32['max_rel_l2']} > "
           f"{SERVE_REL_L2_TOL_F32}")
@@ -2369,8 +2651,13 @@ def serve_full(card: str, arch: str):
     decode_s = sum(step_s)
     rec = {"card": card, "arch": arch, "layers": L,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           **({"reduced": f"depth: {get_cfg(arch).n_layers} -> {L} layers "
+                          f"(published widths)"}
+              if L != get_cfg(arch).n_layers else {}),
+           "params": registry.count_params(cfg),
            "batch": SERVE_BATCH, "prompt": prompt, "image_slots": n_img,
            "tokens": SERVE_TOKENS, "init_s": t_init,
+           "peak_memory_bytes_init": peak_init,
            "prefill_s": t_prefill,
            "decode_ms_per_step": 1e3 * decode_s / len(step_s),
            "decode_ms_per_step_min": 1e3 * min(step_s),
@@ -2384,13 +2671,27 @@ def serve_full(card: str, arch: str):
            "launches_per_step": per_step[0],
            "decode_vs_forward": {
                "max_rel_l2": float(rel.max()),
-               "mean_rel_l2": float(rel.mean()),
+               "mean_rel_l2": float(rel[alike].mean()),
                "rel_l2_per_step": [float(r) for r in rel.max(dim=-1).values],
+               **({"max_rel_l2_all_tokens": float(rel_all.max())}
+                  if cfg.moe else {}),
                "max_abs_err": abs_err, "max_abs_logit": scale,
                "argmax_agreement": agree, "tolerance_rel_l2":
-                   path["rel_l2_bf16"]},
+                   path["rel_l2_bf16"], "prompt": dvf_prompts.shape[1],
+               **route_rec},
            "decode_vs_forward_f32": f32}
     return rec, srv, prompts
+
+
+def moe_decode_routes(tables: list, n_steps: int) -> list:
+    """A served run's ``RouteLog`` tables (the prefill's calls, then each
+    of its ``n_steps - 1`` decode steps', a call an MoE layer) as one
+    table a layer over the prompt and the decoded positions."""
+    import numpy as np
+    L = len(tables) // n_steps
+    return [{k: np.concatenate([tables[t * L + layer][k]
+                                for t in range(n_steps)], axis=1)
+             for k in tables[0]} for layer in range(L)]
 
 
 def get_cfg(arch: str, **kw):
@@ -2405,7 +2706,11 @@ def decode_vs_forward_f32(cfg, prompts) -> dict:
     """The served model's weights before their bf16 cast (the server's
     seed 0), in float32: prefill, SERVE_TOKENS - 1 decode steps on its own
     argmax tokens, then one forward over the prompt and those tokens;
-    every step's logits against the forward's at the same position."""
+    every step's logits against the forward's at the same position. For
+    an MoE arch only the logits whose row was routed alike in both runs up
+    to that position are held to the limit (``route_diff``)."""
+    import contextlib
+
     import torch
     from repro_torch.models import model as M
     from repro_torch.models import registry
@@ -2420,27 +2725,45 @@ def decode_vs_forward_f32(cfg, prompts) -> dict:
     toks = torch.tensor(prompts, dtype=torch.int64, device="cuda")
     cache = M.init_cache(cfg, B, n_img + S + SERVE_TOKENS, f32,
                          device="cuda")
+    decoded, forward = (RouteLog(), RouteLog()) if cfg.moe else \
+        (contextlib.nullcontext(), contextlib.nullcontext())
     with torch.no_grad():
-        last, cache = M.prefill_step(params, {"tokens": toks, **extra}, cfg,
-                                     dtype=f32, cache=cache)
-        steps = [last[:, -1]]
-        for t in range(SERVE_TOKENS - 1):
-            lg, cache = M.decode_step(params, cache, {
-                "tokens": steps[-1].argmax(-1)[:, None],
-                "cache_len": n_img + S + t}, cfg, dtype=f32)
-            steps.append(lg[:, -1])
+        with decoded:
+            last, cache = M.prefill_step(params, {"tokens": toks, **extra},
+                                         cfg, dtype=f32, cache=cache)
+            steps = [last[:, -1]]
+            for t in range(SERVE_TOKENS - 1):
+                lg, cache = M.decode_step(params, cache, {
+                    "tokens": steps[-1].argmax(-1)[:, None],
+                    "cache_len": n_img + S + t}, cfg, dtype=f32)
+                steps.append(lg[:, -1])
         seq = torch.cat([toks, torch.stack([x.argmax(-1)
                                             for x in steps[:-1]], dim=1)],
                         dim=1)
         del cache
-        full, _ = M.forward(params, {"tokens": seq, **extra}, cfg, dtype=f32)
+        with forward:
+            full, _ = M.forward(params, {"tokens": seq, **extra}, cfg,
+                                dtype=f32)
     rel = torch.stack([rel_l2(steps[t], full[:, n_img + S - 1 + t])
-                       for t in range(SERVE_TOKENS)])
+                       for t in range(SERVE_TOKENS)]).cpu()
     del full, params
     torch.cuda.empty_cache()
+    route_rec = {}
+    if cfg.moe:
+        diff = route_diff(forward.tables(),
+                          moe_decode_routes(decoded.tables(), SERVE_TOKENS),
+                          True)
+        alike = routed_alike(diff, list(range(n_img + S - 1,
+                                              n_img + S - 1 + SERVE_TOKENS)),
+                             context=True)
+        route_rec = {"routing": route_record(diff, alike),
+                     "max_rel_l2_all_tokens": float(rel.max())}
+        check(bool(alike.any()), "decode vs forward (float32): no row was "
+              "routed alike in both runs")
+        rel = torch.where(torch.from_numpy(alike), rel, 0.0)
     return {"max_rel_l2": float(rel.max()), "mean_rel_l2": float(rel.mean()),
             "rel_l2_per_step": [float(r) for r in rel.max(dim=-1).values],
-            "tolerance_rel_l2": SERVE_REL_L2_TOL_F32}
+            "tolerance_rel_l2": SERVE_REL_L2_TOL_F32, **route_rec}
 
 
 def attn_layer(cfg) -> int:
@@ -2461,7 +2784,9 @@ def layer_attention_inputs(srv, prompts, layer: int):
     from repro_torch.models.common import rms_norm
     from repro_torch.models.model import _layers, embed_inputs
     cfg = srv.cfg
-    p = _layers(srv.params["layers"], cfg.n_layers)[layer]
+    stack = ([srv.params["dense0"]] if "dense0" in srv.params else []) + \
+        _layers(srv.params["layers"], registry.n_scanned_layers(cfg))
+    p = stack[layer]
     p = p["mix"]["attn"] if cfg.family == "hybrid" else p["attn"]
     B = prompts.shape[0]
     batch = {"tokens": torch.tensor(prompts, dtype=torch.int64,
@@ -2472,8 +2797,11 @@ def layer_attention_inputs(srv, prompts, layer: int):
     with torch.no_grad():
         x, prefix = embed_inputs(srv.params, batch, cfg)
         h = rms_norm(x, p["ln"], cfg.norm_eps)
-        q, k, v = blocks._qkv(p, h, cfg,
-                              torch.arange(x.shape[1], device="cuda"))
+        pos = torch.arange(x.shape[1], device="cuda")
+        if cfg.mla:  # q/k 192, v 128: a view into the kv_b product
+            q, k, v, _ = blocks.mla_qkv(p, h, cfg, pos)
+        else:
+            q, k, v = blocks._qkv(p, h, cfg, pos)
     window = None
     warr = registry.window_array(cfg, x.shape[1])
     if warr is not None and int(warr[layer]) < x.shape[1]:
@@ -2485,7 +2813,8 @@ def layer_attention_inputs(srv, prompts, layer: int):
 def model_shape_kernels(srv, prompts) -> dict:
     """B3 and B4 on the inputs one layer of the full model gives them
     (``attn_layer``): its q, k, v over the prompt with its mask, and its
-    cache after the run with its window."""
+    cache after the run with its window. MLA (deepseek: layer 0 is its
+    dense0) has no B4: its decode is the plain absorbed form."""
     import torch
     from repro_torch.models import blocks
     from repro_torch.models.common import rms_norm
@@ -2495,6 +2824,9 @@ def model_shape_kernels(srv, prompts) -> dict:
     b3 = time_b3(q, k, v, **mask)
     b3["layer"] = layer
     del q, k, v
+    if cfg.mla:
+        torch.cuda.empty_cache()
+        return {"flash_attention": b3}
     clen = srv.cache_len - 1  # the last step's new token
     last = torch.tensor(prompts[:, :1], dtype=torch.int64, device="cuda")
     hq = rms_norm(srv.params["embed"][last], p["ln"], cfg.norm_eps)
@@ -2546,7 +2878,13 @@ def serve_parity(arch: str) -> dict:
     (the JAX package's rule) and B5 as chunks of 64 with a ragged last
     one: the check also shows that the result does not depend on the
     chunk. The encoder (hubert) has no decode: its forward over 1 500
-    seeded frames is compared instead (``encode_parity``)."""
+    seeded frames is compared instead (``encode_parity``). deepseek keeps
+    16 of its routed experts (``parity_moe``); for an MoE arch the logits
+    of rows routed otherwise by the two devices are left out
+    (``route_diff``: a difference must be a rounding tie)."""
+    import contextlib
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch.models import model as M
@@ -2556,6 +2894,9 @@ def serve_parity(arch: str) -> dict:
 
     path = SERVE_PATHS[arch]
     cfg = get_cfg(arch, n_layers=path["parity_layers"])
+    if "parity_moe" in path:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, **path["parity_moe"]))
     params = init_params(registry.param_specs(cfg),
                          torch.Generator(device="cuda").manual_seed(1),
                          "cuda")
@@ -2568,28 +2909,44 @@ def serve_parity(arch: str) -> dict:
     prefill = make_prefill_step(cfg, dtype=torch.float32)
     decode = make_serve_step(cfg, dtype=torch.float32)
 
-    def run(device, feed):
+    def run(device, feed, log):
         cache = M.init_cache(cfg, B, n_img + S0 + n + 1, torch.float32,
                              device=device)
-        logits, cache = prefill(on[device], {
-            "tokens": torch.tensor(prompts, device=device),
-            **{k: t.to(device) for k, t in extra.items()}}, cache=cache)
-        out = [logits[:, -1].float().cpu()]
-        for t in range(n):
-            tok = feed[t] if feed is not None else out[-1].argmax(-1)
-            logits, cache = decode(on[device], cache, {
-                "tokens": tok[:, None].to(device),
-                "cache_len": n_img + S0 + t})
-            out.append(logits[:, -1].float().cpu())
+        with log:
+            logits, cache = prefill(on[device], {
+                "tokens": torch.tensor(prompts, device=device),
+                **{k: t.to(device) for k, t in extra.items()}}, cache=cache)
+            out = [logits[:, -1].float().cpu()]
+            for t in range(n):
+                tok = feed[t] if feed is not None else out[-1].argmax(-1)
+                logits, cache = decode(on[device], cache, {
+                    "tokens": tok[:, None].to(device),
+                    "cache_len": n_img + S0 + t})
+                out.append(logits[:, -1].float().cpu())
         return out
 
+    logs = {d: RouteLog() if cfg.moe else contextlib.nullcontext()
+            for d in ("cpu", "cuda")}
     t0 = time.perf_counter()
-    want = run("cpu", None)
+    want = run("cpu", None, logs["cpu"])
     t_cpu = time.perf_counter() - t0
     feed = [w.argmax(-1) for w in want]
     reset_launches()
-    got = run("cuda", feed)
+    got = run("cuda", feed, logs["cuda"])
     launches = read_launches()
+    alike, route_rec = None, {}
+    if cfg.moe:
+        diff = route_diff(*(moe_decode_routes(logs[d].tables(), n + 1)
+                            for d in ("cpu", "cuda")), True)
+        alike = routed_alike(diff, list(range(n_img + S0 - 1,
+                                              n_img + S0 + n)), context=True)
+        route_rec = {"routing": route_record(diff, alike)}
+        if "parity_moe" in path:
+            route_rec["reduced"] = (
+                f"routed experts {get_cfg(arch).moe.n_experts} -> "
+                f"{cfg.moe.n_experts} (top-{cfg.moe.top_k} and "
+                f"{cfg.moe.n_shared_experts} shared kept): 160 at full "
+                f"width are 21 GB of float32 on the host")
     want_launches = expected_launches(path["prefill"], cfg.n_layers)
     if path["step"] is not None:
         want_launches[path["step"]] = cfg.n_layers * n
@@ -2598,17 +2955,27 @@ def serve_parity(arch: str) -> dict:
     return {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
             "vocab": cfg.vocab_size, "dtype": "float32", "batch": B,
             "prompt": S0, "image_slots": n_img, "decode_steps": n,
-            "launches": launches, **parity_verdict(got, want, "serve_parity"),
+            "launches": launches, **route_rec,
+            **parity_verdict(got, want, "serve_parity", alike),
             "wall_s_cpu": t_cpu}
 
 
-def parity_verdict(got, want, what: str) -> dict:
+def parity_verdict(got, want, what: str, alike=None) -> dict:
     """Card vs CPU logits (lists of tensors, last axis the vocab): the
     largest difference, held to ``PARITY_ATOL``, and every token whose
-    CPU top-2 margin exceeds twice that equal."""
+    CPU top-2 margin exceeds twice that equal. ``alike``: (len(got), B)
+    bool numpy, the rows compared (an MoE arch's rows routed alike); the
+    others are left out."""
+    if alike is not None:
+        import torch
+        check(bool(alike.any()), f"{what}: no row was routed alike")
+        keep = [torch.from_numpy(a) for a in alike]
+        got = [g[k] for g, k in zip(got, keep)]
+        want = [w[k] for w, k in zip(want, keep)]
     err = max(max_abs(g, w) for g, w in zip(got, want))
-    scale = max(float(w.abs().max()) for w in want)
-    rel = max(float(rel_l2(g, w).max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want if w.numel())
+    rel = max(float(rel_l2(g, w).max()) for g, w in zip(got, want)
+              if w.numel())
     clear = same = 0
     for g, w in zip(got, want):
         top2 = w.topk(2, dim=-1).values
@@ -3514,6 +3881,31 @@ def main() -> int:
     emit("encode_audio_parity", **encode_parity())
     torch.cuda.empty_cache()
 
+    # ---- 9d. the MoE families (A7b): B3 at MLA's head dims, then
+    # granite-moe-1b-a400m at full width and deepseek-v2-236b at every
+    # published width cut to 3 layers
+    t0 = time.perf_counter()
+    b3_mla = check_b3_mla(dev)
+    emit("kernels.b3_mla", card=card, seconds=time.perf_counter() - t0,
+         **b3_mla)
+    for arch, phase in ((MOE_ARCH, "serve_moe"), (MLA_ARCH, "serve_mla")):
+        t0 = time.perf_counter()
+        rec, srv, prompts = serve_full(card, arch)
+        emit(f"{phase}_full", seconds=time.perf_counter() - t0, **rec)
+        a7a[arch] = rec
+        a7a_shapes[arch] = model_shape_kernels(srv, prompts)
+        emit("kernels_model_shapes", card=card, arch=arch,
+             **a7a_shapes[arch])
+        hand = (*B3_KERNELS.values(),
+                *(B4_KERNELS if SERVE_PATHS[arch]["step"] else ()))
+        emit("profile_serve", **profile_serve(srv, prompts, hand))
+        del srv
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        par = serve_parity(arch)
+        emit(f"{phase}_parity", seconds=time.perf_counter() - t0, **par)
+        torch.cuda.empty_cache()
+
     # ---- 10. the fleet, chaos and guard planes: K1 and K2, 97 calls a day
     # (after every profiled phase above, so that their threads and their
     # abandoned guard attempt cannot touch those phases' records)
@@ -3600,6 +3992,20 @@ def main() -> int:
                          "atol = rtol = 2e-2 (bf16), 2e-5 (float32)"
                          + ("; bit-identical on a second call"
                             if name == "decode_attention" else "")})
+    from repro_torch.kernels.flash_attention import HEAD_DIM_PAIRS
+    b3_entry = next(k for k in kernels if k["name"] == "flash_attention")
+    b3_entry["head_dim_pairs"] = [list(pair) for pair in HEAD_DIM_PAIRS]
+    b3_entry["mla_pair"] = {
+        **{k: b3_mla["model_shape"][k] for k in (
+            "shape", "ms", "device_us", "plain_ms", "library_ms",
+            "library_device_us", "library_kernels", "bound_ms", "bound_by",
+            "max_abs_err", "rel_l2", "live_pairs")},
+        "launches_serve_mla_full": a7a[MLA_ARCH]["launches"][
+            "flash_attention"],
+        "max_abs_err_cases": {dn: max(r["max_abs_err"] for c, r in
+                                      b3_mla["cases"].items()
+                                      if c.endswith(dn))
+                              for dn in ("bfloat16", "float32")}}
     b9m = b9["model_shape"]["bfloat16"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": B9_SOURCE,

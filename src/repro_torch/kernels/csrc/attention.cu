@@ -143,6 +143,17 @@ __device__ __forceinline__ int key_tile(const KeyTiles& kt, int it)
 // the H100 a draft that staged the same tiles by per-thread cp.async copies
 // was slower at the serving shape.
 //
+// Value head dim. v and the output may have a head dim DV of their own, apart
+// from q and k's D: multi-head latent attention's prefill (DeepSeek-V2) has q
+// and k of 128 + 64 = 192 columns and v of 128. Both routes are templates on
+// (D, DV): q, K and the scores take D, V, the accumulator and the output DV.
+// The bf16 route's V tile is DV / 64 TMA boxes (two at 128, where K takes
+// three at 192), its stage D + DV wide, so (192, 128) uses 105 KB and two
+// blocks fit an SM; q's 12 k16 fragments stay in registers there beside the
+// 64-register accumulator. The built pairs are (d, d) for d in 16, 32, 64,
+// 80, 128, 256 and (192, 128); (d, d) compiles to the code it had before DV
+// existed.
+//
 // float32 (flash_attention_kernel): true float32 FMAs on the CUDA cores (no
 // TF32, so it holds 2e-5 against the plain version): 256 threads, q scaled
 // in float32 and staged with the K and V tiles in shared memory, each
@@ -154,9 +165,11 @@ constexpr int BQ = 64, BK = 64, THREADS = 256;
 constexpr int SLD = BK + 4;  // padded score row: conflict-free row-stat reads
 
 template <int D> __host__ __device__ constexpr int ld() { return D + 4; }  // padded q/k/v row
-template <int D> __host__ __device__ constexpr size_t smem_bytes() {
-    return sizeof(float) * (size_t)(BQ * ld<D>() + BK * ld<D>() + BQ * SLD
-                                    + 2 * THREADS + 3 * BQ);
+// the K/V buffer holds the K tile (rows of ld<D>) and then the V tile (rows
+// of ld<DV>): the wider of the two
+template <int D, int DV> __host__ __device__ constexpr size_t smem_bytes() {
+    return sizeof(float) * (size_t)(BQ * ld<D>() + BK * ld<(D > DV ? D : DV)>()
+                                    + BQ * SLD + 2 * THREADS + 3 * BQ);
 }
 // the output column of a thread's j-th accumulator: float4-friendly runs
 // of four when D is a multiple of 64, a stride of 16 otherwise
@@ -166,9 +179,9 @@ template <int D> __device__ __forceinline__ int out_col(int tx, int j) {
 }
 }  // namespace fa
 
-// at D = 256 the block's shared memory (~150 KB) leaves room for one block
-// an SM, so the register cap is lifted to the hardware's with it
-template <typename T, int D>
+// at D = 192 and 256 the block's shared memory (121 / ~150 KB) leaves room
+// for one block an SM, so the register cap is lifted to the hardware's with it
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(fa::THREADS, D > 128 ? 1 : 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
@@ -180,12 +193,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int* __restrict__ tiles_loaded, float* __restrict__ lse)
 {
     using namespace fa;
-    constexpr int LD = ld<D>();
-    constexpr int NC = D / 16;  // output columns per thread
+    constexpr int LD = ld<D>(), LDV = ld<DV>();
+    constexpr int NC = DV / 16;  // output columns per thread
     extern __shared__ float smem[];
     float* Qs = smem;                   // BQ x LD, scaled q
-    float* KVs = Qs + BQ * LD;          // BK x LD, the K tile, then the V tile
-    float* Ss = KVs + BK * LD;          // BQ x SLD, scores, then p
+    float* KVs = Qs + BQ * LD;          // the K tile (BK x LD), then the V tile (BK x LDV)
+    float* Ss = KVs + BK * (LD > LDV ? LD : LDV);  // BQ x SLD, scores, then p
     float* red_m = Ss + BQ * SLD;       // THREADS partial row maxima
     float* red_s = red_m + THREADS;     // THREADS partial row sums
     float* row_m = red_s + THREADS;     // BQ running max
@@ -270,9 +283,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncthreads();  // K tile consumed, scores written
 
         // the V tile replaces the K tile; row maxima meanwhile
-        for (int i = tid; i < BK * D; i += THREADS) {
-            const int r = i / D, c = i % D, s = k0 + r;
-            KVs[r * LD + c] = s < Sk ? to_f(vb[(int64_t)s * vss + c]) : 0.f;
+        for (int i = tid; i < BK * DV; i += THREADS) {
+            const int r = i / DV, c = i % DV, s = k0 + r;
+            KVs[r * LDV + c] = s < Sk ? to_f(vb[(int64_t)s * vss + c]) : 0.f;
         }
         float mloc = ATTN_NEG_INF;
 #pragma unroll
@@ -314,16 +327,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             float p[4], vv[NC];
 #pragma unroll
             for (int i = 0; i < 4; ++i) p[i] = Ss[(ty + 16 * i) * SLD + c];
-            if constexpr (D % 64 == 0) {
+            if constexpr (DV % 64 == 0) {
 #pragma unroll
                 for (int j = 0; j < NC; j += 4) {
                     const float4 f = *reinterpret_cast<const float4*>(
-                        &KVs[c * LD + fa::out_col<D>(tx, j)]);
+                        &KVs[c * LDV + fa::out_col<DV>(tx, j)]);
                     vv[j] = f.x; vv[j + 1] = f.y; vv[j + 2] = f.z; vv[j + 3] = f.w;
                 }
             } else {
 #pragma unroll
-                for (int j = 0; j < NC; ++j) vv[j] = KVs[c * LD + fa::out_col<D>(tx, j)];
+                for (int j = 0; j < NC; ++j) vv[j] = KVs[c * LDV + fa::out_col<DV>(tx, j)];
             }
 #pragma unroll
             for (int i = 0; i < 4; ++i)
@@ -342,9 +355,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = ty + 16 * i, s = q0 + r;
         if (s >= Sq) continue;
         const float l = fmaxf(row_l[r], 1e-30f);
-        T* orow = o + (((int64_t)b * Sq + s) * H + h) * D;
+        T* orow = o + (((int64_t)b * Sq + s) * H + h) * DV;
 #pragma unroll
-        for (int j = 0; j < NC; ++j) orow[fa::out_col<D>(tx, j)] = from_f<T>(acc[i][j] / l);
+        for (int j = 0; j < NC; ++j) orow[fa::out_col<DV>(tx, j)] = from_f<T>(acc[i][j] / l);
     }
 }
 
@@ -352,15 +365,16 @@ namespace fa2 {
 constexpr int BQ = 64, BK = 64, WARPS = 4, THREADS = 32 * WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The q tile, then two stages of (K tile, V tile), each a tile64 tile.
+// The q tile, then two stages of (K tile, V tile), each a tile64 tile: q
+// and K of D columns, V of DV.
 using namespace tile64;
-template <int D> constexpr size_t smem_bytes() {
+template <int D, int DV> constexpr size_t smem_bytes() {
     // + 1024: the tiles' start is rounded up to the swizzle's alignment
-    return 5 * (size_t)tile_bytes<D>() + 1024;
+    return 3 * (size_t)tile_bytes<D>() + 2 * (size_t)tile_bytes<DV>() + 1024;
 }
 }  // namespace fa2
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(fa2::THREADS, 2)
 flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
@@ -371,15 +385,19 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                             int* __restrict__ tiles_loaded, float* __restrict__ lse)
 {
     using namespace fa2;
-    constexpr int TB = tile_bytes<D>();
+    constexpr int TB = tile_bytes<D>(), TBV = tile_bytes<DV>();
     constexpr int KD = D / 16;   // k16 steps of q k^T
-    constexpr int NO = D / 8;    // n8 tiles of the output
+    constexpr int NO = DV / 8;   // n8 tiles of the output
     constexpr int NS = BK / 8;   // n8 tiles of the scores
-    constexpr bool Q_IN_REGS = D <= 128;
+    // q's fragments (4 KD registers) stay in registers beside the output
+    // accumulator (4 NO) up to 112 of them: D <= 128 with DV = D, and
+    // (192, 128); at D = 256 they are re-read from shared memory
+    constexpr bool Q_IN_REGS = KD + NO <= 28;
     extern __shared__ __align__(16) unsigned char fa2_smem[];
     unsigned char* Qs = reinterpret_cast<unsigned char*>(
         (reinterpret_cast<uintptr_t>(fa2_smem) + 1023) & ~(uintptr_t)1023);
-    unsigned char* KV = Qs + TB;  // stage s: K tile at 2 s TB, V tile next
+    // stage s: the K tile at s (TB + TBV), the V tile after it
+    unsigned char* KV = Qs + TB;
     __shared__ __align__(8) uint64_t full[2];
 
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -400,11 +418,11 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_init(&full[0], 1);
         mbar_init(&full[1], 1);
         mbar_fence_init();
-        mbar_expect_tx(&full[0], 3 * TB);
+        mbar_expect_tx(&full[0], 2 * TB + TBV);
         const int k_first = key_tile(kts, 0) * BK;
         load_tile<D>(Qs, &tq, h, q0, b, &full[0]);
         load_tile<D>(KV, &tk, hk, k_first, b, &full[0]);
-        load_tile<D>(KV + TB, &tv, hk, k_first, b, &full[0]);
+        load_tile<DV>(KV + TB, &tv, hk, k_first, b, &full[0]);
     }
     __syncthreads();  // the barriers are initialised before anyone waits
 
@@ -434,14 +452,14 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
             }
         }
         if (threadIdx.x == 0 && kt + 1 < n_tiles) {
-            unsigned char* st = KV + ((kt + 1) % 2) * 2 * TB;
+            unsigned char* st = KV + ((kt + 1) % 2) * (TB + TBV);
             uint64_t* bar = &full[(kt + 1) % 2];
             const int k_next = key_tile(kts, kt + 1) * BK;
-            mbar_expect_tx(bar, 2 * TB);
+            mbar_expect_tx(bar, TB + TBV);
             load_tile<D>(st, &tk, hk, k_next, b, bar);
-            load_tile<D>(st + TB, &tv, hk, k_next, b, bar);
+            load_tile<DV>(st + TB, &tv, hk, k_next, b, bar);
         }
-        const unsigned char* Kt = KV + (kt % 2) * 2 * TB;
+        const unsigned char* Kt = KV + (kt % 2) * (TB + TBV);
         const unsigned char* Vt = Kt + TB;
 
         // S = q k^T: this warp's 16 rows x 64 keys, n8 tile j = keys 8j..
@@ -557,7 +575,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
         const int qpos = row0 + 8 * r;
         if (qpos >= Sq) continue;
-        __nv_bfloat16* orow = o + (((int64_t)b * Sq + qpos) * H + h) * D;
+        __nv_bfloat16* orow = o + (((int64_t)b * Sq + qpos) * H + h) * DV;
 #pragma unroll
         for (int n = 0; n < NO; ++n)
             *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
@@ -581,7 +599,7 @@ static bool attention_map(CUtensorMap* map, const void* base, int B, int S,
     return bf16_box_map(map, base, 4, dims, strides, box);
 }
 
-template <int D>
+template <int D, int DV>
 static int flash_attention_bf16_run(const void* q, const void* k, const void* v,
                                     void* o, int B, int H, int Hkv, int Sq, int Sk,
                                     const int64_t* qst, const int64_t* kst,
@@ -592,21 +610,21 @@ static int flash_attention_bf16_run(const void* q, const void* k, const void* v,
     CUtensorMap tq, tk, tv;
     if (!attention_map<D>(&tq, q, B, Sq, H, qst)
         || !attention_map<D>(&tk, k, B, Sk, Hkv, kst)
-        || !attention_map<D>(&tv, v, B, Sk, Hkv, vst))
+        || !attention_map<DV>(&tv, v, B, Sk, Hkv, vst))
         return (int)cudaErrorInvalidValue;
-    const size_t smem = fa2::smem_bytes<D>();
+    const size_t smem = fa2::smem_bytes<D, DV>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attention_bf16_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + fa2::BQ - 1) / fa2::BQ));
-    flash_attention_bf16_kernel<D><<<grid, fa2::THREADS, smem, stream>>>(
+    flash_attention_bf16_kernel<D, DV><<<grid, fa2::THREADS, smem, stream>>>(
         tq, tk, tv, (__nv_bfloat16*)o, H, Hkv, Sq, Sk, scale, causal, window, prefix,
         tiles_loaded, lse);
     return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 static int flash_attention_run(const void* q, const void* k, const void* v, void* o,
                                int B, int H, int Hkv, int Sq, int Sk,
                                const int64_t* qst, const int64_t* kst,
@@ -615,17 +633,17 @@ static int flash_attention_run(const void* q, const void* k, const void* v, void
                                cudaStream_t stream)
 {
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-        return flash_attention_bf16_run<D>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst,
-                                           vst, scale, causal, window, prefix,
-                                           tiles_loaded, lse, stream);
+        return flash_attention_bf16_run<D, DV>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst,
+                                               vst, scale, causal, window, prefix,
+                                               tiles_loaded, lse, stream);
     } else {
-        const size_t smem = fa::smem_bytes<D>();
+        const size_t smem = fa::smem_bytes<D, DV>();
         cudaError_t err = cudaFuncSetAttribute(
-            flash_attention_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            flash_attention_kernel<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (err != cudaSuccess) return (int)err;
         dim3 grid((unsigned)((Sq + fa::BQ - 1) / fa::BQ), (unsigned)H, (unsigned)B);
-        flash_attention_kernel<T, D><<<grid, fa::THREADS, smem, stream>>>(
+        flash_attention_kernel<T, D, DV><<<grid, fa::THREADS, smem, stream>>>(
             (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq, Sk,
             qst[0], qst[1], qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
             scale, causal, window, prefix, tiles_loaded, lse);
@@ -634,20 +652,23 @@ static int flash_attention_run(const void* q, const void* k, const void* v, void
 }
 
 template <typename T>
-static int flash_attention_dispatch(int D, const void* q, const void* k,
+static int flash_attention_dispatch(int D, int Dv, const void* q, const void* k,
                                     const void* v, void* o, int B, int H,
                                     int Hkv, int Sq, int Sk, const int64_t* qst,
                                     const int64_t* kst, const int64_t* vst,
                                     float scale, int causal, int w, int p,
                                     int* tiles, float* lse, cudaStream_t s)
 {
+    if (D == 192 && Dv == 128)  // multi-head latent attention's prefill
+        return flash_attention_run<T, 192, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    if (Dv != D) return (int)cudaErrorInvalidValue;
     switch (D) {
-    case 16:  return flash_attention_run<T, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
-    case 32:  return flash_attention_run<T, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
-    case 64:  return flash_attention_run<T, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
-    case 80:  return flash_attention_run<T, 80>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
-    case 128: return flash_attention_run<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
-    case 256: return flash_attention_run<T, 256>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    case 16:  return flash_attention_run<T, 16, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    case 32:  return flash_attention_run<T, 32, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    case 64:  return flash_attention_run<T, 64, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    case 80:  return flash_attention_run<T, 80, 80>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    case 128: return flash_attention_run<T, 128, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    case 256: return flash_attention_run<T, 256, 256>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
     default:  return (int)cudaErrorInvalidValue;
     }
 }
@@ -662,20 +683,21 @@ static int flash_attention_dispatch(int D, const void* q, const void* k,
 // live scores, m + log(l), for the backward kernel B9 (attention_bwd.cu).
 // window: the sliding window's width (key j live for query i only if j > i
 // - window), <= 0 for none; prefix: keys j < prefix live for every query
-// (prefix-LM), 0 for none (key_live).
+// (prefix-LM), 0 for none (key_live). D: q and k's head dim; Dv: v's and
+// the output's, D or (D, Dv) = (192, 128); another pair is refused.
 extern "C" int flash_attention_launch(
     int is_bf16, const void* q, const void* k, const void* v, void* o,
-    int B, int H, int Hkv, int Sq, int Sk, int D,
+    int B, int H, int Hkv, int Sq, int Sk, int D, int Dv,
     const int64_t* q_strides, const int64_t* k_strides, const int64_t* v_strides,
     float scale, int causal, int window, int prefix, int* tiles_loaded, float* lse,
     void* stream)
 {
     if (is_bf16)
         return flash_attention_dispatch<__nv_bfloat16>(
-            D, q, k, v, o, B, H, Hkv, Sq, Sk, q_strides, k_strides, v_strides,
+            D, Dv, q, k, v, o, B, H, Hkv, Sq, Sk, q_strides, k_strides, v_strides,
             scale, causal, window, prefix, tiles_loaded, lse, (cudaStream_t)stream);
     return flash_attention_dispatch<float>(
-        D, q, k, v, o, B, H, Hkv, Sq, Sk, q_strides, k_strides, v_strides,
+        D, Dv, q, k, v, o, B, H, Hkv, Sq, Sk, q_strides, k_strides, v_strides,
         scale, causal, window, prefix, tiles_loaded, lse, (cudaStream_t)stream);
 }
 

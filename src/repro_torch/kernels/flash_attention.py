@@ -9,7 +9,9 @@ bound by operations (thousands per byte), it takes the model's
 ``(B, S, H, D)`` / ``(B, S, Hkv, D)`` layout through strides with no
 transpose or head repeat, and its key loop stops at the diagonal, so the
 tiles the causal mask would zero are never loaded. Beyond the Pallas
-kernel it takes the JAX model path's other masks (a sliding ``window``,
+kernel it takes a value head dim of v's own (multi-head latent
+attention's q/k 192 with v 128, ``HEAD_DIM_PAIRS``) and the JAX model
+path's other masks (a sliding ``window``,
 a bidirectional ``prefix_len``; ``ref.attention_mask``) and loads only
 the key tiles that hold a live pair (``live_tiles`` counts them). bf16
 runs on the tensor cores (``mma.sync``, the online softmax in registers,
@@ -39,6 +41,9 @@ from repro_torch.kernels.ref import NEG_INF, attention_mask, ref_attention
 #: the kernel's tile (query rows and keys); ``tiles_loaded`` counts in it
 TILE = 64
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: the (q/k, v) head dims the kernel is built for: v's equal to q's, and
+#: multi-head latent attention's (nope 128 + rope 64, v 128)
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 DTYPES = (torch.float32, torch.bfloat16)
 #: the bf16 kernel's TMA tensor maps need 16-byte aligned base addresses
 #: and strides: every row must start on a 16-byte boundary
@@ -46,16 +51,16 @@ ROW_ALIGN = 16
 _GRID_YZ_MAX = 65535
 
 
-def _check(q, k, v) -> tuple[int, int, int, int, int, int]:
+def _check(q, k, v) -> tuple[int, int, int, int, int, int, int]:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"want q (B, Sq, H, D), k/v (B, Sk, Hkv, D); got "
-                         f"{tuple(q.shape)} {tuple(k.shape)} "
-                         f"{tuple(v.shape)}")
-    B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    if k.shape != (B, Sk, Hkv, D) or v.shape != k.shape:
-        raise ValueError(f"k/v must be ({B}, Sk, Hkv, {D}) alike, got "
+        raise ValueError(f"want q (B, Sq, H, D), k (B, Sk, Hkv, D), v (B, "
+                         f"Sk, Hkv, Dv); got {tuple(q.shape)} "
                          f"{tuple(k.shape)} {tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape != (B, Sk, Hkv, D) or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"want k ({B}, Sk, Hkv, {D}) and v ({B}, Sk, Hkv, "
+                         f"Dv), got {tuple(k.shape)} {tuple(v.shape)}")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"query heads {H} must be a multiple of KV heads "
                          f"{Hkv}")
@@ -64,7 +69,7 @@ def _check(q, k, v) -> tuple[int, int, int, int, int, int]:
                          f"{k.dtype} {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
-    return B, Sq, H, D, Sk, Hkv
+    return B, Sq, H, D, Sk, Hkv, Dv
 
 
 def _check_mask(Sq: int, Sk: int, window, prefix_len: int):
@@ -89,10 +94,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                           prefix_len: int = 0):
     """Plain PyTorch version of B3: KV heads repeated to the query heads
     (head ``h`` reads KV head ``h // (H // Hkv)``), then ``ref_attention``
-    in float32 over ``ref.attention_mask``; the output in q's dtype. With
+    in float32 over ``ref.attention_mask``; the output ``(B, Sq, H, Dv)``
+    in q's dtype, ``Dv`` v's head dim (any; the kernel's are
+    ``HEAD_DIM_PAIRS``). With
     ``return_lse`` also the row log-sum-exp of the scaled live scores,
     float32 ``(B, H, Sq)``."""
-    _, Sq, H, D, Sk, Hkv = _check(q, k, v)
+    _, Sq, H, D, Sk, Hkv, _ = _check(q, k, v)
     window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
     if Hkv != H:
         k = k.repeat_interleave(H // Hkv, dim=2)
@@ -175,7 +182,7 @@ def _launch(lib, q, k, v, out, *, causal: bool, scale: float,
     Sk, Hkv = k.shape[1], k.shape[2]
     return lib.flash_attention_launch(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Sk, D,
+        v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Sk, D, v.shape[3],
         _strides(q), _strides(k), _strides(v), float(scale), int(causal),
         0 if window is None else int(window), int(prefix_len),
         None if tiles_loaded is None else tiles_loaded.data_ptr(),
@@ -187,10 +194,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     tiles_loaded: Optional[torch.Tensor] = None,
                     return_lse: bool = False, window=None,
                     prefix_len: int = 0):
-    """Softmax attention of q ``(B, Sq, H, D)`` over k/v
-    ``(B, Sk, Hkv, D)``, GQA by head grouping; float32 or bf16, float32
-    softmax and accumulation, output ``(B, Sq, H, D)`` in q's dtype.
-    ``scale`` defaults to ``D ** -0.5``. With ``causal``, key ``j`` is
+    """Softmax attention of q ``(B, Sq, H, D)`` over k ``(B, Sk, Hkv, D)``
+    and v ``(B, Sk, Hkv, Dv)``, GQA by head grouping; float32 or bf16,
+    float32 softmax and accumulation, output ``(B, Sq, H, Dv)`` in q's
+    dtype. ``(D, Dv)`` is one of ``HEAD_DIM_PAIRS``: ``Dv == D``, or
+    multi-head latent attention's (192, 128). ``scale`` defaults to
+    ``D ** -0.5``. With ``causal``, key ``j`` is
     live for query ``i`` iff ``j <= i``; ``window`` (an int >= 1, self-
     attention only) also drops keys ``j <= i - window``; keys
     ``j < prefix_len`` are then live for every query (prefix-LM).
@@ -208,7 +217,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``return_lse``: also return each query row's log-sum-exp of its
     scaled live scores, float32 ``(B, H, Sq)`` — ``(out, lse)``.
     """
-    B, Sq, H, D, Sk, Hkv = _check(q, k, v)
+    B, Sq, H, D, Sk, Hkv, Dv = _check(q, k, v)
     window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type != "cuda":
@@ -221,9 +230,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check_no_grad("flash_attention", (q, k, v),
                   "train through repro_torch.models.common.attention, whose "
                   "backward is kernel B9")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D}: the kernel is built for "
-                         f"{HEAD_DIMS}")
+    if (D, Dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims (q/k {D}, v {Dv}): the kernel is built "
+                         f"for the (D, Dv) pairs {HEAD_DIM_PAIRS}")
     if Sk == 0 and Sq > 0:
         raise ValueError("no keys to attend to (Sk = 0)")
     dev = q.device
@@ -240,7 +249,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"tiles_loaded: want a contiguous int32 "
                          f"({B}, {H}, {n_qt}) tensor on {dev}")
     q, k, v = (for_kernel(t) for t in (q, k, v))
-    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=dev)
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev) \
         if return_lse else None
     if out.numel() == 0:  # a zero-size grid is a launch error
@@ -254,7 +263,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return (out, lse) if return_lse else out
-
 
 
 flash_attention.launches = 0

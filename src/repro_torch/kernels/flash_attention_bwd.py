@@ -40,7 +40,10 @@ HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _check_bwd(q, k, v, o, lse, do):
-    B, Sq, H, D, Sk, Hkv = _check(q, k, v)
+    B, Sq, H, D, Sk, Hkv, Dv = _check(q, k, v)
+    if Dv != D:
+        raise ValueError(f"v's head dim {Dv} is not q's {D}: B9 has no "
+                         f"Dv != D yet (ROADMAP Queue B)")
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o and do must be q's shape {tuple(q.shape)}, got "
                          f"{tuple(o.shape)} {tuple(do.shape)}")

@@ -49,8 +49,9 @@ def decode_live(S: int, cache_len: int, *, window=None,
 
 def ref_attention(q, k, v, *, causal: bool = True, scale=None, window=None,
                   prefix_len: int = 0) -> torch.Tensor:
-    """q/k/v: (B, S, H, D) (same head count); plain softmax attention over
-    the live keys of ``attention_mask``."""
+    """q/k: (B, S, H, D), v: (B, S, H, Dv) (same head count; v's head dim
+    its own); plain softmax attention over the live keys of
+    ``attention_mask``, returned as (B, Sq, H, Dv)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     scale = scale if scale is not None else D ** -0.5

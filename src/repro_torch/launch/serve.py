@@ -4,6 +4,10 @@
     python -m repro_torch.launch.serve --arch mamba2-780m [--device cuda]
     python -m repro_torch.launch.serve --arch hymba-1.5b [--device cuda]
     python -m repro_torch.launch.serve --arch paligemma-3b [--device cuda]
+    python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-v2-236b --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-v2-236b --full \
+        --layers 3 [--device cuda]
 
 Serves a fixed batch of seeded random prompts: one prefill, then one
 decode step per generated token, every request sharing one cache of
@@ -14,10 +18,16 @@ whatever ``max_seq``; the prompt-length rule is the same). A vision arch
 cache's length. On the card (the default device) the hand-written
 kernels run: for the attention families B3 over the prompt (hymba's
 sliding-window layers skipping the key tiles outside the window,
-paligemma's patches a bidirectional prefix) and B4 at each step, for the
-SSD family B5 over the prompt, hymba both; an SSD decode step is the
-plain recurrent update. The encoder-only arch (hubert) has no decode
-step: run its ``models.model.forward``.
+paligemma's patches a bidirectional prefix, deepseek's multi-head
+latent attention at q/k head dim 192 and v 128) and B4 at each step, for
+the SSD family B5 over the prompt, hymba both; an SSD decode step is the
+plain recurrent update, an MLA decode step the absorbed form in plain
+PyTorch (no kernel), and MoE dispatch plain PyTorch everywhere. The
+reduced deepseek's MLA head dims (24, 16) are not among B3's on the card:
+serve it there at full width cut in depth (``n_layers``; ``--full
+--layers 3``: the leading dense layer and 2 MoE layers, 9.3 B
+parameters). The encoder-only arch (hubert) has no decode step: run its
+``models.model.forward``.
 
 Differences from the JAX package's ``repro.launch.serve``, all for an
 eager runtime: the weights are cast to bf16 once, at construction (the
@@ -26,13 +36,17 @@ whole tree per step); the cache is allocated once, at construction, and
 the prompt's K/V, or conv tails and states, are written into it (no
 graft; a prompt shorter than the conv width keeps its tail right-aligned,
 where the JAX server's graft left-aligns it); decode steps update it in
-place. Arrival-driven serving (``serve_arrivals``, ``--arrivals``)
-needs the fleet and guard planes and waits for ROADMAP A5.
+place; the weights are drawn leaf by leaf and each cast to bf16 at once,
+so the float32 tree never exists whole. Arrival-driven serving
+(``serve_arrivals``, ``--arrivals``) needs the fleet and guard planes and
+waits for ROADMAP A5.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -40,16 +54,20 @@ import torch
 from repro_torch.configs.base import get_arch
 from repro_torch.models import model as M
 from repro_torch.models import registry
-from repro_torch.models.param import cast_tree, init_params
+from repro_torch.models.param import init_params
 from repro_torch.train.steps import make_prefill_step, make_serve_step
 
 
 class Server:
     def __init__(self, arch: str, *, reduced: bool = True,
-                 batch: int = 4, max_seq: int = 128, seed: int = 0,
-                 device="cuda"):
+                 n_layers: Optional[int] = None, batch: int = 4,
+                 max_seq: int = 128, seed: int = 0, device="cuda"):
+        """``n_layers``: cut the (reduced or full-width) config to that
+        many layers, the leading dense layer included."""
         base = get_arch(arch)
         self.cfg = base.reduced() if reduced else base
+        if n_layers is not None:
+            self.cfg = dataclasses.replace(self.cfg, n_layers=n_layers)
         if self.cfg.encoder_only:
             raise ValueError("encoder-only arch has no decode step")
         self.device = torch.device(device)
@@ -59,9 +77,8 @@ class Server:
         self.batch = batch
         self.max_seq = max_seq
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = cast_tree(
-            init_params(registry.param_specs(self.cfg), gen, self.device),
-            torch.bfloat16)
+        self.params = init_params(registry.param_specs(self.cfg), gen,
+                                  self.device, dtype=torch.bfloat16)
         self.prefill = make_prefill_step(self.cfg)
         self.decode = make_serve_step(self.cfg)
         self.cache = M.init_cache(self.cfg, batch, max_seq, torch.bfloat16,
@@ -114,7 +131,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b",
                     help="a decoder arch: the dense text archs, "
-                         "mamba2-780m, hymba-1.5b, paligemma-3b")
+                         "mamba2-780m, hymba-1.5b, paligemma-3b, "
+                         "granite-moe-1b-a400m, deepseek-v2-236b")
+    ap.add_argument("--full", action="store_true",
+                    help="the published widths (default: the reduced "
+                         "config)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--tokens", type=int, default=8)
@@ -124,7 +147,10 @@ def main(argv=None):
                          "versions)")
     args = ap.parse_args(argv)
     n_img = get_arch(args.arch).reduced().frontend_seq
-    srv = Server(args.arch, batch=args.batch,
+    if args.full:
+        n_img = get_arch(args.arch).frontend_seq
+    srv = Server(args.arch, reduced=not args.full, n_layers=args.layers,
+                 batch=args.batch,
                  max_seq=n_img + args.prompt_len + args.tokens + 8,
                  seed=args.seed, device=args.device)
     rng = np.random.default_rng(args.seed)

@@ -1,6 +1,6 @@
-"""Block implementations: dense / GQA attention, the MLPs, the SSD
-(Mamba-2) block and the hybrid (hymba) block that runs both beside each
-other; the parameter specs (no forward yet) of MLA and MoE.
+"""Block implementations: dense / GQA attention, multi-head latent
+attention (MLA), the MLPs, the MoE layer, the SSD (Mamba-2) block and the
+hybrid (hymba) block that runs attention and SSD beside each other.
 
 Every block family exposes:
 
@@ -9,12 +9,15 @@ Every block family exposes:
   mode it also returns the per-layer cache entries;
 * ``<family>_decode(p, x, cache, ...)`` -> single-token forward.
 
-MLA and MoE have their specs only, so that every arch's parameters can
-be counted; their forwards wait for ROADMAP A7b (the model's entry points
-refuse those archs before a block is reached).
+MLA's prefill attends through kernel B3 on the card (q/k head dim 192, v
+128); its decode is the JAX package's absorbed form in plain PyTorch, as
+the reference computes it in XLA. MoE dispatch is plain PyTorch too (the
+reference's is XLA): the sort-free GShard dispatch, token group by token
+group, with the expert products as batched matmuls.
 """
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -109,7 +112,7 @@ def attn_decode(p, x, k_cache, v_cache, cache_len: int, cfg: ArchConfig, *,
 
 
 # ==========================================================================
-# MLA (DeepSeek-V2 multi-head latent attention): specs only
+# MLA (DeepSeek-V2 multi-head latent attention)
 # ==========================================================================
 
 def mla_specs(cfg: ArchConfig) -> dict:
@@ -128,6 +131,110 @@ def mla_specs(cfg: ArchConfig) -> dict:
                      ("kv_lora", "q_heads")),
         "wo": spec((H * m.v_head_dim, D), ("q_heads", "embed")),
     }
+
+
+def _mla_q(p, h, cfg: ArchConfig, positions):
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = h.shape
+    q = rms_norm(h @ p["q_a"], p["q_a_norm"], cfg.norm_eps) @ p["q_b"]
+    q = q.reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(p, h, cfg: ArchConfig, positions):
+    m = cfg.mla
+    c, k_rope = (h @ p["kv_a"]).split([m.kv_lora_rank, m.rope_head_dim],
+                                      dim=-1)
+    c = rms_norm(c, p["kv_a_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return c, k_rope
+
+
+def mla_qkv(p, h, cfg: ArchConfig, positions):
+    """The per-head q, k, v of non-absorbed MLA over the normed input h
+    (B, S, D): q and k (B, S, H, nope + rope), v (B, S, H, v_head_dim) --
+    a view into the kv_b product, as the reference's split -- and the
+    compressed cache entries (c (B, S, kv_lora), k_rope (B, S, rope))."""
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = h.shape
+    q_nope, q_rope = _mla_q(p, h, cfg, positions)
+    c, k_rope = _mla_ckv(p, h, cfg, positions)
+    kv = (c @ p["kv_b"]).reshape(B, S, H, m.nope_head_dim + m.v_head_dim)
+    k_nope, v = kv.split([m.nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    return q, k, v, (c, k_rope)
+
+
+def mla_fwd(p, x, cfg: ArchConfig, *, return_cache: bool = False):
+    """Non-absorbed MLA (prefill): per-head K/V materialized, causal
+    attention at q/k head dim nope + rope and v head dim ``v_head_dim``
+    (B3 on the card, whose v is read through its strides in the kv_b
+    product). With ``return_cache`` also the compressed cache entries
+    ``(c, k_rope)``.
+
+    On the card with grad enabled on an input that requires it, raises
+    ``NotImplementedError`` before any work: the attention backward B9 has
+    no Dv != D or D 192 yet (ROADMAP Queue B), so MLA trains on the CPU
+    only."""
+    if x.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *p.values())):
+        raise NotImplementedError(
+            "mla_fwd on the card attends through kernel B3, whose backward "
+            "B9 has no Dv != D or D 192 yet (ROADMAP Queue B: B9 with Dv "
+            "!= D and D 192, for MLA training on the card); train MLA on "
+            "the CPU (device='cpu')")
+    m, H = cfg.mla, cfg.n_heads
+    B, S, _ = x.shape
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    positions = torch.arange(S, device=x.device)
+    q, k, v, cache = mla_qkv(p, h, cfg, positions)
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    o = attention(q, k, v, causal=True, scale=scale)
+    out = o.reshape(B, S, H * m.v_head_dim) @ p["wo"]
+    if return_cache:
+        return out, cache  # compressed: kv_lora + rope dims only
+    return out
+
+
+def mla_decode(p, x, c_cache, krope_cache, cache_len: int,
+               cfg: ArchConfig):
+    """Absorbed MLA decode: scores and values in the latent space, float32
+    throughout, as the JAX package computes them (plain PyTorch on both
+    devices: the reference has no Pallas kernel here). caches: c (B,
+    Smax, kv_lora), k_rope (B, Smax, rope); the new token's entries are
+    written in place at slot ``cache_len`` and the same tensors returned.
+    Only the live slots [0, cache_len] are read: the reference's -1e30
+    bias on the others gives them a weight of exactly 0."""
+    m, H = cfg.mla, cfg.n_heads
+    B = x.shape[0]
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    positions = torch.full((1,), cache_len, dtype=torch.int64,
+                           device=x.device)
+    q_nope, q_rope = _mla_q(p, h, cfg, positions)  # (B, 1, H, ·)
+    c, k_rope = _mla_ckv(p, h, cfg, positions)
+    c_cache[:, cache_len] = c[:, 0].to(c_cache.dtype)
+    krope_cache[:, cache_len] = k_rope[:, 0].to(krope_cache.dtype)
+
+    # absorb kv_b into q: q_lat[h] = q_nope[h] @ W_uk[h]^T  (per head)
+    f32 = torch.float32
+    w_kv = p["kv_b"].reshape(m.kv_lora_rank, H,
+                             m.nope_head_dim + m.v_head_dim).to(f32)
+    w_uk, w_uv = w_kv.split([m.nope_head_dim, m.v_head_dim], dim=-1)
+    q_lat = torch.einsum("bqhn,lhn->bhql", q_nope.to(f32), w_uk)
+    cc = c_cache[:, :cache_len + 1].to(f32)
+    kr = krope_cache[:, :cache_len + 1].to(f32)
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    s = torch.einsum("bhql,bkl->bhqk", q_lat, cc)
+    s = s + torch.einsum("bqhr,bkr->bhqk", q_rope.to(f32), kr)
+    prob = torch.softmax(s * scale, dim=-1)
+    o_lat = torch.einsum("bhqk,bkl->bhql", prob, cc)
+    o = torch.einsum("bhql,lhv->bqhv", o_lat, w_uv)
+    out = o.reshape(B, 1, H * m.v_head_dim).to(x.dtype) @ p["wo"]
+    return out, c_cache, krope_cache
 
 
 # ==========================================================================
@@ -160,7 +267,7 @@ def mlp_fwd(p, x, cfg: ArchConfig):
 
 
 # ==========================================================================
-# MoE: specs only
+# MoE (sort-free GShard-style dispatch; honest FLOPs)
 # ==========================================================================
 
 def moe_specs(cfg: ArchConfig) -> dict:
@@ -179,6 +286,128 @@ def moe_specs(cfg: ArchConfig) -> dict:
         s["sh_wu"] = spec((D, Fs), ("embed", "mlp"))
         s["sh_wd"] = spec((Fs, D), ("mlp", "embed"))
     return s
+
+
+#: the bytes a batch of token groups dispatched together may give the
+#: expert buffer (E, groups, C + 1, max(D, Fe)); ``moe_fwd`` takes as many
+#: groups a call as fit, at least one
+MOE_BUFFER_BYTES = 1 << 30
+
+
+def moe_capacity(G: int, cfg: ArchConfig) -> int:
+    """Slots per expert for a group of G tokens: ``ceil(G K cf / E)``
+    rounded up to a multiple of 8, at least 8."""
+    mo = cfg.moe
+    return max(8, int(math.ceil(G * mo.top_k * mo.capacity_factor
+                                / mo.n_experts / 8.0)) * 8)
+
+
+def moe_route(tok, router, top_k: int):
+    """Router of token groups tok (n, G, D): float32 softmax probabilities
+    (n, G, E) of ``tok @ router`` (both sides in float32, as the JAX
+    package promotes them), and each token's top ``top_k`` experts in
+    descending probability, a tie to the lower index (``jax.lax.top_k``'s
+    order; a stable descending sort), with their probabilities normalized
+    to sum 1: (gate_vals (n, G, K), topk_idx (n, G, K) int64)."""
+    probs = torch.softmax(tok.float() @ router.float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, topk_idx = vals[..., :top_k], idx[..., :top_k]
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(dim=-1, keepdim=True), 1e-9)
+    return probs, gate_vals, topk_idx
+
+
+def _moe_groups(p, tok, cfg: ArchConfig):
+    """Dispatch n token groups, each as the JAX package's ``_moe_group``
+    dispatches one, in one pass. tok: (n, G, D) -> y (n, G, D) in tok's
+    dtype and aux (n,), float32.
+
+    Each (token, slot) assignment is ranked within its expert by a
+    one-hot cumsum over the group's flat (token, slot) order; ranks of C
+    and more are dropped (capacity C, ``moe_capacity``). Kept assignments
+    land in unique buffer slots (a plain ``index_put_``; drops all land in
+    slot C, which is never read); the expert products are batched matmuls
+    over the E experts' C slots of every group; each token's K slots are
+    weighted by their gates in float32 and summed in slot order (no
+    atomics: the bits are the same run to run). aux is the Switch-style
+    load-balance loss, E * sum(mean prob x fraction routed), per group.
+    """
+    mo = cfg.moe
+    n, G, D = tok.shape
+    E, K = mo.n_experts, mo.top_k
+    C = moe_capacity(G, cfg)
+    dev = tok.device
+
+    probs, gate_vals, topk_idx = moe_route(tok, p["router"], K)
+    flat_e = topk_idx.reshape(n, G * K)
+    # the one-hot expert-major (n, E, G*K), so that the rank's cumsum runs
+    # along the contiguous axis
+    sel = (flat_e[:, None, :] == torch.arange(E, device=dev)[:, None]) \
+        .to(torch.int32)
+    ce = sel.sum(dim=-1).float() * (1.0 / (G * K))            # (n, E)
+    aux = E * (probs.mean(dim=1) * ce).sum(dim=-1)            # (n,)
+    pos = torch.cumsum(sel, dim=-1).gather(
+        1, flat_e[:, None, :])[:, 0] - 1                      # rank in expert
+    del sel
+    keep = pos < C
+    grp = torch.arange(n, device=dev)[:, None].expand(n, G * K)
+
+    buf = tok.new_zeros((E, n, C + 1, D))
+    buf[flat_e, grp, torch.where(keep, pos, C)] = \
+        tok.repeat_interleave(K, dim=1)
+    xin = buf[:, :, :C].reshape(E, n * C, D)
+    del buf
+    a = act_fn(cfg.act)
+    hmid = a(torch.bmm(xin, p["wg"])) * torch.bmm(xin, p["wu"])
+    hout = torch.bmm(hmid, p["wd"]).view(E, n, C, D)
+
+    picked = hout[flat_e, grp, torch.where(keep, pos, 0)].float() \
+        * gate_vals.reshape(n, G * K, 1)
+    picked = torch.where(keep[..., None], picked, 0.0).view(n, G, K, D)
+    y = picked[:, :, 0]
+    for j in range(1, K):  # each token's slots, in slot order
+        y = y + picked[:, :, j]
+    return y.to(tok.dtype), aux
+
+
+def _moe_group(p, tok, cfg: ArchConfig):
+    """One token group tok (G, D) -> (y (G, D), aux): the JAX package's
+    ``_moe_group``."""
+    y, aux = _moe_groups(p, tok[None], cfg)
+    return y[0], aux[0]
+
+
+def moe_fwd(p, x, cfg: ArchConfig):
+    """x: (B, S, D) -> (y, aux_loss), the JAX package's grouping: token
+    groups are sequence chunks of ``gs = max(1, min(group_size, B S) //
+    B)`` positions over the whole batch (``gs = 1`` when S is not a
+    multiple of it), a group's tokens batch-major; aux is the mean over
+    groups. The reference scans the groups one by one; here as many as
+    ``MOE_BUFFER_BYTES`` allows go through one dispatch. The shared
+    experts, where the arch has them, are a dense gated MLP over every
+    token."""
+    mo = cfg.moe
+    B, S, D = x.shape
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    G = min(mo.group_size, B * S)
+    gs = max(1, G // B)
+    if S % gs != 0:
+        gs = 1
+    nc = S // gs
+    tok = h.reshape(B, nc, gs, D).transpose(0, 1).reshape(nc, B * gs, D)
+    C = moe_capacity(B * gs, cfg)
+    per_group = mo.n_experts * (C + 1) * max(D, mo.d_ff_expert) \
+        * tok.element_size()
+    step = max(1, MOE_BUFFER_BYTES // per_group)
+    parts = [_moe_groups(p, tok[i:i + step], cfg)
+             for i in range(0, nc, step)]
+    y = torch.cat([y for y, _ in parts]) if len(parts) > 1 else parts[0][0]
+    aux = torch.cat([a for _, a in parts]).mean()
+    y = y.view(nc, B, gs, D).transpose(0, 1).reshape(B, S, D)
+    if mo.n_shared_experts:
+        a = act_fn(cfg.act)
+        y = y + (a(h @ p["sh_wg"]) * (h @ p["sh_wu"])) @ p["sh_wd"]
+    return y, aux
 
 
 # ==========================================================================

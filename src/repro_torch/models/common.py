@@ -13,7 +13,8 @@ take raises there, never a plain fallback: offset queries, and causal
 attention with Sq != Sk. When an input requires grad (training),
 ``attention`` on the card runs ``KernelAttention``, an autograd function
 whose forward is B3 with its row log-sum-exp and whose backward is kernel
-B9, for plain causal attention only (B9 has no window or prefix yet); B4
+B9, for plain causal attention at equal q/k and v head dims of B9's only
+(B9 has no window or prefix, and no Dv != D or D 192 yet); B4
 has no backward, and its wrapper raises then rather than drop a
 gradient. On a CPU tensor both
 run the plain forms exactly as the JAX package dispatches them
@@ -33,6 +34,8 @@ from repro_torch.kernels.decode_attention import \
     decode_attention as decode_attention_kernel
 from repro_torch.kernels.flash_attention import \
     flash_attention as flash_attention_kernel
+from repro_torch.kernels.flash_attention_bwd import \
+    HEAD_DIMS as B9_HEAD_DIMS
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 
 Window = Union[None, int, torch.Tensor]
@@ -241,6 +244,13 @@ def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
                     "attention only: its backward, kernel B9, has no "
                     "sliding window, prefix or bidirectional mask yet "
                     "(ROADMAP Queue B)")
+            D, Dv = q.shape[-1], v.shape[-1]
+            if Dv != D or D not in B9_HEAD_DIMS:
+                raise NotImplementedError(
+                    f"training on the card differentiates attention of "
+                    f"equal q/k and v head dims in {B9_HEAD_DIMS} only "
+                    f"(got {D}, {Dv}): B9 has no Dv != D or D 192 yet, "
+                    f"ROADMAP Queue B")
             return KernelAttention.apply(q, k, v, scale)
         return flash_attention_kernel(q, k, v, causal=causal, scale=scale,
                                       window=window, prefix_len=prefix_len)

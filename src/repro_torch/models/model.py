@@ -21,15 +21,17 @@ matmul outputs and recomputes the rest (a selective-checkpoint policy
 that saves ``aten.mm``, the JAX package's
 ``dots_with_no_batch_dims_saveable``), ``"none"`` keeps everything.
 
-The port runs the dense text family, the SSD family, the hybrid family
-(hymba: attention beside an SSD branch, sliding-window layers between
-global ones), the audio encoder (hubert: projected frame embeddings plus
-a sinusoidal table, bidirectional attention, no decode) and the vision
-prefix-LM (paligemma: projected patch embeddings before the scaled text
-embedding, the patches attended bidirectionally); the entry points here
-raise for MoE and MLA (``registry.check_ported``), before any work.
-Caches are updated in place: the KV cache by slot, the SSD conv tails and
-states whole.
+The port runs every family of the JAX package: the dense text family,
+the SSD family, the hybrid family (hymba: attention beside an SSD branch,
+sliding-window layers between global ones), the audio encoder (hubert:
+projected frame embeddings plus a sinusoidal table, bidirectional
+attention, no decode), the vision prefix-LM (paligemma: projected patch
+embeddings before the scaled text embedding, the patches attended
+bidirectionally) and MoE (granite: GQA attention and routed experts;
+deepseek-v2: multi-head latent attention, shared and routed experts, and
+a leading dense layer ``dense0`` before the stack). Caches are updated in
+place: the KV cache by slot, MLA's latent cache (c, k_rope) by slot, the
+SSD conv tails and states whole.
 """
 from __future__ import annotations
 
@@ -106,7 +108,6 @@ def embed_inputs(params, batch: dict, cfg: ArchConfig,
     (B, T, frontend_dim), the vision arch ``batch["patches"]`` (B,
     frontend_seq, frontend_dim) and ``batch["tokens"]``, the rest
     ``batch["tokens"]``."""
-    registry.check_ported(cfg)
     if cfg.frontend == "audio":
         x = batch["frames"].to(dtype) @ params["frontend_proj"].to(dtype)
         return x + _sinusoid(x.shape[1], x.shape[2], x.device).to(dtype), 0
@@ -146,8 +147,11 @@ def _cache_slice(tree, i: int):
 
 def _apply_layer(p, x, cfg: ArchConfig, *, window, prefix_len: int,
                  prefill: bool, slot=None):
-    """Returns (x, cache_entry_or_None). ``slot``: this layer's slice of a
-    given cache, where an SSD layer's final state is written in place."""
+    """Returns (x, aux, cache_entry_or_None): aux is the layer's MoE
+    load-balance loss, a float32 zero for other layers. ``slot``: this
+    layer's slice of a given cache, where an SSD layer's final state is
+    written in place."""
+    aux = torch.zeros((), device=x.device)
     if cfg.family == "ssm":
         if prefill:
             y, cache = blocks.ssd_fwd(
@@ -155,7 +159,7 @@ def _apply_layer(p, x, cfg: ArchConfig, *, window, prefix_len: int,
                 state_out=None if slot is None else slot[1])
         else:
             y, cache = blocks.ssd_fwd(p["ssd"], x, cfg), None
-        return x + y, cache
+        return x + y, aux, cache
     if cfg.family == "hybrid":
         if prefill:
             y, cache = blocks.hybrid_fwd(
@@ -165,17 +169,35 @@ def _apply_layer(p, x, cfg: ArchConfig, *, window, prefix_len: int,
             y, cache = blocks.hybrid_fwd(p["mix"], x, cfg,
                                          window=window), None
         x = x + y
-        return x + blocks.mlp_fwd(p["mlp"], x, cfg), cache
-    if prefill:
+        return x + blocks.mlp_fwd(p["mlp"], x, cfg), aux, cache
+    cache = None
+    if cfg.mla:
+        if prefill:
+            y, cache = blocks.mla_fwd(p["attn"], x, cfg, return_cache=True)
+        else:
+            y = blocks.mla_fwd(p["attn"], x, cfg)
+    elif prefill:
         y, cache = blocks.attn_fwd(p["attn"], x, cfg, window=window,
                                    prefix_len=prefix_len, return_cache=True)
     else:
         y = blocks.attn_fwd(p["attn"], x, cfg, window=window,
                             prefix_len=prefix_len)
-        cache = None
     x = x + y
-    x = x + blocks.mlp_fwd(p["mlp"], x, cfg)
-    return x, cache
+    if "moe" in p:
+        y, aux = blocks.moe_fwd(p["moe"], x, cfg)
+        return x + y, aux, cache
+    return x + blocks.mlp_fwd(p["mlp"], x, cfg), aux, cache
+
+
+def _apply_dense0(p, x, cfg: ArchConfig, *, prefill: bool):
+    """DeepSeek's leading dense layer: MLA attention + a wide dense MLP.
+    Returns (x, its (c, k_rope) cache entry or None)."""
+    if prefill:
+        y, cache = blocks.mla_fwd(p["attn"], x, cfg, return_cache=True)
+    else:
+        y, cache = blocks.mla_fwd(p["attn"], x, cfg), None
+    x = x + y
+    return x + blocks.mlp_fwd(p["mlp"], x, cfg), cache
 
 
 # --------------------------------------------------------------------------
@@ -196,20 +218,23 @@ def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
     """Full-sequence forward over ``batch`` (``embed_inputs``: tokens
     (B, S) int64, and the frontend's frames or patches).
 
-    Returns (logits (B, S, V), aux) when ``prefill=False``, aux a zero
-    scalar (it carries the MoE loss in the JAX package); (last_logits
-    (B, 1, V), cache) when ``prefill=True``. The cache is
+    Returns (logits (B, S, V), aux) when ``prefill=False``, aux the sum
+    over layers of the MoE load-balance loss (0 without MoE), float32;
+    (last_logits (B, 1, V), cache) when ``prefill=True``. The cache is
     ``{"layers": entries}`` stacked on L (``layer_cache_struct``): for the
-    dense family (k, v), each (L, B, S, Hkv, hd); for the SSD family
-    ((conv_x, conv_B, conv_C), ssm); for the hybrid family ((k, v),
-    ((conv_x, conv_B, conv_C), ssm)). A new one, or, when ``cache`` (an
-    ``init_cache`` of at least S slots) is given, that one written in
-    place: the prompt's K/V into its first S slots, or each layer's conv
-    tail and final state (B5 writes the state straight into the layer's
-    slice on the card). Each layer attends with its window
-    (``registry.window_array`` at the sequence's length: hymba's sliding
-    layers, and global ones whose window covers the sequence), and the
-    vision arch's patches form a bidirectional prefix.
+    dense and GQA-MoE families (k, v), each (L, B, S, Hkv, hd); for MLA
+    (c, k_rope), (L, B, S, kv_lora) and (L, B, S, rope), and beside it
+    ``"dense0"``, the leading dense layer's (c, k_rope) unstacked; for the
+    SSD family ((conv_x, conv_B, conv_C), ssm); for the hybrid family
+    ((k, v), ((conv_x, conv_B, conv_C), ssm)). A new one, or, when
+    ``cache`` (an ``init_cache`` of at least S slots) is given, that one
+    written in place: the prompt's K/V or latents into its first S slots,
+    or each layer's conv tail and final state (B5 writes the state
+    straight into the layer's slice on the card). Each layer attends with
+    its window (``registry.window_array`` at the sequence's length:
+    hymba's sliding layers, and global ones whose window covers the
+    sequence), and the vision arch's patches form a bidirectional
+    prefix.
 
     ``remat`` (a key of ``REMAT_POLICIES``) wraps each layer of a
     training forward (``prefill=False``) when grad is enabled; prefill
@@ -224,26 +249,39 @@ def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
     if not prefill:
         def one(p_layer, x, window):
             return _apply_layer(p_layer, x, cfg, window=window,
-                                prefix_len=prefix_len, prefill=False)[0]
+                                prefix_len=prefix_len, prefill=False)[:2]
 
+        dense0 = lambda p, x: _apply_dense0(p, x, cfg,  # noqa: E731
+                                            prefill=False)[0]
         if torch.is_grad_enabled():
-            one = _remat(one, remat)
+            one, dense0 = _remat(one, remat), _remat(dense0, remat)
+        if "dense0" in params:
+            x = dense0(params["dense0"], x)
+        aux = torch.zeros((), device=x.device)
         for p_layer, window in zip(layers, windows):
-            x = one(p_layer, x, window)
-        return unembed(params, x, cfg), torch.zeros((), device=x.device)
+            x, a = one(p_layer, x, window)
+            aux = aux + a
+        return unembed(params, x, cfg), aux
+    new = {}
+    if "dense0" in params:
+        x, entry = _apply_dense0(params["dense0"], x, cfg, prefill=True)
+        if cache is None:
+            new["dense0"] = entry
+        else:
+            _store(cache["dense0"], entry, S)
     entries = []
     for i, p_layer in enumerate(layers):
         slot = None if cache is None else _cache_slice(cache["layers"], i)
-        x, entry = _apply_layer(p_layer, x, cfg, window=windows[i],
-                                prefix_len=prefix_len, prefill=True,
-                                slot=slot)
+        x, _, entry = _apply_layer(p_layer, x, cfg, window=windows[i],
+                                   prefix_len=prefix_len, prefill=True,
+                                   slot=slot)
         if cache is None:
             entries.append(entry)
         else:
             _store(slot, entry, S)
     last = unembed(params, x[:, -1:], cfg)
     if cache is None:
-        cache = {"layers": _stack(entries)}
+        cache = {"layers": _stack(entries), **new}
     return last, cache
 
 
@@ -322,6 +360,13 @@ def ssd_cache_struct(cfg: ArchConfig, B: int, dtype):
     return conv, ssm
 
 
+def mla_cache_struct(cfg: ArchConfig, B: int, S: int, dtype):
+    """Shapes and dtype of one MLA layer's latent cache entries: c (B, S,
+    kv_lora) and k_rope (B, S, rope)."""
+    m = cfg.mla
+    return ((B, S, m.kv_lora_rank), dtype), ((B, S, m.rope_head_dim), dtype)
+
+
 def layer_cache_struct(cfg: ArchConfig, B: int, S: int, dtype):
     """One layer's cache entries as nested tuples of (shape, dtype)."""
     if cfg.family == "ssm":
@@ -329,32 +374,42 @@ def layer_cache_struct(cfg: ArchConfig, B: int, S: int, dtype):
     if cfg.family == "hybrid":
         return (kv_cache_struct(cfg, B, S, dtype),
                 ssd_cache_struct(cfg, B, dtype))
+    if cfg.mla:
+        return mla_cache_struct(cfg, B, S, dtype)
     return kv_cache_struct(cfg, B, S, dtype)
 
 
-def _zeros(struct, L: int, device):
+def _zeros(struct, L: Optional[int], device):
+    """Zeros of a cache struct, stacked on a leading L axis (None: not
+    stacked)."""
     if not isinstance(struct[1], torch.dtype):
         return tuple(_zeros(s, L, device) for s in struct)
     shape, dt = struct
-    return torch.zeros((L, *shape), dtype=dt, device=device)
+    lead = () if L is None else (L,)
+    return torch.zeros((*lead, *shape), dtype=dt, device=device)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, *, device="cuda") -> dict:
     """Zeroed ``{"layers": entries}`` stacked on L: (k, v), each
-    (L, B, max_seq, Hkv, hd), for the attention families; ((conv_x,
-    conv_B, conv_C), ssm) for the SSD family (``ssd_cache_struct``;
-    ``max_seq`` bounds no SSD shape); both, ((k, v), (conv, ssm)), for
-    the hybrid family. On the card unless ``device`` says otherwise;
-    raises when there is no card."""
-    registry.check_ported(cfg)
+    (L, B, max_seq, Hkv, hd), for the attention families; (c, k_rope) for
+    MLA (``mla_cache_struct``), with ``"dense0"``, the leading dense
+    layer's (c, k_rope) unstacked, beside it; ((conv_x, conv_B, conv_C),
+    ssm) for the SSD family (``ssd_cache_struct``; ``max_seq`` bounds no
+    SSD shape); both, ((k, v), (conv, ssm)), for the hybrid family. On the
+    card unless ``device`` says otherwise; raises when there is no
+    card."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to allocate "
                            "the cache on the CPU")
     L = registry.n_scanned_layers(cfg)
-    return {"layers": _zeros(layer_cache_struct(cfg, batch, max_seq, dtype),
-                             L, device)}
+    c = {"layers": _zeros(layer_cache_struct(cfg, batch, max_seq, dtype),
+                          L, device)}
+    if cfg.moe and cfg.moe.first_dense_layers:
+        c["dense0"] = _zeros(mla_cache_struct(cfg, batch, max_seq, dtype),
+                             None, device)
+    return c
 
 
 def _decode_layer(p, x, cache, cache_len: int, cfg: ArchConfig, *, window,
@@ -369,12 +424,19 @@ def _decode_layer(p, x, cache, cache_len: int, cfg: ArchConfig, *, window,
             p["mix"], x, k, v, conv, ssm, cache_len, cfg, window=window)
         x = x + y
         return x + blocks.mlp_fwd(p["mlp"], x, cfg), ((k, v), (conv, ssm))
-    k, v = cache
-    y, k, v = blocks.attn_decode(p["attn"], x, k, v, cache_len, cfg,
-                                 window=window, prefix_len=prefix_len)
+    if cfg.mla:
+        c, kr = cache
+        y, c, kr = blocks.mla_decode(p["attn"], x, c, kr, cache_len, cfg)
+        cache = (c, kr)
+    else:
+        k, v = cache
+        y, k, v = blocks.attn_decode(p["attn"], x, k, v, cache_len, cfg,
+                                     window=window, prefix_len=prefix_len)
+        cache = (k, v)
     x = x + y
-    x = x + blocks.mlp_fwd(p["mlp"], x, cfg)
-    return x, (k, v)
+    if "moe" in p:
+        return x + blocks.moe_fwd(p["moe"], x, cfg)[0], cache
+    return x + blocks.mlp_fwd(p["mlp"], x, cfg), cache
 
 
 def decode_step(params, cache: dict, batch: dict, cfg: ArchConfig, *,
@@ -382,20 +444,26 @@ def decode_step(params, cache: dict, batch: dict, cfg: ArchConfig, *,
     """One decode step. batch: {"tokens": (B, 1) int64, "cache_len": int}.
 
     Returns (logits (B, 1, V), cache). The cache is updated in place —
-    the new token's K/V at slot ``cache_len``, or each SSD layer's conv
-    tail and state — and the returned cache is the same object. As in the
+    the new token's K/V or latents at slot ``cache_len`` (the leading
+    dense layer's first, for deepseek), or each SSD layer's conv tail and
+    state — and the returned cache is the same object. As in the
     JAX package, the vision arch's image prefix lives in cache slots
     ``[0, frontend_seq)`` and the token's embedding is scaled; each
     layer's window is ``registry.window_array`` at a sequence hint read
     off the cache's shapes (``_seq_hint``).
     """
-    registry.check_ported(cfg)
     params = cast_tree(params, dtype)
     cache_len = int(batch["cache_len"])
     prefix_len = cfg.frontend_seq if cfg.frontend == "vision" else 0
     x = params["embed"].to(dtype)[batch["tokens"]]
     if cfg.frontend == "vision":
         x = x * _text_scale(cfg, dtype, x.device)
+    if "dense0" in cache:
+        p0 = params["dense0"]
+        y, _, _ = blocks.mla_decode(p0["attn"], x, *cache["dense0"],
+                                    cache_len, cfg)
+        x = x + y
+        x = x + blocks.mlp_fwd(p0["mlp"], x, cfg)
     L = registry.n_scanned_layers(cfg)
     windows = _windows(cfg, _seq_hint(cache))
     for i, p_layer in enumerate(_layers(params["layers"], L)):

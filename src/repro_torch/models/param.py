@@ -80,15 +80,23 @@ def _init_one(gen: torch.Generator, s: ParamSpec,
     return (x * std).to(s.dtype)
 
 
-def init_params(specs, gen: torch.Generator, device) -> Any:
+def init_params(specs, gen: torch.Generator, device, *,
+                dtype=None) -> Any:
     """Materialize a parameter tree from specs on ``device``, drawing
     every normal leaf from ``gen`` (a ``torch.Generator`` on that
     device) in sorted-key order. The numbers are not ``jax.random``'s:
     to compute from the JAX package's weights, convert them with
-    ``repro_torch.convert.params_from_numpy(tree, device=device)``."""
+    ``repro_torch.convert.params_from_numpy(tree, device=device)``.
+
+    ``dtype``: each floating leaf is cast to it as soon as it is drawn --
+    the numbers of ``cast_tree(init_params(...), dtype)`` without the
+    whole float32 tree beside the cast one (a server's bf16 weights)."""
     device = torch.device(device)
-    vals = {path: _init_one(gen, s, device)
-            for path, s in tree_leaves(specs)}
+    vals = {}
+    for path, s in tree_leaves(specs):
+        x = _init_one(gen, s, device)
+        vals[path] = x.to(dtype) if dtype is not None \
+            and x.is_floating_point() else x
     return _with_leaves(specs, vals, ())
 
 

@@ -3,10 +3,7 @@
 ``param_specs(cfg)`` returns the full abstract parameter tree (ParamSpec
 leaves) of every arch, as the JAX package's; ``count_params`` sums it
 analytically (``active_only=True`` counts only the parameters touched
-per token: MoE's top_k and shared experts). The model's forward and
-cache run the dense, SSD, hybrid, audio-encoder and vision-prefix
-families; ``check_ported`` refuses MoE and MLA there, naming the
-ROADMAP item that ports them.
+per token: MoE's top_k and shared experts).
 """
 from __future__ import annotations
 
@@ -17,20 +14,6 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks
 from repro_torch.models.param import spec, stack_specs, tree_num_params
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for an arch whose forward the port
-    does not run yet (MoE dispatch, multi-head latent attention)."""
-    why = None
-    if cfg.moe is not None:
-        why = "MoE dispatch"
-    elif cfg.mla is not None:
-        why = "multi-head latent attention"
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {why} is not ported yet (ROADMAP A7b); its "
-            f"parameters can be counted, not run")
 
 
 def layer_specs(cfg: ArchConfig) -> dict:

@@ -14,7 +14,9 @@ package's model, on the CPU.
   plus the sinusoidal table, bidirectional attention, the plain MLP;
 * ``loss_fn`` of all three (paligemma's image positions carry no labels);
 * decode against the port's own forward for hymba and paligemma;
-* what still raises: MoE and MLA at ``forward`` / ``init_cache``.
+* MoE and MLA, which raised here before they were ported, run at the
+  entry points with the reference's shapes (``test_torch_moe_mla.py``
+  holds them to the reference's numbers).
 
 Both sides run in float32 on the JAX package's own weights (carried
 across by ``params_from_numpy``): two to five layers of float32 matmuls
@@ -229,15 +231,27 @@ def test_cpu_forward_launches_no_kernel():
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
                                   "deepseek-v2-236b"])
-def test_moe_and_mla_still_raise_at_the_entry_points(arch):
-    cfg = get_arch(arch).reduced()
+def test_moe_and_mla_run_at_the_entry_points(arch):
+    """MoE and MLA (refused before ROADMAP A7b) run at ``forward``,
+    ``init_cache``, ``prefill_step`` and ``decode_step``, with the JAX
+    package's shapes; the aux loss is a positive float32 scalar."""
+    cfg, rcfg = _cfgs(arch)
     params = init_params(registry.param_specs(cfg),
                          torch.Generator().manual_seed(0), "cpu")
     tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        TM.forward(params, {"tokens": tokens}, cfg)
-    with pytest.raises(NotImplementedError, match="A7b"):
-        TM.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7b"):
-        TM.decode_step(params, {"layers": ()},
-                       {"tokens": tokens[:, :1], "cache_len": 0}, cfg)
+    logits, aux = TM.forward(params, {"tokens": tokens}, cfg)
+    assert logits.shape == (1, 4, cfg.vocab_padded)
+    assert aux.shape == () and aux.dtype == torch.float32 and float(aux) > 0
+    cache = TM.init_cache(cfg, 1, 8, device="cpu")
+    want = JM.init_cache(rcfg, 1, 8)
+    assert set(cache) == set(want)
+    for key in want:
+        assert [tuple(t.shape) for t in jax.tree.leaves(cache[key])] == \
+            [t.shape for t in jax.tree.leaves(want[key])]
+    last, cache = TM.prefill_step(params, {"tokens": tokens}, cfg,
+                                  cache=cache)
+    assert last.shape == (1, 1, cfg.vocab_padded)
+    step, _ = TM.decode_step(params, cache, {"tokens": tokens[:, :1],
+                                             "cache_len": 4}, cfg)
+    assert step.shape == (1, 1, cfg.vocab_padded)
+    assert bool(torch.isfinite(step.float()).all())

@@ -427,6 +427,122 @@ def test_flash_attention_bf16_unaligned_new_head_dims(card, D):
                        flash_attention(q, k, v, **kw))
 
 
+def _mla_inputs(card, dtype, seed, B, S, H):
+    """q and k of head dim 192 and v of 128 as MLA makes them: v a view
+    into a (B, S, H, 256) tensor (its nope half in front), k's rope part
+    one vector broadcast over the heads."""
+    q, kv, kr = _attn_inputs(card, dtype, seed, (B, S, H, 192),
+                             (B, S, H, 256), (B, S, 1, 64))
+    k = torch.cat([kv[..., :128], kr.expand(B, S, H, 64)], dim=-1)
+    return q, k, kv[..., 128:]
+
+
+@pytest.mark.parametrize("S", [1, 17, 64, 130, 2049])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_value_head_dim_of_its_own(card, dtype, causal, S):
+    """B3 at (D, Dv) = (192, 128), multi-head latent attention's prefill,
+    against its plain version: v read in place through its head stride of
+    256 (no copy), the output (B, S, H, 128), the key tiles the mask
+    allows, and a second call bit-identical."""
+    from repro_torch.kernels.flash_attention import for_kernel, live_tiles
+    q, k, v = _mla_inputs(card, dtype, S, 2, S, 4)
+    assert v.stride(2) == 256 and for_kernel(v) is v
+    tiles = torch.zeros((2, 4, -(-S // 64)), dtype=torch.int32, device=card)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, tiles_loaded=tiles)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert got.shape == want.shape == (2, S, 4, 128)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+    assert torch.equal(tiles, live_tiles(S, S, causal=causal, device=card)
+                       .expand(2, 4, -1))
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal))
+
+
+def test_flash_attention_refuses_other_head_dim_pairs(card):
+    q, k, v = _attn_inputs(card, torch.bfloat16, 0, (1, 8, 2, 64),
+                           (1, 8, 2, 64), (1, 8, 2, 32))
+    with pytest.raises(ValueError, match="pairs"):
+        flash_attention(q, k, v)
+
+
+def _families_cfg(arch):
+    """The reduced MoE arch; deepseek with MLA's published head dims
+    (192 / 128: the reduced 24 / 16 are not among B3's)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import MLAConfig
+    cfg = get_arch(arch).reduced()
+    return dataclasses.replace(cfg, mla=MLAConfig()) if cfg.mla else cfg
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-236b"])
+def test_reduced_moe_prefill_and_decode_on_the_card(card, arch):
+    """Prefill and 4 decode steps of a reduced MoE arch on the card
+    against the CPU, float32, teacher-forced: one B3 a layer at prefill
+    (deepseek's dense0 included), one B4 a layer and step for granite
+    and none for deepseek (its absorbed decode is plain)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params, tree_map
+    cfg = _families_cfg(arch)
+    params = init_params(registry.param_specs(cfg),
+                         torch.Generator(device=card).manual_seed(0), card)
+    on = {"cuda": params, "cpu": tree_map(lambda t: t.cpu(), params)}
+    toks = torch.randint(0, cfg.vocab_size, (2, 45),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cache = M.init_cache(cfg, 2, 48, torch.float32, device=dev)
+        b3, b4 = flash_attention.launches, decode_attention.launches
+        with torch.no_grad():
+            last, cache = M.prefill_step(on[dev], {"tokens": toks[:, :41]
+                                                   .to(dev)}, cfg,
+                                         dtype=torch.float32, cache=cache)
+            steps = [last]
+            for t in range(4):
+                lg, cache = M.decode_step(
+                    on[dev], cache, {"tokens": toks[:, 41 + t:42 + t]
+                                     .to(dev), "cache_len": 41 + t}, cfg,
+                    dtype=torch.float32)
+                steps.append(lg)
+        out[dev] = torch.cat(steps, dim=1).cpu()
+        launched = (flash_attention.launches - b3,
+                    decode_attention.launches - b4)
+    L = registry.n_scanned_layers(cfg)
+    assert launched == (cfg.n_layers, 0 if cfg.mla else 4 * L)
+    torch.testing.assert_close(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
+
+
+def test_moe_combine_is_bit_identical_on_a_rerun(card):
+    """The MoE dispatch and combine (no atomics: a token's slots summed
+    in slot order) give the same bits on a rerun, in bf16 and float32,
+    over several groups."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import blocks, registry
+    from repro_torch.models.param import init_params
+    cfg = get_arch("deepseek-v2-236b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, group_size=64))
+    p = init_params(registry.layer_specs(cfg)["moe"],
+                    torch.Generator(device=card).manual_seed(0), card)
+    x = torch.randn((4, 96, cfg.d_model), device=card,
+                    generator=torch.Generator(device=card).manual_seed(1))
+    for dtype in (torch.float32, torch.bfloat16):
+        pd = {k: t.to(dtype) for k, t in p.items()}
+        y, aux = blocks.moe_fwd(pd, x.to(dtype), cfg)
+        y2, aux2 = blocks.moe_fwd(pd, x.to(dtype), cfg)
+        assert torch.equal(y, y2) and torch.equal(aux, aux2)
+        assert bool(torch.isfinite(y.float()).all())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cache_len", [0, 40, 99, 100, 101, 300, 2079])
 @pytest.mark.parametrize("D,groups,prefix", [(64, 5, 0), (256, 8, 0),

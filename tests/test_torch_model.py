@@ -3,8 +3,8 @@
 * configs: every arch name resolves, and the derived properties and the
   reduced configs equal the reference's;
 * ``count_params`` (with and without ``active_only``) equals the
-  reference's for every arch, full and reduced; MoE and MLA still raise
-  ``NotImplementedError`` at the forward and cache entry points;
+  reference's for every arch, full and reduced; MoE and MLA caches have
+  the reference's structure (their numbers: ``test_torch_moe_mla.py``);
 * reduced qwen-family archs and mamba2-780m: ``prefill_step`` and
   ``decode_step`` on the JAX package's own weights (carried across by
   ``params_from_numpy``), both sides in float32. Two layers of float32
@@ -45,8 +45,8 @@ DENSE_TEXT = ["qwen2.5-3b", "qwen2.5-14b", "qwen3-32b", "qwen1.5-4b"]
 SSM = ["mamba2-780m"]
 # the families whose forward runs since the hybrid, audio and vision slice
 A7A = ["hymba-1.5b", "hubert-xlarge", "paligemma-3b"]
-NOT_PORTED = ["granite-moe-1b-a400m", "deepseek-v2-236b"]
-ALL_ARCHS = DENSE_TEXT + SSM + A7A + NOT_PORTED
+MOE = ["granite-moe-1b-a400m", "deepseek-v2-236b"]
+ALL_ARCHS = DENSE_TEXT + SSM + A7A + MOE
 LOGIT_ATOL = 1e-4  # float32 both sides; see the module docstring
 
 
@@ -118,11 +118,22 @@ def test_param_specs_carry_the_jax_tree_of_every_family():
         assert ours == ref, arch
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_families_raise(arch):
-    cfg = get_arch(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.init_cache(cfg.reduced(), 1, 8, device="cpu")
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_and_mla_caches_have_the_reference_structure(arch):
+    """``init_cache`` of the MoE archs (refused before ROADMAP A7b): the
+    JAX package's entries and shapes -- granite's (k, v), deepseek's MLA
+    latents (c, k_rope) stacked on its 1 MoE layer and ``dense0``'s
+    unstacked -- zeroed, in the dtype asked for."""
+    cfg, rcfg = get_arch(arch).reduced(), ref_get_arch(arch).reduced()
+    cache = TM.init_cache(cfg, 2, 8, torch.float32, device="cpu")
+    want = JM.init_cache(rcfg, 2, 8, dtype=jnp.float32)
+    assert set(cache) == set(want) == ({"layers", "dense0"} if cfg.mla
+                                       else {"layers"})
+    for key in want:
+        ours = jax.tree.leaves(cache[key])
+        assert [tuple(t.shape) for t in ours] == \
+            [t.shape for t in jax.tree.leaves(want[key])]
+        assert all(t.dtype == torch.float32 and not t.any() for t in ours)
 
 
 def test_init_cache_runs_on_the_card_unless_told(monkeypatch):

@@ -117,6 +117,26 @@ def test_generate_shape_and_range():
     assert np.array_equal(other.generate(prompts, 4), toks)
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-236b"])
+def test_moe_servers_generate(arch):
+    """The MoE archs (refused before ROADMAP A7b) serve on the CPU: the
+    reference's cache entries (deepseek's leading dense layer's too),
+    tokens in range, a cache length of prompt + steps, and no kernel
+    launched. Their logits against the JAX server:
+    ``test_torch_moe_mla.py``."""
+    srv = serve.Server(arch, batch=2, max_seq=24, device="cpu")
+    assert set(srv.cache) == ({"layers", "dense0"} if srv.cfg.mla
+                              else {"layers"})
+    prompts = np.random.default_rng(3).integers(
+        0, srv.cfg.vocab_size, (2, 9), dtype=np.int32)
+    launches = (flash_attention.launches, decode_attention.launches)
+    toks = srv.generate(prompts, 5)
+    assert toks.shape == (2, 5) and srv.cache_len == 9 + 4
+    assert (toks >= 0).all() and (toks < srv.cfg.vocab_padded).all()
+    assert (flash_attention.launches, decode_attention.launches) == launches
+
+
 def test_server_refuses_what_does_not_fit():
     srv = serve.Server("qwen2.5-3b", batch=2, max_seq=10, device="cpu")
     with pytest.raises(ValueError):
@@ -129,8 +149,6 @@ def test_server_refuses_what_does_not_fit():
         srv.step(np.zeros(2, np.int32))
     with pytest.raises(ValueError):
         serve.Server("hubert-xlarge", device="cpu")
-    with pytest.raises(NotImplementedError):  # MoE waits for ROADMAP A7b
-        serve.Server("granite-moe-1b-a400m", device="cpu")
     vlm = serve.Server("paligemma-3b", batch=2, max_seq=10, device="cpu")
     with pytest.raises(ValueError):  # 4 image slots + 6 tokens: full
         vlm.prefill_prompts(np.zeros((2, 6), np.int32))

@@ -498,6 +498,21 @@ def test_card_training_attention_is_the_hand_kernels():
     assert "_plain" not in after and "_build.load(" in after
 
 
+def test_mla_training_on_the_card_raises_before_any_work():
+    """B9 has no Dv != D or D 192: ``mla_fwd`` on the card with grad
+    enabled raises before its first operation, naming the ROADMAP item,
+    and ``attention`` on the card refuses any other pair of head dims
+    under grad before it reaches ``KernelAttention``."""
+    body = _function_source(PKG / "models" / "blocks.py", "mla_fwd")
+    assert body.index('x.device.type == "cuda"') \
+        < body.index("raise NotImplementedError") < body.index("rms_norm(")
+    assert "torch.is_grad_enabled()" in body and "ROADMAP Queue B" in body
+    attn = _function_source(PKG / "models" / "common.py", "attention")
+    refuse = attn.index("if Dv != D or D not in B9_HEAD_DIMS:")
+    assert refuse < attn.index("raise NotImplementedError", refuse) \
+        < attn.index("KernelAttention.apply(")
+
+
 def test_ssd_training_on_the_card_raises_before_any_work():
     """B5 has no backward: ``ssd_fwd`` on the card with grad enabled
     raises before its first operation, and every wrapper of a kernel
