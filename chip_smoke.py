@@ -96,6 +96,7 @@ import subprocess
 import sys
 import time
 
+T_START = time.perf_counter()
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
@@ -330,7 +331,10 @@ def fail(msg: str, code: int = 1):
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One phase's JSON line, with ``t_s``: seconds since the script
+    started (the run's budget)."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2345,11 +2349,13 @@ def _wrappers() -> dict:
     from repro_torch.kernels.sa_occupancy import sa_occupancy
     from repro_torch.kernels.segment_sum import segment_sum
     from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd
     return {"sa_occupancy": sa_occupancy, "segment_sum": segment_sum,
             "flash_attention": flash_attention,
             "flash_attention_bwd": flash_attention_bwd,
             "decode_attention": decode_attention, "ssd_scan": ssd_scan,
-            "gated_matmul": gated_matmul_p, "program_exec": program_exec}
+            "ssd_scan_bwd": ssd_scan_bwd, "gated_matmul": gated_matmul_p,
+            "program_exec": program_exec}
 
 
 def reset_launches() -> None:
@@ -3124,17 +3130,96 @@ TRAIN_PARAM_TOL = 1e-5     # relative L2, every parameter leaf, 3 steps
 # between the port and the JAX package (tests/test_torch_train.py,
 # ROADMAP Queue C). Those leaves are held to this limit instead.
 TRAIN_ZERO_INIT_TOL = 1e-2
+# the families' training paths at full width (launch.train.run, remat
+# "full", 4 steps): phase name, arch, the loop's shape. hymba at 4 096
+# tokens, so that its 29 sliding layers slide (window 2 048); paligemma's
+# seq_len counts its 256 patch embeddings (1 792 text tokens); hubert's
+# 1 500 frames are 30 s of audio
+TRAIN_PATHS = (
+    ("train_ssm_full", SSM_ARCH, dict(seq_len=2048, global_batch=2,
+                                      microbatches=2, steps=4)),
+    ("train_hybrid_full", HYBRID_ARCH, dict(seq_len=4096, global_batch=2,
+                                            microbatches=2, steps=4)),
+    ("train_vlm_full", VLM_ARCH, dict(seq_len=2048, global_batch=2,
+                                      microbatches=2, steps=4)),
+    ("train_audio_full", AUDIO_ARCH, dict(seq_len=AUDIO_FRAMES,
+                                          global_batch=4, microbatches=2,
+                                          steps=4)))
+# the training paths profiled one step each (profile_train): the two that
+# run B10; a profile of a step with ~10-20 k launches costs tens of host
+# seconds
+PROFILED_TRAIN = (SSM_ARCH, HYBRID_ARCH)
+# train_parity's cut per arch (2 layers at full width and a batch of 2 by
+# default). The SSD archs at 64 tokens: one chunk on both sides, where the
+# CPU's chunk rule (the reference's: one chunk of S up to 256) and B5 /
+# B10's chunk of 64 agree. Over several chunks the two float32 chunkings
+# alone (the CPU against itself in chunks of 64 reads the same) move
+# A_log's gradient and, through AdamW's sign-like first steps, mamba2's
+# tied embedding past the limits below -- the differences of cumsums of
+# size ~100-1000 in float32 (tests/test_torch_ssd_bwd.py); the kernels
+# phase holds B10 over many chunks. hymba at 5
+# layers (0, 2, 4 global; 1 and 3 sliding) with its window cut to 32 so
+# that the sequence slides past it; paligemma's 256 patches and 32 text
+# tokens, one sequence (its CPU leg, 257 k-entry logits, is the longest)
+TRAIN_PARITY = {
+    SSM_ARCH: dict(seq_len=64),
+    HYBRID_ARCH: dict(seq_len=64, config=dict(n_layers=5,
+                                              sliding_window=32),
+                      reduced="depth 32 -> 5, sliding window 2048 -> 32"),
+    VLM_ARCH: dict(seq_len=288, batch=1),
+    AUDIO_ARCH: dict(seq_len=200),
+}
+
+# B10, the SSD scan's backward
+SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
+B10_KERNELS = ("ssd_scan_bwd_kernel", "ssd_bwd_group_kernel")
+# (B, S, nh, hd, G, N) at the training paths' shapes (one microbatch)
+B10_MODEL_SHAPES = {SSM_ARCH: (1, 2048, 48, 64, 1, 128),
+                    HYBRID_ARCH: (1, 4096, 50, 64, 1, 16)}
+# and a ragged S with G = 2, and the strong-decay case
+B10_CASES = (("ragged_g2", (2, 1000, 4, 32, 2, 64), False),
+             ("strong_decay", (2, 130, 4, 16, 2, 16), True))
+# B10 vs its plain version (autograd through B5's plain version on the
+# CPU copies, float32): max |kernel - plain| / max |plain| per gradient;
+# dA alone at 1e-3. dA sums dt da over every position of a head, each da
+# a sum of differences of float32 cumsums of size ~10-1000 with heavy
+# cancellation: on the H100 it read up to 7.8e-5 of max |dA| from the
+# plain version (ragged S, bf16; this script's kernels phase), and
+# on the CPU the plain version and the reference each sit ~1e-4 from a
+# float64 recurrence (tests/test_torch_ssd_bwd.py)
+B10_SCALED_TOL = {"dx": 1e-4, "ddt": 1e-4, "dA": 1e-3, "dB": 1e-4,
+                  "dC": 1e-4}
+# B10 bf16: dx, dB, dC come back in bf16 from float32 sums, so they read
+# as one bf16 rounding of the plain version's (1.66e-3 to 1.69e-3 on the
+# H100, as does the plain version rounded to bf16); the limit is about
+# twice that, and the
+# control, the plain version's gradients rounded to 3 mantissa bits, must
+# read above it. ddt and dA are float32 on both routes (B10_SCALED_TOL).
+B10_REL_L2_BF16 = 4e-3
+B10_CONTROL_BITS = 3
+# B9 at the new families' training shapes (one microbatch): hymba's
+# sliding layers (window 2 048 at 4 096 tokens, D 64, 25 / 5 heads),
+# paligemma's prefix (256 patches, 2 048 positions, D 256, 8 / 1), hubert's
+# encoder (bidirectional, 2 x 1 500 frames, D 80, 16 / 16)
+B9_MASK_SHAPES = (
+    ("hymba_window", HYBRID_ARCH, (1, 4096, 25, 5, 64), True, 2048, 0),
+    ("paligemma_prefix_d256", VLM_ARCH, (1, 2048, 8, 1, 256), True, None,
+     256),
+    ("hubert_bidirectional_d80", AUDIO_ARCH, (2, AUDIO_FRAMES, 16, 16, 80),
+     False, None, 0))
 
 
-def b9_bound(B, S, H, Hkv, D, dtype) -> tuple[float, str]:
-    """Least time for the causal attention backward: q, k, v, o, do and
-    lse read once, dq, dk, dv written once; five matmuls over the live
-    score entries S(S+1)/2 per (batch, head) at 2 D operations each
-    (q k^T, dO V^T, P^T dO, dS^T Q, dS K)."""
+def b9_bound(B, S, H, Hkv, D, dtype, live=None) -> tuple[float, str]:
+    """Least time for the attention backward: q, k, v, o, do and lse read
+    once, dq, dk, dv written once; five matmuls over the live score
+    entries -- ``live`` per (batch, head) (a mask's live pairs), the
+    causal S(S+1)/2 by default -- at 2 D operations each (q k^T, dO V^T,
+    P^T dO, dS^T Q, dS K)."""
     import torch
     el = 2 if dtype == torch.bfloat16 else 4
     nbytes = el * (4 * B * S * H * D + 4 * B * S * Hkv * D) + 4 * B * H * S
-    flops = 5 * 2 * B * H * D * S * (S + 1) / 2
+    live = S * (S + 1) / 2 if live is None else live
+    flops = 5 * 2 * B * H * D * live
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
@@ -3267,6 +3352,266 @@ def time_b9(q, k, v, o, lse, do) -> dict:
             "bound_ms": bound, "bound_by": by}
 
 
+def b10_bound(B, S, H, P, G, N, dtype) -> tuple[float, str]:
+    """Least time for the SSD scan's backward: x, dt, A, B, C and dy read
+    once, dx, ddt, dA, dB, dC written once; the chunked form's products
+    per (batch, head) and chunk of 64 -- the causal half of the chunk's
+    C B^T, dy x^T and the three products that read it back (3 N + 2 P
+    per pair), and five P N Q products (the entering state's recompute,
+    C's and B's state terms, dH B, the state gradient's update) -- at
+    the peak for x's type."""
+    import torch
+    Q = 64
+    el = 2 if dtype == torch.bfloat16 else 4
+    nbytes = 2 * el * (B * S * H * P + 2 * B * S * G * N) + 4 * (
+        2 * B * S * H + 2 * B * H + B * S * H * P)
+    chunks = -(-S // Q)
+    fmas = B * H * chunks * (Q * (Q + 1) // 2 * (3 * N + 2 * P)
+                             + 5 * P * N * Q)
+    peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, 2 * fmas / peak
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def b10_inputs(gen, shape, dtype, dev, strong=False):
+    """x, dt, A, B, C, dy at ``shape`` (B, S, nh, hd, G, N): dt a softplus
+    of a normal draw and A in [-16, -1] (mamba2's init range), or, with
+    ``strong``, dt ~ 10 and A = -16 (nothing survives a step)."""
+    import torch
+    import torch.nn.functional as F
+    Bz, S, H, P, G, N = shape
+    x = torch.randn((Bz, S, H, P), generator=gen, device=dev).to(dtype)
+    if strong:
+        dt = 10.0 + 0.1 * torch.rand((Bz, S, H), generator=gen, device=dev)
+        A = torch.full((H,), -16.0, device=dev).expand(Bz, H)
+    else:
+        dt = F.softplus(torch.randn((Bz, S, H), generator=gen, device=dev))
+        A = -(1.0 + 15.0 * torch.rand((H,), generator=gen,
+                                      device=dev)).expand(Bz, H)
+    B, C = ((0.3 * torch.randn((Bz, S, G, N), generator=gen, device=dev))
+            .to(dtype) for _ in range(2))
+    dy = torch.randn((Bz, S, H, P), generator=gen, device=dev)
+    return x, dt, A, B, C, dy
+
+
+def check_ssd_bwd_kernel(dev) -> dict:
+    """B10 against its plain version (on the CPU copies of the same
+    inputs, float32): at mamba2's and hymba's training shapes, a ragged S
+    with G = 2 and the strong-decay case, float32 and bf16: every gradient
+    within ``B10_SCALED_TOL`` of its largest value (the bf16 route's
+    float32 outputs ddt, dA too), bf16 dx, dB, dC within
+    ``B10_REL_L2_BF16`` relative L2 beside the control; a second call
+    bit-identical. At the model shapes also timed beside its bound and
+    the plain version."""
+    import torch
+    from repro_torch.kernels.flash_attention_bwd import _round_bits
+    from repro_torch.kernels.ssd_scan_bwd import (ssd_scan_bwd,
+                                                  ssd_scan_bwd_plain)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    cases = [(a, shape, False) for a, shape in B10_MODEL_SHAPES.items()] \
+        + list(B10_CASES)
+    out = {"cases": {}, "max_abs_err": {}, "model_shapes": {}}
+    for name, shape, strong in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            what = f"ssd_scan_bwd[{name}, {dn}]"
+            args = b10_inputs(gen, shape, dtype, dev, strong)
+            got = ssd_scan_bwd(*args)
+            again = ssd_scan_bwd(*args)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{what}: a second call is not bit-identical")
+            cpu = [t.cpu().float() if t.dtype == torch.bfloat16 else t.cpu()
+                   for t in args]
+            t0 = time.perf_counter()
+            want = ssd_scan_bwd_plain(*cpu)
+            plain_s = time.perf_counter() - t0
+            rec = {"scaled_err": {}, "rel_l2": {}}
+            for gname, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got,
+                                   want):
+                check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+                      f"{what}: {gname} shape or finiteness")
+                g = g.float().cpu()
+                out["max_abs_err"][dn] = max(out["max_abs_err"].get(dn, 0.0),
+                                             max_abs(g, w))
+                rec["rel_l2"][gname] = b3_rel_l2(g, w)
+                if strong and gname == "dA":  # exp(-160) = 0: A moves nothing
+                    check(float(g.abs().max()) == 0.0
+                          and float(w.abs().max()) == 0.0,
+                          f"{what}: dA is not 0 where nothing decays late")
+                    continue
+                if dtype == torch.bfloat16 and gname in ("dx", "dB", "dC"):
+                    check(rec["rel_l2"][gname] <= B10_REL_L2_BF16,
+                          f"{what}: {gname} relative L2 "
+                          f"{rec['rel_l2'][gname]} > {B10_REL_L2_BF16}")
+                    continue
+                rec["scaled_err"][gname] = scaled_err(g, w)
+                check(rec["scaled_err"][gname] <= B10_SCALED_TOL[gname],
+                      f"{what}: {gname} scaled error "
+                      f"{rec['scaled_err'][gname]} > {B10_SCALED_TOL[gname]}")
+            if dtype == torch.bfloat16:
+                ctrl = {f"grads_{bits}_bits": {
+                    gname: b3_rel_l2(_round_bits(w, bits), w)
+                    for gname, w in zip(("dx", "dB", "dC"),
+                                        (want[0], want[3], want[4]))}
+                    for bits in (7, B10_CONTROL_BITS)}
+                rec["control_rel_l2"] = ctrl
+                low = min(ctrl[f"grads_{B10_CONTROL_BITS}_bits"].values())
+                check(low > B10_REL_L2_BF16,
+                      f"{what}: the control reads {low} <= "
+                      f"{B10_REL_L2_BF16}: the limit cannot see it")
+            if name in B10_MODEL_SHAPES:
+                bound, by = b10_bound(*shape, dtype)
+                run = lambda: ssd_scan_bwd(*args)  # noqa: E731
+                rec.update({"shape": {"x": list(args[0].shape),
+                                      "B": list(args[3].shape),
+                                      "dtype": str(dtype)},
+                            "ms": event_ms(run, 5, warmup=1),
+                            "device_us": kernel_device_us(run, B10_KERNELS),
+                            "plain_ms": plain_s * 1e3,
+                            "plain_note": "the plain version on the CPU "
+                                          "copies of the inputs",
+                            "library_ms": None,
+                            "library_note": "none exists: no PyTorch call "
+                                            "computes the SSD scan or its "
+                                            "backward",
+                            "bound_ms": bound, "bound_by": by})
+                out["model_shapes"].setdefault(name, {})[dn] = rec
+            out["cases"][f"{name}/{dn}"] = rec
+            del args, got, again, want, cpu
+    return out
+
+
+def b9_masked_case(q, k, v, do, mask: dict, what: str, timed: bool) -> dict:
+    """B9 on the card under ``mask`` against its plain version on the CPU
+    copies: float32 within ``B9_TOL_F32``; bf16 relative L2 within
+    ``B9_REL_L2_BF16`` in each of dq, dk, dv beside the control (P and dS
+    at ``B9_CONTROL_BITS``); a second call bit-identical. With ``timed``
+    also the times beside the live-pair bound and the backward of one
+    ``scaled_dot_product_attention`` under the same boolean mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels.ref import attention_mask
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    dtype = q.dtype
+    o, lse = flash_attention(q, k, v, return_lse=True, **mask)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: a second call is not bit-identical")
+    cpu = [t.cpu() for t in (q, k, v, o, lse, do)]
+    t0 = time.perf_counter()
+    want = flash_attention_bwd_plain(*cpu, **mask)
+    plain_s = time.perf_counter() - t0
+    rec = {"max_abs_err": 0.0, "rel_l2": {}}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"{what}: {name} shape or finiteness")
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 max_abs(g.float().cpu(), w.float()))
+        rec["rel_l2"][name] = b3_rel_l2(g.cpu(), w)
+        if dtype == torch.float32:
+            check(b9_close_f32(g, w), f"{what}: {name} differs by "
+                                      f"{rec['max_abs_err']}")
+        else:
+            check(rec["rel_l2"][name] <= B9_REL_L2_BF16,
+                  f"{what}: {name} relative L2 {rec['rel_l2'][name]} > "
+                  f"{B9_REL_L2_BF16}")
+    if dtype == torch.bfloat16:
+        ctrl = {}
+        # the 7-bit reading (bf16's own rounding) at the timed shapes only
+        for bits in (7, B9_CONTROL_BITS) if timed else (B9_CONTROL_BITS,):
+            alt = flash_attention_bwd_plain(*cpu, p_bits=bits, ds_bits=bits,
+                                            **mask)
+            ctrl[f"p_ds_{bits}_bits"] = {
+                name: b3_rel_l2(a, w)
+                for name, a, w in zip(("dq", "dk", "dv"), alt, want)}
+            del alt
+        rec["control_rel_l2"] = ctrl
+        low = min(ctrl[f"p_ds_{B9_CONTROL_BITS}_bits"].values())
+        check(low > B9_REL_L2_BF16, f"{what}: the control reads {low} <= "
+                                    f"{B9_REL_L2_BF16}")
+    del got, again, want, cpu
+    if not timed:
+        return rec
+    ok = attention_mask(S, S, device=q.device, **mask)
+    live = int(ok.sum())
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    sdpa = dict(attn_mask=None if bool(ok.all()) else ok)
+    try:
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                                 **sdpa)
+        lib_in = (qt, kt, vt)
+    except TypeError:  # a torch without enable_gqa: repeat the KV heads
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=1).detach()
+                  .requires_grad_() for t in (kt, vt))
+        lib_out = F.scaled_dot_product_attention(qt, kr, vr, **sdpa)
+        lib_in = (qt, kr, vr)
+    dot = do.transpose(1, 2)
+    bound, by = b9_bound(B, S, H, Hkv, D, dtype, live)
+    call = lambda: flash_attention_bwd(q, k, v, o, lse, do,  # noqa: E731
+                                       **mask)
+    lib = lambda: torch.autograd.grad(  # noqa: E731
+        lib_out, lib_in, dot, retain_graph=True)
+    rec.update({"shape": {"q": list(q.shape), "kv": list(k.shape),
+                          "dtype": str(dtype), **mask},
+                "live_pairs": live, "ms": event_ms(call, 5, warmup=2),
+                "device_us": kernel_device_us(
+                    call, B9_KERNELS[str(dtype).split(".")[-1]]),
+                "plain_ms": plain_s * 1e3,
+                "plain_note": "the plain version on the CPU copies of the "
+                              "inputs",
+                "library_ms": event_ms(lib, 5, warmup=2),
+                "library_kernels": device_kernel_names(lib),
+                "library_note": "the backward of one "
+                                "scaled_dot_product_attention under the "
+                                "same boolean mask",
+                "bound_ms": bound, "bound_by": by})
+    del lib_out, lib_in
+    return rec
+
+
+def check_b9_masks(dev) -> dict:
+    """B9 under B3's ``B3_MASK_CASES`` -- a sliding window, a prefix,
+    both, bidirectional attention, at head dims 64, 80 and 256 -- in both
+    dtypes (``b9_masked_case``), and timed at the new families' training
+    shapes (``B9_MASK_SHAPES``) in bf16."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    out = {"cases": {}, "model_shapes": {}}
+    for name, B, S, H, Hkv, D, causal, window, prefix in B3_MASK_CASES:
+        mask = dict(causal=causal, window=window, prefix_len=prefix)
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            q, do = rnd((B, S, H, D), dtype), rnd((B, S, H, D), dtype)
+            k, v = rnd((B, S, Hkv, D), dtype), rnd((B, S, Hkv, D), dtype)
+            out["cases"][f"{name}/{dn}"] = b9_masked_case(
+                q, k, v, do, mask, f"flash_attention_bwd[{name}, {dn}]",
+                False)
+            del q, k, v, do
+    for name, arch, (B, S, H, Hkv, D), causal, window, prefix \
+            in B9_MASK_SHAPES:
+        mask = dict(causal=causal, window=window, prefix_len=prefix)
+        dtype = torch.bfloat16
+        q, do = rnd((B, S, H, D), dtype), rnd((B, S, H, D), dtype)
+        k, v = rnd((B, S, Hkv, D), dtype), rnd((B, S, Hkv, D), dtype)
+        out["model_shapes"][name] = {"arch": arch, **b9_masked_case(
+            q, k, v, do, mask, f"flash_attention_bwd[{name}]", True)}
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return out
+
+
 def _numpy_train_state(params) -> dict:
     """A parameter tree as the JAX package's ``TrainState`` dumped to
     numpy (zero moments, step 0): what ``convert.train_state_from_numpy``
@@ -3285,12 +3630,13 @@ def _leaf_rel(a, b) -> float:
     return float((a - b).norm() / a.norm().clamp_min(1e-30))
 
 
-def train_parity(card: str) -> dict:
-    """qwen2.5-3b at full width cut to 2 layers, float32, from one
-    ``train_state_from_numpy`` state on the card (B3 forward, B9
-    backward) and on the CPU (their plain forms): the loss and every
-    gradient leaf of one backward, then 3 ``make_train_step`` steps:
-    losses and every parameter leaf after them."""
+def train_parity(card: str, arch: str = TRAIN_ARCH) -> dict:
+    """``arch`` at full width cut to ``TRAIN_PARITY``'s depth (qwen2.5-3b:
+    2 layers), float32, from one ``train_state_from_numpy`` state on the
+    card (B3 / B5 forward, B9 / B10 backward) and on the CPU (their plain
+    forms): the loss and every gradient leaf of one backward, then 3
+    ``make_train_step`` steps: losses and every parameter leaf after
+    them."""
     import dataclasses
 
     import torch
@@ -3304,11 +3650,14 @@ def train_parity(card: str) -> dict:
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.steps import make_train_step
 
-    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=2)
+    cut = TRAIN_PARITY.get(arch, {})
+    cfg = dataclasses.replace(get_arch(arch),
+                              **{"n_layers": 2, **cut.get("config", {})})
     dump = _numpy_train_state(init_params(
         registry.param_specs(cfg), torch.Generator().manual_seed(2), "cpu"))
     opt = AdamWConfig(total_steps=10, warmup_steps=2)
-    shape = ShapeConfig("train_parity", 128, 2, "train")
+    shape = ShapeConfig("train_parity", cut.get("seq_len", 128),
+                        cut.get("batch", 2), "train")
     side = {}
     reset_launches()
     for dev in ("cuda", "cpu"):
@@ -3318,7 +3667,7 @@ def train_parity(card: str) -> dict:
         loss, _ = M.loss_fn(st.params, data.batch(0), cfg,
                             dtype=torch.float32)
         loss.backward()
-        grads = {path: p.grad.detach().cpu()
+        grads = {path: None if p.grad is None else p.grad.detach().cpu()
                  for path, p in tree_leaves(st.params)}
         step = make_train_step(cfg, opt, dtype=torch.float32)
         losses = []
@@ -3338,11 +3687,14 @@ def train_parity(card: str) -> dict:
     check(loss_rel <= TRAIN_LOSS_RTOL,
           f"train_parity: card vs CPU loss differs by {loss_rel} relative")
     grad_rel = {"/".join(p): _leaf_rel(cpu_["grads"][p], g)
-                for p, g in card_["grads"].items()}
+                for p, g in card_["grads"].items() if g is not None}
+    check({"/".join(p) for p, g in card_["grads"].items() if g is None}
+          == {"/".join(p) for p, g in cpu_["grads"].items() if g is None},
+          "train_parity: the card and the CPU reach different leaves")
     worst_grad = max(grad_rel.values())
     check(worst_grad <= TRAIN_GRAD_TOL,
-          f"train_parity: a gradient leaf differs by {worst_grad} relative "
-          f"L2: {grad_rel}")
+          f"train_parity[{arch}]: a gradient leaf differs by {worst_grad} "
+          f"relative L2: {grad_rel}")
     zero_init = {p for p, a in tree_leaves(dump["params"]) if not a.any()}
     param_rel = {p: _leaf_rel(cpu_["params"][p], t)
                  for p, t in card_["params"].items()}
@@ -3350,11 +3702,11 @@ def train_parity(card: str) -> dict:
         tol = TRAIN_ZERO_INIT_TOL if p in zero_init else TRAIN_PARAM_TOL
         check(r <= tol, f"train_parity: parameter leaf {p} differs by {r} "
                         f"relative L2 after 3 steps (limit {tol})")
-    want = expected_launches("flash_attention", 4 * cfg.n_layers * 2)
-    want["flash_attention_bwd"] = 4 * cfg.n_layers
+    # 1 backward and 3 steps, each layer's forward twice (remat "full")
+    want = train_launches(cfg, 4)
     check(launches == want, f"train_parity launches {launches} != {want}")
-    return {"card": card, "arch": TRAIN_ARCH, "layers": cfg.n_layers,
-            "d_model": cfg.d_model,
+    return {"card": card, "arch": arch, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "reduced": cut.get("reduced", "depth"),
             "seq_len_batch": [shape.seq_len, shape.global_batch],
             "loss_max_rel": loss_rel, "grad_max_rel_l2": worst_grad,
             "param_max_rel_l2": max(r for p, r in param_rel.items()
@@ -3371,13 +3723,14 @@ def train_parity(card: str) -> dict:
                           "param_rel_l2_zero_init": TRAIN_ZERO_INIT_TOL}}
 
 
-def train_resume(card: str) -> dict:
-    """``launch.train.run`` on the card, the reduced qwen config, 8
+def train_resume(card: str, arch: str = TRAIN_ARCH) -> dict:
+    """``launch.train.run`` on the card, ``arch``'s reduced config, 8
     steps with a checkpoint every 2: uninterrupted; failed at step 5
     (the injected ``RuntimeError`` and nothing else); resumed from the
     step-4 checkpoint. The resumed run's last 3 losses must equal the
     uninterrupted run's bit for bit (``tests/test_system.py:21-32`` on
-    the card)."""
+    the card). Every hand kernel of the arch's training path (B3 / B9,
+    B5 / B10) must have launched."""
     import shutil
     import tempfile
     from repro_torch.launch.train import TrainLoopConfig, run
@@ -3385,7 +3738,7 @@ def train_resume(card: str) -> dict:
     os.makedirs(scratch, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=scratch)
     try:
-        cfg = TrainLoopConfig(arch=TRAIN_ARCH, steps=8, ckpt_dir=tmp,
+        cfg = TrainLoopConfig(arch=arch, steps=8, ckpt_dir=tmp,
                               checkpoint_every=2, log_every=100,
                               device="cuda")
         reset_launches()
@@ -3410,28 +3763,49 @@ def train_resume(card: str) -> dict:
     check(resumed["losses"][-3:] == full["losses"][-3:],
           f"train_resume: resumed losses {resumed['losses'][-3:]} != "
           f"uninterrupted {full['losses'][-3:]}")
-    check(launches["flash_attention"] > 0
-          and launches["flash_attention_bwd"] > 0,
-          f"train_resume did not launch B3 and B9: {launches}")
-    return {"card": card, "arch": TRAIN_ARCH, "reduced": True,
+    from repro_torch.configs import get_arch
+    need = [k for k, n in train_launches(get_arch(arch).reduced(), 1).items()
+            if n]
+    check(all(launches[k] > 0 for k in need),
+          f"train_resume[{arch}] did not launch each of {need}: {launches}")
+    return {"card": card, "arch": arch, "reduced": True,
             "losses_full": full["losses"], "losses_resumed":
             resumed["losses"], "bit_identical_tail": True,
             "launches_uninterrupted": launches, "wall_s_uninterrupted": full_s}
 
 
-def train_full(card: str) -> dict:
-    """``launch.train.run`` on qwen2.5-3b at full width, all 36 layers:
-    bf16 compute on float32 master weights, AdamW, ``TRAIN_FULL``. Each
-    step must launch B3 exactly 36 x 2 x 2 times (the forward and remat's
-    recompute, per microbatch) and B9 36 x 2 times, and nothing else."""
+def train_launches(cfg, passes: int) -> dict:
+    """Every wrapper's count for ``passes`` training passes (a microbatch's
+    forward and backward) of ``cfg`` under remat "full": each attention
+    layer B3 twice (the forward and remat's recompute) and B9 once; each
+    SSD layer B5 twice and B10 once; the hybrid's layers both."""
+    L = cfg.n_layers
+    want = expected_launches(None, 0)
+    if cfg.family != "ssm":
+        want["flash_attention"] = 2 * L * passes
+        want["flash_attention_bwd"] = L * passes
+    if cfg.ssm is not None:
+        want["ssd_scan"] = 2 * L * passes
+        want["ssd_scan_bwd"] = L * passes
+    return want
+
+
+def train_full(card: str, arch: str = TRAIN_ARCH, path=None) -> dict:
+    """``launch.train.run`` on ``arch`` at full width, all its layers:
+    bf16 compute on float32 master weights, AdamW, ``path`` (default
+    ``TRAIN_FULL``). Each step must launch exactly ``train_launches``
+    (qwen2.5-3b: B3 36 x 2 x 2 times -- the forward and remat's
+    recompute, per microbatch -- and B9 36 x 2 times), and nothing
+    else. tokens/s counts every position (a vision arch's patches too;
+    an audio arch's are frames)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import TrainLoopConfig, run
     from repro_torch.models import registry
-    cfg = get_arch(TRAIN_ARCH)
-    L, M = cfg.n_layers, TRAIN_FULL["microbatches"]
-    want = expected_launches("flash_attention", L * 2 * M)
-    want["flash_attention_bwd"] = L * M
+    path = dict(TRAIN_FULL if path is None else path)
+    cfg = get_arch(arch)
+    L, M = cfg.n_layers, path["microbatches"]
+    want = train_launches(cfg, M)
     per_step = []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3445,8 +3819,8 @@ def train_full(card: str) -> dict:
         prev = now
 
     t0 = time.perf_counter()
-    out = run(TrainLoopConfig(arch=TRAIN_ARCH, reduced=False, device="cuda",
-                              log_every=1, **TRAIN_FULL), on_step=on_step)
+    out = run(TrainLoopConfig(arch=arch, reduced=False, device="cuda",
+                              log_every=1, **path), on_step=on_step)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -3455,24 +3829,31 @@ def train_full(card: str) -> dict:
     for i, got in enumerate(per_step):
         check(got == want, f"train_full step {i}: launches {got} != {want}")
     n_params = registry.count_params(cfg)
-    tokens = TRAIN_FULL["global_batch"] * TRAIN_FULL["seq_len"]
+    tokens = path["global_batch"] * path["seq_len"]
     steady = min(out["step_s"][1:])
-    return {"card": card, "arch": TRAIN_ARCH, "layers": L,
+    return {"card": card, "arch": arch, "layers": L,
             "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-            "params": n_params, **TRAIN_FULL, "remat": "full",
+            "params": n_params, **path, "remat": "full",
             "dtype": "bfloat16",
             "losses": out["losses"], "step_s": out["step_s"],
             "first_step_s": out["step_s"][0], "steady_s_per_step": steady,
             "tokens_per_s": tokens / steady,
             "mfu": 6 * n_params * tokens / steady / BF16_FLOPS_PER_S,
             "peak_memory_bytes": peak, "launches": launches,
-            "launches_per_step": per_step[0], "wall_s": wall}
+            "launches_per_step": per_step[0], "wall_s": wall,
+            **({"frames_per_s": tokens / steady}
+               if cfg.frontend == "audio" else {}),
+            **({"text_tokens_per_s": path["global_batch"] * (
+                path["seq_len"] - cfg.frontend_seq) / steady}
+               if cfg.frontend == "vision" else {})}
 
 
-def profile_train(hand: tuple[str, ...]) -> dict:
-    """One warm ``train_step`` of ``train_full``'s configuration under
-    the profiler: busy share, top device ops, the hand kernels' device
-    time a launch."""
+def profile_train(hand: tuple[str, ...], arch: str = TRAIN_ARCH,
+                  path=None) -> dict:
+    """One warm ``train_step`` of ``arch`` at full width on ``path``
+    (default ``TRAIN_FULL``, ``train_full``'s configuration) under the
+    profiler: busy share, top device ops, the hand kernels' device time a
+    launch."""
     import gc
 
     import torch
@@ -3485,15 +3866,16 @@ def profile_train(hand: tuple[str, ...]) -> dict:
     from repro_torch.train.steps import TrainState, make_train_step
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_arch(TRAIN_ARCH)
+    path = TRAIN_FULL if path is None else path
+    cfg = get_arch(arch)
     opt = AdamWConfig(warmup_steps=2, total_steps=10)
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = {"st": TrainState.create(train_params(init_params(
         registry.param_specs(cfg), gen, "cuda")), opt)}
-    step = make_train_step(cfg, opt, microbatches=TRAIN_FULL["microbatches"])
+    step = make_train_step(cfg, opt, microbatches=path["microbatches"])
     data = SyntheticDataset(cfg, ShapeConfig(
-        "train_full", TRAIN_FULL["seq_len"], TRAIN_FULL["global_batch"],
-        "train"), device="cuda")
+        "train_full", path["seq_len"], path["global_batch"], "train"),
+        device="cuda")
 
     def one(i=1):
         torch.cuda.synchronize()
@@ -3508,9 +3890,11 @@ def profile_train(hand: tuple[str, ...]) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     hand = rec.get("hand_kernels", {})
-    b9 = [next((v["device_us_per_launch"] for name, v in hand.items()
-                if k in name), None) for k in B9_KERNELS["bfloat16"]]
-    rec["b9_device_us_per_call"] = sum(b9) if None not in b9 else None
+    for key, names in (("b9", B9_KERNELS["bfloat16"]), ("b10", B10_KERNELS)):
+        us = [next((v["device_us_per_launch"] for name, v in hand.items()
+                    if k in name), None) for k in names]
+        rec[f"{key}_device_us_per_call"] = sum(us) if None not in us \
+            else None
     return rec
 
 
@@ -3695,8 +4079,13 @@ def main() -> int:
     b9 = check_attention_bwd_kernel(dev)
     masks = check_attention_masks(dev)
     torch.cuda.empty_cache()
+    b10 = check_ssd_bwd_kernel(dev)
+    torch.cuda.empty_cache()
+    b9_masks = check_b9_masks(dev)
+    torch.cuda.empty_cache()
     emit("kernels", card=card, k1_cases=k1_cases, k2_cases=k2_cases,
          b3_b4=attn, b3_b4_masks=masks, b5=ssd, b2=b2, b9=b9,
+         b9_masks=b9_masks, b10=b10,
          k1={"shape": k1_shape, "kernel_ms": k1_ms, "plain_ms": k1_plain_ms,
              "bound_ms": k1_bound, "max_abs_err": k1_err,
              "device_us": k1_device_us,
@@ -3906,6 +4295,33 @@ def main() -> int:
         emit(f"{phase}_parity", seconds=time.perf_counter() - t0, **par)
         torch.cuda.empty_cache()
 
+    # ---- 9e. training the SSD, hybrid, vision and audio families at full
+    # width (B3 / B9 under every mask, B5 / B10), each beside its parity
+    # with the CPU; then a bit-exact resume through all four kernels
+    trains = {}
+    for phase, arch, path in TRAIN_PATHS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rec = train_full(card, arch, path)
+        emit(phase, seconds=time.perf_counter() - t0, **rec)
+        trains[arch] = rec
+        torch.cuda.empty_cache()
+        if arch in PROFILED_TRAIN:
+            hand = (*B3_KERNELS.values(), *B9_KERNELS["bfloat16"],
+                    *B5_KERNELS["bfloat16"], *B10_KERNELS)
+            emit("profile_train", arch=arch,
+                 **profile_train(hand, arch, path))
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        par = train_parity(card, arch)
+        emit(phase.replace("_full", "_parity"),
+             wall_s=time.perf_counter() - t0, **par)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = train_resume(card, HYBRID_ARCH)
+    emit("train_resume", seconds=time.perf_counter() - t0, **res)
+    torch.cuda.empty_cache()
+
     # ---- 10. the fleet, chaos and guard planes: K1 and K2, 97 calls a day
     # (after every profiled phase above, so that their threads and their
     # abandoned guard attempt cannot touch those phases' records)
@@ -3979,7 +4395,9 @@ def main() -> int:
             "launches_by_path": {
                 "serve_full": serve_rec["launches"][name],
                 "train_full": tr["launches"][name],
-                **{a: a7a[a]["launches"][name] for a in a7a}},
+                **{a: a7a[a]["launches"][name] for a in a7a},
+                **{f"train:{a}": trains[a]["launches"][name]
+                   for a in trains}},
             "model_shapes": {a: {k: a7a_shapes[a][name][k] for k in (
                 "shape", "ms", "device_us", "plain_ms", "library_ms",
                 "library_device_us", "bound_ms", "bound_by", "max_abs_err")
@@ -4006,6 +4424,8 @@ def main() -> int:
                                       b3_mla["cases"].items()
                                       if c.endswith(dn))
                               for dn in ("bfloat16", "float32")}}
+    from repro_torch.kernels.flash_attention_bwd import \
+        HEAD_DIMS as B9_HEAD_DIMS
     b9m = b9["model_shape"]["bfloat16"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": B9_SOURCE,
@@ -4026,10 +4446,49 @@ def main() -> int:
         "float32": {k: b9["model_shape"]["float32"][k] for k in
                     ("ms", "device_us", "plain_ms", "library_ms",
                      "bound_ms", "bound_by")},
+        "launches_by_path": {"train_full": tr["launches"][
+            "flash_attention_bwd"], **{f"train:{a}": trains[a]["launches"][
+                "flash_attention_bwd"] for a in trains}},
+        "head_dims": list(B9_HEAD_DIMS),
+        "max_abs_err_masks": max(r["max_abs_err"] for r in
+                                 b9_masks["cases"].values()),
+        "model_shapes": {b9_masks["model_shapes"][n]["arch"]: {
+            k: b9_masks["model_shapes"][n][k] for k in (
+                "shape", "live_pairs", "ms", "device_us", "plain_ms",
+                "library_ms", "library_kernels", "bound_ms", "bound_by",
+                "max_abs_err", "rel_l2", "control_rel_l2")}
+            for n in b9_masks["model_shapes"]},
         "tolerance": f"float32: |kernel - plain| <= {B9_TOL_F32} "
                      f"(max(max|plain|, 1) + |plain|); bf16: relative L2 "
                      f"<= {B9_REL_L2_BF16} of each of dq, dk, dv (S > 1); "
                      f"bit-identical on a second call"})
+    b10m = b10["model_shapes"][SSM_ARCH]["bfloat16"]
+    kernels.append({
+        "name": "ssd_scan_bwd", "route": "cuda", "source": SSD_BWD_SOURCE,
+        "replaces": "src/repro/models/blocks.py:510",
+        "replaces_note": "not Pallas: jax.vjp of the reference's chunked "
+                         "SSD scan (_ssd_chunk_scan)",
+        "launches": trains[SSM_ARCH]["launches"]["ssd_scan_bwd"],
+        "launches_per_step": trains[SSM_ARCH]["launches_per_step"][
+            "ssd_scan_bwd"],
+        "launches_by_path": {f"train:{a}": trains[a]["launches"][
+            "ssd_scan_bwd"] for a in trains},
+        "max_abs_err": b10["max_abs_err"]["bfloat16"],
+        "max_abs_err_float32": b10["max_abs_err"]["float32"],
+        "ms": b10m["ms"], "device_us": b10m["device_us"],
+        "plain_ms": b10m["plain_ms"], "plain_note": b10m["plain_note"],
+        "library_ms": None, "library_note": b10m["library_note"],
+        "bound_ms": b10m["bound_ms"], "bound_by": b10m["bound_by"],
+        "shape": b10m["shape"], "rel_l2": b10m["rel_l2"],
+        "control_rel_l2": b10m["control_rel_l2"],
+        "model_shapes": {a: {dn: {k: r[k] for k in (
+            "shape", "ms", "device_us", "plain_ms", "bound_ms", "bound_by",
+            "scaled_err", "rel_l2")} for dn, r in b10["model_shapes"][
+                a].items()} for a in b10["model_shapes"]},
+        "tolerance": f"max |kernel - plain| / max |plain| <= "
+                     f"{B10_SCALED_TOL} per gradient (float32; ddt and dA "
+                     f"on the bf16 route); bf16 dx, dB, dC relative L2 <= "
+                     f"{B10_REL_L2_BF16}; bit-identical on a second call"})
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
         "replaces": "src/repro/kernels/ssd_scan.py:79",
@@ -4043,7 +4502,9 @@ def main() -> int:
         "occupancy": b5["occupancy"],
         "launches_by_path": {
             "serve_ssm_full": ssm_rec["launches"]["ssd_scan"],
-            HYBRID_ARCH: a7a[HYBRID_ARCH]["launches"]["ssd_scan"]},
+            HYBRID_ARCH: a7a[HYBRID_ARCH]["launches"]["ssd_scan"],
+            **{f"train:{a}": trains[a]["launches"]["ssd_scan"]
+               for a in (SSM_ARCH, HYBRID_ARCH)}},
         "model_shapes": {HYBRID_ARCH: {
             k: a7a_shapes[HYBRID_ARCH]["ssd_scan"][k] for k in (
                 "shape", "ms", "device_us", "plain_ms", "bound_ms",

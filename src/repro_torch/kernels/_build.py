@@ -59,7 +59,7 @@ def _bind_attention_bwd(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_bwd_launch.argtypes = [
         i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, f32, i32, ptr]
+        i32, i32, i32, i32, i32, i32, f32, i32, i32, i32, ptr]
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
 
 
@@ -75,6 +75,14 @@ def _bind_ssd_scan(lib: ctypes.CDLL) -> None:
     lib.ssd_scan_bf16_launch.restype = ctypes.c_int
     lib.ssd_scan_bf16_occupancy.argtypes = [i32, i32, ptr]
     lib.ssd_scan_bf16_occupancy.restype = ctypes.c_int
+
+
+def _bind_ssd_scan_bwd(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_bwd_launch.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
+    lib.ssd_scan_bwd_launch.restype = ctypes.c_int
 
 
 def _bind_gated_matmul(lib: ctypes.CDLL) -> None:
@@ -112,6 +120,8 @@ LIBRARIES = {
     "attention_bwd": Library(CSRC / "attention_bwd.cu", COMMON_FLAGS,
                              _bind_attention_bwd),
     "ssd_scan": Library(CSRC / "ssd_scan.cu", COMMON_FLAGS, _bind_ssd_scan),
+    "ssd_scan_bwd": Library(CSRC / "ssd_scan_bwd.cu", COMMON_FLAGS,
+                            _bind_ssd_scan_bwd),
     "gated_matmul": Library(CSRC / "gated_matmul.cu", COMMON_FLAGS,
                             _bind_gated_matmul),
     # integers only: nothing for -fmad to change

@@ -21,6 +21,7 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "attention_mask.cuh"
 
 #define ATTN_NEG_INF (-1e30f)
 
@@ -31,40 +32,6 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
     return __float2bfloat16(x);
-}
-
-// B3's mask: key kpos is live for query qpos (see the B3 note below)
-__device__ __forceinline__ bool key_live(int qpos, int kpos, int Sk, int causal,
-                                         int window, int prefix)
-{
-    if (kpos >= Sk) return false;
-    const bool band = (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
-    return band || kpos < prefix;
-}
-
-// The key tiles of width bk that hold a live pair for some row of the query
-// rows [q0, q_last]: the prefix's tiles [0, n_pre), then [lo, lo + n -
-// n_pre). Iteration it of a block's key loop takes tile
-// it < n_pre ? it : lo + it - n_pre. The band's keys [max(0, q0 - window
-// + 1), causal ? q_last + 1 : Sk) are contiguous, as consecutive rows'
-// ranges overlap; with no window or prefix this is tiles [0, ceil(band /
-// bk)), the causal loop bound.
-struct KeyTiles { int n_pre, lo, n; };
-__device__ __forceinline__ KeyTiles key_tiles(int q0, int q_last, int Sk, int causal,
-                                              int window, int prefix, int bk)
-{
-    const int hi = causal ? min(q_last + 1, Sk) : Sk;
-    const int lo = window > 0 ? max(0, q0 - window + 1) : 0;
-    const int pt = (min(max(prefix, 0), Sk) + bk - 1) / bk;
-    const int end = max((hi + bk - 1) / bk, pt);
-    const int lo_t = min(lo / bk, end);
-    const int n_pre = min(pt, lo_t);
-    return {n_pre, lo_t, n_pre + end - lo_t};
-}
-
-__device__ __forceinline__ int key_tile(const KeyTiles& kt, int it)
-{
-    return it < kt.n_pre ? it : kt.lo + it - kt.n_pre;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-// The backward of causal GQA attention for NVIDIA Hopper (sm_90a): kernel B9.
+// The backward of GQA attention under B3's masks for NVIDIA Hopper (sm_90a):
+// kernel B9.
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (see ../_build.py). No -fmad=false: B9 promises agreement with
 // its plain version within a stated tolerance, and the same bits from run to
@@ -14,9 +15,32 @@
 // Layout: q, o, do, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, Hkv, D), all
 // dense; query head h reads KV head h / (H / Hkv), as B3. lse and the
 // pre-pass's Delta are float32 (B, H, Sq). s = scale * q.k over live keys
-// (causal: key j <= query i, and j < Sk); P = exp(s - lse);
+// -- B3's mask (attention_mask.cuh: key_live): causal order or none, a
+// sliding window, a prefix OR-ed in after it, and j < Sk -- P = exp(s -
+// lse);
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - Delta),  Delta = rowsum(dO o O),
 //   dQ = scale dS K,  dK = scale dS^T Q.
+//
+// Masks and the tiles visited: dQ walks the key tiles of its query tile as
+// B3 does (key_tiles: the prefix's tiles, then the band from the window's
+// first key to the diagonal); dK / dV walks the transposed set, the query
+// tiles that hold a live pair for its key tile (query_tiles: [k0, k_last +
+// window - 1] under a window, every query tile for a tile holding a prefix
+// key). So a windowed layer does O(window) work a row, and the per-element
+// mask runs only in a tile pair that is not all live (tile_all_live). With
+// no window or prefix both walks are the causal loop bounds they were, and
+// the old head dims give the same bits (chip_attention_bits.py).
+//
+// Head dims 16, 32, 64, 80, 128, 256. D 80 rides tile64's boxes (two of 64
+// columns, zeros past 80) on the bf16 route and a stride of 16 columns on
+// the float32 one. D 256: on the bf16 route one 64-key tile's dK and dV
+// accumulators would take 256 registers a thread (at D 128 the kernel
+// already runs at 255), so each of dK/dV and dQ splits its output columns
+// over two blocks, each recomputing the full-width S and dP for its 128
+// columns -- twice the score products for D 128's register use; the
+// tiles (six of 32 KB, 193 KB a block) still fit. On the float32 route
+// four 64-row tiles of 256 floats would take 266 KB of shared memory, so
+// there tiles are 32 rows (each thread a 2 x 2 block of the score tile).
 //
 // Bound: 5 matmuls of the live (causal) half -- q k^T, dO V^T, P^T dO,
 // dS^T Q, dS K -- 5 B H S^2 D operations at S = Sq = Sk against reading the
@@ -102,10 +126,17 @@
 #include <type_traits>
 
 #include "mma_bf16.cuh"
+#include "attention_mask.cuh"
 
 namespace fb {
-constexpr int BQ = 64, BK = 64, THREADS = 256;
-constexpr int SLD = BK + 4;  // padded P / dS row
+constexpr int THREADS = 256;
+// A tile is 16 R rows of q, do, k or v and each thread holds an R x R block
+// of a score tile: R = 4 (64-row tiles) up to D = 128; at D = 256 four
+// 64-row float32 tiles would take 266 KB of shared memory, past the 227 KB a
+// block may have, so there R = 2 (32-row tiles, 142 KB for dK / dV).
+template <int D> __host__ __device__ constexpr int rows() { return D > 128 ? 2 : 4; }
+template <int D> __host__ __device__ constexpr int tile() { return 16 * rows<D>(); }
+template <int D> __host__ __device__ constexpr int sld() { return tile<D>() + 4; }  // padded P / dS row
 template <int D> __host__ __device__ constexpr int ld() { return D + 4; }  // padded q/k/v row
 // the output column of a thread's j-th accumulator (B3's float32 layout)
 template <int D> __device__ __forceinline__ int out_col(int tx, int j) {
@@ -114,11 +145,13 @@ template <int D> __device__ __forceinline__ int out_col(int tx, int j) {
 }
 // dK/dV: K, V, Q, dO tiles, P and dS, lse and Delta of the query tile
 template <int D> constexpr size_t dkdv_smem() {
-    return sizeof(float) * (size_t)(4 * 64 * ld<D>() + 2 * BQ * SLD + 2 * BQ);
+    return sizeof(float) * (size_t)(4 * tile<D>() * ld<D>() + 2 * tile<D>() * sld<D>()
+                                    + 2 * tile<D>());
 }
 // dQ: Q, dO, K, V tiles, dS, lse and Delta of the query tile
 template <int D> constexpr size_t dq_smem() {
-    return sizeof(float) * (size_t)(4 * 64 * ld<D>() + BQ * SLD + 2 * BQ);
+    return sizeof(float) * (size_t)(4 * tile<D>() * ld<D>() + tile<D>() * sld<D>()
+                                    + 2 * tile<D>());
 }
 }  // namespace fb
 
@@ -131,39 +164,39 @@ template <> __device__ __forceinline__ __nv_bfloat16 bw_from<__nv_bfloat16>(floa
     return __float2bfloat16(x);
 }
 
-// rows [r0, r0 + 64) of head h of a dense (B, S, heads, D) tensor into a
-// 64 x ld<D> float tile; rows past S are zeros
+// rows [r0, r0 + tile) of head h of a dense (B, S, heads, D) tensor into a
+// tile x ld<D> float tile; rows past S are zeros
 template <typename T, int D>
 __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
                                           int b, int r0, int h, int S, int heads)
 {
     constexpr int LD = fb::ld<D>();
-    for (int i = threadIdx.x; i < 64 * D; i += fb::THREADS) {
+    for (int i = threadIdx.x; i < fb::tile<D>() * D; i += fb::THREADS) {
         const int r = i / D, c = i % D, s = r0 + r;
         dst[r * LD + c] = s < S ? bw_f(src[(((int64_t)b * S + s) * heads + h) * D + c]) : 0.f;
     }
 }
 
-// acc[i][j] += rows (ty + 16 i) of A . rows (tx + 16 j) of Bt over D: a 64 x 64
-// tile of A Bt^T, each thread its 4 x 4, the products in d order
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A,
+// acc[i][j] += rows (ty + 16 i) of A . rows (tx + 16 j) of Bt over D: a tile
+// x tile block of A Bt^T, each thread its R x R, the products in d order
+template <int D, int R = fb::rows<D>()>
+__device__ __forceinline__ void tile_dot(float (&acc)[R][R], const float* A,
                                          const float* Bt, int ty, int tx)
 {
     constexpr int LD = fb::ld<D>();
 #pragma unroll 4
     for (int d = 0; d < D; d += 4) {
-        float4 a[4], bb[4];
+        float4 a[R], bb[R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
             a[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * LD + d]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < R; ++j)
             bb[j] = *reinterpret_cast<const float4*>(&Bt[(tx + 16 * j) * LD + d]);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
+            for (int j = 0; j < R; ++j) {
                 float s = acc[i][j];
                 s = fmaf(a[i].x, bb[j].x, s);
                 s = fmaf(a[i].y, bb[j].y, s);
@@ -174,21 +207,22 @@ __device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A,
     }
 }
 
-// acc[i][j] += sum over the 64 rows r, in order, of W[r][ty + 16 i] * X[r][out_col(tx, j)]
-// (transposed: W is read down its columns) -- P^T dO, dS^T Q -- or, with
-// W_ROWS, of W[ty + 16 i][r] * X[r][...] -- dS K
-template <int D, bool W_ROWS>
-__device__ __forceinline__ void tile_acc(float (&acc)[4][D / 16], const float* W,
+// acc[i][j] += sum over the tile's rows r, in order, of W[r][ty + 16 i] *
+// X[r][out_col(tx, j)] (transposed: W is read down its columns) -- P^T dO,
+// dS^T Q -- or, with W_ROWS, of W[ty + 16 i][r] * X[r][...] -- dS K
+template <int D, bool W_ROWS, int R = fb::rows<D>()>
+__device__ __forceinline__ void tile_acc(float (&acc)[R][D / 16], const float* W,
                                          const float* X, int ty, int tx)
 {
     constexpr int LD = fb::ld<D>();
     constexpr int NC = D / 16;
+    constexpr int SLD = fb::sld<D>();
 #pragma unroll 4
-    for (int r = 0; r < 64; ++r) {
-        float w[4], x[NC];
+    for (int r = 0; r < fb::tile<D>(); ++r) {
+        float w[R], x[NC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-            w[i] = W_ROWS ? W[(ty + 16 * i) * fb::SLD + r] : W[r * fb::SLD + ty + 16 * i];
+        for (int i = 0; i < R; ++i)
+            w[i] = W_ROWS ? W[(ty + 16 * i) * SLD + r] : W[r * SLD + ty + 16 * i];
         if constexpr (D % 64 == 0) {
 #pragma unroll
             for (int j = 0; j < NC; j += 4) {
@@ -201,26 +235,27 @@ __device__ __forceinline__ void tile_acc(float (&acc)[4][D / 16], const float* W
             for (int j = 0; j < NC; ++j) x[j] = X[r * LD + fb::out_col<D>(tx, j)];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
             for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(w[i], x[j], acc[i][j]);
     }
 }
 
-// P and dS of one (query tile q0, key tile k0) pair, thread (ty, tx)'s 4 x 4:
+// P and dS of one (query tile q0, key tile k0) pair, thread (ty, tx)'s R x R:
 // s and dp hold q.k and dO.v; lse_s / dl_s the query tile's lse and Delta
-__device__ __forceinline__ void p_and_ds(float (&s)[4][4], float (&dp)[4][4],
+template <int R>
+__device__ __forceinline__ void p_and_ds(float (&s)[R][R], float (&dp)[R][R],
                                          const float* lse_s, const float* dl_s,
                                          int q0, int k0, int Sq, int Sk, int causal,
-                                         float scale, int ty, int tx)
+                                         int window, int prefix, float scale, int ty, int tx)
 {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
         const int r = ty + 16 * i, qpos = q0 + r;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < R; ++j) {
             const int kpos = k0 + tx + 16 * j;
-            const bool ok = qpos < Sq && kpos < Sk && (!causal || kpos <= qpos);
+            const bool ok = qpos < Sq && key_live(qpos, kpos, Sk, causal, window, prefix);
             const float p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
             s[i][j] = p;
             dp[i][j] = p * (dp[i][j] - dl_s[r]);
@@ -256,17 +291,19 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           float* __restrict__ dk_ws, float* __restrict__ dv_ws,
-                          int H, int Hkv, int Sq, int Sk, float scale, int causal)
+                          int H, int Hkv, int Sq, int Sk, float scale, int causal,
+                          int window, int prefix)
 {
     using namespace fb;
     constexpr int LD = ld<D>();
     constexpr int NC = D / 16;
+    constexpr int R = rows<D>(), BQ = tile<D>(), BK = tile<D>(), SLD = sld<D>();
     extern __shared__ float smem[];
-    float* Ks = smem;               // 64 x LD
-    float* Vs = Ks + 64 * LD;
-    float* Qs = Vs + 64 * LD;
-    float* dOs = Qs + 64 * LD;
-    float* Ps = dOs + 64 * LD;      // BQ x SLD, P[q][k]
+    float* Ks = smem;               // BK x LD
+    float* Vs = Ks + BK * LD;
+    float* Qs = Vs + BK * LD;
+    float* dOs = Qs + BQ * LD;
+    float* Ps = dOs + BQ * LD;      // BQ x SLD, P[q][k]
     float* dSs = Ps + BQ * SLD;     // BQ x SLD, dS[q][k]
     float* lse_s = dSs + BQ * SLD;  // BQ
     float* dl_s = lse_s + BQ;       // BQ
@@ -276,20 +313,20 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
     const int hk = h / (H / Hkv);
     const int k0 = kt * BK;
-    const int n_qt = (Sq + BQ - 1) / BQ;
-    // query tiles that can see key k0: those holding a row >= k0
-    const int qt0 = causal ? k0 / BQ : 0;
+    // the query tiles that hold a live pair for these keys
+    const QueryTiles qr = query_tiles(k0, min(k0 + BK, Sk) - 1, Sq, causal, window,
+                                      prefix, BQ);
 
     load_rows<T, D>(Ks, k, b, k0, hk, Sk, Hkv);
     load_rows<T, D>(Vs, v, b, k0, hk, Sk, Hkv);
 
-    float dk[4][NC], dv[4][NC];
+    float dk[R][NC], dv[R][NC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < NC; ++j) { dk[i][j] = 0.f; dv[i][j] = 0.f; }
 
-    for (int qt = qt0; qt < n_qt; ++qt) {
+    for (int qt = qr.lo; qt < qr.hi; ++qt) {
         const int q0 = qt * BQ;
         __syncthreads();  // the previous tile is done with Qs, dOs, Ps, dSs
         load_rows<T, D>(Qs, q, b, q0, h, Sq, H);
@@ -302,18 +339,19 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         __syncthreads();
 
-        float s[4][4], dp[4][4];
+        float s[R][R], dp[R][R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
+            for (int j = 0; j < R; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
         tile_dot<D>(s, Qs, Ks, ty, tx);
         tile_dot<D>(dp, dOs, Vs, ty, tx);
-        p_and_ds(s, dp, lse_s, dl_s, q0, k0, Sq, Sk, causal, scale, ty, tx);
+        p_and_ds<R>(s, dp, lse_s, dl_s, q0, k0, Sq, Sk, causal, window, prefix, scale,
+                    ty, tx);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
+            for (int j = 0; j < R; ++j) {
                 Ps[(ty + 16 * i) * SLD + tx + 16 * j] = s[i][j];
                 dSs[(ty + 16 * i) * SLD + tx + 16 * j] = dp[i][j];
             }
@@ -325,7 +363,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
         const int s_ = k0 + ty + 16 * i;
         if (s_ >= Sk) continue;
         const int64_t row = (((int64_t)b * Sk + s_) * H + h) * D;
@@ -367,17 +405,18 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         T* __restrict__ dq, int H, int Hkv, int Sq, int Sk,
-                        float scale, int causal)
+                        float scale, int causal, int window, int prefix)
 {
     using namespace fb;
     constexpr int LD = ld<D>();
     constexpr int NC = D / 16;
+    constexpr int R = rows<D>(), BQ = tile<D>(), BK = tile<D>(), SLD = sld<D>();
     extern __shared__ float smem[];
     float* Qs = smem;
-    float* dOs = Qs + 64 * LD;
-    float* Ks = dOs + 64 * LD;
-    float* Vs = Ks + 64 * LD;
-    float* dSs = Vs + 64 * LD;      // BQ x SLD, dS[q][k]
+    float* dOs = Qs + BQ * LD;
+    float* Ks = dOs + BQ * LD;
+    float* Vs = Ks + BK * LD;
+    float* dSs = Vs + BK * LD;      // BQ x SLD, dS[q][k]
     float* lse_s = dSs + BQ * SLD;
     float* dl_s = lse_s + BQ;
 
@@ -397,37 +436,37 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dl_s[tid] = in ? delta[at] : 0.f;
     }
 
-    // keys [0, k_end) can be live for some row of this tile; later tiles
-    // are never loaded
-    const int q_last = min(q0 + BQ, Sq) - 1;
-    const int k_end = causal ? min(q_last + 1, Sk) : Sk;
-    const int n_tiles = (k_end + BK - 1) / BK;
+    // the key tiles that hold a live pair for some row of this tile (B3's
+    // walk); the others are never loaded
+    const KeyTiles kts = key_tiles(q0, min(q0 + BQ, Sq) - 1, Sk, causal, window, prefix,
+                                   BK);
 
-    float acc[4][NC];
+    float acc[R][NC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
 
-    for (int kt = 0; kt < n_tiles; ++kt) {
-        const int k0 = kt * BK;
+    for (int it = 0; it < kts.n; ++it) {
+        const int k0 = key_tile(kts, it) * BK;
         __syncthreads();  // the previous tile is done with Ks, Vs, dSs
         load_rows<T, D>(Ks, k, b, k0, hk, Sk, Hkv);
         load_rows<T, D>(Vs, v, b, k0, hk, Sk, Hkv);
         __syncthreads();
 
-        float s[4][4], dp[4][4];
+        float s[R][R], dp[R][R];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
+            for (int j = 0; j < R; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
         tile_dot<D>(s, Qs, Ks, ty, tx);
         tile_dot<D>(dp, dOs, Vs, ty, tx);
-        p_and_ds(s, dp, lse_s, dl_s, q0, k0, Sq, Sk, causal, scale, ty, tx);
+        p_and_ds<R>(s, dp, lse_s, dl_s, q0, k0, Sq, Sk, causal, window, prefix, scale,
+                    ty, tx);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < R; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) dSs[(ty + 16 * i) * SLD + tx + 16 * j] = dp[i][j];
+            for (int j = 0; j < R; ++j) dSs[(ty + 16 * i) * SLD + tx + 16 * j] = dp[i][j];
         __syncthreads();
 
         // this thread's query rows ty + 16 i: dQ += dS K
@@ -435,7 +474,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
         const int s_ = q0 + ty + 16 * i;
         if (s_ >= Sq) continue;
         T* row = dq + (((int64_t)b * Sq + s_) * H + h) * D;
@@ -449,6 +488,15 @@ namespace fb2 {
 constexpr int BQ = 64, BK = 64, WARPS = 4, THREADS = 32 * WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
 static_assert(BQ == BK, "a tile is 64 rows of q, do, k or v");
+
+// Output columns a block accumulates: every column up to D = 128. At D = 256
+// one 64-row tile's dK and dV accumulators alone would take 256 registers a
+// thread (the 255 a thread may have; at D = 128 the kernel already runs at
+// 255), so there the output's columns are split over two blocks, each
+// recomputing the full-width S and dP for its 128 columns of dK and dV (or of
+// dQ): twice the score products for the same register use as D = 128.
+template <int D> __host__ __device__ constexpr int dout() { return D > 128 ? 128 : D; }
+template <int D> __host__ __device__ constexpr int splits() { return D / dout<D>(); }
 
 // A block holds two tile64 tiles and two stages of two more.
 using namespace tile64;
@@ -494,19 +542,20 @@ __device__ __forceinline__ void tile_abt(float (&s)[BK / 8][4], const unsigned c
     }
 }
 
-// acc (16 x D) += W X: W the 16 x 64 bf16 A fragments of the four k16
-// steps, X's 64 rows (the k dimension) from tile X read transposed
-template <int D>
-__device__ __forceinline__ void tile_acc_wx(float (&acc)[D / 8][4], const uint32_t (&w)[BK / 16][4],
-                                            const unsigned char* X, int lane)
+// acc (16 x DO) += W X: W the 16 x 64 bf16 A fragments of the four k16
+// steps, X's 64 rows (the k dimension) from tile X read transposed, its
+// columns [c0, c0 + DO)
+template <int DO>
+__device__ __forceinline__ void tile_acc_wx(float (&acc)[DO / 8][4], const uint32_t (&w)[BK / 16][4],
+                                            const unsigned char* X, int c0, int lane)
 {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
-        for (int n = 0; n < D / 8; n += 2) {
+        for (int n = 0; n < DO / 8; n += 2) {
             // matrices: rows (lo, hi 8) x d 8n.., rows (lo, hi) x d 8n+8..
             uint32_t r[4];
-            ldmatrix_x4_trans(r, at(X, kk * 16 + lane % 16, n * 8 + (lane / 16) * 8));
+            ldmatrix_x4_trans(r, at(X, kk * 16 + lane % 16, c0 + n * 8 + (lane / 16) * 8));
             mma_bf16(acc[n], w[kk], r);
             mma_bf16(acc[n + 1], w[kk], r + 2);
         }
@@ -526,11 +575,13 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
                                float* __restrict__ dk_ws, float* __restrict__ dv_ws,
-                               int H, int Hkv, int Sq, int Sk, float scale, int causal)
+                               int H, int Hkv, int Sq, int Sk, float scale, int causal,
+                               int window, int prefix)
 {
     using namespace fb2;
     constexpr int TB = tile_bytes<D>();
-    constexpr int NO = D / 8;    // n8 tiles of dK, dV
+    constexpr int DO = dout<D>(), NSPLIT = splits<D>();
+    constexpr int NO = DO / 8;   // n8 tiles of this block's dK, dV columns
     constexpr int NS = BQ / 8;   // n8 tiles of S^T: queries
     extern __shared__ __align__(16) unsigned char fb2_smem[];
     unsigned char* Ks = align1024(fb2_smem);
@@ -543,12 +594,15 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const int tid = threadIdx.x;
     const int lane = tid % 32, warp = tid / 32;
     const int g = lane / 4, t = lane % 4;
-    const int h = blockIdx.x, b = blockIdx.y;
+    const int h = (int)blockIdx.x / NSPLIT, b = blockIdx.y;
+    const int c0 = ((int)blockIdx.x % NSPLIT) * DO;  // this block's output columns
     const int hk = h / (H / Hkv);
     const int k0 = (int)blockIdx.z * BK;
-    // query tiles that can see key k0: those holding a row >= k0
-    const int qt0 = causal ? k0 / BQ : 0;
-    const int n_it = (Sq + BQ - 1) / BQ - qt0;  // <= 0: no query sees these keys
+    // the query tiles that hold a live pair for these keys
+    const QueryTiles qr = query_tiles(k0, min(k0 + BK, Sk) - 1, Sq, causal, window,
+                                      prefix, BQ);
+    const int qt0 = qr.lo;
+    const int n_it = qr.hi - qr.lo;  // 0: no query sees these keys
     const int64_t srow = ((int64_t)b * H + h) * Sq;
     // thread tid's share of a query tile's row statistics
     auto row_stat = [&](int q0) {
@@ -608,7 +662,7 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         {
             float s[NS][4];
             tile_abt<D>(s, Ks, warp * 16, Qt, lane);
-            const bool masked = (causal && k0 + BK - 1 > q0) || q0 + BQ > Sq || k0 + BK > Sk;
+            const bool masked = !tile_all_live(q0, k0, BQ, BK, Sq, Sk, causal, window);
 #pragma unroll
             for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -618,14 +672,15 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                     for (int c = 0; c < 2; ++c) {
                         const int col = j * 8 + 2 * t + c, qpos = q0 + col, kpos = key0 + 8 * r;
                         p[c] = exp2f(fmaf(s[j][2 * r + c] * scale, LOG2E, -ls[col]));
-                        if (masked && (qpos >= Sq || kpos >= Sk || (causal && kpos > qpos)))
+                        if (masked && (qpos >= Sq
+                                       || !key_live(qpos, kpos, Sk, causal, window, prefix)))
                             p[c] = 0.f;
                     }
                     pf[j / 2][(j % 2) * 2 + r] = pack_bf16x2(p[0], p[1]);
                 }
         }
         // dV += P^T dO
-        tile_acc_wx<D>(dv, pf, dOt, lane);
+        tile_acc_wx<DO>(dv, pf, dOt, c0, lane);
 
         // dS^T = P^T o (dP^T - Delta), dP^T = V dO^T, rounded to bf16
         uint32_t df[BQ / 16][4];
@@ -644,7 +699,7 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                 }
         }
         // dK += dS^T Q (scaled once, at the end)
-        tile_acc_wx<D>(dk, df, Qt, lane);
+        tile_acc_wx<DO>(dk, df, Qt, c0, lane);
 
         // the next tile's statistics: that stage was last read in tile it - 1
         if (more) stat[1 - st][tid] = next;
@@ -654,7 +709,7 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
         if (key >= Sk) continue;
-        const int64_t row = (((int64_t)b * Sk + key) * H + h) * D + 2 * t;
+        const int64_t row = (((int64_t)b * Sk + key) * H + h) * D + c0 + 2 * t;
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
             *reinterpret_cast<float2*>(dk_ws + row + n * 8) =
@@ -677,11 +732,13 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              __nv_bfloat16* __restrict__ dq,
-                             int H, int Hkv, int Sq, int Sk, float scale, int causal)
+                             int H, int Hkv, int Sq, int Sk, float scale, int causal,
+                             int window, int prefix)
 {
     using namespace fb2;
     constexpr int TB = tile_bytes<D>();
-    constexpr int NO = D / 8;    // n8 tiles of dQ
+    constexpr int DO = dout<D>(), NSPLIT = splits<D>();
+    constexpr int NO = DO / 8;   // n8 tiles of this block's dQ columns
     constexpr int NS = BK / 8;   // n8 tiles of S: keys
     extern __shared__ __align__(16) unsigned char fb2_smem[];
     unsigned char* Qs = align1024(fb2_smem);
@@ -691,16 +748,17 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     const int g = lane / 4, t = lane % 4;
-    const int h = blockIdx.x, b = blockIdx.y;
+    const int h = (int)blockIdx.x / NSPLIT, b = blockIdx.y;
+    const int c0 = ((int)blockIdx.x % NSPLIT) * DO;  // this block's output columns
     const int n_qt = (int)gridDim.z, qt = n_qt - 1 - (int)blockIdx.z;
     const int hk = h / (H / Hkv);
     const int q0 = qt * BQ;
 
-    // keys [0, k_end) can be live for some row of this tile; later tiles
-    // are never loaded
-    const int q_last = min(q0 + BQ, Sq) - 1;
-    const int k_end = causal ? min(q_last + 1, Sk) : Sk;
-    const int n_tiles = (k_end + BK - 1) / BK;
+    // the key tiles that hold a live pair for some row of this tile (B3's
+    // walk); the others are never loaded
+    const KeyTiles kts = key_tiles(q0, min(q0 + BQ, Sq) - 1, Sk, causal, window, prefix,
+                                   BK);
+    const int n_tiles = kts.n;
     if (threadIdx.x == 0) {
         mbar_init(&full[0], 1);
         mbar_init(&full[1], 1);
@@ -708,8 +766,8 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_expect_tx(&full[0], 4 * TB);
         load_tile<D>(Qs, &tq, h, q0, b, &full[0]);
         load_tile<D>(dOs, &tdo, h, q0, b, &full[0]);
-        load_tile<D>(KV, &tk, hk, 0, b, &full[0]);
-        load_tile<D>(KV + TB, &tv, hk, 0, b, &full[0]);
+        load_tile<D>(KV, &tk, hk, key_tile(kts, 0) * BK, b, &full[0]);
+        load_tile<D>(KV + TB, &tv, hk, key_tile(kts, 0) * BK, b, &full[0]);
     }
     // this thread's rows g and g + 8 of the warp's 16: lse log2(e), Delta
     const int row0 = q0 + warp * 16 + g;
@@ -730,7 +788,7 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
     for (int kt = 0; kt < n_tiles; ++kt) {
-        const int k0 = kt * BK;
+        const int k0 = key_tile(kts, kt) * BK;
         mbar_wait(&full[kt % 2], (kt / 2) & 1);
         // tile kt has landed, and every warp is done with tile kt - 1,
         // whose stage the next load overwrites
@@ -738,9 +796,10 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         if (threadIdx.x == 0 && kt + 1 < n_tiles) {
             unsigned char* nx = KV + ((kt + 1) % 2) * 2 * TB;
             uint64_t* bar = &full[(kt + 1) % 2];
+            const int k1 = key_tile(kts, kt + 1) * BK;
             mbar_expect_tx(bar, 2 * TB);
-            load_tile<D>(nx, &tk, hk, k0 + BK, b, bar);
-            load_tile<D>(nx + TB, &tv, hk, k0 + BK, b, bar);
+            load_tile<D>(nx, &tk, hk, k1, b, bar);
+            load_tile<D>(nx + TB, &tv, hk, k1, b, bar);
         }
         const unsigned char* Kt = KV + (kt % 2) * 2 * TB;
         const unsigned char* Vt = Kt + TB;
@@ -750,7 +809,7 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         {
             float s[NS][4];
             tile_abt<D>(s, Qs, warp * 16, Kt, lane);
-            const bool masked = (causal && k0 + BK - 1 > q0) || k0 + BK > Sk || q0 + BQ > Sq;
+            const bool masked = !tile_all_live(q0, k0, BQ, BK, Sq, Sk, causal, window);
 #pragma unroll
             for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -760,7 +819,8 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                     for (int c = 0; c < 2; ++c) {
                         const int kpos = k0 + j * 8 + 2 * t + c, qpos = row0 + 8 * r;
                         p[c] = exp2f(fmaf(s[j][2 * r + c] * scale, LOG2E, -ls[r]));
-                        if (masked && (qpos >= Sq || kpos >= Sk || (causal && kpos > qpos)))
+                        if (masked && (qpos >= Sq
+                                       || !key_live(qpos, kpos, Sk, causal, window, prefix)))
                             p[c] = 0.f;
                     }
                     pf[j / 2][(j % 2) * 2 + r] = pack_bf16x2(p[0], p[1]);
@@ -783,14 +843,14 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                 }
         }
         // dQ += dS K: K's rows are the k dimension, read transposed
-        tile_acc_wx<D>(acc, df, Kt, lane);
+        tile_acc_wx<DO>(acc, df, Kt, c0, lane);
     }
 
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int qpos = row0 + 8 * r;
         if (qpos >= Sq) continue;
-        __nv_bfloat16* orow = dq + (((int64_t)b * Sq + qpos) * H + h) * D + 2 * t;
+        __nv_bfloat16* orow = dq + (((int64_t)b * Sq + qpos) * H + h) * D + c0 + 2 * t;
 #pragma unroll
         for (int n = 0; n < NO; ++n)
             *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
@@ -817,20 +877,22 @@ static int attention_bwd_bf16_run(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse, const float* delta,
                                   float* dk_ws, float* dv_ws, void* dq, void* dk, void* dv,
                                   int B, int H, int Hkv, int Sq, int Sk, float scale,
-                                  int causal, cudaStream_t stream)
+                                  int causal, int window, int prefix, cudaStream_t stream)
 {
     CUtensorMap tq, tk, tv, tdo;
     if (!bwd_map<D>(&tq, q, B, Sq, H) || !bwd_map<D>(&tk, k, B, Sk, Hkv)
         || !bwd_map<D>(&tv, v, B, Sk, Hkv) || !bwd_map<D>(&tdo, dout, B, Sq, H))
         return (int)cudaErrorInvalidValue;
     const size_t smem = fb2::smem_bytes<D>();
+    const unsigned hx = (unsigned)(H * fb2::splits<D>());
     cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkdv_bf16_kernel<D>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 g1((unsigned)H, (unsigned)B, (unsigned)((Sk + fb2::BK - 1) / fb2::BK));
+    dim3 g1(hx, (unsigned)B, (unsigned)((Sk + fb2::BK - 1) / fb2::BK));
     attention_bwd_dkdv_bf16_kernel<D><<<g1, fb2::THREADS, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, H, Hkv, Sq, Sk, scale, causal);
+        tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, H, Hkv, Sq, Sk, scale, causal, window,
+        prefix);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
@@ -843,9 +905,10 @@ static int attention_bwd_bf16_run(const void* q, const void* k, const void* v,
     err = cudaFuncSetAttribute(attention_bwd_dq_bf16_kernel<D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 g2((unsigned)H, (unsigned)B, (unsigned)((Sq + fb2::BQ - 1) / fb2::BQ));
+    dim3 g2(hx, (unsigned)B, (unsigned)((Sq + fb2::BQ - 1) / fb2::BQ));
     attention_bwd_dq_bf16_kernel<D><<<g2, fb2::THREADS, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dq, H, Hkv, Sq, Sk, scale, causal);
+        tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dq, H, Hkv, Sq, Sk, scale, causal,
+        window, prefix);
     return (int)cudaGetLastError();
 }
 
@@ -854,7 +917,7 @@ static int attention_bwd_run(const void* q, const void* k, const void* v, const 
                              const void* dout, const float* lse, float* delta,
                              float* dk_ws, float* dv_ws, void* dq, void* dk, void* dv,
                              int B, int H, int Hkv, int Sq, int Sk, float scale,
-                             int causal, cudaStream_t stream)
+                             int causal, int window, int prefix, cudaStream_t stream)
 {
     const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v,
             *to = (const T*)o, *tdo = (const T*)dout;
@@ -866,15 +929,18 @@ static int attention_bwd_run(const void* q, const void* k, const void* v, const 
 
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
         return attention_bwd_bf16_run<D>(q, k, v, dout, lse, delta, dk_ws, dv_ws, dq,
-                                         dk, dv, B, H, Hkv, Sq, Sk, scale, causal, stream);
+                                         dk, dv, B, H, Hkv, Sq, Sk, scale, causal, window,
+                                         prefix, stream);
     } else {
+        constexpr int TILE = fb::tile<D>();
         const size_t s1 = fb::dkdv_smem<D>();
         err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<T, D>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
         if (err != cudaSuccess) return (int)err;
-        dim3 g1((unsigned)H, (unsigned)B, (unsigned)((Sk + fb::BK - 1) / fb::BK));
+        dim3 g1((unsigned)H, (unsigned)B, (unsigned)((Sk + TILE - 1) / TILE));
         attention_bwd_dkdv_kernel<T, D><<<g1, fb::THREADS, s1, stream>>>(
-            tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, H, Hkv, Sq, Sk, scale, causal);
+            tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, H, Hkv, Sq, Sk, scale, causal,
+            window, prefix);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
 
@@ -888,9 +954,10 @@ static int attention_bwd_run(const void* q, const void* k, const void* v, const 
         err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, D>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
         if (err != cudaSuccess) return (int)err;
-        dim3 g2((unsigned)H, (unsigned)B, (unsigned)((Sq + fb::BQ - 1) / fb::BQ));
+        dim3 g2((unsigned)H, (unsigned)B, (unsigned)((Sq + TILE - 1) / TILE));
         attention_bwd_dq_kernel<T, D><<<g2, fb::THREADS, s2, stream>>>(
-            tq, tk, tv, tdo, lse, delta, (T*)dq, H, Hkv, Sq, Sk, scale, causal);
+            tq, tk, tv, tdo, lse, delta, (T*)dq, H, Hkv, Sq, Sk, scale, causal, window,
+            prefix);
         return (int)cudaGetLastError();
     }
 }
@@ -900,32 +967,41 @@ static int attention_bwd_dispatch(int D, const void* q, const void* k, const voi
                                   const void* o, const void* dout, const float* lse,
                                   float* delta, float* dk_ws, float* dv_ws, void* dq,
                                   void* dk, void* dv, int B, int H, int Hkv, int Sq,
-                                  int Sk, float scale, int causal, cudaStream_t s)
+                                  int Sk, float scale, int causal, int window, int prefix,
+                                  cudaStream_t s)
 {
+#define BW_RUN(DD) attention_bwd_run<T, DD>(q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, \
+                                            dv, B, H, Hkv, Sq, Sk, scale, causal, window,  \
+                                            prefix, s)
     switch (D) {
-    case 16:  return attention_bwd_run<T, 16>(q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, dv, B, H, Hkv, Sq, Sk, scale, causal, s);
-    case 32:  return attention_bwd_run<T, 32>(q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, dv, B, H, Hkv, Sq, Sk, scale, causal, s);
-    case 64:  return attention_bwd_run<T, 64>(q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, dv, B, H, Hkv, Sq, Sk, scale, causal, s);
-    case 128: return attention_bwd_run<T, 128>(q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, dv, B, H, Hkv, Sq, Sk, scale, causal, s);
+    case 16:  return BW_RUN(16);
+    case 32:  return BW_RUN(32);
+    case 64:  return BW_RUN(64);
+    case 80:  return BW_RUN(80);
+    case 128: return BW_RUN(128);
+    case 256: return BW_RUN(256);
     default:  return (int)cudaErrorInvalidValue;
     }
+#undef BW_RUN
 }
 
 // is_bf16: 1 for bf16 tensors, 0 for float32. Every tensor dense: q, o, dout,
 // dq (B, Sq, H, D); k, v, dk, dv (B, Sk, Hkv, D); lse and delta (B, H, Sq)
 // float32 (delta is written: the pre-pass's rowsum(dout o o)); dk_ws and
-// dv_ws (B, Sk, H, D) float32 workspaces, written before they are read.
+// dv_ws (B, Sk, H, D) float32 workspaces, written before they are read. The
+// mask is B3's (attention_mask.cuh): causal, a window (<= 0: none) and a
+// prefix (0: none).
 extern "C" int flash_attention_bwd_launch(
     int is_bf16, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, float* dk_ws, float* dv_ws,
     void* dq, void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, int D,
-    float scale, int causal, void* stream)
+    float scale, int causal, int window, int prefix, void* stream)
 {
     if (is_bf16)
         return attention_bwd_dispatch<__nv_bfloat16>(
             D, q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, dv, B, H, Hkv,
-            Sq, Sk, scale, causal, (cudaStream_t)stream);
+            Sq, Sk, scale, causal, window, prefix, (cudaStream_t)stream);
     return attention_bwd_dispatch<float>(
         D, q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, dv, B, H, Hkv, Sq,
-        Sk, scale, causal, (cudaStream_t)stream);
+        Sk, scale, causal, window, prefix, (cudaStream_t)stream);
 }

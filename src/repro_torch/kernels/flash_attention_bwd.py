@@ -1,4 +1,4 @@
-"""The backward of causal GQA attention — CUDA kernel B9.
+"""The backward of GQA attention under B3's masks — CUDA kernel B9.
 
 Replaces no Pallas kernel: the JAX package trains through ``jax.vjp`` of
 its attention (``src/repro/models/common.py:281-300``, autodiff of
@@ -11,8 +11,12 @@ bound by operations at the training shape; four kernels a call (a rowsum
 pre-pass, dK/dV per key tile and query head into a float32 workspace, the
 group's sum in head order, dQ per query tile); every sum in a fixed order
 and no float atomic, so a result is the same from run to run (the training
-loop's bit-exact resume rests on it); tiles above the diagonal never
-loaded. bf16 runs FlashAttention-2's backward on the tensor cores
+loop's bit-exact resume rests on it); B3's masks (causal order, a sliding
+``window``, a bidirectional ``prefix_len``, or none: bidirectional
+attention), with only the tiles that hold a live pair loaded -- the key
+tiles of a query tile for dQ, as B3 walks them, and the query tiles of a
+key tile for dK / dV -- so a windowed layer does O(window) work a row.
+bf16 runs FlashAttention-2's backward on the tensor cores
 (``mma.sync``, q / k / v / do tiles by TMA, P and dS in registers, rounded
 to bf16 as the operands of their products — as B3 rounds P — with float32
 sums: it reads as ``flash_attention_bwd_plain(..., p_bits=7, ds_bits=7)``);
@@ -32,11 +36,12 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (_GRID_YZ_MAX, DTYPES,
-                                                 ROW_ALIGN, TILE, _check)
-from repro_torch.kernels.ref import NEG_INF
+                                                 ROW_ALIGN, TILE, _check,
+                                                 _check_mask)
+from repro_torch.kernels.ref import NEG_INF, attention_mask
 
-#: the head dims B9 is built for (B3 also takes 80 and 256, for serving)
-HEAD_DIMS = (16, 32, 64, 128)
+#: the head dims B9 is built for: B3's with v's head dim equal to q's
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 
 def _check_bwd(q, k, v, o, lse, do):
@@ -59,17 +64,17 @@ def _check_bwd(q, k, v, o, lse, do):
     return B, Sq, H, D, Sk, Hkv
 
 
-def _probs(q, k, lse, *, causal: bool, scale: float):
-    """P = exp(scale q.k - lse) over live keys, float32 (B, H, Sq, Sk),
-    KV heads repeated to the query heads."""
+def _probs(q, k, lse, *, causal: bool, scale: float, window=None,
+           prefix_len: int = 0):
+    """P = exp(scale q.k - lse) over the live keys of ``ref.attention_mask``,
+    float32 (B, H, Sq, Sk), KV heads repeated to the query heads."""
     H, Hkv = q.shape[2], k.shape[2]
     if Hkv != H:
         k = k.repeat_interleave(H // Hkv, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        Sq, Sk = q.shape[1], k.shape[1]
-        live = torch.arange(Sk)[None, :] <= torch.arange(Sq)[:, None]
-        s = torch.where(live, s, torch.full((), NEG_INF))
+    live = attention_mask(q.shape[1], k.shape[1], causal=causal,
+                          window=window, prefix_len=prefix_len)
+    s = torch.where(live, s, torch.full((), NEG_INF))
     return torch.exp(s - lse[..., None])
 
 
@@ -82,11 +87,13 @@ def _round_bits(x: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
-                              scale: Optional[float] = None,
+                              scale: Optional[float] = None, window=None,
+                              prefix_len: int = 0,
                               p_bits: Optional[int] = None,
                               ds_bits: Optional[int] = None):
     """Plain PyTorch version of B9 (CPU tensors only), in float32: P
-    recomputed from ``lse``, ``dS = P o (dP - D)`` with ``D =
+    recomputed from ``lse`` over the live keys of B3's mask (``causal``,
+    ``window``, ``prefix_len``), ``dS = P o (dP - D)`` with ``D =
     rowsum(do o o)``; a KV head's gradient is the sum over its group's
     query heads. Returns dq, dk, dv in q's dtype.
 
@@ -96,12 +103,14 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     kernel multiplies; at 3 a deliberately wrong rounding, the card's
     bf16 gate's control. None keeps float32."""
     B, Sq, H, D, Sk, Hkv = _check_bwd(q, k, v, o, lse, do)
+    window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
     if q.device.type != "cpu":
         raise ValueError("flash_attention_bwd_plain takes CPU tensors; on "
                          "the card the kernel runs")
     scale = D ** -0.5 if scale is None else float(scale)
     G = H // Hkv
-    p = _probs(q, k, lse, causal=causal, scale=scale)
+    p = _probs(q, k, lse, causal=causal, scale=scale, window=window,
+               prefix_len=prefix_len)
     if p_bits is not None:
         p = _round_bits(p, p_bits)
     dof, of = do.float(), o.float()
@@ -120,7 +129,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 def _launch(lib, q, k, v, o, lse, do, delta, dk_ws, dv_ws, dq, dk, dv, *,
-            causal: bool, scale: float, stream: int) -> int:
+            causal: bool, scale: float, stream: int, window=None,
+            prefix_len: int = 0) -> int:
     """One call of the C launcher; the arguments are already checked."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -129,25 +139,29 @@ def _launch(lib, q, k, v, o, lse, do, delta, dk_ws, dv_ws, dq, dk, dv, *,
         v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk_ws.data_ptr(), dv_ws.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Sk, D, float(scale),
-        int(causal), stream)
+        int(causal), 0 if window is None else int(window), int(prefix_len),
+        stream)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, window=None,
+                        prefix_len: int = 0):
     """dq, dk, dv of ``o = flash_attention(q, k, v, causal=causal,
-    scale=scale)`` for the output gradient ``do``: q, o, do ``(B, Sq, H,
-    D)``, k, v ``(B, Sk, Hkv, D)`` of one dtype (float32 or bf16), ``lse``
-    the forward's float32 ``(B, H, Sq)`` row log-sum-exp
-    (``flash_attention(..., return_lse=True)``). Returns dq, dk, dv in q's
-    dtype and shapes. The kernels read dense tensors: a view that is not
-    contiguous is copied first."""
+    scale=scale, window=window, prefix_len=prefix_len)`` for the output
+    gradient ``do``: q, o, do ``(B, Sq, H, D)``, k, v ``(B, Sk, Hkv, D)``
+    of one dtype (float32 or bf16), ``lse`` the forward's float32 ``(B, H,
+    Sq)`` row log-sum-exp (``flash_attention(..., return_lse=True)``).
+    Returns dq, dk, dv in q's dtype and shapes. The kernels read dense
+    tensors: a view that is not contiguous is copied first."""
     B, Sq, H, D, Sk, Hkv = _check_bwd(q, k, v, o, lse, do)
+    window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type != "cuda":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                         scale=scale)
+                                         scale=scale, window=window,
+                                         prefix_len=prefix_len)
     if D not in HEAD_DIMS or q.dtype not in DTYPES:
         raise ValueError(f"head dim {D}, {q.dtype}: the kernels are built "
                          f"for {HEAD_DIMS} x {DTYPES}")
@@ -172,7 +186,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = _build.load("attention_bwd")
     with torch.cuda.device(dev):
         err = _launch(lib, q, k, v, o, lse, do, delta, dk_ws, dv_ws, dq, dk,
-                      dv, causal=causal, scale=scale,
+                      dv, causal=causal, scale=scale, window=window,
+                      prefix_len=prefix_len,
                       stream=torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1

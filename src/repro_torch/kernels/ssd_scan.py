@@ -183,8 +183,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         out_state.copy_(h)
         return y, out_state
     _build.check_no_grad("ssd_scan", (x, dt, A, B, C),
-                  "B5 has no backward yet (ROADMAP Queue B, the B5 "
-                  "backward); train the SSD family on the CPU")
+                  "train through repro_torch.models.blocks.ssd_fwd, whose "
+                  "backward is kernel B10")
     if P not in HEAD_DIMS or N not in STATE_DIMS:
         raise ValueError(f"head dim {P}, state dim {N}: the kernel is built "
                          f"for {HEAD_DIMS} x {STATE_DIMS}")

@@ -1,0 +1,132 @@
+"""The backward of the Mamba-2 chunked SSD scan — CUDA kernel B10.
+
+Replaces no Pallas kernel: the JAX package trains its SSD layers through
+``jax.vjp`` of ``blocks._ssd_chunk_scan`` (``src/repro/models/blocks.py:
+510``). On the card the port's forward is kernel B5 (``ssd_scan``), which
+keeps nothing for a backward; B10 takes B5's inputs and the gradient of
+its output y (and, when given, of its final state) and returns dx, ddt,
+dA, dB, dC. The kernel, its bound and the reasons for its design are in
+``csrc/ssd_scan_bwd.cu``; in short: one block per (head, batch) walks the
+chunks forward to recompute the state entering each one, then in reverse
+with the state's gradient on the chip; the products run in float32 on the
+CUDA cores (bf16 inputs widened on load); every sum in a fixed order and
+no float atomic, so a result is the same from run to run (the training
+loop's bit-exact resume rests on it); dB and dC are summed over a group's
+heads in head order by a second kernel.
+
+``ssd_scan_bwd`` launches the kernels for CUDA tensors and evaluates
+``ssd_scan_bwd_plain`` for CPU tensors; nothing else selects between
+them, and a kernel that fails to build or launch raises.
+``ssd_scan_bwd.launches`` counts wrapper calls that launched (one a call:
+its two kernels count once).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ssd_scan import (CHUNK, HEAD_DIMS, STATE_DIMS, _check,
+                                          _st, ssd_scan_plain)
+
+
+def _check_bwd(x, dt, A, B, C, dy, dstate):
+    Bz, S, H, P, G, N = _check(x, dt, A, B, C)
+    if dy.shape != (Bz, S, H, P) or dy.dtype != torch.float32:
+        raise ValueError(f"dy: want float32 ({Bz}, {S}, {H}, {P}), got "
+                         f"{dy.dtype} {tuple(dy.shape)}")
+    if dstate is not None and (dstate.shape != (Bz, H, P, N)
+                               or dstate.dtype != torch.float32):
+        raise ValueError(f"dstate: want float32 ({Bz}, {H}, {P}, {N}), got "
+                         f"{dstate.dtype} {tuple(dstate.shape)}")
+    devs = {t.device for t in (x, dy) + ((dstate,) if dstate is not None
+                                         else ())}
+    if len(devs) != 1:
+        raise ValueError(f"x, dy, dstate on several devices: {devs}")
+    return Bz, S, H, P, G, N
+
+
+def ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate=None):
+    """Plain PyTorch version of B10 (CPU tensors only): autograd through
+    ``ssd_scan_plain`` (in the kernel's chunks) for the output gradient
+    ``dy`` (and ``dstate`` on the final state, where given). Returns dx,
+    ddt, dA, dB, dC of the inputs' shapes and dtypes (dB and dC per group:
+    its heads summed)."""
+    _check_bwd(x, dt, A, B, C, dy, dstate)
+    if x.device.type != "cpu":
+        raise ValueError("ssd_scan_bwd_plain takes CPU tensors; on the card "
+                         "the kernel runs")
+    leaves = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
+    with torch.enable_grad():
+        y, h = ssd_scan_plain(*leaves)
+        outs, grads = [y], [dy]
+        if dstate is not None:
+            outs.append(h)
+            grads.append(dstate)
+        torch.autograd.backward(outs, grads)
+    return tuple(t.grad if t.grad is not None else torch.zeros_like(t)
+                 for t in leaves)
+
+
+def _launch(lib, x, dt, A, B, C, dy, dstate, dx, ddt, dA, dB, dC, dB_ws,
+            dC_ws, states, *, stream: int) -> int:
+    """One call of the C launcher; the arguments are already checked."""
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    return lib.ssd_scan_bwd_launch(
+        int(x.dtype == torch.bfloat16), x.data_ptr(), dt.data_ptr(),
+        A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dB_ws.data_ptr(), dC_ws.data_ptr(), states.data_ptr(), Bz, S, H, G, P,
+        N, _st(x, (0, 1, 2)), _st(dt, (0, 1, 2)), _st(A, (0, 1)),
+        _st(B, (0, 1, 2)), _st(C, (0, 1, 2)), stream)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                 dstate: Optional[torch.Tensor] = None):
+    """dx, ddt, dA, dB, dC of ``y, state = ssd_scan(x, dt, A, B, C)`` for
+    the gradients ``dy`` (float32, y's shape) and ``dstate`` (float32
+    ``(B, nh, hd, N)``, or None: the state feeds nothing). The inputs as
+    ``ssd_scan`` takes them; dx, dB, dC come back in x's dtype (dB and dC
+    per group, ``(B, S, G, N)``: its heads summed), ddt ``(B, S, nh)`` and
+    dA ``(B, nh)`` in float32."""
+    Bz, S, H, P, G, N = _check_bwd(x, dt, A, B, C, dy, dstate)
+    dev = x.device
+    if dev.type != "cuda":
+        return ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate)
+    _build.check_no_grad("ssd_scan_bwd", (x, dt, A, B, C, dy),
+                         "it is the backward of models.blocks.ssd_fwd on "
+                         "the card")
+    if P not in HEAD_DIMS or N not in STATE_DIMS:
+        raise ValueError(f"head dim {P}, state dim {N}: the kernel is built "
+                         f"for {HEAD_DIMS} x {STATE_DIMS}")
+    if not all(t.stride(-1) == 1 for t in (x, B, C)):
+        raise ValueError("x, B and C must have a contiguous last dim")
+    dy = dy.contiguous()
+    dstate = None if dstate is None else dstate.contiguous()
+    dx = torch.empty((Bz, S, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((Bz, S, H), dtype=torch.float32, device=dev)
+    dA = torch.empty((Bz, H), dtype=torch.float32, device=dev)
+    dB = torch.empty((Bz, S, G, N), dtype=x.dtype, device=dev)
+    dC = torch.empty_like(dB)
+    if Bz == 0 or H == 0:  # a zero-size grid is a launch error
+        return dx, ddt, dA.zero_(), dB.zero_(), dC.zero_()
+    dB_ws = torch.empty((Bz, S, H, N), dtype=torch.float32, device=dev)
+    dC_ws = torch.empty_like(dB_ws)
+    states = torch.empty((Bz, H, -(-S // CHUNK), P, N), dtype=torch.float32,
+                         device=dev)
+    lib = _build.load("ssd_scan_bwd")
+    with torch.cuda.device(dev):
+        err = _launch(lib, x, dt, A, B, C, dy, dstate, dx, ddt, dA, dB, dC,
+                      dB_ws, dC_ws, states,
+                      stream=torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+ssd_scan_bwd.launches = 0

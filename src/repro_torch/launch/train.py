@@ -14,9 +14,12 @@ The JAX package's ``repro.launch.train`` in PyTorch's idiom:
   the same command resumes from the last checkpoint.
 
 Runs on the card unless ``--device`` (``TrainLoopConfig.device``) says
-otherwise: there the dense family's attention is kernel B3 forward and
-kernel B9 backward; the SSD family trains on the CPU only (its card
-scan, B5, has no backward yet, and ``ssd_fwd`` raises before any work).
+otherwise: there every attention layer (causal, sliding-window, prefix-LM
+or bidirectional) is kernel B3 forward and kernel B9 backward, and every
+SSD layer kernel B5 forward and kernel B10 backward -- the dense, SSD,
+hybrid, vision and audio families. MLA training on the card waits for
+B9 at MLA's head dims, and MoE's for a deterministic dispatch backward
+(ROADMAP).
 Sharding rules are the parallel slice's (ROADMAP A9): ``--rules``
 accepts ``baseline`` only, one device.
 
@@ -26,6 +29,9 @@ Run (CPU, reduced config):
 Run (the card, full width):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --full --seq-len 2048 --global-batch 2 --microbatches 2 --steps 4
+  (also --arch mamba2-780m; hymba-1.5b with --seq-len 4096, past its
+  window of 2 048; paligemma-3b, whose --seq-len counts its 256 image
+  patches; hubert-xlarge with --seq-len 1500 frames --global-batch 4)
 """
 from __future__ import annotations
 

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd
 from repro_torch.models.common import (
     Window, act_fn, apply_rope, attention, decode_attention, rms_norm)
 from repro_torch.models.param import spec
@@ -554,6 +555,27 @@ def _ssd_output(p, y, x, z, cfg: ArchConfig):
     return y @ p["out_proj"]
 
 
+class KernelSSD(torch.autograd.Function):
+    """The SSD scan whose forward is kernel B5 and whose backward is kernel
+    B10: the card's training scan. ``apply(x, dt, A, Bm, Cm)`` with
+    ``ssd_scan``'s arguments returns y and the final state; the state's
+    gradient, where it feeds the loss, reaches B10 too."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm):
+        y, state = ssd_scan(x, dt, A, Bm, Cm)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        return ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate)
+
+
 def ssd_fwd(p, x_res, cfg: ArchConfig, *, return_cache: bool = False,
             state_out=None):
     """Mamba-2 block over a sequence. x_res: (B, S, D).
@@ -563,23 +585,22 @@ def ssd_fwd(p, x_res, cfg: ArchConfig, *, return_cache: bool = False,
     layer slice) receives the final state in place — written by kernel B5
     itself on the card — and is the ``h_final`` returned.
 
-    On the card with grad enabled on an input that requires it, raises
-    ``NotImplementedError`` before any work: B5 has no backward yet
-    (ROADMAP Queue B, the B5 backward), so the SSD family trains on the
-    CPU only, through the plain scan.
+    On the card with grad enabled on an input that requires it, the scan
+    goes through ``KernelSSD`` (B5 forward, B10 backward); ``state_out``
+    then receives a copy of the final state.
     """
-    if x_res.device.type == "cuda" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x_res, *p.values())):
-        raise NotImplementedError(
-            "ssd_fwd on the card runs kernel B5, which has no backward yet "
-            "(ROADMAP Queue B: the B5 backward, for mamba2 training on the "
-            "card); train the SSD family on the CPU (device='cpu')")
     h = rms_norm(x_res, p["ln"], cfg.norm_eps)
     x, z, dt, Bm, Cm, conv_tail = _ssd_inputs(p, h, cfg)
     A = -torch.exp(p["A_log"].float())
     if x.device.type == "cuda":
-        y, h_final = ssd_scan(x, dt, A.expand(x.shape[0], -1), Bm, Cm,
-                              out_state=state_out)
+        A = A.expand(x.shape[0], -1)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, dt, A, Bm, Cm)):
+            y, h_final = KernelSSD.apply(x, dt, A, Bm, Cm)
+            if state_out is not None:
+                h_final = state_out.copy_(h_final.detach())
+        else:
+            y, h_final = ssd_scan(x, dt, A, Bm, Cm, out_state=state_out)
     else:
         nh = x.shape[2]
         y, h_final = _ssd_chunk_scan(x, dt, A, _heads(Bm, nh),

@@ -13,10 +13,9 @@ take raises there, never a plain fallback: offset queries, and causal
 attention with Sq != Sk. When an input requires grad (training),
 ``attention`` on the card runs ``KernelAttention``, an autograd function
 whose forward is B3 with its row log-sum-exp and whose backward is kernel
-B9, for plain causal attention at equal q/k and v head dims of B9's only
-(B9 has no window or prefix, and no Dv != D or D 192 yet); B4
-has no backward, and its wrapper raises then rather than drop a
-gradient. On a CPU tensor both
+B9 under the same mask, at equal q/k and v head dims of B9's only (B9 has
+no Dv != D or D 192 yet); B4 has no backward, and its wrapper raises then
+rather than drop a gradient. On a CPU tensor both
 run the plain forms exactly as the JAX package dispatches them
 (``plain_attention`` up to ``chunk_threshold`` keys, then
 ``flash_attention_jax``), and training differentiates through those, as
@@ -192,24 +191,27 @@ def flash_attention_jax(q, k, v, *, causal: bool, window: Window = None,
 
 
 class KernelAttention(torch.autograd.Function):
-    """Causal self-attention whose forward is kernel B3 (with its row
-    log-sum-exp) and whose backward is kernel B9: the card's training
-    attention. ``apply(q, k, v, scale)``; scale None is ``D ** -0.5``."""
+    """Attention whose forward is kernel B3 (with its row log-sum-exp) and
+    whose backward is kernel B9, both under one mask: the card's training
+    attention. ``apply(q, k, v, scale, causal, window, prefix_len)``;
+    scale None is ``D ** -0.5``, window None or an int (B3's), prefix_len
+    an int."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        o, lse = flash_attention_kernel(q, k, v, causal=True, scale=scale,
-                                        return_lse=True)
+    def forward(ctx, q, k, v, scale, causal, window, prefix_len):
+        o, lse = flash_attention_kernel(q, k, v, causal=causal, scale=scale,
+                                        return_lse=True, window=window,
+                                        prefix_len=prefix_len)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
+        ctx.mask = dict(scale=scale, causal=causal, window=window,
+                        prefix_len=prefix_len)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
-                                         scale=ctx.scale)
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.mask)
+        return dq, dk, dv, None, None, None, None
 
 
 def _kernel_window(window: Window, Sq: int) -> Optional[int]:
@@ -226,8 +228,8 @@ def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
               kv_chunk: int = 1024) -> torch.Tensor:
     """Sequence attention. CUDA: kernel B3 (any of its masks; see the
     module docstring for what raises), through ``KernelAttention``
-    (backward B9) when an input requires grad. CPU: plain or chunked
-    flash by KV length, as the JAX package."""
+    (backward B9, under the same mask) when an input requires grad. CPU:
+    plain or chunked flash by KV length, as the JAX package."""
     if q.device.type == "cuda":
         Sq, Sk = q.shape[1], k.shape[1]
         if q_offset != 0 or (causal and Sq != Sk):
@@ -238,20 +240,15 @@ def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
         window = _kernel_window(window, Sq)
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):
-            if not (causal and window is None and prefix_len == 0):
-                raise NotImplementedError(
-                    "training on the card differentiates plain causal "
-                    "attention only: its backward, kernel B9, has no "
-                    "sliding window, prefix or bidirectional mask yet "
-                    "(ROADMAP Queue B)")
             D, Dv = q.shape[-1], v.shape[-1]
             if Dv != D or D not in B9_HEAD_DIMS:
                 raise NotImplementedError(
                     f"training on the card differentiates attention of "
                     f"equal q/k and v head dims in {B9_HEAD_DIMS} only "
                     f"(got {D}, {Dv}): B9 has no Dv != D or D 192 yet, "
-                    f"ROADMAP Queue B")
-            return KernelAttention.apply(q, k, v, scale)
+                    f"ROADMAP Queue B (MoE / MLA training on the card)")
+            return KernelAttention.apply(q, k, v, scale, causal, window,
+                                         prefix_len)
         return flash_attention_kernel(q, k, v, causal=causal, scale=scale,
                                       window=window, prefix_len=prefix_len)
     if k.shape[1] <= chunk_threshold:

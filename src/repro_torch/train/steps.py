@@ -97,6 +97,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
         for mb in mbs:
             l, m = loss(params, mb)
             (l if microbatches == 1 else l * inv).backward()
+            for p in leaves:
+                # a leaf the loss never reaches (the audio arch's token
+                # embedding): autograd leaves None where the reference's
+                # gradient is zeros, which AdamW still decays
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
             m = {k: m[k].detach() for k in METRICS}
             if microbatches == 1:
                 msum = m

@@ -240,12 +240,13 @@ def test_wrappers_reject_bad_arguments(bad):
                 1, 4, 1, dtype=torch.int32))
 
 
-def test_model_attention_on_the_card_refuses_other_masks():
-    """The CUDA route raises for what kernels B3 / B4 / B9 do not take --
-    a query offset, causal attention with Sq != Sk, and any mask but plain
-    causal under grad (B9 has none of them); it does not fall back to a
-    plain form. (Checked on the dispatch alone: the meta device stands in
-    for the card so no kernel runs.)"""
+def test_model_attention_on_the_card_refuses_other_masks(monkeypatch):
+    """The CUDA route raises for what kernel B3 does not take -- a query
+    offset, causal attention with Sq != Sk -- and does not fall back to a
+    plain form; under grad every mask B3 takes (a window, bidirectional
+    attention, a prefix) reaches ``KernelAttention`` (B3 forward, B9
+    backward) with that mask. (Checked on the dispatch alone: the meta
+    device stands in for the card so no kernel runs.)"""
     q = torch.zeros(1, 8, 4, 16, device="meta")
     k = torch.zeros(1, 8, 2, 16, device="meta")
 
@@ -265,10 +266,15 @@ def test_model_attention_on_the_card_refuses_other_masks():
     with pytest.raises(NotImplementedError, match="Sq != Sk"):
         tc.attention(qc[:, :5], k, k, causal=True)
     qg = q.clone().requires_grad_().as_subclass(Q)
-    for kw in (dict(causal=True, window=4), dict(causal=False),
-               dict(causal=True, prefix_len=4)):
-        with pytest.raises(NotImplementedError, match="B9"):
-            tc.attention(qg, k, k, **kw)
+    seen = []
+    monkeypatch.setattr(tc.KernelAttention, "apply",
+                        lambda *args: seen.append(args[3:]) or "B9")
+    for kw, mask in ((dict(causal=True, window=4), (None, True, 4, 0)),
+                     (dict(causal=False), (None, False, None, 0)),
+                     (dict(causal=True, prefix_len=4), (None, True, None, 4)),
+                     (dict(causal=True, window=8), (None, True, None, 0))):
+        assert tc.attention(qg, k, k, **kw) == "B9"
+        assert seen.pop() == mask
 
 
 def _wide(dtype, offset, D=64, extra=16):

@@ -9,6 +9,9 @@
 * B3's ``lse`` (``flash_attention_plain(..., return_lse=True)`` and the
   wrapper on CPU tensors) against a float64 log-sum-exp of the scaled
   live scores, within 1e-5 (measured at most 4.7e-7);
+* the same under B3's masks -- a sliding window, a prefix, both, and
+  bidirectional attention -- at head dims 80 and 256, against ``jax.vjp``
+  of ``plain_attention`` with the same mask;
 * the port's CPU ``attention`` differentiates through the plain forms
   (as the reference's does), and ``KernelAttention`` (the card's
   autograd function: B3 forward, B9 backward) wired through the wrappers,
@@ -94,6 +97,66 @@ def test_plain_bwd_equals_jax_vjp(shape):
         assert torch.equal(a, b)
 
 
+# B3's masks at B9's new head dims: (B, S, H, Hkv, D), causal, window,
+# prefix_len -- a window, a prefix, both, and bidirectional attention
+MASK_CASES = [((1, 40, 4, 2, 80), True, 9, 0), ((2, 33, 2, 1, 256), True,
+                                                 None, 7),
+              ((1, 40, 4, 1, 80), True, 12, 5), ((1, 30, 2, 2, 256), False,
+                                                 None, 0),
+              ((2, 70, 4, 2, 16), True, 16, 20), ((1, 37, 2, 2, 80), False,
+                                                  None, 0)]
+
+
+@functools.partial(jax.jit, static_argnames=("causal", "window", "prefix"))
+def _vjp_masked(q, k, v, do, *, causal, window, prefix):
+    def f(q, k, v):
+        return jcommon.plain_attention(q, k, v, causal=causal,
+                                       window=window, prefix_len=prefix)
+    return jax.vjp(f, q, k, v)[1](do)
+
+
+@pytest.mark.parametrize("case", MASK_CASES, ids=str)
+def test_plain_bwd_under_masks_equals_jax_vjp(case):
+    """B9's plain version under a window, a prefix, both, and with no
+    mask at all, at head dims 80 and 256 (and 16), against ``jax.vjp`` of
+    the reference's ``plain_attention`` with the same mask: float32, each
+    of dq, dk, dv within ``GRAD_TOL`` of its largest value; the wrapper on
+    CPU tensors is the plain version."""
+    shape, causal, window, prefix = case
+    q, k, v, do = _inputs(*shape, seed=2)
+    want = [np.asarray(g) for g in _vjp_masked(
+        *map(jnp.asarray, (q, k, v, do)), causal=causal, window=window,
+        prefix=prefix)]
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    o, lse = flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    got = flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, **kw)
+    for g, w in zip(got, want):
+        _close(g, w)
+    for a, b in zip(flash_attention_bwd(tq, tk, tv, o, lse, tdo, **kw), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", MASK_CASES[:2], ids=str)
+def test_kernel_function_under_masks_is_the_cpu_attention(case):
+    """``KernelAttention`` with a mask, on CPU tensors (its wrappers'
+    plain versions), gives the gradients of the CPU route's
+    ``attention`` with that mask."""
+    shape, causal, window, prefix = case
+    q, k, v, do = _inputs(*shape, seed=6)
+    grads = []
+    for fn in (lambda q, k, v: tcommon.KernelAttention.apply(
+                   q, k, v, None, causal, window, prefix),
+               lambda q, k, v: tcommon.attention(
+                   q, k, v, causal=causal, window=window,
+                   prefix_len=prefix)):
+        ts = [torch.tensor(x).requires_grad_() for x in (q, k, v)]
+        fn(*ts).backward(torch.tensor(do))
+        grads.append([t.grad for t in ts])
+    for a, b in zip(*grads):
+        _close(a, b.numpy())
+
+
 @pytest.mark.parametrize("shape", CASES, ids=str)
 def test_lse_equals_the_reference(shape):
     B, S, H, Hkv, D = shape
@@ -123,7 +186,7 @@ def test_cpu_attention_autograd_and_kernel_function(shape):
             q, k, v, causal=True, chunk_threshold=THRESHOLD, q_chunk=32,
             kv_chunk=16),
         "kernel_function": lambda q, k, v: tcommon.KernelAttention.apply(
-            q, k, v, None)}
+            q, k, v, None, True, None, 0)}
     for name, fn in routes.items():
         tq, tk, tv = (torch.tensor(x).requires_grad_() for x in (q, k, v))
         fn(tq, tk, tv).backward(torch.tensor(do))

@@ -31,6 +31,8 @@ from repro_torch.kernels.sa_occupancy import (sa_occupancy,  # noqa: E402
 from repro_torch.kernels.segment_sum import (segment_sum,  # noqa: E402
                                              segment_sum_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain  # noqa
+from repro_torch.kernels.ssd_scan_bwd import (  # noqa: E402
+    ssd_scan_bwd, ssd_scan_bwd_plain)
 
 from _torch_programs import pack_programs, seeded_programs  # noqa: E402
 from _torch_programs import program_arrays, row_knobs  # noqa: E402
@@ -1308,8 +1310,9 @@ def test_kernel_attention_grads_match_the_cpu(card):
 
 def test_card_kernels_refuse_to_drop_a_gradient(card):
     """Every card route without a backward raises before any work when
-    an input requires grad: ssd_fwd (B5), decode attention (B4's wrapper)
-    and the raw kernel wrappers."""
+    an input requires grad: decode attention (B4's wrapper) and the raw
+    kernel wrappers; ssd_fwd trains through B5 and its backward B10, one
+    launch each, with finite gradients."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -1323,10 +1326,12 @@ def test_card_kernels_refuse_to_drop_a_gradient(card):
                                  card))["layers"]["ssd"]
     p = {k: v[0] for k, v in p.items()}
     x = torch.randn((1, 16, cfg.d_model), device=card)
-    before = ssd_scan.launches
-    with pytest.raises(NotImplementedError, match="B5 backward"):
-        blocks.ssd_fwd(p, x, cfg)
-    assert ssd_scan.launches == before
+    before = (ssd_scan.launches, ssd_scan_bwd.launches)
+    xg = x.clone().requires_grad_()
+    blocks.ssd_fwd(p, xg, cfg).float().square().mean().backward()
+    assert (ssd_scan.launches, ssd_scan_bwd.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert torch.isfinite(xg.grad).all() and xg.grad.abs().sum() > 0
     q = torch.randn((1, 1, 4, 64), device=card, requires_grad=True)
     kc = torch.randn((1, 8, 2, 64), device=card)
     with pytest.raises(RuntimeError, match="drop the gradient"):
@@ -1339,3 +1344,79 @@ def test_card_kernels_refuse_to_drop_a_gradient(card):
                                         device=card))
     with torch.no_grad():  # serving: no gradient, the kernels run
         blocks.ssd_fwd(p, x, cfg)
+
+
+def _ssd_bwd_inputs(card, Bz, S, H, P, G, N, dtype, seed, strong=False):
+    g = np.random.default_rng(seed)
+    x = torch.tensor(g.standard_normal((Bz, S, H, P)), dtype=torch.float32)
+    dt = torch.tensor(np.log1p(np.exp(g.standard_normal((Bz, S, H)))),
+                      dtype=torch.float32)
+    A = -torch.tensor(g.uniform(1.0, 16.0 if strong else 2.0, H),
+                      dtype=torch.float32).expand(Bz, H)
+    B, C = (torch.tensor(g.standard_normal((Bz, S, G, N)) * 0.3,
+                         dtype=torch.float32) for _ in range(2))
+    dy = torch.tensor(g.standard_normal((Bz, S, H, P)), dtype=torch.float32)
+    x, B, C = (t.to(dtype) for t in (x, B, C))
+    return [t.to(card) for t in (x, dt, A, B, C, dy)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 200, 4, 64, 1, 128, False),
+                                   (2, 130, 4, 16, 2, 16, True),
+                                   (1, 64, 2, 32, 1, 32, False)], ids=str)
+def test_ssd_bwd_kernel_matches_plain(card, dtype, shape):
+    """B10 against autograd through B5's plain version on the CPU copies:
+    every gradient within 1e-4 of its largest value (float32 route and
+    the float32 outputs of the bf16 one; dA 1e-3, see chip_smoke.py's
+    SSD_BWD_TOL), bf16 dx / dB / dC within 4e-3 relative L2; a second
+    call bit-identical."""
+    *dims, strong = shape
+    x, dt, A, B, C, dy = _ssd_bwd_inputs(card, *dims, dtype, 3, strong)
+    before = ssd_scan_bwd.launches
+    got = ssd_scan_bwd(x, dt, A, B, C, dy)
+    again = ssd_scan_bwd(x, dt, A, B, C, dy)
+    assert ssd_scan_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ssd_scan_bwd_plain(*(t.cpu().float() if t.dtype == torch.bfloat16
+                                else t.cpu() for t in (x, dt, A, B, C, dy)))
+    for name, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        a = a.float().cpu()
+        if dtype == torch.bfloat16 and name in ("dx", "dB", "dC"):
+            assert float((a - w).norm() / w.norm()) <= 4e-3, name
+        else:
+            tol = 1e-3 if name == "dA" else 1e-4
+            assert float((a - w).abs().max()) <= tol * float(w.abs().max()), \
+                name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask", [
+    (2, 300, 4, 2, 64, True, 100, 0), (1, 300, 8, 1, 256, True, None, 70),
+    (1, 150, 4, 4, 80, False, None, 0), (1, 257, 4, 2, 80, True, 40, 30)],
+    ids=str)
+def test_attention_bwd_kernel_under_masks(card, dtype, mask):
+    """B9 under B3's masks and at head dims 80 / 256 against its plain
+    version on the CPU copies (float32 1e-4 of the largest value; bf16
+    relative L2 8e-3, as chip_smoke.py), a second call bit-identical."""
+    B, S, H, Hkv, D, causal, window, prefix = mask
+    gen = torch.Generator(device=card).manual_seed(S + D)
+    q, do = (torch.randn((B, S, H, D), generator=gen, device=card)
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=card)
+            .to(dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    o, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = flash_attention_bwd_plain(*(t.cpu() for t in (q, k, v, o, lse,
+                                                         do)), **kw)
+    for a, w in zip(got, want):
+        a, w = a.float().cpu(), w.float()
+        if dtype == torch.float32:
+            assert float((a - w).abs().max()) <= 1e-4 * max(
+                float(w.abs().max()), 1.0)
+        else:
+            assert float((a - w).norm() / w.norm()) <= 8e-3

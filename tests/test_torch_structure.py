@@ -514,15 +514,24 @@ def test_mla_training_on_the_card_raises_before_any_work():
 
 
 def test_ssd_training_on_the_card_raises_before_any_work():
-    """B5 has no backward: ``ssd_fwd`` on the card with grad enabled
-    raises before its first operation, and every wrapper of a kernel
-    without a backward refuses a gradient (``_build.check_no_grad``)."""
+    """``ssd_fwd`` on the card with grad enabled reaches ``KernelSSD``
+    (B5 forward, B10 backward) and no plain scan; the raw wrappers, which
+    have no autograd of their own, still refuse a gradient before any
+    work (``_build.check_no_grad``) -- ``KernelSSD`` calls them with grad
+    off."""
     body = _function_source(PKG / "models" / "blocks.py", "ssd_fwd")
-    assert body.index("raise NotImplementedError") < body.index("rms_norm(")
-    assert "B5 backward" in body
+    card = body[body.index('if x.device.type == "cuda":'):
+                body.index("    else:\n        nh = x.shape[2]")]
+    assert "torch.is_grad_enabled()" in card
+    assert card.index("KernelSSD.apply(") < card.index("ssd_scan(")
+    assert "_plain" not in card and "_ssd_chunk_scan" not in card
+    assert "raise NotImplementedError" not in body
+    fn = _function_source(PKG / "models" / "blocks.py", "backward")
+    assert "ssd_scan_bwd(" in fn
     for source, fn in (("flash_attention.py", "flash_attention"),
                        ("decode_attention.py", "decode_attention"),
                        ("ssd_scan.py", "ssd_scan"),
+                       ("ssd_scan_bwd.py", "ssd_scan_bwd"),
                        ("gated_matmul.py", "gated_matmul_p"),
                        ("flash_attention_bwd.py", "flash_attention_bwd")):
         body = _function_source(PKG / "kernels" / source, fn)

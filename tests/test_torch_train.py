@@ -4,8 +4,11 @@ Both packages start from the same state: the JAX package's
 ``TrainState`` (its ``init_params`` from a PRNG key) carried across as
 numpy by ``convert.train_state_from_numpy``; batches from
 ``SyntheticDataset``, whose numbers are the reference's bit for bit. All
-in float32 (``dtype=float32`` on both sides), qwen2.5-3b and mamba2-780m
-reduced:
+in float32 (``dtype=float32`` on both sides), qwen2.5-3b, mamba2-780m,
+paligemma-3b (4 patch embeddings before the text) and hubert-xlarge
+(frame embeddings) reduced, and hymba-1.5b reduced and cut to 5 layers
+(``reduced()`` has 2, both global; at 5, layers 1 and 3 slide over a
+window of 16) at 24 positions, past the window:
 
 * ``loss_fn`` and every gradient leaf (``jax.value_and_grad`` against
   ``backward``): loss, ce and z within 1e-5 relative, each gradient leaf
@@ -35,6 +38,8 @@ The zero-initialized leaves are held to ``ZERO_INIT_TOL``; with eps
 1e-5, where no component is that close to eps, every leaf is within
 1e-4 (``test_zero_init_gap_is_adamws_eps``).
 """
+import dataclasses
+import functools
 import importlib.util
 import pathlib
 import time
@@ -67,7 +72,11 @@ from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-ARCHS = ["qwen2.5-3b", "mamba2-780m"]
+ARCHS = ["qwen2.5-3b", "mamba2-780m", "hymba-1.5b", "paligemma-3b",
+         "hubert-xlarge"]
+#: per arch, the reduced config's cut (both packages alike) and sequence
+CUT = {"hymba-1.5b": dict(n_layers=5)}
+ARCH_SEQ = {"hymba-1.5b": 24}
 LOSS_RTOL = 1e-5
 LEAF_TOL = 1e-4       # relative L2, gradient and parameter leaves
 ZERO_INIT_TOL = 1e-2  # measured 5.1e-3 (module docstring)
@@ -78,20 +87,30 @@ NORM_RTOL = 1e-4
 SEQ, BATCH = 16, 4
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_params(arch):
+    """The reference's reduced config (cut by ``CUT``) and its initial
+    parameters from PRNG key 0 -- immutable, so shared by the tests."""
+    ref_cfg = dataclasses.replace(ref_get_arch(arch).reduced(),
+                                  **CUT.get(arch, {}))
+    return ref_cfg, ref_init_params(jreg.param_specs(ref_cfg),
+                                    jax.random.PRNGKey(0))
+
+
 def _setup(arch, codec=None, eps=1e-8):
-    ref_cfg, cfg = ref_get_arch(arch).reduced(), get_arch(arch).reduced()
+    ref_cfg, params = _ref_params(arch)
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **CUT.get(arch, {}))
+    seq = ARCH_SEQ.get(arch, SEQ)
     kw = dict(total_steps=10, warmup_steps=2, eps=eps)
-    params = ref_init_params(jreg.param_specs(ref_cfg),
-                             jax.random.PRNGKey(0))
     ref_state = RefState.create(params, RefAdamW(**kw),
                                 grad_compression=codec)
     dump = jax.tree.map(np.asarray, {"params": ref_state.params,
                                      "opt_state": ref_state.opt_state,
                                      "step": ref_state.step})
     state = train_state_from_numpy(dump, device="cpu")
-    ref_data = RefDataset(ref_cfg, RefShape("t", SEQ, BATCH, "train"),
+    ref_data = RefDataset(ref_cfg, RefShape("t", seq, BATCH, "train"),
                           seed=1)
-    data = SyntheticDataset(cfg, ShapeConfig("t", SEQ, BATCH, "train"),
+    data = SyntheticDataset(cfg, ShapeConfig("t", seq, BATCH, "train"),
                             seed=1, device="cpu")
     return (ref_cfg, RefAdamW(**kw), ref_state, ref_data), \
         (cfg, AdamWConfig(**kw), state, data)
@@ -130,7 +149,10 @@ def test_loss_and_gradients_equal_the_reference(arch):
     loss.backward()
     for k in ("loss", "ce", "z"):
         assert float(m[k]) == pytest.approx(float(rm[k]), rel=LOSS_RTOL)
-    grads = {path: p.grad for path, p in tree_leaves(st.params)}
+    # a leaf the loss never reaches (hubert's token embedding) has no
+    # .grad; the reference's gradient there is zeros
+    grads = {path: torch.zeros_like(p) if p.grad is None else p.grad
+             for path, p in tree_leaves(st.params)}
     ref = dict(tree_leaves(jax.tree.map(np.asarray, rg)))
     for path, g in grads.items():
         assert _rel(ref[path], g.numpy()) <= LEAF_TOL, path
@@ -188,12 +210,14 @@ def test_remat_policies_give_the_same_loss_and_gradients(arch):
         loss, _ = TM.loss_fn(st.params, batch, cfg, remat=remat,
                              dtype=torch.float32)
         loss.backward()
-        out[remat] = (loss.detach(), [p.grad.clone() for _, p in
+        # None: a leaf the loss never reaches (hubert's token embedding)
+        out[remat] = (loss.detach(), [None if p.grad is None
+                                      else p.grad.clone() for _, p in
                                       tree_leaves(st.params)])
     for remat in ("full", "dots"):
         assert torch.equal(out[remat][0], out["none"][0])
         for a, b in zip(out[remat][1], out["none"][1]):
-            assert torch.equal(a, b)
+            assert (a is None and b is None) or torch.equal(a, b)
     with pytest.raises(ValueError, match="remat"):
         TM.loss_fn(st.params, batch, cfg, remat="some",
                    dtype=torch.float32)
@@ -209,7 +233,7 @@ def test_layer_views_share_the_stacked_storage():
 
 # ------------------------------------------------- tests/test_system.py's
 def _loop(arch, tmp_path, **kw):
-    return TrainLoopConfig(arch=arch, steps=8, seq_len=SEQ,
+    return TrainLoopConfig(arch=arch, steps=8, seq_len=ARCH_SEQ.get(arch, SEQ),
                            global_batch=BATCH, ckpt_dir=str(tmp_path),
                            checkpoint_every=2, log_every=100, device="cpu",
                            **kw)
