@@ -22,7 +22,12 @@ training shape in both types (``kernels``: ms, device µs, bound, the
 ``train_full`` (steady s/step, tokens/s, MFU, peak memory, the first
 step's loss, which must be the same bits in every run while the forward
 is unchanged) and ``profile_train`` (B9's device µs a call and its share
-of the busy time). Three
+of the busy time); for the SSD backward B10 at mamba2-780m's and
+hymba-1.5b's training shapes in both types (``kernels``: ms, device µs
+over all its kernels, bound), ``train_ssm_full`` and
+``train_hybrid_full`` (steady s/step, tokens/s, MFU, peak memory) and
+their ``profile_train`` steps (B10's device µs a call and its share of
+the busy time, every profiled kernel of B10's: ``B10_NAMES``). Four
 metrics are then timed for both trees by the same code, in a process of
 its own,
 
@@ -31,8 +36,9 @@ its own,
 which imports TREE's port and times it with this checkout's
 ``chip_smoke`` functions on inputs made from a seed: B3 in float32 at
 the prefill's shape (``time_b3``) and B5 in float32 at mamba2-780m's
-prefill shape (``time_b5``), which no ``chip_smoke.py`` measures, and
-K2's device time at the sweep's four shapes (``time_k2``). Each run prints one JSON
+prefill shape (``time_b5``), which no ``chip_smoke.py`` measures,
+K2's device time at the sweep's four shapes (``time_k2``) and B10's in
+bf16 at the training paths' shapes (``time_b10``). Each run prints one JSON
 line and the last line is a summary: per metric, the values of the runs
 in order. Each tree builds its kernels into its own ``build/`` at its
 first run. Needs one card; it exits non-zero if any run fails.
@@ -51,12 +57,20 @@ ORDER = "PCCP"
 B3_SHAPE = (4, 2048, 16, 2, 128)   # B, S, H, Hkv, D: qwen2.5-3b's prefill
 B5_SHAPE = (4, 2048, 48, 64, 1, 128)  # B, S, H, P, G, N: mamba2-780m's
 SSM_ARCH = "mamba2-780m"
+HYBRID_ARCH = "hymba-1.5b"
+# B10's kernels in either tree: the parent's ssd_scan_bwd_kernel and
+# ssd_bwd_group_kernel, the four ssd_bwd_* passes since
+B10_NAMES = ("ssd_scan_bwd", "ssd_bwd_")
+# the training paths that run B10: (phase, arch, key in the summary)
+SSD_TRAIN = (("train_ssm_full", SSM_ARCH, "train_ssm"),
+             ("train_hybrid_full", HYBRID_ARCH, "train_hybrid"))
 
 
 def same_code(tree: str) -> dict:
     """B3 of ``tree``'s port in float32 at ``B3_SHAPE``, its B5 in float32
-    at ``B5_SHAPE`` and its K2 at the sweep's four shapes, by this
-    checkout's ``chip_smoke.time_b3``, ``time_b5`` and ``time_k2``."""
+    at ``B5_SHAPE``, its K2 at the sweep's four shapes and its B10 in bf16
+    at the training paths' shapes, by this checkout's
+    ``chip_smoke.time_b3``, ``time_b5`` and ``time_k2`` and ``time_b10``."""
     import chip_smoke  # this checkout's: the same timing code for both
     sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
     import numpy as np
@@ -83,7 +97,25 @@ def same_code(tree: str) -> dict:
     shapes = chip_smoke.k2_port_shapes(torch.device("cuda"))
     return {"port": os.path.dirname(repro_torch.__file__), "b3_float32": b3,
             "b5_float32": b5,
-            "k2": chip_smoke.time_k2(shapes, np.random.default_rng(0))}
+            "k2": chip_smoke.time_k2(shapes, np.random.default_rng(0)),
+            "b10_bfloat16": time_b10()}
+
+
+def time_b10() -> dict:
+    """Device µs a call of the imported port's B10 at the training paths'
+    shapes in bf16: every kernel the call puts on the card, whatever the
+    tree names them."""
+    import torch
+    import chip_smoke
+    from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd
+    out = {}
+    for arch, shape in chip_smoke.B10_MODEL_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        args = chip_smoke.b10_inputs(gen, shape, torch.bfloat16, "cuda")
+        out[arch] = chip_smoke.kernel_device_us(
+            lambda: ssd_scan_bwd(*args))
+        del args
+    return out
 
 
 def _smoke_numbers(lines: list[str]) -> dict:
@@ -188,6 +220,20 @@ def _smoke_numbers(lines: list[str]) -> dict:
     out["profile_train"] = {k: pt.get(k) for k in (
         "wall_s_profiled", "device_busy_s", "device_idle_share",
         "b9_device_us_per_call", "hand_kernels")}
+    b10 = kernels.get("b10", {}).get("model_shapes", {})
+    out["b10"] = {arch: {dn: {k: rec.get(k) for k in (
+        "ms", "device_us", "bound_ms", "rel_l2", "scaled_err")}
+        for dn, rec in recs.items()} for arch, recs in b10.items()}
+    for phase, arch, key in SSD_TRAIN:
+        tr = phases.get(phase, [{}])[0]
+        out[key] = {k: tr.get(k) for k in (
+            "steady_s_per_step", "tokens_per_s", "mfu", "peak_memory_bytes",
+            "launches_per_step")}
+        prof = [p for p in phases.get("profile_train", [])
+                if p.get("arch") == arch]
+        out[f"profile_{key}"] = {k: prof[0].get(k) for k in (
+            "wall_s_profiled", "device_busy_s", "device_idle_share",
+            "b10_device_us_per_call", "hand_kernels")} if prof else {}
     return out
 
 
@@ -196,6 +242,14 @@ def b9_train_share(prof: dict) -> float:
     every profiled kernel whose name holds ``attention_bwd``."""
     us = sum(v["device_us_total"] for k, v in prof["hand_kernels"].items()
              if "attention_bwd" in k)
+    return us / (1e6 * prof["device_busy_s"])
+
+
+def b10_train_share(prof: dict) -> float:
+    """B10's share of a profiled training step's device busy time: every
+    profiled kernel whose name holds one of ``B10_NAMES``."""
+    us = sum(v["device_us_total"] for k, v in prof["hand_kernels"].items()
+             if any(n in k for n in B10_NAMES))
     return us / (1e6 * prof["device_busy_s"])
 
 
@@ -357,7 +411,28 @@ def main() -> int:
         "train_b9_share_of_busy": series(
             lambda r: b9_train_share(r["smoke"]["profile_train"])),
         "train_device_busy_s": series(
-            lambda r: r["smoke"]["profile_train"]["device_busy_s"])}}
+            lambda r: r["smoke"]["profile_train"]["device_busy_s"]),
+        **{f"b10_{arch}_{dn}_{k}": series(
+            lambda r, a=arch, dn=dn, k=k: r["smoke"]["b10"][a][dn][k])
+           for arch in (SSM_ARCH, HYBRID_ARCH)
+           for dn in ("bfloat16", "float32")
+           for k in ("ms", "device_us", "bound_ms")},
+        **{f"b10_{arch}_bfloat16_device_us_same_code": series(
+            lambda r, a=arch: r["same_code"]["b10_bfloat16"][a])
+           for arch in (SSM_ARCH, HYBRID_ARCH)},
+        **{f"{key}_{k}": series(lambda r, key=key, k=k: r["smoke"][key][k])
+           for _, _, key in SSD_TRAIN
+           for k in ("steady_s_per_step", "tokens_per_s", "mfu",
+                     "peak_memory_bytes")},
+        **{f"{key}_b10_device_us_per_call": series(
+            lambda r, key=key: r["smoke"][f"profile_{key}"][
+                "b10_device_us_per_call"]) for _, _, key in SSD_TRAIN},
+        **{f"{key}_b10_share_of_busy": series(
+            lambda r, key=key: b10_train_share(r["smoke"][f"profile_{key}"]))
+           for _, _, key in SSD_TRAIN},
+        **{f"{key}_device_busy_s": series(
+            lambda r, key=key: r["smoke"][f"profile_{key}"]["device_busy_s"])
+           for _, _, key in SSD_TRAIN}}}
     first = summary["metrics"]["train_first_loss"]
     summary["train_first_loss_bit_identical"] = (
         None not in first and len(set(first)) == 1)

@@ -3172,13 +3172,22 @@ TRAIN_PARITY = {
 
 # B10, the SSD scan's backward
 SSD_BWD_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu"
-B10_KERNELS = ("ssd_scan_bwd_kernel", "ssd_bwd_group_kernel")
+# its four kernels, each launched once a call: the chunk-local pass, the
+# state walks, the chunk gradients, the group and chunk sums
+B10_KERNELS = ("ssd_bwd_chunk_kernel", "ssd_bwd_walk_kernel",
+               "ssd_bwd_grad_kernel", "ssd_bwd_group_kernel")
 # (B, S, nh, hd, G, N) at the training paths' shapes (one microbatch)
 B10_MODEL_SHAPES = {SSM_ARCH: (1, 2048, 48, 64, 1, 128),
                     HYBRID_ARCH: (1, 4096, 50, 64, 1, 16)}
-# and a ragged S with G = 2, and the strong-decay case
-B10_CASES = (("ragged_g2", (2, 1000, 4, 32, 2, 64), False),
-             ("strong_decay", (2, 130, 4, 16, 2, 16), True))
+# (name, shape, strong decay, with the final state's gradient): a ragged S
+# with G = 2, the strong-decay case, the state's gradient (which seeds the
+# reverse state walk) at mamba2's shape and the ragged one, and 128 chunks
+# at hymba's widths (the longest state walks)
+B10_CASES = (("ragged_g2", (2, 1000, 4, 32, 2, 64), False, False),
+             ("strong_decay", (2, 130, 4, 16, 2, 16), True, False),
+             ("mamba2_dstate", (1, 2048, 48, 64, 1, 128), False, True),
+             ("ragged_g2_dstate", (2, 1000, 4, 32, 2, 64), False, True),
+             ("long_128_chunks", (1, 8192, 50, 64, 1, 16), False, False))
 # B10 vs its plain version (autograd through B5's plain version on the
 # CPU copies, float32): max |kernel - plain| / max |plain| per gradient;
 # dA alone at 1e-3. dA sums dt da over every position of a head, each da
@@ -3373,10 +3382,11 @@ def b10_bound(B, S, H, P, G, N, dtype) -> tuple[float, str]:
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
-def b10_inputs(gen, shape, dtype, dev, strong=False):
-    """x, dt, A, B, C, dy at ``shape`` (B, S, nh, hd, G, N): dt a softplus
-    of a normal draw and A in [-16, -1] (mamba2's init range), or, with
-    ``strong``, dt ~ 10 and A = -16 (nothing survives a step)."""
+def b10_inputs(gen, shape, dtype, dev, strong=False, state=False):
+    """x, dt, A, B, C, dy, dstate at ``shape`` (B, S, nh, hd, G, N): dt a
+    softplus of a normal draw and A in [-16, -1] (mamba2's init range), or,
+    with ``strong``, dt ~ 10 and A = -16 (nothing survives a step); dstate
+    a normal draw with ``state``, else None."""
     import torch
     import torch.nn.functional as F
     Bz, S, H, P, G, N = shape
@@ -3391,38 +3401,40 @@ def b10_inputs(gen, shape, dtype, dev, strong=False):
     B, C = ((0.3 * torch.randn((Bz, S, G, N), generator=gen, device=dev))
             .to(dtype) for _ in range(2))
     dy = torch.randn((Bz, S, H, P), generator=gen, device=dev)
-    return x, dt, A, B, C, dy
+    dstate = torch.randn((Bz, H, P, N), generator=gen, device=dev) \
+        if state else None
+    return x, dt, A, B, C, dy, dstate
 
 
 def check_ssd_bwd_kernel(dev) -> dict:
     """B10 against its plain version (on the CPU copies of the same
-    inputs, float32): at mamba2's and hymba's training shapes, a ragged S
-    with G = 2 and the strong-decay case, float32 and bf16: every gradient
+    inputs, float32): at mamba2's and hymba's training shapes and
+    ``B10_CASES``, float32 and bf16: every gradient
     within ``B10_SCALED_TOL`` of its largest value (the bf16 route's
     float32 outputs ddt, dA too), bf16 dx, dB, dC within
     ``B10_REL_L2_BF16`` relative L2 beside the control; a second call
     bit-identical. At the model shapes also timed beside its bound and
-    the plain version."""
+    the plain version, in all and kernel by kernel (device µs)."""
     import torch
     from repro_torch.kernels.flash_attention_bwd import _round_bits
     from repro_torch.kernels.ssd_scan_bwd import (ssd_scan_bwd,
                                                   ssd_scan_bwd_plain)
     gen = torch.Generator(device=dev).manual_seed(10)
-    cases = [(a, shape, False) for a, shape in B10_MODEL_SHAPES.items()] \
-        + list(B10_CASES)
+    cases = [(a, shape, False, False) for a, shape in
+             B10_MODEL_SHAPES.items()] + list(B10_CASES)
     out = {"cases": {}, "max_abs_err": {}, "model_shapes": {}}
-    for name, shape, strong in cases:
+    for name, shape, strong, state in cases:
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[-1]
             what = f"ssd_scan_bwd[{name}, {dn}]"
-            args = b10_inputs(gen, shape, dtype, dev, strong)
+            args = b10_inputs(gen, shape, dtype, dev, strong, state)
             got = ssd_scan_bwd(*args)
             again = ssd_scan_bwd(*args)
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{what}: a second call is not bit-identical")
-            cpu = [t.cpu().float() if t.dtype == torch.bfloat16 else t.cpu()
-                   for t in args]
+            cpu = [None if t is None else t.cpu().float()
+                   if t.dtype == torch.bfloat16 else t.cpu() for t in args]
             t0 = time.perf_counter()
             want = ssd_scan_bwd_plain(*cpu)
             plain_s = time.perf_counter() - t0
@@ -3468,6 +3480,9 @@ def check_ssd_bwd_kernel(dev) -> dict:
                                       "dtype": str(dtype)},
                             "ms": event_ms(run, 5, warmup=1),
                             "device_us": kernel_device_us(run, B10_KERNELS),
+                            "kernel_device_us": {
+                                k: kernel_device_us(run, k)
+                                for k in B10_KERNELS},
                             "plain_ms": plain_s * 1e3,
                             "plain_note": "the plain version on the CPU "
                                           "copies of the inputs",
@@ -4482,9 +4497,10 @@ def main() -> int:
         "shape": b10m["shape"], "rel_l2": b10m["rel_l2"],
         "control_rel_l2": b10m["control_rel_l2"],
         "model_shapes": {a: {dn: {k: r[k] for k in (
-            "shape", "ms", "device_us", "plain_ms", "bound_ms", "bound_by",
-            "scaled_err", "rel_l2")} for dn, r in b10["model_shapes"][
-                a].items()} for a in b10["model_shapes"]},
+            "shape", "ms", "device_us", "kernel_device_us", "plain_ms",
+            "bound_ms", "bound_by", "scaled_err", "rel_l2")}
+            for dn, r in b10["model_shapes"][a].items()}
+            for a in b10["model_shapes"]},
         "tolerance": f"max |kernel - plain| / max |plain| <= "
                      f"{B10_SCALED_TOL} per gradient (float32; ddt and dA "
                      f"on the bf16 route); bf16 dx, dB, dC relative L2 <= "

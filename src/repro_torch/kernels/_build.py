@@ -81,7 +81,8 @@ def _bind_ssd_scan_bwd(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.ssd_scan_bwd_launch.argtypes = [
         i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
+        ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+        ptr, ptr, ptr]
     lib.ssd_scan_bwd_launch.restype = ctypes.c_int
 
 

@@ -1,6 +1,7 @@
 // Tensor-core and asynchronous-copy building blocks shared by the bf16
-// kernels (attention.cu, attention_bwd.cu, gated_matmul.cu, ssd_scan.cu):
-// ldmatrix, mma.sync m16n8k16 bf16 -> float32, TMA tile loads into shared
+// kernels (attention.cu, attention_bwd.cu, gated_matmul.cu, ssd_scan.cu,
+// ssd_scan_bwd.cu): ldmatrix, mma.sync m16n8k16 bf16 -> float32, an L2
+// prefetch, TMA tile loads into shared
 // memory with their mbarriers, and the host call that encodes a TMA tensor
 // map; the 1-D bulk copy of program_plane.cu's event ring; and the
 // attention kernels' shared-memory tile layout (tile64). Nothing here
@@ -70,6 +71,12 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi)
 {
     const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the 128-byte line at p on its way into L2 (no register, no wait)
+__device__ __forceinline__ void prefetch_l2(const void* p)
+{
+    asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
 }
 
 // ---- Hopper's tensor memory accelerator (TMA) and its mbarriers ----------

@@ -6,23 +6,29 @@ Replaces no Pallas kernel: the JAX package trains its SSD layers through
 keeps nothing for a backward; B10 takes B5's inputs and the gradient of
 its output y (and, when given, of its final state) and returns dx, ddt,
 dA, dB, dC. The kernel, its bound and the reasons for its design are in
-``csrc/ssd_scan_bwd.cu``; in short: one block per (head, batch) walks the
-chunks forward to recompute the state entering each one, then in reverse
-with the state's gradient on the chip; the products run in float32 on the
-CUDA cores (bf16 inputs widened on load); every sum in a fixed order and
-no float atomic, so a result is the same from run to run (the training
-loop's bit-exact resume rests on it); dB and dC are summed over a group's
-heads in head order by a second kernel.
+``csrc/ssd_scan_bwd.cu``; in short, four kernels, each a pass over the
+chunks of 64 positions, chunk-parallel (Mamba-2's chunked algorithm):
+(1) per (chunk, head) the in-chunk cumsum and the chunk's own contribution
+to the state s_c and to the state's gradient d_c; (2) the only serial part, two elementwise walks over the
+chunks that turn s_c into the state entering each chunk and d_c into the
+gradient of the state leaving it (the final state's gradient seeds the
+reverse walk); (3) per (chunk, head) every gradient of the chunk from
+those two alone; (4) dB and dC summed over a group's heads in head order,
+dA over the chunks in chunk order. The bf16 route's products run on the
+tensor cores (``mma.sync``, float32 operands as bf16 hi/lo pairs), the
+float32 route's on the CUDA cores; every sum in a fixed order and no float
+atomic, so a result is the same from run to run (the training loop's
+bit-exact resume rests on it). The workspaces are float32 tensors the
+wrapper allocates (``WORKSPACES``).
 
 ``ssd_scan_bwd`` launches the kernels for CUDA tensors and evaluates
 ``ssd_scan_bwd_plain`` for CPU tensors; nothing else selects between
 them, and a kernel that fails to build or launch raises.
 ``ssd_scan_bwd.launches`` counts wrapper calls that launched (one a call:
-its two kernels count once).
+its four kernels count once).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -70,9 +76,10 @@ def ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate=None):
                  for t in leaves)
 
 
-def _launch(lib, x, dt, A, B, C, dy, dstate, dx, ddt, dA, dB, dC, dB_ws,
-            dC_ws, states, *, stream: int) -> int:
-    """One call of the C launcher; the arguments are already checked."""
+def _launch(lib, x, dt, A, B, C, dy, dstate, dx, ddt, dA, dB, dC, ws, *,
+            stream: int) -> int:
+    """One call of the C launcher; the arguments are already checked and
+    ``ws`` holds the float32 workspaces (``_workspaces``)."""
     Bz, S, H, P = x.shape
     G, N = B.shape[2], B.shape[3]
     return lib.ssd_scan_bwd_launch(
@@ -80,9 +87,24 @@ def _launch(lib, x, dt, A, B, C, dy, dstate, dx, ddt, dA, dB, dC, dB_ws,
         A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
         None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
         ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        dB_ws.data_ptr(), dC_ws.data_ptr(), states.data_ptr(), Bz, S, H, G, P,
-        N, _st(x, (0, 1, 2)), _st(dt, (0, 1, 2)), _st(A, (0, 1)),
+        *(ws[k].data_ptr() for k in WORKSPACES), Bz, S, H, G, P, N,
+        _st(x, (0, 1, 2)), _st(dt, (0, 1, 2)), _st(A, (0, 1)),
         _st(B, (0, 1, 2)), _st(C, (0, 1, 2)), stream)
+
+
+#: the kernels' float32 workspaces, in the launcher's order: dB and dC per
+#: head (B, S, H, N); s_c / h_c and d_c / dH_c per chunk (B, H, nc, P, N);
+#: the in-chunk cumsums (B, H, nc * 64); each chunk's sum dt da (B, H, nc)
+WORKSPACES = ("dB_ws", "dC_ws", "states", "dstates", "cum", "da")
+
+
+def _workspaces(Bz, S, H, P, N, dev) -> dict:
+    nc = -(-S // CHUNK)
+    shapes = {"dB_ws": (Bz, S, H, N), "dC_ws": (Bz, S, H, N),
+              "states": (Bz, H, nc, P, N), "dstates": (Bz, H, nc, P, N),
+              "cum": (Bz, H, nc * CHUNK), "da": (Bz, H, nc)}
+    return {k: torch.empty(shapes[k], dtype=torch.float32, device=dev)
+            for k in WORKSPACES}
 
 
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -113,17 +135,13 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA = torch.empty((Bz, H), dtype=torch.float32, device=dev)
     dB = torch.empty((Bz, S, G, N), dtype=x.dtype, device=dev)
     dC = torch.empty_like(dB)
-    if Bz == 0 or H == 0:  # a zero-size grid is a launch error
-        return dx, ddt, dA.zero_(), dB.zero_(), dC.zero_()
-    dB_ws = torch.empty((Bz, S, H, N), dtype=torch.float32, device=dev)
-    dC_ws = torch.empty_like(dB_ws)
-    states = torch.empty((Bz, H, -(-S // CHUNK), P, N), dtype=torch.float32,
-                         device=dev)
+    if Bz * S * H == 0:  # a zero-size grid is a launch error
+        return dx, ddt.zero_(), dA.zero_(), dB.zero_(), dC.zero_()
+    ws = _workspaces(Bz, S, H, P, N, dev)
     lib = _build.load("ssd_scan_bwd")
     with torch.cuda.device(dev):
         err = _launch(lib, x, dt, A, B, C, dy, dstate, dx, ddt, dA, dB, dC,
-                      dB_ws, dC_ws, states,
-                      stream=torch.cuda.current_stream(dev).cuda_stream)
+                      ws, stream=torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
     return dx, ddt, dA, dB, dC

@@ -1360,25 +1360,32 @@ def _ssd_bwd_inputs(card, Bz, S, H, P, G, N, dtype, seed, strong=False):
     return [t.to(card) for t in (x, dt, A, B, C, dy)]
 
 
+@pytest.mark.parametrize("state", [False, True], ids=["no_dstate",
+                                                      "dstate"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 200, 4, 64, 1, 128, False),
                                    (2, 130, 4, 16, 2, 16, True),
                                    (1, 64, 2, 32, 1, 32, False)], ids=str)
-def test_ssd_bwd_kernel_matches_plain(card, dtype, shape):
-    """B10 against autograd through B5's plain version on the CPU copies:
-    every gradient within 1e-4 of its largest value (float32 route and
-    the float32 outputs of the bf16 one; dA 1e-3, see chip_smoke.py's
-    SSD_BWD_TOL), bf16 dx / dB / dC within 4e-3 relative L2; a second
-    call bit-identical."""
+def test_ssd_bwd_kernel_matches_plain(card, dtype, shape, state):
+    """B10 against autograd through B5's plain version on the CPU copies,
+    with and without the final state's gradient (which seeds the
+    kernel's reverse state walk): every gradient within 1e-4 of its
+    largest value (float32 route and the float32 outputs of the bf16 one;
+    dA 1e-3, see chip_smoke.py's B10_SCALED_TOL), bf16 dx / dB / dC
+    within 4e-3 relative L2; a second call bit-identical."""
     *dims, strong = shape
     x, dt, A, B, C, dy = _ssd_bwd_inputs(card, *dims, dtype, 3, strong)
+    Bz, _, H, P, _, N = dims
+    dstate = torch.tensor(np.random.default_rng(4).standard_normal(
+        (Bz, H, P, N)), dtype=torch.float32).to(card) if state else None
     before = ssd_scan_bwd.launches
-    got = ssd_scan_bwd(x, dt, A, B, C, dy)
-    again = ssd_scan_bwd(x, dt, A, B, C, dy)
+    got = ssd_scan_bwd(x, dt, A, B, C, dy, dstate)
+    again = ssd_scan_bwd(x, dt, A, B, C, dy, dstate)
     assert ssd_scan_bwd.launches == before + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = ssd_scan_bwd_plain(*(t.cpu().float() if t.dtype == torch.bfloat16
-                                else t.cpu() for t in (x, dt, A, B, C, dy)))
+                                else t.cpu() for t in (x, dt, A, B, C, dy)),
+                              None if dstate is None else dstate.cpu())
     for name, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
         a = a.float().cpu()
         if dtype == torch.bfloat16 and name in ("dx", "dB", "dC"):

@@ -14,6 +14,15 @@ JAX package's, on the CPU.
   1e-5 to 1.5e-4 from a float64 recurrence, and from each other (measured
   at most 1.5e-4); ``test_da_is_float32s_own_error`` shows the port's and
   the reference's distance to float64 side by side.
+* The kernel's four passes (``csrc/ssd_scan_bwd.cu``), written out in
+  float64 (``_four_passes``): the chunk-local states s_c and state
+  gradients d_c, the forward and reverse state walks (the reverse one
+  seeded by the final state's gradient), each chunk's gradients from its
+  entering state and leaving gradient alone, and dA summed in chunk
+  order -- against ``jax.vjp`` of the reference and against B10's plain
+  version, at ``CASES`` and at 10 chunks, with and without the state's
+  gradient, within the tolerances above (the float64 result is the
+  exact one; the float32 references sit within them of it).
 * ``KernelSSD`` (the card's autograd function: B5 forward, B10 backward),
   run here on CPU tensors, whose wrappers take their plain versions,
   gives autograd's gradients bit for bit.
@@ -148,6 +157,137 @@ def _f64_grads(x, dt, A, B, C, dy):
         ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
     torch.stack(ys, 1).backward(torch.from_numpy(dy).double())
     return [t.grad.numpy() for t in (x, dt, A, B, C)]
+
+
+def _four_passes(x, dt, A, B, C, dy, dh, Q=64):
+    """dx, ddt, dA (per batch row), dB, dC of the chunked scan for the
+    gradients dy and dh (None: zero), computed in float64 as B10's kernels
+    split the work: (1) per chunk its cumsum, s_c = sum_s exp(e - cum_s)
+    dt_s x_s B_s^T and d_c = sum_t exp(cum_t) dy_t C_t^T; (2) the walks
+    h_{c+1} = exp(e_c) h_c + s_c from 0 and dH_{c-1} = exp(e_c) dH_c + d_c
+    from dh; (3) each chunk's gradients from h_c and dH_c alone; (4) dB,
+    dC summed over a group's heads and dA over the chunks in order."""
+    f = {k: torch.from_numpy(np.asarray(v)).double() for k, v in dict(
+        x=x, dt=dt, B=B, C=C, dy=dy).items()}
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    rep, nc = H // G, -(-S // Q)
+    pad = nc * Q - S
+
+    def chunks(t):  # (Bz, S, H, ...) -> (Bz, H, nc, Q, ...), rows past S 0
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        t = t.reshape(Bz, nc, Q, *t.shape[2:])
+        return t.movedim(3, 1)
+
+    X, Y = chunks(f["x"]), chunks(f["dy"])
+    dtc = chunks(f["dt"][..., None])[..., 0]
+    Bc, Cc = (chunks(f[k].repeat_interleave(rep, 2)) for k in ("B", "C"))
+    Ah = torch.as_tensor(np.asarray(A), dtype=torch.float64).reshape(
+        -1, H).expand(Bz, H)[:, :, None, None]
+    # (1) the chunk-local pass
+    cum = torch.cumsum(dtc * Ah, -1)
+    e = cum[..., -1]
+    eend, ecum = torch.exp(e[..., None] - cum), torch.exp(cum)
+    s_loc = torch.einsum("bhcs,bhcsp,bhcsn->bhcpn", eend * dtc, X, Bc)
+    d_loc = torch.einsum("bhct,bhctp,bhctn->bhcpn", ecum, Y, Cc)
+    # (2) the state walks
+    h = torch.zeros_like(s_loc)
+    dH = torch.zeros_like(d_loc)
+    run = torch.zeros_like(s_loc[:, :, 0])
+    for c in range(nc):
+        h[:, :, c] = run
+        run = torch.exp(e[:, :, c])[..., None, None] * run + s_loc[:, :, c]
+    run = torch.zeros_like(run) if dh is None else \
+        torch.from_numpy(np.asarray(dh)).double()
+    for c in reversed(range(nc)):
+        dH[:, :, c] = run
+        run = torch.exp(e[:, :, c])[..., None, None] * run + d_loc[:, :, c]
+    # (3) each chunk's gradients
+    tril = torch.tril(torch.ones(Q, Q, dtype=torch.bool))
+    L = torch.exp(torch.where(tril, cum[..., :, None] - cum[..., None, :],
+                              torch.tensor(-torch.inf, dtype=torch.float64)))
+    Gm = torch.einsum("bhctn,bhcsn->bhcts", Cc, Bc)
+    Wm = torch.einsum("bhctp,bhcsp->bhcts", Y, X)
+    GL, M = Gm * L, Wm * dtc[..., None, :] * L
+    R = Gm * M
+    f_ = torch.einsum("bhcsn,bhcpn->bhcsp", Bc, dH)
+    du = torch.einsum("bhcts,bhctp->bhcsp", GL, Y) + eend[..., None] * f_
+    hy = torch.einsum("bhctp,bhcpn->bhctn", Y, h)
+    dC_h = torch.einsum("bhcts,bhcsn->bhctn", M, Bc) + ecum[..., None] * hy
+    dB_h = torch.einsum("bhcts,bhctn->bhcsn", M, Cc) + (eend * dtc)[
+        ..., None] * torch.einsum("bhcsp,bhcpn->bhcsn", X, dH)
+    z = eend * dtc * (X * f_).sum(-1)
+    dcum = R.sum(-1) - R.sum(-2) + ecum * (Cc * hy).sum(-1) - z
+    dcum[..., -1] += z.sum(-1) + torch.exp(e) * (dH * h).sum((-1, -2))
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), -1), [-1])
+    ddt = Ah * da + (X * du).sum(-1)
+    dA = torch.zeros((Bz, H), dtype=torch.float64)
+    for c in range(nc):  # (4) dA in chunk order
+        dA += (dtc[:, :, c] * da[:, :, c]).sum(-1)
+
+    def unchunk(t):  # (Bz, H, nc, Q, ...) -> (Bz, S, H, ...)
+        t = t.movedim(1, 3).reshape(Bz, nc * Q, H, *t.shape[4:])
+        return t[:, :S]
+
+    def group(t):  # (4) a group's heads summed, in head order
+        t = unchunk(t).reshape(Bz, S, G, rep, N)
+        out = t[:, :, :, 0]
+        for k in range(1, rep):
+            out = out + t[:, :, :, k]
+        return out
+
+    return [unchunk(dtc[..., None] * du).numpy(), unchunk(ddt[..., None])[
+        ..., 0].numpy(), dA.numpy(), group(dB_h).numpy(),
+        group(dC_h).numpy()]
+
+
+# the kernel's chunk count past 8: 10 chunks of 64, the last ragged
+LONG_CASE = ((1, 620, 2, 16, 1, 16), False, False)
+
+
+@pytest.mark.parametrize("ref", ["jax_vjp", "plain"])
+@pytest.mark.parametrize("state", [False, True], ids=["no_dstate",
+                                                      "dstate"])
+@pytest.mark.parametrize("case", CASES + [LONG_CASE], ids=str)
+def test_four_passes_match_the_references(case, state, ref):
+    """B10's decomposition in float64 against ``jax.vjp`` of the
+    reference's chunked scan and against B10's plain version, each in
+    float32: dx, ddt, dB, dC within ``GRAD_TOL`` relative L2, dA within
+    ``DA_TOL``. With strong decay the exact dA is ~exp(-160): the float64
+    one must be below 1e-30 of ddt's scale, and a reference's float32 dA,
+    which is the rounding residue of differences of in-chunk cumsums
+    (0 without the state's gradient; ~1.5e-4 with it, from B10's plain
+    version), within one float32 ulp of the largest cumsum, 2^-23 x 64 x
+    max(dt) x max|A| (~1.2e-3)."""
+    shape, strong, _ = case
+    x, dt, A, B, C, dy, dh = _inputs(*shape, strong=strong, seed=7)
+    got = _four_passes(x, dt, A, B, C, dy, dh if state else None)
+    got[2] = got[2].sum(0)  # A is the model's (nh,) vector over the batch
+    if ref == "jax_vjp":
+        want = _jax_grads(x, dt, A, B, C, dy,
+                          dh if state else np.zeros_like(dh))
+    else:
+        want = _port_grads(x, dt, A, B, C, dy, dh, state=state)
+    for name, a, w in zip(NAMES, got, want):
+        assert a.shape == w.shape, name
+        if name == "dA" and strong:
+            cum_max = 64 * float(dt.max()) * float(np.abs(A).max())
+            assert np.abs(w).max() <= 2.0 ** -23 * cum_max
+            assert np.abs(a).max() <= 1e-30 * np.abs(got[1]).max()
+            continue
+        tol = DA_TOL if name == "dA" else GRAD_TOL
+        assert _rel(a, w) <= tol, (name, _rel(a, w))
+
+
+def test_four_passes_match_float64_recurrence():
+    """The decomposition against autograd of the sequential recurrence,
+    both float64, over 10 chunks: every gradient within 1e-10 relative
+    L2 -- the split into passes is exact algebra."""
+    x, dt, A, B, C, dy, dh = _inputs(*LONG_CASE[0], seed=8)
+    got = _four_passes(x, dt, A, B, C, dy, None)
+    got[2] = got[2].sum(0)
+    for name, a, w in zip(NAMES, got, _f64_grads(x, dt, A, B, C, dy)):
+        assert _rel(a, w) <= 1e-10, (name, _rel(a, w))
 
 
 def test_da_is_float32s_own_error():

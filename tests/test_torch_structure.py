@@ -375,7 +375,7 @@ def test_bf16_kernels_share_the_tensor_core_header(tmp_path, monkeypatch):
     csrc = PKG / "kernels" / "csrc"
     header = csrc / "mma_bf16.cuh"
     for source in ("attention.cu", "attention_bwd.cu", "gated_matmul.cu",
-                   "ssd_scan.cu"):
+                   "ssd_scan.cu", "ssd_scan_bwd.cu"):
         cu = (csrc / source).read_text()
         assert '#include "mma_bf16.cuh"' in cu
         assert "asm" not in cu  # every PTX instruction is in the header
