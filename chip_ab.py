@@ -27,7 +27,13 @@ hymba-1.5b's training shapes in both types (``kernels``: ms, device µs
 over all its kernels, bound), ``train_ssm_full`` and
 ``train_hybrid_full`` (steady s/step, tokens/s, MFU, peak memory) and
 their ``profile_train`` steps (B10's device µs a call and its share of
-the busy time, every profiled kernel of B10's: ``B10_NAMES``). Four
+the busy time, every profiled kernel of B10's: ``B10_NAMES``); for the
+MoE families B9 at multi-head latent attention's (192, 128) at
+deepseek-v2's training microbatch in both types (``kernels.b9_mla``: ms,
+device µs, bound, the ``sdpa`` backward's ms, bf16 relative L2),
+``train_moe_full`` and ``train_mla_full`` (steady s/step, tokens/s, MFU
+on the active parameters, peak memory) and deepseek's ``profile_train``
+step (B9's device µs a call and its share of the busy time). Four
 metrics are then timed for both trees by the same code, in a process of
 its own,
 
@@ -64,6 +70,11 @@ B10_NAMES = ("ssd_scan_bwd", "ssd_bwd_")
 # the training paths that run B10: (phase, arch, key in the summary)
 SSD_TRAIN = (("train_ssm_full", SSM_ARCH, "train_ssm"),
              ("train_hybrid_full", HYBRID_ARCH, "train_hybrid"))
+MOE_ARCH = "granite-moe-1b-a400m"
+MLA_ARCH = "deepseek-v2-236b"
+# the MoE families' training paths: (phase, arch, key in the summary)
+MOE_TRAIN = (("train_moe_full", MOE_ARCH, "train_moe"),
+             ("train_mla_full", MLA_ARCH, "train_mla"))
 
 
 def same_code(tree: str) -> dict:
@@ -224,6 +235,20 @@ def _smoke_numbers(lines: list[str]) -> dict:
     out["b10"] = {arch: {dn: {k: rec.get(k) for k in (
         "ms", "device_us", "bound_ms", "rel_l2", "scaled_err")}
         for dn, rec in recs.items()} for arch, recs in b10.items()}
+    b9_mla = phases.get("kernels.b9_mla", [{}])[0].get("model_shape", {})
+    out["b9_mla"] = {dn: {k: rec.get(k) for k in (
+        "ms", "device_us", "bound_ms", "library_ms", "rel_l2",
+        "control_rel_l2")} for dn, rec in b9_mla.items()}
+    for phase, arch, key in MOE_TRAIN:
+        tr = phases.get(phase, [{}])[0]
+        out[key] = {k: tr.get(k) for k in (
+            "steady_s_per_step", "tokens_per_s", "mfu", "peak_memory_bytes",
+            "launches_per_step")}
+    prof = [p for p in phases.get("profile_train", [])
+            if p.get("arch") == MLA_ARCH]
+    out["profile_train_mla"] = {k: prof[0].get(k) for k in (
+        "wall_s_profiled", "device_busy_s", "device_idle_share",
+        "b9_device_us_per_call", "hand_kernels")} if prof else {}
     for phase, arch, key in SSD_TRAIN:
         tr = phases.get(phase, [{}])[0]
         out[key] = {k: tr.get(k) for k in (
@@ -432,7 +457,24 @@ def main() -> int:
            for _, _, key in SSD_TRAIN},
         **{f"{key}_device_busy_s": series(
             lambda r, key=key: r["smoke"][f"profile_{key}"]["device_busy_s"])
-           for _, _, key in SSD_TRAIN}}}
+           for _, _, key in SSD_TRAIN},
+        **{f"b9_mla_{dn}_{k}": series(lambda r, dn=dn, k=k: r["smoke"][
+            "b9_mla"][dn][k]) for dn in ("bfloat16", "float32")
+           for k in ("ms", "device_us", "bound_ms", "library_ms")},
+        "b9_mla_bfloat16_rel_l2_max": series(
+            lambda r: max(r["smoke"]["b9_mla"]["bfloat16"]["rel_l2"]
+                          .values())),
+        **{f"{key}_{k}": series(lambda r, key=key, k=k: r["smoke"][key][k])
+           for _, _, key in MOE_TRAIN
+           for k in ("steady_s_per_step", "tokens_per_s", "mfu",
+                     "peak_memory_bytes")},
+        "train_mla_b9_device_us_per_call": series(
+            lambda r: r["smoke"]["profile_train_mla"][
+                "b9_device_us_per_call"]),
+        "train_mla_b9_share_of_busy": series(
+            lambda r: b9_train_share(r["smoke"]["profile_train_mla"])),
+        "train_mla_device_busy_s": series(
+            lambda r: r["smoke"]["profile_train_mla"]["device_busy_s"])}}
     first = summary["metrics"]["train_first_loss"]
     summary["train_first_loss_bit_identical"] = (
         None not in first and len(set(first)) == 1)

@@ -78,7 +78,22 @@ path, read just after) that each path really went through its kernels:
   prefill, the absorbed decode plain), the same batch, prompt and checks
   (decode vs forward and card vs CPU over the tokens routed alike by
   both runs; deepseek's parity with 16 routed experts); B3 at (192, 128)
-  held to its plain version on its own (``kernels.b3_mla``).
+  held to its plain version on its own (``kernels.b3_mla``);
+* training the MoE families at full width through the port's training
+  path (bf16 on float32 masters, remat "full", 2 x 2 048 tokens in 2
+  microbatches, 4 steps): granite-moe-1b-a400m, all 24 layers, through
+  ``launch.train.run`` (exactly 96 B3 and 48 B9 a step), and
+  deepseek-v2-236b at every published width cut to 3 layers and 16
+  routed experts to fit one card, through the pieces ``run`` uses (12 B3
+  and 6 B9 a step: multi-head latent attention's backward, B9 at q/k 192
+  and v 128, held to its plain version in ``kernels.b9_mla``); each
+  beside its card-vs-CPU parity in float32 with the same routing on both
+  sides, two backward passes of a granite microbatch bit for bit, a
+  profiled deepseek step, and a bit-exact resume on reduced granite;
+* arrival-driven serving, ``repro_torch.launch.serve.serve_arrivals``:
+  qwen2.5-3b at full width behind a seeded Poisson trace (20 s in 5 s
+  epochs, batch 4), and a child process on the card sent SIGTERM
+  mid-trace, which must drain the wave in flight and write its report.
 
 It has no CPU route: no card, a failed build, a failed launch or a
 failed comparison each end the run with a non-zero exit code. Every
@@ -2400,7 +2415,8 @@ class RouteLog:
     ``blocks.moe_fwd`` call: the router's probabilities and top-K experts
     of each dispatched group, kept as the tensors the call made (no copy
     and no sync inside the run). ``tables()`` turns them, after the run,
-    into one host table per call, over the call's (B, S) tokens:
+    into one host table per call (a training pass logs the forward's and
+    remat's recompute's), over the call's (B, S) tokens:
     ``experts`` (B, S, K) in slot order, ``kept`` (B, S, K) (the
     capacity rule over each group's flat (token, slot) order), ``top``
     (B, S, K + 1) the largest probabilities, sorted."""
@@ -2416,7 +2432,7 @@ class RouteLog:
 
         def logged_route(tok, router, top_k):
             out = route(tok, router, top_k)
-            groups.append((out[0], out[2]))
+            groups.append((out[0].detach(), out[2]))
             return out
 
         def logged_fwd(p, x, cfg):
@@ -3146,9 +3162,27 @@ TRAIN_PATHS = (
                                           global_batch=4, microbatches=2,
                                           steps=4)))
 # the training paths profiled one step each (profile_train): the two that
-# run B10; a profile of a step with ~10-20 k launches costs tens of host
-# seconds
-PROFILED_TRAIN = (SSM_ARCH, HYBRID_ARCH)
+# run B10, and deepseek's, the one that runs B9 at (192, 128); a profile
+# of a step with ~10-20 k launches costs tens of host seconds
+PROFILED_TRAIN = (SSM_ARCH, HYBRID_ARCH, MLA_ARCH)
+# the MoE families' training paths at full width (train_moe_full,
+# train_mla_full): 2 x 2 048 tokens in 2 microbatches, remat "full", 4
+# steps. granite-moe-1b-a400m has all 24 layers; deepseek-v2-236b its
+# published widths cut to fit one card (TRAIN_CUT)
+TRAIN_MOE_PATHS = (
+    ("train_moe_full", MOE_ARCH, dict(seq_len=2048, global_batch=2,
+                                      microbatches=2, steps=4)),
+    ("train_mla_full", MLA_ARCH, dict(seq_len=2048, global_batch=2,
+                                      microbatches=2, steps=4)))
+# the configs a training path cuts from the published one, and why:
+# deepseek-v2-236b at 3 of 60 layers (the leading dense layer and 2 MoE
+# layers, as serve_mla_full) and 16 of 160 routed experts (top-6 and the 2
+# shared experts kept): 2.535 B parameters, ~41 GB of float32 masters,
+# gradients and AdamW's two moments; 160 experts would be 9.33 B, ~149 GB
+TRAIN_CUT = {MLA_ARCH: dict(n_layers=3, moe=dict(n_experts=16),
+                            reduced="depth 60 -> 3 layers (dense0 + 2 MoE), "
+                                    "routed experts 160 -> 16 (top-6 and "
+                                    "2 shared kept)")}
 # train_parity's cut per arch (2 layers at full width and a batch of 2 by
 # default). The SSD archs at 64 tokens: one chunk on both sides, where the
 # CPU's chunk rule (the reference's: one chunk of S up to 256) and B5 /
@@ -3162,6 +3196,14 @@ PROFILED_TRAIN = (SSM_ARCH, HYBRID_ARCH)
 # that the sequence slides past it; paligemma's 256 patches and 32 text
 # tokens, one sequence (its CPU leg, 257 k-entry logits, is the longest)
 TRAIN_PARITY = {
+    # granite at train_parity's defaults; deepseek's leading dense layer
+    # and 1 MoE layer of 16 routed experts at 64 tokens, and one step:
+    # three steps' leaf copies of a 5 120-wide, 102 400-vocab model would
+    # hold ~40 GB on the host
+    MLA_ARCH: dict(seq_len=64, batch=1, steps=1,
+                   config=dict(moe=dict(n_experts=16)),
+                   reduced="depth 60 -> 2 (dense0 + 1 MoE layer), routed "
+                           "experts 160 -> 16"),
     SSM_ARCH: dict(seq_len=64),
     HYBRID_ARCH: dict(seq_len=64, config=dict(n_layers=5,
                                               sliding_window=32),
@@ -3218,17 +3260,32 @@ B9_MASK_SHAPES = (
      False, None, 0))
 
 
-def b9_bound(B, S, H, Hkv, D, dtype, live=None) -> tuple[float, str]:
+# B9 at multi-head latent attention's (D, Dv) = (192, 128)
+# (kernels.b9_mla), (B, S, H, causal) with Hkv = H: deepseek-v2's training
+# microbatch (train_mla_full's), a ragged S, one token, and one
+# bidirectional case. Heads are independent, so the plain version on the
+# CPU is held to the first B9_MLA_PLAIN_HEADS heads: an eighth of the
+# microbatch's host work
+B9_MLA_CASES = ((1, 2048, 128, True), (2, 1000, 8, True), (2, 1, 4, True),
+                (1, 300, 8, False))
+B9_MLA_SHAPE = B9_MLA_CASES[0]
+B9_MLA_PLAIN_HEADS = 16
+
+
+def b9_bound(B, S, H, Hkv, D, dtype, live=None, Dv=None
+             ) -> tuple[float, str]:
     """Least time for the attention backward: q, k, v, o, do and lse read
-    once, dq, dk, dv written once; five matmuls over the live score
-    entries -- ``live`` per (batch, head) (a mask's live pairs), the
-    causal S(S+1)/2 by default -- at 2 D operations each (q k^T, dO V^T,
-    P^T dO, dS^T Q, dS K)."""
+    once, dq, dk, dv written once (q, k, dq, dk at head dim D; v, o, do, dv
+    at ``Dv``, D by default); five matmuls over the live score entries --
+    ``live`` per (batch, head) (a mask's live pairs), the causal S(S+1)/2
+    by default -- q k^T, dS^T Q and dS K at 2 D operations an entry, dO
+    V^T and P^T dO at 2 Dv."""
     import torch
+    Dv = D if Dv is None else Dv
     el = 2 if dtype == torch.bfloat16 else 4
-    nbytes = el * (4 * B * S * H * D + 4 * B * S * Hkv * D) + 4 * B * H * S
+    nbytes = el * (B * S * (H + Hkv) * (2 * D + 2 * Dv)) + 4 * B * H * S
     live = S * (S + 1) / 2 if live is None else live
-    flops = 5 * 2 * B * H * D * live
+    flops = 2 * B * H * (3 * D + 2 * Dv) * live
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
@@ -3497,21 +3554,27 @@ def check_ssd_bwd_kernel(dev) -> dict:
     return out
 
 
-def b9_masked_case(q, k, v, do, mask: dict, what: str, timed: bool) -> dict:
+def b9_masked_case(q, k, v, do, mask: dict, what: str, timed: bool,
+                   plain_heads=None) -> dict:
     """B9 on the card under ``mask`` against its plain version on the CPU
-    copies: float32 within ``B9_TOL_F32``; bf16 relative L2 within
-    ``B9_REL_L2_BF16`` in each of dq, dk, dv beside the control (P and dS
-    at ``B9_CONTROL_BITS``); a second call bit-identical. With ``timed``
-    also the times beside the live-pair bound and the backward of one
-    ``scaled_dot_product_attention`` under the same boolean mask."""
+    copies (of the first ``plain_heads`` heads only, where given: heads
+    are independent when H = Hkv): float32 within ``B9_TOL_F32``; bf16
+    relative L2 within ``B9_REL_L2_BF16`` in each of dq, dk, dv (S > 1)
+    beside the control (P and dS at ``B9_CONTROL_BITS``); B3's lse within
+    1e-4 of the plain version's; a second call bit-identical. With
+    ``timed`` also the times beside the live-pair bound and the backward
+    of one ``scaled_dot_product_attention`` under the same mask -- causal
+    order by its ``is_causal`` flag, another mask as the same boolean mask
+    -- or its error, where ``sdpa`` refuses the inputs."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
     from repro_torch.kernels.flash_attention_bwd import (
         flash_attention_bwd, flash_attention_bwd_plain)
     from repro_torch.kernels.ref import attention_mask
     B, S, H, D = q.shape
-    Hkv = k.shape[2]
+    Hkv, Dv = k.shape[2], v.shape[3]
     dtype = q.dtype
     o, lse = flash_attention(q, k, v, return_lse=True, **mask)
     got = flash_attention_bwd(q, k, v, o, lse, do, **mask)
@@ -3519,25 +3582,37 @@ def b9_masked_case(q, k, v, do, mask: dict, what: str, timed: bool) -> dict:
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{what}: a second call is not bit-identical")
-    cpu = [t.cpu() for t in (q, k, v, o, lse, do)]
+    for name, g, t in zip(("dq", "dk", "dv"), got, (q, k, v)):
+        check(g.shape == t.shape and g.dtype == dtype
+              and bool(torch.isfinite(g).all()),
+              f"{what}: {name} shape, dtype or finiteness")
+    hs = H if plain_heads is None else min(H, plain_heads)
+    cpu = [t[:, :, :hs].cpu() for t in (q, k, v, o)]
+    cpu[3:] = [cpu[3], lse[:, :hs].cpu(), do[:, :, :hs].cpu()]
+    _, lse_plain = flash_attention_plain(*cpu[:3], return_lse=True, **mask)
+    rec = {"max_abs_err": 0.0, "rel_l2": {},
+           "lse_max_abs_err": max_abs(cpu[4], lse_plain)}
+    check(torch.allclose(cpu[4], lse_plain, atol=1e-4, rtol=1e-5),
+          f"{what}: B3's lse differs from the plain version's by "
+          f"{rec['lse_max_abs_err']}")
+    if hs < H:
+        rec["heads_compared"] = hs
     t0 = time.perf_counter()
     want = flash_attention_bwd_plain(*cpu, **mask)
     plain_s = time.perf_counter() - t0
-    rec = {"max_abs_err": 0.0, "rel_l2": {}}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
-              f"{what}: {name} shape or finiteness")
+        g = g[:, :, :hs].cpu()
         rec["max_abs_err"] = max(rec["max_abs_err"],
-                                 max_abs(g.float().cpu(), w.float()))
-        rec["rel_l2"][name] = b3_rel_l2(g.cpu(), w)
+                                 max_abs(g.float(), w.float()))
         if dtype == torch.float32:
             check(b9_close_f32(g, w), f"{what}: {name} differs by "
                                       f"{rec['max_abs_err']}")
-        else:
+        elif S > 1:  # a one-token dq, dk is 0: noise on both sides
+            rec["rel_l2"][name] = b3_rel_l2(g, w)
             check(rec["rel_l2"][name] <= B9_REL_L2_BF16,
                   f"{what}: {name} relative L2 {rec['rel_l2'][name]} > "
                   f"{B9_REL_L2_BF16}")
-    if dtype == torch.bfloat16:
+    if dtype == torch.bfloat16 and S > 1:
         ctrl = {}
         # the 7-bit reading (bf16's own rounding) at the timed shapes only
         for bits in (7, B9_CONTROL_BITS) if timed else (B9_CONTROL_BITS,):
@@ -3558,37 +3633,48 @@ def b9_masked_case(q, k, v, do, mask: dict, what: str, timed: bool) -> dict:
     live = int(ok.sum())
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    sdpa = dict(attn_mask=None if bool(ok.all()) else ok)
+    # a causal mask by sdpa's own flag (its fastest form), another as the
+    # same boolean mask, none where every pair is live
+    causal_only = mask.get("causal") and mask.get("window") is None \
+        and not mask.get("prefix_len")
+    sdpa = dict(is_causal=True) if causal_only else dict(
+        attn_mask=None if bool(ok.all()) else ok)
+    lib, lib_rec = None, {}
     try:
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
-                                                 **sdpa)
-        lib_in = (qt, kt, vt)
-    except TypeError:  # a torch without enable_gqa: repeat the KV heads
-        kr, vr = (t.repeat_interleave(H // Hkv, dim=1).detach()
-                  .requires_grad_() for t in (kt, vt))
-        lib_out = F.scaled_dot_product_attention(qt, kr, vr, **sdpa)
-        lib_in = (qt, kr, vr)
-    dot = do.transpose(1, 2)
-    bound, by = b9_bound(B, S, H, Hkv, D, dtype, live)
+        try:
+            lib_out = F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True, **sdpa)
+            lib_in = (qt, kt, vt)
+        except TypeError:  # a torch without enable_gqa: repeat the heads
+            kr, vr = (t.repeat_interleave(H // Hkv, dim=1).detach()
+                      .requires_grad_() for t in (kt, vt))
+            lib_out = F.scaled_dot_product_attention(qt, kr, vr, **sdpa)
+            lib_in = (qt, kr, vr)
+        dot = do.transpose(1, 2)
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, lib_in, dot, retain_graph=True)
+        lib_rec = {"library_ms": event_ms(lib, 5, warmup=2),
+                   "library_kernels": device_kernel_names(lib)}
+    except RuntimeError as e:
+        lib_rec = {"library_ms": None,
+                   "library_error": f"{type(e).__name__}: {e}"[:300]}
+    bound, by = b9_bound(B, S, H, Hkv, D, dtype, live, Dv=Dv)
     call = lambda: flash_attention_bwd(q, k, v, o, lse, do,  # noqa: E731
                                        **mask)
-    lib = lambda: torch.autograd.grad(  # noqa: E731
-        lib_out, lib_in, dot, retain_graph=True)
     rec.update({"shape": {"q": list(q.shape), "kv": list(k.shape),
-                          "dtype": str(dtype), **mask},
+                          "v": list(v.shape), "dtype": str(dtype), **mask},
                 "live_pairs": live, "ms": event_ms(call, 5, warmup=2),
                 "device_us": kernel_device_us(
                     call, B9_KERNELS[str(dtype).split(".")[-1]]),
                 "plain_ms": plain_s * 1e3,
-                "plain_note": "the plain version on the CPU copies of the "
-                              "inputs",
-                "library_ms": event_ms(lib, 5, warmup=2),
-                "library_kernels": device_kernel_names(lib),
+                "plain_note": f"the plain version on the CPU copies of "
+                              f"{hs} of the {H} heads",
+                **lib_rec,
                 "library_note": "the backward of one "
                                 "scaled_dot_product_attention under the "
-                                "same boolean mask",
+                                "same mask (causal by its flag)",
                 "bound_ms": bound, "bound_by": by})
-    del lib_out, lib_in
+    del lib
     return rec
 
 
@@ -3627,6 +3713,41 @@ def check_b9_masks(dev) -> dict:
     return out
 
 
+def check_b9_mla(dev) -> dict:
+    """B9 at multi-head latent attention's (D, Dv) = (192, 128) on
+    ``mla_attention_inputs`` (v a stride-256 view, as ``blocks.mla_qkv``
+    makes it), ``B9_MLA_CASES`` in both dtypes, each through
+    ``b9_masked_case`` with the plain version on the first
+    ``B9_MLA_PLAIN_HEADS`` heads; timed at deepseek-v2's training
+    microbatch."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(27)
+    out = {"cases": {}, "model_shape": {}, "max_abs_err": {},
+           "lse_max_abs_err": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
+        for B, S, H, causal in B9_MLA_CASES:
+            q, k, v = mla_attention_inputs(gen, B, S, H, dtype, dev)
+            do = torch.randn((B, S, H, 128), generator=gen,
+                             device=dev).to(dtype)
+            model = (B, S, H, causal) == B9_MLA_SHAPE
+            rec = b9_masked_case(
+                q, k, v, do, dict(causal=causal, window=None, prefix_len=0),
+                f"flash_attention_bwd[(192, 128), {(B, S, H)}, "
+                f"causal={causal}, {dn}]", model,
+                plain_heads=B9_MLA_PLAIN_HEADS)
+            out["cases"][f"B={B},S={S},H={H},causal={causal}/{dn}"] = rec
+            out["max_abs_err"][dn] = max(out["max_abs_err"].get(dn, 0.0),
+                                         rec["max_abs_err"])
+            out["lse_max_abs_err"] = max(out["lse_max_abs_err"],
+                                         rec["lse_max_abs_err"])
+            if model:
+                out["model_shape"][dn] = rec
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    return out
+
+
 def _numpy_train_state(params) -> dict:
     """A parameter tree as the JAX package's ``TrainState`` dumped to
     numpy (zero moments, step 0): what ``convert.train_state_from_numpy``
@@ -3637,6 +3758,31 @@ def _numpy_train_state(params) -> dict:
     zeros = tree_map(np.zeros_like, p)
     return {"params": p, "opt_state": {"m": zeros, "v": zeros, "step": 0},
             "step": 0}
+
+
+def cut_config(cfg, cut: dict):
+    """``cfg`` with the fields of ``cut`` replaced; ``cut["moe"]``'s
+    fields replace those of ``cfg.moe``."""
+    import dataclasses
+    cut = dict(cut)
+    if "moe" in cut:
+        cut["moe"] = dataclasses.replace(cfg.moe, **cut["moe"])
+    return dataclasses.replace(cfg, **cut)
+
+
+def train_cfg(arch: str):
+    """The config a training path trains: the published one, cut by
+    ``TRAIN_CUT`` where it has an entry."""
+    from repro_torch.configs import get_arch
+    cut = {k: v for k, v in TRAIN_CUT.get(arch, {}).items()
+           if k != "reduced"}
+    return cut_config(get_arch(arch), cut)
+
+
+def host_peak_rss_bytes() -> int:
+    """This process's peak resident set so far (Linux counts KiB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
 def _leaf_rel(a, b) -> float:
@@ -3650,9 +3796,12 @@ def train_parity(card: str, arch: str = TRAIN_ARCH) -> dict:
     2 layers), float32, from one ``train_state_from_numpy`` state on the
     card (B3 / B5 forward, B9 / B10 backward) and on the CPU (their plain
     forms): the loss and every gradient leaf of one backward, then 3
-    ``make_train_step`` steps: losses and every parameter leaf after
-    them."""
-    import dataclasses
+    ``make_train_step`` steps (``TRAIN_PARITY``'s ``steps``): losses and
+    every parameter leaf after them. An MoE arch's routing is recorded on
+    both sides (``RouteLog``) and must be the same: a difference fails the
+    phase with the reference's top-(K+1) probability gap where it first
+    shows."""
+    import contextlib
 
     import torch
     from repro_torch.configs import get_arch
@@ -3666,36 +3815,53 @@ def train_parity(card: str, arch: str = TRAIN_ARCH) -> dict:
     from repro_torch.train.steps import make_train_step
 
     cut = TRAIN_PARITY.get(arch, {})
-    cfg = dataclasses.replace(get_arch(arch),
-                              **{"n_layers": 2, **cut.get("config", {})})
+    cfg = cut_config(get_arch(arch), {"n_layers": 2, **cut.get("config", {})})
+    n_steps = cut.get("steps", 3)
     dump = _numpy_train_state(init_params(
         registry.param_specs(cfg), torch.Generator().manual_seed(2), "cpu"))
+    zero_init = {p for p, a in tree_leaves(dump["params"]) if not a.any()}
     opt = AdamWConfig(total_steps=10, warmup_steps=2)
     shape = ShapeConfig("train_parity", cut.get("seq_len", 128),
                         cut.get("batch", 2), "train")
-    side = {}
+    side, routes = {}, {}
     reset_launches()
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
         st = train_state_from_numpy(dump, device=dev)
+        if dev == "cpu":  # the last leg: the host's two dumped trees go
+            dump = None
         data = SyntheticDataset(cfg, shape, seed=3, device=dev)
-        loss, _ = M.loss_fn(st.params, data.batch(0), cfg,
-                            dtype=torch.float32)
-        loss.backward()
-        grads = {path: None if p.grad is None else p.grad.detach().cpu()
-                 for path, p in tree_leaves(st.params)}
-        step = make_train_step(cfg, opt, dtype=torch.float32)
-        losses = []
-        for i in range(3):
-            st, m = step(st, data.batch(i))
-            losses.append(float(m["loss"]))
-        side[dev] = {"loss0": float(loss), "grads": grads, "losses": losses,
+        log = RouteLog() if cfg.moe else contextlib.nullcontext()
+        with log:
+            loss, _ = M.loss_fn(st.params, data.batch(0), cfg,
+                                dtype=torch.float32)
+            loss.backward()
+            grads = {path: None if p.grad is None
+                     else p.grad.detach().cpu()
+                     for path, p in tree_leaves(st.params)}
+            step = make_train_step(cfg, opt, dtype=torch.float32)
+            losses = []
+            for i in range(n_steps):
+                st, m = step(st, data.batch(i))
+                losses.append(float(m["loss"]))
+        if cfg.moe:
+            routes[dev] = log.tables()
+        side[dev] = {"loss0": float(loss.detach()), "grads": grads,
+                     "losses": losses,
                      "params": {path: p.detach().cpu()
                                 for path, p in tree_leaves(st.params)},
                      "seconds": time.perf_counter() - t0}
         if dev == "cuda":
             launches = read_launches()
-        del st, data, loss
+        del st, data, loss, grads
+    route_rec = {}
+    if cfg.moe:
+        diff = route_diff(routes["cpu"], routes["cuda"], True)
+        route_rec = {"routing": {k: v for k, v in diff.items()
+                                 if k != "differs"}}
+        check(diff["expert_slot_diffs"] == 0 and diff["drop_slot_diffs"] == 0,
+              f"train_parity[{arch}]: the card routes otherwise than the "
+              f"CPU: {route_rec['routing']}")
     card_, cpu_ = side["cuda"], side["cpu"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
         [card_["loss0"], *card_["losses"]], [cpu_["loss0"], *cpu_["losses"]]))
@@ -3710,15 +3876,14 @@ def train_parity(card: str, arch: str = TRAIN_ARCH) -> dict:
     check(worst_grad <= TRAIN_GRAD_TOL,
           f"train_parity[{arch}]: a gradient leaf differs by {worst_grad} "
           f"relative L2: {grad_rel}")
-    zero_init = {p for p, a in tree_leaves(dump["params"]) if not a.any()}
     param_rel = {p: _leaf_rel(cpu_["params"][p], t)
                  for p, t in card_["params"].items()}
     for p, r in param_rel.items():
         tol = TRAIN_ZERO_INIT_TOL if p in zero_init else TRAIN_PARAM_TOL
         check(r <= tol, f"train_parity: parameter leaf {p} differs by {r} "
-                        f"relative L2 after 3 steps (limit {tol})")
-    # 1 backward and 3 steps, each layer's forward twice (remat "full")
-    want = train_launches(cfg, 4)
+                        f"relative L2 after {n_steps} steps (limit {tol})")
+    # 1 backward and the steps, each layer's forward twice (remat "full")
+    want = train_launches(cfg, 1 + n_steps)
     check(launches == want, f"train_parity launches {launches} != {want}")
     return {"card": card, "arch": arch, "layers": cfg.n_layers,
             "d_model": cfg.d_model, "reduced": cut.get("reduced", "depth"),
@@ -3730,7 +3895,9 @@ def train_parity(card: str, arch: str = TRAIN_ARCH) -> dict:
                                        for p in sorted(zero_init)},
             "losses_card": [card_["loss0"], *card_["losses"]],
             "losses_cpu": [cpu_["loss0"], *cpu_["losses"]],
-            "launches_card": launches,
+            "launches_card": launches, "steps": n_steps, **route_rec,
+            "params": registry.count_params(cfg),
+            "host_peak_rss_bytes": host_peak_rss_bytes(),
             "seconds": {d: side[d]["seconds"] for d in side},
             "tolerance": {"loss_rel": TRAIN_LOSS_RTOL,
                           "grad_rel_l2": TRAIN_GRAD_TOL,
@@ -3805,20 +3972,56 @@ def train_launches(cfg, passes: int) -> dict:
     return want
 
 
+def train_steps(cfg, path: dict, on_step) -> dict:
+    """``launch.train.run``'s loop on a config of its own (``TRAIN_CUT``:
+    ``TrainLoopConfig`` names an arch and takes no config), from the same
+    pieces -- ``init_params`` from seed 0 on the card, ``TrainState.create``,
+    ``SyntheticDataset`` (seed 0), ``make_train_step`` (remat "full") --
+    with the same clock around each step and its loss. Returns
+    ``{"losses", "step_s"}``."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params, train_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import TrainState, make_train_step
+    opt = AdamWConfig(lr_peak=3e-4, warmup_steps=2,
+                      total_steps=max(10, path["steps"]))
+    data = SyntheticDataset(cfg, ShapeConfig(
+        "train_custom", path["seq_len"], path["global_batch"], "train"),
+        seed=0, device="cuda")
+    step_fn = make_train_step(cfg, opt, microbatches=path["microbatches"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = TrainState.create(train_params(init_params(
+        registry.param_specs(cfg), gen, "cuda")), opt)
+    losses, step_s = [], []
+    for step in range(path["steps"]):
+        t0 = time.time()
+        state, metrics = step_fn(state, data.batch(step))
+        loss = float(metrics["loss"])  # waits for the step
+        dt = time.time() - t0
+        losses.append(loss)
+        step_s.append(dt)
+        on_step(step, metrics, dt)
+    return {"losses": losses, "step_s": step_s}
+
+
 def train_full(card: str, arch: str = TRAIN_ARCH, path=None) -> dict:
-    """``launch.train.run`` on ``arch`` at full width, all its layers:
-    bf16 compute on float32 master weights, AdamW, ``path`` (default
+    """``launch.train.run`` on ``arch`` at full width, all its layers
+    (deepseek-v2-236b: ``train_steps`` on ``TRAIN_CUT``'s config): bf16
+    compute on float32 master weights, AdamW, ``path`` (default
     ``TRAIN_FULL``). Each step must launch exactly ``train_launches``
     (qwen2.5-3b: B3 36 x 2 x 2 times -- the forward and remat's
     recompute, per microbatch -- and B9 36 x 2 times), and nothing
     else. tokens/s counts every position (a vision arch's patches too;
-    an audio arch's are frames)."""
+    an audio arch's are frames); the MFU counts the parameters a token
+    passes through (an MoE arch's top-k experts, not its whole bank)."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.launch.train import TrainLoopConfig, run
     from repro_torch.models import registry
     path = dict(TRAIN_FULL if path is None else path)
-    cfg = get_arch(arch)
+    cfg = train_cfg(arch)
     L, M = cfg.n_layers, path["microbatches"]
     want = train_launches(cfg, M)
     per_step = []
@@ -3834,8 +4037,11 @@ def train_full(card: str, arch: str = TRAIN_ARCH, path=None) -> dict:
         prev = now
 
     t0 = time.perf_counter()
-    out = run(TrainLoopConfig(arch=arch, reduced=False, device="cuda",
-                              log_every=1, **path), on_step=on_step)
+    if arch in TRAIN_CUT:
+        out = train_steps(cfg, path, on_step)
+    else:
+        out = run(TrainLoopConfig(arch=arch, reduced=False, device="cuda",
+                                  log_every=1, **path), on_step=on_step)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
@@ -3844,16 +4050,23 @@ def train_full(card: str, arch: str = TRAIN_ARCH, path=None) -> dict:
     for i, got in enumerate(per_step):
         check(got == want, f"train_full step {i}: launches {got} != {want}")
     n_params = registry.count_params(cfg)
+    n_active = registry.count_params(cfg, active_only=True)
     tokens = path["global_batch"] * path["seq_len"]
     steady = min(out["step_s"][1:])
     return {"card": card, "arch": arch, "layers": L,
             "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-            "params": n_params, **path, "remat": "full",
-            "dtype": "bfloat16",
+            **({"reduced": TRAIN_CUT[arch]["reduced"]}
+               if arch in TRAIN_CUT else {}),
+            **({"experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k}
+               if cfg.moe else {}),
+            "params": n_params, "params_active": n_active, **path,
+            "remat": "full", "dtype": "bfloat16",
             "losses": out["losses"], "step_s": out["step_s"],
             "first_step_s": out["step_s"][0], "steady_s_per_step": steady,
             "tokens_per_s": tokens / steady,
-            "mfu": 6 * n_params * tokens / steady / BF16_FLOPS_PER_S,
+            "mfu": 6 * n_active * tokens / steady / BF16_FLOPS_PER_S,
+            "mfu_note": "6 x active parameters x tokens a step over the "
+                        "step, against 989 TFLOP/s (bf16 dense)",
             "peak_memory_bytes": peak, "launches": launches,
             "launches_per_step": per_step[0], "wall_s": wall,
             **({"frames_per_s": tokens / steady}
@@ -3872,7 +4085,6 @@ def profile_train(hand: tuple[str, ...], arch: str = TRAIN_ARCH,
     import gc
 
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import SyntheticDataset
     from repro_torch.models import registry
@@ -3882,7 +4094,7 @@ def profile_train(hand: tuple[str, ...], arch: str = TRAIN_ARCH,
     gc.collect()
     torch.cuda.empty_cache()
     path = TRAIN_FULL if path is None else path
-    cfg = get_arch(arch)
+    cfg = train_cfg(arch)
     opt = AdamWConfig(warmup_steps=2, total_steps=10)
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = {"st": TrainState.create(train_params(init_params(
@@ -3910,7 +4122,180 @@ def profile_train(hand: tuple[str, ...], arch: str = TRAIN_ARCH,
                     if k in name), None) for k in names]
         rec[f"{key}_device_us_per_call"] = sum(us) if None not in us \
             else None
+    if rec.get("device_busy_s"):
+        rec["b9_share_of_busy"] = sum(
+            v["device_us_total"] for name, v in hand.items()
+            if "attention_bwd" in name) * 1e-6 / rec["device_busy_s"]
     return rec
+
+
+def moe_backward_bits(card: str, arch: str = MOE_ARCH,
+                      seq_len: int = 2048) -> dict:
+    """Two backward passes of one microbatch (1 x ``seq_len`` tokens) of
+    ``arch`` at full width on the card, as a training step takes it (bf16
+    compute on float32 masters, remat "full"): every gradient leaf must be
+    bit-identical. The MoE combine's backward is an accumulating
+    ``index_put_`` into the expert outputs, whose order CUDA does not fix;
+    its only repeated indices are the dropped slots', whose gradients are
+    exactly 0, so the sums are exact in any order."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+    from repro_torch.models.param import (init_params, train_params,
+                                          tree_leaves)
+    torch.cuda.empty_cache()
+    cfg = train_cfg(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = train_params(init_params(registry.param_specs(cfg), gen,
+                                      "cuda"))
+    batch = SyntheticDataset(cfg, ShapeConfig("bits", seq_len, 1, "train"),
+                             seed=0, device="cuda").batch(0)
+    leaves = [p for _, p in tree_leaves(params)]
+    grads, losses = [], []
+    t0 = time.perf_counter()
+    with RouteLog() as log:
+        for _ in range(2):
+            for p in leaves:
+                p.grad = None
+            loss, _ = M.loss_fn(params, batch, cfg)
+            loss.backward()
+            losses.append(float(loss.detach()))
+            grads.append([None if p.grad is None else p.grad.clone()
+                          for p in leaves])
+    seconds = time.perf_counter() - t0
+    tables = log.tables()
+    differ = [path for (path, _), a, b in zip(tree_leaves(params), *grads)
+              if not ((a is None and b is None) or torch.equal(a, b))]
+    check(not differ, f"moe_backward_bits[{arch}]: two backward passes "
+                      f"differ in {len(differ)} leaves: {differ[:5]}")
+    check(losses[0] == losses[1] and math.isfinite(losses[0]),
+          f"moe_backward_bits[{arch}]: losses {losses}")
+    out = {"card": card, "arch": arch, "layers": cfg.n_layers,
+           "tokens": seq_len, "leaves": len(leaves),
+           "leaves_bit_identical": len(leaves) - len(differ),
+           "loss": losses[0], "seconds": seconds,
+           # each pass logs every MoE layer's forward and remat's recompute
+           "dropped_slots_per_pass": int(sum(
+               (~t["kept"]).sum() for t in tables)) // 2,
+           "slots_per_pass": int(sum(t["kept"].size for t in tables)) // 2}
+    del params, grads, leaves, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+# serve_arrivals: qwen2.5-3b at full width behind a short Poisson trace
+# (launch.serve.serve_arrivals), then a child process on the card that is
+# sent SIGTERM mid-trace and must drain: (rate requests/s, duration s,
+# epoch s, prompt, generated tokens); the child's trace is long enough
+# that the signal lands inside it, and the signal comes this many seconds
+# after the child says it is serving
+ARRIVALS = dict(rate=1.0, duration=20.0, epoch=5.0, prompt=512, tokens=16)
+ARRIVALS_CHILD = dict(rate=4.0, duration=600.0, epoch=5.0, prompt=512,
+                      tokens=16)
+ARRIVALS_SIGNAL_AFTER_S = 3.0
+SERVE_SIGNAL_CHILD = os.path.join("tests", "_torch_serve_signal_child.py")
+
+
+def serve_arrivals_phase(card: str) -> dict:
+    """``serve_arrivals`` on qwen2.5-3b at full width, batch 4, over a
+    seeded Poisson trace (``ARRIVALS``): every arrival is served or
+    queued, each wave is a whole batch, the waves launch B3 and B4. Then
+    ``tests/_torch_serve_signal_child.py`` on the card, a process of its
+    own, serves a long trace and is sent SIGTERM
+    ``ARRIVALS_SIGNAL_AFTER_S`` after it starts serving: it must exit 0
+    having written a report flagged ``drained`` and ``SIGTERM``."""
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.fleet import ArrivalSpec
+    from repro_torch.launch.serve import Server, serve_arrivals
+    a = ARRIVALS
+    t0 = time.perf_counter()
+    srv = Server(SERVE_ARCH, reduced=False, batch=SERVE_BATCH,
+                 max_seq=a["prompt"] + a["tokens"] + 8, seed=0,
+                 device="cuda")
+    srv.generate(np.zeros((SERVE_BATCH, a["prompt"]), np.int32),
+                 2)  # warm-up
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    stats = serve_arrivals(srv, ArrivalSpec("poisson", rate_rps=a["rate"]),
+                           duration_s=a["duration"], epoch_s=a["epoch"],
+                           prompt_len=a["prompt"], n_tokens=a["tokens"],
+                           seed=0)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    del srv
+    torch.cuda.empty_cache()
+    served = sum(e["served"] for e in stats)
+    arrived = sum(e["arrived"] for e in stats)
+    waves = served // SERVE_BATCH
+    check(len(stats) == math.ceil(a["duration"] / a["epoch"])
+          and all(e["served"] % SERVE_BATCH == 0 for e in stats)
+          and served + stats[-1]["queued"] == arrived and waves > 0,
+          f"serve_arrivals: epochs {stats}")
+    L = get_cfg(SERVE_ARCH).n_layers
+    want = expected_launches(("flash_attention", "decode_attention"), 0)
+    want["flash_attention"] = L * waves
+    want["decode_attention"] = L * waves * (a["tokens"] - 1)
+    check(launches == want, f"serve_arrivals launches {launches} != {want}")
+
+    c = ARRIVALS_CHILD
+    tmp = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    report = os.path.join(tmp, "serve_report.json")
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    cmd = [sys.executable, os.path.join(HERE, SERVE_SIGNAL_CHILD), report,
+           "--device", "cuda", "--arch", SERVE_ARCH, "--full",
+           "--batch", str(SERVE_BATCH), "--rate", str(c["rate"]),
+           "--duration", str(c["duration"]), "--epoch", str(c["epoch"]),
+           "--prompt-len", str(c["prompt"]), "--tokens", str(c["tokens"])]
+    proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        ready = proc.stdout.readline().strip()
+        if ready != "READY":
+            fail(f"serve_arrivals child: {ready!r}, "
+                 f"{proc.stderr.read()[-2000:]}")
+        time.sleep(ARRIVALS_SIGNAL_AFTER_S)
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=300)
+        drain_s = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"serve_arrivals child exited "
+                                f"{proc.returncode}: {err[-2000:]}")
+    with open(report) as f:
+        rep = json.load(f)
+    shutil.rmtree(tmp, ignore_errors=True)
+    ep = rep["epochs"]
+    check(rep["interrupted"] == "SIGTERM" and ep and ep[-1].get("drained")
+          and len(ep) < math.ceil(c["duration"] / c["epoch"])
+          and all(e["served"] % SERVE_BATCH == 0 for e in ep)
+          and rep["served_total"] == sum(e["served"] for e in ep)
+          and f"DONE {len(ep)}" in out,
+          f"serve_arrivals child: report {rep}, output {out[-500:]}")
+    return {"card": card, "arch": SERVE_ARCH, "batch": SERVE_BATCH,
+            "trace": {"kind": "poisson", **a}, "init_s": init_s,
+            "epochs": stats, "arrived": arrived, "served": served,
+            "waves": waves, "wall_s": wall,
+            "wave_wall_s": sum(e["wall_s"] for e in stats) / waves,
+            "launches": launches,
+            "sigterm_child": {"trace": {"kind": "poisson", **c},
+                              "signal_after_ready_s":
+                                  ARRIVALS_SIGNAL_AFTER_S,
+                              "signal_to_exit_s": drain_s,
+                              "epochs": ep,
+                              "served_total": rep["served_total"],
+                              "interrupted": rep["interrupted"]}}
 
 
 def main() -> int:
@@ -4337,6 +4722,48 @@ def main() -> int:
     emit("train_resume", seconds=time.perf_counter() - t0, **res)
     torch.cuda.empty_cache()
 
+    # ---- 9f. training the MoE families (A8d): B9 at MLA's head dims, then
+    # granite-moe-1b-a400m at full width (and two backward passes of one
+    # of its microbatches, bit for bit) and deepseek-v2-236b at its
+    # published widths cut to fit one card, each beside its parity with
+    # the CPU; a bit-exact resume through the MoE dispatch
+    t0 = time.perf_counter()
+    b9_mla = check_b9_mla(dev)
+    emit("kernels.b9_mla", card=card, seconds=time.perf_counter() - t0,
+         **b9_mla)
+    torch.cuda.empty_cache()
+    moe_bits = None
+    for phase, arch, path in TRAIN_MOE_PATHS:
+        t0 = time.perf_counter()
+        rec = train_full(card, arch, path)
+        emit(phase, seconds=time.perf_counter() - t0, **rec)
+        trains[arch] = rec
+        torch.cuda.empty_cache()
+        if arch == MOE_ARCH:
+            moe_bits = moe_backward_bits(card, arch)
+            emit("train_moe_bits", **moe_bits)
+        if arch in PROFILED_TRAIN:
+            emit("profile_train", arch=arch, **profile_train(
+                (*B3_KERNELS.values(), *B9_KERNELS["bfloat16"]), arch,
+                path))
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        par = train_parity(card, arch)
+        emit(phase.replace("_full", "_parity"),
+             wall_s=time.perf_counter() - t0, **par)
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = train_resume(card, MOE_ARCH)
+    emit("train_resume", seconds=time.perf_counter() - t0, **res)
+    torch.cuda.empty_cache()
+
+    # ---- 9g. serving's arrivals and drain (A8a): qwen2.5-3b at full
+    # width behind a Poisson trace, and a child on the card sent SIGTERM
+    t0 = time.perf_counter()
+    rec = serve_arrivals_phase(card)
+    emit("serve_arrivals", seconds=time.perf_counter() - t0, **rec)
+    torch.cuda.empty_cache()
+
     # ---- 10. the fleet, chaos and guard planes: K1 and K2, 97 calls a day
     # (after every profiled phase above, so that their threads and their
     # abandoned guard attempt cannot touch those phases' records)
@@ -4440,8 +4867,9 @@ def main() -> int:
                                       if c.endswith(dn))
                               for dn in ("bfloat16", "float32")}}
     from repro_torch.kernels.flash_attention_bwd import \
-        HEAD_DIMS as B9_HEAD_DIMS
+        HEAD_DIM_PAIRS as B9_HEAD_DIM_PAIRS
     b9m = b9["model_shape"]["bfloat16"]
+    b9mla = b9_mla["model_shape"]["bfloat16"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda", "source": B9_SOURCE,
         "replaces": "src/repro/models/common.py:281",
@@ -4464,7 +4892,23 @@ def main() -> int:
         "launches_by_path": {"train_full": tr["launches"][
             "flash_attention_bwd"], **{f"train:{a}": trains[a]["launches"][
                 "flash_attention_bwd"] for a in trains}},
-        "head_dims": list(B9_HEAD_DIMS),
+        "head_dim_pairs": [list(pair) for pair in B9_HEAD_DIM_PAIRS],
+        "mla_pair": {
+            **{k: b9mla.get(k) for k in (
+                "shape", "ms", "device_us", "plain_ms", "plain_note",
+                "library_ms", "library_error", "bound_ms", "bound_by",
+                "max_abs_err", "rel_l2", "control_rel_l2")},
+            "float32": {k: b9_mla["model_shape"]["float32"].get(k) for k in
+                        ("ms", "device_us", "plain_ms", "library_ms",
+                         "bound_ms", "bound_by", "max_abs_err")},
+            "max_abs_err_cases": b9_mla["max_abs_err"],
+            "lse_max_abs_err": b9_mla["lse_max_abs_err"],
+            "launches_train_mla_full": trains[MLA_ARCH]["launches"][
+                "flash_attention_bwd"],
+            "launches_per_step": trains[MLA_ARCH]["launches_per_step"][
+                "flash_attention_bwd"]},
+        "moe_backward_bit_identical_leaves": moe_bits[
+            "leaves_bit_identical"],
         "max_abs_err_masks": max(r["max_abs_err"] for r in
                                  b9_masks["cases"].values()),
         "model_shapes": {b9_masks["model_shapes"][n]["arch"]: {

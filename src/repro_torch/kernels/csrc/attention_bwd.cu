@@ -12,12 +12,12 @@
 // kernel of its own: given q, k, v, the output o, B3's row log-sum-exp lse
 // and the output's gradient do, it returns dq, dk, dv.
 //
-// Layout: q, o, do, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, Hkv, D), all
-// dense; query head h reads KV head h / (H / Hkv), as B3. lse and the
-// pre-pass's Delta are float32 (B, H, Sq). s = scale * q.k over live keys
-// -- B3's mask (attention_mask.cuh: key_live): causal order or none, a
-// sliding window, a prefix OR-ed in after it, and j < Sk -- P = exp(s -
-// lse);
+// Layout: q, dq (B, Sq, H, D); o, do (B, Sq, H, DV); k, dk (B, Sk, Hkv, D);
+// v, dv (B, Sk, Hkv, DV), all dense; query head h reads KV head h / (H /
+// Hkv), as B3. lse and the pre-pass's Delta are float32 (B, H, Sq). s =
+// scale * q.k over live keys -- B3's mask (attention_mask.cuh: key_live):
+// causal order or none, a sliding window, a prefix OR-ed in after it, and
+// j < Sk -- P = exp(s - lse);
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - Delta),  Delta = rowsum(dO o O),
 //   dQ = scale dS K,  dK = scale dS^T Q.
 //
@@ -31,23 +31,36 @@
 // no window or prefix both walks are the causal loop bounds they were, and
 // the old head dims give the same bits (chip_attention_bits.py).
 //
-// Head dims 16, 32, 64, 80, 128, 256. D 80 rides tile64's boxes (two of 64
+// Head dims (D, DV) = (d, d) for d in 16, 32, 64, 80, 128, 256, and
+// multi-head latent attention's (192, 128): S = Q K^T, dK = dS^T Q and dQ =
+// dS K run over D, dP = dO V^T, dV = P^T dO and the pre-pass's Delta over
+// DV; the kernels are templated on the pair, and (d, d) is the code it was
+// before DV (chip_attention_bits.py). D 80 rides tile64's boxes (two of 64
 // columns, zeros past 80) on the bf16 route and a stride of 16 columns on
 // the float32 one. D 256: on the bf16 route one 64-key tile's dK and dV
 // accumulators would take 256 registers a thread (at D 128 the kernel
 // already runs at 255), so each of dK/dV and dQ splits its output columns
 // over two blocks, each recomputing the full-width S and dP for its 128
 // columns -- twice the score products for D 128's register use; the
-// tiles (six of 32 KB, 193 KB a block) still fit. On the float32 route
-// four 64-row tiles of 256 floats would take 266 KB of shared memory, so
-// there tiles are 32 rows (each thread a 2 x 2 block of the score tile).
+// tiles (six of 32 KB, 193 KB a block) still fit. At (192, 128) dK/dV's 320
+// columns (160 floats a thread) split the same way, 96 of dK and 64 of dV a
+// block (fb2::kv_splits), each block recomputing S over 192 and dP over 128;
+// dQ's 192 (96 floats) fit one block. Its tiles are K and Q of 24 KB and V
+// and dO of 16 KB: 121 KB a block with Q / dO (K / V in dQ) double-buffered,
+// so one block an SM where D <= 128 runs two -- kept for the same pipeline
+// as every other pair. On the float32 route four 64-row tiles of 256 floats
+// would take 266 KB of shared memory, so there tiles are 32 rows (each
+// thread a 2 x 2 block of the score tile), and at (192, 128) too.
 //
 // Bound: 5 matmuls of the live (causal) half -- q k^T, dO V^T, P^T dO,
 // dS^T Q, dS K -- 5 B H S^2 D operations at S = Sq = Sk against reading the
 // six inputs and writing three outputs once; at the training path's shape
 // (B 1, S 2048, H 16, Hkv 2, D 128) that is 43 GFLOP against 21 MB in bf16,
 // thousands of operations per byte: bound by operations, 0.043 ms on the
-// tensor cores' 989 TFLOP/s (float32: 0.64 ms on the CUDA cores' 67).
+// tensor cores' 989 TFLOP/s (float32: 0.64 ms on the CUDA cores' 67). At
+// (192, 128) three of them run over D and two over DV, B H (3 D + 2 DV)
+// S^2 operations: deepseek-v2's training microbatch (B 1, S 2048, H = Hkv
+// = 128) is 447 GFLOP, 0.452 ms.
 //
 // Both routes are deterministic: every sum is taken in a fixed order and no
 // float atomic is used anywhere, so a result is the same from run to run --
@@ -63,9 +76,10 @@
 //     diagonal are never loaded. A block per query head -- not per KV head,
 //     looping over the group's heads -- because at the training shape that
 //     would be 64 blocks for 132 SMs (this way 512); the per-head partials
-//     go to a float32 workspace (B, Sk, H, D) each.
+//     go to float32 workspaces (B, Sk, H, D) and (B, Sk, H, DV).
 //   attention_bwd_reduce_kernel: dK and dV of each KV head as the sum of its
-//     group's partials in head order, rounded once to the output's type.
+//     group's partials in head order, rounded once to the output's type,
+//     each at its own width.
 //   dQ: one block per (query tile, head, batch), the longest (the last
 //     tiles) first, over the key tiles up to the diagonal in order, dQ in
 //     registers. It recomputes S and dP: 7 products where the bound counts
@@ -100,11 +114,13 @@
 // the kernel reads as the plain version with P and dS rounded to 7 mantissa
 // bits: on the H100 at the training shape 3.2e-3 relative L2 to the float32
 // plain version (dq, dk), 2.5e-3 (dv), and chip_smoke.py holds it to 8e-3
-// with the control (3 bits) at 2.7e-2 to 3.8e-2. ptxas at D = 128: dK/dV 255
-// registers with 32 bytes of spill stores and loads, dQ 190 and none (D 16 /
-// 32 / 64: 108 / 151 / 208 and 73 / 113 / 145, none); 97 KB of dynamic
-// shared memory a block (six 16 KB tiles and the swizzle's alignment) and
-// 1 KB static, so both kernels run two blocks an SM. What holds it back:
+// with the control (3 bits) at 2.7e-2 to 3.8e-2. ptxas (chip_smoke.py's
+// build phase prints it): dK/dV 255 registers at D = 128 with 20 bytes of
+// spill stores and loads (68 / 88 at D = 256), dQ 202 and none; D 16 / 32 /
+// 64 / 80: dK/dV 103 / 147 / 204 / 229, dQ 69 / 103 / 155 / 158, none;
+// (192, 128): 246 and 226, none. 97 KB of dynamic shared memory a block at
+// D = 128 (six 16 KB tiles and the swizzle's alignment) and 1 KB static, so
+// both kernels run two blocks an SM there. What holds it back:
 // mma.sync on 16-row warp tiles (not wgmma's 64-row warpgroups), with every
 // operand fragment from shared memory -- 0.56 ldmatrix.x4 a mma, so shared
 // memory's bandwidth, not the tensor cores, is the first wall; the 7
@@ -133,7 +149,8 @@ constexpr int THREADS = 256;
 // A tile is 16 R rows of q, do, k or v and each thread holds an R x R block
 // of a score tile: R = 4 (64-row tiles) up to D = 128; at D = 256 four
 // 64-row float32 tiles would take 266 KB of shared memory, past the 227 KB a
-// block may have, so there R = 2 (32-row tiles, 142 KB for dK / dV).
+// block may have, so there R = 2 (32-row tiles, 142 KB for dK / dV). D is
+// q's head dim, never below v's, so (192, 128) takes 32-row tiles too.
 template <int D> __host__ __device__ constexpr int rows() { return D > 128 ? 2 : 4; }
 template <int D> __host__ __device__ constexpr int tile() { return 16 * rows<D>(); }
 template <int D> __host__ __device__ constexpr int sld() { return tile<D>() + 4; }  // padded P / dS row
@@ -143,15 +160,17 @@ template <int D> __device__ __forceinline__ int out_col(int tx, int j) {
     if constexpr (D % 64 == 0) return (j / 4) * 64 + 4 * tx + (j % 4);
     else return tx + 16 * j;
 }
-// dK/dV: K, V, Q, dO tiles, P and dS, lse and Delta of the query tile
-template <int D> constexpr size_t dkdv_smem() {
-    return sizeof(float) * (size_t)(4 * tile<D>() * ld<D>() + 2 * tile<D>() * sld<D>()
-                                    + 2 * tile<D>());
+// dK/dV: K, Q tiles of D columns, V, dO tiles of DV, P and dS, lse and Delta
+// of the query tile
+template <int D, int DV> constexpr size_t dkdv_smem() {
+    return sizeof(float) * (size_t)(2 * tile<D>() * (ld<D>() + ld<DV>())
+                                    + 2 * tile<D>() * sld<D>() + 2 * tile<D>());
 }
-// dQ: Q, dO, K, V tiles, dS, lse and Delta of the query tile
-template <int D> constexpr size_t dq_smem() {
-    return sizeof(float) * (size_t)(4 * tile<D>() * ld<D>() + tile<D>() * sld<D>()
-                                    + 2 * tile<D>());
+// dQ: Q, K tiles of D columns, dO, V tiles of DV, dS, lse and Delta of the
+// query tile
+template <int D, int DV> constexpr size_t dq_smem() {
+    return sizeof(float) * (size_t)(2 * tile<D>() * (ld<D>() + ld<DV>())
+                                    + tile<D>() * sld<D>() + 2 * tile<D>());
 }
 }  // namespace fb
 
@@ -164,22 +183,23 @@ template <> __device__ __forceinline__ __nv_bfloat16 bw_from<__nv_bfloat16>(floa
     return __float2bfloat16(x);
 }
 
-// rows [r0, r0 + tile) of head h of a dense (B, S, heads, D) tensor into a
-// tile x ld<D> float tile; rows past S are zeros
-template <typename T, int D>
+// rows [r0, r0 + ROWS) of head h of a dense (B, S, heads, D) tensor into a
+// ROWS x ld<D> float tile; rows past S are zeros
+template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
                                           int b, int r0, int h, int S, int heads)
 {
     constexpr int LD = fb::ld<D>();
-    for (int i = threadIdx.x; i < fb::tile<D>() * D; i += fb::THREADS) {
+    for (int i = threadIdx.x; i < ROWS * D; i += fb::THREADS) {
         const int r = i / D, c = i % D, s = r0 + r;
         dst[r * LD + c] = s < S ? bw_f(src[(((int64_t)b * S + s) * heads + h) * D + c]) : 0.f;
     }
 }
 
 // acc[i][j] += rows (ty + 16 i) of A . rows (tx + 16 j) of Bt over D: a tile
-// x tile block of A Bt^T, each thread its R x R, the products in d order
-template <int D, int R = fb::rows<D>()>
+// x tile block of A Bt^T (16 R rows), each thread its R x R, the products in d
+// order
+template <int D, int R>
 __device__ __forceinline__ void tile_dot(float (&acc)[R][R], const float* A,
                                          const float* Bt, int ty, int tx)
 {
@@ -207,18 +227,19 @@ __device__ __forceinline__ void tile_dot(float (&acc)[R][R], const float* A,
     }
 }
 
-// acc[i][j] += sum over the tile's rows r, in order, of W[r][ty + 16 i] *
-// X[r][out_col(tx, j)] (transposed: W is read down its columns) -- P^T dO,
-// dS^T Q -- or, with W_ROWS, of W[ty + 16 i][r] * X[r][...] -- dS K
-template <int D, bool W_ROWS, int R = fb::rows<D>()>
+// acc[i][j] += sum over the tile's 16 R rows r, in order, of W[r][ty + 16 i]
+// * X[r][out_col(tx, j)] (transposed: W is read down its columns) -- P^T dO,
+// dS^T Q -- or, with W_ROWS, of W[ty + 16 i][r] * X[r][...] -- dS K; X has D
+// columns, W is a 16 R x (16 R + 4) P / dS tile
+template <int D, bool W_ROWS, int R>
 __device__ __forceinline__ void tile_acc(float (&acc)[R][D / 16], const float* W,
                                          const float* X, int ty, int tx)
 {
     constexpr int LD = fb::ld<D>();
     constexpr int NC = D / 16;
-    constexpr int SLD = fb::sld<D>();
+    constexpr int SLD = 16 * R + 4;
 #pragma unroll 4
-    for (int r = 0; r < fb::tile<D>(); ++r) {
+    for (int r = 0; r < 16 * R; ++r) {
         float w[R], x[NC];
 #pragma unroll
         for (int i = 0; i < R; ++i)
@@ -263,7 +284,8 @@ __device__ __forceinline__ void p_and_ds(float (&s)[R][R], float (&dp)[R][R],
     }
 }
 
-// Delta = rowsum(dO o O) per (batch, row, head): a warp a row, lanes over D
+// Delta = rowsum(dO o O) per (batch, row, head): a warp a row, lanes over
+// the D (v's head dim) columns of o and dO
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
 attention_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -285,7 +307,7 @@ attention_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(fb::THREADS, 1)
 attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
@@ -295,15 +317,15 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           int window, int prefix)
 {
     using namespace fb;
-    constexpr int LD = ld<D>();
-    constexpr int NC = D / 16;
+    constexpr int LD = ld<D>(), LDV = ld<DV>();
+    constexpr int NC = D / 16, NCV = DV / 16;
     constexpr int R = rows<D>(), BQ = tile<D>(), BK = tile<D>(), SLD = sld<D>();
     extern __shared__ float smem[];
     float* Ks = smem;               // BK x LD
-    float* Vs = Ks + BK * LD;
-    float* Qs = Vs + BK * LD;
-    float* dOs = Qs + BQ * LD;
-    float* Ps = dOs + BQ * LD;      // BQ x SLD, P[q][k]
+    float* Vs = Ks + BK * LD;       // BK x LDV
+    float* Qs = Vs + BK * LDV;      // BQ x LD
+    float* dOs = Qs + BQ * LD;      // BQ x LDV
+    float* Ps = dOs + BQ * LDV;     // BQ x SLD, P[q][k]
     float* dSs = Ps + BQ * SLD;     // BQ x SLD, dS[q][k]
     float* lse_s = dSs + BQ * SLD;  // BQ
     float* dl_s = lse_s + BQ;       // BQ
@@ -317,20 +339,23 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const QueryTiles qr = query_tiles(k0, min(k0 + BK, Sk) - 1, Sq, causal, window,
                                       prefix, BQ);
 
-    load_rows<T, D>(Ks, k, b, k0, hk, Sk, Hkv);
-    load_rows<T, D>(Vs, v, b, k0, hk, Sk, Hkv);
+    load_rows<T, D, BK>(Ks, k, b, k0, hk, Sk, Hkv);
+    load_rows<T, DV, BK>(Vs, v, b, k0, hk, Sk, Hkv);
 
-    float dk[R][NC], dv[R][NC];
+    float dk[R][NC], dv[R][NCV];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+    for (int i = 0; i < R; ++i) {
 #pragma unroll
-        for (int j = 0; j < NC; ++j) { dk[i][j] = 0.f; dv[i][j] = 0.f; }
+        for (int j = 0; j < NC; ++j) dk[i][j] = 0.f;
+#pragma unroll
+        for (int j = 0; j < NCV; ++j) dv[i][j] = 0.f;
+    }
 
     for (int qt = qr.lo; qt < qr.hi; ++qt) {
         const int q0 = qt * BQ;
         __syncthreads();  // the previous tile is done with Qs, dOs, Ps, dSs
-        load_rows<T, D>(Qs, q, b, q0, h, Sq, H);
-        load_rows<T, D>(dOs, dout, b, q0, h, Sq, H);
+        load_rows<T, D, BQ>(Qs, q, b, q0, h, Sq, H);
+        load_rows<T, DV, BQ>(dOs, dout, b, q0, h, Sq, H);
         if (tid < BQ) {
             const bool in = q0 + tid < Sq;
             const int64_t at = ((int64_t)b * H + h) * Sq + q0 + tid;
@@ -344,8 +369,8 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int i = 0; i < R; ++i)
 #pragma unroll
             for (int j = 0; j < R; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
-        tile_dot<D>(s, Qs, Ks, ty, tx);
-        tile_dot<D>(dp, dOs, Vs, ty, tx);
+        tile_dot<D, R>(s, Qs, Ks, ty, tx);
+        tile_dot<DV, R>(dp, dOs, Vs, ty, tx);
         p_and_ds<R>(s, dp, lse_s, dl_s, q0, k0, Sq, Sk, causal, window, prefix, scale,
                     ty, tx);
 #pragma unroll
@@ -358,48 +383,53 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncthreads();
 
         // this thread's key rows ty + 16 i: dV += P^T dO, dK += dS^T Q
-        tile_acc<D, false>(dv, Ps, dOs, ty, tx);
-        tile_acc<D, false>(dk, dSs, Qs, ty, tx);
+        tile_acc<DV, false, R>(dv, Ps, dOs, ty, tx);
+        tile_acc<D, false, R>(dk, dSs, Qs, ty, tx);
     }
 
 #pragma unroll
     for (int i = 0; i < R; ++i) {
         const int s_ = k0 + ty + 16 * i;
         if (s_ >= Sk) continue;
-        const int64_t row = (((int64_t)b * Sk + s_) * H + h) * D;
+        const int64_t row = ((int64_t)b * Sk + s_) * H + h;
 #pragma unroll
-        for (int j = 0; j < NC; ++j) {
-            dk_ws[row + out_col<D>(tx, j)] = dk[i][j] * scale;
-            dv_ws[row + out_col<D>(tx, j)] = dv[i][j];
-        }
+        for (int j = 0; j < NC; ++j) dk_ws[row * D + out_col<D>(tx, j)] = dk[i][j] * scale;
+#pragma unroll
+        for (int j = 0; j < NCV; ++j) dv_ws[row * DV + out_col<DV>(tx, j)] = dv[i][j];
     }
 }
 
-// dK / dV of KV head hk: its group's per-head partials summed in head order
+// dK / dV of KV head hk: its group's per-head partials summed in head order;
+// a thread per (b, s, hk, d) for d below the wider of D (dK's columns) and DV
+// (dV's)
 template <typename T>
 __global__ void __launch_bounds__(256)
 attention_bwd_reduce_kernel(const float* __restrict__ dk_ws, const float* __restrict__ dv_ws,
                             T* __restrict__ dk, T* __restrict__ dv,
-                            int64_t n, int H, int Hkv, int D)
+                            int64_t n, int H, int Hkv, int D, int DV)
 {
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;  // (b, s, hk, d)
     if (i >= n) return;
     const int G = H / Hkv;
-    const int d = (int)(i % D);
-    const int64_t bsh = i / D;
+    const int W = D > DV ? D : DV;
+    const int d = (int)(i % W);
+    const int64_t bsh = i / W;
     const int hk = (int)(bsh % Hkv);
     const int64_t bs = bsh / Hkv;
-    const int64_t base = (bs * H + (int64_t)hk * G) * D + d;
-    float sk = 0.f, sv = 0.f;
-    for (int g = 0; g < G; ++g) {
-        sk += dk_ws[base + (int64_t)g * D];
-        sv += dv_ws[base + (int64_t)g * D];
+    const int64_t h0 = bs * H + (int64_t)hk * G;  // the group's first (b, s, h)
+    if (d < D) {
+        float sk = 0.f;
+        for (int g = 0; g < G; ++g) sk += dk_ws[(h0 + g) * D + d];
+        dk[bsh * D + d] = bw_from<T>(sk);
     }
-    dk[i] = bw_from<T>(sk);
-    dv[i] = bw_from<T>(sv);
+    if (d < DV) {
+        float sv = 0.f;
+        for (int g = 0; g < G; ++g) sv += dv_ws[(h0 + g) * DV + d];
+        dv[bsh * DV + d] = bw_from<T>(sv);
+    }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(fb::THREADS, 1)
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -408,15 +438,15 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float scale, int causal, int window, int prefix)
 {
     using namespace fb;
-    constexpr int LD = ld<D>();
+    constexpr int LD = ld<D>(), LDV = ld<DV>();
     constexpr int NC = D / 16;
     constexpr int R = rows<D>(), BQ = tile<D>(), BK = tile<D>(), SLD = sld<D>();
     extern __shared__ float smem[];
-    float* Qs = smem;
-    float* dOs = Qs + BQ * LD;
-    float* Ks = dOs + BQ * LD;
-    float* Vs = Ks + BK * LD;
-    float* dSs = Vs + BK * LD;      // BQ x SLD, dS[q][k]
+    float* Qs = smem;               // BQ x LD
+    float* dOs = Qs + BQ * LD;      // BQ x LDV
+    float* Ks = dOs + BQ * LDV;     // BK x LD
+    float* Vs = Ks + BK * LD;       // BK x LDV
+    float* dSs = Vs + BK * LDV;     // BQ x SLD, dS[q][k]
     float* lse_s = dSs + BQ * SLD;
     float* dl_s = lse_s + BQ;
 
@@ -427,8 +457,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int hk = h / (H / Hkv);
     const int q0 = qt * BQ;
 
-    load_rows<T, D>(Qs, q, b, q0, h, Sq, H);
-    load_rows<T, D>(dOs, dout, b, q0, h, Sq, H);
+    load_rows<T, D, BQ>(Qs, q, b, q0, h, Sq, H);
+    load_rows<T, DV, BQ>(dOs, dout, b, q0, h, Sq, H);
     if (tid < BQ) {
         const bool in = q0 + tid < Sq;
         const int64_t at = ((int64_t)b * H + h) * Sq + q0 + tid;
@@ -450,8 +480,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int it = 0; it < kts.n; ++it) {
         const int k0 = key_tile(kts, it) * BK;
         __syncthreads();  // the previous tile is done with Ks, Vs, dSs
-        load_rows<T, D>(Ks, k, b, k0, hk, Sk, Hkv);
-        load_rows<T, D>(Vs, v, b, k0, hk, Sk, Hkv);
+        load_rows<T, D, BK>(Ks, k, b, k0, hk, Sk, Hkv);
+        load_rows<T, DV, BK>(Vs, v, b, k0, hk, Sk, Hkv);
         __syncthreads();
 
         float s[R][R], dp[R][R];
@@ -459,8 +489,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int i = 0; i < R; ++i)
 #pragma unroll
             for (int j = 0; j < R; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
-        tile_dot<D>(s, Qs, Ks, ty, tx);
-        tile_dot<D>(dp, dOs, Vs, ty, tx);
+        tile_dot<D, R>(s, Qs, Ks, ty, tx);
+        tile_dot<DV, R>(dp, dOs, Vs, ty, tx);
         p_and_ds<R>(s, dp, lse_s, dl_s, q0, k0, Sq, Sk, causal, window, prefix, scale,
                     ty, tx);
 #pragma unroll
@@ -470,7 +500,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncthreads();
 
         // this thread's query rows ty + 16 i: dQ += dS K
-        tile_acc<D, true>(acc, dSs, Ks, ty, tx);
+        tile_acc<D, true, R>(acc, dSs, Ks, ty, tx);
     }
 
 #pragma unroll
@@ -489,20 +519,31 @@ constexpr int BQ = 64, BK = 64, WARPS = 4, THREADS = 32 * WARPS;
 constexpr float LOG2E = 1.4426950408889634f;
 static_assert(BQ == BK, "a tile is 64 rows of q, do, k or v");
 
-// Output columns a block accumulates: every column up to D = 128. At D = 256
-// one 64-row tile's dK and dV accumulators alone would take 256 registers a
-// thread (the 255 a thread may have; at D = 128 the kernel already runs at
-// 255), so there the output's columns are split over two blocks, each
-// recomputing the full-width S and dP for its 128 columns of dK and dV (or of
-// dQ): twice the score products for the same register use as D = 128.
-template <int D> __host__ __device__ constexpr int dout() { return D > 128 ? 128 : D; }
-template <int D> __host__ __device__ constexpr int splits() { return D / dout<D>(); }
+// Output columns a block accumulates. dK/dV: every column of both while they
+// are at most 256 together (D = DV <= 128). At D = 256 one 64-row tile's dK
+// and dV accumulators alone would take 256 registers a thread (the 255 a
+// thread may have; at D = 128 the kernel already runs at 255), and at (192,
+// 128) 160, so there the columns are split over two blocks, each recomputing
+// the full-width S (over D) and dP (over DV) for its half of dK's columns
+// and its half of dV's: 128 + 128 at D 256; 96 + 64 at (192, 128), 80
+// floats a thread, the split that keeps the two blocks' work equal (a split
+// by 64-column boxes would give one block 128 + 64 columns and the other
+// 64 + 64). dQ: every column up to 192 (96 floats a thread at (192, 128)),
+// two blocks of 128 at D 256.
+template <int D, int DV> __host__ __device__ constexpr int kv_splits() {
+    return D + DV > 256 ? 2 : 1;
+}
+template <int D, int DV> __host__ __device__ constexpr int dk_cols() { return D / kv_splits<D, DV>(); }
+template <int D, int DV> __host__ __device__ constexpr int dv_cols() { return DV / kv_splits<D, DV>(); }
+template <int D> __host__ __device__ constexpr int q_splits() { return D > 192 ? 2 : 1; }
+template <int D> __host__ __device__ constexpr int dq_cols() { return D / q_splits<D>(); }
 
-// A block holds two tile64 tiles and two stages of two more.
+// A block holds a tile of D and one of DV columns (K and V; Q and dO) and two
+// stages of the other two.
 using namespace tile64;
-template <int D> constexpr size_t smem_bytes() {
+template <int D, int DV> constexpr size_t smem_bytes() {
     // + 1024: the tiles' start is rounded up to the swizzle's alignment
-    return 6 * (size_t)tile_bytes<D>() + 1024;
+    return 3 * ((size_t)tile_bytes<D>() + (size_t)tile_bytes<DV>()) + 1024;
 }
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p)
@@ -566,7 +607,7 @@ __device__ __forceinline__ void tile_acc_wx(float (&acc)[DO / 8][4], const uint3
 // warp 16 keys; S^T = K Q^T and dP^T = V dO^T put the keys on the M
 // dimension, so P^T and dS^T land in the A-fragment layout of P^T dO and
 // dS^T Q and never leave registers
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(fb2::THREADS, 2)
 attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
@@ -579,14 +620,18 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                                int window, int prefix)
 {
     using namespace fb2;
-    constexpr int TB = tile_bytes<D>();
-    constexpr int DO = dout<D>(), NSPLIT = splits<D>();
-    constexpr int NO = DO / 8;   // n8 tiles of this block's dK, dV columns
+    constexpr int TB = tile_bytes<D>(), TBV = tile_bytes<DV>();
+    constexpr int DOK = dk_cols<D, DV>(), DOV = dv_cols<D, DV>();
+    constexpr int NSPLIT = kv_splits<D, DV>();
+    static_assert(NSPLIT * DOK == D && NSPLIT * DOV == DV && DOK % 16 == 0
+                  && DOV % 16 == 0, "the blocks of a head cover dK's and dV's columns");
+    constexpr int NOK = DOK / 8, NOV = DOV / 8;  // n8 tiles of this block's dK, dV
     constexpr int NS = BQ / 8;   // n8 tiles of S^T: queries
     extern __shared__ __align__(16) unsigned char fb2_smem[];
     unsigned char* Ks = align1024(fb2_smem);
     unsigned char* Vs = Ks + TB;
-    unsigned char* QD = Vs + TB;  // stage s: the Q tile at 2 s TB, the dO tile next
+    // stage s: the Q tile at s (TB + TBV), the dO tile next
+    unsigned char* QD = Vs + TBV;
     __shared__ __align__(8) uint64_t full[2];
     // stage s: lse log2(e) of the tile's queries, then their Delta
     __shared__ float stat[2][2 * BQ];
@@ -595,7 +640,8 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const int lane = tid % 32, warp = tid / 32;
     const int g = lane / 4, t = lane % 4;
     const int h = (int)blockIdx.x / NSPLIT, b = blockIdx.y;
-    const int c0 = ((int)blockIdx.x % NSPLIT) * DO;  // this block's output columns
+    // this block's output columns: dK's from c0k, dV's from c0v
+    const int c0k = ((int)blockIdx.x % NSPLIT) * DOK, c0v = ((int)blockIdx.x % NSPLIT) * DOV;
     const int hk = h / (H / Hkv);
     const int k0 = (int)blockIdx.z * BK;
     // the query tiles that hold a live pair for these keys
@@ -616,11 +662,11 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_init(&full[1], 1);
         mbar_fence_init();
         if (n_it > 0) {
-            mbar_expect_tx(&full[0], 4 * TB);
+            mbar_expect_tx(&full[0], 2 * (TB + TBV));
             load_tile<D>(Ks, &tk, hk, k0, b, &full[0]);
-            load_tile<D>(Vs, &tv, hk, k0, b, &full[0]);
+            load_tile<DV>(Vs, &tv, hk, k0, b, &full[0]);
             load_tile<D>(QD, &tq, h, qt0 * BQ, b, &full[0]);
-            load_tile<D>(QD + TB, &tdo, h, qt0 * BQ, b, &full[0]);
+            load_tile<DV>(QD + TB, &tdo, h, qt0 * BQ, b, &full[0]);
         }
     }
     if (n_it > 0) stat[0][tid] = row_stat(qt0 * BQ);
@@ -628,11 +674,15 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 
     // this thread's keys: rows g and g + 8 of the warp's 16
     const int key0 = k0 + warp * 16 + g;
-    float dk[NO][4], dv[NO][4];
+    float dk[NOK][4], dv[NOV][4];
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
+    for (int n = 0; n < NOK; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) { dk[n][e] = 0.f; dv[n][e] = 0.f; }
+        for (int e = 0; e < 4; ++e) dk[n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NOV; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dv[n][e] = 0.f;
 
     for (int it = 0; it < n_it; ++it) {
         const int st = it % 2, q0 = (qt0 + it) * BQ;
@@ -643,12 +693,12 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         // whose stage the next load overwrites
         __syncthreads();
         if (tid == 0 && more) {
-            unsigned char* nx = QD + (1 - st) * 2 * TB;
-            mbar_expect_tx(&full[1 - st], 2 * TB);
+            unsigned char* nx = QD + (1 - st) * (TB + TBV);
+            mbar_expect_tx(&full[1 - st], TB + TBV);
             load_tile<D>(nx, &tq, h, q0 + BQ, b, &full[1 - st]);
-            load_tile<D>(nx + TB, &tdo, h, q0 + BQ, b, &full[1 - st]);
+            load_tile<DV>(nx + TB, &tdo, h, q0 + BQ, b, &full[1 - st]);
         }
-        const unsigned char* Qt = QD + st * 2 * TB;
+        const unsigned char* Qt = QD + st * (TB + TBV);
         const unsigned char* dOt = Qt + TB;
         const float* ls = stat[st];
         const float* dl = stat[st] + BQ;
@@ -680,13 +730,13 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                 }
         }
         // dV += P^T dO
-        tile_acc_wx<DO>(dv, pf, dOt, c0, lane);
+        tile_acc_wx<DOV>(dv, pf, dOt, c0v, lane);
 
         // dS^T = P^T o (dP^T - Delta), dP^T = V dO^T, rounded to bf16
         uint32_t df[BQ / 16][4];
         {
             float dp[NS][4];
-            tile_abt<D>(dp, Vs, warp * 16, dOt, lane);
+            tile_abt<DV>(dp, Vs, warp * 16, dOt, lane);
 #pragma unroll
             for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -699,7 +749,7 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                 }
         }
         // dK += dS^T Q (scaled once, at the end)
-        tile_acc_wx<DO>(dk, df, Qt, c0, lane);
+        tile_acc_wx<DOK>(dk, df, Qt, c0k, lane);
 
         // the next tile's statistics: that stage was last read in tile it - 1
         if (more) stat[1 - st][tid] = next;
@@ -709,21 +759,24 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
         if (key >= Sk) continue;
-        const int64_t row = (((int64_t)b * Sk + key) * H + h) * D + c0 + 2 * t;
+        const int64_t row = ((int64_t)b * Sk + key) * H + h;
+        float* krow = dk_ws + row * D + c0k + 2 * t;
+        float* vrow = dv_ws + row * DV + c0v + 2 * t;
 #pragma unroll
-        for (int n = 0; n < NO; ++n) {
-            *reinterpret_cast<float2*>(dk_ws + row + n * 8) =
+        for (int n = 0; n < NOK; ++n)
+            *reinterpret_cast<float2*>(krow + n * 8) =
                 make_float2(dk[n][2 * r] * scale, dk[n][2 * r + 1] * scale);
-            *reinterpret_cast<float2*>(dv_ws + row + n * 8) =
+#pragma unroll
+        for (int n = 0; n < NOV; ++n)
+            *reinterpret_cast<float2*>(vrow + n * 8) =
                 make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
-        }
     }
 }
 
 // dQ per (query tile, head, batch), bf16 on the tensor cores: each warp 16
 // queries; S = Q K^T and dP = dO V^T recomputed per key tile, dS packed to
 // bf16 as the A fragments of dS K, dQ in registers over the key tiles in order
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(fb2::THREADS, 2)
 attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -736,14 +789,16 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                              int window, int prefix)
 {
     using namespace fb2;
-    constexpr int TB = tile_bytes<D>();
-    constexpr int DO = dout<D>(), NSPLIT = splits<D>();
+    constexpr int TB = tile_bytes<D>(), TBV = tile_bytes<DV>();
+    constexpr int DO = dq_cols<D>(), NSPLIT = q_splits<D>();
+    static_assert(NSPLIT * DO == D && DO % 16 == 0, "the blocks of a head cover dQ's columns");
     constexpr int NO = DO / 8;   // n8 tiles of this block's dQ columns
     constexpr int NS = BK / 8;   // n8 tiles of S: keys
     extern __shared__ __align__(16) unsigned char fb2_smem[];
     unsigned char* Qs = align1024(fb2_smem);
     unsigned char* dOs = Qs + TB;
-    unsigned char* KV = dOs + TB;  // stage s: the K tile at 2 s TB, the V tile next
+    // stage s: the K tile at s (TB + TBV), the V tile next
+    unsigned char* KV = dOs + TBV;
     __shared__ __align__(8) uint64_t full[2];
 
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -763,11 +818,11 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_init(&full[0], 1);
         mbar_init(&full[1], 1);
         mbar_fence_init();
-        mbar_expect_tx(&full[0], 4 * TB);
+        mbar_expect_tx(&full[0], 2 * (TB + TBV));
         load_tile<D>(Qs, &tq, h, q0, b, &full[0]);
-        load_tile<D>(dOs, &tdo, h, q0, b, &full[0]);
+        load_tile<DV>(dOs, &tdo, h, q0, b, &full[0]);
         load_tile<D>(KV, &tk, hk, key_tile(kts, 0) * BK, b, &full[0]);
-        load_tile<D>(KV + TB, &tv, hk, key_tile(kts, 0) * BK, b, &full[0]);
+        load_tile<DV>(KV + TB, &tv, hk, key_tile(kts, 0) * BK, b, &full[0]);
     }
     // this thread's rows g and g + 8 of the warp's 16: lse log2(e), Delta
     const int row0 = q0 + warp * 16 + g;
@@ -794,14 +849,14 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         // whose stage the next load overwrites
         __syncthreads();
         if (threadIdx.x == 0 && kt + 1 < n_tiles) {
-            unsigned char* nx = KV + ((kt + 1) % 2) * 2 * TB;
+            unsigned char* nx = KV + ((kt + 1) % 2) * (TB + TBV);
             uint64_t* bar = &full[(kt + 1) % 2];
             const int k1 = key_tile(kts, kt + 1) * BK;
-            mbar_expect_tx(bar, 2 * TB);
+            mbar_expect_tx(bar, TB + TBV);
             load_tile<D>(nx, &tk, hk, k1, b, bar);
-            load_tile<D>(nx + TB, &tv, hk, k1, b, bar);
+            load_tile<DV>(nx + TB, &tv, hk, k1, b, bar);
         }
-        const unsigned char* Kt = KV + (kt % 2) * 2 * TB;
+        const unsigned char* Kt = KV + (kt % 2) * (TB + TBV);
         const unsigned char* Vt = Kt + TB;
 
         // P = exp(scale Q K^T - lse), rounded to bf16 as in the dK/dV kernel
@@ -831,7 +886,7 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         uint32_t df[BK / 16][4];
         {
             float dp[NS][4];
-            tile_abt<D>(dp, dOs, warp * 16, Vt, lane);
+            tile_abt<DV>(dp, dOs, warp * 16, Vt, lane);
 #pragma unroll
             for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -872,47 +927,49 @@ static bool bwd_map(CUtensorMap* map, const void* base, int B, int S, int heads)
     return bf16_box_map(map, base, 4, dims, strides, box);
 }
 
-template <int D>
+template <int D, int DV>
 static int attention_bwd_bf16_run(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse, const float* delta,
                                   float* dk_ws, float* dv_ws, void* dq, void* dk, void* dv,
                                   int B, int H, int Hkv, int Sq, int Sk, float scale,
                                   int causal, int window, int prefix, cudaStream_t stream)
 {
+    // q and k of D columns, v and do of DV
     CUtensorMap tq, tk, tv, tdo;
     if (!bwd_map<D>(&tq, q, B, Sq, H) || !bwd_map<D>(&tk, k, B, Sk, Hkv)
-        || !bwd_map<D>(&tv, v, B, Sk, Hkv) || !bwd_map<D>(&tdo, dout, B, Sq, H))
+        || !bwd_map<DV>(&tv, v, B, Sk, Hkv) || !bwd_map<DV>(&tdo, dout, B, Sq, H))
         return (int)cudaErrorInvalidValue;
-    const size_t smem = fb2::smem_bytes<D>();
-    const unsigned hx = (unsigned)(H * fb2::splits<D>());
-    cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkdv_bf16_kernel<D>,
+    const size_t smem = fb2::smem_bytes<D, DV>();
+    cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkdv_bf16_kernel<D, DV>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 g1(hx, (unsigned)B, (unsigned)((Sk + fb2::BK - 1) / fb2::BK));
-    attention_bwd_dkdv_bf16_kernel<D><<<g1, fb2::THREADS, smem, stream>>>(
+    dim3 g1((unsigned)(H * fb2::kv_splits<D, DV>()), (unsigned)B,
+            (unsigned)((Sk + fb2::BK - 1) / fb2::BK));
+    attention_bwd_dkdv_bf16_kernel<D, DV><<<g1, fb2::THREADS, smem, stream>>>(
         tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, H, Hkv, Sq, Sk, scale, causal, window,
         prefix);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
-    const int64_t n = (int64_t)B * Sk * Hkv * D;
+    const int64_t n = (int64_t)B * Sk * Hkv * (D > DV ? D : DV);
     attention_bwd_reduce_kernel<__nv_bfloat16><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        dk_ws, dv_ws, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, n, H, Hkv, D);
+        dk_ws, dv_ws, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, n, H, Hkv, D, DV);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
-    err = cudaFuncSetAttribute(attention_bwd_dq_bf16_kernel<D>,
+    err = cudaFuncSetAttribute(attention_bwd_dq_bf16_kernel<D, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 g2(hx, (unsigned)B, (unsigned)((Sq + fb2::BQ - 1) / fb2::BQ));
-    attention_bwd_dq_bf16_kernel<D><<<g2, fb2::THREADS, smem, stream>>>(
+    dim3 g2((unsigned)(H * fb2::q_splits<D>()), (unsigned)B,
+            (unsigned)((Sq + fb2::BQ - 1) / fb2::BQ));
+    attention_bwd_dq_bf16_kernel<D, DV><<<g2, fb2::THREADS, smem, stream>>>(
         tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dq, H, Hkv, Sq, Sk, scale, causal,
         window, prefix);
     return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 static int attention_bwd_run(const void* q, const void* k, const void* v, const void* o,
                              const void* dout, const float* lse, float* delta,
                              float* dk_ws, float* dv_ws, void* dq, void* dk, void* dv,
@@ -922,40 +979,40 @@ static int attention_bwd_run(const void* q, const void* k, const void* v, const 
     const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v,
             *to = (const T*)o, *tdo = (const T*)dout;
     const int64_t rows = (int64_t)B * Sq * H;
-    attention_bwd_delta_kernel<T, D><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+    attention_bwd_delta_kernel<T, DV><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
         to, tdo, delta, B, H, Sq);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-        return attention_bwd_bf16_run<D>(q, k, v, dout, lse, delta, dk_ws, dv_ws, dq,
-                                         dk, dv, B, H, Hkv, Sq, Sk, scale, causal, window,
-                                         prefix, stream);
+        return attention_bwd_bf16_run<D, DV>(q, k, v, dout, lse, delta, dk_ws, dv_ws, dq,
+                                             dk, dv, B, H, Hkv, Sq, Sk, scale, causal,
+                                             window, prefix, stream);
     } else {
         constexpr int TILE = fb::tile<D>();
-        const size_t s1 = fb::dkdv_smem<D>();
-        err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<T, D>,
+        const size_t s1 = fb::dkdv_smem<D, DV>();
+        err = cudaFuncSetAttribute(attention_bwd_dkdv_kernel<T, D, DV>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
         if (err != cudaSuccess) return (int)err;
         dim3 g1((unsigned)H, (unsigned)B, (unsigned)((Sk + TILE - 1) / TILE));
-        attention_bwd_dkdv_kernel<T, D><<<g1, fb::THREADS, s1, stream>>>(
+        attention_bwd_dkdv_kernel<T, D, DV><<<g1, fb::THREADS, s1, stream>>>(
             tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, H, Hkv, Sq, Sk, scale, causal,
             window, prefix);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
 
-        const int64_t n = (int64_t)B * Sk * Hkv * D;
+        const int64_t n = (int64_t)B * Sk * Hkv * (D > DV ? D : DV);
         attention_bwd_reduce_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-            dk_ws, dv_ws, (T*)dk, (T*)dv, n, H, Hkv, D);
+            dk_ws, dv_ws, (T*)dk, (T*)dv, n, H, Hkv, D, DV);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
 
-        const size_t s2 = fb::dq_smem<D>();
-        err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, D>,
+        const size_t s2 = fb::dq_smem<D, DV>();
+        err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T, D, DV>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
         if (err != cudaSuccess) return (int)err;
         dim3 g2((unsigned)H, (unsigned)B, (unsigned)((Sq + TILE - 1) / TILE));
-        attention_bwd_dq_kernel<T, D><<<g2, fb::THREADS, s2, stream>>>(
+        attention_bwd_dq_kernel<T, D, DV><<<g2, fb::THREADS, s2, stream>>>(
             tq, tk, tv, tdo, lse, delta, (T*)dq, H, Hkv, Sq, Sk, scale, causal, window,
             prefix);
         return (int)cudaGetLastError();
@@ -963,45 +1020,48 @@ static int attention_bwd_run(const void* q, const void* k, const void* v, const 
 }
 
 template <typename T>
-static int attention_bwd_dispatch(int D, const void* q, const void* k, const void* v,
-                                  const void* o, const void* dout, const float* lse,
-                                  float* delta, float* dk_ws, float* dv_ws, void* dq,
-                                  void* dk, void* dv, int B, int H, int Hkv, int Sq,
-                                  int Sk, float scale, int causal, int window, int prefix,
-                                  cudaStream_t s)
+static int attention_bwd_dispatch(int D, int DV, const void* q, const void* k,
+                                  const void* v, const void* o, const void* dout,
+                                  const float* lse, float* delta, float* dk_ws,
+                                  float* dv_ws, void* dq, void* dk, void* dv, int B, int H,
+                                  int Hkv, int Sq, int Sk, float scale, int causal,
+                                  int window, int prefix, cudaStream_t s)
 {
-#define BW_RUN(DD) attention_bwd_run<T, DD>(q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, \
-                                            dv, B, H, Hkv, Sq, Sk, scale, causal, window,  \
-                                            prefix, s)
+#define BW_RUN(DD, DDV) attention_bwd_run<T, DD, DDV>(q, k, v, o, dout, lse, delta, dk_ws,    \
+                                                      dv_ws, dq, dk, dv, B, H, Hkv, Sq, Sk, \
+                                                      scale, causal, window, prefix, s)
+    if (D == 192 && DV == 128) return BW_RUN(192, 128);  // multi-head latent attention
+    if (DV != D) return (int)cudaErrorInvalidValue;
     switch (D) {
-    case 16:  return BW_RUN(16);
-    case 32:  return BW_RUN(32);
-    case 64:  return BW_RUN(64);
-    case 80:  return BW_RUN(80);
-    case 128: return BW_RUN(128);
-    case 256: return BW_RUN(256);
+    case 16:  return BW_RUN(16, 16);
+    case 32:  return BW_RUN(32, 32);
+    case 64:  return BW_RUN(64, 64);
+    case 80:  return BW_RUN(80, 80);
+    case 128: return BW_RUN(128, 128);
+    case 256: return BW_RUN(256, 256);
     default:  return (int)cudaErrorInvalidValue;
     }
 #undef BW_RUN
 }
 
-// is_bf16: 1 for bf16 tensors, 0 for float32. Every tensor dense: q, o, dout,
-// dq (B, Sq, H, D); k, v, dk, dv (B, Sk, Hkv, D); lse and delta (B, H, Sq)
-// float32 (delta is written: the pre-pass's rowsum(dout o o)); dk_ws and
-// dv_ws (B, Sk, H, D) float32 workspaces, written before they are read. The
-// mask is B3's (attention_mask.cuh): causal, a window (<= 0: none) and a
-// prefix (0: none).
+// is_bf16: 1 for bf16 tensors, 0 for float32. Every tensor dense: q, dq (B,
+// Sq, H, D); o, dout (B, Sq, H, DV); k, dk (B, Sk, Hkv, D); v, dv (B, Sk,
+// Hkv, DV); lse and delta (B, H, Sq) float32 (delta is written: the
+// pre-pass's rowsum(dout o o)); dk_ws (B, Sk, H, D) and dv_ws (B, Sk, H, DV)
+// float32 workspaces, written before they are read. (D, DV): (d, d) for d in
+// 16, 32, 64, 80, 128, 256, or (192, 128). The mask is B3's
+// (attention_mask.cuh): causal, a window (<= 0: none) and a prefix (0: none).
 extern "C" int flash_attention_bwd_launch(
     int is_bf16, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, float* dk_ws, float* dv_ws,
     void* dq, void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, int D,
-    float scale, int causal, int window, int prefix, void* stream)
+    int DV, float scale, int causal, int window, int prefix, void* stream)
 {
     if (is_bf16)
         return attention_bwd_dispatch<__nv_bfloat16>(
-            D, q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, dv, B, H, Hkv,
+            D, DV, q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, dv, B, H, Hkv,
             Sq, Sk, scale, causal, window, prefix, (cudaStream_t)stream);
     return attention_bwd_dispatch<float>(
-        D, q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, dv, B, H, Hkv, Sq,
+        D, DV, q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, dv, B, H, Hkv, Sq,
         Sk, scale, causal, window, prefix, (cudaStream_t)stream);
 }

@@ -15,7 +15,9 @@ loop's bit-exact resume rests on it); B3's masks (causal order, a sliding
 ``window``, a bidirectional ``prefix_len``, or none: bidirectional
 attention), with only the tiles that hold a live pair loaded -- the key
 tiles of a query tile for dQ, as B3 walks them, and the query tiles of a
-key tile for dK / dV -- so a windowed layer does O(window) work a row.
+key tile for dK / dV -- so a windowed layer does O(window) work a row;
+B3's head dims (``HEAD_DIM_PAIRS``): q / k and v of one width, or
+multi-head latent attention's q / k 192 with v 128.
 bf16 runs FlashAttention-2's backward on the tensor cores
 (``mma.sync``, q / k / v / do tiles by TMA, P and dS in registers, rounded
 to bf16 as the operands of their products — as B3 rounds P — with float32
@@ -40,18 +42,24 @@ from repro_torch.kernels.flash_attention import (_GRID_YZ_MAX, DTYPES,
                                                  _check_mask)
 from repro_torch.kernels.ref import NEG_INF, attention_mask
 
-#: the head dims B9 is built for: B3's with v's head dim equal to q's
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+#: the (q / k, v) head dims B9 is built for, B3's: ``(d, d)`` and multi-head
+#: latent attention's (192, 128)
+HEAD_DIM_PAIRS = tuple((d, d) for d in (16, 32, 64, 80, 128, 256)) + (
+    (192, 128),)
 
 
 def _check_bwd(q, k, v, o, lse, do):
+    """The shapes, types and devices of B9's inputs; off the CPU (where
+    the kernels run) also its head dims, one of ``HEAD_DIM_PAIRS``: the
+    plain version takes any."""
     B, Sq, H, D, Sk, Hkv, Dv = _check(q, k, v)
-    if Dv != D:
-        raise ValueError(f"v's head dim {Dv} is not q's {D}: B9 has no "
-                         f"Dv != D yet (ROADMAP Queue B)")
-    if o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"o and do must be q's shape {tuple(q.shape)}, got "
-                         f"{tuple(o.shape)} {tuple(do.shape)}")
+    if q.device.type != "cpu" and (D, Dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims (q/k {D}, v {Dv}): B9 is built for the "
+                         f"pairs {HEAD_DIM_PAIRS}")
+    want = (B, Sq, H, Dv)
+    if o.shape != want or do.shape != want:
+        raise ValueError(f"o and do must be {want} (q's rows, v's head "
+                         f"dim), got {tuple(o.shape)} {tuple(do.shape)}")
     if o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o and do must be {q.dtype}, got {o.dtype} "
                          f"{do.dtype}")
@@ -61,7 +69,7 @@ def _check_bwd(q, k, v, o, lse, do):
     devs = {t.device for t in (q, o, lse, do)}
     if len(devs) != 1:
         raise ValueError(f"q, k, v, o, lse, do on several devices: {devs}")
-    return B, Sq, H, D, Sk, Hkv
+    return B, Sq, H, D, Sk, Hkv, Dv
 
 
 def _probs(q, k, lse, *, causal: bool, scale: float, window=None,
@@ -102,7 +110,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     in dQ and dK. At 7 bits each is bf16's rounding, what the bf16
     kernel multiplies; at 3 a deliberately wrong rounding, the card's
     bf16 gate's control. None keeps float32."""
-    B, Sq, H, D, Sk, Hkv = _check_bwd(q, k, v, o, lse, do)
+    B, Sq, H, D, Sk, Hkv, Dv = _check_bwd(q, k, v, o, lse, do)
     window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
     if q.device.type != "cpu":
         raise ValueError("flash_attention_bwd_plain takes CPU tensors; on "
@@ -124,7 +132,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dk = dk.reshape(B, Sk, Hkv, G, D).sum(dim=3)
-    dv = dv.reshape(B, Sk, Hkv, G, D).sum(dim=3)
+    dv = dv.reshape(B, Sk, Hkv, G, Dv).sum(dim=3)
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
@@ -133,12 +141,12 @@ def _launch(lib, q, k, v, o, lse, do, delta, dk_ws, dv_ws, dq, dk, dv, *,
             prefix_len: int = 0) -> int:
     """One call of the C launcher; the arguments are already checked."""
     B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     return lib.flash_attention_bwd_launch(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk_ws.data_ptr(), dv_ws.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Sk, D, float(scale),
+        dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Sk, D, Dv, float(scale),
         int(causal), 0 if window is None else int(window), int(prefix_len),
         stream)
 
@@ -150,21 +158,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         prefix_len: int = 0):
     """dq, dk, dv of ``o = flash_attention(q, k, v, causal=causal,
     scale=scale, window=window, prefix_len=prefix_len)`` for the output
-    gradient ``do``: q, o, do ``(B, Sq, H, D)``, k, v ``(B, Sk, Hkv, D)``
-    of one dtype (float32 or bf16), ``lse`` the forward's float32 ``(B, H,
-    Sq)`` row log-sum-exp (``flash_attention(..., return_lse=True)``).
-    Returns dq, dk, dv in q's dtype and shapes. The kernels read dense
-    tensors: a view that is not contiguous is copied first."""
-    B, Sq, H, D, Sk, Hkv = _check_bwd(q, k, v, o, lse, do)
+    gradient ``do``: q ``(B, Sq, H, D)``, k ``(B, Sk, Hkv, D)``, v ``(B,
+    Sk, Hkv, Dv)``, o, do ``(B, Sq, H, Dv)`` of one dtype (float32 or
+    bf16), ``(D, Dv)`` one of ``HEAD_DIM_PAIRS``; ``lse`` the forward's
+    float32 ``(B, H, Sq)`` row log-sum-exp (``flash_attention(...,
+    return_lse=True)``). Returns dq, dk, dv in q's dtype and q's, k's and
+    v's shapes. The kernels read dense tensors: a view that is not
+    contiguous is copied first (multi-head latent attention's v, a
+    stride-256 view into the kv_b product, is copied: 2 B Sk H Dv bytes
+    in bf16, 67 MB at deepseek-v2's training microbatch)."""
+    B, Sq, H, D, Sk, Hkv, Dv = _check_bwd(q, k, v, o, lse, do)
     window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type != "cuda":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale, window=window,
                                          prefix_len=prefix_len)
-    if D not in HEAD_DIMS or q.dtype not in DTYPES:
-        raise ValueError(f"head dim {D}, {q.dtype}: the kernels are built "
-                         f"for {HEAD_DIMS} x {DTYPES}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"{q.dtype}: the kernels are built for {DTYPES}")
     if max(-(-max(Sq, Sk) // TILE), B) > _GRID_YZ_MAX:
         raise ValueError(f"Sq = {Sq}, Sk = {Sk}, B = {B}: the grids take at "
                          f"most {_GRID_YZ_MAX} tiles and batches")
@@ -182,7 +193,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
     dk_ws = torch.empty((B, Sk, H, D), dtype=torch.float32, device=dev)
-    dv_ws = torch.empty_like(dk_ws)
+    dv_ws = torch.empty((B, Sk, H, Dv), dtype=torch.float32, device=dev)
     lib = _build.load("attention_bwd")
     with torch.cuda.device(dev):
         err = _launch(lib, q, k, v, o, lse, do, delta, dk_ws, dv_ws, dq, dk,

@@ -8,6 +8,8 @@
     python -m repro_torch.launch.serve --arch deepseek-v2-236b --device cpu
     python -m repro_torch.launch.serve --arch deepseek-v2-236b --full \
         --layers 3 [--device cuda]
+    python -m repro_torch.launch.serve --arrivals poisson --rate 2 \
+        --duration 20 --epoch 5 [--checkpoint report.json] [--device cuda]
 
 Serves a fixed batch of seeded random prompts: one prefill, then one
 decode step per generated token, every request sharing one cache of
@@ -37,14 +39,22 @@ the prompt's K/V, or conv tails and states, are written into it (no
 graft; a prompt shorter than the conv width keeps its tail right-aligned,
 where the JAX server's graft left-aligns it); decode steps update it in
 place; the weights are drawn leaf by leaf and each cast to bf16 at once,
-so the float32 tree never exists whole. Arrival-driven serving
-(``serve_arrivals``, ``--arrivals``) needs the fleet and guard planes and
-waits for ROADMAP A5.
+so the float32 tree never exists whole.
+
+``--arrivals`` switches to arrival-driven serving (``serve_arrivals``), as
+the JAX package's: a seeded request trace from the fleet plane's
+generators (``repro_torch.core.fleet``: Poisson, diurnal, bursty) feeds the
+server epoch by epoch, requests joining at the next epoch boundary and
+queuing until a full batch forms; SIGTERM / SIGINT finish the wave in
+flight, flag the epoch ``"drained"`` and write the report
+(``guard.atomic_write_json``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
+import signal
 import time
 from typing import Optional
 
@@ -127,6 +137,71 @@ class Server:
         return np.stack(out, axis=1)  # (B, n_tokens)
 
 
+def serve_arrivals(srv: Server, spec, *, duration_s: float,
+                   epoch_s: float, prompt_len: int, n_tokens: int,
+                   seed: int = 0, checkpoint: Optional[str] = None
+                   ) -> list[dict]:
+    """Serve a seeded arrival trace with epoch-boundary batching, as the
+    JAX package's ``serve_arrivals``.
+
+    ``spec`` is a ``repro_torch.core.fleet.ArrivalSpec``; its per-epoch
+    request counts (deterministic under ``seed``) land on the queue at
+    each epoch boundary, and the server drains the queue in full
+    ``srv.batch``-sized waves (``srv.generate`` over seeded prompts); the
+    remainder carries to the next epoch. Returns one stats dict per epoch:
+    ``epoch``, ``arrived``, ``served``, ``queued``, ``wall_s``.
+
+    On SIGTERM / SIGINT the wave in flight finishes, the epoch is recorded
+    with ``"drained": True`` and the run ends; with ``checkpoint`` a JSON
+    report (the epochs, ``served_total`` and the interrupting signal, or
+    None) is written atomically either way. The earlier signal handlers
+    are restored on exit."""
+    from repro_torch.core.fleet import arrival_counts
+    from repro_torch.core.guard import atomic_write_json
+    n_epochs = max(1, int(math.ceil(duration_s / epoch_s)))
+    rng = np.random.default_rng(seed)
+    counts = arrival_counts(spec, n_epochs, epoch_s, rng)
+    queue = 0
+    stats: list[dict] = []
+    stop: dict = {"signum": None}
+
+    def _handler(signum, frame):
+        stop["signum"] = signum
+
+    prev = {s: signal.signal(s, _handler)
+            for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        for e in range(n_epochs):
+            queue += int(counts[e])
+            served = 0
+            t0 = time.time()
+            while queue >= srv.batch and stop["signum"] is None:
+                prompts = rng.integers(0, srv.cfg.vocab_size,
+                                       (srv.batch, prompt_len),
+                                       dtype=np.int32)
+                srv.generate(prompts, n_tokens)
+                queue -= srv.batch
+                served += srv.batch
+            rec = {"epoch": e, "arrived": int(counts[e]),
+                   "served": served, "queued": queue,
+                   "wall_s": time.time() - t0}
+            stats.append(rec)
+            if stop["signum"] is not None:
+                rec["drained"] = True
+                break
+    finally:
+        for s, h in prev.items():
+            signal.signal(s, h)
+        if checkpoint is not None:
+            sig = stop["signum"]
+            atomic_write_json(checkpoint, {
+                "epochs": stats,
+                "served_total": sum(s["served"] for s in stats),
+                "interrupted": (signal.Signals(sig).name
+                                if sig is not None else None)})
+    return stats
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b",
@@ -145,6 +220,20 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the hand kernels) or cpu (their plain "
                          "versions)")
+    ap.add_argument("--arrivals", choices=("poisson", "diurnal",
+                                           "bursty"), default=None,
+                    help="serve a seeded arrival trace (fleet-plane "
+                         "generators) instead of one fixed batch")
+    ap.add_argument("--rate", type=float, default=1.0,
+                    help="mean arrival rate, requests/s")
+    ap.add_argument("--duration", type=float, default=30.0,
+                    help="arrival-trace window, seconds")
+    ap.add_argument("--epoch", type=float, default=5.0,
+                    help="batching epoch length, seconds")
+    ap.add_argument("--checkpoint", default=None,
+                    help="write the arrival-mode final report to this "
+                         "path (atomic JSON; also written when a "
+                         "SIGTERM/SIGINT drain ends the run early)")
     args = ap.parse_args(argv)
     n_img = get_arch(args.arch).reduced().frontend_seq
     if args.full:
@@ -153,6 +242,23 @@ def main(argv=None):
                  batch=args.batch,
                  max_seq=n_img + args.prompt_len + args.tokens + 8,
                  seed=args.seed, device=args.device)
+    if args.arrivals:
+        from repro_torch.core.fleet import ArrivalSpec
+        spec = ArrivalSpec(args.arrivals, rate_rps=args.rate,
+                           period_s=args.duration)
+        stats = serve_arrivals(srv, spec, duration_s=args.duration,
+                               epoch_s=args.epoch,
+                               prompt_len=args.prompt_len,
+                               n_tokens=args.tokens, seed=args.seed,
+                               checkpoint=args.checkpoint)
+        for s in stats:
+            drain = " [drained]" if s.get("drained") else ""
+            print(f"[serve] epoch {s['epoch']}: arrived {s['arrived']}, "
+                  f"served {s['served']}, queued {s['queued']} "
+                  f"({s['wall_s']:.2f}s){drain}")
+        print(f"[serve] {sum(s['served'] for s in stats)} requests served "
+              f"over {len(stats)} epochs on {srv.device}")
+        return stats
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, srv.cfg.vocab_size,
                            (args.batch, args.prompt_len), dtype=np.int32)

@@ -15,11 +15,15 @@ The JAX package's ``repro.launch.train`` in PyTorch's idiom:
 
 Runs on the card unless ``--device`` (``TrainLoopConfig.device``) says
 otherwise: there every attention layer (causal, sliding-window, prefix-LM
-or bidirectional) is kernel B3 forward and kernel B9 backward, and every
-SSD layer kernel B5 forward and kernel B10 backward -- the dense, SSD,
-hybrid, vision and audio families. MLA training on the card waits for
-B9 at MLA's head dims, and MoE's for a deterministic dispatch backward
-(ROADMAP).
+or bidirectional, and multi-head latent attention at q/k head dim 192
+with v 128) is kernel B3 forward and kernel B9 backward, and every SSD
+layer kernel B5 forward and kernel B10 backward -- every family: dense,
+SSD, hybrid, vision, audio and MoE (the dispatch and its backward plain
+PyTorch, the same bits run to run). The reduced deepseek's MLA head dims
+(24, 16) are not among B9's, so it trains on the CPU; its published
+widths hold 236 B parameters, more than one card (``chip_smoke.py``
+trains them cut to 3 layers and 16 routed experts through this loop's
+pieces).
 Sharding rules are the parallel slice's (ROADMAP A9): ``--rules``
 accepts ``baseline`` only, one device.
 
@@ -31,7 +35,8 @@ Run (the card, full width):
       --full --seq-len 2048 --global-batch 2 --microbatches 2 --steps 4
   (also --arch mamba2-780m; hymba-1.5b with --seq-len 4096, past its
   window of 2 048; paligemma-3b, whose --seq-len counts its 256 image
-  patches; hubert-xlarge with --seq-len 1500 frames --global-batch 4)
+  patches; hubert-xlarge with --seq-len 1500 frames --global-batch 4;
+  granite-moe-1b-a400m)
 """
 from __future__ import annotations
 

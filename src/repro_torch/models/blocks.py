@@ -175,19 +175,8 @@ def mla_fwd(p, x, cfg: ArchConfig, *, return_cache: bool = False):
     attention at q/k head dim nope + rope and v head dim ``v_head_dim``
     (B3 on the card, whose v is read through its strides in the kv_b
     product). With ``return_cache`` also the compressed cache entries
-    ``(c, k_rope)``.
-
-    On the card with grad enabled on an input that requires it, raises
-    ``NotImplementedError`` before any work: the attention backward B9 has
-    no Dv != D or D 192 yet (ROADMAP Queue B), so MLA trains on the CPU
-    only."""
-    if x.device.type == "cuda" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *p.values())):
-        raise NotImplementedError(
-            "mla_fwd on the card attends through kernel B3, whose backward "
-            "B9 has no Dv != D or D 192 yet (ROADMAP Queue B: B9 with Dv "
-            "!= D and D 192, for MLA training on the card); train MLA on "
-            "the CPU (device='cpu')")
+    ``(c, k_rope)``. Under grad on the card the attention's backward is
+    B9 at the same head dims (``common.KernelAttention``)."""
     m, H = cfg.mla, cfg.n_heads
     B, S, _ = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)

@@ -13,9 +13,10 @@ take raises there, never a plain fallback: offset queries, and causal
 attention with Sq != Sk. When an input requires grad (training),
 ``attention`` on the card runs ``KernelAttention``, an autograd function
 whose forward is B3 with its row log-sum-exp and whose backward is kernel
-B9 under the same mask, at equal q/k and v head dims of B9's only (B9 has
-no Dv != D or D 192 yet); B4 has no backward, and its wrapper raises then
-rather than drop a gradient. On a CPU tensor both
+B9 under the same mask, at B9's (q/k, v) head dims only (its
+``HEAD_DIM_PAIRS``: equal widths, or multi-head latent attention's 192 and
+128); B4 has no backward, and its wrapper raises then rather than drop a
+gradient. On a CPU tensor both
 run the plain forms exactly as the JAX package dispatches them
 (``plain_attention`` up to ``chunk_threshold`` keys, then
 ``flash_attention_jax``), and training differentiates through those, as
@@ -34,7 +35,7 @@ from repro_torch.kernels.decode_attention import \
 from repro_torch.kernels.flash_attention import \
     flash_attention as flash_attention_kernel
 from repro_torch.kernels.flash_attention_bwd import \
-    HEAD_DIMS as B9_HEAD_DIMS
+    HEAD_DIM_PAIRS as B9_HEAD_DIM_PAIRS
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
 
 Window = Union[None, int, torch.Tensor]
@@ -241,12 +242,11 @@ def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (q, k, v)):
             D, Dv = q.shape[-1], v.shape[-1]
-            if Dv != D or D not in B9_HEAD_DIMS:
+            if (D, Dv) not in B9_HEAD_DIM_PAIRS:
                 raise NotImplementedError(
-                    f"training on the card differentiates attention of "
-                    f"equal q/k and v head dims in {B9_HEAD_DIMS} only "
-                    f"(got {D}, {Dv}): B9 has no Dv != D or D 192 yet, "
-                    f"ROADMAP Queue B (MoE / MLA training on the card)")
+                    f"training on the card differentiates attention at "
+                    f"B9's (q/k, v) head dims {B9_HEAD_DIM_PAIRS} only "
+                    f"(got {D}, {Dv})")
             return KernelAttention.apply(q, k, v, scale, causal, window,
                                          prefix_len)
         return flash_attention_kernel(q, k, v, causal=causal, scale=scale,

@@ -22,6 +22,13 @@
   the bf16 kernel multiplies), 7 bits read below ``chip_smoke.py``'s
   ``B9_REL_L2_BF16`` and 3 bits above it, and no rounding asked for gives
   the float32 formula's bits;
+* multi-head latent attention's head dims -- v's narrower than q's: the
+  reduced deepseek's (24, 16) and the published (192, 128) -- through the
+  plain version, and ``KernelAttention`` on CPU tensors, against
+  ``jax.vjp`` of the reference's attention (both sides through its
+  dispatch, past the chunk threshold too); off the CPU ``_check_bwd``
+  refuses every pair outside ``HEAD_DIM_PAIRS``, and ``attention``
+  refuses them under grad before ``KernelAttention`` is reached;
 * a hand kernel with grad enabled on an input that requires it raises
   (``_build.check_no_grad``), and the plain version of B9 takes CPU
   tensors only.
@@ -43,7 +50,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_plain)
 from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
-    flash_attention_bwd, flash_attention_bwd_plain)
+    HEAD_DIM_PAIRS, flash_attention_bwd, flash_attention_bwd_plain)
 from repro_torch.models import common as tcommon  # noqa: E402
 
 GRAD_TOL = 1e-5   # of each gradient's largest value (at least 1)
@@ -298,3 +305,91 @@ def test_bwd_checks_shapes():
         flash_attention_bwd(q, k, k, q, torch.zeros((1, 4, 2)), q)
     with pytest.raises(ValueError, match="o and do"):
         flash_attention_bwd(q, k, k, q[:, :3], torch.zeros((1, 2, 4)), q)
+
+
+# multi-head latent attention's head dims, (B, S, H, Hkv, D, Dv): the
+# reduced deepseek's (24, 16) and the published (192, 128), one case of
+# each past THRESHOLD (the reference's flash_attention_jax)
+MLA_CASES = [(2, 21, 4, 4, 24, 16), (1, 40, 4, 4, 24, 16),
+             (1, 18, 2, 2, 192, 128), (2, 33, 2, 1, 192, 128)]
+
+
+def _mla_inputs(B, S, H, Hkv, D, Dv, seed=4):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in
+            ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, Dv), (B, S, H, Dv))]
+
+
+@jax.jit
+def _vjp_mla(q, k, v, do):
+    def f(q, k, v):
+        return jcommon.attention(q, k, v, causal=True,
+                                 scale=q.shape[-1] ** -0.5,
+                                 chunk_threshold=THRESHOLD, q_chunk=32,
+                                 kv_chunk=16)
+    return jax.vjp(f, q, k, v)[1](do)
+
+
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+def test_plain_bwd_at_mla_head_dims_equals_jax_vjp(case):
+    """B9's plain version with v's head dim apart from q's: dq, dk of q's
+    width and dv of v's, each within ``GRAD_TOL`` of its largest value of
+    ``jax.vjp`` of the reference's attention; the wrapper on CPU tensors
+    is the plain version."""
+    q, k, v, do = _mla_inputs(*case)
+    want = [np.asarray(g) for g in _vjp_mla(*map(jnp.asarray,
+                                                 (q, k, v, do)))]
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    o, lse = flash_attention_plain(tq, tk, tv, return_lse=True)
+    assert o.shape == tdo.shape
+    got = flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.shape == t.shape and g.dtype == torch.float32
+        _close(g, w)
+    for a, b in zip(flash_attention_bwd(tq, tk, tv, o, lse, tdo), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+def test_kernel_function_at_mla_head_dims_is_the_reference(case):
+    """``KernelAttention`` at MLA's head dims on CPU tensors (B3's and
+    B9's plain versions), with MLA's scale, gives the gradients of
+    ``jax.vjp`` of the reference's attention, as the CPU ``attention``
+    does."""
+    q, k, v, do = _mla_inputs(*case, seed=5)
+    want = [np.asarray(g) for g in _vjp_mla(*map(jnp.asarray,
+                                                 (q, k, v, do)))]
+    scale = q.shape[-1] ** -0.5
+    for fn in (lambda q, k, v: tcommon.KernelAttention.apply(
+                   q, k, v, scale, True, None, 0),
+               lambda q, k, v: tcommon.attention(
+                   q, k, v, causal=True, scale=scale,
+                   chunk_threshold=THRESHOLD, q_chunk=32, kv_chunk=16)):
+        ts = [torch.tensor(x).requires_grad_() for x in (q, k, v)]
+        fn(*ts).backward(torch.tensor(do))
+        for t, w in zip(ts, want):
+            _close(t.grad, w)
+
+
+@pytest.mark.parametrize("pair", [(24, 16), (192, 64), (128, 64), (96, 96),
+                                  (256, 128)])
+def test_bwd_refuses_head_dims_outside_its_pairs_off_the_cpu(pair):
+    """Off the CPU (here the meta device) ``flash_attention_bwd`` refuses
+    a (q/k, v) pair the kernels are not built for before anything runs;
+    a pair of ``HEAD_DIM_PAIRS`` passes the check and reaches the plain
+    version's own refusal of a tensor that is not on the CPU."""
+    D, Dv = pair
+    assert pair not in HEAD_DIM_PAIRS and (192, 128) in HEAD_DIM_PAIRS
+
+    def call(D, Dv):
+        q = torch.zeros((1, 4, 2, D), device="meta")
+        k = torch.zeros((1, 4, 2, D), device="meta")
+        v = torch.zeros((1, 4, 2, Dv), device="meta")
+        o = torch.zeros((1, 4, 2, Dv), device="meta")
+        lse = torch.zeros((1, 2, 4), device="meta")
+        flash_attention_bwd_plain(q, k, v, o, lse, o)
+
+    with pytest.raises(ValueError, match="B9 is built for the pairs"):
+        call(D, Dv)
+    with pytest.raises(ValueError, match="CPU tensors"):
+        call(192, 128)

@@ -545,6 +545,44 @@ def test_moe_combine_is_bit_identical_on_a_rerun(card):
         assert bool(torch.isfinite(y.float()).all())
 
 
+def test_granite_training_step_is_bit_identical_on_a_rerun(card):
+    """Two training steps of granite-moe-1b-a400m (cut to 2 layers at
+    full width, bf16 on float32 masters, remat "full", 2 microbatches of
+    1 x 256 tokens) from one seeded state on the card give the same bits:
+    the loss and every parameter after the update, which carries every
+    gradient leaf through AdamW -- the MoE combine's accumulating
+    backward, B3 and B9 included."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+    from repro_torch.models import registry
+    from repro_torch.models.param import (init_params, train_params,
+                                          tree_leaves)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import TrainState, make_train_step
+    cfg = dataclasses.replace(get_arch("granite-moe-1b-a400m"), n_layers=2)
+    opt = AdamWConfig(warmup_steps=1, total_steps=10)
+    batch = SyntheticDataset(cfg, ShapeConfig("t", 256, 2, "train"), seed=0,
+                             device=card).batch(0)
+    step = make_train_step(cfg, opt, microbatches=2)
+    out = []
+    before = flash_attention_bwd.launches
+    for _ in range(2):
+        params = train_params(init_params(
+            registry.param_specs(cfg),
+            torch.Generator(device=card).manual_seed(0), card))
+        st, m = step(TrainState.create(params, opt), batch)
+        out.append((m["loss"].clone(), [p.detach().clone()
+                                        for _, p in tree_leaves(st.params)]))
+    assert flash_attention_bwd.launches - before == 2 * 2 * 2
+    assert torch.equal(out[0][0], out[1][0])
+    assert bool(torch.isfinite(out[0][0]))
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cache_len", [0, 40, 99, 100, 101, 300, 2079])
 @pytest.mark.parametrize("D,groups,prefix", [(64, 5, 0), (256, 8, 0),
@@ -1202,15 +1240,20 @@ def test_guard_raises_when_the_card_is_wedged(card):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 1, 4, 2, 64), (2, 63, 16, 2, 128),
                                    (1, 257, 8, 1, 128), (2, 130, 4, 2, 16),
-                                   (1, 1000, 4, 4, 32)], ids=str)
+                                   (1, 1000, 4, 4, 32),
+                                   (2, 70, 4, 4, 192, 128),
+                                   (1, 257, 8, 2, 192, 128)], ids=str)
 def test_attention_bwd_kernel_matches_plain(card, dtype, shape):
+    """(B, S, H, Hkv, D[, Dv]): v's head dim is D unless given
+    (multi-head latent attention's (192, 128))."""
     from repro_torch.kernels.flash_attention_bwd import (
         flash_attention_bwd, flash_attention_bwd_plain)
-    B, S, H, Hkv, D = shape
+    B, S, H, Hkv, D = shape[:5]
+    Dv = shape[5] if len(shape) > 5 else D
     gen = torch.Generator(device=card).manual_seed(S)
     q, k, v, do = (torch.randn(s, generator=gen, device=card).to(dtype)
-                   for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D),
-                             (B, S, H, D)))
+                   for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, Dv),
+                             (B, S, H, Dv)))
     before = flash_attention_bwd.launches
     o, lse = flash_attention(q, k, v, return_lse=True)
     assert torch.equal(o, flash_attention(q, k, v))

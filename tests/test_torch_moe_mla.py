@@ -6,7 +6,8 @@ dense layer ``dense0``).
 
 * ``_moe_group``: the routing (each token's top-k experts, in order), the
   output and the load-balance loss; with capacity factor 0.25 the same
-  assignments dropped; ``moe_fwd`` over several sequence-chunk groups
+  assignments dropped; its gradient, with and without drops, equal to
+  ``jax.grad`` of the reference's; ``moe_fwd`` over several sequence-chunk groups
   and with ``gs = 1`` (S not a multiple of the chunk);
 * ``mla_fwd`` with its cache, ``mla_decode`` (the absorbed form);
 * ``forward`` (logits and the summed aux), ``loss_fn``, ``prefill_step``
@@ -183,6 +184,49 @@ def test_moe_fwd_groups_as_the_reference(arch, B, S, group):
     got_y, got_aux = TB.moe_fwd(tp, torch.from_numpy(x), cfg)
     np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), atol=1e-5)
     np.testing.assert_allclose(float(got_aux), float(want_aux), rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("cf", [2.0, 0.25], ids=["ample", "drops"])
+def test_moe_group_gradient_equals_the_reference(arch, cf):
+    """The gradient of ``_moe_group`` (the port's ``_moe_groups``: the
+    buffer write, the expert ``bmm``s, the combine's gather and its
+    accumulating backward, the router's gates) with respect to the token
+    group and every expert and router leaf equals ``jax.grad`` of the
+    reference's ``_moe_group``, with ample capacity and with capacity
+    factor 0.25, where assignments are dropped: a loss of the output
+    weighted by a seeded tensor plus the load-balance term."""
+    cfg, rcfg = _with_moe(arch, capacity_factor=cf)
+    jp, tp = _tree(jreg.layer_specs(rcfg)["moe"], 12)
+    G, E, K = 64, cfg.moe.n_experts, cfg.moe.top_k
+    tok, w = _rand(13, G, cfg.d_model), _rand(14, G, cfg.d_model)
+
+    def ref_loss(p, x):
+        y, aux = JB._moe_group(p, x, rcfg)
+        return (y * w).sum() + 0.5 * aux
+
+    rg_p, rg_x = jax.grad(ref_loss, argnums=(0, 1))(jp, jnp.asarray(tok))
+    _, gi = jax.lax.top_k(jax.nn.softmax(jnp.asarray(tok) @ jp["router"],
+                                         axis=-1), K)
+    dropped = int((~_ref_keep(gi, E, TB.moe_capacity(G, cfg))).sum())
+    assert (dropped > 0) == (cf < 1.0)
+    tp = {k: v.clone().requires_grad_() for k, v in tp.items()}
+    x = torch.from_numpy(tok).requires_grad_()
+    y, aux = TB._moe_group(tp, x, cfg)
+    ((y * torch.from_numpy(w)).sum() + 0.5 * aux).backward()
+    scale = lambda a: max(float(np.abs(a).max()), 1.0)  # noqa: E731
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(rg_x), rtol=0,
+                               atol=1e-5 * scale(np.asarray(rg_x)))
+    assert set(tp) == set(rg_p)
+    for k, t in tp.items():
+        # _moe_group reads the router and the expert banks; the layer's
+        # norm and deepseek's shared experts are moe_fwd's: no .grad, and
+        # the reference's gradient there is zeros
+        want = np.asarray(rg_p[k])
+        assert (t.grad is not None) == (k in ("router", "wg", "wu", "wd")), k
+        got = np.zeros_like(want) if t.grad is None else t.grad.numpy()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * scale(want), err_msg=k)
 
 
 def test_moe_fwd_dispatches_groups_in_batches(monkeypatch):

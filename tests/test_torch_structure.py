@@ -109,7 +109,8 @@ def test_slice_modules_exist():
                 *(f"configs/{c}.py" for c in CONFIG_FILES)):
         assert (PKG / rel).is_file(), rel
     assert SMOKE.is_file()
-    assert [p.name for p in EXAMPLES] == ["quickstart.py", "train_e2e.py"]
+    assert [p.name for p in EXAMPLES] == ["quickstart.py",
+                                          "serve_batched.py", "train_e2e.py"]
 
 
 @pytest.mark.parametrize("path", PY_FILES,
@@ -499,17 +500,22 @@ def test_card_training_attention_is_the_hand_kernels():
 
 
 def test_mla_training_on_the_card_raises_before_any_work():
-    """B9 has no Dv != D or D 192: ``mla_fwd`` on the card with grad
-    enabled raises before its first operation, naming the ROADMAP item,
-    and ``attention`` on the card refuses any other pair of head dims
-    under grad before it reaches ``KernelAttention``."""
+    """Since B9 takes (192, 128), ``mla_fwd`` raises nothing under grad:
+    it attends through ``attention``, which on the card reaches
+    ``KernelAttention`` (B3 forward, B9 backward) at MLA's head dims; what
+    still raises before any work is ``attention`` under grad at a pair of
+    head dims outside B9's ``HEAD_DIM_PAIRS``, before
+    ``KernelAttention.apply``."""
+    from repro_torch.kernels.flash_attention_bwd import HEAD_DIM_PAIRS
     body = _function_source(PKG / "models" / "blocks.py", "mla_fwd")
-    assert body.index('x.device.type == "cuda"') \
-        < body.index("raise NotImplementedError") < body.index("rms_norm(")
-    assert "torch.is_grad_enabled()" in body and "ROADMAP Queue B" in body
+    assert "raise" not in body and "is_grad_enabled" not in body
+    assert body.index("mla_qkv(") < body.index("attention(q, k, v, ") \
+        < body.index('p["wo"]')
+    assert (192, 128) in HEAD_DIM_PAIRS
     attn = _function_source(PKG / "models" / "common.py", "attention")
-    refuse = attn.index("if Dv != D or D not in B9_HEAD_DIMS:")
-    assert refuse < attn.index("raise NotImplementedError", refuse) \
+    refuse = attn.index("if (D, Dv) not in B9_HEAD_DIM_PAIRS:")
+    assert attn.index("torch.is_grad_enabled()") < refuse \
+        < attn.index("raise NotImplementedError", refuse) \
         < attn.index("KernelAttention.apply(")
 
 
