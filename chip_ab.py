@@ -5,6 +5,9 @@ against the change.
     mkdir -p build/parent                       # an ignored directory
     git archive <parent> | tar -x -C build/parent
     python3 chip_ab.py build/parent             # parent, change, change, parent
+    python3 chip_ab.py build/parent --order PC --smoke-only  # a half of it
+    python3 chip_ab.py build/parent --decode-pairs 3  # the decode loops only
+    python3 chip_ab.py --calls build/parent  # Python calls a decode step (CPU)
 
 Each run (``P`` the parent tree, ``C`` this checkout, in the order
 ``ORDER``) runs that tree's ``chip_smoke.py``, keeps its standard output
@@ -110,6 +113,122 @@ def same_code(tree: str) -> dict:
             "b5_float32": b5,
             "k2": chip_smoke.time_k2(shapes, np.random.default_rng(0)),
             "b10_bfloat16": time_b10()}
+
+
+#: the serving paths ``--decode`` times, and the runs of each tree
+DECODE_ARCHS = ("qwen2.5-3b", "hymba-1.5b")
+
+
+def time_decode(tree: str) -> dict:
+    """``serve_full``'s timed decode loop over ``tree``'s port, by this
+    checkout's code: per arch of ``DECODE_ARCHS``, ``Server`` at full width
+    (``chip_smoke.SERVE_PATHS``), batch 4, the arch's prompt, a warm-up,
+    then 31 steps; ms a step (their mean, as ``serve_full``'s
+    ``decode_ms_per_step``) and the fastest step."""
+    import gc
+
+    import chip_smoke
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch.launch.serve import Server
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_ab.py --decode: no CUDA device")
+    out = {"port": os.path.dirname(repro_torch.__file__)}
+    for arch in DECODE_ARCHS:
+        path = chip_smoke.SERVE_PATHS[arch]
+        cfg = chip_smoke.get_cfg(arch)
+        srv = Server(arch, reduced=False, n_layers=path.get("layers"),
+                     batch=chip_smoke.SERVE_BATCH,
+                     max_seq=chip_smoke.image_slots(cfg) + path["prompt"]
+                     + chip_smoke.SERVE_TOKENS, seed=0, device="cuda")
+        prompts = np.random.default_rng(0).integers(
+            0, srv.cfg.vocab_size, (chip_smoke.SERVE_BATCH, path["prompt"]),
+            dtype=np.int32)
+        srv.generate(prompts[:, :64], 2)  # warm-up
+        torch.cuda.synchronize()
+        tok = srv.prefill_prompts(prompts)
+        steps = []
+        for _ in range(chip_smoke.SERVE_TOKENS - 1):
+            t1 = time.perf_counter()
+            tok = srv.step(tok)
+            steps.append(time.perf_counter() - t1)
+        out[arch] = {"decode_ms_per_step": 1e3 * sum(steps) / len(steps),
+                     "decode_ms_per_step_min": 1e3 * min(steps)}
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def host_calls(tree: str, steps: int = 20) -> dict:
+    """Python function calls a decode step of ``tree``'s port makes on the
+    CPU (no card needed): qwen2.5-3b reduced in width, at its 36 layers,
+    batch 1, ``steps`` steps under ``cProfile``: all calls, and those of
+    the functions the parallel layer added to every path."""
+    import cProfile
+    import dataclasses
+    import pstats
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import torch
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.data.specs import make_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params
+    torch.set_num_threads(1)
+    cfg = dataclasses.replace(get_arch("qwen2.5-3b").reduced(), n_layers=36)
+    params = init_params(registry.param_specs(cfg),
+                         torch.Generator().manual_seed(0), "cpu",
+                         dtype=torch.bfloat16)
+    batch = make_batch(cfg, ShapeConfig("p", 16, 1, "prefill"), seed=0,
+                       device="cpu")
+    cache = M.init_cache(cfg, 1, 32, device="cpu")
+    tok = {"tokens": torch.zeros((1, 1), dtype=torch.int64), "cache_len": 16}
+    prof = cProfile.Profile()
+    with torch.no_grad():
+        M.prefill_step(params, batch, cfg, cache=cache)
+        M.decode_step(params, cache, dict(tok), cfg)
+        prof.enable()
+        for _ in range(steps):
+            M.decode_step(params, cache, dict(tok), cfg)
+        prof.disable()
+    stats = pstats.Stats(prof).stats
+    named = ("constrain", "current_mesh", "current_rules", "is_dtensor",
+             "split_heads", "gather_params", "local_map")
+    return {"calls_per_step": sum(v[1] for v in stats.values()) / steps,
+            **{f"{name}_per_step": sum(v[1] for k, v in stats.items()
+                                       if k[2] == name) / steps
+               for name in named}}
+
+
+def decode_pairs(parent: str, n: int, out_dir: str) -> dict:
+    """``n`` pairs of ``--decode`` runs, a process each, alternating which
+    tree runs first (P C, C P, ...): per arch, each tree's ms a step in
+    run order."""
+    trees = {"P": os.path.abspath(parent), "C": HERE}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    runs = []
+    for i in range(n):
+        for tag in ("PC" if i % 2 == 0 else "CP"):
+            r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                "--decode", trees[tag]], cwd=trees[tag],
+                               env=env, capture_output=True, text=True)
+            with open(os.path.join(out_dir, f"decode_{len(runs)}_{tag}.err"),
+                      "w") as f:
+                f.write(r.stderr)
+            lines = r.stdout.strip().splitlines()
+            rec = json.loads(lines[-1]) if r.returncode == 0 and lines \
+                else {"error": r.stderr[-2000:]}
+            runs.append({"tree": tag, "rc": r.returncode, **rec})
+            print(json.dumps(runs[-1]), flush=True)
+    return {"decode_pairs": n, "metrics": {
+        f"{arch}_{k}_{tag}": [r[arch][k] for r in runs
+                              if r["tree"] == tag and arch in r]
+        for arch in DECODE_ARCHS
+        for k in ("decode_ms_per_step", "decode_ms_per_step_min")
+        for tag in "PC"}}
 
 
 def time_b10() -> dict:
@@ -259,6 +378,16 @@ def _smoke_numbers(lines: list[str]) -> dict:
         out[f"profile_{key}"] = {k: prof[0].get(k) for k in (
             "wall_s_profiled", "device_busy_s", "device_idle_share",
             "b10_device_us_per_call", "hand_kernels")} if prof else {}
+    # the host-bound walls: every serving path's decode ms a step, every
+    # training path's steady s a step (``train_mesh`` where there is one)
+    out["host_bound"] = {
+        **{f"{ph}_decode_ms_per_step": recs[0].get("decode_ms_per_step")
+           for ph, recs in phases.items()
+           if ph.startswith("serve_") and ph.endswith("_full")},
+        **{f"{ph}_steady_s_per_step": recs[0].get("steady_s_per_step")
+           for ph, recs in phases.items()
+           if ph.startswith("train_") and (ph.endswith("_full")
+                                           or ph == "train_mesh")}}
     return out
 
 
@@ -307,16 +436,40 @@ def main() -> int:
     ap.add_argument("parent", nargs="?", help="the parent commit's tree")
     ap.add_argument("--out", default=os.path.join(HERE, "build", "ab"))
     ap.add_argument("--same-code", metavar="TREE")
+    ap.add_argument("--order", default=ORDER,
+                    help="the runs, P the parent and C this checkout "
+                         f"(default {ORDER})")
+    ap.add_argument("--smoke-only", action="store_true",
+                    help="leave out the --same-code timings")
+    ap.add_argument("--decode", metavar="TREE",
+                    help="time TREE's decode loop (``time_decode``)")
+    ap.add_argument("--calls", metavar="TREE",
+                    help="Python calls a decode step of TREE's port makes "
+                         "on the CPU (``host_calls``)")
+    ap.add_argument("--decode-pairs", type=int, metavar="N",
+                    help="instead of the chip_smoke runs: N pairs of "
+                         "--decode runs of the parent and this checkout")
     args = ap.parse_args()
     if args.same_code:
         print(json.dumps(same_code(args.same_code)), flush=True)
         return 0
+    if args.decode:
+        print(json.dumps(time_decode(args.decode)), flush=True)
+        return 0
+    if args.calls:
+        print(json.dumps(host_calls(args.calls)), flush=True)
+        return 0
     if not args.parent:
         ap.error("give the parent commit's tree")
+    if args.decode_pairs:
+        os.makedirs(args.out, exist_ok=True)
+        summary = decode_pairs(args.parent, args.decode_pairs, args.out)
+        print(json.dumps(summary), flush=True)
+        return 0
     trees = {"P": os.path.abspath(args.parent), "C": HERE}
     os.makedirs(args.out, exist_ok=True)
     runs, failed = [], False
-    for i, tag in enumerate(ORDER):
+    for i, tag in enumerate(args.order):
         tree = trees[tag]
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         t0 = time.perf_counter()
@@ -327,9 +480,10 @@ def main() -> int:
             with open(os.path.join(args.out, f"{i}_{tag}_smoke.{name}"),
                       "w") as f:
                 f.write(text)
-        same = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--same-code", tree], cwd=tree, env=env,
-                              capture_output=True, text=True)
+        same = subprocess.CompletedProcess([], 0, "", "") \
+            if args.smoke_only else subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--same-code",
+                 tree], cwd=tree, env=env, capture_output=True, text=True)
         lines = same.stdout.strip().splitlines()
         run = {"run": i, "tree": tag, "smoke_rc": smoke.returncode,
                "smoke_s": smoke_s, "same_code_rc": same.returncode,
@@ -355,7 +509,11 @@ def main() -> int:
 
     def decode_per_step(r, key):
         return r["smoke"]["profile_serve_decode"][key] / 4
-    summary = {"order": ORDER, "metrics": {
+    host_bound = runs[0]["smoke"].get("host_bound", {}) if runs else {}
+    summary = {"order": args.order, "metrics": {
+        **{k: series(lambda r, k=k: r["smoke"]["host_bound"][k])
+           for k in host_bound},
+        "smoke_s": series(lambda r: r["smoke_s"]),
         **{f"b3_bf16_{k}": series(lambda r, k=k: r["smoke"]["b3"][k])
            for k in ("ms", "device_us", "rel_l2")},
         **{f"b3_float32_{k}": series(

@@ -93,7 +93,20 @@ path, read just after) that each path really went through its kernels:
 * arrival-driven serving, ``repro_torch.launch.serve.serve_arrivals``:
   qwen2.5-3b at full width behind a seeded Poisson trace (20 s in 5 s
   epochs, batch 4), and a child process on the card sent SIGTERM
-  mid-trace, which must drain the wave in flight and write its report.
+  mid-trace, which must drain the wave in flight and write its report;
+* training on a mesh (``launch.train.run`` with ``mesh="1x1"``: the
+  state DTensors on a one-card ``DeviceMesh`` under the baseline rules)
+  at train_full's settings, 3 steps whose losses equal train_full's bit
+  for bit, exactly 144 B3 and 72 B9 a step; one more step counted by
+  ``core.costs.CostCounter`` with the kernels launched, against the dry
+  run of the same cell under fake tensors (``launch.dryrun``, in a child
+  process that sees no card): the same FLOPs, its memory prediction
+  within 25 % of the measured peak, its roofline beside the step's
+  measured busy time; and the production dry run of deepseek-v2-236b at
+  all 60 layers on the (16, 16) fake mesh (the same child, started after
+  the build on a core this process gives up while it runs, so that it
+  overlaps the card's phases and takes no core from them), whose per-device
+  argument bytes must be the local shards the resolved specs give.
 
 It has no CPU route: no card, a failed build, a failed launch or a
 failed comparison each end the run with a non-zero exit code. Every
@@ -103,6 +116,7 @@ phase prints one JSON line; the last line is
 """
 from __future__ import annotations
 
+import atexit
 import itertools
 import json
 import math
@@ -4129,6 +4143,361 @@ def profile_train(hand: tuple[str, ...], arch: str = TRAIN_ARCH,
     return rec
 
 
+# ---- the parallel and analysis slice (A9a) --------------------------------
+DRYRUN_DIR = os.path.join(HERE, "build", "chip_smoke_dryrun")
+# train_mesh: train_full's cell on a one-card mesh, 3 steps
+MESH_STEPS = 3
+# the dry runs, each in a child process: train_full's cell on a (1, 1)
+# fake mesh, and deepseek-v2-236b's production cell at all 60 layers
+DRY_RUNS = {
+    "card": dict(arch=TRAIN_ARCH, shape_name="train_card",
+                 shape=("train_card", TRAIN_FULL["seq_len"],
+                        TRAIN_FULL["global_batch"], "train"),
+                 mesh_shape=(1, 1),
+                 microbatches=TRAIN_FULL["microbatches"]),
+    "production": dict(arch=MLA_ARCH, shape_name="train_4k",
+                       moe="shard_map"),
+}
+DRY_RUN_TIMEOUT_S = 900
+DRYRUN_FLOPS_RTOL = 1e-9
+FLOPS_RATIO_RANGE = (0.5, 1.05)
+MEMORY_BAND = 0.25  # predicted peak within 25 % of the measured one
+# one child runs the cells in turn on one core of its own, which this
+# process gives up while the child lives: the card's host-bound phases
+# keep the other cores to themselves
+_DRY_RUN_CHILD = """
+import json, os, sys, time
+core = int(sys.argv[2])
+if core >= 0:
+    os.sched_setaffinity(0, {core})
+import torch
+torch.set_num_threads(1)  # fake tensors compute nothing
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.dryrun import run_cell
+for name, kw in json.loads(sys.argv[1]).items():
+    if "shape" in kw:
+        kw["shape"] = ShapeConfig(*kw["shape"])
+    if "mesh_shape" in kw:
+        kw["mesh_shape"] = tuple(kw["mesh_shape"])
+    t0 = time.perf_counter()
+    r = run_cell(dump=False, **kw)
+    r["child_wall_s"] = time.perf_counter() - t0
+    out = os.path.join(sys.argv[3], name + ".json")
+    with open(out + ".part", "w") as f:
+        json.dump(r, f, default=str)
+    os.replace(out + ".part", out)
+"""
+_CHILDREN: list = []
+#: this process's cores and threads before the child took a core
+_MAIN_CORES: list = []
+
+
+def _stop_children() -> None:
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+atexit.register(_stop_children)
+
+
+def _set_cores(cores) -> None:
+    """Pin every thread of this process to ``cores``."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), cores)
+        except OSError:  # a thread that has ended
+            pass
+
+
+def start_dry_runs() -> dict:
+    """Start ``DRY_RUNS`` in one child process that sees no card (a fake
+    world on the CPU: nothing there touches the card), the cells in
+    turn, each cell's JSON in ``DRYRUN_DIR`` as it ends. With 4 cores or
+    more the child takes the last one and this process's threads leave
+    it (``finish_dry_run`` gives it back). Returns the child's record."""
+    os.makedirs(DRYRUN_DIR, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(HERE, "src"),
+                    os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep))
+    for name in DRY_RUNS:
+        out = os.path.join(DRYRUN_DIR, f"{name}.json")
+        if os.path.exists(out):
+            os.remove(out)
+    cores = sorted(os.sched_getaffinity(0))
+    core = -1
+    if len(cores) >= 4:
+        import torch
+        core = cores[-1]
+        _MAIN_CORES[:] = [cores, torch.get_num_threads()]
+        _set_cores(set(cores[:-1]))
+        torch.set_num_threads(min(_MAIN_CORES[1], len(cores) - 1))
+    log = open(os.path.join(DRYRUN_DIR, "child.log"), "w")
+    p = subprocess.Popen([sys.executable, "-c", _DRY_RUN_CHILD,
+                          json.dumps(DRY_RUNS), str(core), DRYRUN_DIR],
+                         cwd=HERE, env=env, stdout=log,
+                         stderr=subprocess.STDOUT)
+    _CHILDREN.append(p)
+    return {"process": p, "log": log, "core": core,
+            "started": time.perf_counter()}
+
+
+def finish_dry_run(child: dict, name: str) -> dict:
+    """One cell's JSON from the dry-run child, waiting for the cell; once
+    the child has ended, this process has its cores back."""
+    p, log = child["process"], child["log"]
+    out = os.path.join(DRYRUN_DIR, f"{name}.json")
+    t0 = time.perf_counter()
+    deadline = child["started"] + DRY_RUN_TIMEOUT_S
+    while not os.path.exists(out) and p.poll() is None \
+            and time.perf_counter() < deadline:
+        time.sleep(0.5)
+    if not os.path.exists(out) or name == list(DRY_RUNS)[-1]:
+        try:  # the last cell's child is about to exit
+            p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    if p.poll() is not None and _MAIN_CORES:
+        import torch
+        _set_cores(set(_MAIN_CORES[0]))
+        torch.set_num_threads(_MAIN_CORES[1])
+        _MAIN_CORES.clear()
+    waited = time.perf_counter() - t0
+    log.flush()
+    with open(log.name) as f:
+        tail = f.read()[-3000:]
+    check(os.path.exists(out),
+          f"dry run {name}: exit {p.poll()}: {tail}")
+    with open(out) as f:
+        rec = json.load(f)
+    rec["waited_s"] = waited
+    rec["child_core"] = child["core"]
+    check(rec["status"] == "ok",
+          f"dry run {name}: {rec['status']} {rec.get('traceback', '')}")
+    return rec
+
+
+def mesh_step_probe(hand: tuple[str, ...]) -> dict:
+    """train_full's cell on a one-card (1, 1) mesh, through the pieces
+    ``run`` uses: a warm step, one counted by ``CostCounter`` (the kernels
+    launched: the formulas they report stand for them), and one under
+    the profiler (the device's busy time)."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.costs import CostCounter
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params, train_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.dist import (make_mesh, single_process_world,
+                                           use_mesh)
+    from repro_torch.parallel.sharding import RULE_VARIANTS, use_rules
+    from repro_torch.train.steps import (TrainState, make_train_step,
+                                         place_batch, place_state)
+    path = TRAIN_FULL
+    cfg = train_cfg(TRAIN_ARCH)
+    rules = RULE_VARIANTS["baseline"]
+    opt = AdamWConfig(warmup_steps=2, total_steps=10)
+    with single_process_world("cuda"):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        with use_mesh(mesh), use_rules(rules):
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            st = {"st": place_state(TrainState.create(train_params(
+                init_params(registry.param_specs(cfg), gen, "cuda")), opt),
+                cfg, rules, mesh)}
+            step = make_train_step(cfg, opt,
+                                   microbatches=path["microbatches"])
+            data = SyntheticDataset(cfg, ShapeConfig(
+                "train_card", path["seq_len"], path["global_batch"],
+                "train"), device="cuda")
+
+            def one(i):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                b = place_batch(data.batch(i), rules, mesh,
+                                path["microbatches"])
+                st["st"], m = step(st["st"], b)
+                float(m["loss"])
+                return time.perf_counter() - t0
+
+            one(0)
+            counter = CostCounter(track_memory=False)
+            with counter:
+                counted_s = one(1)
+            prof = profile_run(lambda: one(2), hand)
+            del st["st"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = counter.costs
+    return {"counted_flops": c.flops, "counted_memory_bytes": c.memory_bytes,
+            "counted_collective_bytes": c.collective_bytes,
+            "counted_kernels": c.kernels, "counted_dots": c.dots,
+            "counted_step_s": counted_s,
+            "device_busy_s": prof.get("device_busy_s"),
+            "wall_s_profiled": prof.get("wall_s_profiled"),
+            "device_idle_share": prof.get("device_idle_share"),
+            "profile_error": prof.get("error")}
+
+
+def train_mesh(card: str, full: dict) -> dict:
+    """``launch.train.run`` on a one-card ``DeviceMesh`` (``mesh="1x1"``,
+    rules baseline): train_full's arch, settings and seed, ``MESH_STEPS``
+    steps. The losses must equal train_full's first ones bit for bit and
+    each step launch exactly ``train_launches`` (144 B3, 72 B9); s/step
+    and peak memory beside train_full's."""
+    import torch
+    from repro_torch.launch.train import TrainLoopConfig, run
+    path = dict(TRAIN_FULL, steps=MESH_STEPS)
+    cfg = train_cfg(TRAIN_ARCH)
+    want = train_launches(cfg, path["microbatches"])
+    per_step = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    prev = read_launches()
+
+    def on_step(step, metrics, seconds):
+        nonlocal prev
+        now = read_launches()
+        per_step.append({k: now[k] - prev[k] for k in now})
+        prev = now
+
+    t0 = time.perf_counter()
+    out = run(TrainLoopConfig(arch=TRAIN_ARCH, reduced=False, device="cuda",
+                              log_every=1, mesh="1x1", rules="baseline",
+                              **path), on_step=on_step)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(out["losses"] == full["losses"][:MESH_STEPS],
+          f"train_mesh: losses {out['losses']} != train_full's "
+          f"{full['losses'][:MESH_STEPS]}")
+    for i, got in enumerate(per_step):
+        check(got == want, f"train_mesh step {i}: launches {got} != {want}")
+    steady = min(out["step_s"][1:])
+    return {"card": card, "arch": TRAIN_ARCH, "mesh": "1x1",
+            "rules": "baseline", **path, "losses": out["losses"],
+            "losses_equal_train_full": True, "step_s": out["step_s"],
+            "steady_s_per_step": steady,
+            "train_full_steady_s_per_step": full["steady_s_per_step"],
+            "peak_memory_bytes": peak,
+            "train_full_peak_memory_bytes": full["peak_memory_bytes"],
+            "launches_per_step": per_step[0], "wall_s": wall}
+
+
+def dryrun_card(card: str, mesh_rec: dict, probe: dict, fake: dict) -> dict:
+    """The dry run of train_mesh's cell on a (1, 1) fake mesh beside the
+    measured run: the FLOPs counted on the card with the kernels launched
+    equal the fake count (``DRYRUN_FLOPS_RTOL``), ``flops_ratio`` in
+    ``FLOPS_RATIO_RANGE``, the predicted peak within ``MEMORY_BAND`` of
+    ``torch.cuda.max_memory_allocated``; the roofline's step time (the
+    H100 SXM's public figures) beside the measured busy time."""
+    rel = abs(probe["counted_flops"] - fake["flops"]) / fake["flops"]
+    check(rel <= DRYRUN_FLOPS_RTOL,
+          f"dryrun_card: counted {probe['counted_flops']} FLOPs on the "
+          f"card, {fake['flops']} under fake tensors")
+    check(probe["counted_kernels"] == fake["kernels"],
+          f"dryrun_card: kernels {probe['counted_kernels']} on the card, "
+          f"{fake['kernels']} under fake tensors")
+    lo, hi = FLOPS_RATIO_RANGE
+    check(lo < fake["flops_ratio"] <= hi,
+          f"dryrun_card: flops_ratio {fake['flops_ratio']}")
+    measured = mesh_rec["peak_memory_bytes"]
+    mem_rel = (fake["peak_bytes"] - measured) / measured
+    check(abs(mem_rel) <= MEMORY_BAND,
+          f"dryrun_card: predicted {fake['peak_bytes']} B, measured "
+          f"{measured} B")
+    return {"card": card, "arch": fake["arch"], "mesh": fake["mesh"],
+            "flops_counted_card": probe["counted_flops"],
+            "flops_fake": fake["flops"], "flops_rel_diff": rel,
+            "kernels": fake["kernels"], "dots_card": probe["counted_dots"],
+            "dots_fake": fake["dots"],
+            "memory_bytes_counted_card": probe["counted_memory_bytes"],
+            "memory_bytes_fake": fake["memory_bytes"],
+            "flops_ratio": fake["flops_ratio"],
+            "predicted_peak_gib": fake["peak_bytes"] / 2 ** 30,
+            "measured_peak_gib": measured / 2 ** 30,
+            "peak_rel_diff": mem_rel,
+            "roofline_step_time_s": fake["step_time_s"],
+            "roofline_terms_s": {k: fake[k] for k in
+                                 ("compute_s", "memory_s", "collective_s")},
+            "dominant": fake["dominant"],
+            "roofline_fraction": fake["roofline_fraction"],
+            "measured_busy_s": probe["device_busy_s"],
+            "measured_step_s": probe["wall_s_profiled"],
+            "measured_idle_share": probe["device_idle_share"],
+            "target": fake["target"], "dry_run_wall_s": fake["wall_s"],
+            "dry_run_child_wall_s": fake["child_wall_s"],
+            "modeled": "roofline terms drawn for the H100 SXM's public "
+                       "figures (989 TFLOP/s bf16, 3.35 TB/s, 900 GB/s)"}
+
+
+def production_argument_bytes(cfg, rules_name: str = "baseline") -> int:
+    """The per-device argument bytes of ``cfg``'s train_4k step on the
+    (16, 16) mesh from the resolved specs alone: each parameter's local
+    shard in float32 and its two moments in the cell's moment dtype, the
+    token and label ids' local rows (int64), the two int32 step
+    counters."""
+    import torch
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.data.specs import BATCH_AXES, batch_specs
+    from repro_torch.launch.dryrun import train_overrides
+    from repro_torch.models import registry
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.parallel.sharding import (RULE_VARIANTS, act_pspec,
+                                               local_shape, param_pspec)
+    sizes = {"data": 16, "model": 16}
+    rules = RULE_VARIANTS[rules_name]
+    mom = torch.empty((), dtype=train_overrides(cfg.name)[
+        "moment_dtype"]).element_size()
+    total = 8
+    for _, s in tree_leaves(registry.param_specs(cfg)):
+        n = math.prod(local_shape(param_pspec(rules, s.axes, s.shape, sizes),
+                                  s.shape, sizes))
+        total += n * (4 + 2 * mom)
+    for k, s in batch_specs(cfg, SHAPES["train_4k"]).items():
+        n = math.prod(local_shape(act_pspec(rules, BATCH_AXES[k], s.shape,
+                                            sizes), s.shape, sizes))
+        total += n * (8 if not s.dtype.is_floating_point else 2)
+    return total
+
+
+def dryrun_production(card: str, rec: dict) -> dict:
+    """deepseek-v2-236b's train_4k cell at all 60 layers on the (16, 16)
+    fake mesh, ``--moe shard_map``: ok, and its per-device argument bytes
+    (the fake shards the counter holds) equal to the local shards the
+    resolved specs give (``production_argument_bytes``)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(MLA_ARCH)
+    want = production_argument_bytes(cfg)
+    check(rec["layers"] == cfg.n_layers == 60,
+          f"dryrun_production: {rec['layers']} layers")
+    check(rec["argument_bytes_tracked"] == rec["argument_bytes"] == want,
+          f"dryrun_production: argument bytes {rec['argument_bytes']} "
+          f"(held {rec['argument_bytes_tracked']}), the specs give {want}")
+    return {"card": card, "arch": MLA_ARCH, "shape": "train_4k",
+            "mesh": rec["mesh"], "chips": rec["chips"],
+            "layers": rec["layers"], "moe": rec["moe"],
+            "status": rec["status"], "argument_bytes": want,
+            "gib_per_device": rec["hbm_gb_per_device"],
+            "fits_80gb": rec["fits"],
+            "terms_s": {k: rec[k] for k in ("compute_s", "memory_s",
+                                            "collective_s")},
+            "collective_bytes": rec["collective_bytes"],
+            "dominant": rec["dominant"], "step_time_s": rec["step_time_s"],
+            "roofline_fraction": rec["roofline_fraction"],
+            "flops_ratio": rec["flops_ratio"], "kernels": rec["kernels"],
+            "microbatches": rec["microbatches"], "target": rec["target"],
+            "dry_run_wall_s": rec["wall_s"],
+            "child_wall_s": rec["child_wall_s"],
+            "waited_s": rec["waited_s"], "child_core": rec["child_core"],
+            "modeled": "for the H100 SXM's public figures, not measured"}
+
+
 def moe_backward_bits(card: str, arch: str = MOE_ARCH,
                       seq_len: int = 2048) -> dict:
     """Two backward passes of one microbatch (1 x ``seq_len`` tokens) of
@@ -4346,6 +4715,9 @@ def main() -> int:
                 for ln in v.get("log", "").splitlines()
                 if "registers" in ln or "Compiling entry" in ln
                 or "spill" in ln])
+    # the dry runs (a CPU child on a core of its own, no card) overlap
+    # the card's phases
+    dry_runs = start_dry_runs()
 
     # ---- 3. kernels vs their plain versions -----------------------------
     suite = paper_suite()
@@ -4630,6 +5002,16 @@ def main() -> int:
         (*B3_KERNELS.values(), *B9_KERNELS["bfloat16"])))
     torch.cuda.empty_cache()
 
+    # ---- 9b'. the parallel slice: train_full's cell on a one-card mesh,
+    # and its dry run under fake tensors beside it
+    mesh_rec = train_mesh(card, tr)
+    probe = mesh_step_probe((*B3_KERNELS.values(),
+                             *B9_KERNELS["bfloat16"]))
+    emit("train_mesh", **mesh_rec, probe=probe)
+    emit("dryrun_card", **dryrun_card(card, mesh_rec, probe,
+                                      finish_dry_run(dry_runs, "card")))
+    torch.cuda.empty_cache()
+
     # ---- 9c. the hybrid, vision and audio families at full width (after
     # every profiled phase above; their own timings profile kernels alone)
     a7a, a7a_shapes = {}, {}
@@ -4782,6 +5164,10 @@ def main() -> int:
     t0 = time.perf_counter()
     resume = guard_resume(card)
     emit("guard_resume", seconds=time.perf_counter() - t0, **resume)
+
+    # ---- 11. the production dry run: deepseek-v2-236b at all 60 layers
+    emit("dryrun_production", **dryrun_production(
+        card, finish_dry_run(dry_runs, "production")))
 
     # ---- the kernels line, the card, the verdict ------------------------
     main_k2 = k2_shapes[0]

@@ -20,12 +20,17 @@ The JAX package's ``repro.checkpoint.manager`` in PyTorch's idiom:
   array or scalar leaves), checking every leaf's shape; each leaf lands
   on ``device`` (or the target leaf's device) in the target leaf's dtype,
   with its ``requires_grad``.
+* **Elastic resharding** — a DTensor leaf is saved whole (its shards
+  gathered; in a process group only rank 0 writes, and ``save`` is a
+  collective every rank calls). On restore a leaf lands as a DTensor on
+  ``mesh`` with its entry of ``placements`` (a tree of the target's
+  structure), or, for a DTensor target leaf, on that leaf's own mesh and
+  placements: each device keeps its slice of the leaf it read whole. A
+  checkpoint saved on one mesh restores onto another, or onto one
+  device.
 
 Leaves are stored whole (numpy ``.npy``); bf16, which numpy cannot hold,
-is stored as float32 (exact) and the manifest keeps ``bfloat16``. Where
-the reference takes a tree of shardings and places each leaf on a mesh
-(elastic resharding), the port takes one ``device``: restoring onto a
-mesh waits for the parallel slice (ROADMAP A9).
+is stored as float32 (exact) and the manifest keeps ``bfloat16``.
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def _flatten(tree, prefix: str = "") -> list:
@@ -76,10 +82,33 @@ def _unflatten(tree, leaves):
     return next(leaves)
 
 
+def _flatten_placements(target, placements, prefix: str = "") -> list:
+    """``(key path, placements)`` of a placements tree that mirrors
+    ``target``'s structure down to its tensor leaves, where it holds a
+    tuple of DTensor placements; ``_flatten``'s key paths."""
+    if placements is None:
+        return []
+    if dataclasses.is_dataclass(target) and not isinstance(target, type):
+        return [kv for f in dataclasses.fields(target)
+                for kv in _flatten_placements(
+                    getattr(target, f.name), getattr(placements, f.name),
+                    f"{prefix}{f.name}/")]
+    if isinstance(target, dict):
+        return [kv for k in sorted(target) for kv in _flatten_placements(
+            target[k], placements.get(k), f"{prefix}{k}/")]
+    if isinstance(target, (list, tuple)):
+        return [kv for i, x in enumerate(target) for kv in
+                _flatten_placements(x, placements[i], f"{prefix}{i}/")]
+    return [(prefix.rstrip("/"), tuple(placements))]
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """A numpy copy of one leaf that the caller's later in-place updates
     cannot reach, and the dtype name the manifest records."""
     if isinstance(leaf, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+        if isinstance(leaf, DTensor):  # a collective: every rank gathers
+            leaf = leaf.detach().full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         name = str(t.dtype).replace("torch.", "")
         if t.dtype == torch.bfloat16:
@@ -100,11 +129,18 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, state: Any, extras: Optional[dict] = None,
              blocking: bool = False) -> None:
-        """Snapshot now, write in background (unless blocking)."""
+        """Snapshot now, write in background (unless blocking). In a
+        process group every rank calls it (DTensor leaves are gathered)
+        and rank 0 writes; a blocking save ends at a barrier, so that
+        every rank may restore from it at once."""
         self.wait()
         host_leaves = [(key, *_to_host(leaf)) for key, leaf in
                        _flatten(state)]
         extras = dict(extras or {})
+        if dist.is_initialized() and dist.get_rank() != 0:
+            if blocking:
+                dist.barrier()
+            return
 
         def _write():
             try:
@@ -130,6 +166,8 @@ class CheckpointManager:
 
         if blocking:
             _write()
+            if dist.is_initialized():
+                dist.barrier()
             self._raise_pending()
         else:
             self._thread = threading.Thread(target=_write, daemon=True)
@@ -168,11 +206,16 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, target_tree: Any, step: Optional[int] = None,
-                device=None) -> tuple[Any, dict]:
+                device=None, placements: Any = None,
+                mesh=None) -> tuple[Any, dict]:
         """Restore into the structure of ``target_tree``. A tensor leaf
         lands on ``device`` (default: the target leaf's) in the target
         leaf's dtype, with its ``requires_grad``; a numpy or scalar leaf
-        comes back as a numpy array. Returns (state, extras)."""
+        comes back as a numpy array. With ``placements`` (a tree of
+        ``target_tree``'s structure, a tuple of DTensor placements at each
+        tensor leaf) and ``mesh``, each leaf becomes a DTensor on
+        ``mesh``; a DTensor target leaf without them keeps its own mesh
+        and placements. Returns (state, extras)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -183,6 +226,8 @@ class CheckpointManager:
             manifest = json.load(f)
         by_key = {e["key"]: e for e in manifest["leaves"]}
 
+        from torch.distributed.tensor import DTensor, distribute_tensor
+        placed = dict(_flatten_placements(target_tree, placements))
         leaves = []
         for key, tgt in _flatten(target_tree):
             entry = by_key.get(key)
@@ -193,10 +238,15 @@ class CheckpointManager:
                 raise ValueError(
                     f"leaf {key!r}: checkpoint shape {arr.shape} != "
                     f"target {tuple(np.shape(tgt))}")
+            pl, on = placed.get(key), mesh
+            if pl is None and isinstance(tgt, DTensor):
+                pl, on = tuple(tgt.placements), tgt.device_mesh
             if isinstance(tgt, torch.Tensor):
-                t = torch.from_numpy(arr).to(
-                    device=tgt.device if device is None else device,
-                    dtype=tgt.dtype)
+                dev = device if device is not None else (
+                    on.device_type if pl is not None else tgt.device)
+                t = torch.from_numpy(arr).to(device=dev, dtype=tgt.dtype)
+                if pl is not None:
+                    t = distribute_tensor(t, on, pl, src_data_rank=None)
                 leaves.append(t.requires_grad_(tgt.requires_grad))
             else:
                 leaves.append(arr)

@@ -151,3 +151,26 @@ def with_sa_width(spec: "NPUSpec", width: "int | None") -> "NPUSpec":
     var = replace(spec, sa_width=int(width))
     _SAW_VARIANTS[(id(spec), width)] = (spec, var)
     return var
+
+
+@dataclass(frozen=True)
+class RooflineTarget:
+    """The device a roofline is drawn for: its peak dense matmul rate,
+    memory rate and capacity, and its links to the other devices of a
+    mesh (``ici_bw_link`` bytes/s a link, ``ici_links`` links used at
+    once). Field names are the JAX package's ``RooflineTarget``'s, so a
+    report reads either."""
+    name: str
+    peak_flops: float
+    hbm_bw: float
+    hbm_gb: float
+    ici_bw_link: float
+    ici_links: int = 1
+
+
+#: the NVIDIA H100 SXM's public figures: 989 TFLOP/s dense bf16, 3.35 TB/s
+#: HBM3, 80 GB, and NVLink 4's 900 GB/s taken as one link
+H100_SXM = RooflineTarget(name="h100-sxm", peak_flops=989e12, hbm_bw=3.35e12,
+                          hbm_gb=80.0, ici_bw_link=900e9, ici_links=1)
+TARGET = H100_SXM
+

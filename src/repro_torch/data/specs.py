@@ -22,6 +22,17 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 
 
+#: each input's logical axes for the sharding rules (the JAX package's
+#: dry run's ``BATCH_AXES``)
+BATCH_AXES = {
+    "tokens": ("batch", "seq"),
+    "labels": ("batch", "seq"),
+    "frames": ("batch", "seq", None),
+    "patches": ("batch", None, None),
+    "cache_len": (),
+}
+
+
 @dataclass(frozen=True)
 class TensorSpec:
     """Shape and dtype of one input, allocating nothing. ``dtype`` is the

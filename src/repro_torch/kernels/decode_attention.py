@@ -27,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_decode_attention
 
@@ -148,6 +149,21 @@ def _launch(lib, q, k_cache, v_cache, out, *, cache_len: int, scale: float,
         stream)
 
 
+def decode_attention_cost(q, k_cache, v_cache, cache_len, *, window=None,
+                          prefix_len: int = 0, **_) -> tuple[float, float]:
+    """``(flops, bytes)`` of one B4 call: one query per head against the
+    ``live_slots``, 2 D operations a slot for the score and 2 D for the
+    value; the live K and V rows read once, q read and the output
+    written."""
+    B, _, H, D = q.shape
+    Hkv = k_cache.shape[2]
+    n_live = live_slots(int(cache_len), window, prefix_len)[0]
+    el = k_cache.element_size()
+    nbytes = el * 2 * B * n_live * Hkv * D + q.element_size() * 2 * B * H * D
+    return 4.0 * B * H * D * n_live, float(nbytes)
+
+
+@costs.counted("B4", decode_attention_cost)
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
                      scale: Optional[float] = None, window=None,
@@ -158,10 +174,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     over ``(cache_len - window, cache_len]`` and the slots before
     ``prefix_len`` (``live_slots``); float32 or bf16, float32 softmax and
     accumulation, output ``(B, 1, H, D)`` in q's dtype. ``scale``
-    defaults to ``D ** -0.5``.
+    defaults to ``D ** -0.5``. A cost counter is told
+    ``decode_attention_cost``; fake tensors launch nothing.
     """
     B, H, D, S, Hkv, cache_len = _check(q, k_cache, v_cache, cache_len)
     scale = D ** -0.5 if scale is None else float(scale)
+    if costs.is_fake(q):  # a dry run's: the output's shape, no work
+        return torch.empty((B, 1, H, D), dtype=q.dtype, device=q.device)
     if q.device.type != "cuda":
         return decode_attention_plain(q, k_cache, v_cache, cache_len,
                                       scale=scale, window=window,

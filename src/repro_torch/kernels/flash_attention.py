@@ -33,8 +33,10 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
+from repro_torch.core import costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF, attention_mask, ref_attention
 
@@ -189,6 +191,42 @@ def _launch(lib, q, k, v, out, *, causal: bool, scale: float,
         None if lse is None else lse.data_ptr(), stream)
 
 
+def live_pairs(Sq: int, Sk: int, *, causal: bool = True, window=None,
+                prefix_len: int = 0) -> int:
+    """The live (query, key) pairs of one (batch, head) under the mask
+    ``ref.attention_mask`` draws: key ``j`` is live for query ``i`` when
+    ``j <= i`` (causal), ``j > i - window`` (a window), or ``j <
+    prefix_len``. The work B3 and B9 do, pair by pair (host arithmetic:
+    no tensor op, which a cost counter would see)."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i if causal else np.full(Sq, Sk - 1), Sk - 1)
+    lo = np.zeros(Sq, dtype=np.int64) if window is None \
+        else np.maximum(i - int(window) + 1, 0)
+    base = np.maximum(hi - lo + 1, 0)
+    pre = min(max(int(prefix_len), 0), Sk)
+    if pre:  # prefix keys outside [lo, hi] are live too
+        base = base + pre - np.maximum(np.minimum(hi, pre - 1) - lo + 1, 0)
+    return int(base.sum())
+
+
+def flash_attention_cost(q, k, v, *, causal: bool = True, window=None,
+                         prefix_len: int = 0, return_lse: bool = False,
+                         **_) -> tuple[float, float]:
+    """``(flops, bytes)`` of one B3 call: QK^T and PV over the live pairs
+    (``live_pairs``), 2 (D + Dv) operations a pair and (batch, head); q,
+    k, v read and the output (and lse) written once."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    live = live_pairs(Sq, Sk, causal=causal, window=window,
+                      prefix_len=prefix_len)
+    nbytes = (q.element_size() * B * Sq * H * (D + Dv)
+              + k.element_size() * B * Sk * Hkv * D
+              + v.element_size() * B * Sk * Hkv * Dv
+              + (4 * B * H * Sq if return_lse else 0))
+    return 2.0 * B * H * (D + Dv) * live, float(nbytes)
+
+
+@costs.counted("B3", flash_attention_cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     tiles_loaded: Optional[torch.Tensor] = None,
@@ -216,10 +254,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``return_lse``: also return each query row's log-sum-exp of its
     scaled live scores, float32 ``(B, H, Sq)`` — ``(out, lse)``.
+
+    A cost counter (``core.costs``) is told ``flash_attention_cost``; on
+    fake tensors the call returns outputs of the right shape and launches
+    nothing.
     """
     B, Sq, H, D, Sk, Hkv, Dv = _check(q, k, v)
     window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
     scale = D ** -0.5 if scale is None else float(scale)
+    if costs.is_fake(q):  # a dry run's: the outputs' shapes, no work
+        out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+        return (out, torch.empty((B, H, Sq), dtype=torch.float32,
+                                 device=q.device)) if return_lse else out
     if q.device.type != "cuda":
         if tiles_loaded is not None:
             raise ValueError("tiles_loaded counts the CUDA kernel's loads; "

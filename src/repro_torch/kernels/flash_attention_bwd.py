@@ -36,10 +36,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (_GRID_YZ_MAX, DTYPES,
                                                  ROW_ALIGN, TILE, _check,
-                                                 _check_mask)
+                                                 _check_mask, live_pairs)
 from repro_torch.kernels.ref import NEG_INF, attention_mask
 
 #: the (q / k, v) head dims B9 is built for, B3's: ``(d, d)`` and multi-head
@@ -151,6 +152,23 @@ def _launch(lib, q, k, v, o, lse, do, delta, dk_ws, dv_ws, dq, dk, dv, *,
         stream)
 
 
+def flash_attention_bwd_cost(q, k, v, *_, causal: bool = True, window=None,
+                             prefix_len: int = 0, **__) -> tuple[float, float]:
+    """``(flops, bytes)`` of one B9 call: five products over the live
+    pairs (``live_pairs``) -- q k^T, dS^T q and dS k at 2 D operations a
+    pair, dO v^T and P^T dO at 2 Dv; q, k, v, o, do and lse read once, dq,
+    dk, dv written once."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    live = live_pairs(Sq, Sk, causal=causal, window=window,
+                      prefix_len=prefix_len)
+    el = q.element_size()
+    nbytes = el * (2 * B * Sq * H * (D + Dv) + 2 * B * Sk * Hkv * (D + Dv)) \
+        + 4 * B * H * Sq
+    return 2.0 * B * H * (3 * D + 2 * Dv) * live, float(nbytes)
+
+
+@costs.counted("B9", flash_attention_bwd_cost)
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = True,
@@ -166,10 +184,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v's shapes. The kernels read dense tensors: a view that is not
     contiguous is copied first (multi-head latent attention's v, a
     stride-256 view into the kv_b product, is copied: 2 B Sk H Dv bytes
-    in bf16, 67 MB at deepseek-v2's training microbatch)."""
+    in bf16, 67 MB at deepseek-v2's training microbatch). A cost counter
+    is told ``flash_attention_bwd_cost``; fake tensors launch nothing."""
     B, Sq, H, D, Sk, Hkv, Dv = _check_bwd(q, k, v, o, lse, do)
     window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
     scale = D ** -0.5 if scale is None else float(scale)
+    if costs.is_fake(q):  # a dry run's: the outputs' shapes, no work
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.device.type != "cuda":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                          scale=scale, window=window,

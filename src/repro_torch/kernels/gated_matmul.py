@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import costs
 from repro_torch.kernels import _build
 
 #: the block sizes the CUDA kernel is built for (bm, bn and bk each)
@@ -94,6 +95,25 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def gated_matmul_cost(x, w, bitmap, *, bm: int = 128, bn: int = 128,
+                      bk: int = 128) -> tuple[float, float]:
+    """``(flops, bytes)`` of one B2 call: 2 M bk bn operations a live
+    weight tile (every tile of a fake bitmap, which holds no data); x, the
+    live w tiles and the output moved once."""
+    M, K = x.shape
+    N = w.shape[1]
+    bk, bn = int(bk), int(bn)
+    if costs.is_fake(bitmap):
+        live = bitmap.numel()
+    else:
+        with costs.uncounted():
+            live = int((bitmap != 0).sum())
+    nbytes = x.element_size() * (M * K + M * N) \
+        + w.element_size() * live * bk * bn
+    return 2.0 * M * bk * bn * live, float(nbytes)
+
+
+@costs.counted("B2", gated_matmul_cost)
 def gated_matmul_p(x: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
                    *, bm: int = 128, bn: int = 128,
                    bk: int = 128) -> torch.Tensor:
@@ -101,11 +121,14 @@ def gated_matmul_p(x: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
     ``bitmap`` (int32 ``(K/bk, N/bn)``) is 0 skipped; float32
     accumulation, the output ``(M, N)`` in x's dtype. M, N and K must be
     multiples of bm, bn and bk. On a CUDA tensor x and w are one dtype of
-    ``DTYPES`` and each block is one of ``BLOCKS``.
+    ``DTYPES`` and each block is one of ``BLOCKS``. A cost counter is
+    told ``gated_matmul_cost``; fake tensors launch nothing.
     """
     bm, bn, bk = int(bm), int(bn), int(bk)
     M, K, N = _check(x, w, bitmap, bm, bn, bk)
     dev = x.device
+    if costs.is_fake(x):  # a dry run's: the output's shape, no work
+        return torch.empty((M, N), dtype=x.dtype, device=dev)
     if dev.type != "cuda":
         out = gated_matmul_plain(x, w, bitmap, bm=bm, bn=bn, bk=bk)
         _counter(dev).add_((M // bm) * int((bitmap != 0).sum()))

@@ -32,6 +32,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (for_kernel,
                                                  kernel_strides)
@@ -156,6 +157,27 @@ def bf16_occupancy(P: int = 64, N: int = 128) -> dict:
                      "dynamic_smem_bytes"), out))
 
 
+def ssd_scan_cost(x, dt, A, B, C, **_) -> tuple[float, float]:
+    """``(flops, bytes)`` of one B5 call, the chunk scan of ``CHUNK``
+    rows: per (batch, group) and chunk the causal half of C B^T (2 N
+    operations a pair); per (batch, head) and chunk its product with x
+    (2 P a pair), the entering state's read-out C h and the state's
+    update B^T x (2 P N a row each). x, B, C, dt and A read once, y
+    (float32) and the final state written once."""
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    Q = CHUNK
+    nc = -(-S // Q)
+    pairs = Q * (Q + 1) // 2
+    flops = 2.0 * nc * (Bz * G * pairs * N
+                        + Bz * H * (pairs * P + 2 * Q * P * N))
+    el = x.element_size()
+    nbytes = el * (Bz * S * H * P + 2 * Bz * S * G * N) + 4 * (
+        Bz * S * H + H + Bz * S * H * P + Bz * H * P * N)
+    return flops, float(nbytes)
+
+
+@costs.counted("B5", ssd_scan_cost)
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *,
              out_state: Optional[torch.Tensor] = None
@@ -166,7 +188,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     batch), B/C ``(B, S, G, N)`` in x's dtype with ``nh % G == 0``.
     Returns y ``(B, S, nh, hd)`` float32 and the final state
     ``(B, nh, hd, N)`` float32 — written into ``out_state`` when it is
-    given (e.g. a cache's layer slice), which is then returned.
+    given (e.g. a cache's layer slice), which is then returned. A cost
+    counter is told ``ssd_scan_cost``; fake tensors launch nothing.
     """
     Bz, S, H, P, G, N = _check(x, dt, A, B, C)
     dev = x.device
@@ -176,6 +199,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             or out_state.stride(-1) != 1 or out_state.stride(-2) != N):
         raise ValueError(f"out_state: want float32 ({Bz}, {H}, {P}, {N}) on "
                          f"{dev} with its last two dims contiguous")
+    if costs.is_fake(x):  # a dry run's: the outputs' shapes, no work
+        y = torch.empty((Bz, S, H, P), dtype=torch.float32, device=dev)
+        return y, (out_state if out_state is not None else torch.empty(
+            (Bz, H, P, N), dtype=torch.float32, device=dev))
     if dev.type != "cuda":
         y, h = ssd_scan_plain(x, dt, A, B, C)
         if out_state is None:

@@ -33,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import costs
 from repro_torch.kernels import _build
 from repro_torch.kernels.ssd_scan import (CHUNK, HEAD_DIMS, STATE_DIMS, _check,
                                           _st, ssd_scan_plain)
@@ -107,6 +108,26 @@ def _workspaces(Bz, S, H, P, N, dev) -> dict:
             for k in WORKSPACES}
 
 
+def ssd_scan_bwd_cost(x, dt, A, B, C, *_) -> tuple[float, float]:
+    """``(flops, bytes)`` of one B10 call, the chunked backward's products
+    per (batch, head) and chunk of ``CHUNK``: the causal half of the
+    chunk's C B^T, dy x^T and the three products that read it back
+    (3 N + 2 P multiply-adds a pair), and five P N Q products (the
+    entering state's recompute, C's and B's state terms, dH B, the state
+    gradient's update); x, dt, A, B, C and dy read once, dx, ddt, dA, dB,
+    dC written once."""
+    Bz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    Q = CHUNK
+    nc = -(-S // Q)
+    fmas = Bz * H * nc * (Q * (Q + 1) // 2 * (3 * N + 2 * P) + 5 * P * N * Q)
+    el = x.element_size()
+    nbytes = 2 * el * (Bz * S * H * P + 2 * Bz * S * G * N) + 4 * (
+        2 * Bz * S * H + 2 * Bz * H + Bz * S * H * P)
+    return 2.0 * fmas, float(nbytes)
+
+
+@costs.counted("B10", ssd_scan_bwd_cost)
 def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
                  dstate: Optional[torch.Tensor] = None):
@@ -115,9 +136,14 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``(B, nh, hd, N)``, or None: the state feeds nothing). The inputs as
     ``ssd_scan`` takes them; dx, dB, dC come back in x's dtype (dB and dC
     per group, ``(B, S, G, N)``: its heads summed), ddt ``(B, S, nh)`` and
-    dA ``(B, nh)`` in float32."""
+    dA ``(B, nh)`` in float32. A cost counter is told
+    ``ssd_scan_bwd_cost``; fake tensors launch nothing."""
     Bz, S, H, P, G, N = _check_bwd(x, dt, A, B, C, dy, dstate)
     dev = x.device
+    if costs.is_fake(x):  # a dry run's: the outputs' shapes, no work
+        return (torch.empty_like(x), torch.empty_like(dt),
+                torch.empty((Bz, H), dtype=torch.float32, device=dev),
+                torch.empty_like(B), torch.empty_like(C))
     if dev.type != "cuda":
         return ssd_scan_bwd_plain(x, dt, A, B, C, dy, dstate)
     _build.check_no_grad("ssd_scan_bwd", (x, dt, A, B, C, dy),

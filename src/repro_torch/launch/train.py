@@ -24,8 +24,18 @@ PyTorch, the same bits run to run). The reduced deepseek's MLA head dims
 widths hold 236 B parameters, more than one card (``chip_smoke.py``
 trains them cut to 3 layers and 16 routed experts through this loop's
 pieces).
-Sharding rules are the parallel slice's (ROADMAP A9): ``--rules``
-accepts ``baseline`` only, one device.
+* **Sharding** -- ``--rules`` names one of the JAX package's rule
+  variants (``parallel.sharding.RULE_VARIANTS``: baseline, seq_parallel,
+  kv_seq, moe_replicated); without a mesh a variant changes nothing, as
+  in the reference. ``--mesh`` (``1x1``, ``data=2,model=1``, ...) trains
+  on a ``DeviceMesh``: the state's leaves are DTensors placed by the
+  rules, every rank holds its shards, the batch is sharded over
+  ``data``, the MoE layers dispatch per shard (``blocks._moe_smap``) and
+  a checkpoint restores onto whatever mesh the run has (elastic
+  resharding). A one-device mesh needs no launcher (the run makes its
+  own one-rank process group); a larger one runs under ``torchrun`` (or
+  any launcher that sets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
+  ``MASTER_PORT``), one process per device.
 
 Run (CPU, reduced config):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -41,21 +51,29 @@ Run (the card, full width):
 from __future__ import annotations
 
 import argparse
+import contextlib
+import math
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ShapeConfig, get_arch
 from repro_torch.data.pipeline import SyntheticDataset
-from repro_torch.models import registry
+from repro_torch.models import blocks, registry
 from repro_torch.models.param import init_params, train_params
 from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train.steps import TrainState, make_train_step
+from repro_torch.parallel.dist import (make_mesh, parse_mesh,
+                                       single_process_world, use_mesh)
+from repro_torch.parallel.sharding import RULE_VARIANTS, use_rules
+from repro_torch.train.steps import (TrainState, make_train_step,
+                                     place_batch, place_state)
 
-RULES = ("baseline",)
+RULES = tuple(RULE_VARIANTS)
 
 
 @dataclass
@@ -75,6 +93,8 @@ class TrainLoopConfig:
     fail_at_step: int = -1
     grad_compression: str | None = None
     rules: str = "baseline"
+    #: a mesh to train on (``parallel.dist.parse_mesh``), or "" for none
+    mesh: str = ""
     log_every: int = 1
     #: where the run's state and batches live: the card unless told
     #: otherwise
@@ -89,14 +109,48 @@ def run(cfg_loop: TrainLoopConfig,
     each step (its metrics are 0-d tensors). Returns ``{"losses",
     "stragglers", "final_loss", "step_s"}``."""
     if cfg_loop.rules not in RULES:
-        raise NotImplementedError(
-            f"rules {cfg_loop.rules!r}: sharding rules are the parallel "
-            f"slice's (ROADMAP A9); the port trains on one device with "
-            f"{RULES}")
+        raise ValueError(f"rules {cfg_loop.rules!r}: want one of {RULES}")
     device = torch.device(cfg_loop.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' (--device "
                            "cpu) to train on the CPU")
+    if not cfg_loop.mesh:
+        with use_rules(RULE_VARIANTS[cfg_loop.rules]):
+            return _run(cfg_loop, on_step, device, None)
+    shape, axes = parse_mesh(cfg_loop.mesh)
+    with _world(math.prod(shape), device.type):
+        mesh = make_mesh(shape, axes, device.type)
+        with use_mesh(mesh), use_rules(RULE_VARIANTS[cfg_loop.rules]), \
+                blocks.moe_dispatch("shard_map"):
+            return _run(cfg_loop, on_step, device, mesh)
+
+
+@contextlib.contextmanager
+def _world(n: int, device_type: str):
+    """The process group a mesh of ``n`` devices needs: the existing one,
+    a one-rank group of this process for ``n == 1``, or one made from the
+    launcher's environment (``RANK``, ``WORLD_SIZE``, ...)."""
+    if dist.is_initialized() or n == 1:
+        with single_process_world(device_type):
+            yield
+        return
+    if int(os.environ.get("WORLD_SIZE", "1")) != n:
+        raise RuntimeError(f"a mesh of {n} devices needs {n} processes: "
+                           f"run under torchrun --nproc-per-node {n}")
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo")
+    try:
+        if device_type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(cfg_loop: TrainLoopConfig, on_step, device, mesh) -> dict:
+    """``run``'s loop, on ``mesh`` when one is given (the mesh and the
+    rules are current)."""
+    from repro_torch.parallel.sharding import current_rules
+    rules = current_rules()
     arch = get_arch(cfg_loop.arch)
     cfg = arch.reduced() if cfg_loop.reduced else arch
     shape = ShapeConfig("train_custom", cfg_loop.seq_len,
@@ -116,6 +170,8 @@ def run(cfg_loop: TrainLoopConfig,
                                       device))
     state = TrainState.create(params, opt,
                               grad_compression=cfg_loop.grad_compression)
+    if mesh is not None:
+        state = place_state(state, cfg, rules, mesh)
     start_step = 0
     if ckpt is not None and ckpt.latest_step() is not None:
         state, extras = ckpt.restore(state)
@@ -131,6 +187,9 @@ def run(cfg_loop: TrainLoopConfig,
                 raise RuntimeError(f"[train] injected failure at step {step}")
             t0 = time.time()
             batch = data.batch(step)
+            if mesh is not None:
+                batch = place_batch(batch, rules, mesh,
+                                    cfg_loop.microbatches)
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])  # waits for the step
             dt = time.time() - t0
@@ -171,7 +230,8 @@ def run(cfg_loop: TrainLoopConfig,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    for f in ("arch", "ckpt_dir", "grad_compression", "rules", "device"):
+    for f in ("arch", "ckpt_dir", "grad_compression", "rules", "device",
+              "mesh"):
         ap.add_argument(f"--{f.replace('_', '-')}", default=None)
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")

@@ -14,9 +14,17 @@ MLA's prefill attends through kernel B3 on the card (q/k head dim 192, v
 the reference computes it in XLA. MoE dispatch is plain PyTorch too (the
 reference's is XLA): the sort-free GShard dispatch, token group by token
 group, with the expert products as batched matmuls.
+
+On a mesh (DTensor activations and weights, ``parallel``) the blocks are
+the same code: ``constrain`` stands where the JAX package's sharding
+hints stand, ``split_heads`` makes the combined heads dim divide at head
+boundaries before a view to heads, the scans and attentions run on local
+shards (``common.heads_local``), and the routed experts, with
+``MOE_SHARD_MAP`` on, per shard (``_moe_smap``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any
 
@@ -24,16 +32,39 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
-from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd
+from repro_torch.core import costs
+from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_cost,
+                                          ssd_scan_plain)
+from repro_torch.kernels.ssd_scan_bwd import ssd_scan_bwd, ssd_scan_bwd_cost
 from repro_torch.models.common import (
-    Window, act_fn, apply_rope, attention, decode_attention, rms_norm)
+    Window, act_fn, apply_rope, attention, decode_attention, heads_local,
+    rms_norm)
 from repro_torch.models.param import spec
+from repro_torch.parallel.dist import (current_mesh, is_dtensor, local_map,
+                                       mesh_axis_sizes)
+from repro_torch.parallel.sharding import (act_placements, act_pspec,
+                                           constrain, current_rules)
 
 
 # ==========================================================================
 # Dense / GQA attention
 # ==========================================================================
+
+def split_heads(t, shape, heads_axis: str = "heads"):
+    """``t`` (B, S, H * hd) viewed as ``shape`` (B, S, H, hd) and
+    constrained to ``("batch", "seq", heads_axis, None)``. On a mesh the
+    combined dim is first redistributed to those placements -- sharded at
+    head boundaries, or gathered where the heads do not split evenly (2
+    KV heads of 128 on a 16-way model axis put a shard inside a head,
+    which GSPMD reshards silently and DTensor's view refuses)."""
+    axes = ("batch", "seq", heads_axis, None)
+    rules, mesh = current_rules(), current_mesh()
+    if is_dtensor(t) and rules is not None and mesh is not None:
+        pl = act_placements(rules, axes, shape, mesh)
+        if tuple(t.placements) != pl:
+            t = t.redistribute(mesh, pl)
+    return constrain(t.reshape(shape), *axes)
+
 
 def attn_specs(cfg: ArchConfig) -> dict:
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -62,9 +93,12 @@ def _qkv(p, x, cfg: ArchConfig, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, Hkv, hd)
-    v = v.reshape(B, S, Hkv, hd)
+    # the heads' constraints sit before the per-head norm and RoPE, which
+    # read a head's dims whole: a shard that ended inside a head (2 KV
+    # heads of 128 on a 16-way model axis) is gathered here
+    q = split_heads(q, (B, S, H, hd))
+    k = split_heads(k, (B, S, Hkv, hd), "kv_heads")
+    v = split_heads(v, (B, S, Hkv, hd), "kv_heads")
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -84,6 +118,7 @@ def attn_fwd(p, x, cfg: ArchConfig, *, window: Window = None,
     o = attention(q, k, v, causal=not cfg.encoder_only, window=window,
                   prefix_len=prefix_len)
     out = o.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    out = constrain(out, "batch", "seq", "embed")
     if return_cache:
         return out, (k, v)
     return out
@@ -109,7 +144,7 @@ def attn_decode(p, x, k_cache, v_cache, cache_len: int, cfg: ArchConfig, *,
     o = decode_attention(q, k_cache, v_cache, cache_len, window=window,
                          prefix_len=prefix_len)
     out = o.reshape(B, 1, H * hd) @ p["wo"]
-    return out, k_cache, v_cache
+    return constrain(out, "batch", None, "embed"), k_cache, v_cache
 
 
 # ==========================================================================
@@ -138,7 +173,7 @@ def _mla_q(p, h, cfg: ArchConfig, positions):
     m, H = cfg.mla, cfg.n_heads
     B, S, _ = h.shape
     q = rms_norm(h @ p["q_a"], p["q_a_norm"], cfg.norm_eps) @ p["q_b"]
-    q = q.reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
+    q = split_heads(q, (B, S, H, m.nope_head_dim + m.rope_head_dim))
     q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -162,7 +197,8 @@ def mla_qkv(p, h, cfg: ArchConfig, positions):
     B, S, _ = h.shape
     q_nope, q_rope = _mla_q(p, h, cfg, positions)
     c, k_rope = _mla_ckv(p, h, cfg, positions)
-    kv = (c @ p["kv_b"]).reshape(B, S, H, m.nope_head_dim + m.v_head_dim)
+    kv = split_heads(c @ p["kv_b"],
+                     (B, S, H, m.nope_head_dim + m.v_head_dim))
     k_nope, v = kv.split([m.nope_head_dim, m.v_head_dim], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.rope_head_dim)], dim=-1)
@@ -185,6 +221,7 @@ def mla_fwd(p, x, cfg: ArchConfig, *, return_cache: bool = False):
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
     o = attention(q, k, v, causal=True, scale=scale)
     out = o.reshape(B, S, H * m.v_head_dim) @ p["wo"]
+    out = constrain(out, "batch", "seq", "embed")
     if return_cache:
         return out, cache  # compressed: kv_lora + rope dims only
     return out
@@ -220,11 +257,12 @@ def mla_decode(p, x, c_cache, krope_cache, cache_len: int,
     scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
     s = torch.einsum("bhql,bkl->bhqk", q_lat, cc)
     s = s + torch.einsum("bqhr,bkr->bhqk", q_rope.to(f32), kr)
+    s = constrain(s, "batch", "heads", None, "kv_seq")
     prob = torch.softmax(s * scale, dim=-1)
     o_lat = torch.einsum("bhqk,bkl->bhql", prob, cc)
     o = torch.einsum("bhql,lhv->bqhv", o_lat, w_uv)
     out = o.reshape(B, 1, H * m.v_head_dim).to(x.dtype) @ p["wo"]
-    return out, c_cache, krope_cache
+    return constrain(out, "batch", None, "embed"), c_cache, krope_cache
 
 
 # ==========================================================================
@@ -252,8 +290,10 @@ def mlp_fwd(p, x, cfg: ArchConfig):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     a = act_fn(cfg.act)
     if "wg" in p:
-        return (a(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"]
-    return a(h @ p["w1"]) @ p["w2"]
+        y = (a(h @ p["wg"]) * (h @ p["wu"])) @ p["wd"]
+    else:
+        y = a(h @ p["w1"]) @ p["w2"]
+    return constrain(y, "batch", "seq", "embed")
 
 
 # ==========================================================================
@@ -307,10 +347,18 @@ def moe_route(tok, router, top_k: int):
     return probs, gate_vals, topk_idx
 
 
-def _moe_groups(p, tok, cfg: ArchConfig):
+def _moe_groups(p, tok, cfg: ArchConfig, experts=None):
     """Dispatch n token groups, each as the JAX package's ``_moe_group``
     dispatches one, in one pass. tok: (n, G, D) -> y (n, G, D) in tok's
     dtype and aux (n,), float32.
+
+    ``experts = (lo, n_local)``: ``p``'s expert weights hold only experts
+    ``[lo, lo + n_local)`` (one model shard's, ``_moe_smap``); the
+    routing is the whole bank's, the assignments to other experts are
+    dropped, y holds this shard's experts' share of each token's sum,
+    and in place of aux come its two factors, each expert's mean
+    probability and routed fraction (``(me, ce)``, (n, E) each), which a
+    data shard holds for its own tokens only.
 
     Each (token, slot) assignment is ranked within its expert by a
     one-hot cumsum over the group's flat (token, slot) order; ranks of C
@@ -328,6 +376,7 @@ def _moe_groups(p, tok, cfg: ArchConfig):
     C = moe_capacity(G, cfg)
     dev = tok.device
 
+    tok = constrain(tok, None, "batch", None)
     probs, gate_vals, topk_idx = moe_route(tok, p["router"], K)
     flat_e = topk_idx.reshape(n, G * K)
     # the one-hot expert-major (n, E, G*K), so that the rank's cumsum runs
@@ -335,23 +384,34 @@ def _moe_groups(p, tok, cfg: ArchConfig):
     sel = (flat_e[:, None, :] == torch.arange(E, device=dev)[:, None]) \
         .to(torch.int32)
     ce = sel.sum(dim=-1).float() * (1.0 / (G * K))            # (n, E)
-    aux = E * (probs.mean(dim=1) * ce).sum(dim=-1)            # (n,)
+    aux = E * (probs.mean(dim=1) * ce).sum(dim=-1) if experts is None \
+        else (probs.mean(dim=1), ce)
     pos = torch.cumsum(sel, dim=-1).gather(
         1, flat_e[:, None, :])[:, 0] - 1                      # rank in expert
     del sel
     keep = pos < C
     grp = torch.arange(n, device=dev)[:, None].expand(n, G * K)
+    row, hrow, rows = flat_e, flat_e, E
+    if experts is not None:  # other shards' experts: the drop row E_loc
+        lo, E = experts
+        mine = (flat_e >= lo) & (flat_e < lo + E)
+        keep = keep & mine
+        row = torch.where(mine, flat_e - lo, E)
+        hrow, rows = torch.where(mine, flat_e - lo, 0), E + 1
 
-    buf = tok.new_zeros((E, n, C + 1, D))
-    buf[flat_e, grp, torch.where(keep, pos, C)] = \
+    buf = constrain(tok.new_zeros((rows, n, C + 1, D)),
+                    "experts", None, None, None)
+    buf[row, grp, torch.where(keep, pos, C)] = \
         tok.repeat_interleave(K, dim=1)
-    xin = buf[:, :, :C].reshape(E, n * C, D)
+    xin = constrain(buf[:E, :, :C].reshape(E, n * C, D),
+                    "experts", None, None)
     del buf
     a = act_fn(cfg.act)
     hmid = a(torch.bmm(xin, p["wg"])) * torch.bmm(xin, p["wu"])
-    hout = torch.bmm(hmid, p["wd"]).view(E, n, C, D)
+    hout = constrain(torch.bmm(hmid, p["wd"]).view(E, n, C, D),
+                     "experts", None, None, None)
 
-    picked = hout[flat_e, grp, torch.where(keep, pos, 0)].float() \
+    picked = hout[hrow, grp, torch.where(keep, pos, 0)].float() \
         * gate_vals.reshape(n, G * K, 1)
     picked = torch.where(keep[..., None], picked, 0.0).view(n, G, K, D)
     y = picked[:, :, 0]
@@ -367,6 +427,117 @@ def _moe_group(p, tok, cfg: ArchConfig):
     return y[0], aux[0]
 
 
+def _moe_seq_groups(p, h, cfg: ArchConfig, gs: int, experts=None):
+    """h (B, S, D) in groups of ``gs`` positions over the whole batch,
+    dispatched ``MOE_BUFFER_BYTES`` at a time: (y (B, S, D), aux (nc,));
+    with ``experts`` (``_moe_groups``) aux's factors (me, ce), (nc, E)
+    each."""
+    mo = cfg.moe
+    B, S, D = h.shape
+    nc = S // gs
+    tok = h.reshape(B, nc, gs, D).transpose(0, 1).reshape(nc, B * gs, D)
+    C = moe_capacity(B * gs, cfg)
+    rows = mo.n_experts if experts is None else experts[1] + 1
+    per_group = rows * (C + 1) * max(D, mo.d_ff_expert) * tok.element_size()
+    step = max(1, MOE_BUFFER_BYTES // per_group)
+    parts = [_moe_groups(p, tok[i:i + step], cfg, experts)
+             for i in range(0, nc, step)]
+    y = torch.cat([y for y, _ in parts]) if len(parts) > 1 else parts[0][0]
+    y = y.view(nc, B, gs, D).transpose(0, 1).reshape(B, S, D)
+    if experts is not None:
+        return y, tuple(torch.cat([a[i] for _, a in parts]) for i in (0, 1))
+    return y, torch.cat([a for _, a in parts])
+
+
+#: the JAX package's ``MOE_SHARD_MAP`` toggle: on a mesh, dispatch each
+#: model shard's experts on its data shard's tokens (``_moe_smap``)
+#: instead of letting DTensor shard the dispatch's ops
+MOE_SHARD_MAP = {"enabled": False}
+
+
+@contextlib.contextmanager
+def moe_dispatch(mode: str):
+    """``MOE_SHARD_MAP`` inside the block: on for ``"shard_map"``, off for
+    ``"gspmd"`` (the dry run's ``--moe``)."""
+    if mode not in ("gspmd", "shard_map"):
+        raise ValueError(f"moe dispatch {mode!r}: want gspmd or shard_map")
+    old = MOE_SHARD_MAP["enabled"]
+    MOE_SHARD_MAP["enabled"] = mode == "shard_map"
+    try:
+        yield
+    finally:
+        MOE_SHARD_MAP["enabled"] = old
+
+
+def moe_shard_map_applicable(cfg: ArchConfig) -> bool:
+    mesh = current_mesh()
+    if mesh is None:
+        return False
+    n_model = mesh_axis_sizes(mesh).get("model", 1)
+    return cfg.moe is not None and cfg.moe.n_experts % n_model == 0
+
+
+def _moe_smap(p, h, cfg: ArchConfig, gs: int):
+    """The mesh path of the routed experts (the JAX package's
+    ``_moe_group_smap``): each model shard runs its ``E / n_model``
+    experts on its data shard's tokens -- routed over the whole bank, at
+    the capacity of a local group -- and the shards' partial sums are
+    all-reduced over ``"model"``. aux's factors, each expert's mean
+    probability and routed fraction, are averaged over the data shards
+    before their product, so aux is the whole group's, as on one device.
+    h: a (B, S, D) DTensor; returns (y, aux (nc,)) as DTensors."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mo = cfg.moe
+    mesh = h.device_mesh
+    sizes = mesh_axis_sizes(mesh)
+    names = list(mesh.mesh_dim_names)
+    n_model = sizes.get("model", 1)
+    e_loc = mo.n_experts // n_model
+    lo = mesh.get_local_rank("model") * e_loc if "model" in sizes else 0
+    rules = current_rules()
+    b_spec = act_pspec(rules, ("batch",), (h.shape[0],), sizes) \
+        if rules is not None else ()
+    b_axes = () if not b_spec else (
+        (b_spec[0],) if isinstance(b_spec[0], str) else tuple(b_spec[0]))
+    n_batch = 1
+    for a in b_axes:
+        n_batch *= sizes[a]
+    reduced = [a for a in names if a == "model" or a in b_axes]
+
+    def pl(batch_dim=None, experts=False, partial=()):
+        out = [Replicate()] * len(names)
+        for a in b_axes:
+            if batch_dim is not None:
+                out[names.index(a)] = Shard(batch_dim)
+        if experts and "model" in names:
+            out[names.index("model")] = Shard(0)
+        for a in partial:
+            out[names.index(a)] = Partial()
+        return tuple(out)
+
+    def local(h_loc, router, wg, wu, wd):
+        y, (me, ce) = _moe_seq_groups(
+            {"router": router, "wg": wg, "wu": wu, "wd": wd}, h_loc, cfg, gs,
+            experts=(lo, e_loc))
+        # summed over the data shards, me and ce are the whole group's
+        # means; every model shard holds the same me, so its sum over
+        # the model shards is scaled back (and so is its gradient)
+        return y, me / (n_batch * n_model), ce / n_batch
+
+    w_pl = pl(experts=True)
+    w_grad = pl(experts=True, partial=b_axes)
+    model = ("model",) if "model" in names else ()
+    ins = (h, p["router"], p["wg"], p["wu"], p["wd"])
+    y, me, ce = local_map(
+        local, ins, (pl(0), pl(), w_pl, w_pl, w_pl),
+        (pl(0, partial=model), pl(partial=reduced), pl(partial=b_axes)),
+        grad_placements=(pl(0, partial=model), pl(partial=reduced), w_grad,
+                         w_grad, w_grad))
+    me, ce = me.redistribute(mesh, pl()), ce.redistribute(mesh, pl())
+    return y.redistribute(mesh, pl(0)), \
+        mo.n_experts * (me * ce).sum(dim=-1)
+
+
 def moe_fwd(p, x, cfg: ArchConfig):
     """x: (B, S, D) -> (y, aux_loss), the JAX package's grouping: token
     groups are sequence chunks of ``gs = max(1, min(group_size, B S) //
@@ -375,7 +546,8 @@ def moe_fwd(p, x, cfg: ArchConfig):
     groups. The reference scans the groups one by one; here as many as
     ``MOE_BUFFER_BYTES`` allows go through one dispatch. The shared
     experts, where the arch has them, are a dense gated MLP over every
-    token."""
+    token. On a mesh with ``MOE_SHARD_MAP`` on (and the experts dividing
+    the model axis) the routed experts take ``_moe_smap``."""
     mo = cfg.moe
     B, S, D = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -383,21 +555,16 @@ def moe_fwd(p, x, cfg: ArchConfig):
     gs = max(1, G // B)
     if S % gs != 0:
         gs = 1
-    nc = S // gs
-    tok = h.reshape(B, nc, gs, D).transpose(0, 1).reshape(nc, B * gs, D)
-    C = moe_capacity(B * gs, cfg)
-    per_group = mo.n_experts * (C + 1) * max(D, mo.d_ff_expert) \
-        * tok.element_size()
-    step = max(1, MOE_BUFFER_BYTES // per_group)
-    parts = [_moe_groups(p, tok[i:i + step], cfg)
-             for i in range(0, nc, step)]
-    y = torch.cat([y for y, _ in parts]) if len(parts) > 1 else parts[0][0]
-    aux = torch.cat([a for _, a in parts]).mean()
-    y = y.view(nc, B, gs, D).transpose(0, 1).reshape(B, S, D)
+    if MOE_SHARD_MAP["enabled"] and is_dtensor(h) \
+            and moe_shard_map_applicable(cfg):
+        y, aux = _moe_smap(p, h, cfg, gs)
+    else:
+        y, aux = _moe_seq_groups(p, h, cfg, gs)
+    aux = aux.mean()
     if mo.n_shared_experts:
         a = act_fn(cfg.act)
         y = y + (a(h @ p["sh_wg"]) * (h @ p["sh_wu"])) @ p["sh_wd"]
-    return y, aux
+    return constrain(y, "batch", "seq", "embed"), aux
 
 
 # ==========================================================================
@@ -502,11 +669,11 @@ def _ssd_inputs(p, h, cfg: ArchConfig, conv_state=None):
     W = ss.conv_width
     B_, S, _ = h.shape
 
-    x = h @ p["in_x"]
-    z = h @ p["in_z"]
-    Bm = h @ p["in_B"]
-    Cm = h @ p["in_C"]
-    dt = h @ p["in_dt"]
+    x = constrain(h @ p["in_x"], "batch", "seq", "ssm_inner")
+    z = constrain(h @ p["in_z"], "batch", "seq", "ssm_inner")
+    Bm = constrain(h @ p["in_B"], "batch", "seq", None)
+    Cm = constrain(h @ p["in_C"], "batch", "seq", None)
+    dt = constrain(h @ p["in_dt"], "batch", "seq", None)
 
     bx, bB, bC = torch.split(p["conv_b"], [di, GN, GN])
     if conv_state is not None:  # decode: prepend the stored tail
@@ -528,7 +695,7 @@ def _ssd_inputs(p, h, cfg: ArchConfig, conv_state=None):
     Cm = F.silu(Cm)
     dt = F.softplus(dt.float() + p["dt_bias"].float())
 
-    x = x.reshape(B_, S, nh, ss.head_dim)
+    x = split_heads(x, (B_, S, nh, ss.head_dim))
     Bm = Bm.reshape(B_, S, ss.n_groups, ss.d_state)
     Cm = Cm.reshape(B_, S, ss.n_groups, ss.d_state)
     return x, z, dt, Bm, Cm, new_tail
@@ -541,7 +708,7 @@ def _ssd_output(p, y, x, z, cfg: ArchConfig):
     y = y + x.float() * p["D_skip"].float()[..., None]
     y = y.reshape(B_, S, di)
     y = rms_norm(y.to(z.dtype) * F.silu(z), p["gnorm"], cfg.norm_eps)
-    return y @ p["out_proj"]
+    return constrain(y @ p["out_proj"], "batch", "seq", "embed")
 
 
 class KernelSSD(torch.autograd.Function):
@@ -565,6 +732,34 @@ class KernelSSD(torch.autograd.Function):
         return ssd_scan_bwd(x, dt, A, Bm, Cm, dy, dstate)
 
 
+def _ssd_scan_any(x, dt, A, Bm, Cm, state_out=None):
+    """The scan of ``ssd_fwd`` on plain tensors: y and the final state
+    (written into ``state_out`` when given). The card (and a dry run's
+    fake tensors): B5, or ``KernelSSD`` under grad; the CPU: the JAX
+    package's plain form, groups repeated to heads, counted as B5 (and
+    its backward as B10)."""
+    if x.device.type == "cuda" or costs.is_fake(x):
+        A = A.expand(x.shape[0], -1)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x, dt, A, Bm, Cm)):
+            y, h_final = KernelSSD.apply(x, dt, A, Bm, Cm)
+            if state_out is not None:
+                h_final = state_out.copy_(h_final.detach())
+            return y, h_final
+        return ssd_scan(x, dt, A, Bm, Cm, out_state=state_out)
+    nh = x.shape[2]
+    A_b = A.expand(x.shape[0], -1)  # as B5 and B10 take it
+    y, h_final = costs.as_kernel(
+        "B5", lambda: ssd_scan_cost(x, dt, A_b, Bm, Cm),
+        lambda x, dt, A, Bm, Cm: _ssd_chunk_scan(
+            x, dt, A, _heads(Bm, nh), _heads(Cm, nh)),
+        (x, dt, A, Bm, Cm),
+        backward=("B10", lambda: ssd_scan_bwd_cost(x, dt, A_b, Bm, Cm)))
+    if state_out is not None:
+        h_final = state_out.copy_(h_final)
+    return y, h_final
+
+
 def ssd_fwd(p, x_res, cfg: ArchConfig, *, return_cache: bool = False,
             state_out=None):
     """Mamba-2 block over a sequence. x_res: (B, S, D).
@@ -576,26 +771,23 @@ def ssd_fwd(p, x_res, cfg: ArchConfig, *, return_cache: bool = False,
 
     On the card with grad enabled on an input that requires it, the scan
     goes through ``KernelSSD`` (B5 forward, B10 backward); ``state_out``
-    then receives a copy of the final state.
+    then receives a copy of the final state. On a
+    mesh the scan runs on local shards (``common.heads_local``: heads as
+    the rules shard ``"heads"``, B and C cut to the groups they read).
     """
     h = rms_norm(x_res, p["ln"], cfg.norm_eps)
     x, z, dt, Bm, Cm, conv_tail = _ssd_inputs(p, h, cfg)
     A = -torch.exp(p["A_log"].float())
-    if x.device.type == "cuda":
-        A = A.expand(x.shape[0], -1)
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (x, dt, A, Bm, Cm)):
-            y, h_final = KernelSSD.apply(x, dt, A, Bm, Cm)
-            if state_out is not None:
-                h_final = state_out.copy_(h_final.detach())
-        else:
-            y, h_final = ssd_scan(x, dt, A, Bm, Cm, out_state=state_out)
-    else:
-        nh = x.shape[2]
-        y, h_final = _ssd_chunk_scan(x, dt, A, _heads(Bm, nh),
-                                     _heads(Cm, nh))
+    if is_dtensor(x):
         if state_out is not None:
-            h_final = state_out.copy_(h_final)
+            raise NotImplementedError("a cache's state slot on a mesh")
+        y, h_final = heads_local(
+            _ssd_scan_any, (x, dt, A, Bm, Cm), ("q", "q", "q", "kv", "kv"),
+            ("q", "q"), n_heads=x.shape[2], n_groups=Bm.shape[2],
+            head_dims=(2, 2, 0, 2, 2, 2, 1),
+            batched=(True, True, False, True, True, True, True))
+    else:
+        y, h_final = _ssd_scan_any(x, dt, A, Bm, Cm, state_out)
     out = _ssd_output(p, y, x, z, cfg)
     if return_cache:
         return out, (conv_tail, h_final)
@@ -615,6 +807,21 @@ def ssd_decode(p, x_res, conv_state, ssm_state, cfg: ArchConfig):
     for dst, src in zip(conv_state, new_tail):
         dst.copy_(src)
     A = -torch.exp(p["A_log"].float())
+    if is_dtensor(x):  # each device's heads, its state slice in place
+        y = heads_local(
+            _ssd_recur, (x, dt, A, Bm, Cm, ssm_state),
+            ("q", "q", "q", "kv", "kv", "q"), ("q",), n_heads=x.shape[2],
+            n_groups=Bm.shape[2], head_dims=(2, 2, 0, 2, 2, 1, 2),
+            batched=(True, True, False, True, True, True, True))
+    else:
+        y = _ssd_recur(x, dt, A, Bm, Cm, ssm_state)
+    out = _ssd_output(p, y, x, z, cfg)
+    return out, conv_state, ssm_state
+
+
+def _ssd_recur(x, dt, A, Bm, Cm, ssm_state):
+    """One token's recurrent update of ``ssm_state`` (B, nh, hd, N) in
+    place and its read-out y (B, 1, nh, hd)."""
     nh = x.shape[2]
     # recurrent step: h' = exp(dt*A) h + dt * B (outer) x ; y = C . h'
     dtq = dt[:, 0]                              # (B, nh)
@@ -624,9 +831,7 @@ def ssd_decode(p, x_res, conv_state, ssm_state, cfg: ArchConfig):
     decay = torch.exp(dtq * A)[..., None, None]
     upd = torch.einsum("bh,bhp,bhn->bhpn", dtq, xq, Bq)
     ssm_state.mul_(decay).add_(upd)
-    y = torch.einsum("bhpn,bhn->bhp", ssm_state, Cq)[:, None]  # (B,1,nh,hd)
-    out = _ssd_output(p, y, x, z, cfg)
-    return out, conv_state, ssm_state
+    return torch.einsum("bhpn,bhn->bhp", ssm_state, Cq)[:, None]
 
 
 # ==========================================================================

@@ -20,8 +20,18 @@ gradient. On a CPU tensor both
 run the plain forms exactly as the JAX package dispatches them
 (``plain_attention`` up to ``chunk_threshold`` keys, then
 ``flash_attention_jax``), and training differentiates through those, as
-the JAX package differentiates through its own. The JAX package's
-sharding hints are dropped: the port runs on one device.
+the JAX package differentiates through its own. A cost counter
+(``core.costs``) counts those plain forms as the kernels they stand for
+(``costs.as_kernel``: B3's formula, and B9's for the backward through
+it; B4's), so a step counts the same on either device; a dry run's fake
+tensors take the kernels' route, whose wrappers return shaped outputs.
+
+On a mesh (DTensor inputs, ``parallel``) both attentions run on local
+shards (``heads_local``): batch sharded as the rules shard ``"batch"``,
+query heads as they shard ``"heads"`` where the heads split evenly into
+whole GQA groups, each device's K/V heads cut to the groups its query
+heads read. The JAX package's sharding hints are ``constrain`` calls
+here, no-ops without rules and a mesh.
 """
 from __future__ import annotations
 
@@ -30,13 +40,19 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import costs
 from repro_torch.kernels.decode_attention import \
     decode_attention as decode_attention_kernel
+from repro_torch.kernels.decode_attention import decode_attention_cost
 from repro_torch.kernels.flash_attention import \
     flash_attention as flash_attention_kernel
+from repro_torch.kernels.flash_attention import flash_attention_cost
 from repro_torch.kernels.flash_attention_bwd import \
     HEAD_DIM_PAIRS as B9_HEAD_DIM_PAIRS
-from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+from repro_torch.kernels.flash_attention_bwd import (flash_attention_bwd,
+                                                     flash_attention_bwd_cost)
+from repro_torch.parallel.dist import is_dtensor, local_map
+from repro_torch.parallel.sharding import act_pspec, constrain, current_rules
 
 Window = Union[None, int, torch.Tensor]
 
@@ -150,6 +166,8 @@ def flash_attention_jax(q, k, v, *, causal: bool, window: Window = None,
         rep = H // Hkv
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
+    k = constrain(k, "batch", "kv_seq", "heads", None)
+    v = constrain(v, "batch", "kv_seq", "heads", None)
     dev = q.device
 
     q = q.float() * scale
@@ -230,17 +248,28 @@ def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
     """Sequence attention. CUDA: kernel B3 (any of its masks; see the
     module docstring for what raises), through ``KernelAttention``
     (backward B9, under the same mask) when an input requires grad. CPU:
-    plain or chunked flash by KV length, as the JAX package."""
-    if q.device.type == "cuda":
-        Sq, Sk = q.shape[1], k.shape[1]
+    plain or chunked flash by KV length, as the JAX package (counted as
+    B3 and B9). Fake tensors: B3's route. DTensors: on local shards."""
+    if is_dtensor(q):
+        return heads_local(
+            lambda ql, kl, vl: attention(
+                ql, kl, vl, causal=causal, window=window, q_offset=q_offset,
+                scale=scale, prefix_len=prefix_len,
+                chunk_threshold=chunk_threshold, q_chunk=q_chunk,
+                kv_chunk=kv_chunk),
+            (q, k, v), ("q", "kv", "kv"), ("q",), n_heads=q.shape[2],
+            n_groups=k.shape[2])
+    Sq, Sk = q.shape[1], k.shape[1]
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if q.device.type == "cuda" or costs.is_fake(q):
         if q_offset != 0 or (causal and Sq != Sk):
             raise NotImplementedError(
                 f"on the card attention runs kernel B3, which takes no "
                 f"query offset (got {q_offset}) and no causal attention "
                 f"with Sq != Sk (got {Sq}, {Sk})")
         window = _kernel_window(window, Sq)
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
+        if grad:
             D, Dv = q.shape[-1], v.shape[-1]
             if (D, Dv) not in B9_HEAD_DIM_PAIRS:
                 raise NotImplementedError(
@@ -251,15 +280,25 @@ def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
                                          prefix_len)
         return flash_attention_kernel(q, k, v, causal=causal, scale=scale,
                                       window=window, prefix_len=prefix_len)
-    if k.shape[1] <= chunk_threshold:
-        return plain_attention(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset, scale=scale,
-                               prefix_len=prefix_len)
-    return flash_attention_jax(q, k, v, causal=causal, window=window,
-                               q_offset=q_offset,
-                               q_chunk=min(q_chunk, q.shape[1]),
-                               kv_chunk=kv_chunk, scale=scale,
-                               prefix_len=prefix_len)
+
+    def plain(q, k, v):
+        if Sk <= chunk_threshold:
+            return plain_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, scale=scale,
+                                   prefix_len=prefix_len)
+        return flash_attention_jax(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset,
+                                   q_chunk=min(q_chunk, Sq),
+                                   kv_chunk=kv_chunk, scale=scale,
+                                   prefix_len=prefix_len)
+    if q_offset != 0 or (causal and Sq != Sk):
+        return plain(q, k, v)  # no kernel takes it: counted as it runs
+    mask = dict(causal=causal, window=_kernel_window(window, Sq),
+                prefix_len=prefix_len)
+    return costs.as_kernel(
+        "B3", lambda: flash_attention_cost(q, k, v, return_lse=grad, **mask),
+        plain, (q, k, v), backward=(
+            "B9", lambda: flash_attention_bwd_cost(q, k, v, **mask)))
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
@@ -272,12 +311,33 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
     the last ``window`` of them and, beside it, the slots before
     ``prefix_len``. CUDA: kernel B4, which reads the live slots alone.
     CPU: the JAX package's form — q scaled in float32 and rounded to the
-    cache's dtype, products in the cache's dtype summed in float32.
+    cache's dtype, products in the cache's dtype summed in float32
+    (counted as B4). Fake tensors: B4's route. DTensors: on local shards,
+    the cache's sequence gathered.
     """
-    if q.device.type == "cuda":
+    if is_dtensor(q):
+        return heads_local(
+            lambda ql, kl, vl: decode_attention(
+                ql, kl, vl, cache_len, scale=scale, window=window,
+                prefix_len=prefix_len),
+            (q, k_cache, v_cache), ("q", "kv", "kv"), ("q",),
+            n_heads=q.shape[2], n_groups=k_cache.shape[2])
+    if q.device.type == "cuda" or costs.is_fake(q):
         return decode_attention_kernel(q, k_cache, v_cache, cache_len,
                                        scale=scale, window=window,
                                        prefix_len=prefix_len)
+    return costs.as_kernel(
+        "B4", lambda: decode_attention_cost(
+            q, k_cache, v_cache, cache_len, window=window,
+            prefix_len=prefix_len),
+        lambda q, k_cache, v_cache: _plain_decode(
+            q, k_cache, v_cache, cache_len, scale=scale, window=window,
+            prefix_len=prefix_len), (q, k_cache, v_cache))
+
+
+def _plain_decode(q, k_cache, v_cache, cache_len, *, scale, window,
+                  prefix_len):
+    """``decode_attention``'s CPU form, the JAX package's."""
     B, _, H, D = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     scale = scale if scale is not None else D ** -0.5
@@ -291,7 +351,103 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale=None,
         if prefix_len > 0:
             okw = okw | (ok & (k_pos < prefix_len))
         ok = okw
-    p = torch.softmax(s + _mask_bias(ok), dim=-1)
+    s = constrain(s + _mask_bias(ok), "batch", "kv_heads", None, "kv_seq")
+    p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
     return out.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# Shard-local calls over heads
+# --------------------------------------------------------------------------
+
+def _head_layout(n_heads: int, n_groups: int, batch: int, mesh):
+    """How a per-head call is cut on ``mesh`` under the current rules:
+    ``(batch_spec, head_axes, n_shards, rank)`` -- the batch dim's spec
+    entry, the mesh axes the heads are sharded over (``()`` when they are
+    not: no rules, or the heads do not split into whole GQA groups
+    evenly), how many ways, and this device's index among them."""
+    rules = current_rules()
+    if rules is None:
+        return None, (), 1, 0
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    spec = act_pspec(rules, ("batch", "heads"), (batch, n_heads), sizes)
+    spec = spec + (None,) * (2 - len(spec))
+    b_spec, h_spec = spec
+    if h_spec is None:
+        return b_spec, (), 1, 0
+    axes = (h_spec,) if isinstance(h_spec, str) else tuple(h_spec)
+    n = 1
+    rank = 0
+    for a in axes:
+        n *= sizes[a]
+        rank = rank * sizes[a] + mesh.get_local_rank(a)
+    local, per_group = n_heads // n, n_heads // n_groups
+    if local % per_group and per_group % local:
+        return b_spec, (), 1, 0
+    return b_spec, axes, n, rank
+
+
+def heads_local(fn, args, kinds, out_kinds, *, n_heads: int, n_groups: int,
+                head_dims=None, batched=None):
+    """``fn`` on each device's local shards of per-head DTensor ``args``,
+    its outputs wrapped back as DTensors: the batch dim 0 sharded as the
+    rules shard ``"batch"``; an argument of kind ``"q"`` (or output) with
+    its heads sharded as the rules shard ``"heads"``; one of kind
+    ``"kv"`` with its ``n_groups`` groups replicated and then cut to the
+    groups this device's query heads read (head ``h`` reads group ``h //
+    (n_heads // n_groups)``), its gradient summed over the devices that
+    cut it; ``"rep"``: replicated whole. ``head_dims`` (default 2 each)
+    is each argument's then each output's head dim, ``batched`` (default
+    all) whether it has the batch dim 0."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+    n_all = len(args) + len(out_kinds)
+    head_dims = (2,) * n_all if head_dims is None else tuple(head_dims)
+    batched = (True,) * n_all if batched is None else tuple(batched)
+    batch = next(a.shape[0] for a, b in zip(args, batched) if b)
+    b_spec, h_axes, n, rank = _head_layout(n_heads, n_groups, batch, mesh)
+    names = list(mesh.mesh_dim_names)
+    b_axes = () if b_spec is None else (
+        (b_spec,) if isinstance(b_spec, str) else tuple(b_spec))
+
+    def placements(kind, hd, has_batch, grad=False):
+        out = [Replicate()] * len(names)
+        if has_batch:
+            for a in b_axes:
+                out[names.index(a)] = Shard(0)
+        for a in h_axes:
+            if kind == "q":
+                out[names.index(a)] = Shard(hd)
+            elif kind == "kv" and grad:
+                out[names.index(a)] = Partial()
+        return tuple(out)
+
+    per_group = n_heads // n_groups
+    local_heads = n_heads // n
+    g_lo = rank * local_heads // per_group
+    g_n = max(1, local_heads // per_group)
+    nargs = len(args)
+    in_pl = [placements(k, hd, b) for k, hd, b in
+             zip(kinds, head_dims[:nargs], batched[:nargs])]
+    grad_pl = [placements(k, hd, b, grad=True) for k, hd, b in
+               zip(kinds, head_dims[:nargs], batched[:nargs])]
+    out_pl = [placements(k, hd, b) for k, hd, b in
+              zip(out_kinds, head_dims[nargs:], batched[nargs:])]
+
+    def local(*xs):
+        if h_axes:
+            xs = [x.narrow(hd, g_lo, g_n) if k == "kv" else x
+                  for x, k, hd in zip(xs, kinds, head_dims)]
+        return fn(*xs)
+
+    args = [a if is_dtensor(a) or not isinstance(a, torch.Tensor)
+            else _replicated(a, mesh) for a in args]
+    return local_map(local, args, in_pl, out_pl, grad_placements=grad_pl)
+
+
+def _replicated(t: torch.Tensor, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)

@@ -45,6 +45,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import blocks, registry
 from repro_torch.models.common import rms_norm
 from repro_torch.models.param import cast_tree, tree_leaves, tree_with_leaves
+from repro_torch.parallel.dist import is_dtensor, local_map
+from repro_torch.parallel.sharding import constrain, gather_params
 
 REMAT_POLICIES = {
     "full": None,  # save nothing
@@ -101,6 +103,21 @@ def _text_scale(cfg: ArchConfig, dtype, device) -> torch.Tensor:
     return torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=device)
 
 
+def _rows(table, ids):
+    """``table[ids]``: the embedding lookup. On a mesh the table is
+    gathered whole and each device looks up its own ids (the table's
+    gradient summed over the devices that hold different ids)."""
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = table.device_mesh
+    ids_pl = tuple(ids.placements)
+    rep = (Replicate(),) * mesh.ndim
+    grad = tuple(Partial() if p.is_shard() else Replicate() for p in ids_pl)
+    return local_map(lambda t, i: t[i], (table, ids), (rep, ids_pl),
+                     (ids_pl,), grad_placements=(grad, None))
+
+
 def embed_inputs(params, batch: dict, cfg: ArchConfig,
                  dtype=torch.bfloat16):
     """Returns x: (B, S_total, D) and the prefix length (the vision arch's
@@ -110,20 +127,25 @@ def embed_inputs(params, batch: dict, cfg: ArchConfig,
     ``batch["tokens"]``."""
     if cfg.frontend == "audio":
         x = batch["frames"].to(dtype) @ params["frontend_proj"].to(dtype)
-        return x + _sinusoid(x.shape[1], x.shape[2], x.device).to(dtype), 0
-    tx = params["embed"].to(dtype)[batch["tokens"]]
+        x = x + _sinusoid(x.shape[1], x.shape[2], x.device).to(dtype)
+        return constrain(x, "batch", "seq", "embed"), 0
+    tx = _rows(params["embed"].to(dtype), batch["tokens"])
     if cfg.frontend == "vision":
         img = batch["patches"].to(dtype) @ params["frontend_proj"].to(dtype)
         tx = tx * _text_scale(cfg, dtype, tx.device)
-        return torch.cat([img, tx], dim=1), cfg.frontend_seq
-    return tx, 0
+        x = torch.cat([constrain(img, "batch", "seq", "embed"),
+                       constrain(tx, "batch", "seq", "embed")], dim=1)
+        return constrain(x, "batch", "seq", "embed"), cfg.frontend_seq
+    return constrain(tx, "batch", "seq", "embed"), 0
 
 
 def unembed(params, x, cfg: ArchConfig):
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if "lm_head" in params:
-        return h @ params["lm_head"].to(h.dtype)
-    return h @ params["embed"].to(h.dtype).T  # tied: h @ embed.T
+        logits = h @ params["lm_head"].to(h.dtype)
+    else:
+        logits = h @ params["embed"].to(h.dtype).T  # tied: h @ embed.T
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 # --------------------------------------------------------------------------
@@ -205,11 +227,11 @@ def _apply_dense0(p, x, cfg: ArchConfig, *, prefill: bool):
 # --------------------------------------------------------------------------
 
 def _windows(cfg: ArchConfig, seq_hint: int) -> list:
-    """Each layer's attention window (``registry.window_array``) as
-    Python ints, or None for every layer of an arch without one."""
-    warr = registry.window_array(cfg, seq_hint)
-    L = registry.n_scanned_layers(cfg)
-    return [None] * L if warr is None else warr.tolist()
+    """Each layer's attention window (``registry.window_list``), or None
+    for every layer of an arch without one -- no tensor is made (a dry
+    run's fake tensors hold no values)."""
+    return registry.window_list(cfg, seq_hint) \
+        or [None] * registry.n_scanned_layers(cfg)
 
 
 def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
@@ -240,7 +262,7 @@ def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
     training forward (``prefill=False``) when grad is enabled; prefill
     and no-grad calls keep nothing for a backward and ignore it.
     """
-    params = cast_tree(params, dtype)
+    params = _gathered_top(cast_tree(params, dtype))
     x, prefix_len = embed_inputs(params, batch, cfg, dtype)
     S = x.shape[1]
     L = registry.n_scanned_layers(cfg)
@@ -248,11 +270,12 @@ def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
     windows = _windows(cfg, S)
     if not prefill:
         def one(p_layer, x, window):
-            return _apply_layer(p_layer, x, cfg, window=window,
-                                prefix_len=prefix_len, prefill=False)[:2]
+            return _apply_layer(gather_params(p_layer), x, cfg,
+                                window=window, prefix_len=prefix_len,
+                                prefill=False)[:2]
 
-        dense0 = lambda p, x: _apply_dense0(p, x, cfg,  # noqa: E731
-                                            prefill=False)[0]
+        dense0 = lambda p, x: _apply_dense0(  # noqa: E731
+            gather_params(p), x, cfg, prefill=False)[0]
         if torch.is_grad_enabled():
             one, dense0 = _remat(one, remat), _remat(dense0, remat)
         if "dense0" in params:
@@ -264,7 +287,8 @@ def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
         return unembed(params, x, cfg), aux
     new = {}
     if "dense0" in params:
-        x, entry = _apply_dense0(params["dense0"], x, cfg, prefill=True)
+        x, entry = _apply_dense0(gather_params(params["dense0"]), x, cfg,
+                                 prefill=True)
         if cache is None:
             new["dense0"] = entry
         else:
@@ -272,7 +296,8 @@ def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
     entries = []
     for i, p_layer in enumerate(layers):
         slot = None if cache is None else _cache_slice(cache["layers"], i)
-        x, _, entry = _apply_layer(p_layer, x, cfg, window=windows[i],
+        x, _, entry = _apply_layer(gather_params(p_layer), x, cfg,
+                                   window=windows[i],
                                    prefix_len=prefix_len, prefill=True,
                                    slot=slot)
         if cache is None:
@@ -301,14 +326,85 @@ def loss_fn(params, batch: dict, cfg: ArchConfig, *, remat: str = "full",
     labels = batch["labels"]
     if cfg.frontend == "vision":
         logits = logits[:, cfg.frontend_seq:]
-    logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    lse, ll = _lse_ll_mesh(logits, labels) if _vocab_sharded(logits) \
+        else local_map(_lse_ll, (logits, labels),
+                       *_row_placements(logits, labels))
     ce = (lse - ll).mean()
     z = (lse ** 2).mean()  # z-loss keeps logits bounded
     loss = ce + aux_weight * aux + z_weight * z
     metrics = {"loss": loss, "ce": ce, "aux": aux, "z": z}
     return loss, metrics
+
+
+def _lse_ll(logits, labels):
+    """Each row's float32 log-sum-exp and its label's logit."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    return lse, ll
+
+
+def _vocab_sharded(logits) -> bool:
+    return is_dtensor(logits) and any(
+        p.is_shard(logits.dim() - 1) for p in logits.placements)
+
+
+def _lse_ll_mesh(logits, labels):
+    """``_lse_ll`` with the vocab left sharded (as the rules shard
+    ``"vocab"``): each device reduces its slice of the vocab -- the max,
+    then the sum of exponentials below it, and the label's logit where it
+    holds that label -- and the slices' results are combined (a max, then
+    two sums). A gathered vocab would hold a (rows, V) float32 block per
+    device."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = logits.device_mesh
+    vdim = logits.dim() - 1
+    v_axes = [i for i, p in enumerate(logits.placements) if p.is_shard(vdim)]
+    rows = tuple(Replicate() if i in v_axes else p
+                 for i, p in enumerate(logits.placements))
+    part = tuple(Partial() if i in v_axes else p for i, p in enumerate(rows))
+    top = tuple(Partial("max") if i in v_axes else p
+                for i, p in enumerate(rows))
+    n_v, rank = 1, 0
+    for i in v_axes:
+        n_v *= mesh.size(i)
+        rank = rank * mesh.size(i) + mesh.get_local_rank(i)
+    v_loc = logits.shape[-1] // n_v
+
+    m = local_map(lambda lg: lg.float().amax(dim=-1), (logits,),
+                  (logits.placements,), (top,)).redistribute(mesh, rows)
+    m = m.detach()
+
+    def sums(lg, lab, mx):
+        lg = lg.float()
+        s = torch.exp(lg - mx[..., None]).sum(dim=-1)
+        j = lab.to(torch.int64) - rank * v_loc
+        mine = (j >= 0) & (j < v_loc)
+        ll = torch.gather(lg, -1, j.clamp(0, v_loc - 1)[..., None])[..., 0]
+        return s, torch.where(mine, ll, 0.0)
+
+    s, ll = local_map(sums, (logits, labels, m),
+                      (logits.placements, rows, rows), (part, part))
+    s, ll = s.redistribute(mesh, rows), ll.redistribute(mesh, rows)
+    return m + torch.log(s), ll
+
+
+def _row_placements(logits, labels):
+    """``local_map`` placements for ``_lse_ll`` on a mesh: the labels' own
+    (rows sharded as the batch), the logits' vocab gathered."""
+    if not is_dtensor(logits):
+        return (None, None), (None, None)
+    pl = tuple(labels.placements)
+    return (pl, pl), (pl, pl)
+
+
+def _gathered_top(params: dict) -> dict:
+    """The top-level leaves (embedding, head, final norm, frontend) of a
+    parameter tree gathered over the FSDP axes for the step
+    (``gather_params``); the layers' leaves are gathered layer by layer
+    where they are used. A no-op off a mesh."""
+    return {k: v if k in ("layers", "dense0") else gather_params(v)
+            for k, v in params.items()}
 
 
 def _store(slot, entry, S: int) -> None:
@@ -452,14 +548,15 @@ def decode_step(params, cache: dict, batch: dict, cfg: ArchConfig, *,
     layer's window is ``registry.window_array`` at a sequence hint read
     off the cache's shapes (``_seq_hint``).
     """
-    params = cast_tree(params, dtype)
+    params = _gathered_top(cast_tree(params, dtype))
     cache_len = int(batch["cache_len"])
     prefix_len = cfg.frontend_seq if cfg.frontend == "vision" else 0
-    x = params["embed"].to(dtype)[batch["tokens"]]
+    x = _rows(params["embed"].to(dtype), batch["tokens"])
     if cfg.frontend == "vision":
         x = x * _text_scale(cfg, dtype, x.device)
+    x = constrain(x, "batch", None, "embed")
     if "dense0" in cache:
-        p0 = params["dense0"]
+        p0 = gather_params(params["dense0"])
         y, _, _ = blocks.mla_decode(p0["attn"], x, *cache["dense0"],
                                     cache_len, cfg)
         x = x + y
@@ -467,7 +564,8 @@ def decode_step(params, cache: dict, batch: dict, cfg: ArchConfig, *,
     L = registry.n_scanned_layers(cfg)
     windows = _windows(cfg, _seq_hint(cache))
     for i, p_layer in enumerate(_layers(params["layers"], L)):
-        x, _ = _decode_layer(p_layer, x, _cache_slice(cache["layers"], i),
+        x, _ = _decode_layer(gather_params(p_layer), x,
+                             _cache_slice(cache["layers"], i),
                              cache_len, cfg, window=windows[i],
                              prefix_len=prefix_len)
     return unembed(params, x, cfg), cache

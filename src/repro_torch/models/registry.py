@@ -86,16 +86,22 @@ def global_layer_indices(cfg: ArchConfig) -> list[int]:
     return sorted({int(round(i * step)) for i in range(cfg.n_global_layers)})
 
 
-def window_array(cfg: ArchConfig, seq_hint: int,
-                 device=None) -> Optional[torch.Tensor]:
-    """(L,) int32 per-layer attention window (>=seq => effectively global).
-
-    None if the arch has no sliding-window mixing (static full attention).
-    """
+def window_list(cfg: ArchConfig, seq_hint: int) -> Optional[list[int]]:
+    """Each layer's attention window as Python ints (>= seq =>
+    effectively global); None if the arch has no sliding-window mixing
+    (static full attention)."""
     if cfg.sliding_window <= 0:
         return None
     glob = set(global_layer_indices(cfg))
     big = seq_hint + cfg.sliding_window + 1
-    vals = [big if i in glob else cfg.sliding_window
+    return [big if i in glob else cfg.sliding_window
             for i in range(cfg.n_layers)]
-    return torch.tensor(vals, dtype=torch.int32, device=device)
+
+
+def window_array(cfg: ArchConfig, seq_hint: int,
+                 device=None) -> Optional[torch.Tensor]:
+    """(L,) int32 per-layer attention window (``window_list``'s values);
+    None if the arch has no sliding-window mixing."""
+    vals = window_list(cfg, seq_hint)
+    return None if vals is None else torch.tensor(
+        vals, dtype=torch.int32, device=device)

@@ -13,6 +13,11 @@ one 80 GB card beside the gradients. Leaves are updated in chunks along
 their leading (stacked-layer) axis of at most ``max_chunk_elems``
 elements, each chunk by the reference's operations in the reference's
 order; elementwise float operations give the same bits chunked or whole.
+
+On a mesh the parameters, gradients and moments are DTensors: the global
+norm sums each leaf's shards (DTensor's reduction), and every leaf is
+updated in place on this device's local shard, its gradient first
+redistributed to the parameter's placements.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Any, Iterator, Optional
 import torch
 
 from repro_torch.models.param import tree_leaves, tree_map
+from repro_torch.parallel.dist import is_dtensor
 
 #: the default chunk of an in-place update: 64 M elements (256 MB of
 #: float32 a temporary)
@@ -56,9 +62,10 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def adamw_init(params, cfg: AdamWConfig) -> dict:
     """``{"m", "v"}`` zero trees of ``cfg.moment_dtype`` beside
-    ``params`` (on their devices) and ``"step"``, an int32 0-d tensor."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=cfg.moment_dtype,  # noqa
-                                  device=p.device)
+    ``params`` (on their devices, placed as they are on a mesh) and
+    ``"step"``, an int32 0-d tensor."""
+    zeros = lambda p: torch.zeros_like(  # noqa: E731
+        p, dtype=cfg.moment_dtype, memory_format=torch.contiguous_format)
     dev = next(leaf for _, leaf in tree_leaves(params)).device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -80,6 +87,7 @@ def global_norm(tree) -> torch.Tensor:
     squares (one leaf-sized temporary at a time)."""
     sums = [torch.sum(torch.square(x.to(torch.float32)))
             for _, x in tree_leaves(tree)]
+    sums = [s.full_tensor() if is_dtensor(s) else s for s in sums]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -131,9 +139,13 @@ def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig, *,
     flat_m = dict(tree_leaves(opt_state["m"]))
     flat_v = dict(tree_leaves(opt_state["v"]))
     for path, p in tree_leaves(params):
+        g, m, v = flat_g[path], flat_m[path], flat_v[path]
+        if is_dtensor(p):  # this device's shards, g placed as p
+            if tuple(g.placements) != tuple(p.placements):
+                g = g.redistribute(p.device_mesh, p.placements)
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         for pc, gc, mc, vc in zip(*(chunks(t, max_chunk_elems) for t in
-                                    (p, flat_g[path], flat_m[path],
-                                     flat_v[path]))):
+                                    (p, g, m, v))):
             _update_leaf(pc, gc, mc, vc, cfg=cfg, scale=scale, lr=lr, c1=c1,
                          c2=c2, decay=p.dim() >= 2)
     opt_state["step"] = step

@@ -1470,3 +1470,52 @@ def test_attention_bwd_kernel_under_masks(card, dtype, mask):
                 float(w.abs().max()), 1.0)
         else:
             assert float((a - w).norm() / w.norm()) <= 8e-3
+
+
+def _counted_train_step(device):
+    """One reduced qwen2.5-3b train step (2 microbatches, remat "full")
+    on ``device`` under a ``CostCounter``: its costs."""
+    from repro_torch.configs.base import ShapeConfig, get_arch
+    from repro_torch.core.costs import CostCounter
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params, train_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.steps import TrainState, make_train_step
+    cfg = get_arch("qwen2.5-3b").reduced()
+    opt = AdamWConfig()
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = TrainState.create(train_params(init_params(
+        registry.param_specs(cfg), gen, device)), opt)
+    batch = SyntheticDataset(cfg, ShapeConfig("t", 128, 4, "train"),
+                             device=device).batch(0)
+    step = make_train_step(cfg, opt, microbatches=2)
+    counter = CostCounter(track_memory=False)
+    with counter:
+        step(state, batch)
+    return counter.costs
+
+
+def test_cost_count_with_kernels_equals_the_plain_count(card):
+    """The counter counts a step the same with the kernels launched (the
+    card) as through their plain versions (the CPU): each wrapper reports
+    its formula and the ops inside it are not counted."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+    b3, b9 = flash_attention.launches, flash_attention_bwd.launches
+    got = _counted_train_step(card)
+    assert (flash_attention.launches - b3, flash_attention_bwd.launches - b9) \
+        == (2 * 2 * 2, 2 * 2)
+    want = _counted_train_step("cpu")
+    assert got.kernels == want.kernels == {"B3": 8, "B9": 4}
+    assert abs(got.flops - want.flops) <= 1e-9 * want.flops
+    assert got.dots == want.dots
+
+
+def test_reduced_train_mesh_on_the_card(card):
+    """``launch.train.run`` on a one-card (1, 1) mesh: the losses of the
+    same run without a mesh, bit for bit."""
+    from repro_torch.launch.train import TrainLoopConfig, run
+    kw = dict(device="cuda", steps=3, microbatches=2, log_every=100)
+    assert run(TrainLoopConfig(mesh="1x1", **kw))["losses"] \
+        == run(TrainLoopConfig(**kw))["losses"]

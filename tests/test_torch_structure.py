@@ -24,8 +24,11 @@ WINDOW_PROBE = ROOT / "chip_profiler_window.py"
 B7_VARIANTS = ROOT / "chip_b7_variants.py"
 ATTN_BITS = ROOT / "chip_attention_bits.py"
 EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+# the gloo workers of tests/test_torch_parallel.py import the port alone
+PARALLEL_CHILD = ROOT / "tests" / "_torch_parallel_child.py"
 PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE, AB, K2_PROBE, WINDOW_PROBE,
-                                         B7_VARIANTS, ATTN_BITS] + EXAMPLES
+                                         B7_VARIANTS, ATTN_BITS,
+                                         PARALLEL_CHILD] + EXAMPLES
 
 FOREIGN_IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)", re.MULTILINE)
@@ -64,7 +67,10 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch.configs.base",
            "repro_torch.data", "repro_torch.data.specs",
            "repro_torch.data.pipeline", "repro_torch.checkpoint",
            "repro_torch.checkpoint.manager", "repro_torch.train",
-           "repro_torch.launch.train"]
+           "repro_torch.launch.train", "repro_torch.parallel",
+           "repro_torch.parallel.dist", "repro_torch.parallel.sharding",
+           "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+           "repro_torch.core.costs", "repro_torch.core.roofline"]
 CONFIG_FILES = ["deepseek_v2_236b", "granite_moe_1b", "hubert_xlarge",
                 "hymba_1_5b", "mamba2_780m", "paligemma_3b", "qwen1_5_4b",
                 "qwen2_5_14b", "qwen2_5_3b", "qwen3_32b"]
@@ -106,6 +112,9 @@ def test_slice_modules_exist():
                 "data/specs.py", "data/pipeline.py",
                 "checkpoint/__init__.py", "checkpoint/manager.py",
                 "train/__init__.py", "launch/train.py",
+                "parallel/__init__.py", "parallel/dist.py",
+                "parallel/sharding.py", "launch/mesh.py",
+                "launch/dryrun.py", "core/costs.py", "core/roofline.py",
                 *(f"configs/{c}.py" for c in CONFIG_FILES)):
         assert (PKG / rel).is_file(), rel
     assert SMOKE.is_file()
@@ -476,8 +485,9 @@ PLAIN_ROUTES = ("_plain", "plain_attention", "flash_attention_jax",
 def test_card_training_attention_is_the_hand_kernels():
     """On the card ``attention`` trains through ``KernelAttention``, whose
     forward is B3 and backward B9: no plain form, no library attention
-    and no autograd through a plain version on that route; the CPU route
-    is the plain forms, as the reference's."""
+    and no autograd through a plain version on that route (which a dry
+    run's fake tensors take too); the CPU route is the plain forms, as
+    the reference's."""
     common = PKG / "models" / "common.py"
     tree = ast.parse(common.read_text())
     cls = next(n for n in ast.walk(tree)
@@ -487,8 +497,9 @@ def test_card_training_attention_is_the_hand_kernels():
     assert "flash_attention_bwd(" in body
     assert not any(r in body for r in PLAIN_ROUTES)
     attn = _function_source(common, "attention")
-    card = attn[attn.index('if q.device.type == "cuda":'):
-                attn.index("if k.shape[1] <= chunk_threshold:")]
+    card = attn[attn.index(
+        'if q.device.type == "cuda" or costs.is_fake(q):'):
+                attn.index("def plain(q, k, v):")]
     assert "KernelAttention.apply(" in card
     assert not any(r in card for r in PLAIN_ROUTES)
     bwd = _function_source(PKG / "kernels" / "flash_attention_bwd.py",
@@ -524,10 +535,11 @@ def test_ssd_training_on_the_card_raises_before_any_work():
     (B5 forward, B10 backward) and no plain scan; the raw wrappers, which
     have no autograd of their own, still refuse a gradient before any
     work (``_build.check_no_grad``) -- ``KernelSSD`` calls them with grad
-    off."""
-    body = _function_source(PKG / "models" / "blocks.py", "ssd_fwd")
-    card = body[body.index('if x.device.type == "cuda":'):
-                body.index("    else:\n        nh = x.shape[2]")]
+    off. ``ssd_fwd``'s scan on plain tensors is ``_ssd_scan_any`` (on a
+    mesh, each device's shards go through it)."""
+    body = _function_source(PKG / "models" / "blocks.py", "_ssd_scan_any")
+    card = body[body.index('if x.device.type == "cuda" or costs.is_fake(x):'):
+                body.index("    nh = x.shape[2]")]
     assert "torch.is_grad_enabled()" in card
     assert card.index("KernelSSD.apply(") < card.index("ssd_scan(")
     assert "_plain" not in card and "_ssd_chunk_scan" not in card
