@@ -106,7 +106,21 @@ path, read just after) that each path really went through its kernels:
   all 60 layers on the (16, 16) fake mesh (the same child, started after
   the build on a core this process gives up while it runs, so that it
   overlaps the card's phases and takes no core from them), whose per-device
-  argument bytes must be the local shards the resolved specs give.
+  argument bytes must be the local shards the resolved specs give;
+* the power plane across ranks (after the guard phases): sweep_full's
+  cube on a one-rank ``(1, 1)`` mesh of an NCCL world in this process,
+  bit for bit; then ONE 2-rank world on this card (gloo over CUDA
+  tensors: NCCL refuses two ranks on one GPU), spawned once as two
+  child processes (``chip_smoke.py --mesh-rank``), runs through the
+  entry points a user calls ``sweep_grid`` on sweep_full's cube over a
+  ``(1, 2)`` knob mesh (bit for bit sweep_full's) and a ``(2,)`` wl mesh
+  (≤1e-9: the op-axis sums are reduced across ranks),
+  ``sweep_program_plane`` on program_plane_full's 1 530 rows split over
+  the wl mesh (every executor integer equal), and ``sweep_fleet`` on
+  fleet_parity's 8 epochs over the knob mesh, plain and guarded (≤1e-9,
+  zero guard events); each rank launches K1, K2 and, on the program
+  plane, B7 once. Two ranks on one card show correctness and the
+  collectives' cost, not a speedup.
 
 It has no CPU route: no card, a failed build, a failed launch or a
 failed comparison each end the run with a non-zero exit code. Every
@@ -1688,7 +1702,7 @@ def sm_clock_max_hz() -> float:
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
-def program_plane_full(card: str, suite) -> dict:
+def program_plane_full(card: str, suite, keep=None) -> dict:
     """The program plane at full width: ``sweep_program_plane`` over the
     paper suite x every NPU x ``PP_FULL_GRID`` from cold caches, with
     its launches (B7 exactly once) and its wall split into the host
@@ -1701,7 +1715,9 @@ def program_plane_full(card: str, suite) -> dict:
     entry and, on the same streams packed dense, the dense entry, each
     held ``torch.equal`` to its plain version on the CPU and on the
     card, the stream entry also on a second call; timed through the
-    stream entry by CUDA events and by its device time."""
+    stream entry by CUDA events and by its device time. ``keep``, where
+    given, receives the records, the row count and the wall, which the
+    mesh phases are held to."""
     import numpy as np
     import torch
     from repro_torch.core import lowering
@@ -1762,6 +1778,9 @@ def program_plane_full(card: str, suite) -> dict:
               f"[0, 1]")
     pa, args = uploaded[0]
     streams, stream_of_row, rows = args
+    if keep is not None:
+        keep.update(program_plane_full=recs, program_plane_wall_s=wall,
+                    program_plane_rows=int(stream_of_row.shape[0]))
     bytes_to_card = sum(v.nbytes for v in
                         [*streams.values(), stream_of_row, *rows.values()])
     cpu = ({k: v.cpu() for k, v in streams.items()}, stream_of_row.cpu(),
@@ -2050,12 +2069,13 @@ def fleet_full(card: str, dev="cuda") -> tuple[dict, object]:
             "profile_epochs": short.n_epochs, "profile": prof}, first
 
 
-def fleet_parity(card: str, dev="cuda") -> dict:
+def fleet_parity(card: str, dev="cuda", keep=None) -> dict:
     """The fleet day cut to its first 8 epochs, on the card against the
     CPU (every integer and flag — arrivals, severity indices, chosen and
     deployed knobs, retunes, allocations — equal, every float ≤1e-9), and
     the calibration call on the card against the numpy batched engine
-    (≤1e-9)."""
+    (≤1e-9). ``keep``, where given, receives the card's report and wall,
+    which the mesh phases are held to."""
     from repro_torch.core.fleet import sweep_fleet
     from repro_torch.core.hw import get_npu
     from repro_torch.core.policies import (KnobGrid, evaluate_batch,
@@ -2064,6 +2084,8 @@ def fleet_parity(card: str, dev="cuda") -> dict:
     t0 = time.perf_counter()
     on_card = sweep_fleet(sc, grid, device=dev)
     wall_card = time.perf_counter() - t0
+    if keep is not None:
+        keep.update(fleet_parity=on_card, fleet_parity_wall_s=wall_card)
     t0 = time.perf_counter()
     on_cpu = sweep_fleet(sc, grid, device="cpu")
     wall_cpu = time.perf_counter() - t0
@@ -2361,6 +2383,406 @@ def guard_resume(card: str, dev="cuda") -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     return {"card": card, "device": str(dev), "uninterrupted_s": ref_s,
             "kills": runs}
+
+
+# ---- the power plane across ranks -------------------------------------------
+
+# one 2-rank world spawned once for every mesh phase: both ranks on the
+# one card, so the world is gloo over CUDA tensors (NCCL refuses two ranks
+# on one GPU); the card's one-device results it is held to are the ones
+# sweep_full, program_plane_full and fleet_parity already computed
+MESH_WORLD = 2
+MESH_DIR = os.path.join(HERE, "build", "chip_smoke_mesh")
+MESH_TIMEOUT_S = 300
+MESH_GROUP_TIMEOUT_S = 120.0
+MESH_RTOL = 1e-9
+# the executor's integers in a program-plane record (held exactly)
+PLANE_EXACT = ("prog_", "n_events", "stall_", "wakes_prog", "setpm_prog")
+MESH_KERNELS = ("sa_occupancy", "segment_sum", "program_exec")
+
+
+def _mesh_save(out_dir: str, tag: str, rank: int, arrays=None,
+               obj=None) -> None:
+    import numpy as np
+    base = os.path.join(out_dir, f"{tag}.rank{rank}")
+    if arrays is not None:
+        np.savez(base + ".npz", **arrays)
+    if obj is not None:
+        with open(base + ".json.part", "w") as f:
+            json.dump(obj, f, sort_keys=True)
+        os.replace(base + ".json.part", base + ".json")
+
+
+def cube_arrays(res) -> dict:
+    """A ``BatchResult``'s cubes as flat ``npz`` entries."""
+    from repro_torch.core.guard import _result_fields
+    return dict(_result_fields(res))
+
+
+def mesh_child(rank: int, world: int, port: int, out_dir: str,
+               device: str) -> int:
+    """One rank of the mesh phases' world (``chip_smoke.py --mesh-rank``):
+    joins the world, then on a ``(1, world)`` knob mesh and a
+    ``(world,)`` wl mesh runs sweep_full's cube (twice on each: a first
+    and a steady call), program_plane_full's rows (wl mesh) and
+    fleet_parity's 8 epochs plain and guarded (knob mesh), through the
+    entry points a user calls. Writes each result and its walls and
+    launch counts under ``out_dir``."""
+    import torch
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.core.fleet import sweep_fleet
+    from repro_torch.core.guard import GuardPolicy
+    from repro_torch.core.hw import NPUS
+    from repro_torch.core.opgen import paper_suite
+    from repro_torch.core.policies import POLICIES, KnobGrid
+    from repro_torch.core.sweep import sweep_grid, sweep_program_plane
+    from repro_torch.parallel.dist import (spmd_world, sweep_mesh,
+                                           world_backend)
+    t_start = time.perf_counter()
+    dev_type = torch.device(device).type
+    meta = {"rank": rank, "world": world,
+            "backend": world_backend(dev_type, world)}
+
+    def timed(fn):
+        reset_launches()
+        issued = TorchBackend.collectives
+        t0 = time.perf_counter()
+        out = fn()
+        if dev_type == "cuda":
+            torch.cuda.synchronize()
+        return out, {"wall_s": time.perf_counter() - t0,
+                     "collectives": TorchBackend.collectives - issued,
+                     "launches": {k: v for k, v in read_launches().items()
+                                  if k in MESH_KERNELS}}
+
+    with spmd_world(rank, world, f"tcp://localhost:{port}", dev_type,
+                    timeout_s=MESH_GROUP_TIMEOUT_S):
+        meta["joined_s"] = time.perf_counter() - t_start
+        meshes = {"knob": sweep_mesh(1, world, device_type=dev_type,
+                                     timeout_s=MESH_GROUP_TIMEOUT_S),
+                  "wl": sweep_mesh(world, 1, device_type=dev_type,
+                                   timeout_s=MESH_GROUP_TIMEOUT_S)}
+        suite = paper_suite()
+        for tag, mesh in meshes.items():
+            t0 = time.perf_counter()
+            runs = []
+            for _ in range(2):
+                res, rec = timed(lambda: sweep_grid(
+                    suite, npus=tuple(NPUS), policies=POLICIES,
+                    as_records=False, device=device, mesh=mesh,
+                    **FULL_GRID))
+                runs.append(rec)
+            meta[f"sweep_{tag}"] = {"runs": runs,
+                                    "seconds": time.perf_counter() - t0}
+            _mesh_save(out_dir, f"sweep_{tag}", rank, cube_arrays(res))
+        t0 = time.perf_counter()
+        recs, rec = timed(lambda: sweep_program_plane(
+            suite, tuple(NPUS), KnobGrid(**PP_FULL_GRID), device=device,
+            mesh=meshes["wl"]))
+        meta["plane"] = {**rec, "seconds": time.perf_counter() - t0}
+        _mesh_save(out_dir, "plane_records", rank, obj=recs)
+        t0 = time.perf_counter()
+        sc, grid = fleet_day(FLEET_PARITY_S), KnobGrid(**FLEET_GRID)
+        plain, rec = timed(lambda: sweep_fleet(sc, grid, device=device,
+                                               mesh=meshes["knob"]))
+        guarded, grec = timed(lambda: sweep_fleet(
+            sc, grid, device=device, mesh=meshes["knob"],
+            guard=GuardPolicy(timeout_s=GUARD_TIMEOUT_S)))
+        meta["fleet"] = {**rec, "guarded": grec,
+                         "seconds": time.perf_counter() - t0}
+        _mesh_save(out_dir, "fleet", rank,
+                   obj={"plain": plain.to_dict(),
+                        "guarded": guarded.to_dict()})
+    meta["seconds"] = time.perf_counter() - t_start
+    _mesh_save(out_dir, "meta", rank, obj=meta)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_mesh_world(device: str = "cuda") -> dict:
+    """Spawn the ``MESH_WORLD`` ranks (``mesh_child``), wait for them and
+    return each rank's ``meta`` record and the world's wall. A rank that
+    fails or outlives ``MESH_TIMEOUT_S`` fails the run."""
+    import shutil
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src"), os.environ.get("PYTHONPATH", "")]
+    ).rstrip(os.pathsep))
+    env.pop("REPRO_GUARD_KILL", None)
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for r in range(MESH_WORLD):
+        log = open(os.path.join(MESH_DIR, f"rank{r}.log"), "w")
+        p = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+             str(r), str(MESH_WORLD), str(port), MESH_DIR, device],
+            cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+        _CHILDREN.append(p)
+        procs.append(p)
+        logs.append(log)
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            codes.append(None)
+    wall = time.perf_counter() - t0
+    for p in procs:  # a rank past its time; the dry-run child runs on
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for log in logs:
+        log.close()
+    if codes != [0] * MESH_WORLD:
+        tails = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(MESH_DIR, f"rank{r}.log")) as f:
+                tails.append(f"rank {r}: " + f.read()[-1500:])
+        fail(f"the mesh world failed (exit codes {codes}): "
+             + " | ".join(tails))
+    metas = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(MESH_DIR, f"meta.rank{r}.json")) as f:
+            metas.append(json.load(f))
+    return {"metas": metas, "wall_s": wall}
+
+
+def _mesh_load(tag: str, rank: int, json_: bool = False):
+    import numpy as np
+    base = os.path.join(MESH_DIR, f"{tag}.rank{rank}")
+    if json_:
+        with open(base + ".json") as f:
+            return json.load(f)
+    with np.load(base + ".npz") as f:
+        return {k: f[k] for k in f.files}
+
+
+def _arrays_rel(want: dict, got: dict) -> float:
+    import numpy as np
+    check(want.keys() == got.keys(), "cube fields differ")
+    worst = 0.0
+    for k, a in want.items():
+        b = got[k]
+        check(a.shape == b.shape and bool(np.isfinite(b).all()),
+              f"{k}: shape {b.shape} or non-finite values")
+        worst = max(worst, float((np.abs(a - b) / np.maximum(
+            1e-30, np.maximum(np.abs(a), np.abs(b)))).max(initial=0.0)))
+    return worst
+
+
+def _arrays_equal(a: dict, b: dict) -> bool:
+    import numpy as np
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+
+
+def _rank_launches(metas, key: str, sub=None) -> dict:
+    out = {}
+    for m in metas:
+        rec = m[key] if sub is None else m[key][sub]
+        out[f"rank{m['rank']}"] = rec["launches"]
+    return out
+
+
+def _launched_on_every_rank(launches: dict, kernels, what: str,
+                            exact=None) -> None:
+    for rank, counts in launches.items():
+        for k in kernels:
+            n = counts[k]
+            check(n > 0 if exact is None else n == exact,
+                  f"{what}: {rank} launched {k} {n} times")
+
+
+def mesh_launches(kernel: str, sweep_m: dict, plane_m: dict,
+                  fleet_m: dict) -> dict:
+    """``kernel``'s launches on each rank of the mesh phases."""
+    out = {f"sweep_mesh:{tag}": {r: c[kernel] for r, c in
+                                 sweep_m[tag]["launches"].items()}
+           for tag in ("knob", "wl")}
+    out["sweep_mesh:nccl_one_rank"] = {
+        "rank0": sweep_m["nccl_one_rank"]["launches"][kernel]}
+    out["program_plane_mesh"] = {r: c[kernel] for r, c in
+                                 plane_m["launches"].items()}
+    out["fleet_mesh"] = {r: c[kernel] for r, c in
+                         fleet_m["launches"].items()}
+    return out
+
+
+def nccl_one_rank_sweep(card: str, full_res, dev) -> dict:
+    """sweep_full's cube on a one-rank ``(1, 1)`` mesh of an in-process
+    NCCL world, the path a world with a card for each rank takes: the
+    sharded program with its collectives over one rank, bit for bit the
+    unsharded cube."""
+    import torch
+    from repro_torch.core.hw import NPUS
+    from repro_torch.core.opgen import paper_suite
+    from repro_torch.core.policies import POLICIES
+    from repro_torch.core.sweep import sweep_grid
+    from repro_torch.parallel.dist import single_process_world, sweep_mesh
+    import torch.distributed as dist
+    with single_process_world("cuda"):
+        backend = dist.get_backend()
+        mesh = sweep_mesh(1, 1, device_type="cuda",
+                          timeout_s=MESH_GROUP_TIMEOUT_S)
+        reset_launches()
+        t0 = time.perf_counter()
+        res = sweep_grid(paper_suite(), npus=tuple(NPUS), policies=POLICIES,
+                         as_records=False, device=dev, mesh=mesh,
+                         **FULL_GRID)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in read_launches().items()
+                    if k in MESH_KERNELS}
+    check(backend == "nccl", f"the one-rank world's backend is {backend}")
+    check(_arrays_equal(cube_arrays(full_res), cube_arrays(res)),
+          "the (1, 1) NCCL mesh's cube differs from sweep_full's")
+    _launched_on_every_rank({"rank0": launches},
+                            ("sa_occupancy", "segment_sum"),
+                            "the (1, 1) NCCL mesh")
+    return {"backend": backend, "mesh": [1, 1], "wall_s": wall,
+            "launches": launches, "bit_identical": True}
+
+
+def mesh_phases(card: str, held: dict, dev="cuda") -> tuple[dict, dict,
+                                                            dict]:
+    """The three mesh phases from one world (``run_mesh_world``), each held
+    to the one-device result this run already holds (``held``: the
+    sweep_full cube and its steady wall, program_plane_full's records
+    and wall, fleet_parity's card report and wall). Returns the
+    ``sweep_mesh``, ``program_plane_mesh`` and ``fleet_mesh`` records."""
+    from repro_torch.core.guard import GuardError, tree_max_rel
+    t0 = time.perf_counter()
+    nccl = nccl_one_rank_sweep(card, held["sweep_full"], dev)
+    nccl_s = time.perf_counter() - t0
+    world = run_mesh_world(str(dev))
+    metas = world["metas"]
+    common = {"card": card, "world": MESH_WORLD,
+              "backend": metas[0]["backend"],
+              "world_wall_s": world["wall_s"],
+              "joined_s": [m["joined_s"] for m in metas],
+              "rank_seconds": [m["seconds"] for m in metas]}
+    check(metas[0]["backend"] == "gloo",
+          f"two ranks on one card run {metas[0]['backend']}, want gloo")
+
+    # ---- sweep_mesh: the knob-only mesh bit for bit, the wl mesh ≤1e-9
+    want = cube_arrays(held["sweep_full"])
+    sweep = {"nccl_one_rank": {**nccl, "seconds": nccl_s}}
+    for tag in ("knob", "wl"):
+        got = [_mesh_load(f"sweep_{tag}", r) for r in range(MESH_WORLD)]
+        check(all(_arrays_equal(got[0], g) for g in got[1:]),
+              f"sweep_mesh {tag}: the ranks' cubes differ")
+        rel = _arrays_rel(want, got[0])
+        same = _arrays_equal(want, got[0])
+        if tag == "knob":
+            check(same, "sweep_mesh: the knob-only mesh's cube differs "
+                        "from sweep_full's")
+        check(rel <= MESH_RTOL, f"sweep_mesh {tag}: {rel} > {MESH_RTOL}")
+        launches = {f"rank{m['rank']}": m[f"sweep_{tag}"]["runs"][0][
+            "launches"] for m in metas}
+        if str(dev).startswith("cuda"):
+            _launched_on_every_rank(launches, ("sa_occupancy", "segment_sum"),
+                                    f"sweep_mesh {tag}")
+        runs = [m[f"sweep_{tag}"]["runs"] for m in metas]
+        sweep[tag] = {
+            "mesh": [1, MESH_WORLD] if tag == "knob" else [MESH_WORLD],
+            "max_rel_err": rel, "bit_identical": same,
+            "wall_s_first": [r[0]["wall_s"] for r in runs],
+            "wall_s_steady": [r[1]["wall_s"] for r in runs],
+            "collectives": [r[1]["collectives"] for r in runs],
+            "seconds": [m[f"sweep_{tag}"]["seconds"] for m in metas],
+            "launches": launches}
+    sweep_rec = {**common, **sweep,
+                 "one_device_wall_s_steady": held["sweep_full_wall_s"]}
+
+    # ---- program_plane_mesh: the executor's integers exact
+    want_recs = held["program_plane_full"]
+    got = [_mesh_load("plane_records", r, json_=True)
+           for r in range(MESH_WORLD)]
+    check(all(g == got[0] for g in got[1:]),
+          "program_plane_mesh: the ranks' records differ")
+    check(len(got[0]) == len(want_recs),
+          f"program_plane_mesh: {len(got[0])} records, want "
+          f"{len(want_recs)}")
+    n_exact, worst = 0, 0.0
+    for a, b in zip(want_recs, got[0]):
+        check(set(a) == set(b), "program_plane_mesh: record fields differ")
+        for k, va in a.items():
+            vb = b[k]
+            if va is None or isinstance(va, str):
+                check(va == vb, f"program_plane_mesh: {k} {va!r} {vb!r}")
+            elif k.startswith(PLANE_EXACT):
+                check(float(va) == float(vb),
+                      f"program_plane_mesh: executor integer {k} "
+                      f"{va!r} != {vb!r} ({a['workload']}/{a['npu']})")
+                n_exact += 1
+            else:
+                worst = max(worst, abs(float(va) - float(vb))
+                            / max(1.0, abs(float(va))))
+    check(worst <= MESH_RTOL, f"program_plane_mesh: {worst} > {MESH_RTOL}")
+    launches = _rank_launches(metas, "plane")
+    if str(dev).startswith("cuda"):
+        _launched_on_every_rank(launches, ("program_exec",),
+                                "program_plane_mesh", exact=1)
+        _launched_on_every_rank(launches, ("sa_occupancy", "segment_sum"),
+                                "program_plane_mesh")
+    plane_rec = {**common, "mesh": [MESH_WORLD], "records": len(got[0]),
+                 "rows": held["program_plane_rows"],
+                 "rows_per_rank": -(-held["program_plane_rows"]
+                                    // MESH_WORLD),
+                 "executor_integers_equal": n_exact,
+                 "records_bit_identical": got[0] == want_recs,
+                 "max_rel_err": worst,
+                 "wall_s": [m["plane"]["wall_s"] for m in metas],
+                 "collectives": [m["plane"]["collectives"] for m in metas],
+                 "seconds": [m["plane"]["seconds"] for m in metas],
+                 "one_device_wall_s": held["program_plane_wall_s"],
+                 "launches": launches}
+
+    # ---- fleet_mesh: ≤1e-9 of fleet_parity's card report; the guarded
+    # run logs no event
+    want_rep = held["fleet_parity"].to_dict()
+    got = [_mesh_load("fleet", r, json_=True) for r in range(MESH_WORLD)]
+    check(all(g == got[0] for g in got[1:]),
+          "fleet_mesh: the ranks' reports differ")
+    plain, guarded = got[0]["plain"], got[0]["guarded"]
+    try:
+        worst = tree_max_rel(want_rep, plain, MESH_RTOL)
+    except GuardError as e:
+        fail(f"fleet_mesh vs fleet_parity: {e}")
+    events = (guarded.get("guard") or {}).get("events")
+    check(events == [], f"fleet_mesh: the clean guarded mesh run logged "
+                        f"{events}")
+    core = {k: v for k, v in guarded.items() if k != "guard"}
+    check(core == {k: v for k, v in plain.items() if k != "guard"},
+          "fleet_mesh: the guarded report differs from the plain one")
+    launches = _rank_launches(metas, "fleet")
+    if str(dev).startswith("cuda"):
+        _launched_on_every_rank(launches, ("sa_occupancy", "segment_sum"),
+                                "fleet_mesh")
+    fleet_rec = {**common, "mesh": [1, MESH_WORLD],
+                 "epochs": held["fleet_parity"].n_epochs,
+                 "records": len(plain["records"]), "max_rel_err": worst,
+                 "bit_identical": plain == json.loads(json.dumps(want_rep)),
+                 "guard_events": 0,
+                 "wall_s": [m["fleet"]["wall_s"] for m in metas],
+                 "collectives": [m["fleet"]["collectives"] for m in metas],
+                 "wall_s_guarded": [m["fleet"]["guarded"]["wall_s"]
+                                    for m in metas],
+                 "seconds": [m["fleet"]["seconds"] for m in metas],
+                 "one_device_wall_s": held["fleet_parity_wall_s"],
+                 "launches": launches,
+                 "launches_guarded": _rank_launches(metas, "fleet",
+                                                    "guarded")}
+    return sweep_rec, plane_rec, fleet_rec
 
 
 def rel_l2(got, want):
@@ -4910,6 +5332,7 @@ def main() -> int:
     check(bool((tot[:, :, i_ideal, :] <= tot[:, :, i_nopg, :]).all()),
           "Ideal spends more energy than NoPG in some cell")
     check(bool((res1.runtime_s > 0).all()), "non-positive runtime")
+    held = {"sweep_full": res1, "sweep_full_wall_s": t_steady}
     emit("sweep_full", card=card, cube=list(shape), cells=n_cells,
          knobs=len(full_knobs), unique_triples_per_npu=n_pairs,
          wall_s_first=t_first, wall_s_steady=t_steady,
@@ -4957,7 +5380,7 @@ def main() -> int:
 
     # ---- 5c. the program plane: B7 with the policy side ------------------
     emit("program_plane_records", **program_plane_records(card, suite))
-    ppf = program_plane_full(card, suite)
+    ppf = program_plane_full(card, suite, keep=held)
     emit("program_plane_full", **ppf)
 
     # ---- 5d. gated_matmul_full: kernel B2 at qwen2.5-3b's width ----------
@@ -5153,7 +5576,7 @@ def main() -> int:
     fleet_rec, fleet_report = fleet_full(card)
     emit("fleet_full", seconds=time.perf_counter() - t0, **fleet_rec)
     t0 = time.perf_counter()
-    parity = fleet_parity(card)
+    parity = fleet_parity(card, keep=held)
     emit("fleet_parity", seconds=time.perf_counter() - t0, **parity)
     t0 = time.perf_counter()
     chaos = chaos_full(card)
@@ -5164,6 +5587,16 @@ def main() -> int:
     t0 = time.perf_counter()
     resume = guard_resume(card)
     emit("guard_resume", seconds=time.perf_counter() - t0, **resume)
+
+    # ---- 10b. the power plane across ranks: a one-rank NCCL mesh in this
+    # process, then one 2-rank world on this card (gloo), the sweep, the
+    # program plane and the fleet each held to its one-device result above
+    t0 = time.perf_counter()
+    sweep_m, plane_m, fleet_m = mesh_phases(card, held)
+    mesh_s = time.perf_counter() - t0
+    emit("sweep_mesh", phases_s=mesh_s, **sweep_m)
+    emit("program_plane_mesh", **plane_m)
+    emit("fleet_mesh", **fleet_m)
 
     # ---- 11. the production dry run: deepseek-v2-236b at all 60 layers
     emit("dryrun_production", **dryrun_production(
@@ -5181,6 +5614,8 @@ def main() -> int:
          "library_ms": None, "shape": k1_shape, "device_us": k1_device_us,
          "launches_fleet": fleet_rec["launches"]["sa_occupancy"],
          "launches_fleet_per_call": fleet_rec["k1_per_call"],
+         "launches_mesh": mesh_launches(
+             "sa_occupancy", sweep_m, plane_m, fleet_m),
          "launch_floor_device_us": launch_floor_us,
          "tolerance": "torch.equal with the plain version on the card"},
         {"name": "segment_sum", "route": "cuda", "source": K1_SOURCE,
@@ -5188,6 +5623,8 @@ def main() -> int:
          "launches": launches["segment_sum"],
          "launches_fleet": fleet_rec["launches"]["segment_sum"],
          "launches_fleet_per_call": fleet_rec["k2_per_call"],
+         "launches_mesh": mesh_launches(
+             "segment_sum", sweep_m, plane_m, fleet_m),
          "max_abs_err": k2_err_card, "ms": main_k2["ms"],
          "device_us": main_k2["device_us"],
          "plain_ms": main_k2["plain_ms"], "bound_ms": main_k2["bound_ms"],
@@ -5384,6 +5821,8 @@ def main() -> int:
         "name": "program_exec", "route": "cuda", "source": PP_SOURCE,
         "replaces": "src/repro/core/backend.py:218",
         "launches": ppf["launches"]["program_exec"],
+        "launches_mesh": mesh_launches(
+            "program_exec", sweep_m, plane_m, fleet_m),
         "max_abs_err": ppf["max_abs_err"], "ms": ppf["kernel_ms"],
         "device_us": ppf["kernel_device_us"],
         "plain_ms": ppf["plain_ms_card"],
@@ -5407,4 +5846,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_child(int(sys.argv[2]), int(sys.argv[3]),
+                            int(sys.argv[4]), sys.argv[5], sys.argv[6]))
     sys.exit(main())

@@ -13,7 +13,8 @@ sweep          — design-space sweeps (workloads × npus × policies ×
 backend        — the float64 tensor substrate; on a CUDA device its
                  occupancy pass and segmented sums are the hand-written
                  kernels of ``repro_torch.kernels``
-session        — ``SweepSession``: the device a sweep runs on
+session        — ``SweepSession``: the device a sweep runs on and the
+                 mesh it is sharded over
 isa/passes     — setpm ISA extension, the cycle-stepper and event-driven
                  executors, and the compiler passes (Figs 14-15, §4.3)
 lowering       — workload traces lowered onto per-unit cycle timelines,

@@ -14,7 +14,14 @@ on. Its contract:
   once per vector and handed back to ``segment_sum``;
 * ``sa_occupancy(...)`` — the SA PE-occupancy pass with the unique
   widths as a batch axis (``repro_torch.kernels.sa_occupancy``);
-* ``block()`` — wait for the device, so wall-clock timings are honest.
+* ``block()`` — wait for the device, so wall-clock timings are honest;
+* ``mesh_axis_sizes(mesh)``, ``psum(t, mesh, axis)``,
+  ``all_gather(tree, mesh, axis)`` — the collective surface of the
+  sharded sweep (the JAX package's ``shard_map`` contract): an
+  all-reduce over one dim's process group, and a gather of every rank's
+  leading-axis shard in rank order (``all_gather(..., tiled=True)``).
+  ``TorchBackend.collectives`` counts the collectives this process
+  issued, which the guard compares across ranks.
 
 The device alone selects the route: on a CUDA device both passes launch
 the hand-written kernels, on the CPU they evaluate the kernels' plain
@@ -28,6 +35,8 @@ idle time and the per-knob threshold masking keeps one shape for the
 whole knob batch.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -82,6 +91,72 @@ class TorchBackend:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- the collectives of the sharded sweep -----------------------------
+    collectives = 0  # issued by this process, over every mesh
+
+    @staticmethod
+    def mesh_axis_sizes(mesh) -> dict[str, int]:
+        from repro_torch.parallel.dist import mesh_axis_sizes
+        return mesh_axis_sizes(mesh)
+
+    @staticmethod
+    def psum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+        """The sum of every rank's ``t`` over the mesh dim ``axis``, on
+        every rank of it (in place: ``t`` is this call's own)."""
+        import torch.distributed as dist
+        t = t.contiguous()
+        dist.all_reduce(t, group=mesh.get_group(axis))
+        TorchBackend.collectives += 1
+        return t
+
+    @staticmethod
+    def all_gather(tree, mesh, axis: str):
+        """Every rank's leading-axis shard of each tensor of ``tree`` (a
+        tensor or nested dicts of them, the same structure and shapes on
+        every rank), concatenated along dim 0 in the rank order of the
+        mesh dim ``axis``. The leaves are packed into one buffer per
+        dtype, so a tree costs one collective per dtype."""
+        import torch.distributed as dist
+        group = mesh.get_group(axis)
+        n = dist.get_world_size(group)
+        leaves: list[torch.Tensor] = []
+        _leaves(tree, leaves)
+        out: list = [None] * len(leaves)
+        by_dtype: dict = {}
+        for i, t in enumerate(leaves):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        for idx in by_dtype.values():
+            flat = [leaves[i].reshape(leaves[i].shape[0],
+                                      math.prod(leaves[i].shape[1:]))
+                    for i in idx]
+            widths = [f.shape[1] for f in flat]
+            buf = torch.cat(flat, dim=1).contiguous()
+            parts = [torch.empty_like(buf) for _ in range(n)]
+            dist.all_gather(parts, buf, group=group)
+            TorchBackend.collectives += 1
+            full = torch.cat(parts, dim=0)
+            for i, piece in zip(idx, torch.split(full, widths, dim=1)):
+                shape = leaves[i].shape
+                out[i] = piece.contiguous().reshape(
+                    n * shape[0], *shape[1:])
+        return _rebuild(tree, iter(out))
+
+
+def _leaves(tree, out: list) -> None:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _leaves(v, out)
+    else:
+        if tree.dim() == 0:
+            raise ValueError("all_gather: a 0-d tensor has no shard axis")
+        out.append(tree)
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    return next(it)
+
 
 _BACKENDS: dict[str, TorchBackend] = {}
 
@@ -105,14 +180,18 @@ def get_backend(device=None) -> TorchBackend:
     return bk
 
 
-def failover_rungs(device=None) -> tuple[tuple[str, object], ...]:
-    """The guard plane's downgrade ladder for a requested device: each
-    rung is ``(rung_name, None)`` (the second slot is where the JAX
-    package's ladder carries a mesh; the port has none). A CUDA device's
-    ladder is that device alone: a campaign asked of the card runs on the
-    card or raises ``guard.GuardError``, and never moves to the kernels'
-    plain versions on the host. A ``"cpu"`` request falls from ``"cpu"``
-    (the same ``_sweep_kernel`` on the plain versions) to ``"numpy"``
+def failover_rungs(device=None, mesh=None) \
+        -> tuple[tuple[str, object], ...]:
+    """The guard plane's downgrade ladder for a requested (device, mesh):
+    each rung is ``(rung_name, mesh)``. A mesh (``mesh``, or with
+    ``None`` the session's, consulted unless the device is ``"numpy"``)
+    puts the rung ``("mesh", mesh)`` first: the sharded sweep on the
+    requested device, every rank its shard. A CUDA device's ladder then
+    holds that device alone: a campaign asked of the card runs on the
+    card -- sharded, then unsharded on each rank's own card -- or raises
+    ``guard.GuardError``, and never moves to the kernels' plain versions
+    on the host. A ``"cpu"`` request falls from ``"cpu"`` (the same
+    ``_sweep_kernel`` on the plain versions) to ``"numpy"``
     (``policies.evaluate_batch_numpy``, the independent engine); a
     ``"numpy"`` request has nowhere to fall, so its ladder is just
     itself. ``None`` resolves as in ``get_backend``
@@ -121,12 +200,15 @@ def failover_rungs(device=None) -> tuple[tuple[str, object], ...]:
     if device == "numpy":
         return (("numpy", None),)
     dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise KeyError(f"no failover ladder for device {str(dev)!r}; the "
+                       f"port runs on 'cuda', 'cpu' or 'numpy'")
+    if mesh is None:
+        mesh = session.resolve("mesh")
+    head = (("mesh", mesh),) if mesh is not None else ()
     if dev.type == "cuda":
-        return ((str(dev), None),)
-    if dev.type == "cpu":
-        return (("cpu", None), ("numpy", None))
-    raise KeyError(f"no failover ladder for device {str(dev)!r}; the "
-                   f"port runs on 'cuda', 'cpu' or 'numpy'")
+        return head + ((str(dev), None),)
+    return head + (("cpu", None), ("numpy", None))
 
 
 # --------------------------------------------------------------------------

@@ -50,16 +50,21 @@ Design, layer by layer:
   of per-record energies to float round-off (≤1e-9 relative — tested).
 
 ``sweep.sweep_fleet`` re-exports :func:`sweep_fleet`. Every entry
-point takes ``device=`` where the JAX package takes ``backend=`` /
-``jax_mesh=``: ``None`` resolves through the active ``SweepSession``
-and otherwise means ``"cuda"``; ``"cpu"`` runs the kernels' plain
-versions; ``"numpy"`` runs every call on the numpy batched engine
-(``policies.evaluate_batch_numpy``). Nothing here falls back from one
-to another. A campaign on the card stays on the card: under the guard
-(``guard=``, or ``checkpoint=``, which arms ``GuardPolicy()``) its
-failed calls are retried there and then raise ``guard.GuardError``. Only
-a ``"cpu"`` campaign's guard may step down, to ``"numpy"``, and it
-records the step as a ``failover`` event.
+point takes ``device=`` and ``mesh=`` where the JAX package takes
+``backend=`` / ``jax_mesh=``: ``None`` resolves through the active
+``SweepSession`` and otherwise means ``"cuda"`` (no mesh); ``"cpu"``
+runs the kernels' plain versions; ``"numpy"`` runs every call on the
+numpy batched engine (``policies.evaluate_batch_numpy``) and takes no
+mesh. A mesh (``parallel.dist.sweep_mesh``) shards every epoch's
+``evaluate_batch``: each rank of it makes the same campaign call and
+gets the same report. Nothing here falls back from one to another. A
+campaign on the card stays on the card: under the guard (``guard=``, or
+``checkpoint=``, which arms ``GuardPolicy()``) its failed calls are
+retried there -- on a mesh first sharded, then each rank unsharded on
+its own card -- and then raise ``guard.GuardError``. Only a ``"cpu"``
+campaign's guard may step down, to ``"numpy"``, and it records the step
+as a ``failover`` event. On a mesh the ranks take every guard decision
+together, and only the mesh's first rank writes the checkpoint.
 """
 from __future__ import annotations
 
@@ -458,8 +463,28 @@ def _idle_power_w(pm: PowerModel, policy: str) -> float:
     return pm.idle_chip_gated_w()
 
 
+def _resolve_mesh(device, mesh):
+    """The mesh a campaign runs on: ``mesh``, else the session's unless
+    the device is ``"numpy"``, which takes none."""
+    if resolve_device(device) == "numpy":
+        if mesh is not None:
+            raise ValueError("mesh requires a torch device ('cuda' or "
+                             "'cpu'), not device='numpy'")
+        return None
+    return mesh if mesh is not None else _session.resolve("mesh")
+
+
+def _writes_checkpoint(mesh) -> bool:
+    """Whether this process writes a campaign's checkpoint: always off a
+    mesh, on one only its first rank."""
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+    return int(mesh.mesh.flatten()[0]) == dist.get_rank()
+
+
 def sweep_fleet(scenario: FleetScenario, knob_grid=None, *,
-                device=None,
+                device=None, mesh=None,
                 keep_epoch_inputs: bool = False,
                 faults: Optional[FaultTimeline] = None,
                 hysteresis: Optional[Hysteresis] = None,
@@ -471,8 +496,9 @@ def sweep_fleet(scenario: FleetScenario, knob_grid=None, *,
     identical semantics to every other sweep entry point. ``device`` is
     where every epoch's ``evaluate_batch`` runs (``None``: the active
     ``SweepSession``'s, else ``"cuda"``; ``"numpy"``: the numpy batched
-    engine). Deterministic: the same scenario (same seed) produces a
-    bit-identical report.
+    engine), ``mesh`` the ``DeviceMesh`` it is sharded over (``None``:
+    the session's; every rank makes this call). Deterministic: the same
+    scenario (same seed) produces a bit-identical report.
 
     ``faults`` injects a ``core.faults.FaultTimeline`` (chaos plane):
     per epoch, ``chips_down`` shrinks the allocatable fleet (failover
@@ -511,6 +537,7 @@ def sweep_fleet(scenario: FleetScenario, knob_grid=None, *,
     """
     knobs = as_knob_tuple(knob_grid)
     n_k = len(knobs)
+    mesh = _resolve_mesh(device, mesh)
     npu = get_npu(scenario.npu) if isinstance(scenario.npu, str) \
         else scenario.npu
     pols = scenario.policies
@@ -563,13 +590,15 @@ def sweep_fleet(scenario: FleetScenario, knob_grid=None, *,
             knob_digest=digest_of(knobs),
             scenario_digest=digest_of((scenario, ft, hysteresis)),
             severity_levels=scenario.severity_levels, policies=pols)
-        ck = CampaignCheckpoint(checkpoint, manifest, keep=2)
+        ck = CampaignCheckpoint(checkpoint, manifest, keep=2,
+                                writer=_writes_checkpoint(mesh))
         fin = ck.load_final()
         if fin is not None:
             return FleetReport.from_dict(fin)
     runner = None
     if gp is not None:
-        runner = GuardedRunner(gp, device=device, seed=int(scenario.seed))
+        runner = GuardedRunner(gp, device=device, mesh=mesh,
+                               seed=int(scenario.seed))
 
     def _eval(wls, eval_pols_, step) -> BatchResult:
         if runner is not None:
@@ -578,7 +607,7 @@ def sweep_fleet(scenario: FleetScenario, knob_grid=None, *,
         if device == "numpy":
             return evaluate_batch_numpy(wls, (npu,), eval_pols_, knobs)
         return evaluate_batch(wls, (npu,), eval_pols_, knobs,
-                              device=device)
+                              device=device, mesh=mesh)
 
     # --- arrivals: per-class counts, (W, E) --------------------------
     counts = np.zeros((n_w, n_e), np.int64)
@@ -1004,7 +1033,7 @@ def sweep_chaos(scenario: FleetScenario, knob_grid=None, *,
                 hysteresis: Optional[Hysteresis] = None,
                 thrash_baseline: bool = True,
                 recovery_regret_tol: float = 0.05,
-                device=None,
+                device=None, mesh=None,
                 guard: Optional[GuardPolicy] = None,
                 checkpoint=None) -> dict:
     """The chaos campaign: seeded fault scenarios × severities ×
@@ -1031,9 +1060,9 @@ def sweep_chaos(scenario: FleetScenario, knob_grid=None, *,
     violation rate, shed volume, and energy/carbon totals.
     Deterministic: same scenario seed → bit-identical campaign.
 
-    ``device`` / ``guard`` / ``checkpoint`` thread the device and the
-    guard plane through every fleet run of the campaign (see
-    ``sweep_fleet``). A chaos
+    ``device`` / ``mesh`` / ``guard`` / ``checkpoint`` thread the device,
+    the mesh and the guard plane through every fleet run of the campaign
+    (see ``sweep_fleet``). A chaos
     checkpoint directory holds a campaign-level ``RunManifest`` plus
     one sub-run checkpoint per (severity, governor) leg
     (``run<i>_hyst`` / ``run<i>_base``); a SIGKILLed campaign resumes
@@ -1055,6 +1084,7 @@ def sweep_chaos(scenario: FleetScenario, knob_grid=None, *,
     if not isinstance(hys, Hysteresis):
         raise ValueError(f"hysteresis must be a slo.Hysteresis, "
                          f"got {type(hys)}")
+    mesh = _resolve_mesh(device, mesh)
     ck = None
     if checkpoint is not None:
         if not isinstance(checkpoint, (str, os.PathLike)):
@@ -1070,7 +1100,8 @@ def sweep_chaos(scenario: FleetScenario, knob_grid=None, *,
                                        bool(thrash_baseline))),
             severity_levels=scenario.severity_levels,
             fault_severities=sevs, policies=scenario.policies)
-        ck = CampaignCheckpoint(checkpoint, manifest, keep=1)
+        ck = CampaignCheckpoint(checkpoint, manifest, keep=1,
+                                writer=_writes_checkpoint(mesh))
     # the link plane covers the largest per-class topology; smaller
     # classes read a prefix of each epoch's link-rate row
     lmax = max(n_links(topology_for(max(1, c.workload.n_chips)))
@@ -1089,7 +1120,7 @@ def sweep_chaos(scenario: FleetScenario, knob_grid=None, *,
         if ck is not None:
             sub_h = os.path.join(ck.dir, f"run{si}_hyst")
             sub_b = os.path.join(ck.dir, f"run{si}_base")
-        rep = sweep_fleet(scenario, knob_grid, device=device,
+        rep = sweep_fleet(scenario, knob_grid, device=device, mesh=mesh,
                           faults=tl, hysteresis=hys,
                           guard=guard, checkpoint=sub_h)
         out["reports"][sev] = rep
@@ -1097,7 +1128,8 @@ def sweep_chaos(scenario: FleetScenario, knob_grid=None, *,
         base = None
         if thrash_baseline:
             base = sweep_fleet(scenario, knob_grid, device=device,
-                               faults=tl, hysteresis=None, guard=guard,
+                               mesh=mesh, faults=tl, hysteresis=None,
+                               guard=guard,
                                checkpoint=sub_b)
             out["baseline_reports"][sev] = base
         for policy in scenario.policies:

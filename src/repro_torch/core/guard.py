@@ -27,12 +27,13 @@ the same retry / checkpoint / failover discipline the NPUs get:
   deadline watchdog (worker thread + timed join; a wedged attempt is
   abandoned, not waited on). On timeout / launch failure / device
   loss it retries with exponential backoff + deterministic seeded
-  jitter, then escalates down ``backend.failover_rungs``. The card's
-  ladder (``"cuda"``: the hand-written kernels) has no rung below it:
-  once its attempts are used up the call raises :class:`GuardError`,
-  so a campaign asked of the card is never finished on the host. This
-  is where the port departs from the JAX package, whose ladder ends on
-  its numpy engine. A ``"cpu"`` ladder falls from ``"cpu"`` (the same
+  jitter, then escalates down ``backend.failover_rungs``. A mesh puts
+  the rung ``"mesh"`` (the sharded sweep) first. Below it, the card's
+  ladder (``"cuda"``: the hand-written kernels) has no rung: once its
+  attempts are used up the call raises :class:`GuardError`, so a
+  campaign asked of the card is never finished on the host. This is
+  where the port departs from the JAX package, whose ladder ends on its
+  numpy engine. A ``"cpu"`` ladder falls from ``"cpu"`` (the same
   ``_sweep_kernel`` on the kernels' plain versions) to ``"numpy"`` (the
   independent numpy batched engine, ``policies.evaluate_batch_numpy``).
   Every retry and step down lands in a structured :class:`GuardReport`
@@ -50,6 +51,28 @@ Determinism contract: the guard machinery never changes *what* is
 computed, only *where* and *how many times*. Backoff jitter draws come
 from ``np.random.default_rng((seed, _GUARD_PLANE, step))`` — their own
 child stream, so retries can never shift an arrival or fault draw.
+
+On a mesh (the hazard the JAX package never had: its mesh has one
+controller, here every rank runs its own guard):
+
+* **The ranks agree on every attempt.** If one rank retried or stepped
+  down alone, the others would wait in a collective forever. So after
+  each attempt on the mesh rung, outside the watchdog's thread, every
+  rank joins one exchange of its outcome (ok, error or timeout, its
+  reason, the collectives it issued) over a gloo group of the mesh's
+  ranks with a timeout of its own; a failing rank joins it too. All
+  ranks then return, retry or step down together, and log the same
+  events, the first failing rank's reason in each.
+* **A rung out of step is left at once.** Where some rank's attempt
+  timed out, or the ranks issued different numbers of collectives, the
+  mesh's groups hold a collective that not every rank joined, and a
+  retry on them would pair one rank's sums with another's. The ladder
+  then steps down without retrying there. ``parallel.dist.sweep_mesh``'s
+  ``timeout_s`` makes such a stranded collective raise rather than
+  wait.
+* **Checkpoints are written by the mesh's first rank only**
+  (:class:`CampaignCheckpoint` ``writer=``); every rank reads them on
+  resume, so all resume from the same epoch.
 
 On the card:
 
@@ -77,6 +100,8 @@ On the card:
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import functools
 import hashlib
 import json
 import math
@@ -377,11 +402,13 @@ class CampaignCheckpoint:
     on a background thread, joined by ``wait()`` before the next save
     and at close. Retention keeps the newest ``keep``
     epoch snapshots, deleting older ones only after a successful
-    publish.
+    publish. With ``writer=False`` (every rank of a mesh but its first)
+    the checkpoint only reads: it checks an existing manifest, writes
+    nothing and still honors an armed kill.
     """
 
     def __init__(self, directory, manifest: RunManifest, *,
-                 keep: int = 2):
+                 keep: int = 2, writer: bool = True):
         _check(isinstance(directory, (str, os.PathLike)),
                f"checkpoint must be a directory path (str or "
                f"os.PathLike), got {type(directory).__name__}")
@@ -392,14 +419,16 @@ class CampaignCheckpoint:
         self.dir = os.fspath(directory)
         self.manifest = manifest
         self.keep = int(keep)
+        self.writer = bool(writer)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
-        os.makedirs(self.dir, exist_ok=True)
+        if self.writer:
+            os.makedirs(self.dir, exist_ok=True)
         mpath = os.path.join(self.dir, "manifest.json")
         if os.path.exists(mpath):
             with open(mpath) as f:
                 manifest.check(RunManifest.from_dict(json.load(f)))
-        else:
+        elif self.writer:
             atomic_write_json(mpath, manifest.to_dict())
 
     # ---------------------------------------------------------- save
@@ -407,6 +436,9 @@ class CampaignCheckpoint:
         """Publish the post-epoch snapshot (async), then honor an armed
         boundary kill (after the publish is fully on disk)."""
         self.wait()
+        if not self.writer:
+            maybe_kill("boundary", epoch)
+            return
         path = os.path.join(self.dir, f"epoch_{epoch}.json")
 
         def _write():
@@ -425,7 +457,8 @@ class CampaignCheckpoint:
 
     def save_final(self, report: dict) -> None:
         self.wait()
-        atomic_write_json(os.path.join(self.dir, "final.json"), report)
+        if self.writer:
+            atomic_write_json(os.path.join(self.dir, "final.json"), report)
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -450,6 +483,8 @@ class CampaignCheckpoint:
     # ------------------------------------------------------- restore
     def epochs(self) -> list[int]:
         out = []
+        if not os.path.isdir(self.dir):
+            return out
         for name in os.listdir(self.dir):
             if name.startswith("epoch_") and name.endswith(".json"):
                 try:
@@ -624,16 +659,17 @@ def cube_max_rel(ref, got, rtol: float) -> float:
 class GuardedRunner:
     """Executes ``evaluate_batch`` calls under the guard policy.
 
-    ``rungs`` defaults to ``backend.failover_rungs(device)`` (``device``
-    ``None``: the session's); callers may inject a custom ladder plus a
+    ``rungs`` defaults to ``backend.failover_rungs(device, mesh)``
+    (``None``: the session's); callers may inject a custom ladder plus a
     stub ``runner`` (``runner(rung, workloads, npus, policies, knobs)``,
-    the rung's name first) and a stub ``oracle`` (``oracle(workloads,
-    npus, policies, knobs)``). ``report`` accumulates every escalation
-    across calls.
+    the rung's name first, and ``mesh=`` as well on a rung that carries
+    one) and a stub ``oracle`` (``oracle(workloads, npus, policies,
+    knobs)``). The default runner runs a mesh rung on ``device``.
+    ``report`` accumulates every escalation across calls.
     """
 
     def __init__(self, policy: Optional[GuardPolicy] = None, *,
-                 device=None, seed: int = 0,
+                 device=None, mesh=None, seed: int = 0,
                  rungs: Optional[Sequence[tuple]] = None,
                  runner: Optional[Callable] = None,
                  oracle: Optional[Callable] = None):
@@ -644,9 +680,10 @@ class GuardedRunner:
         self.policy = policy
         self.seed = int(seed)
         self.report = GuardReport()
+        from repro_torch.core.backend import failover_rungs, resolve_device
+        self.device = str(resolve_device(device))
         if rungs is None:
-            from repro_torch.core.backend import failover_rungs
-            rungs = failover_rungs(device)
+            rungs = failover_rungs(device, mesh)
         _check(len(rungs) >= 1, "rungs must be non-empty")
         self.rungs = tuple((str(n), m) for n, m in rungs)
         # only the default runner builds kernels at first use; a rung is
@@ -654,19 +691,25 @@ class GuardedRunner:
         self._prepare_rungs = runner is None
         self._prepared: set = set()
         self._runner = runner if runner is not None \
-            else self._default_runner
+            else functools.partial(self._default_runner, device=self.device)
         self._oracle = oracle if oracle is not None \
             else self._default_oracle
         self._watchdog: Optional[_Watchdog] = None
+        self._agree_groups: dict = {}
 
     @staticmethod
-    def _default_runner(rung: str, workloads, npus, policies, knobs):
-        """``rung`` ``"numpy"``: the numpy batched engine; any other
+    def _default_runner(rung: str, workloads, npus, policies, knobs, *,
+                        mesh=None, device=None):
+        """``rung`` ``"numpy"``: the numpy batched engine; a rung with a
+        ``mesh`` the sharded ``evaluate_batch`` on ``device``; any other
         rung is a device string for ``evaluate_batch``."""
         from repro_torch.core.policies import (evaluate_batch,
                                                evaluate_batch_numpy)
         if rung == "numpy":
             return evaluate_batch_numpy(workloads, npus, policies, knobs)
+        if mesh is not None:
+            return evaluate_batch(workloads, npus, policies, knobs,
+                                  device=device, mesh=mesh)
         return evaluate_batch(workloads, npus, policies, knobs,
                               device=rung)
 
@@ -685,7 +728,7 @@ class GuardedRunner:
             return
         if rung != "numpy":
             import torch
-            dev = torch.device(rung)
+            dev = torch.device(self.device if rung == "mesh" else rung)
             if dev.type == "cuda":
                 try:
                     _warm_device(dev)
@@ -694,6 +737,33 @@ class GuardedRunner:
                         f"rung {rung!r} could not be prepared at step "
                         f"{step} (error: {type(e).__name__}: {e})") from e
         self._prepared.add(rung)
+
+    def _agree(self, mesh, outcome: str, reason: str, issued: int) \
+            -> tuple[str, str, bool]:
+        """One exchange of every mesh rank's attempt outcome (``"ok"``,
+        ``"error"``, ``"timeout"``), reason and collectives issued
+        (``-1``: unknown, the attempt is still running). Returns the
+        outcome all ranks act on, its reason (the first failing rank's,
+        named) and whether the ranks' collectives are in step."""
+        import torch.distributed as dist
+        hit = self._agree_groups.get(id(mesh))
+        if hit is None or hit[0] is not mesh:
+            ranks = sorted(int(r) for r in mesh.mesh.flatten().tolist())
+            wait = datetime.timedelta(
+                seconds=2.0 * self.policy.timeout_s + 60.0)
+            group = dist.new_group(ranks, backend="gloo", timeout=wait,
+                                   use_local_synchronization=True)
+            hit = self._agree_groups[id(mesh)] = (mesh, group, ranks)
+        _, group, ranks = hit
+        views: list = [None] * len(ranks)
+        dist.all_gather_object(views, (outcome, reason, int(issued)),
+                               group=group)
+        in_step = all(v[0] != "timeout" for v in views) \
+            and len({v[2] for v in views}) == 1
+        for rank, (o, why, _) in zip(ranks, views):
+            if o != "ok":
+                return o, f"rank {rank}: {why}", in_step
+        return "ok", "", in_step
 
     # -------------------------------------------------------- execute
     def evaluate_batch(self, workloads, npus, policies, knobs, *,
@@ -707,23 +777,41 @@ class GuardedRunner:
             self._watchdog = _Watchdog()
         rng = None   # lazily seeded: only failures draw jitter
         last_reason = ""
-        for ri, (rung, _) in enumerate(self.rungs):
+        from repro_torch.core.backend import TorchBackend
+        for ri, (rung, mesh) in enumerate(self.rungs):
+            kw = {} if mesh is None else {"mesh": mesh}
             for attempt in range(pol.max_retries + 1):
                 if self._prepare_rungs:
                     self._prepare(rung, step)
+                issued = TorchBackend.collectives
                 try:
                     res = self._watchdog.run(
                         lambda: self._runner(rung, workloads, npus,
-                                             policies, knobs),
+                                             policies, knobs, **kw),
                         pol.timeout_s)
                 except _Timeout as e:
-                    last_reason = f"timeout: {e}"
+                    outcome, last_reason = "timeout", f"timeout: {e}"
                 except Exception as e:
+                    outcome = "error"
                     last_reason = (f"error: {type(e).__name__}: {e}")
                 else:
+                    outcome = "ok"
+                in_step = True
+                if mesh is not None:
+                    issued = -1 if outcome == "timeout" \
+                        else TorchBackend.collectives - issued
+                    outcome, why, in_step = self._agree(
+                        mesh, outcome, last_reason, issued)
+                    if outcome != "ok":
+                        last_reason = why
+                if outcome == "ok":
                     return self._quarantine(res, workloads, npus,
                                             policies, knobs,
                                             rung=rung, step=step)
+                if not in_step:
+                    last_reason += ("; the ranks' collectives are out of "
+                                    "step, so the rung is not retried")
+                    break
                 if attempt < pol.max_retries:
                     if rng is None:
                         rng = np.random.default_rng(
@@ -738,7 +826,7 @@ class GuardedRunner:
                 self.report.add(
                     "failover",
                     f"rung {rung!r} exhausted after "
-                    f"{pol.max_retries + 1} attempts ({last_reason}); "
+                    f"{attempt + 1} attempts ({last_reason}); "
                     f"downgrading to {self.rungs[ri + 1][0]!r}",
                     step=int(step), rung=rung,
                     next_rung=self.rungs[ri + 1][0])

@@ -53,7 +53,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.backend import TorchBackend, gap_index, get_backend
+from repro_torch.core import session
+from repro_torch.core.backend import (TorchBackend, gap_index, get_backend,
+                                      resolve_device)
 from repro_torch.core.hw import NPUSpec, get_npu, with_sa_width
 from repro_torch.core.opgen import (Op, StackedTrace, TraceArrays, Workload,
                                     compile_trace, segment_sum,
@@ -1220,7 +1222,8 @@ def _assert_float64(tree, path="out") -> None:
                         f"expected torch.float64")
 
 
-def _sweep_kernel(data, knobs, policies, bk: TorchBackend):
+def _sweep_kernel(data, knobs, policies, bk: TorchBackend, mesh=None,
+                  wl_axis=None, knob_axis=None):
     """The whole sweep for one NPU generation — service times, SA
     occupancy, gap merges, and the policy/knob assembly — over
     fixed-shape tensors on ``bk.device``.
@@ -1248,6 +1251,16 @@ def _sweep_kernel(data, knobs, policies, bk: TorchBackend):
     be bit-identical from run to run and between the CPU and the card
     stay so only if it is kept.
 
+    On a ``mesh`` (every rank of it calls this with its own shard, SPMD)
+    the op axis may be split over the ``wl_axis`` dim -- every op-axis
+    sum is then completed by a ``psum`` over it, while the sums over the
+    (replicated) gap-chunk axis need none -- and the unique widths, the
+    triples and the knobs over ``knob_axis``: each rank runs the width
+    pass for its widths and the masked merges for its triples, gathers
+    both, assembles its knob slice and gathers that too, so every rank
+    returns the whole (padded) grid. Inputs come padded to the dims'
+    sizes (``_sharded_backend_data``, ``_knob_arrays(pad_to=)``).
+
     Returns a dict of (K, W) tensors: per-cell quantities (``cells``),
     SRAM static per state (``sram``), and the per-knob context
     (``D_seg``, ``dyn``, ``sram_GU``, ``sram_dyn``) the host assembly
@@ -1264,17 +1277,23 @@ def _sweep_kernel(data, knobs, policies, bk: TorchBackend):
     cnt = op["cnt"]
     n = cnt.shape[0]
 
+    def opsum(s):
+        """Completes a sum over the (possibly sharded) op axis."""
+        return bk.psum(s, mesh, wl_axis) if wl_axis else s
+
     def segsum(v):
         """Per-workload sums over the op axis."""
-        return bk.segment_sum(v, seg, w, starts["seg"])
+        return opsum(bk.segment_sum(v, seg, w, starts["seg"]))
 
     def chunksum(v, c):
         """Per-idle-gap-chunk sums over the op axis."""
-        return bk.segment_sum(v, op[f"chunk_{c}"], gap_seg[c].shape[0],
-                              starts[f"chunk_{c}"])
+        return opsum(bk.segment_sum(v, op[f"chunk_{c}"],
+                                    gap_seg[c].shape[0],
+                                    starts[f"chunk_{c}"]))
 
     def gapsum(v, c):
-        """Per-workload sums over the gap-chunk axis."""
+        """Per-workload sums over the gap-chunk axis (replicated over
+        ``wl_axis``: the gap values are whole sums already)."""
         return bk.segment_sum(v, gap_seg[c], w, starts[f"gap_{c}"])
 
     cells = _distinct_cells(policies)
@@ -1359,6 +1378,12 @@ def _sweep_kernel(data, knobs, policies, bk: TorchBackend):
     sbase["sram_U"] = segsum(durn * used)
     sbase["sram_GU"] = segsum(durn * (1.0 - used))
     sbase["sram_dyn"] = scal["dyn_w_sram"] * 0.5 * segsum(max4 * cnt)
+    if knob_axis:
+        # the widths are sharded: gather the width pass ((S, n) per-op
+        # columns and (S, W) sums) so every rank can run its triples
+        gathered_s = bk.all_gather({"base": sbase, "comp": scomp}, mesh,
+                                   knob_axis)
+        sbase, scomp = gathered_s["base"], gathered_s["comp"]
 
     # ---- the masked threshold merges, batched over the unique (width,
     # delay-scale, window-scale) triples: the width-dependent structures
@@ -1419,6 +1444,10 @@ def _sweep_kernel(data, knobs, policies, bk: TorchBackend):
             o["SM"] = segsum(torch.where(smask, cc["scnt"], 0.0))
             o["SC"] = segsum(torch.where(smask, cnt, 0.0))
         all_prims[cid] = o
+    if knob_axis:
+        # the triples are sharded: gather their (U, W) primitives so every
+        # rank can assemble its knob slice
+        all_prims = bk.all_gather(all_prims, mesh, knob_axis)
     inv = knobs["pair_inv"]
     # per-knob base sums: (K, W) via the knob -> unique-width index
     base = {k: v[knobs["saw_inv"]] for k, v in sbase.items()}
@@ -1539,6 +1568,8 @@ def _sweep_kernel(data, knobs, policies, bk: TorchBackend):
            "D_seg": base["D_seg"],
            "dyn": {c: base[f"dyn_{c}"] for c in _BK_COMPS},
            "sram_GU": base["sram_GU"], "sram_dyn": base["sram_dyn"]}
+    if knob_axis:
+        out = bk.all_gather(out, mesh, knob_axis)
     _assert_float64(out)
     return out
 
@@ -1639,24 +1670,12 @@ def _put_tree(tree, bk: TorchBackend):
     return bk.asarray(tree)
 
 
-def _backend_data(st: StackedTrace, npu: NPUSpec, bk: TorchBackend) \
-        -> tuple[dict, np.ndarray]:
-    """``_host_columns`` transferred to the device once and cached on
-    the stack (spec-identity keyed). The per-NPU scalars become 0-d
-    device tensors, not Python floats: PyTorch's CUDA division by a
-    host scalar multiplies by its reciprocal, which rounds differently
-    from the true division the CPU does, and the sweep wants the same
-    bits on both. The range bounds of the nine sorted id vectors
-    (workload ids, per-component chunk ids and chunk→workload ids) are
-    derived on the device here, once, because every one of them is
+def _put_with_starts(host: dict, w: int, bk: TorchBackend) -> dict:
+    """A host kernel-input tree on the device, with the range bounds of
+    its nine sorted id vectors (workload ids, per-component chunk ids
+    and chunk→workload ids) derived there, once: every one of them is
     summed over some ten times per component per knob triple."""
-    key = ("backend_data", bk.name, id(npu))
-    hit = st._derived.get(key)
-    if hit is not None and hit[0] is npu:
-        return hit[1], hit[2]
-    host, sram_setpm = _host_columns(st, npu)
     data = _put_tree(host, bk)
-    w = st.n_segments
     starts = {"seg": bk.segment_starts(data["op"]["seg_ids"], w)}
     for c in _BK_COMPS:
         gseg = data["gap_seg"][c]
@@ -1664,6 +1683,63 @@ def _backend_data(st: StackedTrace, npu: NPUSpec, bk: TorchBackend) \
                                                  gseg.shape[0])
         starts[f"gap_{c}"] = bk.segment_starts(gseg, w)
     data["starts"] = starts
+    return data
+
+
+def _backend_data(st: StackedTrace, npu: NPUSpec, bk: TorchBackend) \
+        -> tuple[dict, np.ndarray]:
+    """``_host_columns`` transferred to the device once and cached on
+    the stack (spec-identity keyed). The per-NPU scalars become 0-d
+    device tensors, not Python floats: PyTorch's CUDA division by a
+    host scalar multiplies by its reciprocal, which rounds differently
+    from the true division the CPU does, and the sweep wants the same
+    bits on both."""
+    key = ("backend_data", bk.name, id(npu))
+    hit = st._derived.get(key)
+    if hit is not None and hit[0] is npu:
+        return hit[1], hit[2]
+    host, sram_setpm = _host_columns(st, npu)
+    data = _put_with_starts(host, st.n_segments, bk)
+    st._derived[key] = (npu, data, sram_setpm)
+    return data, sram_setpm
+
+
+def _sharded_backend_data(st: StackedTrace, npu: NPUSpec, bk: TorchBackend,
+                          wl_size: int, wl_index: int) \
+        -> tuple[dict, np.ndarray]:
+    """``_backend_data`` for shard ``wl_index`` of ``wl_size`` of the op
+    axis: the op columns padded to a multiple of ``wl_size``, cut into
+    equal slices, and this rank's slice on the device with the range
+    bounds of its own ids (the gap-chunk axis stays whole).
+
+    Padded ops are inert by construction: count 0, no FLOPs or bytes
+    (so never active, and every sum they enter adds a zero), 1×1×1
+    matmul dims with ``has_mm`` False, and workload and chunk ids pinned
+    to the LAST id, which keeps every slice's ids sorted. Cached on the
+    stack per (device, NPU, ``wl_size``, ``wl_index``); the entry keeps
+    the spec, so its id cannot be reused while the entry lives."""
+    key = ("backend_data_sharded", bk.name, id(npu), int(wl_size),
+           int(wl_index))
+    hit = st._derived.get(key)
+    if hit is not None and hit[0] is npu:
+        return hit[1], hit[2]
+    host, sram_setpm = _host_columns(st, npu)
+    op = dict(host["op"])
+    n = len(op["seg_ids"])
+    pad = (-n) % wl_size
+    if pad:
+        fill = {"seg_ids": st.n_segments - 1, "has_mm": False,
+                "mm_m": 1.0, "mm_k": 1.0, "mm_n": 1.0}
+        for k, a in op.items():
+            if k.startswith("chunk_"):
+                v = max(len(host["gap_seg"][k[len("chunk_"):]]) - 1, 0)
+            else:
+                v = fill.get(k, 0.0)
+            op[k] = np.concatenate([a, np.full(pad, v, a.dtype)])
+    size = (n + pad) // wl_size
+    lo = int(wl_index) * size
+    op = {k: a[lo:lo + size] for k, a in op.items()}
+    data = _put_with_starts({**host, "op": op}, st.n_segments, bk)
     st._derived[key] = (npu, data, sram_setpm)
     return data, sram_setpm
 
@@ -1687,11 +1763,15 @@ def knob_pairs(knob_grid) -> "tuple[list[tuple], np.ndarray]":
     return trips, inv
 
 
-def _knob_arrays(knob_grid, npu: NPUSpec, bk: TorchBackend) -> dict:
+def _knob_arrays(knob_grid, npu: NPUSpec, bk: TorchBackend,
+                pad_to: int = 0) -> dict:
     """Knob-grid tensors for the kernel: the full per-knob columns plus
     the unique (sa_width, delay_scale, window_scale) triples the heavy
     passes batch over, with the inverse index mapping them back onto
-    the grid."""
+    the grid. ``pad_to`` pads the knob, triple and unique-width axes to
+    a multiple of it by repeating entry 0 at the end (inert duplicates:
+    no inverse index points at them), so a mesh dim splits them evenly;
+    the caller slices the padded tail off the outputs."""
     g = npu.gating
     ds = np.array([k.delay_scale for k in knob_grid], np.float64)
     ws = np.array([k.window_scale for k in knob_grid], np.float64)
@@ -1712,6 +1792,17 @@ def _knob_arrays(knob_grid, npu: NPUSpec, bk: TorchBackend) -> dict:
     uniq, inv = np.unique(pairs, axis=0, return_inverse=True)
     inv = inv.reshape(-1).astype(np.int64)
     pair_saw_idx = np.searchsorted(saw_unique, uniq[:, 0]).astype(np.int64)
+    pair_ds = uniq[:, 1].copy()
+    pair_ws = uniq[:, 2].copy()
+    if pad_to:
+        def padded(a):
+            p = (-len(a)) % pad_to
+            return a if p == 0 else np.concatenate([a, np.repeat(a[:1], p)])
+        ds, ws, leak_logic, leak_sleep, leak_off, inv, saw_inv = (
+            padded(a) for a in (ds, ws, leak_logic, leak_sleep, leak_off,
+                                inv, saw_inv))
+        pair_saw_idx, pair_ds, pair_ws, saw_unique = (
+            padded(a) for a in (pair_saw_idx, pair_ds, pair_ws, saw_unique))
     return {
         "dscale": bk.asarray(ds),
         "wscale": bk.asarray(ws),
@@ -1724,16 +1815,51 @@ def _knob_arrays(knob_grid, npu: NPUSpec, bk: TorchBackend) -> dict:
         "saw_unique": bk.asarray(saw_unique),
         "saw_inv": bk.asarray(saw_inv),
         "pair_saw_idx": bk.asarray(pair_saw_idx),
-        "pair_dscale": bk.asarray(uniq[:, 1].copy()),
-        "pair_wscale": bk.asarray(uniq[:, 2].copy()),
+        "pair_dscale": bk.asarray(pair_ds),
+        "pair_wscale": bk.asarray(pair_ws),
         "pair_inv": bk.asarray(inv),
     }
 
 
+def _knob_shard(knobs: dict, size: int, index: int) -> dict:
+    """Shard ``index`` of ``size`` of every (padded) knob-array axis."""
+    out = {}
+    for k, a in knobs.items():
+        n = a.shape[0] // size
+        out[k] = a[index * n:(index + 1) * n]
+    return out
+
+
+def _mesh_axes(mesh, bk: TorchBackend) -> dict:
+    """What ``_evaluate_batch_backend`` reads off a mesh: for each of its
+    dims ``wl`` and ``knob``, the dim's name, size and this rank's index
+    along it (``None``, 1 and 0 for a dim the mesh lacks)."""
+    sizes = bk.mesh_axis_sizes(mesh)
+    extra = set(sizes) - {"wl", "knob"}
+    if extra or not sizes:
+        raise ValueError(f"mesh dims {tuple(sizes)}: the sweep shards over "
+                         f"'wl' and 'knob' only (parallel.dist.sweep_mesh)")
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not in the mesh it was given")
+    out = {}
+    for axis in ("wl", "knob"):
+        if axis in sizes:
+            out[axis] = (axis, int(sizes[axis]),
+                         int(mesh.get_local_rank(axis)))
+        else:
+            out[axis] = (None, 1, 0)
+    return out
+
+
 def _evaluate_batch_backend(workloads, npu_specs, policies, knob_grid,
-                            bk: TorchBackend) -> BatchResult:
+                            bk: TorchBackend, mesh=None) -> BatchResult:
     """``evaluate_batch`` through ``_sweep_kernel``: one kernel call per
-    NPU generation, then the host assembly of the result cube."""
+    NPU generation, then the host assembly of the result cube.
+
+    On a ``mesh`` from ``parallel.dist.sweep_mesh`` every rank runs the
+    kernel on its shard -- op columns over ``"wl"``, widths, triples and
+    knobs over ``"knob"``; a ``("wl",)`` mesh is the same program with a
+    knob dim of size 1 -- and gets the whole grid back."""
     st = stack_traces(workloads)
     policies = tuple(policies)
     w, a_n, p_n, k_n = st.n_segments, len(npu_specs), len(policies), \
@@ -1752,14 +1878,27 @@ def _evaluate_batch_backend(workloads, npu_specs, policies, knob_grid,
         wake_events=wake_events, gated_s=gated_s, setpm_by=setpm_by)
     if w == 0:
         return result
+    axes = _mesh_axes(mesh, bk) if mesh is not None else None
     for ai, npu in enumerate(npu_specs):
-        data, sram_setpm = _backend_data(st, npu, bk)
-        knobs = _knob_arrays(knob_grid, npu, bk)
-        vm = _sweep_kernel(data, knobs, policies, bk)
+        if axes is None:
+            data, sram_setpm = _backend_data(st, npu, bk)
+            knobs = _knob_arrays(knob_grid, npu, bk)
+            vm = _sweep_kernel(data, knobs, policies, bk)
+        else:
+            wl_axis, wl_size, wl_index = axes["wl"]
+            knob_axis, knob_size, knob_index = axes["knob"]
+            data, sram_setpm = _sharded_backend_data(st, npu, bk, wl_size,
+                                                     wl_index)
+            knobs = _knob_shard(_knob_arrays(knob_grid, npu, bk,
+                                             pad_to=knob_size),
+                                knob_size, knob_index)
+            vm = _sweep_kernel(data, knobs, policies, bk, mesh,
+                               wl_axis=wl_axis, knob_axis=knob_axis)
 
         def harvest(arr):
-            # (K, W) on the device -> (W, K) on the host
-            return bk.to_numpy(arr).T
+            # (K_pad, W) on the device -> (W, K) on the host, the shard
+            # padding dropped
+            return bk.to_numpy(arr)[:k_n].T
 
         cells = {cid: {q: harvest(arr) for q, arr in d.items()}
                  for cid, d in vm["cells"].items()}
@@ -1824,7 +1963,7 @@ def _validate_knob_grid(knob_grid) -> None:
 
 
 def evaluate_batch(workloads, npus=("NPU-D",), policies=POLICIES,
-                   knob_grid=None, *, device=None) -> BatchResult:
+                   knob_grid=None, *, device=None, mesh=None) -> BatchResult:
     """The full design-space cross product in one batched evaluation.
 
     The workloads are stacked into one ragged super-trace; the
@@ -1841,6 +1980,17 @@ def evaluate_batch(workloads, npus=("NPU-D",), policies=POLICIES,
     hand-written kernels of ``repro_torch.kernels``; ``device="cpu"``
     runs their plain versions.
 
+    ``mesh`` (a ``DeviceMesh`` from ``parallel.dist.sweep_mesh``; ``None``
+    resolves through the session, which is consulted only when the
+    device is not ``"numpy"``) runs the sweep sharded, SPMD: every rank
+    of the mesh makes this same call, computes its shard on ``device``
+    -- op columns over the ``"wl"`` dim, completed by all-reduces;
+    widths, triples and knobs over ``"knob"`` -- and returns the whole
+    ``BatchResult``. On a knob-only mesh the records equal the
+    unsharded run's bit for bit; with ``"wl"`` the op-axis sums are
+    partial sums reduced across ranks, ≤1e-9 from the unsharded ones.
+    ``device="numpy"`` with a mesh raises ``ValueError``.
+
     ``knob_grid`` accepts a ``KnobGrid`` (crossed via ``product()``), a
     flat sequence of ``PolicyKnobs``, or ``None`` (the single default
     point).
@@ -1852,8 +2002,15 @@ def evaluate_batch(workloads, npus=("NPU-D",), policies=POLICIES,
     policies = tuple(policies)
     knob_grid = as_knob_tuple(knob_grid)
     _validate_knob_grid(knob_grid)
+    if resolve_device(device) == "numpy":
+        if mesh is not None:
+            raise ValueError("mesh requires a torch device ('cuda' or "
+                             "'cpu'), not device='numpy'")
+    elif mesh is None:
+        mesh = session.resolve("mesh")
     return _evaluate_batch_backend(workloads, npu_specs, policies,
-                                   knob_grid, get_backend(device))
+                                   knob_grid, get_backend(device),
+                                   mesh=mesh)
 
 
 def evaluate_batch_numpy(workloads, npus=("NPU-D",), policies=POLICIES,

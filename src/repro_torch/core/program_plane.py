@@ -34,17 +34,25 @@ The software-managed half of ReGate (§5.3/Fig 14: compiler-placed
   device. ``sweep_program_plane`` (``repro_torch.core.sweep``) is a thin
   wrapper emitting one ``lowering.plane_record`` per cell.
 
-The reference's multi-device path (the dense stack sharded along its row
-axis over a ``("wl",)`` mesh) is not here: one card holds the whole stack.
+On a mesh with a ``"wl"`` dim (``parallel.dist.sweep_mesh``; the JAX
+package's GSPMD row sharding) the executor's rows are split over that
+dim: the row axis is padded to a multiple of its size with inert rows
+(an empty stream, horizon 0), each rank uploads only the streams its
+rows run and executes them through B7's stream entry -- one launch a
+call on a card -- and the int64 outputs are all-gathered in row order,
+so every rank holds every row. The mesh applies to the executor only:
+the policy side's ``evaluate_batch`` resolves its own session mesh.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.core import session
 from repro_torch.core.backend import get_backend
 from repro_torch.core.hw import NPUSpec, get_npu, with_sa_width
 from repro_torch.core.isa import (events_to_arrays, scaled_delay,
@@ -228,6 +236,63 @@ def _run_streams(pa: ProgramArrays, stream_of_row: np.ndarray,
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
+def _shard_rows(pa: ProgramArrays, stream_of_row: np.ndarray,
+                window: np.ndarray, delay: np.ndarray, horizon: np.ndarray,
+                size: int, index: int) -> tuple:
+    """Shard ``index`` of ``size`` of the executor's rows, padded to a
+    multiple of ``size`` with inert rows (an empty stream, horizon 0,
+    zero delays and windows): ``_run_streams``' arguments over a stack
+    of only the streams those rows run, each once, in first-use order."""
+    r = len(stream_of_row)
+    per = -(-r // size) if r else 0
+    lo, hi = index * per, min(r, (index + 1) * per)
+    rows = np.arange(lo, max(lo, hi))
+    n_pad = per - len(rows)
+    used, local = np.unique(stream_of_row[rows], return_inverse=True) \
+        if len(rows) else (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    # the empty stream for the padding rows goes last
+    lens = np.append(pa.lengths[used], 0) if n_pad else pa.lengths[used]
+    offsets = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    take = np.concatenate([np.arange(pa.offsets[s], pa.offsets[s + 1])
+                           for s in used]) if len(used) \
+        else np.zeros(0, np.int64)
+    u = len(pa.units)
+    sub = ProgramArrays(
+        units=pa.units, cycle=pa.cycle[take], lat=pa.lat[take],
+        pm=pa.pm[take], offsets=offsets,
+        horizon=np.append(pa.horizon[used], 0) if n_pad
+        else pa.horizon[used],
+        setpm_vu=np.append(pa.setpm_vu[used], 0.0) if n_pad
+        else pa.setpm_vu[used])
+    sor = np.concatenate([local.reshape(-1).astype(np.int64),
+                          np.full(n_pad, len(used), np.int64)])
+    zeros = np.zeros((n_pad, u), np.int64)
+    return (sub, sor, np.concatenate([window[rows], zeros]),
+            np.concatenate([delay[rows], zeros]),
+            np.concatenate([horizon[rows], np.zeros(n_pad, np.int64)]))
+
+
+def _run_rows_mesh(pa: ProgramArrays, stream_of_row: np.ndarray,
+                   window: np.ndarray, delay: np.ndarray,
+                   horizon: np.ndarray, device, mesh) \
+        -> dict[str, np.ndarray]:
+    """The executor with its rows split over the mesh's ``"wl"`` dim: this
+    rank's shard (``_shard_rows``) through B7's stream entry on
+    ``device``, then every shard's outputs gathered in row order; host
+    numpy outputs per row, the padding dropped."""
+    bk = get_backend(device)
+    size = int(bk.mesh_axis_sizes(mesh)["wl"])
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not in the mesh it was given")
+    local = _shard_rows(pa, stream_of_row, window, delay, horizon, size,
+                        int(mesh.get_local_rank("wl")))
+    out = program_exec_streams(*_upload_streams(*local, device))
+    out = bk.all_gather(out, mesh, "wl")
+    r = len(stream_of_row)
+    return {k: v[:r].cpu().numpy() for k, v in out.items()}
+
+
 def _plane_rows(workloads: Sequence[Workload],
                 npu_specs: Sequence[NPUSpec], triples: list[tuple]) -> tuple:
     """One kernel row per (workload, npu, unique knob triple), in that
@@ -328,7 +393,7 @@ class ProgramPlaneBatch:
 def program_plane_batch(workloads: Sequence[Workload] | Workload,
                         npus: Iterable[NPUSpec | str] = ("NPU-D",),
                         knob_grid: Optional[Sequence[PolicyKnobs]] = None,
-                        *, device=None) -> ProgramPlaneBatch:
+                        *, device=None, mesh=None) -> ProgramPlaneBatch:
     """Evaluate the program plane for every (workload, npu, knob) cell
     through the batched executor + the closed-form folds.
 
@@ -341,7 +406,12 @@ def program_plane_batch(workloads: Sequence[Workload] | Workload,
     resolves through the active ``SweepSession`` and otherwise means
     ``"cuda"`` — with no card that raises. On a CUDA device the executor
     is one launch of kernel B7 on the ragged stack; ``device="cpu"`` runs
-    its plain version on the dense one."""
+    its plain version on the dense one.
+
+    ``mesh`` (``None``: the session's) with a ``"wl"`` dim splits the
+    executor's rows over that dim, every rank of it making this same
+    call (see the module's docstring); the executor integers equal the
+    unsharded run's exactly. The policy side resolves its own mesh."""
     if isinstance(workloads, Workload):
         workloads = [workloads]
     workloads = list(workloads)
@@ -350,6 +420,11 @@ def program_plane_batch(workloads: Sequence[Workload] | Workload,
     # no card for "cuda": raise before the host work
     run = _run_streams if get_backend(device).device.type == "cuda" \
         else _run_dense
+    if mesh is None:
+        mesh = session.resolve("mesh")
+    if mesh is not None and "wl" in get_backend(device).mesh_axis_sizes(
+            mesh):
+        run = functools.partial(_run_rows_mesh, mesh=mesh)
 
     triples, inv = knob_pairs(grid)
     w_n, a_n, t_n = len(workloads), len(npu_specs), len(triples)

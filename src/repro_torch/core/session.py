@@ -10,14 +10,20 @@ enclosing session (ultimately the root session, which holds the
 process-wide defaults). Sessions nest and restore the previous state on
 exit, exception-safe.
 
-The port's session carries three fields:
+The port's session carries four fields:
 
 * ``device``: where the sweep kernel's tensors live. It stands where the
-  JAX package's session has ``backend``, ``jax_mesh`` and
-  ``sa_occupancy_impl`` — in the port the device alone decides the route
-  (a CUDA tensor goes through the hand-written kernels, a CPU tensor
-  through their plain versions). The root value is ``None``, which every
-  entry point reads as ``"cuda"``.
+  JAX package's session has ``backend`` and ``sa_occupancy_impl`` — in
+  the port the device alone decides the route (a CUDA tensor goes
+  through the hand-written kernels, a CPU tensor through their plain
+  versions). The root value is ``None``, which every entry point reads
+  as ``"cuda"``.
+* ``mesh``: the JAX package's ``jax_mesh`` — a ``DeviceMesh`` from
+  ``parallel.dist.sweep_mesh`` (or ``None``, the root's value) that
+  ``policies.evaluate_batch`` and the guard's ladder
+  (``backend.failover_rungs``) consult whenever their ``mesh=`` argument
+  is ``None`` — but only when the effective device is not ``"numpy"``,
+  so a numpy sweep inside a mesh session stays valid.
 * ``gating_cache_size``: applied on ``__enter__`` through
   ``sa_gating.set_gating_cache_size`` (the LRU itself stays the single
   source of truth) and the previous size restored on ``__exit__``. The
@@ -52,7 +58,7 @@ class _Unset:
 
 UNSET = _Unset()
 
-_FIELDS = ("device", "gating_cache_size", "guard")
+_FIELDS = ("device", "mesh", "gating_cache_size", "guard")
 
 
 def _check_device(value: Any) -> Any:
@@ -76,6 +82,7 @@ class SweepSession:
 
     ``device`` defaults to ``UNSET`` (inherit); otherwise anything
     ``torch.device`` accepts, or ``None`` for the default (``"cuda"``).
+    ``mesh`` defaults to ``UNSET``; otherwise a ``DeviceMesh`` or ``None``.
     ``gating_cache_size`` defaults to ``UNSET`` (leave the LRU alone);
     otherwise a size accepted by ``sa_gating.set_gating_cache_size``
     (``None`` = unbounded). ``guard`` defaults to ``UNSET``; otherwise a
@@ -83,13 +90,14 @@ class SweepSession:
     re-entering an already-active session raises.
     """
 
-    def __init__(self, device: Any = UNSET,
+    def __init__(self, device: Any = UNSET, mesh: Any = UNSET,
                  gating_cache_size: Any = UNSET, guard: Any = UNSET):
         if device is not UNSET:
             _check_device(device)
         if guard is not UNSET:
             _check_guard(guard)
         self.device = device
+        self.mesh = mesh
         self.gating_cache_size = gating_cache_size
         self.guard = guard
         self._active = False
@@ -134,7 +142,7 @@ def _root() -> SweepSession:
     """The process-wide defaults layer (what ``set_root`` mutates). The
     gating-cache size stays UNSET here: sessions scope the LRU by save
     and restore, not by resolution."""
-    s = SweepSession(device=None, guard=None)
+    s = SweepSession(device=None, mesh=None, guard=None)
     s._active = True  # the root never exits
     return s
 

@@ -26,8 +26,12 @@ programs through the batched event executor) against the closed-form
 ``ReGate-Full`` policy, with ``sweep_program_plane_reference`` as its
 per-cell oracle.
 
-Every entry point takes ``device=None``: ``None`` resolves through the
-active ``SweepSession`` and otherwise means ``"cuda"``.
+Every entry point takes ``device=None`` and ``mesh=None``: ``None``
+resolves through the active ``SweepSession`` and otherwise means
+``"cuda"`` and no mesh. A mesh (``parallel.dist.sweep_mesh``) shards the
+call over the ranks of a ``torch.distributed`` world: each rank makes the
+same call and gets the whole result (``policies.evaluate_batch``; the
+program plane shards its executor's rows).
 
 Records are emitted in deterministic order: workload-major, then NPU,
 then policy, then knob index.
@@ -80,7 +84,7 @@ def sweep(workloads: Sequence[Workload] | Workload,
           npus: Iterable[NPUSpec | str] = ("NPU-D",),
           policies: Iterable[str] = POLICIES,
           knob_grid: Optional[Sequence[PolicyKnobs]] = None,
-          device=None) -> list[dict]:
+          device=None, mesh=None) -> list[dict]:
     """Evaluate every (workload, npu, policy, knobs) cell in one batched
     pass; flat records."""
     if isinstance(workloads, Workload):
@@ -89,7 +93,8 @@ def sweep(workloads: Sequence[Workload] | Workload,
         knob_grid = [PolicyKnobs()]
     npu_specs = [get_npu(n) if isinstance(n, str) else n for n in npus]
     return evaluate_batch(workloads, npu_specs, tuple(policies),
-                          tuple(knob_grid), device=device).records()
+                          tuple(knob_grid), device=device,
+                          mesh=mesh).records()
 
 
 def sweep_reference(workloads: Sequence[Workload] | Workload,
@@ -149,7 +154,7 @@ def sweep_grid(workloads: Sequence[Workload] | Workload,
                leak_sram_off: Sequence[Optional[float]] = (None,),
                sa_width: Sequence[Optional[int]] = (None,),
                window_scale: Sequence[float] = (1.0,),
-               device=None, as_records: bool = True):
+               device=None, mesh=None, as_records: bool = True):
     """Fine-grid design-space sweep: the §6.5 sensitivity axes crossed
     into one ``evaluate_batch`` call.
 
@@ -185,7 +190,8 @@ def sweep_grid(workloads: Sequence[Workload] | Workload,
             "the axis kwargs, not both")
     npu_specs = [get_npu(n) if isinstance(n, str) else n for n in npus]
     res: BatchResult = evaluate_batch(
-        workloads, npu_specs, tuple(policies), grid, device=device)
+        workloads, npu_specs, tuple(policies), grid, device=device,
+        mesh=mesh)
     return res.records() if as_records else res
 
 
@@ -196,7 +202,8 @@ def sweep_robustness(workloads: Sequence[Workload] | Workload,
                      threshold_scales: Sequence[float] =
                      (0.25, 0.5, 1.0, 2.0, 4.0),
                      seed: int = 0, slo_relax: float = 1.1,
-                     topology: bool = True, device=None) -> dict:
+                     topology: bool = True, device=None,
+                     mesh=None) -> dict:
     """Idle-detection robustness sweep (jitter plane).
 
     Crosses HW idle-detection thresholds (``threshold_scales``, the
@@ -267,7 +274,7 @@ def sweep_robustness(workloads: Sequence[Workload] | Workload,
             names=[f"{wl.name}@s{si}" for wl in base]))
     thr_grid = KnobGrid(window_scale=threshold_scales)
     res: BatchResult = evaluate_batch(
-        variants, npu_specs, pols, thr_grid, device=device)
+        variants, npu_specs, pols, thr_grid, device=device, mesh=mesh)
     thr_knobs = thr_grid.product()
 
     rt = res.runtime_s                       # (S*W, A, P, T)
@@ -340,7 +347,8 @@ def sweep_robustness(workloads: Sequence[Workload] | Workload,
 
 def sweep_program_plane(workloads: Sequence[Workload] | Workload,
                         npus: Iterable[NPUSpec | str] = ("NPU-D",),
-                        knob_grid=None, *, device=None) -> list[dict]:
+                        knob_grid=None, *, device=None,
+                        mesh=None) -> list[dict]:
     """Cross-validation sweep over the batched program plane: lower
     every (workload, npu) cell, place the §4.3 ``setpm``
     instrumentation once per unique delay scale, and execute ALL cells
@@ -360,7 +368,7 @@ def sweep_program_plane(workloads: Sequence[Workload] | Workload,
     from repro_torch.core.policies import as_knob_tuple
     from repro_torch.core.program_plane import program_plane_batch
     return program_plane_batch(workloads, npus, as_knob_tuple(knob_grid),
-                               device=device).records()
+                               device=device, mesh=mesh).records()
 
 
 def sweep_program_plane_reference(workloads: Sequence[Workload] | Workload,

@@ -2,7 +2,8 @@
 from repro_torch.parallel.dist import (current_mesh, fake_world, local_map,
                                        make_mesh, mesh_axis_sizes,
                                        parse_mesh, single_process_world,
-                                       use_mesh)
+                                       spmd_world, sweep_mesh, use_mesh,
+                                       world_backend)
 from repro_torch.parallel.sharding import (RULE_VARIANTS, ShardingRules,
                                            act_pspec, constrain,
                                            current_rules, param_pspec,
@@ -11,5 +12,5 @@ from repro_torch.parallel.sharding import (RULE_VARIANTS, ShardingRules,
 __all__ = ["RULE_VARIANTS", "ShardingRules", "act_pspec", "constrain",
            "current_mesh", "current_rules", "fake_world", "local_map",
            "make_mesh", "mesh_axis_sizes", "param_pspec", "parse_mesh",
-           "single_process_world", "spec_placements", "use_mesh",
-           "use_rules"]
+           "single_process_world", "spec_placements", "spmd_world",
+           "sweep_mesh", "use_mesh", "use_rules", "world_backend"]

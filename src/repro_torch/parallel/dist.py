@@ -19,6 +19,14 @@ need from that surface goes through this module:
   runs under fake tensors;
 * ``single_process_world(device_type)`` -- a real one-rank group, for a
   ``(1, 1)`` mesh without a launcher;
+* ``spmd_world(rank, world_size, init_method, device_type)`` -- this
+  process as one rank of a real world: NCCL where every rank has a card
+  of its own, gloo otherwise -- on the CPU, and where ranks share a card
+  (NCCL refuses two ranks on one GPU; gloo reduces and gathers CUDA
+  tensors through the host);
+* ``sweep_mesh(wl, knob, device_type)`` -- the power plane's mesh
+  (``jax_compat.sweep_mesh``'s counterpart): ``("wl",)`` when only the
+  op axis is split, ``("wl", "knob")`` otherwise;
 * ``local_map(fn, args, in_placements, out_placements)`` -- ``fn`` on the
   local shards of DTensor arguments placed as asked, its outputs wrapped
   back as DTensors (``shard_map``'s counterpart; a ctypes kernel launch
@@ -28,6 +36,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import datetime
 import sys
 from typing import Any, Callable, Optional, Sequence
 
@@ -36,15 +45,54 @@ import torch.distributed as dist
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
-              device_type: str = "cuda"):
+              device_type: str = "cuda", *,
+              timeout_s: Optional[float] = None):
     """A ``DeviceMesh`` of ``shape`` with dims named ``axes`` over the
-    default process group's ranks (row-major, as ``jax.make_mesh``)."""
+    default process group's ranks (row-major, as ``jax.make_mesh``);
+    ``timeout_s`` as in ``sweep_mesh``."""
     from torch.distributed.device_mesh import init_device_mesh
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {tuple(shape)} and axes {tuple(axes)} "
                          f"differ in rank")
+    kw = {}
+    if timeout_s is not None:
+        kw["backend_override"] = {a: _group_options(timeout_s)
+                                  for a in axes}
     return init_device_mesh(device_type, tuple(int(s) for s in shape),
-                            mesh_dim_names=tuple(axes))
+                            mesh_dim_names=tuple(axes), **kw)
+
+
+def sweep_mesh(wl: int = 1, knob: int = 1, *, device_type: str = "cuda",
+               timeout_s: Optional[float] = None):
+    """The power plane's mesh, dims named the way
+    ``policies.evaluate_batch`` dispatches on them:
+
+    * ``wl`` -- splits the stacked per-op axis (each rank sums its ops,
+      a ``psum`` over the dim completes every op-axis sum);
+    * ``knob`` -- splits the unique widths, the knob triples and the knob
+      grid.
+
+    ``("wl",)`` when ``knob == 1 and wl > 1``; ``("wl", "knob")``
+    otherwise, the degenerate ``(1, 1)`` included. ``wl * knob`` ranks of
+    the default process group, row-major. ``timeout_s``, where given, is
+    each dim's process-group timeout: a collective that some rank never
+    joins then raises after that long instead of waiting torch's default
+    (30 minutes for gloo)."""
+    if knob == 1 and wl > 1:
+        shape, axes = (int(wl),), ("wl",)
+    else:
+        shape, axes = (int(wl), int(knob)), ("wl", "knob")
+    return make_mesh(shape, axes, device_type, timeout_s=timeout_s)
+
+
+def _group_options(timeout_s: float):
+    """``init_device_mesh``'s per-dim override that gives a dim's group
+    the default group's backend and ``timeout_s``."""
+    backend = dist.get_backend()
+    opts = dist.ProcessGroupNCCL.Options() if backend == "nccl" \
+        else dist.ProcessGroupGloo._Options()
+    opts._timeout = datetime.timedelta(seconds=float(timeout_s))
+    return backend, opts
 
 
 def parse_mesh(text: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
@@ -118,6 +166,39 @@ def single_process_world(device_type: str = "cuda"):
     backend = "nccl" if device_type == "cuda" else "gloo"
     dist.init_process_group(backend, store=dist.HashStore(), world_size=1,
                             rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def world_backend(device_type: str, world_size: int) -> str:
+    """The collective backend of a world of ``world_size`` ranks on
+    ``device_type``: NCCL when each rank has a card of its own, gloo on
+    the CPU and when ranks share a card."""
+    if device_type == "cuda" and world_size <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+@contextlib.contextmanager
+def spmd_world(rank: int, world_size: int, init_method: str,
+               device_type: str = "cuda", timeout_s: float = 300.0):
+    """This process as rank ``rank`` of a ``world_size``-rank default
+    process group at ``init_method`` (``"tcp://localhost:<port>"``),
+    destroyed on exit. On ``"cuda"`` the rank's current device is card
+    ``rank % device_count`` -- card 0 for every rank on a one-card
+    machine -- set before the group exists, and the backend is
+    ``world_backend``'s. ``timeout_s`` bounds every collective of the
+    default group."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group exists already")
+    if device_type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(
+        world_backend(device_type, world_size), init_method=init_method,
+        rank=int(rank), world_size=int(world_size),
+        timeout=datetime.timedelta(seconds=float(timeout_s)))
     try:
         yield
     finally:

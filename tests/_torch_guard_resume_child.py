@@ -3,7 +3,9 @@
 
 Runs a small, fully deterministic chaos campaign of ``repro_torch`` with
 a campaign checkpoint and writes the final summary JSON to ``argv[2]``;
-``argv[3]`` is the device (default ``"cpu"``). The parent arms
+``argv[3]`` is the device (default ``"cpu"``); ``campaign`` also takes
+a ``mesh`` (``tests/_torch_sweep_mesh_child.py`` runs it on one). The
+parent arms
 ``REPRO_GUARD_KILL`` in this process's environment (it is read when
 ``repro_torch.core.guard`` is imported) to SIGKILL it at an epoch
 boundary (right after a snapshot publishes) or mid-epoch, then relaunches
@@ -24,7 +26,7 @@ from repro_torch.core.slo import Hysteresis
 N_EPOCHS = 6
 
 
-def campaign(checkpoint=None, device="cpu") -> dict:
+def campaign(checkpoint=None, device="cpu", mesh=None) -> dict:
     wl = llm_workload("llama2-13b", "decode", batch=8, n_chips=8, tp=8)
     sc = FleetScenario(
         classes=(WorkloadClass(
@@ -37,7 +39,7 @@ def campaign(checkpoint=None, device="cpu") -> dict:
     out = sweep_chaos(sc, KnobGrid(window_scale=(0.5, 1.0)),
                       fault_severities=(0.0, 1.0),
                       hysteresis=Hysteresis(), thrash_baseline=False,
-                      checkpoint=checkpoint, device=device)
+                      checkpoint=checkpoint, device=device, mesh=mesh)
     return {"summary": out["summary"],
             "reports": {repr(sev): rep.to_dict()
                         for sev, rep in out["reports"].items()}}

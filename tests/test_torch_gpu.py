@@ -1519,3 +1519,37 @@ def test_reduced_train_mesh_on_the_card(card):
     kw = dict(device="cuda", steps=3, microbatches=2, log_every=100)
     assert run(TrainLoopConfig(mesh="1x1", **kw))["losses"] \
         == run(TrainLoopConfig(**kw))["losses"]
+
+
+def test_sweep_and_plane_on_a_one_rank_nccl_mesh(card):
+    """The power plane's mesh path on the card in a one-rank NCCL world
+    (the backend a world with a card for each rank takes): the sharded
+    sweep on a (1, 1) mesh equals the unsharded one bit for bit with K1
+    and K2 launched, and the row-sharded program plane's executor one
+    launch of B7 with the unsharded integers."""
+    from repro_torch.core.policies import evaluate_batch
+    from repro_torch.kernels.program_exec import program_exec
+    from repro_torch.parallel.dist import single_process_world, sweep_mesh
+    import torch.distributed as dist
+    wls = opgen.paper_suite()[:4]
+    grid = KnobGrid(delay_scale=(0.25, 1.0, 4.0), sa_width=(None, 64))
+    want = evaluate_batch(wls, ("NPU-B", "NPU-E"), POLICIES, grid,
+                          device=card)
+    plane_want = pp.program_plane_batch(wls, ("NPU-B",), grid.product(),
+                                        device=card)
+    with single_process_world("cuda"):
+        assert dist.get_backend() == "nccl"
+        mesh = sweep_mesh(1, 1, device_type="cuda")
+        k1, k2 = sa_occupancy.launches, segment_sum.launches
+        got = evaluate_batch(wls, ("NPU-B", "NPU-E"), POLICIES, grid,
+                             device=card, mesh=mesh)
+        assert sa_occupancy.launches > k1 and segment_sum.launches > k2
+        b7 = program_exec.launches
+        plane = pp.program_plane_batch(wls, ("NPU-B",), grid.product(),
+                                       device=card, mesh=mesh)
+        assert program_exec.launches == b7 + 1
+    assert not dist.is_initialized()
+    assert got.records() == want.records()
+    for f in ("cycles", "stall_cycles", "n_events"):
+        assert np.array_equal(getattr(plane, f), getattr(plane_want, f)), f
+    assert plane.records() == plane_want.records()

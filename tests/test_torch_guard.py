@@ -13,9 +13,20 @@ The port runs on
 ``device="cpu"``, the reference on ``backend="numpy"``. Mirrors
 ``tests/test_guard.py`` case for case and the guard part of
 ``tests/test_validation.py``.
+
+On a mesh the ladder starts with the rung ``"mesh"``: ``mesh → cuda``
+on the card, ``mesh → cpu → numpy`` on the CPU. Every rank runs its own
+guard, so the ranks agree on each attempt's outcome; a mesh rung whose
+collectives fell out of step (a rank timed out) is left without a retry,
+where the reference retries its single-controller ``jax-mesh``. The
+2-rank gloo worlds of ``tests/_torch_sweep_mesh_child.py`` hold a fault
+on one rank, the fleet, the chaos campaign and its kill and resume on a
+(1, 2) knob mesh.
 """
 import dataclasses
 import json
+import os
+import signal
 import time
 
 import numpy as np
@@ -736,3 +747,199 @@ def test_session_rejects_bad_guard():
     with pytest.raises(ValueError, match="GuardPolicy"):
         p_session.set_root(guard=r_guard.GuardPolicy())
     assert p_session.resolve("guard") is None
+
+
+# --------------------------------------------------------------------------
+# the guard on a mesh
+# --------------------------------------------------------------------------
+
+import _torch_sweep_mesh_child as mesh_child  # noqa: E402
+
+
+def test_failover_rungs_with_a_mesh():
+    """The mesh rung heads the ladder; the card's ladder stays on the card
+    (checked from the names, with no card)."""
+    m = object()
+    assert p_backend.failover_rungs("cuda", m) == (("mesh", m),
+                                                   ("cuda", None))
+    assert p_backend.failover_rungs("cuda:1", m) == (("mesh", m),
+                                                     ("cuda:1", None))
+    assert p_backend.failover_rungs("cpu", m) == (
+        ("mesh", m), ("cpu", None), ("numpy", None))
+    assert p_backend.failover_rungs("numpy", m) == (("numpy", None),)
+    assert all(n != "numpy" for n, _ in p_backend.failover_rungs("cuda", m))
+    with p_session.SweepSession(device="cpu", mesh=m):
+        assert p_backend.failover_rungs() == (
+            ("mesh", m), ("cpu", None), ("numpy", None))
+        assert p_guard.GuardedRunner().rungs[0] == ("mesh", m)
+        assert p_backend.failover_rungs("numpy") == (("numpy", None),)
+    # the reference's ladder with a mesh has the same head and tail
+    assert [n for n, _ in r_guard.GuardedRunner(
+        backend="jax", jax_mesh="MESH").rungs] == ["jax-mesh", "jax",
+                                                   "numpy"]
+
+
+def test_mesh_rung_walks_the_ladder_in_one_rank():
+    """``tests/test_guard.py::test_watchdog_walks_the_ladder`` with a real
+    one-rank (1, 1) mesh: every rung but numpy wedges. The mesh rung's
+    timed-out attempt leaves its collectives out of step, so the ladder
+    steps down at once; the cpu rung retries as before."""
+    import torch.distributed as dist
+    from repro_torch.parallel.dist import single_process_world, sweep_mesh
+    calls = []
+
+    def slow(rung, workloads, npus, policies, knobs, mesh=None):
+        calls.append(rung)
+        if rung != "numpy":
+            time.sleep(2.0)   # wedged; abandoned by the watchdog
+        return p_pol.evaluate_batch_numpy(workloads, npus, policies, knobs)
+
+    pol = p_guard.GuardPolicy(timeout_s=0.05, max_retries=1,
+                              backoff_base_s=0.001)
+    with single_process_world("cpu"):
+        mesh = sweep_mesh(1, 1, device_type="cpu")
+        runner = p_guard.GuardedRunner(
+            pol, rungs=p_backend.failover_rungs("cpu", mesh), runner=slow,
+            seed=7)
+        got = runner.evaluate_batch([wl(PORT)], NPUS, POLS, knobs(PORT),
+                                    step=2)
+    assert not dist.is_initialized()
+    ref = p_pol.evaluate_batch_numpy([wl(PORT)], NPUS, POLS, knobs(PORT))
+    assert_cubes_match(ref, got, exact=True)
+    assert calls == ["mesh", "cpu", "cpu", "numpy"]
+    ev = runner.report.events
+    assert [(e["kind"], e["rung"]) for e in ev] == [
+        ("failover", "mesh"), ("retry", "cpu"), ("failover", "cpu")]
+    assert ev[0]["next_rung"] == "cpu"
+    assert "rank 0: timeout" in ev[0]["reason"]
+    assert "out of step" in ev[0]["reason"]
+    assert "exhausted after 1 attempts" in ev[0]["reason"]
+
+
+def test_a_clean_mesh_attempt_in_one_rank_logs_nothing():
+    """The default runner on a one-rank (1, 1) mesh: the mesh rung answers,
+    no event, the one-device cube to the bit."""
+    from repro_torch.parallel.dist import single_process_world, sweep_mesh
+    with single_process_world("cpu"):
+        mesh = sweep_mesh(1, 1, device_type="cpu")
+        runner = p_guard.GuardedRunner(p_guard.GuardPolicy(), device="cpu",
+                                       mesh=mesh)
+        assert runner.rungs[0] == ("mesh", mesh)
+        got = runner.evaluate_batch([wl(PORT)], NPUS, POLS, knobs(PORT))
+    assert runner.report.events == []
+    want = p_pol.evaluate_batch([wl(PORT)], NPUS, POLS, knobs(PORT),
+                                device="cpu")
+    assert_cubes_match(want, got, exact=True)
+
+
+@pytest.fixture(scope="module")
+def mesh_guard_world(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("mesh_guard"))
+    codes = mesh_child.run_world("guard", (out,), world=2)
+    assert codes == [0, 0], codes
+    return out
+
+
+def _rank_files(out, tag):
+    got = []
+    for rank in (0, 1):
+        with open(os.path.join(out, f"{tag}.rank{rank}.json")) as f:
+            meta = json.load(f)
+        path = os.path.join(out, f"{tag}.rank{rank}.npz")
+        arrays = None
+        if os.path.exists(path):
+            with np.load(path) as f:
+                arrays = {k: f[k] for k in f.files}
+        got.append((meta, arrays))
+    return got
+
+
+def _stub_cube():
+    wls, grid = mesh_child.sweep_inputs()
+    return mesh_child.cube_arrays(p_pol.evaluate_batch(
+        wls[:2], mesh_child.NPUS, p_pol.POLICIES, grid, device="cpu"))
+
+
+def test_a_fault_on_one_rank_is_retried_by_both(mesh_guard_world):
+    """Rank 1 fails its first attempt after the attempt's collectives:
+    both ranks log the same retry (rank 1's reason) and return the same
+    cube, the one-device run's bits."""
+    (m0, a0), (m1, a1) = _rank_files(mesh_guard_world, "stub_after")
+    assert m0["events"] == m1["events"]
+    assert [(e["kind"], e["rung"]) for e in m0["events"]] \
+        == [("retry", "mesh")]
+    assert "rank 1: error: RuntimeError: injected fault on rank 1" \
+        in m0["events"][0]["reason"]
+    assert m0["calls"] == m1["calls"] == ["mesh", "mesh"]
+    want = _stub_cube()
+    for a in (a0, a1):
+        assert a.keys() == want.keys()
+        assert all(np.array_equal(a[k], want[k]) for k in want)
+
+
+def test_a_stranded_collective_steps_both_ranks_down(mesh_guard_world):
+    """Rank 1 fails before its collectives, so rank 0's wait until its
+    deadline: both ranks leave the mesh rung at once, together, with the
+    same event, and finish on the cpu rung."""
+    (m0, a0), (m1, a1) = _rank_files(mesh_guard_world, "stub_before")
+    assert m0["events"] == m1["events"]
+    ev = m0["events"]
+    assert [(e["kind"], e["rung"], e.get("next_rung")) for e in ev] \
+        == [("failover", "mesh", "cpu")]
+    assert "rank 0: timeout" in ev[0]["reason"]
+    assert "out of step" in ev[0]["reason"]
+    assert m0["calls"] == m1["calls"] == ["mesh", "cpu"]
+    want = _stub_cube()
+    for a in (a0, a1):
+        assert all(np.array_equal(a[k], want[k]) for k in want)
+
+
+def test_fleet_on_a_knob_mesh_matches_one_device(mesh_guard_world):
+    """8 epochs on a (1, 2) knob mesh, plain and guarded: the one-device
+    report ≤1e-9 (every int, flag and name equal), zero guard events."""
+    sc, grid = mesh_child.fleet_scenario()
+    one = p_fleet.sweep_fleet(sc, grid, device="cpu")
+    (m0, _), (m1, _) = _rank_files(mesh_guard_world, "fleet")
+    assert m0 == m1
+    plain = json.loads(m0["plain"])
+    guarded = json.loads(m0["guarded"])
+    assert plain["guard"] is None
+    assert guarded["guard"]["events"] == []
+    assert len(plain["records"]) == len(one.records) > 0
+    for got in (plain, guarded):
+        got.pop("guard")
+        assert_fleet_reports_match(one, p_fleet.FleetReport.from_dict(got))
+
+
+@pytest.fixture(scope="module")
+def one_device_chaos(tmp_path_factory):
+    import _torch_guard_resume_child as resume
+    ck = str(tmp_path_factory.mktemp("chaos_one_ck"))
+    return resume.campaign(ck, "cpu")
+
+
+def test_chaos_on_a_knob_mesh_matches_one_device(mesh_guard_world,
+                                                 one_device_chaos):
+    (m0, _), (m1, _) = _rank_files(mesh_guard_world, "chaos")
+    assert m0 == m1
+    assert_trees_match(json.loads(json.dumps(one_device_chaos)), m0)
+
+
+def test_mesh_chaos_killed_mid_epoch_resumes_bit_for_bit(tmp_path,
+                                                         mesh_guard_world):
+    """Both ranks SIGKILLed at ``mid:3``; a new world on the same mesh
+    resumes from the snapshots the first rank wrote and ends with the
+    uninterrupted mesh run's report, to the bit, on both ranks."""
+    out, ck = str(tmp_path / "out"), str(tmp_path / "ck")
+    os.makedirs(out)
+    codes = mesh_child.run_world("chaos", (out, ck), world=2, kill="mid:3")
+    assert codes == [-signal.SIGKILL] * 2, codes
+    assert not os.path.exists(os.path.join(ck, "run0_hyst", "final.json"))
+    assert json.loads(open(os.path.join(ck, "manifest.json")).read())[
+        "backend"] == "cpu"
+    codes = mesh_child.run_world("chaos", (out, ck), world=2)
+    assert codes == [0, 0], codes
+    (r0, _), (r1, _) = _rank_files(out, "chaos_resumed")
+    (want, _), _ = _rank_files(mesh_guard_world, "chaos")
+    assert json.dumps(r0, sort_keys=True) == json.dumps(want, sort_keys=True)
+    assert r0 == r1

@@ -253,6 +253,7 @@ def test_session_scopes_the_gating_cache():
         with port_session.SweepSession(device="cpu"):  # inherits the size
             assert port_sa.gating_cache_info().maxsize == 8
             assert port_session.current() == {"device": "cpu",
+                                              "mesh": None,
                                               "gating_cache_size": 8,
                                               "guard": None}
         with port_session.SweepSession(gating_cache_size=None):

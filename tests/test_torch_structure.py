@@ -24,11 +24,17 @@ WINDOW_PROBE = ROOT / "chip_profiler_window.py"
 B7_VARIANTS = ROOT / "chip_b7_variants.py"
 ATTN_BITS = ROOT / "chip_attention_bits.py"
 EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
-# the gloo workers of tests/test_torch_parallel.py import the port alone
+# the gloo workers of tests/test_torch_parallel.py and
+# tests/test_torch_sweep_mesh.py import the port alone
 PARALLEL_CHILD = ROOT / "tests" / "_torch_parallel_child.py"
+MESH_CHILDREN = [ROOT / "tests" / "_torch_sweep_mesh_child.py",
+                 ROOT / "tests" / "_torch_guard_resume_child.py"]
+# the twins of examples/ (every file of examples_torch/ is checked)
+POWER_EXAMPLES = ("power_gating_study", "fleet_day", "chaos_day")
 PY_FILES = sorted(PKG.rglob("*.py")) + [SMOKE, AB, K2_PROBE, WINDOW_PROBE,
                                          B7_VARIANTS, ATTN_BITS,
-                                         PARALLEL_CHILD] + EXAMPLES
+                                         PARALLEL_CHILD] + MESH_CHILDREN \
+    + EXAMPLES
 
 FOREIGN_IMPORT = re.compile(
     r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)", re.MULTILINE)
@@ -115,11 +121,13 @@ def test_slice_modules_exist():
                 "parallel/__init__.py", "parallel/dist.py",
                 "parallel/sharding.py", "launch/mesh.py",
                 "launch/dryrun.py", "core/costs.py", "core/roofline.py",
+                "launch/sweep.py",
                 *(f"configs/{c}.py" for c in CONFIG_FILES)):
         assert (PKG / rel).is_file(), rel
     assert SMOKE.is_file()
-    assert [p.name for p in EXAMPLES] == ["quickstart.py",
-                                          "serve_batched.py", "train_e2e.py"]
+    assert [p.name for p in EXAMPLES] == sorted(
+        ["quickstart.py", "serve_batched.py", "train_e2e.py",
+         *(f"{n}.py" for n in POWER_EXAMPLES)])
 
 
 @pytest.mark.parametrize("path", PY_FILES,
@@ -475,7 +483,7 @@ def test_fleet_leaves_its_device_only_through_the_guard():
     guard_src = (PKG / "core" / "guard.py").read_text()
     run = _function_source(PKG / "core" / "guard.py", "evaluate_batch")
     assert '"failover"' in run and '"retry"' in run
-    assert "failover_rungs(device)" in guard_src
+    assert "failover_rungs(device, mesh)" in guard_src
 
 
 PLAIN_ROUTES = ("_plain", "plain_attention", "flash_attention_jax",

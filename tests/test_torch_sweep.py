@@ -368,6 +368,7 @@ def test_knob_grid_axis_validation(bad):
 def test_device_defaults_to_the_card_and_sessions_scope_it():
     wl = port_opgen.paper_suite()[12]
     assert port_session.current() == {"device": None,
+                                      "mesh": None,
                                       "gating_cache_size": None,
                                       "guard": None}
     if not torch.cuda.is_available():
