@@ -90,6 +90,16 @@ path, read just after) that each path really went through its kernels:
   beside its card-vs-CPU parity in float32 with the same routing on both
   sides, two backward passes of a granite microbatch bit for bit, a
   profiled deepseek step, and a bit-exact resume on reduced granite;
+* training granite-moe-1b-a400m on meshes through ``launch.train.run``
+  under its default MoE dispatch, GSPMD's (the whole group's capacity
+  and drops, as on one device): a one-rank ``(1, 1)`` mesh whose losses
+  and launches equal the unsharded run's bit for bit, then a ``(2, 1)``
+  data mesh of 2 ranks on this card (gloo; ``chip_smoke.py
+  --moe-mesh-rank``, 2 x 2 048 tokens in one microbatch) whose first
+  step routes every token alike with the unsharded run of that path and
+  whose losses stay close to it, each rank launching B3 and B9; the same
+  mesh under the shard-mapped dispatch, whose per-shard capacity routes
+  otherwise, beside it;
 * arrival-driven serving, ``repro_torch.launch.serve.serve_arrivals``:
   qwen2.5-3b at full width behind a seeded Poisson trace (20 s in 5 s
   epochs, batch 4), and a child process on the card sent SIGTERM
@@ -131,6 +141,7 @@ phase prints one JSON line; the last line is
 from __future__ import annotations
 
 import atexit
+import contextlib
 import itertools
 import json
 import math
@@ -2855,58 +2866,80 @@ class RouteLog:
     remat's recompute's), over the call's (B, S) tokens:
     ``experts`` (B, S, K) in slot order, ``kept`` (B, S, K) (the
     capacity rule over each group's flat (token, slot) order), ``top``
-    (B, S, K + 1) the largest probabilities, sorted."""
+    (B, S, K + 1) the largest probabilities, sorted. ``kept`` is what
+    the dispatch decided (``blocks.moe_slots``' keep, logged beside the
+    routing); on one device that is the capacity rule over each group's
+    flat (token, slot) order."""
 
     def __init__(self):
         self.calls = []
 
     def __enter__(self):
         from repro_torch.models import blocks
-        self._orig = blocks.moe_fwd, blocks.moe_route
-        fwd, route = self._orig
+        self._orig = blocks.moe_fwd, blocks.moe_route, blocks.moe_slots
+        fwd, route, slots = self._orig
         groups = []
 
         def logged_route(tok, router, top_k):
             out = route(tok, router, top_k)
-            groups.append((out[0].detach(), out[2]))
+            groups.append([out[0].detach(), out[2], None])
             return out
+
+        def logged_slots(flat_e, *args):
+            pos, keep = slots(flat_e, *args)
+            groups[-1][2] = keep.view(*groups[-1][1].shape)
+            return pos, keep
 
         def logged_fwd(p, x, cfg):
             groups.clear()
             out = fwd(p, x, cfg)
-            self.calls.append((tuple(x.shape), cfg, list(groups)))
+            self.calls.append((tuple(x.shape), cfg,
+                               [tuple(g) for g in groups]))
             return out
 
-        blocks.moe_fwd, blocks.moe_route = logged_fwd, logged_route
+        blocks.moe_fwd, blocks.moe_route, blocks.moe_slots = \
+            logged_fwd, logged_route, logged_slots
         return self
 
     def __exit__(self, *exc):
         from repro_torch.models import blocks
-        blocks.moe_fwd, blocks.moe_route = self._orig
+        blocks.moe_fwd, blocks.moe_route, blocks.moe_slots = self._orig
 
     def tables(self) -> list:
-        import torch
-        from repro_torch.models.blocks import moe_capacity
-        out = []
-        for (B, S, _), cfg, groups in self.calls:
-            K, E = cfg.moe.top_k, cfg.moe.n_experts
-            probs = torch.cat([g[0] for g in groups])      # (nc, G, E)
-            idx = torch.cat([g[1] for g in groups])        # (nc, G, K)
-            nc, G = idx.shape[:2]
+        out = route_tables(self.calls)
+        self.calls.clear()
+        return out
+
+
+def route_tables(calls, rule: bool = False) -> list:
+    """``RouteLog``'s tables of ``calls``, each ``((B, S, ·), cfg,
+    [(probs (n, G, E), idx (n, G, K), keep (n, G, K)), ...])`` over a
+    call's groups: ``kept`` the logged keep, or with ``rule`` the
+    capacity rule over each group's G tokens."""
+    import torch
+    from repro_torch.models.blocks import moe_capacity
+    out = []
+    for (B, S, _), cfg, groups in calls:
+        K, E = cfg.moe.top_k, cfg.moe.n_experts
+        probs = torch.cat([torch.as_tensor(g[0]) for g in groups])
+        idx = torch.cat([torch.as_tensor(g[1]) for g in groups])
+        nc, G = idx.shape[:2]
+        if rule:
             flat = idx.reshape(nc, G * K)
             sel = torch.nn.functional.one_hot(flat, E)
             pos = (sel.cumsum(dim=1) - sel).gather(-1, flat[..., None])
             kept = (pos[..., 0] < moe_capacity(G, cfg)).view(nc, G, K)
-            top = probs.sort(dim=-1, descending=True).values[..., :K + 1]
+        else:
+            kept = torch.cat([torch.as_tensor(g[2]) for g in groups])
+        top = probs.sort(dim=-1, descending=True).values[..., :K + 1]
 
-            def tokens(t):  # (nc, B * gs, ·) -> (B, S, ·)
-                return t.reshape(nc, B, S // nc, -1).transpose(0, 1) \
-                    .reshape(B, S, -1).cpu().numpy()
+        def tokens(t):  # (nc, B * gs, ·) -> (B, S, ·)
+            return t.reshape(nc, B, S // nc, -1).transpose(0, 1) \
+                .reshape(B, S, -1).cpu().numpy()
 
-            out.append({"experts": tokens(idx), "kept": tokens(kept),
-                        "top": tokens(top)})
-        self.calls.clear()
-        return out
+        out.append({"experts": tokens(idx), "kept": tokens(kept),
+                    "top": tokens(top)})
+    return out
 
 
 def route_diff(want: list, got: list, f32: bool) -> dict:
@@ -4577,8 +4610,7 @@ DRY_RUNS = {
                         TRAIN_FULL["global_batch"], "train"),
                  mesh_shape=(1, 1),
                  microbatches=TRAIN_FULL["microbatches"]),
-    "production": dict(arch=MLA_ARCH, shape_name="train_4k",
-                       moe="shard_map"),
+    "production": dict(arch=MLA_ARCH, shape_name="train_4k"),
 }
 DRY_RUN_TIMEOUT_S = 900
 DRYRUN_FLOPS_RTOL = 1e-9
@@ -4890,7 +4922,8 @@ def production_argument_bytes(cfg, rules_name: str = "baseline") -> int:
 
 def dryrun_production(card: str, rec: dict) -> dict:
     """deepseek-v2-236b's train_4k cell at all 60 layers on the (16, 16)
-    fake mesh, ``--moe shard_map``: ok, and its per-device argument bytes
+    fake mesh, the MoE dispatch the default (``--moe gspmd``, the
+    reference's): ok, and its per-device argument bytes
     (the fake shards the counter holds) equal to the local shards the
     resolved specs give (``production_argument_bytes``)."""
     from repro_torch.configs import get_arch
@@ -4973,6 +5006,381 @@ def moe_backward_bits(card: str, arch: str = MOE_ARCH,
            "slots_per_pass": int(sum(t["kept"].size for t in tables)) // 2}
     del params, grads, leaves, batch
     torch.cuda.empty_cache()
+    return out
+
+
+# train_moe_mesh (A9c): granite-moe-1b-a400m trained on meshes through
+# launch.train under its default MoE dispatch, GSPMD's (the whole group's
+# capacity and drops): (a) a one-rank (1, 1) mesh at train_moe_full's path
+# for MESH_STEPS steps; (b) a (2, 1) data mesh of 2 ranks on the one card
+# (gloo through the host), beside the unsharded run of MOE_MESH_PATH and a
+# float32 forward of its first batch on both, whose routings are held
+# together; (c) the same mesh under shard_map, its first step. MOE_MESH_PATH
+# is train_moe_full's 2 x 2 048 tokens in one microbatch: a data shard's
+# one sequence cannot split into 2
+MOE_MESH_PATH = dict(seq_len=2048, global_batch=2, microbatches=1, steps=2)
+MOE_MESH_DIR = os.path.join(HERE, "build", "chip_smoke_moe_mesh")
+MOE_MESH_TIMEOUT_S = 420
+# (b)'s losses against the unsharded run's, relative. Only bf16's reduce
+# order separates the two: a rank's matmuls over 2 048 rows round otherwise
+# than the unsharded run's over 4 096, which flips top-k choices at near
+# ties (the float32 forward routes alike but for ties) and moves the mean
+# over 4 096 tokens by far less than a capacity rule that keeps other
+# slots: shard_map's moves the first loss past this (PERF.md, train_moe_mesh)
+MOE_MESH_LOSS_RTOL = 1e-4
+
+
+def _host_calls(calls) -> list:
+    """``RouteLog`` calls with their tensors copied to the host."""
+    return [(shape, cfg, [tuple(t.cpu() for t in g) for g in groups])
+            for shape, cfg, groups in calls]
+
+
+def moe_train_run(path: dict, mesh: str = "", routes: bool = False):
+    """``launch.train.run`` on granite-moe-1b-a400m at full width, ``path``
+    (``TrainLoopConfig``'s shape and steps), on ``mesh`` ("" for none):
+    losses, s/step, peak memory and every wrapper's launches a step; with
+    ``routes`` also the routing of the first step's MoE calls (``RouteLog``
+    calls on the host: each call's routing and the dispatch's keep)."""
+    import torch
+    from repro_torch.launch.train import TrainLoopConfig, run
+    per_step, first = [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    prev = read_launches()
+    log = RouteLog() if routes else contextlib.nullcontext()
+
+    def on_step(step, metrics, seconds):
+        nonlocal prev
+        now = read_launches()
+        per_step.append({k: now[k] - prev[k] for k in now})
+        prev = now
+        if routes:
+            if step == 0:
+                first.extend(_host_calls(log.calls))
+            log.calls.clear()
+
+    t0 = time.perf_counter()
+    with log:
+        out = run(TrainLoopConfig(arch=MOE_ARCH, reduced=False,
+                                  device="cuda", log_every=path["steps"],
+                                  mesh=mesh, **path), on_step=on_step)
+    wall = time.perf_counter() - t0
+    check(all(math.isfinite(x) for x in out["losses"]),
+          f"train_moe_mesh: non-finite losses {out['losses']} ({mesh})")
+    rec = {"losses": out["losses"], "step_s": out["step_s"],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches_per_step": per_step, "wall_s": wall}
+    torch.cuda.empty_cache()
+    return (rec, first) if routes else rec
+
+
+def moe_f32_routes(mesh=None) -> list:
+    """The routing of a float32 forward of MOE_MESH_PATH's first batch on
+    launch.train's initial weights (seed 0), on ``mesh`` (a DeviceMesh,
+    the baseline rules) or on one card: ``RouteLog`` calls on the host.
+    Its rounding is float32's, so two runs' routings differ only at ties
+    (``route_diff`` with ``f32``)."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+    from repro_torch.models.param import init_params, train_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.dist import use_mesh
+    from repro_torch.parallel.sharding import RULE_VARIANTS, use_rules
+    from repro_torch.train.steps import (TrainState, place_batch,
+                                         place_state)
+    cfg = train_cfg(MOE_ARCH)
+    rules = RULE_VARIANTS["baseline"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = TrainState.create(train_params(init_params(
+        registry.param_specs(cfg), gen, "cuda")), AdamWConfig())
+    batch = SyntheticDataset(cfg, ShapeConfig(
+        "train_custom", MOE_MESH_PATH["seq_len"],
+        MOE_MESH_PATH["global_batch"], "train"), seed=0,
+        device="cuda").batch(0)
+    ctx = contextlib.nullcontext() if mesh is None else \
+        contextlib.ExitStack()
+    with ctx, torch.no_grad(), RouteLog() as log:
+        if mesh is not None:
+            for c in (use_mesh(mesh), use_rules(rules),
+                      implicit_replication()):
+                ctx.enter_context(c)
+            state = place_state(state, cfg, rules, mesh)
+            batch = place_batch(batch, rules, mesh)
+        M.loss_fn(state.params, batch, cfg, remat="none",
+                  dtype=torch.float32)
+        calls = _host_calls(log.calls)
+    del state, batch
+    torch.cuda.empty_cache()
+    return calls
+
+
+def _save_calls(out_dir: str, tag: str, rank: int, calls) -> None:
+    import numpy as np
+    arrays = {}
+    for i, (_, _, groups) in enumerate(calls):
+        for j, name in enumerate(("probs", "idx", "keep")):
+            arrays[f"{i}/{name}"] = np.concatenate(
+                [g[j].numpy() for g in groups])
+    _mesh_save(out_dir, tag, rank, arrays)
+
+
+@contextlib.contextmanager
+def gloo_list_all_gathers():
+    """Inside the block, a functional all-gather of a CUDA tensor over a
+    gloo group (DTensor's Shard -> Replicate: FSDP's gather of a layer's
+    weights) runs as ``dist.all_gather``'s list form, then a
+    concatenation. torch 2.11's gloo ends the process with a segmentation
+    fault in the tensor form (``all_gather_into_tensor``) on CUDA
+    tensors, float32 and bf16 alike, where it takes the list form
+    (``TorchBackend.all_gather``) and the all-reduce and reduce-scatter
+    DTensor also issues (PERF.md, train_moe_mesh). Other tensors
+    and groups keep torch's own path."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as funcol
+    names = [n for n in ("all_gather_tensor", "all_gather_single")
+             if hasattr(funcol, n)]
+    orig = {n: getattr(funcol, n) for n in names}
+
+    def listed(name):
+        def gather(t, gather_dim, group, tag=""):
+            pg = group.get_group(0) if type(group).__name__ == "DeviceMesh" \
+                else group[0].get_group(group[1]) \
+                if isinstance(group, tuple) else group
+            if not (t.is_cuda and isinstance(pg, dist.ProcessGroup)
+                    and dist.get_backend(pg) == "gloo"):
+                return orig[name](t, gather_dim, group, tag)
+            parts = [torch.empty_like(t) for _ in range(pg.size())]
+            dist.all_gather(parts, t.contiguous(), group=pg)
+            return funcol._maybe_wrap_tensor(torch.cat(parts, gather_dim))
+        return gather
+
+    for n in names:
+        setattr(funcol, n, listed(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(funcol, n, orig[n])
+
+
+def moe_mesh_child(rank: int, world: int, port: int, out_dir: str) -> int:
+    """One rank of train_moe_mesh's (2, 1) world (``chip_smoke.py
+    --moe-mesh-rank``): joins the world, then ``moe_train_run`` at
+    MOE_MESH_PATH on the data mesh under gspmd and ``moe_f32_routes`` on
+    it, then shard_map's first step. Writes each run's record, and the
+    routing and keep of its first step (and of the float32 forward) over
+    this rank's tokens, under ``out_dir``."""
+    from repro_torch.models import blocks
+    from repro_torch.parallel.dist import (make_mesh, spmd_world,
+                                           world_backend)
+    t_start = time.perf_counter()
+    meta = {"rank": rank, "world": world,
+            "backend": world_backend("cuda", world)}
+    mesh_text = f"data={world},model=1"
+    with spmd_world(rank, world, f"tcp://localhost:{port}", "cuda",
+                    timeout_s=MESH_GROUP_TIMEOUT_S), gloo_list_all_gathers():
+        meta["joined_s"] = time.perf_counter() - t_start
+        mesh = make_mesh((world, 1), ("data", "model"), "cuda")
+        for mode in ("gspmd", "shard_map"):
+            path = MOE_MESH_PATH if mode == "gspmd" \
+                else dict(MOE_MESH_PATH, steps=1)
+            with blocks.moe_dispatch(mode):
+                rec, calls = moe_train_run(path, mesh_text, True)
+                if mode == "gspmd":
+                    t0 = time.perf_counter()
+                    _save_calls(out_dir, "routes_f32_gspmd", rank,
+                                moe_f32_routes(mesh))
+                    rec["f32_forward_s"] = time.perf_counter() - t0
+            meta[mode] = rec
+            _save_calls(out_dir, f"routes_{mode}", rank, calls)
+    meta["seconds"] = time.perf_counter() - t_start
+    _mesh_save(out_dir, "meta", rank, obj=meta)
+    return 0
+
+
+def run_moe_mesh_world() -> dict:
+    """Spawn train_moe_mesh's ``MESH_WORLD`` ranks (``moe_mesh_child``) on
+    the one card and wait for them: each rank's meta record and the
+    world's wall. A rank that fails or outlives ``MOE_MESH_TIMEOUT_S``
+    fails the run."""
+    import shutil
+    shutil.rmtree(MOE_MESH_DIR, ignore_errors=True)
+    os.makedirs(MOE_MESH_DIR)
+    port = _free_port()
+    # a rank that dies in native code leaves its Python stack in its log
+    env = dict(os.environ, PYTHONFAULTHANDLER="1", PYTHONUNBUFFERED="1",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(HERE, "src"),
+                    os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep))
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for r in range(MESH_WORLD):
+        log = open(os.path.join(MOE_MESH_DIR, f"rank{r}.log"), "w")
+        p = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--moe-mesh-rank",
+             str(r), str(MESH_WORLD), str(port), MOE_MESH_DIR],
+            cwd=HERE, env=env, stdout=log, stderr=subprocess.STDOUT)
+        _CHILDREN.append(p)
+        procs.append(p)
+        logs.append(log)
+    deadline = time.monotonic() + MOE_MESH_TIMEOUT_S
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            codes.append(None)
+    wall = time.perf_counter() - t0
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for log in logs:
+        log.close()
+    if codes != [0] * MESH_WORLD:
+        tails = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(MOE_MESH_DIR, f"rank{r}.log")) as f:
+                tails.append(f"rank {r}: " + f.read()[-1500:])
+        fail(f"train_moe_mesh: the (2, 1) world failed (exit codes "
+             f"{codes}): " + " | ".join(tails))
+    metas = []
+    for r in range(MESH_WORLD):
+        with open(os.path.join(MOE_MESH_DIR, f"meta.rank{r}.json")) as f:
+            metas.append(json.load(f))
+    return {"metas": metas, "wall_s": wall}
+
+
+def mesh_route_tables(tag: str, cfg, shape, rule: bool = False) -> list:
+    """The (2, 1) world's routing tables (``route_tables``) of the calls
+    saved as ``routes_<tag>``, over the whole batch: each group's tokens
+    are the ranks' runs of it concatenated in rank order (a group is
+    batch-major, and rank r holds row r). ``kept`` is what each rank's
+    dispatch decided, or with ``rule`` the whole group's capacity rule
+    over the same routing."""
+    import numpy as np
+    ranks = []
+    for r in range(MESH_WORLD):
+        with np.load(os.path.join(MOE_MESH_DIR,
+                                  f"routes_{tag}.rank{r}.npz")) as f:
+            ranks.append({k: f[k] for k in f.files})
+    n = len({k.split("/")[0] for k in ranks[0]})
+    calls = [((*shape, None), cfg, [tuple(
+        np.concatenate([a[f"{i}/{name}"] for a in ranks], axis=1)
+        for name in ("probs", "idx", "keep"))]) for i in range(n)]
+    return route_tables(calls, rule)
+
+
+def train_moe_mesh(card: str, full: dict) -> dict:
+    """granite-moe-1b-a400m on meshes under launch.train's default MoE
+    dispatch (GSPMD's). (a) A one-rank (1, 1) mesh at train_moe_full's
+    path: its losses ``==`` train_moe_full's first MESH_STEPS and its
+    launches a step exactly ``train_launches`` (96 B3, 48 B9). (b) A (2,
+    1) data mesh of 2 ranks on the one card at MOE_MESH_PATH: in every
+    MoE call of the first step and of a float32 forward of the first
+    batch, the slots the ranks' dispatches kept are exactly the whole
+    group's capacity rule over their routing; the float32 forward routes
+    as the unsharded one, a difference allowed only at a rounding tie
+    (``route_diff``); the losses within MOE_MESH_LOSS_RTOL of the
+    unsharded run's and equal on both ranks; B3 and B9 on every rank (48
+    and 24 a step). The bf16 step's routing against the unsharded run's
+    is reported: its rounding differs (a rank's matmuls over 2 048 rows,
+    the unsharded over 4 096) and a top-k choice at a near tie moves
+    every later token of its row. (c) The same mesh under shard_map, one
+    step: its data shards' capacity keeps other slots than the whole
+    group's rule over the same routing, counted."""
+    cfg = train_cfg(MOE_ARCH)
+    path = dict(TRAIN_MOE_PATHS[0][2], steps=MESH_STEPS)
+    one = moe_train_run(path, "1x1")
+    check(one["losses"] == full["losses"][:MESH_STEPS],
+          f"train_moe_mesh (1, 1): losses {one['losses']} != "
+          f"train_moe_full's {full['losses'][:MESH_STEPS]}")
+    want = train_launches(cfg, path["microbatches"])
+    for i, got in enumerate(one["launches_per_step"]):
+        check(got == want, f"train_moe_mesh (1, 1) step {i}: launches "
+                           f"{got} != {want}")
+    t0 = time.perf_counter()
+    ref, calls = moe_train_run(MOE_MESH_PATH, routes=True)
+    ref_tables = route_tables(calls)
+    ref_f32 = route_tables(moe_f32_routes())
+    ref["wall_s"] = time.perf_counter() - t0
+    world = run_moe_mesh_world()
+    want1 = train_launches(cfg, MOE_MESH_PATH["microbatches"])
+    shape = (MOE_MESH_PATH["global_batch"], MOE_MESH_PATH["seq_len"])
+    out = {"card": card, "arch": MOE_ARCH, "layers": cfg.n_layers,
+           "one_rank": {"mesh": "1x1", "dispatch": "gspmd", **path,
+                        "losses_equal_train_moe_full": True,
+                        **{k: one[k] for k in ("losses", "step_s",
+                                               "peak_memory_bytes",
+                                               "wall_s")},
+                        "launches_per_step": one["launches_per_step"][0]},
+           "unsharded": {**MOE_MESH_PATH, **{k: ref[k] for k in (
+               "losses", "step_s", "peak_memory_bytes", "wall_s")},
+               "launches_per_step": ref["launches_per_step"][0]},
+           "world_wall_s": world["wall_s"],
+           "loss_rtol": MOE_MESH_LOSS_RTOL}
+    for mode in ("gspmd", "shard_map"):
+        recs = [m[mode] for m in world["metas"]]
+        for r, rec in enumerate(recs):
+            for i, got in enumerate(rec["launches_per_step"]):
+                check(got == want1, f"train_moe_mesh (2, 1) {mode} rank "
+                                    f"{r} step {i}: launches {got} != "
+                                    f"{want1}")
+        check(recs[0]["losses"] == recs[1]["losses"],
+              f"train_moe_mesh (2, 1) {mode}: the ranks' losses differ: "
+              f"{[rec['losses'] for rec in recs]}")
+        off_rule = {}
+        for tag in (mode, f"f32_{mode}")[:2 if mode == "gspmd" else 1]:
+            seen = mesh_route_tables(tag, cfg, shape)
+            rule = mesh_route_tables(tag, cfg, shape, rule=True)
+            off_rule[tag] = sum(int((a["kept"] != b["kept"]).sum())
+                                for a, b in zip(seen, rule))
+        step = route_diff(ref_tables, mesh_route_tables(mode, cfg, shape),
+                          False)
+        rel = [abs(a - b) / abs(b) for a, b in zip(recs[0]["losses"],
+                                                   ref["losses"])]
+        out[mode] = {
+            "mesh": "data=2,model=1", **MOE_MESH_PATH,
+            "steps": len(recs[0]["losses"]),
+            "losses": recs[0]["losses"], "loss_rel_to_unsharded": rel,
+            "step_s": [rec["step_s"] for rec in recs],
+            "peak_memory_bytes": [rec["peak_memory_bytes"] for rec in recs],
+            "wall_s": [rec["wall_s"] for rec in recs],
+            "launches_per_step": [rec["launches_per_step"][0]
+                                  for rec in recs],
+            "kept_slots_off_whole_group_rule": off_rule,
+            "routing_first_step": {k: v for k, v in step.items()
+                                   if k != "differs"}}
+    g, m = out["gspmd"], out["shard_map"]
+    f32 = route_diff(ref_f32, mesh_route_tables("f32_gspmd", cfg, shape),
+                     True)
+    g["f32_forward_s"] = [w["gspmd"]["f32_forward_s"]
+                          for w in world["metas"]]
+    g["routing_f32_forward"] = {k: v for k, v in f32.items()
+                                if k != "differs"}
+    g["routed_alike_f32"] = not f32["differs"].any()
+    check(not any(g["kept_slots_off_whole_group_rule"].values()),
+          f"train_moe_mesh (2, 1) gspmd: the ranks kept other slots than "
+          f"the whole group's capacity: {g['kept_slots_off_whole_group_rule']}")
+    check(g["routing_f32_forward"]["drop_slot_diffs"] == 0
+          or g["routing_f32_forward"]["tokens_differing_first"] > 0,
+          f"train_moe_mesh (2, 1) gspmd: the float32 forward drops other "
+          f"slots with no routing difference before: "
+          f"{g['routing_f32_forward']}")
+    check(max(g["loss_rel_to_unsharded"]) <= MOE_MESH_LOSS_RTOL,
+          f"train_moe_mesh (2, 1) gspmd: losses {g['losses']} against the "
+          f"unsharded {ref['losses']} past {MOE_MESH_LOSS_RTOL}")
+    check(m["kept_slots_off_whole_group_rule"]["shard_map"] > 0,
+          "train_moe_mesh (2, 1) shard_map: kept the whole group's slots")
+    out["ranks_joined_s"] = [w["joined_s"] for w in world["metas"]]
+    out["ranks_s"] = [w["seconds"] for w in world["metas"]]
     return out
 
 
@@ -5562,6 +5970,14 @@ def main() -> int:
     emit("train_resume", seconds=time.perf_counter() - t0, **res)
     torch.cuda.empty_cache()
 
+    # ---- 9f'. MoE training on meshes (A9c): launch.train's default
+    # dispatch, GSPMD's, on a one-rank (1, 1) mesh and on a (2, 1) data
+    # mesh of two ranks on this card, beside shard_map
+    t0 = time.perf_counter()
+    rec = train_moe_mesh(card, trains[MOE_ARCH])
+    emit("train_moe_mesh", seconds=time.perf_counter() - t0, **rec)
+    torch.cuda.empty_cache()
+
     # ---- 9g. serving's arrivals and drain (A8a): qwen2.5-3b at full
     # width behind a Poisson trace, and a child on the card sent SIGTERM
     t0 = time.perf_counter()
@@ -5849,4 +6265,7 @@ if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-rank":
         sys.exit(mesh_child(int(sys.argv[2]), int(sys.argv[3]),
                             int(sys.argv[4]), sys.argv[5], sys.argv[6]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--moe-mesh-rank":
+        sys.exit(moe_mesh_child(int(sys.argv[2]), int(sys.argv[3]),
+                                int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

@@ -17,7 +17,9 @@ lower and compile seconds.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-32b \\
-      --shape train_4k [--multi-pod] [--rules baseline] [--out DIR]
+      --shape train_4k [--multi-pod] [--rules baseline] [--out DIR] \\
+      [--moe gspmd|shard_map]    # the MoE dispatch on the mesh: gspmd,
+                                 # the reference's default, or per shard
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
 """
 from __future__ import annotations
@@ -292,7 +294,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              rules_name: str = "auto", out_dir: str = "results/dryrun",
              grad_compression=None, remat_override=None,
              attention: str = "baseline", segments: bool = False,
-             moe: str = "shard_map", tag: str = "", n_layers=None,
+             moe: str = "gspmd", tag: str = "", n_layers=None,
              mesh_shape=None, target: RooflineTarget = TARGET,
              shape: Optional[ShapeConfig] = None, microbatches=None,
              dump: bool = True) -> dict:
@@ -416,9 +418,9 @@ def main(argv=None):
     ap.add_argument("--segments", action="store_true",
                     help="static-window layer segments (a JAX-only "
                          "hill-climb: raises)")
-    # shard_map by default (the reference defaults to gspmd): DTensor
-    # cannot shard the MoE dispatch's ops, so gspmd FAILs every MoE cell
-    ap.add_argument("--moe", default="shard_map",
+    # the MoE dispatch on the mesh: gspmd (the reference's default, the
+    # whole group's capacity and drops) or shard_map (per data shard)
+    ap.add_argument("--moe", default="gspmd",
                     choices=["gspmd", "shard_map"])
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default="results/dryrun")

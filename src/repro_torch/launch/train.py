@@ -30,10 +30,13 @@ pieces).
   in the reference. ``--mesh`` (``1x1``, ``data=2,model=1``, ...) trains
   on a ``DeviceMesh``: the state's leaves are DTensors placed by the
   rules, every rank holds its shards, the batch is sharded over
-  ``data``, the MoE layers dispatch per shard (``blocks._moe_smap``) and
-  a checkpoint restores onto whatever mesh the run has (elastic
-  resharding). A one-device mesh needs no launcher (the run makes its
-  own one-rank process group); a larger one runs under ``torchrun`` (or
+  ``data``, the MoE layers dispatch as the reference's do on a mesh --
+  the whole group's capacity and drops, as on one device
+  (``blocks._moe_gspmd``; ``blocks.MOE_SHARD_MAP`` on, which no flag
+  sets, takes the per-shard ``_moe_smap``) -- and a checkpoint restores
+  onto whatever mesh the run has (elastic resharding). A one-device
+  mesh needs no launcher (the run makes its own one-rank process
+  group); a larger one runs under ``torchrun`` (or
   any launcher that sets ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
   ``MASTER_PORT``), one process per device.
 
@@ -64,7 +67,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ShapeConfig, get_arch
 from repro_torch.data.pipeline import SyntheticDataset
-from repro_torch.models import blocks, registry
+from repro_torch.models import registry
 from repro_torch.models.param import init_params, train_params
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.parallel.dist import (make_mesh, parse_mesh,
@@ -120,8 +123,7 @@ def run(cfg_loop: TrainLoopConfig,
     shape, axes = parse_mesh(cfg_loop.mesh)
     with _world(math.prod(shape), device.type):
         mesh = make_mesh(shape, axes, device.type)
-        with use_mesh(mesh), use_rules(RULE_VARIANTS[cfg_loop.rules]), \
-                blocks.moe_dispatch("shard_map"):
+        with use_mesh(mesh), use_rules(RULE_VARIANTS[cfg_loop.rules]):
             return _run(cfg_loop, on_step, device, mesh)
 
 

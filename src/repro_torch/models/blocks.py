@@ -19,8 +19,10 @@ On a mesh (DTensor activations and weights, ``parallel``) the blocks are
 the same code: ``constrain`` stands where the JAX package's sharding
 hints stand, ``split_heads`` makes the combined heads dim divide at head
 boundaries before a view to heads, the scans and attentions run on local
-shards (``common.heads_local``), and the routed experts, with
-``MOE_SHARD_MAP`` on, per shard (``_moe_smap``).
+shards (``common.heads_local``), and the routed experts in one local
+region (``_moe_mesh``): by default with GSPMD's semantics, the whole
+group's capacity and drops as on one device (``_moe_gspmd``), or, with
+``MOE_SHARD_MAP`` on, per data shard (``_moe_smap``).
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from repro_torch.models.common import (
     rms_norm)
 from repro_torch.models.param import spec
 from repro_torch.parallel.dist import (current_mesh, is_dtensor, local_map,
-                                       mesh_axis_sizes)
+                                       mesh_axis_sizes, sum_over_groups)
 from repro_torch.parallel.sharding import (act_placements, act_pspec,
                                            constrain, current_rules)
 
@@ -347,18 +349,43 @@ def moe_route(tok, router, top_k: int):
     return probs, gate_vals, topk_idx
 
 
-def _moe_groups(p, tok, cfg: ArchConfig, experts=None):
+def moe_slots(flat_e, sel, counts, C: int, shards=None):
+    """Each (token, slot) assignment's place in its expert's buffer and
+    whether capacity ``C`` keeps it: (pos, keep), (n, G K) each, over
+    ``flat_e`` (n, G K) the assignments' experts in the groups' flat
+    (token, slot) order, ``sel`` their expert-major one-hot (n, E, G K)
+    and ``counts`` (n, E) its sums. pos is the assignment's rank among
+    the group's assignments to its expert (a one-hot cumsum), after the
+    earlier data shards' with ``shards`` (``_moe_groups``)."""
+    pos = torch.cumsum(sel, dim=-1).gather(
+        1, flat_e[:, None, :])[:, 0] - 1
+    if shards is not None:  # after the earlier data shards' assignments
+        pos = pos + shards.offsets(counts).gather(1, flat_e)
+    return pos, pos < C
+
+
+def _moe_groups(p, tok, cfg: ArchConfig, experts=None, shards=None):
     """Dispatch n token groups, each as the JAX package's ``_moe_group``
     dispatches one, in one pass. tok: (n, G, D) -> y (n, G, D) in tok's
     dtype and aux (n,), float32.
 
     ``experts = (lo, n_local)``: ``p``'s expert weights hold only experts
-    ``[lo, lo + n_local)`` (one model shard's, ``_moe_smap``); the
+    ``[lo, lo + n_local)`` (one model shard's, ``_moe_mesh``); the
     routing is the whole bank's, the assignments to other experts are
     dropped, y holds this shard's experts' share of each token's sum,
     and in place of aux come its two factors, each expert's mean
     probability and routed fraction (``(me, ce)``, (n, E) each), which a
     data shard holds for its own tokens only.
+
+    ``shards`` (a ``_DataShards``, with ``experts``): tok is one data
+    shard's contiguous run of each group's tokens, and the group is the
+    shards' tokens together (GSPMD's semantics): the capacity is the
+    whole group's and each rank's slot ranks start after the earlier
+    shards' counts (``shards.offsets``). The buffer holds this shard's
+    tokens only: the expert products act on each slot alone, and a
+    shard reads back only the slots its own tokens took. Without
+    ``shards`` tok is the whole group (one device, or ``_moe_smap``'s
+    per-shard groups).
 
     Each (token, slot) assignment is ranked within its expert by a
     one-hot cumsum over the group's flat (token, slot) order; ranks of C
@@ -373,7 +400,7 @@ def _moe_groups(p, tok, cfg: ArchConfig, experts=None):
     mo = cfg.moe
     n, G, D = tok.shape
     E, K = mo.n_experts, mo.top_k
-    C = moe_capacity(G, cfg)
+    C = moe_capacity(G * (1 if shards is None else shards.n), cfg)
     dev = tok.device
 
     tok = constrain(tok, None, "batch", None)
@@ -383,13 +410,12 @@ def _moe_groups(p, tok, cfg: ArchConfig, experts=None):
     # along the contiguous axis
     sel = (flat_e[:, None, :] == torch.arange(E, device=dev)[:, None]) \
         .to(torch.int32)
-    ce = sel.sum(dim=-1).float() * (1.0 / (G * K))            # (n, E)
+    counts = sel.sum(dim=-1)                                  # (n, E)
+    ce = counts.float() * (1.0 / (G * K))
     aux = E * (probs.mean(dim=1) * ce).sum(dim=-1) if experts is None \
         else (probs.mean(dim=1), ce)
-    pos = torch.cumsum(sel, dim=-1).gather(
-        1, flat_e[:, None, :])[:, 0] - 1                      # rank in expert
+    pos, keep = moe_slots(flat_e, sel, counts, C, shards)
     del sel
-    keep = pos < C
     grp = torch.arange(n, device=dev)[:, None].expand(n, G * K)
     row, hrow, rows = flat_e, flat_e, E
     if experts is not None:  # other shards' experts: the drop row E_loc
@@ -427,20 +453,22 @@ def _moe_group(p, tok, cfg: ArchConfig):
     return y[0], aux[0]
 
 
-def _moe_seq_groups(p, h, cfg: ArchConfig, gs: int, experts=None):
+def _moe_seq_groups(p, h, cfg: ArchConfig, gs: int, experts=None,
+                    shards=None):
     """h (B, S, D) in groups of ``gs`` positions over the whole batch,
     dispatched ``MOE_BUFFER_BYTES`` at a time: (y (B, S, D), aux (nc,));
     with ``experts`` (``_moe_groups``) aux's factors (me, ce), (nc, E)
-    each."""
+    each. With ``shards`` h is one data shard's rows and a group spans
+    every shard's (``_moe_groups``)."""
     mo = cfg.moe
     B, S, D = h.shape
     nc = S // gs
     tok = h.reshape(B, nc, gs, D).transpose(0, 1).reshape(nc, B * gs, D)
-    C = moe_capacity(B * gs, cfg)
+    C = moe_capacity(B * gs * (1 if shards is None else shards.n), cfg)
     rows = mo.n_experts if experts is None else experts[1] + 1
     per_group = rows * (C + 1) * max(D, mo.d_ff_expert) * tok.element_size()
     step = max(1, MOE_BUFFER_BYTES // per_group)
-    parts = [_moe_groups(p, tok[i:i + step], cfg, experts)
+    parts = [_moe_groups(p, tok[i:i + step], cfg, experts, shards)
              for i in range(0, nc, step)]
     y = torch.cat([y for y, _ in parts]) if len(parts) > 1 else parts[0][0]
     y = y.view(nc, B, gs, D).transpose(0, 1).reshape(B, S, D)
@@ -450,8 +478,9 @@ def _moe_seq_groups(p, h, cfg: ArchConfig, gs: int, experts=None):
 
 
 #: the JAX package's ``MOE_SHARD_MAP`` toggle: on a mesh, dispatch each
-#: model shard's experts on its data shard's tokens (``_moe_smap``)
-#: instead of letting DTensor shard the dispatch's ops
+#: model shard's experts on its data shard's tokens at a data shard's
+#: capacity (``_moe_smap``) instead of GSPMD's whole-group dispatch
+#: (``_moe_gspmd``, the default, as in the reference)
 MOE_SHARD_MAP = {"enabled": False}
 
 
@@ -477,40 +506,110 @@ def moe_shard_map_applicable(cfg: ArchConfig) -> bool:
     return cfg.moe is not None and cfg.moe.n_experts % n_model == 0
 
 
+class _DataShards:
+    """The data shards of a mesh's batch axes, as ``_moe_groups`` sees
+    them inside ``_moe_gspmd``'s local region: ``n`` shards, this rank the
+    ``index``-th in the batch dim's order (mesh dims in order, the first
+    outermost); ``offsets`` is a collective over them, which every rank
+    issues in the same order."""
+
+    def __init__(self, mesh, axes):
+        names = list(mesh.mesh_dim_names)
+        self.axes = sorted(axes, key=names.index)
+        self.groups = [mesh.get_group(a) for a in self.axes]
+        self.n, self.index = 1, 0
+        for a in self.axes:
+            size = mesh.size(names.index(a))
+            self.n *= size
+            self.index = self.index * size + mesh.get_local_rank(a)
+
+    def offsets(self, counts):
+        """(n, E) integer counts of this shard's assignments per group and
+        expert -> the earlier shards' counts summed. Every shard's counts
+        are gathered over the batch axes as a sum of tensors that hold
+        one shard's row each: an all-reduce of ``n E`` integers a group,
+        the one collective over the batch axes the dispatch issues."""
+        every = counts.new_zeros((self.n, *counts.shape))
+        every[self.index] = counts
+        return sum_over_groups(every, self.groups)[:self.index].sum(dim=0)
+
+
 def _moe_smap(p, h, cfg: ArchConfig, gs: int):
-    """The mesh path of the routed experts (the JAX package's
-    ``_moe_group_smap``): each model shard runs its ``E / n_model``
-    experts on its data shard's tokens -- routed over the whole bank, at
-    the capacity of a local group -- and the shards' partial sums are
-    all-reduced over ``"model"``. aux's factors, each expert's mean
-    probability and routed fraction, are averaged over the data shards
-    before their product, so aux is the whole group's, as on one device.
-    h: a (B, S, D) DTensor; returns (y, aux (nc,)) as DTensors."""
+    """The shard-mapped mesh path (the JAX package's ``_moe_group_smap``,
+    with ``MOE_SHARD_MAP`` on): each model shard runs its ``E / n_model``
+    experts on its data shard's tokens, routed over the whole bank at
+    the capacity of a local group. aux is the whole group's, as on one
+    device (``_moe_mesh``)."""
+    return _moe_mesh(p, h, cfg, gs, whole_groups=False)
+
+
+def _moe_gspmd(p, h, cfg: ArchConfig, gs: int):
+    """The default mesh path, GSPMD's semantics (the JAX package's
+    ``_moe_group`` partitioned by XLA): each rank routes its data shard's
+    tokens, but the capacity, the slot ranks and the drops are the whole
+    group's, as on one device (the shards' per-expert counts, ``E``
+    integers a group, gathered over the batch axes give each its
+    offset). Each rank fills its experts' ``(E_loc, C, D)`` buffer at
+    the whole group's slot positions with its own tokens and runs the
+    expert products over it. GSPMD all-reduces that buffer over the
+    batch axes (the reference's comment: a replicated partial-buffer
+    all-reduce); here it is not: the products act on each slot alone
+    and a rank reads back only its own tokens' slots, so the other
+    shards' rows would change none of its outputs or gradients, and
+    each slot's row is the one device's. The experts split as the
+    rules' ``"experts"`` activation axis says (over ``"model"``, or not
+    at all under ``moe_replicated``)."""
+    return _moe_mesh(p, h, cfg, gs, whole_groups=True)
+
+
+def _moe_mesh(p, h, cfg: ArchConfig, gs: int, whole_groups: bool):
+    """The routed experts on a mesh, in one ``local_map`` region: each
+    rank dispatches its data shard's rows to its expert shard's experts
+    (``_moe_seq_groups`` with ``experts``, and with ``whole_groups`` the
+    data shards' ``_DataShards``), and the partial sums are all-reduced
+    over the expert axes. aux's factors, each expert's mean probability
+    and routed fraction, are averaged over the data shards before their
+    product, so aux is the whole group's, as on one device. h: a (B, S,
+    D) DTensor; returns (y, aux (nc,)) as DTensors."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     mo = cfg.moe
     mesh = h.device_mesh
     sizes = mesh_axis_sizes(mesh)
     names = list(mesh.mesh_dim_names)
-    n_model = sizes.get("model", 1)
-    e_loc = mo.n_experts // n_model
-    lo = mesh.get_local_rank("model") * e_loc if "model" in sizes else 0
     rules = current_rules()
-    b_spec = act_pspec(rules, ("batch",), (h.shape[0],), sizes) \
-        if rules is not None else ()
-    b_axes = () if not b_spec else (
-        (b_spec[0],) if isinstance(b_spec[0], str) else tuple(b_spec[0]))
-    n_batch = 1
+
+    def spec_axes(axis, dim):
+        if rules is None:
+            return ()
+        s = act_pspec(rules, (axis,), (dim,), sizes)
+        return () if not s or s[0] is None else (
+            (s[0],) if isinstance(s[0], str) else tuple(s[0]))
+
+    b_axes = spec_axes("batch", h.shape[0])
+    if whole_groups:
+        e_axes = spec_axes("experts", mo.n_experts)
+    else:  # the reference's shard_map puts the experts on "model"
+        e_axes = ("model",) if "model" in names else ()
+    n_batch = n_exp = 1
     for a in b_axes:
         n_batch *= sizes[a]
-    reduced = [a for a in names if a == "model" or a in b_axes]
+    for a in e_axes:
+        n_exp *= sizes[a]
+    e_loc, e_idx = mo.n_experts // n_exp, 0
+    for a in sorted(e_axes, key=names.index):
+        e_idx = e_idx * sizes[a] + mesh.get_local_rank(a)
+    shards = _DataShards(mesh, b_axes) if whole_groups and n_batch > 1 \
+        else None
+    reduced = tuple(a for a in names if a in e_axes or a in b_axes)
 
     def pl(batch_dim=None, experts=False, partial=()):
         out = [Replicate()] * len(names)
         for a in b_axes:
             if batch_dim is not None:
                 out[names.index(a)] = Shard(batch_dim)
-        if experts and "model" in names:
-            out[names.index("model")] = Shard(0)
+        if experts:
+            for a in e_axes:
+                out[names.index(a)] = Shard(0)
         for a in partial:
             out[names.index(a)] = Partial()
         return tuple(out)
@@ -518,20 +617,19 @@ def _moe_smap(p, h, cfg: ArchConfig, gs: int):
     def local(h_loc, router, wg, wu, wd):
         y, (me, ce) = _moe_seq_groups(
             {"router": router, "wg": wg, "wu": wu, "wd": wd}, h_loc, cfg, gs,
-            experts=(lo, e_loc))
+            experts=(e_idx * e_loc, e_loc), shards=shards)
         # summed over the data shards, me and ce are the whole group's
-        # means; every model shard holds the same me, so its sum over
-        # the model shards is scaled back (and so is its gradient)
-        return y, me / (n_batch * n_model), ce / n_batch
+        # means; every expert shard holds the same me, so its sum over
+        # them is scaled back (and so is its gradient)
+        return y, me / (n_batch * n_exp), ce / n_batch
 
     w_pl = pl(experts=True)
     w_grad = pl(experts=True, partial=b_axes)
-    model = ("model",) if "model" in names else ()
     ins = (h, p["router"], p["wg"], p["wu"], p["wd"])
     y, me, ce = local_map(
         local, ins, (pl(0), pl(), w_pl, w_pl, w_pl),
-        (pl(0, partial=model), pl(partial=reduced), pl(partial=b_axes)),
-        grad_placements=(pl(0, partial=model), pl(partial=reduced), w_grad,
+        (pl(0, partial=e_axes), pl(partial=reduced), pl(partial=b_axes)),
+        grad_placements=(pl(0, partial=e_axes), pl(partial=reduced), w_grad,
                          w_grad, w_grad))
     me, ce = me.redistribute(mesh, pl()), ce.redistribute(mesh, pl())
     return y.redistribute(mesh, pl(0)), \
@@ -546,8 +644,10 @@ def moe_fwd(p, x, cfg: ArchConfig):
     groups. The reference scans the groups one by one; here as many as
     ``MOE_BUFFER_BYTES`` allows go through one dispatch. The shared
     experts, where the arch has them, are a dense gated MLP over every
-    token. On a mesh with ``MOE_SHARD_MAP`` on (and the experts dividing
-    the model axis) the routed experts take ``_moe_smap``."""
+    token. On a mesh the routed experts take ``_moe_gspmd`` (the
+    reference's default: one device's routing, capacity and drops), or
+    ``_moe_smap`` with ``MOE_SHARD_MAP`` on and the experts dividing the
+    model axis."""
     mo = cfg.moe
     B, S, D = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)
@@ -555,11 +655,12 @@ def moe_fwd(p, x, cfg: ArchConfig):
     gs = max(1, G // B)
     if S % gs != 0:
         gs = 1
-    if MOE_SHARD_MAP["enabled"] and is_dtensor(h) \
-            and moe_shard_map_applicable(cfg):
+    if not is_dtensor(h):
+        y, aux = _moe_seq_groups(p, h, cfg, gs)
+    elif MOE_SHARD_MAP["enabled"] and moe_shard_map_applicable(cfg):
         y, aux = _moe_smap(p, h, cfg, gs)
     else:
-        y, aux = _moe_seq_groups(p, h, cfg, gs)
+        y, aux = _moe_gspmd(p, h, cfg, gs)
     aux = aux.mean()
     if mo.n_shared_experts:
         a = act_fn(cfg.act)

@@ -35,6 +35,7 @@ SSD conv tails and states whole.
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 from typing import Any, Optional
 
@@ -66,7 +67,12 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def _remat(fn, policy: str):
     """``fn`` wrapped by the remat policy ``policy`` (a key of
-    ``REMAT_POLICIES``)."""
+    ``REMAT_POLICIES``). A layer's recompute runs in the context
+    variables of its forward call -- the mesh and the sharding rules
+    (``parallel``) are context variables, and the backward of a CUDA
+    tensor runs on the autograd engine's device thread, which does not
+    inherit them: without them a mesh layer's recompute would place its
+    tensors otherwise than its forward did."""
     if policy not in REMAT_POLICIES:
         raise ValueError(f"remat {policy!r}: want one of "
                          f"{sorted(REMAT_POLICIES)}")
@@ -77,7 +83,12 @@ def _remat(fn, policy: str):
         kw["context_fn"] = functools.partial(
             torch_checkpoint.create_selective_checkpoint_contexts,
             _save_dots)
-    return lambda *args: torch_checkpoint.checkpoint(fn, *args, **kw)
+
+    def remat(*args):
+        ctx = contextvars.copy_context()
+        return torch_checkpoint.checkpoint(
+            lambda *a: ctx.run(fn, *a), *args, **kw)
+    return remat
 
 
 # --------------------------------------------------------------------------

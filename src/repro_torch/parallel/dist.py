@@ -30,7 +30,10 @@ need from that surface goes through this module:
 * ``local_map(fn, args, in_placements, out_placements)`` -- ``fn`` on the
   local shards of DTensor arguments placed as asked, its outputs wrapped
   back as DTensors (``shard_map``'s counterpart; a ctypes kernel launch
-  takes plain tensors).
+  takes plain tensors);
+* ``sum_over_groups(t, groups)`` -- inside such a region, the sum of
+  every rank's plain ``t`` over process groups (a ``psum`` in a
+  ``shard_map`` body).
 """
 from __future__ import annotations
 
@@ -245,3 +248,14 @@ def local_map(fn: Callable, args: Sequence, in_placements: Sequence,
         else DTensor.from_local(o, mesh, tuple(pl), run_check=False)
         for o, pl in zip(outs, out_placements))
     return wrapped[0] if single else wrapped
+
+
+def sum_over_groups(t, groups: Sequence):
+    """The sum of every rank's plain ``t`` over each process group of
+    ``groups`` in turn: a functional all-reduce each (which the cost
+    counter counts), not differentiable. Every rank of a group issues the
+    same calls in the same order."""
+    from torch.distributed import _functional_collectives as funcol
+    for g in groups:
+        t = funcol.wait_tensor(funcol.all_reduce(t, "sum", g))
+    return t

@@ -1,6 +1,7 @@
-"""Workers of ``tests/test_torch_parallel.py``: each runs as one rank of a
-2-process gloo world on the CPU (``run_world``) and writes what rank 0
-gathers to an ``.npz`` file. Imports only ``repro_torch``."""
+"""Workers of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_moe_gspmd.py``: each runs as one rank of a gloo world
+on the CPU (``run_world``; 2 processes, 4 for a (2, 2) mesh) and writes
+what rank 0 gathers to an ``.npz`` file. Imports only ``repro_torch``."""
 import socket
 
 import numpy as np
@@ -168,6 +169,152 @@ def task_moe(rank, arch, inputs=None):
         tag = "x".join(map(str, shape))
         out[f"{tag}:y"] = y.full_tensor().numpy()
         out[f"{tag}:aux"] = aux.full_tensor().numpy()
+    return out
+
+
+def task_moe_dispatch(rank, inputs, shape):
+    """``moe_fwd`` on ``shape`` (a mesh of the whole world) under each
+    dispatch, ``gspmd`` and ``shard_map``, on the inputs in the ``.npz``
+    at ``inputs``: y, aux, the top-k experts every rank routed to
+    (``moe_route``'s) and the assignments its dispatch kept
+    (``moe_slots``'), each (B, S, K) over the whole batch, every data
+    shard's rows in place."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import blocks
+    from repro_torch.parallel import make_mesh, use_mesh, use_rules
+    from repro_torch.parallel.sharding import RULE_VARIANTS, act_placements
+    rules = RULE_VARIANTS["baseline"]
+    cfg, p, x = moe_inputs_from(inputs)
+    specs = blocks.moe_specs(cfg)
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    route, slots, logged = blocks.moe_route, blocks.moe_slots, {}
+
+    def logging_route(tok, router, top_k):
+        out = route(tok, router, top_k)
+        logged["experts"].append(out[2])
+        return out
+
+    def logging_slots(flat_e, *args):
+        pos, keep = slots(flat_e, *args)
+        logged["kept"].append(keep.view(logged["experts"][-1].shape))
+        return pos, keep
+
+    B, S, _ = x.shape
+    out = {}
+    blocks.moe_route, blocks.moe_slots = logging_route, logging_slots
+    try:
+        for mode in ("gspmd", "shard_map"):
+            logged.update(experts=[], kept=[])
+            with use_mesh(mesh), use_rules(rules), implicit_replication(), \
+                    blocks.moe_dispatch(mode), torch.no_grad():
+                pd = _place(p, specs, rules, mesh)
+                xd = distribute_tensor(x, mesh, act_placements(
+                    rules, ("batch", "seq", "embed"), x.shape, mesh),
+                    src_data_rank=None)
+                y, aux = blocks.moe_fwd(pd, xd, cfg)
+            out[f"{mode}:y"] = y.full_tensor().numpy()
+            out[f"{mode}:aux"] = aux.full_tensor().numpy()
+            for name, parts in logged.items():
+                t = torch.cat(parts)                   # (nc, B_loc gs, K)
+                nc = t.shape[0]
+                b_loc = t.shape[1] * nc // S
+                t = t.reshape(nc, b_loc, S // nc, -1).transpose(0, 1) \
+                    .reshape(b_loc, S, -1)
+                shards = [None] * dist.get_world_size()
+                dist.all_gather_object(shards, (mesh.get_local_rank("data"),
+                                                t.numpy()))
+                rows = [None] * shape[0]
+                for d, r in shards:
+                    rows[d] = r
+                out[f"{mode}:{name}"] = np.concatenate(rows)
+    finally:
+        blocks.moe_route, blocks.moe_slots = route, slots
+    return out
+
+
+def task_launch_train(rank, arch, mesh_text, ckpt_dir):
+    """``launch.train.run`` on ``mesh_text`` (``parse_mesh``), its train
+    step in float32 compute: 3 steps of the reduced ``arch`` from the
+    checkpoint in ``ckpt_dir`` (the run saves its last state there), the
+    data from seed 1, as ``tests/_jax_moe_gspmd_reference.py`` trains.
+    Returns the losses and how often each MoE mesh path ran."""
+    import functools
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import blocks
+    from repro_torch.train import steps
+    launch_train.make_train_step = functools.partial(
+        steps.make_train_step, dtype=torch.float32)
+    calls = {"gspmd": 0, "smap": 0}
+    paths = {"gspmd": blocks._moe_gspmd, "smap": blocks._moe_smap}
+
+    def counted(name):
+        def f(*a, **k):
+            calls[name] += 1
+            return paths[name](*a, **k)
+        return f
+
+    blocks._moe_gspmd, blocks._moe_smap = counted("gspmd"), counted("smap")
+    try:
+        out = launch_train.run(launch_train.TrainLoopConfig(
+            arch=arch, steps=STEPS, seq_len=SEQ, global_batch=BATCH,
+            microbatches=MICRO, ckpt_dir=ckpt_dir, seed=1, mesh=mesh_text,
+            device="cpu", log_every=STEPS, checkpoint_every=0))
+    finally:
+        blocks._moe_gspmd, blocks._moe_smap = paths["gspmd"], paths["smap"]
+    return {"losses": np.array(out["losses"]),
+            "gspmd_calls": np.array(calls["gspmd"]),
+            "smap_calls": np.array(calls["smap"])}
+
+
+def task_thread_backward(rank, arch, shape):
+    """One microbatch's loss of the reduced ``arch`` on ``shape`` under
+    remat "full", its backward run twice: in this thread, and in a new
+    thread, which starts without the mesh and rules context variables,
+    as the autograd engine's device thread does for a CUDA tensor (the
+    engine carries torch's own thread state over, DTensor's implicit
+    replication among it: the thread sets that one itself). Returns both
+    runs' gradients, gathered."""
+    import threading
+    from repro_torch.models import model as M
+    from repro_torch.models.param import tree_leaves
+    from repro_torch.parallel import make_mesh, use_mesh, use_rules
+    from repro_torch.parallel.sharding import RULE_VARIANTS
+    from repro_torch.train.steps import place_batch, place_state
+    from torch.distributed.tensor.experimental import implicit_replication
+    rules = RULE_VARIANTS["baseline"]
+    cfg, state, data, _ = setup(arch)
+    mesh = make_mesh(shape, ("data", "model"), "cpu")
+    out = {}
+    with use_mesh(mesh), use_rules(rules), implicit_replication():
+        state = place_state(state, cfg, rules, mesh)
+        batch = place_batch(data.batch(0), rules, mesh)
+        leaves = dict(tree_leaves(state.params))
+        for where in ("same", "thread"):
+            for p in leaves.values():
+                p.grad = None
+            loss, _ = M.loss_fn(state.params, batch, cfg, remat="full",
+                                dtype=torch.float32)
+            if where == "same":
+                loss.backward()
+            else:
+                errors = []
+
+                def run():
+                    try:
+                        with implicit_replication():
+                            loss.backward()
+                    except BaseException as e:  # noqa: BLE001
+                        errors.append(e)
+                t = threading.Thread(target=run)
+                t.start()
+                t.join()
+                if errors:
+                    raise errors[0]
+            for k, p in leaves.items():
+                out[f"{where}/" + "/".join(k)] = \
+                    p.grad.full_tensor().numpy()
     return out
 
 

@@ -15,8 +15,11 @@ analysis, on the CPU.
   int64 token and label ids (4 more bytes an id).
 * The dry run's cells of each family at full width and 2 layers (one
   microbatch) on the (16, 16) fake mesh: ok, fitting 80 GB, the argument
-  bytes the resolved specs give, the hand kernels' calls; statuses equal
-  the reference's ``supported_shapes``; the JAX-only toggles raise.
+  bytes the resolved specs give, the hand kernels' calls -- the MoE
+  archs under both dispatches, GSPMD's (the default, as the
+  reference's ``--moe``) and the shard-mapped one, at train_4k and at
+  the serving cells; statuses equal the reference's
+  ``supported_shapes``; the JAX-only toggles raise.
 * A real step on a one-rank (1, 1) CPU mesh counts the FLOPs of the same
   step under fake tensors (1e-9).
 """
@@ -193,7 +196,9 @@ FAMILY_CELLS = [("qwen2.5-3b", "gspmd"), ("mamba2-780m", "gspmd"),
                 ("hymba-1.5b", "gspmd"), ("paligemma-3b", "gspmd"),
                 ("hubert-xlarge", "gspmd"),
                 ("granite-moe-1b-a400m", "shard_map"),
-                ("deepseek-v2-236b", "shard_map")]
+                ("deepseek-v2-236b", "shard_map"),
+                ("granite-moe-1b-a400m", "gspmd"),
+                ("deepseek-v2-236b", "gspmd")]
 
 
 @pytest.mark.parametrize("arch,moe", FAMILY_CELLS)
@@ -225,6 +230,35 @@ def test_serving_dry_run_cells(shape):
                             else {"B4": 2})
     assert r["rules"] == ("baseline" if shape == "prefill_32k"
                           else "kv_seq")
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("moe", ["gspmd", "shard_map"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-236b"])
+def test_moe_serving_dry_run_cells(arch, moe, shape):
+    r = dryrun.run_cell(arch, shape, n_layers=2, moe=moe, dump=False)
+    assert r["status"] == "ok", r.get("traceback", r["status"])
+    assert r["moe"] == moe and r["fits"]
+    if shape == "prefill_32k":
+        assert r["kernels"] == {"B3": 2}
+    else:  # MLA decodes in its absorbed form, no B4
+        assert r["kernels"] == ({} if get_arch(arch).mla else {"B4": 2})
+
+
+def test_the_moe_dispatch_defaults_to_gspmd(tmp_path):
+    """As the reference's ``--moe``: the CLI and ``run_cell`` take GSPMD's
+    whole-group dispatch unless told otherwise."""
+    import inspect
+    assert inspect.signature(dryrun.run_cell).parameters["moe"].default \
+        == "gspmd"
+    assert dryrun.main(["--arch", "granite-moe-1b-a400m", "--shape",
+                        "decode_32k", "--out", str(tmp_path)]) == 0
+    with open(tmp_path / "singlepod"
+              / "granite-moe-1b-a400m-decode_32k.json") as f:
+        r = json.load(f)
+    assert r["status"] == "ok" and r["moe"] == "gspmd"
+    assert r["kernels"] == {"B4": 24}
 
 
 def test_statuses_are_the_references():
