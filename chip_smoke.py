@@ -67,7 +67,7 @@ path, read just after) that each path really went through its kernels:
   head dim 256; B3 with a 256-patch bidirectional prefix, B4 at every
   step) behind its 256 zero patch embeddings; hubert-xlarge's encoder
   forward (48 layers, head dim 80, bidirectional B3) over 4 x 1 500
-  seeded frames; each, cut to 2 layers (hymba 5) in float32, against
+  seeded frames; each, cut to 2 layers (hymba 4) in float32, against
   the CPU. B3 and B4 are also held to their plain versions with every
   new mask and head dim, B3's loaded tiles to the mask's count;
 * serving granite-moe-1b-a400m at full width (24 layers of GQA attention
@@ -270,7 +270,8 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 32
 # prompt's length (hymba's is twice its 2 048-token window, so its 29
 # sliding layers skip key tiles; paligemma's follows its 256 patches) and
 # the layers its card-vs-CPU parity phase keeps (hymba cut to 2 layers
-# would have only global ones: at 5, layers 1 and 3 slide)
+# would have only global ones: at 4, layer 1 slides between the global
+# 0, 2 and 3 -- cut from 5 in PR 31, where the run passed its time)
 SERVE_PATHS = {
     SERVE_ARCH: {"widths": (36, 2048, 151936), "prefill": "flash_attention",
                  "step": "decode_attention", "rel_l2_bf16": 0.05,
@@ -285,7 +286,7 @@ SERVE_PATHS = {
     HYBRID_ARCH: {"widths": (32, 1600, 32001),
                   "prefill": ("flash_attention", "ssd_scan"),
                   "step": "decode_attention", "rel_l2_bf16": 0.25,
-                  "prompt": 4096, "parity_layers": 5,
+                  "prompt": 4096, "parity_layers": 4,
                   "parity_prompt": 2112},
     VLM_ARCH: {"widths": (18, 2048, 257216), "prefill": "flash_attention",
                "step": "decode_attention", "rel_l2_bf16": 0.05,
@@ -623,16 +624,18 @@ def attn_tolerance(dtype) -> float:
     return {torch.float32: 2e-5, torch.bfloat16: 2e-2}[dtype]
 
 
-def b3_bound(B, S, H, Hkv, D, dtype, live=None, Dv=None) -> tuple[float,
-                                                                   str]:
-    """Least time for self-attention over S tokens: q, k, v read and the
-    output written once; the live score entries per (batch, head) --
-    ``live``, or the causal S(S+1)/2 -- at 2 D operations each for QK and
-    2 Dv for PV (``Dv``, v's head dim, defaults to D)."""
+def b3_bound(B, S, H, Hkv, D, dtype, live=None, Dv=None,
+             Sk=None) -> tuple[float, str]:
+    """Least time for attention of S queries over ``Sk`` keys (S by
+    default: self-attention): q, k, v read and the output written once;
+    the live score entries per (batch, head) -- ``live``, or the causal
+    S(S+1)/2 -- at 2 D operations each for QK and 2 Dv for PV (``Dv``,
+    v's head dim, defaults to D)."""
     import torch
     Dv = D if Dv is None else Dv
+    Sk = S if Sk is None else Sk
     el = 2 if dtype == torch.bfloat16 else 4
-    nbytes = el * (B * S * H * (D + Dv) + B * S * Hkv * (D + Dv))
+    nbytes = el * (B * S * H * (D + Dv) + B * Sk * Hkv * (D + Dv))
     live = S * (S + 1) / 2 if live is None else live
     flops = 2 * B * H * (D + Dv) * live
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
@@ -799,11 +802,33 @@ B3_MASK_CASES = (
 # slots fewer than, as many as and cut by the window), D 256, G 8
 B4_WINDOW = 1000
 B4_WINDOW_LENGTHS = (500, B4_WINDOW - 1, B4_WINDOW, 2335)
+# B3 and B9 at a query offset (query row i at position q_offset + i, as a
+# chunk of a prefill behind earlier keys): (name, B, Sq, Sk, H, Hkv, D,
+# mask) at offsets 0, 1, 64 and 1 000 under causal order, a window, a
+# prefix and both, and bidirectional
+OFFSET_CASES = (
+    ("offset_0_causal", 2, 300, 300, 4, 2, 64, dict(q_offset=0)),
+    ("offset_1_prefix_d256", 1, 299, 300, 8, 1, 256,
+     dict(q_offset=1, prefix_len=70)),
+    ("offset_64_window", 2, 236, 300, 4, 2, 64,
+     dict(q_offset=64, window=100)),
+    ("offset_64_bidirectional_d80", 1, 200, 300, 4, 2, 80,
+     dict(q_offset=64, causal=False)),
+    ("offset_1000_causal", 1, 100, 1100, 4, 2, 128, dict(q_offset=1000)),
+    ("offset_1000_window_prefix", 1, 100, 1101, 4, 1, 128,
+     dict(q_offset=1000, window=300, prefix_len=64)))
+# chunked prefill at qwen2.5-3b's widths: the second 1 024 tokens of a
+# 2 048-token prompt against the whole prompt's K / V, (B, Sq, Sk, H, Hkv,
+# D, q_offset); B3 is timed at the serving batch beside sdpa under the
+# same boolean mask, B9 at batch 1 (its plain version runs on the host)
+CHUNKED_PREFILL = (SERVE_BATCH, 1024, 2048, 16, 2, 128, 1024)
 
 
 def check_attention_masks(dev) -> dict:
     """B3 with a sliding window, a prefix, both, and bidirectional at
-    head dims 64, 80 and 256 (``B3_MASK_CASES``), and B4 with a window at
+    head dims 64, 80 and 256 (``B3_MASK_CASES``), at query offsets
+    (``OFFSET_CASES``; the chunked prefill ``CHUNKED_PREFILL`` also timed,
+    ``time_b3``), and B4 with a window at
     D 256 and G 8 (``B4_WINDOW_LENGTHS``), against their plain versions on
     the card: float32 allclose 2e-5; bf16 the allclose 2e-2 and one
     relative L2 over the output held to ``B3_REL_L2_BF16`` /
@@ -825,43 +850,63 @@ def check_attention_masks(dev) -> dict:
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    out = {"b3": {}, "b4": {}}
+    def b3_case(q, k, v, mask: dict, what: str) -> dict:
+        B, Sq, H, _ = q.shape
+        Sk = k.shape[1]
+        want_tiles = live_tiles(Sq, Sk, device=dev, **mask)
+        tiles = torch.zeros((B, H, -(-Sq // TILE)), dtype=torch.int32,
+                            device=dev)
+        got = flash_attention(q, k, v, tiles_loaded=tiles, **mask)
+        want = flash_attention_plain(q, k, v, **mask)
+        torch.cuda.synchronize()
+        tol = attn_tolerance(q.dtype)
+        e = max_abs(got.float(), want.float())
+        check(torch.allclose(got.float(), want.float(), atol=tol,
+                             rtol=tol), f"{what}: differs by {e}")
+        check(torch.equal(tiles, want_tiles.expand(B, H, -1)),
+              f"{what}: loaded tiles {tiles[0, 0].tolist()}, the mask "
+              f"allows {want_tiles.tolist()}")
+        rec = {"max_abs_err": e, "tiles_loaded": int(tiles[0, 0].sum())}
+        if Sq == Sk:
+            rec["tiles_causal"] = (-(-Sq // TILE)) * (-(-Sq // TILE) + 1) \
+                // 2
+        if q.dtype == torch.bfloat16:
+            rec["rel_l2"] = b3_rel_l2(got, want)
+            rec["control_rel_l2"] = {f"p_{bits}_bits": b3_rel_l2(
+                b3_rounded_p(q, k, v, bits, **mask), want)
+                for bits in (7, B3_CONTROL_BITS)}
+            check(rec["rel_l2"] <= B3_REL_L2_BF16,
+                  f"{what}: relative L2 {rec['rel_l2']} > "
+                  f"{B3_REL_L2_BF16}")
+            ctrl = rec["control_rel_l2"][f"p_{B3_CONTROL_BITS}_bits"]
+            check(ctrl > B3_REL_L2_BF16,
+                  f"{what}: the control has relative L2 {ctrl} <= "
+                  f"{B3_REL_L2_BF16}")
+        return rec
+
+    out = {"b3": {}, "b4": {}, "b3_offset": {}}
     for name, B, S, H, Hkv, D, causal, window, prefix in B3_MASK_CASES:
         mask = dict(causal=causal, window=window, prefix_len=prefix)
-        want_tiles = live_tiles(S, S, device=dev, **mask)
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[-1]
-            what = f"flash_attention[{name}, {dn}]"
             q, k, v = (rnd((B, S, h, D), dtype) for h in (H, Hkv, Hkv))
-            tiles = torch.zeros((B, H, -(-S // TILE)), dtype=torch.int32,
-                                device=dev)
-            got = flash_attention(q, k, v, tiles_loaded=tiles, **mask)
-            want = flash_attention_plain(q, k, v, **mask)
-            torch.cuda.synchronize()
-            tol = attn_tolerance(dtype)
-            e = max_abs(got.float(), want.float())
-            check(torch.allclose(got.float(), want.float(), atol=tol,
-                                 rtol=tol), f"{what}: differs by {e}")
-            check(torch.equal(tiles, want_tiles.expand(B, H, -1)),
-                  f"{what}: loaded tiles {tiles[0, 0].tolist()}, the mask "
-                  f"allows {want_tiles.tolist()}")
-            rec = {"max_abs_err": e,
-                   "tiles_loaded": int(tiles[0, 0].sum()),
-                   "tiles_causal": (-(-S // TILE)) * (-(-S // TILE) + 1) // 2}
-            if dtype == torch.bfloat16:
-                rec["rel_l2"] = b3_rel_l2(got, want)
-                rec["control_rel_l2"] = {f"p_{bits}_bits": b3_rel_l2(
-                    b3_rounded_p(q, k, v, bits, **mask), want)
-                    for bits in (7, B3_CONTROL_BITS)}
-                check(rec["rel_l2"] <= B3_REL_L2_BF16,
-                      f"{what}: relative L2 {rec['rel_l2']} > "
-                      f"{B3_REL_L2_BF16}")
-                ctrl = rec["control_rel_l2"][f"p_{B3_CONTROL_BITS}_bits"]
-                check(ctrl > B3_REL_L2_BF16,
-                      f"{what}: the control has relative L2 {ctrl} <= "
-                      f"{B3_REL_L2_BF16}")
-            out["b3"][f"{name}/{dn}"] = rec
-            del q, k, v, got, want
+            out["b3"][f"{name}/{dn}"] = b3_case(
+                q, k, v, mask, f"flash_attention[{name}, {dn}]")
+            del q, k, v
+    for name, B, Sq, Sk, H, Hkv, D, mask in OFFSET_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            q = rnd((B, Sq, H, D), dtype)
+            k, v = rnd((B, Sk, Hkv, D), dtype), rnd((B, Sk, Hkv, D), dtype)
+            out["b3_offset"][f"{name}/{dn}"] = b3_case(
+                q, k, v, mask, f"flash_attention[{name}, {dn}]")
+            del q, k, v
+    B, Sq, Sk, H, Hkv, D, off = CHUNKED_PREFILL
+    q = rnd((B, Sq, H, D), torch.bfloat16)
+    k, v = (rnd((B, Sk, Hkv, D), torch.bfloat16) for _ in range(2))
+    out["chunked_prefill"] = time_b3(q, k, v, q_offset=off)
+    del q, k, v
+    torch.cuda.empty_cache()
     H, Hkv, D, Smax = 8, 1, 256, 2336
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
@@ -904,36 +949,58 @@ B3_MLA_CASES = ((2, 1, 4, True), (2, 17, 4, True), (1, 130, 8, False),
 B3_MLA_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 128)
 
 
-def mla_attention_inputs(gen, B, S, H, dtype, dev):
-    """Random q (B, S, H, 192), k (its last 64 columns one vector
-    broadcast over the heads) and v (B, S, H, 128), a strided view, laid
-    out as ``blocks.mla_qkv`` makes them."""
+# the reduced deepseek-v2's MLA head dims (nope 16 + rope 8, v 16), which
+# B3 and B9 take with q / k zero-padded to 32 columns: (B, S, H, causal),
+# ragged S, causal or not; timed at the serving batch and prompt with the
+# reduced config's 4 heads (B3) and at one training sequence (B9)
+MLA_REDUCED_DIMS = (16, 8, 16)
+MLA_REDUCED_CASES = ((2, 1, 4, True), (2, 300, 4, True), (1, 130, 8, False),
+                     (2, 1000, 4, True), (1, 2049, 4, True))
+MLA_REDUCED_B3_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 4)
+MLA_REDUCED_B9_SHAPE = (1, SERVE_PROMPT, 4, True)
+
+
+def mla_attention_inputs(gen, B, S, H, dtype, dev, dims=(128, 64, 128)):
+    """Random q (B, S, H, nope + rope), k (its last rope columns one
+    vector broadcast over the heads) and v (B, S, H, v), a strided view
+    into a (nope + v)-wide product, laid out as ``blocks.mla_qkv`` makes
+    them; ``dims`` = (nope, rope, v), deepseek-v2's published ones by
+    default."""
     import torch
-    q = torch.randn((B, S, H, 192), generator=gen, device=dev).to(dtype)
-    kv = torch.randn((B, S, H, 256), generator=gen, device=dev).to(dtype)
-    kr = torch.randn((B, S, 1, 64), generator=gen, device=dev).to(dtype)
-    k = torch.cat([kv[..., :128], kr.expand(B, S, H, 64)], dim=-1)
-    return q, k, kv[..., 128:]
+    nope, rope, dv = dims
+    q = torch.randn((B, S, H, nope + rope), generator=gen,
+                    device=dev).to(dtype)
+    kv = torch.randn((B, S, H, nope + dv), generator=gen,
+                     device=dev).to(dtype)
+    kr = torch.randn((B, S, 1, rope), generator=gen, device=dev).to(dtype)
+    k = torch.cat([kv[..., :nope], kr.expand(B, S, H, rope)], dim=-1)
+    return q, k, kv[..., nope:]
 
 
 def check_b3_mla(dev) -> dict:
-    """B3 at (D, Dv) = (192, 128) against its plain version on the card,
-    float32 (allclose 2e-5) and bf16 (allclose 2e-2 and relative L2 <=
-    ``B3_REL_L2_BF16`` beside its 3-bit control), ``B3_MLA_CASES``: v read
-    in place through its stride (no copy), ``tiles_loaded`` equal to the
-    mask's count, a second call bit-identical; then timed at deepseek-v2's
-    prefill (``time_b3``: bound, plain, ``sdpa`` and its backend)."""
+    """B3 at (D, Dv) = (192, 128) (``B3_MLA_CASES``) and at the reduced
+    config's (24, 16) (``MLA_REDUCED_CASES``; q and k padded to 32 columns
+    on the way in) against its plain version on the card, float32
+    (allclose 2e-5) and bf16 (allclose 2e-2 and relative L2 <=
+    ``B3_REL_L2_BF16`` beside its 3-bit control): v read in place through
+    its stride (no copy), ``tiles_loaded`` equal to the mask's count, a
+    second call bit-identical; then timed at deepseek-v2's prefill and at
+    ``MLA_REDUCED_B3_SHAPE`` (``time_b3``: bound, plain, ``sdpa`` and its
+    backend)."""
     import torch
     from repro_torch.kernels.flash_attention import (TILE, flash_attention,
                                                      flash_attention_plain,
                                                      for_kernel, live_tiles)
     gen = torch.Generator(device=dev).manual_seed(5)
-    out = {"cases": {}}
-    for B, S, H, causal in B3_MLA_CASES:
+    out = {"cases": {}, "reduced_cases": {}}
+    cases = [("cases", (128, 64, 128), c) for c in B3_MLA_CASES] + [
+        ("reduced_cases", MLA_REDUCED_DIMS, c) for c in MLA_REDUCED_CASES]
+    for key, dims, (B, S, H, causal) in cases:
+        pair = (dims[0] + dims[1], dims[2])
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[-1]
-            what = f"flash_attention[(192, 128), S={S}, causal={causal}, {dn}]"
-            q, k, v = mla_attention_inputs(gen, B, S, H, dtype, dev)
+            what = f"flash_attention[{pair}, S={S}, causal={causal}, {dn}]"
+            q, k, v = mla_attention_inputs(gen, B, S, H, dtype, dev, dims)
             check(for_kernel(v) is v, f"{what}: v was copied")
             tiles = torch.zeros((B, H, -(-S // TILE)), dtype=torch.int32,
                                 device=dev)
@@ -941,7 +1008,7 @@ def check_b3_mla(dev) -> dict:
             again = flash_attention(q, k, v, causal=causal)
             want = flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            check(got.shape == want.shape == (B, S, H, 128)
+            check(got.shape == want.shape == (B, S, H, pair[1])
                   and got.dtype == dtype, f"{what}: shape/dtype")
             check(torch.equal(got, again),
                   f"{what}: a second call is not bit-identical")
@@ -966,17 +1033,22 @@ def check_b3_mla(dev) -> dict:
                 check(ctrl > B3_REL_L2_BF16,
                       f"{what}: the control has relative L2 {ctrl} <= "
                       f"{B3_REL_L2_BF16}")
-            out["cases"][f"B={B},S={S},H={H},causal={causal}/{dn}"] = rec
+            out[key][f"B={B},S={S},H={H},causal={causal}/{dn}"] = rec
     B, S, H = B3_MLA_SHAPE
     q, k, v = mla_attention_inputs(gen, B, S, H, torch.bfloat16, dev)
     out["model_shape"] = time_b3(q, k, v)
+    del q, k, v
+    B, S, H = MLA_REDUCED_B3_SHAPE
+    q, k, v = mla_attention_inputs(gen, B, S, H, torch.bfloat16, dev,
+                                   MLA_REDUCED_DIMS)
+    out["reduced_shape"] = time_b3(q, k, v)
     del q, k, v
     torch.cuda.empty_cache()
     return out
 
 
 def b3_rounded_p(q, k, v, bits: int, causal=True, window=None,
-                 prefix_len=0):
+                 prefix_len=0, q_offset=0):
     """B3 (its mask: ``ref.attention_mask``) with the unnormalized
     probabilities ``exp(s - max)`` rounded to nearest at ``bits`` stored
     mantissa bits before P·V, the row sum taken from the unrounded
@@ -990,7 +1062,8 @@ def b3_rounded_p(q, k, v, bits: int, causal=True, window=None,
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * D ** -0.5
     s.masked_fill_(~attention_mask(
         s.shape[-2], s.shape[-1], causal=causal, window=window,
-        prefix_len=prefix_len, device=q.device), float("-inf"))
+        prefix_len=prefix_len, q_offset=q_offset, device=q.device),
+        float("-inf"))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     del s
     l = p.sum(dim=-1, keepdim=True).transpose(1, 2)
@@ -1007,7 +1080,7 @@ def b3_rel_l2(got, want) -> float:
 
 
 def time_b3(q, k, v, causal=True, window=None, prefix_len=0,
-            control_bits=B3_CONTROL_BITS) -> dict:
+            control_bits=B3_CONTROL_BITS, q_offset=0) -> dict:
     """B3 at the shapes the main path gives it, with its mask, beside its
     bound (the live pairs alone), its plain version and one library call
     of the same function (``sdpa``: causal by its flag, another mask as
@@ -1022,6 +1095,8 @@ def time_b3(q, k, v, causal=True, window=None, prefix_len=0,
     B, S, H, D = q.shape
     Hkv, Dv = k.shape[2], v.shape[3]
     mask = dict(causal=causal, window=window, prefix_len=prefix_len)
+    if q_offset:
+        mask["q_offset"] = q_offset
     got = flash_attention(q, k, v, **mask)
     want = flash_attention_plain(q, k, v, **mask)
     err = max_abs(got.float(), want.float())
@@ -1049,7 +1124,9 @@ def time_b3(q, k, v, causal=True, window=None, prefix_len=0,
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     ok = attention_mask(S, k.shape[1], device=q.device, **mask)
     live = int(ok.sum())
-    plain_causal = causal and window is None and prefix_len == 0
+    # sdpa's is_causal aligns the diagonal at the top left: self-attention
+    plain_causal = causal and window is None and prefix_len == 0 \
+        and q_offset == 0 and S == k.shape[1]
     sdpa = dict(is_causal=True) if plain_causal else \
         dict(attn_mask=None if bool(ok.all()) else ok)
     try:
@@ -1060,7 +1137,8 @@ def time_b3(q, k, v, causal=True, window=None, prefix_len=0,
         kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (kt, vt))
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kr, vr, **sdpa)
-    bound, by = b3_bound(B, S, H, Hkv, D, q.dtype, live, Dv=Dv)
+    bound, by = b3_bound(B, S, H, Hkv, D, q.dtype, live, Dv=Dv,
+                         Sk=k.shape[1])
     run = lambda: flash_attention(q, k, v, **mask)  # noqa: E731
     return {"shape": {"q": list(q.shape), "kv": list(k.shape),
                       **({"v": list(v.shape)} if Dv != D else {}),
@@ -3174,6 +3252,146 @@ def serve_full(card: str, arch: str):
     return rec, srv, prompts
 
 
+def tensor_leaves(tree) -> list:
+    """The tensors of a nested dict / tuple / list, in order."""
+    if isinstance(tree, dict):
+        return [t for k in tree for t in tensor_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in tensor_leaves(x)]
+    return [] if tree is None else [tree]
+
+
+def hillclimb_prefill(srv, prompts) -> dict:
+    """The served model's prefill (``models.model.forward(prefill=True)``
+    on the server's weights and prompts) under both of the JAX package's
+    hill-climb toggles (``hillclimb("triangle", segments=True)``) against
+    the same prefill with neither: the last logits and every cache leaf
+    ``torch.equal``, one B3 and one B5 a layer, and each B3 call's
+    ``tiles_loaded`` (B3's wrapper called with a counter by the model's
+    attention) equal to the mask's count (``live_tiles``). On the card
+    the triangle is B3's own tile walk and the segments pass each layer
+    the window the uniform loop does, so the toggles change no bit."""
+    import torch
+    from repro_torch.kernels.flash_attention import TILE, live_tiles
+    from repro_torch.models import common
+    from repro_torch.models import model as M
+    cfg = srv.cfg
+    batch = {"tokens": torch.tensor(prompts, dtype=torch.int64,
+                                    device="cuda")}
+
+    def prefill():
+        with torch.no_grad():
+            out = M.forward(srv.params, batch, cfg, prefill=True)
+        torch.cuda.synchronize()
+        return out
+
+    base_last, base_cache = prefill()
+    real = common.flash_attention_kernel
+    tiles = {"loaded": 0, "live": 0, "mismatched": 0, "calls": 0}
+
+    def with_tiles(q, k, v, **kw):
+        B, Sq, H, _ = q.shape
+        got = torch.zeros((B, H, -(-Sq // TILE)), dtype=torch.int32,
+                          device=q.device)
+        out = real(q, k, v, tiles_loaded=got, **kw)
+        mask = {key: kw[key] for key in ("causal", "window", "prefix_len",
+                                         "q_offset") if key in kw}
+        want = live_tiles(Sq, k.shape[1], device=q.device, **mask)
+        tiles["calls"] += 1
+        tiles["loaded"] += int(got.sum())
+        tiles["live"] += int(want.sum()) * B * H
+        tiles["mismatched"] += int((got != want).sum())
+        return out
+
+    common.flash_attention_kernel = with_tiles
+    reset_launches()
+    try:
+        with M.hillclimb("triangle", segments=True):
+            last, cache = prefill()
+    finally:
+        common.flash_attention_kernel = real
+    launches = read_launches()
+    want = expected_launches(SERVE_PATHS[cfg.name]["prefill"], cfg.n_layers)
+    check(launches == want, f"hill-climb prefill launched {launches}, "
+                            f"want {want}")
+    check(tiles["mismatched"] == 0 and tiles["loaded"] == tiles["live"],
+          f"hill-climb prefill: B3 loaded tiles other than the mask's "
+          f"{tiles}")
+    ours, theirs = tensor_leaves(cache), tensor_leaves(base_cache)
+    check(len(ours) == len(theirs) and torch.equal(last, base_last)
+          and all(torch.equal(a, b) for a, b in zip(ours, theirs)),
+          "hill-climb prefill: the logits or the cache differ from the "
+          "baseline prefill's")
+    return {"toggles": {"attention": "triangle", "segments": True},
+            "segments": M.segments(cfg), "launches": launches,
+            "tiles": tiles, "logits_and_cache_equal": True,
+            "cache_leaves": len(ours)}
+
+
+def hillclimb_train_step(path: dict) -> dict:
+    """hymba at full width, one training step's loss and gradients (the
+    microbatch loop of ``make_train_step``, remat "full") on the first
+    batch of ``SyntheticDataset`` (seed 0) at ``path``'s shape, from
+    ``init_params`` (seed 0), with neither toggle and then under both
+    (``hillclimb("triangle", segments=True)``): the loss and every
+    gradient leaf ``torch.equal``, each run exactly ``train_launches``."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import model as M
+    from repro_torch.models import registry
+    from repro_torch.models.param import (init_params, train_params,
+                                          tree_leaves)
+    from repro_torch.train.steps import _split_microbatches
+    cfg = train_cfg(HYBRID_ARCH)
+    n_mb = path["microbatches"]
+    batch = SyntheticDataset(cfg, ShapeConfig(
+        "train_custom", path["seq_len"], path["global_batch"], "train"),
+        seed=0, device="cuda").batch(0)
+    params = train_params(init_params(
+        registry.param_specs(cfg), torch.Generator(device="cuda")
+        .manual_seed(0), "cuda"))
+    leaves = list(tree_leaves(params))
+    want = train_launches(cfg, n_mb)
+
+    def step():
+        for _, p in leaves:
+            p.grad = None
+        reset_launches()
+        total = torch.zeros((), device="cuda")
+        for mb in _split_microbatches(batch, n_mb):
+            loss, _ = M.loss_fn(params, mb, cfg, remat="full")
+            (loss * (1.0 / n_mb)).backward()
+            total = total + loss.detach() * (1.0 / n_mb)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check(launches == want, f"hill-climb train step launched "
+                                f"{launches}, want {want}")
+        return total, {name: None if p.grad is None else p.grad.clone()
+                       for name, p in leaves}, launches
+
+    t0 = time.perf_counter()
+    base_loss, base_grads, _ = step()
+    with M.hillclimb("triangle", segments=True):
+        loss, grads, launches = step()
+    for _, p in leaves:
+        p.grad = None
+    same = [p for p in grads if (grads[p] is None) != (base_grads[p] is None)
+            or (grads[p] is not None
+                and not torch.equal(grads[p], base_grads[p]))]
+    check(len(grads) == len(leaves) and torch.equal(loss, base_loss)
+          and not same, f"hill-climb train step: loss {float(loss)} vs "
+          f"{float(base_loss)}, gradient leaves differing: {same[:5]} of "
+          f"{len(grads)}")
+    rec = {"toggles": {"attention": "triangle", "segments": True},
+           "loss": float(loss), "loss_equal": True,
+           "grad_leaves_equal": len(grads), "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    del params, leaves, grads, base_grads
+    torch.cuda.empty_cache()
+    return rec
+
+
 def moe_decode_routes(tables: list, n_steps: int) -> list:
     """A served run's ``RouteLog`` tables (the prefill's calls, then each
     of its ``n_steps - 1`` decode steps', a call an MoE layer) as one
@@ -3359,10 +3577,17 @@ def profile_serve(srv, prompts, hand: tuple[str, ...]) -> dict:
             "decode_4_steps": profile_run(decode, hand, top=10)}
 
 
-def serve_parity(arch: str) -> dict:
+def serve_parity(arch: str, reduced: bool = False,
+                 attention: str = "baseline", segments: bool = False
+                 ) -> dict:
     """``arch`` at full width cut to ``SERVE_PATHS``' parity layers (2;
-    hymba 5), float32, the same weights and tokens on the card (the hand
-    kernels) and on the CPU (their plain forms): prefill of a ragged
+    hymba 4) -- or, with ``reduced``, its reduced config whole (deepseek's
+    MLA at head dims (24, 16)) -- float32, the same weights and tokens on
+    the card (the hand kernels) and on the CPU (their plain forms), under
+    the hill-climb toggles ``attention`` / ``segments`` on both sides
+    (``models.model.hillclimb``: with the triangle, the CPU's prefill
+    attention past its chunk threshold is ``flash_attention_triangle``,
+    counted; the card's is B3 either way): prefill of a ragged
     prompt (200 tokens; hymba 2 112, past its window; paligemma behind 256
     seeded patch embeddings) and 4 decode steps, teacher-forced with the
     CPU's tokens. For mamba2 the CPU runs the prompt as one chunk of 200
@@ -3378,14 +3603,17 @@ def serve_parity(arch: str) -> dict:
 
     import numpy as np
     import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import common
     from repro_torch.models import model as M
     from repro_torch.models import registry
     from repro_torch.models.param import init_params, tree_map
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
     path = SERVE_PATHS[arch]
-    cfg = get_cfg(arch, n_layers=path["parity_layers"])
-    if "parity_moe" in path:
+    cfg = get_arch(arch).reduced() if reduced \
+        else get_cfg(arch, n_layers=path["parity_layers"])
+    if "parity_moe" in path and not reduced:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, **path["parity_moe"]))
     params = init_params(registry.param_specs(cfg),
@@ -3418,13 +3646,26 @@ def serve_parity(arch: str) -> dict:
 
     logs = {d: RouteLog() if cfg.moe else contextlib.nullcontext()
             for d in ("cpu", "cuda")}
-    t0 = time.perf_counter()
-    want = run("cpu", None, logs["cpu"])
-    t_cpu = time.perf_counter() - t0
-    feed = [w.argmax(-1) for w in want]
-    reset_launches()
-    got = run("cuda", feed, logs["cuda"])
-    launches = read_launches()
+    triangle = common.flash_attention_triangle
+    triangles = []
+
+    def counted_triangle(*a, **kw):
+        triangles.append(a[0].device.type)
+        return triangle(*a, **kw)
+    common.flash_attention_triangle = counted_triangle
+    try:
+        with M.hillclimb(attention, segments):
+            t0 = time.perf_counter()
+            want = run("cpu", None, logs["cpu"])
+            t_cpu = time.perf_counter() - t0
+            feed = [w.argmax(-1) for w in want]
+            reset_launches()
+            got = run("cuda", feed, logs["cuda"])
+            launches = read_launches()
+    finally:
+        common.flash_attention_triangle = triangle
+    check("cuda" not in triangles, "serve_parity: the card ran the plain "
+          "triangle")
     alike, route_rec = None, {}
     if cfg.moe:
         diff = route_diff(*(moe_decode_routes(logs[d].tables(), n + 1)
@@ -3432,7 +3673,7 @@ def serve_parity(arch: str) -> dict:
         alike = routed_alike(diff, list(range(n_img + S0 - 1,
                                               n_img + S0 + n)), context=True)
         route_rec = {"routing": route_record(diff, alike)}
-        if "parity_moe" in path:
+        if "parity_moe" in path and not reduced:
             route_rec["reduced"] = (
                 f"routed experts {get_cfg(arch).moe.n_experts} -> "
                 f"{cfg.moe.n_experts} (top-{cfg.moe.top_k} and "
@@ -3446,6 +3687,12 @@ def serve_parity(arch: str) -> dict:
     return {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
             "vocab": cfg.vocab_size, "dtype": "float32", "batch": B,
             "prompt": S0, "image_slots": n_img, "decode_steps": n,
+            **({"config": "reduced", "mla_head_dims": [
+                cfg.mla.nope_head_dim + cfg.mla.rope_head_dim,
+                cfg.mla.v_head_dim]} if reduced and cfg.mla else {}),
+            **({"attention": attention, "segments": segments,
+                "triangle_calls_cpu": len(triangles)}
+               if (attention, segments) != ("baseline", False) else {}),
             "launches": launches, **route_rec,
             **parity_verdict(got, want, "serve_parity", alike),
             "wall_s_cpu": t_cpu}
@@ -3634,6 +3881,12 @@ TRAIN_PATHS = (
 # run B10, and deepseek's, the one that runs B9 at (192, 128); a profile
 # of a step with ~10-20 k launches costs tens of host seconds
 PROFILED_TRAIN = (SSM_ARCH, HYBRID_ARCH, MLA_ARCH)
+# the depth a profiled step is cut to (PR 31, where the whole run passed
+# its time: ~10-25 host seconds saved a profile); the per-call device
+# times of the hand kernels are those of the full-depth step, the busy
+# time a step that of the layers kept. hymba at 8 layers keeps sliding
+# layers (global 0, 4 and 7)
+PROFILE_TRAIN_LAYERS = {TRAIN_ARCH: 12, SSM_ARCH: 12, HYBRID_ARCH: 8}
 # the MoE families' training paths at full width (train_moe_full,
 # train_mla_full): 2 x 2 048 tokens in 2 microbatches, remat "full", 4
 # steps. granite-moe-1b-a400m has all 24 layers; deepseek-v2-236b its
@@ -3660,8 +3913,8 @@ TRAIN_CUT = {MLA_ARCH: dict(n_layers=3, moe=dict(n_experts=16),
 # A_log's gradient and, through AdamW's sign-like first steps, mamba2's
 # tied embedding past the limits below -- the differences of cumsums of
 # size ~100-1000 in float32 (tests/test_torch_ssd_bwd.py); the kernels
-# phase holds B10 over many chunks. hymba at 5
-# layers (0, 2, 4 global; 1 and 3 sliding) with its window cut to 32 so
+# phase holds B10 over many chunks. hymba at 4
+# layers (0, 2, 3 global; 1 sliding) with its window cut to 32 so
 # that the sequence slides past it; paligemma's 256 patches and 32 text
 # tokens, one sequence (its CPU leg, 257 k-entry logits, is the longest)
 TRAIN_PARITY = {
@@ -3674,9 +3927,9 @@ TRAIN_PARITY = {
                    reduced="depth 60 -> 2 (dense0 + 1 MoE layer), routed "
                            "experts 160 -> 16"),
     SSM_ARCH: dict(seq_len=64),
-    HYBRID_ARCH: dict(seq_len=64, config=dict(n_layers=5,
+    HYBRID_ARCH: dict(seq_len=64, config=dict(n_layers=4,
                                               sliding_window=32),
-                      reduced="depth 32 -> 5, sliding window 2048 -> 32"),
+                      reduced="depth 32 -> 4, sliding window 2048 -> 32"),
     VLM_ARCH: dict(seq_len=288, batch=1),
     AUDIO_ARCH: dict(seq_len=200),
 }
@@ -3741,18 +3994,21 @@ B9_MLA_SHAPE = B9_MLA_CASES[0]
 B9_MLA_PLAIN_HEADS = 16
 
 
-def b9_bound(B, S, H, Hkv, D, dtype, live=None, Dv=None
+def b9_bound(B, S, H, Hkv, D, dtype, live=None, Dv=None, Sk=None
              ) -> tuple[float, str]:
-    """Least time for the attention backward: q, k, v, o, do and lse read
-    once, dq, dk, dv written once (q, k, dq, dk at head dim D; v, o, do, dv
-    at ``Dv``, D by default); five matmuls over the live score entries --
-    ``live`` per (batch, head) (a mask's live pairs), the causal S(S+1)/2
-    by default -- q k^T, dS^T Q and dS K at 2 D operations an entry, dO
-    V^T and P^T dO at 2 Dv."""
+    """Least time for the attention backward of S queries over ``Sk``
+    keys (S by default): q, k, v, o, do and lse read once, dq, dk, dv
+    written once (q, k, dq, dk at head dim D; v, o, do, dv at ``Dv``, D by
+    default); five matmuls over the live score entries -- ``live`` per
+    (batch, head) (a mask's live pairs), the causal S(S+1)/2 by default --
+    q k^T, dS^T Q and dS K at 2 D operations an entry, dO V^T and P^T dO at
+    2 Dv."""
     import torch
     Dv = D if Dv is None else Dv
+    Sk = S if Sk is None else Sk
     el = 2 if dtype == torch.bfloat16 else 4
-    nbytes = el * (B * S * (H + Hkv) * (2 * D + 2 * Dv)) + 4 * B * H * S
+    nbytes = el * (B * S * H + B * Sk * Hkv) * (2 * D + 2 * Dv) \
+        + 4 * B * H * S
     live = S * (S + 1) / 2 if live is None else live
     flops = 2 * B * H * (3 * D + 2 * Dv) * live
     peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else FP32_FLOPS_PER_S
@@ -4043,7 +4299,7 @@ def b9_masked_case(q, k, v, do, mask: dict, what: str, timed: bool,
         flash_attention_bwd, flash_attention_bwd_plain)
     from repro_torch.kernels.ref import attention_mask
     B, S, H, D = q.shape
-    Hkv, Dv = k.shape[2], v.shape[3]
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     dtype = q.dtype
     o, lse = flash_attention(q, k, v, return_lse=True, **mask)
     got = flash_attention_bwd(q, k, v, o, lse, do, **mask)
@@ -4098,14 +4354,16 @@ def b9_masked_case(q, k, v, do, mask: dict, what: str, timed: bool,
     del got, again, want, cpu
     if not timed:
         return rec
-    ok = attention_mask(S, S, device=q.device, **mask)
+    ok = attention_mask(S, Sk, device=q.device, **mask)
     live = int(ok.sum())
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    # a causal mask by sdpa's own flag (its fastest form), another as the
-    # same boolean mask, none where every pair is live
+    # a causal mask by sdpa's own flag (its fastest form: self-attention,
+    # the diagonal at the top left), another as the same boolean mask,
+    # none where every pair is live
     causal_only = mask.get("causal") and mask.get("window") is None \
-        and not mask.get("prefix_len")
+        and not mask.get("prefix_len") and not mask.get("q_offset") \
+        and S == Sk
     sdpa = dict(is_causal=True) if causal_only else dict(
         attn_mask=None if bool(ok.all()) else ok)
     lib, lib_rec = None, {}
@@ -4127,7 +4385,7 @@ def b9_masked_case(q, k, v, do, mask: dict, what: str, timed: bool,
     except RuntimeError as e:
         lib_rec = {"library_ms": None,
                    "library_error": f"{type(e).__name__}: {e}"[:300]}
-    bound, by = b9_bound(B, S, H, Hkv, D, dtype, live, Dv=Dv)
+    bound, by = b9_bound(B, S, H, Hkv, D, dtype, live, Dv=Dv, Sk=Sk)
     call = lambda: flash_attention_bwd(q, k, v, o, lse, do,  # noqa: E731
                                        **mask)
     rec.update({"shape": {"q": list(q.shape), "kv": list(k.shape),
@@ -4149,16 +4407,17 @@ def b9_masked_case(q, k, v, do, mask: dict, what: str, timed: bool,
 
 def check_b9_masks(dev) -> dict:
     """B9 under B3's ``B3_MASK_CASES`` -- a sliding window, a prefix,
-    both, bidirectional attention, at head dims 64, 80 and 256 -- in both
-    dtypes (``b9_masked_case``), and timed at the new families' training
-    shapes (``B9_MASK_SHAPES``) in bf16."""
+    both, bidirectional attention, at head dims 64, 80 and 256 -- and at
+    ``OFFSET_CASES``' query offsets, in both dtypes (``b9_masked_case``);
+    timed at the new families' training shapes (``B9_MASK_SHAPES``) and
+    at ``CHUNKED_PREFILL``'s offset (batch 1) in bf16."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(9)
 
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    out = {"cases": {}, "model_shapes": {}}
+    out = {"cases": {}, "model_shapes": {}, "offset_cases": {}}
     for name, B, S, H, Hkv, D, causal, window, prefix in B3_MASK_CASES:
         mask = dict(causal=causal, window=window, prefix_len=prefix)
         for dtype in (torch.bfloat16, torch.float32):
@@ -4169,6 +4428,22 @@ def check_b9_masks(dev) -> dict:
                 q, k, v, do, mask, f"flash_attention_bwd[{name}, {dn}]",
                 False)
             del q, k, v, do
+    for name, B, Sq, Sk, H, Hkv, D, mask in OFFSET_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[-1]
+            q, do = rnd((B, Sq, H, D), dtype), rnd((B, Sq, H, D), dtype)
+            k, v = rnd((B, Sk, Hkv, D), dtype), rnd((B, Sk, Hkv, D), dtype)
+            out["offset_cases"][f"{name}/{dn}"] = b9_masked_case(
+                q, k, v, do, mask, f"flash_attention_bwd[{name}, {dn}]",
+                False)
+            del q, k, v, do
+    _, Sq, Sk, H, Hkv, D, off = CHUNKED_PREFILL
+    q, do = (rnd((1, Sq, H, D), torch.bfloat16) for _ in range(2))
+    k, v = (rnd((1, Sk, Hkv, D), torch.bfloat16) for _ in range(2))
+    out["chunked_prefill"] = b9_masked_case(
+        q, k, v, do, dict(q_offset=off), "flash_attention_bwd[chunked "
+        "prefill]", True)
+    del q, k, v, do
     for name, arch, (B, S, H, Hkv, D), causal, window, prefix \
             in B9_MASK_SHAPES:
         mask = dict(causal=causal, window=window, prefix_len=prefix)
@@ -4185,33 +4460,41 @@ def check_b9_masks(dev) -> dict:
 def check_b9_mla(dev) -> dict:
     """B9 at multi-head latent attention's (D, Dv) = (192, 128) on
     ``mla_attention_inputs`` (v a stride-256 view, as ``blocks.mla_qkv``
-    makes it), ``B9_MLA_CASES`` in both dtypes, each through
-    ``b9_masked_case`` with the plain version on the first
+    makes it), ``B9_MLA_CASES``, and at the reduced config's (24, 16)
+    (``MLA_REDUCED_CASES``, v a stride-32 view), in both dtypes, each
+    through ``b9_masked_case`` with the plain version on the first
     ``B9_MLA_PLAIN_HEADS`` heads; timed at deepseek-v2's training
-    microbatch."""
+    microbatch and at ``MLA_REDUCED_B9_SHAPE``."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(27)
     out = {"cases": {}, "model_shape": {}, "max_abs_err": {},
-           "lse_max_abs_err": 0.0}
+           "lse_max_abs_err": 0.0, "reduced_cases": {},
+           "reduced_shape": {}, "reduced_max_abs_err": {}}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
-        for B, S, H, causal in B9_MLA_CASES:
-            q, k, v = mla_attention_inputs(gen, B, S, H, dtype, dev)
-            do = torch.randn((B, S, H, 128), generator=gen,
+        cases = [("", (128, 64, 128), c, B9_MLA_SHAPE) for c in
+                 B9_MLA_CASES] + [("reduced_", MLA_REDUCED_DIMS, c,
+                                   MLA_REDUCED_B9_SHAPE) for c in
+                                  MLA_REDUCED_CASES + (MLA_REDUCED_B9_SHAPE,)]
+        for key, dims, (B, S, H, causal), timed in cases:
+            pair = (dims[0] + dims[1], dims[2])
+            q, k, v = mla_attention_inputs(gen, B, S, H, dtype, dev, dims)
+            do = torch.randn((B, S, H, pair[1]), generator=gen,
                              device=dev).to(dtype)
-            model = (B, S, H, causal) == B9_MLA_SHAPE
+            model = (B, S, H, causal) == timed
             rec = b9_masked_case(
                 q, k, v, do, dict(causal=causal, window=None, prefix_len=0),
-                f"flash_attention_bwd[(192, 128), {(B, S, H)}, "
+                f"flash_attention_bwd[{pair}, {(B, S, H)}, "
                 f"causal={causal}, {dn}]", model,
                 plain_heads=B9_MLA_PLAIN_HEADS)
-            out["cases"][f"B={B},S={S},H={H},causal={causal}/{dn}"] = rec
-            out["max_abs_err"][dn] = max(out["max_abs_err"].get(dn, 0.0),
-                                         rec["max_abs_err"])
+            out[f"{key}cases"][f"B={B},S={S},H={H},causal={causal}/{dn}"] \
+                = rec
+            errs = out[f"{key}max_abs_err"]
+            errs[dn] = max(errs.get(dn, 0.0), rec["max_abs_err"])
             out["lse_max_abs_err"] = max(out["lse_max_abs_err"],
                                          rec["lse_max_abs_err"])
             if model:
-                out["model_shape"][dn] = rec
+                out["reduced_shape" if key else "model_shape"][dn] = rec
             del q, k, v, do
             torch.cuda.empty_cache()
     return out
@@ -4260,9 +4543,12 @@ def _leaf_rel(a, b) -> float:
     return float((a - b).norm() / a.norm().clamp_min(1e-30))
 
 
-def train_parity(card: str, arch: str = TRAIN_ARCH) -> dict:
+def train_parity(card: str, arch: str = TRAIN_ARCH,
+                 reduced: bool = False) -> dict:
     """``arch`` at full width cut to ``TRAIN_PARITY``'s depth (qwen2.5-3b:
-    2 layers), float32, from one ``train_state_from_numpy`` state on the
+    2 layers) -- or, with ``reduced``, its reduced config whole at
+    ``TRAIN_PARITY``'s defaults (deepseek's MLA at head dims (24, 16)) --
+    float32, from one ``train_state_from_numpy`` state on the
     card (B3 / B5 forward, B9 / B10 backward) and on the CPU (their plain
     forms): the loss and every gradient leaf of one backward, then 3
     ``make_train_step`` steps (``TRAIN_PARITY``'s ``steps``): losses and
@@ -4283,8 +4569,9 @@ def train_parity(card: str, arch: str = TRAIN_ARCH) -> dict:
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.steps import make_train_step
 
-    cut = TRAIN_PARITY.get(arch, {})
-    cfg = cut_config(get_arch(arch), {"n_layers": 2, **cut.get("config", {})})
+    cut = {} if reduced else TRAIN_PARITY.get(arch, {})
+    cfg = get_arch(arch).reduced() if reduced else cut_config(
+        get_arch(arch), {"n_layers": 2, **cut.get("config", {})})
     n_steps = cut.get("steps", 3)
     dump = _numpy_train_state(init_params(
         registry.param_specs(cfg), torch.Generator().manual_seed(2), "cpu"))
@@ -4355,7 +4642,9 @@ def train_parity(card: str, arch: str = TRAIN_ARCH) -> dict:
     want = train_launches(cfg, 1 + n_steps)
     check(launches == want, f"train_parity launches {launches} != {want}")
     return {"card": card, "arch": arch, "layers": cfg.n_layers,
-            "d_model": cfg.d_model, "reduced": cut.get("reduced", "depth"),
+            "d_model": cfg.d_model,
+            "reduced": "the reduced config" if reduced
+            else cut.get("reduced", "depth"),
             "seq_len_batch": [shape.seq_len, shape.global_batch],
             "loss_max_rel": loss_rel, "grad_max_rel_l2": worst_grad,
             "param_max_rel_l2": max(r for p, r in param_rel.items()
@@ -4548,7 +4837,8 @@ def train_full(card: str, arch: str = TRAIN_ARCH, path=None) -> dict:
 def profile_train(hand: tuple[str, ...], arch: str = TRAIN_ARCH,
                   path=None) -> dict:
     """One warm ``train_step`` of ``arch`` at full width on ``path``
-    (default ``TRAIN_FULL``, ``train_full``'s configuration) under the
+    (default ``TRAIN_FULL``, ``train_full``'s configuration), cut to
+    ``PROFILE_TRAIN_LAYERS``' depth where it has an entry, under the
     profiler: busy share, top device ops, the hand kernels' device time a
     launch."""
     import gc
@@ -4560,10 +4850,14 @@ def profile_train(hand: tuple[str, ...], arch: str = TRAIN_ARCH,
     from repro_torch.models.param import init_params, train_params
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.steps import TrainState, make_train_step
+    import dataclasses
     gc.collect()
     torch.cuda.empty_cache()
     path = TRAIN_FULL if path is None else path
     cfg = train_cfg(arch)
+    full_layers = cfg.n_layers
+    if arch in PROFILE_TRAIN_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=PROFILE_TRAIN_LAYERS[arch])
     opt = AdamWConfig(warmup_steps=2, total_steps=10)
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = {"st": TrainState.create(train_params(init_params(
@@ -4582,6 +4876,9 @@ def profile_train(hand: tuple[str, ...], arch: str = TRAIN_ARCH,
 
     one(0)  # warm-up
     rec = profile_run(one, hand, top=10)
+    rec["layers"] = cfg.n_layers
+    if cfg.n_layers != full_layers:
+        rec["reduced"] = f"depth {full_layers} -> {cfg.n_layers} layers"
     del state["st"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -5849,6 +6146,8 @@ def main() -> int:
     for arch, phase in ((HYBRID_ARCH, "serve_hybrid"), (VLM_ARCH,
                                                         "serve_vlm")):
         rec, srv, prompts = serve_full(card, arch)
+        if arch == HYBRID_ARCH:  # the hill-climb toggles on the card
+            rec["hillclimb_prefill"] = hillclimb_prefill(srv, prompts)
         emit(f"{phase}_full", **rec)
         a7a[arch] = rec
         a7a_shapes[arch] = model_shape_kernels(srv, prompts)
@@ -5863,6 +6162,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         emit(f"{phase}_parity", **serve_parity(arch))
         torch.cuda.empty_cache()
+        if arch == HYBRID_ARCH:  # card (B3) vs CPU (the plain triangle)
+            par = serve_parity(arch, attention="triangle", segments=True)
+            check(par["triangle_calls_cpu"] == SERVE_PATHS[arch][
+                "parity_layers"], f"serve_hybrid_parity_triangle: the "
+                f"CPU ran the triangle {par['triangle_calls_cpu']} times")
+            emit(f"{phase}_parity_triangle", **par)
+            torch.cuda.empty_cache()
     rec, enc, frames = encode_audio_full(card)
     emit("encode_audio_full", **rec)
     a7a[AUDIO_ARCH] = rec
@@ -5907,6 +6213,12 @@ def main() -> int:
         par = serve_parity(arch)
         emit(f"{phase}_parity", seconds=time.perf_counter() - t0, **par)
         torch.cuda.empty_cache()
+    # the reduced deepseek-v2 (MLA at head dims (24, 16), B3 with q / k
+    # padded to 32) served on the card against the CPU
+    t0 = time.perf_counter()
+    mla_reduced = {"serve": serve_parity(MLA_ARCH, reduced=True)}
+    emit("serve_mla_reduced_parity", seconds=time.perf_counter() - t0,
+         **mla_reduced["serve"])
 
     # ---- 9e. training the SSD, hybrid, vision and audio families at full
     # width (B3 / B9 under every mask, B5 / B10), each beside its parity
@@ -5916,6 +6228,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         rec = train_full(card, arch, path)
+        if arch == HYBRID_ARCH:  # the hill-climb toggles under grad
+            torch.cuda.empty_cache()
+            rec["hillclimb_step"] = hillclimb_train_step(path)
         emit(phase, seconds=time.perf_counter() - t0, **rec)
         trains[arch] = rec
         torch.cuda.empty_cache()
@@ -5969,6 +6284,12 @@ def main() -> int:
     res = train_resume(card, MOE_ARCH)
     emit("train_resume", seconds=time.perf_counter() - t0, **res)
     torch.cuda.empty_cache()
+    # the reduced deepseek-v2 trained 3 steps on the card (B3 / B9 at
+    # (24, 16)) against the CPU
+    t0 = time.perf_counter()
+    mla_reduced["train"] = train_parity(card, MLA_ARCH, reduced=True)
+    emit("train_mla_reduced_parity", wall_s=time.perf_counter() - t0,
+         **mla_reduced["train"])
 
     # ---- 9f'. MoE training on meshes (A9c): launch.train's default
     # dispatch, GSPMD's, on a one-rank (1, 1) mesh and on a (2, 1) data
@@ -6105,6 +6426,27 @@ def main() -> int:
                                       b3_mla["cases"].items()
                                       if c.endswith(dn))
                               for dn in ("bfloat16", "float32")}}
+    timing_keys = ("shape", "ms", "device_us", "plain_ms", "library_ms",
+                   "library_device_us", "library_kernels", "bound_ms",
+                   "bound_by", "max_abs_err", "rel_l2", "live_pairs")
+    b3_entry["mla_reduced_pair"] = {
+        **{k: b3_mla["reduced_shape"][k] for k in timing_keys},
+        "launches_serve_mla_reduced_parity": mla_reduced["serve"][
+            "launches"]["flash_attention"],
+        "launches_train_mla_reduced_parity": mla_reduced["train"][
+            "launches_card"]["flash_attention"],
+        "max_abs_err_cases": {dn: max(r["max_abs_err"] for c, r in
+                                      b3_mla["reduced_cases"].items()
+                                      if c.endswith(dn))
+                              for dn in ("bfloat16", "float32")}}
+    b3_entry["query_offset"] = {
+        **{k: masks["chunked_prefill"][k] for k in timing_keys},
+        "max_abs_err_cases": {dn: max(r["max_abs_err"] for c, r in
+                                      masks["b3_offset"].items()
+                                      if c.endswith(dn))
+                              for dn in ("bfloat16", "float32")}}
+    b3_entry["launches_hillclimb_prefill"] = a7a[HYBRID_ARCH][
+        "hillclimb_prefill"]["launches"]["flash_attention"]
     from repro_torch.kernels.flash_attention_bwd import \
         HEAD_DIM_PAIRS as B9_HEAD_DIM_PAIRS
     b9m = b9["model_shape"]["bfloat16"]
@@ -6146,6 +6488,24 @@ def main() -> int:
                 "flash_attention_bwd"],
             "launches_per_step": trains[MLA_ARCH]["launches_per_step"][
                 "flash_attention_bwd"]},
+        "mla_reduced_pair": {
+            **{k: b9_mla["reduced_shape"]["bfloat16"].get(k) for k in (
+                "shape", "ms", "device_us", "plain_ms", "plain_note",
+                "library_ms", "library_error", "bound_ms", "bound_by",
+                "max_abs_err", "rel_l2", "control_rel_l2")},
+            "max_abs_err_cases": b9_mla["reduced_max_abs_err"],
+            "launches_train_mla_reduced_parity": mla_reduced["train"][
+                "launches_card"]["flash_attention_bwd"]},
+        "query_offset": {
+            **{k: b9_masks["chunked_prefill"].get(k) for k in (
+                "shape", "live_pairs", "ms", "device_us", "plain_ms",
+                "library_ms", "library_error", "library_kernels",
+                "bound_ms", "bound_by", "max_abs_err", "rel_l2",
+                "control_rel_l2")},
+            "max_abs_err_cases": max(r["max_abs_err"] for r in
+                                     b9_masks["offset_cases"].values())},
+        "launches_hillclimb_step": trains[HYBRID_ARCH]["hillclimb_step"][
+            "launches"]["flash_attention_bwd"],
         "moe_backward_bit_identical_leaves": moe_bits[
             "leaves_bit_identical"],
         "max_abs_err_masks": max(r["max_abs_err"] for r in

@@ -7,9 +7,9 @@ model for a few hundred steps with checkpointing —
 
 Uses mamba2-780m scaled to ~100M (24 layers, d=768) — attention-free, so
 CPU steps stay fast enough for hundreds of steps; ``--reduced`` trains
-the arch's reduced config instead. The SSD family trains on the CPU only
-in the port (its card scan, B5, has no backward yet), so ``--device``
-defaults to the card as every entry point does, and the card raises.
+the arch's reduced config instead. ``--device`` defaults to the card, as
+every entry point does: there each SSD layer is kernel B5 forward and
+kernel B10 backward, through the same training loop as on the CPU.
 """
 import argparse
 import dataclasses

@@ -47,7 +47,7 @@ def _bind_attention(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_launch.argtypes = [
         i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
-        ptr, ptr, ptr, f32, i32, i32, i32, ptr, ptr, ptr]
+        ptr, ptr, ptr, f32, i32, i32, i32, i32, ptr, ptr, ptr]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.decode_attention_launch.argtypes = [
         i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
@@ -59,7 +59,7 @@ def _bind_attention_bwd(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_attention_bwd_launch.argtypes = [
         i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        i32, i32, i32, i32, i32, i32, i32, f32, i32, i32, i32, ptr]
+        i32, i32, i32, i32, i32, i32, i32, f32, i32, i32, i32, i32, ptr]
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
 
 

@@ -118,8 +118,18 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // three at 192), its stage D + DV wide, so (192, 128) uses 105 KB and two
 // blocks fit an SM; q's 12 k16 fragments stay in registers there beside the
 // 64-register accumulator. The built pairs are (d, d) for d in 16, 32, 64,
-// 80, 128, 256 and (192, 128); (d, d) compiles to the code it had before DV
-// existed.
+// 80, 128, 256, (192, 128) and (32, 16); (d, d) compiles to the code it had
+// before DV existed. (32, 16) is the reduced DeepSeek-V2's MLA, q / k of 16 +
+// 8 = 24 columns and v of 16: 24 is not a multiple of mma.sync's k-step of
+// 16, so the wrapper zero-pads q and k to 32 columns (and passes the scale of
+// 24 columns); the padded columns add exact zeros to every score.
+//
+// Query offset. Query row i may sit at position q_off + i (chunked prefill:
+// Sq new queries behind q_off keys already in k / v). The masks take the
+// position (attention_mask.cuh), so key_tiles() walks the tiles of the
+// offset rows' band and the bf16 route's "tile needs the mask" test adds
+// the offset to q0; q_off = 0 adds nothing, and the kernels' bits at 0 are
+// those they had before the offset (chip_attention_bits.py).
 //
 // float32 (flash_attention_kernel): true float32 FMAs on the CUDA cores (no
 // TF32, so it holds 2e-5 against the plain version): 256 threads, q scaled
@@ -156,7 +166,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int64_t qsb, int64_t qss, int64_t qsh,
                        int64_t ksb, int64_t kss, int64_t ksh,
                        int64_t vsb, int64_t vss, int64_t vsh,
-                       float scale, int causal, int window, int prefix,
+                       float scale, int causal, int window, int prefix, int q_off,
                        int* __restrict__ tiles_loaded, float* __restrict__ lse)
 {
     using namespace fa;
@@ -198,7 +208,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // only the key tiles that hold a live pair for some row of this tile
     // are loaded (key_tiles)
     const KeyTiles kts = key_tiles(q0, min(q0 + BQ, Sq) - 1, Sk, causal, window,
-                                   prefix, BK);
+                                   prefix, BK, q_off);
     const int n_tiles = kts.n;
     if (tiles_loaded != nullptr && tid == 0)
         tiles_loaded[((int64_t)b * H + h) * gridDim.x + qt] = n_tiles;
@@ -244,7 +254,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
                 const int r = ty + 16 * i, c = tx + 16 * j;
-                const bool ok = key_live(q0 + r, k0 + c, Sk, causal, window, prefix);
+                const bool ok = key_live(q0 + r, k0 + c, Sk, causal, window, prefix,
+                                         q_off);
                 Ss[r * SLD + c] = ok ? sacc[i][j] : ATTN_NEG_INF;
             }
         __syncthreads();  // K tile consumed, scores written
@@ -348,7 +359,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tv,
                             __nv_bfloat16* __restrict__ o,
                             int H, int Hkv, int Sq, int Sk,
-                            float scale, int causal, int window, int prefix,
+                            float scale, int causal, int window, int prefix, int q_off,
                             int* __restrict__ tiles_loaded, float* __restrict__ lse)
 {
     using namespace fa2;
@@ -377,7 +388,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     // only the key tiles that hold a live pair for some row of this tile
     // are loaded (key_tiles)
     const KeyTiles kts = key_tiles(q0, min(q0 + BQ, Sq) - 1, Sk, causal, window,
-                                   prefix, BK);
+                                   prefix, BK, q_off);
     const int n_tiles = kts.n;
     if (threadIdx.x == 0) {
         if (tiles_loaded != nullptr)
@@ -457,8 +468,8 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 
         // scale in float32; mask only where a tile crosses the diagonal,
         // the window's lower edge or Sk
-        const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0)
-                            || (window > 0 && k0 <= q0 + BQ - 1 - window);
+        const bool masked = k0 + BK > Sk || (causal && k0 + BK - 1 > q0 + q_off)
+                            || (window > 0 && k0 <= q0 + q_off + BQ - 1 - window);
 #pragma unroll
         for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -467,7 +478,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                 if (masked) {
                     const int kpos = k0 + j * 8 + 2 * t + (e % 2);
                     const int qpos = row0 + (e / 2) * 8;
-                    if (!key_live(qpos, kpos, Sk, causal, window, prefix))
+                    if (!key_live(qpos, kpos, Sk, causal, window, prefix, q_off))
                         x = ATTN_NEG_INF;
                 }
                 s[j][e] = x;
@@ -571,7 +582,7 @@ static int flash_attention_bf16_run(const void* q, const void* k, const void* v,
                                     void* o, int B, int H, int Hkv, int Sq, int Sk,
                                     const int64_t* qst, const int64_t* kst,
                                     const int64_t* vst, float scale, int causal,
-                                    int window, int prefix, int* tiles_loaded,
+                                    int window, int prefix, int q_off, int* tiles_loaded,
                                     float* lse, cudaStream_t stream)
 {
     CUtensorMap tq, tk, tv;
@@ -587,7 +598,7 @@ static int flash_attention_bf16_run(const void* q, const void* k, const void* v,
     dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + fa2::BQ - 1) / fa2::BQ));
     flash_attention_bf16_kernel<D, DV><<<grid, fa2::THREADS, smem, stream>>>(
         tq, tk, tv, (__nv_bfloat16*)o, H, Hkv, Sq, Sk, scale, causal, window, prefix,
-        tiles_loaded, lse);
+        q_off, tiles_loaded, lse);
     return (int)cudaGetLastError();
 }
 
@@ -596,13 +607,13 @@ static int flash_attention_run(const void* q, const void* k, const void* v, void
                                int B, int H, int Hkv, int Sq, int Sk,
                                const int64_t* qst, const int64_t* kst,
                                const int64_t* vst, float scale, int causal,
-                               int window, int prefix, int* tiles_loaded, float* lse,
-                               cudaStream_t stream)
+                               int window, int prefix, int q_off, int* tiles_loaded,
+                               float* lse, cudaStream_t stream)
 {
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
         return flash_attention_bf16_run<D, DV>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst,
                                                vst, scale, causal, window, prefix,
-                                               tiles_loaded, lse, stream);
+                                               q_off, tiles_loaded, lse, stream);
     } else {
         const size_t smem = fa::smem_bytes<D, DV>();
         cudaError_t err = cudaFuncSetAttribute(
@@ -613,7 +624,7 @@ static int flash_attention_run(const void* q, const void* k, const void* v, void
         flash_attention_kernel<T, D, DV><<<grid, fa::THREADS, smem, stream>>>(
             (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Hkv, Sq, Sk,
             qst[0], qst[1], qst[2], kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
-            scale, causal, window, prefix, tiles_loaded, lse);
+            scale, causal, window, prefix, q_off, tiles_loaded, lse);
         return (int)cudaGetLastError();
     }
 }
@@ -623,19 +634,21 @@ static int flash_attention_dispatch(int D, int Dv, const void* q, const void* k,
                                     const void* v, void* o, int B, int H,
                                     int Hkv, int Sq, int Sk, const int64_t* qst,
                                     const int64_t* kst, const int64_t* vst,
-                                    float scale, int causal, int w, int p,
+                                    float scale, int causal, int w, int p, int qo,
                                     int* tiles, float* lse, cudaStream_t s)
 {
     if (D == 192 && Dv == 128)  // multi-head latent attention's prefill
-        return flash_attention_run<T, 192, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+        return flash_attention_run<T, 192, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, qo, tiles, lse, s);
+    if (D == 32 && Dv == 16)  // the reduced MLA's (24, 16), q / k zero-padded to 32
+        return flash_attention_run<T, 32, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, qo, tiles, lse, s);
     if (Dv != D) return (int)cudaErrorInvalidValue;
     switch (D) {
-    case 16:  return flash_attention_run<T, 16, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
-    case 32:  return flash_attention_run<T, 32, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
-    case 64:  return flash_attention_run<T, 64, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
-    case 80:  return flash_attention_run<T, 80, 80>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
-    case 128: return flash_attention_run<T, 128, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
-    case 256: return flash_attention_run<T, 256, 256>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, tiles, lse, s);
+    case 16:  return flash_attention_run<T, 16, 16>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, qo, tiles, lse, s);
+    case 32:  return flash_attention_run<T, 32, 32>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, qo, tiles, lse, s);
+    case 64:  return flash_attention_run<T, 64, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, qo, tiles, lse, s);
+    case 80:  return flash_attention_run<T, 80, 80>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, qo, tiles, lse, s);
+    case 128: return flash_attention_run<T, 128, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, qo, tiles, lse, s);
+    case 256: return flash_attention_run<T, 256, 256>(q, k, v, o, B, H, Hkv, Sq, Sk, qst, kst, vst, scale, causal, w, p, qo, tiles, lse, s);
     default:  return (int)cudaErrorInvalidValue;
     }
 }
@@ -650,22 +663,25 @@ static int flash_attention_dispatch(int D, int Dv, const void* q, const void* k,
 // live scores, m + log(l), for the backward kernel B9 (attention_bwd.cu).
 // window: the sliding window's width (key j live for query i only if j > i
 // - window), <= 0 for none; prefix: keys j < prefix live for every query
-// (prefix-LM), 0 for none (key_live). D: q and k's head dim; Dv: v's and
-// the output's, D or (D, Dv) = (192, 128); another pair is refused.
+// (prefix-LM), 0 for none (key_live). q_offset: query row i sits at position
+// q_offset + i (>= 0; 0 is self-attention's alignment). D: q and k's head
+// dim; Dv: v's and the output's, D, or (D, Dv) = (192, 128) or (32, 16);
+// another pair is refused.
 extern "C" int flash_attention_launch(
     int is_bf16, const void* q, const void* k, const void* v, void* o,
     int B, int H, int Hkv, int Sq, int Sk, int D, int Dv,
     const int64_t* q_strides, const int64_t* k_strides, const int64_t* v_strides,
-    float scale, int causal, int window, int prefix, int* tiles_loaded, float* lse,
-    void* stream)
+    float scale, int causal, int window, int prefix, int q_offset, int* tiles_loaded,
+    float* lse, void* stream)
 {
     if (is_bf16)
         return flash_attention_dispatch<__nv_bfloat16>(
             D, Dv, q, k, v, o, B, H, Hkv, Sq, Sk, q_strides, k_strides, v_strides,
-            scale, causal, window, prefix, tiles_loaded, lse, (cudaStream_t)stream);
+            scale, causal, window, prefix, q_offset, tiles_loaded, lse,
+            (cudaStream_t)stream);
     return flash_attention_dispatch<float>(
         D, Dv, q, k, v, o, B, H, Hkv, Sq, Sk, q_strides, k_strides, v_strides,
-        scale, causal, window, prefix, tiles_loaded, lse, (cudaStream_t)stream);
+        scale, causal, window, prefix, q_offset, tiles_loaded, lse, (cudaStream_t)stream);
 }
 
 // ---------------------------------------------------------------------------

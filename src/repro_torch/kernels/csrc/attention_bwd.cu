@@ -31,8 +31,15 @@
 // no window or prefix both walks are the causal loop bounds they were, and
 // the old head dims give the same bits (chip_attention_bits.py).
 //
-// Head dims (D, DV) = (d, d) for d in 16, 32, 64, 80, 128, 256, and
-// multi-head latent attention's (192, 128): S = Q K^T, dK = dS^T Q and dQ =
+// Query offset: query row i sits at position q_off + i (B3's, see
+// attention.cu; attention_mask.cuh adds it to every row it is given), so the
+// key tiles dQ walks, the query tiles dK / dV walks and the per-element mask
+// are those of the offset rows; q_off = 0 adds nothing.
+//
+// Head dims (D, DV) = (d, d) for d in 16, 32, 64, 80, 128, 256, (32, 16) --
+// the reduced DeepSeek-V2's (24, 16) with q / k zero-padded to 32 columns by
+// the wrapper, whose dq and dk columns past 24 are exact zeros and are
+// dropped -- and multi-head latent attention's (192, 128): S = Q K^T, dK = dS^T Q and dQ =
 // dS K run over D, dP = dO V^T, dV = P^T dO and the pre-pass's Delta over
 // DV; the kernels are templated on the pair, and (d, d) is the code it was
 // before DV (chip_attention_bits.py). D 80 rides tile64's boxes (two of 64
@@ -268,7 +275,7 @@ template <int R>
 __device__ __forceinline__ void p_and_ds(float (&s)[R][R], float (&dp)[R][R],
                                          const float* lse_s, const float* dl_s,
                                          int q0, int k0, int Sq, int Sk, int causal,
-                                         int window, int prefix, float scale, int ty, int tx)
+                                         int window, int prefix, int q_off, float scale, int ty, int tx)
 {
 #pragma unroll
     for (int i = 0; i < R; ++i) {
@@ -276,7 +283,7 @@ __device__ __forceinline__ void p_and_ds(float (&s)[R][R], float (&dp)[R][R],
 #pragma unroll
         for (int j = 0; j < R; ++j) {
             const int kpos = k0 + tx + 16 * j;
-            const bool ok = qpos < Sq && key_live(qpos, kpos, Sk, causal, window, prefix);
+            const bool ok = qpos < Sq && key_live(qpos, kpos, Sk, causal, window, prefix, q_off);
             const float p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
             s[i][j] = p;
             dp[i][j] = p * (dp[i][j] - dl_s[r]);
@@ -314,7 +321,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           float* __restrict__ dk_ws, float* __restrict__ dv_ws,
                           int H, int Hkv, int Sq, int Sk, float scale, int causal,
-                          int window, int prefix)
+                          int window, int prefix, int q_off)
 {
     using namespace fb;
     constexpr int LD = ld<D>(), LDV = ld<DV>();
@@ -337,7 +344,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = kt * BK;
     // the query tiles that hold a live pair for these keys
     const QueryTiles qr = query_tiles(k0, min(k0 + BK, Sk) - 1, Sq, causal, window,
-                                      prefix, BQ);
+                                      prefix, BQ, q_off);
 
     load_rows<T, D, BK>(Ks, k, b, k0, hk, Sk, Hkv);
     load_rows<T, DV, BK>(Vs, v, b, k0, hk, Sk, Hkv);
@@ -371,7 +378,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int j = 0; j < R; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
         tile_dot<D, R>(s, Qs, Ks, ty, tx);
         tile_dot<DV, R>(dp, dOs, Vs, ty, tx);
-        p_and_ds<R>(s, dp, lse_s, dl_s, q0, k0, Sq, Sk, causal, window, prefix, scale,
+        p_and_ds<R>(s, dp, lse_s, dl_s, q0, k0, Sq, Sk, causal, window, prefix, q_off, scale,
                     ty, tx);
 #pragma unroll
         for (int i = 0; i < R; ++i)
@@ -435,7 +442,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         T* __restrict__ dq, int H, int Hkv, int Sq, int Sk,
-                        float scale, int causal, int window, int prefix)
+                        float scale, int causal, int window, int prefix, int q_off)
 {
     using namespace fb;
     constexpr int LD = ld<D>(), LDV = ld<DV>();
@@ -469,7 +476,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // the key tiles that hold a live pair for some row of this tile (B3's
     // walk); the others are never loaded
     const KeyTiles kts = key_tiles(q0, min(q0 + BQ, Sq) - 1, Sk, causal, window, prefix,
-                                   BK);
+                                   BK, q_off);
 
     float acc[R][NC];
 #pragma unroll
@@ -491,7 +498,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
             for (int j = 0; j < R; ++j) { s[i][j] = 0.f; dp[i][j] = 0.f; }
         tile_dot<D, R>(s, Qs, Ks, ty, tx);
         tile_dot<DV, R>(dp, dOs, Vs, ty, tx);
-        p_and_ds<R>(s, dp, lse_s, dl_s, q0, k0, Sq, Sk, causal, window, prefix, scale,
+        p_and_ds<R>(s, dp, lse_s, dl_s, q0, k0, Sq, Sk, causal, window, prefix, q_off, scale,
                     ty, tx);
 #pragma unroll
         for (int i = 0; i < R; ++i)
@@ -617,7 +624,7 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                                const float* __restrict__ delta,
                                float* __restrict__ dk_ws, float* __restrict__ dv_ws,
                                int H, int Hkv, int Sq, int Sk, float scale, int causal,
-                               int window, int prefix)
+                               int window, int prefix, int q_off)
 {
     using namespace fb2;
     constexpr int TB = tile_bytes<D>(), TBV = tile_bytes<DV>();
@@ -646,7 +653,7 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     const int k0 = (int)blockIdx.z * BK;
     // the query tiles that hold a live pair for these keys
     const QueryTiles qr = query_tiles(k0, min(k0 + BK, Sk) - 1, Sq, causal, window,
-                                      prefix, BQ);
+                                      prefix, BQ, q_off);
     const int qt0 = qr.lo;
     const int n_it = qr.hi - qr.lo;  // 0: no query sees these keys
     const int64_t srow = ((int64_t)b * H + h) * Sq;
@@ -712,7 +719,7 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         {
             float s[NS][4];
             tile_abt<D>(s, Ks, warp * 16, Qt, lane);
-            const bool masked = !tile_all_live(q0, k0, BQ, BK, Sq, Sk, causal, window);
+            const bool masked = !tile_all_live(q0, k0, BQ, BK, Sq, Sk, causal, window, q_off);
 #pragma unroll
             for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -723,7 +730,7 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                         const int col = j * 8 + 2 * t + c, qpos = q0 + col, kpos = key0 + 8 * r;
                         p[c] = exp2f(fmaf(s[j][2 * r + c] * scale, LOG2E, -ls[col]));
                         if (masked && (qpos >= Sq
-                                       || !key_live(qpos, kpos, Sk, causal, window, prefix)))
+                                       || !key_live(qpos, kpos, Sk, causal, window, prefix, q_off)))
                             p[c] = 0.f;
                     }
                     pf[j / 2][(j % 2) * 2 + r] = pack_bf16x2(p[0], p[1]);
@@ -786,7 +793,7 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                              const float* __restrict__ delta,
                              __nv_bfloat16* __restrict__ dq,
                              int H, int Hkv, int Sq, int Sk, float scale, int causal,
-                             int window, int prefix)
+                             int window, int prefix, int q_off)
 {
     using namespace fb2;
     constexpr int TB = tile_bytes<D>(), TBV = tile_bytes<DV>();
@@ -812,7 +819,7 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     // the key tiles that hold a live pair for some row of this tile (B3's
     // walk); the others are never loaded
     const KeyTiles kts = key_tiles(q0, min(q0 + BQ, Sq) - 1, Sk, causal, window, prefix,
-                                   BK);
+                                   BK, q_off);
     const int n_tiles = kts.n;
     if (threadIdx.x == 0) {
         mbar_init(&full[0], 1);
@@ -864,7 +871,7 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         {
             float s[NS][4];
             tile_abt<D>(s, Qs, warp * 16, Kt, lane);
-            const bool masked = !tile_all_live(q0, k0, BQ, BK, Sq, Sk, causal, window);
+            const bool masked = !tile_all_live(q0, k0, BQ, BK, Sq, Sk, causal, window, q_off);
 #pragma unroll
             for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -875,7 +882,7 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                         const int kpos = k0 + j * 8 + 2 * t + c, qpos = row0 + 8 * r;
                         p[c] = exp2f(fmaf(s[j][2 * r + c] * scale, LOG2E, -ls[r]));
                         if (masked && (qpos >= Sq
-                                       || !key_live(qpos, kpos, Sk, causal, window, prefix)))
+                                       || !key_live(qpos, kpos, Sk, causal, window, prefix, q_off)))
                             p[c] = 0.f;
                     }
                     pf[j / 2][(j % 2) * 2 + r] = pack_bf16x2(p[0], p[1]);
@@ -932,7 +939,7 @@ static int attention_bwd_bf16_run(const void* q, const void* k, const void* v,
                                   const void* dout, const float* lse, const float* delta,
                                   float* dk_ws, float* dv_ws, void* dq, void* dk, void* dv,
                                   int B, int H, int Hkv, int Sq, int Sk, float scale,
-                                  int causal, int window, int prefix, cudaStream_t stream)
+                                  int causal, int window, int prefix, int q_off, cudaStream_t stream)
 {
     // q and k of D columns, v and do of DV
     CUtensorMap tq, tk, tv, tdo;
@@ -948,7 +955,7 @@ static int attention_bwd_bf16_run(const void* q, const void* k, const void* v,
             (unsigned)((Sk + fb2::BK - 1) / fb2::BK));
     attention_bwd_dkdv_bf16_kernel<D, DV><<<g1, fb2::THREADS, smem, stream>>>(
         tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, H, Hkv, Sq, Sk, scale, causal, window,
-        prefix);
+        prefix, q_off);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
@@ -965,7 +972,7 @@ static int attention_bwd_bf16_run(const void* q, const void* k, const void* v,
             (unsigned)((Sq + fb2::BQ - 1) / fb2::BQ));
     attention_bwd_dq_bf16_kernel<D, DV><<<g2, fb2::THREADS, smem, stream>>>(
         tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dq, H, Hkv, Sq, Sk, scale, causal,
-        window, prefix);
+        window, prefix, q_off);
     return (int)cudaGetLastError();
 }
 
@@ -974,7 +981,7 @@ static int attention_bwd_run(const void* q, const void* k, const void* v, const 
                              const void* dout, const float* lse, float* delta,
                              float* dk_ws, float* dv_ws, void* dq, void* dk, void* dv,
                              int B, int H, int Hkv, int Sq, int Sk, float scale,
-                             int causal, int window, int prefix, cudaStream_t stream)
+                             int causal, int window, int prefix, int q_off, cudaStream_t stream)
 {
     const T *tq = (const T*)q, *tk = (const T*)k, *tv = (const T*)v,
             *to = (const T*)o, *tdo = (const T*)dout;
@@ -987,7 +994,7 @@ static int attention_bwd_run(const void* q, const void* k, const void* v, const 
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
         return attention_bwd_bf16_run<D, DV>(q, k, v, dout, lse, delta, dk_ws, dv_ws, dq,
                                              dk, dv, B, H, Hkv, Sq, Sk, scale, causal,
-                                             window, prefix, stream);
+                                             window, prefix, q_off, stream);
     } else {
         constexpr int TILE = fb::tile<D>();
         const size_t s1 = fb::dkdv_smem<D, DV>();
@@ -997,7 +1004,7 @@ static int attention_bwd_run(const void* q, const void* k, const void* v, const 
         dim3 g1((unsigned)H, (unsigned)B, (unsigned)((Sk + TILE - 1) / TILE));
         attention_bwd_dkdv_kernel<T, D, DV><<<g1, fb::THREADS, s1, stream>>>(
             tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, H, Hkv, Sq, Sk, scale, causal,
-            window, prefix);
+            window, prefix, q_off);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
 
@@ -1014,7 +1021,7 @@ static int attention_bwd_run(const void* q, const void* k, const void* v, const 
         dim3 g2((unsigned)H, (unsigned)B, (unsigned)((Sq + TILE - 1) / TILE));
         attention_bwd_dq_kernel<T, D, DV><<<g2, fb::THREADS, s2, stream>>>(
             tq, tk, tv, tdo, lse, delta, (T*)dq, H, Hkv, Sq, Sk, scale, causal, window,
-            prefix);
+            prefix, q_off);
         return (int)cudaGetLastError();
     }
 }
@@ -1025,12 +1032,13 @@ static int attention_bwd_dispatch(int D, int DV, const void* q, const void* k,
                                   const float* lse, float* delta, float* dk_ws,
                                   float* dv_ws, void* dq, void* dk, void* dv, int B, int H,
                                   int Hkv, int Sq, int Sk, float scale, int causal,
-                                  int window, int prefix, cudaStream_t s)
+                                  int window, int prefix, int q_off, cudaStream_t s)
 {
 #define BW_RUN(DD, DDV) attention_bwd_run<T, DD, DDV>(q, k, v, o, dout, lse, delta, dk_ws,    \
                                                       dv_ws, dq, dk, dv, B, H, Hkv, Sq, Sk, \
-                                                      scale, causal, window, prefix, s)
+                                                      scale, causal, window, prefix, q_off, s)
     if (D == 192 && DV == 128) return BW_RUN(192, 128);  // multi-head latent attention
+    if (D == 32 && DV == 16) return BW_RUN(32, 16);  // the reduced MLA's (24, 16), padded
     if (DV != D) return (int)cudaErrorInvalidValue;
     switch (D) {
     case 16:  return BW_RUN(16, 16);
@@ -1049,19 +1057,20 @@ static int attention_bwd_dispatch(int D, int DV, const void* q, const void* k,
 // Hkv, DV); lse and delta (B, H, Sq) float32 (delta is written: the
 // pre-pass's rowsum(dout o o)); dk_ws (B, Sk, H, D) and dv_ws (B, Sk, H, DV)
 // float32 workspaces, written before they are read. (D, DV): (d, d) for d in
-// 16, 32, 64, 80, 128, 256, or (192, 128). The mask is B3's
-// (attention_mask.cuh): causal, a window (<= 0: none) and a prefix (0: none).
+// 16, 32, 64, 80, 128, 256, (192, 128) or (32, 16). The mask is B3's
+// (attention_mask.cuh): causal, a window (<= 0: none) and a prefix (0: none),
+// query row i at position q_off + i.
 extern "C" int flash_attention_bwd_launch(
     int is_bf16, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, float* dk_ws, float* dv_ws,
     void* dq, void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, int D,
-    int DV, float scale, int causal, int window, int prefix, void* stream)
+    int DV, float scale, int causal, int window, int prefix, int q_off, void* stream)
 {
     if (is_bf16)
         return attention_bwd_dispatch<__nv_bfloat16>(
             D, DV, q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, dv, B, H, Hkv,
-            Sq, Sk, scale, causal, window, prefix, (cudaStream_t)stream);
+            Sq, Sk, scale, causal, window, prefix, q_off, (cudaStream_t)stream);
     return attention_bwd_dispatch<float>(
         D, DV, q, k, v, o, dout, lse, delta, dk_ws, dv_ws, dq, dk, dv, B, H, Hkv, Sq,
-        Sk, scale, causal, window, prefix, (cudaStream_t)stream);
+        Sk, scale, causal, window, prefix, q_off, (cudaStream_t)stream);
 }

@@ -10,10 +10,12 @@ bound by operations (thousands per byte), it takes the model's
 transpose or head repeat, and its key loop stops at the diagonal, so the
 tiles the causal mask would zero are never loaded. Beyond the Pallas
 kernel it takes a value head dim of v's own (multi-head latent
-attention's q/k 192 with v 128, ``HEAD_DIM_PAIRS``) and the JAX model
-path's other masks (a sliding ``window``,
-a bidirectional ``prefix_len``; ``ref.attention_mask``) and loads only
-the key tiles that hold a live pair (``live_tiles`` counts them). bf16
+attention's q/k 192 with v 128, and the reduced config's 24 with v 16,
+``HEAD_DIM_PAIRS``), the JAX model path's other masks (a sliding
+``window``, a bidirectional ``prefix_len``; ``ref.attention_mask``) and
+its query offset (``q_offset``: query row ``i`` at position ``q_offset +
+i``, as a chunk of a prefill behind earlier keys), and loads only the key
+tiles that hold a live pair (``live_tiles`` counts them). bf16
 runs on the tensor cores (``mma.sync``, the online softmax in registers,
 q/K/V tiles loaded by TMA, K/V double-buffered); float32 runs true
 float32 FMAs on the CUDA cores.
@@ -43,9 +45,15 @@ from repro_torch.kernels.ref import NEG_INF, attention_mask, ref_attention
 #: the kernel's tile (query rows and keys); ``tiles_loaded`` counts in it
 TILE = 64
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-#: the (q/k, v) head dims the kernel is built for: v's equal to q's, and
-#: multi-head latent attention's (nope 128 + rope 64, v 128)
-HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
+#: the (q/k, v) head dims the kernel takes: v's equal to q's, and
+#: multi-head latent attention's (nope 128 + rope 64, v 128; the reduced
+#: config's nope 16 + rope 8, v 16)
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
+#: q / k head dims the kernels take zero-padded to a multiple of mma.sync's
+#: bf16 k-step of 16 (both routes, for one instantiation): the padded
+#: columns add exact zeros to every score, the scale stays that of the
+#: true width, and B9 drops dq's and dk's padded columns
+PADDED_D = {24: 32}
 DTYPES = (torch.float32, torch.bfloat16)
 #: the bf16 kernel's TMA tensor maps need 16-byte aligned base addresses
 #: and strides: every row must start on a 16-byte boundary
@@ -74,26 +82,33 @@ def _check(q, k, v) -> tuple[int, int, int, int, int, int, int]:
     return B, Sq, H, D, Sk, Hkv, Dv
 
 
-def _check_mask(Sq: int, Sk: int, window, prefix_len: int):
-    """``window`` as an int (None stays None) and ``prefix_len``, checked:
-    a window of at least 1 key, over self-attention only (with Sq != Sk
-    a windowed row could have no live key), and no negative prefix."""
+def _check_mask(Sq: int, Sk: int, window, prefix_len: int,
+                q_offset: int = 0):
+    """``window`` as an int (None stays None), ``prefix_len`` and
+    ``q_offset``, checked: a window of at least 1 key, no negative prefix
+    or offset, and, with a window, every query row's own position inside
+    the keys (``q_offset + Sq <= Sk``: past them a windowed row could have
+    no live key)."""
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} < 0")
     if window is not None:
         window = int(window)
         if window < 1:
             raise ValueError(f"window {window}: want at least 1 key")
-        if Sq != Sk:
-            raise ValueError(f"a window needs self-attention, Sq == Sk; got "
-                             f"{Sq} and {Sk}")
+        if q_offset + Sq > Sk:
+            raise ValueError(f"a window needs every query's position among "
+                             f"the keys, q_offset + Sq <= Sk; got "
+                             f"{q_offset} + {Sq} > {Sk}")
     if prefix_len < 0:
         raise ValueError(f"prefix_len {prefix_len} < 0")
-    return window, int(prefix_len)
+    return window, int(prefix_len), q_offset
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           scale: Optional[float] = None,
                           return_lse: bool = False, window=None,
-                          prefix_len: int = 0):
+                          prefix_len: int = 0, q_offset: int = 0):
     """Plain PyTorch version of B3: KV heads repeated to the query heads
     (head ``h`` reads KV head ``h // (H // Hkv)``), then ``ref_attention``
     in float32 over ``ref.attention_mask``; the output ``(B, Sq, H, Dv)``
@@ -102,31 +117,36 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
     ``return_lse`` also the row log-sum-exp of the scaled live scores,
     float32 ``(B, H, Sq)``."""
     _, Sq, H, D, Sk, Hkv, _ = _check(q, k, v)
-    window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
+    window, prefix_len, q_offset = _check_mask(Sq, Sk, window, prefix_len,
+                                               q_offset)
     if Hkv != H:
         k = k.repeat_interleave(H // Hkv, dim=2)
         v = v.repeat_interleave(H // Hkv, dim=2)
     out = ref_attention(q, k, v, causal=causal, scale=scale, window=window,
-                        prefix_len=prefix_len)
+                        prefix_len=prefix_len, q_offset=q_offset)
     if not return_lse:
         return out
     scale = D ** -0.5 if scale is None else float(scale)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float() * scale, k.float())
     live = attention_mask(Sq, Sk, causal=causal, window=window,
-                          prefix_len=prefix_len, device=q.device)
+                          prefix_len=prefix_len, q_offset=q_offset,
+                          device=q.device)
     s = torch.where(live, s, torch.full((), NEG_INF, device=q.device))
     return out, torch.logsumexp(s, dim=-1)
 
 
 def live_tiles(Sq: int, Sk: int, *, causal: bool = True, window=None,
-               prefix_len: int = 0, device=None) -> torch.Tensor:
+               prefix_len: int = 0, q_offset: int = 0,
+               device=None) -> torch.Tensor:
     """int32 ``(ceil(Sq / TILE),)``: for each query tile, the number of
     ``TILE``-key tiles that hold a live pair of ``ref.attention_mask`` --
     what the kernel loads, computed from the mask itself."""
-    window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
+    window, prefix_len, q_offset = _check_mask(Sq, Sk, window, prefix_len,
+                                               q_offset)
     n_qt, n_kt = -(-Sq // TILE), -(-Sk // TILE)
     ok = attention_mask(Sq, Sk, causal=causal, window=window,
-                        prefix_len=prefix_len, device=device)
+                        prefix_len=prefix_len, q_offset=q_offset,
+                        device=device)
     ok = torch.nn.functional.pad(ok, (0, n_kt * TILE - Sk,
                                       0, n_qt * TILE - Sq))
     return ok.view(n_qt, TILE, n_kt, TILE).any(dim=3).any(dim=1) \
@@ -171,6 +191,14 @@ def kernel_strides(t: torch.Tensor) -> tuple[int, int, int]:
     return st[0], st[1], st[2]
 
 
+def pad_head_dim(t: torch.Tensor) -> torch.Tensor:
+    """q or k as the kernels take it: itself, or, at a head dim of
+    ``PADDED_D``, a dense copy zero-padded to the padded width."""
+    d = PADDED_D.get(t.shape[-1])
+    return t if d is None else torch.nn.functional.pad(
+        t, (0, d - t.shape[-1]))
+
+
 def _strides(t: torch.Tensor):
     return (ctypes.c_int64 * 3)(*kernel_strides(t))
 
@@ -178,7 +206,7 @@ def _strides(t: torch.Tensor):
 def _launch(lib, q, k, v, out, *, causal: bool, scale: float,
             tiles_loaded: Optional[torch.Tensor], stream: int,
             lse: Optional[torch.Tensor] = None, window=None,
-            prefix_len: int = 0) -> int:
+            prefix_len: int = 0, q_offset: int = 0) -> int:
     """One call of the C launcher; the arguments are already checked."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -187,18 +215,20 @@ def _launch(lib, q, k, v, out, *, causal: bool, scale: float,
         v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Sk, D, v.shape[3],
         _strides(q), _strides(k), _strides(v), float(scale), int(causal),
         0 if window is None else int(window), int(prefix_len),
+        int(q_offset),
         None if tiles_loaded is None else tiles_loaded.data_ptr(),
         None if lse is None else lse.data_ptr(), stream)
 
 
 def live_pairs(Sq: int, Sk: int, *, causal: bool = True, window=None,
-                prefix_len: int = 0) -> int:
+                prefix_len: int = 0, q_offset: int = 0) -> int:
     """The live (query, key) pairs of one (batch, head) under the mask
-    ``ref.attention_mask`` draws: key ``j`` is live for query ``i`` when
-    ``j <= i`` (causal), ``j > i - window`` (a window), or ``j <
-    prefix_len``. The work B3 and B9 do, pair by pair (host arithmetic:
-    no tensor op, which a cost counter would see)."""
-    i = np.arange(Sq, dtype=np.int64)
+    ``ref.attention_mask`` draws: key ``j`` is live for the query at
+    position ``i`` (row ``i - q_offset``) when ``j <= i`` (causal), ``j > i
+    - window`` (a window), or ``j < prefix_len``. The work B3 and B9 do,
+    pair by pair (host arithmetic: no tensor op, which a cost counter
+    would see)."""
+    i = int(q_offset) + np.arange(Sq, dtype=np.int64)
     hi = np.minimum(i if causal else np.full(Sq, Sk - 1), Sk - 1)
     lo = np.zeros(Sq, dtype=np.int64) if window is None \
         else np.maximum(i - int(window) + 1, 0)
@@ -211,14 +241,14 @@ def live_pairs(Sq: int, Sk: int, *, causal: bool = True, window=None,
 
 def flash_attention_cost(q, k, v, *, causal: bool = True, window=None,
                          prefix_len: int = 0, return_lse: bool = False,
-                         **_) -> tuple[float, float]:
+                         q_offset: int = 0, **_) -> tuple[float, float]:
     """``(flops, bytes)`` of one B3 call: QK^T and PV over the live pairs
     (``live_pairs``), 2 (D + Dv) operations a pair and (batch, head); q,
     k, v read and the output (and lse) written once."""
     B, Sq, H, D = q.shape
     Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     live = live_pairs(Sq, Sk, causal=causal, window=window,
-                      prefix_len=prefix_len)
+                      prefix_len=prefix_len, q_offset=q_offset)
     nbytes = (q.element_size() * B * Sq * H * (D + Dv)
               + k.element_size() * B * Sk * Hkv * D
               + v.element_size() * B * Sk * Hkv * Dv
@@ -231,16 +261,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     tiles_loaded: Optional[torch.Tensor] = None,
                     return_lse: bool = False, window=None,
-                    prefix_len: int = 0):
+                    prefix_len: int = 0, q_offset: int = 0):
     """Softmax attention of q ``(B, Sq, H, D)`` over k ``(B, Sk, Hkv, D)``
     and v ``(B, Sk, Hkv, Dv)``, GQA by head grouping; float32 or bf16,
     float32 softmax and accumulation, output ``(B, Sq, H, Dv)`` in q's
     dtype. ``(D, Dv)`` is one of ``HEAD_DIM_PAIRS``: ``Dv == D``, or
-    multi-head latent attention's (192, 128). ``scale`` defaults to
-    ``D ** -0.5``. With ``causal``, key ``j`` is
-    live for query ``i`` iff ``j <= i``; ``window`` (an int >= 1, self-
-    attention only) also drops keys ``j <= i - window``; keys
-    ``j < prefix_len`` are then live for every query (prefix-LM).
+    multi-head latent attention's (192, 128) and (24, 16) (q and k of 24
+    columns go to the kernel zero-padded to 32, ``PADDED_D``). ``scale``
+    defaults to ``D ** -0.5``. Query row ``i`` sits at position ``p =
+    q_offset + i`` (default 0: self-attention's rows). With ``causal``,
+    key ``j`` is live for it iff ``j <= p``; ``window`` (an int >= 1, with
+    ``q_offset + Sq <= Sk``) also drops keys ``j <= p - window``; keys ``j
+    < prefix_len`` are then live for every query (prefix-LM).
 
     ``tiles_loaded`` (CUDA only): an int32 ``(B, H, ceil(Sq / 64))``
     tensor that receives the number of 64-key tiles each query tile
@@ -260,7 +292,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nothing.
     """
     B, Sq, H, D, Sk, Hkv, Dv = _check(q, k, v)
-    window, prefix_len = _check_mask(Sq, Sk, window, prefix_len)
+    window, prefix_len, q_offset = _check_mask(Sq, Sk, window, prefix_len,
+                                               q_offset)
     scale = D ** -0.5 if scale is None else float(scale)
     if costs.is_fake(q):  # a dry run's: the outputs' shapes, no work
         out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
@@ -272,7 +305,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              "CPU tensors take the plain version")
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      return_lse=return_lse, window=window,
-                                     prefix_len=prefix_len)
+                                     prefix_len=prefix_len,
+                                     q_offset=q_offset)
     _build.check_no_grad("flash_attention", (q, k, v),
                   "train through repro_torch.models.common.attention, whose "
                   "backward is kernel B9")
@@ -295,6 +329,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"tiles_loaded: want a contiguous int32 "
                          f"({B}, {H}, {n_qt}) tensor on {dev}")
     q, k, v = (for_kernel(t) for t in (q, k, v))
+    q, k = pad_head_dim(q), pad_head_dim(k)
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=dev)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=dev) \
         if return_lse else None
@@ -304,7 +339,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(dev):
         err = _launch(lib, q, k, v, out, causal=causal, scale=scale,
                       tiles_loaded=tiles_loaded, lse=lse, window=window,
-                      prefix_len=prefix_len,
+                      prefix_len=prefix_len, q_offset=q_offset,
                       stream=torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1

@@ -11,13 +11,16 @@ counts; ``ssd_scan`` keeps the JAX wrapper's ``(BH, S, ·)`` layout.
 ``gated_matmul`` and ``tile_nonzero_bitmap`` keep the JAX names and
 signatures, without ``interpret``; the bitmap is plain tensor code on
 either device, as it is plain ``jnp`` in the reference.
+``flash_attention`` keeps the JAX signature (``causal``, ``bq``, ``bk``)
+over B3's wrapper.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import \
+    flash_attention as _flash_attention
 from repro_torch.kernels.gated_matmul import gated_matmul_p
 from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_scan
 
@@ -43,6 +46,22 @@ def gated_matmul(x: torch.Tensor, w: torch.Tensor, *, bm: int = 128,
     on a CUDA tensor); the output in x's dtype."""
     bitmap = tile_nonzero_bitmap(w, bk, bn)
     return gated_matmul_p(x, w, bitmap, bm=bm, bn=bn, bk=bk)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, bq: int = 128,
+                    bk: int = 128) -> torch.Tensor:
+    """The reference's ``ops.flash_attention``: q/k/v ``(B, S, H, D)``,
+    returns ``(B, S, H, D)`` -- kernel B3 on a CUDA tensor, its plain
+    version on a CPU tensor. The reference wants equal head counts (it
+    folds ``(B*H, S, D)``); B3 also takes k / v with fewer heads (GQA by
+    head grouping). ``bq`` / ``bk`` are the Pallas kernel's block sizes,
+    kept for the signature and checked positive; B3 tiles by its own 64
+    rows, so they change nothing here."""
+    if int(bq) <= 0 or int(bk) <= 0:
+        raise ValueError(f"block sizes must be positive, got bq={bq}, "
+                         f"bk={bk}")
+    return _flash_attention(q, k, v, causal=causal)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

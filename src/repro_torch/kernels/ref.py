@@ -1,11 +1,23 @@
-"""Plain PyTorch oracles of the matmul, attention and SSD kernels (the
-allclose references), as ``repro/kernels/ref.py`` keeps them for the
-Pallas ones."""
+"""Plain PyTorch oracles of the occupancy, matmul, attention and SSD
+kernels (the allclose references), as ``repro/kernels/ref.py`` keeps them
+for the Pallas ones."""
 from __future__ import annotations
 
 import torch
 
 NEG_INF = -1e30
+
+
+def ref_sa_occupancy(mm_m, mm_k, mm_n, saw, weight_load_cycles=None) -> dict:
+    """The SA PE-occupancy closed form in float64 tensor ops -- the oracle
+    of kernel K1 (``sa_occupancy``), under the reference's name: the
+    backend-neutral ``core.sa_gating.gating_stats_batch_xp``, which
+    ``sa_occupancy_plain`` also runs (with the width as a batch axis).
+    ``mm_m/mm_k/mm_n``: float64 ``(n,)`` tensors of exact integers; ``saw``
+    a number (or a tensor that broadcasts against them). Returns the five
+    float64 statistics (``STAT_KEYS``)."""
+    from repro_torch.core.sa_gating import gating_stats_batch_xp
+    return gating_stats_batch_xp(mm_m, mm_k, mm_n, saw, weight_load_cycles)
 
 
 def ref_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -14,12 +26,14 @@ def ref_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def attention_mask(Sq: int, Sk: int, *, causal: bool = True, window=None,
-                   prefix_len: int = 0, device=None) -> torch.Tensor:
-    """(Sq, Sk) bool: key ``j`` live for query ``i``, by the JAX model
-    path's rules (``src/repro/models/common.py``: ``plain_attention``,
-    ``_window_ok``): ``j <= i`` under ``causal``, and ``j > i - window``
-    with a window, then OR-ed with ``j < prefix_len``."""
-    q_pos = torch.arange(Sq, device=device)[:, None]
+                   prefix_len: int = 0, q_offset: int = 0,
+                   device=None) -> torch.Tensor:
+    """(Sq, Sk) bool: key ``j`` live for query row ``i``, at position ``p =
+    q_offset + i``, by the JAX model path's rules
+    (``src/repro/models/common.py``: ``plain_attention``, ``_window_ok``):
+    ``j <= p`` under ``causal``, and ``j > p - window`` with a window, then
+    OR-ed with ``j < prefix_len``."""
+    q_pos = int(q_offset) + torch.arange(Sq, device=device)[:, None]
     k_pos = torch.arange(Sk, device=device)[None, :]
     ok = k_pos <= q_pos if causal else torch.ones((Sq, Sk), dtype=torch.bool,
                                                   device=device)
@@ -48,10 +62,11 @@ def decode_live(S: int, cache_len: int, *, window=None,
 
 
 def ref_attention(q, k, v, *, causal: bool = True, scale=None, window=None,
-                  prefix_len: int = 0) -> torch.Tensor:
+                  prefix_len: int = 0, q_offset: int = 0) -> torch.Tensor:
     """q/k: (B, S, H, D), v: (B, S, H, Dv) (same head count; v's head dim
     its own); plain softmax attention over the live keys of
-    ``attention_mask``, returned as (B, Sq, H, Dv)."""
+    ``attention_mask`` (query row ``i`` at position ``q_offset + i``),
+    returned as (B, Sq, H, Dv)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     scale = scale if scale is not None else D ** -0.5
@@ -59,7 +74,8 @@ def ref_attention(q, k, v, *, causal: bool = True, scale=None, window=None,
     if causal or window is not None or prefix_len > 0:
         dev = q.device
         mask = attention_mask(Sq, Sk, causal=causal, window=window,
-                              prefix_len=prefix_len, device=dev)
+                              prefix_len=prefix_len, q_offset=q_offset,
+                              device=dev)
         s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())

@@ -20,7 +20,18 @@ Usage:
       --shape train_4k [--multi-pod] [--rules baseline] [--out DIR] \\
       [--moe gspmd|shard_map]    # the MoE dispatch on the mesh: gspmd,
                                  # the reference's default, or per shard
+      [--attention triangle] [--segments]  # the JAX package's hill-climbs
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod]
+
+``--attention triangle`` and ``--segments`` set the JAX package's toggles
+(``models.common.ATTENTION_VARIANT``, ``models.model.
+STATIC_WINDOW_SEGMENTS``) for the cell, as the reference's dry run does.
+Under the reference, the triangle cuts XLA's chunked attention from the
+whole (q x kv) rectangle to the live blocks, and the segments let it do so
+in hymba's sliding-window layers. The port's step attends through kernel
+B3, whose counted cost is already its live pairs (``live_pairs``) under
+every mask, and its layers already take Python-int windows: both toggles
+leave the cell's counted terms as they are.
 """
 from __future__ import annotations
 
@@ -111,11 +122,6 @@ def cache_axes(cfg: ArchConfig, entry=None) -> tuple:
 
 #: the dense layer's cache axes beside an MLA stack (deepseek's ``dense0``)
 DENSE0_AXES = (("batch", "kv_seq", None), ("batch", "kv_seq", None))
-
-
-class UnsupportedAttention(ValueError):
-    """The JAX-only hill-climb toggles (``--attention triangle``,
-    ``--segments``) have no counterpart in the port."""
 
 
 # ---------------------------------------------------------------------------
@@ -304,18 +310,11 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     mesh must fit it). ``n_layers`` cuts the depth (the tests' reduced
     cells), ``mesh_shape`` replaces the production mesh (axes ``data``,
     ``model``, and ``pod`` in front for three dims), ``shape`` the named
-    shape (``shape_name`` then labels it)."""
+    shape (``shape_name`` then labels it). ``attention`` and ``segments``
+    set the hill-climb toggles for the cell (``models.model.hillclimb``);
+    the cell records both."""
     import torch.distributed as dist
-    if attention != "baseline":
-        raise UnsupportedAttention(
-            f"--attention {attention}: the triangle-blocked XLA attention "
-            f"is a hill-climb of the JAX package's XLA path; the port's "
-            f"attention is kernel B3")
-    if segments:
-        raise UnsupportedAttention(
-            "--segments: static-window layer segments are a hill-climb of "
-            "the JAX package's XLA path; the port's B3 skips the dead "
-            "tiles of every window")
+    M.check_attention_variant(attention)
     cfg = get_arch(arch)
     if n_layers is not None:
         import dataclasses
@@ -337,7 +336,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         mdesc = mesh_desc(mesh)
         result: dict = {"arch": arch, "shape": shape_name, "mesh": mdesc,
                         "chips": n_chips(mesh), "status": "ok", "tag": tag,
-                        "layers": cfg.n_layers, "moe": moe}
+                        "layers": cfg.n_layers, "moe": moe,
+                        "attention": attention, "segments": bool(segments)}
         if support != "ok":
             result["status"] = support
             if dump:
@@ -347,7 +347,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         rules = rules_for(shape.kind, rules_name)
         t0 = time.time()
         try:
-            with blocks.moe_dispatch(moe):
+            with blocks.moe_dispatch(moe), M.hillclimb(attention, segments):
                 counter, args, ov = count_step(
                     cfg, shape, mesh, rules, remat=remat_override,
                     grad_compression=grad_compression,
@@ -416,8 +416,7 @@ def main(argv=None):
     ap.add_argument("--attention", default="baseline",
                     choices=["baseline", "triangle"])
     ap.add_argument("--segments", action="store_true",
-                    help="static-window layer segments (a JAX-only "
-                         "hill-climb: raises)")
+                    help="static-window layer segments (hymba hill-climb)")
     # the MoE dispatch on the mesh: gspmd (the reference's default, the
     # whole group's capacity and drops) or shard_map (per data shard)
     ap.add_argument("--moe", default="gspmd",

@@ -5,7 +5,7 @@
     python -m repro_torch.launch.serve --arch hymba-1.5b [--device cuda]
     python -m repro_torch.launch.serve --arch paligemma-3b [--device cuda]
     python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --device cpu
-    python -m repro_torch.launch.serve --arch deepseek-v2-236b --device cpu
+    python -m repro_torch.launch.serve --arch deepseek-v2-236b [--device cuda]
     python -m repro_torch.launch.serve --arch deepseek-v2-236b --full \
         --layers 3 [--device cuda]
     python -m repro_torch.launch.serve --arrivals poisson --rate 2 \
@@ -21,15 +21,15 @@ cache's length. On the card (the default device) the hand-written
 kernels run: for the attention families B3 over the prompt (hymba's
 sliding-window layers skipping the key tiles outside the window,
 paligemma's patches a bidirectional prefix, deepseek's multi-head
-latent attention at q/k head dim 192 and v 128) and B4 at each step, for
+latent attention at q/k head dim 192 and v 128, or the reduced config's
+24 and 16) and B4 at each step, for
 the SSD family B5 over the prompt, hymba both; an SSD decode step is the
 plain recurrent update, an MLA decode step the absorbed form in plain
-PyTorch (no kernel), and MoE dispatch plain PyTorch everywhere. The
-reduced deepseek's MLA head dims (24, 16) are not among B3's on the card:
-serve it there at full width cut in depth (``n_layers``; ``--full
---layers 3``: the leading dense layer and 2 MoE layers, 9.3 B
-parameters). The encoder-only arch (hubert) has no decode step: run its
-``models.model.forward``.
+PyTorch (no kernel), and MoE dispatch plain PyTorch everywhere. deepseek
+at its published widths holds 236 B parameters: serve it on one card cut
+in depth (``n_layers``; ``--full --layers 3``: the leading dense layer
+and 2 MoE layers, 9.3 B parameters). The encoder-only arch (hubert) has
+no decode step: run its ``models.model.forward``.
 
 Differences from the JAX package's ``repro.launch.serve``, all for an
 eager runtime: the weights are cast to bf16 once, at construction (the

@@ -16,14 +16,13 @@ The JAX package's ``repro.launch.train`` in PyTorch's idiom:
 Runs on the card unless ``--device`` (``TrainLoopConfig.device``) says
 otherwise: there every attention layer (causal, sliding-window, prefix-LM
 or bidirectional, and multi-head latent attention at q/k head dim 192
-with v 128) is kernel B3 forward and kernel B9 backward, and every SSD
-layer kernel B5 forward and kernel B10 backward -- every family: dense,
-SSD, hybrid, vision, audio and MoE (the dispatch and its backward plain
-PyTorch, the same bits run to run). The reduced deepseek's MLA head dims
-(24, 16) are not among B9's, so it trains on the CPU; its published
-widths hold 236 B parameters, more than one card (``chip_smoke.py``
-trains them cut to 3 layers and 16 routed experts through this loop's
-pieces).
+with v 128, or the reduced config's 24 with v 16) is kernel B3 forward
+and kernel B9 backward, and every SSD layer kernel B5 forward and kernel
+B10 backward -- every family: dense, SSD, hybrid, vision, audio and MoE
+(the dispatch and its backward plain PyTorch, the same bits run to run).
+deepseek's published widths hold 236 B parameters, more than one card
+(``chip_smoke.py`` trains them cut to 3 layers and 16 routed experts
+through this loop's pieces).
 * **Sharding** -- ``--rules`` names one of the JAX package's rule
   variants (``parallel.sharding.RULE_VARIANTS``: baseline, seq_parallel,
   kv_seq, moe_replicated); without a mesh a variant changes nothing, as

@@ -5,26 +5,31 @@ int tensor (sliding-window size).
 
 Attention dispatch follows the tensor's device, as the kernels' wrappers
 do. On a CUDA tensor, sequence attention (``attention``: causal, causal
-with a sliding window or a prefix-LM block, or bidirectional) goes to the
-hand-written kernel B3 and single-token attention against the cache
-(``decode_attention``, with or without a window) to B4, at every length;
-a window of at least the sequence is no window. What those kernels do not
-take raises there, never a plain fallback: offset queries, and causal
-attention with Sq != Sk. When an input requires grad (training),
+with a sliding window or a prefix-LM block, or bidirectional, with or
+without a query offset) goes to the hand-written kernel B3 and
+single-token attention against the cache (``decode_attention``, with or
+without a window) to B4, at every length; a window of at least every
+query's position is no window. When an input requires grad (training),
 ``attention`` on the card runs ``KernelAttention``, an autograd function
 whose forward is B3 with its row log-sum-exp and whose backward is kernel
-B9 under the same mask, at B9's (q/k, v) head dims only (its
-``HEAD_DIM_PAIRS``: equal widths, or multi-head latent attention's 192 and
-128); B4 has no backward, and its wrapper raises then rather than drop a
-gradient. On a CPU tensor both
+B9 under the same mask, at B9's (q/k, v) head dims (its
+``HEAD_DIM_PAIRS``: equal widths, or multi-head latent attention's 192
+and 128, and 24 and 16); B4 has no backward, and its wrapper raises then
+rather than drop a gradient. On a CPU tensor both
 run the plain forms exactly as the JAX package dispatches them
 (``plain_attention`` up to ``chunk_threshold`` keys, then
-``flash_attention_jax``), and training differentiates through those, as
-the JAX package differentiates through its own. A cost counter
-(``core.costs``) counts those plain forms as the kernels they stand for
-(``costs.as_kernel``: B3's formula, and B9's for the backward through
-it; B4's), so a step counts the same on either device; a dry run's fake
-tensors take the kernels' route, whose wrappers return shaped outputs.
+``flash_attention_jax``, or, with ``ATTENTION_VARIANT`` set to
+``"triangle"``, ``flash_attention_triangle`` where the JAX package takes
+it), and training differentiates through those, as the JAX package
+differentiates through its own. The triangle on the card is B3 itself:
+its key loop already visits only the key tiles in ``[lo(window),
+diagonal]`` of each query tile, the triangle's live blocks at the
+kernel's own tile size, so the toggle changes no card output. A cost
+counter (``core.costs``) counts those plain forms as the kernels they
+stand for (``costs.as_kernel``: B3's formula, and B9's for the backward
+through it; B4's), so a step counts the same on either device; a dry
+run's fake tensors take the kernels' route, whose wrappers return shaped
+outputs.
 
 On a mesh (DTensor inputs, ``parallel``) both attentions run on local
 shards (``heads_local``): batch sharded as the rules shard ``"batch"``,
@@ -209,47 +214,132 @@ def flash_attention_jax(q, k, v, *, causal: bool, window: Window = None,
     return out[:, :Sq].to(v.dtype)
 
 
+def flash_attention_triangle(q, k, v, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             q_chunk: int = 2048, kv_chunk: int = 1024,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """The JAX package's triangle/window-blocked causal attention (its
+    hill-climb variant of ``flash_attention_jax``), block for block: the q
+    chunks unrolled, and each q chunk's kv loop over only the blocks that
+    can be live, ``[lo(window), qi]``, where the baseline scans the whole
+    rectangle and masks. Causal self-attention (Sq == Sk) with a static
+    ``window`` (an int or None) and no prefix, as the original asserts.
+    q is scaled in float32 and rounded to k's dtype, the products in the
+    operands' dtype summed in float32. A kv block past the keys (the
+    original reads a clamped slice there, wholly masked) adds nothing, so
+    the loop stops at the last one. Returns v's dtype."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    assert causal and Sq == Sk, "triangle variant is causal self-attn only"
+    Hkv = k.shape[2]
+    Dv = v.shape[-1]
+    scale = scale if scale is not None else D ** -0.5
+    if Hkv != H:
+        rep = H // Hkv
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    k = constrain(k, "batch", "kv_seq", "heads", None)
+    v = constrain(v, "batch", "kv_seq", "heads", None)
+    dev = q.device
+
+    q = (q.float() * scale).to(k.dtype)
+    qp, nq = _pad_seq(q, q_chunk)
+    kp, nk = _pad_seq(k, kv_chunk)
+    vp, _ = _pad_seq(v, kv_chunk)
+    outs = []
+    for qi in range(nq):  # unrolled: nq is small (S / q_chunk)
+        qb = qp[:, qi * q_chunk:(qi + 1) * q_chunk].float()
+        q_pos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+        hi = qi * q_chunk + q_chunk - 1          # last live kv position
+        lo = 0 if window is None else max(0, qi * q_chunk - int(window))
+        k_lo, k_hi = lo // kv_chunk, min(hi // kv_chunk, nk - 1)
+        m = torch.full((B, H, q_chunk), NEG_INF, device=dev)
+        l = torch.zeros((B, H, q_chunk), device=dev)
+        acc = torch.zeros((B, H, q_chunk, Dv), device=dev)
+        for ki in range(k_lo, k_hi + 1):
+            kb = kp[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            vb = vp[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            k_pos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+            s = torch.einsum("bqhd,bkhd->bhqk", qb, kb.float())
+            ok = (k_pos[None, :] < Sk) & (q_pos[:, None] < Sq) \
+                & (k_pos[None, :] <= q_pos[:, None])
+            ok = _window_ok(ok, q_pos, k_pos, window)
+            s = s + _mask_bias(ok)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(vb.dtype).float(), vb.float())
+            m = m_new
+        ob = acc / torch.clamp_min(l, 1e-30)[..., None]
+        outs.append(ob.transpose(1, 2))
+    out = torch.cat(outs, dim=1)
+    return out[:, :Sq].to(v.dtype)
+
+
+#: the JAX package's hill-climb toggle (``--attention triangle``): on the
+#: CPU, long causal self-attention with a static window and no prefix runs
+#: ``flash_attention_triangle``; on the card B3 runs either way
+ATTENTION_VARIANT = {"impl": "baseline"}
+
+
 class KernelAttention(torch.autograd.Function):
     """Attention whose forward is kernel B3 (with its row log-sum-exp) and
     whose backward is kernel B9, both under one mask: the card's training
-    attention. ``apply(q, k, v, scale, causal, window, prefix_len)``;
-    scale None is ``D ** -0.5``, window None or an int (B3's), prefix_len
-    an int."""
+    attention. ``apply(q, k, v, scale, causal, window, prefix_len,
+    q_offset)``; scale None is ``D ** -0.5``, window None or an int
+    (B3's), prefix_len and q_offset ints."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal, window, prefix_len):
+    def forward(ctx, q, k, v, scale, causal, window, prefix_len,
+                q_offset=0):
         o, lse = flash_attention_kernel(q, k, v, causal=causal, scale=scale,
                                         return_lse=True, window=window,
-                                        prefix_len=prefix_len)
+                                        prefix_len=prefix_len,
+                                        q_offset=q_offset)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = dict(scale=scale, causal=causal, window=window,
-                        prefix_len=prefix_len)
+                        prefix_len=prefix_len, q_offset=q_offset)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.mask)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
-def _kernel_window(window: Window, Sq: int) -> Optional[int]:
+def _kernel_window(window: Window, Sq: int, q_offset: int = 0
+                   ) -> Optional[int]:
     """The window as the kernels take it: an int, or None where it masks
-    nothing (none given, or at least ``Sq`` keys: hymba's global layers)."""
-    if window is None or int(window) >= Sq:
+    nothing (none given, or at least ``q_offset + Sq`` keys, every query's
+    position: hymba's global layers)."""
+    if window is None or int(window) >= q_offset + Sq:
         return None
     return int(window)
+
+
+def _triangle(causal: bool, window: Window, prefix_len: int, Sq: int,
+              Sk: int, q_offset) -> bool:
+    """Whether the JAX package's ``attention`` takes the triangle variant
+    here: toggled on, causal self-attention with no prefix (and, as the
+    triangle has none, no query offset) and a static window."""
+    return (ATTENTION_VARIANT["impl"] == "triangle" and causal
+            and prefix_len == 0 and Sq == Sk and q_offset == 0
+            and isinstance(window, (int, type(None))))
 
 
 def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
               scale: Optional[float] = None, prefix_len: int = 0,
               chunk_threshold: int = 2048, q_chunk: int = 2048,
               kv_chunk: int = 1024) -> torch.Tensor:
-    """Sequence attention. CUDA: kernel B3 (any of its masks; see the
-    module docstring for what raises), through ``KernelAttention``
+    """Sequence attention, query row ``i`` at position ``q_offset + i``.
+    CUDA: kernel B3 (any of its masks), through ``KernelAttention``
     (backward B9, under the same mask) when an input requires grad. CPU:
-    plain or chunked flash by KV length, as the JAX package (counted as
-    B3 and B9). Fake tensors: B3's route. DTensors: on local shards."""
+    plain, chunked flash or (``ATTENTION_VARIANT``) the triangle by KV
+    length, as the JAX package (counted as B3 and B9). Fake tensors: B3's
+    route. DTensors: on local shards."""
     if is_dtensor(q):
         return heads_local(
             lambda ql, kl, vl: attention(
@@ -262,13 +352,9 @@ def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
     Sq, Sk = q.shape[1], k.shape[1]
     grad = torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v))
+    q_offset = int(q_offset)
     if q.device.type == "cuda" or costs.is_fake(q):
-        if q_offset != 0 or (causal and Sq != Sk):
-            raise NotImplementedError(
-                f"on the card attention runs kernel B3, which takes no "
-                f"query offset (got {q_offset}) and no causal attention "
-                f"with Sq != Sk (got {Sq}, {Sk})")
-        window = _kernel_window(window, Sq)
+        window = _kernel_window(window, Sq, q_offset)
         if grad:
             D, Dv = q.shape[-1], v.shape[-1]
             if (D, Dv) not in B9_HEAD_DIM_PAIRS:
@@ -277,24 +363,27 @@ def attention(q, k, v, *, causal: bool, window: Window = None, q_offset=0,
                     f"B9's (q/k, v) head dims {B9_HEAD_DIM_PAIRS} only "
                     f"(got {D}, {Dv})")
             return KernelAttention.apply(q, k, v, scale, causal, window,
-                                         prefix_len)
+                                         prefix_len, q_offset)
         return flash_attention_kernel(q, k, v, causal=causal, scale=scale,
-                                      window=window, prefix_len=prefix_len)
+                                      window=window, prefix_len=prefix_len,
+                                      q_offset=q_offset)
 
     def plain(q, k, v):
         if Sk <= chunk_threshold:
             return plain_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, scale=scale,
                                    prefix_len=prefix_len)
+        if _triangle(causal, window, prefix_len, Sq, Sk, q_offset):
+            return flash_attention_triangle(
+                q, k, v, causal=True, window=window,
+                q_chunk=min(q_chunk, Sq), kv_chunk=kv_chunk, scale=scale)
         return flash_attention_jax(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset,
                                    q_chunk=min(q_chunk, Sq),
                                    kv_chunk=kv_chunk, scale=scale,
                                    prefix_len=prefix_len)
-    if q_offset != 0 or (causal and Sq != Sk):
-        return plain(q, k, v)  # no kernel takes it: counted as it runs
-    mask = dict(causal=causal, window=_kernel_window(window, Sq),
-                prefix_len=prefix_len)
+    mask = dict(causal=causal, window=_kernel_window(window, Sq, q_offset),
+                prefix_len=prefix_len, q_offset=q_offset)
     return costs.as_kernel(
         "B3", lambda: flash_attention_cost(q, k, v, return_lse=grad, **mask),
         plain, (q, k, v), backward=(

@@ -35,6 +35,7 @@ SSD conv tails and states whole.
 """
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import functools
 from typing import Any, Optional
@@ -43,7 +44,7 @@ import torch
 import torch.utils.checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import blocks, registry
+from repro_torch.models import blocks, common, registry
 from repro_torch.models.common import rms_norm
 from repro_torch.models.param import cast_tree, tree_leaves, tree_with_leaves
 from repro_torch.parallel.dist import is_dtensor, local_map
@@ -245,6 +246,82 @@ def _windows(cfg: ArchConfig, seq_hint: int) -> list:
         or [None] * registry.n_scanned_layers(cfg)
 
 
+#: the JAX package's hill-climb toggle (``--segments``): run a
+#: sliding-window arch's stack as ``segments`` (``_segmented_stack``)
+STATIC_WINDOW_SEGMENTS = {"enabled": False}
+
+
+def check_attention_variant(attention: str) -> None:
+    """``attention`` is a value ``common.ATTENTION_VARIANT`` takes."""
+    if attention not in ("baseline", "triangle"):
+        raise ValueError(f"attention {attention!r}: want 'baseline' or "
+                         f"'triangle'")
+
+
+@contextlib.contextmanager
+def hillclimb(attention: str = "baseline", segments: bool = False):
+    """The JAX package's hill-climb toggles set for a block and restored
+    after it: ``attention`` (``"baseline"`` or ``"triangle"``) into
+    ``common.ATTENTION_VARIANT``, ``segments`` into
+    ``STATIC_WINDOW_SEGMENTS``."""
+    check_attention_variant(attention)
+    old = (common.ATTENTION_VARIANT["impl"],
+           STATIC_WINDOW_SEGMENTS["enabled"])
+    common.ATTENTION_VARIANT["impl"] = attention
+    STATIC_WINDOW_SEGMENTS["enabled"] = bool(segments)
+    try:
+        yield
+    finally:
+        (common.ATTENTION_VARIANT["impl"],
+         STATIC_WINDOW_SEGMENTS["enabled"]) = old
+
+
+def segments(cfg: ArchConfig) -> list:
+    """A sliding-window arch's stack as the JAX package's segments, in
+    layer order: ``(lo, hi, window)`` for each run ``[lo, hi)`` of
+    sliding-window layers (``window = cfg.sliding_window``) and ``(g, g +
+    1, None)`` for each global layer ``g`` (full attention)."""
+    L = cfg.n_layers
+    out, pos = [], 0
+    for g in sorted(registry.global_layer_indices(cfg)) + [L]:
+        if g > pos:
+            out.append((pos, g, cfg.sliding_window))
+        if g < L:
+            out.append((g, g + 1, None))
+        pos = g + 1
+    return out
+
+
+def _segmented_stack(layers: list, x, cfg: ArchConfig, run):
+    """The stack run as ``segments``: each sliding-window run with its
+    static window, each global layer alone with none (the JAX package's
+    ``_segmented_stack``, which scans each run so that its window is a
+    Python int the triangle attention can take). ``run(i, p_layer, x,
+    window)`` runs layer ``i`` and returns the new x (the caller keeps
+    the aux loss and the prefill cache, layer by layer, so the cache is
+    in layer order). The port passes every layer a Python-int window
+    already (``_windows``: the sliding width, or more than the sequence
+    at a global layer, which ``common.attention`` takes as none), so the
+    segments make the same attention calls as the uniform loop: the same
+    numbers on the CPU, and on the card the same kernel launches and the
+    same bits."""
+    for lo, hi, window in segments(cfg):
+        for i in range(lo, hi):
+            x = run(i, layers[i], x, window)
+    return x
+
+
+def _stack_walk(layers: list, x, cfg: ArchConfig, windows: list, run):
+    """``run(i, p_layer, x, window)`` over the layers in order: the
+    uniform loop, or, for a sliding-window arch with
+    ``STATIC_WINDOW_SEGMENTS`` on, ``_segmented_stack``."""
+    if STATIC_WINDOW_SEGMENTS["enabled"] and cfg.sliding_window > 0:
+        return _segmented_stack(layers, x, cfg, run)
+    for i, (p_layer, window) in enumerate(zip(layers, windows)):
+        x = run(i, p_layer, x, window)
+    return x
+
+
 def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
             remat: str = "full", dtype=torch.bfloat16,
             cache: Optional[dict] = None):
@@ -272,6 +349,8 @@ def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
     ``remat`` (a key of ``REMAT_POLICIES``) wraps each layer of a
     training forward (``prefill=False``) when grad is enabled; prefill
     and no-grad calls keep nothing for a backward and ignore it.
+    ``STATIC_WINDOW_SEGMENTS`` walks the stack as segments
+    (``_segmented_stack``): the same numbers.
     """
     params = _gathered_top(cast_tree(params, dtype))
     x, prefix_len = embed_inputs(params, batch, cfg, dtype)
@@ -291,9 +370,15 @@ def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
             one, dense0 = _remat(one, remat), _remat(dense0, remat)
         if "dense0" in params:
             x = dense0(params["dense0"], x)
-        aux = torch.zeros((), device=x.device)
-        for p_layer, window in zip(layers, windows):
+        auxes = []
+
+        def train_layer(i, p_layer, x, window):
             x, a = one(p_layer, x, window)
+            auxes.append(a)
+            return x
+        x = _stack_walk(layers, x, cfg, windows, train_layer)
+        aux = torch.zeros((), device=x.device)
+        for a in auxes:
             aux = aux + a
         return unembed(params, x, cfg), aux
     new = {}
@@ -305,16 +390,18 @@ def forward(params, batch: dict, cfg: ArchConfig, *, prefill: bool = False,
         else:
             _store(cache["dense0"], entry, S)
     entries = []
-    for i, p_layer in enumerate(layers):
+
+    def prefill_layer(i, p_layer, x, window):
         slot = None if cache is None else _cache_slice(cache["layers"], i)
         x, _, entry = _apply_layer(gather_params(p_layer), x, cfg,
-                                   window=windows[i],
-                                   prefix_len=prefix_len, prefill=True,
-                                   slot=slot)
+                                   window=window, prefix_len=prefix_len,
+                                   prefill=True, slot=slot)
         if cache is None:
             entries.append(entry)
         else:
             _store(slot, entry, S)
+        return x
+    x = _stack_walk(layers, x, cfg, windows, prefill_layer)
     last = unembed(params, x[:, -1:], cfg)
     if cache is None:
         cache = {"layers": _stack(entries), **new}

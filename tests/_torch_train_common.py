@@ -1,4 +1,11 @@
-"""The port's training path against the JAX package's, on the CPU.
+"""Shared set-up, limits and checks of the port's training tests against
+the JAX package's, on the CPU. The test files ``tests/test_torch_train_
+{dense,ssm,hybrid,vlm,audio,moe}.py`` hold one family each, so that
+``--dist loadfile`` can put them on different workers; the checks and
+their limits are here (the first three are the families' tests: each
+file runs its archs through ``check_loss_and_gradients``,
+``check_train_steps``, ``check_remat_policies`` and
+``check_failure_injection_and_bitexact_resume``).
 
 Both packages start from the same state: the JAX package's
 ``TrainState`` (its ``init_params`` from a PRNG key) carried across as
@@ -36,7 +43,7 @@ those components move by different fractions of the learning rate: the
 k bias reads up to 5.1e-3 relative L2 (its gradient agrees to 1.8e-6).
 The zero-initialized leaves are held to ``ZERO_INIT_TOL``; with eps
 1e-5, where no component is that close to eps, every leaf is within
-1e-4 (``test_zero_init_gap_is_adamws_eps``).
+1e-4 (``test_torch_train_dense.py::test_zero_init_gap_is_adamws_eps``).
 """
 import dataclasses
 import functools
@@ -72,8 +79,6 @@ from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.train.steps import make_train_step  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-ARCHS = ["qwen2.5-3b", "mamba2-780m", "hymba-1.5b", "paligemma-3b",
-         "hubert-xlarge"]
 #: per arch, the reduced config's cut (both packages alike) and sequence
 CUT = {"hymba-1.5b": dict(n_layers=5)}
 ARCH_SEQ = {"hymba-1.5b": 24}
@@ -138,8 +143,9 @@ def _check_leaves(rels: dict, what: str, zero_init: set):
         assert r <= tol, (what, path, r)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_loss_and_gradients_equal_the_reference(arch):
+def check_loss_and_gradients(arch):
+    """``loss_fn`` and every gradient leaf against ``jax.value_and_grad``
+    of the reference's."""
     (rcfg, _, rst, rdata), (cfg, _, st, data) = _setup(arch)
     rb = rdata.batch(0)
     (_, rm), rg = jax.jit(jax.value_and_grad(
@@ -158,10 +164,9 @@ def test_loss_and_gradients_equal_the_reference(arch):
         assert _rel(ref[path], g.numpy()) <= LEAF_TOL, path
 
 
-@pytest.mark.parametrize("codec", [None, "bf16", "int8"])
-@pytest.mark.parametrize("microbatches", [1, 2])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_steps_equal_the_reference(arch, microbatches, codec):
+def check_train_steps(arch, microbatches, codec):
+    """Three ``make_train_step`` steps against the reference's: loss, lr,
+    grad_norm, and every parameter leaf after one and after three."""
     (rcfg, ropt, rst, rdata), (cfg, opt, st, data) = _setup(arch, codec)
     rstep = jax.jit(ref_make_step(rcfg, ropt, microbatches=microbatches,
                                   grad_compression=codec,
@@ -184,23 +189,9 @@ def test_train_steps_equal_the_reference(arch, microbatches, codec):
     assert ("ef" in st.opt_state) == (codec == "int8")
 
 
-def test_zero_init_gap_is_adamws_eps():
-    """With AdamW's eps at 1e-5 the zero-initialized biases agree like
-    every leaf: their gap at 1e-8 is the sign-like first steps on ~1e-7
-    gradients."""
-    (rcfg, ropt, rst, rdata), (cfg, opt, st, data) = _setup(
-        "qwen2.5-3b", eps=1e-5)
-    rstep = jax.jit(ref_make_step(rcfg, ropt, dtype=jnp.float32))
-    step = make_train_step(cfg, opt, dtype=torch.float32)
-    for i in range(3):
-        rst, _ = rstep(rst, rdata.batch(i))
-        st, _ = step(st, data.batch(i))
-    rels = _leaf_rels(rst.params, st.params)
-    assert max(rels.values()) <= LEAF_TOL, rels
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_remat_policies_give_the_same_loss_and_gradients(arch):
+def check_remat_policies(arch):
+    """The three remat policies give the same loss and gradients, bit for
+    bit."""
     _, (cfg, _, st, data) = _setup(arch)
     batch = data.batch(0)
     out = {}
@@ -223,14 +214,6 @@ def test_remat_policies_give_the_same_loss_and_gradients(arch):
                    dtype=torch.float32)
 
 
-def test_layer_views_share_the_stacked_storage():
-    _, (cfg, _, st, _) = _setup("qwen2.5-3b")
-    layers = TM._layers(st.params["layers"], cfg.n_layers)
-    wq = st.params["layers"]["attn"]["wq"]
-    assert [lay["attn"]["wq"].data_ptr() for lay in layers] == \
-        [wq[i].data_ptr() for i in range(cfg.n_layers)]
-
-
 # ------------------------------------------------- tests/test_system.py's
 def _loop(arch, tmp_path, **kw):
     return TrainLoopConfig(arch=arch, steps=8, seq_len=ARCH_SEQ.get(arch, SEQ),
@@ -239,17 +222,9 @@ def _loop(arch, tmp_path, **kw):
                            **kw)
 
 
-def test_train_loop_runs_and_improves(tmp_path):
-    out = run(TrainLoopConfig(arch="qwen2.5-3b", steps=6, seq_len=32,
-                              global_batch=4, ckpt_dir=str(tmp_path),
-                              checkpoint_every=3, log_every=100,
-                              device="cpu"))
-    assert len(out["losses"]) == 6 == len(out["step_s"])
-    assert all(np.isfinite(v) for v in out["losses"])
-
-
-@pytest.mark.parametrize("arch", ARCHS)
-def test_failure_injection_and_bitexact_resume(tmp_path, arch):
+def check_failure_injection_and_bitexact_resume(tmp_path, arch):
+    """A run failed at step 5 and resumed from its step-4 checkpoint
+    reproduces the uninterrupted run's last 3 losses bit for bit."""
     cfg = _loop(arch, tmp_path)
     full = run(TrainLoopConfig(**{**vars(cfg), "ckpt_dir": ""}))
     with pytest.raises(RuntimeError, match="injected failure"):
@@ -260,71 +235,9 @@ def test_failure_injection_and_bitexact_resume(tmp_path, arch):
                                rtol=0, atol=0)
 
 
-def test_a_failed_run_publishes_the_checkpoint_it_started(tmp_path,
-                                                          monkeypatch):
-    """The step-4 save is still being written when the injected failure
-    at step 5 raises: ``run`` publishes it before it lets the error out,
-    so the next run resumes from step 4 however slow the writer is (and
-    no writer of the failed run is left beside the next one's)."""
-    from repro_torch.checkpoint import manager
-    real_save = manager.np.save
-
-    def slow_save(*args, **kwargs):
-        time.sleep(0.01)
-        return real_save(*args, **kwargs)
-
-    monkeypatch.setattr(manager.np, "save", slow_save)
-    cfg = _loop("qwen2.5-3b", tmp_path)
-    with pytest.raises(RuntimeError, match="injected failure"):
-        run(TrainLoopConfig(**{**vars(cfg), "fail_at_step": 5}))
-    assert manager.CheckpointManager(cfg.ckpt_dir).latest_step() == 4
-
-
-def test_grad_compression_changes_nothing_structural():
-    out = run(TrainLoopConfig(arch="qwen2.5-3b", steps=3, seq_len=32,
-                              global_batch=4, grad_compression="bf16",
-                              log_every=100, device="cpu"))
-    assert all(np.isfinite(v) for v in out["losses"])
-
-
-def test_rules_other_than_baseline_wait_for_a9():
-    """Since the parallel slice (A9a) ``run`` takes every rule variant of
-    the JAX package; without a mesh a variant changes nothing, as in the
-    reference: the losses equal baseline's bit for bit. A name that is no
-    variant raises."""
-    kw = dict(device="cpu", steps=3, log_every=100)
-    base = run(TrainLoopConfig(**kw))["losses"]
-    for rules in ("seq_parallel", "kv_seq", "moe_replicated"):
-        assert run(TrainLoopConfig(rules=rules, **kw))["losses"] == base
-    with pytest.raises(ValueError, match="fsdp"):
-        run(TrainLoopConfig(rules="fsdp", device="cpu"))
-
-
-def test_train_defaults_to_the_card():
-    assert TrainLoopConfig().device == "cuda"
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            run(TrainLoopConfig(steps=1))
-
-
 def _example(name):
     spec = importlib.util.spec_from_file_location(
         f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-def test_quickstart_twin_runs_on_the_cpu(capsys):
-    _example("quickstart").main(["--device", "cpu"])
-    out = capsys.readouterr().out
-    assert "ReGate-Full" in out and "train step: loss=" in out
-
-
-def test_train_e2e_twin_runs_on_the_cpu(capsys):
-    out = _example("train_e2e").main(["--device", "cpu", "--reduced",
-                                      "--steps", "3", "--seq", "16",
-                                      "--batch", "2"])
-    assert len(out["losses"]) == 3
-    assert all(np.isfinite(v) for v in out["losses"])
-    assert "[e2e] loss" in capsys.readouterr().out

@@ -15,7 +15,13 @@
   loads (``live_tiles``) and the slots B4's splits cover (``live_slots``)
   against the masks themselves;
 * that the wrappers take the plain versions for CPU tensors and never
-  reach a kernel.
+  reach a kernel;
+* B3's plain version with a query offset (query row ``i`` at position
+  ``q_offset + i``: causal attention with Sq < Sk, with a window and a
+  prefix) against the JAX model path's ``plain_attention`` and
+  ``flash_attention_jax`` with the same ``q_offset``, and at the reduced
+  deepseek's MLA head dims (q / k 24, v 16); ``live_tiles`` with an
+  offset against the mask and the kernel's tile walk.
 
 Inputs are drawn with numpy from fixed seeds and handed to both.
 """
@@ -27,6 +33,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.decode_attention import decode_attention_p  # noqa: E402
 from repro.kernels.flash_attention import flash_attention_p  # noqa: E402
 from repro.models import common as jc  # noqa: E402
@@ -138,6 +145,26 @@ def test_decode_attention_bf16_cache_matches_jax():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FA_CASES, ids=str)
+def test_ops_flash_attention_matches_the_references(case, dtype):
+    """``ops.flash_attention`` (the reference's public name and
+    signature, equal head counts) against the reference's
+    ``ops.flash_attention`` in interpret mode, as
+    ``tests/test_kernels.py`` calls it, at its tolerances."""
+    B, S, H, D, causal = case
+    (jq, tq), (jk, tk), (jv, tv) = [
+        _both(_normal(40 + i, B, S, H, D), dtype) for i in range(3)]
+    want = jops.flash_attention(jq, jk, jv, causal=causal, interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, bq=64, bk=64)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    tol = KERNEL_TOL[dtype]
+    _close(got, np.asarray(want.astype(jnp.float32)), atol=tol * 3,
+           rtol=tol)
+    with pytest.raises(ValueError, match="block sizes"):
+        ops.flash_attention(tq, tk, tv, bq=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FA_CASES, ids=str)
 def test_flash_plain_matches_pallas_kernel(case, dtype):
     B, S, H, D, causal = case
     (jq, tq), (jk, tk), (jv, tv) = [
@@ -241,12 +268,14 @@ def test_wrappers_reject_bad_arguments(bad):
 
 
 def test_model_attention_on_the_card_refuses_other_masks(monkeypatch):
-    """The CUDA route raises for what kernel B3 does not take -- a query
-    offset, causal attention with Sq != Sk -- and does not fall back to a
-    plain form; under grad every mask B3 takes (a window, bidirectional
-    attention, a prefix) reaches ``KernelAttention`` (B3 forward, B9
-    backward) with that mask. (Checked on the dispatch alone: the meta
-    device stands in for the card so no kernel runs.)"""
+    """The CUDA route takes every mask of the reference's ``attention``
+    to B3 -- a query offset and causal attention with Sq != Sk among them
+    (the refusals of earlier slices) -- with no plain fallback, a window
+    that covers every query's position dropped as no window; under grad
+    every mask reaches ``KernelAttention`` (B3 forward, B9 backward) with
+    that mask and offset; what it still refuses is a (q/k, v) head-dim
+    pair B9 is not built for, under grad. (Checked on the dispatch alone:
+    the meta device stands in for the card so no kernel runs.)"""
     q = torch.zeros(1, 8, 4, 16, device="meta")
     k = torch.zeros(1, 8, 2, 16, device="meta")
 
@@ -259,22 +288,38 @@ def test_model_attention_on_the_card_refuses_other_masks(monkeypatch):
             return Cuda()
 
     qc = q.as_subclass(Q)
-    for kw in (dict(causal=True, q_offset=3), dict(causal=False,
-                                                   q_offset=1)):
-        with pytest.raises(NotImplementedError, match="query offset"):
-            tc.attention(qc, k, k, **kw)
-    with pytest.raises(NotImplementedError, match="Sq != Sk"):
-        tc.attention(qc[:, :5], k, k, causal=True)
+    calls = []
+    monkeypatch.setattr(tc, "flash_attention_kernel",
+                        lambda q, k, v, **kw: calls.append(kw) or "B3")
+    for kw, want in (
+            (dict(causal=True, q_offset=3), dict(q_offset=3, window=None)),
+            (dict(causal=False, q_offset=1), dict(q_offset=1, window=None)),
+            (dict(causal=True, q_offset=3, window=4),
+             dict(q_offset=3, window=4)),
+            (dict(causal=True, q_offset=3, window=11),  # covers 3 + 8 rows
+             dict(q_offset=3, window=None))):
+        assert tc.attention(qc, k, k, **kw) == "B3"
+        got = calls.pop()
+        assert {key: got[key] for key in want} == want
+    assert tc.attention(qc[:, :5], k, k, causal=True) == "B3"
+    assert calls.pop()["q_offset"] == 0
     qg = q.clone().requires_grad_().as_subclass(Q)
     seen = []
     monkeypatch.setattr(tc.KernelAttention, "apply",
                         lambda *args: seen.append(args[3:]) or "B9")
-    for kw, mask in ((dict(causal=True, window=4), (None, True, 4, 0)),
-                     (dict(causal=False), (None, False, None, 0)),
-                     (dict(causal=True, prefix_len=4), (None, True, None, 4)),
-                     (dict(causal=True, window=8), (None, True, None, 0))):
+    for kw, mask in ((dict(causal=True, window=4), (None, True, 4, 0, 0)),
+                     (dict(causal=False), (None, False, None, 0, 0)),
+                     (dict(causal=True, prefix_len=4),
+                      (None, True, None, 4, 0)),
+                     (dict(causal=True, window=8), (None, True, None, 0, 0)),
+                     (dict(causal=True, q_offset=2, window=5),
+                      (None, True, 5, 0, 2))):
         assert tc.attention(qg, k, k, **kw) == "B9"
         assert seen.pop() == mask
+    qw = torch.zeros(1, 8, 4, 96, device="meta").requires_grad_() \
+        .as_subclass(Q)
+    with pytest.raises(NotImplementedError, match="head dims"):
+        tc.attention(qw, qw[:, :, :2], qw[:, :, :2], causal=True)
 
 
 def _wide(dtype, offset, D=64, extra=16):
@@ -426,17 +471,106 @@ def test_live_tiles_count_the_mask(Sq, Sk, causal, window, prefix):
 
 
 @pytest.mark.parametrize("bad", ["window0", "window_cross", "prefix",
-                                 "decode_window0"])
+                                 "decode_window0", "offset",
+                                 "window_offset"])
 def test_wrappers_reject_bad_masks(bad):
+    """A window needs every query's position among the keys (``q_offset +
+    Sq <= Sk``: past them a windowed row could have no live key); no
+    negative window, prefix or offset."""
     q = torch.zeros(1, 8, 4, 16)
     k = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError):
         if bad == "window0":
             flash_attention(q, k, k, window=0)
         elif bad == "window_cross":
-            flash_attention(q, torch.zeros(1, 9, 2, 16),
-                            torch.zeros(1, 9, 2, 16), window=4)
+            flash_attention(q, torch.zeros(1, 7, 2, 16),
+                            torch.zeros(1, 7, 2, 16), window=4)
         elif bad == "prefix":
             flash_attention(q, k, k, prefix_len=-1)
+        elif bad == "offset":
+            flash_attention(q, k, k, q_offset=-1)
+        elif bad == "window_offset":
+            flash_attention(q, torch.zeros(1, 9, 2, 16),
+                            torch.zeros(1, 9, 2, 16), window=4, q_offset=2)
         else:
             decode_attention(q[:, :1], k, k, 5, window=0)
+
+
+# a query offset: (Sq, Sk, q_offset, causal, window, prefix) -- a chunk of
+# a prefill behind earlier keys, the chunk at the end of the keys or not,
+# with a window and a prefix, bidirectional, and offsets past the tiles
+OFFSET_CASES = [(16, 40, 24, True, None, 0), (9, 40, 31, True, 12, 0),
+                (20, 64, 1, True, None, 8), (20, 64, 30, True, 16, 10),
+                (30, 64, 34, False, None, 0), (12, 70, 58, True, 1, 0),
+                (40, 40, 0, True, 10, 4), (33, 200, 100, True, None, 0)]
+
+
+@pytest.mark.parametrize("heads", HEADS[:2], ids=lambda h: f"H{h[0]}kv{h[1]}")
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=str)
+def test_flash_plain_with_a_query_offset_matches_jax(case, heads):
+    """B3's plain version (and the wrapper on CPU tensors) at a query
+    offset against the JAX model path's ``plain_attention`` and its
+    chunked ``flash_attention_jax`` with the same ``q_offset``, float32,
+    and the port's own model functions."""
+    Sq, Sk, off, causal, window, prefix = case
+    H, Hkv = heads
+    (jq, q), (jk, k), (jv, v) = (_both(_normal(7 + i + Sq, 2, n, h, 16))
+                                 for i, (n, h) in enumerate(
+                                     ((Sq, H), (Sk, Hkv), (Sk, Hkv))))
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    got = flash_attention_plain(q, k, v, q_offset=off, **kw)
+    _close(got, jc.plain_attention(jq, jk, jv, q_offset=off, **kw),
+           F32_ATOL)
+    _close(got, jc.flash_attention_jax(jq, jk, jv, q_offset=off,
+                                       q_chunk=8, kv_chunk=16, **kw),
+           F32_ATOL)
+    assert torch.equal(flash_attention(q, k, v, q_offset=off, **kw), got)
+    _close(tc.attention(q, k, v, q_offset=off, chunk_threshold=16,
+                        q_chunk=8, kv_chunk=16, **kw).detach(), got.numpy(),
+           F32_ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 21, 70])
+def test_flash_plain_at_the_reduced_mla_head_dims_matches_jax(S, causal):
+    """B3's plain version at q / k 24 and v 16 (the reduced deepseek's
+    multi-head latent attention; the kernel pads q and k to 32 columns)
+    against the reference's ``plain_attention`` with MLA's scale."""
+    (jq, q), (jk, k) = (_both(_normal(S + i, 2, S, 4, 24)) for i in (0, 1))
+    jv, v = _both(_normal(S + 2, 2, S, 4, 16))
+    scale = 24 ** -0.5
+    got, lse = flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     return_lse=True)
+    assert got.shape == (2, S, 4, 16) and lse.shape == (2, 4, S)
+    _close(got, jc.plain_attention(jq, jk, jv, causal=causal, scale=scale),
+           F32_ATOL)
+    assert torch.equal(flash_attention(q, k, v, causal=causal), got)
+
+
+@pytest.mark.parametrize("Sq,Sk,off,causal,window,prefix", [
+    (1024, 2048, 1024, True, None, 0), (100, 1101, 1000, True, 300, 0),
+    (77, 300, 1, True, None, 90), (65, 129, 64, True, 40, 0),
+    (200, 300, 64, False, None, 0), (64, 4096, 4032, True, 2048, 0),
+    (130, 130, 0, True, 40, 0), (33, 700, 600, True, 64, 100)])
+def test_live_tiles_count_the_mask_with_an_offset(Sq, Sk, off, causal,
+                                                  window, prefix):
+    """``live_tiles`` at a query offset against a brute-force count over
+    the mask and the tile walk of ``key_tiles`` in attention_mask.cuh with
+    the offset added to the rows' positions."""
+    got = live_tiles(Sq, Sk, causal=causal, window=window,
+                     prefix_len=prefix, q_offset=off)
+    ok = attention_mask(Sq, Sk, causal=causal, window=window,
+                        prefix_len=prefix, q_offset=off).numpy()
+    want, walk = [], []
+    for qt in range(-(-Sq // TILE)):
+        rows = ok[qt * TILE:(qt + 1) * TILE]
+        want.append(sum(bool(rows[:, kt * TILE:(kt + 1) * TILE].any())
+                        for kt in range(-(-Sk // TILE))))
+        q0, q_last = qt * TILE, min(qt * TILE + TILE, Sq) - 1
+        hi = min(q_last + off + 1, Sk) if causal else Sk
+        lo = max(0, q0 + off - window + 1) if window else 0
+        pt = -(-min(prefix, Sk) // TILE)
+        end = max(-(-hi // TILE), pt)
+        lo_t = min(lo // TILE, end)
+        walk.append(min(pt, lo_t) + end - lo_t)
+    assert got.tolist() == want == walk

@@ -31,7 +31,12 @@
   refuses them under grad before ``KernelAttention`` is reached;
 * a hand kernel with grad enabled on an input that requires it raises
   (``_build.check_no_grad``), and the plain version of B9 takes CPU
-  tensors only.
+  tensors only;
+* a query offset (query row ``i`` at position ``q_offset + i``, Sq <= Sk:
+  causal, with a window and a prefix, and bidirectional): B9's plain
+  version and ``KernelAttention`` on CPU tensors against ``jax.vjp`` of
+  the reference's ``attention`` with the same ``q_offset``, on both sides
+  of the chunk threshold, and at the reduced MLA head dims.
 """
 import functools
 import importlib.util
@@ -371,7 +376,7 @@ def test_kernel_function_at_mla_head_dims_is_the_reference(case):
             _close(t.grad, w)
 
 
-@pytest.mark.parametrize("pair", [(24, 16), (192, 64), (128, 64), (96, 96),
+@pytest.mark.parametrize("pair", [(24, 24), (192, 64), (128, 64), (96, 96),
                                   (256, 128)])
 def test_bwd_refuses_head_dims_outside_its_pairs_off_the_cpu(pair):
     """Off the CPU (here the meta device) ``flash_attention_bwd`` refuses
@@ -379,7 +384,8 @@ def test_bwd_refuses_head_dims_outside_its_pairs_off_the_cpu(pair):
     a pair of ``HEAD_DIM_PAIRS`` passes the check and reaches the plain
     version's own refusal of a tensor that is not on the CPU."""
     D, Dv = pair
-    assert pair not in HEAD_DIM_PAIRS and (192, 128) in HEAD_DIM_PAIRS
+    assert pair not in HEAD_DIM_PAIRS and (192, 128) in HEAD_DIM_PAIRS \
+        and (24, 16) in HEAD_DIM_PAIRS
 
     def call(D, Dv):
         q = torch.zeros((1, 4, 2, D), device="meta")
@@ -393,3 +399,63 @@ def test_bwd_refuses_head_dims_outside_its_pairs_off_the_cpu(pair):
         call(D, Dv)
     with pytest.raises(ValueError, match="CPU tensors"):
         call(192, 128)
+
+
+# a query offset: (B, Sq, Sk, H, Hkv, D, Dv), q_offset, causal, window,
+# prefix_len -- a chunk at the end of the keys (chunked prefill), one
+# inside them, with a window and a prefix, bidirectional, past the chunk
+# threshold (the reference's flash_attention_jax), and at MLA's (24, 16)
+OFFSET_CASES = [((1, 16, 40, 4, 2, 16, 16), 24, True, None, 0),
+                ((2, 9, 40, 4, 4, 16, 16), 20, True, 12, 0),
+                ((1, 20, 64, 4, 1, 32, 32), 30, True, 16, 10),
+                ((1, 30, 64, 2, 2, 16, 16), 34, False, None, 0),
+                ((2, 40, 80, 4, 2, 16, 16), 40, True, None, 0),
+                ((1, 33, 70, 4, 4, 24, 16), 37, True, None, 0),
+                ((1, 20, 50, 4, 2, 16, 16), 1, True, None, 6)]
+
+
+@functools.partial(jax.jit, static_argnames=("off", "causal", "window",
+                                             "prefix", "scale"))
+def _vjp_offset(q, k, v, do, *, off, causal, window, prefix, scale):
+    def f(q, k, v):
+        return jcommon.attention(q, k, v, causal=causal, window=window,
+                                 q_offset=off, prefix_len=prefix,
+                                 scale=scale, chunk_threshold=THRESHOLD,
+                                 q_chunk=32, kv_chunk=16)
+    return jax.vjp(f, q, k, v)[1](do)
+
+
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=str)
+def test_bwd_with_a_query_offset_equals_jax_vjp(case):
+    """B9's plain version (from B3's plain ``lse``) at a query offset,
+    ``KernelAttention`` on CPU tensors and the port's CPU ``attention``
+    against ``jax.vjp`` of the reference's ``attention`` with the same
+    offset and mask: each of dq, dk, dv within ``GRAD_TOL`` of its
+    largest value; the wrapper on CPU tensors is the plain version."""
+    (B, Sq, Sk, H, Hkv, D, Dv), off, causal, window, prefix = case
+    rng = np.random.default_rng(Sq + Sk)
+    q, k, v, do = (rng.standard_normal(s).astype(np.float32) for s in
+                   ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv),
+                    (B, Sq, H, Dv)))
+    scale = D ** -0.5
+    want = [np.asarray(g) for g in _vjp_offset(
+        *map(jnp.asarray, (q, k, v, do)), off=off, causal=causal,
+        window=window, prefix=prefix, scale=scale)]
+    tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
+    kw = dict(causal=causal, window=window, prefix_len=prefix, q_offset=off)
+    o, lse = flash_attention_plain(tq, tk, tv, return_lse=True, **kw)
+    got = flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, **kw)
+    for g, w, t in zip(got, want, (tq, tk, tv)):
+        assert g.shape == t.shape
+        _close(g, w)
+    for a, b in zip(flash_attention_bwd(tq, tk, tv, o, lse, tdo, **kw), got):
+        assert torch.equal(a, b)
+    for fn in (lambda q, k, v: tcommon.KernelAttention.apply(
+                   q, k, v, scale, causal, window, prefix, off),
+               lambda q, k, v: tcommon.attention(
+                   q, k, v, scale=scale, chunk_threshold=THRESHOLD,
+                   q_chunk=32, kv_chunk=16, **kw)):
+        ts = [torch.tensor(x).requires_grad_() for x in (q, k, v)]
+        fn(*ts).backward(tdo)
+        for t, w in zip(ts, want):
+            _close(t.grad, w)

@@ -19,10 +19,12 @@ analysis, on the CPU.
   archs under both dispatches, GSPMD's (the default, as the
   reference's ``--moe``) and the shard-mapped one, at train_4k and at
   the serving cells; statuses equal the reference's
-  ``supported_shapes``; the JAX-only toggles raise.
+  ``supported_shapes``; the hill-climb toggles (``--attention
+  triangle``, ``--segments``) give the baseline's terms.
 * A real step on a one-rank (1, 1) CPU mesh counts the FLOPs of the same
   step under fake tensors (1e-9).
 """
+import functools
 import json
 import os
 import subprocess
@@ -36,6 +38,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.base import ShapeConfig, get_arch  # noqa: E402
 from repro_torch.core.costs import CostCounter  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.models import common  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
 from repro_torch.parallel.dist import fake_world, make_mesh  # noqa: E402
 from repro_torch.parallel.sharding import RULE_VARIANTS  # noqa: E402
 
@@ -271,12 +275,54 @@ def test_statuses_are_the_references():
     assert r["status"] == "SKIP(encoder-only: no decode step)"
 
 
-def test_jax_only_toggles_raise_a_named_error():
-    with pytest.raises(dryrun.UnsupportedAttention, match="triangle"):
-        dryrun.run_cell("qwen2.5-3b", "train_4k", attention="triangle",
-                        dump=False)
-    with pytest.raises(dryrun.UnsupportedAttention, match="segments"):
-        dryrun.run_cell("hymba-1.5b", "train_4k", segments=True,
+TERMS = ("compute_s", "memory_s", "collective_s", "flops", "peak_bytes",
+         "argument_bytes", "kernels", "dots", "status", "fits")
+
+
+@functools.lru_cache(maxsize=None)
+def _baseline_cell(arch: str, n_layers: int) -> dict:
+    """The baseline cell (no toggle), after a first cell of the arch: the
+    first cell a process counts reads a few bytes more (a lazily made
+    scalar), whatever its toggles."""
+    dryrun.run_cell(arch, "train_4k", n_layers=n_layers, dump=False)
+    return dryrun.run_cell(arch, "train_4k", n_layers=n_layers, dump=False)
+
+
+@pytest.mark.parametrize("arch,n_layers,attention,segments", [
+    ("hymba-1.5b", 5, "triangle", True), ("hymba-1.5b", 5, "baseline", True),
+    ("hymba-1.5b", 5, "triangle", False), ("qwen2.5-3b", 2, "triangle",
+                                           False)])
+def test_hillclimb_toggles_give_the_baselines_terms(arch, n_layers,
+                                                    attention, segments):
+    """The JAX package's hill-climbs (``--attention triangle``,
+    ``--segments``) give cells with status ok and the baseline's counted
+    terms: B3's cost is already its live pairs, and the port's layers
+    already take Python-int windows. hymba at 5 layers has sliding layers
+    (1 and 3) beside global ones. The toggles are restored after the
+    cell, and the cell records them."""
+    base = _baseline_cell(arch, n_layers)
+    r = dryrun.run_cell(arch, "train_4k", n_layers=n_layers, dump=False,
+                        attention=attention, segments=segments)
+    assert r["status"] == "ok", r.get("traceback", r["status"])
+    assert (r["attention"], r["segments"]) == (attention, segments)
+    assert {k: r[k] for k in TERMS} == {k: base[k] for k in TERMS}
+    assert common.ATTENTION_VARIANT == {"impl": "baseline"}
+    assert M.STATIC_WINDOW_SEGMENTS == {"enabled": False}
+
+
+def test_the_cli_takes_the_toggles(tmp_path):
+    """``--attention triangle --segments`` writes a cell with status ok,
+    tagged as the reference tags a cell (``--tag``)."""
+    assert dryrun.main(["--arch", "mamba2-780m", "--shape", "long_500k",
+                        "--attention", "triangle", "--segments", "--tag",
+                        "hill", "--out", str(tmp_path)]) == 0
+    with open(tmp_path / "singlepod" / "mamba2-780m-long_500k-hill.json") \
+            as f:
+        r = json.load(f)
+    assert r["status"] == "ok" and r["tag"] == "hill"
+    assert (r["attention"], r["segments"]) == ("triangle", True)
+    with pytest.raises(ValueError, match="attention"):
+        dryrun.run_cell("qwen2.5-3b", "train_4k", attention="square",
                         dump=False)
 
 

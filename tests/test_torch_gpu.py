@@ -472,14 +472,10 @@ def test_flash_attention_refuses_other_head_dim_pairs(card):
 
 
 def _families_cfg(arch):
-    """The reduced MoE arch; deepseek with MLA's published head dims
-    (192 / 128: the reduced 24 / 16 are not among B3's)."""
-    import dataclasses
-
+    """The reduced MoE arch (deepseek's MLA at its reduced head dims, q /
+    k 24 and v 16, which B3 takes zero-padded to 32)."""
     from repro_torch.configs import get_arch
-    from repro_torch.configs.base import MLAConfig
-    cfg = get_arch(arch).reduced()
-    return dataclasses.replace(cfg, mla=MLAConfig()) if cfg.mla else cfg
+    return get_arch(arch).reduced()
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
@@ -1553,3 +1549,62 @@ def test_sweep_and_plane_on_a_one_rank_nccl_mesh(card):
     for f in ("cycles", "stall_cycles", "n_events"):
         assert np.array_equal(getattr(plane, f), getattr(plane_want, f)), f
     assert plane.records() == plane_want.records()
+
+
+# ------------------------------------------------ B3 / B9 at a query offset
+# and at the reduced MLA's head dims (24, 16)
+OFFSET_CASES = [  # (B, Sq, Sk, H, Hkv, D, Dv, mask)
+    (2, 300, 300, 4, 4, 24, 16, dict()),
+    (1, 130, 130, 8, 8, 24, 16, dict(causal=False)),
+    (1, 1, 1, 8, 8, 24, 16, dict()),
+    (2, 64, 200, 4, 2, 64, 64, dict(q_offset=136)),
+    (1, 100, 1101, 4, 1, 128, 128, dict(q_offset=1000, window=300)),
+    (1, 77, 300, 8, 2, 80, 80, dict(q_offset=1, prefix_len=90)),
+    (1, 65, 129, 4, 4, 24, 16, dict(q_offset=64, window=40)),
+    (1, 200, 300, 4, 2, 64, 64, dict(q_offset=64, causal=False)),
+    (1, 300, 1400, 4, 4, 256, 256, dict(q_offset=1000, window=64,
+                                        prefix_len=100))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", OFFSET_CASES, ids=str)
+def test_attention_at_an_offset_and_mla_dims_matches_plain(card, dtype,
+                                                           case):
+    """B3 at a query offset (query row ``i`` at position ``q_offset + i``)
+    and at (24, 16) against its plain version, the key tiles each query
+    tile loaded equal to ``live_tiles``; B9 on B3's outputs against its
+    plain version on the CPU copies (float32 ``1e-4 (max(max|plain|, 1)
+    + |plain|)``, bf16 relative L2 ``chip_smoke.B9_REL_L2_BF16``), dq and
+    dk at q's and k's 24 columns, and a rerun bit-identical."""
+    from repro_torch.kernels.flash_attention import live_tiles
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    B, Sq, Sk, H, Hkv, D, Dv, mask = case
+    q, k, v, do = _attn_inputs(card, dtype, Sq + Sk, (B, Sq, H, D),
+                               (B, Sk, Hkv, D), (B, Sk, Hkv, Dv),
+                               (B, Sq, H, Dv))
+    tiles = torch.zeros((B, H, -(-Sq // 64)), dtype=torch.int32,
+                        device=card)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    o, lse = flash_attention(q, k, v, return_lse=True, tiles_loaded=tiles,
+                             **mask)
+    want = flash_attention_plain(q, k, v, **mask)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(o.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(tiles, live_tiles(Sq, Sk, device=card, **mask)
+                       .expand(B, H, -1))
+    got = flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    assert (flash_attention.launches, flash_attention_bwd.launches) \
+        == (before[0] + 1, before[1] + 2)
+    plain = flash_attention_bwd_plain(*(t.cpu() for t in (q, k, v, o, lse,
+                                                          do)), **mask)
+    for g, a, w, t in zip(got, again, plain, (q, k, v)):
+        assert g.shape == t.shape and torch.equal(g, a)
+        g, w = g.float().cpu(), w.float()
+        if dtype == torch.float32:
+            assert bool(((g - w).abs() <= 1e-4 * (
+                max(float(w.abs().max()), 1.0) + w.abs())).all())
+        elif Sq > 1:
+            assert float((g - w).norm() / w.norm().clamp_min(1e-30)) \
+                <= 8e-3

@@ -24,7 +24,7 @@ process group).
   granite from the reference's initial state (a checkpoint the loop
   resumes from) on its data, its train step in float32: through
   ``_moe_gspmd`` and never ``_moe_smap``, and held to the reference's
-  jitted sharded train step by ``tests/test_torch_train.py``'s bars (loss
+  jitted sharded train step by ``tests/_torch_train_common.py``'s bars (loss
   1e-5 relative, leaves 1e-4 relative L2, zero-initialized leaves 1e-2).
   The training runs at the reduced config's own capacity factor 2: at 1,
   the reference's (2, 1) run itself moves off its unsharded one by

@@ -4,7 +4,7 @@ granite-moe-1b-a400m train 3 steps on the (1, 2) and (2, 1) meshes, and
 their losses and every parameter leaf are held to the single-device run
 (1e-5 relative; a zero-initialized leaf whose gradient is rounding noise
 -- qwen's key bias, which softmax cannot see -- to 1e-2, as
-``tests/test_torch_train.py`` holds such leaves); the MoE layer's
+``tests/_torch_train_common.py`` holds such leaves); the MoE layer's
 per-shard dispatch against the single-device dispatch (<= 2e-4 max abs,
 ``tests/test_moe_dispatch.py``'s bar, with the same routing: no drops at
 these sizes); and a checkpoint saved on (1, 2) restored bit for bit onto
@@ -16,7 +16,7 @@ Against the JAX package on the same meshes (``tests/_jax_mesh_reference.py``,
 a child with 2 XLA host devices): both archs train 3 steps from the
 reference's state on its data, and the port's losses and parameter
 leaves are held to the reference's sharded run by
-``tests/test_torch_train.py``'s bars (loss 1e-5 relative, leaves 1e-4
+``tests/_torch_train_common.py``'s bars (loss 1e-5 relative, leaves 1e-4
 relative L2, the zero-initialized ones 1e-2); the MoE layer's mesh path
 against the reference's shard-mapped dispatch (``_moe_group_smap``) at
 capacity factor 2 (no drops) and 1, where each data shard's capacity

@@ -133,3 +133,70 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         sa_occupancy(*args, 128.0)
     with pytest.raises(ValueError, match="saw"):
         sa_occupancy(m, m, m, torch.ones(2, 2, dtype=torch.float64))
+
+
+# ---------------------------------------------------- ref.ref_sa_occupancy
+# the reference's oracle (``repro.kernels.ref.ref_sa_occupancy``, jnp in
+# float64) runs in a child with 64-bit JAX switched on for it alone --
+# never in the pytest process, where it would change what the reference's
+# own tests see -- and hands its results back as an .npz
+REF_CHILD = r"""
+import sys
+import numpy as np
+import jax
+import jax.numpy as jnp
+assert jax.config.jax_enable_x64
+from repro.kernels import ref
+
+inp = np.load(sys.argv[1])
+out = {}
+for i, (n, saw) in enumerate(inp["cases"]):
+    dims = [jnp.asarray(inp[f"{i}/{x}"]) for x in "mkn"]
+    for wlc in (None, 0.0):
+        for key, v in ref.ref_sa_occupancy(*dims, float(saw), wlc).items():
+            out[f"{i}/{wlc}/{key}"] = np.asarray(v)
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_oracle(tmp_path_factory):
+    import os
+    import subprocess
+    import sys
+    tmp = tmp_path_factory.mktemp("ref_sa_occupancy")
+    inp = {"cases": np.array(SA_OCC_CASES)}
+    for i, (n, saw) in enumerate(SA_OCC_CASES):
+        for x, a in zip("mkn", _dims(np.random.default_rng(int(n + saw)),
+                                     n)):
+            inp[f"{i}/{x}"] = a
+    np.savez(tmp / "in.npz", **inp)
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu",
+               PYTHONPATH=src)
+    subprocess.run([sys.executable, "-c", REF_CHILD, str(tmp / "in.npz"),
+                    str(tmp / "out.npz")], env=env, check=True, timeout=300)
+    return inp, dict(np.load(tmp / "out.npz"))
+
+
+@pytest.mark.parametrize("wlc", [None, 0.0])
+@pytest.mark.parametrize("i", range(len(SA_OCC_CASES)))
+def test_ref_sa_occupancy_matches_the_reference(reference_oracle, i, wlc):
+    """``ref.ref_sa_occupancy`` -- the reference's oracle under its name
+    -- against the reference's, in float64, bit for bit (the bar of
+    ``tests/test_kernels.py``'s kernel test is ``rtol=1e-12``; every
+    intermediate is an exact integer); and ``sa_occupancy_plain`` (the
+    same closed form with the width as a batch axis) the same bits."""
+    from repro_torch.kernels.ref import ref_sa_occupancy
+    inp, want = reference_oracle
+    saw = float(SA_OCC_CASES[i][1])
+    dims = [_t(inp[f"{i}/{x}"]) for x in "mkn"]
+    got = ref_sa_occupancy(*dims, saw, wlc)
+    plain = sa_occupancy_plain(*dims, saw, wlc)
+    assert set(got) == set(KEYS)
+    for key in KEYS:
+        w = want[f"{i}/{wlc}/{key}"]
+        assert got[key].dtype == torch.float64
+        np.testing.assert_allclose(got[key].numpy(), w, rtol=RTOL, atol=0)
+        assert np.array_equal(got[key].numpy(), w), key
+        assert torch.equal(plain[key], got[key]), key

@@ -3,7 +3,7 @@ families, on the CPU: granite-moe-1b-a400m (GQA attention, 4 routed
 experts top-2 at ``reduced()``) and deepseek-v2-236b (multi-head latent
 attention at q/k head dim 24 and v 16, 2 shared and 4 routed experts top-2,
 the leading dense layer) reduced, float32 on both sides from one state,
-with ``tests/test_torch_train.py``'s helpers and limits:
+with ``tests/_torch_train_common.py``'s checks and limits:
 
 * ``loss_fn`` and every gradient leaf (the MoE dispatch's backward:
   the buffer write's gather, the expert ``bmm``s, the combine's
@@ -21,28 +21,28 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import test_torch_train as base  # noqa: E402
+import _torch_train_common as common  # noqa: E402
 
 ARCHS = ["granite-moe-1b-a400m", "deepseek-v2-236b"]
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_gradients_equal_the_reference(arch):
-    base.test_loss_and_gradients_equal_the_reference(arch)
+    common.check_loss_and_gradients(arch)
 
 
 @pytest.mark.parametrize("codec", [None, "bf16", "int8"])
 @pytest.mark.parametrize("microbatches", [1, 2])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_steps_equal_the_reference(arch, microbatches, codec):
-    base.test_train_steps_equal_the_reference(arch, microbatches, codec)
+    common.check_train_steps(arch, microbatches, codec)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_remat_policies_give_the_same_loss_and_gradients(arch):
-    base.test_remat_policies_give_the_same_loss_and_gradients(arch)
+    common.check_remat_policies(arch)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_failure_injection_and_bitexact_resume(tmp_path, arch):
-    base.test_failure_injection_and_bitexact_resume(tmp_path, arch)
+    common.check_failure_injection_and_bitexact_resume(tmp_path, arch)
