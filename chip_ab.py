@@ -7,6 +7,7 @@ against the change.
     python3 chip_ab.py build/parent             # parent, change, change, parent
     python3 chip_ab.py build/parent --order PC --smoke-only  # a half of it
     python3 chip_ab.py build/parent --decode-pairs 3  # the decode loops only
+    python3 chip_ab.py build/parent --attention  # B3, B9 and deepseek only
     python3 chip_ab.py --calls build/parent  # Python calls a decode step (CPU)
 
 Each run (``P`` the parent tree, ``C`` this checkout, in the order
@@ -51,6 +52,19 @@ bf16 at the training paths' shapes (``time_b10``). Each run prints one JSON
 line and the last line is a summary: per metric, the values of the runs
 in order. Each tree builds its kernels into its own ``build/`` at its
 first run. Needs one card; it exits non-zero if any run fails.
+
+Four whole ``chip_smoke.py`` runs (~1 050 s each on the H100) no longer
+fit one command limited to 3 600 s. ``--attention``
+compares what a change to B3 or B9 moves, each tree in a process of its
+own in the turns of ``--order`` (``attention_code``): both kernels at the
+model paths' shapes (``ATTN_B3_SHAPES``, ``ATTN_B9_SHAPES``; at deepseek-v2's
+the whole ``kernels.b3_mla`` / ``kernels.b9_mla`` record), deepseek-v2's
+prefill (``serve_mla_full``, B3's share of its profile) and its training
+step (``train_mla_full``'s steady s/step and first loss, B3's and B9's
+device µs a call and shares of the profiled step), by this checkout's
+``chip_smoke`` code over each tree's port. A whole run's summary reads
+the same deepseek-v2 numbers (``b3_mla_*``, ``serve_mla_*``,
+``train_mla_*``).
 """
 from __future__ import annotations
 
@@ -113,6 +127,197 @@ def same_code(tree: str) -> dict:
             "b5_float32": b5,
             "k2": chip_smoke.time_k2(shapes, np.random.default_rng(0)),
             "b10_bfloat16": time_b10()}
+
+
+#: B3 and B9 at the model shapes ``--attention`` times: name -> (B, Sq,
+#: Sk, H, Hkv, D, Dv, mask); deepseek's and the reduced config's inputs
+#: as ``chip_smoke.mla_attention_inputs`` makes them (v a strided view)
+ATTN_B3_SHAPES = {
+    "deepseek": (4, 2048, 2048, 128, 128, 192, 128, {}),
+    "qwen": (4, 2048, 2048, 16, 2, 128, 128, {}),
+    "hymba": (4, 4096, 4096, 25, 5, 64, 64, dict(window=2048)),
+    "paligemma": (4, 2304, 2304, 8, 1, 256, 256, dict(prefix_len=256)),
+    "hubert": (4, 1500, 1500, 16, 16, 80, 80, dict(causal=False)),
+    "granite": (4, 2048, 2048, 16, 8, 64, 64, {}),
+    "reduced": (4, 2048, 2048, 4, 4, 24, 16, {}),
+    "chunked": (4, 1024, 2048, 16, 2, 128, 128, dict(q_offset=1024))}
+ATTN_B9_SHAPES = {
+    "deepseek": (1, 2048, 2048, 128, 128, 192, 128, {}),
+    "qwen": (1, 2048, 2048, 16, 2, 128, 128, {}),
+    "hymba": (1, 4096, 4096, 25, 5, 64, 64, dict(window=2048)),
+    "paligemma": (1, 2048, 2048, 8, 1, 256, 256, dict(prefix_len=256)),
+    "hubert": (2, 1500, 1500, 16, 16, 80, 80, dict(causal=False)),
+    "reduced": (1, 2048, 2048, 4, 4, 24, 16, {}),
+    "chunked": (1, 1024, 2048, 16, 2, 128, 128, dict(q_offset=1024))}
+
+
+def _attn_inputs(gen, B, Sq, Sk, H, Hkv, D, Dv):
+    """bf16 q, k, v, do on the card: MLA's head dims as ``blocks.mla_qkv``
+    lays them out, other pairs dense."""
+    import torch
+    import chip_smoke
+    bf, dev = torch.bfloat16, "cuda"
+    dims = {(192, 128): (128, 64, 128),
+            (24, 16): chip_smoke.MLA_REDUCED_DIMS}.get((D, Dv))
+    if dims is not None and Sq == Sk and H == Hkv:
+        q, k, v = chip_smoke.mla_attention_inputs(gen, B, Sq, H, bf, dev,
+                                                  dims)
+    else:
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(bf) for s in
+                   ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, Dv)))
+    return q, k, v, torch.randn((B, Sq, H, Dv), generator=gen,
+                                device=dev).to(bf)
+
+
+def attention_code(tree: str) -> dict:
+    """B3 and B9 of ``tree``'s port and deepseek-v2-236b's two paths, by
+    this checkout's ``chip_smoke`` code: each kernel's device µs and ms a
+    call at ``ATTN_B3_SHAPES`` / ``ATTN_B9_SHAPES`` (at deepseek's the
+    whole ``kernels.b3_mla`` / ``kernels.b9_mla`` record: the plain
+    version, the bound, ``sdpa``); ``serve_mla_full``'s prefill and its
+    profile (B3's share of the busy time); ``train_mla_full`` (steady
+    s/step, the first loss) and its ``profile_train`` step (B3's and B9's
+    device µs a call and shares of the busy time)."""
+    import gc
+
+    import chip_smoke  # this checkout's: the same timing code for both
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import torch
+    import repro_torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_ab.py --attention-code: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = chip_smoke.smi_line()
+    out = {"port": os.path.dirname(repro_torch.__file__), "card": card,
+           "b3": {}, "b9": {}}
+    b3_name = chip_smoke.B3_KERNELS["bfloat16"]
+    for name, (B, Sq, Sk, H, Hkv, D, Dv, mask) in ATTN_B3_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        q, k, v, _ = _attn_inputs(gen, B, Sq, Sk, H, Hkv, D, Dv)
+        if name == "deepseek":
+            out["b3"][name] = chip_smoke.time_b3(q, k, v)
+        else:
+            run = lambda: flash_attention(q, k, v, **mask)  # noqa: E731
+            out["b3"][name] = {"ms": chip_smoke.event_ms(run, 10),
+                               "device_us": chip_smoke.kernel_device_us(
+                                   run, b3_name)}
+        del q, k, v
+        torch.cuda.empty_cache()
+    for name, (B, Sq, Sk, H, Hkv, D, Dv, mask) in ATTN_B9_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        q, k, v, do = _attn_inputs(gen, B, Sq, Sk, H, Hkv, D, Dv)
+        if name == "deepseek":
+            rec = chip_smoke.b9_masked_case(
+                q, k, v, do, dict(causal=True, window=None, prefix_len=0),
+                f"flash_attention_bwd[deepseek {(B, Sq, H)}]", True,
+                plain_heads=chip_smoke.B9_MLA_PLAIN_HEADS)
+        else:
+            o, lse = flash_attention(q, k, v, return_lse=True, **mask)
+            call = lambda: flash_attention_bwd(  # noqa: E731
+                q, k, v, o, lse, do, **mask)
+            rec = {"ms": chip_smoke.event_ms(call, 5, warmup=2),
+                   "device_us": chip_smoke.calls_device_us(
+                       call, chip_smoke.B9_KERNELS["bfloat16"],
+                       chip_smoke.B9_CALL_KERNEL)}
+            del o, lse
+        out["b9"][name] = rec
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    arch = chip_smoke.MLA_ARCH
+    rec, srv, prompts = chip_smoke.serve_full(card, arch)
+    prof = chip_smoke.profile_serve(srv, prompts, (b3_name,))["prefill"]
+    out["serve_mla"] = {
+        "prefill_s": rec.get("prefill_s"),
+        "launches": rec.get("launches"),
+        "prefill_device_busy_s": prof.get("device_busy_s"),
+        "prefill_b3_share": _share(prof, b3_name)}
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    path = dict((a, p) for _, a, p in chip_smoke.TRAIN_MOE_PATHS)[arch]
+    tr = chip_smoke.train_full(card, arch, path)
+    torch.cuda.empty_cache()
+    prof = chip_smoke.profile_train(
+        (b3_name, *chip_smoke.B9_KERNELS["bfloat16"]), arch, path)
+    b3 = [v for n, v in prof.get("hand_kernels", {}).items()
+          if b3_name in n]
+    out["train_mla"] = {
+        **{k: tr.get(k) for k in ("steady_s_per_step", "losses",
+                                  "launches_per_step", "peak_memory_bytes")},
+        "device_busy_s": prof.get("device_busy_s"),
+        "b9_device_us_per_call": prof.get("b9_device_us_per_call"),
+        "b3_device_us_per_call": sum(v["device_us_total"] for v in b3)
+        / sum(v["launches"] for v in b3) if b3 else None,
+        "b9_share": prof.get("b9_share_of_busy"),
+        "b3_share": prof.get("b3_share_of_busy")}
+    return out
+
+
+def _share(prof: dict, part: str):
+    """The share of a profile's device busy time in the hand kernels whose
+    name holds ``part``."""
+    if not prof.get("device_busy_s"):
+        return None
+    return sum(v["device_us_total"] for k, v in prof["hand_kernels"].items()
+               if part in k) * 1e-6 / prof["device_busy_s"]
+
+
+def attention_runs(parent: str, order: str, out_dir: str) -> dict:
+    """``--attention``: ``attention_code`` of the parent (``P``) and this
+    checkout (``C``) in the turns of ``order``, a process each; per metric
+    the values of the runs in order."""
+    trees = {"P": os.path.abspath(parent), "C": HERE}
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    runs, failed = [], False
+    for i, tag in enumerate(order):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--attention-code", trees[tag]], cwd=trees[tag],
+                           env=env, capture_output=True, text=True)
+        with open(os.path.join(out_dir, f"attention_{i}_{tag}.err"),
+                  "w") as f:
+            f.write(r.stderr)
+        lines = r.stdout.strip().splitlines()
+        rec = json.loads(lines[-1]) if r.returncode == 0 and lines \
+            else {"error": r.stderr[-3000:]}
+        failed |= r.returncode != 0
+        runs.append({"run": i, "tree": tag, "rc": r.returncode, **rec})
+        print(json.dumps(runs[-1]), flush=True)
+
+    def series(get):
+        vals = []
+        for r in runs:
+            try:
+                vals.append(get(r))
+            except (KeyError, TypeError, ValueError, ZeroDivisionError):
+                vals.append(None)
+        return vals
+
+    metrics = {
+        **{f"b3_{n}_{k}": series(lambda r, n=n, k=k: r["b3"][n][k])
+           for n in ATTN_B3_SHAPES for k in ("device_us", "ms")},
+        **{f"b3_deepseek_{k}": series(lambda r, k=k: r["b3"]["deepseek"][k])
+           for k in ("bound_ms", "library_ms", "library_device_us",
+                     "rel_l2")},
+        **{f"b9_{n}_{k}": series(lambda r, n=n, k=k: r["b9"][n][k])
+           for n in ATTN_B9_SHAPES for k in ("device_us", "ms")},
+        **{f"b9_deepseek_{k}": series(lambda r, k=k: r["b9"]["deepseek"][k])
+           for k in ("bound_ms", "library_ms", "rel_l2")},
+        **{f"serve_mla_{k}": series(lambda r, k=k: r["serve_mla"][k])
+           for k in ("prefill_s", "prefill_device_busy_s",
+                     "prefill_b3_share")},
+        **{f"train_mla_{k}": series(lambda r, k=k: r["train_mla"][k])
+           for k in ("steady_s_per_step", "device_busy_s",
+                     "b9_device_us_per_call", "b3_device_us_per_call",
+                     "b9_share", "b3_share")},
+        "train_mla_first_loss": series(
+            lambda r: r["train_mla"]["losses"][0])}
+    first = metrics["train_mla_first_loss"]
+    return {"order": order, "failed": failed, "metrics": metrics,
+            "train_mla_first_loss_bit_identical":
+                None not in first and len(set(first)) == 1}
 
 
 #: the serving paths ``--decode`` times, and the runs of each tree
@@ -354,6 +559,17 @@ def _smoke_numbers(lines: list[str]) -> dict:
     out["b10"] = {arch: {dn: {k: rec.get(k) for k in (
         "ms", "device_us", "bound_ms", "rel_l2", "scaled_err")}
         for dn, rec in recs.items()} for arch, recs in b10.items()}
+    b3_mla = phases.get("kernels.b3_mla", [{}])[0].get("model_shape", {})
+    out["b3_mla"] = {k: b3_mla.get(k) for k in (
+        "ms", "device_us", "bound_ms", "library_ms", "library_device_us",
+        "rel_l2")}
+    mla = phases.get("serve_mla_full", [{}])[0]
+    prof = [p for p in phases.get("profile_serve", [])
+            if p.get("arch") == MLA_ARCH]
+    pre = prof[0]["prefill"] if prof else {}
+    out["serve_mla"] = {"prefill_s": mla.get("prefill_s"),
+                        "prefill_device_busy_s": pre.get("device_busy_s"),
+                        "prefill_b3_share": _share(pre, "flash_attention")}
     b9_mla = phases.get("kernels.b9_mla", [{}])[0].get("model_shape", {})
     out["b9_mla"] = {dn: {k: rec.get(k) for k in (
         "ms", "device_us", "bound_ms", "library_ms", "rel_l2",
@@ -367,7 +583,8 @@ def _smoke_numbers(lines: list[str]) -> dict:
             if p.get("arch") == MLA_ARCH]
     out["profile_train_mla"] = {k: prof[0].get(k) for k in (
         "wall_s_profiled", "device_busy_s", "device_idle_share",
-        "b9_device_us_per_call", "hand_kernels")} if prof else {}
+        "b9_device_us_per_call", "b9_share_of_busy", "b3_share_of_busy",
+        "hand_kernels")} if prof else {}
     for phase, arch, key in SSD_TRAIN:
         tr = phases.get(phase, [{}])[0]
         out[key] = {k: tr.get(k) for k in (
@@ -446,6 +663,12 @@ def main() -> int:
     ap.add_argument("--calls", metavar="TREE",
                     help="Python calls a decode step of TREE's port makes "
                          "on the CPU (``host_calls``)")
+    ap.add_argument("--attention", action="store_true",
+                    help="instead of the chip_smoke runs: B3, B9 and "
+                         "deepseek-v2's paths of each tree "
+                         "(``attention_code``), in the turns of --order")
+    ap.add_argument("--attention-code", metavar="TREE",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--decode-pairs", type=int, metavar="N",
                     help="instead of the chip_smoke runs: N pairs of "
                          "--decode runs of the parent and this checkout")
@@ -456,11 +679,19 @@ def main() -> int:
     if args.decode:
         print(json.dumps(time_decode(args.decode)), flush=True)
         return 0
+    if args.attention_code:
+        print(json.dumps(attention_code(args.attention_code)), flush=True)
+        return 0
     if args.calls:
         print(json.dumps(host_calls(args.calls)), flush=True)
         return 0
     if not args.parent:
         ap.error("give the parent commit's tree")
+    if args.attention:
+        os.makedirs(args.out, exist_ok=True)
+        summary = attention_runs(args.parent, args.order, args.out)
+        print(json.dumps(summary), flush=True)
+        return 1 if summary["failed"] else 0
     if args.decode_pairs:
         os.makedirs(args.out, exist_ok=True)
         summary = decode_pairs(args.parent, args.decode_pairs, args.out)
@@ -626,6 +857,14 @@ def main() -> int:
            for _, _, key in MOE_TRAIN
            for k in ("steady_s_per_step", "tokens_per_s", "mfu",
                      "peak_memory_bytes")},
+        **{f"b3_mla_{k}": series(lambda r, k=k: r["smoke"]["b3_mla"][k])
+           for k in ("ms", "device_us", "bound_ms", "library_ms",
+                     "rel_l2")},
+        **{f"serve_mla_{k}": series(lambda r, k=k: r["smoke"]["serve_mla"][k])
+           for k in ("prefill_s", "prefill_device_busy_s",
+                     "prefill_b3_share")},
+        "train_mla_b3_share_of_busy": series(
+            lambda r: r["smoke"]["profile_train_mla"]["b3_share_of_busy"]),
         "train_mla_b9_device_us_per_call": series(
             lambda r: r["smoke"]["profile_train_mla"][
                 "b9_device_us_per_call"]),

@@ -10,9 +10,11 @@ process of its own (``PYTHONPATH=TREE/src``, its kernels built into
 ``TREE/build/repro_torch``), on the same seeded inputs: every head dim,
 both dtypes, causal and bidirectional, ragged lengths, GQA groups of 1
 to 8, decode lengths on and next to split boundaries; B3 and B9 also
-under windows and prefixes (``MASK_CASES``). Only arguments both trees'
-wrappers take are used for these. Every output must be ``torch.equal``
-across the trees.
+under windows and prefixes (``MASK_CASES``), and at multi-head latent
+attention's (192, 128) (``MLA_CASES``: H == Hkv with v a strided view, as
+the model makes it, and one GQA group; B3's ``tiles_loaded`` too). Only
+arguments both trees' wrappers take are used for these. Every output must
+be ``torch.equal`` across the trees.
 
 A tree whose wrappers take a query offset and the reduced MLA's head
 dims (24, 16) also runs ``NEW_CASES`` (B3 and B9 at (24, 16), and at
@@ -52,6 +54,11 @@ MASK_CASES = [  # (B, S, H, Hkv, D, mask) for B3 and B9
     (2, 300, 8, 1, 128, dict(prefix_len=70)),
     (1, 500, 4, 4, 80, dict(window=40, prefix_len=64)),
     (1, 257, 4, 1, 256, dict(causal=False, prefix_len=0))]
+MLA_CASES = [  # (B, S, H, Hkv, mask) at (D, Dv) = (192, 128), B3 and B9
+    (2, 700, 64, 64, dict()), (1, 2049, 128, 128, dict()),
+    (2, 700, 64, 64, dict(causal=False)),
+    (2, 700, 64, 64, dict(window=100)),
+    (1, 1000, 64, 64, dict()), (1, 1000, 16, 8, dict(prefix_len=70))]
 NEW_CASES = [  # (B, Sq, Sk, H, Hkv, D, Dv, mask) for B3 and B9
     (2, 300, 300, 4, 4, 24, 16, dict()),
     (1, 130, 130, 8, 8, 24, 16, dict(causal=False)),
@@ -74,6 +81,25 @@ def dump(path: str) -> None:
         g = torch.Generator().manual_seed(seed)
         return [torch.randn(s, generator=g).to("cuda", dtype)
                 for s in shapes]
+
+    def mla_inputs(seed, dtype, B, S, H, Hkv):
+        """q, k (its rope part one vector over the heads) and v (a
+        stride-256 view) at (192, 128) as multi-head latent attention
+        makes them where H == Hkv; dense k and v of a GQA group else."""
+        g = torch.Generator().manual_seed(seed)
+        q = torch.randn((B, S, H, 192), generator=g)
+        do = torch.randn((B, S, H, 128), generator=g)
+        if H != Hkv:
+            k, v = (torch.randn((B, S, Hkv, d), generator=g)
+                    for d in (192, 128))
+        else:
+            kv = torch.randn((B, S, H, 256), generator=g)
+            kr = torch.randn((B, S, 1, 64), generator=g)
+            k = torch.cat([kv[..., :128], kr.expand(B, S, H, 64)], dim=-1)
+            kv = kv.to("cuda", dtype)
+            return (q.to("cuda", dtype), k.to("cuda", dtype), kv[..., 128:],
+                    do.to("cuda", dtype))
+        return [t.to("cuda", dtype) for t in (q, k, v, do)]
 
     import inspect
     new = "q_offset" in inspect.signature(flash_attention).parameters
@@ -107,6 +133,17 @@ def dump(path: str) -> None:
             for name, g in zip("qkv", flash_attention_bwd(
                     q, k, v, o, lse, do, **mask)):
                 out[f"b9_mask/{dn}/{i}/d{name}"] = g
+        for i, (B, S, H, Hkv, mask) in enumerate(MLA_CASES):
+            q, k, v, do = mla_inputs(500 + i, dtype, B, S, H, Hkv)
+            tiles = torch.zeros((B, H, -(-S // 64)), dtype=torch.int32,
+                                device="cuda")
+            o, lse = flash_attention(q, k, v, return_lse=True,
+                                     tiles_loaded=tiles, **mask)
+            out[f"mla/{dn}/{i}/o"], out[f"mla/{dn}/{i}/lse"] = o, lse
+            out[f"mla/{dn}/{i}/tiles"] = tiles
+            for name, g in zip("qkv", flash_attention_bwd(
+                    q, k, v, o, lse, do, **mask)):
+                out[f"mla/{dn}/{i}/d{name}"] = g
         if not new:
             continue
         # the old cases at an explicit offset 0: the bits of no offset

@@ -204,18 +204,24 @@ B5_KERNELS = {"bfloat16": ("ssd_chunk_cb_kernel", "ssd_scan_bf16_kernel"),
 # 2.6e-2 and must land above it (PERF.md).
 B5_REL_L2_BF16 = 1e-4
 B5_CONTROL_BITS = 3
-# B9's kernels per input type, as the profiler names them; a call
-# launches all four of its type once: the rowsum pre-pass, dK/dV per
-# query head, the group's sum, dQ (bf16 on the tensor cores, float32 on
-# the CUDA cores)
+# B9's kernels per input type, as the profiler names them: a call
+# launches each of its route's once -- the rowsum pre-pass
+# (B9_CALL_KERNEL), dK/dV per query head (at (192, 128) on the bf16 route
+# the paired kernel), the group's sum (not on the bf16 route for a group of
+# one head, whose dK/dV kernel writes dK and dV itself), dQ (at (192, 128)
+# on the bf16 route the two-tile kernel) -- and a call's device time is
+# that of all of them (calls_device_us)
 B9_KERNELS = {"bfloat16": ("attention_bwd_delta_kernel",
                            "attention_bwd_dkdv_bf16_kernel",
+                           "attention_bwd_dkdv_pair_bf16_kernel",
                            "attention_bwd_reduce_kernel",
-                           "attention_bwd_dq_bf16_kernel"),
+                           "attention_bwd_dq_bf16_kernel",
+                           "attention_bwd_dq_pair_bf16_kernel"),
               "float32": ("attention_bwd_delta_kernel",
                           "attention_bwd_dkdv_kernel",
                           "attention_bwd_reduce_kernel",
                           "attention_bwd_dq_kernel")}
+B9_CALL_KERNEL = "attention_bwd_delta_kernel"
 # B9 float32 vs its plain version (float32 on the CPU, the same inputs):
 # |kernel - plain| <= tol (max(max|plain|, 1) + |plain|); the inputs are
 # of size ~1, and dq, dk of a one-token sequence are exactly 0
@@ -534,6 +540,41 @@ def kernel_device_us(fn, names=None, reps: int = 5) -> float:
         time.sleep(0.2)
     us = 1e3 * event_ms(fn, reps)
     PROFILER_FALLBACKS.append({"kernels": missing, "calls_profiled": calls,
+                               "event_us": us})
+    return us
+
+
+def calls_device_us(fn, names: tuple, per_call: str, kinds: int = 3,
+                    reps: int = 5) -> float:
+    """Mean device microseconds of one call of ``fn`` that launches, once
+    each, some of the kernels ``names`` -- those of its route -- by
+    ``torch.profiler`` as ``kernel_device_us``: each recorded kernel's mean
+    over the launches the profiler kept, summed. The profile is taken
+    again while the kernel ``per_call`` (which every call launches) or
+    ``kinds`` kernels of ``names`` have no record (then CUDA events time
+    the calls, recorded in ``PROFILER_FALLBACKS``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    calls = reps
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        evts = [e for e in prof.key_averages()
+                if any(n in e.key for n in names) and int(e.count) > 0
+                and getattr(e, "device_type", None) == DeviceType.CUDA]
+        if len(evts) >= kinds and any(per_call in e.key for e in evts):
+            return sum(_device_us(e) / int(e.count) for e in evts)
+        calls *= 2
+        time.sleep(0.2)
+    us = 1e3 * event_ms(fn, reps)
+    PROFILER_FALLBACKS.append({"kernels": list(names), "calls_profiled": calls,
                                "event_us": us})
     return us
 
@@ -4134,8 +4175,8 @@ def time_b9(q, k, v, o, lse, do) -> dict:
     return {"shape": {"q": list(q.shape), "kv": list(k.shape),
                       "dtype": str(q.dtype)},
             "ms": event_ms(call, 10),
-            "device_us": kernel_device_us(
-                call, B9_KERNELS[str(q.dtype).split(".")[-1]]),
+            "device_us": calls_device_us(
+                call, B9_KERNELS[str(q.dtype).split(".")[-1]], B9_CALL_KERNEL),
             "library_ms": event_ms(lambda: torch.autograd.grad(
                 lib_out, lib_in, dot, retain_graph=True), 10),
             "library_note": "the backward of one causal GQA "
@@ -4391,8 +4432,9 @@ def b9_masked_case(q, k, v, do, mask: dict, what: str, timed: bool,
     rec.update({"shape": {"q": list(q.shape), "kv": list(k.shape),
                           "v": list(v.shape), "dtype": str(dtype), **mask},
                 "live_pairs": live, "ms": event_ms(call, 5, warmup=2),
-                "device_us": kernel_device_us(
-                    call, B9_KERNELS[str(dtype).split(".")[-1]]),
+                "device_us": calls_device_us(
+                    call, B9_KERNELS[str(dtype).split(".")[-1]],
+                    B9_CALL_KERNEL),
                 "plain_ms": plain_s * 1e3,
                 "plain_note": f"the plain version on the CPU copies of "
                               f"{hs} of the {H} heads",
@@ -4883,15 +4925,20 @@ def profile_train(hand: tuple[str, ...], arch: str = TRAIN_ARCH,
     gc.collect()
     torch.cuda.empty_cache()
     hand = rec.get("hand_kernels", {})
-    for key, names in (("b9", B9_KERNELS["bfloat16"]), ("b10", B10_KERNELS)):
-        us = [next((v["device_us_per_launch"] for name, v in hand.items()
-                    if k in name), None) for k in names]
-        rec[f"{key}_device_us_per_call"] = sum(us) if None not in us \
-            else None
+    us = [next((v["device_us_per_launch"] for name, v in hand.items()
+                if k in name), None) for k in B10_KERNELS]
+    rec["b10_device_us_per_call"] = sum(us) if None not in us else None
+    # B9: all its kernels' time over its calls (one rowsum pre-pass each)
+    calls = sum(v["launches"] for name, v in hand.items()
+                if B9_CALL_KERNEL in name)
+    b9 = [v["device_us_total"] for name, v in hand.items()
+          if any(k in name for k in B9_KERNELS["bfloat16"])]
+    rec["b9_device_us_per_call"] = sum(b9) / calls if calls else None
     if rec.get("device_busy_s"):
-        rec["b9_share_of_busy"] = sum(
+        rec["b9_share_of_busy"] = sum(b9) * 1e-6 / rec["device_busy_s"]
+        rec["b3_share_of_busy"] = sum(
             v["device_us_total"] for name, v in hand.items()
-            if "attention_bwd" in name) * 1e-6 / rec["device_busy_s"]
+            if B3_KERNELS["bfloat16"] in name) * 1e-6 / rec["device_busy_s"]
     return rec
 
 

@@ -79,8 +79,19 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // 1e30 * log2(e), 0 or inf). Rows with a live key are untouched by either.
 //
 // bf16 (flash_attention_bf16_kernel): FlashAttention-2 on the tensor cores.
-// The q-tile is the grid's slowest axis, reversed, so the longest causal
-// rows start first and the short ones fill the tail. Four warps, each
+// The blocks run in block_work's order (attention_mask.cuh), the q-tiles
+// reversed, so the longest causal rows start first and the short ones fill
+// the tail. Where a call's K / V exceed half of L2 the (batch, head) pairs
+// run in groups whose K / V stay in L2 (order_group): multi-head latent
+// attention's prefill, whose every head has K and V of its own (671 MB at
+// deepseek-v2's (4, 2048, 128)), otherwise re-read each query tile's causal
+// prefix from HBM, some 10.8 GB a call in the one-group order. Of the
+// serving paths' other shapes only hubert's encoder (31 MB) forms groups;
+// qwen's, hymba's, paligemma's, granite's, the reduced MLA's and the
+// chunked prefill keep the one-group order, the grid's before block_work,
+// and none reads slower (PERF.md). The order changes no block's
+// arithmetic, so no output bit and no tiles_loaded count depends on it.
+// Four warps, each
 // owning 16 query rows; q's fragments are loaded once by ldmatrix and stay
 // in registers for the whole key loop up to D = 128 (at D = 256 they would
 // take 64 registers beside the output accumulator's 128, past the 255 a
@@ -358,9 +369,10 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
                             __nv_bfloat16* __restrict__ o,
-                            int H, int Hkv, int Sq, int Sk,
+                            int B, int H, int Hkv, int Sq, int Sk,
                             float scale, int causal, int window, int prefix, int q_off,
-                            int* __restrict__ tiles_loaded, float* __restrict__ lse)
+                            int group, int* __restrict__ tiles_loaded,
+                            float* __restrict__ lse)
 {
     using namespace fa2;
     constexpr int TB = tile_bytes<D>(), TBV = tile_bytes<DV>();
@@ -380,8 +392,10 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 
     const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
     const int g = lane / 4, t = lane % 4;
-    const int h = blockIdx.x, b = blockIdx.y;
-    const int n_qt = (int)gridDim.z, qt = n_qt - 1 - (int)blockIdx.z;
+    // the longest query tile of a (batch, head) first (block_work's rank 0)
+    const int n_qt = (Sq + BQ - 1) / BQ;
+    const BlockWork bw = block_work((int)blockIdx.x, n_qt, H, B, group);
+    const int h = bw.pair, b = bw.b, qt = n_qt - 1 - bw.rank;
     const int hk = h / (H / Hkv);
     const int q0 = qt * BQ;
 
@@ -595,10 +609,13 @@ static int flash_attention_bf16_run(const void* q, const void* k, const void* v,
         flash_attention_bf16_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((unsigned)H, (unsigned)B, (unsigned)((Sq + fa2::BQ - 1) / fa2::BQ));
-    flash_attention_bf16_kernel<D, DV><<<grid, fa2::THREADS, smem, stream>>>(
-        tq, tk, tv, (__nv_bfloat16*)o, H, Hkv, Sq, Sk, scale, causal, window, prefix,
-        q_off, tiles_loaded, lse);
+    // a KV head's K / V tiles, walked by its H / Hkv query heads
+    const int n_qt = (Sq + fa2::BQ - 1) / fa2::BQ;
+    const int group = order_group(B * H, H / Hkv, 2.0 * Sk * (D + DV));
+    flash_attention_bf16_kernel<D, DV><<<(unsigned)(B * H * n_qt), fa2::THREADS, smem,
+                                         stream>>>(
+        tq, tk, tv, (__nv_bfloat16*)o, B, H, Hkv, Sq, Sk, scale, causal, window, prefix,
+        q_off, group, tiles_loaded, lse);
     return (int)cudaGetLastError();
 }
 

@@ -50,12 +50,21 @@
 // over two blocks, each recomputing the full-width S and dP for its 128
 // columns -- twice the score products for D 128's register use; the
 // tiles (six of 32 KB, 193 KB a block) still fit. At (192, 128) dK/dV's 320
-// columns (160 floats a thread) split the same way, 96 of dK and 64 of dV a
-// block (fb2::kv_splits), each block recomputing S over 192 and dP over 128;
-// dQ's 192 (96 floats) fit one block. Its tiles are K and Q of 24 KB and V
-// and dO of 16 KB: 121 KB a block with Q / dO (K / V in dQ) double-buffered,
-// so one block an SM where D <= 128 runs two -- kept for the same pipeline
-// as every other pair. On the float32 route four 64-row tiles of 256 floats
+// columns (160 floats a thread) would not fit one warp's registers either;
+// there one block of eight warps holds a key tile, two warps to each 16-key
+// slab (attention_bwd_dkdv_pair_bf16_kernel): each computes S^T and dP^T
+// over half of a query tile and shares its bf16 P^T and dS^T through 16 KB
+// of shared memory, then accumulates half of dK's and dV's columns (96 + 64,
+// 80 floats a thread) -- S and dP once, where two blocks of four warps, each
+// a half of the columns, computed them twice (and loaded K, V, Q and dO
+// twice), and eight warps an SM where that split ran one block of four: its
+// tiles, K and Q of 24 KB and V and dO of 16 KB with Q / dO double-buffered,
+// take 121 KB. dQ's 192 columns (96 floats) fit one warp; there a block
+// holds two 64-row query tiles, eight warps sharing each K / V tile it
+// loads (161 KB: one block an SM, eight warps, and half the K / V loads a
+// query row). Both keep every output element's sum in the order of the
+// four-warp kernels', so the same bits (chip_attention_bits.py). On the
+// float32 route four 64-row tiles of 256 floats
 // would take 266 KB of shared memory, so there tiles are 32 rows (each
 // thread a 2 x 2 block of the score tile), and at (192, 128) too.
 //
@@ -75,15 +84,18 @@
 // order, each route its own dK/dV and dQ kernels:
 //   attention_bwd_delta_kernel: Delta, a warp per (batch, row, head), the
 //     row's D products summed by a fixed butterfly.
-//   dK/dV: one block per (key tile of 64, query head, batch), the key tiles
-//     the grid's slowest axis so the longest (the first: they meet every
-//     query tile below them) start first. It holds its K and V tiles and
-//     walks the query tiles on or below the diagonal in order, recomputing
-//     S and dP per tile; dK, dV accumulate in registers. Tiles above the
-//     diagonal are never loaded. A block per query head -- not per KV head,
-//     looping over the group's heads -- because at the training shape that
-//     would be 64 blocks for 132 SMs (this way 512); the per-head partials
-//     go to float32 workspaces (B, Sk, H, D) and (B, Sk, H, DV).
+//   dK/dV: one block per (key tile of 64, query head, batch), the first key
+//     tile of a (batch, head) -- the longest: it meets every query tile
+//     below it -- first. It holds its K and V tiles and walks the query
+//     tiles on or below the diagonal in order, recomputing S and dP per
+//     tile; dK, dV accumulate in registers. Tiles above the diagonal are
+//     never loaded. A block per query head -- not per KV head, looping over
+//     the group's heads -- because at the training shape that would be 64
+//     blocks for 132 SMs (this way 512); the per-head partials go to float32
+//     workspaces (B, Sk, H, D) and (B, Sk, H, DV). On the bf16 route a group
+//     of one head (H == Hkv: multi-head latent attention, hubert's encoder)
+//     has no workspace and no reduce: the kernel rounds its dK and dV to
+//     bf16 and writes them, the one rounding the reduce gives one partial.
 //   attention_bwd_reduce_kernel: dK and dV of each KV head as the sum of its
 //     group's partials in head order, rounded once to the output's type,
 //     each at its own width.
@@ -91,6 +103,12 @@
 //     tiles) first, over the key tiles up to the diagonal in order, dQ in
 //     registers. It recomputes S and dP: 7 products where the bound counts
 //     5, the price of a fixed add order without atomics on dQ.
+// At (192, 128) the bf16 route's blocks run in block_work's order
+// (attention_mask.cuh): where the tiles a call walks -- Q / dO for dK/dV,
+// K / V for dQ -- exceed half of L2, the (batch, head) pairs run in groups
+// that keep them in L2. At deepseek-v2's training microbatch (1, 2048, 128
+// heads), whose every head walks 1.3 MB of its own, the heads-fastest order
+// re-read some 2.7 GB a kernel from HBM.
 //
 // bf16 (attention_bwd_dkdv_bf16_kernel, attention_bwd_dq_bf16_kernel):
 // FlashAttention-2's backward on the tensor cores, from B3's building blocks
@@ -122,10 +140,12 @@
 // bits: on the H100 at the training shape 3.2e-3 relative L2 to the float32
 // plain version (dq, dk), 2.5e-3 (dv), and chip_smoke.py holds it to 8e-3
 // with the control (3 bits) at 2.7e-2 to 3.8e-2. ptxas (chip_smoke.py's
-// build phase prints it): dK/dV 255 registers at D = 128 with 20 bytes of
-// spill stores and loads (68 / 88 at D = 256), dQ 202 and none; D 16 / 32 /
-// 64 / 80: dK/dV 103 / 147 / 204 / 229, dQ 69 / 103 / 155 / 158, none;
-// (192, 128): 246 and 226, none. 97 KB of dynamic shared memory a block at
+// build phase prints it; CUDA 12.8): dK/dV 255 registers at D = 128 with
+// 20 bytes of spill stores and loads (32 in its DIRECT instance; 68 / 88
+// at D = 256), dQ 201 and none; D 16 / 32 / 64 / 80: dK/dV 103 / 148 / 205
+// / 230 (DIRECT 3 to 5 more), dQ 82 / 109 / 165 / 169, none; (192, 128):
+// the paired dK/dV 255 and the two-tile dQ 239, none. 97 KB of dynamic
+// shared memory a block at
 // D = 128 (six 16 KB tiles and the swizzle's alignment) and 1 KB static, so
 // both kernels run two blocks an SM there. What holds it back:
 // mma.sync on 16-row warp tiles (not wgmma's 64-row warpgroups), with every
@@ -529,14 +549,12 @@ static_assert(BQ == BK, "a tile is 64 rows of q, do, k or v");
 // Output columns a block accumulates. dK/dV: every column of both while they
 // are at most 256 together (D = DV <= 128). At D = 256 one 64-row tile's dK
 // and dV accumulators alone would take 256 registers a thread (the 255 a
-// thread may have; at D = 128 the kernel already runs at 255), and at (192,
-// 128) 160, so there the columns are split over two blocks, each recomputing
-// the full-width S (over D) and dP (over DV) for its half of dK's columns
-// and its half of dV's: 128 + 128 at D 256; 96 + 64 at (192, 128), 80
-// floats a thread, the split that keeps the two blocks' work equal (a split
-// by 64-column boxes would give one block 128 + 64 columns and the other
-// 64 + 64). dQ: every column up to 192 (96 floats a thread at (192, 128)),
-// two blocks of 128 at D 256.
+// thread may have; at D = 128 the kernel already runs at 255), so there the
+// columns are split over two blocks, each recomputing the full-width S (over
+// D) and dP (over DV) for its half of dK's columns and its half of dV's. At
+// (192, 128) (160 floats) the paired kernel splits them over the two warps
+// of a slab instead (pair_kernels). dQ: every column up to 192 (96 floats a
+// thread at (192, 128)), two blocks of 128 at D 256.
 template <int D, int DV> __host__ __device__ constexpr int kv_splits() {
     return D + DV > 256 ? 2 : 1;
 }
@@ -608,13 +626,104 @@ __device__ __forceinline__ void tile_acc_wx(float (&acc)[DO / 8][4], const uint3
             mma_bf16(acc[n + 1], w[kk], r + 2);
         }
 }
+// Multi-head latent attention's (192, 128) runs kernels of its own:
+// attention_bwd_dkdv_pair_bf16_kernel (eight warps a key tile, two to each
+// 16-key slab, each warp half of dK's and dV's columns: 96 + 64, 80 floats
+// a thread) and attention_bwd_dq_pair_bf16_kernel (two query tiles a
+// block, eight warps sharing each K / V tile), both in block_work's order.
+// Every other pair keeps the four-warp kernels as they were, with their
+// (head, batch, tile) grids -- one group, the same order -- and their
+// code: a four-warp dQ kernel that took the two-tile code at one tile read
+// slower at every other pair in a probe on the H100.
+template <int D, int DV> __host__ __device__ constexpr bool pair_kernels() {
+    return D == 192 && DV == 128;
+}
+constexpr int PAIR_THREADS = 2 * THREADS;
+// P^T or dS^T of a tile pair: 64 keys x 64 queries of bf16, one box
+constexpr int PT_BYTES = 64 * 128;
+// dK/dV: the four-warp kernel's tiles, then P^T and dS^T; dQ: two tiles of
+// Q and of dO and two stages of K and V
+template <int D, int DV> constexpr size_t pair_dkdv_smem_bytes() {
+    return smem_bytes<D, DV>() + 2 * PT_BYTES;
+}
+template <int D, int DV> constexpr size_t pair_dq_smem_bytes() {
+    return smem_bytes<D, DV>() + (size_t)tile_bytes<D>() + (size_t)tile_bytes<DV>();
+}
+
+// S = 16 x 8 NJ (rows x cols) of A B^T over D for this warp: A's 16 rows from
+// tile A at row a0, B's 8 NJ rows from tile Bt at row b0 (tile_abt's
+// products over a part of B's rows). Every fragment comes from shared
+// memory: the paired dK/dV kernel with K's (48 registers) or K's and V's
+// (80) held in registers over its query tiles, beside its 80 accumulators,
+// read slower in probes on the H100
+template <int D, int NJ>
+__device__ __forceinline__ void tile_abt_rows(float (&s)[NJ][4], const unsigned char* A,
+                                              int a0, const unsigned char* Bt, int b0,
+                                              int lane)
+{
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd) {
+        uint32_t a[4];
+        ldmatrix_x4(a, at(A, a0 + lane % 16, kd * 16 + (lane / 16) * 8));
+#pragma unroll
+        for (int j = 0; j < NJ; j += 2) {
+            uint32_t r[4];
+            ldmatrix_x4(r, at(Bt, b0 + j * 8 + (lane / 16) * 8 + lane % 8,
+                              kd * 16 + ((lane / 8) % 2) * 8));
+            mma_bf16(s[j], a, r);
+            mma_bf16(s[j + 1], a, r + 2);
+        }
+    }
+}
+
+// one register of packed bf16 into a 64-column tile at (row, col), col even
+__device__ __forceinline__ void st_b32(unsigned char* tile, int row, int col, uint32_t v)
+{
+    *reinterpret_cast<uint32_t*>(tile + sw128(row, col / 8) + (col % 8) * 2) = v;
+}
 }  // namespace fb2
+
+
+// dK and dV of a group of one head, rounded to bf16 from a warp's float32
+// accumulators: this thread's keys key0, key0 + 8 (rows of KV head hk),
+// columns c0k + 8n + 2t, c0v + 8n + 2t; dK scaled as the workspace's
+// partials are
+template <int NOK, int NOV>
+__device__ __forceinline__ void write_dkdv_bf16(__nv_bfloat16* dk, __nv_bfloat16* dv,
+                                                const float (&ak)[NOK][4],
+                                                const float (&av)[NOV][4], int b, int key0,
+                                                int hk, int Sk, int Hkv, int D, int DV,
+                                                int c0k, int c0v, int t, float scale)
+{
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key >= Sk) continue;
+        const int64_t row = ((int64_t)b * Sk + key) * Hkv + hk;
+        __nv_bfloat16* krow = dk + row * D + c0k + 2 * t;
+        __nv_bfloat16* vrow = dv + row * DV + c0v + 2 * t;
+#pragma unroll
+        for (int n = 0; n < NOK; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(krow + n * 8) =
+                __floats2bfloat162_rn(ak[n][2 * r] * scale, ak[n][2 * r + 1] * scale);
+#pragma unroll
+        for (int n = 0; n < NOV; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(vrow + n * 8) =
+                __floats2bfloat162_rn(av[n][2 * r], av[n][2 * r + 1]);
+    }
+}
 
 // dK / dV per (key tile, query head, batch), bf16 on the tensor cores: each
 // warp 16 keys; S^T = K Q^T and dP^T = V dO^T put the keys on the M
 // dimension, so P^T and dS^T land in the A-fragment layout of P^T dO and
-// dS^T Q and never leave registers
-template <int D, int DV>
+// dS^T Q and never leave registers. DIRECT (H == Hkv, a group of one head):
+// dK and dV rounded to bf16 and written here, the one rounding the reduce
+// would give the one partial; else the float32 partials to the workspaces
+template <int D, int DV, bool DIRECT>
 __global__ void __launch_bounds__(fb2::THREADS, 2)
 attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                                const __grid_constant__ CUtensorMap tk,
@@ -623,6 +732,8 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                                const float* __restrict__ lse,
                                const float* __restrict__ delta,
                                float* __restrict__ dk_ws, float* __restrict__ dv_ws,
+                               __nv_bfloat16* __restrict__ dk_out,
+                               __nv_bfloat16* __restrict__ dv_out,
                                int H, int Hkv, int Sq, int Sk, float scale, int causal,
                                int window, int prefix, int q_off)
 {
@@ -762,6 +873,11 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         if (more) stat[1 - st][tid] = next;
     }
 
+    if constexpr (DIRECT) {
+        write_dkdv_bf16<NOK, NOV>(dk_out, dv_out, dk, dv, b, key0, hk, Sk, Hkv, D, DV,
+                                  c0k, c0v, t, scale);
+        return;
+    }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
@@ -769,6 +885,196 @@ attention_bwd_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         const int64_t row = ((int64_t)b * Sk + key) * H + h;
         float* krow = dk_ws + row * D + c0k + 2 * t;
         float* vrow = dv_ws + row * DV + c0v + 2 * t;
+#pragma unroll
+        for (int n = 0; n < NOK; ++n)
+            *reinterpret_cast<float2*>(krow + n * 8) =
+                make_float2(dk[n][2 * r] * scale, dk[n][2 * r + 1] * scale);
+#pragma unroll
+        for (int n = 0; n < NOV; ++n)
+            *reinterpret_cast<float2*>(vrow + n * 8) =
+                make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
+    }
+}
+
+
+// dK / dV at (192, 128) per (key tile, query head, batch): eight warps, two
+// to each 16-key slab. Warp `half` of a slab computes S^T and dP^T over its
+// half of the tile's 64 queries (32 columns), rounds P^T and dS^T to bf16 as
+// the four-warp kernel does and puts them in shared memory; after a barrier
+// of the two, each accumulates half of dK's and dV's columns (96 + 64, 80
+// floats a thread) from the slab's whole P^T and dS^T. So S and dP are
+// computed once for all 320 output columns, where the four-warp kernel's two
+// column blocks computed them twice, and K, V, Q and dO are loaded once.
+// Every output element sums the same products in the same order (query
+// tiles in order, k16 steps in order) as the four-warp kernel's split.
+template <int D, int DV>
+__global__ void __launch_bounds__(fb2::PAIR_THREADS, 1)
+attention_bwd_dkdv_pair_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                                    const __grid_constant__ CUtensorMap tk,
+                                    const __grid_constant__ CUtensorMap tv,
+                                    const __grid_constant__ CUtensorMap tdo,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta,
+                                    float* __restrict__ dk_ws, float* __restrict__ dv_ws,
+                                    __nv_bfloat16* __restrict__ dk_out,
+                                    __nv_bfloat16* __restrict__ dv_out,
+                                    int B, int H, int Hkv, int Sq, int Sk, float scale,
+                                    int causal, int window, int prefix, int q_off,
+                                    int group)
+{
+    using namespace fb2;
+    constexpr int TB = tile_bytes<D>(), TBV = tile_bytes<DV>();
+    constexpr int DOK = D / 2, DOV = DV / 2;
+    static_assert(DOK % 16 == 0 && DOV % 16 == 0, "a warp's columns are whole k16 pairs");
+    constexpr int NOK = DOK / 8, NOV = DOV / 8;  // n8 tiles of this warp's dK, dV
+    constexpr int NH = BQ / 16;  // n8 tiles of a warp's 32 queries
+    extern __shared__ __align__(16) unsigned char fb2_smem[];
+    unsigned char* Ks = align1024(fb2_smem);
+    unsigned char* Vs = Ks + TB;
+    // stage s: the Q tile at s (TB + TBV), the dO tile next
+    unsigned char* QD = Vs + TBV;
+    unsigned char* PT = QD + 2 * (TB + TBV);  // P^T: keys x queries
+    unsigned char* DT = PT + PT_BYTES;        // dS^T
+    __shared__ __align__(8) uint64_t full[2];
+    // stage s: lse log2(e) of the tile's queries, then their Delta
+    __shared__ float stat[2][2 * BQ];
+
+    const int tid = threadIdx.x;
+    const int lane = tid % 32, warp = tid / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int slab = warp % WARPS, half = warp / WARPS;
+    const BlockWork bw = block_work((int)blockIdx.x, (Sk + BK - 1) / BK, H, B, group);
+    const int h = bw.pair, b = bw.b;
+    const int hk = h / (H / Hkv);
+    const int k0 = bw.rank * BK;
+    const QueryTiles qr = query_tiles(k0, min(k0 + BK, Sk) - 1, Sq, causal, window,
+                                      prefix, BQ, q_off);
+    const int qt0 = qr.lo;
+    const int n_it = qr.hi - qr.lo;
+    const int64_t srow = ((int64_t)b * H + h) * Sq;
+    const bool stats = tid < 2 * BQ;  // the threads that stage the row statistics
+    auto row_stat = [&](int q0) {
+        const int q = q0 + tid % BQ;
+        if (!stats || q >= Sq) return 0.f;
+        return tid < BQ ? lse[srow + q] * LOG2E : delta[srow + q];
+    };
+
+    if (tid == 0) {
+        mbar_init(&full[0], 1);
+        mbar_init(&full[1], 1);
+        mbar_fence_init();
+        if (n_it > 0) {
+            mbar_expect_tx(&full[0], 2 * (TB + TBV));
+            load_tile<D>(Ks, &tk, hk, k0, b, &full[0]);
+            load_tile<DV>(Vs, &tv, hk, k0, b, &full[0]);
+            load_tile<D>(QD, &tq, h, qt0 * BQ, b, &full[0]);
+            load_tile<DV>(QD + TB, &tdo, h, qt0 * BQ, b, &full[0]);
+        }
+    }
+    if (n_it > 0 && stats) stat[0][tid] = row_stat(qt0 * BQ);
+    __syncthreads();
+
+    const int srow0 = slab * 16;             // the slab's rows of the key tile
+    const int key0 = k0 + srow0 + g;         // this thread's keys: key0, key0 + 8
+    const int qc0 = half * (BQ / 2);         // this warp's queries of a tile
+    float dk[NOK][4], dv[NOV][4];
+#pragma unroll
+    for (int n = 0; n < NOK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk[n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NOV; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dv[n][e] = 0.f;
+
+    for (int it = 0; it < n_it; ++it) {
+        const int st = it % 2, q0 = (qt0 + it) * BQ;
+        const bool more = it + 1 < n_it;
+        const float next = more ? row_stat(q0 + BQ) : 0.f;
+        mbar_wait(&full[st], (it / 2) & 1);
+        // tile it has landed; every warp is done with tile it - 1's stage
+        // and with its P^T and dS^T
+        __syncthreads();
+        if (tid == 0 && more) {
+            unsigned char* nx = QD + (1 - st) * (TB + TBV);
+            mbar_expect_tx(&full[1 - st], TB + TBV);
+            load_tile<D>(nx, &tq, h, q0 + BQ, b, &full[1 - st]);
+            load_tile<DV>(nx + TB, &tdo, h, q0 + BQ, b, &full[1 - st]);
+        }
+        const unsigned char* Qt = QD + st * (TB + TBV);
+        const unsigned char* dOt = Qt + TB;
+        const float* ls = stat[st];
+        const float* dl = stat[st] + BQ;
+
+        // P^T over this warp's queries, as the four-warp kernel computes it
+        uint32_t pf[NH / 2][4];
+        {
+            float s[NH][4];
+            tile_abt_rows<D, NH>(s, Ks, srow0, Qt, qc0, lane);
+            const bool masked = !tile_all_live(q0, k0, BQ, BK, Sq, Sk, causal, window, q_off);
+#pragma unroll
+            for (int j = 0; j < NH; ++j)
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    float p[2];
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) {
+                        const int col = qc0 + j * 8 + 2 * t + c, qpos = q0 + col;
+                        const int kpos = key0 + 8 * r;
+                        p[c] = exp2f(fmaf(s[j][2 * r + c] * scale, LOG2E, -ls[col]));
+                        if (masked && (qpos >= Sq
+                                       || !key_live(qpos, kpos, Sk, causal, window, prefix, q_off)))
+                            p[c] = 0.f;
+                    }
+                    pf[j / 2][(j % 2) * 2 + r] = pack_bf16x2(p[0], p[1]);
+                    st_b32(PT, srow0 + g + 8 * r, qc0 + j * 8 + 2 * t,
+                           pf[j / 2][(j % 2) * 2 + r]);
+                }
+        }
+        // dS^T = P^T o (dP^T - Delta), dP^T = V dO^T over the same queries
+        {
+            float dp[NH][4];
+            tile_abt_rows<DV, NH>(dp, Vs, srow0, dOt, qc0, lane);
+#pragma unroll
+            for (int j = 0; j < NH; ++j)
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const uint32_t p = pf[j / 2][(j % 2) * 2 + r];
+                    const int col = qc0 + j * 8 + 2 * t;
+                    st_b32(DT, srow0 + g + 8 * r, col, pack_bf16x2(
+                        bf_lo(p) * (dp[j][2 * r] - dl[col]),
+                        bf_hi(p) * (dp[j][2 * r + 1] - dl[col + 1])));
+                }
+        }
+        named_sync(1 + slab, 64);  // the slab's P^T and dS^T are whole
+
+        // dV += P^T dO and dK += dS^T Q over the tile's 64 queries, this
+        // warp's half of the columns
+        uint32_t w[BQ / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+            ldmatrix_x4(w[kk], at(PT, srow0 + lane % 16, kk * 16 + (lane / 16) * 8));
+        tile_acc_wx<DOV>(dv, w, dOt, half * DOV, lane);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+            ldmatrix_x4(w[kk], at(DT, srow0 + lane % 16, kk * 16 + (lane / 16) * 8));
+        tile_acc_wx<DOK>(dk, w, Qt, half * DOK, lane);
+
+        if (more && stats) stat[1 - st][tid] = next;
+    }
+
+    if (H == Hkv) {
+        write_dkdv_bf16<NOK, NOV>(dk_out, dv_out, dk, dv, b, key0, hk, Sk, Hkv, D, DV,
+                                  half * DOK, half * DOV, t, scale);
+        return;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key >= Sk) continue;
+        const int64_t row = ((int64_t)b * Sk + key) * H + h;
+        float* krow = dk_ws + row * D + half * DOK + 2 * t;
+        float* vrow = dv_ws + row * DV + half * DOV + 2 * t;
 #pragma unroll
         for (int n = 0; n < NOK; ++n)
             *reinterpret_cast<float2*>(krow + n * 8) =
@@ -920,6 +1226,161 @@ attention_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     }
 }
 
+
+// dQ at (192, 128) per (two query tiles of 64 rows, head, batch): eight
+// warps, four to each tile, sharing every K / V tile the block loads (half
+// the K / V traffic a query row of the four-warp kernel's, and eight warps
+// an SM where its 121 KB left one block of four). The block walks the union
+// of its two tiles' key tiles (key_tiles over all 128 rows, in order), and
+// a tile's warps skip a key tile its own walk leaves out, so every row sums
+// the same key tiles in the same order as in the four-warp kernel: the same
+// bits.
+template <int D, int DV>
+__global__ void __launch_bounds__(fb2::PAIR_THREADS, 1)
+attention_bwd_dq_pair_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ delta,
+                                  __nv_bfloat16* __restrict__ dq,
+                                  int B, int H, int Hkv, int Sq, int Sk, float scale,
+                                  int causal, int window, int prefix, int q_off, int group)
+{
+    using namespace fb2;
+    constexpr int TB = tile_bytes<D>(), TBV = tile_bytes<DV>();
+    static_assert(q_splits<D>() == 1, "one block covers dQ's columns");
+    constexpr int NO = D / 8;    // n8 tiles of dQ's columns
+    constexpr int NS = BK / 8;   // n8 tiles of S: keys
+    extern __shared__ __align__(16) unsigned char fb2_smem[];
+    unsigned char* Qs = align1024(fb2_smem);  // the two Q tiles
+    unsigned char* dOs = Qs + 2 * TB;         // the two dO tiles
+    // stage s: the K tile at s (TB + TBV), the V tile next
+    unsigned char* KV = dOs + 2 * TBV;
+    __shared__ __align__(8) uint64_t full[2];
+
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int half = warp / WARPS, wrow = (warp % WARPS) * 16;
+    // the longest walk (the last query tiles) of a (batch, head) first
+    const int n_qt = (Sq + 2 * BQ - 1) / (2 * BQ);
+    const BlockWork bw = block_work((int)blockIdx.x, n_qt, H, B, group);
+    const int h = bw.pair, b = bw.b;
+    const int hk = h / (H / Hkv);
+    const int q0 = (n_qt - 1 - bw.rank) * 2 * BQ;
+    const int hq0 = q0 + half * BQ;  // this warp's tile: none past Sq
+    const bool rows = hq0 < Sq;
+
+    const KeyTiles kts = key_tiles(q0, min(q0 + 2 * BQ, Sq) - 1, Sk, causal, window,
+                                   prefix, BK, q_off);
+    const KeyTiles own = key_tiles(hq0, min(hq0 + BQ, Sq) - 1, Sk, causal, window,
+                                   prefix, BK, q_off);
+    const int n_tiles = kts.n;
+    if (threadIdx.x == 0) {
+        const int nq = q0 + BQ < Sq ? 2 : 1;
+        mbar_init(&full[0], 1);
+        mbar_init(&full[1], 1);
+        mbar_fence_init();
+        mbar_expect_tx(&full[0], (nq + 1) * (TB + TBV));
+        for (int i = 0; i < nq; ++i) {
+            load_tile<D>(Qs + i * TB, &tq, h, q0 + i * BQ, b, &full[0]);
+            load_tile<DV>(dOs + i * TBV, &tdo, h, q0 + i * BQ, b, &full[0]);
+        }
+        load_tile<D>(KV, &tk, hk, key_tile(kts, 0) * BK, b, &full[0]);
+        load_tile<DV>(KV + TB, &tv, hk, key_tile(kts, 0) * BK, b, &full[0]);
+    }
+    const unsigned char* Qt = Qs + half * TB;
+    const unsigned char* dOt = dOs + half * TBV;
+    // this thread's rows g and g + 8 of the warp's 16: lse log2(e), Delta
+    const int row0 = hq0 + wrow + g;
+    float ls[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int qpos = row0 + 8 * r;
+        const int64_t at_ = ((int64_t)b * H + h) * Sq + qpos;
+        ls[r] = qpos < Sq ? lse[at_] * LOG2E : 0.f;
+        dl[r] = qpos < Sq ? delta[at_] : 0.f;
+    }
+    __syncthreads();  // the barriers are initialised before anyone waits
+
+    float acc[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    for (int kt = 0; kt < n_tiles; ++kt) {
+        const int k0 = key_tile(kts, kt) * BK;
+        mbar_wait(&full[kt % 2], (kt / 2) & 1);
+        // tile kt has landed, and every warp is done with tile kt - 1,
+        // whose stage the next load overwrites
+        __syncthreads();
+        if (threadIdx.x == 0 && kt + 1 < n_tiles) {
+            unsigned char* nx = KV + ((kt + 1) % 2) * (TB + TBV);
+            uint64_t* bar = &full[(kt + 1) % 2];
+            const int k1 = key_tile(kts, kt + 1) * BK;
+            mbar_expect_tx(bar, TB + TBV);
+            load_tile<D>(nx, &tk, hk, k1, b, bar);
+            load_tile<DV>(nx + TB, &tv, hk, k1, b, bar);
+        }
+        if (!rows || !walks(own, k0 / BK)) continue;
+        const unsigned char* Kt = KV + (kt % 2) * (TB + TBV);
+        const unsigned char* Vt = Kt + TB;
+
+        // P = exp(scale Q K^T - lse), rounded to bf16 as in the dK/dV kernel
+        uint32_t pf[BK / 16][4];
+        {
+            float s[NS][4];
+            tile_abt<D>(s, Qt, wrow, Kt, lane);
+            const bool masked = !tile_all_live(hq0, k0, BQ, BK, Sq, Sk, causal, window, q_off);
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    float p[2];
+#pragma unroll
+                    for (int c = 0; c < 2; ++c) {
+                        const int kpos = k0 + j * 8 + 2 * t + c, qpos = row0 + 8 * r;
+                        p[c] = exp2f(fmaf(s[j][2 * r + c] * scale, LOG2E, -ls[r]));
+                        if (masked && (qpos >= Sq
+                                       || !key_live(qpos, kpos, Sk, causal, window, prefix, q_off)))
+                            p[c] = 0.f;
+                    }
+                    pf[j / 2][(j % 2) * 2 + r] = pack_bf16x2(p[0], p[1]);
+                }
+        }
+        // dS = P o (dP - Delta), dP = dO V^T, rounded to bf16: the A
+        // fragments of dS K over the keys
+        uint32_t df[BK / 16][4];
+        {
+            float dp[NS][4];
+            tile_abt<DV>(dp, dOt, wrow, Vt, lane);
+#pragma unroll
+            for (int j = 0; j < NS; ++j)
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const uint32_t p = pf[j / 2][(j % 2) * 2 + r];
+                    df[j / 2][(j % 2) * 2 + r] = pack_bf16x2(
+                        bf_lo(p) * (dp[j][2 * r] - dl[r]),
+                        bf_hi(p) * (dp[j][2 * r + 1] - dl[r]));
+                }
+        }
+        // dQ += dS K: K's rows are the k dimension, read transposed
+        tile_acc_wx<D>(acc, df, Kt, 0, lane);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int qpos = row0 + 8 * r;
+        if (qpos >= Sq) continue;
+        __nv_bfloat16* orow = dq + (((int64_t)b * Sq + qpos) * H + h) * D + 2 * t;
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+                __floats2bfloat162_rn(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+    }
+}
+
 // q, k, v or do, dense (B, S, heads, D), as a 4-D tensor map (D, heads, S,
 // B) read in boxes of 64 rows of one head; the strides are the dense ones
 // whatever the length of a dim
@@ -941,38 +1402,73 @@ static int attention_bwd_bf16_run(const void* q, const void* k, const void* v,
                                   int B, int H, int Hkv, int Sq, int Sk, float scale,
                                   int causal, int window, int prefix, int q_off, cudaStream_t stream)
 {
+    using namespace fb2;
     // q and k of D columns, v and do of DV
     CUtensorMap tq, tk, tv, tdo;
     if (!bwd_map<D>(&tq, q, B, Sq, H) || !bwd_map<D>(&tk, k, B, Sk, Hkv)
         || !bwd_map<DV>(&tv, v, B, Sk, Hkv) || !bwd_map<DV>(&tdo, dout, B, Sq, H))
         return (int)cudaErrorInvalidValue;
-    const size_t smem = fb2::smem_bytes<D, DV>();
-    cudaError_t err = cudaFuncSetAttribute(attention_bwd_dkdv_bf16_kernel<D, DV>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 g1((unsigned)(H * fb2::kv_splits<D, DV>()), (unsigned)B,
-            (unsigned)((Sk + fb2::BK - 1) / fb2::BK));
-    attention_bwd_dkdv_bf16_kernel<D, DV><<<g1, fb2::THREADS, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, H, Hkv, Sq, Sk, scale, causal, window,
-        prefix, q_off);
+    __nv_bfloat16 *dkb = (__nv_bfloat16*)dk, *dvb = (__nv_bfloat16*)dv;
+    const unsigned n_kt = (unsigned)((Sk + BK - 1) / BK);
+    cudaError_t err;
+    if constexpr (pair_kernels<D, DV>()) {
+        // a head's Q / dO tiles, walked by the dK/dV blocks of its key tiles
+        const size_t smem = pair_dkdv_smem_bytes<D, DV>();
+        err = cudaFuncSetAttribute(attention_bwd_dkdv_pair_bf16_kernel<D, DV>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        attention_bwd_dkdv_pair_bf16_kernel<D, DV>
+            <<<(unsigned)(B * H) * n_kt, PAIR_THREADS, smem, stream>>>(
+                tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, dkb, dvb, B, H, Hkv, Sq, Sk,
+                scale, causal, window, prefix, q_off,
+                order_group(B * H, 1, 2.0 * Sq * (D + DV)));
+    } else {
+        const size_t smem = smem_bytes<D, DV>();
+        auto kernel = H == Hkv ? attention_bwd_dkdv_bf16_kernel<D, DV, true>
+                               : attention_bwd_dkdv_bf16_kernel<D, DV, false>;
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        dim3 g1((unsigned)(H * kv_splits<D, DV>()), (unsigned)B, n_kt);
+        kernel<<<g1, THREADS, smem, stream>>>(
+            tq, tk, tv, tdo, lse, delta, dk_ws, dv_ws, dkb, dvb, H, Hkv, Sq, Sk, scale,
+            causal, window, prefix, q_off);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
-    const int64_t n = (int64_t)B * Sk * Hkv * (D > DV ? D : DV);
-    attention_bwd_reduce_kernel<__nv_bfloat16><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-        dk_ws, dv_ws, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, n, H, Hkv, D, DV);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    if (H != Hkv) {  // the group's partials, summed in head order
+        const int64_t n = (int64_t)B * Sk * Hkv * (D > DV ? D : DV);
+        attention_bwd_reduce_kernel<__nv_bfloat16><<<(unsigned)((n + 255) / 256), 256, 0,
+                                                     stream>>>(
+            dk_ws, dv_ws, dkb, dvb, n, H, Hkv, D, DV);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
 
-    err = cudaFuncSetAttribute(attention_bwd_dq_bf16_kernel<D, DV>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 g2((unsigned)(H * fb2::q_splits<D>()), (unsigned)B,
-            (unsigned)((Sq + fb2::BQ - 1) / fb2::BQ));
-    attention_bwd_dq_bf16_kernel<D, DV><<<g2, fb2::THREADS, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dq, H, Hkv, Sq, Sk, scale, causal,
-        window, prefix, q_off);
+    if constexpr (pair_kernels<D, DV>()) {
+        // a KV head's K / V tiles, walked by the dQ blocks of its query heads
+        const size_t smem = pair_dq_smem_bytes<D, DV>();
+        err = cudaFuncSetAttribute(attention_bwd_dq_pair_bf16_kernel<D, DV>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        const unsigned n_qt2 = (unsigned)((Sq + 2 * BQ - 1) / (2 * BQ));
+        attention_bwd_dq_pair_bf16_kernel<D, DV>
+            <<<(unsigned)(B * H) * n_qt2, PAIR_THREADS, smem, stream>>>(
+                tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dq, B, H, Hkv, Sq, Sk, scale,
+                causal, window, prefix, q_off,
+                order_group(B * H, H / Hkv, 2.0 * Sk * (D + DV)));
+    } else {
+        const size_t smem = smem_bytes<D, DV>();
+        err = cudaFuncSetAttribute(attention_bwd_dq_bf16_kernel<D, DV>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+        dim3 g2((unsigned)(H * q_splits<D>()), (unsigned)B,
+                (unsigned)((Sq + BQ - 1) / BQ));
+        attention_bwd_dq_bf16_kernel<D, DV><<<g2, THREADS, smem, stream>>>(
+            tq, tk, tv, tdo, lse, delta, (__nv_bfloat16*)dq, H, Hkv, Sq, Sk, scale, causal,
+            window, prefix, q_off);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -1056,7 +1552,8 @@ static int attention_bwd_dispatch(int D, int DV, const void* q, const void* k,
 // Sq, H, D); o, dout (B, Sq, H, DV); k, dk (B, Sk, Hkv, D); v, dv (B, Sk,
 // Hkv, DV); lse and delta (B, H, Sq) float32 (delta is written: the
 // pre-pass's rowsum(dout o o)); dk_ws (B, Sk, H, D) and dv_ws (B, Sk, H, DV)
-// float32 workspaces, written before they are read. (D, DV): (d, d) for d in
+// float32 workspaces, written before they are read -- unused (null) on the
+// bf16 route when H == Hkv. (D, DV): (d, d) for d in
 // 16, 32, 64, 80, 128, 256, (192, 128) or (32, 16). The mask is B3's
 // (attention_mask.cuh): causal, a window (<= 0: none) and a prefix (0: none),
 // query row i at position q_off + i.

@@ -1,7 +1,7 @@
 // Tensor-core and asynchronous-copy building blocks shared by the bf16
 // kernels (attention.cu, attention_bwd.cu, gated_matmul.cu, ssd_scan.cu,
 // ssd_scan_bwd.cu): ldmatrix, mma.sync m16n8k16 bf16 -> float32, an L2
-// prefetch, TMA tile loads into shared
+// prefetch, a named barrier, TMA tile loads into shared
 // memory with their mbarriers, and the host call that encodes a TMA tensor
 // map; the 1-D bulk copy of program_plane.cu's event ring; and the
 // attention kernels' shared-memory tile layout (tile64). Nothing here
@@ -77,6 +77,14 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi)
 __device__ __forceinline__ void prefetch_l2(const void* p)
 {
     asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
+}
+
+// a barrier of `threads` threads of the block (a multiple of 32: whole
+// warps) on named barrier `id` (1..15; 0 is __syncthreads'), shared memory
+// written before it visible to them after it
+__device__ __forceinline__ void named_sync(int id, int threads)
+{
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // ---- Hopper's tensor memory accelerator (TMA) and its mbarriers ----------

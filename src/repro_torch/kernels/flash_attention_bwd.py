@@ -9,7 +9,9 @@ output's gradient do, and returns dq, dk, dv. The kernels, their bound and
 the reasons for their design are in ``csrc/attention_bwd.cu``; in short:
 bound by operations at the training shape; four kernels a call (a rowsum
 pre-pass, dK/dV per key tile and query head into a float32 workspace, the
-group's sum in head order, dQ per query tile); every sum in a fixed order
+group's sum in head order, dQ per query tile) -- three on the bf16 route
+for a group of one head, whose dK/dV kernel writes dK and dV itself and
+allocates no workspace (``needs_workspace``); every sum in a fixed order
 and no float atomic, so a result is the same from run to run (the training
 loop's bit-exact resume rests on it); B3's masks (causal order, a sliding
 ``window``, a bidirectional ``prefix_len``, or none: bidirectional
@@ -30,7 +32,7 @@ float32 runs true float32 FMAs on the CUDA cores.
 evaluates ``flash_attention_bwd_plain`` for CPU tensors; nothing else
 selects between them, and a kernel that fails to build or launch raises.
 ``flash_attention_bwd.launches`` counts wrapper calls that launched (one
-a call: the four kernels of a call count once, on either route).
+a call: the kernels of a call count once, on either route).
 """
 from __future__ import annotations
 
@@ -142,6 +144,19 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def needs_workspace(dtype: torch.dtype, H: int, Hkv: int) -> bool:
+    """Whether a B9 call sums its dK / dV partials through the float32
+    workspaces: not on the bf16 route for a group of one head (``H ==
+    Hkv``, multi-head latent attention's case), where the dK/dV kernel
+    writes them in bf16 itself -- the one rounding the reduce would apply
+    to its one partial, so the same bits."""
+    return not (dtype == torch.bfloat16 and H == Hkv)
+
+
 def _launch(lib, q, k, v, o, lse, do, delta, dk_ws, dv_ws, dq, dk, dv, *,
             causal: bool, scale: float, stream: int, window=None,
             prefix_len: int = 0, q_offset: int = 0) -> int:
@@ -151,7 +166,7 @@ def _launch(lib, q, k, v, o, lse, do, delta, dk_ws, dv_ws, dq, dk, dv, *,
     return lib.flash_attention_bwd_launch(
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk_ws.data_ptr(), dv_ws.data_ptr(), dq.data_ptr(),
+        delta.data_ptr(), _ptr(dk_ws), _ptr(dv_ws), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Sk, D, Dv, float(scale),
         int(causal), 0 if window is None else int(window), int(prefix_len),
         int(q_offset), stream)
@@ -223,9 +238,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.numel() == 0 or k.numel() == 0:  # a zero-size grid is an error
         return dq[..., :D], dk.zero_()[..., :D], dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    dk_ws = torch.empty((B, Sk, H, k.shape[3]), dtype=torch.float32,
-                        device=dev)
-    dv_ws = torch.empty((B, Sk, H, Dv), dtype=torch.float32, device=dev)
+    dk_ws = dv_ws = None
+    if needs_workspace(q.dtype, H, Hkv):
+        dk_ws = torch.empty((B, Sk, H, k.shape[3]), dtype=torch.float32,
+                            device=dev)
+        dv_ws = torch.empty((B, Sk, H, Dv), dtype=torch.float32, device=dev)
     lib = _build.load("attention_bwd")
     with torch.cuda.device(dev):
         err = _launch(lib, q, k, v, o, lse, do, delta, dk_ws, dv_ws, dq, dk,

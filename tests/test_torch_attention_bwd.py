@@ -376,6 +376,20 @@ def test_kernel_function_at_mla_head_dims_is_the_reference(case):
             _close(t.grad, w)
 
 
+@pytest.mark.parametrize("dtype,H,Hkv,want", [
+    (torch.bfloat16, 128, 128, False), (torch.bfloat16, 16, 2, True),
+    (torch.bfloat16, 8, 4, True), (torch.float32, 128, 128, True),
+    (torch.float32, 16, 2, True)])
+def test_bwd_workspace_only_where_a_group_has_heads_to_sum(dtype, H, Hkv,
+                                                           want):
+    """B9 allocates its float32 dK / dV workspaces where a KV head's
+    partials are summed, or on the float32 route; a bf16 call whose group
+    has one head (multi-head latent attention) writes dK and dV from its
+    dK/dV kernel and allocates none."""
+    from repro_torch.kernels.flash_attention_bwd import needs_workspace
+    assert needs_workspace(dtype, H, Hkv) is want
+
+
 @pytest.mark.parametrize("pair", [(24, 24), (192, 64), (128, 64), (96, 96),
                                   (256, 128)])
 def test_bwd_refuses_head_dims_outside_its_pairs_off_the_cpu(pair):

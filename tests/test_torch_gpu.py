@@ -464,6 +464,49 @@ def test_flash_attention_value_head_dim_of_its_own(card, dtype, causal, S):
     assert torch.equal(got, flash_attention(q, k, v, causal=causal))
 
 
+# (B, S, H, mask) at (192, 128): B H pairs enough that the launch order
+# (attention_mask.cuh: block_work) wraps over several groups of them at S
+# 700 and 2049 -- their K / V pass half of L2 --, one group at S 1 and 63
+MLA_ORDER_CASES = [(2, 1, 64, dict()), (2, 63, 64, dict()),
+                   (2, 700, 64, dict()), (2, 700, 128, dict(causal=False)),
+                   (2, 700, 64, dict(window=100)), (1, 2049, 64, dict()),
+                   (2, 2049, 64, dict(causal=False))]
+
+
+@pytest.mark.parametrize("case", MLA_ORDER_CASES, ids=str)
+def test_flash_attention_mla_launch_order_over_many_heads(card, case):
+    """B3 bf16 at (192, 128) over many (batch, head) pairs against its
+    plain version (2e-2, and relative L2 within
+    ``chip_smoke.B3_REL_L2_BF16`` from 64 rows on), every query tile's key
+    tiles the mask's (``live_tiles``) at its (b, h, qt), one launch, and a
+    second call bit-identical."""
+    from repro_torch.kernels.flash_attention import live_tiles
+    B, S, H, mask = case
+    q, k, v = _mla_inputs(card, torch.bfloat16, S + H, B, S, H)
+    tiles = torch.zeros((B, H, -(-S // 64)), dtype=torch.int32, device=card)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, tiles_loaded=tiles, **mask)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, **mask)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    if S >= 64:
+        rel = float((got.float() - want.float()).norm()
+                    / want.float().norm())
+        assert rel <= _chip_smoke().B3_REL_L2_BF16
+    assert torch.equal(tiles, live_tiles(S, S, device=card, **mask)
+                       .expand(B, H, -1))
+    assert torch.equal(got, flash_attention(q, k, v, **mask))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def test_flash_attention_refuses_other_head_dim_pairs(card):
     q, k, v = _attn_inputs(card, torch.bfloat16, 0, (1, 8, 2, 64),
                            (1, 8, 2, 64), (1, 8, 2, 32))
@@ -1302,6 +1345,53 @@ def test_attention_bwd_bf16_group_of_eight_one_kv_head_not_causal(card,
                                               + w.abs())).all())
         assert float((g - w).norm() / w.norm()) \
             <= chip_smoke.B9_REL_L2_BF16
+
+
+# (B, S, H, Hkv, mask) at (192, 128): a group of one head (H == Hkv, no
+# workspace: the dK/dV kernel writes dK and dV) and of two (the workspace
+# and the reduce), S ragged, causal and not, a window; B H pairs enough
+# that the launch order wraps over several groups at S 700 and 2049
+MLA_BWD_CASES = [(2, 1, 64, 64, dict()), (2, 63, 64, 64, dict()),
+                 (2, 700, 64, 64, dict()), (1, 2049, 64, 64, dict()),
+                 (2, 700, 64, 64, dict(causal=False)),
+                 (2, 700, 64, 64, dict(window=100)),
+                 (2, 700, 16, 8, dict()), (1, 257, 8, 4, dict(prefix_len=70))]
+
+
+@pytest.mark.parametrize("case", MLA_BWD_CASES, ids=str)
+def test_attention_bwd_mla_one_and_two_head_groups(card, case):
+    """B9 bf16 at (192, 128), as multi-head latent attention calls it (v a
+    stride-256 view) where H == Hkv: each of dq, dk, dv within
+    ``chip_smoke.B9_REL_L2_BF16`` relative L2 of the plain version (on
+    the CPU copies of the first 8 heads where H == Hkv: heads are
+    independent there), and allclose 2e-2; one launch a call; a rerun
+    bit-identical."""
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    B, S, H, Hkv, mask = case
+    if H == Hkv:
+        q, k, v = _mla_inputs(card, torch.bfloat16, S + H, B, S, H)
+    else:
+        q, k, v = _attn_inputs(card, torch.bfloat16, S + H, (B, S, H, 192),
+                               (B, S, Hkv, 192), (B, S, Hkv, 128))
+    (do,) = _attn_inputs(card, torch.bfloat16, S, (B, S, H, 128))
+    o, lse = flash_attention(q, k, v, return_lse=True, **mask)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **mask)
+    assert flash_attention_bwd.launches == before + 2
+    hs = 8 if H == Hkv else H
+    want = flash_attention_bwd_plain(
+        *(t[:, :, :hs].cpu() for t in (q, k, v, o)), lse[:, :hs].cpu(),
+        do[:, :, :hs].cpu(), **mask)
+    limit = _chip_smoke().B9_REL_L2_BF16
+    for g, a, w, t in zip(got, again, want, (q, k, v)):
+        assert g.shape == t.shape and torch.equal(g, a)
+        g, w = g[:, :, :hs].float().cpu(), w.float()
+        assert bool(((g - w).abs() <= 2e-2 * (max(float(w.abs().max()), 1.0)
+                                              + w.abs())).all())
+        if S > 1:
+            assert float((g - w).norm() / w.norm()) <= limit
 
 
 def test_attention_bwd_bf16_unaligned_inputs_are_copied(card):
