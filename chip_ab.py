@@ -8,6 +8,7 @@ against the change.
     python3 chip_ab.py build/parent --order PC --smoke-only  # a half of it
     python3 chip_ab.py build/parent --decode-pairs 3  # the decode loops only
     python3 chip_ab.py build/parent --attention  # B3, B9 and deepseek only
+    python3 chip_ab.py build/parent --k1         # K1, its launches, the cube
     python3 chip_ab.py --calls build/parent  # Python calls a decode step (CPU)
 
 Each run (``P`` the parent tree, ``C`` this checkout, in the order
@@ -265,18 +266,22 @@ def _share(prof: dict, part: str):
                if part in k) * 1e-6 / prof["device_busy_s"]
 
 
-def attention_runs(parent: str, order: str, out_dir: str) -> dict:
-    """``--attention``: ``attention_code`` of the parent (``P``) and this
-    checkout (``C``) in the turns of ``order``, a process each; per metric
-    the values of the runs in order."""
+def tree_runs(flag: str, parent: str, order: str, out_dir: str
+              ) -> tuple[list, bool, object]:
+    """``chip_ab.py FLAG TREE`` for the parent (``P``) and this checkout
+    (``C``) in the turns of ``order``, a process each, each printing one
+    JSON line (kept under ``out_dir``). Returns the runs, whether one
+    failed, and ``series(get)``: ``get`` of each run, None where it has
+    no such value."""
     trees = {"P": os.path.abspath(parent), "C": HERE}
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    tag_ = flag.strip("-").replace("-code", "")
     runs, failed = [], False
     for i, tag in enumerate(order):
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--attention-code", trees[tag]], cwd=trees[tag],
+                            flag, trees[tag]], cwd=trees[tag],
                            env=env, capture_output=True, text=True)
-        with open(os.path.join(out_dir, f"attention_{i}_{tag}.err"),
+        with open(os.path.join(out_dir, f"{tag_}_{i}_{tag}.err"),
                   "w") as f:
             f.write(r.stderr)
         lines = r.stdout.strip().splitlines()
@@ -294,7 +299,15 @@ def attention_runs(parent: str, order: str, out_dir: str) -> dict:
             except (KeyError, TypeError, ValueError, ZeroDivisionError):
                 vals.append(None)
         return vals
+    return runs, failed, series
 
+
+def attention_runs(parent: str, order: str, out_dir: str) -> dict:
+    """``--attention``: ``attention_code`` of the parent (``P``) and this
+    checkout (``C``) in the turns of ``order``, a process each; per metric
+    the values of the runs in order."""
+    runs, failed, series = tree_runs("--attention-code", parent, order,
+                                     out_dir)
     metrics = {
         **{f"b3_{n}_{k}": series(lambda r, n=n, k=k: r["b3"][n][k])
            for n in ATTN_B3_SHAPES for k in ("device_us", "ms")},
@@ -318,6 +331,91 @@ def attention_runs(parent: str, order: str, out_dir: str) -> dict:
     return {"order": order, "failed": failed, "metrics": metrics,
             "train_mla_first_loss_bit_identical":
                 None not in first and len(set(first)) == 1}
+
+
+#: the shapes ``--k1`` times K1 at: the sweep's call (``sweep_full``'s,
+#: ``chip_smoke.sweep_kernel_inputs``) and one fleet-day call's
+K1_SHAPES = ("sweep", "fleet_call")
+
+
+def k1_code(tree: str) -> dict:
+    """K1 of ``tree``'s port by this checkout's ``chip_smoke`` code, at
+    ``K1_SHAPES``: held ``torch.equal`` to its plain version (every
+    output), its device µs a call (``kernel_device_us``), its ms a call by
+    CUDA events and the wrapper's host µs a call (200 calls issued, no
+    sync between them), beside the launch floor (a one-element add's
+    device time); then K1's launches in sweep_full's sweep and in the
+    whole fleet day, and a digest of sweep_full's cube."""
+    import chip_smoke  # this checkout's: the same timing code for both
+    sys.path.insert(0, os.path.join(os.path.abspath(tree), "src"))
+    import torch
+    import repro_torch
+    from repro_torch.core.fleet import sweep_fleet
+    from repro_torch.core.hw import NPUS
+    from repro_torch.core.policies import POLICIES, KnobGrid
+    from repro_torch.core.sweep import sweep_grid
+    from repro_torch.kernels.sa_occupancy import (sa_occupancy,
+                                                  sa_occupancy_plain)
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_ab.py --k1-code: no CUDA device")
+    dev = torch.device("cuda")
+    sweep_in = chip_smoke.sweep_kernel_inputs(dev)
+    args = {"sweep": (*sweep_in["mm"], sweep_in["saw"]),
+            "fleet_call": chip_smoke.fleet_call_k1_inputs(dev)}
+    out = {"port": os.path.dirname(repro_torch.__file__),
+           "card": chip_smoke.smi_line(), "k1": {}}
+    for name in K1_SHAPES:
+        a = args[name]
+        got, want = sa_occupancy(*a), sa_occupancy_plain(*a)
+        equal = all(torch.equal(got[k], want[k]) for k in want)
+        run = lambda: sa_occupancy(*a)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            run()
+        host_us = (time.perf_counter() - t0) / 200 * 1e6
+        torch.cuda.synchronize()
+        out["k1"][name] = {
+            "n": int(a[0].shape[0]), "S": int(torch.as_tensor(a[3]).numel()),
+            "equal_to_plain": equal, "host_us": host_us,
+            "ms": chip_smoke.event_ms(run, 200),
+            "device_us": chip_smoke.kernel_device_us(
+                run, "sa_occupancy_kernel")}
+    one = torch.ones(1, device=dev)
+    one_out = torch.empty_like(one)
+    out["launch_floor_device_us"] = chip_smoke.kernel_device_us(
+        lambda: torch.add(one, 1.0, out=one_out))
+    sa_occupancy.launches = 0
+    res = sweep_grid(sweep_in["suite"], npus=tuple(NPUS), policies=POLICIES,
+                     as_records=False, **chip_smoke.FULL_GRID)
+    out["launches_sweep"] = sa_occupancy.launches
+    out["sweep_cube_sha256"] = chip_smoke.cube_sha256(res)
+    sa_occupancy.launches = 0
+    day = sweep_fleet(chip_smoke.fleet_day(),
+                      KnobGrid(**chip_smoke.FLEET_GRID), device=dev)
+    out["launches_fleet_day"] = sa_occupancy.launches
+    out["fleet_day_requests"] = day.requests_total
+    return out
+
+
+def k1_runs(parent: str, order: str, out_dir: str) -> dict:
+    """``--k1``: ``k1_code`` of the parent (``P``) and this checkout
+    (``C``) in the turns of ``order``, a process each; per metric the
+    values of the runs in order, and whether every run's sweep cube had
+    the same digest."""
+    runs, failed, series = tree_runs("--k1-code", parent, order, out_dir)
+    metrics = {
+        **{f"k1_{n}_{k}": series(lambda r, n=n, k=k: r["k1"][n][k])
+           for n in K1_SHAPES for k in ("device_us", "ms", "host_us", "n",
+                                         "S", "equal_to_plain")},
+        **{k: series(lambda r, k=k: r[k]) for k in (
+            "launch_floor_device_us", "launches_sweep",
+            "launches_fleet_day")}}
+    digests = series(lambda r: r["sweep_cube_sha256"])
+    return {"order": order, "failed": failed, "metrics": metrics,
+            "sweep_cube_bit_identical":
+                None not in digests and len(set(digests)) == 1}
 
 
 #: the serving paths ``--decode`` times, and the runs of each tree
@@ -464,6 +562,18 @@ def _smoke_numbers(lines: list[str]) -> dict:
         if isinstance(obj, dict) and "phase" in obj:
             phases.setdefault(obj["phase"], []).append(obj)
     out = {}
+    # the run's budget: the last phase line's t_s, and the run's own
+    # summary where it prints one
+    t_s = [obj["t_s"] for objs in phases.values() for obj in objs
+           if "t_s" in obj and obj["phase"] != "run_budget"]
+    out["last_phase_t_s"] = max(t_s) if t_s else None
+    budget = phases.get("run_budget", [{}])[0]
+    out["run_budget"] = {k: budget.get(k) for k in (
+        "host_wall_s", "last_phase_t_s", "parity_s", "longest")}
+    out["parity_s"] = {p: [obj.get("t_s") for obj in objs] for p, objs in
+                       phases.items() if "parity" in p}
+    out["sweep_cube_sha256"] = phases.get("sweep_full", [{}])[0].get(
+        "cube_sha256")
     serve = phases.get("serve_full", [{}])[0]
     out["prefill_s"] = serve.get("prefill_s")
     out["decode_ms_per_step"] = serve.get("decode_ms_per_step")
@@ -669,6 +779,12 @@ def main() -> int:
                          "(``attention_code``), in the turns of --order")
     ap.add_argument("--attention-code", metavar="TREE",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--k1", action="store_true",
+                    help="instead of the chip_smoke runs: K1 of each tree "
+                         "at the sweep's and a fleet call's shapes, its "
+                         "launches and sweep_full's cube (``k1_code``), "
+                         "in the turns of --order")
+    ap.add_argument("--k1-code", metavar="TREE", help=argparse.SUPPRESS)
     ap.add_argument("--decode-pairs", type=int, metavar="N",
                     help="instead of the chip_smoke runs: N pairs of "
                          "--decode runs of the parent and this checkout")
@@ -682,14 +798,18 @@ def main() -> int:
     if args.attention_code:
         print(json.dumps(attention_code(args.attention_code)), flush=True)
         return 0
+    if args.k1_code:
+        print(json.dumps(k1_code(args.k1_code)), flush=True)
+        return 0
     if args.calls:
         print(json.dumps(host_calls(args.calls)), flush=True)
         return 0
     if not args.parent:
         ap.error("give the parent commit's tree")
-    if args.attention:
+    if args.attention or args.k1:
         os.makedirs(args.out, exist_ok=True)
-        summary = attention_runs(args.parent, args.order, args.out)
+        summary = (k1_runs if args.k1 else attention_runs)(
+            args.parent, args.order, args.out)
         print(json.dumps(summary), flush=True)
         return 1 if summary["failed"] else 0
     if args.decode_pairs:
@@ -745,6 +865,9 @@ def main() -> int:
         **{k: series(lambda r, k=k: r["smoke"]["host_bound"][k])
            for k in host_bound},
         "smoke_s": series(lambda r: r["smoke_s"]),
+        "last_phase_t_s": series(lambda r: r["smoke"]["last_phase_t_s"]),
+        "run_budget_parity_s": series(
+            lambda r: r["smoke"]["run_budget"]["parity_s"]),
         **{f"b3_bf16_{k}": series(lambda r, k=k: r["smoke"]["b3"][k])
            for k in ("ms", "device_us", "rel_l2")},
         **{f"b3_float32_{k}": series(
@@ -875,6 +998,10 @@ def main() -> int:
     first = summary["metrics"]["train_first_loss"]
     summary["train_first_loss_bit_identical"] = (
         None not in first and len(set(first)) == 1)
+    cubes = series(lambda r: r["smoke"]["sweep_cube_sha256"])
+    # None where a run's chip_smoke.py prints no digest
+    summary["sweep_cube_bit_identical"] = None if None in cubes \
+        else len(set(cubes)) == 1
     print(json.dumps(summary), flush=True)
     return 1 if failed else 0
 

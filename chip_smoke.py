@@ -67,8 +67,9 @@ path, read just after) that each path really went through its kernels:
   head dim 256; B3 with a 256-patch bidirectional prefix, B4 at every
   step) behind its 256 zero patch embeddings; hubert-xlarge's encoder
   forward (48 layers, head dim 80, bidirectional B3) over 4 x 1 500
-  seeded frames; each, cut to 2 layers (hymba 4) in float32, against
-  the CPU. B3 and B4 are also held to their plain versions with every
+  seeded frames; each, cut to 2 layers (hymba's with one global layer,
+  batch 1) in float32, against the CPU. B3 and B4 are also held to
+  their plain versions with every
   new mask and head dim, B3's loaded tiles to the mask's count;
 * serving granite-moe-1b-a400m at full width (24 layers of GQA attention
   and 32 routed experts top-8; B3 at prefill, B4 at every step) and
@@ -275,9 +276,9 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 2048, 32
 # limit on the bf16 decode-vs-forward relative L2 (below), the text
 # prompt's length (hymba's is twice its 2 048-token window, so its 29
 # sliding layers skip key tiles; paligemma's follows its 256 patches) and
-# the layers its card-vs-CPU parity phase keeps (hymba cut to 2 layers
-# would have only global ones: at 4, layer 1 slides between the global
-# 0, 2 and 3 -- cut from 5 in PR 31, where the run passed its time)
+# the layers its card-vs-CPU parity phase keeps (hymba's with one global
+# layer: 0 global, 1 sliding), with the batch where it is not 2
+# (``parity_reduced`` says why)
 SERVE_PATHS = {
     SERVE_ARCH: {"widths": (36, 2048, 151936), "prefill": "flash_attention",
                  "step": "decode_attention", "rel_l2_bf16": 0.05,
@@ -292,8 +293,14 @@ SERVE_PATHS = {
     HYBRID_ARCH: {"widths": (32, 1600, 32001),
                   "prefill": ("flash_attention", "ssd_scan"),
                   "step": "decode_attention", "rel_l2_bf16": 0.25,
-                  "prompt": 4096, "parity_layers": 4,
-                  "parity_prompt": 2112},
+                  "prompt": 4096, "parity_layers": 2,
+                  "parity_config": {"n_global_layers": 1},
+                  "parity_prompt": 2112, "parity_batch": 1,
+                  "parity_reduced": "depth 32 -> 2 layers, global layers "
+                                    "3 -> 1 (layer 0 global, layer 1 "
+                                    "slides), batch 2 -> 1: its two CPU "
+                                    "prefills over 2 112 tokens took ~20 s "
+                                    "a row at 4 layers and batch 2"},
     VLM_ARCH: {"widths": (18, 2048, 257216), "prefill": "flash_attention",
                "step": "decode_attention", "rel_l2_bf16": 0.05,
                "prompt": SERVE_PROMPT, "parity_layers": 2,
@@ -391,11 +398,33 @@ def fail(msg: str, code: int = 1):
     sys.exit(code)
 
 
+#: (phase, t_s, seconds since the line before) of every line ``emit``
+#: printed: what ``run_budget`` reads
+PHASE_TIMES: list = []
+#: the run's limit on the machine with the card, the build included
+RUN_LIMIT_S = 1200.0
+
+
 def emit(phase: str, **kw) -> None:
     """One phase's JSON line, with ``t_s``: seconds since the script
     started (the run's budget)."""
-    print(json.dumps({"phase": phase, **kw,
-                      "t_s": time.perf_counter() - T_START}), flush=True)
+    t = time.perf_counter() - T_START
+    PHASE_TIMES.append((phase, t, t - (PHASE_TIMES[-1][1] if PHASE_TIMES
+                                       else 0.0)))
+    print(json.dumps({"phase": phase, **kw, "t_s": t}), flush=True)
+
+
+def run_budget() -> dict:
+    """The run's budget read from one line: the host wall so far, the
+    last phase's ``t_s``, the ten longest phases (seconds since the line
+    before each) and the parity phases' seconds, together and each."""
+    parity = [(p, s) for p, _, s in PHASE_TIMES if "parity" in p]
+    return {"host_wall_s": time.perf_counter() - T_START,
+            "last_phase_t_s": PHASE_TIMES[-1][1], "limit_s": RUN_LIMIT_S,
+            "longest": [[p, round(s, 1), round(t, 1)] for p, t, s in sorted(
+                PHASE_TIMES, key=lambda x: -x[2])[:10]],
+            "parity_s": sum(s for _, s in parity),
+            "parity": [[p, round(s, 1)] for p, s in parity]}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1191,13 +1220,29 @@ def time_b3(q, k, v, causal=True, window=None, prefix_len=0,
             "plain_ms": event_ms(
                 lambda: flash_attention_plain(q, k, v, **mask), 3, warmup=1),
             "library_ms": event_ms(lib, 10),
-            "library_device_us": kernel_device_us(lib),
+            "library_device_us": library_device_us(lib),
             "library_kernels": device_kernel_names(lib),
             "library_call": "scaled_dot_product_attention("
                             + ("is_causal=True" if plain_causal else
                                "attn_mask=<the same boolean mask>")
                             + ", enable_gqa=True)",
             "bound_ms": bound, "bound_by": by}
+
+
+def library_device_us(fn) -> float:
+    """Device microseconds of one call of a library function (``fn``)
+    whose kernels are not ours to name: the kernels a profile of its calls
+    shows (``device_kernel_names``), timed by ``calls_device_us`` -- each
+    kernel's mean over the launches the profiler kept, so that a profile
+    that lost records does not read below the call's time; every kernel
+    of the call in the profile once a call."""
+    names = tuple(device_kernel_names(fn, top=16))
+    if not names:  # every profile lost its records: CUDA events
+        us = 1e3 * event_ms(fn, 5)
+        PROFILER_FALLBACKS.append({"kernels": ["library call"],
+                                   "event_us": us})
+        return us
+    return calls_device_us(fn, names, names[0], kinds=len(names))
 
 
 def device_kernel_names(fn, top: int = 3, reps: int = 5) -> list:
@@ -1274,7 +1319,7 @@ def time_b4(q, kc, vc, cache_len: int, window=None) -> dict:
                 lambda: decode_attention_plain(q, kc, vc, cache_len,
                                                window=window), 10),
             "library_ms": event_ms(lib, 50),
-            "library_device_us": kernel_device_us(lib),
+            "library_device_us": library_device_us(lib),
             "bound_ms": bound, "bound_by": by}
 
 
@@ -1999,6 +2044,7 @@ def program_plane_full(card: str, suite, keep=None) -> dict:
 FLEET_GRID = dict(window_scale=(0.25, 0.5, 1.0, 2.0),
                   delay_scale=(1.0, 2.0, 4.0), leak_off_logic=(None, 0.2))
 FLEET_DAY_S = 86400.0
+FLEET_EPOCH_S = 900.0
 FLEET_MIN_REQUESTS = 1_000_000
 # fleet_parity's cut: the first 8 epochs of the day, card against CPU
 FLEET_PARITY_S = 8 * 900.0
@@ -2014,6 +2060,64 @@ GUARD_WEDGE_S = 1.0
 RESUME_CHILD = os.path.join("tests", "_torch_guard_resume_child.py")
 RESUME_KILLS = ("boundary:2", "mid:3")
 FLEET_RTOL = 1e-9
+
+
+def sweep_kernel_inputs(dev) -> dict:
+    """What ``evaluate_batch`` hands K1 and K2 at sweep_full's size (the
+    paper suite on NPU-D over ``FULL_GRID``'s knobs): the suite, its
+    stacked traces, the backend, the host columns, the knob arrays, the
+    matmul dims ``mm`` and the unique widths ``saw`` (K1's arguments)."""
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.hw import get_npu
+    from repro_torch.core.opgen import paper_suite, stack_traces
+    from repro_torch.core.policies import KnobGrid, _host_columns, \
+        _knob_arrays
+    suite = paper_suite()
+    st = stack_traces(suite)
+    bk = get_backend(dev)
+    npu_d = get_npu("NPU-D")
+    host, _ = _host_columns(st, npu_d)
+    karr = _knob_arrays(KnobGrid(**FULL_GRID).product(), npu_d, bk)
+    mm = [bk.asarray(host["op"][k]) for k in ("mm_m", "mm_k", "mm_n")]
+    return {"suite": suite, "st": st, "bk": bk, "host": host, "karr": karr,
+            "mm": mm, "saw": karr["saw_unique"]}
+
+
+def fleet_call_k1_inputs(dev) -> tuple:
+    """K1's arguments in one ``evaluate_batch`` call of the fleet day (its
+    first epoch's), caught at the backend's ``sa_occupancy``."""
+    from repro_torch.core.backend import TorchBackend
+    from repro_torch.core.fleet import sweep_fleet
+    from repro_torch.core.policies import KnobGrid
+    real = TorchBackend.__dict__["sa_occupancy"]
+    seen = []
+
+    def kept(*a):
+        seen.append(a)
+        return real.__func__(*a)
+    TorchBackend.sa_occupancy = staticmethod(kept)
+    try:
+        sweep_fleet(fleet_day(FLEET_EPOCH_S), KnobGrid(**FLEET_GRID),
+                    device=dev)
+    finally:
+        TorchBackend.sa_occupancy = real
+    check(bool(seen), "fleet_call_k1_inputs: the fleet called no K1")
+    return seen[-1]
+
+
+def cube_sha256(res) -> str:
+    """A digest of every field of a ``BatchResult`` cube, bits and
+    shapes: two cubes with one digest are the same bits."""
+    import hashlib
+
+    import numpy as np
+    from repro_torch.core.guard import _result_fields
+    h = hashlib.sha256()
+    for name, arr in _result_fields(res):
+        a = np.ascontiguousarray(arr)
+        h.update(f"{name}{a.shape}{a.dtype}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
 
 
 def fleet_day(duration_s: float = FLEET_DAY_S):
@@ -3618,27 +3722,29 @@ def profile_serve(srv, prompts, hand: tuple[str, ...]) -> dict:
             "decode_4_steps": profile_run(decode, hand, top=10)}
 
 
-def serve_parity(arch: str, reduced: bool = False,
-                 attention: str = "baseline", segments: bool = False
-                 ) -> dict:
+def serve_parity(arch: str, reduced: bool = False, hillclimb=None) -> dict:
     """``arch`` at full width cut to ``SERVE_PATHS``' parity layers (2;
-    hymba 4) -- or, with ``reduced``, its reduced config whole (deepseek's
-    MLA at head dims (24, 16)) -- float32, the same weights and tokens on
-    the card (the hand kernels) and on the CPU (their plain forms), under
-    the hill-climb toggles ``attention`` / ``segments`` on both sides
-    (``models.model.hillclimb``: with the triangle, the CPU's prefill
-    attention past its chunk threshold is ``flash_attention_triangle``,
-    counted; the card's is B3 either way): prefill of a ragged
-    prompt (200 tokens; hymba 2 112, past its window; paligemma behind 256
-    seeded patch embeddings) and 4 decode steps, teacher-forced with the
-    CPU's tokens. For mamba2 the CPU runs the prompt as one chunk of 200
-    (the JAX package's rule) and B5 as chunks of 64 with a ragged last
+    hymba's with one global layer) -- or, with ``reduced``, its reduced
+    config whole (deepseek's MLA at head dims (24, 16)) -- float32, the
+    same weights and tokens on the card (the hand kernels) and on the CPU
+    (their plain forms): prefill of a ragged prompt (200 tokens; hymba 2 112, past its window;
+    paligemma behind 256 seeded patch embeddings) and 4 decode steps,
+    teacher-forced with the CPU's tokens, for a batch of 2 (the path's
+    ``parity_batch``). For mamba2 the CPU runs the prompt as one chunk of
+    200 (the JAX package's rule) and B5 as chunks of 64 with a ragged last
     one: the check also shows that the result does not depend on the
     chunk. The encoder (hubert) has no decode: its forward over 1 500
     seeded frames is compared instead (``encode_parity``). deepseek keeps
     16 of its routed experts (``parity_moe``); for an MoE arch the logits
     of rows routed otherwise by the two devices are left out
-    (``route_diff``: a difference must be a rounding tie)."""
+    (``route_diff``: a difference must be a rounding tie).
+
+    ``hillclimb`` (``(attention, segments)``, ``models.model.hillclimb``'s
+    toggles): the same weights and tokens once more on both devices under
+    them -- with the triangle, the CPU's prefill attention past its chunk
+    threshold is ``flash_attention_triangle``, counted; the card's is B3
+    either way -- held to the same limits; its record is the returned
+    record's ``"hillclimb"``."""
     import contextlib
     import dataclasses
 
@@ -3651,17 +3757,21 @@ def serve_parity(arch: str, reduced: bool = False,
     from repro_torch.models.param import init_params, tree_map
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
+    cores_back()
     path = SERVE_PATHS[arch]
     cfg = get_arch(arch).reduced() if reduced \
-        else get_cfg(arch, n_layers=path["parity_layers"])
+        else get_cfg(arch, n_layers=path["parity_layers"],
+                     **path.get("parity_config", {}))
     if "parity_moe" in path and not reduced:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, **path["parity_moe"]))
+    check(hillclimb is None or not cfg.moe,
+          "serve_parity: the hill-climb leg logs no routing")
     params = init_params(registry.param_specs(cfg),
                          torch.Generator(device="cuda").manual_seed(1),
                          "cuda")
     on = {"cuda": params, "cpu": tree_map(lambda t: t.cpu(), params)}
-    B, S0, n = 2, path["parity_prompt"], 4
+    B, S0, n = path.get("parity_batch", 2), path["parity_prompt"], 4
     n_img = image_slots(cfg)
     prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (B, S0))
     extra = frontend_batch(cfg, B, "cuda",
@@ -3685,28 +3795,18 @@ def serve_parity(arch: str, reduced: bool = False,
                 out.append(logits[:, -1].float().cpu())
         return out
 
+    def legs(logs):
+        """The CPU's run, then the card's fed its tokens."""
+        t0 = time.perf_counter()
+        want = run("cpu", None, logs["cpu"])
+        t_cpu = time.perf_counter() - t0
+        reset_launches()
+        got = run("cuda", [w.argmax(-1) for w in want], logs["cuda"])
+        return want, got, read_launches(), t_cpu
+
     logs = {d: RouteLog() if cfg.moe else contextlib.nullcontext()
             for d in ("cpu", "cuda")}
-    triangle = common.flash_attention_triangle
-    triangles = []
-
-    def counted_triangle(*a, **kw):
-        triangles.append(a[0].device.type)
-        return triangle(*a, **kw)
-    common.flash_attention_triangle = counted_triangle
-    try:
-        with M.hillclimb(attention, segments):
-            t0 = time.perf_counter()
-            want = run("cpu", None, logs["cpu"])
-            t_cpu = time.perf_counter() - t0
-            feed = [w.argmax(-1) for w in want]
-            reset_launches()
-            got = run("cuda", feed, logs["cuda"])
-            launches = read_launches()
-    finally:
-        common.flash_attention_triangle = triangle
-    check("cuda" not in triangles, "serve_parity: the card ran the plain "
-          "triangle")
+    want, got, launches, t_cpu = legs(logs)
     alike, route_rec = None, {}
     if cfg.moe:
         diff = route_diff(*(moe_decode_routes(logs[d].tables(), n + 1)
@@ -3720,23 +3820,53 @@ def serve_parity(arch: str, reduced: bool = False,
                 f"{cfg.moe.n_experts} (top-{cfg.moe.top_k} and "
                 f"{cfg.moe.n_shared_experts} shared kept): 160 at full "
                 f"width are 21 GB of float32 on the host")
+    if "parity_reduced" in path and not reduced:
+        route_rec["reduced"] = path["parity_reduced"]
     want_launches = expected_launches(path["prefill"], cfg.n_layers)
     if path["step"] is not None:
         want_launches[path["step"]] = cfg.n_layers * n
     check(launches == want_launches,
           f"serve_parity launches {launches}, want {want_launches}")
-    return {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
-            "vocab": cfg.vocab_size, "dtype": "float32", "batch": B,
-            "prompt": S0, "image_slots": n_img, "decode_steps": n,
-            **({"config": "reduced", "mla_head_dims": [
-                cfg.mla.nope_head_dim + cfg.mla.rope_head_dim,
-                cfg.mla.v_head_dim]} if reduced and cfg.mla else {}),
-            **({"attention": attention, "segments": segments,
-                "triangle_calls_cpu": len(triangles)}
-               if (attention, segments) != ("baseline", False) else {}),
-            "launches": launches, **route_rec,
-            **parity_verdict(got, want, "serve_parity", alike),
-            "wall_s_cpu": t_cpu}
+    rec = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "dtype": "float32", "batch": B,
+           "prompt": S0, "image_slots": n_img, "decode_steps": n,
+           **({"config": "reduced", "mla_head_dims": [
+               cfg.mla.nope_head_dim + cfg.mla.rope_head_dim,
+               cfg.mla.v_head_dim]} if reduced and cfg.mla else {}),
+           "launches": launches, **route_rec,
+           **parity_verdict(got, want, "serve_parity", alike),
+           "wall_s_cpu": t_cpu}
+    if hillclimb is None:
+        return rec
+    triangle = common.flash_attention_triangle
+    triangles = []
+
+    def counted_triangle(*a, **kw):
+        triangles.append(a[0].device.type)
+        return triangle(*a, **kw)
+    common.flash_attention_triangle = counted_triangle
+    try:
+        with M.hillclimb(*hillclimb):
+            want_h, got_h, launches_h, t_cpu_h = legs(
+                {d: contextlib.nullcontext() for d in ("cpu", "cuda")})
+    finally:
+        common.flash_attention_triangle = triangle
+    check("cuda" not in triangles, "serve_parity: the card ran the plain "
+          "triangle")
+    check(launches_h == want_launches, f"serve_parity {hillclimb} launches "
+          f"{launches_h}, want {want_launches}")
+    rec["hillclimb"] = {
+        **{k: rec[k] for k in ("arch", "layers", "d_model", "vocab", "dtype",
+                               "batch", "prompt", "image_slots",
+                               "decode_steps")},
+        **{k: v for k, v in route_rec.items() if k == "reduced"},
+        "attention": hillclimb[0], "segments": hillclimb[1],
+        "triangle_calls_cpu": len(triangles), "launches": launches_h,
+        "card_equal_to_baseline": all(torch.equal(a, b)
+                                      for a, b in zip(got, got_h)),
+        **parity_verdict(got_h, want_h, "serve_parity", None),
+        "wall_s_cpu": t_cpu_h}
+    return rec
 
 
 def parity_verdict(got, want, what: str, alike=None) -> dict:
@@ -3891,12 +4021,14 @@ TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_FULL = dict(seq_len=2048, global_batch=2, microbatches=2, steps=4)
 # the card's attention backward at the training shape (one microbatch)
 B9_MODEL_SHAPE = (1, 2048, 16, 2, 128)
-# card vs CPU, float32, qwen2.5-3b cut to 2 layers (train_parity)
+# card vs CPU, float32, qwen2.5-3b cut to 2 layers (train_parity): the
+# steps taken, AdamW's moments carried from the first into the second
+TRAIN_PARITY_STEPS = 2
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_TOL = 1e-4      # relative L2, every gradient leaf
-TRAIN_PARAM_TOL = 1e-5     # relative L2, every parameter leaf, 3 steps
+TRAIN_PARAM_TOL = 1e-5     # relative L2, every parameter leaf, after them
 # a leaf initialized to zero (qwen's q, k, v biases) has no value but its
-# three updates, so its relative L2 is the updates' own: AdamW's first
+# updates, so its relative L2 is the updates' own: AdamW's first
 # steps (eps 1e-8) are sign-like on the components with gradients near
 # eps (RoPE's lowest frequencies, ~1e-7), where two float32 summation
 # orders differ by ~1e-9; the CPU tests read up to 5.1e-3 for the k bias
@@ -3954,24 +4086,30 @@ TRAIN_CUT = {MLA_ARCH: dict(n_layers=3, moe=dict(n_experts=16),
 # A_log's gradient and, through AdamW's sign-like first steps, mamba2's
 # tied embedding past the limits below -- the differences of cumsums of
 # size ~100-1000 in float32 (tests/test_torch_ssd_bwd.py); the kernels
-# phase holds B10 over many chunks. hymba at 4
-# layers (0, 2, 3 global; 1 sliding) with its window cut to 32 so
-# that the sequence slides past it; paligemma's 256 patches and 32 text
-# tokens, one sequence (its CPU leg, 257 k-entry logits, is the longest)
+# phase holds B10 over many chunks. hymba at 2
+# layers (0 global, 1 sliding) with its window cut to 32 so that the
+# sequence slides past it; paligemma's 256 patches and 32 text tokens,
+# one sequence
 TRAIN_PARITY = {
     # granite at train_parity's defaults; deepseek's leading dense layer
     # and 1 MoE layer of 16 routed experts at 64 tokens, and one step:
-    # three steps' leaf copies of a 5 120-wide, 102 400-vocab model would
-    # hold ~40 GB on the host
+    # a 5 120-wide, 102 400-vocab model's state, gradients and leaf copies
+    # hold ~50 GB on the host
     MLA_ARCH: dict(seq_len=64, batch=1, steps=1,
                    config=dict(moe=dict(n_experts=16)),
                    reduced="depth 60 -> 2 (dense0 + 1 MoE layer), routed "
                            "experts 160 -> 16"),
     SSM_ARCH: dict(seq_len=64),
-    HYBRID_ARCH: dict(seq_len=64, config=dict(n_layers=4,
+    HYBRID_ARCH: dict(seq_len=64, config=dict(n_layers=2, n_global_layers=1,
                                               sliding_window=32),
-                      reduced="depth 32 -> 4, sliding window 2048 -> 32"),
-    VLM_ARCH: dict(seq_len=288, batch=1),
+                      reduced="depth 32 -> 2, global layers 3 -> 1 (layer "
+                              "0 global, 1 slides), sliding window 2048 -> "
+                              "32"),
+    # one step: its 257 k-entry logits and tied embedding make each step
+    # the longest CPU leg but deepseek's; the moments' carry into a second
+    # step is held on the other archs
+    VLM_ARCH: dict(seq_len=288, batch=1, steps=1,
+                   reduced="depth 18 -> 2, 1 step"),
     AUDIO_ARCH: dict(seq_len=200),
 }
 
@@ -4549,9 +4687,36 @@ def _numpy_train_state(params) -> dict:
     import numpy as np
     from repro_torch.models.param import tree_map
     p = tree_map(lambda t: t.detach().cpu().numpy(), params)
-    zeros = tree_map(np.zeros_like, p)
+    # broadcast zeros: no host memory, expanded on the device they reach
+    zeros = tree_map(lambda a: np.broadcast_to(np.zeros((), a.dtype),
+                                               a.shape), p)
     return {"params": p, "opt_state": {"m": zeros, "v": zeros, "step": 0},
             "step": 0}
+
+
+class FirstGrads:
+    """While active, the gradient tree of the first ``make_train_step``
+    step, as that step hands it to AdamW (leaf by leaf, by path; the
+    tensors themselves, which the step drops from ``.grad`` afterwards and
+    AdamW reads without writing): the step's gradient without a backward
+    pass of its own."""
+
+    def __enter__(self):
+        from repro_torch.models.param import tree_leaves
+        from repro_torch.train import steps
+        self._real = real = steps.adamw_update
+        self.grads = None
+
+        def kept(grads, *a, **k):
+            if self.grads is None:
+                self.grads = dict(tree_leaves(grads))
+            return real(grads, *a, **k)
+        steps.adamw_update = kept
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.train import steps
+        steps.adamw_update = self._real
 
 
 def cut_config(cfg, cut: dict):
@@ -4579,12 +4744,6 @@ def host_peak_rss_bytes() -> int:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
-def _leaf_rel(a, b) -> float:
-    import torch
-    a, b = a.detach().float().cpu(), b.detach().float().cpu()
-    return float((a - b).norm() / a.norm().clamp_min(1e-30))
-
-
 def train_parity(card: str, arch: str = TRAIN_ARCH,
                  reduced: bool = False) -> dict:
     """``arch`` at full width cut to ``TRAIN_PARITY``'s depth (qwen2.5-3b:
@@ -4592,12 +4751,13 @@ def train_parity(card: str, arch: str = TRAIN_ARCH,
     ``TRAIN_PARITY``'s defaults (deepseek's MLA at head dims (24, 16)) --
     float32, from one ``train_state_from_numpy`` state on the
     card (B3 / B5 forward, B9 / B10 backward) and on the CPU (their plain
-    forms): the loss and every gradient leaf of one backward, then 3
-    ``make_train_step`` steps (``TRAIN_PARITY``'s ``steps``): losses and
-    every parameter leaf after them. An MoE arch's routing is recorded on
-    both sides (``RouteLog``) and must be the same: a difference fails the
-    phase with the reference's top-(K+1) probability gap where it first
-    shows."""
+    forms): ``TRAIN_PARITY_STEPS`` ``make_train_step`` steps (or
+    ``TRAIN_PARITY``'s ``steps``), the losses, every gradient leaf of the
+    first step (``FirstGrads``) and every parameter leaf after the last.
+    The card's leaves stay on the card and each CPU leaf is compared
+    there. An MoE arch's routing is recorded on both sides (``RouteLog``)
+    and must be the same: a difference fails the phase with the
+    reference's top-(K+1) probability gap where it first shows."""
     import contextlib
 
     import torch
@@ -4605,19 +4765,26 @@ def train_parity(card: str, arch: str = TRAIN_ARCH,
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.convert import train_state_from_numpy
     from repro_torch.data.pipeline import SyntheticDataset
-    from repro_torch.models import model as M
     from repro_torch.models import registry
     from repro_torch.models.param import init_params, tree_leaves
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.steps import make_train_step
 
+    cores_back()
     cut = {} if reduced else TRAIN_PARITY.get(arch, {})
     cfg = get_arch(arch).reduced() if reduced else cut_config(
         get_arch(arch), {"n_layers": 2, **cut.get("config", {})})
-    n_steps = cut.get("steps", 3)
-    dump = _numpy_train_state(init_params(
-        registry.param_specs(cfg), torch.Generator().manual_seed(2), "cpu"))
-    zero_init = {p for p, a in tree_leaves(dump["params"]) if not a.any()}
+    n_steps = cut.get("steps", TRAIN_PARITY_STEPS)
+    seconds = {}
+    t0 = time.perf_counter()
+    # the weights drawn on the card (seconds where the CPU's generator
+    # takes tens for deepseek's 1.96 B), then dumped to the host once
+    init = init_params(registry.param_specs(cfg),
+                       torch.Generator(device="cuda").manual_seed(2), "cuda")
+    zero_init = {p for p, t in tree_leaves(init) if not bool(t.any())}
+    dump = _numpy_train_state(init)
+    del init
+    seconds["state"] = time.perf_counter() - t0
     opt = AdamWConfig(total_steps=10, warmup_steps=2)
     shape = ShapeConfig("train_parity", cut.get("seq_len", 128),
                         cut.get("batch", 2), "train")
@@ -4626,32 +4793,25 @@ def train_parity(card: str, arch: str = TRAIN_ARCH,
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
         st = train_state_from_numpy(dump, device=dev)
-        if dev == "cpu":  # the last leg: the host's two dumped trees go
+        if dev == "cpu":  # the last leg: the host's dumped tree goes
             dump = None
         data = SyntheticDataset(cfg, shape, seed=3, device=dev)
         log = RouteLog() if cfg.moe else contextlib.nullcontext()
-        with log:
-            loss, _ = M.loss_fn(st.params, data.batch(0), cfg,
-                                dtype=torch.float32)
-            loss.backward()
-            grads = {path: None if p.grad is None
-                     else p.grad.detach().cpu()
-                     for path, p in tree_leaves(st.params)}
-            step = make_train_step(cfg, opt, dtype=torch.float32)
-            losses = []
+        step = make_train_step(cfg, opt, dtype=torch.float32)
+        losses = []
+        with log, FirstGrads() as first:
             for i in range(n_steps):
                 st, m = step(st, data.batch(i))
                 losses.append(float(m["loss"]))
         if cfg.moe:
             routes[dev] = log.tables()
-        side[dev] = {"loss0": float(loss.detach()), "grads": grads,
-                     "losses": losses,
-                     "params": {path: p.detach().cpu()
-                                for path, p in tree_leaves(st.params)},
-                     "seconds": time.perf_counter() - t0}
+        side[dev] = {"losses": losses, "grads": first.grads,
+                     "params": {path: p.detach()
+                                for path, p in tree_leaves(st.params)}}
         if dev == "cuda":
             launches = read_launches()
-        del st, data, loss, grads
+        del st, data, first
+        seconds[dev] = time.perf_counter() - t0
     route_rec = {}
     if cfg.moe:
         diff = route_diff(routes["cpu"], routes["cuda"], True)
@@ -4661,44 +4821,56 @@ def train_parity(card: str, arch: str = TRAIN_ARCH,
               f"train_parity[{arch}]: the card routes otherwise than the "
               f"CPU: {route_rec['routing']}")
     card_, cpu_ = side["cuda"], side["cpu"]
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(
-        [card_["loss0"], *card_["losses"]], [cpu_["loss0"], *cpu_["losses"]]))
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(card_["losses"], cpu_["losses"]))
     check(loss_rel <= TRAIN_LOSS_RTOL,
           f"train_parity: card vs CPU loss differs by {loss_rel} relative")
-    grad_rel = {"/".join(p): _leaf_rel(cpu_["grads"][p], g)
-                for p, g in card_["grads"].items() if g is not None}
-    check({"/".join(p) for p, g in card_["grads"].items() if g is None}
-          == {"/".join(p) for p, g in cpu_["grads"].items() if g is None},
+    t0 = time.perf_counter()
+    check(set(card_["grads"]) == set(cpu_["grads"]),
           "train_parity: the card and the CPU reach different leaves")
+
+    def rel_on_card(want, got):  # ||cpu - card|| / ||cpu||, leaf by leaf
+        out = {}
+        for path in list(got):
+            a = want.pop(path).to(got[path].device, torch.float32)
+            b = got.pop(path).float()
+            out[path] = float((a - b).norm() / a.norm().clamp_min(1e-30))
+            del a, b
+        return out
+    grad_rel = {"/".join(p): r for p, r in
+                rel_on_card(cpu_["grads"], card_["grads"]).items()}
+    param_rel = rel_on_card(cpu_["params"], card_["params"])
+    seconds["compare"] = time.perf_counter() - t0
     worst_grad = max(grad_rel.values())
     check(worst_grad <= TRAIN_GRAD_TOL,
           f"train_parity[{arch}]: a gradient leaf differs by {worst_grad} "
           f"relative L2: {grad_rel}")
-    param_rel = {p: _leaf_rel(cpu_["params"][p], t)
-                 for p, t in card_["params"].items()}
     for p, r in param_rel.items():
         tol = TRAIN_ZERO_INIT_TOL if p in zero_init else TRAIN_PARAM_TOL
         check(r <= tol, f"train_parity: parameter leaf {p} differs by {r} "
                         f"relative L2 after {n_steps} steps (limit {tol})")
-    # 1 backward and the steps, each layer's forward twice (remat "full")
-    want = train_launches(cfg, 1 + n_steps)
+    # the steps, each layer's forward twice (remat "full")
+    want = train_launches(cfg, n_steps)
     check(launches == want, f"train_parity launches {launches} != {want}")
     return {"card": card, "arch": arch, "layers": cfg.n_layers,
             "d_model": cfg.d_model,
-            "reduced": "the reduced config" if reduced
-            else cut.get("reduced", "depth"),
+            "reduced": ("the reduced config" if reduced
+                        else cut.get("reduced", "depth"))
+            + f"; {n_steps} step(s), the gradient compared the first "
+              f"step's (no backward pass of its own)",
             "seq_len_batch": [shape.seq_len, shape.global_batch],
             "loss_max_rel": loss_rel, "grad_max_rel_l2": worst_grad,
             "param_max_rel_l2": max(r for p, r in param_rel.items()
                                     if p not in zero_init),
             "param_rel_l2_zero_init": {"/".join(p): param_rel[p]
                                        for p in sorted(zero_init)},
-            "losses_card": [card_["loss0"], *card_["losses"]],
-            "losses_cpu": [cpu_["loss0"], *cpu_["losses"]],
+            "leaves_compared": {"grads": len(grad_rel),
+                                "params": len(param_rel)},
+            "losses_card": card_["losses"], "losses_cpu": cpu_["losses"],
             "launches_card": launches, "steps": n_steps, **route_rec,
             "params": registry.count_params(cfg),
             "host_peak_rss_bytes": host_peak_rss_bytes(),
-            "seconds": {d: side[d]["seconds"] for d in side},
+            "seconds": seconds,
             "tolerance": {"loss_rel": TRAIN_LOSS_RTOL,
                           "grad_rel_l2": TRAIN_GRAD_TOL,
                           "param_rel_l2": TRAIN_PARAM_TOL,
@@ -5042,6 +5214,17 @@ def start_dry_runs() -> dict:
             "started": time.perf_counter()}
 
 
+def cores_back() -> None:
+    """Once the dry-run child has ended, this process's threads take its
+    core back (the CPU legs of the parity phases after it run on every
+    core)."""
+    if _MAIN_CORES and all(p.poll() is not None for p in _CHILDREN):
+        import torch
+        _set_cores(set(_MAIN_CORES[0]))
+        torch.set_num_threads(_MAIN_CORES[1])
+        _MAIN_CORES.clear()
+
+
 def finish_dry_run(child: dict, name: str) -> dict:
     """One cell's JSON from the dry-run child, waiting for the cell; once
     the child has ended, this process has its cores back."""
@@ -5058,11 +5241,7 @@ def finish_dry_run(child: dict, name: str) -> dict:
         except subprocess.TimeoutExpired:
             p.kill()
             p.wait()
-    if p.poll() is not None and _MAIN_CORES:
-        import torch
-        _set_cores(set(_MAIN_CORES[0]))
-        torch.set_num_threads(_MAIN_CORES[1])
-        _MAIN_CORES.clear()
+    cores_back()
     waited = time.perf_counter() - t0
     log.flush()
     with open(log.name) as f:
@@ -5845,12 +6024,8 @@ def main() -> int:
     try:
         import numpy as np
         import torch
-        from repro_torch.core.backend import get_backend
-        from repro_torch.core.hw import NPUS, get_npu
-        from repro_torch.core.opgen import paper_suite, stack_traces
-        from repro_torch.core.policies import (POLICIES, KnobGrid,
-                                               PolicyKnobs, _host_columns,
-                                               _knob_arrays)
+        from repro_torch.core.hw import NPUS
+        from repro_torch.core.policies import POLICIES, KnobGrid, PolicyKnobs
         from repro_torch.core.sweep import sweep, sweep_grid
         from repro_torch.kernels import _build
         from repro_torch.kernels.sa_occupancy import (sa_occupancy,
@@ -5894,16 +6069,12 @@ def main() -> int:
     dry_runs = start_dry_runs()
 
     # ---- 3. kernels vs their plain versions -----------------------------
-    suite = paper_suite()
-    st = stack_traces(suite)
-    bk = get_backend(dev)
-    npu_d = get_npu("NPU-D")
-    host, _ = _host_columns(st, npu_d)
+    inputs = sweep_kernel_inputs(dev)
+    suite, st, bk, host = (inputs[k] for k in ("suite", "st", "bk", "host"))
     full_knobs = KnobGrid(**FULL_GRID).product()
-    karr = _knob_arrays(full_knobs, npu_d, bk)
-    saw_main = karr["saw_unique"]                  # what the sweep passes
+    karr, mm = inputs["karr"], inputs["mm"]
+    saw_main = inputs["saw"]                       # what the sweep passes
     n_pairs = int(karr["pair_saw_idx"].shape[0])
-    mm = [bk.asarray(host["op"][k]) for k in ("mm_m", "mm_k", "mm_n")]
     n_ops = int(mm[0].shape[0])
 
     # K1: bit for bit against the plain version, on the card
@@ -6090,7 +6261,7 @@ def main() -> int:
          wall_s_first=t_first, wall_s_steady=t_steady,
          cells_per_s_steady=n_cells / t_steady, launches=launches,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
-         bit_identical_rerun=True)
+         bit_identical_rerun=True, cube_sha256=cube_sha256(res1))
 
     emit("profile", **profile_run(lambda: run_full()[1],
                                   ("sa_occupancy_kernel",
@@ -6207,15 +6378,18 @@ def main() -> int:
         emit("profile_serve", **profile_serve(srv, prompts, hand))
         del srv
         torch.cuda.empty_cache()
-        emit(f"{phase}_parity", **serve_parity(arch))
-        torch.cuda.empty_cache()
-        if arch == HYBRID_ARCH:  # card (B3) vs CPU (the plain triangle)
-            par = serve_parity(arch, attention="triangle", segments=True)
-            check(par["triangle_calls_cpu"] == SERVE_PATHS[arch][
+        # hymba's again under the hill-climb toggles: card (B3) vs CPU
+        # (the plain triangle)
+        par = serve_parity(arch, hillclimb=("triangle", True)
+                           if arch == HYBRID_ARCH else None)
+        tri = par.pop("hillclimb", None)
+        emit(f"{phase}_parity", **par)
+        if tri is not None:
+            check(tri["triangle_calls_cpu"] == SERVE_PATHS[arch][
                 "parity_layers"], f"serve_hybrid_parity_triangle: the "
-                f"CPU ran the triangle {par['triangle_calls_cpu']} times")
-            emit(f"{phase}_parity_triangle", **par)
-            torch.cuda.empty_cache()
+                f"CPU ran the triangle {tri['triangle_calls_cpu']} times")
+            emit(f"{phase}_parity_triangle", **tri)
+        torch.cuda.empty_cache()
     rec, enc, frames = encode_audio_full(card)
     emit("encode_audio_full", **rec)
     a7a[AUDIO_ARCH] = rec
@@ -6659,6 +6833,7 @@ def main() -> int:
                                       "real_events", "stream_events")},
         "ns_per_step": ppf["ns_per_step"],
         "tolerance": ppf["tolerance"]})
+    emit("run_budget", **run_budget())
     print(json.dumps({"kernels": kernels,
                       "profiler_fallbacks": PROFILER_FALLBACKS}), flush=True)
     print(smi_line(), flush=True)

@@ -110,10 +110,22 @@ def _tree_from_numpy(tree: Any, device: torch.device,
         return {k: _tree_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
     a = np.asarray(tree)
+    shape = None
+    if a.size > 1 and 0 in a.strides:
+        # a broadcast (np.broadcast_to: zero moments, say): its distinct
+        # values cross once and are broadcast where they land
+        shape = a.shape
+        a = a[tuple(slice(0, 1) if st == 0 else slice(None)
+                    for st in a.strides)].copy()
     if np.issubdtype(a.dtype, np.floating):
-        # numpy has no bf16: widen first (exact), then round once
-        return torch.from_numpy(a.astype(np.float32)).to(device, dtype)
-    return torch.from_numpy(a.copy()).to(device)
+        # numpy has no bf16: widen first (exact), then round once. One copy
+        # in all, the widening or the move: the tree never shares memory
+        # with the caller's arrays (a read-only array is copied first)
+        w = a.astype(np.float32, copy=not a.flags.writeable)
+        t = torch.from_numpy(w).to(device, dtype, copy=w is a)
+    else:
+        t = torch.from_numpy(a.copy()).to(device)
+    return t if shape is None else t.expand(shape).contiguous()
 
 
 def train_state_from_numpy(tree: Mapping, *, device="cuda",
@@ -124,8 +136,9 @@ def train_state_from_numpy(tree: Mapping, *, device="cuda",
     "step": int}``, each leaf an ``np.asarray`` of the reference's. The
     params become float32 leaves that require grad, ``m`` and ``v``
     ``moment_dtype``, ``ef`` float32, the steps int32 0-d tensors — so
-    both packages run the same steps from the same state. ``device``
-    defaults to the card and raises without one."""
+    both packages run the same steps from the same state. A leaf may be a
+    broadcast (``np.broadcast_to``): it is expanded on ``device``.
+    ``device`` defaults to the card and raises without one."""
     from repro_torch.models.param import train_params
     from repro_torch.train.steps import TrainState
     params = train_params(params_from_numpy(tree["params"], device=device))

@@ -36,7 +36,7 @@ COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 def _bind_power_plane(lib: ctypes.CDLL) -> None:
     ptr, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
     lib.sa_occupancy_launch.argtypes = [
-        ptr, ptr, ptr, ptr, f64, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr]
+        ptr, ptr, ptr, ptr, f64, i64, i64, ptr, ptr]
     lib.sa_occupancy_launch.restype = ctypes.c_int
     lib.segment_sum_launch.argtypes = [
         ptr, ptr, i64, i64, i64, ctypes.c_int, ptr, ptr]

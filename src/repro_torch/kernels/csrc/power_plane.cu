@@ -19,31 +19,42 @@
 // core/sa_gating.py::gating_stats_batch_xp ->
 //   duration_cycles, frac_on, frac_w_on, frac_off, wake_events.
 //
-// Bound: 3 reads + 5 writes of 8 bytes per (width, op) element. At the
-// sweep's real size (11 191 ops x 5 widths) that is 3.6 MB — a microsecond
-// of HBM traffic — so the floor is the launch latency, not bandwidth or
-// arithmetic. The design therefore spends nothing on tiling: one thread
+// Bound: 3 reads of 8 bytes per op, 5 writes of 8 bytes per (width, op)
+// element. At the sweep's real size (11 191 ops x 4 widths) that is 1.9 MB,
+// 0.6 us of HBM traffic, below the ~1.1 us a launch costs on the card: the
+// floor is the launch and the latency of one thread's work, not bandwidth
+// or arithmetic. The design therefore spends nothing on tiling: one thread
 // per (width, op) element, the op axis on grid x and the unique-width axis
 // on grid y, so the whole (S, n) occupancy pass is ONE launch where the TPU
 // version was vmapped per width and padded to 512-blocks. The ragged tail
 // is masked, nothing is padded.
 //
+// What is left above the launch is one thread's dependent chain (the dims'
+// loads, two quotients, the tile sums, three quotients, the stores), so
+// the most threads in flight, each with the shortest chain, is the fastest
+// shape measured on the H100: blocks of K1_THREADS = 128, the five outputs
+// the planes of one (5, S, n) buffer (one pointer, fewer registers).
+// Longer threads measured slower: a thread per op carrying 2, 4 or 8
+// widths (the chains' float64 divisions do not overlap within a thread),
+// and ceil(K / saw) as an integer division (slower than the float64
+// quotient on this card).
+//
 // Exactness: every intermediate (tile counts, PE-cycle totals) is an exact
-// integer below 2^53 and the three divisions are IEEE fp64, evaluated in
-// the operand order of the plain version, so the results equal it bit for
-// bit.
+// integer below 2^53 and the five divisions are IEEE fp64, evaluated in the
+// operand order of the plain version (built with -fmad=false), so the
+// results equal it bit for bit.
 // ---------------------------------------------------------------------------
-__global__ void sa_occupancy_kernel(
+constexpr int K1_THREADS = 128;
+
+__global__ void __launch_bounds__(K1_THREADS) sa_occupancy_kernel(
     const double* __restrict__ mm_m, const double* __restrict__ mm_k,
     const double* __restrict__ mm_n, const double* __restrict__ saw_v,
-    double wlc_raw, int64_t n, int64_t n_saw,
-    double* __restrict__ dur_o, double* __restrict__ on_o,
-    double* __restrict__ won_o, double* __restrict__ off_o,
-    double* __restrict__ wake_o)
+    double wlc_raw, int64_t n, int64_t n_saw, double* __restrict__ out)
 {
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     const double M = mm_m[i], K = mm_k[i], N = mm_n[i];
+    const int64_t plane = n_saw * n;
     for (int64_t s = blockIdx.y; s < n_saw; s += gridDim.y) {
         const double saw = saw_v[s];
         const double wlc = wlc_raw < 0.0 ? saw : wlc_raw;  // -1 -> saw
@@ -66,26 +77,24 @@ __global__ void sa_occupancy_kernel(
         const double off = total - on - w_on;
         const double denom = fmax(total, 1.0);
         const int64_t o = s * n + i;
-        dur_o[o] = duration;
-        on_o[o] = on / denom;
-        won_o[o] = w_on / denom;
-        off_o[o] = off / denom;
-        wake_o[o] = n_tiles;
+        out[o] = duration;
+        out[plane + o] = on / denom;
+        out[2 * plane + o] = w_on / denom;
+        out[3 * plane + o] = off / denom;
+        out[4 * plane + o] = n_tiles;
     }
 }
 
+// out: (5, n_saw, n) float64, the planes in STAT_KEYS' order
 extern "C" int sa_occupancy_launch(
     const double* mm_m, const double* mm_k, const double* mm_n,
     const double* saw_v, double wlc_raw, int64_t n, int64_t n_saw,
-    double* dur_o, double* on_o, double* won_o, double* off_o,
-    double* wake_o, void* stream)
+    double* out, void* stream)
 {
-    const int threads = 256;
-    dim3 grid((unsigned)((n + threads - 1) / threads),
+    dim3 grid((unsigned)((n + K1_THREADS - 1) / K1_THREADS),
               (unsigned)(n_saw < 65535 ? n_saw : 65535));
-    sa_occupancy_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-        mm_m, mm_k, mm_n, saw_v, wlc_raw, n, n_saw,
-        dur_o, on_o, won_o, off_o, wake_o);
+    sa_occupancy_kernel<<<grid, K1_THREADS, 0, (cudaStream_t)stream>>>(
+        mm_m, mm_k, mm_n, saw_v, wlc_raw, n, n_saw, out);
     return (int)cudaGetLastError();
 }
 

@@ -16,6 +16,8 @@ launches.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.core.sa_gating import STAT_KEYS, gating_stats_batch_xp
@@ -70,22 +72,24 @@ def sa_occupancy(mm_m: torch.Tensor, mm_k: torch.Tensor, mm_n: torch.Tensor,
     n, n_saw = mm_m.shape[0], saw_v.shape[0]
     shape = (n,) if scalar else (n_saw, n)
     if n == 0 or n_saw == 0:  # a zero-size grid is a launch error
-        return {k: torch.zeros(shape, dtype=torch.float64, device=dev)
-                for k in STAT_KEYS}
+        return dict(zip(STAT_KEYS, torch.zeros(
+            (len(STAT_KEYS), *shape), dtype=torch.float64,
+            device=dev).unbind(0)))
     # the kernel reads a negative value as "default to the width"
     wlc = -1.0 if weight_load_cycles is None else float(weight_load_cycles)
     dims = tuple(a.contiguous() for a in dims)
-    outs = [torch.empty(shape, dtype=torch.float64, device=dev)
-            for _ in STAT_KEYS]
+    # one buffer, the five outputs its planes
+    out = torch.empty((len(STAT_KEYS), *shape), dtype=torch.float64,
+                      device=dev)
     lib = _build.load("power_plane")
-    with torch.cuda.device(dev):
+    with contextlib.nullcontext() if dev.index == torch.cuda.current_device() \
+            else torch.cuda.device(dev):
         err = lib.sa_occupancy_launch(
             *(a.data_ptr() for a in dims), saw_v.data_ptr(), wlc, n, n_saw,
-            *(o.data_ptr() for o in outs),
-            torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "sa_occupancy")
     sa_occupancy.launches += 1
-    return dict(zip(STAT_KEYS, outs))
+    return dict(zip(STAT_KEYS, out.unbind(0)))
 
 
 sa_occupancy.launches = 0

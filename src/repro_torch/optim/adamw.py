@@ -13,6 +13,8 @@ one 80 GB card beside the gradients. Leaves are updated in chunks along
 their leading (stacked-layer) axis of at most ``max_chunk_elems``
 elements, each chunk by the reference's operations in the reference's
 order; elementwise float operations give the same bits chunked or whole.
+On the CPU a contiguous leaf is chunked over its flat elements, in
+chunks of at most ``CPU_CHUNK_ELEMS``.
 
 On a mesh the parameters, gradients and moments are DTensors: the global
 norm sums each leaf's shards (DTensor's reduction), and every leaf is
@@ -33,6 +35,10 @@ from repro_torch.parallel.dist import is_dtensor
 #: the default chunk of an in-place update: 64 M elements (256 MB of
 #: float32 a temporary)
 CHUNK_ELEMS = 1 << 26
+#: the chunk on the CPU, over a contiguous leaf's flat elements: 1 M
+#: elements (4 MB a temporary), so that the temporaries stay in the cache
+#: and the allocator's heap (one of 256 MB is fresh pages each time)
+CPU_CHUNK_ELEMS = 1 << 20
 
 
 @dataclass(frozen=True)
@@ -144,8 +150,14 @@ def adamw_update(grads, opt_state: dict, params, cfg: AdamWConfig, *,
             if tuple(g.placements) != tuple(p.placements):
                 g = g.redistribute(p.device_mesh, p.placements)
             p, g, m, v = (t.to_local() for t in (p, g, m, v))
-        for pc, gc, mc, vc in zip(*(chunks(t, max_chunk_elems) for t in
-                                    (p, g, m, v))):
+        parts = (p, g, m, v)
+        if p.device.type == "cpu" and max_chunk_elems is not None \
+                and all(t.is_contiguous() for t in parts):
+            n = min(max_chunk_elems, CPU_CHUNK_ELEMS)
+            parts = [t.view(-1).split(n) for t in parts]
+        else:
+            parts = [chunks(t, max_chunk_elems) for t in parts]
+        for pc, gc, mc, vc in zip(*parts):
             _update_leaf(pc, gc, mc, vc, cfg=cfg, scale=scale, lr=lr, c1=c1,
                          c2=c2, decay=p.dim() >= 2)
     opt_state["step"] = step

@@ -65,6 +65,57 @@ def test_sa_occupancy_kernel_equals_plain_bit_for_bit(card, n, wlc):
     assert sa_occupancy.launches == before + 2
 
 
+def _k1_equal(dims, saw, wlc=None):
+    got = sa_occupancy(*dims, saw, wlc)
+    want = sa_occupancy_plain(*dims, saw, wlc)
+    assert list(got) == list(want)
+    for key in want:
+        assert got[key].shape == want[key].shape, key
+        assert torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("wlc", [None, 0.0])
+def test_sa_occupancy_kernel_at_the_sweeps_shape(card, wlc):
+    """K1 at what sweep_full hands it (the paper suite's 11 191 ops on
+    NPU-D, the knob grid's unique widths), bit for bit its plain
+    version, with one launch."""
+    sweep_in = _chip_smoke().sweep_kernel_inputs(card)
+    before = sa_occupancy.launches
+    _k1_equal(sweep_in["mm"], sweep_in["saw"], wlc)
+    assert sa_occupancy.launches == before + 1
+
+
+@pytest.mark.parametrize("n", [4099, 11191])
+def test_sa_occupancy_kernel_at_72_widths(card, n):
+    """72 widths on the grid's width axis over a ragged op count (blocks
+    of 128 ops), bit for bit."""
+    rng = np.random.default_rng(n)
+    dims = [torch.tensor(rng.integers(1, hi, n).astype(np.float64),
+                         device=card) for hi in (5000, 600, 5000)]
+    saws = torch.arange(1, 73, dtype=torch.float64, device=card) * 8.0
+    _k1_equal(dims, saws)
+    _k1_equal(dims, saws[:71])
+
+
+@pytest.mark.parametrize("wlc", [None, 0.0, 9.0])
+def test_sa_occupancy_kernel_at_the_integer_boundaries(card, wlc):
+    """K and N at j * saw - 1, j * saw and j * saw + 1, where ceil(K /
+    saw) steps, and dims past 2**31 or not integers; bit for bit."""
+    saws = [1.0, 3.0, 8.0, 32.0, 64.0, 100.0, 128.0, 256.0, 512.0]
+    vals = sorted({max(0, j * int(s) + d) for s in saws
+                   for j in (1, 2, 5, 77, 4096) for d in (-1, 0, 1)})
+    vals += [2 ** 31 - 1, 2 ** 31, 2 ** 40 + 3]
+    k = torch.tensor(vals, dtype=torch.float64, device=card)
+    m = torch.tensor(np.random.default_rng(4).integers(
+        1, 5000, len(vals)).astype(np.float64), device=card)
+    widths = torch.tensor(saws, dtype=torch.float64, device=card)
+    _k1_equal((m, k, k.flip(0).contiguous()), widths, wlc)
+    odd = torch.tensor([2.5, 7.0, 1e9], dtype=torch.float64, device=card)
+    _k1_equal((odd, odd, odd.flip(0).contiguous()),
+              torch.tensor([128.0, 2.5, 0.5], dtype=torch.float64,
+                           device=card), wlc)
+
+
 @pytest.mark.parametrize("batch", [(), (6,), (90,)])
 def test_segment_sum_kernel_equals_cpu_plain_bit_for_bit(card, batch):
     rng = np.random.default_rng(len(batch) + 40)

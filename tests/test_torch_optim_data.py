@@ -190,6 +190,67 @@ def test_chunked_update_gives_the_whole_leaf_bits(max_elems):
         ([1, 1, 1] if max_elems < 80 else [2, 1])
 
 
+@pytest.mark.parametrize("flat", [1, 7, 64])
+def test_cpu_flat_chunks_give_the_whole_leaf_bits(flat, monkeypatch):
+    """On the CPU a contiguous leaf is updated in chunks of its flat
+    elements (``CPU_CHUNK_ELEMS``, here a few elements, so that chunks
+    cross the rows): the bits of the whole-leaf update, params and both
+    moments, in both moment dtypes."""
+    import repro_torch.optim.adamw as adamw_mod
+    shapes, draw = _trees(4)
+    p0 = draw(shapes)
+    for moment in (torch.float32, torch.bfloat16):
+        cfg = AdamWConfig(lr_peak=1e-2, warmup_steps=1, total_steps=20,
+                          clip_norm=0.5, moment_dtype=moment)
+        runs = []
+        for whole in (True, False):
+            monkeypatch.setattr(adamw_mod, "CPU_CHUNK_ELEMS", flat)
+            p = jax.tree.map(torch.tensor, p0)
+            opt = adamw_init(p, cfg)
+            rng = np.random.default_rng(5)
+            for _ in range(3):
+                g = jax.tree.map(
+                    lambda a: torch.tensor(rng.standard_normal(a.shape)
+                                           .astype(np.float32)), p0)
+                p, opt, _ = adamw_update(
+                    g, opt, p, cfg, **({"max_chunk_elems": None}
+                                       if whole else {}))
+            runs.append([t for tree in (p, opt["m"], opt["v"])
+                         for _, t in _flat(jax.tree.map(
+                             lambda t: t.float().numpy(), tree))])
+        for a, b in zip(*runs):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("moment", ["float32", "bfloat16"])
+def test_train_state_from_numpy_takes_broadcast_leaves(moment):
+    """Zero moments handed over as ``np.broadcast_to`` views (no memory
+    of their own) give the state dense zeros give, each leaf a dense
+    tensor of its own (m and v share no memory)."""
+    from repro_torch.convert import train_state_from_numpy
+    shapes, draw = _trees(6)
+    p = jax.tree.map(np.asarray, draw(shapes))
+    dense = jax.tree.map(np.zeros_like, p)
+    flat = jax.tree.map(lambda a: np.broadcast_to(np.zeros((), a.dtype),
+                                                  a.shape), p)
+    dt = getattr(torch, moment)
+    states = [train_state_from_numpy(
+        {"params": p, "opt_state": {"m": z, "v": z, "step": 0}, "step": 0},
+        device="cpu", moment_dtype=dt) for z in (dense, flat)]
+    for key in ("m", "v"):
+        for (ka, a), (kb, b) in zip(_flat(jax.tree.map(
+                lambda t: t.float().numpy(), states[0].opt_state[key])),
+                _flat(jax.tree.map(lambda t: t.float().numpy(),
+                                   states[1].opt_state[key]))):
+            assert ka == kb
+            np.testing.assert_array_equal(a, b)
+    m, v = states[1].opt_state["m"], states[1].opt_state["v"]
+    leaves = jax.tree.leaves(m)
+    assert all(t.dtype == dt and t.is_contiguous() for t in leaves)
+    jax.tree.map(lambda t: t.add_(1), m)
+    assert all(float(t.abs().sum()) == 0.0 for t in jax.tree.leaves(v))
+
+
 # ------------------------------------------------------------------ data
 def test_batch_determinism():
     cfg = get_arch("qwen2.5-3b").reduced()

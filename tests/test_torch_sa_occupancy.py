@@ -200,3 +200,32 @@ def test_ref_sa_occupancy_matches_the_reference(reference_oracle, i, wlc):
         np.testing.assert_allclose(got[key].numpy(), w, rtol=RTOL, atol=0)
         assert np.array_equal(got[key].numpy(), w), key
         assert torch.equal(plain[key], got[key]), key
+
+
+# ------------------------------------------- the wrapper and its plain form
+# the width axes the wrapper takes: a scalar, and vectors of 1, 4 (the
+# sweep's unique widths) and 72 widths
+WIDTHS = {"scalar": 128.0, "S1": (64.0,), "S4": (32.0, 64.0, 128.0, 256.0),
+          "S72": tuple(8.0 * (i + 1) for i in range(72))}
+
+
+@pytest.mark.parametrize("wlc", [None, 0.0, 5.0])
+@pytest.mark.parametrize("n", [0, 1, 257])
+@pytest.mark.parametrize("widths", sorted(WIDTHS))
+def test_wrapper_returns_what_the_plain_version_returns(widths, n, wlc):
+    """The wrapper's dict against ``sa_occupancy_plain``'s: the same keys,
+    and each value of the same shape, dtype and bits -- for a scalar
+    width, 1, 4 and 72 widths, no op at all, and a weight-load override."""
+    rng = np.random.default_rng(n + len(widths))
+    dims = [_t(a) for a in _dims(rng, n)]
+    saw = WIDTHS[widths]
+    saw = saw if isinstance(saw, float) else _t(saw)
+    got = sa_occupancy(*dims, saw, wlc)
+    want = sa_occupancy_plain(*dims, saw, wlc)
+    assert list(got) == list(want) == list(KEYS)
+    shape = (n,) if widths == "scalar" else (len(WIDTHS[widths]), n)
+    for key in KEYS:
+        assert got[key].shape == want[key].shape == shape, key
+        assert got[key].dtype == want[key].dtype == torch.float64, key
+        assert torch.equal(got[key], want[key]), key
+
